@@ -1,0 +1,469 @@
+"""The dynamics phase on the H100: four hand-written CUDA kernels.
+
+Counterpart of ``nextsimdg_tpu/dynamics/kernels/coupled_pallas.py``, whose
+``fused_dynamics_pallas`` runs N mEVP subcycles, the CG1 -> quadrature
+velocity sampling, the CFL substep count and k limited SSP-RK dG steps in
+one TPU kernel with the whole grid resident on one core. A 256^2 float32
+plane is more than one SM's shared memory, so on Hopper the phase is a
+sequence of grid-wide launches over planes that stay in L2:
+
+=================  ==========================  ===============================
+kernel             source                      plain version (same inputs)
+=================  ==========================  ===============================
+``mevp_stress``    ``csrc/mevp.cu``            ``MEVPSolver.stress_update``
+``mevp_velocity``  ``csrc/mevp.cu``            ``MEVPSolver.velocity_update``
+``dg1_sample_cfl`` ``csrc/transport.cu``       ``dg1_sample_cfl_reference``
+``dg1_rk_stage``   ``csrc/transport.cu``       ``dg1_rk_stage_reference``
+=================  ==========================  ===============================
+
+Per step: 2 launches per subcycle, one ``dg1_sample_cfl`` whose two max
+speeds are read back once to fix k (one host sync), then one
+``dg1_rk_stage`` per RK stage and substep.
+
+Each public wrapper runs the plain PyTorch version for CPU tensors and the
+kernel for CUDA tensors (float32, contiguous, one device); it raises for
+anything else and never falls back. ``launches`` counts the kernel
+launches per kernel. The kernels are built with ``nvcc`` for ``sm_90a`` at
+first use into ``build/nextsimdg_tpu_torch/`` beside the package, keyed on
+a hash of the sources and flags, and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..mevp import MEVPSolver
+from ..transport import (
+    DGTransport, cfl_substeps, max_speeds, sampling_weights,
+    substeps_from_speeds, velocity_from_cg,
+)
+
+KERNELS = ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage")
+
+#: Launches per kernel since the last ``reset_launches()``.
+launches = dict.fromkeys(KERNELS, 0)
+
+_PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE.parent / "build" / "nextsimdg_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # Each multiply and add rounds on its own, like the plain version's
+    # separate tensor operations: the CFL speeds then match exactly, and
+    # the rest to a few ulp (PyTorch on CUDA divides by a scalar through
+    # its reciprocal; the kernels divide).
+    "--fmad=false",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_MEVP_CONSTS = ("strength", "dt_m", "active", "b_u", "b_v", "u_ocean", "v_ocean")
+_RK_STAGES = {
+    "rk1": ((0.0, 1.0),),
+    "rk2": ((0.0, 1.0), (0.5, 0.5)),
+    "rk3": ((0.0, 1.0), (0.75, 0.25), (1.0 / 3.0, 2.0 / 3.0)),
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+# -- build and bind -----------------------------------------------------------
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library of the current sources and flags is built."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for path in cu + cuh:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"libnextsimdg_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    if (home / "bin" / "nvcc").exists():
+        return str(home / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build() -> Path:
+    """Compile the kernels unless the library of these sources exists.
+
+    The compiler's report (registers, spills per kernel) is kept beside the
+    library as ``.log``.
+    """
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    done = subprocess.run(cmd, cwd=CSRC, capture_output=True, text=True)
+    path.with_suffix(".log").write_text(done.stdout + done.stderr)
+    if done.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({done.returncode}):\n{done.stdout}{done.stderr}"
+        )
+    os.replace(tmp, path)
+    return path
+
+
+def _library():
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [p, i, p]  # host scalars/tables, device index, stream
+    lib.nst_mevp_stress.argtypes = [p] * 12 + [i, i] + tail
+    lib.nst_mevp_velocity.argtypes = [p] * 12 + [i, i] + tail
+    lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i, i] + tail
+    lib.nst_dg1_rk_stage.argtypes = [p] * 7 + [i, i, i, f, f, f] + tail
+    for name in KERNELS:
+        getattr(lib, "nst_" + name).restype = i
+    lib.nst_mevp_n_scalars.restype = i
+    lib.nst_dg1_n_table_floats.restype = i
+    lib.nst_error_string.argtypes = [i]
+    lib.nst_error_string.restype = ctypes.c_char_p
+    if lib.nst_mevp_n_scalars() != _N_MEVP_SCALARS:
+        raise RuntimeError("csrc/mevp.cu MevpScalars disagrees with the packing")
+    if lib.nst_dg1_n_table_floats() != _N_DG1_TABLE:
+        raise RuntimeError("csrc/transport.cu Dg1Tables disagrees with the packing")
+    _lib = lib
+    return lib
+
+
+def _launch(name: str, *args) -> None:
+    lib = _library()
+    err = getattr(lib, "nst_" + name)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err}: {lib.nst_error_string(err).decode()}"
+        )
+    launches[name] += 1
+
+
+# -- host-side packing of the kernels' scalars -------------------------------
+_N_MEVP_SCALARS = 17
+_N_DG1_TABLE = 111
+
+
+def _floats(values):
+    return (ctypes.c_float * len(values))(*map(float, values))
+
+
+def _mevp_scalars(solver: MEVPSolver, dt: float):
+    """MevpScalars of csrc/mevp.cu, field for field."""
+    p, mesh = solver.params, solver.mesh
+    e2 = p.ellipse * p.ellipse
+    f = p.f_coriolis if p.use_coriolis else 0.0
+    values = [
+        mesh.dx, mesh.dy,
+        1.0 + 1.0 / e2, 1.0 - 1.0 / e2, 4.0 / e2,
+        p.rho_ocean * p.cd_ocean, p.delta_min, 1.0 + p.beta, 1.0 / e2,
+        1.0 / p.alpha, 0.5 * mesh.dx, 0.5 * mesh.dy, 1.0 / (mesh.dx * mesh.dy),
+        p.beta, f, -f, dt,
+    ]
+    assert len(values) == _N_MEVP_SCALARS
+    return _floats(values)
+
+
+def _dg1_tables(transport: DGTransport):
+    """Dg1Tables of csrc/transport.cu, field for field, from the port's
+    dG1 basis (2x2 volume points, 2 points per face)."""
+    b, mesh = transport.basis, transport.mesh
+    if b.n_dofs != 3 or len(b.w_vol) != 4 or len(b.s_edge) != 2:
+        raise NotImplementedError("the transport kernels are dG1 with 2-point Gauss")
+    w_vol, w_edge = sampling_weights(b)
+    values = [x for w in w_vol for x in w] + [x for w in w_edge for x in w]
+    for table in (
+        transport._psi_vol, transport._wgx_vol.T, transport._wgy_vol.T,
+        transport._psi_x0, transport._psi_x1, transport._psi_y0, transport._psi_y1,
+        transport._wa_x0, transport._wa_x1, transport._wa_y0, transport._wa_y1,
+    ):
+        values += [float(x) for x in table.ravel()]
+    values += [float(x) for x in transport._inv_mass]
+    values += [1.0 / mesh.dx, 1.0 / mesh.dy, mesh.dx, mesh.dy]
+    assert len(values) == _N_DG1_TABLE
+    return _floats(values)
+
+
+# -- checks --------------------------------------------------------------------
+def _on_cpu(t: torch.Tensor) -> bool:
+    """True for CPU (plain version), False for CUDA (kernel); raises else."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(
+        f"tensors on {t.device} are not supported: the plain version runs on "
+        "the CPU and the kernels on CUDA"
+    )
+
+
+def _check(shape, device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_mevp(solver: MEVPSolver, carry, consts) -> None:
+    if sorted(consts) != sorted(_MEVP_CONSTS):
+        raise NotImplementedError(
+            f"the mEVP kernels take the consts {_MEVP_CONSTS}, got {tuple(sorted(consts))}"
+        )
+    names = ("u", "v", "s11", "s22", "s12")
+    _check(
+        (solver.mesh.nx, solver.mesh.ny), carry[0].device,
+        **dict(zip(names, carry)), **consts,
+    )
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- in-place launches (arguments already checked) ----------------------------
+def _mevp_stress_(planes, consts, c_w, inv_drag, scalars, stream):
+    u, v, s11, s22, s12 = planes
+    nx, ny = u.shape
+    _launch(
+        "mevp_stress",
+        u.data_ptr(), v.data_ptr(), s11.data_ptr(), s22.data_ptr(), s12.data_ptr(),
+        consts["strength"].data_ptr(), consts["dt_m"].data_ptr(),
+        consts["active"].data_ptr(), consts["u_ocean"].data_ptr(),
+        consts["v_ocean"].data_ptr(), c_w.data_ptr(), inv_drag.data_ptr(),
+        nx, ny, ctypes.addressof(scalars), u.device.index, stream,
+    )
+
+
+def _mevp_velocity_(planes, consts, c_w, inv_drag, scalars, stream):
+    u, v, s11, s22, s12 = planes
+    nx, ny = u.shape
+    _launch(
+        "mevp_velocity",
+        u.data_ptr(), v.data_ptr(), s11.data_ptr(), s22.data_ptr(), s12.data_ptr(),
+        consts["dt_m"].data_ptr(), consts["b_u"].data_ptr(), consts["b_v"].data_ptr(),
+        consts["u_ocean"].data_ptr(), consts["v_ocean"].data_ptr(),
+        c_w.data_ptr(), inv_drag.data_ptr(),
+        nx, ny, ctypes.addressof(scalars), u.device.index, stream,
+    )
+
+
+def _dg1_sample_cfl_(u, v, speeds, tables, stream):
+    nx, ny = u.shape
+    _launch(
+        "dg1_sample_cfl",
+        u.data_ptr(), v.data_ptr(), speeds.data_ptr(),
+        nx, ny, ctypes.addressof(tables), u.device.index, stream,
+    )
+
+
+def _dg1_rk_stage_(psi, base, u, v, face_x, face_y, out, a, b, dt_sub, tables, stream):
+    if out.data_ptr() == psi.data_ptr():
+        raise ValueError("dg1_rk_stage reads its neighbours' psi: out must not alias psi")
+    nx, ny = u.shape
+    _launch(
+        "dg1_rk_stage",
+        psi.data_ptr(), base.data_ptr(), u.data_ptr(), v.data_ptr(),
+        face_x.data_ptr(), face_y.data_ptr(), out.data_ptr(),
+        nx, ny, psi.shape[1], a, b, dt_sub,
+        ctypes.addressof(tables), u.device.index, stream,
+    )
+
+
+# -- the four kernels, one launch each -----------------------------------------
+def mevp_stress(solver: MEVPSolver, carry, consts):
+    """First half of an mEVP subcycle: (s11, s22, s12, c_w, inv_drag).
+
+    Plain version: ``solver.stress_update(carry, consts)``.
+    """
+    if _on_cpu(carry[0]):
+        return solver.stress_update(carry, consts)
+    _check_mevp(solver, carry, consts)
+    u, v, s11, s22, s12 = carry
+    planes = (u, v, s11.clone(), s22.clone(), s12.clone())
+    c_w, inv_drag = torch.empty_like(u), torch.empty_like(u)
+    _mevp_stress_(
+        planes, consts, c_w, inv_drag, _mevp_scalars(solver, 0.0), _stream(u.device)
+    )
+    return planes[2], planes[3], planes[4], c_w, inv_drag
+
+
+def mevp_velocity(solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float):
+    """Second half of an mEVP subcycle: the new (u, v).
+
+    Plain version: ``solver.velocity_update(carry, consts, c_w, inv_drag, dt)``.
+    """
+    if _on_cpu(carry[0]):
+        return solver.velocity_update(carry, consts, c_w, inv_drag, dt)
+    _check_mevp(solver, carry, consts)
+    u = carry[0]
+    _check(u.shape, u.device, c_w=c_w, inv_drag=inv_drag)
+    planes = (u.clone(), carry[1].clone(), *carry[2:])
+    _mevp_velocity_(
+        planes, consts, c_w, inv_drag, _mevp_scalars(solver, dt), _stream(u.device)
+    )
+    return planes[0], planes[1]
+
+
+def dg1_sample_cfl_reference(transport: DGTransport, u, v):
+    """(max |vx|, max |vy|) over the quadrature points, as a (2,) tensor."""
+    qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
+    return torch.stack(max_speeds(qv))
+
+
+def dg1_sample_cfl(transport: DGTransport, u, v):
+    """The two max quadrature speeds of the CFL count, as a (2,) tensor."""
+    if _on_cpu(u):
+        return dg1_sample_cfl_reference(transport, u, v)
+    _check((transport.mesh.nx, transport.mesh.ny), u.device, u=u, v=v)
+    speeds = torch.zeros(2, device=u.device, dtype=torch.float32)
+    _dg1_sample_cfl_(u, v, speeds, _dg1_tables(transport), _stream(u.device))
+    return speeds
+
+
+def dg1_rk_stage_reference(
+    transport: DGTransport, psi, base, u, v, face_x, face_y,
+    a: float, b: float, dt_sub: float,
+):
+    """lim(a base + b (psi + dt_sub rhs(psi))), or lim(psi + dt_sub rhs(psi))
+    when a == 0, on (3, T, nx, ny) dG1 coefficients."""
+    qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
+    value = psi + dt_sub * transport.rhs(psi, qv, (face_x, face_y))
+    if a != 0.0:
+        value = a * base + b * value
+    return transport.limit_positivity(value)
+
+
+def dg1_rk_stage(
+    transport: DGTransport, psi, base, u, v, face_x, face_y,
+    a: float, b: float, dt_sub: float,
+):
+    """One limited SSP-RK stage of the dG1 tracers (see the reference)."""
+    if _on_cpu(psi):
+        return dg1_rk_stage_reference(
+            transport, psi, base, u, v, face_x, face_y, a, b, dt_sub
+        )
+    nx, ny = transport.mesh.nx, transport.mesh.ny
+    _check((nx, ny), psi.device, u=u, v=v, face_x=face_x, face_y=face_y)
+    _check((3, psi.shape[1], nx, ny), psi.device, psi=psi, base=base)
+    out = torch.empty_like(psi)
+    _dg1_rk_stage_(
+        psi, base, u, v, face_x, face_y, out, a, b, dt_sub,
+        _dg1_tables(transport), _stream(psi.device),
+    )
+    return out
+
+
+# -- the dynamics phase ----------------------------------------------------------
+def fused_dynamics_reference(
+    model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
+    face_masks=None,
+):
+    """Plain PyTorch dynamics phase: ``subcycle_body`` x N, then
+    ``velocity_from_cg``, ``cfl_substeps`` and k x ``DGTransport.step``."""
+    solver, transport, mesh = model.mevp, model.transport, model.mesh
+    carry = tuple(state_arrays)
+    for _ in range(n_subcycles):
+        carry = solver.subcycle_body(carry, consts, dt)
+    qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1])
+    if model.auto_substeps:
+        k = int(cfl_substeps(
+            qv, dt, mesh, transport.basis.degree, k_floor=model.transport_substeps
+        ))
+    else:
+        k = model.transport_substeps
+    tr = tracers
+    for _ in range(k):
+        tr = transport.step(tr, qv, dt / k, limit=True, face_masks=face_masks)
+    return carry, tr
+
+
+def fused_dynamics(
+    model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
+    face_masks=None,
+):
+    """Returns ((u, v, s11, s22, s12), tracers) after one dynamics phase.
+
+    ``state_arrays``: the five (nx, ny) velocity/stress planes; ``tracers``:
+    (3, T, nx, ny) stacked dG1 coefficients; ``consts``: the output of
+    ``MEVPSolver.step_consts``; ``face_masks``: optional (face_x, face_y).
+    CPU tensors run ``fused_dynamics_reference``; CUDA tensors the kernels.
+    """
+    if _on_cpu(tracers):
+        return fused_dynamics_reference(
+            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks
+        )
+    solver, transport, mesh = model.mevp, model.transport, model.mesh
+    device = tracers.device
+    _check_mevp(solver, state_arrays, consts)
+    _check((3, tracers.shape[1], mesh.nx, mesh.ny), device, tracers=tracers)
+    if face_masks is None:
+        face_x = face_y = torch.ones_like(state_arrays[0])
+    else:
+        face_x, face_y = face_masks
+        _check((mesh.nx, mesh.ny), device, face_x=face_x, face_y=face_y)
+    stream = _stream(device)
+
+    # mEVP: the kernels update the five planes in place, on copies.
+    planes = tuple(t.clone() for t in state_arrays)
+    c_w, inv_drag = torch.empty_like(planes[0]), torch.empty_like(planes[0])
+    scalars = _mevp_scalars(solver, dt)
+    for _ in range(n_subcycles):
+        _mevp_stress_(planes, consts, c_w, inv_drag, scalars, stream)
+        _mevp_velocity_(planes, consts, c_w, inv_drag, scalars, stream)
+    u, v = planes[0], planes[1]
+
+    # CFL substep count: the one host sync of the step.
+    tables = _dg1_tables(transport)
+    if model.auto_substeps:
+        speeds = torch.zeros(2, device=device, dtype=torch.float32)
+        _dg1_sample_cfl_(u, v, speeds, tables, stream)
+        k = int(substeps_from_speeds(
+            speeds[0], speeds[1], dt, mesh, transport.basis.degree,
+            k_floor=model.transport_substeps,
+        ))
+    else:
+        k = model.transport_substeps
+    dt_sub = dt / k
+
+    # k limited SSP-RK steps. A stage reads its neighbours' psi, so stages
+    # ping-pong between buffers; the last stage may overwrite the step's
+    # base in place (each element reads only its own base value).
+    stages = _RK_STAGES[transport.scheme]
+    psi0 = tracers.clone()
+    spare = [torch.empty_like(psi0) for _ in range(max(1, len(stages) - 1))]
+    for _ in range(k):
+        cur = psi0
+        for s, (a, b) in enumerate(stages):
+            out = psi0 if (s > 0 and s == len(stages) - 1) else spare[s]
+            _dg1_rk_stage_(cur, psi0, u, v, face_x, face_y, out, a, b, dt_sub, tables, stream)
+            cur = out
+        if cur is not psi0:  # rk1: the single stage wrote a spare buffer
+            psi0, spare[0] = cur, psi0
+    return planes, psi0

@@ -1,0 +1,306 @@
+"""mEVP (modified elastic-viscous-plastic) momentum and rheology solver.
+
+Counterpart of ``nextsimdg_tpu.dynamics.mevp`` for the CG1 solver on a
+uniform, closed mesh, in eager PyTorch:
+
+* velocity (u, v) on CG1 nodes, stresses (s11, s22, s12) per element, all
+  (nx, ny) in the owned layout of ``dynamics.stencil``;
+* per subcycle: strain rates from bilinear velocity gradients -> VP stress
+  with ellipse ratio e and replacement pressure -> alpha-relaxation of the
+  stress -> weak-form stress divergence assembled to nodes -> beta-relaxed
+  velocity update with semi-implicit ocean drag and explicit Coriolis;
+* Dirichlet (no-slip) walls and ice-free nodes held at rest.
+
+The expression order is the JAX package's, operation for operation, so
+that the two agree to rounding at float64. Scalars stay Python floats, so
+a float32 state never promotes.
+
+The subcycle is split in two halves, ``stress_update`` (per element) and
+``velocity_update`` (per node): they are the plain versions of the two CUDA
+kernels in ``dynamics.kernels.coupled_cuda``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .mesh import RectMesh
+from .stencil import shift_m, shift_p
+
+
+@dataclass(frozen=True)
+class MEVPParams:
+    """Physical + numerical parameters (VP rheology and mEVP relaxation).
+
+    Field for field the JAX package's ``MEVPParams``; see there for the
+    meaning of the A-weighting and adaptive-alpha options, which this port
+    does not run yet.
+    """
+
+    rho_ice: float = 917.0  #: ice density [kg m-3]
+    rho_atm: float = 1.225  #: air density [kg m-3]
+    rho_ocean: float = 1026.0  #: ocean water density [kg m-3]
+    cd_atm: float = 1.2e-3  #: air drag coefficient
+    cd_ocean: float = 5.5e-3  #: water drag coefficient
+    p_star: float = 27500.0  #: ice strength [N m-2]
+    ellipse: float = 2.0  #: ellipse aspect ratio e
+    c_compaction: float = 20.0  #: strength compaction constant C
+    delta_min: float = 2e-9  #: minimum Delta [s-1]
+    alpha: float = 1500.0  #: mEVP stress relaxation
+    beta: float = 1500.0  #: mEVP velocity relaxation
+    f_coriolis: float = 1.46e-4  #: Coriolis parameter [s-1]
+    use_coriolis: bool = True
+    min_ice_mass: float = 1.0  #: [kg m-2] below which nodes are held at rest
+    a_weighted_stress: bool = False
+    a_dyn_min: float = 5e-2
+    adaptive_alpha: bool = False
+    alpha_min: float = 150.0
+    c_stab: float = 6.2832
+
+
+@dataclass(frozen=True)
+class VelocityState:
+    """CG1 velocity at owned nodes + element stresses, each (nx, ny)."""
+
+    u: torch.Tensor  #: x velocity at owned nodes [m s-1]
+    v: torch.Tensor  #: y velocity at owned nodes
+    s11: torch.Tensor  #: stress components per element
+    s22: torch.Tensor
+    s12: torch.Tensor
+
+    @classmethod
+    def zeros(cls, nx: int, ny: int, *, device, dtype) -> "VelocityState":
+        z = lambda: torch.zeros((nx, ny), device=device, dtype=dtype)
+        return cls(u=z(), v=z(), s11=z(), s22=z(), s12=z())
+
+
+@dataclass(frozen=True)
+class DynamicsForcing:
+    """Wind and ocean-current forcing at owned CG nodes, each (nx, ny)."""
+
+    u_atm: torch.Tensor
+    v_atm: torch.Tensor
+    u_ocean: torch.Tensor
+    v_ocean: torch.Tensor
+
+
+def _div(c: float, t: torch.Tensor) -> torch.Tensor:
+    """c / t as a true division (``float / tensor`` is reciprocal * c)."""
+    return torch.div(t.new_full((), c), t)
+
+
+def cell_to_node(cell, periodic_x: bool = False, periodic_y: bool = False):
+    """Average the 4 adjacent element values to each owned node.
+
+    Lumped-mass CG1 projection. Closed boundaries zero-fill the missing
+    neighbours (those nodes are Dirichlet-masked anyway).
+    """
+    cm_x = shift_m(cell, 0, periodic_x)
+    cm_y = shift_m(cell, 1, periodic_y)
+    cm_xy = shift_m(cm_x, 1, periodic_y)
+    return 0.25 * (cell + cm_x + cm_y + cm_xy)
+
+
+class MEVPSolver:
+    """The CG1 mEVP solver on a uniform, closed ``RectMesh``."""
+
+    def __init__(self, mesh: RectMesh, params: MEVPParams = MEVPParams()) -> None:
+        if not mesh.uniform or mesh.periodic_x or mesh.periodic_y:
+            raise NotImplementedError("only uniform, closed meshes are ported")
+        if params.a_weighted_stress:
+            raise NotImplementedError("a_weighted_stress is not ported yet")
+        if params.adaptive_alpha:
+            raise NotImplementedError("adaptive_alpha is not ported yet")
+        self.mesh = mesh
+        self.params = params
+
+    # -- per-element strain rates from CG1 velocity --------------------------
+    def strain_rates(self, u, v):
+        """(e11, e22, e12) at element centres from bilinear gradients.
+
+        Element (i, j) reads owned nodes (i, j), (i+1, j), (i, j+1),
+        (i+1, j+1); the +1 shifts supply the implicit wall zeros.
+        """
+        px, py = self.mesh.periodic_x, self.mesh.periodic_y
+        u00, v00 = u, v
+        u10, v10 = shift_p(u, 0, px), shift_p(v, 0, px)
+        u01, v01 = shift_p(u, 1, py), shift_p(v, 1, py)
+        u11 = shift_p(u10, 1, py)
+        v11 = shift_p(v10, 1, py)
+        dx, dy = self.mesh.dx, self.mesh.dy
+        du_dx = 0.5 * ((u10 - u00) + (u11 - u01)) / dx
+        dv_dy = 0.5 * ((v01 - v00) + (v11 - v10)) / dy
+        du_dy = 0.5 * ((u01 - u00) + (u11 - u10)) / dy
+        dv_dx = 0.5 * ((v10 - v00) + (v11 - v01)) / dx
+        return du_dx, dv_dy, 0.5 * (du_dy + dv_dx)
+
+    # -- weak-form divergence of element-constant stress to nodes ------------
+    def stress_divergence(self, s11, s22, s12):
+        """Nodal forces (Fu, Fv) = -int sigma : grad(phi), per unit length.
+
+        Node (i, j) reads elements (i-1, j-1), (i-1, j), (i, j-1), (i, j).
+        The factoring is the JAX package's 13-shift form: s12 feeds both
+        components through one set of three shifts, and the single-component
+        scatters go through the partial sum t = cell + shift (bit-identical
+        to the signed 2x2 gather).
+        """
+        px, py = self.mesh.periodic_x, self.mesh.periodic_y
+        dx, dy = self.mesh.dx, self.mesh.dy
+
+        def shifts(cell):
+            cm_x = shift_m(cell, 0, px)
+            cm_y = shift_m(cell, 1, py)
+            cm_xy = shift_m(cm_x, 1, py)
+            return cm_x, cm_y, cm_xy
+
+        def scatter_x(cell, sh=None):
+            if sh is None:
+                t = cell + shift_m(cell, 1, py)
+                return 0.5 * dy * (t - shift_m(t, 0, px))
+            cm_x, cm_y, cm_xy = sh
+            return 0.5 * dy * ((cm_y + cell) - (cm_xy + cm_x))
+
+        def scatter_y(cell, sh=None):
+            if sh is None:
+                t = cell + shift_m(cell, 0, px)
+                return 0.5 * dx * (t - shift_m(t, 1, py))
+            cm_x, cm_y, cm_xy = sh
+            return 0.5 * dx * ((cm_x + cell) - (cm_xy + cm_y))
+
+        sh12 = shifts(s12)
+        fu = scatter_x(s11) + scatter_y(s12, sh12)
+        fv = scatter_x(s12, sh12) + scatter_y(s22)
+        return fu, fv
+
+    # -- one outer timestep: N mEVP subcycles --------------------------------
+    def step(
+        self, state: VelocityState, h, a, forcing: DynamicsForcing, mask,
+        dt: float, n_subcycles: int = 100,
+    ) -> VelocityState:
+        consts = self.step_consts(state, h, a, forcing, mask, dt)
+        carry = (state.u, state.v, state.s11, state.s22, state.s12)
+        for _ in range(n_subcycles):
+            carry = self.subcycle_body(carry, consts, dt)
+        u, v, s11, s22, s12 = carry
+        return VelocityState(u=u, v=v, s11=s11, s22=s22, s12=s12)
+
+    def step_consts(self, state: VelocityState, h, a, forcing, mask, dt: float):
+        """The 7 per-step constant planes: ice strength, dt/m, the active
+        (mask * ice) factor, the constant numerator terms b_u/b_v =
+        u_n + (dt/m) tau_a, and the ocean currents."""
+        p = self.params
+        px, py = self.mesh.periodic_x, self.mesh.periodic_y
+
+        # Element ice strength P = P* h exp(-C (1-A)).
+        strength = p.p_star * h * torch.exp(-p.c_compaction * (1.0 - a))
+
+        # Lumped nodal ice mass per unit area [kg m-2], clamped.
+        cell_area = torch.full_like(h, self.mesh.cell_area)
+        node_area = cell_to_node(cell_area, px, py)
+        m_node = p.rho_ice * cell_to_node(h * cell_area, px, py) / node_area
+        ice_node = m_node > p.min_ice_mass
+        m_safe = torch.clamp(m_node, min=p.min_ice_mass)
+
+        # Wind stress is constant over the subcycles.
+        speed_atm = torch.hypot(forcing.u_atm, forcing.v_atm)
+        tau_au = p.rho_atm * p.cd_atm * speed_atm * forcing.u_atm
+        tau_av = p.rho_atm * p.cd_atm * speed_atm * forcing.v_atm
+
+        active = mask * ice_node.to(h.dtype)
+        dt_m = _div(dt, m_safe)
+        return dict(
+            strength=strength,
+            dt_m=dt_m,
+            active=active,
+            b_u=state.u + dt_m * tau_au,
+            b_v=state.v + dt_m * tau_av,
+            u_ocean=forcing.u_ocean,
+            v_ocean=forcing.v_ocean,
+        )
+
+    def stress_update(self, carry, consts):
+        """First half of a subcycle, per element: strain, Delta, the shared
+        rheology/drag divide and the alpha-relaxed stress.
+
+        Returns (s11, s22, s12, c_w, inv_drag); c_w and inv_drag are node
+        planes (index (i, j) of the shared divide) for ``velocity_update``.
+        """
+        p = self.params
+        e2 = p.ellipse * p.ellipse
+        u, v, s11, s22, s12 = carry
+        strength = consts["strength"]
+        dt_m = consts["dt_m"]
+        active = consts["active"]
+
+        e11, e22, e12 = self.strain_rates(u, v)
+        delta = torch.sqrt(
+            (e11 * e11 + e22 * e22) * (1.0 + 1.0 / e2)
+            + 2.0 * e11 * e22 * (1.0 - 1.0 / e2)
+            + 4.0 / e2 * e12 * e12
+        )
+        # The rheology denominator (Delta + Delta_min, element (i, j)) and
+        # the drag denominator (1 + beta + dt_m c_w, node (i, j)) share ONE
+        # division: 1/a = (1/(a b)) b.
+        rel_u = consts["u_ocean"] - u
+        rel_v = consts["v_ocean"] - v
+        c_w = p.rho_ocean * p.cd_ocean * torch.sqrt(rel_u * rel_u + rel_v * rel_v)
+        denom_rheo = delta + p.delta_min
+        denom_drag = 1.0 + p.beta + dt_m * c_w
+        inv_both = 1.0 / (denom_rheo * denom_drag)
+        inv_denom = inv_both * denom_drag
+        inv_drag = active * (inv_both * denom_rheo)
+        zeta = 0.5 * strength * inv_denom
+        eta = zeta * (1.0 / e2)
+        p_rep = strength * delta * inv_denom
+
+        inv_alpha = 1.0 / p.alpha
+        div = e11 + e22
+        s11_vp = 2.0 * eta * e11 + (zeta - eta) * div - 0.5 * p_rep
+        s22_vp = 2.0 * eta * e22 + (zeta - eta) * div - 0.5 * p_rep
+        s12_vp = 2.0 * eta * e12
+        s11 = s11 + (s11_vp - s11) * inv_alpha
+        s22 = s22 + (s22_vp - s22) * inv_alpha
+        s12 = s12 + (s12_vp - s12) * inv_alpha
+        return s11, s22, s12, c_w, inv_drag
+
+    def velocity_update(self, carry, consts, c_w, inv_drag, dt: float):
+        """Second half of a subcycle, per node: stress divergence and the
+        beta-relaxed velocity update with semi-implicit ocean drag (the
+        Dirichlet mask is folded into ``inv_drag``). Returns (u, v)."""
+        p = self.params
+        u, v, s11, s22, s12 = carry
+        u_ocean, v_ocean = consts["u_ocean"], consts["v_ocean"]
+        fu, fv = self.stress_divergence(s11, s22, s12)
+        inv_w = 1.0 / (self.mesh.dx * self.mesh.dy)
+        fu = fu * inv_w
+        fv = fv * inv_w
+        cor_u = p.f_coriolis * (v - v_ocean) if p.use_coriolis else 0.0
+        cor_v = -p.f_coriolis * (u - u_ocean) if p.use_coriolis else 0.0
+        u_new = (
+            p.beta * u + consts["b_u"]
+            + consts["dt_m"] * (fu + c_w * u_ocean) + dt * cor_u
+        ) * inv_drag
+        v_new = (
+            p.beta * v + consts["b_v"]
+            + consts["dt_m"] * (fv + c_w * v_ocean) + dt * cor_v
+        ) * inv_drag
+        return u_new, v_new
+
+    def subcycle_body(self, carry, consts, dt: float):
+        """One mEVP subcycle: ``carry`` is (u, v, s11, s22, s12)."""
+        s11, s22, s12, c_w, inv_drag = self.stress_update(carry, consts)
+        u, v = carry[0], carry[1]
+        u_new, v_new = self.velocity_update(
+            (u, v, s11, s22, s12), consts, c_w, inv_drag, dt
+        )
+        return (u_new, v_new, s11, s22, s12)
+
+    def boundary_mask(self, *, device, dtype):
+        """1 on interior owned nodes, 0 on the no-slip walls i = 0, j = 0
+        (the i = nx / j = ny nodes are implicit and always zero)."""
+        mask = torch.ones((self.mesh.nx, self.mesh.ny), device=device, dtype=dtype)
+        mask[0, :] = 0.0
+        mask[:, 0] = 0.0
+        return mask

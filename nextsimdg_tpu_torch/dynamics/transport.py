@@ -1,0 +1,292 @@
+"""Discontinuous-Galerkin tracer transport (dG1 on a uniform, closed mesh).
+
+Counterpart of ``nextsimdg_tpu.dynamics.transport``. Solves
+d(psi)/dt + div(v psi) = 0 per tracer with upwind edge fluxes and SSP-RK
+time stepping; the semi-discrete RHS is
+
+    dpsi_k/dt = M_k^-1 [ V_k  -  E_k ]
+    V_k = sum_q w_q [ (vx_q/dx) dphi_k/dxi + (vy_q/dy) dphi_k/deta ] psi(x_q)
+    E_k = (1/dx) (phi_k|_{x=1} . G_{i+1/2} - phi_k|_{x=0} . G_{i-1/2}) + (y)
+
+with ``G`` the upwinded normal-flux integrals on shared faces. Tracer
+coefficients are (K, ..., nx, ny) tensors; extra middle dims batch several
+tracers through one pass. Every contraction over the tiny dof and
+quadrature dims is an unrolled sum of scalar-weighted planes in ascending
+order with zero entries skipped, as in the JAX package, so that float64
+results agree to rounding. The CUDA transport kernels in
+``dynamics.kernels.coupled_cuda`` take their table entries from this
+module's ``DGTransport``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .dgbasis import DGBasis, dg_basis
+from .mesh import RectMesh
+from .stencil import is_global_edge, shift_m, shift_p
+
+
+def apply_table(table, arr):
+    """Contract a tiny static (K, Q) table with (K, ...) -> (Q, ...).
+
+    Unrolled into scalar-weighted adds in ascending k, zero entries
+    skipped and unit entries unmultiplied: never a small matmul.
+    """
+    table = np.asarray(table)
+    n_in, n_out = table.shape
+    outs = []
+    for q in range(n_out):
+        acc = None
+        for k in range(n_in):
+            c = float(table[k, q])
+            if c == 0.0:
+                continue
+            term = arr[k] if c == 1.0 else c * arr[k]
+            acc = term if acc is None else acc + term
+        outs.append(acc if acc is not None else torch.zeros_like(arr[0]))
+    return torch.stack(outs)
+
+
+@dataclass(frozen=True)
+class QuadVelocity:
+    """Velocity sampled at DG quadrature points, owned-edge layout.
+
+    vx_vol/vy_vol: (NQ, nx, ny) at volume points; vn_x: (NE, nx, ny) normal
+    (+x) velocity at the LEFT face of element i; vn_y: (NE, nx, ny) normal
+    (+y) velocity at the BOTTOM face. The right and top domain faces are
+    implicit walls.
+    """
+
+    vx_vol: torch.Tensor
+    vy_vol: torch.Tensor
+    vn_x: torch.Tensor
+    vn_y: torch.Tensor
+
+
+def sampling_weights(basis: DGBasis):
+    """Python-float weights of the CG1 -> quadrature sampling.
+
+    Per volume point, the bilinear weights of the element's nodes (i, j),
+    (i+1, j), (i, j+1), (i+1, j+1); per edge point, (1 - s, s) along a face.
+    """
+    xq = [float(x) for x in basis.xq_vol]
+    yq = [float(y) for y in basis.yq_vol]
+    vol = [
+        ((1 - x) * (1 - y), x * (1 - y), (1 - x) * y, x * y)
+        for x, y in zip(xq, yq)
+    ]
+    edge = [(1 - float(s), float(s)) for s in basis.s_edge]
+    return vol, edge
+
+
+def velocity_from_cg(mesh: RectMesh, basis: DGBasis, u, v) -> QuadVelocity:
+    """Sample a CG1 nodal velocity (owned-node layout) at the quadrature
+    points: bilinear within each element, single-valued on shared faces."""
+    px, py = mesh.periodic_x, mesh.periodic_y
+    w_vol, w_edge = sampling_weights(basis)
+
+    def bilinear(f):
+        f00 = f
+        f10 = shift_p(f, 0, px)
+        f01 = shift_p(f, 1, py)
+        f11 = shift_p(f10, 1, py)
+        return torch.stack([
+            f00 * w[0] + f10 * w[1] + f01 * w[2] + f11 * w[3] for w in w_vol
+        ])
+
+    vx_vol = bilinear(u)
+    vy_vol = bilinear(v)
+    # Left face of element i: linear in y between nodes (i, j) and (i, j+1).
+    u_up = shift_p(u, 1, py)
+    v_right = shift_p(v, 0, px)
+    vn_x = torch.stack([u * w[0] + u_up * w[1] for w in w_edge])
+    vn_y = torch.stack([v * w[0] + v_right * w[1] for w in w_edge])
+    return QuadVelocity(vx_vol=vx_vol, vy_vol=vy_vol, vn_x=vn_x, vn_y=vn_y)
+
+
+def max_speeds(qv: QuadVelocity):
+    """(max |vx|, max |vy|) over all quadrature points, as 0-d tensors."""
+    speed_x = torch.maximum(qv.vx_vol.abs().max(), qv.vn_x.abs().max())
+    speed_y = torch.maximum(qv.vy_vol.abs().max(), qv.vn_y.abs().max())
+    return speed_x, speed_y
+
+
+def substeps_from_speeds(
+    speed_x, speed_y, dt: float, mesh: RectMesh, degree: int,
+    k_floor: int = 1, k_max: int = 64,
+):
+    """The CFL substep count (0-d int32 tensor) from the two max speeds.
+
+    ``cfl_substeps`` and the CUDA path both end here, so that the same max
+    speeds give the same k.
+    """
+    # Cockburn & Shu's RKDG bound 1/(2p+1), with a 15% safety margin.
+    c_stab = 0.85 / (2 * degree + 1)
+    nu = (speed_x / mesh.dx + speed_y / mesh.dy) * dt
+    k = torch.ceil(nu / c_stab).to(torch.int32)
+    return torch.clamp(torch.clamp(k, min=k_floor), 1, k_max)
+
+
+def cfl_substeps(
+    qv: QuadVelocity, dt: float, mesh: RectMesh, degree: int,
+    k_floor: int = 1, k_max: int = 64,
+):
+    """Transport substep count k = ceil(nu / C), clipped to [k_floor, k_max],
+    with nu = (max|vx|/dx + max|vy|/dy) dt the advective CFL number."""
+    speed_x, speed_y = max_speeds(qv)
+    return substeps_from_speeds(speed_x, speed_y, dt, mesh, degree, k_floor, k_max)
+
+
+class DGTransport:
+    """The dG1 transport operator for one uniform, closed mesh."""
+
+    def __init__(self, mesh: RectMesh, degree: int = 1, scheme: str = None) -> None:
+        if degree != 1:
+            raise NotImplementedError("only dG1 transport is ported yet")
+        if not mesh.uniform or mesh.periodic_x or mesh.periodic_y:
+            raise NotImplementedError("only uniform, closed meshes are ported")
+        self.mesh = mesh
+        self.basis = dg_basis(degree)
+        self.scheme = scheme or "rk2"
+        if self.scheme not in ("rk1", "rk2", "rk3"):
+            raise ValueError(f"unknown scheme {self.scheme}")
+        b = self.basis
+        self._psi_vol = b.psi_vol
+        # Quadrature weights folded into the gradient tables.
+        self._wgx_vol = b.w_vol[None, :] * b.dpsi_dx_vol
+        self._wgy_vol = b.w_vol[None, :] * b.dpsi_dy_vol
+        self._psi_x0 = b.psi_x0
+        self._psi_x1 = b.psi_x1
+        self._psi_y0 = b.psi_y0
+        self._psi_y1 = b.psi_y1
+        # Edge weights folded into the face-assembly tables.
+        self._wa_x0 = b.psi_x0 * b.w_edge[None, :]
+        self._wa_x1 = b.psi_x1 * b.w_edge[None, :]
+        self._wa_y0 = b.psi_y0 * b.w_edge[None, :]
+        self._wa_y1 = b.psi_y1 * b.w_edge[None, :]
+        self._inv_mass = b.inv_mass_diag
+
+    # -- semi-discrete RHS ---------------------------------------------------
+    def rhs(self, psi, vel: QuadVelocity, face_masks=None):
+        """d(psi)/dt for coefficients psi (K, ..., nx, ny).
+
+        ``face_masks``: optional (face_x, face_y) planes multiplying the
+        upwind fluxes (coastlines).
+        """
+        mesh = self.mesh
+        extra = psi.ndim - 3
+        expand = (slice(None),) + (None,) * extra
+        vx_vol = vel.vx_vol[expand]
+        vy_vol = vel.vy_vol[expand]
+        vn_x = vel.vn_x[expand]
+        vn_y = vel.vn_y[expand]
+        x_axis, y_axis = psi.ndim - 2, psi.ndim - 1
+
+        # Volume term, streamed over the quadrature points.
+        inv_dx = 1.0 / mesh.dx
+        inv_dy = 1.0 / mesh.dy
+        psi_tab = np.asarray(self._psi_vol)
+        wgx_t = np.asarray(self._wgx_vol.T)  # (NQ, K)
+        wgy_t = np.asarray(self._wgy_vol.T)
+        n_dofs, n_q = psi_tab.shape
+        acc_x = [None] * n_dofs
+        acc_y = [None] * n_dofs
+        for q in range(n_q):
+            pq = None
+            for k in range(n_dofs):
+                c = float(psi_tab[k, q])
+                if c == 0.0:
+                    continue
+                term = psi[k] if c == 1.0 else c * psi[k]
+                pq = term if pq is None else pq + term
+            fx = vx_vol[q] * pq
+            fy = vy_vol[q] * pq
+            for k in range(n_dofs):
+                cx = float(wgx_t[q, k])
+                if cx != 0.0:
+                    t = fx if cx == 1.0 else cx * fx
+                    acc_x[k] = t if acc_x[k] is None else acc_x[k] + t
+                cy = float(wgy_t[q, k])
+                if cy != 0.0:
+                    t = fy if cy == 1.0 else cy * fy
+                    acc_y[k] = t if acc_y[k] is None else acc_y[k] + t
+        zero = psi.new_zeros(psi.shape[1:])
+        gx = torch.stack([a if a is not None else zero for a in acc_x])
+        gy = torch.stack([a if a is not None else zero for a in acc_y])
+        volume = gx * inv_dx + gy * inv_dy
+
+        # Upwind edge fluxes, x-direction (owned left-face edges).
+        px, py = mesh.periodic_x, mesh.periodic_y
+        tr_x1 = apply_table(self._psi_x1, psi)  # right-face traces
+        tr_x0 = apply_table(self._psi_x0, psi)  # left-face traces
+        left_of_edge = shift_m(tr_x1, x_axis, px)
+        g_x = vn_x * torch.where(vn_x >= 0, left_of_edge, tr_x0)
+        if not px and is_global_edge("first"):
+            # Closed domain: the global i = 0 face is an impermeable wall
+            # (g_x is a fresh tensor, so zeroing it in place is safe).
+            g_x.narrow(x_axis, 0, 1).zero_()
+        if face_masks is not None:
+            g_x = g_x * face_masks[0]
+        g_right = shift_p(g_x, x_axis, px)
+        edge_x = (
+            apply_table(self._wa_x1.T, g_right) - apply_table(self._wa_x0.T, g_x)
+        )
+        edge_x = edge_x / mesh.dx
+
+        # Upwind edge fluxes, y-direction (owned bottom-face edges).
+        tr_y1 = apply_table(self._psi_y1, psi)  # top-face traces
+        tr_y0 = apply_table(self._psi_y0, psi)  # bottom
+        below = shift_m(tr_y1, y_axis, py)
+        g_y = vn_y * torch.where(vn_y >= 0, below, tr_y0)
+        if not py and is_global_edge("first"):
+            g_y.narrow(y_axis, 0, 1).zero_()
+        if face_masks is not None:
+            g_y = g_y * face_masks[1]
+        g_top = shift_p(g_y, y_axis, py)
+        edge_y = (
+            apply_table(self._wa_y1.T, g_top) - apply_table(self._wa_y0.T, g_y)
+        )
+        edge_y = edge_y / mesh.dy
+
+        rhs = volume - edge_x - edge_y
+        inv_mass = self._inv_mass
+        return torch.stack([float(inv_mass[k]) * rhs[k] for k in range(len(inv_mass))])
+
+    # -- positivity limiting (Zhang & Shu) -----------------------------------
+    def limit_positivity(self, psi):
+        """Scale the dG1 slopes so the polynomial stays >= 0 everywhere.
+
+        A linear polynomial's minimum over the element is at a corner:
+        mean - (|s1| + |s2|)/2. The deviation from the (conserved) mean is
+        shrunk by theta = min(1, mean / (mean - min)) where that corner
+        value is negative.
+        """
+        mean = psi[0]
+        mins = mean - 0.5 * (torch.abs(psi[1]) + torch.abs(psi[2]))
+        deficit = mean - mins
+        theta = torch.where(
+            mins < 0.0,
+            torch.clamp(mean / torch.where(deficit > 0, deficit, 1.0), 0.0, 1.0),
+            1.0,
+        )
+        return torch.cat([mean[None], psi[1:] * theta[None]], dim=0)
+
+    # -- SSP-RK time stepping ------------------------------------------------
+    def step(self, psi, vel: QuadVelocity, dt: float, limit: bool = False, face_masks=None):
+        """One SSP-RK step; ``limit`` applies the positivity limiter after
+        every RK stage (SSP keeps the limited property through the convex
+        combinations)."""
+        lim = self.limit_positivity if limit else (lambda p: p)
+        rhs = lambda p: self.rhs(p, vel, face_masks)
+        if self.scheme == "rk1":
+            return lim(psi + dt * rhs(psi))
+        if self.scheme == "rk2":
+            psi1 = lim(psi + dt * rhs(psi))
+            return lim(0.5 * psi + 0.5 * (psi1 + dt * rhs(psi1)))
+        psi1 = lim(psi + dt * rhs(psi))
+        psi2 = lim(0.75 * psi + 0.25 * (psi1 + dt * rhs(psi1)))
+        return lim(psi / 3.0 + 2.0 / 3.0 * (psi2 + dt * rhs(psi2)))

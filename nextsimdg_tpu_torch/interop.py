@@ -1,0 +1,67 @@
+"""State and parameters across the boundary between the two packages.
+
+Plain numpy dicts keyed by field name carry a ``CoupledState``, a
+``DynamicsForcing`` or the ``MEVPParams`` fields, so that the JAX model and
+this port can be given identical inputs without either importing the other.
+``coupled_state_to_numpy`` reads any object with the ``CoupledState``
+fields whose leaves numpy can convert (a torch tensor, or an array of the
+JAX package).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .coupled import CoupledState
+from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
+
+_STATE_FIELDS = ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice")
+_VELOCITY_FIELDS = ("u", "v", "s11", "s22", "s12")
+_FORCING_FIELDS = ("u_atm", "v_atm", "u_ocean", "v_ocean")
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _require(d: dict, names, what: str) -> None:
+    if set(d) != set(names):
+        raise KeyError(f"{what} needs exactly the keys {sorted(names)}, got {sorted(d)}")
+
+
+def coupled_state_to_numpy(state) -> dict:
+    """{field: ndarray}, with the velocity as a nested {field: ndarray}."""
+    out = {name: _to_numpy(getattr(state, name)) for name in _STATE_FIELDS}
+    out["velocity"] = {
+        name: _to_numpy(getattr(state.velocity, name)) for name in _VELOCITY_FIELDS
+    }
+    return out
+
+
+def coupled_state_from_numpy(d: dict, *, device, dtype) -> CoupledState:
+    """The inverse of ``coupled_state_to_numpy``, on ``device`` in ``dtype``."""
+    _require(d, _STATE_FIELDS + ("velocity",), "a CoupledState")
+    _require(d["velocity"], _VELOCITY_FIELDS, "a VelocityState")
+    as_t = lambda a: torch.tensor(np.asarray(a), device=device, dtype=dtype)
+    velocity = VelocityState(**{k: as_t(d["velocity"][k]) for k in _VELOCITY_FIELDS})
+    return CoupledState(velocity=velocity, **{k: as_t(d[k]) for k in _STATE_FIELDS})
+
+
+def dynamics_forcing_from_numpy(d: dict, *, device, dtype) -> DynamicsForcing:
+    """A ``DynamicsForcing`` from {u_atm, v_atm, u_ocean, v_ocean} arrays."""
+    _require(d, _FORCING_FIELDS, "a DynamicsForcing")
+    return DynamicsForcing(**{
+        k: torch.tensor(np.asarray(d[k]), device=device, dtype=dtype)
+        for k in _FORCING_FIELDS
+    })
+
+
+def mevp_params_from_dict(d: dict) -> MEVPParams:
+    """``MEVPParams`` from ``dataclasses.asdict`` of either package's params."""
+    _require(d, [f.name for f in dataclasses.fields(MEVPParams)], "MEVPParams")
+    return MEVPParams(**d)

@@ -1,0 +1,130 @@
+"""The CUDA kernels of the dynamics phase against their plain versions.
+
+These tests need an NVIDIA card (the kernels have no CPU mode) and skip
+elsewhere. On a machine with one, run them with
+``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
+(``tests/conftest.py`` imports jax, which the port does not need).
+Tolerances (float32): 1e-5 of the plane's max |value| for one launch,
+since PyTorch on CUDA divides by a scalar through its reciprocal where the
+kernels divide; exact for the CFL speeds and k; after 100 subcycles 1e-3
+of the plane's max on the mEVP planes and 1e-5 on the tracers.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nextsimdg_tpu_torch.coupled import CoupledModel
+from nextsimdg_tpu_torch.dynamics import RectMesh
+from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
+from nextsimdg_tpu_torch.dynamics.transport import substeps_from_speeds
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+N = 64
+DT = 600.0
+TOL_LAUNCH = 1e-5
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def assert_close(got, ref, tol):
+    got, ref = got.double(), ref.double()
+    assert got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol * scale
+
+
+def setup(device, n=N, n_subcycles=100):
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    model = CoupledModel(RectMesh(n, n, 2000.0, 2000.0), n_subcycles=n_subcycles)
+    carry = tuple(t(rng.normal(0.0, s, (n, n))) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
+    forcing = DynamicsForcing(
+        u_atm=t(rng.normal(8.0, 2.0, (n, n))), v_atm=t(rng.normal(2.0, 2.0, (n, n))),
+        u_ocean=t(rng.normal(0.0, 0.05, (n, n))), v_ocean=t(rng.normal(0.0, 0.05, (n, n))),
+    )
+    h, a = t(rng.uniform(0.2, 2.0, (n, n))), t(rng.uniform(0.3, 1.0, (n, n)))
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, n, n)), rng.normal(0.0, 0.3, (2, 3, n, n))]))
+    return model, carry, consts, psi, rng
+
+
+def test_mevp_kernels_match_plain(device):
+    model, carry, consts, _, _ = setup(device)
+    ref = model.mevp.stress_update(carry, consts)
+    got = cc.mevp_stress(model.mevp, carry, consts)
+    for g, r in zip(got, ref):
+        assert_close(g, r, TOL_LAUNCH)
+    carry_v = (carry[0], carry[1], *ref[:3])
+    ref_uv = model.mevp.velocity_update(carry_v, consts, ref[3], ref[4], DT)
+    got_uv = cc.mevp_velocity(model.mevp, carry_v, consts, ref[3], ref[4], DT)
+    for g, r in zip(got_uv, ref_uv):
+        assert_close(g, r, TOL_LAUNCH)
+    # The wrappers work on copies: the inputs are untouched.
+    assert torch.equal(carry[2], setup(device)[1][2])
+
+
+@pytest.mark.parametrize("speed", [0.2, 5.0])
+def test_dg1_sample_cfl_gives_equal_speeds_and_k(device, speed):
+    model, carry, _, _, _ = setup(device)
+    u, v = carry[0] * speed, carry[1] * speed
+    got = cc.dg1_sample_cfl(model.transport, u, v)
+    ref = cc.dg1_sample_cfl_reference(model.transport, u, v)
+    assert torch.equal(got, ref)
+    k = lambda s: int(substeps_from_speeds(s[0], s[1], DT, model.mesh, 1))
+    assert k(got) == k(ref)
+
+
+@pytest.mark.parametrize("a, b", [(0.0, 1.0), (0.5, 0.5), (0.75, 0.25), (1.0 / 3.0, 2.0 / 3.0)])
+def test_dg1_rk_stage_matches_plain(device, a, b):
+    model, carry, _, psi, rng = setup(device)
+    base = psi.flip(-1).contiguous()
+    face_x, face_y = (
+        torch.tensor((rng.uniform(size=(N, N)) > 0.1).astype(np.float32), device=device)
+        for _ in range(2)
+    )
+    args = (model.transport, psi, base, carry[0], carry[1], face_x, face_y, a, b, 300.0)
+    assert_close(cc.dg1_rk_stage(*args), cc.dg1_rk_stage_reference(*args), TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("scheme", ["rk1", "rk2", "rk3"])
+def test_fused_dynamics_matches_plain_and_counts_launches(device, scheme):
+    model, carry, consts, psi, _ = setup(device)
+    model.transport.scheme = scheme
+    cc.reset_launches()
+    got_carry, got_tr = cc.fused_dynamics(model, carry, psi, consts, DT, 100)
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100)
+    for g, r in zip(got_carry, ref_carry):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    stages = {"rk1": 1, "rk2": 2, "rk3": 3}[scheme]
+    assert counts["mevp_stress"] == counts["mevp_velocity"] == 100
+    assert counts["dg1_sample_cfl"] == 1
+    assert counts["dg1_rk_stage"] % stages == 0 and counts["dg1_rk_stage"] >= stages
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    model, carry, consts, psi, _ = setup(device)
+    with pytest.raises(TypeError, match="float32"):
+        cc.mevp_stress(model.mevp, tuple(c.double() for c in carry), consts)
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.dg1_sample_cfl(model.transport, carry[0].t(), carry[1])
+    with pytest.raises(ValueError, match="shape"):
+        cc.dg1_sample_cfl(model.transport, carry[0][:-1], carry[1][:-1])
+    with pytest.raises(ValueError, match="alias"):
+        cc._dg1_rk_stage_(
+            psi, psi, carry[0], carry[1], carry[0], carry[0], psi, 0.0, 1.0, 1.0,
+            cc._dg1_tables(model.transport), cc._stream(device),
+        )
