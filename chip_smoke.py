@@ -5,22 +5,38 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``nextsimdg_tpu_torch/csrc`` and
-drives the port's main path, the dynamics-only coupled step of the
-headline configuration: a closed 256 x 256 mesh of 2 km elements, dG1
-tracers (hice, cice, hsnow), 100 mEVP subcycles, dt = 600 s, wind (8, 2)
-m/s, ocean current (0.02, 0) m/s, CFL-adaptive transport substeps, float32.
+drives the port's two main paths, float32, dG1 tracers (hice, cice, hsnow),
+100 mEVP subcycles, dt = 600 s, CFL-adaptive transport substeps:
+
+* the headline dynamics-only step (BASELINE config 3, ``bench.py``): a
+  closed 256 x 256 mesh of 2 km elements, wind (8, 2) m/s, ocean current
+  (0.02, 0) m/s, on K1's kernel schedule (``mevp_backend="pallas"``:
+  mevp_stress, mevp_velocity, dg1_sample_cfl, dg1_rk_stage);
+* the coupled thermo+dynamics step of BASELINE config 4
+  (``benchmarks/run_benchmarks.py`` ``bench_coupled_1m``): a closed
+  1024 x 1024 mesh of 4 km elements, initial hice 1.2, cice 0.95, hsnow
+  0.1, physics forcing tair -15, dew2m -17, pair 1e5, sw_in 5, lw_in 240,
+  mld 10, snowfall 1e-4, wind 6; wind (6, 3) m/s, ocean (0.02, 0) m/s, on
+  the default ("auto") schedule, the ghost-zone tiled kernels mevp_tiled
+  and transport_tiled with dg1_sample_cfl, and the column physics.
+
 Phases, each printed on its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: the kernels' compile (or cache hit) time;
-3. kernels: each kernel against its plain PyTorch version at 256^2 on
-   inputs drawn from a numpy seed, max abs / rel error against the stated
-   tolerance;
-4. slice: one step on the kernel path against the plain path on the card;
-   then 20 steps from zeroed launch counters: every leaf finite,
-   0 <= cice <= 1, hice >= 0, hsnow >= 0, and every kernel launched;
-5. times with CUDA events after warm-up: ms per step and element updates/s
-   for the kernel path and the plain path, and each kernel's time.
+2. build: the kernels' compile (or cache hit) time, registers and spills;
+3. check: K1's four kernels against their plain PyTorch versions at 256^2,
+   then mevp_tiled and transport_tiled against theirs and against K1's
+   schedule on the same inputs, at 1024^2 and at a ragged 1000 x 968, with
+   100 subcycles and with a count that is not a multiple of the halo;
+4. slice: for each path, one step on the kernels against the plain path on
+   the card, then 20 steps from zeroed launch counters: every leaf finite,
+   0 <= cice <= 1, hice >= 0, hsnow >= 0, and every kernel of the path
+   launched;
+5. time (CUDA events after warm-up): ms per step and element updates/s of
+   each path, of the config-4 step on K1's schedule, on the tiled one and on
+   the plain path, of the physics alone, both schedules' dynamics at 64^2
+   to 1024^2 (the "auto" threshold), a tile sweep of the tiled kernels,
+   and each kernel per call against its plain version.
 
 Any failure raises (non-zero exit); there is no CPU path. The line before
 the last is the kernels' JSON summary; the last line is
@@ -38,32 +54,53 @@ import time
 import numpy as np
 import torch
 
+from nextsimdg_tpu_torch import coupled
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
+from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
+from nextsimdg_tpu_torch.state import Forcing
 
 N = 256
+N4 = 1024  # BASELINE config 4
+RAGGED = (1000, 968)  # a multiple of no tile
 N_SUBCYCLES = 100
 DT = 600.0
 SEED = 0
-REPLACES = "nextsimdg_tpu/dynamics/kernels/coupled_pallas.py:62"
+K1 = "nextsimdg_tpu/dynamics/kernels/coupled_pallas.py:62"
+REPLACES = {
+    "mevp_stress": K1, "mevp_velocity": K1, "dg1_sample_cfl": K1, "dg1_rk_stage": K1,
+    "mevp_tiled": "nextsimdg_tpu/dynamics/kernels/mevp_tiled.py:173",
+    "transport_tiled": "nextsimdg_tpu/dynamics/kernels/transport_tiled.py:105",
+}
 SOURCES = {
     "mevp_stress": "nextsimdg_tpu_torch/csrc/mevp.cu",
     "mevp_velocity": "nextsimdg_tpu_torch/csrc/mevp.cu",
     "dg1_sample_cfl": "nextsimdg_tpu_torch/csrc/transport.cu",
     "dg1_rk_stage": "nextsimdg_tpu_torch/csrc/transport.cu",
+    "mevp_tiled": "nextsimdg_tpu_torch/csrc/mevp_tiled.cu",
+    "transport_tiled": "nextsimdg_tpu_torch/csrc/transport_tiled.cu",
+}
+PATH_KERNELS = {
+    "headline": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    "config4": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
 }
 # Single launches: the kernel and the plain version run the same float32
-# operations in the same order; they differ where PyTorch on CUDA divides by
-# a scalar through its reciprocal (a few ulp), so 1e-5 of the plane's max.
+# operations in the same order (a width divides through its float32
+# reciprocal on both sides); 1e-5 of the plane's max covers an ulp where
+# PyTorch's own kernels round differently.
 TOL_LAUNCH = 1e-5
-# One full step: 100 subcycles amplify those ulps through the shared divide
-# (a CPU emulation of the kernels measured ~3e-5 of the plane's max on the
-# stresses after 300 subcycles), hence 1e-3 for the mEVP planes; the
-# tracers move by dt * velocity, 1e-5 of their max.
+# One full step: 100 subcycles amplify single-ulp differences through the
+# shared divide, hence 1e-3 for the mEVP planes; the tracers move by
+# dt * velocity, 1e-5 of their max.
 TOL_STEP_MEVP = 1e-3
 TOL_STEP_TRACER = 1e-5
+# The tiled kernels run the same element bodies as K1's kernels in the same
+# order (--fmad=false), so they should equal K1's schedule exactly; 1e-6 of
+# the plane's max is the failure line.
+TOL_SAME_SCHEDULE = 1e-6
 
 
 def log(phase: str, message: str) -> None:
@@ -106,14 +143,18 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_model(device):
-    mesh = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N)
-    model = CoupledModel(mesh, degree=1, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES)
+def bench_model(device, n: int = N):
+    """The headline configuration (on a 512 km square; n elements a side)."""
+    mesh = RectMesh(n, n, dx=512e3 / n, dy=512e3 / n)
+    model = CoupledModel(
+        mesh, degree=1, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES,
+        mevp_backend="pallas",
+    )
     state = model.initial_state(
         hice0=1.0, cice0=0.9, hsnow0=0.05, sst0=-1.6, sss0=32.0,
         device=device, dtype=torch.float32,
     )
-    full = lambda value: torch.full((N, N), value, device=device, dtype=torch.float32)
+    full = lambda value: torch.full((n, n), value, device=device, dtype=torch.float32)
     forcing = DynamicsForcing(
         u_atm=full(8.0), v_atm=full(2.0), u_ocean=full(0.02), v_ocean=full(0.0)
     )
@@ -213,7 +254,7 @@ def check_kernels(model, device) -> dict:
             f"{name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
             f"per call at {N}x{N}"
         ))
-    return {name: (results[name], *times[name]) for name in cc.KERNELS}
+    return {name: (results[name], *times[name]) for name in PATH_KERNELS["headline"]}
 
 
 def leaves(state, like):
@@ -225,7 +266,8 @@ def leaves(state, like):
 
 
 def ptxas_report(text: str):
-    """'kernel: registers; spills' lines from the compiler's -v report."""
+    """'kernel: registers, shared memory; spills' lines from the compilers'
+    -v report."""
     kernel, spills = "?", ""
     for line in text.splitlines():
         found = re.search(r"entry function '_ZN3nst(\d+)(\w+)'", line)
@@ -237,8 +279,155 @@ def ptxas_report(text: str):
             yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
 
 
+def config4_model(device, **backends):
+    """BASELINE config 4 as ``bench_coupled_1m`` builds it (no land mask):
+    (model, initial state, physics forcing, dynamics forcing)."""
+    mesh = RectMesh(N4, N4, dx=4e3, dy=4e3)
+    model = CoupledModel(
+        mesh, degree=1, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES, **backends
+    )
+    state = model.initial_state(
+        hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32
+    )
+    full = lambda value: torch.full((N4, N4), value, device=device, dtype=torch.float32)
+    phys = Forcing(
+        tair=full(-15.0), dew2m=full(-17.0), pair=full(1e5), sw_in=full(5.0),
+        lw_in=full(240.0), mld=full(10.0), snowfall=full(1e-4), wind=full(6.0),
+    )
+    dyn = DynamicsForcing(
+        u_atm=full(6.0), v_atm=full(3.0), u_ocean=full(0.02), v_ocean=full(0.0)
+    )
+    return model, state, phys, dyn
+
+
+def plain_step(model, state, phys, dyn):
+    """The coupled step on the plain PyTorch path (same device)."""
+    state = model.step_dynamics(state, dyn, DT, phase=cc.fused_dynamics_reference)
+    return model.step_thermo(state, phys, DT)
+
+
+def tiled_inputs(nx, ny, device, seed):
+    """Seeded mEVP planes and consts, dG1 tracers and face masks on a closed
+    (nx, ny) mesh of 4 km elements."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    shape = (nx, ny)
+    model = CoupledModel(RectMesh(nx, ny, 4e3, 4e3), n_subcycles=N_SUBCYCLES)
+    carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
+    forcing = DynamicsForcing(
+        u_atm=t(rng.normal(6.0, 2.0, shape)), v_atm=t(rng.normal(3.0, 2.0, shape)),
+        u_ocean=t(rng.normal(0.0, 0.05, shape)), v_ocean=t(rng.normal(0.0, 0.05, shape)),
+    )
+    h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
+    psi = t(np.concatenate([
+        rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))
+    ]))
+    faces = tuple(t((rng.uniform(size=shape) > 0.1).astype(np.float32)) for _ in range(2))
+    return model, carry, consts, psi, faces
+
+
+def same_schedule(name: str, got, ref) -> float:
+    """Max abs difference from K1's schedule on the same inputs; fails above
+    TOL_SAME_SCHEDULE x the plane's max |value|."""
+    err = float((got.double() - ref.double()).abs().max())
+    limit = TOL_SAME_SCHEDULE * float(ref.abs().max())
+    ok = err <= limit
+    log("check", (
+        f"{name} vs K1's schedule: max_abs_diff={err:.3e} (expected 0, fail above "
+        f"{limit:.3e}) {'ok' if ok else 'FAIL'}"
+    ))
+    if not ok:
+        raise AssertionError(f"{name}: differs from K1's schedule by {err:.3e}")
+    return err
+
+
+def check_tiled(device) -> dict:
+    """Phase 3, second part: mevp_tiled and transport_tiled against their
+    plain versions and against K1's schedule, at 1024^2 and a ragged shape;
+    then each per call at 1024^2 against its plain version."""
+    errs = {"mevp_tiled": 0.0, "transport_tiled": 0.0}
+    for nx, ny in ((N4, N4), RAGGED):
+        model, carry, consts, psi, faces = tiled_inputs(nx, ny, device, SEED + 1)
+        solver, transport = model.mevp, model.transport
+        for n in (N_SUBCYCLES, 13):  # 13 = 8 + 5: not a multiple of the halo
+            got = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n)
+            ref = mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, n)
+            k1 = cc.mevp_subcycles(solver, carry, consts, DT, n)
+            for name, g, r, q in zip(("u", "v", "s11", "s22", "s12"), got, ref, k1):
+                tag = f"mevp_tiled {nx}x{ny} N={n} {name}"
+                errs["mevp_tiled"] = max(errs["mevp_tiled"], compare(tag, g, r, TOL_STEP_MEVP))
+                same_schedule(tag, g, q)
+        u, v = carry[0], carry[1]
+        for k in (1, 4):  # 4 substeps run in two launches
+            args = (transport, psi, u, v, DT / k, k, faces)
+            got = tt.transport_substeps_tiled(*args)
+            tag = f"transport_tiled {nx}x{ny} k={k}"
+            err = compare(tag, got, tt.transport_substeps_tiled_reference(*args), TOL_STEP_TRACER)
+            errs["transport_tiled"] = max(errs["transport_tiled"], err)
+            same_schedule(tag, got, cc.transport_substeps(*args))
+    torch.cuda.synchronize()
+
+    model, carry, consts, psi, faces = tiled_inputs(N4, N4, device, SEED + 1)
+    solver, transport = model.mevp, model.transport
+    u, v = carry[0], carry[1]
+    timed = {
+        # one launch: HALO subcycles; the plain version runs the same subcycles
+        "mevp_tiled": (
+            lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, mt.HALO),
+            lambda: mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, mt.HALO),
+        ),
+        # one launch: one rk2 substep with its velocity sampling
+        "transport_tiled": (
+            lambda: tt.transport_substeps_tiled(transport, psi, u, v, DT, 1, faces),
+            lambda: tt.transport_substeps_tiled_reference(transport, psi, u, v, DT, 1, faces),
+        ),
+    }
+    results = {}
+    for name, (kernel, plain) in timed.items():
+        ms, plain_ms = time_ms(kernel, 50), time_ms(plain, 3)
+        results[name] = (errs[name], ms, plain_ms)
+        log("time", (
+            f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call at {N4}x{N4} "
+            f"({'8 subcycles' if name == 'mevp_tiled' else 'one rk2 substep'})"
+        ))
+    return results
+
+
+def check_bounded(tag: str, out, first) -> None:
+    for name, leaf, like in leaves(out, first):
+        if leaf.shape != like.shape or not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"{tag}: {name} is not finite or has shape {tuple(leaf.shape)}")
+    cice, hice, hsnow = out.cice[0], out.hice[0], out.hsnow[0]
+    if not (bool((cice >= 0).all()) and bool((cice <= 1).all())):
+        raise AssertionError(f"{tag}: cice outside [0, 1]")
+    if not (bool((hice >= 0).all()) and bool((hsnow >= 0).all())):
+        raise AssertionError(f"{tag}: negative hice or hsnow")
+    log("slice", (
+        f"{tag} finite and bounded: max|u| {float(out.velocity.u.abs().max()):.4f} m/s, "
+        f"cice in [{float(cice.min()):.4f}, {float(cice.max()):.4f}], "
+        f"hice >= {float(hice.min()):.4f}"
+    ))
+
+
+def drive_path(path: str, model, state, phys, dyn, do_thermo: bool) -> dict:
+    """20 steps from zeroed launch counters; fails unless every kernel of
+    the path was launched."""
+    cc.reset_launches()
+    out = model.run(state, phys, dyn, DT, 20, do_thermo=do_thermo)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    log("slice", f"{path}: 20 steps, launches: {counts}")
+    check_bounded(f"{path}: 20 steps", out, state)
+    missing = [name for name in PATH_KERNELS[path] if counts[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+    return counts
+
+
 def check_slice(device) -> dict:
-    """Phase 4: the main path against the plain path, then 20 steps."""
+    """Phase 4: each main path against the plain path, then 20 steps."""
     model, state, forcing = bench_model(device)
     got = model.step(state, None, forcing, DT, do_thermo=False)
     ref = model.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference)
@@ -249,47 +438,126 @@ def check_slice(device) -> dict:
             f"step.velocity.{name}", getattr(got.velocity, name),
             getattr(ref.velocity, name), TOL_STEP_MEVP,
         )
+    counts = {"headline": drive_path("headline", model, state, None, forcing, False)}
 
-    cc.reset_launches()
-    out = model.run(state, None, forcing, DT, 20, do_thermo=False)
-    torch.cuda.synchronize()
-    counts = dict(cc.launches)
-    log("slice", f"20 steps, launches: {counts}")
-    for name, leaf, first in leaves(out, state):
-        if leaf.shape != first.shape or not bool(torch.isfinite(leaf).all()):
-            raise AssertionError(f"20 steps: {name} is not finite or has shape {tuple(leaf.shape)}")
-    cice, hice, hsnow = out.cice[0], out.hice[0], out.hsnow[0]
-    if not (bool((cice >= 0).all()) and bool((cice <= 1).all())):
-        raise AssertionError("20 steps: cice outside [0, 1]")
-    if not (bool((hice >= 0).all()) and bool((hsnow >= 0).all())):
-        raise AssertionError("20 steps: negative hice or hsnow")
-    missing = [name for name in cc.KERNELS if counts[name] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    log("slice", (
-        f"20 steps finite and bounded: max|u| {float(out.velocity.u.abs().max()):.4f} m/s, "
-        f"cice in [{float(cice.min()):.4f}, {float(cice.max()):.4f}], "
-        f"hice >= {float(hice.min()):.4f}"
-    ))
+    model, state, phys, dyn = config4_model(device)
+    schedule = (model.mevp_schedule(), model.transport_schedule())
+    log("slice", f"config4: {N4}x{N4}, auto schedule {schedule}")
+    if schedule != ("pallas-tiled", "tiled"):
+        raise AssertionError(f"config 4 does not run the tiled kernels: {schedule}")
+    got = model.step(state, phys, dyn, DT)
+    ref = plain_step(model, state, phys, dyn)
+    for name in ("hice", "cice", "hsnow"):
+        compare(f"config4.step.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
+    for name in ("u", "v", "s11", "s22", "s12"):
+        compare(
+            f"config4.step.velocity.{name}", getattr(got.velocity, name),
+            getattr(ref.velocity, name), TOL_STEP_MEVP,
+        )
+    for name in ("sst", "tice", "new_ice"):
+        compare(f"config4.step.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
+    counts["config4"] = drive_path("config4", model, state, phys, dyn, True)
     return counts
 
 
+def report(what: str, ms: list, elements: int, card: str) -> float:
+    mean = sum(ms) / len(ms)
+    log("time", (
+        f"{what}: {mean:.3f} ms/step (runs {', '.join(f'{m:.3f}' for m in ms)}), "
+        f"{elements / (mean / 1e3):.4e} element updates/s, f32 on {card}"
+    ))
+    return mean
+
+
+def time_in_turns(fns: dict, reps: dict) -> dict:
+    """ms per call of each function, run in turns: a b ... b a."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(time_ms(fns[name], reps[name]))
+    return runs
+
+
 def time_paths(device, card: str) -> None:
-    """Phase 5: ms per step, kernel path and plain path, in turns."""
+    """Phase 5: ms per step of the paths and schedules, in turns."""
     model, state, forcing = bench_model(device)
-    kernel = lambda: model.step(state, None, forcing, DT, do_thermo=False)
-    plain = lambda: model.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference)
-    runs = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        fn = kernel if name == "kernel" else plain
-        reps = 10 if name == "kernel" else 3
-        runs[name].append(time_ms(fn, reps))
+    runs = time_in_turns(
+        {
+            "kernel": lambda: model.step(state, None, forcing, DT, do_thermo=False),
+            "plain": lambda: model.step_dynamics(
+                state, forcing, DT, phase=cc.fused_dynamics_reference
+            ),
+        },
+        {"kernel": 10, "plain": 3},
+    )
     for name, ms in runs.items():
-        mean = sum(ms) / len(ms)
+        report(f"headline {name} path ({N}x{N}, {N_SUBCYCLES} subcycles)", ms, N * N, card)
+
+    # Both schedules of the dynamics step: the "auto" threshold.
+    for n, (model_k1, state, *_, dyn) in (
+        (64, bench_model(device, 64)), (128, bench_model(device, 128)),
+        (N, bench_model(device)), (N4, config4_model(device, mevp_backend="pallas")),
+    ):
+        model_tiled = CoupledModel(
+            model_k1.mesh, degree=1, n_subcycles=N_SUBCYCLES,
+            mevp_backend="pallas-tiled", transport_backend="tiled",
+        )
+        runs = time_in_turns(
+            {
+                "K1": lambda: model_k1.step_dynamics(state, dyn, DT),
+                "tiled": lambda: model_tiled.step_dynamics(state, dyn, DT),
+            },
+            {"K1": 10, "tiled": 10},
+        )
+        for name, ms in runs.items():
+            report(f"dynamics step on {name}'s schedule at {n}x{n}", ms, n * n, card)
+
+    # The config-4 coupled step: tiled (auto), K1's schedule, plain; physics alone.
+    model, state, phys, dyn = config4_model(device)
+    model_k1 = config4_model(device, mevp_backend="pallas")[0]
+    runs = time_in_turns(
+        {
+            "tiled": lambda: model.step(state, phys, dyn, DT),
+            "K1": lambda: model_k1.step(state, phys, dyn, DT),
+            "plain": lambda: plain_step(model, state, phys, dyn),
+        },
+        {"tiled": 10, "K1": 10, "plain": 2},
+    )
+    for name, ms in runs.items():
+        report(f"config4 coupled step, {name} path ({N4}x{N4})", ms, N4 * N4, card)
+    ms = [time_ms(lambda: model.step_thermo(state, phys, DT), 10) for _ in range(2)]
+    report(f"config4 physics alone ({N4}x{N4})", ms, N4 * N4, card)
+
+    # Tile sweep of the tiled kernels at 1024^2: ms per call of each launch
+    # configuration that fits the 227 KB of shared memory of a block.
+    model, carry, consts, psi, faces = tiled_inputs(N4, N4, device, SEED + 1)
+    for tile, halo, threads in (
+        (64, 8, 512), (64, 8, 1024), (48, 8, 512), (48, 8, 1024), (56, 8, 1024),
+        (72, 8, 1024), (40, 8, 512), (32, 8, 256), (64, 12, 1024), (80, 4, 1024),
+    ):
+        ms = time_ms(
+            lambda: mt.mevp_subcycles_tiled(
+                model.mevp, carry, consts, DT, N_SUBCYCLES, tile=tile, halo=halo,
+                threads=threads,
+            ), 5,
+        )
         log("time", (
-            f"{name} path: {mean:.3f} ms/step (runs {', '.join(f'{m:.3f}' for m in ms)}), "
-            f"{N * N / (mean / 1e3):.4e} element updates/s at {N}x{N}, "
-            f"{N_SUBCYCLES} subcycles, f32 on {card}"
+            f"sweep mevp_tiled tile {tile} halo {halo} threads {threads} "
+            f"({mt.shared_bytes(tile, halo)} B shared): {ms:.4f} ms per {N_SUBCYCLES} "
+            f"subcycles at {N4}x{N4} on {card}"
+        ))
+    u, v = carry[0], carry[1]
+    halo = tt.halo_for(1, 2)
+    for tile, threads in ((24, 512), (32, 512), (32, 768), (40, 512), (40, 768), (44, 768)):
+        ms = time_ms(
+            lambda: tt.transport_substeps_tiled(
+                model.transport, psi, u, v, DT, 1, faces, tile=tile, threads=threads
+            ), 20,
+        )
+        log("time", (
+            f"sweep transport_tiled tile {tile} halo {halo} threads {threads} "
+            f"({tt.shared_bytes(tile, halo)} B shared): {ms:.4f} ms per rk2 substep at "
+            f"{N4}x{N4} on {card}"
         ))
 
 
@@ -304,6 +572,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log("device", f"{name}; nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    log("device", f"auto threshold: tiled schedule from {coupled.TILED_MIN_ELEMENTS} elements")
 
     t0 = time.perf_counter()
     path = cc.build()
@@ -314,13 +583,17 @@ def main() -> int:
 
     model, _, _ = bench_model(device)
     kernels = check_kernels(model, device)
+    kernels.update(check_tiled(device))
     counts = check_slice(device)
     time_paths(device, smi)
 
+    launches = {k: counts["headline"][k] for k in PATH_KERNELS["headline"]}
+    for k in PATH_KERNELS["config4"]:
+        launches[k] = launches.get(k, 0) + counts["config4"][k]
     summary = {"kernels": [
         {
-            "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES,
-            "launches": counts[k], "max_abs_err": kernels[k][0],
+            "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+            "launches": launches[k], "max_abs_err": kernels[k][0],
             "ms": kernels[k][1], "plain_ms": kernels[k][2],
         }
         for k in cc.KERNELS

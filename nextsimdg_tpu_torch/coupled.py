@@ -1,31 +1,49 @@
-"""The coupled sea-ice model's dynamics step: mEVP + dG1 transport.
+"""The coupled sea-ice model: mEVP dynamics + dG1 transport + column physics.
 
-Counterpart of ``nextsimdg_tpu.coupled`` for the dynamics-only step
-(``do_thermo=False``) on a uniform, closed mesh. Per outer timestep:
+Counterpart of ``nextsimdg_tpu.coupled`` on a uniform, closed mesh. Per
+outer timestep:
 
 1. the per-step mEVP constants from the current cell means (h, A);
-2. one dynamics phase (``dynamics.kernels.coupled_cuda.fused_dynamics``):
+2. one dynamics phase (``dynamics.kernels.coupled_cuda.dynamics_phase``):
    N mEVP subcycles, CG1 -> quadrature sampling, the CFL substep count k
    and k limited SSP-RK dG1 steps of the stacked (hice, cice, hsnow);
-3. bounds: 0 <= A <= 1, h >= 0 on the cell means.
+3. bounds: 0 <= A <= 1, h >= 0 on the cell means;
+4. with ``do_thermo``, the column physics (``physics.NextsimPhysics``) on
+   the cell means, the higher DG moments rescaled to keep their shape.
 
-The momentum solver is always the CG1 ``MEVPSolver``, built directly: the
-port has no module registry yet, so free drift and the high-order solver
-cannot be selected. Column physics, land masks, device meshes and the TVB
-limiter are not ported yet and raise ``NotImplementedError``.
+On a CUDA card the dynamics phase runs one of two kernel schedules,
+chosen by ``mevp_backend`` and ``transport_backend`` (see
+``CoupledModel.__init__``); CPU tensors always run the plain PyTorch
+versions. The momentum solver is always the CG1 ``MEVPSolver``, built
+directly: the port has no module registry yet, so free drift and the
+high-order solver cannot be selected. Land masks, device meshes and the
+TVB limiter are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
 
-from .dynamics.kernels.coupled_cuda import fused_dynamics
+from .dynamics.kernels.coupled_cuda import dynamics_phase
 from .dynamics.mesh import RectMesh
 from .dynamics.mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
 from .dynamics.transport import DGTransport
+from .physics.nextsim_physics import NextsimPhysics
+from .state import Forcing, PrognosticState, safe_div
+
+MEVP_BACKENDS = ("auto", "pallas", "pallas-tiled")
+TRANSPORT_BACKENDS = ("auto", "xla", "tiled")
+#: Element count from which ``"auto"`` runs the tiled kernels on the card
+#: (mevp_tiled + transport_tiled) instead of K1's schedule. Re-derived on
+#: the H100 from chip_smoke.py's timings of both schedules' dynamics step:
+#: the tiled one was faster at every size measured, 64^2 to 1024^2, so the
+#: threshold is the smallest of them; below it nothing was measured and
+#: K1's schedule stays. See PERF.md.
+TILED_MIN_ELEMENTS = 64 * 64
 
 
 @dataclass(frozen=True)
@@ -53,16 +71,44 @@ class CoupledModel:
         degree: int = 1,
         mevp_params: MEVPParams = MEVPParams(),
         n_subcycles: int = 100,
+        physics: NextsimPhysics = None,
         spmd=(None, None),
         ocean_mask=None,
+        mevp_backend: str = "auto",
         transport_substeps: int = 1,
         auto_substeps: bool = True,
         tvb_m: float = None,
+        transport_backend: str = "auto",
     ) -> None:
         """``transport_substeps``: advect with k sub-steps of dt/k; with
         ``auto_substeps`` (default) k is chosen per step from the advective
         CFL number of the post-mEVP velocity and ``transport_substeps`` is
-        its floor."""
+        its floor. ``physics``: the column physics (default: the reference
+        chain with its default parameters).
+
+        The kernel schedule of the dynamics phase on a CUDA card (CPU
+        tensors always run the plain versions):
+
+        * ``mevp_backend``: ``"pallas"``, K1's schedule, the counterpart of
+          the JAX value that selects the fused whole-phase kernel: two
+          launches per subcycle, then one ``dg1_rk_stage`` per RK stage
+          (``transport_backend`` does not apply, as in the JAX fused path);
+          ``"pallas-tiled"``, the counterpart of the JAX tiled kernel:
+          ``mevp_tiled``, H subcycles per launch; ``"auto"``: the tiled
+          schedule from ``TILED_MIN_ELEMENTS`` elements, K1's below.
+        * ``transport_backend`` (with the tiled mEVP): ``"xla"``, the
+          counterpart of the JAX staged path: one ``dg1_rk_stage`` per RK
+          stage; ``"tiled"``, the counterpart of the JAX tiled kernel:
+          ``transport_tiled``, whole substeps per launch; ``"auto"``: tiled
+          from ``TILED_MIN_ELEMENTS`` elements for rk1/rk2, staged below.
+        """
+        if mevp_backend not in MEVP_BACKENDS:
+            raise ValueError(f"mevp_backend must be one of {MEVP_BACKENDS}, got {mevp_backend!r}")
+        if transport_backend not in TRANSPORT_BACKENDS:
+            raise ValueError(
+                f"transport_backend must be one of {TRANSPORT_BACKENDS}, "
+                f"got {transport_backend!r}"
+            )
         if any(axis is not None for axis in spmd):
             raise NotImplementedError("device meshes (spmd) are not ported yet")
         if ocean_mask is not None:
@@ -75,6 +121,29 @@ class CoupledModel:
         self.n_subcycles = int(n_subcycles)
         self.transport_substeps = max(1, int(transport_substeps))
         self.auto_substeps = bool(auto_substeps)
+        self.mevp_backend = mevp_backend
+        self.transport_backend = transport_backend
+        self.physics = NextsimPhysics() if physics is None else physics
+
+    # -- kernel schedule -----------------------------------------------------
+    def mevp_schedule(self) -> str:
+        """``"pallas"`` (K1's schedule) or ``"pallas-tiled"`` (mevp_tiled)."""
+        if self.mevp_backend != "auto":
+            return self.mevp_backend
+        tiled = self.mesh.n_elements >= TILED_MIN_ELEMENTS
+        return "pallas-tiled" if tiled else "pallas"
+
+    def transport_schedule(self) -> str:
+        """``"xla"`` (one dg1_rk_stage per stage) or ``"tiled"``."""
+        if self.mevp_schedule() == "pallas":
+            return "xla"
+        if self.transport_backend != "auto":
+            return self.transport_backend
+        tiled = (
+            self.mesh.n_elements >= TILED_MIN_ELEMENTS
+            and self.transport.scheme in ("rk1", "rk2")
+        )
+        return "tiled" if tiled else "xla"
 
     # -- state construction --------------------------------------------------
     def initial_state(
@@ -108,11 +177,12 @@ class CoupledModel:
     # -- one coupled timestep ------------------------------------------------
     def step_dynamics(
         self, state: CoupledState, dyn_forcing: DynamicsForcing, dt: float,
-        phase=fused_dynamics,
+        phase=None,
     ) -> CoupledState:
-        """mEVP + transport + bounds. ``phase`` runs the dynamics phase;
-        passing ``coupled_cuda.fused_dynamics_reference`` runs the plain
-        PyTorch path on any device, for comparison with the kernels."""
+        """mEVP + transport + bounds. ``phase`` runs the dynamics phase
+        (default: ``coupled_cuda.dynamics_phase`` on this model's kernel
+        schedule); passing ``coupled_cuda.fused_dynamics_reference`` runs the
+        plain PyTorch path on any device, for comparison with the kernels."""
         hice, cice, hsnow = state.hice, state.cice, state.hsnow
         velocity = state.velocity
         mask = self.node_mask(device=hice.device, dtype=hice.dtype)
@@ -122,6 +192,10 @@ class CoupledModel:
         )
         tracers = torch.stack([hice, cice, hsnow], dim=1)
         carry0 = (velocity.u, velocity.v, velocity.s11, velocity.s22, velocity.s12)
+        if phase is None:
+            phase = functools.partial(
+                dynamics_phase, mevp=self.mevp_schedule(), transport=self.transport_schedule()
+            )
         final, tracers = phase(self, carry0, tracers, consts, dt, self.n_subcycles)
         velocity = VelocityState(
             u=final[0], v=final[1], s11=final[2], s22=final[3], s12=final[4],
@@ -135,21 +209,43 @@ class CoupledModel:
             velocity=velocity,
         )
 
+    def step_thermo(self, state: CoupledState, phys_forcing: Forcing, dt: float) -> CoupledState:
+        """Column physics on the cell means; the higher DG moments are
+        rescaled by new/old mean, so the sub-element shape is kept."""
+        if not isinstance(phys_forcing, Forcing):
+            raise ValueError(
+                f"the column physics needs a state.Forcing, got {type(phys_forcing).__name__}"
+            )
+        hice, cice, hsnow = state.hice, state.cice, state.hsnow
+        prog = PrognosticState(
+            hice=hice[0], cice=cice[0], hsnow=hsnow[0],
+            sst=state.sst, sss=state.sss, tice=state.tice,
+        )
+        updated, diags = self.physics.step(prog, phys_forcing, state.new_ice, dt)
+        return dataclasses.replace(
+            state,
+            hice=_rescale_dg(hice, updated.hice),
+            cice=_rescale_dg(cice, updated.cice),
+            hsnow=_rescale_dg(hsnow, updated.hsnow),
+            sst=updated.sst,
+            sss=updated.sss,
+            tice=updated.tice,
+            new_ice=diags.new_ice,
+        )
+
     def step(
         self,
         state: CoupledState,
-        phys_forcing,
+        phys_forcing: Forcing,
         dyn_forcing: DynamicsForcing,
         dt: float,
         do_dynamics: bool = True,
         do_thermo: bool = True,
     ) -> CoupledState:
-        if do_thermo:
-            raise NotImplementedError(
-                "the column physics is not ported yet: call with do_thermo=False"
-            )
         if do_dynamics:
             state = self.step_dynamics(state, dyn_forcing, dt)
+        if do_thermo:
+            state = self.step_thermo(state, phys_forcing, dt)
         return state
 
     def run(
@@ -179,7 +275,5 @@ def _clamp_dg(coeffs, lo, hi):
 
 def _rescale_dg(coeffs, new_mean):
     """Replace the mean, scaling higher moments by new/old (shape-preserving)."""
-    old_mean = coeffs[0]
-    nonzero = old_mean != 0
-    ratio = torch.where(nonzero, new_mean / torch.where(nonzero, old_mean, 1.0), 0.0)
+    ratio = safe_div(new_mean, coeffs[0])
     return torch.cat([new_mean[None], coeffs[1:] * ratio[None]], dim=0)

@@ -22,6 +22,14 @@ __device__ __forceinline__ float at(const float* f, int i, int j, int nx, int ny
   return (i >= 0 && i < nx && j >= 0 && j < ny) ? f[i * ny + j] : 0.0f;
 }
 
+// Row of cell idx of a region r cells wide, by a float multiply instead of
+// an integer division: (idx + 0.5) / r lies at least 0.5 / r from an
+// integer and the product errs by less than r * 2^-22, so the truncation
+// is exact for r up to 1024. inv_r is 1.0f / r.
+__device__ __forceinline__ int region_row(int idx, float inv_r) {
+  return static_cast<int>((static_cast<float>(idx) + 0.5f) * inv_r);
+}
+
 inline dim3 plane_grid(int nx, int ny) {
   return dim3((ny + kBlockX - 1) / kBlockX, (nx + kBlockY - 1) / kBlockY);
 }

@@ -1,0 +1,183 @@
+// One limited SSP-RK stage of the dG1 transport, one element at a time.
+//
+// Both schedules of the transport phase call dg1_stage_cell: transport.cu
+// (one grid-wide launch per RK stage) and transport_tiled.cu (whole substeps
+// per launch on a shared-memory window). With --fmad=false they run the
+// same float32 operations in the same order, so they agree bit for bit.
+//
+// The dG1 and 2-point Gauss table entries arrive in Dg1Tables, packed by
+// coupled_cuda.py from the port's DGTransport, so the kernels and the plain
+// version share one source. The sums run densely over every table entry in
+// the plain version's ascending order: with --fmad=false a zero entry adds
+// an exact zero and a unit entry multiplies exactly, which is what the
+// plain version's skipped terms amount to. The edge terms' division by the
+// element width is a multiply by its float32 reciprocal, as PyTorch on CUDA
+// divides a tensor by a Python scalar.
+#pragma once
+
+#include "common.cuh"
+
+namespace nst {
+
+constexpr int kDofs = 3;   // dG1
+constexpr int kVol = 4;    // 2x2 Gauss volume points
+constexpr int kEdge = 2;   // 2 Gauss points per face
+
+// Table entries, in the order that coupled_cuda.py packs them.
+struct Dg1Tables {
+  float w_vol[kVol][4];          // bilinear weights of nodes 00, 10, 01, 11
+  float w_edge[kEdge][2];        // (1 - s, s) along a face
+  float psi_vol[kDofs][kVol];    // basis at volume points
+  float wgx[kVol][kDofs];        // w_q dphi_k/dx at volume points (q, k)
+  float wgy[kVol][kDofs];
+  float psi_x0[kDofs][kEdge];    // traces on the left, right, bottom, top faces
+  float psi_x1[kDofs][kEdge];
+  float psi_y0[kDofs][kEdge];
+  float psi_y1[kDofs][kEdge];
+  float wa_x0[kDofs][kEdge];     // traces times edge weights
+  float wa_x1[kDofs][kEdge];
+  float wa_y0[kDofs][kEdge];
+  float wa_y1[kDofs][kEdge];
+  float inv_mass[kDofs];
+  float inv_dx, inv_dy;          // volume term
+  float edge_inv_dx, edge_inv_dy; // float32 reciprocals of the widths (edge terms)
+};
+
+// The CG1 velocity at an element's nodes (i, j), (i+1, j), (i, j+1), (i+1, j+1).
+struct Corners {
+  float u00, u10, u01, u11, v00, v10, v01, v11;
+};
+
+__device__ __forceinline__ float bilinear(const float w[4], float f00, float f10,
+                                          float f01, float f11) {
+  return f00 * w[0] + f10 * w[1] + f01 * w[2] + f11 * w[3];
+}
+
+__device__ __forceinline__ float along_face(const float w[2], float f0, float f1) {
+  return f0 * w[0] + f1 * w[1];
+}
+
+// sum_k table[k][e] * c[k], ascending k.
+__device__ __forceinline__ float trace(const float table[kDofs][kEdge], int e,
+                                       const float c[kDofs]) {
+  float acc = table[0][e] * c[0];
+#pragma unroll
+  for (int k = 1; k < kDofs; ++k) acc = acc + table[k][e] * c[k];
+  return acc;
+}
+
+// The velocity at an element's quadrature points and on its four faces (the
+// right face is element (i+1, j)'s left face, the top face element
+// (i, j+1)'s bottom face).
+struct Dg1Velocity {
+  float vx[kVol], vy[kVol];
+  float vn_left[kEdge], vn_right[kEdge], vn_bottom[kEdge], vn_top[kEdge];
+};
+
+__device__ __forceinline__ Dg1Velocity sample_velocity(const Dg1Tables& tb,
+                                                       const Corners& c) {
+  Dg1Velocity q;
+#pragma unroll
+  for (int k = 0; k < kVol; ++k) {
+    q.vx[k] = bilinear(tb.w_vol[k], c.u00, c.u10, c.u01, c.u11);
+    q.vy[k] = bilinear(tb.w_vol[k], c.v00, c.v10, c.v01, c.v11);
+  }
+#pragma unroll
+  for (int e = 0; e < kEdge; ++e) {
+    q.vn_left[e] = along_face(tb.w_edge[e], c.u00, c.u01);
+    q.vn_right[e] = along_face(tb.w_edge[e], c.u10, c.u11);
+    q.vn_bottom[e] = along_face(tb.w_edge[e], c.v00, c.v10);
+    q.vn_top[e] = along_face(tb.w_edge[e], c.v01, c.v11);
+  }
+  return q;
+}
+
+// Where an element sits against the closed domain, and its face masks: the
+// global x = 0 and y = 0 faces are walls (zero flux), and beyond nx or ny
+// there is no right or top neighbour.
+struct Dg1Faces {
+  bool left_wall, has_right, bottom_wall, has_top;
+  float fx_left, fx_right, fy_bottom, fy_top;
+};
+
+// out = lim(a*base + b*(p + dt*rhs(p))), or lim(p + dt*rhs(p)) when a == 0,
+// for one tracer of one element: p its coefficients, p_l/p_r/p_b/p_t those
+// of its left, right, bottom and top neighbours (zeros beyond the domain).
+// `base` is read only when a != 0.
+__device__ __forceinline__ void dg1_stage_cell(
+    const Dg1Tables& tb, const Dg1Velocity& q, const Dg1Faces& f,
+    const float p[kDofs], const float p_l[kDofs], const float p_r[kDofs],
+    const float p_b[kDofs], const float p_t[kDofs], const float base[kDofs],
+    float a, float b, float dt, float out[kDofs]) {
+  // Volume term, streamed over the quadrature points.
+  float acc_x[kDofs], acc_y[kDofs];
+#pragma unroll
+  for (int k = 0; k < kVol; ++k) {
+    float pq = tb.psi_vol[0][k] * p[0];
+#pragma unroll
+    for (int d = 1; d < kDofs; ++d) pq = pq + tb.psi_vol[d][k] * p[d];
+    const float fx = q.vx[k] * pq;
+    const float fy = q.vy[k] * pq;
+#pragma unroll
+    for (int d = 0; d < kDofs; ++d) {
+      acc_x[d] = k == 0 ? tb.wgx[k][d] * fx : acc_x[d] + tb.wgx[k][d] * fx;
+      acc_y[d] = k == 0 ? tb.wgy[k][d] * fy : acc_y[d] + tb.wgy[k][d] * fy;
+    }
+  }
+
+  // Upwind normal fluxes on the four faces.
+  float g_left[kEdge], g_right[kEdge], g_bottom[kEdge], g_top[kEdge];
+#pragma unroll
+  for (int e = 0; e < kEdge; ++e) {
+    // Left face (i): upwind between element (i-1, j) and this one.
+    float up = q.vn_left[e] >= 0.0f ? trace(tb.psi_x1, e, p_l) : trace(tb.psi_x0, e, p);
+    g_left[e] = f.left_wall ? 0.0f : q.vn_left[e] * up;
+    g_left[e] = g_left[e] * f.fx_left;
+    // Right face (i+1): this element against element (i+1, j).
+    up = q.vn_right[e] >= 0.0f ? trace(tb.psi_x1, e, p) : trace(tb.psi_x0, e, p_r);
+    g_right[e] = f.has_right ? (q.vn_right[e] * up) * f.fx_right : 0.0f;
+    // Bottom face (j).
+    up = q.vn_bottom[e] >= 0.0f ? trace(tb.psi_y1, e, p_b) : trace(tb.psi_y0, e, p);
+    g_bottom[e] = f.bottom_wall ? 0.0f : q.vn_bottom[e] * up;
+    g_bottom[e] = g_bottom[e] * f.fy_bottom;
+    // Top face (j+1).
+    up = q.vn_top[e] >= 0.0f ? trace(tb.psi_y1, e, p) : trace(tb.psi_y0, e, p_t);
+    g_top[e] = f.has_top ? (q.vn_top[e] * up) * f.fy_top : 0.0f;
+  }
+
+  float val[kDofs];
+#pragma unroll
+  for (int d = 0; d < kDofs; ++d) {
+    const float volume = acc_x[d] * tb.inv_dx + acc_y[d] * tb.inv_dy;
+    float in_x = tb.wa_x1[d][0] * g_right[0];
+    float out_x = tb.wa_x0[d][0] * g_left[0];
+    float in_y = tb.wa_y1[d][0] * g_top[0];
+    float out_y = tb.wa_y0[d][0] * g_bottom[0];
+#pragma unroll
+    for (int e = 1; e < kEdge; ++e) {
+      in_x = in_x + tb.wa_x1[d][e] * g_right[e];
+      out_x = out_x + tb.wa_x0[d][e] * g_left[e];
+      in_y = in_y + tb.wa_y1[d][e] * g_top[e];
+      out_y = out_y + tb.wa_y0[d][e] * g_bottom[e];
+    }
+    const float edge_x = (in_x - out_x) * tb.edge_inv_dx;
+    const float edge_y = (in_y - out_y) * tb.edge_inv_dy;
+    const float rhs = tb.inv_mass[d] * (volume - edge_x - edge_y);
+    val[d] = p[d] + dt * rhs;
+    if (a != 0.0f) val[d] = a * base[d] + b * val[d];
+  }
+
+  // dG1 positivity limiter: the linear polynomial's minimum is at a
+  // corner, mean - (|s1| + |s2|)/2.
+  const float mean = val[0];
+  const float mins = mean - 0.5f * (fabsf(val[1]) + fabsf(val[2]));
+  const float deficit = mean - mins;
+  const float theta =
+      mins < 0.0f ? fminf(fmaxf(mean / (deficit > 0.0f ? deficit : 1.0f), 0.0f), 1.0f)
+                  : 1.0f;
+  out[0] = mean;
+  out[1] = val[1] * theta;
+  out[2] = val[2] * theta;
+}
+
+}  // namespace nst

@@ -25,32 +25,13 @@
 // launches (recomputing the neighbours' stresses), a persistent kernel or a
 // CUDA graph over the subcycle loop is left for later.
 //
-// The expression order is that of MEVPSolver.stress_update and
-// MEVPSolver.velocity_update in nextsimdg_tpu_torch/dynamics/mevp.py.
+// The element and node bodies live in mevp_body.cuh, shared with the tiled
+// schedule of mevp_tiled.cu.
 #include <cstring>
 
-#include "common.cuh"
+#include "mevp_body.cuh"
 
 namespace nst {
-
-// Scalars of one subcycle, in the order that coupled_cuda.py packs them.
-struct MevpScalars {
-  float dx, dy;            // element widths [m]
-  float c_delta1;          // 1 + 1/e^2
-  float c_delta2;          // 1 - 1/e^2
-  float c_delta3;          // 4/e^2
-  float rho_cd_ocean;      // rho_ocean * cd_ocean
-  float delta_min;
-  float one_plus_beta;     // 1 + beta
-  float inv_e2;            // 1/e^2
-  float inv_alpha;         // 1/alpha
-  float half_dx, half_dy;  // 0.5 dx, 0.5 dy
-  float inv_w;             // 1/(dx dy)
-  float beta;
-  float f_cor;             // Coriolis parameter (0 without Coriolis)
-  float neg_f_cor;         // -f_cor
-  float dt;                // outer time step [s]
-};
 
 __global__ void mevp_stress_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
@@ -63,46 +44,25 @@ __global__ void mevp_stress_kernel(
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
   const int ij = i * ny + j;
+  const StressOut o = mevp_stress_body(
+      u[ij], at(u, i + 1, j, nx, ny), at(u, i, j + 1, nx, ny),
+      at(u, i + 1, j + 1, nx, ny), v[ij], at(v, i + 1, j, nx, ny),
+      at(v, i, j + 1, nx, ny), at(v, i + 1, j + 1, nx, ny), s11[ij], s22[ij],
+      s12[ij], strength[ij], dt_m[ij], active[ij], u_ocean[ij], v_ocean[ij], s);
+  s11[ij] = o.s11;
+  s22[ij] = o.s22;
+  s12[ij] = o.s12;
+  c_w_out[ij] = o.c_w;
+  inv_drag_out[ij] = o.inv_drag;
+}
 
-  // Strain rates from the element's four corner nodes.
-  const float u00 = u[ij], v00 = v[ij];
-  const float u10 = at(u, i + 1, j, nx, ny), v10 = at(v, i + 1, j, nx, ny);
-  const float u01 = at(u, i, j + 1, nx, ny), v01 = at(v, i, j + 1, nx, ny);
-  const float u11 = at(u, i + 1, j + 1, nx, ny), v11 = at(v, i + 1, j + 1, nx, ny);
-  const float e11 = 0.5f * ((u10 - u00) + (u11 - u01)) / s.dx;
-  const float e22 = 0.5f * ((v01 - v00) + (v11 - v10)) / s.dy;
-  const float du_dy = 0.5f * ((u01 - u00) + (u11 - u10)) / s.dy;
-  const float dv_dx = 0.5f * ((v10 - v00) + (v11 - v01)) / s.dx;
-  const float e12 = 0.5f * (du_dy + dv_dx);
-  const float delta = sqrtf((e11 * e11 + e22 * e22) * s.c_delta1 +
-                            2.0f * e11 * e22 * s.c_delta2 +
-                            s.c_delta3 * e12 * e12);
-
-  // The shared divide: element (i, j)'s Delta + Delta_min and node (i, j)'s
-  // 1 + beta + dt_m c_w.
-  const float rel_u = u_ocean[ij] - u00;
-  const float rel_v = v_ocean[ij] - v00;
-  const float c_w = s.rho_cd_ocean * sqrtf(rel_u * rel_u + rel_v * rel_v);
-  const float denom_rheo = delta + s.delta_min;
-  const float denom_drag = s.one_plus_beta + dt_m[ij] * c_w;
-  const float inv_both = 1.0f / (denom_rheo * denom_drag);
-  const float inv_denom = inv_both * denom_drag;
-  const float inv_drag = active[ij] * (inv_both * denom_rheo);
-  const float p = strength[ij];
-  const float zeta = 0.5f * p * inv_denom;
-  const float eta = zeta * s.inv_e2;
-  const float p_rep = p * delta * inv_denom;
-
-  const float div = e11 + e22;
-  const float s11_vp = 2.0f * eta * e11 + (zeta - eta) * div - 0.5f * p_rep;
-  const float s22_vp = 2.0f * eta * e22 + (zeta - eta) * div - 0.5f * p_rep;
-  const float s12_vp = 2.0f * eta * e12;
-  const float a11 = s11[ij], a22 = s22[ij], a12 = s12[ij];
-  s11[ij] = a11 + (s11_vp - a11) * s.inv_alpha;
-  s22[ij] = a22 + (s22_vp - a22) * s.inv_alpha;
-  s12[ij] = a12 + (s12_vp - a12) * s.inv_alpha;
-  c_w_out[ij] = c_w;
-  inv_drag_out[ij] = inv_drag;
+__device__ __forceinline__ Around around(const float* f, int i, int j, int nx, int ny) {
+  Around a;
+  a.c = f[i * ny + j];
+  a.x = at(f, i - 1, j, nx, ny);
+  a.y = at(f, i, j - 1, nx, ny);
+  a.xy = at(f, i - 1, j - 1, nx, ny);
+  return a;
 }
 
 __global__ void mevp_velocity_kernel(
@@ -117,30 +77,12 @@ __global__ void mevp_velocity_kernel(
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
   const int ij = i * ny + j;
-
-  // Stress divergence: node (i, j) reads elements (i-1..i, j-1..j). The
-  // single-component scatters go through t = cell + shift, as the plain
-  // version's 13-shift factoring does.
-  const float t11 = s11[ij] + at(s11, i, j - 1, nx, ny);
-  const float t11_m = at(s11, i - 1, j, nx, ny) + at(s11, i - 1, j - 1, nx, ny);
-  const float t22 = s22[ij] + at(s22, i - 1, j, nx, ny);
-  const float t22_m = at(s22, i, j - 1, nx, ny) + at(s22, i - 1, j - 1, nx, ny);
-  const float c12 = s12[ij];
-  const float c12_x = at(s12, i - 1, j, nx, ny);
-  const float c12_y = at(s12, i, j - 1, nx, ny);
-  const float c12_xy = at(s12, i - 1, j - 1, nx, ny);
-  float fu = s.half_dy * (t11 - t11_m) + s.half_dx * ((c12_x + c12) - (c12_xy + c12_y));
-  float fv = s.half_dy * ((c12_y + c12) - (c12_xy + c12_x)) + s.half_dx * (t22 - t22_m);
-  fu = fu * s.inv_w;
-  fv = fv * s.inv_w;
-
-  const float u0 = u[ij], v0 = v[ij];
-  const float uo = u_ocean[ij], vo = v_ocean[ij];
-  const float cw = c_w[ij], dtm = dt_m[ij];
-  const float cor_u = s.f_cor * (v0 - vo);
-  const float cor_v = s.neg_f_cor * (u0 - uo);
-  u[ij] = (s.beta * u0 + b_u[ij] + dtm * (fu + cw * uo) + s.dt * cor_u) * inv_drag[ij];
-  v[ij] = (s.beta * v0 + b_v[ij] + dtm * (fv + cw * vo) + s.dt * cor_v) * inv_drag[ij];
+  const float2 uv = mevp_velocity_body(
+      around(s11, i, j, nx, ny), around(s22, i, j, nx, ny), around(s12, i, j, nx, ny),
+      u[ij], v[ij], u_ocean[ij], v_ocean[ij], c_w[ij], dt_m[ij], b_u[ij], b_v[ij],
+      inv_drag[ij], s);
+  u[ij] = uv.x;
+  v[ij] = uv.y;
 }
 
 }  // namespace nst

@@ -21,12 +21,8 @@
 //                  the dG1 corner positivity limiter. It reads its neighbours'
 //                  psi, so `out` must not alias `psi` (it may alias `base`).
 //
-// The dG1 and 2-point Gauss table entries arrive in Dg1Tables, packed by
-// coupled_cuda.py from the port's DGTransport, so the kernel and the plain
-// version share one source. The sums run densely over every table entry in
-// the plain version's ascending order: with --fmad=false a zero entry adds
-// an exact zero and a unit entry multiplies exactly, which is what the
-// plain version's skipped terms amount to.
+// The tables, the velocity sampling and the per-element stage math live in
+// dg1_body.cuh, shared with the tiled schedule of transport_tiled.cu.
 //
 // What bounds it on the H100: a stage reads u, v, the two face planes and
 // 9 coefficient planes with a 5-point stencil, and writes 9 (about 88 bytes
@@ -35,37 +31,9 @@
 // Keeping k on the device and fusing the stages is left for later.
 #include <cstring>
 
-#include "common.cuh"
+#include "dg1_body.cuh"
 
 namespace nst {
-
-constexpr int kDofs = 3;   // dG1
-constexpr int kVol = 4;    // 2x2 Gauss volume points
-constexpr int kEdge = 2;   // 2 Gauss points per face
-
-// Table entries, in the order that coupled_cuda.py packs them.
-struct Dg1Tables {
-  float w_vol[kVol][4];          // bilinear weights of nodes 00, 10, 01, 11
-  float w_edge[kEdge][2];        // (1 - s, s) along a face
-  float psi_vol[kDofs][kVol];    // basis at volume points
-  float wgx[kVol][kDofs];        // w_q dphi_k/dx at volume points (q, k)
-  float wgy[kVol][kDofs];
-  float psi_x0[kDofs][kEdge];    // traces on the left, right, bottom, top faces
-  float psi_x1[kDofs][kEdge];
-  float psi_y0[kDofs][kEdge];
-  float psi_y1[kDofs][kEdge];
-  float wa_x0[kDofs][kEdge];     // traces times edge weights
-  float wa_x1[kDofs][kEdge];
-  float wa_y0[kDofs][kEdge];
-  float wa_y1[kDofs][kEdge];
-  float inv_mass[kDofs];
-  float inv_dx, inv_dy;          // volume term
-  float dx, dy;                  // edge terms divide by the widths
-};
-
-struct Corners {
-  float u00, u10, u01, u11, v00, v10, v01, v11;
-};
 
 __device__ __forceinline__ Corners load_corners(const float* u, const float* v,
                                                 int i, int j, int nx, int ny) {
@@ -79,24 +47,6 @@ __device__ __forceinline__ Corners load_corners(const float* u, const float* v,
   c.v01 = at(v, i, j + 1, nx, ny);
   c.v11 = at(v, i + 1, j + 1, nx, ny);
   return c;
-}
-
-__device__ __forceinline__ float bilinear(const float w[4], float f00, float f10,
-                                          float f01, float f11) {
-  return f00 * w[0] + f10 * w[1] + f01 * w[2] + f11 * w[3];
-}
-
-__device__ __forceinline__ float along_face(const float w[2], float f0, float f1) {
-  return f0 * w[0] + f1 * w[1];
-}
-
-// sum_k table[k][e] * c[k], ascending k.
-__device__ __forceinline__ float trace(const float table[kDofs][kEdge], int e,
-                                       const float c[kDofs]) {
-  float acc = table[0][e] * c[0];
-#pragma unroll
-  for (int k = 1; k < kDofs; ++k) acc = acc + table[k][e] * c[k];
-  return acc;
 }
 
 __device__ __forceinline__ void load_coeffs(const float* psi, int t, int n_tracers,
@@ -166,110 +116,32 @@ __global__ void dg1_rk_stage_kernel(
   const int ij = i * ny + j;
   const long plane = static_cast<long>(nx) * ny;
 
-  // The velocity at this element's quadrature points and on its four faces
-  // (the right face is element (i+1, j)'s left face, the top face element
-  // (i, j+1)'s bottom face; beyond nx or ny they are walls).
-  const Corners c = load_corners(u, v, i, j, nx, ny);
-  float vx[kVol], vy[kVol];
-#pragma unroll
-  for (int q = 0; q < kVol; ++q) {
-    vx[q] = bilinear(tb.w_vol[q], c.u00, c.u10, c.u01, c.u11);
-    vy[q] = bilinear(tb.w_vol[q], c.v00, c.v10, c.v01, c.v11);
-  }
-  const bool has_right = i + 1 < nx, has_top = j + 1 < ny;
-  float vn_left[kEdge], vn_right[kEdge], vn_bottom[kEdge], vn_top[kEdge];
-#pragma unroll
-  for (int e = 0; e < kEdge; ++e) {
-    vn_left[e] = along_face(tb.w_edge[e], c.u00, c.u01);
-    vn_right[e] = along_face(tb.w_edge[e], c.u10, c.u11);
-    vn_bottom[e] = along_face(tb.w_edge[e], c.v00, c.v10);
-    vn_top[e] = along_face(tb.w_edge[e], c.v01, c.v11);
-  }
-  const float fx_left = face_x[ij];
-  const float fx_right = has_right ? face_x[ij + ny] : 0.0f;
-  const float fy_bottom = face_y[ij];
-  const float fy_top = has_top ? face_y[ij + 1] : 0.0f;
+  const Dg1Velocity q = sample_velocity(tb, load_corners(u, v, i, j, nx, ny));
+  Dg1Faces f;
+  f.left_wall = i == 0;
+  f.has_right = i + 1 < nx;
+  f.bottom_wall = j == 0;
+  f.has_top = j + 1 < ny;
+  f.fx_left = face_x[ij];
+  f.fx_right = f.has_right ? face_x[ij + ny] : 0.0f;
+  f.fy_bottom = face_y[ij];
+  f.fy_top = f.has_top ? face_y[ij + 1] : 0.0f;
 
   for (int t = 0; t < n_tracers; ++t) {
-    float p[kDofs], p_l[kDofs], p_r[kDofs], p_b[kDofs], p_t[kDofs];
+    float p[kDofs], p_l[kDofs], p_r[kDofs], p_b[kDofs], p_t[kDofs], p0[kDofs];
     load_coeffs(psi, t, n_tracers, i, j, nx, ny, p);
     load_coeffs(psi, t, n_tracers, i - 1, j, nx, ny, p_l);
     load_coeffs(psi, t, n_tracers, i + 1, j, nx, ny, p_r);
     load_coeffs(psi, t, n_tracers, i, j - 1, nx, ny, p_b);
     load_coeffs(psi, t, n_tracers, i, j + 1, nx, ny, p_t);
-
-    // Volume term, streamed over the quadrature points.
-    float acc_x[kDofs], acc_y[kDofs];
-#pragma unroll
-    for (int q = 0; q < kVol; ++q) {
-      float pq = tb.psi_vol[0][q] * p[0];
-#pragma unroll
-      for (int k = 1; k < kDofs; ++k) pq = pq + tb.psi_vol[k][q] * p[k];
-      const float fx = vx[q] * pq;
-      const float fy = vy[q] * pq;
-#pragma unroll
-      for (int k = 0; k < kDofs; ++k) {
-        acc_x[k] = q == 0 ? tb.wgx[q][k] * fx : acc_x[k] + tb.wgx[q][k] * fx;
-        acc_y[k] = q == 0 ? tb.wgy[q][k] * fy : acc_y[k] + tb.wgy[q][k] * fy;
-      }
-    }
-
-    // Upwind normal fluxes on the four faces.
-    float g_left[kEdge], g_right[kEdge], g_bottom[kEdge], g_top[kEdge];
-#pragma unroll
-    for (int e = 0; e < kEdge; ++e) {
-      // Left face (i): upwind between element (i-1, j) and this one; the
-      // global i = 0 face is a wall.
-      float up = vn_left[e] >= 0.0f ? trace(tb.psi_x1, e, p_l) : trace(tb.psi_x0, e, p);
-      g_left[e] = i == 0 ? 0.0f : vn_left[e] * up;
-      g_left[e] = g_left[e] * fx_left;
-      // Right face (i+1): this element against element (i+1, j).
-      up = vn_right[e] >= 0.0f ? trace(tb.psi_x1, e, p) : trace(tb.psi_x0, e, p_r);
-      g_right[e] = has_right ? (vn_right[e] * up) * fx_right : 0.0f;
-      // Bottom face (j), with the global j = 0 wall.
-      up = vn_bottom[e] >= 0.0f ? trace(tb.psi_y1, e, p_b) : trace(tb.psi_y0, e, p);
-      g_bottom[e] = j == 0 ? 0.0f : vn_bottom[e] * up;
-      g_bottom[e] = g_bottom[e] * fy_bottom;
-      // Top face (j+1).
-      up = vn_top[e] >= 0.0f ? trace(tb.psi_y1, e, p) : trace(tb.psi_y0, e, p_t);
-      g_top[e] = has_top ? (vn_top[e] * up) * fy_top : 0.0f;
-    }
-
-    float val[kDofs];
 #pragma unroll
     for (int k = 0; k < kDofs; ++k) {
-      const float volume = acc_x[k] * tb.inv_dx + acc_y[k] * tb.inv_dy;
-      float in_x = tb.wa_x1[k][0] * g_right[0];
-      float out_x = tb.wa_x0[k][0] * g_left[0];
-      float in_y = tb.wa_y1[k][0] * g_top[0];
-      float out_y = tb.wa_y0[k][0] * g_bottom[0];
-#pragma unroll
-      for (int e = 1; e < kEdge; ++e) {
-        in_x = in_x + tb.wa_x1[k][e] * g_right[e];
-        out_x = out_x + tb.wa_x0[k][e] * g_left[e];
-        in_y = in_y + tb.wa_y1[k][e] * g_top[e];
-        out_y = out_y + tb.wa_y0[k][e] * g_bottom[e];
-      }
-      const float edge_x = (in_x - out_x) / tb.dx;
-      const float edge_y = (in_y - out_y) / tb.dy;
-      const float rhs = tb.inv_mass[k] * (volume - edge_x - edge_y);
-      val[k] = p[k] + dt * rhs;
-      if (a != 0.0f) {
-        val[k] = a * base[(k * n_tracers + t) * plane + ij] + b * val[k];
-      }
+      p0[k] = a != 0.0f ? base[(k * n_tracers + t) * plane + ij] : 0.0f;
     }
-
-    // dG1 positivity limiter: the linear polynomial's minimum is at a
-    // corner, mean - (|s1| + |s2|)/2.
-    const float mean = val[0];
-    const float mins = mean - 0.5f * (fabsf(val[1]) + fabsf(val[2]));
-    const float deficit = mean - mins;
-    const float theta =
-        mins < 0.0f ? fminf(fmaxf(mean / (deficit > 0.0f ? deficit : 1.0f), 0.0f), 1.0f)
-                    : 1.0f;
-    out[(0 * n_tracers + t) * plane + ij] = mean;
-    out[(1 * n_tracers + t) * plane + ij] = val[1] * theta;
-    out[(2 * n_tracers + t) * plane + ij] = val[2] * theta;
+    float val[kDofs];
+    dg1_stage_cell(tb, q, f, p, p_l, p_r, p_b, p_t, p0, a, b, dt, val);
+#pragma unroll
+    for (int k = 0; k < kDofs; ++k) out[(k * n_tracers + t) * plane + ij] = val[k];
   }
 }
 

@@ -23,9 +23,12 @@ speeds are read back once to fix k (one host sync), then one
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
 anything else and never falls back. ``launches`` counts the kernel
-launches per kernel. The kernels are built with ``nvcc`` for ``sm_90a`` at
-first use into ``build/nextsimdg_tpu_torch/`` beside the package, keyed on
-a hash of the sources and flags, and bound with ``ctypes``.
+launches per kernel, the ghost-zone tiled kernels of ``mevp_tiled_cuda``
+and ``transport_tiled_cuda`` included. Every ``csrc/*.cu`` is built with
+``nvcc`` for ``sm_90a`` at first use (one compiler process per source, all
+started together, then one link) into one library in
+``build/nextsimdg_tpu_torch/`` beside the package, keyed on a hash of the
+sources and flags, and bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..mevp import MEVPSolver
@@ -45,7 +49,10 @@ from ..transport import (
     substeps_from_speeds, velocity_from_cg,
 )
 
-KERNELS = ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage")
+KERNELS = (
+    "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage",
+    "mevp_tiled", "transport_tiled",
+)
 
 #: Launches per kernel since the last ``reset_launches()``.
 launches = dict.fromkeys(KERNELS, 0)
@@ -56,12 +63,13 @@ BUILD_DIR = _PACKAGE.parent / "build" / "nextsimdg_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # Each multiply and add rounds on its own, like the plain version's
-    # separate tensor operations: the CFL speeds then match exactly, and
-    # the rest to a few ulp (PyTorch on CUDA divides by a scalar through
-    # its reciprocal; the kernels divide).
+    # separate tensor operations, so kernel and plain version agree to the
+    # ulp (measured: exactly, on the H100), and the schedules that share
+    # an element body agree bit for bit.
     "--fmad=false",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-shared",)
 
 _MEVP_CONSTS = ("strength", "dt_m", "active", "b_u", "b_v", "u_ocean", "v_ocean")
 _RK_STAGES = {
@@ -85,7 +93,7 @@ def _sources():
 
 def library_path() -> Path:
     """Where the library of the current sources and flags is built."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     cu, cuh = _sources()
     for path in cu + cuh:
         digest.update(path.name.encode())
@@ -106,7 +114,8 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the kernels unless the library of these sources exists.
 
-    The compiler's report (registers, spills per kernel) is kept beside the
+    One ``nvcc -c`` per source runs in parallel, then one link. The
+    compilers' report (registers, spills per kernel) is kept beside the
     library as ``.log``.
     """
     path = library_path()
@@ -114,14 +123,33 @@ def build() -> Path:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    done = subprocess.run(cmd, cwd=CSRC, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(done.stdout + done.stderr)
-    if done.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({done.returncode}):\n{done.stdout}{done.stderr}"
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{path.stem}.{os.getpid()}.objects"
+    work.mkdir(exist_ok=True)
+    objects = [work / f"{src.stem}.o" for src in cu]
+    jobs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], cwd=CSRC,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(cu, objects)
+    ]
+    reports = [job.communicate()[0] for job in jobs]
+    log = "".join(f"== {src.name}\n{text}" for src, text in zip(cu, reports))
+    failed = [src.name for src, job in zip(cu, jobs) if job.returncode != 0]
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
+    shutil.rmtree(work, ignore_errors=True)
+    path.with_suffix(".log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, path)
     return path
 
@@ -137,6 +165,8 @@ def _library():
     lib.nst_mevp_velocity.argtypes = [p] * 12 + [i, i] + tail
     lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i, i] + tail
     lib.nst_dg1_rk_stage.argtypes = [p] * 7 + [i, i, i, f, f, f] + tail
+    lib.nst_mevp_tiled.argtypes = [p] * 17 + [i] * 6 + tail
+    lib.nst_transport_tiled.argtypes = [p] * 6 + [i] * 8 + [f, f, f] + tail
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
     lib.nst_mevp_n_scalars.restype = i
@@ -170,13 +200,19 @@ def _floats(values):
     return (ctypes.c_float * len(values))(*map(float, values))
 
 
+def _f32_reciprocal(x: float) -> float:
+    """1/x rounded as PyTorch on CUDA rounds the reciprocal of a Python
+    scalar divisor: a float32 division of float32 values."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
 def _mevp_scalars(solver: MEVPSolver, dt: float):
     """MevpScalars of csrc/mevp.cu, field for field."""
     p, mesh = solver.params, solver.mesh
     e2 = p.ellipse * p.ellipse
     f = p.f_coriolis if p.use_coriolis else 0.0
     values = [
-        mesh.dx, mesh.dy,
+        _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy),
         1.0 + 1.0 / e2, 1.0 - 1.0 / e2, 4.0 / e2,
         p.rho_ocean * p.cd_ocean, p.delta_min, 1.0 + p.beta, 1.0 / e2,
         1.0 / p.alpha, 0.5 * mesh.dx, 0.5 * mesh.dy, 1.0 / (mesh.dx * mesh.dy),
@@ -201,7 +237,9 @@ def _dg1_tables(transport: DGTransport):
     ):
         values += [float(x) for x in table.ravel()]
     values += [float(x) for x in transport._inv_mass]
-    values += [1.0 / mesh.dx, 1.0 / mesh.dy, mesh.dx, mesh.dy]
+    values += [
+        1.0 / mesh.dx, 1.0 / mesh.dy, _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy)
+    ]
     assert len(values) == _N_DG1_TABLE
     return _floats(values)
 
@@ -380,81 +418,65 @@ def dg1_rk_stage(
     return out
 
 
-# -- the dynamics phase ----------------------------------------------------------
-def fused_dynamics_reference(
-    model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
-    face_masks=None,
-):
-    """Plain PyTorch dynamics phase: ``subcycle_body`` x N, then
-    ``velocity_from_cg``, ``cfl_substeps`` and k x ``DGTransport.step``."""
-    solver, transport, mesh = model.mevp, model.transport, model.mesh
-    carry = tuple(state_arrays)
+# -- K1's schedule of the two halves of the phase --------------------------------
+def mevp_subcycles_reference(solver: MEVPSolver, carry, consts, dt: float, n_subcycles: int):
+    """N x ``solver.subcycle_body``: the five planes after N subcycles."""
+    carry = tuple(carry)
     for _ in range(n_subcycles):
         carry = solver.subcycle_body(carry, consts, dt)
-    qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1])
-    if model.auto_substeps:
-        k = int(cfl_substeps(
-            qv, dt, mesh, transport.basis.degree, k_floor=model.transport_substeps
-        ))
-    else:
-        k = model.transport_substeps
-    tr = tracers
-    for _ in range(k):
-        tr = transport.step(tr, qv, dt / k, limit=True, face_masks=face_masks)
-    return carry, tr
+    return carry
 
 
-def fused_dynamics(
-    model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
-    face_masks=None,
-):
-    """Returns ((u, v, s11, s22, s12), tracers) after one dynamics phase.
-
-    ``state_arrays``: the five (nx, ny) velocity/stress planes; ``tracers``:
-    (3, T, nx, ny) stacked dG1 coefficients; ``consts``: the output of
-    ``MEVPSolver.step_consts``; ``face_masks``: optional (face_x, face_y).
-    CPU tensors run ``fused_dynamics_reference``; CUDA tensors the kernels.
-    """
-    if _on_cpu(tracers):
-        return fused_dynamics_reference(
-            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks
-        )
-    solver, transport, mesh = model.mevp, model.transport, model.mesh
-    device = tracers.device
-    _check_mevp(solver, state_arrays, consts)
-    _check((3, tracers.shape[1], mesh.nx, mesh.ny), device, tracers=tracers)
-    if face_masks is None:
-        face_x = face_y = torch.ones_like(state_arrays[0])
-    else:
-        face_x, face_y = face_masks
-        _check((mesh.nx, mesh.ny), device, face_x=face_x, face_y=face_y)
-    stream = _stream(device)
-
-    # mEVP: the kernels update the five planes in place, on copies.
-    planes = tuple(t.clone() for t in state_arrays)
+def mevp_subcycles(solver: MEVPSolver, carry, consts, dt: float, n_subcycles: int):
+    """(u, v, s11, s22, s12) after N subcycles on K1's schedule: one
+    ``mevp_stress`` and one ``mevp_velocity`` launch per subcycle, in place
+    on copies of the inputs. CPU tensors run the plain version."""
+    if _on_cpu(carry[0]):
+        return mevp_subcycles_reference(solver, carry, consts, dt, n_subcycles)
+    _check_mevp(solver, carry, consts)
+    planes = tuple(t.clone() for t in carry)
     c_w, inv_drag = torch.empty_like(planes[0]), torch.empty_like(planes[0])
-    scalars = _mevp_scalars(solver, dt)
+    scalars, stream = _mevp_scalars(solver, dt), _stream(planes[0].device)
     for _ in range(n_subcycles):
         _mevp_stress_(planes, consts, c_w, inv_drag, scalars, stream)
         _mevp_velocity_(planes, consts, c_w, inv_drag, scalars, stream)
-    u, v = planes[0], planes[1]
+    return planes
 
-    # CFL substep count: the one host sync of the step.
-    tables = _dg1_tables(transport)
-    if model.auto_substeps:
-        speeds = torch.zeros(2, device=device, dtype=torch.float32)
-        _dg1_sample_cfl_(u, v, speeds, tables, stream)
-        k = int(substeps_from_speeds(
-            speeds[0], speeds[1], dt, mesh, transport.basis.degree,
-            k_floor=model.transport_substeps,
-        ))
-    else:
-        k = model.transport_substeps
-    dt_sub = dt / k
 
-    # k limited SSP-RK steps. A stage reads its neighbours' psi, so stages
-    # ping-pong between buffers; the last stage may overwrite the step's
-    # base in place (each element reads only its own base value).
+def transport_substeps_reference(
+    transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None,
+):
+    """k x ``transport.step(limit=True)`` with the velocity sampled from the
+    CG1 nodes (u, v); ``tracers`` is (3, T, nx, ny)."""
+    qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
+    for _ in range(k):
+        tracers = transport.step(tracers, qv, dt_sub, limit=True, face_masks=face_masks)
+    return tracers
+
+
+def _face_planes(like, face_masks, shape):
+    if face_masks is None:
+        return torch.ones_like(like), torch.ones_like(like)
+    face_x, face_y = face_masks
+    _check(shape, like.device, face_x=face_x, face_y=face_y)
+    return face_x, face_y
+
+
+def transport_substeps(
+    transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None,
+):
+    """The tracers after k limited SSP-RK substeps on K1's schedule: one
+    ``dg1_rk_stage`` launch per RK stage. CPU tensors run the plain version."""
+    if _on_cpu(tracers):
+        return transport_substeps_reference(transport, tracers, u, v, dt_sub, k, face_masks)
+    shape = (transport.mesh.nx, transport.mesh.ny)
+    _check(shape, tracers.device, u=u, v=v)
+    _check((3, tracers.shape[1], *shape), tracers.device, tracers=tracers)
+    face_x, face_y = _face_planes(u, face_masks, shape)
+    tables, stream = _dg1_tables(transport), _stream(tracers.device)
+    # A stage reads its neighbours' psi, so stages ping-pong between
+    # buffers; the last stage may overwrite the step's base in place (each
+    # element reads only its own base value).
     stages = _RK_STAGES[transport.scheme]
     psi0 = tracers.clone()
     spare = [torch.empty_like(psi0) for _ in range(max(1, len(stages) - 1))]
@@ -466,4 +488,89 @@ def fused_dynamics(
             cur = out
         if cur is not psi0:  # rk1: the single stage wrote a spare buffer
             psi0, spare[0] = cur, psi0
-    return planes, psi0
+    return psi0
+
+
+# -- the dynamics phase ----------------------------------------------------------
+def fused_dynamics_reference(
+    model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
+    face_masks=None,
+):
+    """Plain PyTorch dynamics phase: ``subcycle_body`` x N, then
+    ``velocity_from_cg``, ``cfl_substeps`` and k x ``DGTransport.step``."""
+    solver, transport, mesh = model.mevp, model.transport, model.mesh
+    carry = mevp_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
+    if model.auto_substeps:
+        qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1])
+        k = int(cfl_substeps(
+            qv, dt, mesh, transport.basis.degree, k_floor=model.transport_substeps
+        ))
+    else:
+        k = model.transport_substeps
+    tr = transport_substeps_reference(
+        transport, tracers, carry[0], carry[1], dt / k, k, face_masks
+    )
+    return carry, tr
+
+
+def dynamics_phase(
+    model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
+    face_masks=None, *, mevp: str = "pallas", transport: str = "xla",
+):
+    """Returns ((u, v, s11, s22, s12), tracers) after one dynamics phase.
+
+    ``state_arrays``: the five (nx, ny) velocity/stress planes; ``tracers``:
+    (3, T, nx, ny) stacked dG1 coefficients; ``consts``: the output of
+    ``MEVPSolver.step_consts``; ``face_masks``: optional (face_x, face_y).
+    CPU tensors run ``fused_dynamics_reference``; CUDA tensors the kernels.
+    The schedule on the card:
+
+    * ``mevp="pallas"``: ``mevp_stress`` + ``mevp_velocity`` per subcycle
+      (K1's schedule, ``mevp_subcycles``); ``"pallas-tiled"``:
+      ``mevp_tiled``, H subcycles per launch (``mevp_tiled_cuda``);
+    * then ``dg1_sample_cfl`` and one host sync for k;
+    * ``transport="xla"``: one ``dg1_rk_stage`` per RK stage (K1's
+      schedule, ``transport_substeps``); ``"tiled"``: ``transport_tiled``,
+      whole substeps per launch (``transport_tiled_cuda``).
+    """
+    if _on_cpu(tracers):
+        return fused_dynamics_reference(
+            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks
+        )
+    from .mevp_tiled_cuda import mevp_subcycles_tiled
+    from .transport_tiled_cuda import transport_substeps_tiled
+
+    run_mevp = {"pallas": mevp_subcycles, "pallas-tiled": mevp_subcycles_tiled}
+    run_transport = {"xla": transport_substeps, "tiled": transport_substeps_tiled}
+    if mevp not in run_mevp or transport not in run_transport:
+        raise ValueError(f"unknown schedule: mevp={mevp!r}, transport={transport!r}")
+    solver, tr, mesh = model.mevp, model.transport, model.mesh
+    device = tracers.device
+    _check((3, tracers.shape[1], mesh.nx, mesh.ny), device, tracers=tracers)
+    face_masks = _face_planes(state_arrays[0], face_masks, (mesh.nx, mesh.ny))
+    planes = run_mevp[mevp](solver, state_arrays, consts, dt, n_subcycles)
+    u, v = planes[0], planes[1]
+
+    # CFL substep count: the one host sync of the step.
+    if model.auto_substeps:
+        speeds = torch.zeros(2, device=device, dtype=torch.float32)
+        _dg1_sample_cfl_(u, v, speeds, _dg1_tables(tr), _stream(device))
+        k = int(substeps_from_speeds(
+            speeds[0], speeds[1], dt, mesh, tr.basis.degree,
+            k_floor=model.transport_substeps,
+        ))
+    else:
+        k = model.transport_substeps
+    return planes, run_transport[transport](tr, tracers, u, v, dt / k, k, face_masks)
+
+
+def fused_dynamics(
+    model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
+    face_masks=None,
+):
+    """The dynamics phase on K1's schedule (``dynamics_phase`` with
+    ``mevp="pallas"``, ``transport="xla"``)."""
+    return dynamics_phase(
+        model, state_arrays, tracers, consts, dt, n_subcycles, face_masks,
+        mevp="pallas", transport="xla",
+    )

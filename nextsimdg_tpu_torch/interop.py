@@ -1,11 +1,11 @@
 """State and parameters across the boundary between the two packages.
 
 Plain numpy dicts keyed by field name carry a ``CoupledState``, a
-``DynamicsForcing`` or the ``MEVPParams`` fields, so that the JAX model and
-this port can be given identical inputs without either importing the other.
-``coupled_state_to_numpy`` reads any object with the ``CoupledState``
-fields whose leaves numpy can convert (a torch tensor, or an array of the
-JAX package).
+``DynamicsForcing``, the physics ``Forcing`` and ``PrognosticState`` or the
+``MEVPParams`` fields, so that the JAX model and this port can be given
+identical inputs without either importing the other. The ``*_to_numpy``
+functions read any object with the fields whose leaves numpy can convert
+(a torch tensor, or an array of the JAX package).
 """
 
 from __future__ import annotations
@@ -17,10 +17,13 @@ import torch
 
 from .coupled import CoupledState
 from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
+from .state import Forcing, PrognosticState
 
 _STATE_FIELDS = ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice")
 _VELOCITY_FIELDS = ("u", "v", "s11", "s22", "s12")
 _FORCING_FIELDS = ("u_atm", "v_atm", "u_ocean", "v_ocean")
+_PHYS_FORCING_FIELDS = tuple(f.name for f in dataclasses.fields(Forcing))
+_PROGNOSTIC_FIELDS = tuple(f.name for f in dataclasses.fields(PrognosticState))
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -65,3 +68,30 @@ def mevp_params_from_dict(d: dict) -> MEVPParams:
     """``MEVPParams`` from ``dataclasses.asdict`` of either package's params."""
     _require(d, [f.name for f in dataclasses.fields(MEVPParams)], "MEVPParams")
     return MEVPParams(**d)
+
+
+def _from_numpy(cls, d: dict, names, *, device, dtype):
+    _require(d, names, f"a {cls.__name__}")
+    return cls(**{
+        k: torch.tensor(np.asarray(d[k]), device=device, dtype=dtype) for k in names
+    })
+
+
+def forcing_from_numpy(d: dict, *, device, dtype) -> Forcing:
+    """A physics ``Forcing`` from {tair, dew2m, pair, ...} arrays."""
+    return _from_numpy(Forcing, d, _PHYS_FORCING_FIELDS, device=device, dtype=dtype)
+
+
+def forcing_to_numpy(forcing) -> dict:
+    """{field: ndarray} of either package's physics ``Forcing``."""
+    return {name: _to_numpy(getattr(forcing, name)) for name in _PHYS_FORCING_FIELDS}
+
+
+def prognostic_state_from_numpy(d: dict, *, device, dtype) -> PrognosticState:
+    """A ``PrognosticState`` from {hice, cice, hsnow, sst, sss, tice} arrays."""
+    return _from_numpy(PrognosticState, d, _PROGNOSTIC_FIELDS, device=device, dtype=dtype)
+
+
+def prognostic_state_to_numpy(prog) -> dict:
+    """{field: ndarray} of either package's ``PrognosticState``."""
+    return {name: _to_numpy(getattr(prog, name)) for name in _PROGNOSTIC_FIELDS}

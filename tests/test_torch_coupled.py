@@ -2,7 +2,8 @@
 
 Float64 on the CPU, 16 x 16 elements, 15 mEVP subcycles, inputs drawn from
 a numpy seed and carried across by ``nextsimdg_tpu_torch.interop``. The
-JAX fused kernel runs in interpret mode, as its own tests run it.
+JAX fused kernel and its ghost-zone tiled mEVP and transport kernels run in
+interpret mode, as their own tests run them.
 Tolerances: 1e-8 of each plane's max |value| after subcycles (the shared
 divide amplifies rounding differences), exact where the same operations
 run on the same values.
@@ -24,7 +25,10 @@ from nextsimdg_tpu.dynamics.kernels.coupled_pallas import fused_dynamics_pallas
 from nextsimdg_tpu.dynamics.mevp import DynamicsForcing as JaxDynamicsForcing
 from nextsimdg_tpu.dynamics.mevp import MEVPParams as JaxMEVPParams
 from nextsimdg_tpu.dynamics.mevp import VelocityState as JaxVelocityState
-from nextsimdg_tpu_torch import interop
+from nextsimdg_tpu.modules import ModuleRegistry
+from nextsimdg_tpu.state import Forcing as JaxForcing
+from nextsimdg_tpu.state import PrognosticState as JaxPrognosticState
+from nextsimdg_tpu_torch import coupled, interop
 from nextsimdg_tpu_torch.coupled import CoupledModel, _clamp_dg, _rescale_dg
 from nextsimdg_tpu_torch.dynamics import RectMesh
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda
@@ -252,8 +256,175 @@ def test_unported_options_raise(kwargs):
 
 
 def test_thermodynamics_not_ported_raises():
+    """The column physics runs (do_thermo=True is the default) and needs
+    the physics forcing: without one the step raises and names it."""
     port = CoupledModel(RectMesh(N, N, 1e3, 1e3), n_subcycles=1)
     state = port.initial_state(device="cpu", dtype=torch.float64)
     forcing = interop.dynamics_forcing_from_numpy(seeded_forcing(), device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="do_thermo=False"):
+    with pytest.raises(ValueError, match="Forcing"):
         port.step(state, None, forcing, DT)
+    with pytest.raises(ValueError, match="Forcing"):
+        port.step(state, None, forcing, DT, do_dynamics=False)
+
+
+# -- the coupled thermo + dynamics step (BASELINE config 4's path) --------------
+def seeded_physics_forcing(seed=3):
+    """Config-4-like physics forcing with cold, varied air; the sea surface
+    of ``thermo_state`` sits at and above freezing, so ice forms in some
+    cells and not in others."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        tair=rng.uniform(-25.0, -5.0, (N, N)), dew2m=rng.uniform(-27.0, -7.0, (N, N)),
+        pair=np.full((N, N), 1e5), sw_in=np.full((N, N), 5.0), lw_in=np.full((N, N), 240.0),
+        mld=np.full((N, N), 10.0), snowfall=np.full((N, N), 1e-4),
+        wind=rng.uniform(2.0, 10.0, (N, N)),
+    )
+
+
+def thermo_state(seed=0):
+    state = seeded_state(seed)
+    rng = np.random.default_rng(seed + 7)
+    state["sst"] = rng.uniform(-1.78, -1.5, (N, N))
+    state["tice"] = rng.uniform(-15.0, -2.0, (1, N, N))
+    return state
+
+
+def jax_tiled_model(**kwargs):
+    """The JAX model on its ghost-zone tiled kernels (interpret mode) and the
+    registry's default physics chain."""
+    ModuleRegistry.get_loader().reset()
+    model = JaxCoupledModel(
+        JaxRectMesh(nx=N, ny=N, dx=4e3, dy=4e3), degree=1, n_subcycles=N_SUBCYCLES,
+        mevp_backend="pallas-tiled-interpret", transport_backend="tiled-interpret", **kwargs,
+    )
+    assert model.mevp._kernel_choice() == "tiled"
+    assert model._tiled_transport_mode() == "interpret"
+    assert model._fused_dynamics_mode() is None
+    return model
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_coupled_thermo_step_matches_the_jax_tiled_kernels(seed):
+    """The full step, do_thermo=True: the port on the CPU against JAX's
+    mevp_subcycles_tiled + transport_substeps_tiled in interpret mode."""
+    port = CoupledModel(RectMesh(N, N, 4e3, 4e3), degree=1, n_subcycles=N_SUBCYCLES)
+    jmodel = jax_tiled_model()
+    state_np, forcing_np, phys_np = thermo_state(seed), seeded_forcing(seed + 1), seeded_physics_forcing(seed + 2)
+    state = interop.coupled_state_from_numpy(state_np, device="cpu", dtype=torch.float64)
+    forcing = interop.dynamics_forcing_from_numpy(forcing_np, device="cpu", dtype=torch.float64)
+    phys = interop.forcing_from_numpy(phys_np, device="cpu", dtype=torch.float64)
+    jphys = JaxForcing(**{k: jnp.asarray(v, dtype=jnp.float64) for k, v in phys_np.items()})
+    jforcing = to_jax_forcing(forcing_np)
+
+    got, ref = state, to_jax_state(state_np)
+    for _ in range(2):
+        got = port.step(got, phys, forcing, DT)
+        ref = jmodel.step(ref, jphys, jforcing, dt=DT)
+    got_np, ref_np = interop.coupled_state_to_numpy(got), interop.coupled_state_to_numpy(ref)
+    assert_states_close(got_np, ref_np)
+    # Every physics branch that config 4 takes ran: ice formed somewhere.
+    assert (ref_np["new_ice"] > 0).any() and (ref_np["new_ice"] == 0).any()
+    assert not np.array_equal(ref_np["tice"], state_np["tice"])
+
+    got_run = port.run(state, phys, forcing, DT, 2)
+    for name in ("hice", "cice", "hsnow", "tice", "new_ice"):
+        assert torch.equal(getattr(got_run, name), getattr(got, name))
+
+
+def test_step_thermo_is_the_physics_on_the_cell_means():
+    """step_thermo == NextsimPhysics.step on the means, with the moments
+    rescaled; the JAX step with do_dynamics=False agrees."""
+    port = CoupledModel(RectMesh(N, N, 4e3, 4e3), n_subcycles=1)
+    state_np, phys_np = thermo_state(2), seeded_physics_forcing(4)
+    state = interop.coupled_state_from_numpy(state_np, device="cpu", dtype=torch.float64)
+    phys = interop.forcing_from_numpy(phys_np, device="cpu", dtype=torch.float64)
+    got = port.step(state, phys, None, DT, do_dynamics=False)
+    prog = interop.prognostic_state_from_numpy(
+        {k: state_np[k] if k in ("sst", "sss", "tice") else state_np[k][0]
+         for k in ("hice", "cice", "hsnow", "sst", "sss", "tice")},
+        device="cpu", dtype=torch.float64,
+    )
+    updated, diags = port.physics.step(prog, phys, state.new_ice, DT)
+    assert torch.equal(got.hice[0], updated.hice) and torch.equal(got.new_ice, diags.new_ice)
+    assert torch.equal(got.hice, _rescale_dg(state.hice, updated.hice))
+    assert got.velocity is state.velocity
+    jmodel = jax_tiled_model()
+    jphys = JaxForcing(**{k: jnp.asarray(v, dtype=jnp.float64) for k, v in phys_np.items()})
+    ref = jmodel.step(to_jax_state(state_np), jphys, None, dt=DT, do_dynamics=False)
+    assert_states_close(interop.coupled_state_to_numpy(got), interop.coupled_state_to_numpy(ref))
+
+
+def test_physics_interop_round_trip():
+    phys_np = seeded_physics_forcing()
+    phys = interop.forcing_from_numpy(phys_np, device="cpu", dtype=torch.float32)
+    assert phys.tair.dtype == torch.float32
+    back = interop.forcing_to_numpy(interop.forcing_from_numpy(phys_np, device="cpu", dtype=torch.float64))
+    assert all(np.array_equal(back[k], phys_np[k]) for k in phys_np)
+    jphys = JaxForcing(**{k: jnp.asarray(v) for k, v in phys_np.items()})
+    assert all(np.array_equal(interop.forcing_to_numpy(jphys)[k], phys_np[k]) for k in phys_np)
+    prog_np = {k: np.full((N, N), 0.5) for k in ("hice", "cice", "hsnow", "sst", "sss")}
+    prog_np["tice"] = np.full((1, N, N), -3.0)
+    prog = interop.prognostic_state_from_numpy(prog_np, device="cpu", dtype=torch.float64)
+    assert all(np.array_equal(interop.prognostic_state_to_numpy(prog)[k], prog_np[k]) for k in prog_np)
+    jprog = JaxPrognosticState(**{k: jnp.asarray(v) for k, v in prog_np.items()})
+    assert all(np.array_equal(interop.prognostic_state_to_numpy(jprog)[k], prog_np[k]) for k in prog_np)
+    with pytest.raises(KeyError):
+        interop.forcing_from_numpy({"tair": phys_np["tair"]}, device="cpu", dtype=torch.float64)
+
+
+# -- the kernel schedule (mevp_backend, transport_backend) ----------------------
+@pytest.mark.parametrize(
+    "mevp_backend, transport_backend, expected",
+    [
+        ("pallas", "auto", ("pallas", "xla")),
+        ("pallas", "tiled", ("pallas", "xla")),  # K1's whole-phase schedule
+        ("pallas-tiled", "tiled", ("pallas-tiled", "tiled")),
+        ("pallas-tiled", "xla", ("pallas-tiled", "xla")),
+    ],
+)
+def test_explicit_backends_are_honoured(mevp_backend, transport_backend, expected):
+    port = CoupledModel(
+        RectMesh(N, N, 1e3, 1e3), mevp_backend=mevp_backend, transport_backend=transport_backend
+    )
+    assert (port.mevp_schedule(), port.transport_schedule()) == expected
+
+
+@pytest.mark.parametrize("side", ["below", "at", "above"])
+def test_auto_backends_follow_the_element_threshold(side):
+    threshold = coupled.TILED_MIN_ELEMENTS
+    nx = {"below": threshold // 64 - 1, "at": threshold // 64, "above": threshold // 64 + 1}[side]
+    port = CoupledModel(RectMesh(nx, 64, 1e3, 1e3))
+    tiled = side != "below"
+    assert port.mevp_schedule() == ("pallas-tiled" if tiled else "pallas")
+    assert port.transport_schedule() == ("tiled" if tiled else "xla")
+    if tiled:
+        port.transport.scheme = "rk3"  # the tiled transport kernel runs rk1 and rk2
+        assert port.transport_schedule() == "xla"
+
+
+@pytest.mark.parametrize("kwargs", [dict(mevp_backend="xla"), dict(transport_backend="banded")])
+def test_unknown_backends_raise(kwargs):
+    with pytest.raises(ValueError, match="backend"):
+        CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
+
+
+@pytest.mark.parametrize("mevp_backend", ["pallas", "pallas-tiled"])
+def test_every_schedule_runs_the_plain_version_on_the_cpu(mevp_backend):
+    """CPU tensors always take the plain PyTorch versions, whatever the
+    schedule: the same step, no kernel launched."""
+    from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+
+    port = CoupledModel(
+        RectMesh(N, N, 4e3, 4e3), n_subcycles=3, mevp_backend=mevp_backend,
+        transport_backend="tiled",
+    )
+    state = interop.coupled_state_from_numpy(thermo_state(), device="cpu", dtype=torch.float64)
+    forcing = interop.dynamics_forcing_from_numpy(seeded_forcing(), device="cpu", dtype=torch.float64)
+    phys = interop.forcing_from_numpy(seeded_physics_forcing(), device="cpu", dtype=torch.float64)
+    cc.reset_launches()
+    got = port.step(state, phys, forcing, DT)
+    ref = port.step_thermo(
+        port.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference), phys, DT
+    )
+    assert all(count == 0 for count in cc.launches.values())
+    assert_states_close(interop.coupled_state_to_numpy(got), interop.coupled_state_to_numpy(ref), 0.0)

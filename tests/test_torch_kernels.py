@@ -1,13 +1,19 @@
 """The CUDA kernels of the dynamics phase against their plain versions.
 
+K1's four kernels, and the ghost-zone tiled ``mevp_tiled`` and
+``transport_tiled``, which must also equal K1's schedule on the same inputs
+(they run the same element bodies; expected 0, failure above 1e-6 of the
+plane's max).
+
 These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 elsewhere. On a machine with one, run them with
 ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
 (``tests/conftest.py`` imports jax, which the port does not need).
-Tolerances (float32): 1e-5 of the plane's max |value| for one launch,
-since PyTorch on CUDA divides by a scalar through its reciprocal where the
-kernels divide; exact for the CFL speeds and k; after 100 subcycles 1e-3
-of the plane's max on the mEVP planes and 1e-5 on the tracers.
+Tolerances (float32): 1e-5 of the plane's max |value| for one launch
+(the kernels run the plain version's operations in its order; the margin
+covers an ulp where PyTorch's own kernels round differently); exact for
+the CFL speeds and k; after 100 subcycles 1e-3 of the plane's max on the
+mEVP planes and 1e-5 on the tracers.
 """
 
 import numpy as np
@@ -17,6 +23,8 @@ import torch
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
+from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
 from nextsimdg_tpu_torch.dynamics.transport import substeps_from_speeds
 
@@ -44,19 +52,20 @@ def assert_close(got, ref, tol):
     assert float((got - ref).abs().max()) <= tol * scale
 
 
-def setup(device, n=N, n_subcycles=100):
+def setup(device, n=N, n_subcycles=100, ny=None):
     rng = np.random.default_rng(0)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
-    model = CoupledModel(RectMesh(n, n, 2000.0, 2000.0), n_subcycles=n_subcycles)
-    carry = tuple(t(rng.normal(0.0, s, (n, n))) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
+    shape = (n, n if ny is None else ny)
+    model = CoupledModel(RectMesh(*shape, 2000.0, 2000.0), n_subcycles=n_subcycles)
+    carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
-        u_atm=t(rng.normal(8.0, 2.0, (n, n))), v_atm=t(rng.normal(2.0, 2.0, (n, n))),
-        u_ocean=t(rng.normal(0.0, 0.05, (n, n))), v_ocean=t(rng.normal(0.0, 0.05, (n, n))),
+        u_atm=t(rng.normal(8.0, 2.0, shape)), v_atm=t(rng.normal(2.0, 2.0, shape)),
+        u_ocean=t(rng.normal(0.0, 0.05, shape)), v_ocean=t(rng.normal(0.0, 0.05, shape)),
     )
-    h, a = t(rng.uniform(0.2, 2.0, (n, n))), t(rng.uniform(0.3, 1.0, (n, n)))
+    h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
     mask = model.node_mask(device=device, dtype=torch.float32)
     consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
-    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, n, n)), rng.normal(0.0, 0.3, (2, 3, n, n))]))
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))]))
     return model, carry, consts, psi, rng
 
 
@@ -128,3 +137,66 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
             psi, psi, carry[0], carry[1], carry[0], carry[0], psi, 0.0, 1.0, 1.0,
             cc._dg1_tables(model.transport), cc._stream(device),
         )
+
+
+def assert_same_schedule(got, ref):
+    got, ref = got.double(), ref.double()
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("tile, halo, threads", [(64, 8, 1024), (16, 4, 256), (8, 3, 512)])
+def test_mevp_tiled_matches_plain_and_k1_on_a_ragged_grid(device, tile, halo, threads):
+    model, carry, consts, _, _ = setup(device, n=40, ny=72, n_subcycles=11)
+    cc.reset_launches()
+    got = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, 11, tile, halo, threads)
+    assert cc.launches["mevp_tiled"] == -(-11 // halo)
+    ref = mt.mevp_subcycles_tiled_reference(model.mevp, carry, consts, DT, 11)
+    k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, 11)
+    for g, r, q in zip(got, ref, k1):
+        assert_close(g, r, 1e-3)
+        assert_same_schedule(g, q)
+    assert torch.equal(carry[2], setup(device, n=40, ny=72)[1][2])  # inputs untouched
+
+
+@pytest.mark.parametrize("scheme, k", [("rk2", 1), ("rk2", 4), ("rk1", 3)])
+def test_transport_tiled_matches_plain_and_k1_on_a_ragged_grid(device, scheme, k):
+    model, carry, _, psi, rng = setup(device, n=40, ny=72)
+    model.transport.scheme = scheme
+    faces = tuple(
+        torch.tensor((rng.uniform(size=(40, 72)) > 0.1).astype(np.float32), device=device)
+        for _ in range(2)
+    )
+    args = (model.transport, psi, carry[0], carry[1], DT / k, k, faces)
+    cc.reset_launches()
+    got = tt.transport_substeps_tiled(*args, tile=16)
+    assert cc.launches["transport_tiled"] == -(-k // tt.K_MAX)
+    assert_close(got, tt.transport_substeps_tiled_reference(*args), 1e-5)
+    assert_same_schedule(got, cc.transport_substeps(*args))
+
+
+def test_tiled_dynamics_phase_matches_plain_and_counts_launches(device):
+    model, carry, consts, psi, _ = setup(device, n=40, ny=72)
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(
+        model, carry, psi, consts, DT, 100, mevp="pallas-tiled", transport="tiled"
+    )
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100)
+    for g, r in zip(got_carry, ref_carry):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert counts["mevp_tiled"] == 13 and counts["dg1_sample_cfl"] == 1
+    assert counts["transport_tiled"] >= 1
+    assert counts["mevp_stress"] == counts["dg1_rk_stage"] == 0
+
+
+def test_tiled_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    model, carry, consts, psi, _ = setup(device)
+    model.transport.scheme = "rk3"
+    with pytest.raises(NotImplementedError, match="rk3"):
+        tt.transport_substeps_tiled(model.transport, psi, carry[0], carry[1], DT, 1)
+    model.transport.scheme = "rk2"
+    with pytest.raises(RuntimeError, match="CUDA error"):  # more shared memory than a block has
+        mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, 8, tile=256, halo=8)
+    with pytest.raises(TypeError, match="float32"):
+        mt.mevp_subcycles_tiled(model.mevp, tuple(c.double() for c in carry), consts, DT, 8)

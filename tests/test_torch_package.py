@@ -15,6 +15,8 @@ import torch
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
+from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
 
 torch.set_num_threads(1)
@@ -27,7 +29,14 @@ def test_port_imports_without_jax_or_triton():
     code = (
         "import sys\n"
         "import nextsimdg_tpu_torch, nextsimdg_tpu_torch.coupled, nextsimdg_tpu_torch.interop\n"
+        "import nextsimdg_tpu_torch.constants, nextsimdg_tpu_torch.state\n"
+        "import nextsimdg_tpu_torch.physics.nextsim_physics, nextsimdg_tpu_torch.physics.humidity\n"
+        "import nextsimdg_tpu_torch.physics.freezing, nextsimdg_tpu_torch.physics.albedo\n"
+        "import nextsimdg_tpu_torch.physics.ice_ocean_heat_flux\n"
+        "import nextsimdg_tpu_torch.physics.concentration, nextsimdg_tpu_torch.physics.thermo_ice0\n"
         "import nextsimdg_tpu_torch.dynamics.kernels.coupled_cuda\n"
+        "import nextsimdg_tpu_torch.dynamics.kernels.mevp_tiled_cuda\n"
+        "import nextsimdg_tpu_torch.dynamics.kernels.transport_tiled_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -61,19 +70,28 @@ def _struct_floats(source: str, name: str) -> int:
 
 def test_host_packing_matches_the_c_structs():
     model = CoupledModel(RectMesh(8, 8, 2000.0, 2000.0))
-    mevp_src = (cc.CSRC / "mevp.cu").read_text()
-    transport_src = (cc.CSRC / "transport.cu").read_text()
+    mevp_src = (cc.CSRC / "mevp_body.cuh").read_text()
+    transport_src = (cc.CSRC / "dg1_body.cuh").read_text()
     assert len(cc._mevp_scalars(model.mevp, 600.0)) == _struct_floats(mevp_src, "MevpScalars")
     assert len(cc._dg1_tables(model.transport)) == _struct_floats(transport_src, "Dg1Tables")
 
 
+REPLACED = {
+    "mevp.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "transport.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "mevp_tiled.cu": "mevp_tiled.py::mevp_subcycles_tiled",
+    "transport_tiled.cu": "transport_tiled.py::transport_substeps_tiled",
+}
+
+
 def test_build_contract():
     assert cc.CSRC == PACKAGE / "csrc"
-    assert {p.name for p in cc.CSRC.glob("*.cu")} == {"mevp.cu", "transport.cu"}
+    assert {p.name for p in cc.CSRC.glob("*.cu")} == set(REPLACED)
     for source in cc.CSRC.glob("*.cu"):
-        assert "coupled_pallas.py::fused_dynamics_pallas" in source.read_text()
+        assert REPLACED[source.name] in source.read_text()
     flags = " ".join(cc.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    assert "arch=compute_90a,code=sm_90a" in flags and "--fmad=false" in flags
+    assert cc.LINK_FLAGS == ("-shared",)
     path = cc.library_path()
     assert path.parent == REPO / "build" / "nextsimdg_tpu_torch"
     assert path == cc.library_path()  # keyed on the sources, deterministic
@@ -109,6 +127,71 @@ def test_wrappers_run_the_plain_version_for_cpu_tensors():
     args = (model.transport, psi, psi, carry[0], carry[1], ones, ones, 0.5, 0.5, 60.0)
     assert torch.equal(cc.dg1_rk_stage(*args), cc.dg1_rk_stage_reference(*args))
     assert all(count == 0 for count in cc.launches.values())
+
+
+def test_tiled_wrappers_run_the_plain_version_for_cpu_tensors():
+    model, carry, consts, psi = _inputs()
+    cc.reset_launches()
+    got = mt.mevp_subcycles_tiled(model.mevp, carry, consts, 600.0, 3)
+    ref = carry
+    for _ in range(3):
+        ref = model.mevp.subcycle_body(ref, consts, 600.0)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert all(torch.equal(g, r) for g, r in zip(cc.mevp_subcycles(model.mevp, carry, consts, 600.0, 3), ref))
+    ones = torch.ones_like(carry[0])
+    args = (model.transport, psi, carry[0] * 0.01, carry[1] * 0.01, 60.0, 2, (ones, ones))
+    got = tt.transport_substeps_tiled(*args)
+    assert torch.equal(got, cc.transport_substeps(*args))
+    assert torch.equal(got, tt.transport_substeps_tiled_reference(*args))
+    assert all(count == 0 for count in cc.launches.values())
+    meta = tuple(c.to("meta") for c in carry)
+    with pytest.raises(ValueError, match="not supported"):
+        mt.mevp_subcycles_tiled(model.mevp, meta, consts, 600.0, 3)
+    with pytest.raises(ValueError, match="not supported"):
+        tt.transport_substeps_tiled(model.transport, psi.to("meta"), *meta[:2], 60.0, 1)
+
+
+def test_launch_configurations_fit_a_block():
+    """The default tiles fit the 227 KB of shared memory of a block for
+    every halo the host picks."""
+    limit = 232448
+    assert mt.shared_bytes() <= limit and mt.THREADS <= 1024
+    for k in range(1, 10):
+        for stages in (1, 2):
+            halo = tt.halo_for(k, stages)
+            assert (halo - 1) // stages == min(k, tt.K_MAX)
+            assert tt.shared_bytes(tt.TILE, halo) <= limit
+    assert tt.THREADS <= 768
+
+
+def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
+    """build() starts one compiler per source together, links once, and
+    keys the library on the sources and flags."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {calls}\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && touch \"$2\"; shift; done\n"
+        "echo 'ptxas info : Used 1 registers'\n"
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cc, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cc, "BUILD_DIR", tmp_path / "build")
+    path = cc.build()
+    assert path.exists() and path == cc.library_path()
+    lines = calls.read_text().splitlines()
+    compiles = [line for line in lines if " -c " in f" {line} "]
+    assert len(compiles) == len(REPLACED) and len(lines) == len(REPLACED) + 1
+    assert all("--fmad=false" in line for line in compiles)
+    objects = [arg for arg in lines[-1].split() if arg.endswith(".o")]
+    assert "-shared" in lines[-1].split() and len(objects) == len(REPLACED)
+    assert path.with_suffix(".log").read_text().count("Used 1 registers") == len(REPLACED) + 1
+    # The objects are removed; the library and its log stay.
+    assert {p.name for p in (tmp_path / "build").iterdir()} == {
+        path.name, path.with_suffix(".log").name
+    }
+    assert cc.build() == path and len(calls.read_text().splitlines()) == len(lines)
 
 
 def test_wrappers_refuse_devices_without_a_path():
