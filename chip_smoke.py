@@ -5,8 +5,8 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``nextsimdg_tpu_torch/csrc`` and
-drives the port's two main paths, float32, dG1 tracers (hice, cice, hsnow),
-100 mEVP subcycles, dt = 600 s, CFL-adaptive transport substeps:
+drives the port's three main paths, float32, dG1 tracers (hice, cice,
+hsnow), 100 mEVP subcycles, dt = 600 s, CFL-adaptive transport substeps:
 
 * the headline dynamics-only step (BASELINE config 3, ``bench.py``): a
   closed 256 x 256 mesh of 2 km elements, wind (8, 2) m/s, ocean current
@@ -18,7 +18,14 @@ drives the port's two main paths, float32, dG1 tracers (hice, cice, hsnow),
   0.1, physics forcing tair -15, dew2m -17, pair 1e5, sw_in 5, lw_in 240,
   mld 10, snowfall 1e-4, wind 6; wind (6, 3) m/s, ocean (0.02, 0) m/s, on
   the default ("auto") schedule, the ghost-zone tiled kernels mevp_tiled
-  and transport_tiled with dg1_sample_cfl, and the column physics.
+  and transport_tiled with dg1_sample_cfl, and the column physics;
+* config 4's spherical coastline variant (``run_benchmarks.py``
+  ``coupled_1m_spherical``, ``bench_coupled_1m(land_mask=True,
+  spherical=True)``): the same step on a closed 1024 x 1024 lon-lat window
+  (40W-40E, 55N-85N) with ``synthetic_coastline(1024)``, on
+  ``mevp_backend="pallas"``: mevp_single (all 100 subcycles in one
+  cooperative launch) with the metric planes, dg1_sample_cfl and the
+  metric transport_tiled with the coastline face masks.
 
 Phases, each printed on its own lines:
 
@@ -27,16 +34,26 @@ Phases, each printed on its own lines:
 3. check: K1's four kernels against their plain PyTorch versions at 256^2,
    then mevp_tiled and transport_tiled against theirs and against K1's
    schedule on the same inputs, at 1024^2 and at a ragged 1000 x 968, with
-   100 subcycles and with a count that is not a multiple of the halo;
+   100 subcycles and with a count that is not a multiple of the halo; then
+   mevp_single against its plain version (256^2 spherical, N = 1 and 13),
+   K1's schedule (uniform consts, 256^2, N = 100) and mevp_tiled
+   (spherical consts, 1024^2 and 1000 x 968), and the metric
+   transport_tiled and dg1_rk_stage against their plain versions and each
+   other at 1024^2 spherical with the coastline;
 4. slice: for each path, one step on the kernels against the plain path on
-   the card, then 20 steps from zeroed launch counters: every leaf finite,
-   0 <= cice <= 1, hice >= 0, hsnow >= 0, and every kernel of the path
-   launched;
+   the card (the spherical one on "pallas" and on "auto", and one step of
+   the uniform coastline variant ``coupled_1m_mask``), then 20 steps from
+   zeroed launch counters: every leaf finite, 0 <= cice <= 1, hice >= 0,
+   hsnow >= 0, every kernel of the path launched, and with a coastline the
+   land tracers unchanged and u = v = 0 on every node that touches land;
 5. time (CUDA events after warm-up): ms per step and element updates/s of
    each path, of the config-4 step on K1's schedule, on the tiled one and on
    the plain path, of the physics alone, both schedules' dynamics at 64^2
    to 1024^2 (the "auto" threshold), a tile sweep of the tiled kernels,
-   and each kernel per call against its plain version.
+   the spherical step on mevp_single, on mevp_tiled and on the plain path,
+   the two's mEVP phase and dynamics step on spherical meshes at 128^2 to
+   1024^2 (the non-uniform "auto" threshold), and each kernel per call
+   against its plain version and its bound.
 
 Any failure raises (non-zero exit); there is no CPU path. The line before
 the last is the kernels' JSON summary; the last line is
@@ -56,8 +73,9 @@ import torch
 
 from nextsimdg_tpu_torch import coupled
 from nextsimdg_tpu_torch.coupled import CoupledModel
-from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh
+from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as single
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
@@ -74,6 +92,7 @@ REPLACES = {
     "mevp_stress": K1, "mevp_velocity": K1, "dg1_sample_cfl": K1, "dg1_rk_stage": K1,
     "mevp_tiled": "nextsimdg_tpu/dynamics/kernels/mevp_tiled.py:173",
     "transport_tiled": "nextsimdg_tpu/dynamics/kernels/transport_tiled.py:105",
+    "mevp_single": "nextsimdg_tpu/dynamics/kernels/mevp_pallas.py:49",
 }
 SOURCES = {
     "mevp_stress": "nextsimdg_tpu_torch/csrc/mevp.cu",
@@ -82,11 +101,23 @@ SOURCES = {
     "dg1_rk_stage": "nextsimdg_tpu_torch/csrc/transport.cu",
     "mevp_tiled": "nextsimdg_tpu_torch/csrc/mevp_tiled.cu",
     "transport_tiled": "nextsimdg_tpu_torch/csrc/transport_tiled.cu",
+    "mevp_single": "nextsimdg_tpu_torch/csrc/mevp_single.cu",
 }
 PATH_KERNELS = {
     "headline": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
     "config4": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    "spherical": ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
 }
+VELOCITY = ("u", "v", "s11", "s22", "s12")
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and float32 operations/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+# float32 operations per element of each body, counted from
+# csrc/mevp_body.cuh and csrc/dg1_body.cuh (a sqrt or a divide counts as
+# one): the stress half, the velocity half (uniform consts), the CFL
+# sampling, and one RK stage (velocity sampling + 3 tracers).
+OPS = {"stress": 80, "velocity": 42, "cfl": 92, "stage": 80 + 3 * 243}
 # Single launches: the kernel and the plain version run the same float32
 # operations in the same order (a width divides through its float32
 # reciprocal on both sides); 1e-5 of the plane's max covers an ulp where
@@ -125,6 +156,14 @@ def compare(name: str, got, ref, tol: float) -> float:
     if not ok:
         raise AssertionError(f"{name}: error {err:.3e} exceeds {tol:g} x {scale:.3e}")
     return err
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for a call
+    that moves n_bytes (each input read once, each output written once)
+    and does n_ops float32 operations."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -225,13 +264,14 @@ def check_kernels(model, device) -> dict:
     c_w, inv_drag = torch.empty_like(u), torch.empty_like(u)
     zeros2 = torch.zeros(2, device=device)
     out = torch.empty_like(psi)
+    ptrs = cc._mevp_consts(consts)
     timed = {
         "mevp_stress": (
-            lambda: cc._mevp_stress_(planes, consts, c_w, inv_drag, scalars, stream),
+            lambda: cc._mevp_half_("mevp_stress", planes, ptrs, c_w, inv_drag, scalars, stream),
             lambda: solver.stress_update(carry, consts),
         ),
         "mevp_velocity": (
-            lambda: cc._mevp_velocity_(planes, consts, c_w, inv_drag, scalars, stream),
+            lambda: cc._mevp_half_("mevp_velocity", planes, ptrs, c_w, inv_drag, scalars, stream),
             lambda: solver.velocity_update(carry_v, consts, ref[3], ref[4], DT),
         ),
         "dg1_sample_cfl": (
@@ -240,19 +280,26 @@ def check_kernels(model, device) -> dict:
         ),
         "dg1_rk_stage": (
             lambda: cc._dg1_rk_stage_(
-                psi, base, u, v, face_x, face_y, out, 0.5, 0.5, 300.0, tables, stream
+                psi, base, u, v, face_x, face_y, None, out, 0.5, 0.5, 300.0, tables, stream
             ),
             lambda: cc.dg1_rk_stage_reference(
                 transport, psi, base, u, v, face_x, face_y, 0.5, 0.5, 300.0
             ),
         ),
     }
+    n = N * N
+    work = {  # (bytes, operations) of one call at N^2
+        "mevp_stress": (15 * 4 * n, OPS["stress"] * n),
+        "mevp_velocity": (14 * 4 * n, OPS["velocity"] * n),
+        "dg1_sample_cfl": (2 * 4 * n + 8, OPS["cfl"] * n),
+        "dg1_rk_stage": ((9 + 9 + 4 + 9) * 4 * n, OPS["stage"] * n),
+    }
     times = {}
     for name, (kernel, plain) in timed.items():
-        times[name] = (time_ms(kernel, 200), time_ms(plain, 20))
+        times[name] = (time_ms(kernel, 200), time_ms(plain, 20), *bound(*work[name]))
         log("time", (
-            f"{name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
-            f"per call at {N}x{N}"
+            f"{name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+            f"bound {times[name][2]:.4f} ms ({times[name][3]}) per call at {N}x{N}"
         ))
     return {name: (results[name], *times[name]) for name in PATH_KERNELS["headline"]}
 
@@ -273,23 +320,43 @@ def ptxas_report(text: str):
         found = re.search(r"entry function '_ZN3nst(\d+)(\w+)'", line)
         if found:
             kernel = found.group(2)[: int(found.group(1))]
+            rest = found.group(2)[int(found.group(1)):]
+            if rest.startswith("ILb"):  # the metric template: ILb1E = <true>
+                kernel += "<metric>" if rest.startswith("ILb1E") else "<uniform>"
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
             yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
 
 
+def spherical_mesh(nx: int, ny: int = None):
+    """The pan-Arctic lon-lat window of ``coupled_1m_spherical``."""
+    return SphericalMesh(nx, nx if ny is None else ny, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
+
+
 def config4_model(device, **backends):
     """BASELINE config 4 as ``bench_coupled_1m`` builds it (no land mask):
     (model, initial state, physics forcing, dynamics forcing)."""
-    mesh = RectMesh(N4, N4, dx=4e3, dy=4e3)
+    return coupled_model(device, RectMesh(N4, N4, dx=4e3, dy=4e3), None, **backends)
+
+
+def spherical_model(device, n: int = N4, **backends):
+    """``bench_coupled_1m(land_mask=True, spherical=True)`` at n^2."""
+    return coupled_model(device, spherical_mesh(n), synthetic_coastline(n), **backends)
+
+
+def coupled_model(device, mesh, ocean, **backends):
+    """Config 4's model, state and forcing on ``mesh`` with the coastline
+    ``ocean`` (or none)."""
     model = CoupledModel(
-        mesh, degree=1, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES, **backends
+        mesh, degree=1, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+        **backends,
     )
     state = model.initial_state(
         hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32
     )
-    full = lambda value: torch.full((N4, N4), value, device=device, dtype=torch.float32)
+    shape = (mesh.nx, mesh.ny)
+    full = lambda value: torch.full(shape, value, device=device, dtype=torch.float32)
     phys = Forcing(
         tair=full(-15.0), dew2m=full(-17.0), pair=full(1e5), sw_in=full(5.0),
         lw_in=full(240.0), mld=full(10.0), snowfall=full(1e-4), wind=full(6.0),
@@ -306,13 +373,21 @@ def plain_step(model, state, phys, dyn):
     return model.step_thermo(state, phys, DT)
 
 
-def tiled_inputs(nx, ny, device, seed):
+def tiled_inputs(nx, ny, device, seed, spherical=False):
     """Seeded mEVP planes and consts, dG1 tracers and face masks on a closed
-    (nx, ny) mesh of 4 km elements."""
+    (nx, ny) mesh of 4 km elements (random face masks), or with
+    ``spherical`` on the lon-lat window with the synthetic coastline (its
+    metric consts and face masks)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     shape = (nx, ny)
-    model = CoupledModel(RectMesh(nx, ny, 4e3, 4e3), n_subcycles=N_SUBCYCLES)
+    if spherical:
+        model = CoupledModel(
+            spherical_mesh(nx, ny), n_subcycles=N_SUBCYCLES,
+            ocean_mask=synthetic_coastline(nx, ny),
+        )
+    else:
+        model = CoupledModel(RectMesh(nx, ny, 4e3, 4e3), n_subcycles=N_SUBCYCLES)
     carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
         u_atm=t(rng.normal(6.0, 2.0, shape)), v_atm=t(rng.normal(3.0, 2.0, shape)),
@@ -324,22 +399,25 @@ def tiled_inputs(nx, ny, device, seed):
     psi = t(np.concatenate([
         rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))
     ]))
-    faces = tuple(t((rng.uniform(size=shape) > 0.1).astype(np.float32)) for _ in range(2))
+    if spherical:
+        faces = model.face_masks(device=device, dtype=torch.float32)
+    else:
+        faces = tuple(t((rng.uniform(size=shape) > 0.1).astype(np.float32)) for _ in range(2))
     return model, carry, consts, psi, faces
 
 
-def same_schedule(name: str, got, ref) -> float:
-    """Max abs difference from K1's schedule on the same inputs; fails above
-    TOL_SAME_SCHEDULE x the plane's max |value|."""
+def same_schedule(name: str, got, ref, other: str = "K1's schedule") -> float:
+    """Max abs difference from another schedule on the same inputs; fails
+    above TOL_SAME_SCHEDULE x the plane's max |value|."""
     err = float((got.double() - ref.double()).abs().max())
     limit = TOL_SAME_SCHEDULE * float(ref.abs().max())
     ok = err <= limit
     log("check", (
-        f"{name} vs K1's schedule: max_abs_diff={err:.3e} (expected 0, fail above "
+        f"{name} vs {other}: max_abs_diff={err:.3e} (expected 0, fail above "
         f"{limit:.3e}) {'ok' if ok else 'FAIL'}"
     ))
     if not ok:
-        raise AssertionError(f"{name}: differs from K1's schedule by {err:.3e}")
+        raise AssertionError(f"{name}: differs from {other} by {err:.3e}")
     return err
 
 
@@ -384,15 +462,96 @@ def check_tiled(device) -> dict:
             lambda: tt.transport_substeps_tiled_reference(transport, psi, u, v, DT, 1, faces),
         ),
     }
+    n = N4 * N4
+    work = {  # (bytes, operations) of one call at 1024^2
+        "mevp_tiled": ((5 + 7 + 5) * 4 * n, mt.HALO * (OPS["stress"] + OPS["velocity"]) * n),
+        "transport_tiled": ((9 + 4 + 9) * 4 * n, 2 * OPS["stage"] * n),
+    }
     results = {}
     for name, (kernel, plain) in timed.items():
-        ms, plain_ms = time_ms(kernel, 50), time_ms(plain, 3)
-        results[name] = (errs[name], ms, plain_ms)
+        ms_, plain_ms = time_ms(kernel, 50), time_ms(plain, 3)
+        results[name] = (errs[name], ms_, plain_ms, *bound(*work[name]))
         log("time", (
-            f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call at {N4}x{N4} "
+            f"{name}: kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{results[name][3]:.4f} ms ({results[name][4]}) per call at {N4}x{N4} "
             f"({'8 subcycles' if name == 'mevp_tiled' else 'one rk2 substep'})"
         ))
     return results
+
+
+def check_single(device) -> dict:
+    """Phase 3, third part: mevp_single against its plain version, K1's
+    schedule and mevp_tiled, and the metric transport kernels against their
+    plain versions and each other; then mevp_single per call at 256^2."""
+    errs = []
+    model, carry, consts, _, _ = tiled_inputs(N, N, device, SEED + 2, spherical=True)
+    for n in (1, 13):
+        got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, n)
+        ref = single.mevp_single_reference(model.mevp, carry, consts, DT, n)
+        for name, g, r in zip(VELOCITY, got, ref):
+            errs.append(compare(f"mevp_single {N}x{N} spherical N={n} {name}", g, r, TOL_LAUNCH))
+    model, carry, consts, _, _ = tiled_inputs(N, N, device, SEED + 3)
+    got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
+    k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, N_SUBCYCLES)
+    for name, g, q in zip(VELOCITY, got, k1):
+        same_schedule(f"mevp_single {N}x{N} uniform N={N_SUBCYCLES} {name}", g, q)
+    for nx, ny in ((N4, N4), RAGGED):
+        model, carry, consts, _, _ = tiled_inputs(nx, ny, device, SEED + 4, spherical=True)
+        got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
+        ref = single.mevp_single_reference(model.mevp, carry, consts, DT, N_SUBCYCLES)
+        tiled = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, N_SUBCYCLES)
+        for name, g, r, w in zip(VELOCITY, got, ref, tiled):
+            tag = f"mevp_single {nx}x{ny} spherical N={N_SUBCYCLES} {name}"
+            errs.append(compare(tag, g, r, TOL_STEP_MEVP))
+            same_schedule(tag, g, w, "mevp_tiled")
+
+    # The metric transport kernels with the coastline, at 1024^2.
+    model, carry, _, psi, faces = tiled_inputs(N4, N4, device, SEED + 4, spherical=True)
+    transport, u, v = model.transport, carry[0], carry[1]
+    transport_errs = []
+    for k in (1, 4):
+        args = (transport, psi, u, v, DT / k, k, faces)
+        got = tt.transport_substeps_tiled(*args)
+        tag = f"transport_tiled {N4}x{N4} spherical, coastline, k={k}"
+        transport_errs.append(
+            compare(tag, got, tt.transport_substeps_tiled_reference(*args), TOL_STEP_TRACER)
+        )
+        same_schedule(tag, got, cc.transport_substeps(*args), "the metric dg1_rk_stage schedule")
+    stage = (transport, psi, psi.flip(-1).contiguous(), u, v, *faces, 0.5, 0.5, DT)
+    stage_err = compare(
+        f"dg1_rk_stage {N4}x{N4} spherical, coastline", cc.dg1_rk_stage(*stage),
+        cc.dg1_rk_stage_reference(*stage), TOL_LAUNCH,
+    )
+    torch.cuda.synchronize()
+
+    # Per call at the headline's size, uniform consts: 100 subcycles.
+    model, carry, consts, _, _ = tiled_inputs(N, N, device, SEED + 3)
+    solver = model.mevp
+    runs = time_in_turns(
+        {
+            "mevp_single": lambda: single.mevp_subcycles_single(solver, carry, consts, DT, N_SUBCYCLES),
+            "K1": lambda: cc.mevp_subcycles(solver, carry, consts, DT, N_SUBCYCLES),
+            "plain": lambda: single.mevp_single_reference(solver, carry, consts, DT, N_SUBCYCLES),
+        },
+        {"mevp_single": 20, "K1": 10, "plain": 2},
+    )
+    mean = {name: sum(r) / len(r) for name, r in runs.items()}
+    n = N * N
+    work = (
+        (5 + 7 + 5) * 4 * n, N_SUBCYCLES * (OPS["stress"] + OPS["velocity"]) * n
+    )
+    bound_ms, bound_by = bound(*work)
+    log("time", (
+        f"mevp_single: {mean['mevp_single']:.4f} ms per call of {N_SUBCYCLES} subcycles at "
+        f"{N}x{N} (runs {', '.join(f'{m:.4f}' for m in runs['mevp_single'])}), K1's schedule "
+        f"{mean['K1']:.4f}, plain {mean['plain']:.4f}, bound {bound_ms:.4f} ms "
+        f"({bound_by}); {single.max_blocks(False, device)} resident blocks"
+    ))
+    return {
+        "mevp_single": (max(errs), mean["mevp_single"], mean["plain"], bound_ms, bound_by),
+        "transport_metric": max(transport_errs),
+        "dg1_rk_stage_metric": stage_err,
+    }
 
 
 def check_bounded(tag: str, out, first) -> None:
@@ -411,6 +570,35 @@ def check_bounded(tag: str, out, first) -> None:
     ))
 
 
+def check_land(tag: str, model, out, first) -> None:
+    """With a coastline: land elements keep their initial tracers exactly,
+    and every node that touches land (node mask 0) is at rest."""
+    device = out.hice.device
+    land = torch.as_tensor(model.ocean_mask == 0.0, device=device)
+    for name in ("hice", "cice", "hsnow"):
+        if not torch.equal(getattr(out, name)[:, land], getattr(first, name)[:, land]):
+            raise AssertionError(f"{tag}: {name} changed on land")
+    pinned = model.node_mask(device=device, dtype=out.hice.dtype) == 0.0
+    for name in ("u", "v"):
+        if not bool((getattr(out.velocity, name)[pinned] == 0.0).all()):
+            raise AssertionError(f"{tag}: {name} is not zero on a node that touches land")
+    log("slice", (
+        f"{tag}: land tracers unchanged on {int(land.sum())} elements, u = v = 0 on "
+        f"{int(pinned.sum())} pinned nodes"
+    ))
+
+
+def compare_step(tag: str, got, ref) -> None:
+    """All 12 leaves of one coupled step against the plain path."""
+    for name in ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice"):
+        compare(f"{tag}.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
+    for name in VELOCITY:
+        compare(
+            f"{tag}.velocity.{name}", getattr(got.velocity, name),
+            getattr(ref.velocity, name), TOL_STEP_MEVP,
+        )
+
+
 def drive_path(path: str, model, state, phys, dyn, do_thermo: bool) -> dict:
     """20 steps from zeroed launch counters; fails unless every kernel of
     the path was launched."""
@@ -420,6 +608,8 @@ def drive_path(path: str, model, state, phys, dyn, do_thermo: bool) -> dict:
     counts = dict(cc.launches)
     log("slice", f"{path}: 20 steps, launches: {counts}")
     check_bounded(f"{path}: 20 steps", out, state)
+    if model.ocean_mask is not None:
+        check_land(f"{path}: 20 steps", model, out, state)
     missing = [name for name in PATH_KERNELS[path] if counts[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -445,18 +635,32 @@ def check_slice(device) -> dict:
     log("slice", f"config4: {N4}x{N4}, auto schedule {schedule}")
     if schedule != ("pallas-tiled", "tiled"):
         raise AssertionError(f"config 4 does not run the tiled kernels: {schedule}")
-    got = model.step(state, phys, dyn, DT)
-    ref = plain_step(model, state, phys, dyn)
-    for name in ("hice", "cice", "hsnow"):
-        compare(f"config4.step.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
-    for name in ("u", "v", "s11", "s22", "s12"):
-        compare(
-            f"config4.step.velocity.{name}", getattr(got.velocity, name),
-            getattr(ref.velocity, name), TOL_STEP_MEVP,
-        )
-    for name in ("sst", "tice", "new_ice"):
-        compare(f"config4.step.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
+    compare_step("config4.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
     counts["config4"] = drive_path("config4", model, state, phys, dyn, True)
+
+    # Config 4's uniform coastline variant (coupled_1m_mask), on "auto".
+    model, state, phys, dyn = coupled_model(
+        device, RectMesh(N4, N4, dx=4e3, dy=4e3), synthetic_coastline(N4)
+    )
+    got = model.step(state, phys, dyn, DT)
+    compare_step("config4_mask.step", got, plain_step(model, state, phys, dyn))
+    check_land("config4_mask: 1 step", model, got, state)
+
+    # The spherical coastline variant (coupled_1m_spherical).
+    model, state, phys, dyn = spherical_model(device, mevp_backend="pallas")
+    schedule = (model.mevp_schedule(), model.transport_schedule())
+    log("slice", (
+        f"spherical: {N4}x{N4}, min dx {float(np.min(model.mesh.dx)):.1f} m, max dx "
+        f"{float(np.max(model.mesh.dx)):.1f} m, dy {model.mesh.dy:.1f} m, ocean share "
+        f"{float(model.ocean_mask.mean()):.4f}, schedule {schedule}"
+    ))
+    if schedule != ("single", "tiled"):
+        raise AssertionError(f"the spherical path does not run mevp_single: {schedule}")
+    model_auto = spherical_model(device)[0]
+    log("slice", f"spherical: auto schedule {(model_auto.mevp_schedule(), model_auto.transport_schedule())}")
+    for tag, m in (("spherical.pallas.step", model), ("spherical.auto.step", model_auto)):
+        compare_step(tag, m.step(state, phys, dyn, DT), plain_step(m, state, phys, dyn))
+    counts["spherical"] = drive_path("spherical", model, state, phys, dyn, True)
     return counts
 
 
@@ -476,6 +680,36 @@ def time_in_turns(fns: dict, reps: dict) -> dict:
     for name in order:
         runs[name].append(time_ms(fns[name], reps[name]))
     return runs
+
+
+def profile(tag: str, step, n_steps: int = 5) -> None:
+    """Device busy time per step and the device's idle share over n_steps
+    back-to-back steps under torch.profiler, and the kernels that took the
+    most device time. Busy time sums the CUDA events' own device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    step()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    events = [
+        e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    per_step = lambda e: e.self_device_time_total / 1e3 / n_steps
+    busy = sum(per_step(e) for e in events)
+    top = sorted(events, key=per_step, reverse=True)[:5]
+    log("time", (
+        f"profile {tag}: wall {wall:.3f} ms/step (profiled), device busy {busy:.3f} ms/step, "
+        f"idle share {1.0 - busy / wall:.3f}, {sum(e.count for e in events) / n_steps:.0f} "
+        f"device activities/step; top: " + "; ".join(
+            f"{e.key[:48]} {per_step(e):.3f} ms x{e.count / n_steps:g}" for e in top
+        )
+    ))
 
 
 def time_paths(device, card: str) -> None:
@@ -527,6 +761,52 @@ def time_paths(device, card: str) -> None:
         report(f"config4 coupled step, {name} path ({N4}x{N4})", ms, N4 * N4, card)
     ms = [time_ms(lambda: model.step_thermo(state, phys, DT), 10) for _ in range(2)]
     report(f"config4 physics alone ({N4}x{N4})", ms, N4 * N4, card)
+    profile(f"config4 coupled step, tiled path ({N4}x{N4})", lambda: model.step(state, phys, dyn, DT))
+
+    # The spherical coupled step: mevp_single ("pallas"), mevp_tiled, plain.
+    model, state, phys, dyn = spherical_model(device, mevp_backend="pallas")
+    model_tiled = spherical_model(device, mevp_backend="pallas-tiled")[0]
+    runs = time_in_turns(
+        {
+            "mevp_single": lambda: model.step(state, phys, dyn, DT),
+            "mevp_tiled": lambda: model_tiled.step(state, phys, dyn, DT),
+            "plain": lambda: plain_step(model, state, phys, dyn),
+        },
+        {"mevp_single": 10, "mevp_tiled": 10, "plain": 2},
+    )
+    for name, ms in runs.items():
+        report(f"spherical coupled step, {name} path ({N4}x{N4})", ms, N4 * N4, card)
+    profile(f"spherical coupled step on mevp_single ({N4}x{N4})", lambda: model.step(state, phys, dyn, DT))
+    profile(f"spherical coupled step on mevp_tiled ({N4}x{N4})", lambda: model_tiled.step(state, phys, dyn, DT))
+
+    # mevp_single against mevp_tiled on spherical meshes: the non-uniform
+    # "auto" threshold (coupled.SINGLE_MAX_ELEMENTS).
+    for n in (128, N, 512, N4):
+        model_s, carry, consts, _, _ = tiled_inputs(n, n, device, SEED + 5, spherical=True)
+        runs = time_in_turns(
+            {
+                "mevp_single": lambda: single.mevp_subcycles_single(
+                    model_s.mevp, carry, consts, DT, N_SUBCYCLES
+                ),
+                "mevp_tiled": lambda: mt.mevp_subcycles_tiled(
+                    model_s.mevp, carry, consts, DT, N_SUBCYCLES
+                ),
+            },
+            {"mevp_single": 10, "mevp_tiled": 10},
+        )
+        for name, ms in runs.items():
+            report(f"spherical mEVP phase ({N_SUBCYCLES} subcycles) on {name} at {n}x{n}", ms, n * n, card)
+        model_s, state, _, dyn = spherical_model(device, n, mevp_backend="pallas")
+        model_t = spherical_model(device, n, mevp_backend="pallas-tiled")[0]
+        runs = time_in_turns(
+            {
+                "mevp_single": lambda: model_s.step_dynamics(state, dyn, DT),
+                "mevp_tiled": lambda: model_t.step_dynamics(state, dyn, DT),
+            },
+            {"mevp_single": 10, "mevp_tiled": 10},
+        )
+        for name, ms in runs.items():
+            report(f"spherical dynamics step on {name} at {n}x{n}", ms, n * n, card)
 
     # Tile sweep of the tiled kernels at 1024^2: ms per call of each launch
     # configuration that fits the 227 KB of shared memory of a block.
@@ -572,7 +852,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log("device", f"{name}; nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
-    log("device", f"auto threshold: tiled schedule from {coupled.TILED_MIN_ELEMENTS} elements")
+    log("device", (
+        f"auto thresholds: tiled schedule from {coupled.TILED_MIN_ELEMENTS} elements "
+        f"(uniform), mevp_tiled from {coupled.SINGLE_MAX_ELEMENTS} (graded, spherical)"
+    ))
 
     t0 = time.perf_counter()
     path = cc.build()
@@ -580,21 +863,35 @@ def main() -> int:
     log("build", f"{path.name} ready in {time.perf_counter() - t0:.2f} s")
     for line in ptxas_report(path.with_suffix(".log").read_text()):
         log("build", line)
+    log("build", (
+        f"mevp_single: {single.max_blocks(False, device)} resident blocks (uniform), "
+        f"{single.max_blocks(True, device)} (metric), of 256 threads"
+    ))
 
     model, _, _ = bench_model(device)
     kernels = check_kernels(model, device)
     kernels.update(check_tiled(device))
+    extra = check_single(device)
+    kernels["mevp_single"] = extra["mevp_single"]
+    # The metric checks of the kernels with a uniform-mesh timing above.
+    for kernel, key in (
+        ("transport_tiled", "transport_metric"), ("dg1_rk_stage", "dg1_rk_stage_metric"),
+    ):
+        kernels[kernel] = (max(kernels[kernel][0], extra[key]), *kernels[kernel][1:])
     counts = check_slice(device)
     time_paths(device, smi)
 
-    launches = {k: counts["headline"][k] for k in PATH_KERNELS["headline"]}
-    for k in PATH_KERNELS["config4"]:
-        launches[k] = launches.get(k, 0) + counts["config4"][k]
+    launches = dict.fromkeys(cc.KERNELS, 0)
+    for path, names in PATH_KERNELS.items():
+        for k in names:
+            launches[k] += counts[path][k]
+    # No single PyTorch call computes these stencils, so library_ms is null.
     summary = {"kernels": [
         {
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
             "launches": launches[k], "max_abs_err": kernels[k][0],
             "ms": kernels[k][1], "plain_ms": kernels[k][2],
+            "bound_ms": kernels[k][3], "bound_by": kernels[k][4], "library_ms": None,
         }
         for k in cc.KERNELS
     ]}

@@ -1,22 +1,27 @@
 """The coupled sea-ice model: mEVP dynamics + dG1 transport + column physics.
 
-Counterpart of ``nextsimdg_tpu.coupled`` on a uniform, closed mesh. Per
-outer timestep:
+Counterpart of ``nextsimdg_tpu.coupled`` on a closed mesh: uniform, graded
+or spherical, with an optional coastline (``ocean_mask``). Per outer
+timestep:
 
-1. the per-step mEVP constants from the current cell means (h, A);
+1. the per-step mEVP constants from the current cell means (h, A), with
+   the metric planes on a non-uniform mesh and the coastal nodes pinned
+   (``node_mask``);
 2. one dynamics phase (``dynamics.kernels.coupled_cuda.dynamics_phase``):
    N mEVP subcycles, CG1 -> quadrature sampling, the CFL substep count k
-   and k limited SSP-RK dG1 steps of the stacked (hice, cice, hsnow);
+   and k limited SSP-RK dG1 steps of the stacked (hice, cice, hsnow), with
+   impermeable coastline faces (``face_masks``);
 3. bounds: 0 <= A <= 1, h >= 0 on the cell means;
 4. with ``do_thermo``, the column physics (``physics.NextsimPhysics``) on
-   the cell means, the higher DG moments rescaled to keep their shape.
+   the cell means, land elements kept as they were, the higher DG moments
+   rescaled to keep their shape.
 
-On a CUDA card the dynamics phase runs one of two kernel schedules,
-chosen by ``mevp_backend`` and ``transport_backend`` (see
+On a CUDA card the dynamics phase runs one of the kernel schedules chosen
+by ``mevp_backend`` and ``transport_backend`` (see
 ``CoupledModel.__init__``); CPU tensors always run the plain PyTorch
 versions. The momentum solver is always the CG1 ``MEVPSolver``, built
 directly: the port has no module registry yet, so free drift and the
-high-order solver cannot be selected. Land masks, device meshes and the
+high-order solver cannot be selected. Device meshes, periodic axes and the
 TVB limiter are not ported yet and raise ``NotImplementedError``.
 """
 
@@ -26,12 +31,14 @@ import dataclasses
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .dynamics.kernels.coupled_cuda import dynamics_phase
 from .dynamics.mesh import RectMesh
 from .dynamics.mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
-from .dynamics.transport import DGTransport
+from .dynamics.stencil import shift_m
+from .dynamics.transport import DGTransport, face_masks_from_land
 from .physics.nextsim_physics import NextsimPhysics
 from .state import Forcing, PrognosticState, safe_div
 
@@ -44,6 +51,17 @@ TRANSPORT_BACKENDS = ("auto", "xla", "tiled")
 #: threshold is the smallest of them; below it nothing was measured and
 #: K1's schedule stays. See PERF.md.
 TILED_MIN_ELEMENTS = 64 * 64
+#: Element count from which ``"auto"`` runs mevp_tiled instead of the
+#: single-launch mevp_single on a graded or spherical mesh. Derived on the
+#: H100 from chip_smoke.py's timings of the two on spherical meshes with a
+#: coastline: mevp_single was faster at 128^2 and 256^2 (its mEVP phase
+#: 2.4-2.9x, the dynamics step 1.5x: one launch instead of 13, and
+#: mevp_tiled's 64^2 tiles fill few SMs there); at 512^2 the two tied
+#: within the run-to-run spread; at 1024^2 mevp_tiled was 2x faster
+#: (mevp_single's ~120 bytes per element and subcycle stream from HBM once
+#: the planes outgrow the 50 MB L2). So the tie goes to mevp_tiled. See
+#: PERF.md.
+SINGLE_MAX_ELEMENTS = 512 * 512
 
 
 @dataclass(frozen=True)
@@ -86,17 +104,25 @@ class CoupledModel:
         its floor. ``physics``: the column physics (default: the reference
         chain with its default parameters).
 
+        ``ocean_mask``: optional (nx, ny) element mask (1 = ocean,
+        0 = land): coastline faces become impermeable, coastal nodes
+        no-slip, and the column physics leaves land elements as they are.
+
         The kernel schedule of the dynamics phase on a CUDA card (CPU
         tensors always run the plain versions):
 
-        * ``mevp_backend``: ``"pallas"``, K1's schedule, the counterpart of
-          the JAX value that selects the fused whole-phase kernel: two
-          launches per subcycle, then one ``dg1_rk_stage`` per RK stage
-          (``transport_backend`` does not apply, as in the JAX fused path);
-          ``"pallas-tiled"``, the counterpart of the JAX tiled kernel:
-          ``mevp_tiled``, H subcycles per launch; ``"auto"``: the tiled
-          schedule from ``TILED_MIN_ELEMENTS`` elements, K1's below.
-        * ``transport_backend`` (with the tiled mEVP): ``"xla"``, the
+        * ``mevp_backend``: ``"pallas"``, the counterpart of the JAX value
+          that selects its single-call kernels: on a uniform mesh K1's
+          schedule (two launches per subcycle, then one ``dg1_rk_stage``
+          per RK stage; ``transport_backend`` does not apply, as in the JAX
+          fused path), on a graded or spherical mesh ``mevp_single`` (all
+          N subcycles in one launch); ``"pallas-tiled"``, the counterpart
+          of the JAX tiled kernel: ``mevp_tiled``, H subcycles per launch;
+          ``"auto"``: on a uniform mesh the tiled schedule from
+          ``TILED_MIN_ELEMENTS`` elements and K1's below, on a non-uniform
+          one ``mevp_tiled`` from ``SINGLE_MAX_ELEMENTS`` and
+          ``mevp_single`` below.
+        * ``transport_backend`` (except with K1's schedule): ``"xla"``, the
           counterpart of the JAX staged path: one ``dg1_rk_stage`` per RK
           stage; ``"tiled"``, the counterpart of the JAX tiled kernel:
           ``transport_tiled``, whole substeps per launch; ``"auto"``: tiled
@@ -111,11 +137,18 @@ class CoupledModel:
             )
         if any(axis is not None for axis in spmd):
             raise NotImplementedError("device meshes (spmd) are not ported yet")
-        if ocean_mask is not None:
-            raise NotImplementedError("land masks are not ported yet")
         if tvb_m is not None:
             raise NotImplementedError("the TVB slope limiter is not ported yet")
         self.mesh = mesh
+        self.ocean_mask = None
+        if ocean_mask is not None:
+            self.ocean_mask = np.asarray(ocean_mask, dtype=np.float64)
+            if self.ocean_mask.shape != (mesh.nx, mesh.ny):
+                raise ValueError(
+                    f"ocean_mask has shape {self.ocean_mask.shape}, "
+                    f"expected {(mesh.nx, mesh.ny)}"
+                )
+        self._masks = {}
         self.transport = DGTransport(mesh, degree=degree)
         self.mevp = MEVPSolver(mesh, mevp_params)
         self.n_subcycles = int(n_subcycles)
@@ -127,11 +160,15 @@ class CoupledModel:
 
     # -- kernel schedule -----------------------------------------------------
     def mevp_schedule(self) -> str:
-        """``"pallas"`` (K1's schedule) or ``"pallas-tiled"`` (mevp_tiled)."""
-        if self.mevp_backend != "auto":
-            return self.mevp_backend
-        tiled = self.mesh.n_elements >= TILED_MIN_ELEMENTS
-        return "pallas-tiled" if tiled else "pallas"
+        """``"pallas"`` (K1's schedule), ``"single"`` (mevp_single) or
+        ``"pallas-tiled"`` (mevp_tiled)."""
+        backend = self.mevp_backend
+        if backend == "auto":
+            limit = TILED_MIN_ELEMENTS if self.mesh.uniform else SINGLE_MAX_ELEMENTS
+            backend = "pallas-tiled" if self.mesh.n_elements >= limit else "pallas"
+        if backend == "pallas" and not self.mesh.uniform:
+            return "single"
+        return backend
 
     def transport_schedule(self) -> str:
         """``"xla"`` (one dg1_rk_stage per stage) or ``"tiled"``."""
@@ -170,9 +207,36 @@ class CoupledModel:
             new_ice=torch.zeros((nx, ny), device=device, dtype=dtype),
         )
 
+    def _static_masks(self, device, dtype) -> dict:
+        """The node mask and the coastline face masks, built once per
+        (device, dtype): the JAX package rebuilds the same values in every
+        step."""
+        key = (torch.device(device), dtype)
+        if key not in self._masks:
+            mask = self.mevp.boundary_mask(device=device, dtype=dtype)
+            faces = is_ocean = None
+            if self.ocean_mask is not None:
+                ocean = torch.as_tensor(self.ocean_mask, device=device).to(dtype)
+                # CG1 node (i, j): no-slip unless all 4 adjacent elements
+                # are ocean.
+                o_x = shift_m(ocean, 0, False)
+                o_y = shift_m(ocean, 1, False)
+                o_xy = shift_m(o_x, 1, False)
+                mask = mask * ocean * o_x * o_y * o_xy
+                faces = face_masks_from_land(ocean)
+                is_ocean = ocean == 1.0
+            self._masks[key] = {"node": mask, "faces": faces, "ocean": is_ocean}
+        return self._masks[key]
+
     def node_mask(self, *, device, dtype):
-        """1 on active CG1 nodes, 0 on the no-slip walls."""
-        return self.mevp.boundary_mask(device=device, dtype=dtype)
+        """1 on active CG1 nodes, 0 on the no-slip walls and on every node
+        that touches land."""
+        return self._static_masks(device, dtype)["node"]
+
+    def face_masks(self, *, device, dtype):
+        """(face_x, face_y): 1 on faces between two ocean elements, 0 on
+        coastline faces; None without an ocean mask."""
+        return self._static_masks(device, dtype)["faces"]
 
     # -- one coupled timestep ------------------------------------------------
     def step_dynamics(
@@ -196,7 +260,8 @@ class CoupledModel:
             phase = functools.partial(
                 dynamics_phase, mevp=self.mevp_schedule(), transport=self.transport_schedule()
             )
-        final, tracers = phase(self, carry0, tracers, consts, dt, self.n_subcycles)
+        faces = self.face_masks(device=hice.device, dtype=hice.dtype)
+        final, tracers = phase(self, carry0, tracers, consts, dt, self.n_subcycles, faces)
         velocity = VelocityState(
             u=final[0], v=final[1], s11=final[2], s22=final[3], s12=final[4],
         )
@@ -211,7 +276,9 @@ class CoupledModel:
 
     def step_thermo(self, state: CoupledState, phys_forcing: Forcing, dt: float) -> CoupledState:
         """Column physics on the cell means; the higher DG moments are
-        rescaled by new/old mean, so the sub-element shape is kept."""
+        rescaled by new/old mean, so the sub-element shape is kept. With an
+        ocean mask, land elements keep every field as it was (there is no
+        ocean under them, so no new ice either)."""
         if not isinstance(phys_forcing, Forcing):
             raise ValueError(
                 f"the column physics needs a state.Forcing, got {type(phys_forcing).__name__}"
@@ -222,6 +289,20 @@ class CoupledModel:
             sst=state.sst, sss=state.sss, tice=state.tice,
         )
         updated, diags = self.physics.step(prog, phys_forcing, state.new_ice, dt)
+        new_ice = diags.new_ice
+        if self.ocean_mask is not None:
+            ocean = self._static_masks(hice.device, hice.dtype)["ocean"]
+            keep = lambda new, old: torch.where(ocean, new, old)
+            updated = dataclasses.replace(
+                updated,
+                hice=keep(updated.hice, prog.hice),
+                cice=keep(updated.cice, prog.cice),
+                hsnow=keep(updated.hsnow, prog.hsnow),
+                sst=keep(updated.sst, prog.sst),
+                sss=keep(updated.sss, prog.sss),
+                tice=torch.where(ocean[None], updated.tice, prog.tice),
+            )
+            new_ice = keep(new_ice, state.new_ice)
         return dataclasses.replace(
             state,
             hice=_rescale_dg(hice, updated.hice),
@@ -230,7 +311,7 @@ class CoupledModel:
             sst=updated.sst,
             sss=updated.sss,
             tice=updated.tice,
-            new_ice=diags.new_ice,
+            new_ice=new_ice,
         )
 
     def step(

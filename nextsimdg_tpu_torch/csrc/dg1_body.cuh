@@ -10,9 +10,14 @@
 // version share one source. The sums run densely over every table entry in
 // the plain version's ascending order: with --fmad=false a zero entry adds
 // an exact zero and a unit entry multiplies exactly, which is what the
-// plain version's skipped terms amount to. The edge terms' division by the
-// element width is a multiply by its float32 reciprocal, as PyTorch on CUDA
-// divides a tensor by a Python scalar.
+// plain version's skipped terms amount to. On a uniform mesh the edge
+// terms' division by the element width is a multiply by its float32
+// reciprocal, as PyTorch on CUDA divides a tensor by a Python scalar. On a
+// graded or spherical mesh (kMetric) the widths are per-element planes:
+// the volume term multiplies by inv_dx and inv_dy, each face flux is
+// weighted by its face's length after the coastline mask, and the edge
+// terms multiply by the element's inverse area, in the plain version's
+// order.
 #pragma once
 
 #include "common.cuh"
@@ -100,12 +105,44 @@ struct Dg1Faces {
   float fx_left, fx_right, fy_bottom, fy_top;
 };
 
+// The transport's metric planes (inv_dx, inv_dy, face_x, face_y, inv_area
+// of DGTransport.metric_planes), read-only for a launch; all null on a
+// uniform mesh. The host packs them in this order.
+struct Dg1MetricPlanes {
+  const float* inv_dx;
+  const float* inv_dy;
+  const float* len_x;  // length of the left face of element (i, j)
+  const float* len_y;  // length of the bottom face
+  const float* inv_area;
+};
+
+// One element's metric: its inverse widths and area and the lengths of
+// its four faces (the right face is element (i+1, j)'s left face, the top
+// face element (i, j+1)'s bottom face; zero beyond the domain).
+struct Dg1Metric {
+  float inv_dx, inv_dy, inv_area, len_left, len_right, len_bottom, len_top;
+};
+
+__device__ __forceinline__ Dg1Metric load_metric(const Dg1MetricPlanes& m, long ij, int ny,
+                                                 bool has_right, bool has_top) {
+  Dg1Metric g;
+  g.inv_dx = __ldg(m.inv_dx + ij);
+  g.inv_dy = __ldg(m.inv_dy + ij);
+  g.inv_area = __ldg(m.inv_area + ij);
+  g.len_left = __ldg(m.len_x + ij);
+  g.len_right = has_right ? __ldg(m.len_x + ij + ny) : 0.0f;
+  g.len_bottom = __ldg(m.len_y + ij);
+  g.len_top = has_top ? __ldg(m.len_y + ij + 1) : 0.0f;
+  return g;
+}
+
 // out = lim(a*base + b*(p + dt*rhs(p))), or lim(p + dt*rhs(p)) when a == 0,
 // for one tracer of one element: p its coefficients, p_l/p_r/p_b/p_t those
 // of its left, right, bottom and top neighbours (zeros beyond the domain).
-// `base` is read only when a != 0.
+// `base` is read only when a != 0; `g` only with kMetric.
+template <bool kMetric>
 __device__ __forceinline__ void dg1_stage_cell(
-    const Dg1Tables& tb, const Dg1Velocity& q, const Dg1Faces& f,
+    const Dg1Tables& tb, const Dg1Velocity& q, const Dg1Faces& f, const Dg1Metric& g,
     const float p[kDofs], const float p_l[kDofs], const float p_r[kDofs],
     const float p_b[kDofs], const float p_t[kDofs], const float base[kDofs],
     float a, float b, float dt, float out[kDofs]) {
@@ -133,22 +170,27 @@ __device__ __forceinline__ void dg1_stage_cell(
     float up = q.vn_left[e] >= 0.0f ? trace(tb.psi_x1, e, p_l) : trace(tb.psi_x0, e, p);
     g_left[e] = f.left_wall ? 0.0f : q.vn_left[e] * up;
     g_left[e] = g_left[e] * f.fx_left;
+    if (kMetric) g_left[e] = g_left[e] * g.len_left;
     // Right face (i+1): this element against element (i+1, j).
     up = q.vn_right[e] >= 0.0f ? trace(tb.psi_x1, e, p) : trace(tb.psi_x0, e, p_r);
     g_right[e] = f.has_right ? (q.vn_right[e] * up) * f.fx_right : 0.0f;
+    if (kMetric) g_right[e] = g_right[e] * g.len_right;
     // Bottom face (j).
     up = q.vn_bottom[e] >= 0.0f ? trace(tb.psi_y1, e, p_b) : trace(tb.psi_y0, e, p);
     g_bottom[e] = f.bottom_wall ? 0.0f : q.vn_bottom[e] * up;
     g_bottom[e] = g_bottom[e] * f.fy_bottom;
+    if (kMetric) g_bottom[e] = g_bottom[e] * g.len_bottom;
     // Top face (j+1).
     up = q.vn_top[e] >= 0.0f ? trace(tb.psi_y1, e, p) : trace(tb.psi_y0, e, p_t);
     g_top[e] = f.has_top ? (q.vn_top[e] * up) * f.fy_top : 0.0f;
+    if (kMetric) g_top[e] = g_top[e] * g.len_top;
   }
 
   float val[kDofs];
 #pragma unroll
   for (int d = 0; d < kDofs; ++d) {
-    const float volume = acc_x[d] * tb.inv_dx + acc_y[d] * tb.inv_dy;
+    const float volume = kMetric ? acc_x[d] * g.inv_dx + acc_y[d] * g.inv_dy
+                                 : acc_x[d] * tb.inv_dx + acc_y[d] * tb.inv_dy;
     float in_x = tb.wa_x1[d][0] * g_right[0];
     float out_x = tb.wa_x0[d][0] * g_left[0];
     float in_y = tb.wa_y1[d][0] * g_top[0];
@@ -160,8 +202,8 @@ __device__ __forceinline__ void dg1_stage_cell(
       in_y = in_y + tb.wa_y1[d][e] * g_top[e];
       out_y = out_y + tb.wa_y0[d][e] * g_bottom[e];
     }
-    const float edge_x = (in_x - out_x) * tb.edge_inv_dx;
-    const float edge_y = (in_y - out_y) * tb.edge_inv_dy;
+    const float edge_x = (in_x - out_x) * (kMetric ? g.inv_area : tb.edge_inv_dx);
+    const float edge_y = (in_y - out_y) * (kMetric ? g.inv_area : tb.edge_inv_dy);
     const float rhs = tb.inv_mass[d] * (volume - edge_x - edge_y);
     val[d] = p[d] + dt * rhs;
     if (a != 0.0f) val[d] = a * base[d] + b * val[d];

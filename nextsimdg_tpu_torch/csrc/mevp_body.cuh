@@ -1,15 +1,17 @@
 // The CG1 mEVP subcycle, one element or one node at a time.
 //
-// Both schedules of the mEVP phase call these two bodies: mevp.cu (two
-// grid-wide launches per subcycle) and mevp_tiled.cu (H subcycles per launch
-// on a shared-memory window). With --fmad=false they run the same float32
-// operations in the same order, so the two schedules agree bit for bit.
+// The three schedules of the mEVP phase call these bodies: mevp.cu (two
+// grid-wide launches per subcycle), mevp_tiled.cu (H subcycles per launch
+// on a shared-memory window) and mevp_single.cu (all N subcycles in one
+// cooperative launch). With --fmad=false they run the same float32
+// operations in the same order, so the schedules agree bit for bit.
 // The expression order is that of MEVPSolver.stress_update and
-// MEVPSolver.velocity_update in nextsimdg_tpu_torch/dynamics/mevp.py. A
-// division by the element width is a multiply by its float32 reciprocal,
-// which is what PyTorch on CUDA does for a tensor divided by a Python
-// scalar (and it keeps the kernels off the division's slow path for the
-// zero strain rates of a fluid at rest).
+// MEVPSolver.velocity_update in nextsimdg_tpu_torch/dynamics/mevp.py. On a
+// uniform mesh a division by the element width is a multiply by its
+// float32 reciprocal, which is what PyTorch on CUDA does for a tensor
+// divided by a Python scalar (and it keeps the kernels off the division's
+// slow path for the zero strain rates of a fluid at rest). On a graded or
+// spherical mesh the widths arrive as the metric const planes instead.
 #pragma once
 
 #include "common.cuh"
@@ -17,6 +19,8 @@
 namespace nst {
 
 // Scalars of one subcycle, in the order that coupled_cuda.py packs them.
+// The geometric ones (inv_dx, inv_dy, half_dx, half_dy, inv_w) are NaN on a
+// non-uniform mesh, whose kernels read the metric planes instead.
 struct MevpScalars {
   float inv_dx, inv_dy;    // float32 reciprocals of the element widths
   float c_delta1;          // 1 + 1/e^2
@@ -35,9 +39,30 @@ struct MevpScalars {
   float dt;                // outer time step [s]
 };
 
+// The per-step constant planes, read-only for a whole launch (so they may
+// be read through the read-only data path). The last five are the metric
+// planes of a graded or spherical mesh, null on a uniform one; the host
+// packs them in this order.
+struct MevpConsts {
+  const float* strength;
+  const float* dt_m;
+  const float* active;
+  const float* b_u;
+  const float* b_v;
+  const float* u_ocean;
+  const float* v_ocean;
+  const float* inv_dx;   // per element
+  const float* inv_dy;
+  const float* half_dx;  // per element
+  const float* half_dy;
+  const float* inv_w;    // per node: 1 / (the node's lumped area)
+};
+constexpr int kMevpConstPlanes = 12;
+
 // Element (i, j): velocities at its corner nodes (i, j), (i+1, j), (i, j+1),
-// (i+1, j+1) and its stresses in; the alpha-relaxed stresses out, plus node
-// (i, j)'s c_w and inv_drag (the two share one divide with the element).
+// (i+1, j+1), its stresses and its inverse widths in; the alpha-relaxed
+// stresses out, plus node (i, j)'s c_w and inv_drag (the two share one
+// divide with the element).
 struct StressOut {
   float s11, s22, s12, c_w, inv_drag;
 };
@@ -45,12 +70,13 @@ struct StressOut {
 __device__ __forceinline__ StressOut mevp_stress_body(
     float u00, float u10, float u01, float u11, float v00, float v10, float v01,
     float v11, float a11, float a22, float a12, float strength, float dt_m,
-    float active, float u_ocean, float v_ocean, const MevpScalars& s) {
+    float active, float u_ocean, float v_ocean, float inv_dx, float inv_dy,
+    const MevpScalars& s) {
   // Strain rates from the element's four corner nodes.
-  const float e11 = 0.5f * ((u10 - u00) + (u11 - u01)) * s.inv_dx;
-  const float e22 = 0.5f * ((v01 - v00) + (v11 - v10)) * s.inv_dy;
-  const float du_dy = 0.5f * ((u01 - u00) + (u11 - u10)) * s.inv_dy;
-  const float dv_dx = 0.5f * ((v10 - v00) + (v11 - v01)) * s.inv_dx;
+  const float e11 = 0.5f * ((u10 - u00) + (u11 - u01)) * inv_dx;
+  const float e22 = 0.5f * ((v01 - v00) + (v11 - v10)) * inv_dy;
+  const float du_dy = 0.5f * ((u01 - u00) + (u11 - u10)) * inv_dy;
+  const float dv_dx = 0.5f * ((v10 - v00) + (v11 - v01)) * inv_dx;
   const float e12 = 0.5f * (du_dy + dv_dx);
   const float delta = sqrtf((e11 * e11 + e22 * e22) * s.c_delta1 +
                             2.0f * e11 * e22 * s.c_delta2 +
@@ -83,35 +109,126 @@ __device__ __forceinline__ StressOut mevp_stress_body(
   return out;
 }
 
-// One stress plane around node (i, j): elements (i, j), (i-1, j), (i, j-1)
+// One element plane around node (i, j): elements (i, j), (i-1, j), (i, j-1)
 // and (i-1, j-1); a missing element (a wall) is a zero.
 struct Around {
   float c, x, y, xy;
 };
 
-// Node (i, j): the new (u, v) from the stress divergence of its four
-// elements and the beta-relaxed update with semi-implicit ocean drag. The
-// single-component scatters go through t = cell + shift, as the plain
-// version's 13-shift factoring does.
-__device__ __forceinline__ float2 mevp_velocity_body(
-    const Around& s11, const Around& s22, const Around& s12, float u0, float v0,
-    float u_ocean, float v_ocean, float c_w, float dt_m, float b_u, float b_v,
-    float inv_drag, const MevpScalars& s) {
+// Node (i, j)'s stress divergence (before the 1/W normalisation) on a
+// uniform mesh: the single-component scatters go through t = cell + shift,
+// as the plain version's 13-shift factoring does.
+__device__ __forceinline__ float2 forces_uniform(const Around& s11, const Around& s22,
+                                                 const Around& s12, const MevpScalars& s) {
   const float t11 = s11.c + s11.y;
   const float t11_m = s11.x + s11.xy;
   const float t22 = s22.c + s22.x;
   const float t22_m = s22.y + s22.xy;
-  float fu = s.half_dy * (t11 - t11_m) + s.half_dx * ((s12.x + s12.c) - (s12.xy + s12.y));
-  float fv = s.half_dy * ((s12.y + s12.c) - (s12.xy + s12.x)) + s.half_dx * (t22 - t22_m);
-  fu = fu * s.inv_w;
-  fv = fv * s.inv_w;
+  float2 f;
+  f.x = s.half_dy * (t11 - t11_m) + s.half_dx * ((s12.x + s12.c) - (s12.xy + s12.y));
+  f.y = s.half_dy * ((s12.y + s12.c) - (s12.xy + s12.x)) + s.half_dx * (t22 - t22_m);
+  return f;
+}
 
+// The same on a graded or spherical mesh, from stresses already weighted by
+// their own element's half face length: w11 = s11 half_dy,
+// w12_dx = s12 half_dx, w12_dy = s12 half_dy, w22 = s22 half_dx (the plain
+// version's scatter_x_m and scatter_y_m).
+__device__ __forceinline__ float2 forces_metric(const Around& w11, const Around& w12_dx,
+                                                const Around& w12_dy, const Around& w22) {
+  float2 f;
+  f.x = ((w11.y + w11.c) - (w11.xy + w11.x)) + ((w12_dx.x + w12_dx.c) - (w12_dx.xy + w12_dx.y));
+  f.y = ((w12_dy.y + w12_dy.c) - (w12_dy.xy + w12_dy.x)) + ((w22.x + w22.c) - (w22.xy + w22.y));
+  return f;
+}
+
+// Node (i, j): the new (u, v) from its forces f (normalised here by inv_w)
+// and the beta-relaxed update with semi-implicit ocean drag.
+__device__ __forceinline__ float2 mevp_velocity_body(
+    float2 f, float inv_w, float u0, float v0, float u_ocean, float v_ocean, float c_w,
+    float dt_m, float b_u, float b_v, float inv_drag, const MevpScalars& s) {
+  const float fu = f.x * inv_w;
+  const float fv = f.y * inv_w;
   const float cor_u = s.f_cor * (v0 - v_ocean);
   const float cor_v = s.neg_f_cor * (u0 - u_ocean);
   float2 uv;
   uv.x = (s.beta * u0 + b_u + dt_m * (fu + c_w * u_ocean) + s.dt * cor_u) * inv_drag;
   uv.y = (s.beta * v0 + b_v + dt_m * (fv + c_w * v_ocean) + s.dt * cor_v) * inv_drag;
   return uv;
+}
+
+// A read-only const plane at (i, j), or 0 beyond the owned range.
+__device__ __forceinline__ float ldg_at(const float* f, int i, int j, int nx, int ny) {
+  return (i >= 0 && i < nx && j >= 0 && j < ny) ? __ldg(f + i * ny + j) : 0.0f;
+}
+
+// The state planes of the grid-wide schedules, updated in place. They are
+// written during the launch (by this or another block), so they are never
+// read through the read-only data path.
+struct MevpState {
+  float *u, *v, *s11, *s22, *s12, *c_w, *inv_drag;
+};
+
+// The stress half of a subcycle at element (i, j), from and into global
+// memory: reads u, v at the element's four nodes and its own stresses;
+// writes its stresses and node (i, j)'s c_w and inv_drag.
+template <bool kMetric>
+__device__ __forceinline__ void stress_cell(const MevpState& p, const MevpConsts& k, int i,
+                                            int j, int nx, int ny, const MevpScalars& s) {
+  const int ij = i * ny + j;
+  const float inv_dx = kMetric ? __ldg(k.inv_dx + ij) : s.inv_dx;
+  const float inv_dy = kMetric ? __ldg(k.inv_dy + ij) : s.inv_dy;
+  const StressOut o = mevp_stress_body(
+      p.u[ij], at(p.u, i + 1, j, nx, ny), at(p.u, i, j + 1, nx, ny),
+      at(p.u, i + 1, j + 1, nx, ny), p.v[ij], at(p.v, i + 1, j, nx, ny),
+      at(p.v, i, j + 1, nx, ny), at(p.v, i + 1, j + 1, nx, ny), p.s11[ij], p.s22[ij],
+      p.s12[ij], __ldg(k.strength + ij), __ldg(k.dt_m + ij), __ldg(k.active + ij),
+      __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij), inv_dx, inv_dy, s);
+  p.s11[ij] = o.s11;
+  p.s22[ij] = o.s22;
+  p.s12[ij] = o.s12;
+  p.c_w[ij] = o.c_w;
+  p.inv_drag[ij] = o.inv_drag;
+}
+
+__device__ __forceinline__ Around around(const float* f, int i, int j, int nx, int ny) {
+  return {f[i * ny + j], at(f, i - 1, j, nx, ny), at(f, i, j - 1, nx, ny),
+          at(f, i - 1, j - 1, nx, ny)};
+}
+
+// f times the metric plane w around node (i, j), element by element.
+__device__ __forceinline__ Around weighted(const float* f, const float* w, int i, int j,
+                                          int nx, int ny) {
+  return {f[i * ny + j] * __ldg(w + i * ny + j), at(f, i - 1, j, nx, ny) * ldg_at(w, i - 1, j, nx, ny),
+          at(f, i, j - 1, nx, ny) * ldg_at(w, i, j - 1, nx, ny),
+          at(f, i - 1, j - 1, nx, ny) * ldg_at(w, i - 1, j - 1, nx, ny)};
+}
+
+// The velocity half of a subcycle at node (i, j), from and into global
+// memory: reads the stresses of its four elements and its own u, v, c_w and
+// inv_drag; writes u and v.
+template <bool kMetric>
+__device__ __forceinline__ void velocity_cell(const MevpState& p, const MevpConsts& k, int i,
+                                              int j, int nx, int ny, const MevpScalars& s) {
+  const int ij = i * ny + j;
+  float2 f;
+  float inv_w;
+  if (kMetric) {
+    f = forces_metric(weighted(p.s11, k.half_dy, i, j, nx, ny),
+                      weighted(p.s12, k.half_dx, i, j, nx, ny),
+                      weighted(p.s12, k.half_dy, i, j, nx, ny),
+                      weighted(p.s22, k.half_dx, i, j, nx, ny));
+    inv_w = __ldg(k.inv_w + ij);
+  } else {
+    f = forces_uniform(around(p.s11, i, j, nx, ny), around(p.s22, i, j, nx, ny),
+                       around(p.s12, i, j, nx, ny), s);
+    inv_w = s.inv_w;
+  }
+  const float2 uv = mevp_velocity_body(
+      f, inv_w, p.u[ij], p.v[ij], __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij), p.c_w[ij],
+      __ldg(k.dt_m + ij), __ldg(k.b_u + ij), __ldg(k.b_v + ij), p.inv_drag[ij], s);
+  p.u[ij] = uv.x;
+  p.v[ij] = uv.y;
 }
 
 }  // namespace nst

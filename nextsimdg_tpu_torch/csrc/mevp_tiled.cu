@@ -11,9 +11,11 @@
 // invalidates one ring of the window on either side, so after H subcycles
 // the T x T interior is exact, and only the interior is written back.
 // c_w and inv_drag, the per-subcycle node planes of the shared divide, live
-// in shared memory and never reach global memory. The seven per-step
-// constant planes are read from global memory where they are needed (they
-// are read-only for the whole launch and stay in L1/L2).
+// in shared memory and never reach global memory. The per-step constant
+// planes (7 on a uniform mesh, 12 with the metric planes of a graded or
+// spherical one) are read from global memory where they are needed (they
+// are read-only for the whole launch and stay in L1/L2), so the metric
+// does not grow the shared memory of a block.
 //
 // Blocks run in parallel and in no order, so a launch reads one set of
 // state planes and writes another (ping-pong on the host): nothing is
@@ -47,16 +49,17 @@ namespace nst {
 constexpr int kTiledMaxThreads = 1024;  // the block size is a launch parameter
 constexpr int kMevpSharedPlanes = 7;  // u, v, s11, s22, s12, c_w, inv_drag
 
-struct MevpConsts {
-  const float* strength;
-  const float* dt_m;
-  const float* active;
-  const float* b_u;
-  const float* b_v;
-  const float* u_ocean;
-  const float* v_ocean;
-};
+// The window's stresses around node (a, b) (window index c), each times
+// the metric plane w of its own element (grid (i, j)); beyond the domain
+// the stress is zero and so is the weight.
+__device__ __forceinline__ Around weighted_window(const float* f, const float* w, int c,
+                                                 int ww, int i, int j, int nx, int ny) {
+  return {f[c] * __ldg(w + i * ny + j), f[c - ww] * ldg_at(w, i - 1, j, nx, ny),
+          f[c - 1] * ldg_at(w, i, j - 1, nx, ny),
+          f[c - ww - 1] * ldg_at(w, i - 1, j - 1, nx, ny)};
+}
 
+template <bool kMetric>
 __global__ void __launch_bounds__(kTiledMaxThreads)
 mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                   const float* __restrict__ s11_in, const float* __restrict__ s22_in,
@@ -116,7 +119,8 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
           su[c], su[c + w], su[c + 1], su[c + w + 1], sv[c], sv[c + w], sv[c + 1],
           sv[c + w + 1], s11[c], s22[c], s12[c], __ldg(k.strength + ij),
           __ldg(k.dt_m + ij), __ldg(k.active + ij), __ldg(k.u_ocean + ij),
-          __ldg(k.v_ocean + ij), s);
+          __ldg(k.v_ocean + ij), kMetric ? __ldg(k.inv_dx + ij) : s.inv_dx,
+          kMetric ? __ldg(k.inv_dy + ij) : s.inv_dy, s);
       s11[c] = o.s11;
       s22[c] = o.s22;
       s12[c] = o.s12;
@@ -137,12 +141,24 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
       const int i = i0 + a, j = j0 + b;
       if (i < 0 || i >= nx || j < 0 || j >= ny) continue;
       const int c = a * w + b, ij = i * ny + j;
-      const Around a11 = {s11[c], s11[c - w], s11[c - 1], s11[c - w - 1]};
-      const Around a22 = {s22[c], s22[c - w], s22[c - 1], s22[c - w - 1]};
-      const Around a12 = {s12[c], s12[c - w], s12[c - 1], s12[c - w - 1]};
+      float2 f;
+      float inv_node_w;
+      if (kMetric) {
+        f = forces_metric(weighted_window(s11, k.half_dy, c, w, i, j, nx, ny),
+                          weighted_window(s12, k.half_dx, c, w, i, j, nx, ny),
+                          weighted_window(s12, k.half_dy, c, w, i, j, nx, ny),
+                          weighted_window(s22, k.half_dx, c, w, i, j, nx, ny));
+        inv_node_w = __ldg(k.inv_w + ij);
+      } else {
+        const Around a11 = {s11[c], s11[c - w], s11[c - 1], s11[c - w - 1]};
+        const Around a22 = {s22[c], s22[c - w], s22[c - 1], s22[c - w - 1]};
+        const Around a12 = {s12[c], s12[c - w], s12[c - 1], s12[c - w - 1]};
+        f = forces_uniform(a11, a22, a12, s);
+        inv_node_w = s.inv_w;
+      }
       const float2 uv = mevp_velocity_body(
-          a11, a22, a12, su[c], sv[c], __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij),
-          scw[c], __ldg(k.dt_m + ij), __ldg(k.b_u + ij), __ldg(k.b_v + ij), sinv[c], s);
+          f, inv_node_w, su[c], sv[c], __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij), scw[c],
+          __ldg(k.dt_m + ij), __ldg(k.b_u + ij), __ldg(k.b_v + ij), sinv[c], s);
       su[c] = uv.x;
       sv[c] = uv.y;
     }
@@ -176,15 +192,14 @@ int nst_mevp_tiled_shared_bytes(int tile, int halo) {
 
 // One round: n_sub (<= halo) subcycles, by blocks of `threads` threads (at
 // most 1024), from the *_in planes into the *_out
-// planes, which must not alias them. consts: strength, dt_m, active, b_u,
-// b_v, u_ocean, v_ocean. Launches on `stream`, returns cudaGetLastError()
-// (or the error of the shared-memory attribute); does not synchronise.
+// planes, which must not alias them. consts points to the 12 const-plane
+// pointers in the order of MevpConsts, the last five null on a uniform
+// mesh. Launches on `stream`, returns cudaGetLastError() (or the error of
+// the shared-memory attribute); does not synchronise.
 int nst_mevp_tiled(const float* u_in, const float* v_in, const float* s11_in,
                    const float* s22_in, const float* s12_in, float* u_out,
                    float* v_out, float* s11_out, float* s22_out, float* s12_out,
-                   const float* strength, const float* dt_m, const float* active,
-                   const float* b_u, const float* b_v, const float* u_ocean,
-                   const float* v_ocean, int nx, int ny, int tile, int halo,
+                   const void* const* consts, int nx, int ny, int tile, int halo,
                    int n_sub, int threads, const float* scalars, int device,
                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -193,18 +208,20 @@ int nst_mevp_tiled(const float* u_in, const float* v_in, const float* s11_in,
       threads > nst::kTiledMaxThreads || tile + 2 * halo > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  nst::MevpConsts k;
+  std::memcpy(&k, consts, sizeof(k));
+  const auto kernel =
+      k.inv_dx != nullptr ? nst::mevp_tiled_kernel<true> : nst::mevp_tiled_kernel<false>;
   const int bytes = nst_mevp_tiled_shared_bytes(tile, halo);
-  err = cudaFuncSetAttribute(nst::mevp_tiled_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that it is not reported by a later launch
     return static_cast<int>(err);
   }
   nst::MevpScalars s;
   std::memcpy(&s, scalars, sizeof(s));
-  const nst::MevpConsts k = {strength, dt_m, active, b_u, b_v, u_ocean, v_ocean};
   const dim3 grid((ny + tile - 1) / tile, (nx + tile - 1) / tile);
-  nst::mevp_tiled_kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
       u_in, v_in, s11_in, s22_in, s12_in, u_out, v_out, s11_out, s22_out, s12_out,
       k, nx, ny, tile, halo, n_sub, s);
   return static_cast<int>(cudaGetLastError());

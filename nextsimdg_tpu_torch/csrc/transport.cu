@@ -17,9 +17,11 @@
 //                  dofs. It re-samples the velocity from u and v instead of
 //                  reading 12 quadrature planes, zeroes the global x = 0 and
 //                  y = 0 wall faces, multiplies the fluxes by the face_x and
-//                  face_y planes (all ones without a coastline) and applies
-//                  the dG1 corner positivity limiter. It reads its neighbours'
-//                  psi, so `out` must not alias `psi` (it may alias `base`).
+//                  face_y planes (all ones without a coastline), on a graded
+//                  or spherical mesh reads the transport's 5 metric planes,
+//                  and applies the dG1 corner positivity limiter. It reads
+//                  its neighbours' psi, so `out` must not alias `psi` (it
+//                  may alias `base`).
 //
 // The tables, the velocity sampling and the per-element stage math live in
 // dg1_body.cuh, shared with the tiled schedule of transport_tiled.cu.
@@ -105,11 +107,12 @@ __global__ void dg1_sample_cfl_kernel(const float* __restrict__ u,
   }
 }
 
+template <bool kMetric>
 __global__ void dg1_rk_stage_kernel(
     const float* __restrict__ psi, const float* base, const float* __restrict__ u,
     const float* __restrict__ v, const float* __restrict__ face_x,
-    const float* __restrict__ face_y, float* out, int nx, int ny, int n_tracers,
-    float a, float b, float dt, Dg1Tables tb) {
+    const float* __restrict__ face_y, Dg1MetricPlanes m, float* out, int nx, int ny,
+    int n_tracers, float a, float b, float dt, Dg1Tables tb) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= nx || j >= ny) return;
@@ -126,6 +129,8 @@ __global__ void dg1_rk_stage_kernel(
   f.fx_right = f.has_right ? face_x[ij + ny] : 0.0f;
   f.fy_bottom = face_y[ij];
   f.fy_top = f.has_top ? face_y[ij + 1] : 0.0f;
+  Dg1Metric g = {};
+  if (kMetric) g = load_metric(m, ij, ny, f.has_right, f.has_top);
 
   for (int t = 0; t < n_tracers; ++t) {
     float p[kDofs], p_l[kDofs], p_r[kDofs], p_b[kDofs], p_t[kDofs], p0[kDofs];
@@ -139,7 +144,7 @@ __global__ void dg1_rk_stage_kernel(
       p0[k] = a != 0.0f ? base[(k * n_tracers + t) * plane + ij] : 0.0f;
     }
     float val[kDofs];
-    dg1_stage_cell(tb, q, f, p, p_l, p_r, p_b, p_t, p0, a, b, dt, val);
+    dg1_stage_cell<kMetric>(tb, q, f, g, p, p_l, p_r, p_b, p_t, p0, a, b, dt, val);
 #pragma unroll
     for (int k = 0; k < kDofs; ++k) out[(k * n_tracers + t) * plane + ij] = val[k];
   }
@@ -166,17 +171,24 @@ int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, int nx,
 }
 
 // psi, base, out: (3, n_tracers, nx, ny); out may alias base, not psi.
+// metric: null on a uniform mesh, else the 5 plane pointers in the order
+// of Dg1MetricPlanes.
 int nst_dg1_rk_stage(const float* psi, const float* base, const float* u,
                      const float* v, const float* face_x, const float* face_y,
-                     float* out, int nx, int ny, int n_tracers, float a, float b,
-                     float dt, const float* tables, int device, void* stream) {
+                     const void* const* metric, float* out, int nx, int ny,
+                     int n_tracers, float a, float b, float dt, const float* tables,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   nst::Dg1Tables tb;
   std::memcpy(&tb, tables, sizeof(tb));
-  nst::dg1_rk_stage_kernel<<<nst::plane_grid(nx, ny), nst::plane_block(), 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      psi, base, u, v, face_x, face_y, out, nx, ny, n_tracers, a, b, dt, tb);
+  nst::Dg1MetricPlanes m = {};
+  if (metric != nullptr) std::memcpy(&m, metric, sizeof(m));
+  const auto kernel = metric != nullptr ? nst::dg1_rk_stage_kernel<true>
+                                        : nst::dg1_rk_stage_kernel<false>;
+  kernel<<<nst::plane_grid(nx, ny), nst::plane_block(), 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      psi, base, u, v, face_x, face_y, m, out, nx, ny, n_tracers, a, b, dt, tb);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,9 @@
 // planes. rk2's first stage writes buffer B from A; its second stage reads
 // B around the element and A at the element (the step's base) and writes A
 // in place, which is safe because every element reads only its own base
-// value. The face masks are read from global memory (read-only, L1/L2).
+// value. The face masks, and on a graded or spherical mesh the transport's
+// 5 metric planes, are read from global memory (read-only, L1/L2), so the
+// metric does not grow the shared memory of a block.
 //
 // Walls: loads outside the domain are zeros and cells outside the domain
 // are never updated, as in transport.cu's load_coeffs and at(). Each element
@@ -48,11 +50,12 @@ namespace nst {
 // registers of the stage body free of spills.
 constexpr int kTransportMaxThreads = 768;
 
+template <bool kMetric>
 __global__ void __launch_bounds__(kTransportMaxThreads)
 transport_tiled_kernel(const float* __restrict__ psi_in, float* __restrict__ psi_out,
                        const float* __restrict__ u, const float* __restrict__ v,
                        const float* __restrict__ face_x,
-                       const float* __restrict__ face_y, int nx, int ny,
+                       const float* __restrict__ face_y, Dg1MetricPlanes m, int nx, int ny,
                        int n_tracers, int tile, int halo, int n_sub, int n_stages,
                        float a2, float b2, float dt, Dg1Tables tb) {
   extern __shared__ float smem[];
@@ -128,6 +131,8 @@ transport_tiled_kernel(const float* __restrict__ psi_in, float* __restrict__ psi
         f.fx_right = f.has_right ? __ldg(face_x + ij + ny) : 0.0f;
         f.fy_bottom = __ldg(face_y + ij);
         f.fy_top = f.has_top ? __ldg(face_y + ij + 1) : 0.0f;
+        Dg1Metric g = {};
+        if (kMetric) g = load_metric(m, ij, ny, f.has_right, f.has_top);
         for (int t = 0; t < n_tracers; ++t) {
           float p[kDofs], p_l[kDofs], p_r[kDofs], p_b[kDofs], p_t[kDofs], p0[kDofs];
 #pragma unroll
@@ -141,7 +146,7 @@ transport_tiled_kernel(const float* __restrict__ psi_in, float* __restrict__ psi
             p0[d] = sa != 0.0f ? cur[(d * n_tracers + t) * plane + c] : 0.0f;
           }
           float val[kDofs];
-          dg1_stage_cell(tb, q, f, p, p_l, p_r, p_b, p_t, p0, sa, sb, dt, val);
+          dg1_stage_cell<kMetric>(tb, q, f, g, p, p_l, p_r, p_b, p_t, p0, sa, sb, dt, val);
 #pragma unroll
           for (int d = 0; d < kDofs; ++d) dst[(d * n_tracers + t) * plane + c] = val[d];
         }
@@ -182,12 +187,13 @@ int nst_transport_tiled_shared_bytes(int tile, int halo, int n_tracers) {
 // an n_stages-stage SSP-RK scheme (1: rk1,
 // 2: rk2 with second-stage weights a2, b2) from psi_in into psi_out, both
 // (3, n_tracers, nx, ny), which must not alias; n_sub * n_stages <= halo - 1.
-// Launches on `stream`, returns cudaGetLastError() (or the error of the
-// shared-memory attribute); does not synchronise.
+// metric: null on a uniform mesh, else the 5 plane pointers in the order of
+// Dg1MetricPlanes. Launches on `stream`, returns cudaGetLastError() (or the
+// error of the shared-memory attribute); does not synchronise.
 int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u,
                         const float* v, const float* face_x, const float* face_y,
-                        int nx, int ny, int n_tracers, int tile, int halo, int n_sub,
-                        int n_stages, int threads, float a2, float b2, float dt,
+                        const void* const* metric, int nx, int ny, int n_tracers,
+                        int tile, int halo, int n_sub, int n_stages, int threads, float a2, float b2, float dt,
                         const float* tables, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -196,9 +202,12 @@ int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u,
       threads > nst::kTransportMaxThreads || tile + 2 * halo > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  nst::Dg1MetricPlanes m = {};
+  if (metric != nullptr) std::memcpy(&m, metric, sizeof(m));
+  const auto kernel = metric != nullptr ? nst::transport_tiled_kernel<true>
+                                        : nst::transport_tiled_kernel<false>;
   const int bytes = nst_transport_tiled_shared_bytes(tile, halo, n_tracers);
-  err = cudaFuncSetAttribute(nst::transport_tiled_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that it is not reported by a later launch
     return static_cast<int>(err);
@@ -206,8 +215,8 @@ int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u,
   nst::Dg1Tables tb;
   std::memcpy(&tb, tables, sizeof(tb));
   const dim3 grid((ny + tile - 1) / tile, (nx + tile - 1) / tile);
-  nst::transport_tiled_kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      psi_in, psi_out, u, v, face_x, face_y, nx, ny, n_tracers, tile, halo, n_sub,
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      psi_in, psi_out, u, v, face_x, face_y, m, nx, ny, n_tracers, tile, halo, n_sub,
       n_stages, a2, b2, dt, tb);
   return static_cast<int>(cudaGetLastError());
 }

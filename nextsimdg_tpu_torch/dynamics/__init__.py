@@ -1,11 +1,13 @@
 """Sea-ice dynamical core in PyTorch: dG1 transport + CG1 mEVP rheology.
 
-The port of ``nextsimdg_tpu.dynamics`` for the main path (uniform, closed
-meshes). It imports no JAX and registers nothing anywhere.
+The port of ``nextsimdg_tpu.dynamics`` for the main path (closed uniform,
+graded and spherical meshes, with coastlines). It imports no JAX and
+registers nothing anywhere.
 """
 
 from .dgbasis import DGBasis, dg_basis
-from .mesh import RectMesh
+from .landmask import synthetic_coastline
+from .mesh import RectMesh, SphericalMesh
 from .mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
 from .transport import DGTransport, QuadVelocity
 
@@ -17,6 +19,8 @@ __all__ = [
     "MEVPSolver",
     "QuadVelocity",
     "RectMesh",
+    "SphericalMesh",
     "VelocityState",
     "dg_basis",
+    "synthetic_coastline",
 ]

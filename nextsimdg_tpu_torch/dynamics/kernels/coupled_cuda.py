@@ -1,31 +1,41 @@
-"""The dynamics phase on the H100: four hand-written CUDA kernels.
+"""The dynamics phase on the H100: the hand-written CUDA kernels.
 
 Counterpart of ``nextsimdg_tpu/dynamics/kernels/coupled_pallas.py``, whose
 ``fused_dynamics_pallas`` runs N mEVP subcycles, the CG1 -> quadrature
 velocity sampling, the CFL substep count and k limited SSP-RK dG steps in
 one TPU kernel with the whole grid resident on one core. A 256^2 float32
 plane is more than one SM's shared memory, so on Hopper the phase is a
-sequence of grid-wide launches over planes that stay in L2:
+sequence of launches over planes in global memory, on one of three
+schedules (``dynamics_phase``):
 
-=================  ==========================  ===============================
-kernel             source                      plain version (same inputs)
-=================  ==========================  ===============================
-``mevp_stress``    ``csrc/mevp.cu``            ``MEVPSolver.stress_update``
-``mevp_velocity``  ``csrc/mevp.cu``            ``MEVPSolver.velocity_update``
-``dg1_sample_cfl`` ``csrc/transport.cu``       ``dg1_sample_cfl_reference``
-``dg1_rk_stage``   ``csrc/transport.cu``       ``dg1_rk_stage_reference``
-=================  ==========================  ===============================
+=================== =========================== ===================================
+kernel              source                      plain version (same inputs)
+=================== =========================== ===================================
+``mevp_stress``     ``csrc/mevp.cu``            ``MEVPSolver.stress_update``
+``mevp_velocity``   ``csrc/mevp.cu``            ``MEVPSolver.velocity_update``
+``dg1_sample_cfl``  ``csrc/transport.cu``       ``dg1_sample_cfl_reference``
+``dg1_rk_stage``    ``csrc/transport.cu``       ``dg1_rk_stage_reference``
+``mevp_tiled``      ``csrc/mevp_tiled.cu``      ``mevp_subcycles_reference``
+``transport_tiled`` ``csrc/transport_tiled.cu`` ``transport_substeps_reference``
+``mevp_single``     ``csrc/mevp_single.cu``     ``mevp_subcycles_reference``
+=================== =========================== ===================================
 
-Per step: 2 launches per subcycle, one ``dg1_sample_cfl`` whose two max
-speeds are read back once to fix k (one host sync), then one
-``dg1_rk_stage`` per RK stage and substep.
+The first four are K1's schedule, wrapped here. Per step: 2 launches per
+subcycle, one ``dg1_sample_cfl`` whose two max speeds are read back once
+to fix k (one host sync), then one ``dg1_rk_stage`` per RK stage and
+substep. The last three have wrapper modules of their own:
+``mevp_tiled_cuda`` and ``transport_tiled_cuda`` (the ghost-zone tiled
+schedule, K2 and K3 of the JAX package) and ``mevp_single_cuda`` (all N
+subcycles in one launch, K4). Every mEVP kernel takes the 7 uniform
+consts or, on a graded or spherical mesh, the 12 with the metric planes;
+the transport kernels read the transport's metric planes on such a mesh.
 
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
 anything else and never falls back. ``launches`` counts the kernel
-launches per kernel, the ghost-zone tiled kernels of ``mevp_tiled_cuda``
-and ``transport_tiled_cuda`` included. Every ``csrc/*.cu`` is built with
-``nvcc`` for ``sm_90a`` at first use (one compiler process per source, all
+launches per kernel, those of the other modules included. Every
+``csrc/*.cu`` is built with ``nvcc`` for ``sm_90a`` at first use (one
+compiler process per source, all
 started together, then one link) into one library in
 ``build/nextsimdg_tpu_torch/`` beside the package, keyed on a hash of the
 sources and flags, and bound with ``ctypes``.
@@ -43,7 +53,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..mevp import MEVPSolver
+from ..mevp import METRIC_CONSTS, UNIFORM_CONSTS, MEVPSolver
 from ..transport import (
     DGTransport, cfl_substeps, max_speeds, sampling_weights,
     substeps_from_speeds, velocity_from_cg,
@@ -51,7 +61,7 @@ from ..transport import (
 
 KERNELS = (
     "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage",
-    "mevp_tiled", "transport_tiled",
+    "mevp_tiled", "transport_tiled", "mevp_single",
 )
 
 #: Launches per kernel since the last ``reset_launches()``.
@@ -71,7 +81,11 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-shared",)
 
-_MEVP_CONSTS = ("strength", "dt_m", "active", "b_u", "b_v", "u_ocean", "v_ocean")
+#: The const planes in the order of MevpConsts in csrc/mevp_body.cuh.
+_MEVP_CONSTS = UNIFORM_CONSTS + METRIC_CONSTS
+#: The transport's metric planes in the order of Dg1MetricPlanes in
+#: csrc/dg1_body.cuh.
+_DG1_METRIC = ("inv_dx", "inv_dy", "face_x", "face_y", "inv_area")
 _RK_STAGES = {
     "rk1": ((0.0, 1.0),),
     "rk2": ((0.0, 1.0), (0.5, 0.5)),
@@ -161,14 +175,17 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [p, i, p]  # host scalars/tables, device index, stream
-    lib.nst_mevp_stress.argtypes = [p] * 12 + [i, i] + tail
-    lib.nst_mevp_velocity.argtypes = [p] * 12 + [i, i] + tail
+    lib.nst_mevp_stress.argtypes = [p] * 8 + [i, i] + tail
+    lib.nst_mevp_velocity.argtypes = [p] * 8 + [i, i] + tail
     lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i, i] + tail
-    lib.nst_dg1_rk_stage.argtypes = [p] * 7 + [i, i, i, f, f, f] + tail
-    lib.nst_mevp_tiled.argtypes = [p] * 17 + [i] * 6 + tail
-    lib.nst_transport_tiled.argtypes = [p] * 6 + [i] * 8 + [f, f, f] + tail
+    lib.nst_dg1_rk_stage.argtypes = [p] * 8 + [i, i, i, f, f, f] + tail
+    lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
+    lib.nst_transport_tiled.argtypes = [p] * 7 + [i] * 8 + [f, f, f] + tail
+    lib.nst_mevp_single.argtypes = [p] * 8 + [i] * 4 + tail
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
+    lib.nst_mevp_single_max_blocks.argtypes = [i, i]
+    lib.nst_mevp_single_max_blocks.restype = i
     lib.nst_mevp_n_scalars.restype = i
     lib.nst_dg1_n_table_floats.restype = i
     lib.nst_error_string.argtypes = [i]
@@ -207,15 +224,23 @@ def _f32_reciprocal(x: float) -> float:
 
 
 def _mevp_scalars(solver: MEVPSolver, dt: float):
-    """MevpScalars of csrc/mevp.cu, field for field."""
+    """MevpScalars of csrc/mevp_body.cuh, field for field; the geometric
+    ones are NaN on a non-uniform mesh, whose kernels read the metric
+    planes instead."""
     p, mesh = solver.params, solver.mesh
     e2 = p.ellipse * p.ellipse
     f = p.f_coriolis if p.use_coriolis else 0.0
+    if mesh.uniform:
+        inv_dx, inv_dy = _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy)
+        half_dx, half_dy = 0.5 * mesh.dx, 0.5 * mesh.dy
+        inv_w = 1.0 / (mesh.dx * mesh.dy)
+    else:
+        inv_dx = inv_dy = half_dx = half_dy = inv_w = float("nan")
     values = [
-        _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy),
+        inv_dx, inv_dy,
         1.0 + 1.0 / e2, 1.0 - 1.0 / e2, 4.0 / e2,
         p.rho_ocean * p.cd_ocean, p.delta_min, 1.0 + p.beta, 1.0 / e2,
-        1.0 / p.alpha, 0.5 * mesh.dx, 0.5 * mesh.dy, 1.0 / (mesh.dx * mesh.dy),
+        1.0 / p.alpha, half_dx, half_dy, inv_w,
         p.beta, f, -f, dt,
     ]
     assert len(values) == _N_MEVP_SCALARS
@@ -237,9 +262,12 @@ def _dg1_tables(transport: DGTransport):
     ):
         values += [float(x) for x in table.ravel()]
     values += [float(x) for x in transport._inv_mass]
-    values += [
-        1.0 / mesh.dx, 1.0 / mesh.dy, _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy)
-    ]
+    if mesh.uniform:
+        values += [
+            1.0 / mesh.dx, 1.0 / mesh.dy, _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy)
+        ]
+    else:  # the kernels read the transport's metric planes instead
+        values += [float("nan")] * 4
     assert len(values) == _N_DG1_TABLE
     return _floats(values)
 
@@ -270,9 +298,14 @@ def _check(shape, device, **tensors) -> None:
 
 
 def _check_mevp(solver: MEVPSolver, carry, consts) -> None:
-    if sorted(consts) != sorted(_MEVP_CONSTS):
+    """The const set must be the solver's (the sorted names, as the JAX
+    kernels key it): the 7 uniform planes, or the 12 with the metric planes
+    on a graded or spherical mesh."""
+    expected = UNIFORM_CONSTS if solver.mesh.uniform else _MEVP_CONSTS
+    if tuple(sorted(consts)) != tuple(sorted(expected)):
         raise NotImplementedError(
-            f"the mEVP kernels take the consts {_MEVP_CONSTS}, got {tuple(sorted(consts))}"
+            f"the mEVP kernels take the consts {tuple(sorted(expected))} on this mesh, "
+            f"got {tuple(sorted(consts))}"
         )
     names = ("u", "v", "s11", "s22", "s12")
     _check(
@@ -285,30 +318,35 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# -- in-place launches (arguments already checked) ----------------------------
-def _mevp_stress_(planes, consts, c_w, inv_drag, scalars, stream):
-    u, v, s11, s22, s12 = planes
-    nx, ny = u.shape
-    _launch(
-        "mevp_stress",
-        u.data_ptr(), v.data_ptr(), s11.data_ptr(), s22.data_ptr(), s12.data_ptr(),
-        consts["strength"].data_ptr(), consts["dt_m"].data_ptr(),
-        consts["active"].data_ptr(), consts["u_ocean"].data_ptr(),
-        consts["v_ocean"].data_ptr(), c_w.data_ptr(), inv_drag.data_ptr(),
-        nx, ny, ctypes.addressof(scalars), u.device.index, stream,
+def _pointers(tensors):
+    """A C array of the tensors' device pointers (None: a null pointer)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors)
     )
 
 
-def _mevp_velocity_(planes, consts, c_w, inv_drag, scalars, stream):
-    u, v, s11, s22, s12 = planes
+def _mevp_consts(consts: dict):
+    """The 12 const-plane pointers of MevpConsts; the metric ones null when
+    the consts have none."""
+    return _pointers([consts.get(name) for name in _MEVP_CONSTS])
+
+
+def _dg1_metric(transport: DGTransport, device):
+    """Dg1MetricPlanes of the transport's float32 metric planes on
+    ``device``, or None (a null pointer) on a uniform mesh."""
+    metric = transport.metric_planes(device=device, dtype=torch.float32)
+    return None if metric is None else _pointers([metric[name] for name in _DG1_METRIC])
+
+
+# -- in-place launches (arguments already checked) ----------------------------
+def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream):
+    """``mevp_stress`` or ``mevp_velocity`` in place on the five planes;
+    ``const_ptrs`` from ``_mevp_consts``."""
+    u = planes[0]
     nx, ny = u.shape
     _launch(
-        "mevp_velocity",
-        u.data_ptr(), v.data_ptr(), s11.data_ptr(), s22.data_ptr(), s12.data_ptr(),
-        consts["dt_m"].data_ptr(), consts["b_u"].data_ptr(), consts["b_v"].data_ptr(),
-        consts["u_ocean"].data_ptr(), consts["v_ocean"].data_ptr(),
-        c_w.data_ptr(), inv_drag.data_ptr(),
-        nx, ny, ctypes.addressof(scalars), u.device.index, stream,
+        name, *(t.data_ptr() for t in planes), c_w.data_ptr(), inv_drag.data_ptr(),
+        const_ptrs, nx, ny, ctypes.addressof(scalars), u.device.index, stream,
     )
 
 
@@ -321,14 +359,14 @@ def _dg1_sample_cfl_(u, v, speeds, tables, stream):
     )
 
 
-def _dg1_rk_stage_(psi, base, u, v, face_x, face_y, out, a, b, dt_sub, tables, stream):
+def _dg1_rk_stage_(psi, base, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream):
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("dg1_rk_stage reads its neighbours' psi: out must not alias psi")
     nx, ny = u.shape
     _launch(
         "dg1_rk_stage",
         psi.data_ptr(), base.data_ptr(), u.data_ptr(), v.data_ptr(),
-        face_x.data_ptr(), face_y.data_ptr(), out.data_ptr(),
+        face_x.data_ptr(), face_y.data_ptr(), metric, out.data_ptr(),
         nx, ny, psi.shape[1], a, b, dt_sub,
         ctypes.addressof(tables), u.device.index, stream,
     )
@@ -346,8 +384,9 @@ def mevp_stress(solver: MEVPSolver, carry, consts):
     u, v, s11, s22, s12 = carry
     planes = (u, v, s11.clone(), s22.clone(), s12.clone())
     c_w, inv_drag = torch.empty_like(u), torch.empty_like(u)
-    _mevp_stress_(
-        planes, consts, c_w, inv_drag, _mevp_scalars(solver, 0.0), _stream(u.device)
+    _mevp_half_(
+        "mevp_stress", planes, _mevp_consts(consts), c_w, inv_drag,
+        _mevp_scalars(solver, 0.0), _stream(u.device),
     )
     return planes[2], planes[3], planes[4], c_w, inv_drag
 
@@ -363,8 +402,9 @@ def mevp_velocity(solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float):
     u = carry[0]
     _check(u.shape, u.device, c_w=c_w, inv_drag=inv_drag)
     planes = (u.clone(), carry[1].clone(), *carry[2:])
-    _mevp_velocity_(
-        planes, consts, c_w, inv_drag, _mevp_scalars(solver, dt), _stream(u.device)
+    _mevp_half_(
+        "mevp_velocity", planes, _mevp_consts(consts), c_w, inv_drag,
+        _mevp_scalars(solver, dt), _stream(u.device),
     )
     return planes[0], planes[1]
 
@@ -412,8 +452,8 @@ def dg1_rk_stage(
     _check((3, psi.shape[1], nx, ny), psi.device, psi=psi, base=base)
     out = torch.empty_like(psi)
     _dg1_rk_stage_(
-        psi, base, u, v, face_x, face_y, out, a, b, dt_sub,
-        _dg1_tables(transport), _stream(psi.device),
+        psi, base, u, v, face_x, face_y, _dg1_metric(transport, psi.device), out, a, b,
+        dt_sub, _dg1_tables(transport), _stream(psi.device),
     )
     return out
 
@@ -437,9 +477,10 @@ def mevp_subcycles(solver: MEVPSolver, carry, consts, dt: float, n_subcycles: in
     planes = tuple(t.clone() for t in carry)
     c_w, inv_drag = torch.empty_like(planes[0]), torch.empty_like(planes[0])
     scalars, stream = _mevp_scalars(solver, dt), _stream(planes[0].device)
+    const_ptrs = _mevp_consts(consts)
     for _ in range(n_subcycles):
-        _mevp_stress_(planes, consts, c_w, inv_drag, scalars, stream)
-        _mevp_velocity_(planes, consts, c_w, inv_drag, scalars, stream)
+        _mevp_half_("mevp_stress", planes, const_ptrs, c_w, inv_drag, scalars, stream)
+        _mevp_half_("mevp_velocity", planes, const_ptrs, c_w, inv_drag, scalars, stream)
     return planes
 
 
@@ -474,6 +515,7 @@ def transport_substeps(
     _check((3, tracers.shape[1], *shape), tracers.device, tracers=tracers)
     face_x, face_y = _face_planes(u, face_masks, shape)
     tables, stream = _dg1_tables(transport), _stream(tracers.device)
+    metric = _dg1_metric(transport, tracers.device)
     # A stage reads its neighbours' psi, so stages ping-pong between
     # buffers; the last stage may overwrite the step's base in place (each
     # element reads only its own base value).
@@ -484,7 +526,9 @@ def transport_substeps(
         cur = psi0
         for s, (a, b) in enumerate(stages):
             out = psi0 if (s > 0 and s == len(stages) - 1) else spare[s]
-            _dg1_rk_stage_(cur, psi0, u, v, face_x, face_y, out, a, b, dt_sub, tables, stream)
+            _dg1_rk_stage_(
+                cur, psi0, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream
+            )
             cur = out
         if cur is not psi0:  # rk1: the single stage wrote a spare buffer
             psi0, spare[0] = cur, psi0
@@ -526,8 +570,10 @@ def dynamics_phase(
     The schedule on the card:
 
     * ``mevp="pallas"``: ``mevp_stress`` + ``mevp_velocity`` per subcycle
-      (K1's schedule, ``mevp_subcycles``); ``"pallas-tiled"``:
-      ``mevp_tiled``, H subcycles per launch (``mevp_tiled_cuda``);
+      (K1's schedule, ``mevp_subcycles``); ``"single"``: ``mevp_single``,
+      all N subcycles in one launch (``mevp_single_cuda``);
+      ``"pallas-tiled"``: ``mevp_tiled``, H subcycles per launch
+      (``mevp_tiled_cuda``);
     * then ``dg1_sample_cfl`` and one host sync for k;
     * ``transport="xla"``: one ``dg1_rk_stage`` per RK stage (K1's
       schedule, ``transport_substeps``); ``"tiled"``: ``transport_tiled``,
@@ -537,10 +583,14 @@ def dynamics_phase(
         return fused_dynamics_reference(
             model, state_arrays, tracers, consts, dt, n_subcycles, face_masks
         )
+    from .mevp_single_cuda import mevp_subcycles_single
     from .mevp_tiled_cuda import mevp_subcycles_tiled
     from .transport_tiled_cuda import transport_substeps_tiled
 
-    run_mevp = {"pallas": mevp_subcycles, "pallas-tiled": mevp_subcycles_tiled}
+    run_mevp = {
+        "pallas": mevp_subcycles, "single": mevp_subcycles_single,
+        "pallas-tiled": mevp_subcycles_tiled,
+    }
     run_transport = {"xla": transport_substeps, "tiled": transport_substeps_tiled}
     if mevp not in run_mevp or transport not in run_transport:
         raise ValueError(f"unknown schedule: mevp={mevp!r}, transport={transport!r}")

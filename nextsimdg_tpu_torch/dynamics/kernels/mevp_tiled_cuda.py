@@ -10,7 +10,10 @@ round, ``ceil(N / halo)`` rounds, ping-ponging between two sets of planes.
 Plain version: N x ``MEVPSolver.subcycle_body``
 (``mevp_subcycles_tiled_reference``). The kernel runs the same element and
 node bodies as ``mevp_stress``/``mevp_velocity`` of ``coupled_cuda``, so
-it also equals N rounds of that schedule bit for bit.
+it also equals N rounds of that schedule bit for bit. It takes the 7
+uniform consts or the 12 with the metric planes of a graded or spherical
+mesh; the metric planes are read from global memory like the other
+consts, so shared memory does not grow.
 """
 
 from __future__ import annotations
@@ -60,9 +63,7 @@ def mevp_subcycles_tiled(
     nx, ny = u.shape
     scalars = cc._mevp_scalars(solver, dt)
     stream = cc._stream(u.device)
-    k = [consts[name].data_ptr() for name in (
-        "strength", "dt_m", "active", "b_u", "b_v", "u_ocean", "v_ocean"
-    )]
+    const_ptrs = cc._mevp_consts(consts)
     src = tuple(carry)
     buffers = [tuple(torch.empty_like(u) for _ in range(5)) for _ in range(2)]
     done = 0
@@ -70,7 +71,7 @@ def mevp_subcycles_tiled(
         n_sub = min(halo, n_subcycles - done)
         dst = buffers[0] if src is not buffers[0] else buffers[1]
         cc._launch(
-            KERNEL, *(t.data_ptr() for t in src), *(t.data_ptr() for t in dst), *k,
+            KERNEL, *(t.data_ptr() for t in src), *(t.data_ptr() for t in dst), const_ptrs,
             nx, ny, tile, halo, n_sub, threads, ctypes.addressof(scalars), u.device.index,
             stream,
         )

@@ -16,6 +16,8 @@ Plain version: ``velocity_from_cg`` and k x ``DGTransport.step(limit=True)``
 (``transport_substeps_tiled_reference``). The kernel runs the element body
 of ``dg1_rk_stage``, so it also equals k substeps of that schedule bit for
 bit. rk1 and rk2 (the default) are covered; rk3 raises on CUDA tensors.
+On a graded or spherical mesh it reads the transport's 5 metric planes
+from global memory, beside the coastline face masks.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ def transport_substeps_tiled(
     if tile < 1 or k_cap < 1:
         raise ValueError(f"tile {tile} / halo {halo} leaves no substep per launch")
     tables = cc._dg1_tables(transport)
+    metric = cc._dg1_metric(transport, device)
     stream = cc._stream(device)
     src = tracers
     buffers = [torch.empty_like(tracers) for _ in range(2)]
@@ -91,7 +94,7 @@ def transport_substeps_tiled(
         dst = buffers[0] if src is not buffers[0] else buffers[1]
         cc._launch(
             KERNEL, src.data_ptr(), dst.data_ptr(), u.data_ptr(), v.data_ptr(),
-            face_x.data_ptr(), face_y.data_ptr(), nx, ny, tracers.shape[1], tile, halo,
+            face_x.data_ptr(), face_y.data_ptr(), metric, nx, ny, tracers.shape[1], tile, halo,
             n_sub, n_stages, threads, a2, b2, dt_sub, ctypes.addressof(tables), device.index,
             stream,
         )

@@ -1,21 +1,38 @@
-"""Structured mesh for the dynamical core: the uniform, closed rectangle.
+"""Structured meshes for the dynamical core: uniform, graded and spherical.
 
-Counterpart of ``nextsimdg_tpu.dynamics.mesh.RectMesh`` restricted to what
-the main path uses: nx x ny elements of one width ``dx`` by one height
-``dy``, with closed (no-flux / no-slip) walls on every side. Graded,
-spherical and periodic meshes are not ported yet; the constructor rejects
-them instead of running them wrongly.
+Counterpart of ``nextsimdg_tpu.dynamics.mesh`` for closed (no-flux /
+no-slip) domains:
+
+* uniform rectangles (one ``dx`` by one ``dy``);
+* tensor-graded rectangles (``dx`` per column, ``dy`` per row);
+* regular lon-lat windows on the sphere (:class:`SphericalMesh`), whose
+  zonal widths shrink with cos(latitude).
+
+The solvers read only the metric interface: ``dx``/``dy`` for in-element
+gradients, ``face_len_x``/``face_len_y`` for shared-face flux lengths and
+``cell_area``. On a non-uniform mesh they take these as full (nx, ny)
+planes on the device (``device_metric_planes``). Periodic meshes are not
+ported yet; the constructor rejects them instead of running them wrongly.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def _as_spacing(value, count: int) -> np.ndarray:
+    arr = np.asarray(value, dtype=np.float64).reshape(-1)
+    if arr.size == 1:
+        arr = np.full(count, float(arr[0]))
+    if arr.size != count:
+        raise ValueError(f"spacing has {arr.size} entries, expected {count}")
+    return arr
 
 
 class RectMesh:
-    """nx x ny uniform elements of size dx x dy, closed on all four sides."""
-
-    uniform = True
+    """nx x ny elements, ``dx`` per column and ``dy`` per row (scalars
+    broadcast), closed on all four sides."""
 
     def __init__(
         self, nx: int, ny: int, dx, dy,
@@ -24,25 +41,151 @@ class RectMesh:
     ) -> None:
         if periodic_x or periodic_y:
             raise NotImplementedError("periodic meshes are not ported yet")
-        dx_arr = np.asarray(dx, dtype=np.float64).reshape(-1)
-        dy_arr = np.asarray(dy, dtype=np.float64).reshape(-1)
-        if np.any(dx_arr != dx_arr[0]) or np.any(dy_arr != dy_arr[0]):
-            raise NotImplementedError("graded meshes are not ported yet")
         self.nx = int(nx)
         self.ny = int(ny)
         if self.nx < 1 or self.ny < 1:
             raise ValueError(f"mesh needs at least one element, got {nx} x {ny}")
-        self.dx = float(dx_arr[0])
-        self.dy = float(dy_arr[0])
+        self._dx = _as_spacing(dx, self.nx)
+        self._dy = _as_spacing(dy, self.ny)
+        self.uniform = bool(
+            np.all(self._dx == self._dx[0]) and np.all(self._dy == self._dy[0])
+        )
         self.x0 = float(x0)
         self.y0 = float(y0)
         self.periodic_x = False
         self.periodic_y = False
 
+    # -- metric interface (scalars when uniform, broadcastable arrays else) --
     @property
-    def cell_area(self) -> float:
-        return self.dx * self.dy
+    def dx(self):
+        """Scalar width when uniform; (nx, 1) per-column widths otherwise."""
+        return float(self._dx[0]) if self.uniform else self._dx[:, None]
+
+    @property
+    def dy(self):
+        return float(self._dy[0]) if self.uniform else self._dy[None, :]
+
+    @property
+    def cell_area(self):
+        """Element areas: scalar (uniform) or broadcastable to (nx, ny)."""
+        if self.uniform:
+            return float(self._dx[0] * self._dy[0])
+        return self._dx[:, None] * self._dy[None, :]
+
+    @property
+    def face_len_x(self):
+        """Length of the left (owned) face of element (i, j)."""
+        return float(self._dy[0]) if self.uniform else self._dy[None, :]
+
+    @property
+    def face_len_y(self):
+        """Length of the bottom (owned) face of element (i, j)."""
+        return float(self._dx[0]) if self.uniform else self._dx[:, None]
+
+    def metric_factors(self) -> dict:
+        """(col (nx,), row (ny,)) float64 factor pairs of each metric plane:
+        ``dx``/``dy`` (element widths), ``area``, ``face_x``/``face_y``
+        (owned-face lengths); each plane is col[:, None] * row[None, :]."""
+        ones_x = np.ones(self.nx)
+        ones_y = np.ones(self.ny)
+        return {
+            "dx": (self._dx, ones_y),
+            "dy": (ones_x, self._dy),
+            "area": (self._dx, self._dy),
+            "face_x": (ones_x, self._dy),
+            "face_y": (self._dx, ones_y),
+        }
 
     @property
     def n_elements(self) -> int:
         return self.nx * self.ny
+
+
+def device_metric_planes(mesh: RectMesh, *, device, dtype) -> dict:
+    """dict(dx, dy, area, face_x, face_y) of (nx, ny) planes on ``device``:
+    the outer products of the 1-D factors of ``mesh.metric_factors()``,
+    each factor cast to ``dtype`` before the multiply (as the JAX package
+    does, so that float64 planes agree bit for bit)."""
+    out = {}
+    for name, (col, row) in mesh.metric_factors().items():
+        c = torch.as_tensor(col, device=device).to(dtype)
+        r = torch.as_tensor(row, device=device).to(dtype)
+        out[name] = c[:, None] * r[None, :]
+    return out
+
+
+#: mean Earth radius [m], as used by ERA5/CF tooling.
+EARTH_RADIUS = 6.371e6
+
+
+class SphericalMesh(RectMesh):
+    """Regular lon-lat mesh on the sphere: i ~ longitude, j ~ latitude.
+
+    In-element gradients use the element-centre widths
+    ``dx = R cos(phi_c) dlambda`` and ``dy = R dphi``; the zonal (bottom)
+    face of row j has its own latitude's length ``R cos(phi_j) dlambda``;
+    element areas are the exact zone areas
+    ``R^2 dlambda (sin(phi_{j+1}) - sin(phi_j))``. Curvature terms are
+    neglected, as in the JAX package.
+    """
+
+    def __init__(
+        self, nx: int, ny: int, lon0: float, lon1: float,
+        lat0: float, lat1: float, radius: float = EARTH_RADIUS,
+        periodic_x: bool = False,
+    ) -> None:
+        if not (-90.0 < lat0 < 90.0 and -90.0 < lat1 < 90.0):
+            raise ValueError("latitudes must be strictly inside (-90, 90)")
+        lam0, lam1 = np.radians(lon0), np.radians(lon1)
+        phi0, phi1 = np.radians(lat0), np.radians(lat1)
+        self.radius = float(radius)
+        self.dlam = (lam1 - lam0) / nx
+        self.dphi = (phi1 - phi0) / ny
+        super().__init__(
+            nx, ny, dx=radius * self.dlam, dy=radius * self.dphi,
+            x0=radius * lam0, y0=radius * phi0, periodic_x=periodic_x,
+        )
+        self.uniform = False  # per-latitude metric
+        phi_nodes = phi0 + np.arange(ny + 1) * self.dphi
+        phi_centers = phi0 + (np.arange(ny) + 0.5) * self.dphi
+        self._cos_node = np.cos(phi_nodes)  # (ny + 1,)
+        self._cos_center = np.cos(phi_centers)  # (ny,)
+        self._zone_area = radius * radius * self.dlam * np.diff(np.sin(phi_nodes))
+
+    @property
+    def dx(self):
+        """Element-centre zonal width R cos(phi_c) dlambda: (1, ny)."""
+        return (self.radius * self.dlam) * self._cos_center[None, :]
+
+    @property
+    def dy(self):
+        """Meridional spacing R dphi (latitude-independent)."""
+        return float(self.radius * self.dphi)
+
+    @property
+    def cell_area(self):
+        """Exact spherical zone areas: (1, ny)."""
+        return self._zone_area[None, :]
+
+    @property
+    def face_len_x(self):
+        """Meridional (left) faces all have length R dphi."""
+        return float(self.radius * self.dphi)
+
+    @property
+    def face_len_y(self):
+        """Zonal (bottom) face of row j: R cos(phi_j) dlambda, (1, ny)."""
+        return (self.radius * self.dlam) * self._cos_node[None, :-1]
+
+    def metric_factors(self) -> dict:
+        """The spherical metric as (col, row) factors: the metric depends on
+        latitude only, so every column factor is ones."""
+        ones_x = np.ones(self.nx)
+        ones_y = np.ones(self.ny)
+        return {
+            "dx": (ones_x, (self.radius * self.dlam) * self._cos_center),
+            "dy": (ones_x, (self.radius * self.dphi) * ones_y),
+            "area": (ones_x, self._zone_area),
+            "face_x": (ones_x, (self.radius * self.dphi) * ones_y),
+            "face_y": (ones_x, (self.radius * self.dlam) * self._cos_node[:-1]),
+        }

@@ -1,7 +1,7 @@
 """mEVP (modified elastic-viscous-plastic) momentum and rheology solver.
 
 Counterpart of ``nextsimdg_tpu.dynamics.mevp`` for the CG1 solver on a
-uniform, closed mesh, in eager PyTorch:
+closed mesh (uniform, graded or spherical), in eager PyTorch:
 
 * velocity (u, v) on CG1 nodes, stresses (s11, s22, s12) per element, all
   (nx, ny) in the owned layout of ``dynamics.stencil``;
@@ -10,6 +10,11 @@ uniform, closed mesh, in eager PyTorch:
   stress -> weak-form stress divergence assembled to nodes -> beta-relaxed
   velocity update with semi-implicit ocean drag and explicit Coriolis;
 * Dirichlet (no-slip) walls and ice-free nodes held at rest.
+
+On a graded or spherical mesh the geometry rides five extra per-step const
+planes (``inv_dx``, ``inv_dy``, ``half_dx``, ``half_dy``, ``inv_w``), the
+metric forms of the strain rates and the stress divergence read them, and
+the 7 uniform consts become 12, as in the JAX package.
 
 The expression order is the JAX package's, operation for operation, so
 that the two agree to rounding at float64. Scalars stay Python floats, so
@@ -26,7 +31,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .mesh import RectMesh
+from .mesh import RectMesh, device_metric_planes
 from .stencil import shift_m, shift_p
 
 
@@ -86,6 +91,12 @@ class DynamicsForcing:
     v_ocean: torch.Tensor
 
 
+#: The per-step const planes of every mesh, and the metric planes that a
+#: graded or spherical mesh adds to them.
+UNIFORM_CONSTS = ("strength", "dt_m", "active", "b_u", "b_v", "u_ocean", "v_ocean")
+METRIC_CONSTS = ("inv_dx", "inv_dy", "half_dx", "half_dy", "inv_w")
+
+
 def _div(c: float, t: torch.Tensor) -> torch.Tensor:
     """c / t as a true division (``float / tensor`` is reciprocal * c)."""
     return torch.div(t.new_full((), c), t)
@@ -104,24 +115,50 @@ def cell_to_node(cell, periodic_x: bool = False, periodic_y: bool = False):
 
 
 class MEVPSolver:
-    """The CG1 mEVP solver on a uniform, closed ``RectMesh``."""
+    """The CG1 mEVP solver on a closed ``RectMesh`` or ``SphericalMesh``."""
 
     def __init__(self, mesh: RectMesh, params: MEVPParams = MEVPParams()) -> None:
-        if not mesh.uniform or mesh.periodic_x or mesh.periodic_y:
-            raise NotImplementedError("only uniform, closed meshes are ported")
+        if mesh.periodic_x or mesh.periodic_y:
+            raise NotImplementedError("only closed meshes are ported")
         if params.a_weighted_stress:
             raise NotImplementedError("a_weighted_stress is not ported yet")
         if params.adaptive_alpha:
             raise NotImplementedError("adaptive_alpha is not ported yet")
         self.mesh = mesh
         self.params = params
+        self._metric = {}
+
+    def metric_planes(self, *, device, dtype):
+        """None when uniform; else dict(area, node_area, inv_w, inv_dx,
+        inv_dy, half_dx, half_dy) of (nx, ny) planes, built once per
+        (device, dtype): the JAX package rebuilds the same values in every
+        step."""
+        if self.mesh.uniform:
+            return None
+        key = (torch.device(device), dtype)
+        if key not in self._metric:
+            px, py = self.mesh.periodic_x, self.mesh.periodic_y
+            m = device_metric_planes(self.mesh, device=device, dtype=dtype)
+            node_area = cell_to_node(m["area"], px, py)
+            self._metric[key] = {
+                "area": m["area"],
+                "node_area": node_area,
+                "inv_w": 1.0 / node_area,
+                "inv_dx": 1.0 / m["dx"],
+                "inv_dy": 1.0 / m["dy"],
+                "half_dx": 0.5 * m["dx"],
+                "half_dy": 0.5 * m["dy"],
+            }
+        return self._metric[key]
 
     # -- per-element strain rates from CG1 velocity --------------------------
-    def strain_rates(self, u, v):
+    def strain_rates(self, u, v, metric=None):
         """(e11, e22, e12) at element centres from bilinear gradients.
 
         Element (i, j) reads owned nodes (i, j), (i+1, j), (i, j+1),
         (i+1, j+1); the +1 shifts supply the implicit wall zeros.
+        ``metric``: (inv_dx, inv_dy) per-element planes of a non-uniform
+        mesh.
         """
         px, py = self.mesh.periodic_x, self.mesh.periodic_y
         u00, v00 = u, v
@@ -129,6 +166,13 @@ class MEVPSolver:
         u01, v01 = shift_p(u, 1, py), shift_p(v, 1, py)
         u11 = shift_p(u10, 1, py)
         v11 = shift_p(v10, 1, py)
+        if metric is not None:
+            inv_dx, inv_dy = metric
+            du_dx = 0.5 * ((u10 - u00) + (u11 - u01)) * inv_dx
+            dv_dy = 0.5 * ((v01 - v00) + (v11 - v10)) * inv_dy
+            du_dy = 0.5 * ((u01 - u00) + (u11 - u10)) * inv_dy
+            dv_dx = 0.5 * ((v10 - v00) + (v11 - v01)) * inv_dx
+            return du_dx, dv_dy, 0.5 * (du_dy + dv_dx)
         dx, dy = self.mesh.dx, self.mesh.dy
         du_dx = 0.5 * ((u10 - u00) + (u11 - u01)) / dx
         dv_dy = 0.5 * ((v01 - v00) + (v11 - v10)) / dy
@@ -137,16 +181,38 @@ class MEVPSolver:
         return du_dx, dv_dy, 0.5 * (du_dy + dv_dx)
 
     # -- weak-form divergence of element-constant stress to nodes ------------
-    def stress_divergence(self, s11, s22, s12):
+    def stress_divergence(self, s11, s22, s12, metric=None):
         """Nodal forces (Fu, Fv) = -int sigma : grad(phi), per unit length.
 
         Node (i, j) reads elements (i-1, j-1), (i-1, j), (i, j-1), (i, j).
         The factoring is the JAX package's 13-shift form: s12 feeds both
         components through one set of three shifts, and the single-component
         scatters go through the partial sum t = cell + shift (bit-identical
-        to the signed 2x2 gather).
+        to the signed 2x2 gather). ``metric``: (half_dx, half_dy)
+        per-element planes of a non-uniform mesh; each element is then
+        weighted by its own half face length before the corner gather.
         """
         px, py = self.mesh.periodic_x, self.mesh.periodic_y
+        if metric is not None:
+            half_dx, half_dy = metric
+
+            def corners(w):
+                wm_x = shift_m(w, 0, px)
+                return wm_x, shift_m(w, 1, py), shift_m(wm_x, 1, py)
+
+            def scatter_x_m(cell):
+                w = cell * half_dy
+                wm_x, wm_y, wm_xy = corners(w)
+                return (wm_y + w) - (wm_xy + wm_x)
+
+            def scatter_y_m(cell):
+                w = cell * half_dx
+                wm_x, wm_y, wm_xy = corners(w)
+                return (wm_x + w) - (wm_xy + wm_y)
+
+            fu = scatter_x_m(s11) + scatter_y_m(s12)
+            fv = scatter_x_m(s12) + scatter_y_m(s22)
+            return fu, fv
         dx, dy = self.mesh.dx, self.mesh.dy
 
         def shifts(cell):
@@ -187,18 +253,25 @@ class MEVPSolver:
         return VelocityState(u=u, v=v, s11=s11, s22=s22, s12=s12)
 
     def step_consts(self, state: VelocityState, h, a, forcing, mask, dt: float):
-        """The 7 per-step constant planes: ice strength, dt/m, the active
+        """The per-step constant planes: ice strength, dt/m, the active
         (mask * ice) factor, the constant numerator terms b_u/b_v =
-        u_n + (dt/m) tau_a, and the ocean currents."""
+        u_n + (dt/m) tau_a, and the ocean currents; on a non-uniform mesh
+        also the five metric planes inv_w, inv_dx, inv_dy, half_dx and
+        half_dy (12 in all)."""
         p = self.params
         px, py = self.mesh.periodic_x, self.mesh.periodic_y
 
         # Element ice strength P = P* h exp(-C (1-A)).
         strength = p.p_star * h * torch.exp(-p.c_compaction * (1.0 - a))
 
-        # Lumped nodal ice mass per unit area [kg m-2], clamped.
-        cell_area = torch.full_like(h, self.mesh.cell_area)
-        node_area = cell_to_node(cell_area, px, py)
+        # Lumped nodal ice mass per unit area [kg m-2] (area-weighted over
+        # the adjacent elements), clamped.
+        metric = self.metric_planes(device=h.device, dtype=h.dtype)
+        if metric is None:
+            cell_area = torch.full_like(h, self.mesh.cell_area)
+            node_area = cell_to_node(cell_area, px, py)
+        else:
+            cell_area, node_area = metric["area"], metric["node_area"]
         m_node = p.rho_ice * cell_to_node(h * cell_area, px, py) / node_area
         ice_node = m_node > p.min_ice_mass
         m_safe = torch.clamp(m_node, min=p.min_ice_mass)
@@ -210,7 +283,7 @@ class MEVPSolver:
 
         active = mask * ice_node.to(h.dtype)
         dt_m = _div(dt, m_safe)
-        return dict(
+        consts = dict(
             strength=strength,
             dt_m=dt_m,
             active=active,
@@ -219,6 +292,9 @@ class MEVPSolver:
             u_ocean=forcing.u_ocean,
             v_ocean=forcing.v_ocean,
         )
+        if metric is not None:
+            consts.update({name: metric[name] for name in METRIC_CONSTS})
+        return consts
 
     def stress_update(self, carry, consts):
         """First half of a subcycle, per element: strain, Delta, the shared
@@ -234,7 +310,10 @@ class MEVPSolver:
         dt_m = consts["dt_m"]
         active = consts["active"]
 
-        e11, e22, e12 = self.strain_rates(u, v)
+        graded = "inv_dx" in consts
+        e11, e22, e12 = self.strain_rates(
+            u, v, metric=(consts["inv_dx"], consts["inv_dy"]) if graded else None
+        )
         delta = torch.sqrt(
             (e11 * e11 + e22 * e22) * (1.0 + 1.0 / e2)
             + 2.0 * e11 * e22 * (1.0 - 1.0 / e2)
@@ -272,8 +351,11 @@ class MEVPSolver:
         p = self.params
         u, v, s11, s22, s12 = carry
         u_ocean, v_ocean = consts["u_ocean"], consts["v_ocean"]
-        fu, fv = self.stress_divergence(s11, s22, s12)
-        inv_w = 1.0 / (self.mesh.dx * self.mesh.dy)
+        graded = "inv_dx" in consts
+        fu, fv = self.stress_divergence(
+            s11, s22, s12, metric=(consts["half_dx"], consts["half_dy"]) if graded else None
+        )
+        inv_w = consts["inv_w"] if graded else 1.0 / (self.mesh.dx * self.mesh.dy)
         fu = fu * inv_w
         fv = fv * inv_w
         cor_u = p.f_coriolis * (v - v_ocean) if p.use_coriolis else 0.0

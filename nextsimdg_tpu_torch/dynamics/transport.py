@@ -1,4 +1,4 @@
-"""Discontinuous-Galerkin tracer transport (dG1 on a uniform, closed mesh).
+"""Discontinuous-Galerkin tracer transport (dG1 on a closed mesh).
 
 Counterpart of ``nextsimdg_tpu.dynamics.transport``. Solves
 d(psi)/dt + div(v psi) = 0 per tracer with upwind edge fluxes and SSP-RK
@@ -16,6 +16,12 @@ order with zero entries skipped, as in the JAX package, so that float64
 results agree to rounding. The CUDA transport kernels in
 ``dynamics.kernels.coupled_cuda`` take their table entries from this
 module's ``DGTransport``.
+
+On a graded or spherical mesh the widths become per-element planes: the
+volume term multiplies by ``inv_dx``/``inv_dy``, each owned face flux is
+weighted by its face length before the neighbour shift (``face_x``,
+``face_y``, so both sides of a face exchange the same amount) and the
+edge terms divide by the element area (``inv_area``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 
 from .dgbasis import DGBasis, dg_basis
-from .mesh import RectMesh
+from .mesh import RectMesh, device_metric_planes
 from .stencil import is_global_edge, shift_m, shift_p
 
 
@@ -49,6 +55,18 @@ def apply_table(table, arr):
             acc = term if acc is None else acc + term
         outs.append(acc if acc is not None else torch.zeros_like(arr[0]))
     return torch.stack(outs)
+
+
+def face_masks_from_land(ocean_mask, periodic_x: bool = False, periodic_y: bool = False):
+    """Impermeable-face masks from an element ocean mask (1 = ocean, 0 = land).
+
+    A face carries flux only if both adjacent elements are ocean. Returns
+    (face_x, face_y), each (nx, ny) in the owned-edge layout, multiplying
+    the upwind fluxes.
+    """
+    left = shift_m(ocean_mask, 0, periodic_x)
+    below = shift_m(ocean_mask, 1, periodic_y)
+    return ocean_mask * left, ocean_mask * below
 
 
 @dataclass(frozen=True)
@@ -122,11 +140,15 @@ def substeps_from_speeds(
     """The CFL substep count (0-d int32 tensor) from the two max speeds.
 
     ``cfl_substeps`` and the CUDA path both end here, so that the same max
-    speeds give the same k.
+    speeds give the same k. The speeds are held against the smallest
+    element widths: on a spherical mesh the poleward rows are the
+    thinnest.
     """
     # Cockburn & Shu's RKDG bound 1/(2p+1), with a 15% safety margin.
     c_stab = 0.85 / (2 * degree + 1)
-    nu = (speed_x / mesh.dx + speed_y / mesh.dy) * dt
+    dx_min = float(np.min(np.asarray(mesh.dx)))
+    dy_min = float(np.min(np.asarray(mesh.dy)))
+    nu = (speed_x / dx_min + speed_y / dy_min) * dt
     k = torch.ceil(nu / c_stab).to(torch.int32)
     return torch.clamp(torch.clamp(k, min=k_floor), 1, k_max)
 
@@ -136,20 +158,23 @@ def cfl_substeps(
     k_floor: int = 1, k_max: int = 64,
 ):
     """Transport substep count k = ceil(nu / C), clipped to [k_floor, k_max],
-    with nu = (max|vx|/dx + max|vy|/dy) dt the advective CFL number."""
+    with nu = (max|vx|/min dx + max|vy|/min dy) dt the advective CFL
+    number."""
     speed_x, speed_y = max_speeds(qv)
     return substeps_from_speeds(speed_x, speed_y, dt, mesh, degree, k_floor, k_max)
 
 
 class DGTransport:
-    """The dG1 transport operator for one uniform, closed mesh."""
+    """The dG1 transport operator for one closed mesh (uniform, graded or
+    spherical)."""
 
     def __init__(self, mesh: RectMesh, degree: int = 1, scheme: str = None) -> None:
         if degree != 1:
             raise NotImplementedError("only dG1 transport is ported yet")
-        if not mesh.uniform or mesh.periodic_x or mesh.periodic_y:
-            raise NotImplementedError("only uniform, closed meshes are ported")
+        if mesh.periodic_x or mesh.periodic_y:
+            raise NotImplementedError("only closed meshes are ported")
         self.mesh = mesh
+        self._metric = {}
         self.basis = dg_basis(degree)
         self.scheme = scheme or "rk2"
         if self.scheme not in ("rk1", "rk2", "rk3"):
@@ -170,14 +195,36 @@ class DGTransport:
         self._wa_y1 = b.psi_y1 * b.w_edge[None, :]
         self._inv_mass = b.inv_mass_diag
 
+    def metric_planes(self, *, device, dtype):
+        """None when uniform; else dict(inv_dx, inv_dy, face_x, face_y,
+        inv_area) of (nx, ny) planes, built once per (device, dtype): the
+        inverse element widths of the volume term, the owned-face lengths of
+        the fluxes and the inverse areas of the edge terms."""
+        if self.mesh.uniform:
+            return None
+        key = (torch.device(device), dtype)
+        if key not in self._metric:
+            m = device_metric_planes(self.mesh, device=device, dtype=dtype)
+            self._metric[key] = {
+                "inv_dx": 1.0 / m["dx"],
+                "inv_dy": 1.0 / m["dy"],
+                "face_x": m["face_x"],
+                "face_y": m["face_y"],
+                "inv_area": 1.0 / m["area"],
+            }
+        return self._metric[key]
+
     # -- semi-discrete RHS ---------------------------------------------------
-    def rhs(self, psi, vel: QuadVelocity, face_masks=None):
+    def rhs(self, psi, vel: QuadVelocity, face_masks=None, metric=None):
         """d(psi)/dt for coefficients psi (K, ..., nx, ny).
 
         ``face_masks``: optional (face_x, face_y) planes multiplying the
-        upwind fluxes (coastlines).
+        upwind fluxes (coastlines). ``metric``: the per-element planes of
+        ``metric_planes`` (taken from this operator when not given).
         """
         mesh = self.mesh
+        if metric is None:
+            metric = self.metric_planes(device=psi.device, dtype=psi.dtype)
         extra = psi.ndim - 3
         expand = (slice(None),) + (None,) * extra
         vx_vol = vel.vx_vol[expand]
@@ -187,8 +234,8 @@ class DGTransport:
         x_axis, y_axis = psi.ndim - 2, psi.ndim - 1
 
         # Volume term, streamed over the quadrature points.
-        inv_dx = 1.0 / mesh.dx
-        inv_dy = 1.0 / mesh.dy
+        inv_dx = 1.0 / mesh.dx if metric is None else metric["inv_dx"]
+        inv_dy = 1.0 / mesh.dy if metric is None else metric["inv_dy"]
         psi_tab = np.asarray(self._psi_vol)
         wgx_t = np.asarray(self._wgx_vol.T)  # (NQ, K)
         wgy_t = np.asarray(self._wgy_vol.T)
@@ -231,11 +278,15 @@ class DGTransport:
             g_x.narrow(x_axis, 0, 1).zero_()
         if face_masks is not None:
             g_x = g_x * face_masks[0]
+        if metric is not None:
+            # The owned face's length before the shift: both sides of a
+            # shared face integrate the same length * flux (conservative).
+            g_x = g_x * metric["face_x"]
         g_right = shift_p(g_x, x_axis, px)
         edge_x = (
             apply_table(self._wa_x1.T, g_right) - apply_table(self._wa_x0.T, g_x)
         )
-        edge_x = edge_x / mesh.dx
+        edge_x = edge_x / mesh.dx if metric is None else edge_x * metric["inv_area"]
 
         # Upwind edge fluxes, y-direction (owned bottom-face edges).
         tr_y1 = apply_table(self._psi_y1, psi)  # top-face traces
@@ -246,11 +297,13 @@ class DGTransport:
             g_y.narrow(y_axis, 0, 1).zero_()
         if face_masks is not None:
             g_y = g_y * face_masks[1]
+        if metric is not None:
+            g_y = g_y * metric["face_y"]
         g_top = shift_p(g_y, y_axis, py)
         edge_y = (
             apply_table(self._wa_y1.T, g_top) - apply_table(self._wa_y0.T, g_y)
         )
-        edge_y = edge_y / mesh.dy
+        edge_y = edge_y / mesh.dy if metric is None else edge_y * metric["inv_area"]
 
         rhs = volume - edge_x - edge_y
         inv_mass = self._inv_mass
@@ -276,12 +329,15 @@ class DGTransport:
         return torch.cat([mean[None], psi[1:] * theta[None]], dim=0)
 
     # -- SSP-RK time stepping ------------------------------------------------
-    def step(self, psi, vel: QuadVelocity, dt: float, limit: bool = False, face_masks=None):
+    def step(
+        self, psi, vel: QuadVelocity, dt: float, limit: bool = False, face_masks=None,
+        metric=None,
+    ):
         """One SSP-RK step; ``limit`` applies the positivity limiter after
         every RK stage (SSP keeps the limited property through the convex
         combinations)."""
         lim = self.limit_positivity if limit else (lambda p: p)
-        rhs = lambda p: self.rhs(p, vel, face_masks)
+        rhs = lambda p: self.rhs(p, vel, face_masks, metric)
         if self.scheme == "rk1":
             return lim(psi + dt * rhs(psi))
         if self.scheme == "rk2":
@@ -290,3 +346,9 @@ class DGTransport:
         psi1 = lim(psi + dt * rhs(psi))
         psi2 = lim(0.75 * psi + 0.25 * (psi1 + dt * rhs(psi1)))
         return lim(psi / 3.0 + 2.0 / 3.0 * (psi2 + dt * rhs(psi2)))
+
+    def total_mass(self, psi):
+        """Integral of the tracer over the domain (cell means x areas)."""
+        area = np.asarray(self.mesh.cell_area, dtype=np.float64)
+        area = torch.as_tensor(area, device=psi.device).to(psi.dtype)
+        return torch.sum(psi[0] * area)

@@ -1,9 +1,10 @@
 """State and parameters across the boundary between the two packages.
 
 Plain numpy dicts keyed by field name carry a ``CoupledState``, a
-``DynamicsForcing``, the physics ``Forcing`` and ``PrognosticState`` or the
-``MEVPParams`` fields, so that the JAX model and this port can be given
-identical inputs without either importing the other. The ``*_to_numpy``
+``DynamicsForcing``, the physics ``Forcing`` and ``PrognosticState``, the
+``MEVPParams`` fields or a mesh description, so that the JAX model and
+this port can be given identical inputs without either importing the
+other. The ``*_to_numpy``
 functions read any object with the fields whose leaves numpy can convert
 (a torch tensor, or an array of the JAX package).
 """
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .coupled import CoupledState
+from .dynamics.mesh import EARTH_RADIUS, RectMesh, SphericalMesh
 from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
 from .state import Forcing, PrognosticState
 
@@ -95,3 +97,33 @@ def prognostic_state_from_numpy(d: dict, *, device, dtype) -> PrognosticState:
 def prognostic_state_to_numpy(prog) -> dict:
     """{field: ndarray} of either package's ``PrognosticState``."""
     return {name: _to_numpy(getattr(prog, name)) for name in _PROGNOSTIC_FIELDS}
+
+
+_MESH_KEYS = {
+    "rect": {"kind", "nx", "ny", "dx", "dy"},
+    "spherical": {"kind", "nx", "ny", "lon0", "lon1", "lat0", "lat1"},
+}
+
+
+def mesh_from_description(d: dict):
+    """The port's mesh of a description (plain numbers and numpy arrays).
+
+    ``{"kind": "rect", "nx", "ny", "dx", "dy"}``: a ``RectMesh``, ``dx`` and
+    ``dy`` scalars or per-column/per-row arrays;
+    ``{"kind": "spherical", "nx", "ny", "lon0", "lon1", "lat0", "lat1"}``
+    and optionally ``"radius"``: a ``SphericalMesh``.
+    """
+    kind = d.get("kind")
+    if kind not in _MESH_KEYS:
+        raise KeyError(f"a mesh description needs kind 'rect' or 'spherical', got {kind!r}")
+    keys = set(d) - ({"radius"} if kind == "spherical" else set())
+    if keys != _MESH_KEYS[kind]:
+        raise KeyError(
+            f"a {kind} mesh needs exactly the keys {sorted(_MESH_KEYS[kind])}, got {sorted(d)}"
+        )
+    if kind == "rect":
+        return RectMesh(d["nx"], d["ny"], np.asarray(d["dx"]), np.asarray(d["dy"]))
+    return SphericalMesh(
+        d["nx"], d["ny"], d["lon0"], d["lon1"], d["lat0"], d["lat1"],
+        radius=d.get("radius", EARTH_RADIUS),
+    )

@@ -248,7 +248,10 @@ def test_interop_round_trip():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(ocean_mask=np.ones((N, N))), dict(spmd=("x", None)), dict(tvb_m=0.0), dict(degree=2)],
+    [
+        dict(mevp_params=coupled.MEVPParams(a_weighted_stress=True)), dict(spmd=("x", None)),
+        dict(tvb_m=0.0), dict(degree=2),
+    ],
 )
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):

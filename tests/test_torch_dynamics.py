@@ -109,8 +109,11 @@ def test_mesh_uniform_closed_and_rejects_the_rest():
     ref = jax_mesh.RectMesh(nx=8, ny=12, dx=1000.0, dy=2000.0)
     assert (m.dx, m.dy, m.cell_area, m.n_elements) == (ref.dx, ref.dy, ref.cell_area, ref.n_elements)
     assert m.uniform and not m.periodic_x and not m.periodic_y
-    with pytest.raises(NotImplementedError):
-        mesh.RectMesh(8, 8, np.linspace(1.0, 2.0, 8), 1.0)
+    # Graded meshes are ported (tests/test_torch_geometry.py); periodic ones
+    # and mismatched spacings are refused.
+    assert not mesh.RectMesh(8, 8, np.linspace(1.0, 2.0, 8), 1.0).uniform
+    with pytest.raises(ValueError):
+        mesh.RectMesh(8, 8, np.linspace(1.0, 2.0, 7), 1.0)
     with pytest.raises(NotImplementedError):
         mesh.RectMesh(8, 8, 1.0, 1.0, periodic_x=True)
 

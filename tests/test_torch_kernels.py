@@ -1,9 +1,10 @@
 """The CUDA kernels of the dynamics phase against their plain versions.
 
-K1's four kernels, and the ghost-zone tiled ``mevp_tiled`` and
-``transport_tiled``, which must also equal K1's schedule on the same inputs
-(they run the same element bodies; expected 0, failure above 1e-6 of the
-plane's max).
+K1's four kernels, the ghost-zone tiled ``mevp_tiled`` and
+``transport_tiled``, and the single-launch ``mevp_single``, which must also
+equal K1's schedule on the same inputs (they run the same element bodies;
+expected 0, failure above 1e-6 of the plane's max), on uniform meshes and
+on a spherical one with its metric planes and a coastline.
 
 These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 elsewhere. On a machine with one, run them with
@@ -21,8 +22,9 @@ import pytest
 import torch
 
 from nextsimdg_tpu_torch.coupled import CoupledModel
-from nextsimdg_tpu_torch.dynamics import RectMesh
+from nextsimdg_tpu_torch.dynamics import RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as ms
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
@@ -52,11 +54,15 @@ def assert_close(got, ref, tol):
     assert float((got - ref).abs().max()) <= tol * scale
 
 
-def setup(device, n=N, n_subcycles=100, ny=None):
+def setup(device, n=N, n_subcycles=100, ny=None, spherical=False):
     rng = np.random.default_rng(0)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     shape = (n, n if ny is None else ny)
-    model = CoupledModel(RectMesh(*shape, 2000.0, 2000.0), n_subcycles=n_subcycles)
+    if spherical:  # a pan-Arctic window with a coastline: metric consts, land
+        mesh = SphericalMesh(*shape, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
+        model = CoupledModel(mesh, n_subcycles=n_subcycles, ocean_mask=synthetic_coastline(*shape))
+    else:
+        model = CoupledModel(RectMesh(*shape, 2000.0, 2000.0), n_subcycles=n_subcycles)
     carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
         u_atm=t(rng.normal(8.0, 2.0, shape)), v_atm=t(rng.normal(2.0, 2.0, shape)),
@@ -134,7 +140,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
         cc.dg1_sample_cfl(model.transport, carry[0][:-1], carry[1][:-1])
     with pytest.raises(ValueError, match="alias"):
         cc._dg1_rk_stage_(
-            psi, psi, carry[0], carry[1], carry[0], carry[0], psi, 0.0, 1.0, 1.0,
+            psi, psi, carry[0], carry[1], carry[0], carry[0], None, psi, 0.0, 1.0, 1.0,
             cc._dg1_tables(model.transport), cc._stream(device),
         )
 
@@ -200,3 +206,63 @@ def test_tiled_wrappers_raise_on_what_the_kernels_do_not_take(device):
         mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, 8, tile=256, halo=8)
     with pytest.raises(TypeError, match="float32"):
         mt.mevp_subcycles_tiled(model.mevp, tuple(c.double() for c in carry), consts, DT, 8)
+
+
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("n_sub", [1, 13])
+def test_mevp_single_matches_plain_k1_and_tiled(device, spherical, n_sub):
+    model, carry, consts, _, _ = setup(device, n=40, ny=72, spherical=spherical)
+    assert len(consts) == (12 if spherical else 7)
+    cc.reset_launches()
+    got = ms.mevp_subcycles_single(model.mevp, carry, consts, DT, n_sub)
+    assert cc.launches["mevp_single"] == 1
+    ref = ms.mevp_single_reference(model.mevp, carry, consts, DT, n_sub)
+    k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, n_sub)
+    tiled = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, n_sub)
+    for g, r, q, w in zip(got, ref, k1, tiled):
+        assert_close(g, r, TOL_LAUNCH if n_sub == 1 else 1e-3)
+        assert_same_schedule(g, q)
+        assert_same_schedule(g, w)
+    assert torch.equal(carry[2], setup(device, n=40, ny=72, spherical=spherical)[1][2])
+
+
+def test_mevp_single_refuses_a_grid_that_cannot_be_resident(device):
+    model, carry, consts, _, _ = setup(device)
+    limit = ms.max_blocks(False, device)
+    assert limit >= 132
+    got = ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3, blocks=7)
+    assert_same_schedule(got[0], ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3)[0])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3, blocks=limit + 1)
+    with pytest.raises(NotImplementedError, match="consts"):
+        ms.mevp_subcycles_single(model.mevp, carry, {**consts, "a_node": carry[0]}, DT, 3)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_metric_transport_kernels_match_plain_and_each_other(device, k):
+    model, carry, _, psi, _ = setup(device, n=40, ny=72, spherical=True)
+    faces = model.face_masks(device=device, dtype=torch.float32)
+    u, v = carry[0] * 5.0, carry[1] * 5.0
+    args = (model.transport, psi, u, v, DT / k, k, faces)
+    got = tt.transport_substeps_tiled(*args, tile=16)
+    assert_close(got, tt.transport_substeps_tiled_reference(*args), 1e-5)
+    assert_same_schedule(got, cc.transport_substeps(*args))
+    base = psi.flip(-1).contiguous()
+    stage = (model.transport, psi, base, u, v, *faces, 0.5, 0.5, DT / k)
+    assert_close(cc.dg1_rk_stage(*stage), cc.dg1_rk_stage_reference(*stage), TOL_LAUNCH)
+
+
+def test_spherical_dynamics_phase_matches_plain_and_counts_launches(device):
+    model, carry, consts, psi, _ = setup(device, n=40, ny=72, spherical=True)
+    faces = model.face_masks(device=device, dtype=torch.float32)
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(
+        model, carry, psi, consts, DT, 100, faces, mevp="single", transport="tiled"
+    )
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100, faces)
+    for g, r in zip(got_carry, ref_carry):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert counts["mevp_single"] == 1 and counts["dg1_sample_cfl"] == 1
+    assert counts["transport_tiled"] >= 1 and counts["mevp_stress"] == 0

@@ -37,6 +37,8 @@ def test_port_imports_without_jax_or_triton():
         "import nextsimdg_tpu_torch.dynamics.kernels.coupled_cuda\n"
         "import nextsimdg_tpu_torch.dynamics.kernels.mevp_tiled_cuda\n"
         "import nextsimdg_tpu_torch.dynamics.kernels.transport_tiled_cuda\n"
+        "import nextsimdg_tpu_torch.dynamics.kernels.mevp_single_cuda\n"
+        "import nextsimdg_tpu_torch.dynamics.landmask, nextsimdg_tpu_torch.dynamics.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -81,6 +83,7 @@ REPLACED = {
     "transport.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "mevp_tiled.cu": "mevp_tiled.py::mevp_subcycles_tiled",
     "transport_tiled.cu": "transport_tiled.py::transport_substeps_tiled",
+    "mevp_single.cu": "mevp_pallas.py::mevp_subcycles_pallas",
 }
 
 
