@@ -25,7 +25,15 @@ hsnow), 100 mEVP subcycles, dt = 600 s, CFL-adaptive transport substeps:
   (40W-40E, 55N-85N) with ``synthetic_coastline(1024)``, on
   ``mevp_backend="pallas"``: mevp_single (all 100 subcycles in one
   cooperative launch) with the metric planes, dg1_sample_cfl and the
-  metric transport_tiled with the coastline face masks.
+  metric transport_tiled with the coastline face masks;
+* the higher-order (CG2 velocity, dG1 stress) coupled step
+  (``run_benchmarks.py`` ``ho_coupled_1m``, ``bench_coupled_1m(high_order=True)``):
+  config 4's mesh, state and forcing with ``Nextsim::IDynamics =
+  Nextsim::MEVPHighOrder`` selected through the module registry, on "auto":
+  ho_tiled (ghost-zone tiles of the 17 HO state planes), the CG2 velocity
+  sampled at the quadrature points, and the ``qv`` form of transport_tiled;
+  and the same at 256^2 on ``mevp_backend="pallas"`` (``ho_coupled_256``):
+  ho_single, all 100 HO subcycles in one cooperative launch.
 
 Phases, each printed on its own lines:
 
@@ -39,10 +47,15 @@ Phases, each printed on its own lines:
    K1's schedule (uniform consts, 256^2, N = 100) and mevp_tiled
    (spherical consts, 1024^2 and 1000 x 968), and the metric
    transport_tiled and dg1_rk_stage against their plain versions and each
-   other at 1024^2 spherical with the coastline;
+   other at 1024^2 spherical with the coastline; then ho_single against its
+   plain version (256^2, N = 1, 13, 100), ho_tiled against it (1024^2,
+   N = 1 and 13, and 1000 x 968), the two against each other (256^2 and
+   512^2), and the qv form of transport_tiled against its plain version
+   (1024^2);
 4. slice: for each path, one step on the kernels against the plain path on
    the card (the spherical one on "pallas" and on "auto", and one step of
-   the uniform coastline variant ``coupled_1m_mask``), then 20 steps from
+   the uniform coastline variant ``coupled_1m_mask``; both HO paths), then
+   20 steps from
    zeroed launch counters: every leaf finite, 0 <= cice <= 1, hice >= 0,
    hsnow >= 0, every kernel of the path launched, and with a coastline the
    land tracers unchanged and u = v = 0 on every node that touches land;
@@ -52,12 +65,15 @@ Phases, each printed on its own lines:
    to 1024^2 (the "auto" threshold), a tile sweep of the tiled kernels,
    the spherical step on mevp_single, on mevp_tiled and on the plain path,
    the two's mEVP phase and dynamics step on spherical meshes at 128^2 to
-   1024^2 (the non-uniform "auto" threshold), and each kernel per call
-   against its plain version and its bound.
+   1024^2 (the non-uniform "auto" threshold), the HO paths' step on their
+   kernels and on the plain path, ho_single against ho_tiled on the HO mEVP
+   phase and dynamics step at 128^2 to 1024^2 (the HO "auto" threshold), a
+   tile sweep of ho_tiled, and each kernel per call against its plain
+   version and its bound.
 
-Any failure raises (non-zero exit); there is no CPU path. The line before
-the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``.
+Any failure raises (non-zero exit); there is no CPU path. The script's wall
+time, the card's ``nvidia-smi`` name and power limit and the kernels' JSON
+summary come last but one; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,10 +87,13 @@ import time
 import numpy as np
 import torch
 
-from nextsimdg_tpu_torch import coupled
+from nextsimdg_tpu_torch import coupled, modules
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
+from nextsimdg_tpu_torch.dynamics import mevp_ho
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hsc
+from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as htc
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as single
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
@@ -93,6 +112,8 @@ REPLACES = {
     "mevp_tiled": "nextsimdg_tpu/dynamics/kernels/mevp_tiled.py:173",
     "transport_tiled": "nextsimdg_tpu/dynamics/kernels/transport_tiled.py:105",
     "mevp_single": "nextsimdg_tpu/dynamics/kernels/mevp_pallas.py:49",
+    "ho_single": "nextsimdg_tpu/dynamics/kernels/mevp_ho_pallas.py:45",
+    "ho_tiled": "nextsimdg_tpu/dynamics/kernels/mevp_ho_tiled.py:118",
 }
 SOURCES = {
     "mevp_stress": "nextsimdg_tpu_torch/csrc/mevp.cu",
@@ -102,11 +123,15 @@ SOURCES = {
     "mevp_tiled": "nextsimdg_tpu_torch/csrc/mevp_tiled.cu",
     "transport_tiled": "nextsimdg_tpu_torch/csrc/transport_tiled.cu",
     "mevp_single": "nextsimdg_tpu_torch/csrc/mevp_single.cu",
+    "ho_single": "nextsimdg_tpu_torch/csrc/ho_single.cu",
+    "ho_tiled": "nextsimdg_tpu_torch/csrc/ho_tiled.cu",
 }
 PATH_KERNELS = {
     "headline": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
     "config4": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "spherical": ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
+    "ho_coupled_1m": ("ho_tiled", "transport_tiled"),
+    "ho_coupled_256": ("ho_single", "transport_tiled"),
 }
 VELOCITY = ("u", "v", "s11", "s22", "s12")
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -116,8 +141,16 @@ PEAK_FP32 = 67e12
 # float32 operations per element of each body, counted from
 # csrc/mevp_body.cuh and csrc/dg1_body.cuh (a sqrt or a divide counts as
 # one): the stress half, the velocity half (uniform consts), the CFL
-# sampling, and one RK stage (velocity sampling + 3 tracers).
-OPS = {"stress": 80, "velocity": 42, "cfl": 92, "stage": 80 + 3 * 243}
+# sampling, and one RK stage (velocity sampling + 3 tracers); and, counted
+# from csrc/ho_body.cuh as the kernels run them (dense tables), the HO
+# stress half per element and velocity half per node index.
+OPS = {
+    "stress": 80, "velocity": 42, "cfl": 92, "stage": 80 + 3 * 243,
+    "ho_stress": 516, "ho_velocity": 398,
+}
+#: Planes one HO call moves: 17 state planes in, 29 consts in, 17 out.
+HO_PLANES_MOVED = 17 + 29 + 17
+HO = "Nextsim::MEVPHighOrder"
 # Single launches: the kernel and the plain version run the same float32
 # operations in the same order (a width divides through its float32
 # reciprocal on both sides); 1e-5 of the plane's max covers an ulp where
@@ -304,12 +337,25 @@ def check_kernels(model, device) -> dict:
     return {name: (results[name], *times[name]) for name in PATH_KERNELS["headline"]}
 
 
+def velocity_leaves(velocity):
+    """(name, tensor) of a VelocityState, or of an HOVelocityState (its CG2
+    fields plane by plane)."""
+    for name in VELOCITY:
+        leaf = getattr(velocity, name)
+        if isinstance(leaf, mevp_ho.HOField):
+            for k, plane in zip("vblc", leaf.planes()):
+                yield f"{name}.{k}", plane
+        else:
+            yield name, leaf
+
+
 def leaves(state, like):
     """(name, leaf, leaf of ``like``) for every tensor of a CoupledState."""
     for name in ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice"):
         yield name, getattr(state, name), getattr(like, name)
-    for name in ("u", "v", "s11", "s22", "s12"):
-        yield f"velocity.{name}", getattr(state.velocity, name), getattr(like.velocity, name)
+    pairs = zip(velocity_leaves(state.velocity), velocity_leaves(like.velocity))
+    for (name, leaf), (_, other) in pairs:
+        yield f"velocity.{name}", leaf, other
 
 
 def ptxas_report(text: str):
@@ -554,6 +600,126 @@ def check_single(device) -> dict:
     }
 
 
+def ho_model(device, n: int = N4, **backends):
+    """``bench_coupled_1m(high_order=True)`` at n^2: config 4 with the HO
+    solver selected through the module registry (reset after the build)."""
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        return coupled_model(device, RectMesh(n, n, dx=4e3, dy=4e3), None, **backends)
+    finally:
+        loader.reset()
+
+
+def ho_inputs(nx, ny, device, seed):
+    """Seeded HO solver inputs on a closed (nx, ny) mesh of 4 km elements:
+    (model, carry, consts, tracers, face masks)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    shape = (nx, ny)
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        model = CoupledModel(RectMesh(nx, ny, 4e3, 4e3), n_subcycles=N_SUBCYCLES)
+    finally:
+        loader.reset()
+    field = lambda s, m=0.0: mevp_ho.HOField(*(t(m + rng.normal(0.0, s, shape)) for _ in range(4)))
+    state = mevp_ho.HOVelocityState(
+        u=field(0.2), v=field(0.2), s11=t(rng.normal(0.0, 1e3, (3, *shape))),
+        s22=t(rng.normal(0.0, 1e3, (3, *shape))), s12=t(rng.normal(0.0, 5e2, (3, *shape))),
+    )
+    forcing = mevp_ho.HODynamicsForcing(field(2.0, 6.0), field(2.0, 3.0), field(0.05), field(0.05))
+    h, a = t(rng.uniform(0.0, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(state, h, a, forcing, mask, DT)
+    carry = (state.u, state.v, state.s11, state.s22, state.s12)
+    psi = t(np.concatenate([
+        rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))
+    ]))
+    faces = tuple(t((rng.uniform(size=shape) > 0.1).astype(np.float32)) for _ in range(2))
+    return model, carry, consts, psi, faces
+
+
+def ho_planes(carry):
+    """(name, plane) of an HO carry: 8 velocity planes, 3 stress stacks."""
+    return list(velocity_leaves(mevp_ho.HOVelocityState(*carry)))
+
+
+def check_ho(device) -> dict:
+    """Phase 3, fourth part: ho_single and ho_tiled against their plain
+    version and each other, and the qv form of transport_tiled; then each
+    per call at its path's shape against its plain version and bound."""
+    errs = {"ho_single": 0.0, "ho_tiled": 0.0}
+
+    def against_plain(kernel, run, tag, model, carry, consts, n):
+        got = run(model.mevp, carry, consts, DT, n)
+        ref = mevp_ho.ho_subcycles_reference(model.mevp, carry, consts, DT, n)
+        tol = TOL_LAUNCH if n == 1 else TOL_STEP_MEVP
+        for (name, g), (_, r) in zip(ho_planes(got), ho_planes(ref)):
+            errs[kernel] = max(errs[kernel], compare(f"{tag} N={n} {name}", g, r, tol))
+        return got
+
+    model, carry, consts, _, _ = ho_inputs(N, N, device, SEED + 6)
+    for n in (1, 13, N_SUBCYCLES):
+        against_plain("ho_single", hsc.ho_subcycles_single, f"ho_single {N}x{N}", model, carry, consts, n)
+    for nx, ny in ((N4, N4), RAGGED):
+        model, carry, consts, _, _ = ho_inputs(nx, ny, device, SEED + 7)
+        for n in (1, 13):  # 13 = 8 + 5: not a multiple of the halo
+            against_plain("ho_tiled", htc.ho_subcycles_tiled, f"ho_tiled {nx}x{ny}", model, carry, consts, n)
+    for n_side in (N, 2 * N):
+        model, carry, consts, _, _ = ho_inputs(n_side, n_side, device, SEED + 8)
+        single = hsc.ho_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
+        tiled = htc.ho_subcycles_tiled(model.mevp, carry, consts, DT, N_SUBCYCLES)
+        for (name, g), (_, w) in zip(ho_planes(single), ho_planes(tiled)):
+            same_schedule(f"ho_single {n_side}x{n_side} N={N_SUBCYCLES} {name}", g, w, "ho_tiled")
+
+    # The qv form of transport_tiled at 1024^2: the CG2 samples of a
+    # velocity scaled so that k = 4 runs two launches.
+    model, carry, _, psi, faces = ho_inputs(N4, N4, device, SEED + 9)
+    qv_errs = []
+    for k in (1, 4):
+        scaled = tuple(mevp_ho.HOField(*(k * x for x in f.planes())) for f in carry[:2])
+        qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, *scaled)
+        args = (model.transport, psi, None, None, DT / k, k, faces)
+        got = tt.transport_substeps_tiled(*args, qv=qv)
+        ref = tt.transport_substeps_tiled_reference(*args, qv=qv)
+        qv_errs.append(compare(f"transport_tiled qv form {N4}x{N4} k={k}", got, ref, TOL_STEP_TRACER))
+    torch.cuda.synchronize()
+
+    # Per call at the paths' shapes: ho_single's 100 subcycles at 256^2,
+    # one ho_tiled launch (HALO subcycles) at 1024^2.
+    results = {}
+    for kernel, n_side, n_sub, run in (
+        ("ho_single", N, N_SUBCYCLES, hsc.ho_subcycles_single),
+        ("ho_tiled", N4, htc.HALO, htc.ho_subcycles_tiled),
+    ):
+        model, carry, consts, _, _ = ho_inputs(n_side, n_side, device, SEED + 10)
+        solver = model.mevp
+        runs = time_in_turns(
+            {
+                "kernel": lambda: run(solver, carry, consts, DT, n_sub),
+                "plain": lambda: mevp_ho.ho_subcycles_reference(solver, carry, consts, DT, n_sub),
+            },
+            {"kernel": 20, "plain": 1},
+        )
+        mean = {name: sum(r) / len(r) for name, r in runs.items()}
+        elements = n_side * n_side
+        bound_ms, bound_by = bound(
+            HO_PLANES_MOVED * 4 * elements, n_sub * (OPS["ho_stress"] + OPS["ho_velocity"]) * elements
+        )
+        results[kernel] = (errs[kernel], mean["kernel"], mean["plain"], bound_ms, bound_by)
+        log("time", (
+            f"{kernel}: kernel {mean['kernel']:.4f} ms (runs "
+            f"{', '.join(f'{m:.4f}' for m in runs['kernel'])}), plain {mean['plain']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}) per call of {n_sub} subcycles at {n_side}x{n_side}"
+        ))
+    log("build", (
+        f"ho_single: {hsc.max_blocks(device)} resident blocks of 256 threads; ho_tiled: tile "
+        f"{htc.TILE}, halo {htc.HALO}, {htc.THREADS} threads, {htc.shared_bytes()} B shared"
+    ))
+    return {**results, "transport_qv": max(qv_errs)}
+
+
 def check_bounded(tag: str, out, first) -> None:
     for name, leaf, like in leaves(out, first):
         if leaf.shape != like.shape or not bool(torch.isfinite(leaf).all()):
@@ -564,10 +730,15 @@ def check_bounded(tag: str, out, first) -> None:
     if not (bool((hice >= 0).all()) and bool((hsnow >= 0).all())):
         raise AssertionError(f"{tag}: negative hice or hsnow")
     log("slice", (
-        f"{tag} finite and bounded: max|u| {float(out.velocity.u.abs().max()):.4f} m/s, "
+        f"{tag} finite and bounded: max|u| {max_u(out.velocity):.4f} m/s, "
         f"cice in [{float(cice.min()):.4f}, {float(cice.max()):.4f}], "
         f"hice >= {float(hice.min()):.4f}"
     ))
+
+
+def max_u(velocity) -> float:
+    """max |u| over the x velocity's planes."""
+    return max(float(x.abs().max()) for n, x in velocity_leaves(velocity) if n[0] == "u")
 
 
 def check_land(tag: str, model, out, first) -> None:
@@ -589,14 +760,13 @@ def check_land(tag: str, model, out, first) -> None:
 
 
 def compare_step(tag: str, got, ref) -> None:
-    """All 12 leaves of one coupled step against the plain path."""
+    """Every leaf of one coupled step (12; 18 with the HO velocity) against
+    the plain path."""
     for name in ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice"):
         compare(f"{tag}.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
-    for name in VELOCITY:
-        compare(
-            f"{tag}.velocity.{name}", getattr(got.velocity, name),
-            getattr(ref.velocity, name), TOL_STEP_MEVP,
-        )
+    pairs = zip(velocity_leaves(got.velocity), velocity_leaves(ref.velocity))
+    for (name, g), (_, r) in pairs:
+        compare(f"{tag}.velocity.{name}", g, r, TOL_STEP_MEVP)
 
 
 def drive_path(path: str, model, state, phys, dyn, do_thermo: bool) -> dict:
@@ -661,6 +831,19 @@ def check_slice(device) -> dict:
     for tag, m in (("spherical.pallas.step", model), ("spherical.auto.step", model_auto)):
         compare_step(tag, m.step(state, phys, dyn, DT), plain_step(m, state, phys, dyn))
     counts["spherical"] = drive_path("spherical", model, state, phys, dyn, True)
+
+    # The HO paths: ho_coupled_1m on "auto", ho_coupled_256 on "pallas".
+    for path, n, backend, expected in (
+        ("ho_coupled_1m", N4, "auto", ("tiled", "tiled")),
+        ("ho_coupled_256", N, "pallas", ("single", "tiled")),
+    ):
+        model, state, phys, dyn = ho_model(device, n, mevp_backend=backend)
+        schedule = (model.mevp_schedule(), model.transport_schedule())
+        log("slice", f"{path}: {n}x{n}, HO solver, {backend} schedule {schedule}")
+        if not model.is_high_order or schedule != expected:
+            raise AssertionError(f"{path} does not run {expected}: {schedule}")
+        compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
+        counts[path] = drive_path(path, model, state, phys, dyn, True)
     return counts
 
 
@@ -841,6 +1024,67 @@ def time_paths(device, card: str) -> None:
         ))
 
 
+def time_ho(device, card: str) -> None:
+    """Phase 5, HO part: the HO paths' step, the two HO schedules at
+    128^2-1024^2, a tile sweep of ho_tiled and a profile of ho_coupled_1m."""
+    for path, n, backend in (("ho_coupled_1m", N4, "auto"), ("ho_coupled_256", N, "pallas")):
+        model, state, phys, dyn = ho_model(device, n, mevp_backend=backend)
+        runs = time_in_turns(
+            {
+                "kernel": lambda: model.step(state, phys, dyn, DT),
+                "plain": lambda: plain_step(model, state, phys, dyn),
+            },
+            {"kernel": 10, "plain": 1},
+        )
+        for name, ms in runs.items():
+            report(f"{path} coupled step, {name} path ({n}x{n}, {model.mevp_schedule()})", ms, n * n, card)
+
+    # ho_single against ho_tiled: the HO "auto" threshold
+    # (mevp_ho.HO_SINGLE_MAX_ELEMENTS), on the mEVP phase and the dynamics step.
+    for n in (N // 2, N, 2 * N, N4):
+        model_s, carry, consts, _, _ = ho_inputs(n, n, device, SEED + 11)
+        runs = time_in_turns(
+            {
+                "ho_single": lambda: hsc.ho_subcycles_single(model_s.mevp, carry, consts, DT, N_SUBCYCLES),
+                "ho_tiled": lambda: htc.ho_subcycles_tiled(model_s.mevp, carry, consts, DT, N_SUBCYCLES),
+            },
+            {"ho_single": 10, "ho_tiled": 10},
+        )
+        for name, ms in runs.items():
+            report(f"HO mEVP phase ({N_SUBCYCLES} subcycles) on {name} at {n}x{n}", ms, n * n, card)
+        model_s, state, _, dyn = ho_model(device, n, mevp_backend="pallas")
+        model_t = ho_model(device, n, mevp_backend="pallas-tiled")[0]
+        runs = time_in_turns(
+            {
+                "ho_single": lambda: model_s.step_dynamics(state, dyn, DT),
+                "ho_tiled": lambda: model_t.step_dynamics(state, dyn, DT),
+            },
+            {"ho_single": 10, "ho_tiled": 10},
+        )
+        for name, ms in runs.items():
+            report(f"HO dynamics step on {name} at {n}x{n}", ms, n * n, card)
+
+    # Tile sweep of ho_tiled at 1024^2: launch configurations that fit the
+    # 227 KB of shared memory of a block (a window of at most 58).
+    model, carry, consts, _, _ = ho_inputs(N4, N4, device, SEED + 12)
+    for tile, halo, threads in (
+        (32, 8, 512), (32, 8, 256), (32, 8, 384), (40, 8, 512), (48, 4, 512), (42, 8, 512),
+        (24, 8, 256), (16, 8, 256), (16, 4, 128), (32, 4, 256), (24, 12, 512), (26, 16, 512),
+    ):
+        ms = time_ms(
+            lambda: htc.ho_subcycles_tiled(
+                model.mevp, carry, consts, DT, N_SUBCYCLES, tile=tile, halo=halo, threads=threads,
+            ), 5,
+        )
+        log("time", (
+            f"sweep ho_tiled tile {tile} halo {halo} threads {threads} "
+            f"({htc.shared_bytes(tile, halo)} B shared): {ms:.4f} ms per {N_SUBCYCLES} "
+            f"subcycles at {N4}x{N4} on {card}"
+        ))
+    model, state, phys, dyn = ho_model(device, N4)
+    profile(f"ho_coupled_1m coupled step ({N4}x{N4}, {model.mevp_schedule()})", lambda: model.step(state, phys, dyn, DT))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -854,10 +1098,11 @@ def main() -> int:
     log("device", f"{name}; nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
     log("device", (
         f"auto thresholds: tiled schedule from {coupled.TILED_MIN_ELEMENTS} elements "
-        f"(uniform), mevp_tiled from {coupled.SINGLE_MAX_ELEMENTS} (graded, spherical)"
+        f"(uniform), mevp_tiled from {coupled.SINGLE_MAX_ELEMENTS} (graded, spherical), "
+        f"ho_tiled from {mevp_ho.HO_SINGLE_MAX_ELEMENTS} (HO)"
     ))
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     path = cc.build()
     cc._library()
     log("build", f"{path.name} ready in {time.perf_counter() - t0:.2f} s")
@@ -873,6 +1118,9 @@ def main() -> int:
     kernels.update(check_tiled(device))
     extra = check_single(device)
     kernels["mevp_single"] = extra["mevp_single"]
+    extra_ho = check_ho(device)
+    kernels["ho_single"], kernels["ho_tiled"] = extra_ho["ho_single"], extra_ho["ho_tiled"]
+    extra["transport_metric"] = max(extra["transport_metric"], extra_ho["transport_qv"])
     # The metric checks of the kernels with a uniform-mesh timing above.
     for kernel, key in (
         ("transport_tiled", "transport_metric"), ("dg1_rk_stage", "dg1_rk_stage_metric"),
@@ -880,6 +1128,7 @@ def main() -> int:
         kernels[kernel] = (max(kernels[kernel][0], extra[key]), *kernels[kernel][1:])
     counts = check_slice(device)
     time_paths(device, smi)
+    time_ho(device, smi)
 
     launches = dict.fromkeys(cc.KERNELS, 0)
     for path, names in PATH_KERNELS.items():
@@ -895,6 +1144,7 @@ def main() -> int:
         }
         for k in cc.KERNELS
     ]}
+    log("time", f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({

@@ -19,10 +19,18 @@ timestep:
 On a CUDA card the dynamics phase runs one of the kernel schedules chosen
 by ``mevp_backend`` and ``transport_backend`` (see
 ``CoupledModel.__init__``); CPU tensors always run the plain PyTorch
-versions. The momentum solver is always the CG1 ``MEVPSolver``, built
-directly: the port has no module registry yet, so free drift and the
-high-order solver cannot be selected. Device meshes, periodic axes and the
-TVB limiter are not ported yet and raise ``NotImplementedError``.
+versions.
+
+The momentum solver comes from the module registry, as in the JAX package:
+``Nextsim::IDynamics`` is ``Nextsim::MEVPDynamics`` (the CG1 ``MEVPSolver``,
+the default) or ``Nextsim::MEVPHighOrder`` (the CG2/dG1 ``MEVPSolverHO``,
+on uniform meshes), selected with
+``modules.get_loader().set_implementation(...)`` before the model is built
+(and ``reset()`` after). With the HO solver the velocity state is an
+``HOVelocityState``, the forcing is interpolated to the CG2 nodes, the node
+mask gets its per-plane form and the transport advects with the CG2
+velocity sampled at the quadrature points. Device meshes, periodic axes
+and the TVB limiter are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,13 +44,16 @@ import torch
 
 from .dynamics.kernels.coupled_cuda import dynamics_phase
 from .dynamics.mesh import RectMesh
-from .dynamics.mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
+from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
+from .dynamics.mevp_ho import (
+    MEVP_BACKENDS, HODynamicsForcing, HOField, HOVelocityState, MEVPSolverHO,
+)
 from .dynamics.stencil import shift_m
 from .dynamics.transport import DGTransport, face_masks_from_land
+from .modules import get_loader
 from .physics.nextsim_physics import NextsimPhysics
 from .state import Forcing, PrognosticState, safe_div
 
-MEVP_BACKENDS = ("auto", "pallas", "pallas-tiled")
 TRANSPORT_BACKENDS = ("auto", "xla", "tiled")
 #: Element count from which ``"auto"`` runs the tiled kernels on the card
 #: (mevp_tiled + transport_tiled) instead of K1's schedule. Re-derived on
@@ -74,7 +85,7 @@ class CoupledState:
     sst: torch.Tensor  #: (nx, ny)
     sss: torch.Tensor  #: (nx, ny)
     tice: torch.Tensor  #: (nlayers, nx, ny)
-    velocity: VelocityState
+    velocity: VelocityState  #: or an HOVelocityState with the HO solver
     new_ice: torch.Tensor  #: carried physics state (nx, ny)
 
     @property
@@ -127,6 +138,13 @@ class CoupledModel:
           stage; ``"tiled"``, the counterpart of the JAX tiled kernel:
           ``transport_tiled``, whole substeps per launch; ``"auto"``: tiled
           from ``TILED_MIN_ELEMENTS`` elements for rk1/rk2, staged below.
+
+        With the HO solver selected, ``mevp_backend`` goes to
+        ``MEVPSolverHO``: ``"pallas"`` runs ho_single, ``"pallas-tiled"``
+        ho_tiled, ``"auto"`` ho_single below
+        ``mevp_ho.HO_SINGLE_MAX_ELEMENTS`` and ho_tiled from there; the
+        transport is ``transport_tiled`` on the CG2 samples at every size
+        (``"xla"`` raises on a card: ``dg1_rk_stage`` takes CG1 (u, v)).
         """
         if mevp_backend not in MEVP_BACKENDS:
             raise ValueError(f"mevp_backend must be one of {MEVP_BACKENDS}, got {mevp_backend!r}")
@@ -150,7 +168,11 @@ class CoupledModel:
                 )
         self._masks = {}
         self.transport = DGTransport(mesh, degree=degree)
-        self.mevp = MEVPSolver(mesh, mevp_params)
+        solver_cls = get_loader().get_implementation("Nextsim::IDynamics")
+        if issubclass(solver_cls, MEVPSolverHO):
+            self.mevp = solver_cls(mesh, mevp_params, backend=mevp_backend)
+        else:
+            self.mevp = solver_cls(mesh, mevp_params)
         self.n_subcycles = int(n_subcycles)
         self.transport_substeps = max(1, int(transport_substeps))
         self.auto_substeps = bool(auto_substeps)
@@ -158,10 +180,18 @@ class CoupledModel:
         self.transport_backend = transport_backend
         self.physics = NextsimPhysics() if physics is None else physics
 
+    @property
+    def is_high_order(self) -> bool:
+        """Whether the momentum solver is the CG2/dG1 ``MEVPSolverHO``."""
+        return isinstance(self.mevp, MEVPSolverHO)
+
     # -- kernel schedule -----------------------------------------------------
     def mevp_schedule(self) -> str:
         """``"pallas"`` (K1's schedule), ``"single"`` (mevp_single) or
-        ``"pallas-tiled"`` (mevp_tiled)."""
+        ``"pallas-tiled"`` (mevp_tiled); with the HO solver ``"single"``
+        (ho_single) or ``"tiled"`` (ho_tiled)."""
+        if self.is_high_order:
+            return self.mevp.schedule()
         backend = self.mevp_backend
         if backend == "auto":
             limit = TILED_MIN_ELEMENTS if self.mesh.uniform else SINGLE_MAX_ELEMENTS
@@ -172,6 +202,8 @@ class CoupledModel:
 
     def transport_schedule(self) -> str:
         """``"xla"`` (one dg1_rk_stage per stage) or ``"tiled"``."""
+        if self.is_high_order:
+            return "xla" if self.transport_backend == "xla" else "tiled"
         if self.mevp_schedule() == "pallas":
             return "xla"
         if self.transport_backend != "auto":
@@ -196,6 +228,7 @@ class CoupledModel:
             return coeffs
 
         full = lambda shape, value: torch.full(shape, value, device=device, dtype=dtype)
+        velocity_cls = HOVelocityState if self.is_high_order else VelocityState
         return CoupledState(
             hice=dg(hice0),
             cice=dg(cice0),
@@ -203,7 +236,7 @@ class CoupledModel:
             sst=full((nx, ny), sst0),
             sss=full((nx, ny), sss0),
             tice=full((nlayers, nx, ny), tice0),
-            velocity=VelocityState.zeros(nx, ny, device=device, dtype=dtype),
+            velocity=velocity_cls.zeros(nx, ny, device=device, dtype=dtype),
             new_ice=torch.zeros((nx, ny), device=device, dtype=dtype),
         )
 
@@ -217,12 +250,21 @@ class CoupledModel:
             faces = is_ocean = None
             if self.ocean_mask is not None:
                 ocean = torch.as_tensor(self.ocean_mask, device=device).to(dtype)
-                # CG1 node (i, j): no-slip unless all 4 adjacent elements
-                # are ocean.
                 o_x = shift_m(ocean, 0, False)
                 o_y = shift_m(ocean, 1, False)
                 o_xy = shift_m(o_x, 1, False)
-                mask = mask * ocean * o_x * o_y * o_xy
+                if self.is_high_order:
+                    # A CG2 node is no-slip unless every element it touches
+                    # is ocean: a vertex touches 4, an edge midpoint 2, a
+                    # centre its own.
+                    mask = HOField(
+                        v=mask.v * ocean * o_x * o_y * o_xy, b=mask.b * ocean * o_y,
+                        l=mask.l * ocean * o_x, c=mask.c * ocean,
+                    )
+                else:
+                    # CG1 node (i, j): no-slip unless all 4 adjacent
+                    # elements are ocean.
+                    mask = mask * ocean * o_x * o_y * o_xy
                 faces = face_masks_from_land(ocean)
                 is_ocean = ocean == 1.0
             self._masks[key] = {"node": mask, "faces": faces, "ocean": is_ocean}
@@ -230,7 +272,8 @@ class CoupledModel:
 
     def node_mask(self, *, device, dtype):
         """1 on active CG1 nodes, 0 on the no-slip walls and on every node
-        that touches land."""
+        that touches land; with the HO solver the same per CG2 plane, as an
+        ``HOField``."""
         return self._static_masks(device, dtype)["node"]
 
     def face_masks(self, *, device, dtype):
@@ -246,9 +289,13 @@ class CoupledModel:
         """mEVP + transport + bounds. ``phase`` runs the dynamics phase
         (default: ``coupled_cuda.dynamics_phase`` on this model's kernel
         schedule); passing ``coupled_cuda.fused_dynamics_reference`` runs the
-        plain PyTorch path on any device, for comparison with the kernels."""
+        plain PyTorch path on any device, for comparison with the kernels.
+        With the HO solver the forcing (vertex planes) is interpolated to
+        the CG2 nodes first."""
         hice, cice, hsnow = state.hice, state.cice, state.hsnow
         velocity = state.velocity
+        if self.is_high_order:
+            dyn_forcing = HODynamicsForcing.from_vertex_forcing(dyn_forcing)
         mask = self.node_mask(device=hice.device, dtype=hice.dtype)
         consts = self.mevp.step_consts(
             velocity, hice[0], torch.clamp(cice[0], 0.0, 1.0),
@@ -262,9 +309,8 @@ class CoupledModel:
             )
         faces = self.face_masks(device=hice.device, dtype=hice.dtype)
         final, tracers = phase(self, carry0, tracers, consts, dt, self.n_subcycles, faces)
-        velocity = VelocityState(
-            u=final[0], v=final[1], s11=final[2], s22=final[3], s12=final[4],
-        )
+        velocity_cls = HOVelocityState if self.is_high_order else VelocityState
+        velocity = velocity_cls(*final)
         hice, cice, hsnow = tracers[:, 0], tracers[:, 1], tracers[:, 2]
         return dataclasses.replace(
             state,

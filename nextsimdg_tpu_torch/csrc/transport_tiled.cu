@@ -26,6 +26,14 @@
 // 5 metric planes, are read from global memory (read-only, L1/L2), so the
 // metric does not grow the shared memory of a block.
 //
+// The HO path (kQv) passes the precomputed quadrature velocity of
+// ho_velocity_to_quad instead of (u, v): 4 + 4 volume planes and 2 + 2 face
+// planes, read from global memory like the metric planes (twelve more
+// window planes in shared memory would not fit a block at k = 3), so the
+// shared layout is unchanged and the sampling is skipped. An element's right
+// and top faces read the neighbour's vn_x and vn_y, which is the plain
+// version's shifted left and bottom face fluxes.
+//
 // Walls: loads outside the domain are zeros and cells outside the domain
 // are never updated, as in transport.cu's load_coeffs and at(). Each element
 // runs dg1_stage_cell of dg1_body.cuh with the wall flags of its global
@@ -50,14 +58,44 @@ namespace nst {
 // registers of the stage body free of spills.
 constexpr int kTransportMaxThreads = 768;
 
-template <bool kMetric>
+// The precomputed quadrature velocity of the HO path (QuadVelocity), each a
+// read-only (nx, ny) plane; the host packs them in this order.
+struct Dg1QvPlanes {
+  const float* vx[kVol];
+  const float* vy[kVol];
+  const float* vn_x[kEdge];  // the left face of element (i, j)
+  const float* vn_y[kEdge];  // its bottom face
+};
+
+// Element (i, j)'s velocity from the precomputed planes; its right and top
+// faces are those of elements (i+1, j) and (i, j+1) (zero beyond the domain,
+// where there is no flux).
+__device__ __forceinline__ Dg1Velocity load_qv(const Dg1QvPlanes& qv, long ij, int ny,
+                                               bool has_right, bool has_top) {
+  Dg1Velocity q;
+#pragma unroll
+  for (int k = 0; k < kVol; ++k) {
+    q.vx[k] = __ldg(qv.vx[k] + ij);
+    q.vy[k] = __ldg(qv.vy[k] + ij);
+  }
+#pragma unroll
+  for (int e = 0; e < kEdge; ++e) {
+    q.vn_left[e] = __ldg(qv.vn_x[e] + ij);
+    q.vn_right[e] = has_right ? __ldg(qv.vn_x[e] + ij + ny) : 0.0f;
+    q.vn_bottom[e] = __ldg(qv.vn_y[e] + ij);
+    q.vn_top[e] = has_top ? __ldg(qv.vn_y[e] + ij + 1) : 0.0f;
+  }
+  return q;
+}
+
+template <bool kMetric, bool kQv>
 __global__ void __launch_bounds__(kTransportMaxThreads)
 transport_tiled_kernel(const float* __restrict__ psi_in, float* __restrict__ psi_out,
                        const float* __restrict__ u, const float* __restrict__ v,
                        const float* __restrict__ face_x,
-                       const float* __restrict__ face_y, Dg1MetricPlanes m, int nx, int ny,
-                       int n_tracers, int tile, int halo, int n_sub, int n_stages,
-                       float a2, float b2, float dt, Dg1Tables tb) {
+                       const float* __restrict__ face_y, Dg1MetricPlanes m, Dg1QvPlanes qv,
+                       int nx, int ny, int n_tracers, int tile, int halo, int n_sub,
+                       int n_stages, float a2, float b2, float dt, Dg1Tables tb) {
   extern __shared__ float smem[];
   const int w = tile + 2 * halo;
   const int plane = w * w;
@@ -83,8 +121,10 @@ transport_tiled_kernel(const float* __restrict__ psi_in, float* __restrict__ psi
     const int i = i0 + a, j = j0 + b;
     const bool inside = i >= 0 && i < nx && j >= 0 && j < ny;
     const long ij = static_cast<long>(i) * ny + j;
-    su[c] = inside ? u[ij] : 0.0f;
-    sv[c] = inside ? v[ij] : 0.0f;
+    if (!kQv) {  // the HO path has no (u, v)
+      su[c] = inside ? u[ij] : 0.0f;
+      sv[c] = inside ? v[ij] : 0.0f;
+    }
     for (int q = 0; q < n_coeff; ++q) {
       buf_a[q * plane + c] = inside ? psi_in[q * gplane + ij] : 0.0f;
       buf_b[q * plane + c] = 0.0f;
@@ -112,21 +152,26 @@ transport_tiled_kernel(const float* __restrict__ psi_in, float* __restrict__ psi
         if (i < 0 || i >= nx || j < 0 || j >= ny) continue;
         const int c = a * w + b;
         const long ij = static_cast<long>(i) * ny + j;
-        Corners corners;
-        corners.u00 = su[c];
-        corners.u10 = su[c + w];
-        corners.u01 = su[c + 1];
-        corners.u11 = su[c + w + 1];
-        corners.v00 = sv[c];
-        corners.v10 = sv[c + w];
-        corners.v01 = sv[c + 1];
-        corners.v11 = sv[c + w + 1];
-        const Dg1Velocity q = sample_velocity(tb, corners);
         Dg1Faces f;
         f.left_wall = i == 0;
         f.has_right = i + 1 < nx;
         f.bottom_wall = j == 0;
         f.has_top = j + 1 < ny;
+        Dg1Velocity q;
+        if (kQv) {
+          q = load_qv(qv, ij, ny, f.has_right, f.has_top);
+        } else {
+          Corners corners;
+          corners.u00 = su[c];
+          corners.u10 = su[c + w];
+          corners.u01 = su[c + 1];
+          corners.u11 = su[c + w + 1];
+          corners.v00 = sv[c];
+          corners.v10 = sv[c + w];
+          corners.v01 = sv[c + 1];
+          corners.v11 = sv[c + w + 1];
+          q = sample_velocity(tb, corners);
+        }
         f.fx_left = __ldg(face_x + ij);
         f.fx_right = f.has_right ? __ldg(face_x + ij + ny) : 0.0f;
         f.fy_bottom = __ldg(face_y + ij);
@@ -188,11 +233,15 @@ int nst_transport_tiled_shared_bytes(int tile, int halo, int n_tracers) {
 // 2: rk2 with second-stage weights a2, b2) from psi_in into psi_out, both
 // (3, n_tracers, nx, ny), which must not alias; n_sub * n_stages <= halo - 1.
 // metric: null on a uniform mesh, else the 5 plane pointers in the order of
-// Dg1MetricPlanes. Launches on `stream`, returns cudaGetLastError() (or the
-// error of the shared-memory attribute); does not synchronise.
+// Dg1MetricPlanes. qv: null on the CG1 path (velocity sampled from u, v),
+// else the 12 quadrature-velocity plane pointers in the order of Dg1QvPlanes
+// (u and v are then not read). Launches on `stream`, returns
+// cudaGetLastError() (or the error of the shared-memory attribute); does not
+// synchronise.
 int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u,
                         const float* v, const float* face_x, const float* face_y,
-                        const void* const* metric, int nx, int ny, int n_tracers,
+                        const void* const* metric, const void* const* qv, int nx, int ny,
+                        int n_tracers,
                         int tile, int halo, int n_sub, int n_stages, int threads, float a2, float b2, float dt,
                         const float* tables, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -204,8 +253,13 @@ int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u,
   }
   nst::Dg1MetricPlanes m = {};
   if (metric != nullptr) std::memcpy(&m, metric, sizeof(m));
-  const auto kernel = metric != nullptr ? nst::transport_tiled_kernel<true>
-                                        : nst::transport_tiled_kernel<false>;
+  nst::Dg1QvPlanes q = {};
+  if (qv != nullptr) std::memcpy(&q, qv, sizeof(q));
+  const auto kernel =
+      metric != nullptr ? (qv != nullptr ? nst::transport_tiled_kernel<true, true>
+                                         : nst::transport_tiled_kernel<true, false>)
+                        : (qv != nullptr ? nst::transport_tiled_kernel<false, true>
+                                         : nst::transport_tiled_kernel<false, false>);
   const int bytes = nst_transport_tiled_shared_bytes(tile, halo, n_tracers);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) {
@@ -216,7 +270,7 @@ int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u,
   std::memcpy(&tb, tables, sizeof(tb));
   const dim3 grid((ny + tile - 1) / tile, (nx + tile - 1) / tile);
   kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      psi_in, psi_out, u, v, face_x, face_y, m, nx, ny, n_tracers, tile, halo, n_sub,
+      psi_in, psi_out, u, v, face_x, face_y, m, q, nx, ny, n_tracers, tile, halo, n_sub,
       n_stages, a2, b2, dt, tb);
   return static_cast<int>(cudaGetLastError());
 }

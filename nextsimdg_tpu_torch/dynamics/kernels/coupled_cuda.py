@@ -18,6 +18,8 @@ kernel              source                      plain version (same inputs)
 ``mevp_tiled``      ``csrc/mevp_tiled.cu``      ``mevp_subcycles_reference``
 ``transport_tiled`` ``csrc/transport_tiled.cu`` ``transport_substeps_reference``
 ``mevp_single``     ``csrc/mevp_single.cu``     ``mevp_subcycles_reference``
+``ho_single``       ``csrc/ho_single.cu``       ``ho_subcycles_reference``
+``ho_tiled``        ``csrc/ho_tiled.cu``        ``ho_subcycles_reference``
 =================== =========================== ===================================
 
 The first four are K1's schedule, wrapped here. Per step: 2 launches per
@@ -29,6 +31,15 @@ schedule, K2 and K3 of the JAX package) and ``mevp_single_cuda`` (all N
 subcycles in one launch, K4). Every mEVP kernel takes the 7 uniform
 consts or, on a graded or spherical mesh, the 12 with the metric planes;
 the transport kernels read the transport's metric planes on such a mesh.
+
+With the higher-order solver (``MEVPSolverHO``) the phase runs
+``ho_single`` (all N subcycles in one launch, K5 of the JAX package) or
+``ho_tiled`` (ghost-zone tiles, K6), wrapped by ``ho_single_cuda`` and
+``ho_tiled_cuda`` on the 17 state and 29 const planes packed here; the CG2
+velocity is sampled at the quadrature points in plain PyTorch
+(``ho_velocity_to_quad``, as the JAX package does it in XLA), k comes from
+those samples (one host sync), and ``transport_tiled`` advects the tracers
+with the precomputed samples (its ``qv`` form).
 
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
@@ -54,6 +65,9 @@ import numpy as np
 import torch
 
 from ..mevp import METRIC_CONSTS, UNIFORM_CONSTS, MEVPSolver
+from ..mevp_ho import (
+    HO_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
+)
 from ..transport import (
     DGTransport, cfl_substeps, max_speeds, sampling_weights,
     substeps_from_speeds, velocity_from_cg,
@@ -61,7 +75,7 @@ from ..transport import (
 
 KERNELS = (
     "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage",
-    "mevp_tiled", "transport_tiled", "mevp_single",
+    "mevp_tiled", "transport_tiled", "mevp_single", "ho_single", "ho_tiled",
 )
 
 #: Launches per kernel since the last ``reset_launches()``.
@@ -180,20 +194,26 @@ def _library():
     lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i, i] + tail
     lib.nst_dg1_rk_stage.argtypes = [p] * 8 + [i, i, i, f, f, f] + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
-    lib.nst_transport_tiled.argtypes = [p] * 7 + [i] * 8 + [f, f, f] + tail
+    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 8 + [f, f, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 8 + [i] * 4 + tail
+    lib.nst_ho_single.argtypes = [p, p] + [i] * 4 + [p] + tail
+    lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 6 + [p] + tail
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
     lib.nst_mevp_single_max_blocks.argtypes = [i, i]
     lib.nst_mevp_single_max_blocks.restype = i
-    lib.nst_mevp_n_scalars.restype = i
-    lib.nst_dg1_n_table_floats.restype = i
+    lib.nst_ho_single_max_blocks.argtypes = [i]
+    lib.nst_ho_single_max_blocks.restype = i
+    for name in ("mevp_n_scalars", "dg1_n_table_floats", "ho_n_scalars", "ho_n_table_floats"):
+        getattr(lib, "nst_" + name).restype = i
     lib.nst_error_string.argtypes = [i]
     lib.nst_error_string.restype = ctypes.c_char_p
     if lib.nst_mevp_n_scalars() != _N_MEVP_SCALARS:
         raise RuntimeError("csrc/mevp.cu MevpScalars disagrees with the packing")
     if lib.nst_dg1_n_table_floats() != _N_DG1_TABLE:
         raise RuntimeError("csrc/transport.cu Dg1Tables disagrees with the packing")
+    if lib.nst_ho_n_scalars() != _N_HO_SCALARS or lib.nst_ho_n_table_floats() != _N_HO_TABLE:
+        raise RuntimeError("csrc/ho_body.cuh HoScalars or HoTables disagrees with the packing")
     _lib = lib
     return lib
 
@@ -211,6 +231,8 @@ def _launch(name: str, *args) -> None:
 # -- host-side packing of the kernels' scalars -------------------------------
 _N_MEVP_SCALARS = 17
 _N_DG1_TABLE = 111
+_N_HO_SCALARS = 16
+_N_HO_TABLE = 132
 
 
 def _floats(values):
@@ -272,6 +294,46 @@ def _dg1_tables(transport: DGTransport):
     return _floats(values)
 
 
+def _ho_scalars(solver: MEVPSolverHO, dt: float):
+    """HoScalars of csrc/ho_body.cuh, field for field."""
+    p, mesh = solver.params, solver.mesh
+    e2 = p.ellipse * p.ellipse
+    f = p.f_coriolis if p.use_coriolis else 0.0
+    values = [
+        _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy), mesh.dx, mesh.dy,
+        1.0 + 1.0 / e2, 1.0 - 1.0 / e2, 4.0 / e2, p.delta_min, 1.0 / e2, 1.0 / p.alpha,
+        p.rho_ocean * p.cd_ocean, 1.0 + p.beta, p.beta, f, -f, dt,
+    ]
+    assert len(values) == _N_HO_SCALARS
+    return _floats(values)
+
+
+def _ho_tables(solver: MEVPSolverHO):
+    """HoTables of csrc/ho_body.cuh, field for field, from the solver's CG2
+    tables (the ~1e-17 quadrature residues included, as the plain version
+    multiplies them)."""
+    t = solver.tables
+    values = []
+    for table in (t.grad_x_to_dg1, t.grad_y_to_dg1, t.phi_dg1, solver.proj, t.div_x, t.div_y):
+        values += [float(x) for x in np.asarray(table).ravel()]
+    assert len(values) == _N_HO_TABLE
+    return _floats(values)
+
+
+def ho_flatten(carry) -> torch.Tensor:
+    """The HO carry (u, v, s11, s22, s12) as one new (17, nx, ny) tensor in
+    the kernels' plane order: u's v, b, l, c; v's; s11, s22, s12."""
+    u, v, s11, s22, s12 = carry
+    return torch.cat([torch.stack(u.planes()), torch.stack(v.planes()), s11, s22, s12])
+
+
+def ho_unflatten(state: torch.Tensor):
+    """The inverse of ``ho_flatten``, as views of ``state``."""
+    return (
+        HOField(*state[0:4]), HOField(*state[4:8]), state[8:11], state[11:14], state[14:17],
+    )
+
+
 # -- checks --------------------------------------------------------------------
 def _on_cpu(t: torch.Tensor) -> bool:
     """True for CPU (plain version), False for CUDA (kernel); raises else."""
@@ -312,6 +374,27 @@ def _check_mevp(solver: MEVPSolver, carry, consts) -> None:
         (solver.mesh.nx, solver.mesh.ny), carry[0].device,
         **dict(zip(names, carry)), **consts,
     )
+
+
+def _check_ho(solver: MEVPSolverHO, carry, consts) -> None:
+    """The HO kernels take the 29 uniform consts, float32 (nx, ny) planes,
+    and the carry's 8 velocity and 3 x 3 stress planes."""
+    if tuple(sorted(consts)) != tuple(sorted(HO_CONSTS)):
+        raise NotImplementedError(
+            f"the HO kernels take the consts {tuple(sorted(HO_CONSTS))}, got {tuple(sorted(consts))}"
+        )
+    u, v, s11, s22, s12 = carry
+    shape = (solver.mesh.nx, solver.mesh.ny)
+    device = u.v.device
+    planes = {f"u.{k}": x for k, x in zip("vblc", u.planes())}
+    planes.update({f"v.{k}": x for k, x in zip("vblc", v.planes())})
+    _check(shape, device, **planes, **consts)
+    _check((3, *shape), device, s11=s11, s22=s22, s12=s12)
+
+
+def _ho_consts(consts: dict):
+    """The 29 const-plane pointers of HoConsts."""
+    return _pointers([consts[name] for name in HO_CONSTS])
 
 
 def _stream(device) -> int:
@@ -485,11 +568,13 @@ def mevp_subcycles(solver: MEVPSolver, carry, consts, dt: float, n_subcycles: in
 
 
 def transport_substeps_reference(
-    transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None,
+    transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None, qv=None,
 ):
     """k x ``transport.step(limit=True)`` with the velocity sampled from the
-    CG1 nodes (u, v); ``tracers`` is (3, T, nx, ny)."""
-    qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
+    CG1 nodes (u, v), or with the precomputed quadrature velocity ``qv``
+    (the HO path; u and v are then not read); ``tracers`` is (3, T, nx, ny)."""
+    if qv is None:
+        qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
     for _ in range(k):
         tracers = transport.step(tracers, qv, dt_sub, limit=True, face_masks=face_masks)
     return tracers
@@ -536,24 +621,32 @@ def transport_substeps(
 
 
 # -- the dynamics phase ----------------------------------------------------------
+def _substeps(model, qv, dt: float) -> int:
+    """The transport substep count of the step: from the CFL number of the
+    sampled velocity (one host sync on a card), or the model's fixed count."""
+    if not model.auto_substeps:
+        return model.transport_substeps
+    return int(cfl_substeps(
+        qv, dt, model.mesh, model.transport.basis.degree, k_floor=model.transport_substeps
+    ))
+
+
 def fused_dynamics_reference(
     model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
     face_masks=None,
 ):
-    """Plain PyTorch dynamics phase: ``subcycle_body`` x N, then
-    ``velocity_from_cg``, ``cfl_substeps`` and k x ``DGTransport.step``."""
+    """Plain PyTorch dynamics phase: ``subcycle_body`` x N, then the
+    quadrature velocity (``velocity_from_cg``, or ``ho_velocity_to_quad``
+    with the HO solver), ``cfl_substeps`` and k x ``DGTransport.step``."""
     solver, transport, mesh = model.mevp, model.transport, model.mesh
-    carry = mevp_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
-    if model.auto_substeps:
-        qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1])
-        k = int(cfl_substeps(
-            qv, dt, mesh, transport.basis.degree, k_floor=model.transport_substeps
-        ))
+    if model.is_high_order:
+        carry = ho_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
+        qv = ho_velocity_to_quad(mesh, transport.basis, carry[0], carry[1])
     else:
-        k = model.transport_substeps
-    tr = transport_substeps_reference(
-        transport, tracers, carry[0], carry[1], dt / k, k, face_masks
-    )
+        carry = mevp_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
+        qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1])
+    k = _substeps(model, qv, dt)
+    tr = transport_substeps_reference(transport, tracers, None, None, dt / k, k, face_masks, qv=qv)
     return carry, tr
 
 
@@ -578,10 +671,19 @@ def dynamics_phase(
     * ``transport="xla"``: one ``dg1_rk_stage`` per RK stage (K1's
       schedule, ``transport_substeps``); ``"tiled"``: ``transport_tiled``,
       whole substeps per launch (``transport_tiled_cuda``).
+
+    With the HO solver (``model.is_high_order``) ``state_arrays`` is the HO
+    carry and ``consts`` the output of ``MEVPSolverHO.step_consts``;
+    ``mevp`` is ``"single"`` or ``"tiled"`` and ``transport`` must be
+    ``"tiled"`` (``_ho_dynamics_phase``).
     """
     if _on_cpu(tracers):
         return fused_dynamics_reference(
             model, state_arrays, tracers, consts, dt, n_subcycles, face_masks
+        )
+    if model.is_high_order:
+        return _ho_dynamics_phase(
+            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, mevp, transport
         )
     from .mevp_single_cuda import mevp_subcycles_single
     from .mevp_tiled_cuda import mevp_subcycles_tiled
@@ -612,6 +714,33 @@ def dynamics_phase(
     else:
         k = model.transport_substeps
     return planes, run_transport[transport](tr, tracers, u, v, dt / k, k, face_masks)
+
+
+def _ho_dynamics_phase(
+    model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, mevp, transport,
+):
+    """``dynamics_phase`` with the HO solver on the card: ``mevp="single"``
+    runs ho_single, ``"tiled"`` ho_tiled; the transport is transport_tiled
+    on the precomputed CG2 samples (``transport="tiled"``; the staged
+    dg1_rk_stage takes CG1 (u, v) only)."""
+    from .ho_single_cuda import ho_subcycles_single
+    from .ho_tiled_cuda import ho_subcycles_tiled
+    from .transport_tiled_cuda import transport_substeps_tiled
+
+    run_mevp = {"single": ho_subcycles_single, "tiled": ho_subcycles_tiled}
+    if mevp not in run_mevp:
+        raise ValueError(f"unknown HO schedule: mevp={mevp!r}")
+    if transport != "tiled":
+        raise NotImplementedError(
+            f"the HO path on the card runs transport_tiled only, not {transport!r}: "
+            "dg1_rk_stage takes CG1 (u, v)"
+        )
+    mesh, tr = model.mesh, model.transport
+    _check((3, tracers.shape[1], mesh.nx, mesh.ny), tracers.device, tracers=tracers)
+    carry = run_mevp[mevp](model.mevp, state_arrays, consts, dt, n_subcycles)
+    qv = ho_velocity_to_quad(mesh, tr.basis, carry[0], carry[1])
+    k = _substeps(model, qv, dt)
+    return carry, transport_substeps_tiled(tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
 
 
 def fused_dynamics(

@@ -96,6 +96,12 @@ class RectMesh:
             "face_y": (self._dx, ones_y),
         }
 
+    def node_coords(self):
+        """(x, y) arrays of CG1 node coordinates, each (nx+1, ny+1)."""
+        xn = self.x0 + np.concatenate([[0.0], np.cumsum(self._dx)])
+        yn = self.y0 + np.concatenate([[0.0], np.cumsum(self._dy)])
+        return np.meshgrid(xn, yn, indexing="ij")
+
     @property
     def n_elements(self) -> int:
         return self.nx * self.ny

@@ -1,0 +1,405 @@
+"""Higher-order mEVP: CG2 velocity + dG1 stress (the neXtSIM_DG core).
+
+Counterpart of ``nextsimdg_tpu.dynamics.mevp_ho`` on a closed uniform mesh,
+in eager PyTorch. Velocity is biquadratic CG2, strain and stress dG1 (3
+coefficients per component); the VP law is evaluated at the 2x2 Gauss
+points and projected back.
+
+Owned-plane layout: a CG2 scalar field is four (nx, ny) planes (vertex,
+bottom-mid, left-mid, centre; see ``cg2basis``), and every per-element
+node gather or scatter is a static table contraction plus shifts.
+
+The subcycle is split in two halves, ``stress_update`` (per element: the
+9-node gather, strain, the VP law at the Gauss points, projection,
+relaxation) and ``velocity_update`` (per node plane: the divergence
+scatter, drag and the beta update). They are the plain versions of the two
+phases of the CUDA kernels ``ho_single`` and ``ho_tiled``, which run the
+same float32 operations in the same order. The expression order is the
+JAX package's, operation for operation, so that the two agree to rounding
+at float64.
+
+Graded, spherical and periodic meshes, ``a_weighted_stress`` and
+``adaptive_alpha`` raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .cg2basis import LOCAL_NODE_SOURCE, PLANES, _lagrange_1d, cg2_sampling_table, cg2_tables
+from .mesh import RectMesh
+from .mevp import MEVPParams, _div
+from .stencil import shift_m, shift_p
+from .transport import QuadVelocity, apply_table
+
+#: The per-plane const names; with "strength" the 29 planes of step_consts.
+HO_PLANE_CONSTS = ("dt_m", "active", "b_u", "b_v", "inv_w", "u_ocean", "v_ocean")
+HO_CONSTS = ("strength",) + tuple(f"{name}_{k}" for name in HO_PLANE_CONSTS for k in PLANES)
+
+MEVP_BACKENDS = ("auto", "pallas", "pallas-tiled")
+#: Element count from which ``backend="auto"`` runs ho_tiled instead of the
+#: single-launch ho_single on the card. Derived on the H100 (700 W) from
+#: chip_smoke.py's timings of the two on 100 HO subcycles: ho_single was
+#: faster at 128^2 (0.61 against 1.42 ms) and 256^2 (0.81 against 1.41 ms;
+#: ho_tiled's 32^2 tiles leave most SMs idle there); at 512^2 the two tied
+#: (3.07 against 2.94 ms; the dynamics step 10.9 against 11.4 ms, within
+#: the run-to-run spread); at 1024^2 ho_tiled was faster (11.3 against
+#: 12.7 ms: ho_single's 46 planes stream from HBM once they outgrow the
+#: 50 MB L2). So the tie goes to ho_tiled. See PERF.md.
+HO_SINGLE_MAX_ELEMENTS = 512 * 512
+
+
+@dataclass(frozen=True)
+class HOField:
+    """One CG2 scalar field in owned planes, each (nx, ny)."""
+
+    v: torch.Tensor  #: vertex nodes (i, j)
+    b: torch.Tensor  #: bottom edge midpoints (i+1/2, j)
+    l: torch.Tensor  #: left edge midpoints (i, j+1/2)
+    c: torch.Tensor  #: centres (i+1/2, j+1/2)
+
+    def planes(self):
+        return (self.v, self.b, self.l, self.c)
+
+    @classmethod
+    def zeros(cls, nx: int, ny: int, *, device, dtype) -> "HOField":
+        z = lambda: torch.zeros((nx, ny), device=device, dtype=dtype)
+        return cls(v=z(), b=z(), l=z(), c=z())
+
+    @classmethod
+    def from_function(cls, mesh: RectMesh, fn, *, device, dtype) -> "HOField":
+        """Sample an analytic field fn(x, y) at the owned node coordinates."""
+        xn, yn = mesh.node_coords()
+        xv, yv = xn[:-1, :-1], yn[:-1, :-1]
+        xm = 0.5 * (xn[:-1, :-1] + xn[1:, :-1])
+        ym = 0.5 * (yn[:-1, :-1] + yn[:-1, 1:])
+        coords = {"v": (xv, yv), "b": (xm, yv), "l": (xv, ym), "c": (xm, ym)}
+        return cls(**{
+            name: torch.tensor(
+                np.broadcast_to(fn(x, y), (mesh.nx, mesh.ny)).copy(), device=device, dtype=dtype
+            )
+            for name, (x, y) in coords.items()
+        })
+
+    @classmethod
+    def from_vertex_field(cls, vertex) -> "HOField":
+        """Mid and centre planes interpolated from a vertex (CG1) field."""
+        vx = shift_p(vertex, 0, False)
+        vy = shift_p(vertex, 1, False)
+        vxy = shift_p(vx, 1, False)
+        return cls(
+            v=vertex, b=0.5 * (vertex + vx), l=0.5 * (vertex + vy),
+            c=0.25 * (vertex + vx + vy + vxy),
+        )
+
+
+@dataclass(frozen=True)
+class HOVelocityState:
+    """CG2 velocity and dG1 stress coefficients, each stress (3, nx, ny)."""
+
+    u: HOField
+    v: HOField
+    s11: torch.Tensor
+    s22: torch.Tensor
+    s12: torch.Tensor
+
+    @classmethod
+    def zeros(cls, nx: int, ny: int, *, device, dtype) -> "HOVelocityState":
+        z = lambda: torch.zeros((3, nx, ny), device=device, dtype=dtype)
+        return cls(
+            u=HOField.zeros(nx, ny, device=device, dtype=dtype),
+            v=HOField.zeros(nx, ny, device=device, dtype=dtype),
+            s11=z(), s22=z(), s12=z(),
+        )
+
+
+@dataclass(frozen=True)
+class HODynamicsForcing:
+    """Wind and ocean forcing as CG2 fields."""
+
+    u_atm: HOField
+    v_atm: HOField
+    u_ocean: HOField
+    v_ocean: HOField
+
+    @classmethod
+    def from_vertex_forcing(cls, forcing) -> "HODynamicsForcing":
+        """The CG2 forcing of a CG1 ``DynamicsForcing`` (vertex planes)."""
+        return cls(**{
+            name: HOField.from_vertex_field(getattr(forcing, name))
+            for name in ("u_atm", "v_atm", "u_ocean", "v_ocean")
+        })
+
+
+def gather_local(field: HOField):
+    """The 9 local node values of every element, (9, nx, ny), n = 3a + b."""
+    planes = {"v": field.v, "b": field.b, "l": field.l, "c": field.c}
+    out = []
+    for n in range(9):
+        plane, sx, sy = LOCAL_NODE_SOURCE[divmod(n, 3)]
+        arr = planes[plane]
+        if sx:
+            arr = shift_p(arr, 0, False)
+        if sy:
+            arr = shift_p(arr, 1, False)
+        out.append(arr)
+    return torch.stack(out)
+
+
+def scatter_local(contribs) -> HOField:
+    """Accumulate (9, nx, ny) per-element local-node contributions onto the
+    owned planes, in ascending n (the adjoint of ``gather_local``)."""
+    planes = dict.fromkeys(PLANES)
+    for n in range(9):
+        plane, sx, sy = LOCAL_NODE_SOURCE[divmod(n, 3)]
+        arr = contribs[n]
+        if sx:
+            arr = shift_m(arr, 0, False)
+        if sy:
+            arr = shift_m(arr, 1, False)
+        planes[plane] = arr if planes[plane] is None else planes[plane] + arr
+    return HOField(**planes)
+
+
+def ho_velocity_to_quad(mesh: RectMesh, basis, u: HOField, v: HOField) -> QuadVelocity:
+    """Sample a CG2 velocity at the transport's quadrature points (exact):
+    the 9-node interpolation at the volume points, the quadratic trace
+    through a face's 3 nodes on the faces (single-valued across elements)."""
+    u_loc, v_loc = gather_local(u), gather_local(v)
+    n_vol = cg2_sampling_table(basis.degree)
+    vx_vol = apply_table(n_vol, u_loc)
+    vy_vol = apply_table(n_vol, v_loc)
+    # The quadratic trace weights of each face point, as Python floats.
+    weights = [[float(_lagrange_1d(i, s)) for i in range(3)] for s in basis.s_edge]
+    # Left face (x = 0): nodes v(i, j), l(i, j), v(i, j+1), quadratic in s.
+    u_v_up = shift_p(u.v, 1, False)
+    vn_x = torch.stack([w0 * u.v + w1 * u.l + w2 * u_v_up for w0, w1, w2 in weights])
+    # Bottom face (y = 0): nodes v(i, j), b(i, j), v(i+1, j).
+    v_v_right = shift_p(v.v, 0, False)
+    vn_y = torch.stack([w0 * v.v + w1 * v.b + w2 * v_v_right for w0, w1, w2 in weights])
+    return QuadVelocity(vx_vol=vx_vol, vy_vol=vy_vol, vn_x=vn_x, vn_y=vn_y)
+
+
+class MEVPSolverHO:
+    """The higher-order mEVP solver on a closed uniform ``RectMesh``.
+
+    ``backend`` picks the kernel on a CUDA card (CPU tensors always run the
+    plain version): ``"pallas"`` ho_single (all N subcycles in one
+    cooperative launch, the JAX K5's counterpart), ``"pallas-tiled"``
+    ho_tiled (ghost-zone tiles, H subcycles per launch, K6's), ``"auto"``
+    ho_single below ``HO_SINGLE_MAX_ELEMENTS`` and ho_tiled from there.
+    """
+
+    def __init__(self, mesh: RectMesh, params: MEVPParams = MEVPParams(), backend: str = "auto") -> None:
+        if params.adaptive_alpha:
+            # As in the JAX package: no element-level alpha is designed for
+            # the dG1 stress at Gauss points.
+            raise NotImplementedError("adaptive_alpha is implemented for the CG1 solver only")
+        if params.a_weighted_stress:
+            raise NotImplementedError("a_weighted_stress is not ported for the HO solver yet")
+        if mesh.periodic_x or mesh.periodic_y:
+            raise NotImplementedError("only closed meshes are ported")
+        if not mesh.uniform:
+            raise NotImplementedError(
+                "the HO solver is ported for uniform meshes only (graded and spherical: not yet)"
+            )
+        if backend not in MEVP_BACKENDS:
+            raise ValueError(f"backend must be one of {MEVP_BACKENDS}, got {backend!r}")
+        self.mesh = mesh
+        self.params = params
+        self.backend = backend
+        self.tables = cg2_tables()
+        t = self.tables
+        # Gauss-point projection table with the weights and the inverse dG1
+        # mass folded in, as the JAX package folds it.
+        self.proj = (t.phi_dg1 * t.w_vol[None, :]) * (1.0 / np.array([1.0, 1 / 12, 1 / 12]))[:, None]
+
+    def schedule(self) -> str:
+        """``"single"`` (ho_single) or ``"tiled"`` (ho_tiled): the kernel
+        this solver runs on a CUDA card."""
+        backend = self.backend
+        if backend == "auto":
+            big = self.mesh.n_elements >= HO_SINGLE_MAX_ELEMENTS
+            backend = "pallas-tiled" if big else "pallas"
+        return "single" if backend == "pallas" else "tiled"
+
+    # -- plane <-> local-node machinery (closed meshes: no solver state) ------
+    gather_local = staticmethod(gather_local)
+    scatter_local = staticmethod(scatter_local)
+
+    # -- strain: CG2 velocity -> dG1 coefficients ----------------------------
+    def strain_rates(self, u: HOField, v: HOField):
+        """(e11, e22, e12) as (3, nx, ny) dG1 coefficients."""
+        t = self.tables
+        dx, dy = self.mesh.dx, self.mesh.dy
+        u_loc, v_loc = gather_local(u), gather_local(v)
+        du_dx = apply_table(t.grad_x_to_dg1.T, u_loc) / dx
+        du_dy = apply_table(t.grad_y_to_dg1.T, u_loc) / dy
+        dv_dx = apply_table(t.grad_x_to_dg1.T, v_loc) / dx
+        dv_dy = apply_table(t.grad_y_to_dg1.T, v_loc) / dy
+        return du_dx, dv_dy, 0.5 * (du_dy + dv_dx)
+
+    # -- weak-form stress divergence -> CG2 nodal forces ---------------------
+    def stress_divergence(self, s11, s22, s12):
+        """The raw nodal force integrals (Fu, Fv) as HOFields (stress x
+        length; the 1/W normalisation is the velocity update's)."""
+        t = self.tables
+        dx, dy = self.mesh.dx, self.mesh.dy
+        fu_loc = -(apply_table(t.div_x, s11) * dy + apply_table(t.div_y, s12) * dx)
+        fv_loc = -(apply_table(t.div_x, s12) * dy + apply_table(t.div_y, s22) * dx)
+        return scatter_local(fu_loc), scatter_local(fv_loc)
+
+    def node_weights(self, *, device, dtype) -> HOField:
+        """W_n = int phi_n dA accumulated per owned node."""
+        area = torch.full((self.mesh.nx, self.mesh.ny), self.mesh.cell_area, device=device, dtype=dtype)
+        lumped = self.tables.lumped_mass
+        return scatter_local(torch.stack([float(lumped[n]) * area for n in range(9)]))
+
+    def node_thickness(self, h) -> HOField:
+        """Lumped-mass-weighted thickness at the nodes: sum(h W) / sum(W)."""
+        area = self.mesh.cell_area
+        lumped = self.tables.lumped_mass
+        num = scatter_local(torch.stack([float(lumped[n]) * area * h for n in range(9)]))
+        den = self.node_weights(device=h.device, dtype=h.dtype)
+        return HOField(v=num.v / den.v, b=num.b / den.b, l=num.l / den.l, c=num.c / den.c)
+
+    def boundary_mask(self, *, device, dtype) -> HOField:
+        """Per-plane no-slip masks (1 interior, 0 wall): the vertex and left
+        mid nodes of row i = 0 and the vertex and bottom mid nodes of column
+        j = 0 sit on the walls."""
+        masks = {}
+        for name in PLANES:
+            mask = torch.ones((self.mesh.nx, self.mesh.ny), device=device, dtype=dtype)
+            if name in ("v", "l"):
+                mask[0, :] = 0.0
+            if name in ("v", "b"):
+                mask[:, 0] = 0.0
+            masks[name] = mask
+        return HOField(**masks)
+
+    # -- the mEVP iteration --------------------------------------------------
+    def step_consts(self, state: HOVelocityState, h, a, forcing: HODynamicsForcing, mask: HOField, dt: float):
+        """The 29 per-step constant planes: element ice strength, and per CG2
+        plane k dt/m, the active (mask * has-ice) factor, the constant
+        velocity numerators b = u_n + (dt/m) tau_a, the reciprocal lumped
+        weights and the ocean currents."""
+        p = self.params
+        consts = {"strength": p.p_star * h * torch.exp(-p.c_compaction * (1.0 - a))}
+        h_node = self.node_thickness(h)
+        weights = self.node_weights(device=h.device, dtype=h.dtype)
+        for k in PLANES:
+            m = p.rho_ice * getattr(h_node, k)
+            dm = _div(dt, torch.clamp(m, min=p.min_ice_mass))
+            ua, va = getattr(forcing.u_atm, k), getattr(forcing.v_atm, k)
+            wind = p.rho_atm * p.cd_atm * torch.sqrt(ua * ua + va * va)
+            consts[f"dt_m_{k}"] = dm
+            consts[f"active_{k}"] = getattr(mask, k) * (m > p.min_ice_mass).to(h.dtype)
+            consts[f"b_u_{k}"] = getattr(state.u, k) + dm * wind * ua
+            consts[f"b_v_{k}"] = getattr(state.v, k) + dm * wind * va
+            consts[f"inv_w_{k}"] = 1.0 / getattr(weights, k)
+            consts[f"u_ocean_{k}"] = getattr(forcing.u_ocean, k)
+            consts[f"v_ocean_{k}"] = getattr(forcing.v_ocean, k)
+        return consts
+
+    def stress_update(self, carry, consts):
+        """First half of a subcycle, per element: strain, the VP law at the
+        Gauss points, projection to dG1 and alpha relaxation. Returns the
+        new (s11, s22, s12)."""
+        p = self.params
+        t = self.tables
+        e2 = p.ellipse * p.ellipse
+        u, v, s11, s22, s12 = carry
+        strength = consts["strength"]
+        e11, e22, e12 = self.strain_rates(u, v)
+
+        phi_at_q = t.phi_dg1  # (3, NQ)
+        e11_q = apply_table(phi_at_q, e11)
+        e22_q = apply_table(phi_at_q, e22)
+        e12_q = apply_table(phi_at_q, e12)
+        delta_q = torch.sqrt(
+            (e11_q * e11_q + e22_q * e22_q) * (1.0 + 1.0 / e2)
+            + 2.0 * e11_q * e22_q * (1.0 - 1.0 / e2)
+            + 4.0 / e2 * e12_q * e12_q
+        )
+        inv_denom = 1.0 / (delta_q + p.delta_min)
+        zeta_q = 0.5 * strength[None] * inv_denom
+        eta_q = zeta_q * (1.0 / e2)
+        p_rep_q = strength[None] * delta_q * inv_denom
+        div_q = e11_q + e22_q
+        s11_vp_q = 2.0 * eta_q * e11_q + (zeta_q - eta_q) * div_q - 0.5 * p_rep_q
+        s22_vp_q = 2.0 * eta_q * e22_q + (zeta_q - eta_q) * div_q - 0.5 * p_rep_q
+        s12_vp_q = 2.0 * eta_q * e12_q
+
+        s11_vp = apply_table(self.proj.T, s11_vp_q)
+        s22_vp = apply_table(self.proj.T, s22_vp_q)
+        s12_vp = apply_table(self.proj.T, s12_vp_q)
+
+        inv_alpha = 1.0 / p.alpha
+        s11 = s11 + (s11_vp - s11) * inv_alpha
+        s22 = s22 + (s22_vp - s22) * inv_alpha
+        s12 = s12 + (s12_vp - s12) * inv_alpha
+        return s11, s22, s12
+
+    def velocity_update(self, carry, consts, dt: float):
+        """Second half of a subcycle, per node plane: the divergence of the
+        new stresses, then the beta-relaxed update with semi-implicit ocean
+        drag (one c_w and one shared reciprocal per plane). Returns the new
+        (u, v) HOFields."""
+        p = self.params
+        u, v, s11, s22, s12 = carry
+        fu_raw, fv_raw = self.stress_divergence(s11, s22, s12)
+        new_u, new_v = {}, {}
+        for k in PLANES:
+            uk, vk = getattr(u, k), getattr(v, k)
+            uo, vo = consts[f"u_ocean_{k}"], consts[f"v_ocean_{k}"]
+            rel_u = uo - uk
+            rel_v = vo - vk
+            c_w = p.rho_ocean * p.cd_ocean * torch.sqrt(rel_u * rel_u + rel_v * rel_v)
+            cor_u = p.f_coriolis * (vk - vo) if p.use_coriolis else 0.0
+            cor_v = -p.f_coriolis * (uk - uo) if p.use_coriolis else 0.0
+            dm = consts[f"dt_m_{k}"]
+            inv_w = consts[f"inv_w_{k}"]
+            inv_drag = consts[f"active_{k}"] / (1.0 + p.beta + dm * c_w)
+            new_u[k] = (
+                p.beta * uk + consts[f"b_u_{k}"]
+                + dm * (getattr(fu_raw, k) * inv_w + c_w * uo) + dt * cor_u
+            ) * inv_drag
+            new_v[k] = (
+                p.beta * vk + consts[f"b_v_{k}"]
+                + dm * (getattr(fv_raw, k) * inv_w + c_w * vo) + dt * cor_v
+            ) * inv_drag
+        return HOField(**new_u), HOField(**new_v)
+
+    def subcycle_body(self, carry, consts, dt: float):
+        """One HO mEVP subcycle; ``carry`` is (u, v, s11, s22, s12)."""
+        s11, s22, s12 = self.stress_update(carry, consts)
+        u, v = self.velocity_update((carry[0], carry[1], s11, s22, s12), consts, dt)
+        return (u, v, s11, s22, s12)
+
+    def subcycles(self, carry, consts, dt: float, n_subcycles: int):
+        """The carry after N subcycles: the kernel of ``schedule()`` on a
+        CUDA card, the plain version on the CPU."""
+        from .kernels.ho_single_cuda import ho_subcycles_single
+        from .kernels.ho_tiled_cuda import ho_subcycles_tiled
+
+        run = ho_subcycles_single if self.schedule() == "single" else ho_subcycles_tiled
+        return run(self, carry, consts, dt, n_subcycles)
+
+    def step(
+        self, state: HOVelocityState, h, a, forcing: HODynamicsForcing, mask: HOField,
+        dt: float, n_subcycles: int = 100,
+    ) -> HOVelocityState:
+        consts = self.step_consts(state, h, a, forcing, mask, dt)
+        carry = (state.u, state.v, state.s11, state.s22, state.s12)
+        return HOVelocityState(*self.subcycles(carry, consts, dt, n_subcycles))
+
+
+def ho_subcycles_reference(solver: MEVPSolverHO, carry, consts, dt: float, n_subcycles: int):
+    """N x ``solver.subcycle_body``: the plain version of the HO kernels."""
+    carry = tuple(carry)
+    for _ in range(n_subcycles):
+        carry = solver.subcycle_body(carry, consts, dt)
+    return carry

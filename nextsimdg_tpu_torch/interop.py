@@ -4,7 +4,10 @@ Plain numpy dicts keyed by field name carry a ``CoupledState``, a
 ``DynamicsForcing``, the physics ``Forcing`` and ``PrognosticState``, the
 ``MEVPParams`` fields or a mesh description, so that the JAX model and
 this port can be given identical inputs without either importing the
-other. The ``*_to_numpy``
+other. A state's velocity is a nested dict: {u, v, s11, s22, s12} of
+planes for the CG1 solver, and for the CG2/dG1 solver
+``{u: {v, b, l, c}, v: {v, b, l, c}, s11, s22, s12}`` with (3, nx, ny)
+stresses. The ``*_to_numpy``
 functions read any object with the fields whose leaves numpy can convert
 (a torch tensor, or an array of the JAX package).
 """
@@ -19,10 +22,12 @@ import torch
 from .coupled import CoupledState
 from .dynamics.mesh import EARTH_RADIUS, RectMesh, SphericalMesh
 from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
+from .dynamics.mevp_ho import HOField, HOVelocityState
 from .state import Forcing, PrognosticState
 
 _STATE_FIELDS = ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice")
 _VELOCITY_FIELDS = ("u", "v", "s11", "s22", "s12")
+_HO_PLANES = ("v", "b", "l", "c")
 _FORCING_FIELDS = ("u_atm", "v_atm", "u_ocean", "v_ocean")
 _PHYS_FORCING_FIELDS = tuple(f.name for f in dataclasses.fields(Forcing))
 _PROGNOSTIC_FIELDS = tuple(f.name for f in dataclasses.fields(PrognosticState))
@@ -39,21 +44,46 @@ def _require(d: dict, names, what: str) -> None:
         raise KeyError(f"{what} needs exactly the keys {sorted(names)}, got {sorted(d)}")
 
 
+def velocity_to_numpy(velocity) -> dict:
+    """{u, v, s11, s22, s12} of either package's ``VelocityState``, or of an
+    ``HOVelocityState`` with u and v as {v, b, l, c} dicts."""
+    out = {}
+    for name in _VELOCITY_FIELDS:
+        leaf = getattr(velocity, name)
+        if name in ("u", "v") and hasattr(leaf, "c"):  # a CG2 field
+            out[name] = {k: _to_numpy(getattr(leaf, k)) for k in _HO_PLANES}
+        else:
+            out[name] = _to_numpy(leaf)
+    return out
+
+
+def velocity_from_numpy(d: dict, *, device, dtype):
+    """The inverse of ``velocity_to_numpy``: a ``VelocityState``, or an
+    ``HOVelocityState`` when u is a dict of CG2 planes."""
+    _require(d, _VELOCITY_FIELDS, "a velocity state")
+    as_t = lambda a: torch.tensor(np.asarray(a), device=device, dtype=dtype)
+    if not isinstance(d["u"], dict):
+        return VelocityState(**{k: as_t(d[k]) for k in _VELOCITY_FIELDS})
+    fields = {}
+    for name in ("u", "v"):
+        _require(d[name], _HO_PLANES, "an HOField")
+        fields[name] = HOField(**{k: as_t(d[name][k]) for k in _HO_PLANES})
+    return HOVelocityState(**fields, **{k: as_t(d[k]) for k in ("s11", "s22", "s12")})
+
+
 def coupled_state_to_numpy(state) -> dict:
-    """{field: ndarray}, with the velocity as a nested {field: ndarray}."""
+    """{field: ndarray}, with the velocity as a nested dict
+    (``velocity_to_numpy``)."""
     out = {name: _to_numpy(getattr(state, name)) for name in _STATE_FIELDS}
-    out["velocity"] = {
-        name: _to_numpy(getattr(state.velocity, name)) for name in _VELOCITY_FIELDS
-    }
+    out["velocity"] = velocity_to_numpy(state.velocity)
     return out
 
 
 def coupled_state_from_numpy(d: dict, *, device, dtype) -> CoupledState:
     """The inverse of ``coupled_state_to_numpy``, on ``device`` in ``dtype``."""
     _require(d, _STATE_FIELDS + ("velocity",), "a CoupledState")
-    _require(d["velocity"], _VELOCITY_FIELDS, "a VelocityState")
     as_t = lambda a: torch.tensor(np.asarray(a), device=device, dtype=dtype)
-    velocity = VelocityState(**{k: as_t(d["velocity"][k]) for k in _VELOCITY_FIELDS})
+    velocity = velocity_from_numpy(d["velocity"], device=device, dtype=dtype)
     return CoupledState(velocity=velocity, **{k: as_t(d[k]) for k in _STATE_FIELDS})
 
 

@@ -4,7 +4,10 @@ K1's four kernels, the ghost-zone tiled ``mevp_tiled`` and
 ``transport_tiled``, and the single-launch ``mevp_single``, which must also
 equal K1's schedule on the same inputs (they run the same element bodies;
 expected 0, failure above 1e-6 of the plane's max), on uniform meshes and
-on a spherical one with its metric planes and a coastline.
+on a spherical one with its metric planes and a coastline. The HO kernels
+``ho_single`` and ``ho_tiled`` against their plain version and each other
+(the same bodies: expected 0), and the ``qv`` form of ``transport_tiled``
+that advects with the CG2 velocity's quadrature samples.
 
 These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 elsewhere. On a machine with one, run them with
@@ -23,7 +26,11 @@ import torch
 
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh, SphericalMesh, synthetic_coastline
+from nextsimdg_tpu_torch import modules
+from nextsimdg_tpu_torch.dynamics import mevp_ho
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hs
+from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as ht
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as ms
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
@@ -266,3 +273,99 @@ def test_spherical_dynamics_phase_matches_plain_and_counts_launches(device):
     assert_close(got_tr, ref_tr, 1e-5)
     assert counts["mevp_single"] == 1 and counts["dg1_sample_cfl"] == 1
     assert counts["transport_tiled"] >= 1 and counts["mevp_stress"] == 0
+
+
+def ho_setup(device, nx=40, ny=72, seed=0):
+    """An HO solver and seeded carry and consts (some nodes without ice)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    shape = (nx, ny)
+    solver = mevp_ho.MEVPSolverHO(RectMesh(nx, ny, 4e3, 4e3))
+    field = lambda s, m=0.0: mevp_ho.HOField(*(t(m + rng.normal(0.0, s, shape)) for _ in range(4)))
+    state = mevp_ho.HOVelocityState(
+        u=field(0.2), v=field(0.2), s11=t(rng.normal(0.0, 1e3, (3, *shape))),
+        s22=t(rng.normal(0.0, 1e3, (3, *shape))), s12=t(rng.normal(0.0, 5e2, (3, *shape))),
+    )
+    forcing = mevp_ho.HODynamicsForcing(field(2.0, 8.0), field(2.0, 2.0), field(0.05), field(0.05))
+    h = t(rng.uniform(0.0, 2.0, shape))
+    a = t(rng.uniform(0.3, 1.0, shape))
+    mask = solver.boundary_mask(device=device, dtype=torch.float32)
+    consts = solver.step_consts(state, h, a, forcing, mask, DT)
+    carry = (state.u, state.v, state.s11, state.s22, state.s12)
+    return solver, carry, consts
+
+
+def ho_planes(carry):
+    return [*carry[0].planes(), *carry[1].planes(), *carry[2:]]
+
+
+@pytest.mark.parametrize("n_sub", [1, 13])
+@pytest.mark.parametrize("tile, halo, threads", [(32, 8, 512), (16, 4, 256), (8, 3, 128)])
+def test_ho_kernels_match_plain_and_each_other(device, n_sub, tile, halo, threads):
+    solver, carry, consts = ho_setup(device)
+    cc.reset_launches()
+    single = hs.ho_subcycles_single(solver, carry, consts, DT, n_sub)
+    tiled = ht.ho_subcycles_tiled(solver, carry, consts, DT, n_sub, tile, halo, threads)
+    assert cc.launches["ho_single"] == 1 and cc.launches["ho_tiled"] == -(-n_sub // halo)
+    ref = hs.ho_single_reference(solver, carry, consts, DT, n_sub)
+    for g, w, r in zip(ho_planes(single), ho_planes(tiled), ho_planes(ref)):
+        assert_close(g, r, TOL_LAUNCH if n_sub == 1 else 1e-3)
+        assert_same_schedule(g, w)
+    again = ho_setup(device)[1]
+    assert all(torch.equal(x, y) for x, y in zip(ho_planes(carry), ho_planes(again)))
+
+
+def test_ho_kernels_raise_on_what_they_do_not_take(device):
+    solver, carry, consts = ho_setup(device)
+    with pytest.raises(NotImplementedError, match="consts"):
+        hs.ho_subcycles_single(solver, carry, {**consts, "a_v": consts["active_v"]}, DT, 3)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # more shared memory than a block has
+        ht.ho_subcycles_tiled(solver, carry, consts, DT, 4, tile=48, halo=8)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hs.ho_subcycles_single(solver, carry, consts, DT, 2, blocks=hs.max_blocks(device) + 1)
+    double = tuple(carry[:2]) + tuple(x.double() for x in carry[2:])
+    with pytest.raises(TypeError, match="float32"):
+        ht.ho_subcycles_tiled(solver, double, consts, DT, 3)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_transport_tiled_qv_form_matches_plain(device, k):
+    solver, carry, _ = ho_setup(device)
+    model, _, _, psi, rng = setup(device, n=40, ny=72)
+    faces = tuple(
+        torch.tensor((rng.uniform(size=(40, 72)) > 0.1).astype(np.float32), device=device)
+        for _ in range(2)
+    )
+    scaled = tuple(mevp_ho.HOField(*(5.0 * x for x in f.planes())) for f in carry[:2])
+    qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, *scaled)
+    args = (model.transport, psi, None, None, DT / k, k, faces)
+    cc.reset_launches()
+    got = tt.transport_substeps_tiled(*args, tile=16, qv=qv)
+    assert cc.launches["transport_tiled"] == -(-k // tt.K_MAX)
+    assert_close(got, tt.transport_substeps_tiled_reference(*args, qv=qv), 1e-5)
+
+
+def test_ho_dynamics_phase_matches_plain_and_counts_launches(device):
+    modules.get_loader().set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        model = CoupledModel(RectMesh(40, 72, 4e3, 4e3), n_subcycles=20, mevp_backend="pallas-tiled")
+    finally:
+        modules.get_loader().reset()
+    _, carry, _ = ho_setup(device)
+    psi = setup(device, n=40, ny=72)[3]
+    state = mevp_ho.HOVelocityState(*carry)
+    consts = model.mevp.step_consts(
+        state, psi[0, 0], psi[0, 1].clamp(0.0, 1.0), mevp_ho.HODynamicsForcing(*(carry[0],) * 4),
+        model.node_mask(device=device, dtype=torch.float32), DT,
+    )
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 20, mevp="tiled", transport="tiled")
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 20)
+    for g, r in zip(ho_planes(got_carry), ho_planes(ref_carry)):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert counts["ho_tiled"] == 3 and counts["transport_tiled"] >= 1
+    assert counts["dg1_sample_cfl"] == counts["mevp_tiled"] == 0
+    with pytest.raises(NotImplementedError, match="transport_tiled"):
+        cc.dynamics_phase(model, carry, psi, consts, DT, 2, mevp="tiled", transport="xla")

@@ -15,9 +15,12 @@ import torch
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as ht
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
+from nextsimdg_tpu_torch.dynamics import mevp_ho
+from nextsimdg_tpu_torch.dynamics.mevp_ho import MEVPSolverHO
 
 torch.set_num_threads(1)
 
@@ -38,7 +41,11 @@ def test_port_imports_without_jax_or_triton():
         "import nextsimdg_tpu_torch.dynamics.kernels.mevp_tiled_cuda\n"
         "import nextsimdg_tpu_torch.dynamics.kernels.transport_tiled_cuda\n"
         "import nextsimdg_tpu_torch.dynamics.kernels.mevp_single_cuda\n"
+        "import nextsimdg_tpu_torch.dynamics.kernels.ho_single_cuda\n"
+        "import nextsimdg_tpu_torch.dynamics.kernels.ho_tiled_cuda\n"
         "import nextsimdg_tpu_torch.dynamics.landmask, nextsimdg_tpu_torch.dynamics.mesh\n"
+        "import nextsimdg_tpu_torch.dynamics.cg2basis, nextsimdg_tpu_torch.dynamics.mevp_ho\n"
+        "import nextsimdg_tpu_torch.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -65,7 +72,24 @@ def _struct_floats(source: str, name: str) -> int:
         for item in decl.split(","):
             size = 1
             for dim in re.findall(r"\[(\w+)\]", item):
-                size *= int({"kDofs": 3, "kVol": 4, "kEdge": 2}.get(dim, dim))
+                size *= int({
+                    "kDofs": 3, "kVol": 4, "kEdge": 2, "kHoCoeffs": 3, "kHoNodes": 9,
+                    "kHoGauss": 4,
+                }.get(dim, dim))
+            count += size
+    return count
+
+
+def _struct_pointers(source: str, name: str) -> int:
+    """Pointers declared in a plain struct of ``const float*``, arrays included."""
+    body = re.search(rf"struct {name} {{(.*?)\n}};", source, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    count = 0
+    for decl in re.findall(r"const float\*\s*([^;]+);", body):
+        for item in decl.split(","):
+            size = 1
+            for dim in re.findall(r"\[(\w+)\]", item):
+                size *= int({"kHoPlanes": 4, "kVol": 4, "kEdge": 2}.get(dim, dim))
             count += size
     return count
 
@@ -74,8 +98,15 @@ def test_host_packing_matches_the_c_structs():
     model = CoupledModel(RectMesh(8, 8, 2000.0, 2000.0))
     mevp_src = (cc.CSRC / "mevp_body.cuh").read_text()
     transport_src = (cc.CSRC / "dg1_body.cuh").read_text()
+    ho_src = (cc.CSRC / "ho_body.cuh").read_text()
     assert len(cc._mevp_scalars(model.mevp, 600.0)) == _struct_floats(mevp_src, "MevpScalars")
     assert len(cc._dg1_tables(model.transport)) == _struct_floats(transport_src, "Dg1Tables")
+    ho = MEVPSolverHO(model.mesh)
+    assert len(cc._ho_scalars(ho, 600.0)) == _struct_floats(ho_src, "HoScalars")
+    assert len(cc._ho_tables(ho)) == _struct_floats(ho_src, "HoTables")
+    assert _struct_pointers(ho_src, "HoConsts") == len(mevp_ho.HO_CONSTS) == 29
+    qv_src = (cc.CSRC / "transport_tiled.cu").read_text()
+    assert _struct_pointers(qv_src, "Dg1QvPlanes") == sum(tt._QV_PLANES.values()) == 12
 
 
 REPLACED = {
@@ -84,6 +115,8 @@ REPLACED = {
     "mevp_tiled.cu": "mevp_tiled.py::mevp_subcycles_tiled",
     "transport_tiled.cu": "transport_tiled.py::transport_substeps_tiled",
     "mevp_single.cu": "mevp_pallas.py::mevp_subcycles_pallas",
+    "ho_single.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
+    "ho_tiled.cu": "mevp_ho_tiled.py::ho_subcycles_tiled",
 }
 
 
@@ -165,6 +198,11 @@ def test_launch_configurations_fit_a_block():
             assert (halo - 1) // stages == min(k, tt.K_MAX)
             assert tt.shared_bytes(tt.TILE, halo) <= limit
     assert tt.THREADS <= 768
+    # ho_tiled: 17 window planes; a window of T + 2H <= 58 fits.
+    assert ht.shared_bytes() <= limit and ht.THREADS <= 512
+    assert ht.shared_bytes(26, 16) <= limit < ht.shared_bytes(27, 16)
+    for tile, halo in ((32, 8), (48, 4), (40, 8), (24, 12)):
+        assert ht.shared_bytes(tile, halo) <= limit
 
 
 def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
