@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``nextsimdg_tpu_torch/csrc`` and
-drives the port's three main paths, float32, dG1 tracers (hice, cice,
+drives the port's six main paths, float32, dG1 tracers (hice, cice,
 hsnow), 100 mEVP subcycles, dt = 600 s, CFL-adaptive transport substeps:
 
 * the headline dynamics-only step (BASELINE config 3, ``bench.py``): a
@@ -33,7 +33,17 @@ hsnow), 100 mEVP subcycles, dt = 600 s, CFL-adaptive transport substeps:
   ho_tiled (ghost-zone tiles of the 17 HO state planes), the CG2 velocity
   sampled at the quadrature points, and the ``qv`` form of transport_tiled;
   and the same at 256^2 on ``mevp_backend="pallas"`` (``ho_coupled_256``):
-  ho_single, all 100 HO subcycles in one cooperative launch.
+  ho_single, all 100 HO subcycles in one cooperative launch;
+* BASELINE config 5 (``run_benchmarks.py`` ``bench_multihost_16m``,
+  ``multihost_16m``): a closed 4096 x 4096 mesh of 2 km elements with
+  config 4's state and forcing, decomposed over a 2 x 2 grid of 2048^2 rank
+  blocks held by this process on the one card (``parallel.RankGrid``; each
+  rank a thread with a compute and a copy stream), on "auto" (the blocked
+  exchange: mevp_tiled on blocks widened by h = 16 ghost cells once per 16
+  subcycles) and on "rdma" (K7: rdma_stage, the strips copied while
+  mevp_tiled runs the interior, rdma_band on the edge bands); the
+  transport is transport_tiled on the block widened by H ghost cells, the
+  CFL count one max over the ranks.
 
 Phases, each printed on its own lines:
 
@@ -51,7 +61,9 @@ Phases, each printed on its own lines:
    plain version (256^2, N = 1, 13, 100), ho_tiled against it (1024^2,
    N = 1 and 13, and 1000 x 968), the two against each other (256^2 and
    512^2), and the qv form of transport_tiled against its plain version
-   (1024^2);
+   (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
+   launch by launch against their plain versions, and the rdma round
+   against the blocked round;
 4. slice: for each path, one step on the kernels against the plain path on
    the card (the spherical one on "pallas" and on "auto", and one step of
    the uniform coastline variant ``coupled_1m_mask``; both HO paths), then
@@ -59,6 +71,10 @@ Phases, each printed on its own lines:
    zeroed launch counters: every leaf finite, 0 <= cice <= 1, hice >= 0,
    hsnow >= 0, every kernel of the path launched, and with a coastline the
    land tracers unchanged and u = v = 0 on every node that touches land;
+   for config 5 one decomposed step (blocked and rdma) against the
+   single-device kernel step at 4096^2 (expected 0), the decomposed kernel
+   step against the decomposed plain step at 512^2, and 20 steps of each
+   form;
 5. time (CUDA events after warm-up): ms per step and element updates/s of
    each path, of the config-4 step on K1's schedule, on the tiled one and on
    the plain path, of the physics alone, both schedules' dynamics at 64^2
@@ -69,7 +85,10 @@ Phases, each printed on its own lines:
    kernels and on the plain path, ho_single against ho_tiled on the HO mEVP
    phase and dynamics step at 128^2 to 1024^2 (the HO "auto" threshold), a
    tile sweep of ho_tiled, and each kernel per call against its plain
-   version and its bound.
+   version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
+   rdma steps, the blocked round against the rdma round, the dynamics step
+   at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles. One
+   card shows what the exchange costs, not how the step scales over cards.
 
 Any failure raises (non-zero exit); there is no CPU path. The script's wall
 time, the card's ``nvidia-smi`` name and power limit and the kernels' JSON
@@ -94,14 +113,19 @@ from nextsimdg_tpu_torch.dynamics import mevp_ho
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hsc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as htc
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as single
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
-from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
+from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, MEVPSolver, VelocityState
+from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, run_ranks
 from nextsimdg_tpu_torch.state import Forcing
 
 N = 256
 N4 = 1024  # BASELINE config 4
+N16 = 4096  # BASELINE config 5: 16.8M elements
+RANKS = (2, 2)  # config 5's rank grid, all ranks on the one card
+N_PLAIN_GRID = 512  # the decomposed plain step's size
 RAGGED = (1000, 968)  # a multiple of no tile
 N_SUBCYCLES = 100
 DT = 600.0
@@ -114,6 +138,8 @@ REPLACES = {
     "mevp_single": "nextsimdg_tpu/dynamics/kernels/mevp_pallas.py:49",
     "ho_single": "nextsimdg_tpu/dynamics/kernels/mevp_ho_pallas.py:45",
     "ho_tiled": "nextsimdg_tpu/dynamics/kernels/mevp_ho_tiled.py:118",
+    "rdma_stage": "nextsimdg_tpu/dynamics/kernels/mevp_rdma.py:61",
+    "rdma_band": "nextsimdg_tpu/dynamics/kernels/mevp_rdma.py:61",
 }
 SOURCES = {
     "mevp_stress": "nextsimdg_tpu_torch/csrc/mevp.cu",
@@ -125,6 +151,8 @@ SOURCES = {
     "mevp_single": "nextsimdg_tpu_torch/csrc/mevp_single.cu",
     "ho_single": "nextsimdg_tpu_torch/csrc/ho_single.cu",
     "ho_tiled": "nextsimdg_tpu_torch/csrc/ho_tiled.cu",
+    "rdma_stage": "nextsimdg_tpu_torch/csrc/mevp_rdma.cu",
+    "rdma_band": "nextsimdg_tpu_torch/csrc/mevp_rdma.cu",
 }
 PATH_KERNELS = {
     "headline": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
@@ -132,6 +160,8 @@ PATH_KERNELS = {
     "spherical": ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
     "ho_coupled_1m": ("ho_tiled", "transport_tiled"),
     "ho_coupled_256": ("ho_single", "transport_tiled"),
+    "multihost_16m": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled", "rdma_stage", "rdma_band"),
+    "multihost_16m_blocked": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
 }
 VELOCITY = ("u", "v", "s11", "s22", "s12")
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -924,7 +954,7 @@ def time_paths(device, card: str) -> None:
                 "K1": lambda: model_k1.step_dynamics(state, dyn, DT),
                 "tiled": lambda: model_tiled.step_dynamics(state, dyn, DT),
             },
-            {"K1": 10, "tiled": 10},
+            {"K1": 5, "tiled": 5},
         )
         for name, ms in runs.items():
             report(f"dynamics step on {name}'s schedule at {n}x{n}", ms, n * n, card)
@@ -975,7 +1005,7 @@ def time_paths(device, card: str) -> None:
                     model_s.mevp, carry, consts, DT, N_SUBCYCLES
                 ),
             },
-            {"mevp_single": 10, "mevp_tiled": 10},
+            {"mevp_single": 5, "mevp_tiled": 5},
         )
         for name, ms in runs.items():
             report(f"spherical mEVP phase ({N_SUBCYCLES} subcycles) on {name} at {n}x{n}", ms, n * n, card)
@@ -986,7 +1016,7 @@ def time_paths(device, card: str) -> None:
                 "mevp_single": lambda: model_s.step_dynamics(state, dyn, DT),
                 "mevp_tiled": lambda: model_t.step_dynamics(state, dyn, DT),
             },
-            {"mevp_single": 10, "mevp_tiled": 10},
+            {"mevp_single": 5, "mevp_tiled": 5},
         )
         for name, ms in runs.items():
             report(f"spherical dynamics step on {name} at {n}x{n}", ms, n * n, card)
@@ -1048,7 +1078,7 @@ def time_ho(device, card: str) -> None:
                 "ho_single": lambda: hsc.ho_subcycles_single(model_s.mevp, carry, consts, DT, N_SUBCYCLES),
                 "ho_tiled": lambda: htc.ho_subcycles_tiled(model_s.mevp, carry, consts, DT, N_SUBCYCLES),
             },
-            {"ho_single": 10, "ho_tiled": 10},
+            {"ho_single": 5, "ho_tiled": 5},
         )
         for name, ms in runs.items():
             report(f"HO mEVP phase ({N_SUBCYCLES} subcycles) on {name} at {n}x{n}", ms, n * n, card)
@@ -1059,7 +1089,7 @@ def time_ho(device, card: str) -> None:
                 "ho_single": lambda: model_s.step_dynamics(state, dyn, DT),
                 "ho_tiled": lambda: model_t.step_dynamics(state, dyn, DT),
             },
-            {"ho_single": 10, "ho_tiled": 10},
+            {"ho_single": 5, "ho_tiled": 5},
         )
         for name, ms in runs.items():
             report(f"HO dynamics step on {name} at {n}x{n}", ms, n * n, card)
@@ -1083,6 +1113,311 @@ def time_ho(device, card: str) -> None:
         ))
     model, state, phys, dyn = ho_model(device, N4)
     profile(f"ho_coupled_1m coupled step ({N4}x{N4}, {model.mevp_schedule()})", lambda: model.step(state, phys, dyn, DT))
+
+
+# -- BASELINE config 5: the decomposed coupled step on a 2 x 2 rank grid --------
+def config5_model(device, n: int = None, **backends):
+    """Config 5 as ``bench_multihost_16m`` sets it (a closed n^2 RectMesh of
+    2 km elements, n = N16 by default) with config 4's state and forcing, on
+    one device: (model, initial state, physics forcing, dynamics forcing)."""
+    n = N16 if n is None else n
+    return coupled_model(device, RectMesh(n, n, dx=2e3, dy=2e3), None, **backends)
+
+
+def sharded_model(device, n: int = None, **backends):
+    """The decomposed model of config 5 (n = N16 by default) on a fresh
+    2 x 2 rank grid of the one card: (rank 0's model, the ShardedCoupledModel)."""
+    n = N16 if n is None else n
+    grid = RankGrid(*RANKS, device)
+    return build_sharded_coupled_model(
+        RectMesh(n, n, dx=2e3, dy=2e3), grid, degree=1, mevp_params=MEVPParams(),
+        n_subcycles=N_SUBCYCLES, **backends,
+    )
+
+
+def blocks_of(sharded, state, phys, dyn):
+    return sharded.grid.split_tree(state), sharded.grid.split_tree(phys), sharded.grid.split_tree(dyn)
+
+
+def step_consts_of(model, state, dyn):
+    """(carry, consts) of one rank's mEVP step from its state block."""
+    mask = model.node_mask(device=state.hice.device, dtype=state.hice.dtype)
+    velocity = state.velocity
+    consts = model.mevp.step_consts(
+        velocity, state.hice[0], torch.clamp(state.cice[0], 0.0, 1.0), dyn, mask, DT
+    )
+    return (velocity.u, velocity.v, velocity.s11, velocity.s22, velocity.s12), consts
+
+
+def rdma_round_checked(model, carry, consts):
+    """One rdma round of h subcycles on a rank whose rdma_stage and
+    rdma_band launches are each held against their plain versions on the
+    same inputs (those launches are not counted), then the blocked round on
+    the same inputs. Returns (errors, rdma round, blocked round, the x
+    launch's inputs for timing)."""
+    solver = model.mevp
+    h = solver.block_halo
+    axes, consts_w = solver.rdma_round_inputs(consts)
+    errors, captured = [], {}
+
+    def stage(src, axis):
+        got = rdma.rdma_stage(src, axis)
+        ref = rdma.rdma_stage_reference(src, axis)
+        errors.append(("rdma_stage", f"axis {axis}", got, ref))
+        return got
+
+    def band(local, src, axis, consts_w, dt, n, state):
+        ref = rdma.rdma_band_reference(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
+        got = rdma.rdma_band(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
+        errors.extend(("rdma_band", f"axis {axis} {name}", g, r) for name, g, r in zip(VELOCITY, got, ref))
+        captured.setdefault(axis, (local, src, consts_w, [x.clone() for x in state]))
+        return got
+
+    out = rdma._round(
+        solver.local(), carry, consts, consts_w, DT, h, h, axes, stage, band, mt.mevp_subcycles_tiled,
+    )
+    blocked = MEVPSolver(model.mesh, solver.params, backend="blocked", spmd=model.spmd, block_halo=h)
+    return errors, out, blocked.spmd_subcycles(carry, consts, DT, h), captured
+
+
+def rdma_band_work(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int) -> tuple:
+    """(bytes, operations) that one rdma_band launch (a pair of bands) needs
+    for its patch: the cone of dependence of the h patch rows (x) or
+    columns (y), which narrows by one ring per subcycle. At subcycle s of
+    n_sub it spans h + 2 (n_sub - s) cells across the band and, along it,
+    the ny columns of an x band or nx + 2 (n_sub - s) of the nx + 2 hx rows
+    of a y band. Bytes: the 5 state and 7 const planes of the first
+    subcycle's cone read once, the patch written once."""
+    across = lambda s: min(3 * h, h + 2 * (n_sub - s))
+    along = lambda s: ny if axis == 0 else min(nx + 2 * hx, nx + 2 * (n_sub - s))
+    cells = sum(across(s) * along(s) for s in range(1, n_sub + 1))
+    patch = 5 * h * (ny if axis == 0 else nx) * 4
+    return (
+        2 * ((5 + 7) * across(1) * along(1) * 4 + patch),
+        2 * cells * (OPS["stress"] + OPS["velocity"]),
+    )
+
+
+def compare_sharded_step(tag: str, got, ref, tol_same: bool = False) -> None:
+    """Every leaf of a decomposed step against another step of the same
+    state: the plain path (the step tolerances), or with ``tol_same``
+    another schedule of the same bodies (expected 0)."""
+    for name, g, r in leaves(got, ref):
+        if tol_same:
+            same_schedule(f"{tag}.{name}", g, r, "the single-device kernel step")
+        else:
+            compare(f"{tag}.{name}", g, r, TOL_STEP_MEVP if name.startswith("velocity") else TOL_STEP_TRACER)
+
+
+def check_multihost(device) -> tuple:
+    """Config 5 (4096^2 on 2 x 2 ranks of the one card), blocked ("auto")
+    and rdma: K7's kernels launch by launch against their plain versions,
+    the rdma round against the blocked round, one decomposed step against
+    the single-device kernel step at 4096^2, the decomposed kernel step
+    against the decomposed plain step at 512^2, and 20 steps of each form.
+    Returns (launch counts per path, K7's (error, ms, plain ms, bound ms,
+    bound by, library ms) per kernel)."""
+    model1, state, phys, dyn = config5_model(device)
+    log("slice", (
+        f"multihost_16m: {N16}x{N16} ({N16 * N16} elements) on a {RANKS[0]}x{RANKS[1]} rank grid "
+        f"of one card ({RANKS[0] * RANKS[1]} ranks, one thread and two streams each); "
+        f"single-device schedule {(model1.mevp_schedule(), model1.transport_schedule())}"
+    ))
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref = model1.step(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    mem_single = (torch.cuda.max_memory_allocated() - before) / 2**30
+    forms = {}
+    for path, backend in (("multihost_16m_blocked", "auto"), ("multihost_16m", "rdma")):
+        model, sharded = sharded_model(device, mevp_backend=backend)
+        schedule = (model.mevp_schedule(), model.transport_schedule())
+        log("slice", (
+            f"{path}: rank blocks {model.mesh.nx}x{model.mesh.ny}, schedule {schedule}, h = "
+            f"{model.mevp.block_halo}, spmd transport (H, k_cap) = {tt.transport_tiled_spmd_config(model)}"
+        ))
+        if schedule != ("rdma" if backend == "rdma" else "blocked", "tiled"):
+            raise AssertionError(f"{path} does not run its kernels: {schedule}")
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = sharded(state, phys, dyn, DT)
+        torch.cuda.synchronize()
+        log("slice", (
+            f"{path}: device memory of one global-shaped step, its peak above what the "
+            f"state and forcing held before: {(torch.cuda.max_memory_allocated() - before) / 2**30:.3f} "
+            f"GiB (the single-device step: {mem_single:.3f} GiB; one 4096^2 plane is 0.0625 GiB)"
+        ))
+        compare_sharded_step(f"{path}.step vs single-device", got, ref, tol_same=True)
+        for name, g, r in leaves(got, ref):  # and within the step tolerances, printed
+            compare(f"{path}.step vs single-device {name}", g, r,
+                    TOL_STEP_MEVP if name.startswith("velocity") else TOL_STEP_TRACER)
+        forms[path] = (model, sharded, got)
+
+    # K7 launch by launch, and the rdma round against the blocked round, on
+    # the state after one step (moving ice, nonzero stresses).
+    _, sharded, after = forms["multihost_16m"]
+    states, _, dyns = blocks_of(sharded, after, phys, dyn)
+
+    def check_round(rank):
+        model = sharded.models[rank.rank]
+        carry, consts = step_consts_of(model, states[rank.rank], dyns[rank.rank])
+        return rdma_round_checked(model, carry, consts)
+
+    results = run_ranks(sharded.grid.ring, check_round)
+    torch.cuda.synchronize()
+    errs = {"rdma_stage": 0.0, "rdma_band": 0.0}
+    for r, (errors, out, blocked, _) in enumerate(results):
+        for kernel, what, g, ref_ in errors:
+            errs[kernel] = max(errs[kernel], compare(f"{kernel} rank {r} {what}", g, ref_, TOL_LAUNCH))
+        for name, g, b in zip(VELOCITY, out, blocked):
+            same_schedule(f"rdma round rank {r} {name}", g, b, "the blocked round")
+
+    # The decomposed kernel step against the decomposed plain step.
+    for backend in ("rdma", "auto"):
+        model_p1, state_p, phys_p, dyn_p = config5_model(device, N_PLAIN_GRID)
+        model_p, sharded_p = sharded_model(device, N_PLAIN_GRID, mevp_backend=backend)
+        got = sharded_p(state_p, phys_p, dyn_p, DT)
+        blocks = blocks_of(sharded_p, state_p, phys_p, dyn_p)
+        plain = sharded_p.grid.gather_tree(run_ranks(sharded_p.grid.ring, lambda rank: plain_step(
+            sharded_p.models[rank.rank], *(b[rank.rank] for b in blocks)
+        )), device)
+        compare_step(f"multihost_{N_PLAIN_GRID} ({model_p.mevp_schedule()}) decomposed step vs decomposed plain", got, plain)
+
+    # 20 steps of each form from zeroed launch counters.
+    counts = {}
+    for path, (model, sharded, _) in forms.items():
+        blocks = blocks_of(sharded, state, phys, dyn)
+        cc.reset_launches()
+        out = sharded.run_blocks(*blocks, DT, 20)
+        torch.cuda.synchronize()
+        counts[path] = dict(cc.launches)
+        log("slice", f"{path}: 20 steps, launches: {counts[path]}")
+        check_bounded(f"{path}: 20 steps", sharded.grid.gather_tree(out, device), state)
+        missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+
+    # K7 per call at the path's shapes (rank 0's x launches of the checked
+    # round), against the plain versions; rdma_stage's library yardstick is
+    # one torch.stack of the ten strip slices. The y launches are printed.
+    local, src, consts_w, state0 = results[0][3][0]
+    h = src.h
+    nx, ny = src.own[0].shape
+    times = {}
+    for axis in (0, 1):
+        local_a, src_a, consts_a, state_a = results[0][3][axis]
+        rows, cols = (3 * h, ny) if axis == 0 else (nx + 2 * src_a.hx, 3 * h)
+        strip = 5 * h * (ny if axis == 0 else nx + 2 * src_a.hx) * 4
+        timed = {
+            "rdma_stage": (
+                lambda: rdma.rdma_stage(src_a, axis), lambda: rdma.rdma_stage_reference(src_a, axis),
+                (2 * 2 * strip, 0),
+            ),
+            "rdma_band": (
+                lambda: rdma.rdma_band(local_a, src_a, axis, consts_a, DT, h, state_a),
+                lambda: rdma.rdma_band_reference(local_a, src_a, axis, consts_a, DT, h, state_a),
+                rdma_band_work(axis, h, h, nx, ny, src_a.hx),
+            ),
+        }
+        for name, (kernel, plain, work) in timed.items():
+            ms_, plain_ms = time_ms(kernel, 50), time_ms(plain, 3)
+            bound_ms, bound_by = bound(*work)
+            times[(name, axis)] = (ms_, plain_ms, bound_ms, bound_by)
+            log("time", (
+                f"{name} axis {axis}: kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}) per call on a {nx}x{ny} rank block, h = {h}, "
+                f"n_sub = {h}{' (a pair of ' + str(rows) + 'x' + str(cols) + ' bands)' if name == 'rdma_band' else ''}"
+            ))
+    library_ms = time_ms(
+        lambda: torch.stack([p[:h] for p in src.own] + [p[nx - h:] for p in src.own]), 50
+    )
+    log("time", f"rdma_stage axis 0 library yardstick (one torch.stack of the strips): {library_ms:.4f} ms")
+    kernels = {
+        "rdma_stage": (errs["rdma_stage"], *times[("rdma_stage", 0)], library_ms),
+        "rdma_band": (errs["rdma_band"], *times[("rdma_band", 0)], None),
+    }
+    return counts, kernels
+
+
+def time_multihost(device, card: str) -> None:
+    """Phase 5, config 5: the single-device 4096^2 step, the 2 x 2 blocked
+    and rdma steps on resident blocks; the blocked round against the rdma
+    round; an h sweep of the dynamics step; profiles. One card shows what
+    the exchange costs, not how the step scales over cards."""
+    model1, state, phys, dyn = config5_model(device)
+    sharded = {name: sharded_model(device, mevp_backend=name)[1] for name in ("auto", "rdma")}
+    blocks = {name: blocks_of(s, state, phys, dyn) for name, s in sharded.items()}
+    runs = time_in_turns(
+        {
+            "single-device": lambda: model1.step(state, phys, dyn, DT),
+            "2x2 blocked": lambda: sharded["auto"].run_blocks(*blocks["auto"], DT, 1),
+            "2x2 rdma": lambda: sharded["rdma"].run_blocks(*blocks["rdma"], DT, 1),
+        },
+        {"single-device": 3, "2x2 blocked": 3, "2x2 rdma": 3},
+    )
+    for name, ms in runs.items():
+        report(f"multihost_16m coupled step, {name} ({N16}x{N16})", ms, N16 * N16, card)
+
+    # One round of h subcycles on every rank: blocked against rdma.
+    for name in ("auto", "rdma"):
+        s = sharded[name]
+        states, _, dyns = blocks[name]
+        inputs = run_ranks(s.grid.ring, lambda rank: step_consts_of(
+            s.models[rank.rank], states[rank.rank], dyns[rank.rank]
+        ))
+        h = s.models[0].mevp.block_halo
+        ms = [time_ms(lambda: run_ranks(s.grid.ring, lambda rank: s.models[rank.rank].mevp.spmd_subcycles(
+            *inputs[rank.rank], DT, h
+        )), 10) for _ in range(2)]
+        log("time", (
+            f"multihost_16m one {s.models[0].mevp_schedule()} round of {h} subcycles on 4 ranks: "
+            f"{sum(ms) / 2:.4f} ms (runs {', '.join(f'{m:.4f}' for m in ms)}) on {card}"
+        ))
+
+    # The h sweep: the dynamics step (no physics) at h = 4, 8, 16.
+    fns = {}
+    for h in (4, 8, 16):
+        for name in ("auto", "rdma"):
+            s = sharded_model(device, mevp_backend=name, mevp_block_halo=h)[1]
+            b = blocks_of(s, state, phys, dyn)
+            fns[f"{'blocked' if name == 'auto' else 'rdma'} h={h}"] = (
+                lambda s=s, b=b: s.run_blocks(*b, DT, 1, do_thermo=False)
+            )
+    runs = time_in_turns(fns, dict.fromkeys(fns, 2))
+    for name, ms in runs.items():
+        report(f"multihost_16m dynamics step, 2x2 {name} ({N16}x{N16})", ms, N16 * N16, card)
+
+    # The spmd transport's exchange halo H, at k = 1 and 3: on every rank the
+    # velocity widened by H, then one call of transport_substeps_tiled_spmd,
+    # on the state after a step.
+    s = sharded["auto"]
+    stepped = s.run_blocks(*blocks["auto"], DT, 1)
+
+    def spmd_transport(rank, k, H):
+        model, st = s.models[rank.rank], stepped[rank.rank]
+        return tt.transport_substeps_tiled_spmd(
+            model, torch.stack([st.hice, st.cice, st.hsnow], dim=1),
+            tt.widen_velocity(model, st.velocity.u, st.velocity.v, H), DT / k, k, None,
+        )
+
+    fns = {}
+    for k in (1, 3):
+        for H in (4, 8, 16):
+            fns[f"k={k} H={H}"] = lambda k=k, H=H: run_ranks(
+                s.grid.ring, lambda rank: spmd_transport(rank, k, H)
+            )
+    for name, ms in time_in_turns(fns, dict.fromkeys(fns, 3)).items():
+        log("time", (
+            f"multihost_16m spmd transport on 4 ranks, {name} (config: "
+            f"{tt.transport_tiled_spmd_config(s.models[0])}): {sum(ms) / len(ms):.4f} ms "
+            f"(runs {', '.join(f'{m:.4f}' for m in ms)}) on {card}"
+        ))
+    for name in ("auto", "rdma"):
+        profile(
+            f"multihost_16m coupled step, 2x2 {'blocked' if name == 'auto' else 'rdma'} ({N16}x{N16})",
+            lambda: sharded[name].run_blocks(*blocks[name], DT, 1),
+        )
+    profile(f"multihost_16m coupled step, single-device ({N16}x{N16})", lambda: model1.step(state, phys, dyn, DT))
 
 
 def main() -> int:
@@ -1113,12 +1448,19 @@ def main() -> int:
         f"{single.max_blocks(True, device)} (metric), of 256 threads"
     ))
 
+    def phase(fn, *args):
+        """fn(*args), with its wall time logged."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log("time", f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s wall")
+        return out
+
     model, _, _ = bench_model(device)
-    kernels = check_kernels(model, device)
-    kernels.update(check_tiled(device))
-    extra = check_single(device)
+    kernels = phase(check_kernels, model, device)
+    kernels.update(phase(check_tiled, device))
+    extra = phase(check_single, device)
     kernels["mevp_single"] = extra["mevp_single"]
-    extra_ho = check_ho(device)
+    extra_ho = phase(check_ho, device)
     kernels["ho_single"], kernels["ho_tiled"] = extra_ho["ho_single"], extra_ho["ho_tiled"]
     extra["transport_metric"] = max(extra["transport_metric"], extra_ho["transport_qv"])
     # The metric checks of the kernels with a uniform-mesh timing above.
@@ -1126,21 +1468,27 @@ def main() -> int:
         ("transport_tiled", "transport_metric"), ("dg1_rk_stage", "dg1_rk_stage_metric"),
     ):
         kernels[kernel] = (max(kernels[kernel][0], extra[key]), *kernels[kernel][1:])
-    counts = check_slice(device)
-    time_paths(device, smi)
-    time_ho(device, smi)
+    counts = phase(check_slice, device)
+    counts_5, kernels_5 = phase(check_multihost, device)
+    counts.update(counts_5)
+    kernels.update(kernels_5)
+    phase(time_paths, device, smi)
+    phase(time_ho, device, smi)
+    phase(time_multihost, device, smi)
 
     launches = dict.fromkeys(cc.KERNELS, 0)
     for path, names in PATH_KERNELS.items():
         for k in names:
             launches[k] += counts[path][k]
-    # No single PyTorch call computes these stencils, so library_ms is null.
+    # No single PyTorch call computes these stencils, so library_ms is null,
+    # except for rdma_stage's strip pack (one torch.stack).
     summary = {"kernels": [
         {
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
             "launches": launches[k], "max_abs_err": kernels[k][0],
             "ms": kernels[k][1], "plain_ms": kernels[k][2],
-            "bound_ms": kernels[k][3], "bound_by": kernels[k][4], "library_ms": None,
+            "bound_ms": kernels[k][3], "bound_by": kernels[k][4],
+            "library_ms": kernels[k][5] if len(kernels[k]) > 5 else None,
         }
         for k in cc.KERNELS
     ]}

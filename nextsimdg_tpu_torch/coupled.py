@@ -29,8 +29,15 @@ on uniform meshes), selected with
 (and ``reset()`` after). With the HO solver the velocity state is an
 ``HOVelocityState``, the forcing is interpolated to the CG2 nodes, the node
 mask gets its per-plane form and the transport advects with the CG2
-velocity sampled at the quadrature points. Device meshes, periodic axes
-and the TVB limiter are not ported yet and raise ``NotImplementedError``.
+velocity sampled at the quadrature points.
+
+On a rank grid (``spmd``, built by ``parallel.shardmap``) the model holds
+one rank's block of a uniform, closed CG1 mesh, runs in that rank's thread
+and exchanges halos with the other ranks (``parallel.exchange``): the mEVP
+on the blocked or rdma schedule, the transport on the widened block, the
+physics per block. The HO solver, graded and spherical blocks, periodic
+axes and the TVB limiter raise ``NotImplementedError`` there (ROADMAP
+M10b); periodic axes and TVB are not ported on one domain either.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 
 from .dynamics.kernels.coupled_cuda import dynamics_phase
 from .dynamics.mesh import RectMesh
-from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
+from .dynamics.mevp import SPMD_BACKENDS, DynamicsForcing, MEVPParams, VelocityState
 from .dynamics.mevp_ho import (
     MEVP_BACKENDS, HODynamicsForcing, HOField, HOVelocityState, MEVPSolverHO,
 )
@@ -108,6 +115,7 @@ class CoupledModel:
         auto_substeps: bool = True,
         tvb_m: float = None,
         transport_backend: str = "auto",
+        mevp_block_halo="auto",
     ) -> None:
         """``transport_substeps``: advect with k sub-steps of dt/k; with
         ``auto_substeps`` (default) k is chosen per step from the advective
@@ -145,32 +153,65 @@ class CoupledModel:
         ``mevp_ho.HO_SINGLE_MAX_ELEMENTS`` and ho_tiled from there; the
         transport is ``transport_tiled`` on the CG2 samples at every size
         (``"xla"`` raises on a card: ``dg1_rk_stage`` takes CG1 (u, v)).
+
+        ``spmd``: on a rank grid, this rank's ``parallel.exchange.RankExchange``
+        (``parallel.shardmap.build_sharded_coupled_model`` builds one model
+        per rank), with ``mesh`` the rank's block and ``ocean_mask`` the
+        global mask. ``mevp_backend`` is then one of
+        ``mevp.SPMD_BACKENDS``: ``"blocked"`` (and ``"auto"``), ``"rdma"``
+        or ``"xla"``, with ``mevp_block_halo`` ghost cells per exchange
+        ("auto": ``mevp.BLOCK_HALO``, at most half the block);
+        ``transport_backend`` ``"tiled"`` (and ``"auto"``: the widened block
+        on transport_tiled) or ``"xla"``. The ``"xla"`` schedules, and
+        ``"auto"`` where the block has no spmd tiled transport (rk3, or a
+        block under 3 cells), are the plain width-1 exchanges: CPU tensors
+        only, they raise on a card.
         """
-        if mevp_backend not in MEVP_BACKENDS:
-            raise ValueError(f"mevp_backend must be one of {MEVP_BACKENDS}, got {mevp_backend!r}")
+        self.exchange = None if isinstance(spmd, tuple) else spmd
+        if self.exchange is None and any(axis is not None for axis in spmd):
+            raise NotImplementedError(
+                "spmd takes a rank's parallel.exchange.RankExchange (device-mesh "
+                f"axis names are the JAX package's), got {spmd!r}"
+            )
+        self.spmd = (None, None) if self.exchange is None else self.exchange.axes
+        backends = SPMD_BACKENDS if self.exchange is not None else MEVP_BACKENDS
+        if mevp_backend not in backends:
+            raise ValueError(f"mevp_backend must be one of {backends}, got {mevp_backend!r}")
         if transport_backend not in TRANSPORT_BACKENDS:
             raise ValueError(
                 f"transport_backend must be one of {TRANSPORT_BACKENDS}, "
                 f"got {transport_backend!r}"
             )
-        if any(axis is not None for axis in spmd):
-            raise NotImplementedError("device meshes (spmd) are not ported yet")
         if tvb_m is not None:
-            raise NotImplementedError("the TVB slope limiter is not ported yet")
+            raise NotImplementedError(
+                "the TVB slope limiter is not ported yet (ROADMAP M7b; on a rank grid M10b)"
+            )
         self.mesh = mesh
+        solver_cls = get_loader().get_implementation("Nextsim::IDynamics")
+        if self.exchange is not None and issubclass(solver_cls, MEVPSolverHO):
+            raise NotImplementedError(
+                "the HO solver on a rank grid (its blocked and rdma schedules) is ROADMAP M10b"
+            )
         self.ocean_mask = None
         if ocean_mask is not None:
             self.ocean_mask = np.asarray(ocean_mask, dtype=np.float64)
-            if self.ocean_mask.shape != (mesh.nx, mesh.ny):
+            expected = (mesh.nx, mesh.ny)
+            if self.exchange is not None:
+                expected = (mesh.nx * self.exchange.shape[0], mesh.ny * self.exchange.shape[1])
+            if self.ocean_mask.shape != expected:
                 raise ValueError(
-                    f"ocean_mask has shape {self.ocean_mask.shape}, "
-                    f"expected {(mesh.nx, mesh.ny)}"
+                    f"ocean_mask has shape {self.ocean_mask.shape}, expected {expected}"
                 )
         self._masks = {}
-        self.transport = DGTransport(mesh, degree=degree)
-        solver_cls = get_loader().get_implementation("Nextsim::IDynamics")
+        self._widened_transport = {}
+        self.transport = DGTransport(mesh, degree=degree, spmd=self.spmd)
         if issubclass(solver_cls, MEVPSolverHO):
             self.mevp = solver_cls(mesh, mevp_params, backend=mevp_backend)
+        elif self.exchange is not None:
+            self.mevp = solver_cls(
+                mesh, mevp_params, backend=mevp_backend, spmd=self.spmd,
+                block_halo=mevp_block_halo,
+            )
         else:
             self.mevp = solver_cls(mesh, mevp_params)
         self.n_subcycles = int(n_subcycles)
@@ -189,8 +230,9 @@ class CoupledModel:
     def mevp_schedule(self) -> str:
         """``"pallas"`` (K1's schedule), ``"single"`` (mevp_single) or
         ``"pallas-tiled"`` (mevp_tiled); with the HO solver ``"single"``
-        (ho_single) or ``"tiled"`` (ho_tiled)."""
-        if self.is_high_order:
+        (ho_single) or ``"tiled"`` (ho_tiled); on a rank grid the exchange
+        schedule, ``"blocked"``, ``"rdma"`` or ``"xla"``."""
+        if self.is_high_order or self.exchange is not None:
             return self.mevp.schedule()
         backend = self.mevp_backend
         if backend == "auto":
@@ -201,7 +243,22 @@ class CoupledModel:
         return backend
 
     def transport_schedule(self) -> str:
-        """``"xla"`` (one dg1_rk_stage per stage) or ``"tiled"``."""
+        """``"xla"`` (one dg1_rk_stage per stage; on a rank grid the plain
+        staged transport with width-1 exchanges, which raises on a card) or
+        ``"tiled"``."""
+        if self.exchange is not None:
+            from .dynamics.kernels.transport_tiled_cuda import transport_tiled_spmd_config
+
+            if self.transport_backend == "xla":
+                return "xla"
+            if transport_tiled_spmd_config(self) is not None:
+                return "tiled"
+            if self.transport_backend == "tiled":
+                raise NotImplementedError(
+                    f"no spmd tiled transport for {self.transport.scheme} on a "
+                    f"{self.mesh.nx} x {self.mesh.ny} block"
+                )
+            return "xla"
         if self.is_high_order:
             return "xla" if self.transport_backend == "xla" else "tiled"
         if self.mevp_schedule() == "pallas":
@@ -240,19 +297,41 @@ class CoupledModel:
             new_ice=torch.zeros((nx, ny), device=device, dtype=dtype),
         )
 
+    def widened_transport(self, halo: int) -> DGTransport:
+        """The transport operator, without an exchange, of this rank's block
+        widened by ``halo`` cells on every side (built once per halo)."""
+        if halo not in self._widened_transport:
+            mesh = self.mesh
+            widened = RectMesh(mesh.nx + 2 * halo, mesh.ny + 2 * halo, mesh.dx, mesh.dy)
+            self._widened_transport[halo] = DGTransport(
+                widened, self.transport.basis.degree, self.transport.scheme
+            )
+        return self._widened_transport[halo]
+
+    def _local_ocean_mask(self):
+        """This block's part of the ocean mask: on a rank grid the model
+        holds the global mask and each rank slices its block by its grid
+        coordinates."""
+        if self.exchange is None:
+            return self.ocean_mask
+        (ix, iy), nx, ny = self.exchange.coords, self.mesh.nx, self.mesh.ny
+        return self.ocean_mask[ix * nx: (ix + 1) * nx, iy * ny: (iy + 1) * ny]
+
     def _static_masks(self, device, dtype) -> dict:
         """The node mask and the coastline face masks, built once per
         (device, dtype): the JAX package rebuilds the same values in every
-        step."""
+        step. On a rank grid the first step builds them, every rank at the
+        same point of its program (the shifts exchange halos)."""
         key = (torch.device(device), dtype)
         if key not in self._masks:
             mask = self.mevp.boundary_mask(device=device, dtype=dtype)
             faces = is_ocean = None
             if self.ocean_mask is not None:
-                ocean = torch.as_tensor(self.ocean_mask, device=device).to(dtype)
-                o_x = shift_m(ocean, 0, False)
-                o_y = shift_m(ocean, 1, False)
-                o_xy = shift_m(o_x, 1, False)
+                ax_x, ax_y = self.spmd
+                ocean = torch.as_tensor(self._local_ocean_mask(), device=device).to(dtype)
+                o_x = shift_m(ocean, 0, False, ax_x)
+                o_y = shift_m(ocean, 1, False, ax_y)
+                o_xy = shift_m(o_x, 1, False, ax_y)
                 if self.is_high_order:
                     # A CG2 node is no-slip unless every element it touches
                     # is ocean: a vertex touches 4, an edge midpoint 2, a
@@ -265,7 +344,7 @@ class CoupledModel:
                     # CG1 node (i, j): no-slip unless all 4 adjacent
                     # elements are ocean.
                     mask = mask * ocean * o_x * o_y * o_xy
-                faces = face_masks_from_land(ocean)
+                faces = face_masks_from_land(ocean, spmd=self.spmd)
                 is_ocean = ocean == 1.0
             self._masks[key] = {"node": mask, "faces": faces, "ocean": is_ocean}
         return self._masks[key]

@@ -28,8 +28,9 @@
 // nx and ny need not be multiples of T, nor N of H.
 //
 // Each element and node runs mevp_stress_body and mevp_velocity_body of
-// mevp_body.cuh, the bodies of mevp.cu's two kernels, with the same
-// --fmad=false, so this schedule equals that one bit for bit.
+// mevp_body.cuh (through window_subcycles of mevp_window.cuh), the bodies of
+// mevp.cu's two kernels, with the same --fmad=false, so this schedule
+// equals that one bit for bit.
 //
 // What bounds it on the H100: the grid-wide schedule moves ~116 bytes per
 // element per subcycle (mevp.cu); at 1024^2 its ~56 MB working set is more
@@ -42,22 +43,11 @@
 // by measurement in coupled_cuda.py.
 #include <cstring>
 
-#include "mevp_body.cuh"
+#include "mevp_window.cuh"
 
 namespace nst {
 
 constexpr int kTiledMaxThreads = 1024;  // the block size is a launch parameter
-constexpr int kMevpSharedPlanes = 7;  // u, v, s11, s22, s12, c_w, inv_drag
-
-// The window's stresses around node (a, b) (window index c), each times
-// the metric plane w of its own element (grid (i, j)); beyond the domain
-// the stress is zero and so is the weight.
-__device__ __forceinline__ Around weighted_window(const float* f, const float* w, int c,
-                                                 int ww, int i, int j, int nx, int ny) {
-  return {f[c] * __ldg(w + i * ny + j), f[c - ww] * ldg_at(w, i - 1, j, nx, ny),
-          f[c - 1] * ldg_at(w, i, j - 1, nx, ny),
-          f[c - ww - 1] * ldg_at(w, i - 1, j - 1, nx, ny)};
-}
 
 template <bool kMetric>
 __global__ void __launch_bounds__(kTiledMaxThreads)
@@ -76,8 +66,6 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
   float* s11 = sv + plane;
   float* s22 = s11 + plane;
   float* s12 = s22 + plane;
-  float* scw = s12 + plane;
-  float* sinv = scw + plane;
 
   // Window cell (a, b) is grid cell (i0 + a, j0 + b). Each loop below
   // spreads the cells of a square region over the block's threads, row by
@@ -103,67 +91,9 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
   }
   __syncthreads();
 
-  for (int sub = 0; sub < n_sub; ++sub) {
-    // Stress phase: element (a, b) reads nodes a..a+1, b..b+1, which are
-    // valid on [sub, w - sub), so elements [sub, w - 1 - sub) are computed.
-    int lo = sub;
-    int r = w - 1 - 2 * sub;
-    float inv_r = 1.0f / static_cast<float>(r);
-    for (int idx = tid; idx < r * r; idx += n_threads) {
-      const int da = region_row(idx, inv_r);
-      const int a = lo + da, b = lo + idx - da * r;
-      const int i = i0 + a, j = j0 + b;
-      if (i < 0 || i >= nx || j < 0 || j >= ny) continue;
-      const int c = a * w + b, ij = i * ny + j;
-      const StressOut o = mevp_stress_body(
-          su[c], su[c + w], su[c + 1], su[c + w + 1], sv[c], sv[c + w], sv[c + 1],
-          sv[c + w + 1], s11[c], s22[c], s12[c], __ldg(k.strength + ij),
-          __ldg(k.dt_m + ij), __ldg(k.active + ij), __ldg(k.u_ocean + ij),
-          __ldg(k.v_ocean + ij), kMetric ? __ldg(k.inv_dx + ij) : s.inv_dx,
-          kMetric ? __ldg(k.inv_dy + ij) : s.inv_dy, s);
-      s11[c] = o.s11;
-      s22[c] = o.s22;
-      s12[c] = o.s12;
-      scw[c] = o.c_w;
-      sinv[c] = o.inv_drag;
-    }
-    __syncthreads();
-
-    // Velocity phase: node (a, b) reads elements a-1..a, b-1..b and its own
-    // c_w and inv_drag, valid on [sub, w - 1 - sub): nodes
-    // [sub + 1, w - 1 - sub) are computed.
-    lo = sub + 1;
-    r = w - 2 - 2 * sub;
-    inv_r = 1.0f / static_cast<float>(r);
-    for (int idx = tid; idx < r * r; idx += n_threads) {
-      const int da = region_row(idx, inv_r);
-      const int a = lo + da, b = lo + idx - da * r;
-      const int i = i0 + a, j = j0 + b;
-      if (i < 0 || i >= nx || j < 0 || j >= ny) continue;
-      const int c = a * w + b, ij = i * ny + j;
-      float2 f;
-      float inv_node_w;
-      if (kMetric) {
-        f = forces_metric(weighted_window(s11, k.half_dy, c, w, i, j, nx, ny),
-                          weighted_window(s12, k.half_dx, c, w, i, j, nx, ny),
-                          weighted_window(s12, k.half_dy, c, w, i, j, nx, ny),
-                          weighted_window(s22, k.half_dx, c, w, i, j, nx, ny));
-        inv_node_w = __ldg(k.inv_w + ij);
-      } else {
-        const Around a11 = {s11[c], s11[c - w], s11[c - 1], s11[c - w - 1]};
-        const Around a22 = {s22[c], s22[c - w], s22[c - 1], s22[c - w - 1]};
-        const Around a12 = {s12[c], s12[c - w], s12[c - 1], s12[c - w - 1]};
-        f = forces_uniform(a11, a22, a12, s);
-        inv_node_w = s.inv_w;
-      }
-      const float2 uv = mevp_velocity_body(
-          f, inv_node_w, su[c], sv[c], __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij), scw[c],
-          __ldg(k.dt_m + ij), __ldg(k.b_u + ij), __ldg(k.b_v + ij), sinv[c], s);
-      su[c] = uv.x;
-      sv[c] = uv.y;
-    }
-    __syncthreads();
-  }
+  const Window win = {w, w, i0, j0, nx, ny, 1, 1};
+  const ConstView cv = {k, ny, 0, 0};
+  window_subcycles<kMetric>(smem, win, cv, n_sub, s);
 
   // The T x T interior (window cells [halo, halo + tile)) is exact.
   const float inv_t = 1.0f / static_cast<float>(tile);

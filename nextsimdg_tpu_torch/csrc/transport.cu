@@ -11,7 +11,12 @@
 //                  them into two device scalars with atomicMax on the float
 //                  bits (valid because the values are >= 0). The host turns
 //                  them into k with the same torch operations as the plain
-//                  cfl_substeps, so equal speeds give an equal k.
+//                  cfl_substeps, so equal speeds give an equal k. It samples
+//                  the first ex x ey elements of node planes of nx x ny
+//                  nodes with a row stride ld: on a rank block, the block's
+//                  own elements inside its velocity widened by the halo
+//                  exchange, so that the nodes beyond the block are its
+//                  neighbours' and not zeros.
 //   dg1_rk_stage   (elements): out = lim(a*base + b*(psi + dt*rhs(psi))), or
 //                  lim(psi + dt*rhs(psi)) when a == 0, for all T tracers x 3
 //                  dofs. It re-samples the velocity from u and v instead of
@@ -64,14 +69,25 @@ __device__ __forceinline__ void load_coeffs(const float* psi, int t, int n_trace
 }
 
 __global__ void dg1_sample_cfl_kernel(const float* __restrict__ u,
-                                      const float* __restrict__ v, int nx, int ny,
-                                      Dg1Tables tb,
+                                      const float* __restrict__ v, int ex, int ey,
+                                      int nx, int ny, int ld, Dg1Tables tb,
                                       unsigned int* __restrict__ speeds) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   float sx = 0.0f, sy = 0.0f;
-  if (i < nx && j < ny) {
-    const Corners c = load_corners(u, v, i, j, nx, ny);
+  if (i < ex && j < ey) {
+    const auto node = [&](const float* f, int a, int b) {
+      return (a < nx && b < ny) ? f[a * ld + b] : 0.0f;
+    };
+    Corners c;
+    c.u00 = node(u, i, j);
+    c.u10 = node(u, i + 1, j);
+    c.u01 = node(u, i, j + 1);
+    c.u11 = node(u, i + 1, j + 1);
+    c.v00 = node(v, i, j);
+    c.v10 = node(v, i + 1, j);
+    c.v01 = node(v, i, j + 1);
+    c.v11 = node(v, i + 1, j + 1);
 #pragma unroll
     for (int q = 0; q < kVol; ++q) {
       sx = fmaxf(sx, fabsf(bilinear(tb.w_vol[q], c.u00, c.u10, c.u01, c.u11)));
@@ -157,16 +173,19 @@ extern "C" {
 int nst_dg1_n_table_floats() { return sizeof(nst::Dg1Tables) / sizeof(float); }
 
 // `speeds` is two float32 zeros on the device; they receive max |vx| and
-// max |vy|. Returns cudaGetLastError(); does not synchronise.
-int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, int nx,
-                       int ny, const float* tables, int device, void* stream) {
+// max |vy| over the first ex x ey elements of the nx x ny node planes u
+// and v (row stride ld). Returns cudaGetLastError(); does not synchronise.
+int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, int ex,
+                       int ey, int nx, int ny, int ld, const float* tables,
+                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (ex > nx || ey > ny || ny > ld) return static_cast<int>(cudaErrorInvalidValue);
   nst::Dg1Tables tb;
   std::memcpy(&tb, tables, sizeof(tb));
-  nst::dg1_sample_cfl_kernel<<<nst::plane_grid(nx, ny), nst::plane_block(), 0,
+  nst::dg1_sample_cfl_kernel<<<nst::plane_grid(ex, ey), nst::plane_block(), 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      u, v, nx, ny, tb, reinterpret_cast<unsigned int*>(speeds));
+      u, v, ex, ey, nx, ny, ld, tb, reinterpret_cast<unsigned int*>(speeds));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,15 +20,18 @@ kernel              source                      plain version (same inputs)
 ``mevp_single``     ``csrc/mevp_single.cu``     ``mevp_subcycles_reference``
 ``ho_single``       ``csrc/ho_single.cu``       ``ho_subcycles_reference``
 ``ho_tiled``        ``csrc/ho_tiled.cu``        ``ho_subcycles_reference``
+``rdma_stage``      ``csrc/mevp_rdma.cu``       ``rdma_stage_reference``
+``rdma_band``       ``csrc/mevp_rdma.cu``       ``rdma_band_reference``
 =================== =========================== ===================================
 
 The first four are K1's schedule, wrapped here. Per step: 2 launches per
 subcycle, one ``dg1_sample_cfl`` whose two max speeds are read back once
 to fix k (one host sync), then one ``dg1_rk_stage`` per RK stage and
-substep. The last three have wrapper modules of their own:
+substep. The others have wrapper modules of their own:
 ``mevp_tiled_cuda`` and ``transport_tiled_cuda`` (the ghost-zone tiled
 schedule, K2 and K3 of the JAX package) and ``mevp_single_cuda`` (all N
-subcycles in one launch, K4). Every mEVP kernel takes the 7 uniform
+subcycles in one launch, K4), and ``mevp_rdma_cuda`` (the overlapped
+halo round of a rank block, K7). Every mEVP kernel takes the 7 uniform
 consts or, on a graded or spherical mesh, the 12 with the metric planes;
 the transport kernels read the transport's metric planes on such a mesh.
 
@@ -40,6 +43,13 @@ velocity is sampled at the quadrature points in plain PyTorch
 (``ho_velocity_to_quad``, as the JAX package does it in XLA), k comes from
 those samples (one host sync), and ``transport_tiled`` advects the tracers
 with the precomputed samples (its ``qv`` form).
+
+On a rank grid (``parallel``) the phase runs the solver's exchange
+schedule (``MEVPSolver.spmd_subcycles``: ``mevp_tiled`` on the widened
+block, or the rdma round), samples the CFL speeds of the rank's own
+elements in its widened velocity, agrees k over the ranks with one host
+sync for the whole grid, and advects with ``transport_tiled`` on the
+widened block (``transport_tiled_cuda.transport_substeps_tiled_spmd``).
 
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
@@ -59,6 +69,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -69,13 +80,13 @@ from ..mevp_ho import (
     HO_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
 )
 from ..transport import (
-    DGTransport, cfl_substeps, max_speeds, sampling_weights,
-    substeps_from_speeds, velocity_from_cg,
+    DGTransport, max_speeds, sampling_weights, substeps_from_speeds, velocity_from_cg,
 )
 
 KERNELS = (
     "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage",
     "mevp_tiled", "transport_tiled", "mevp_single", "ho_single", "ho_tiled",
+    "rdma_stage", "rdma_band",
 )
 
 #: Launches per kernel since the last ``reset_launches()``.
@@ -107,6 +118,9 @@ _RK_STAGES = {
 }
 
 _lib = None
+# The ranks of a rank grid launch from threads of their own: one build, and
+# no launch count lost.
+_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -183,21 +197,26 @@ def build() -> Path:
 
 
 def _library():
+    with _lock:
+        return _lib if _lib is not None else _bind()
+
+
+def _bind():
     global _lib
-    if _lib is not None:
-        return _lib
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [p, i, p]  # host scalars/tables, device index, stream
     lib.nst_mevp_stress.argtypes = [p] * 8 + [i, i] + tail
     lib.nst_mevp_velocity.argtypes = [p] * 8 + [i, i] + tail
-    lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i, i] + tail
+    lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i] * 5 + tail
     lib.nst_dg1_rk_stage.argtypes = [p] * 8 + [i, i, i, f, f, f] + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
     lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 8 + [f, f, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 8 + [i] * 4 + tail
     lib.nst_ho_single.argtypes = [p, p] + [i] * 4 + [p] + tail
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 6 + [p] + tail
+    lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
+    lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, p] + tail
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
     lib.nst_mevp_single_max_blocks.argtypes = [i, i]
@@ -225,7 +244,8 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(
             f"{name}: CUDA error {err}: {lib.nst_error_string(err).decode()}"
         )
-    launches[name] += 1
+    with _lock:
+        launches[name] += 1
 
 
 # -- host-side packing of the kernels' scalars -------------------------------
@@ -433,12 +453,17 @@ def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream):
     )
 
 
-def _dg1_sample_cfl_(u, v, speeds, tables, stream):
+def _dg1_sample_cfl_(u, v, speeds, tables, stream, halo: int = 0):
+    """The max speeds of the elements of (u, v), or with ``halo`` of the
+    elements of the block that (u, v) widen by ``halo`` on every side."""
     nx, ny = u.shape
+    ex, ey = nx - 2 * halo, ny - 2 * halo
+    offset = (halo * ny + halo) * u.element_size()
+    extent = (ex + 1, ey + 1) if halo else (nx, ny)
     _launch(
         "dg1_sample_cfl",
-        u.data_ptr(), v.data_ptr(), speeds.data_ptr(),
-        nx, ny, ctypes.addressof(tables), u.device.index, stream,
+        u.data_ptr() + offset, v.data_ptr() + offset, speeds.data_ptr(),
+        ex, ey, *extent, ny, ctypes.addressof(tables), u.device.index, stream,
     )
 
 
@@ -621,14 +646,27 @@ def transport_substeps(
 
 
 # -- the dynamics phase ----------------------------------------------------------
+def _k_of_speeds(model, speeds, dt: float) -> int:
+    """k from the (2,) max speeds: copied to the host (the one host sync of
+    the step on a card; on a rank grid the max over the ranks, one copy for
+    the whole grid) and turned into k there, so that the same speeds give
+    the same k on every path and every rank."""
+    if model.exchange is not None:
+        speeds = model.exchange.max(speeds)
+    else:
+        speeds = speeds.cpu()
+    return int(substeps_from_speeds(
+        speeds[0], speeds[1], dt, model.mesh, model.transport.basis.degree,
+        k_floor=model.transport_substeps,
+    ))
+
+
 def _substeps(model, qv, dt: float) -> int:
     """The transport substep count of the step: from the CFL number of the
-    sampled velocity (one host sync on a card), or the model's fixed count."""
+    sampled velocity, or the model's fixed count."""
     if not model.auto_substeps:
         return model.transport_substeps
-    return int(cfl_substeps(
-        qv, dt, model.mesh, model.transport.basis.degree, k_floor=model.transport_substeps
-    ))
+    return _k_of_speeds(model, torch.stack(max_speeds(qv)), dt)
 
 
 def fused_dynamics_reference(
@@ -637,14 +675,16 @@ def fused_dynamics_reference(
 ):
     """Plain PyTorch dynamics phase: ``subcycle_body`` x N, then the
     quadrature velocity (``velocity_from_cg``, or ``ho_velocity_to_quad``
-    with the HO solver), ``cfl_substeps`` and k x ``DGTransport.step``."""
+    with the HO solver), ``cfl_substeps`` and k x ``DGTransport.step``. On
+    a rank grid every shift exchanges a width-1 halo (the "xla" schedule)
+    and k comes from the max speeds over the ranks."""
     solver, transport, mesh = model.mevp, model.transport, model.mesh
     if model.is_high_order:
         carry = ho_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
         qv = ho_velocity_to_quad(mesh, transport.basis, carry[0], carry[1])
     else:
         carry = mevp_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
-        qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1])
+        qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1], model.spmd)
     k = _substeps(model, qv, dt)
     tr = transport_substeps_reference(transport, tracers, None, None, dt / k, k, face_masks, qv=qv)
     return carry, tr
@@ -676,7 +716,16 @@ def dynamics_phase(
     carry and ``consts`` the output of ``MEVPSolverHO.step_consts``;
     ``mevp`` is ``"single"`` or ``"tiled"`` and ``transport`` must be
     ``"tiled"`` (``_ho_dynamics_phase``).
+
+    On a rank grid (``model.exchange``) ``mevp`` is the solver's exchange
+    schedule and ``transport`` ``"tiled"`` or ``"xla"``; see
+    ``_spmd_dynamics_phase``. It runs on CPU tensors too, with the plain
+    versions inside the exchange schedules.
     """
+    if model.exchange is not None:
+        return _spmd_dynamics_phase(
+            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, mevp, transport
+        )
     if _on_cpu(tracers):
         return fused_dynamics_reference(
             model, state_arrays, tracers, consts, dt, n_subcycles, face_masks
@@ -707,13 +756,60 @@ def dynamics_phase(
     if model.auto_substeps:
         speeds = torch.zeros(2, device=device, dtype=torch.float32)
         _dg1_sample_cfl_(u, v, speeds, _dg1_tables(tr), _stream(device))
-        k = int(substeps_from_speeds(
-            speeds[0], speeds[1], dt, mesh, tr.basis.degree,
-            k_floor=model.transport_substeps,
-        ))
+        k = _k_of_speeds(model, speeds, dt)
     else:
         k = model.transport_substeps
     return planes, run_transport[transport](tr, tracers, u, v, dt / k, k, face_masks)
+
+
+def _spmd_dynamics_phase(
+    model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, mevp, transport,
+):
+    """``dynamics_phase`` on one rank of a rank grid: the N subcycles on the
+    solver's exchange schedule (``mevp``: "blocked", "rdma" or "xla"); the
+    max speeds of the rank's own elements, the max over the ranks and k;
+    then ``transport="tiled"``: ``transport_substeps_tiled_spmd``
+    (transport_tiled on the block widened by H), or ``"xla"``: the plain
+    staged transport with width-1 exchanges, on CPU tensors only.
+
+    With the tiled transport the velocity is widened by H once: on a card
+    ``dg1_sample_cfl`` samples the block's own elements inside it (the nodes
+    beyond the block are the neighbours'), and the transport advects with
+    it."""
+    from .transport_tiled_cuda import transport_substeps_tiled_spmd, widen_velocity
+
+    solver, tr, mesh = model.mevp, model.transport, model.mesh
+    if mevp != solver.schedule() or transport not in ("tiled", "xla"):
+        raise ValueError(
+            f"unknown rank-grid schedule: mevp={mevp!r} (the solver runs "
+            f"{solver.schedule()!r}), transport={transport!r}"
+        )
+    on_cpu = _on_cpu(tracers)
+    if transport == "xla" and not on_cpu:
+        raise NotImplementedError(
+            "on a card the rank grid advects with transport_tiled only; the plain "
+            "staged transport with width-1 exchanges ('xla') takes CPU tensors "
+            f"(transport_backend={model.transport_backend!r}: {tr.scheme} on a "
+            f"{mesh.nx} x {mesh.ny} block)"
+        )
+    planes = solver.spmd_subcycles(state_arrays, consts, dt, n_subcycles)
+    u, v = planes[0], planes[1]
+    velocity_w = widen_velocity(model, u, v) if transport == "tiled" else None
+    if not model.auto_substeps:
+        k = model.transport_substeps
+    elif on_cpu:
+        k = _substeps(model, velocity_from_cg(mesh, tr.basis, u, v, model.spmd), dt)
+    else:
+        H = (velocity_w.shape[1] - mesh.nx) // 2
+        speeds = torch.zeros(2, device=u.device, dtype=torch.float32)
+        _dg1_sample_cfl_(
+            velocity_w[0], velocity_w[1], speeds, _dg1_tables(tr), _stream(u.device), halo=H
+        )
+        k = _k_of_speeds(model, speeds, dt)
+    if transport == "tiled":
+        return planes, transport_substeps_tiled_spmd(model, tracers, velocity_w, dt / k, k, face_masks)
+    qv = velocity_from_cg(mesh, tr.basis, u, v, model.spmd)
+    return planes, transport_substeps_reference(tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
 
 
 def _ho_dynamics_phase(

@@ -24,6 +24,11 @@ The HO path passes ``qv``, the quadrature velocity that
 and 2 + 2 face planes), instead of (u, v): the kernel reads those planes
 from global memory and skips its own sampling, as the JAX kernel takes them
 as constant planes.
+
+On a rank grid, ``transport_substeps_tiled_spmd`` (the counterpart of the
+JAX ``transport_substeps_tiled_spmd``) runs the same kernel on each rank's
+block widened by H ghost cells: one strip pair per axis buys
+(H - 1) // stages substeps, after which the interior is kept.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import ctypes
 
 import torch
 
+from ..stencil import halo_widen, is_global_edge
 from ..transport import DGTransport, QuadVelocity
 from . import coupled_cuda as cc
 
@@ -123,3 +129,101 @@ def transport_substeps_tiled(
         src = dst
         done += n_sub
     return src
+
+
+def transport_tiled_spmd_config(model):
+    """(H, k_cap) of the spmd wrapper on ``model``'s rank block, or None.
+
+    The exchange's ghost width H buys k_cap = (H - 1) // stages substeps on
+    the widened block: each substep spoils ``stages`` rings of it, and the
+    velocity sampled at its edge spoils one more, once. With k rarely above
+    the K_MAX = 3 substeps of one transport_tiled launch, the first H from
+    8 up that gives k_cap >= K_MAX serves one launch per exchange; the
+    strips are slices of the block, so H may not exceed it, and a smaller
+    block takes the largest H that still gives k_cap >= 1. rk3 raises in
+    the kernel, so it gets None (the staged path).
+    """
+    tr, mesh = model.transport, model.mesh
+    if tr.scheme not in _STAGES:
+        return None
+    stages = _STAGES[tr.scheme][0]
+    limit = min(mesh.nx, mesh.ny)
+    for H in (8, 16, 24, 32):
+        if (H - 1) // stages >= K_MAX and H <= limit:
+            return H, (H - 1) // stages
+    H = limit
+    return (H, (H - 1) // stages) if H >= stages + 1 else None
+
+
+def _widen(model, f, H: int):
+    """``f``'s last two axes widened by H ghost cells from the rank's
+    neighbours: one strip pair per axis."""
+    ax_x, ax_y = model.spmd
+    f = halo_widen(f, H, f.ndim - 2, False, ax_x)
+    return halo_widen(f, H, f.ndim - 1, False, ax_y)
+
+
+def widen_velocity(model, u, v, H: int = None):
+    """(2, nx + 2H, ny + 2H): the rank's (u, v) widened by H, by default the
+    spmd wrapper's (``transport_tiled_spmd_config``; raises where there is
+    none). The dynamics phase samples the CFL speeds from it and passes it
+    on to ``transport_substeps_tiled_spmd``."""
+    if H is None:
+        config = transport_tiled_spmd_config(model)
+        if config is None:
+            raise NotImplementedError(
+                f"no spmd tiled transport for {model.transport.scheme} on a "
+                f"{model.mesh.nx} x {model.mesh.ny} block"
+            )
+        H = config[0]
+    return _widen(model, torch.stack([u, v]), H)
+
+
+def transport_substeps_tiled_spmd(
+    model, tracers, velocity_w, dt_sub: float, k: int, face_masks=None,
+):
+    """The rank's tracers after k limited substeps (``model``: the rank's
+    ``CoupledModel``; ``tracers`` (3, T, nx, ny) and ``face_masks`` its
+    block's; ``velocity_w`` its (u, v) widened by H, from
+    ``widen_velocity``, which fixes H). Per exchange round: widen the
+    tracers by H ghost cells (one strip pair per axis), run up to
+    k_cap = (H - 1) // stages substeps on the widened block with
+    ``transport_substeps_tiled`` (transport_tiled on a card, the plain
+    version on the CPU), keep the interior. The face masks are widened
+    once. The global walls: the wall-face zeroing of the first block is
+    baked into the face masks before they are widened, and beyond a global
+    wall the strips are zeros (no velocity, no face), so no flux crosses
+    it, as on one domain.
+    """
+    mesh, tr = model.mesh, model.transport
+    ax_x, ax_y = model.spmd
+    nx, ny = mesh.nx, mesh.ny
+    H = (velocity_w.shape[-2] - nx) // 2
+    if tr.scheme not in _STAGES:
+        raise NotImplementedError(f"no spmd tiled transport for {tr.scheme}")
+    k_cap = (H - 1) // _STAGES[tr.scheme][0]
+    if velocity_w.shape != (2, nx + 2 * H, ny + 2 * H) or k_cap < 1 or H > min(nx, ny):
+        raise ValueError(
+            f"a velocity widened to {tuple(velocity_w.shape)} does not fit a "
+            f"{nx} x {ny} block for {tr.scheme}"
+        )
+
+    ones = torch.ones_like(tracers[0, 0])
+    fx, fy = (ones, ones) if face_masks is None else face_masks
+    fx, fy = fx.clone(), fy.clone()
+    if is_global_edge("first", ax_x):
+        fx[0, :] = 0.0
+    if is_global_edge("first", ax_y):
+        fy[:, 0] = 0.0
+    faces_w = _widen(model, torch.stack([fx, fy]), H)
+    local = model.widened_transport(H)
+    done = 0
+    while done < k:
+        n_sub = min(k_cap, k - done)
+        padded = transport_substeps_tiled(
+            local, _widen(model, tracers, H), velocity_w[0], velocity_w[1], dt_sub, n_sub,
+            (faces_w[0], faces_w[1]),
+        )
+        tracers = padded[:, :, H: H + nx, H: H + ny]
+        done += n_sub
+    return tracers.contiguous()

@@ -40,7 +40,9 @@ class RectMesh:
         periodic_x: bool = False, periodic_y: bool = False,
     ) -> None:
         if periodic_x or periodic_y:
-            raise NotImplementedError("periodic meshes are not ported yet")
+            raise NotImplementedError(
+                "periodic meshes are not ported yet (ROADMAP M7b; on a rank grid M10b)"
+            )
         self.nx = int(nx)
         self.ny = int(ny)
         if self.nx < 1 or self.ny < 1:

@@ -23,6 +23,14 @@ a float32 state never promotes.
 The subcycle is split in two halves, ``stress_update`` (per element) and
 ``velocity_update`` (per node): they are the plain versions of the two CUDA
 kernels in ``dynamics.kernels.coupled_cuda``.
+
+On a rank grid (``nextsimdg_tpu_torch.parallel``) the solver holds one
+rank's block of a uniform mesh and its ``spmd`` exchange axes, and runs the
+N subcycles on one of the JAX package's exchange schedules
+(``MEVPSolver.schedule``): ``"blocked"`` widens the block by h ghost cells
+once per h subcycles (``mevp_tiled`` on the widened block on a card),
+``"rdma"`` runs the overlapped round of K7 (``kernels.mevp_rdma_cuda``),
+``"xla"`` exchanges width-1 halos in every subcycle (the plain path).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from dataclasses import dataclass
 import torch
 
 from .mesh import RectMesh, device_metric_planes
-from .stencil import shift_m, shift_p
+from .stencil import halo_widen, is_global_edge, shift_m, shift_p
 
 
 @dataclass(frozen=True)
@@ -102,31 +110,88 @@ def _div(c: float, t: torch.Tensor) -> torch.Tensor:
     return torch.div(t.new_full((), c), t)
 
 
-def cell_to_node(cell, periodic_x: bool = False, periodic_y: bool = False):
+def cell_to_node(cell, periodic_x: bool = False, periodic_y: bool = False, spmd=(None, None)):
     """Average the 4 adjacent element values to each owned node.
 
     Lumped-mass CG1 projection. Closed boundaries zero-fill the missing
-    neighbours (those nodes are Dirichlet-masked anyway).
+    neighbours (those nodes are Dirichlet-masked anyway). ``spmd``: the
+    rank's (x, y) exchange axes on a rank grid.
     """
-    cm_x = shift_m(cell, 0, periodic_x)
-    cm_y = shift_m(cell, 1, periodic_y)
-    cm_xy = shift_m(cm_x, 1, periodic_y)
+    cm_x = shift_m(cell, 0, periodic_x, spmd[0])
+    cm_y = shift_m(cell, 1, periodic_y, spmd[1])
+    cm_xy = shift_m(cm_x, 1, periodic_y, spmd[1])
     return 0.25 * (cell + cm_x + cm_y + cm_xy)
 
 
-class MEVPSolver:
-    """The CG1 mEVP solver on a closed ``RectMesh`` or ``SphericalMesh``."""
+#: mEVP schedules of a rank grid; "auto" is "blocked", as in the JAX package.
+SPMD_BACKENDS = ("auto", "blocked", "rdma", "xla")
+#: Ghost width h of the blocked and rdma schedules (subcycles per exchange),
+#: the JAX package's default; chip_smoke.py times 4, 8 and 16 at config 5's
+#: blocks (PERF.md).
+BLOCK_HALO = 16
 
-    def __init__(self, mesh: RectMesh, params: MEVPParams = MEVPParams()) -> None:
+
+class MEVPSolver:
+    """The CG1 mEVP solver on a closed ``RectMesh`` or ``SphericalMesh``.
+
+    ``spmd``: on a rank grid, this rank's (x, y) ``AxisExchange`` pair
+    (``RankExchange.axes``) and its block of a uniform mesh as ``mesh``;
+    ``backend`` (one of ``SPMD_BACKENDS``) and ``block_halo`` (ghost cells
+    per exchange; "auto": ``BLOCK_HALO``, at most half the block) then pick
+    the exchange schedule. Without a rank grid the kernel schedule is chosen by
+    ``CoupledModel`` and ``backend`` must stay "auto".
+    """
+
+    def __init__(
+        self, mesh: RectMesh, params: MEVPParams = MEVPParams(), backend: str = "auto",
+        spmd=(None, None), block_halo="auto",
+    ) -> None:
         if mesh.periodic_x or mesh.periodic_y:
             raise NotImplementedError("only closed meshes are ported")
         if params.a_weighted_stress:
             raise NotImplementedError("a_weighted_stress is not ported yet")
         if params.adaptive_alpha:
             raise NotImplementedError("adaptive_alpha is not ported yet")
+        self.spmd = tuple(spmd)
+        on_grid = any(axis is not None for axis in self.spmd)
+        if backend not in (SPMD_BACKENDS if on_grid else ("auto",)):
+            raise ValueError(
+                f"backend {backend!r}: a rank grid takes one of {SPMD_BACKENDS}, "
+                "a single domain only 'auto' (CoupledModel picks its kernels)"
+            )
+        if on_grid and not mesh.uniform:
+            raise NotImplementedError(
+                "rank grids run uniform meshes; graded and spherical blocks "
+                "(LocalMeshView) are ROADMAP M10b"
+            )
         self.mesh = mesh
         self.params = params
+        self.backend = backend
+        if block_halo == "auto":  # at most half the block: the rdma round's limit
+            block_halo = max(1, min(BLOCK_HALO, mesh.nx // 2, mesh.ny // 2))
+        self.block_halo = int(block_halo)
+        if on_grid and not 1 <= self.block_halo <= min(mesh.nx, mesh.ny):
+            raise ValueError(
+                f"block_halo {self.block_halo} must lie in [1, {min(mesh.nx, mesh.ny)}] "
+                "(the exchange strips are slices of the block)"
+            )
         self._metric = {}
+
+    @property
+    def on_rank_grid(self) -> bool:
+        return any(axis is not None for axis in self.spmd)
+
+    def local(self) -> "MEVPSolver":
+        """This solver on the same block without an exchange: its shifts
+        zero-fill at the block's edges (the inner solver of the exchange
+        schedules)."""
+        return MEVPSolver(self.mesh, self.params)
+
+    def schedule(self) -> str:
+        """The exchange schedule on a rank grid: "blocked", "rdma" or "xla"."""
+        if not self.on_rank_grid:
+            raise ValueError("only a solver on a rank grid has an exchange schedule")
+        return "blocked" if self.backend == "auto" else self.backend
 
     def metric_planes(self, *, device, dtype):
         """None when uniform; else dict(area, node_area, inv_w, inv_dx,
@@ -161,11 +226,12 @@ class MEVPSolver:
         mesh.
         """
         px, py = self.mesh.periodic_x, self.mesh.periodic_y
+        ax_x, ax_y = self.spmd
         u00, v00 = u, v
-        u10, v10 = shift_p(u, 0, px), shift_p(v, 0, px)
-        u01, v01 = shift_p(u, 1, py), shift_p(v, 1, py)
-        u11 = shift_p(u10, 1, py)
-        v11 = shift_p(v10, 1, py)
+        u10, v10 = shift_p(u, 0, px, ax_x), shift_p(v, 0, px, ax_x)
+        u01, v01 = shift_p(u, 1, py, ax_y), shift_p(v, 1, py, ax_y)
+        u11 = shift_p(u10, 1, py, ax_y)
+        v11 = shift_p(v10, 1, py, ax_y)
         if metric is not None:
             inv_dx, inv_dy = metric
             du_dx = 0.5 * ((u10 - u00) + (u11 - u01)) * inv_dx
@@ -193,12 +259,13 @@ class MEVPSolver:
         weighted by its own half face length before the corner gather.
         """
         px, py = self.mesh.periodic_x, self.mesh.periodic_y
+        ax_x, ax_y = self.spmd
         if metric is not None:
             half_dx, half_dy = metric
 
             def corners(w):
-                wm_x = shift_m(w, 0, px)
-                return wm_x, shift_m(w, 1, py), shift_m(wm_x, 1, py)
+                wm_x = shift_m(w, 0, px, ax_x)
+                return wm_x, shift_m(w, 1, py, ax_y), shift_m(wm_x, 1, py, ax_y)
 
             def scatter_x_m(cell):
                 w = cell * half_dy
@@ -216,22 +283,22 @@ class MEVPSolver:
         dx, dy = self.mesh.dx, self.mesh.dy
 
         def shifts(cell):
-            cm_x = shift_m(cell, 0, px)
-            cm_y = shift_m(cell, 1, py)
-            cm_xy = shift_m(cm_x, 1, py)
+            cm_x = shift_m(cell, 0, px, ax_x)
+            cm_y = shift_m(cell, 1, py, ax_y)
+            cm_xy = shift_m(cm_x, 1, py, ax_y)
             return cm_x, cm_y, cm_xy
 
         def scatter_x(cell, sh=None):
             if sh is None:
-                t = cell + shift_m(cell, 1, py)
-                return 0.5 * dy * (t - shift_m(t, 0, px))
+                t = cell + shift_m(cell, 1, py, ax_y)
+                return 0.5 * dy * (t - shift_m(t, 0, px, ax_x))
             cm_x, cm_y, cm_xy = sh
             return 0.5 * dy * ((cm_y + cell) - (cm_xy + cm_x))
 
         def scatter_y(cell, sh=None):
             if sh is None:
-                t = cell + shift_m(cell, 0, px)
-                return 0.5 * dx * (t - shift_m(t, 1, py))
+                t = cell + shift_m(cell, 0, px, ax_x)
+                return 0.5 * dx * (t - shift_m(t, 1, py, ax_y))
             cm_x, cm_y, cm_xy = sh
             return 0.5 * dx * ((cm_x + cell) - (cm_xy + cm_y))
 
@@ -247,8 +314,11 @@ class MEVPSolver:
     ) -> VelocityState:
         consts = self.step_consts(state, h, a, forcing, mask, dt)
         carry = (state.u, state.v, state.s11, state.s22, state.s12)
-        for _ in range(n_subcycles):
-            carry = self.subcycle_body(carry, consts, dt)
+        if self.on_rank_grid:
+            carry = self.spmd_subcycles(carry, consts, dt, n_subcycles)
+        else:
+            for _ in range(n_subcycles):
+                carry = self.subcycle_body(carry, consts, dt)
         u, v, s11, s22, s12 = carry
         return VelocityState(u=u, v=v, s11=s11, s22=s22, s12=s12)
 
@@ -269,10 +339,10 @@ class MEVPSolver:
         metric = self.metric_planes(device=h.device, dtype=h.dtype)
         if metric is None:
             cell_area = torch.full_like(h, self.mesh.cell_area)
-            node_area = cell_to_node(cell_area, px, py)
+            node_area = cell_to_node(cell_area, px, py, self.spmd)
         else:
             cell_area, node_area = metric["area"], metric["node_area"]
-        m_node = p.rho_ice * cell_to_node(h * cell_area, px, py) / node_area
+        m_node = p.rho_ice * cell_to_node(h * cell_area, px, py, self.spmd) / node_area
         ice_node = m_node > p.min_ice_mass
         m_safe = torch.clamp(m_node, min=p.min_ice_mass)
 
@@ -381,8 +451,103 @@ class MEVPSolver:
 
     def boundary_mask(self, *, device, dtype):
         """1 on interior owned nodes, 0 on the no-slip walls i = 0, j = 0
-        (the i = nx / j = ny nodes are implicit and always zero)."""
+        (the i = nx / j = ny nodes are implicit and always zero). On a rank
+        grid only the block that owns the global first row (column) pins
+        its row 0 (column 0): the mask rides ``inv_drag``, so pinning an
+        interior rank boundary would freeze the velocity there."""
         mask = torch.ones((self.mesh.nx, self.mesh.ny), device=device, dtype=dtype)
-        mask[0, :] = 0.0
-        mask[:, 0] = 0.0
+        if is_global_edge("first", self.spmd[0]):
+            mask[0, :] = 0.0
+        if is_global_edge("first", self.spmd[1]):
+            mask[:, 0] = 0.0
         return mask
+
+    # -- the exchange schedules of a rank grid --------------------------------
+    def spmd_subcycles(self, carry, consts, dt: float, n_subcycles: int):
+        """(u, v, s11, s22, s12) after N subcycles on this rank's block, on
+        the solver's exchange schedule (``schedule``). CPU tensors run the
+        plain subcycle inside each schedule; CUDA tensors the kernels.
+        ``"xla"`` is the plain path and takes CPU tensors only."""
+        from .kernels.coupled_cuda import _on_cpu
+
+        schedule = self.schedule()
+        if schedule == "blocked":
+            return self._blocked_subcycles(carry, consts, dt, n_subcycles)
+        if schedule == "rdma":
+            return self._rdma_subcycles(carry, consts, dt, n_subcycles)
+        carry = tuple(carry)
+        if not _on_cpu(carry[0]):
+            raise NotImplementedError(
+                "the per-subcycle width-1 exchange ('xla') is the plain path and "
+                "takes CPU tensors; on a card a rank grid runs 'blocked' or 'rdma'"
+            )
+        for _ in range(n_subcycles):
+            carry = self.subcycle_body(carry, consts, dt)
+        return carry
+
+    def _blocked_subcycles(self, carry, consts, dt: float, n_subcycles: int):
+        """Ghost-zone ("temporally blocked") exchange: widen the 7 consts by h
+        ghost cells once per step and the 5 state planes once per round (one
+        strip pair per axis each), run min(h, remaining) subcycles on the
+        widened block with closed shifts (global walls arrive as zero strips),
+        keep the interior. Each subcycle spoils one ghost ring, so the
+        interior equals the per-subcycle exchange exactly.
+
+        The widened block runs ``mevp_tiled`` on a card (the inner engine on
+        a uniform mesh: the single-device rule, ``coupled.TILED_MIN_ELEMENTS``,
+        takes it from 64^2 up, below every rank block of config 5; K4 is not
+        needed here) and the plain subcycle on the CPU.
+        """
+        from .kernels.mevp_tiled_cuda import mevp_subcycles_tiled
+
+        h = self.block_halo
+        nx, ny = self.mesh.nx, self.mesh.ny
+        ax_x, ax_y = self.spmd
+
+        def widen(f):  # stacked planes: one strip pair per axis for all
+            f = halo_widen(f, h, 1, self.mesh.periodic_x, ax_x)
+            return halo_widen(f, h, 2, self.mesh.periodic_y, ax_y)
+
+        local = MEVPSolver(RectMesh(nx + 2 * h, ny + 2 * h, self.mesh.dx, self.mesh.dy), self.params)
+        consts_w = dict(zip(consts, widen(torch.stack(list(consts.values())))))
+        state = torch.stack(list(carry))
+        remaining = n_subcycles
+        while remaining > 0:
+            n_sub = min(h, remaining)
+            remaining -= n_sub
+            padded = mevp_subcycles_tiled(local, tuple(widen(state)), consts_w, dt, n_sub)
+            state = torch.stack(padded)[:, h: h + nx, h: h + ny]
+        return tuple(state.contiguous())
+
+    def _rdma_subcycles(self, carry, consts, dt: float, n_subcycles: int):
+        """Ghost-zone rounds whose strips travel while the interior computes
+        (``kernels.mevp_rdma_cuda.mevp_round_rdma``, K7). The consts are
+        widened once per step along the split axes (7 planes per 100
+        subcycles: not worth hiding); every round's 5 state strips ride the
+        exchange behind the interior pass, corners via the x-then-extended-y
+        exchange. An axis with one rank is not split: its walls are the
+        block's own zero edges."""
+        from .kernels.mevp_rdma_cuda import mevp_round_rdma
+
+        h = self.block_halo
+        axes, consts_w = self.rdma_round_inputs(consts)
+        local = self.local()
+        remaining = n_subcycles
+        carry = tuple(carry)
+        while remaining > 0:
+            n_sub = min(h, remaining)
+            remaining -= n_sub
+            carry = mevp_round_rdma(local, carry, consts, consts_w, dt, n_sub, h, axes)
+        return carry
+
+    def rdma_round_inputs(self, consts):
+        """(axes, consts_w) of the rdma rounds of a step: the (x, y)
+        exchange of each axis split over ranks (None for an axis of one
+        rank), and the consts widened by h along the split axes."""
+        h = self.block_halo
+        axes = tuple(ax if ax is not None and ax.size > 1 else None for ax in self.spmd)
+        stacked = torch.stack(list(consts.values()))
+        for axis, exchange in enumerate(axes):
+            if exchange is not None:
+                stacked = halo_widen(stacked, h, axis + 1, False, exchange)
+        return axes, dict(zip(consts, stacked))

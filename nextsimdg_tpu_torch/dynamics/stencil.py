@@ -12,6 +12,13 @@ All dynamics fields use the *owned* layout: tensors are exactly (..., nx, ny).
 
 The CUDA kernels follow the same contract: a read beyond nx or ny (or
 below 0) is a zero, never a clamped index.
+
+On a rank grid (``nextsimdg_tpu_torch.parallel``) a tensor is one rank's
+block of the global domain. Each function then takes that rank's
+``AxisExchange`` for the shifted axis (``RankExchange.axes[0]`` for x,
+``[1]`` for y) where the JAX package takes a device-mesh axis name: the
+missing slice comes from the neighbour rank, and a closed global wall
+receives zeros. With none given they act on the whole domain.
 """
 
 from __future__ import annotations
@@ -25,27 +32,65 @@ def _zero_slab(f: torch.Tensor, axis: int) -> torch.Tensor:
     return f.new_zeros(shape)
 
 
-def shift_p(f: torch.Tensor, axis: int, periodic: bool) -> torch.Tensor:
-    """f[i+1] along ``axis``: the +1 neighbour; zero-filled when closed."""
+def shift_p(f: torch.Tensor, axis: int, periodic: bool, exchange=None) -> torch.Tensor:
+    """f[i+1] along ``axis``: the +1 neighbour; zero-filled when closed.
+
+    With ``exchange`` the last slice is the +1 neighbour rank's first
+    (zeros on the rank at the global last wall).
+    """
+    n = f.shape[axis]
+    if exchange is not None:
+        _, recv = exchange.wait(exchange.start(f.narrow(axis, 0, 1), None))
+        return torch.cat([f.narrow(axis, 1, n - 1), recv], dim=axis)
     if periodic:
         return torch.roll(f, -1, dims=axis)
-    n = f.shape[axis]
     return torch.cat([f.narrow(axis, 1, n - 1), _zero_slab(f, axis)], dim=axis)
 
 
-def shift_m(f: torch.Tensor, axis: int, periodic: bool) -> torch.Tensor:
-    """f[i-1] along ``axis``: the -1 neighbour; zero-filled when closed."""
+def shift_m(f: torch.Tensor, axis: int, periodic: bool, exchange=None) -> torch.Tensor:
+    """f[i-1] along ``axis``: the -1 neighbour; zero-filled when closed.
+
+    With ``exchange`` the first slice is the -1 neighbour rank's last
+    (zeros on the rank at the global first wall).
+    """
+    n = f.shape[axis]
+    if exchange is not None:
+        recv, _ = exchange.wait(exchange.start(None, f.narrow(axis, n - 1, 1)))
+        return torch.cat([recv, f.narrow(axis, 0, n - 1)], dim=axis)
     if periodic:
         return torch.roll(f, 1, dims=axis)
-    n = f.shape[axis]
     return torch.cat([_zero_slab(f, axis), f.narrow(axis, 0, n - 1)], dim=axis)
 
 
-def is_global_edge(side: str) -> bool:
-    """Whether this block owns the global first/last row along an axis.
+def halo_widen(f: torch.Tensor, h: int, axis: int, periodic: bool, exchange=None) -> torch.Tensor:
+    """``f`` extended by h-wide neighbour strips on both sides of ``axis``.
 
-    Always True: the port runs on one device, so its block is the domain.
+    One strip pair per axis for h subcycles: the ghost-zone ("temporally
+    blocked") exchange of the blocked mEVP and the spmd tiled transport.
+    Without ``exchange`` (or at a closed global wall) the strips are zeros,
+    the wall condition; periodic axes wrap. Widening axis 0 first and then
+    axis 1 of the result fills the corners: the second exchange carries
+    the first one's strips.
     """
+    n = f.shape[axis]
+    if h > n:
+        raise ValueError(f"halo {h} is wider than the block ({n} along axis {axis})")
+    lo_strip, hi_strip = f.narrow(axis, 0, h), f.narrow(axis, n - h, h)
+    if exchange is not None:
+        lo, hi = exchange.wait(exchange.start(lo_strip, hi_strip))
+    elif periodic:
+        lo, hi = hi_strip, lo_strip
+    else:
+        lo, hi = torch.zeros_like(hi_strip), torch.zeros_like(lo_strip)
+    return torch.cat([lo, f, hi], dim=axis)
+
+
+def is_global_edge(side: str, exchange=None) -> bool:
+    """Whether this block owns the global first or last slice along the
+    axis of ``exchange``: always True without one (the block is the
+    domain)."""
     if side not in ("first", "last"):
         raise ValueError(f"side must be 'first' or 'last', got {side!r}")
-    return True
+    if exchange is None:
+        return True
+    return exchange.index == 0 if side == "first" else exchange.index == exchange.size - 1

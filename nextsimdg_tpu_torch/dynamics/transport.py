@@ -22,6 +22,13 @@ volume term multiplies by ``inv_dx``/``inv_dy``, each owned face flux is
 weighted by its face length before the neighbour shift (``face_x``,
 ``face_y``, so both sides of a face exchange the same amount) and the
 edge terms divide by the element area (``inv_area``).
+
+On a rank grid (``nextsimdg_tpu_torch.parallel``) the operator holds one
+rank's block of a uniform mesh and its ``spmd`` exchange axes: the
+neighbour shifts exchange width-1 halos and only the block that owns the
+global first row (column) closes its wall face. The coupled step on a card
+advects with ``transport_tiled`` on a widened block instead
+(``kernels.transport_tiled_cuda.transport_substeps_tiled_spmd``).
 """
 
 from __future__ import annotations
@@ -57,15 +64,18 @@ def apply_table(table, arr):
     return torch.stack(outs)
 
 
-def face_masks_from_land(ocean_mask, periodic_x: bool = False, periodic_y: bool = False):
+def face_masks_from_land(
+    ocean_mask, periodic_x: bool = False, periodic_y: bool = False, spmd=(None, None),
+):
     """Impermeable-face masks from an element ocean mask (1 = ocean, 0 = land).
 
     A face carries flux only if both adjacent elements are ocean. Returns
     (face_x, face_y), each (nx, ny) in the owned-edge layout, multiplying
-    the upwind fluxes.
+    the upwind fluxes. ``spmd``: the rank's (x, y) exchange axes on a rank
+    grid (``ocean_mask`` is then the rank's block).
     """
-    left = shift_m(ocean_mask, 0, periodic_x)
-    below = shift_m(ocean_mask, 1, periodic_y)
+    left = shift_m(ocean_mask, 0, periodic_x, spmd[0])
+    below = shift_m(ocean_mask, 1, periodic_y, spmd[1])
     return ocean_mask * left, ocean_mask * below
 
 
@@ -101,17 +111,20 @@ def sampling_weights(basis: DGBasis):
     return vol, edge
 
 
-def velocity_from_cg(mesh: RectMesh, basis: DGBasis, u, v) -> QuadVelocity:
+def velocity_from_cg(mesh: RectMesh, basis: DGBasis, u, v, spmd=(None, None)) -> QuadVelocity:
     """Sample a CG1 nodal velocity (owned-node layout) at the quadrature
-    points: bilinear within each element, single-valued on shared faces."""
+    points: bilinear within each element, single-valued on shared faces.
+    ``spmd``: the rank's (x, y) exchange axes on a rank grid (the +1 nodes
+    beyond the block are the neighbour ranks')."""
     px, py = mesh.periodic_x, mesh.periodic_y
+    ax_x, ax_y = spmd
     w_vol, w_edge = sampling_weights(basis)
 
     def bilinear(f):
         f00 = f
-        f10 = shift_p(f, 0, px)
-        f01 = shift_p(f, 1, py)
-        f11 = shift_p(f10, 1, py)
+        f10 = shift_p(f, 0, px, ax_x)
+        f01 = shift_p(f, 1, py, ax_y)
+        f11 = shift_p(f10, 1, py, ax_y)
         return torch.stack([
             f00 * w[0] + f10 * w[1] + f01 * w[2] + f11 * w[3] for w in w_vol
         ])
@@ -119,8 +132,8 @@ def velocity_from_cg(mesh: RectMesh, basis: DGBasis, u, v) -> QuadVelocity:
     vx_vol = bilinear(u)
     vy_vol = bilinear(v)
     # Left face of element i: linear in y between nodes (i, j) and (i, j+1).
-    u_up = shift_p(u, 1, py)
-    v_right = shift_p(v, 0, px)
+    u_up = shift_p(u, 1, py, ax_y)
+    v_right = shift_p(v, 0, px, ax_x)
     vn_x = torch.stack([u * w[0] + u_up * w[1] for w in w_edge])
     vn_y = torch.stack([v * w[0] + v_right * w[1] for w in w_edge])
     return QuadVelocity(vx_vol=vx_vol, vy_vol=vy_vol, vn_x=vn_x, vn_y=vn_y)
@@ -166,13 +179,22 @@ def cfl_substeps(
 
 class DGTransport:
     """The dG1 transport operator for one closed mesh (uniform, graded or
-    spherical)."""
+    spherical). ``spmd``: on a rank grid, the rank's (x, y) exchange axes,
+    with its block of a uniform mesh as ``mesh``."""
 
-    def __init__(self, mesh: RectMesh, degree: int = 1, scheme: str = None) -> None:
+    def __init__(
+        self, mesh: RectMesh, degree: int = 1, scheme: str = None, spmd=(None, None),
+    ) -> None:
         if degree != 1:
             raise NotImplementedError("only dG1 transport is ported yet")
         if mesh.periodic_x or mesh.periodic_y:
             raise NotImplementedError("only closed meshes are ported")
+        self.spmd = tuple(spmd)
+        if any(axis is not None for axis in self.spmd) and not mesh.uniform:
+            raise NotImplementedError(
+                "rank grids run uniform meshes; graded and spherical blocks "
+                "(LocalMeshView) are ROADMAP M10b"
+            )
         self.mesh = mesh
         self._metric = {}
         self.basis = dg_basis(degree)
@@ -268,11 +290,12 @@ class DGTransport:
 
         # Upwind edge fluxes, x-direction (owned left-face edges).
         px, py = mesh.periodic_x, mesh.periodic_y
+        ax_x, ax_y = self.spmd
         tr_x1 = apply_table(self._psi_x1, psi)  # right-face traces
         tr_x0 = apply_table(self._psi_x0, psi)  # left-face traces
-        left_of_edge = shift_m(tr_x1, x_axis, px)
+        left_of_edge = shift_m(tr_x1, x_axis, px, ax_x)
         g_x = vn_x * torch.where(vn_x >= 0, left_of_edge, tr_x0)
-        if not px and is_global_edge("first"):
+        if not px and is_global_edge("first", ax_x):
             # Closed domain: the global i = 0 face is an impermeable wall
             # (g_x is a fresh tensor, so zeroing it in place is safe).
             g_x.narrow(x_axis, 0, 1).zero_()
@@ -282,7 +305,7 @@ class DGTransport:
             # The owned face's length before the shift: both sides of a
             # shared face integrate the same length * flux (conservative).
             g_x = g_x * metric["face_x"]
-        g_right = shift_p(g_x, x_axis, px)
+        g_right = shift_p(g_x, x_axis, px, ax_x)
         edge_x = (
             apply_table(self._wa_x1.T, g_right) - apply_table(self._wa_x0.T, g_x)
         )
@@ -291,15 +314,15 @@ class DGTransport:
         # Upwind edge fluxes, y-direction (owned bottom-face edges).
         tr_y1 = apply_table(self._psi_y1, psi)  # top-face traces
         tr_y0 = apply_table(self._psi_y0, psi)  # bottom
-        below = shift_m(tr_y1, y_axis, py)
+        below = shift_m(tr_y1, y_axis, py, ax_y)
         g_y = vn_y * torch.where(vn_y >= 0, below, tr_y0)
-        if not py and is_global_edge("first"):
+        if not py and is_global_edge("first", ax_y):
             g_y.narrow(y_axis, 0, 1).zero_()
         if face_masks is not None:
             g_y = g_y * face_masks[1]
         if metric is not None:
             g_y = g_y * metric["face_y"]
-        g_top = shift_p(g_y, y_axis, py)
+        g_top = shift_p(g_y, y_axis, py, ax_y)
         edge_y = (
             apply_table(self._wa_y1.T, g_top) - apply_table(self._wa_y0.T, g_y)
         )

@@ -9,7 +9,9 @@ planes for the CG1 solver, and for the CG2/dG1 solver
 ``{u: {v, b, l, c}, v: {v, b, l, c}, s11, s22, s12}`` with (3, nx, ny)
 stresses. The ``*_to_numpy``
 functions read any object with the fields whose leaves numpy can convert
-(a torch tensor, or an array of the JAX package).
+(a torch tensor, or an array of the JAX package). The ``*_rank_blocks``
+functions carry a global state or forcing into the rank blocks of a
+``parallel.RankGrid`` and back.
 """
 
 from __future__ import annotations
@@ -157,3 +159,25 @@ def mesh_from_description(d: dict):
         d["nx"], d["ny"], d["lon0"], d["lon1"], d["lat0"], d["lat1"],
         radius=d.get("radius", EARTH_RADIUS),
     )
+
+
+# -- rank grids ---------------------------------------------------------------
+def coupled_state_to_rank_blocks(d: dict, grid, *, dtype):
+    """The rank blocks (one ``CoupledState`` per rank, on its device) of a
+    global state given as numpy leaves (``coupled_state_to_numpy``)."""
+    return grid.split_tree(coupled_state_from_numpy(d, device="cpu", dtype=dtype))
+
+
+def coupled_state_from_rank_blocks(blocks, grid) -> dict:
+    """The global state of a grid's rank blocks, as numpy leaves."""
+    return coupled_state_to_numpy(grid.gather_tree(blocks, device="cpu"))
+
+
+def forcing_to_rank_blocks(d: dict, grid, *, dtype):
+    """The rank blocks of a global physics ``Forcing`` given as numpy."""
+    return grid.split_tree(forcing_from_numpy(d, device="cpu", dtype=dtype))
+
+
+def dynamics_forcing_to_rank_blocks(d: dict, grid, *, dtype):
+    """The rank blocks of a global ``DynamicsForcing`` given as numpy."""
+    return grid.split_tree(dynamics_forcing_from_numpy(d, device="cpu", dtype=dtype))

@@ -1,0 +1,92 @@
+"""The coupled model on a rank grid: the counterpart of ``jax.shard_map``.
+
+Counterpart of ``nextsimdg_tpu/parallel/shardmap.py``, which builds the
+model on the per-device local block and runs its step under
+``jax.shard_map``, every neighbour access exchanging block edges over the
+device mesh. Here ``build_sharded_coupled_model`` builds one
+``CoupledModel`` per rank of a ``RankGrid`` on the rank's block, each with
+its ``RankExchange``, and every step runs each rank's ordinary
+``CoupledModel.step`` in its own thread (``exchange.run_ranks``): the
+exchanges sit inside the model code that every rank runs, as under
+``shard_map``.
+"""
+
+from __future__ import annotations
+
+from ..coupled import CoupledModel
+from ..dynamics.mesh import RectMesh
+from .exchange import run_ranks
+from .ranks import RankGrid
+
+
+class ShardedCoupledModel:
+    """The rank models of a grid and their steps.
+
+    Calling it is the global-shaped step, exactly as the JAX package's
+    ``sharded_step``: ``sharded(state, phys_forcing, dyn_forcing, dt,
+    do_dynamics=True, do_thermo=True)`` takes and returns global-shaped
+    state and forcing (split over the ranks and gathered back on the
+    device of ``state``). ``run_blocks`` keeps the rank blocks resident
+    between steps, for the timed path. On CUDA the ranks' streams start
+    after the work already issued on the caller's stream and the caller's
+    stream waits for them (``exchange.run_ranks``), so no call synchronises
+    the host.
+    """
+
+    def __init__(self, grid: RankGrid, models) -> None:
+        self.grid = grid
+        self.models = list(models)
+
+    def __call__(self, state, phys_forcing, dyn_forcing, dt: float,
+                 do_dynamics: bool = True, do_thermo: bool = True):
+        grid = self.grid
+        blocks = self.run_blocks(
+            grid.split_tree(state), grid.split_tree(phys_forcing), grid.split_tree(dyn_forcing),
+            dt, 1, do_dynamics, do_thermo,
+        )
+        return grid.gather_tree(blocks, device=state.hice.device)
+
+    def run_blocks(self, states, phys_forcings, dyn_forcings, dt: float, n_steps: int = 1,
+                   do_dynamics: bool = True, do_thermo: bool = True):
+        """``n_steps`` steps of every rank on its resident blocks (lists in
+        rank order); returns the new state blocks. Each rank runs its steps
+        in its own thread; on CUDA the caller's stream waits for them."""
+
+        def ranks_steps(rank):
+            model = self.models[rank.rank]
+            state = states[rank.rank]
+            for _ in range(n_steps):
+                state = model.step(
+                    state, phys_forcings[rank.rank], dyn_forcings[rank.rank], dt,
+                    do_dynamics, do_thermo,
+                )
+            return state
+
+        return run_ranks(self.grid.ring, ranks_steps)
+
+
+def build_sharded_coupled_model(global_mesh: RectMesh, rank_grid: RankGrid, degree: int = 1,
+                                **model_kwargs):
+    """One ``CoupledModel`` per rank of ``rank_grid`` on its block of
+    ``global_mesh``, and their step.
+
+    Returns ``(model, sharded)``: rank 0's model (its mesh is the local
+    block; ``model.initial_state`` builds a block) and the
+    ``ShardedCoupledModel``, whose call is the global-shaped step.
+    ``model_kwargs`` go to every rank's ``CoupledModel`` (``ocean_mask`` is
+    the global mask). Uniform, closed CG1 meshes only: graded and spherical
+    meshes raise ``NotImplementedError`` here, the HO solver and TVB in
+    ``CoupledModel`` (ROADMAP M10b; the port's meshes are not periodic
+    yet). A grid that does not divide the mesh raises ``ValueError``.
+    """
+    nx, ny = rank_grid.local_shape(global_mesh.nx, global_mesh.ny)
+    if not global_mesh.uniform:
+        raise NotImplementedError(
+            "graded and spherical meshes on a rank grid (LocalMeshView) are ROADMAP M10b"
+        )
+    local_mesh = RectMesh(nx, ny, global_mesh.dx, global_mesh.dy)
+    models = [
+        CoupledModel(local_mesh, degree=degree, spmd=rank, **model_kwargs)
+        for rank in rank_grid.ranks
+    ]
+    return models[0], ShardedCoupledModel(rank_grid, models)

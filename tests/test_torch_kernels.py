@@ -7,7 +7,12 @@ expected 0, failure above 1e-6 of the plane's max), on uniform meshes and
 on a spherical one with its metric planes and a coastline. The HO kernels
 ``ho_single`` and ``ho_tiled`` against their plain version and each other
 (the same bodies: expected 0), and the ``qv`` form of ``transport_tiled``
-that advects with the CG2 velocity's quadrature samples.
+that advects with the CG2 velocity's quadrature samples. On a 2 x 2 rank
+grid of 200 x 136 blocks on one card, K7's ``rdma_stage`` and ``rdma_band``
+against their plain versions launch by launch, the rdma round against the
+blocked one and the single-device ``mevp_tiled`` (bit for bit: the same
+bodies on the same values), and the decomposed coupled step against the
+single-device step (expected 0) and the decomposed plain step.
 
 These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 elsewhere. On a machine with one, run them with
@@ -31,11 +36,14 @@ from nextsimdg_tpu_torch.dynamics import mevp_ho
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hs
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as ht
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as ms
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
-from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
+from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
 from nextsimdg_tpu_torch.dynamics.transport import substeps_from_speeds
+from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, run_ranks
+from nextsimdg_tpu_torch.state import Forcing
 
 torch.set_num_threads(1)
 
@@ -369,3 +377,175 @@ def test_ho_dynamics_phase_matches_plain_and_counts_launches(device):
     assert counts["dg1_sample_cfl"] == counts["mevp_tiled"] == 0
     with pytest.raises(NotImplementedError, match="transport_tiled"):
         cc.dynamics_phase(model, carry, psi, consts, DT, 2, mevp="tiled", transport="xla")
+
+
+# -- K7 and the decomposed step on a 2 x 2 rank grid of one card ------------------
+RANKS = (2, 2)
+LOCAL = (200, 136)  # per rank: a multiple of no tile
+GLOBAL = (RANKS[0] * LOCAL[0], RANKS[1] * LOCAL[1])
+VELOCITY = ("u", "v", "s11", "s22", "s12")
+
+
+def rank_grid_inputs(device, seed=0):
+    """Seeded global mEVP planes, forcing, h and a on the card."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    planes = {k: t(rng.normal(0.0, s, GLOBAL)) for k, s in zip(VELOCITY, (0.2, 0.2, 1e3, 1e3, 1e3))}
+    for k, (m, s) in {"u_atm": (8.0, 2.0), "v_atm": (2.0, 2.0), "u_ocean": (0.0, 0.05), "v_ocean": (0.0, 0.05)}.items():
+        planes[k] = t(rng.normal(m, s, GLOBAL))
+    planes["h"], planes["a"] = t(rng.uniform(0.2, 2.0, GLOBAL)), t(rng.uniform(0.3, 1.0, GLOBAL))
+    return planes
+
+
+def on_rank_grid(device, backend, fn, h=8, seed=0):
+    """``fn(rank, solver, carry, consts)`` on every rank of a 2 x 2 grid on
+    ``device`` (its solver on ``backend``, its block of the seeded inputs and
+    its step consts); returns (grid, results in rank order)."""
+    grid = RankGrid(*RANKS, device, timeout=120)
+    parts = {k: grid.split(x) for k, x in rank_grid_inputs(device, seed).items()}
+    mesh = RectMesh(*LOCAL, 2000.0, 2000.0)
+
+    def body(rank):
+        r = rank.rank
+        solver = MEVPSolver(mesh, MEVPParams(), backend=backend, spmd=rank.axes, block_halo=h)
+        carry = tuple(parts[k][r] for k in VELOCITY)
+        forcing = DynamicsForcing(*(parts[k][r] for k in ("u_atm", "v_atm", "u_ocean", "v_ocean")))
+        mask = solver.boundary_mask(device=device, dtype=torch.float32)
+        consts = solver.step_consts(VelocityState(*carry), parts["h"][r], parts["a"][r], forcing, mask, DT)
+        return fn(rank, solver, carry, consts)
+
+    return grid, run_ranks(grid.ring, body)
+
+
+@pytest.mark.parametrize("n_sub", [1, 8])
+def test_rdma_kernels_match_plain_launch_by_launch(device, n_sub):
+    h = 8
+
+    def round_checked(rank, solver, carry, consts):
+        axes, consts_w = solver.rdma_round_inputs(consts)
+        checked = []
+
+        def stage(src, axis):
+            got = rdma.rdma_stage(src, axis)
+            checked.append(("rdma_stage", got, rdma.rdma_stage_reference(src, axis)))
+            return got
+
+        def band(local, src, axis, consts_w, dt, n, state):
+            ref = rdma.rdma_band_reference(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
+            got = rdma.rdma_band(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
+            checked.extend(("rdma_band", g, r) for g, r in zip(got, ref))
+            return got
+
+        out = rdma._round(
+            solver.local(), carry, consts, consts_w, DT, n_sub, h, axes, stage, band,
+            mt.mevp_subcycles_tiled,
+        )
+        return checked, out
+
+    cc.reset_launches()
+    _, results = on_rank_grid(device, "rdma", round_checked, h=h)
+    torch.cuda.synchronize()
+    assert cc.launches["rdma_stage"] == 2 * 4 and cc.launches["rdma_band"] == 2 * 4
+    for checked, _ in results:
+        assert [name for name, _, _ in checked].count("rdma_band") == 2 * 5
+        for name, got, ref in checked:
+            assert_close(got, ref, TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("h, n_subcycles", [(4, 11), (8, 100), (16, 37)])
+def test_rdma_round_equals_blocked_and_single_device(device, h, n_subcycles):
+    run = lambda rank, solver, carry, consts: solver.spmd_subcycles(carry, consts, DT, n_subcycles)
+    cc.reset_launches()
+    grid, rdma_out = on_rank_grid(device, "rdma", run, h=h)
+    rdma_counts = dict(cc.launches)
+    _, blocked_out = on_rank_grid(device, "blocked", run, h=h)
+    assert rdma_counts["rdma_stage"] == rdma_counts["rdma_band"] == 2 * 4 * -(-n_subcycles // h)
+    # The single-device schedule on the global grid.
+    g = rank_grid_inputs(device)
+    model = CoupledModel(RectMesh(*GLOBAL, 2000.0, 2000.0), n_subcycles=n_subcycles)
+    carry = tuple(g[k] for k in VELOCITY)
+    forcing = DynamicsForcing(g["u_atm"], g["v_atm"], g["u_ocean"], g["v_ocean"])
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(VelocityState(*carry), g["h"], g["a"], forcing, mask, DT)
+    single = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, n_subcycles)
+    for p in range(5):
+        got = grid.gather([planes[p] for planes in rdma_out])
+        assert torch.equal(got, grid.gather([planes[p] for planes in blocked_out]))
+        assert_same_schedule(got, single[p])
+
+
+def coupled_inputs(device, mesh):
+    n = mesh.nx, mesh.ny
+    full = lambda value: torch.full(n, value, device=device, dtype=torch.float32)
+    phys = Forcing(
+        tair=full(-15.0), dew2m=full(-17.0), pair=full(1e5), sw_in=full(5.0),
+        lw_in=full(240.0), mld=full(10.0), snowfall=full(1e-4), wind=full(6.0),
+    )
+    dyn = DynamicsForcing(u_atm=full(6.0), v_atm=full(3.0), u_ocean=full(0.02), v_ocean=full(0.0))
+    return phys, dyn
+
+
+def state_leaves(state):
+    for name in ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice"):
+        yield name, getattr(state, name)
+    for name in VELOCITY:
+        yield name, getattr(state.velocity, name)
+
+
+@pytest.mark.parametrize("backend", ["auto", "rdma"])
+@pytest.mark.parametrize("coast", [False, True])
+def test_decomposed_step_equals_single_device_and_matches_plain(device, backend, coast):
+    mesh = RectMesh(*GLOBAL, 4e3, 4e3)
+    ocean = synthetic_coastline(*GLOBAL) if coast else None
+    single = CoupledModel(mesh, n_subcycles=20, ocean_mask=ocean)
+    state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
+    phys, dyn = coupled_inputs(device, mesh)
+    grid = RankGrid(*RANKS, device, timeout=120)
+    model, step = build_sharded_coupled_model(
+        mesh, grid, n_subcycles=20, ocean_mask=ocean, mevp_backend=backend, mevp_block_halo=8,
+    )
+    assert (model.mevp_schedule(), model.transport_schedule()) == (
+        "rdma" if backend == "rdma" else "blocked", "tiled"
+    )
+    cc.reset_launches()
+    got = step(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    expected = single.step(state, phys, dyn, DT)
+    # The plain path on every rank: plain subcycles and transport with
+    # width-1 exchanges (the "xla" schedules, which take the plain phase).
+    blocks = [grid.split_tree(x) for x in (state, phys, dyn)]
+
+    def plain_rank(rank):
+        m, (s, p, d) = step.models[rank.rank], (b[rank.rank] for b in blocks)
+        return m.step_thermo(m.step_dynamics(s, d, DT, phase=cc.fused_dynamics_reference), p, DT)
+
+    plain = grid.gather_tree(run_ranks(grid.ring, plain_rank), device)
+    for (name, g), (_, e), (_, p) in zip(state_leaves(got), state_leaves(expected), state_leaves(plain)):
+        assert_same_schedule(g, e)
+        assert_close(g, p, 1e-3 if name in VELOCITY else 1e-5)
+    assert counts["mevp_tiled"] > 0 and counts["transport_tiled"] > 0
+    assert counts["dg1_sample_cfl"] == 4
+    if backend == "rdma":
+        assert counts["rdma_stage"] > 0 and counts["rdma_band"] > 0
+
+
+def test_rdma_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    def bad_calls(rank, solver, carry, consts):
+        axes, consts_w = solver.rdma_round_inputs(consts)
+        src = rdma.RoundSources(own=tuple(carry), h=8, split=(True, True))
+        errors = []
+        for call in (
+            lambda: rdma.rdma_stage(src, 1),  # the x ghosts have not arrived
+            lambda: rdma.rdma_band(solver.local(), src, 0, consts_w, DT, 9, list(carry)),
+            lambda: rdma.mevp_round_rdma(solver.local(), carry, consts, consts_w, DT, 9, 8, axes),
+            lambda: rdma.rdma_stage(rdma.RoundSources(tuple(c.double() for c in carry), 8, (True, True)), 0),
+        ):
+            try:
+                call()
+            except (ValueError, TypeError) as exc:
+                errors.append(type(exc))
+        return errors
+
+    _, results = on_rank_grid(device, "rdma", bad_calls)
+    assert all(errors == [ValueError, ValueError, ValueError, TypeError] for errors in results)

@@ -117,6 +117,7 @@ REPLACED = {
     "mevp_single.cu": "mevp_pallas.py::mevp_subcycles_pallas",
     "ho_single.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "ho_tiled.cu": "mevp_ho_tiled.py::ho_subcycles_tiled",
+    "mevp_rdma.cu": "mevp_rdma.py::mevp_round_rdma",
 }
 
 
