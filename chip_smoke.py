@@ -5,8 +5,16 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``nextsimdg_tpu_torch/csrc`` and
-drives the port's six main paths, float32, dG1 tracers (hice, cice,
-hsnow), 100 mEVP subcycles, dt = 600 s, CFL-adaptive transport substeps:
+drives the port's roofline path and its six model paths. The roofline path
+(``nextsimdg_tpu_torch.benchmarks.roofline``, the twin of
+``benchmarks/roofline.py``): the ``chain`` kernel (csrc/roofline.cu, the
+counterpart of the TPU kernel ``measure_vpu_peak``), a float32 chain held in
+registers, measures the card's fused float32 ceilings (fma: the TPU kernel's
+x = a*x + b; fma_imm: the addend an immediate, the FFMA issue rate) and its
+unfused one (mul_add, as the port's kernels issue), and a streaming add its
+HBM rate. The model paths run float32,
+dG1 tracers (hice, cice, hsnow), 100 mEVP subcycles, dt = 600 s,
+CFL-adaptive transport substeps:
 
 * the headline dynamics-only step (BASELINE config 3, ``bench.py``): a
   closed 256 x 256 mesh of 2 km elements, wind (8, 2) m/s, ocean current
@@ -49,7 +57,16 @@ Phases, each printed on its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: the kernels' compile (or cache hit) time, registers and spills;
-3. check: K1's four kernels against their plain PyTorch versions at 256^2,
+   and, printed after the checks (``cuobjdump -sass`` of the library runs
+   beside them), the FFMA, FMUL and FADD counts of the chain kernel's fma,
+   fma_imm and mul_add forms: --fmad=false must leave the first two fused
+   and the third unfused;
+3. roofline: the chain kernel against its plain version for every link
+   (fma, mul_add, div, sqrt, shift0, shift1, fma_imm) and both unrolls (16,
+   64), on seeded planes at 512^2 and 1000 x 968, 160 and 128 links; then,
+   from zeroed launch counts, ``measure_vpu_peak`` (fma, fma_imm, mul_add)
+   and ``measure_hbm_peak``, each rate held below the data sheet's peak;
+4. check: K1's four kernels against their plain PyTorch versions at 256^2,
    then mevp_tiled and transport_tiled against theirs and against K1's
    schedule on the same inputs, at 1024^2 and at a ragged 1000 x 968, with
    100 subcycles and with a count that is not a multiple of the halo; then
@@ -64,35 +81,35 @@ Phases, each printed on its own lines:
    (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
    launch by launch against their plain versions, and the rdma round
    against the blocked round;
-4. slice: for each path, one step on the kernels against the plain path on
+5. slice: for each path, one step on the kernels against the plain path on
    the card (the spherical one on "pallas" and on "auto", and one step of
    the uniform coastline variant ``coupled_1m_mask``; both HO paths), then
-   20 steps from
-   zeroed launch counters: every leaf finite, 0 <= cice <= 1, hice >= 0,
-   hsnow >= 0, every kernel of the path launched, and with a coastline the
-   land tracers unchanged and u = v = 0 on every node that touches land;
+   20 steps from zeroed launch counters: every leaf finite, 0 <= cice <= 1,
+   hice >= 0, hsnow >= 0, every kernel of the path launched, and with a
+   coastline the land tracers unchanged and u = v = 0 on every node that
+   touches land;
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
-   step against the decomposed plain step at 512^2, and 20 steps of each
+   step against the decomposed plain step at 512^2, and 4 steps of each
    form;
-5. time (CUDA events after warm-up): ms per step and element updates/s of
+6. time (CUDA events, each function warmed up once; a plain path, run by
+   the checks before, timed once): ms per step and element updates/s of
    each path, of the config-4 step on K1's schedule, on the tiled one and on
-   the plain path, of the physics alone, both schedules' dynamics at 64^2
-   to 1024^2 (the "auto" threshold), a tile sweep of the tiled kernels,
-   the spherical step on mevp_single, on mevp_tiled and on the plain path,
-   the two's mEVP phase and dynamics step on spherical meshes at 128^2 to
-   1024^2 (the non-uniform "auto" threshold), the HO paths' step on their
-   kernels and on the plain path, ho_single against ho_tiled on the HO mEVP
-   phase and dynamics step at 128^2 to 1024^2 (the HO "auto" threshold), a
-   tile sweep of ho_tiled, and each kernel per call against its plain
+   the plain path, of the physics alone, the spherical step on mevp_single,
+   on mevp_tiled and on the plain path, the HO paths' step on their kernels
+   and on the plain path, and each kernel per call against its plain
    version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
    rdma steps, the blocked round against the rdma round, the dynamics step
    at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles. One
    card shows what the exchange costs, not how the step scales over cards.
+   The "auto" threshold sweeps and the tile sweeps are
+   ``python -m nextsimdg_tpu_torch.benchmarks.mevp_large``'s.
 
 Any failure raises (non-zero exit); there is no CPU path. The script's wall
 time, the card's ``nvidia-smi`` name and power limit and the kernels' JSON
-summary come last but one; the last line is ``{"ok": true, "device": {...}}``.
+summary come last but one; each kernel's row carries ``bound_ms`` on the
+data sheet's peaks and ``measured_bound_ms`` on the measured HBM and
+mul_add rates. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -102,11 +119,14 @@ import re
 import subprocess
 import sys
 import time
+from dataclasses import dataclass, replace
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from nextsimdg_tpu_torch import coupled, modules
+from nextsimdg_tpu_torch.benchmarks import roofline
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics import mevp_ho
@@ -130,6 +150,10 @@ RAGGED = (1000, 968)  # a multiple of no tile
 N_SUBCYCLES = 100
 DT = 600.0
 SEED = 0
+#: Steps of each config-5 form from zeroed launch counts (20 on the other
+#: paths): every kernel of the form launches in each step, and a 2 x 2 step
+#: takes 0.2-0.4 s of host issue.
+N5_STEPS = 4
 K1 = "nextsimdg_tpu/dynamics/kernels/coupled_pallas.py:62"
 REPLACES = {
     "mevp_stress": K1, "mevp_velocity": K1, "dg1_sample_cfl": K1, "dg1_rk_stage": K1,
@@ -140,6 +164,7 @@ REPLACES = {
     "ho_tiled": "nextsimdg_tpu/dynamics/kernels/mevp_ho_tiled.py:118",
     "rdma_stage": "nextsimdg_tpu/dynamics/kernels/mevp_rdma.py:61",
     "rdma_band": "nextsimdg_tpu/dynamics/kernels/mevp_rdma.py:61",
+    "chain": "benchmarks/roofline.py:154",
 }
 SOURCES = {
     "mevp_stress": "nextsimdg_tpu_torch/csrc/mevp.cu",
@@ -153,6 +178,7 @@ SOURCES = {
     "ho_tiled": "nextsimdg_tpu_torch/csrc/ho_tiled.cu",
     "rdma_stage": "nextsimdg_tpu_torch/csrc/mevp_rdma.cu",
     "rdma_band": "nextsimdg_tpu_torch/csrc/mevp_rdma.cu",
+    "chain": "nextsimdg_tpu_torch/csrc/roofline.cu",
 }
 PATH_KERNELS = {
     "headline": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
@@ -162,6 +188,7 @@ PATH_KERNELS = {
     "ho_coupled_256": ("ho_single", "transport_tiled"),
     "multihost_16m": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled", "rdma_stage", "rdma_band"),
     "multihost_16m_blocked": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    "roofline": ("chain",),
 }
 VELOCITY = ("u", "v", "s11", "s22", "s12")
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -195,6 +222,33 @@ TOL_STEP_TRACER = 1e-5
 # order (--fmad=false), so they should equal K1's schedule exactly; 1e-6 of
 # the plane's max is the failure line.
 TOL_SAME_SCHEDULE = 1e-6
+# The chain kernel's mul_add, div, sqrt and shift links round each operation
+# as PyTorch's CUDA kernels do (IEEE divide and square root): expected 0,
+# failure above 1e-6 of the plane's max. Its fma form rounds once per link
+# where a * x + b rounds twice; the float64 chain's contraction (|a| < 1)
+# keeps the error of L links below L x 2^-24 of the plane's max, held at 2 L x
+# 2^-24 against the float64 chain.
+TOL_CHAIN = 1e-6
+#: The checks' chains: iterations per unroll, 160 and 128 links.
+CHAIN_CHECK_ITERS = {16: 10, 64: 2}
+
+
+@dataclass
+class Row:
+    """One kernel's line of the summary: its largest check error, ms per
+    call of the kernel and of its plain version, the bytes (each input read
+    once, each output written once) and float32 operations of that call,
+    the ms of one PyTorch call of the same function, where there is one,
+    and whether its operations issue as fused multiply-adds (the chain's
+    fma form; the port's kernels issue each operation on its own)."""
+
+    err: float
+    ms: float
+    plain_ms: float
+    n_bytes: float
+    n_ops: float
+    library_ms: float = None
+    fused: bool = False
 
 
 def log(phase: str, message: str) -> None:
@@ -229,11 +283,12 @@ def bound(n_bytes: float, n_ops: float) -> tuple:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean ms per call, back to back, on the device timeline (CUDA events)
-    after a warm-up call: where the host issues slower than the device
-    runs, this is the issue rate."""
-    fn()
+    after a warm-up call (none with ``warm=False``: fn ran before): where
+    the host issues slower than the device runs, this is the issue rate."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -357,14 +412,14 @@ def check_kernels(model, device) -> dict:
         "dg1_sample_cfl": (2 * 4 * n + 8, OPS["cfl"] * n),
         "dg1_rk_stage": ((9 + 9 + 4 + 9) * 4 * n, OPS["stage"] * n),
     }
-    times = {}
+    rows = {}
     for name, (kernel, plain) in timed.items():
-        times[name] = (time_ms(kernel, 200), time_ms(plain, 20), *bound(*work[name]))
+        rows[name] = Row(results[name], time_ms(kernel, 200), time_ms(plain, 20), *work[name])
         log("time", (
-            f"{name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
-            f"bound {times[name][2]:.4f} ms ({times[name][3]}) per call at {N}x{N}"
+            f"{name}: kernel {rows[name].ms:.4f} ms, plain {rows[name].plain_ms:.4f} ms, "
+            f"bound {bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]}) per call at {N}x{N}"
         ))
-    return {name: (results[name], *times[name]) for name in PATH_KERNELS["headline"]}
+    return rows
 
 
 def velocity_leaves(velocity):
@@ -502,8 +557,8 @@ def check_tiled(device) -> dict:
     plain versions and against K1's schedule, at 1024^2 and a ragged shape;
     then each per call at 1024^2 against its plain version."""
     errs = {"mevp_tiled": 0.0, "transport_tiled": 0.0}
-    for nx, ny in ((N4, N4), RAGGED):
-        model, carry, consts, psi, faces = tiled_inputs(nx, ny, device, SEED + 1)
+    inputs = {shape: tiled_inputs(*shape, device, SEED + 1) for shape in ((N4, N4), RAGGED)}
+    for (nx, ny), (model, carry, consts, psi, faces) in inputs.items():
         solver, transport = model.mevp, model.transport
         for n in (N_SUBCYCLES, 13):  # 13 = 8 + 5: not a multiple of the halo
             got = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n)
@@ -523,7 +578,7 @@ def check_tiled(device) -> dict:
             same_schedule(tag, got, cc.transport_substeps(*args))
     torch.cuda.synchronize()
 
-    model, carry, consts, psi, faces = tiled_inputs(N4, N4, device, SEED + 1)
+    model, carry, consts, psi, faces = inputs[(N4, N4)]
     solver, transport = model.mevp, model.transport
     u, v = carry[0], carry[1]
     timed = {
@@ -546,10 +601,10 @@ def check_tiled(device) -> dict:
     results = {}
     for name, (kernel, plain) in timed.items():
         ms_, plain_ms = time_ms(kernel, 50), time_ms(plain, 3)
-        results[name] = (errs[name], ms_, plain_ms, *bound(*work[name]))
+        results[name] = Row(errs[name], ms_, plain_ms, *work[name])
         log("time", (
             f"{name}: kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{results[name][3]:.4f} ms ({results[name][4]}) per call at {N4}x{N4} "
+            f"{bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]}) per call at {N4}x{N4} "
             f"({'8 subcycles' if name == 'mevp_tiled' else 'one rk2 substep'})"
         ))
     return results
@@ -566,13 +621,16 @@ def check_single(device) -> dict:
         ref = single.mevp_single_reference(model.mevp, carry, consts, DT, n)
         for name, g, r in zip(VELOCITY, got, ref):
             errs.append(compare(f"mevp_single {N}x{N} spherical N={n} {name}", g, r, TOL_LAUNCH))
-    model, carry, consts, _, _ = tiled_inputs(N, N, device, SEED + 3)
+    uniform = tiled_inputs(N, N, device, SEED + 3)
+    model, carry, consts, _, _ = uniform
     got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
     k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, N_SUBCYCLES)
     for name, g, q in zip(VELOCITY, got, k1):
         same_schedule(f"mevp_single {N}x{N} uniform N={N_SUBCYCLES} {name}", g, q)
-    for nx, ny in ((N4, N4), RAGGED):
-        model, carry, consts, _, _ = tiled_inputs(nx, ny, device, SEED + 4, spherical=True)
+    spherical = {
+        shape: tiled_inputs(*shape, device, SEED + 4, spherical=True) for shape in ((N4, N4), RAGGED)
+    }
+    for (nx, ny), (model, carry, consts, _, _) in spherical.items():
         got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
         ref = single.mevp_single_reference(model.mevp, carry, consts, DT, N_SUBCYCLES)
         tiled = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, N_SUBCYCLES)
@@ -582,7 +640,7 @@ def check_single(device) -> dict:
             same_schedule(tag, g, w, "mevp_tiled")
 
     # The metric transport kernels with the coastline, at 1024^2.
-    model, carry, _, psi, faces = tiled_inputs(N4, N4, device, SEED + 4, spherical=True)
+    model, carry, _, psi, faces = spherical[(N4, N4)]
     transport, u, v = model.transport, carry[0], carry[1]
     transport_errs = []
     for k in (1, 4):
@@ -601,7 +659,7 @@ def check_single(device) -> dict:
     torch.cuda.synchronize()
 
     # Per call at the headline's size, uniform consts: 100 subcycles.
-    model, carry, consts, _, _ = tiled_inputs(N, N, device, SEED + 3)
+    model, carry, consts, _, _ = uniform
     solver = model.mevp
     runs = time_in_turns(
         {
@@ -624,7 +682,7 @@ def check_single(device) -> dict:
         f"({bound_by}); {single.max_blocks(False, device)} resident blocks"
     ))
     return {
-        "mevp_single": (max(errs), mean["mevp_single"], mean["plain"], bound_ms, bound_by),
+        "mevp_single": Row(max(errs), mean["mevp_single"], mean["plain"], *work),
         "transport_metric": max(transport_errs),
         "dg1_rk_stage_metric": stage_err,
     }
@@ -689,11 +747,14 @@ def check_ho(device) -> dict:
             errs[kernel] = max(errs[kernel], compare(f"{tag} N={n} {name}", g, r, tol))
         return got
 
-    model, carry, consts, _, _ = ho_inputs(N, N, device, SEED + 6)
+    # The inputs at the paths' shapes serve the timings below too.
+    inputs = {N: ho_inputs(N, N, device, SEED + 6), N4: ho_inputs(N4, N4, device, SEED + 7)}
+    model, carry, consts, _, _ = inputs[N]
     for n in (1, 13, N_SUBCYCLES):
         against_plain("ho_single", hsc.ho_subcycles_single, f"ho_single {N}x{N}", model, carry, consts, n)
-    for nx, ny in ((N4, N4), RAGGED):
-        model, carry, consts, _, _ = ho_inputs(nx, ny, device, SEED + 7)
+    for (nx, ny), (model, carry, consts, _, _) in (
+        ((N4, N4), inputs[N4]), (RAGGED, ho_inputs(*RAGGED, device, SEED + 7)),
+    ):
         for n in (1, 13):  # 13 = 8 + 5: not a multiple of the halo
             against_plain("ho_tiled", htc.ho_subcycles_tiled, f"ho_tiled {nx}x{ny}", model, carry, consts, n)
     for n_side in (N, 2 * N):
@@ -705,7 +766,7 @@ def check_ho(device) -> dict:
 
     # The qv form of transport_tiled at 1024^2: the CG2 samples of a
     # velocity scaled so that k = 4 runs two launches.
-    model, carry, _, psi, faces = ho_inputs(N4, N4, device, SEED + 9)
+    model, carry, _, psi, faces = inputs[N4]
     qv_errs = []
     for k in (1, 4):
         scaled = tuple(mevp_ho.HOField(*(k * x for x in f.planes())) for f in carry[:2])
@@ -723,21 +784,22 @@ def check_ho(device) -> dict:
         ("ho_single", N, N_SUBCYCLES, hsc.ho_subcycles_single),
         ("ho_tiled", N4, htc.HALO, htc.ho_subcycles_tiled),
     ):
-        model, carry, consts, _, _ = ho_inputs(n_side, n_side, device, SEED + 10)
+        model, carry, consts, _, _ = inputs[n_side]
         solver = model.mevp
         runs = time_in_turns(
             {
                 "kernel": lambda: run(solver, carry, consts, DT, n_sub),
                 "plain": lambda: mevp_ho.ho_subcycles_reference(solver, carry, consts, DT, n_sub),
             },
-            {"kernel": 20, "plain": 1},
+            {"kernel": 20, "plain": None},
         )
         mean = {name: sum(r) / len(r) for name, r in runs.items()}
         elements = n_side * n_side
-        bound_ms, bound_by = bound(
+        work = (
             HO_PLANES_MOVED * 4 * elements, n_sub * (OPS["ho_stress"] + OPS["ho_velocity"]) * elements
         )
-        results[kernel] = (errs[kernel], mean["kernel"], mean["plain"], bound_ms, bound_by)
+        bound_ms, bound_by = bound(*work)
+        results[kernel] = Row(errs[kernel], mean["kernel"], mean["plain"], *work)
         log("time", (
             f"{kernel}: kernel {mean['kernel']:.4f} ms (runs "
             f"{', '.join(f'{m:.4f}' for m in runs['kernel'])}), plain {mean['plain']:.4f} ms, "
@@ -887,11 +949,17 @@ def report(what: str, ms: list, elements: int, card: str) -> float:
 
 
 def time_in_turns(fns: dict, reps: dict) -> dict:
-    """ms per call of each function, run in turns: a b ... b a."""
-    order = list(fns) + list(fns)[::-1]
+    """ms per call of each function, run in turns: a b ... b a, each warmed
+    up in its first turn. A function whose reps is None (a plain path,
+    100-1000x slower than the kernels, which the checks ran before at the
+    same shapes) runs once after the turns, with no warm-up."""
+    turns = [name for name in fns if reps[name]]
     runs = {name: [] for name in fns}
-    for name in order:
-        runs[name].append(time_ms(fns[name], reps[name]))
+    for i, name in enumerate(turns + turns[::-1]):
+        runs[name].append(time_ms(fns[name], reps[name], warm=i < len(turns)))
+    for name in fns:
+        if not reps[name]:
+            runs[name].append(time_ms(fns[name], 1, warm=False))
     return runs
 
 
@@ -935,29 +1003,10 @@ def time_paths(device, card: str) -> None:
                 state, forcing, DT, phase=cc.fused_dynamics_reference
             ),
         },
-        {"kernel": 10, "plain": 3},
+        {"kernel": 10, "plain": None},
     )
     for name, ms in runs.items():
         report(f"headline {name} path ({N}x{N}, {N_SUBCYCLES} subcycles)", ms, N * N, card)
-
-    # Both schedules of the dynamics step: the "auto" threshold.
-    for n, (model_k1, state, *_, dyn) in (
-        (64, bench_model(device, 64)), (128, bench_model(device, 128)),
-        (N, bench_model(device)), (N4, config4_model(device, mevp_backend="pallas")),
-    ):
-        model_tiled = CoupledModel(
-            model_k1.mesh, degree=1, n_subcycles=N_SUBCYCLES,
-            mevp_backend="pallas-tiled", transport_backend="tiled",
-        )
-        runs = time_in_turns(
-            {
-                "K1": lambda: model_k1.step_dynamics(state, dyn, DT),
-                "tiled": lambda: model_tiled.step_dynamics(state, dyn, DT),
-            },
-            {"K1": 5, "tiled": 5},
-        )
-        for name, ms in runs.items():
-            report(f"dynamics step on {name}'s schedule at {n}x{n}", ms, n * n, card)
 
     # The config-4 coupled step: tiled (auto), K1's schedule, plain; physics alone.
     model, state, phys, dyn = config4_model(device)
@@ -968,7 +1017,7 @@ def time_paths(device, card: str) -> None:
             "K1": lambda: model_k1.step(state, phys, dyn, DT),
             "plain": lambda: plain_step(model, state, phys, dyn),
         },
-        {"tiled": 10, "K1": 10, "plain": 2},
+        {"tiled": 10, "K1": 10, "plain": None},
     )
     for name, ms in runs.items():
         report(f"config4 coupled step, {name} path ({N4}x{N4})", ms, N4 * N4, card)
@@ -985,78 +1034,17 @@ def time_paths(device, card: str) -> None:
             "mevp_tiled": lambda: model_tiled.step(state, phys, dyn, DT),
             "plain": lambda: plain_step(model, state, phys, dyn),
         },
-        {"mevp_single": 10, "mevp_tiled": 10, "plain": 2},
+        {"mevp_single": 10, "mevp_tiled": 10, "plain": None},
     )
     for name, ms in runs.items():
         report(f"spherical coupled step, {name} path ({N4}x{N4})", ms, N4 * N4, card)
     profile(f"spherical coupled step on mevp_single ({N4}x{N4})", lambda: model.step(state, phys, dyn, DT))
     profile(f"spherical coupled step on mevp_tiled ({N4}x{N4})", lambda: model_tiled.step(state, phys, dyn, DT))
 
-    # mevp_single against mevp_tiled on spherical meshes: the non-uniform
-    # "auto" threshold (coupled.SINGLE_MAX_ELEMENTS).
-    for n in (128, N, 512, N4):
-        model_s, carry, consts, _, _ = tiled_inputs(n, n, device, SEED + 5, spherical=True)
-        runs = time_in_turns(
-            {
-                "mevp_single": lambda: single.mevp_subcycles_single(
-                    model_s.mevp, carry, consts, DT, N_SUBCYCLES
-                ),
-                "mevp_tiled": lambda: mt.mevp_subcycles_tiled(
-                    model_s.mevp, carry, consts, DT, N_SUBCYCLES
-                ),
-            },
-            {"mevp_single": 5, "mevp_tiled": 5},
-        )
-        for name, ms in runs.items():
-            report(f"spherical mEVP phase ({N_SUBCYCLES} subcycles) on {name} at {n}x{n}", ms, n * n, card)
-        model_s, state, _, dyn = spherical_model(device, n, mevp_backend="pallas")
-        model_t = spherical_model(device, n, mevp_backend="pallas-tiled")[0]
-        runs = time_in_turns(
-            {
-                "mevp_single": lambda: model_s.step_dynamics(state, dyn, DT),
-                "mevp_tiled": lambda: model_t.step_dynamics(state, dyn, DT),
-            },
-            {"mevp_single": 5, "mevp_tiled": 5},
-        )
-        for name, ms in runs.items():
-            report(f"spherical dynamics step on {name} at {n}x{n}", ms, n * n, card)
-
-    # Tile sweep of the tiled kernels at 1024^2: ms per call of each launch
-    # configuration that fits the 227 KB of shared memory of a block.
-    model, carry, consts, psi, faces = tiled_inputs(N4, N4, device, SEED + 1)
-    for tile, halo, threads in (
-        (64, 8, 512), (64, 8, 1024), (48, 8, 512), (48, 8, 1024), (56, 8, 1024),
-        (72, 8, 1024), (40, 8, 512), (32, 8, 256), (64, 12, 1024), (80, 4, 1024),
-    ):
-        ms = time_ms(
-            lambda: mt.mevp_subcycles_tiled(
-                model.mevp, carry, consts, DT, N_SUBCYCLES, tile=tile, halo=halo,
-                threads=threads,
-            ), 5,
-        )
-        log("time", (
-            f"sweep mevp_tiled tile {tile} halo {halo} threads {threads} "
-            f"({mt.shared_bytes(tile, halo)} B shared): {ms:.4f} ms per {N_SUBCYCLES} "
-            f"subcycles at {N4}x{N4} on {card}"
-        ))
-    u, v = carry[0], carry[1]
-    halo = tt.halo_for(1, 2)
-    for tile, threads in ((24, 512), (32, 512), (32, 768), (40, 512), (40, 768), (44, 768)):
-        ms = time_ms(
-            lambda: tt.transport_substeps_tiled(
-                model.transport, psi, u, v, DT, 1, faces, tile=tile, threads=threads
-            ), 20,
-        )
-        log("time", (
-            f"sweep transport_tiled tile {tile} halo {halo} threads {threads} "
-            f"({tt.shared_bytes(tile, halo)} B shared): {ms:.4f} ms per rk2 substep at "
-            f"{N4}x{N4} on {card}"
-        ))
-
 
 def time_ho(device, card: str) -> None:
-    """Phase 5, HO part: the HO paths' step, the two HO schedules at
-    128^2-1024^2, a tile sweep of ho_tiled and a profile of ho_coupled_1m."""
+    """Phase 5, HO part: the HO paths' step on their kernels and on the
+    plain path, and a profile of ho_coupled_1m."""
     for path, n, backend in (("ho_coupled_1m", N4, "auto"), ("ho_coupled_256", N, "pallas")):
         model, state, phys, dyn = ho_model(device, n, mevp_backend=backend)
         runs = time_in_turns(
@@ -1064,53 +1052,11 @@ def time_ho(device, card: str) -> None:
                 "kernel": lambda: model.step(state, phys, dyn, DT),
                 "plain": lambda: plain_step(model, state, phys, dyn),
             },
-            {"kernel": 10, "plain": 1},
+            {"kernel": 10, "plain": None},
         )
         for name, ms in runs.items():
             report(f"{path} coupled step, {name} path ({n}x{n}, {model.mevp_schedule()})", ms, n * n, card)
 
-    # ho_single against ho_tiled: the HO "auto" threshold
-    # (mevp_ho.HO_SINGLE_MAX_ELEMENTS), on the mEVP phase and the dynamics step.
-    for n in (N // 2, N, 2 * N, N4):
-        model_s, carry, consts, _, _ = ho_inputs(n, n, device, SEED + 11)
-        runs = time_in_turns(
-            {
-                "ho_single": lambda: hsc.ho_subcycles_single(model_s.mevp, carry, consts, DT, N_SUBCYCLES),
-                "ho_tiled": lambda: htc.ho_subcycles_tiled(model_s.mevp, carry, consts, DT, N_SUBCYCLES),
-            },
-            {"ho_single": 5, "ho_tiled": 5},
-        )
-        for name, ms in runs.items():
-            report(f"HO mEVP phase ({N_SUBCYCLES} subcycles) on {name} at {n}x{n}", ms, n * n, card)
-        model_s, state, _, dyn = ho_model(device, n, mevp_backend="pallas")
-        model_t = ho_model(device, n, mevp_backend="pallas-tiled")[0]
-        runs = time_in_turns(
-            {
-                "ho_single": lambda: model_s.step_dynamics(state, dyn, DT),
-                "ho_tiled": lambda: model_t.step_dynamics(state, dyn, DT),
-            },
-            {"ho_single": 5, "ho_tiled": 5},
-        )
-        for name, ms in runs.items():
-            report(f"HO dynamics step on {name} at {n}x{n}", ms, n * n, card)
-
-    # Tile sweep of ho_tiled at 1024^2: launch configurations that fit the
-    # 227 KB of shared memory of a block (a window of at most 58).
-    model, carry, consts, _, _ = ho_inputs(N4, N4, device, SEED + 12)
-    for tile, halo, threads in (
-        (32, 8, 512), (32, 8, 256), (32, 8, 384), (40, 8, 512), (48, 4, 512), (42, 8, 512),
-        (24, 8, 256), (16, 8, 256), (16, 4, 128), (32, 4, 256), (24, 12, 512), (26, 16, 512),
-    ):
-        ms = time_ms(
-            lambda: htc.ho_subcycles_tiled(
-                model.mevp, carry, consts, DT, N_SUBCYCLES, tile=tile, halo=halo, threads=threads,
-            ), 5,
-        )
-        log("time", (
-            f"sweep ho_tiled tile {tile} halo {halo} threads {threads} "
-            f"({htc.shared_bytes(tile, halo)} B shared): {ms:.4f} ms per {N_SUBCYCLES} "
-            f"subcycles at {N4}x{N4} on {card}"
-        ))
     model, state, phys, dyn = ho_model(device, N4)
     profile(f"ho_coupled_1m coupled step ({N4}x{N4}, {model.mevp_schedule()})", lambda: model.step(state, phys, dyn, DT))
 
@@ -1214,9 +1160,8 @@ def check_multihost(device) -> tuple:
     and rdma: K7's kernels launch by launch against their plain versions,
     the rdma round against the blocked round, one decomposed step against
     the single-device kernel step at 4096^2, the decomposed kernel step
-    against the decomposed plain step at 512^2, and 20 steps of each form.
-    Returns (launch counts per path, K7's (error, ms, plain ms, bound ms,
-    bound by, library ms) per kernel)."""
+    against the decomposed plain step at 512^2, and N5_STEPS steps of each form.
+    Returns (launch counts per path, K7's Row per kernel)."""
     model1, state, phys, dyn = config5_model(device)
     log("slice", (
         f"multihost_16m: {N16}x{N16} ({N16 * N16} elements) on a {RANKS[0]}x{RANKS[1]} rank grid "
@@ -1272,27 +1217,30 @@ def check_multihost(device) -> tuple:
         for name, g, b in zip(VELOCITY, out, blocked):
             same_schedule(f"rdma round rank {r} {name}", g, b, "the blocked round")
 
-    # The decomposed kernel step against the decomposed plain step.
+    # The decomposed kernel step of each form against the decomposed plain
+    # step (the same plain step for both: it runs no mEVP schedule).
+    _, state_p, phys_p, dyn_p = config5_model(device, N_PLAIN_GRID)
+    plain = None
     for backend in ("rdma", "auto"):
-        model_p1, state_p, phys_p, dyn_p = config5_model(device, N_PLAIN_GRID)
         model_p, sharded_p = sharded_model(device, N_PLAIN_GRID, mevp_backend=backend)
         got = sharded_p(state_p, phys_p, dyn_p, DT)
-        blocks = blocks_of(sharded_p, state_p, phys_p, dyn_p)
-        plain = sharded_p.grid.gather_tree(run_ranks(sharded_p.grid.ring, lambda rank: plain_step(
-            sharded_p.models[rank.rank], *(b[rank.rank] for b in blocks)
-        )), device)
+        if plain is None:
+            blocks = blocks_of(sharded_p, state_p, phys_p, dyn_p)
+            plain = sharded_p.grid.gather_tree(run_ranks(sharded_p.grid.ring, lambda rank: plain_step(
+                sharded_p.models[rank.rank], *(b[rank.rank] for b in blocks)
+            )), device)
         compare_step(f"multihost_{N_PLAIN_GRID} ({model_p.mevp_schedule()}) decomposed step vs decomposed plain", got, plain)
 
-    # 20 steps of each form from zeroed launch counters.
+    # N5_STEPS steps of each form from zeroed launch counters.
     counts = {}
     for path, (model, sharded, _) in forms.items():
         blocks = blocks_of(sharded, state, phys, dyn)
         cc.reset_launches()
-        out = sharded.run_blocks(*blocks, DT, 20)
+        out = sharded.run_blocks(*blocks, DT, N5_STEPS)
         torch.cuda.synchronize()
         counts[path] = dict(cc.launches)
-        log("slice", f"{path}: 20 steps, launches: {counts[path]}")
-        check_bounded(f"{path}: 20 steps", sharded.grid.gather_tree(out, device), state)
+        log("slice", f"{path}: {N5_STEPS} steps, launches: {counts[path]}")
+        check_bounded(f"{path}: {N5_STEPS} steps", sharded.grid.gather_tree(out, device), state)
         missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -1322,7 +1270,7 @@ def check_multihost(device) -> tuple:
         for name, (kernel, plain, work) in timed.items():
             ms_, plain_ms = time_ms(kernel, 50), time_ms(plain, 3)
             bound_ms, bound_by = bound(*work)
-            times[(name, axis)] = (ms_, plain_ms, bound_ms, bound_by)
+            times[(name, axis)] = (ms_, plain_ms, *work)
             log("time", (
                 f"{name} axis {axis}: kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}) per call on a {nx}x{ny} rank block, h = {h}, "
@@ -1333,8 +1281,8 @@ def check_multihost(device) -> tuple:
     )
     log("time", f"rdma_stage axis 0 library yardstick (one torch.stack of the strips): {library_ms:.4f} ms")
     kernels = {
-        "rdma_stage": (errs["rdma_stage"], *times[("rdma_stage", 0)], library_ms),
-        "rdma_band": (errs["rdma_band"], *times[("rdma_band", 0)], None),
+        "rdma_stage": Row(errs["rdma_stage"], *times[("rdma_stage", 0)], library_ms),
+        "rdma_band": Row(errs["rdma_band"], *times[("rdma_band", 0)]),
     }
     return counts, kernels
 
@@ -1353,7 +1301,7 @@ def time_multihost(device, card: str) -> None:
             "2x2 blocked": lambda: sharded["auto"].run_blocks(*blocks["auto"], DT, 1),
             "2x2 rdma": lambda: sharded["rdma"].run_blocks(*blocks["rdma"], DT, 1),
         },
-        {"single-device": 3, "2x2 blocked": 3, "2x2 rdma": 3},
+        {"single-device": 2, "2x2 blocked": 2, "2x2 rdma": 2},
     )
     for name, ms in runs.items():
         report(f"multihost_16m coupled step, {name} ({N16}x{N16})", ms, N16 * N16, card)
@@ -1368,7 +1316,7 @@ def time_multihost(device, card: str) -> None:
         h = s.models[0].mevp.block_halo
         ms = [time_ms(lambda: run_ranks(s.grid.ring, lambda rank: s.models[rank.rank].mevp.spmd_subcycles(
             *inputs[rank.rank], DT, h
-        )), 10) for _ in range(2)]
+        )), 5) for _ in range(2)]
         log("time", (
             f"multihost_16m one {s.models[0].mevp_schedule()} round of {h} subcycles on 4 ranks: "
             f"{sum(ms) / 2:.4f} ms (runs {', '.join(f'{m:.4f}' for m in ms)}) on {card}"
@@ -1383,7 +1331,7 @@ def time_multihost(device, card: str) -> None:
             fns[f"{'blocked' if name == 'auto' else 'rdma'} h={h}"] = (
                 lambda s=s, b=b: s.run_blocks(*b, DT, 1, do_thermo=False)
             )
-    runs = time_in_turns(fns, dict.fromkeys(fns, 2))
+    runs = time_in_turns(fns, dict.fromkeys(fns, 1))
     for name, ms in runs.items():
         report(f"multihost_16m dynamics step, 2x2 {name} ({N16}x{N16})", ms, N16 * N16, card)
 
@@ -1406,7 +1354,7 @@ def time_multihost(device, card: str) -> None:
             fns[f"k={k} H={H}"] = lambda k=k, H=H: run_ranks(
                 s.grid.ring, lambda rank: spmd_transport(rank, k, H)
             )
-    for name, ms in time_in_turns(fns, dict.fromkeys(fns, 3)).items():
+    for name, ms in time_in_turns(fns, dict.fromkeys(fns, 2)).items():
         log("time", (
             f"multihost_16m spmd transport on 4 ranks, {name} (config: "
             f"{tt.transport_tiled_spmd_config(s.models[0])}): {sum(ms) / len(ms):.4f} ms "
@@ -1415,9 +1363,139 @@ def time_multihost(device, card: str) -> None:
     for name in ("auto", "rdma"):
         profile(
             f"multihost_16m coupled step, 2x2 {'blocked' if name == 'auto' else 'rdma'} ({N16}x{N16})",
-            lambda: sharded[name].run_blocks(*blocks[name], DT, 1),
+            lambda: sharded[name].run_blocks(*blocks[name], DT, 1), n_steps=2,
         )
     profile(f"multihost_16m coupled step, single-device ({N16}x{N16})", lambda: model1.step(state, phys, dyn, DT))
+
+
+# -- the roofline path: K8's chain kernel and the measured ceilings -------------
+#: The chain forms whose SASS is counted: the two fused and the unfused.
+SASS_FORMS = ("fma", "fma_imm", "mul_add")
+
+
+def start_sass(library: Path) -> subprocess.Popen:
+    """``cuobjdump -sass`` of the library, in the background: it takes ~10 s
+    for the whole library, so it runs beside the checks."""
+    tool = Path(cc._nvcc()).with_name("cuobjdump")
+    return subprocess.Popen(
+        [str(tool), "-sass", str(library)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+
+
+def sass_report(job: subprocess.Popen) -> str:
+    """FFMA, FMUL and FADD in the chain kernel's fma, fma_imm and mul_add
+    forms, from ``start_sass``'s job; fails unless --fmad=false left the
+    fma forms fused (FFMA) and the mul_add form unfused (FMUL and FADD, no
+    FFMA)."""
+    sass, errors = job.communicate()
+    if job.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({job.returncode}): {errors}")
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        found = re.match(r"_ZN3nst12chain_kernelILi(\d)ELi(\d+)E", section)
+        if found and roofline.LINKS[int(found.group(1))] in SASS_FORMS:
+            form = f"{roofline.LINKS[int(found.group(1))]}/{found.group(2)}"
+            counts[form] = {op: len(re.findall(rf"\b{op}\b", section)) for op in ("FFMA", "FMUL", "FADD")}
+    expected = [f"{link}/{unroll}" for link in SASS_FORMS for unroll in roofline.UNROLLS]
+    if sorted(counts) != sorted(expected):
+        raise AssertionError(f"chain forms in the SASS: {sorted(counts)}, expected {expected}")
+    for form, ops in counts.items():
+        fused = not form.startswith("mul_add/")
+        if fused != (ops["FFMA"] > 0) or (not fused and (ops["FMUL"] == 0 or ops["FADD"] == 0)):
+            raise AssertionError(f"chain {form}: {ops} (fma must issue FFMA, mul_add FMUL + FADD only)")
+    return "chain SASS (cuobjdump): " + "; ".join(
+        f"{form}: " + ", ".join(f"{op} {n}" for op, n in ops.items()) for form, ops in sorted(counts.items())
+    ) + " (fma and fma_imm fused, mul_add unfused under --fmad=false)"
+
+
+def check_roofline(device, card: str) -> tuple:
+    """The roofline path: the chain kernel against its plain version for
+    every link and both unrolls, on seeded planes at 512^2 and a ragged
+    shape; then, from zeroed launch counts, ``measure_vpu_peak`` (fma,
+    fma_imm and mul_add) and ``measure_hbm_peak``, each held below the data
+    sheet's peak. Returns (launch counts, chain's Row, measured ceilings)."""
+    rng = np.random.default_rng(SEED + 13)
+    err = 0.0
+    for nx, ny in ((roofline.PEAK_N, roofline.PEAK_N), RAGGED):
+        t = lambda x: torch.tensor(x, device=device, dtype=torch.float32)
+        a, b = t(rng.uniform(0.5, 0.9999, (nx, ny))), t(rng.uniform(-1e-3, 1e-3, (nx, ny)))
+        for unroll, iters in CHAIN_CHECK_ITERS.items():
+            links = unroll * iters
+            for link in roofline.LINKS:
+                got = roofline.chain(a, b, link, iters, unroll)
+                tag = f"chain {link} unroll {unroll} {nx}x{ny} ({links} links)"
+                if link in ("fma", "fma_imm"):
+                    ref = roofline.chain_reference(a.double(), b.double(), link, iters, unroll)
+                    err = max(err, compare(f"{tag} vs float64", got, ref, 2 * links * 2.0**-24))
+                else:
+                    ref = roofline.chain_reference(a, b, link, iters, unroll)
+                    err = max(err, compare(tag, got, ref, TOL_CHAIN))
+    log("build", f"chain: tile {roofline.TILE[0]}x{roofline.TILE[1]} per block of 256 threads, 4 elements a thread")
+    n, (unroll, iters) = roofline.PEAK_N, roofline.PEAK_CALLS[0]
+    a, b = roofline._planes(device)
+    # The plain version at the checks' 160 links (a K8 call's 1.6e6 would
+    # take minutes of launches).
+    plain_ms = time_ms(lambda: roofline.chain_reference(a, b, "fma", CHAIN_CHECK_ITERS[16], 16), 3)
+
+    cc.reset_launches()
+    peaks = roofline.measure_vpu_peak(device)
+    hbm = roofline.measure_hbm_peak(device)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    if counts["chain"] == 0:
+        raise AssertionError("measure_vpu_peak launched no chain kernel")
+    fma, fma_imm, mul_add = (peaks[f"fp32_{link}_chain_ops_per_s"] for link in SASS_FORMS)
+    log("roofline", (
+        f"fp32 fma chain {fma:.4e} op/s, fma_imm chain {fma_imm:.4e} op/s, mul_add chain "
+        f"{mul_add:.4e} op/s (mul_add / fma_imm {mul_add / fma_imm:.3f}), HBM streaming add "
+        f"{hbm:.4e} B/s on {card}; best ms per call: "
+        + ", ".join(f"{form} {ms:.4f}" for form, ms in peaks["ms"].items())
+        + f"; {counts['chain']} chain launches"
+    ))
+    for what, rate, peak in (
+        ("fma", fma, PEAK_FP32), ("fma_imm", fma_imm, PEAK_FP32), ("mul_add", mul_add, PEAK_FP32),
+        ("HBM", hbm, PEAK_BYTES),
+    ):
+        if not 0 < rate < peak:
+            raise AssertionError(
+                f"{what} ceiling {rate:.4e} is not below the data sheet's {peak:.4e}: a counting fault"
+            )
+    work = (3 * n * n * 4, 2.0 * unroll * iters * n * n)
+    ms = peaks["ms"][f"fma/{unroll}"]
+    log("time", (
+        f"chain: kernel {ms:.4f} ms per call ({unroll} x {iters} fma links at {n}x{n}), bound "
+        f"{bound(*work)[0]:.4f} ms ({bound(*work)[1]}); plain {plain_ms:.4f} ms for 160 links at {n}x{n}"
+    ))
+    ceilings = {"bytes_per_s": hbm, "ops_per_s": mul_add, "fused_ops_per_s": fma_imm}
+    return counts, Row(err, ms, plain_ms, *work, fused=True), ceilings
+
+
+def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
+    """The kernels' JSON line: per kernel its launches on the main paths,
+    check error, times, ``bound_ms`` on the data sheet's peaks and
+    ``measured_bound_ms`` on the measured HBM rate and the measured mul_add
+    rate (the port's kernels issue unfused float32; the chain's fma form,
+    fused, on the fma_imm rate)."""
+    launches = dict.fromkeys(cc.KERNELS, 0)
+    for path, names in PATH_KERNELS.items():
+        for k in names:
+            launches[k] += counts[path][k]
+
+    def row_json(k: str) -> dict:
+        row = kernels[k]
+        bound_ms, bound_by = bound(row.n_bytes, row.n_ops)
+        ops_per_s = ceilings["fused_ops_per_s" if row.fused else "ops_per_s"]
+        measured = max(row.n_bytes / ceilings["bytes_per_s"], row.n_ops / ops_per_s) * 1e3
+        return {
+            "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+            "launches": launches[k], "max_abs_err": row.err, "ms": row.ms, "plain_ms": row.plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "measured_bound_ms": measured,
+            "library_ms": row.library_ms,
+        }
+
+    # No single PyTorch call computes these stencils or the chain, so
+    # library_ms is null, except for rdma_stage's strip pack (one torch.stack).
+    return {"kernels": [row_json(k) for k in cc.KERNELS]}
 
 
 def main() -> int:
@@ -1447,6 +1525,16 @@ def main() -> int:
         f"mevp_single: {single.max_blocks(False, device)} resident blocks (uniform), "
         f"{single.max_blocks(True, device)} (metric), of 256 threads"
     ))
+    sass = start_sass(path)
+    try:
+        return run_phases(device, name, smi, sass, t_start)
+    finally:
+        sass.kill()  # nothing once it has been read
+        sass.wait()
+
+
+def run_phases(device, name: str, smi: str, sass: subprocess.Popen, t_start: float) -> int:
+    """The phases after the build; the SASS count is read before the timings."""
 
     def phase(fn, *args):
         """fn(*args), with its wall time logged."""
@@ -1455,6 +1543,7 @@ def main() -> int:
         log("time", f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s wall")
         return out
 
+    counts_roofline, chain_row, ceilings = phase(check_roofline, device, smi)
     model, _, _ = bench_model(device)
     kernels = phase(check_kernels, model, device)
     kernels.update(phase(check_tiled, device))
@@ -1467,31 +1556,17 @@ def main() -> int:
     for kernel, key in (
         ("transport_tiled", "transport_metric"), ("dg1_rk_stage", "dg1_rk_stage_metric"),
     ):
-        kernels[kernel] = (max(kernels[kernel][0], extra[key]), *kernels[kernel][1:])
+        kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, extra[key]))
     counts = phase(check_slice, device)
     counts_5, kernels_5 = phase(check_multihost, device)
-    counts.update(counts_5)
-    kernels.update(kernels_5)
+    counts.update(counts_5, roofline=counts_roofline)
+    kernels.update(kernels_5, chain=chain_row)
+    log("build", sass_report(sass))
     phase(time_paths, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
 
-    launches = dict.fromkeys(cc.KERNELS, 0)
-    for path, names in PATH_KERNELS.items():
-        for k in names:
-            launches[k] += counts[path][k]
-    # No single PyTorch call computes these stencils, so library_ms is null,
-    # except for rdma_stage's strip pack (one torch.stack).
-    summary = {"kernels": [
-        {
-            "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-            "launches": launches[k], "max_abs_err": kernels[k][0],
-            "ms": kernels[k][1], "plain_ms": kernels[k][2],
-            "bound_ms": kernels[k][3], "bound_by": kernels[k][4],
-            "library_ms": kernels[k][5] if len(kernels[k]) > 5 else None,
-        }
-        for k in cc.KERNELS
-    ]}
+    summary = kernel_summary(kernels, counts, ceilings)
     log("time", f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(summary))

@@ -22,6 +22,7 @@ kernel              source                      plain version (same inputs)
 ``ho_tiled``        ``csrc/ho_tiled.cu``        ``ho_subcycles_reference``
 ``rdma_stage``      ``csrc/mevp_rdma.cu``       ``rdma_stage_reference``
 ``rdma_band``       ``csrc/mevp_rdma.cu``       ``rdma_band_reference``
+``chain``           ``csrc/roofline.cu``        ``benchmarks.roofline.chain_reference``
 =================== =========================== ===================================
 
 The first four are K1's schedule, wrapped here. Per step: 2 launches per
@@ -31,9 +32,11 @@ substep. The others have wrapper modules of their own:
 ``mevp_tiled_cuda`` and ``transport_tiled_cuda`` (the ghost-zone tiled
 schedule, K2 and K3 of the JAX package) and ``mevp_single_cuda`` (all N
 subcycles in one launch, K4), and ``mevp_rdma_cuda`` (the overlapped
-halo round of a rank block, K7). Every mEVP kernel takes the 7 uniform
-consts or, on a graded or spherical mesh, the 12 with the metric planes;
-the transport kernels read the transport's metric planes on such a mesh.
+halo round of a rank block, K7); ``chain``, the ceiling probe (K8), is
+wrapped by ``nextsimdg_tpu_torch.benchmarks.roofline``. Every mEVP kernel
+takes the 7 uniform consts or, on a graded or spherical mesh, the 12 with
+the metric planes; the transport kernels read the transport's metric
+planes on such a mesh.
 
 With the higher-order solver (``MEVPSolverHO``) the phase runs
 ``ho_single`` (all N subcycles in one launch, K5 of the JAX package) or
@@ -86,7 +89,7 @@ from ..transport import (
 KERNELS = (
     "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage",
     "mevp_tiled", "transport_tiled", "mevp_single", "ho_single", "ho_tiled",
-    "rdma_stage", "rdma_band",
+    "rdma_stage", "rdma_band", "chain",
 )
 
 #: Launches per kernel since the last ``reset_launches()``.
@@ -217,6 +220,7 @@ def _bind():
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 6 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
     lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, p] + tail
+    lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
     lib.nst_mevp_single_max_blocks.argtypes = [i, i]

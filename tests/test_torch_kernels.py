@@ -12,7 +12,9 @@ grid of 200 x 136 blocks on one card, K7's ``rdma_stage`` and ``rdma_band``
 against their plain versions launch by launch, the rdma round against the
 blocked one and the single-device ``mevp_tiled`` (bit for bit: the same
 bodies on the same values), and the decomposed coupled step against the
-single-device step (expected 0) and the decomposed plain step.
+single-device step (expected 0) and the decomposed plain step. The
+ceiling probe's ``chain`` kernel against its plain version for every link
+and both unrolls, at 512^2 and a ragged shape.
 
 These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 elsewhere. On a machine with one, run them with
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from nextsimdg_tpu_torch.benchmarks import roofline
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch import modules
@@ -549,3 +552,39 @@ def test_rdma_wrappers_raise_on_what_the_kernels_do_not_take(device):
 
     _, results = on_rank_grid(device, "rdma", bad_calls)
     assert all(errors == [ValueError, ValueError, ValueError, TypeError] for errors in results)
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (1000, 968)])
+@pytest.mark.parametrize("unroll, iters", [(16, 10), (64, 2)])
+@pytest.mark.parametrize("link", roofline.LINKS)
+def test_chain_matches_plain(device, shape, unroll, iters, link):
+    """mul_add, div, sqrt and the shifts round each operation as PyTorch's
+    CUDA kernels do: expected 0, failure above 1e-6 of the plane's max. fma
+    and fma_imm round once per link: within 2 L 2^-24 of the plane's max of
+    the float64 chain over L links (the chain contracts, |a| < 1)."""
+    rng = np.random.default_rng(3)
+    t = lambda x: torch.tensor(x, device=device, dtype=torch.float32)
+    a, b = t(rng.uniform(0.5, 0.9999, shape)), t(rng.uniform(-1e-3, 1e-3, shape))
+    cc.reset_launches()
+    got = roofline.chain(a, b, link, iters, unroll)
+    torch.cuda.synchronize()
+    assert cc.launches["chain"] == 1
+    if link in ("fma", "fma_imm"):
+        ref = roofline.chain_reference(a.double(), b.double(), link, iters, unroll)
+        assert_close(got, ref, 2 * unroll * iters * 2.0**-24)
+    else:
+        assert_close(got, roofline.chain_reference(a, b, link, iters, unroll), 1e-6)
+
+
+def test_chain_refuses_what_the_kernel_does_not_take(device):
+    a = torch.ones(64, 64, device=device)
+    with pytest.raises(ValueError, match="link"):
+        roofline.chain(a, a, "exp", 1)
+    with pytest.raises(ValueError, match="unroll"):
+        roofline.chain(a, a, "fma", 1, unroll=32)
+    with pytest.raises(TypeError, match="float32"):
+        roofline.chain(a.double(), a.double(), "fma", 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        roofline.chain(a.t(), a, "fma", 1)
+    with pytest.raises(ValueError, match="planes"):
+        roofline.chain(a[None], a[None], "fma", 1)

@@ -46,6 +46,8 @@ def test_port_imports_without_jax_or_triton():
         "import nextsimdg_tpu_torch.dynamics.landmask, nextsimdg_tpu_torch.dynamics.mesh\n"
         "import nextsimdg_tpu_torch.dynamics.cg2basis, nextsimdg_tpu_torch.dynamics.mevp_ho\n"
         "import nextsimdg_tpu_torch.modules\n"
+        "import nextsimdg_tpu_torch.benchmarks.roofline, nextsimdg_tpu_torch.benchmarks.common\n"
+        "import nextsimdg_tpu_torch.benchmarks.run_benchmarks, nextsimdg_tpu_torch.benchmarks.mevp_large\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -118,6 +120,7 @@ REPLACED = {
     "ho_single.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "ho_tiled.cu": "mevp_ho_tiled.py::ho_subcycles_tiled",
     "mevp_rdma.cu": "mevp_rdma.py::mevp_round_rdma",
+    "roofline.cu": "roofline.py::measure_vpu_peak",
 }
 
 
