@@ -126,7 +126,7 @@ import numpy as np
 import torch
 
 from nextsimdg_tpu_torch import coupled, modules
-from nextsimdg_tpu_torch.benchmarks import roofline
+from nextsimdg_tpu_torch.benchmarks import mevp_large, roofline
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics import mevp_ho
@@ -150,6 +150,8 @@ RAGGED = (1000, 968)  # a multiple of no tile
 N_SUBCYCLES = 100
 DT = 600.0
 SEED = 0
+#: Subcycles of a timed mevp_tiled call.
+TILED_SUBCYCLES = 8
 #: Steps of each config-5 form from zeroed launch counts (20 on the other
 #: paths): every kernel of the form launches in each step, and a 2 x 2 step
 #: takes 0.2-0.4 s of host issue.
@@ -452,8 +454,14 @@ def ptxas_report(text: str):
         if found:
             kernel = found.group(2)[: int(found.group(1))]
             rest = found.group(2)[int(found.group(1)):]
-            if rest.startswith("ILb"):  # the metric template: ILb1E = <true>
-                kernel += "<metric>" if rest.startswith("ILb1E") else "<uniform>"
+            args = re.findall(r"L([bi])(\d+)E", rest.split("EE")[0] + "E") if rest.startswith("I") else []
+            if kernel == "rdma_stage_kernel":  # its one template argument: 16-byte vectors
+                kernel += "<float4>" if args[0][1] == "1" else "<scalar>"
+            elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
+                names = ["metric" if args[0][1] == "1" else "uniform"]
+                if kernel == "mevp_tiled_kernel":  # then the window width
+                    names.append(f"width {args[1][1]}" if args[1][1] != "0" else "any width")
+                kernel += "<" + ", ".join(names) + ">"
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -554,20 +562,27 @@ def same_schedule(name: str, got, ref, other: str = "K1's schedule") -> float:
 
 def check_tiled(device) -> dict:
     """Phase 3, second part: mevp_tiled and transport_tiled against their
-    plain versions and against K1's schedule, at 1024^2 and a ragged shape;
-    then each per call at 1024^2 against its plain version."""
+    plain versions and against K1's schedule, at 1024^2 and a ragged shape
+    (mevp_tiled in both shipped launch configurations), and mevp_tiled at
+    config 5's 4096^2 in the configuration the host picks there; then each
+    per call at 1024^2 against its plain version, and mevp_tiled at 4096^2."""
     errs = {"mevp_tiled": 0.0, "transport_tiled": 0.0}
+
+    def mevp_tiled_against_plain_and_k1(tag, solver, carry, consts, configs):
+        for n in (N_SUBCYCLES, 13):  # 13: a multiple of neither halo
+            ref = mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, n)
+            k1 = cc.mevp_subcycles(solver, carry, consts, DT, n)
+            for config in configs:
+                got = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n, *config)
+                for plane, g, r, q in zip(VELOCITY, got, ref, k1):
+                    label = f"mevp_tiled {tag} {config} N={n} {plane}"
+                    errs["mevp_tiled"] = max(errs["mevp_tiled"], compare(label, g, r, TOL_STEP_MEVP))
+                    same_schedule(label, g, q)
+
     inputs = {shape: tiled_inputs(*shape, device, SEED + 1) for shape in ((N4, N4), RAGGED)}
     for (nx, ny), (model, carry, consts, psi, faces) in inputs.items():
         solver, transport = model.mevp, model.transport
-        for n in (N_SUBCYCLES, 13):  # 13 = 8 + 5: not a multiple of the halo
-            got = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n)
-            ref = mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, n)
-            k1 = cc.mevp_subcycles(solver, carry, consts, DT, n)
-            for name, g, r, q in zip(("u", "v", "s11", "s22", "s12"), got, ref, k1):
-                tag = f"mevp_tiled {nx}x{ny} N={n} {name}"
-                errs["mevp_tiled"] = max(errs["mevp_tiled"], compare(tag, g, r, TOL_STEP_MEVP))
-                same_schedule(tag, g, q)
+        mevp_tiled_against_plain_and_k1(f"{nx}x{ny}", solver, carry, consts, (mt.SMALL, mt.LARGE))
         u, v = carry[0], carry[1]
         for k in (1, 4):  # 4 substeps run in two launches
             args = (transport, psi, u, v, DT / k, k, faces)
@@ -582,10 +597,10 @@ def check_tiled(device) -> dict:
     solver, transport = model.mevp, model.transport
     u, v = carry[0], carry[1]
     timed = {
-        # one launch: HALO subcycles; the plain version runs the same subcycles
+        # 8 subcycles, one launch at 1024^2; the plain version runs the same subcycles
         "mevp_tiled": (
-            lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, mt.HALO),
-            lambda: mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, mt.HALO),
+            lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, TILED_SUBCYCLES),
+            lambda: mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, TILED_SUBCYCLES),
         ),
         # one launch: one rk2 substep with its velocity sampling
         "transport_tiled": (
@@ -595,7 +610,7 @@ def check_tiled(device) -> dict:
     }
     n = N4 * N4
     work = {  # (bytes, operations) of one call at 1024^2
-        "mevp_tiled": ((5 + 7 + 5) * 4 * n, mt.HALO * (OPS["stress"] + OPS["velocity"]) * n),
+        "mevp_tiled": ((5 + 7 + 5) * 4 * n, TILED_SUBCYCLES * (OPS["stress"] + OPS["velocity"]) * n),
         "transport_tiled": ((9 + 4 + 9) * 4 * n, 2 * OPS["stage"] * n),
     }
     results = {}
@@ -607,6 +622,21 @@ def check_tiled(device) -> dict:
             f"{bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]}) per call at {N4}x{N4} "
             f"({'8 subcycles' if name == 'mevp_tiled' else 'one rk2 substep'})"
         ))
+    # mevp_tiled at config 5's 4096^2 (seeded planes in motion, mevp_large's)
+    # against its plain version and K1's schedule, then per call of 8
+    # subcycles and per element and subcycle.
+    solver, carry, consts = mevp_large.seeded_phase(N16, False, device, SEED + 1)
+    config16 = mt.launch_config(N16, N16)
+    mevp_tiled_against_plain_and_k1(f"{N16}x{N16}", solver, carry, consts, (config16,))
+    results["mevp_tiled"].err = errs["mevp_tiled"]
+    ms16 = time_ms(lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, TILED_SUBCYCLES), 20)
+    log("time", (
+        f"mevp_tiled: kernel {results['mevp_tiled'].ms:.4f} ms per call at {N4}x{N4} "
+        f"({results['mevp_tiled'].ms * 1e9 / (n * TILED_SUBCYCLES):.2f} ps per element and subcycle; "
+        f"tile, halo, threads {mt.launch_config(N4, N4)}), {ms16:.4f} ms at {N16}x{N16} "
+        f"({ms16 * 1e9 / (N16 * N16 * TILED_SUBCYCLES):.2f} ps; {config16}), "
+        f"{TILED_SUBCYCLES} subcycles a call"
+    ))
     return results
 
 
@@ -993,6 +1023,28 @@ def profile(tag: str, step, n_steps: int = 5) -> None:
     ))
 
 
+def device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Mean device duration of the CUDA kernels whose name holds ``kernel``
+    over n calls of fn, from torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
+    ]
+    count = sum(e.count for e in events)
+    if count == 0:
+        raise AssertionError(f"the profiler saw no {kernel} kernel")
+    return sum(e.self_device_time_total for e in events) / count / 1e3
+
+
 def time_paths(device, card: str) -> None:
     """Phase 5: ms per step of the paths and schedules, in turns."""
     model, state, forcing = bench_model(device)
@@ -1161,7 +1213,8 @@ def check_multihost(device) -> tuple:
     the rdma round against the blocked round, one decomposed step against
     the single-device kernel step at 4096^2, the decomposed kernel step
     against the decomposed plain step at 512^2, and N5_STEPS steps of each form.
-    Returns (launch counts per path, K7's Row per kernel)."""
+    Returns (launch counts per path, K7's Row per kernel, an rdma_stage
+    launch on built sources for the profiler)."""
     model1, state, phys, dyn = config5_model(device)
     log("slice", (
         f"multihost_16m: {N16}x{N16} ({N16 * N16} elements) on a {RANKS[0]}x{RANKS[1]} rank grid "
@@ -1252,13 +1305,18 @@ def check_multihost(device) -> tuple:
     h = src.h
     nx, ny = src.own[0].shape
     times = {}
+    # rdma_stage as the main path runs it: on a round's new sources, so each
+    # timed call fetches the round's stream, checks the planes and builds
+    # the pointer arrays, the ghosts as received.
+    fresh = lambda s: rdma.RoundSources(s.own, s.h, s.split, s.gx, s.gy, stream=cc._stream(device))
     for axis in (0, 1):
         local_a, src_a, consts_a, state_a = results[0][3][axis]
         rows, cols = (3 * h, ny) if axis == 0 else (nx + 2 * src_a.hx, 3 * h)
         strip = 5 * h * (ny if axis == 0 else nx + 2 * src_a.hx) * 4
         timed = {
             "rdma_stage": (
-                lambda: rdma.rdma_stage(src_a, axis), lambda: rdma.rdma_stage_reference(src_a, axis),
+                lambda: rdma.rdma_stage(fresh(src_a), axis),
+                lambda: rdma.rdma_stage_reference(src_a, axis),
                 (2 * 2 * strip, 0),
             ),
             "rdma_band": (
@@ -1276,15 +1334,27 @@ def check_multihost(device) -> tuple:
                 f"{bound_ms:.4f} ms ({bound_by}) per call on a {nx}x{ny} rank block, h = {h}, "
                 f"n_sub = {h}{' (a pair of ' + str(rows) + 'x' + str(cols) + ' bands)' if name == 'rdma_band' else ''}"
             ))
-    library_ms = time_ms(
-        lambda: torch.stack([p[:h] for p in src.own] + [p[nx - h:] for p in src.own]), 50
-    )
-    log("time", f"rdma_stage axis 0 library yardstick (one torch.stack of the strips): {library_ms:.4f} ms")
+    # rdma_stage's x launch on new sources and on built ones against its
+    # yardstick, in turns (a b c c b a) on the same host.
+    cached = fresh(src)
+    runs = time_in_turns({
+        "new": lambda: rdma.rdma_stage(fresh(src), 0),
+        "built": lambda: rdma.rdma_stage(cached, 0),
+        "stack": lambda: torch.stack([p[:h] for p in src.own] + [p[nx - h:] for p in src.own]),
+    }, dict.fromkeys(("new", "built", "stack"), 50))
+    mean = {name: sum(ms) / len(ms) for name, ms in runs.items()}
+    log("time", (
+        f"rdma_stage axis 0 in turns: {mean['new']:.4f} ms per call on a round's new sources "
+        f"(stream, check and pointers included; runs {', '.join(f'{m:.4f}' for m in runs['new'])}), "
+        f"{mean['built']:.4f} ms on sources already built, library yardstick (one torch.stack of "
+        f"the strips) {mean['stack']:.4f} ms (runs {', '.join(f'{m:.4f}' for m in runs['stack'])}); "
+        f"bound {bound(*times[('rdma_stage', 0)][2:])[0]:.5f} ms"
+    ))
     kernels = {
-        "rdma_stage": Row(errs["rdma_stage"], *times[("rdma_stage", 0)], library_ms),
+        "rdma_stage": Row(errs["rdma_stage"], mean["new"], *times[("rdma_stage", 0)][1:], mean["stack"]),
         "rdma_band": Row(errs["rdma_band"], *times[("rdma_band", 0)]),
     }
-    return counts, kernels
+    return counts, kernels, lambda: rdma.rdma_stage(cached, 0)
 
 
 def time_multihost(device, card: str) -> None:
@@ -1525,6 +1595,13 @@ def main() -> int:
         f"mevp_single: {single.max_blocks(False, device)} resident blocks (uniform), "
         f"{single.max_blocks(True, device)} (metric), of 256 threads"
     ))
+    for size, config in (("large uniform", mt.LARGE), ("other", mt.SMALL)):
+        log("build", (
+            f"mevp_tiled {size} grids: tile, halo, threads {config}, c_w and inv_drag in registers, "
+            f"{mt.cells_per_thread(*config)} cells a thread, {mt.shared_bytes(*config[:2])} B shared; "
+            f"{mt.max_blocks(device, *config)} resident blocks per SM (uniform), "
+            f"{mt.max_blocks(device, *config, metric=True)} (metric)"
+        ))
     sass = start_sass(path)
     try:
         return run_phases(device, name, smi, sass, t_start)
@@ -1558,13 +1635,15 @@ def run_phases(device, name: str, smi: str, sass: subprocess.Popen, t_start: flo
     ):
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, extra[key]))
     counts = phase(check_slice, device)
-    counts_5, kernels_5 = phase(check_multihost, device)
+    counts_5, kernels_5, stage_x = phase(check_multihost, device)
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
     log("build", sass_report(sass))
     phase(time_paths, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
+    # Last, as a profiler session slows the host's later launches.
+    log("time", f"rdma_stage axis 0 device duration {device_ms(stage_x, 'rdma_stage'):.5f} ms (torch.profiler)")
 
     summary = kernel_summary(kernels, counts, ceilings)
     log("time", f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")

@@ -6,17 +6,19 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
 
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large [n ...]      # plain and mevp_tiled at n (1024 2048 4096)
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --thresholds  # the "auto" threshold sweeps
-    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps at 1024^2
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps
 
 ``--thresholds``: K1's schedule against the tiled one on the dynamics step
 at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
 ``mevp_tiled`` on the spherical mEVP phase and dynamics step at
 128^2-1024^2 (``coupled.SINGLE_MAX_ELEMENTS``); ``ho_single`` against
 ``ho_tiled`` on the HO mEVP phase and dynamics step at 128^2-1024^2
-(``mevp_ho.HO_SINGLE_MAX_ELEMENTS``). ``--tiles``: each launch
-configuration of ``mevp_tiled``, ``transport_tiled`` and ``ho_tiled`` that
-fits a block's 227 KB of shared memory. Each line names the card and its
-power limit. Times are CUDA-event ms, the pairs in turns (a b b a).
+(``mevp_ho.HO_SINGLE_MAX_ELEMENTS``). ``--tiles``: the launch
+configurations of ``mevp_tiled`` (tile, halo, threads; its call alone, with its resident blocks per SM) at 1024^2, 2048^2 and 4096^2,
+uniform and spherical, then those of ``ho_tiled`` and ``transport_tiled``
+at 1024^2; ``--tiles=mevp_tiled`` the first part only. Each line names the
+card and its power limit. Times are CUDA-event ms, the pairs in turns
+(a b b a).
 """
 
 from __future__ import annotations
@@ -163,15 +165,74 @@ def sweep_thresholds(device) -> None:
              ("ho_tiled", {"mevp_backend": "pallas-tiled"}), high_order=True)
 
 
+#: mevp_tiled launch configurations (tile, halo, threads): windows of 5
+#: planes 64 wide (two blocks an SM) with 2 to 8 subcycles a launch, and
+#: windows 68 to 80 wide (one block an SM) beside them.
+MEVP_TILED_CONFIGS = (
+    (56, 4, 512), (56, 4, 640), (48, 8, 512), (52, 6, 512), (60, 2, 512),
+    (64, 8, 1024), (64, 8, 800), (64, 8, 960), (64, 4, 1024), (60, 4, 1024), (48, 8, 1024),
+)
+TILE_SIZES = (1024, 2048, 4096)
+
+
+def seeded_phase(n: int, spherical: bool, device, seed: int = 0):
+    """(solver, carry, consts): seeded mEVP planes (a state in motion) and
+    the consts of ``_phase_inputs``' forcing at n^2."""
+    solver, _, args = _phase_inputs(n, False, spherical, device)
+    rng = np.random.default_rng(seed)
+    carry = tuple(
+        torch.tensor(rng.normal(0.0, s, (n, n)), device=device, dtype=torch.float32)
+        for s in (0.2, 0.2, 1e3, 1e3, 1e3)
+    )
+    return solver, carry, solver.step_consts(VelocityState(*carry), *args, DT)
+
+
+def sweep_mevp_tiled(device, sizes=TILE_SIZES, configs=MEVP_TILED_CONFIGS, n_sub: int = 48) -> dict:
+    """ms per 8 subcycles and ps per element and subcycle of ``mevp_tiled``
+    alone (``n_sub`` subcycles per timed call, best of 5) for each launch
+    configuration, uniform and spherical, at each size, with its resident
+    blocks per SM; printed, and returned by (mesh, n, config). A
+    configuration with no kernel or that fits no SM is printed as such. On
+    the CPU (the tests) the plain version runs and no blocks are counted."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    where = card(device)["nvidia_smi"] if on_card else "cpu"
+    out = {}
+    for spherical in (False, True):
+        mesh = "spherical" if spherical else "uniform"
+        for n in sizes:
+            solver, carry, consts = seeded_phase(n, spherical, device)
+            for config in configs:
+                tile, halo, threads = config
+                run = lambda: mevp_tiled_cuda.mevp_subcycles_tiled(
+                    solver, carry, consts, DT, n_sub, tile, halo, threads
+                )
+                if on_card:
+                    blocks = mevp_tiled_cuda.max_blocks(device, tile, halo, threads, spherical)
+                    if not blocks:
+                        print(f"mevp_tiled {mesh} {n}x{n} {config}: no kernel, or it fits no SM", flush=True)
+                        continue
+                    ms = best_ms(run, 5)
+                else:
+                    blocks, t0 = None, time.perf_counter()
+                    run()
+                    ms = (time.perf_counter() - t0) * 1e3
+                out[(mesh, n, config)] = ms
+                print(
+                    f"mevp_tiled {mesh} {n}x{n} tile {tile} halo {halo} threads {threads} "
+                    f": {ms * 8 / n_sub:.4f} ms per 8 subcycles, "
+                    f"{ms * 1e9 / (n * n * n_sub):.2f} ps per element and subcycle, "
+                    f"{mevp_tiled_cuda.shared_bytes(tile, halo)} B shared, {blocks} resident "
+                    f"blocks per SM on {where}", flush=True,
+                )
+    return out
+
+
 def sweep_tiles(device, n: int = 1024) -> None:
-    """Launch configurations (tile, halo, threads) of the tiled kernels at
-    n^2 that fit a block's 227 KB of shared memory."""
+    """Launch configurations (tile, halo, threads) of ``ho_tiled`` and
+    ``transport_tiled`` at n^2 that fit a block's 227 KB of shared memory
+    (``mevp_tiled``'s: ``sweep_mevp_tiled``)."""
     where = card(device)["nvidia_smi"]
-    for tile, halo, threads in (
-        (64, 8, 512), (64, 8, 1024), (48, 8, 512), (48, 8, 1024), (56, 8, 1024),
-        (72, 8, 1024), (40, 8, 512), (32, 8, 256), (64, 12, 1024), (80, 4, 1024),
-    ):
-        bench(n, "pallas-tiled", outer=5, device=device, tile=tile, halo=halo, threads=threads)
     for tile, halo, threads in (
         (32, 8, 512), (32, 8, 256), (32, 8, 384), (40, 8, 512), (48, 4, 512), (42, 8, 512),
         (24, 8, 256), (16, 8, 256), (16, 4, 128), (32, 4, 256), (24, 12, 512), (26, 16, 512),
@@ -202,6 +263,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     if "--thresholds" in argv:
         sweep_thresholds(device)
+    if "--tiles" in argv or "--tiles=mevp_tiled" in argv:
+        sweep_mevp_tiled(device)
     if "--tiles" in argv:
         sweep_tiles(device)
     sizes = [int(a) for a in argv if not a.startswith("--")]

@@ -366,7 +366,7 @@ def kernel_bytes_per_element_subcycle() -> dict:
       through L2, not once per call: the stress pass reads 10 planes and
       writes 5, the velocity pass reads 12 and writes 2 (csrc/mevp.cu),
       (10 + 5 + 12 + 2) x 4 = 116 bytes.
-    * ``mevp_tiled`` at 2048^2 (T = ``mevp_tiled_cuda.TILE``, H = ``HALO``):
+    * ``mevp_tiled`` at 2048^2 (T and H of ``mevp_tiled_cuda.launch_config``):
       a launch of H subcycles reads the 5 state and 7 const planes over the
       (T + 2H)^2 window of each T^2 tile and writes the 5 state planes of the
       tile: ((5 + 7) (T + 2H)^2 / T^2 + 5) x 4 / H.
@@ -379,13 +379,13 @@ def kernel_bytes_per_element_subcycle() -> dict:
     from ..dynamics.kernels import ho_tiled_cuda, mevp_tiled_cuda
 
     out = {"fused_cg1_256": (10 + 5 + 12 + 2) * 4.0}
-    T, H = mevp_tiled_cuda.TILE, mevp_tiled_cuda.HALO
-    out["tiled_cg1_2048"] = ((5 + 7) * (T + 2 * H) ** 2 / T**2 + 5) * 4 / H
+    T_cg1, H_cg1, _ = mevp_tiled_cuda.launch_config(2048, 2048)
+    out["tiled_cg1_2048"] = ((5 + 7) * (T_cg1 + 2 * H_cg1) ** 2 / T_cg1**2 + 5) * 4 / H_cg1
     T, H = ho_tiled_cuda.TILE, ho_tiled_cuda.HALO
     out["tiled_ho_1024"] = (17 * (T + 2 * H) ** 2 / T**2 + 17) * 4 / H + 29 * 4
     out["_configs"] = {
         "fused_cg1_256": "mevp_single, all subcycles in one launch",
-        "tiled_cg1_2048": {"tile": mevp_tiled_cuda.TILE, "halo": mevp_tiled_cuda.HALO},
+        "tiled_cg1_2048": {"tile": T_cg1, "halo": H_cg1},
         "tiled_ho_1024": {"tile": ho_tiled_cuda.TILE, "halo": ho_tiled_cuda.HALO},
     }
     return out

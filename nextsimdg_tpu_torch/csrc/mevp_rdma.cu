@@ -50,7 +50,11 @@
 // (T + 2 n_sub) / T of them. Like mevp_tiled it is bound by the window's
 // arithmetic and shared-memory traffic, not by the bytes it moves (the
 // strips and the patches are ~1% of the state); rdma_stage moves
-// 2 x 5 x h x (ny or nx + 2h) floats and is bound by its launch.
+// 2 x 5 x h x (ny or nx + 2h) floats (2.6 MB for the x strips of a 2048^2
+// block at h = 16), one float4 a thread along the rows, and is bound by its
+// launch and its wrapper's host path (mevp_rdma_cuda.RoundSources builds
+// and checks the round's pointer arrays once).
+#include <cstdint>
 #include <cstring>
 
 #include "mevp_window.cuh"
@@ -100,27 +104,40 @@ struct RdmaBands {
   int long_axis;  // 0: tiles run along the rows (y bands), 1: along the columns (x bands)
 };
 
+// Row r of strip plane k on `side` (0: lo, 1: hi): the source row and the
+// strip row it is copied to, `len` floats each. x: own rows [0, h) or
+// [nx - h, nx); y: E's rows (the x ghosts above and below the own rows),
+// own columns [0, h) or [ny - h, ny).
+__device__ __forceinline__ const float* stage_source(const RdmaSources& src, int axis, int side,
+                                                     int k, int r) {
+  const float* own = src.own[0];
+#pragma unroll
+  for (int p = 1; p < kRdmaPlanes; ++p) own = k == p ? src.own[p] : own;
+  if (axis == 0) return own + (r + (side ? src.nx - src.h : 0)) * src.ny;
+  const int col = side ? src.ny - src.h : 0;
+  const int ir = r - src.hx;
+  if (ir < 0) return src.gx_lo + (k * src.h + r) * src.ny + col;
+  if (ir >= src.nx) return src.gx_hi + (k * src.h + ir - src.nx) * src.ny + col;
+  return own + ir * src.ny + col;
+}
+
+// A 3-D grid: z = side x plane (10), y x blockDim.y = strip rows, x x
+// blockDim.x = the row's floats (kVec: float4s). No division by a run-time
+// value.
+template <bool kVec>
 __global__ void __launch_bounds__(kRdmaMaxThreads)
-rdma_stage_kernel(RdmaSources src, int axis, float* __restrict__ out) {
-  const int h = src.h;
-  const int rows = axis == 0 ? h : src.nx + 2 * src.hx;
-  const int cols = axis == 0 ? src.ny : h;
-  const int per_plane = rows * cols;
-  const int total = 2 * kRdmaPlanes * per_plane;
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += gridDim.x * blockDim.x) {
-    const int side = idx / (kRdmaPlanes * per_plane);
-    const int rest = idx - side * kRdmaPlanes * per_plane;
-    const int k = rest / per_plane;
-    const int cell = rest - k * per_plane;
-    const int r = cell / cols, c = cell - r * cols;
-    float value;
-    if (axis == 0) {  // own rows [0, h) or [nx - h, nx)
-      value = src.own[k][(r + (side ? src.nx - h : 0)) * src.ny + c];
-    } else {  // E rows over own columns [0, h) or [ny - h, ny)
-      value = load_e(src, k, r, src.hy + c + (side ? src.ny - h : 0));
-    }
-    out[idx] = value;
+rdma_stage_kernel(RdmaSources src, int axis, int rows, int len, float* __restrict__ out) {
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int z = blockIdx.z;
+  const int side = z / kRdmaPlanes, k = z - side * kRdmaPlanes;
+  if (r >= rows || x >= (kVec ? len / 4 : len)) return;
+  const float* from = stage_source(src, axis, side, k, r);
+  float* to = out + (z * rows + r) * len;
+  if (kVec) {
+    reinterpret_cast<float4*>(to)[x] = __ldg(reinterpret_cast<const float4*>(from) + x);
+  } else {
+    to[x] = from[x];
   }
 }
 
@@ -218,7 +235,8 @@ static nst::RdmaSources rdma_sources(const void* const* sources, const int* dims
 }
 
 // The send strips of `axis` into out: (2, 5, h, ny) for x, (2, 5, nx + 2hx,
-// h) for y. Returns cudaGetLastError(); does not synchronise.
+// h) for y, in 16-byte vectors where every row starts 16-byte aligned.
+// Returns cudaGetLastError(); does not synchronise.
 int nst_rdma_stage(const void* const* sources, const int* dims, int axis, float* out,
                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -228,12 +246,23 @@ int nst_rdma_stage(const void* const* sources, const int* dims, int axis, float*
       (axis == 1 && src.hy != src.h)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = 256;
-  const long total = axis == 0 ? 2L * nst::kRdmaPlanes * src.h * src.ny
-                               : 2L * nst::kRdmaPlanes * (src.nx + 2 * src.hx) * src.h;
-  const int blocks = static_cast<int>((total + threads - 1) / threads);
-  nst::rdma_stage_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(src, axis,
-                                                                                   out);
+  const int rows = axis == 0 ? src.h : src.nx + 2 * src.hx;
+  const int len = axis == 0 ? src.ny : src.h;
+  bool vec = src.ny % 4 == 0 && src.h % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int p = 0; p < 9; ++p) vec = vec && reinterpret_cast<uintptr_t>(sources[p]) % 16 == 0;
+  const int per_row = vec ? len / 4 : len;
+  // Up to 256 threads along a row (a power of two), the rest of a
+  // 256-thread block over rows.
+  int bx = 1;
+  while (bx < per_row && bx < 256) bx *= 2;
+  const dim3 block(bx, 256 / bx);
+  const dim3 grid((per_row + bx - 1) / bx, (rows + block.y - 1) / block.y, 2 * nst::kRdmaPlanes);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    nst::rdma_stage_kernel<true><<<grid, block, 0, s>>>(src, axis, rows, len, out);
+  } else {
+    nst::rdma_stage_kernel<false><<<grid, block, 0, s>>>(src, axis, rows, len, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

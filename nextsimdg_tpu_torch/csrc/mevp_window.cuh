@@ -1,9 +1,11 @@
 // CG1 mEVP subcycles on a window of the state held in shared memory.
 //
-// The ghost-zone kernels run their subcycles here: mevp_tiled.cu on a tile
-// of the grid and its halo, mevp_rdma.cu on a tile of an edge band of a
-// rank block. A window is wa x wb cells of 7 planes (u, v, s11, s22, s12,
-// and the per-subcycle node planes c_w and inv_drag); window cell (a, b) is
+// rdma_band (mevp_rdma.cu) runs its subcycles here, on a tile of an edge
+// band of a rank block; mevp_tiled.cu runs the same cells of a square window
+// in a loop of its own (threads that own fixed cells, c_w and inv_drag in
+// registers). A window is
+// wa x wb cells of 7 planes (u, v, s11, s22, s12, and the per-subcycle node
+// planes c_w and inv_drag); window cell (a, b) is
 // domain cell (i0 + a, j0 + b). Cells outside the domain [0, nx) x [0, ny)
 // are zero and are never updated, as at() in common.cuh reads them.
 //

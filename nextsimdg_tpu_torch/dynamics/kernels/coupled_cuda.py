@@ -200,6 +200,8 @@ def build() -> Path:
 
 
 def _library():
+    if _lib is not None:
+        return _lib
     with _lock:
         return _lib if _lib is not None else _bind()
 
@@ -223,6 +225,8 @@ def _bind():
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
+    lib.nst_mevp_tiled_max_blocks.argtypes = [i] * 5
+    lib.nst_mevp_tiled_max_blocks.restype = i
     lib.nst_mevp_single_max_blocks.argtypes = [i, i]
     lib.nst_mevp_single_max_blocks.restype = i
     lib.nst_ho_single_max_blocks.argtypes = [i]

@@ -33,7 +33,7 @@ blocked exchange's round and the single-device step bit for bit.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -51,13 +51,22 @@ MAX_SHARED_BYTES = 232448
 @dataclass
 class RoundSources:
     """What the bands of a round read, in the coordinates of the rank's
-    widened block: the pre-round planes, and the ghosts received so far."""
+    widened block: the pre-round planes, and the ghosts received so far.
+
+    On CUDA the kernels take the sources as a C array of pointers and one of
+    dims (``c_args``), built once per set of ghosts and checked once: the
+    own planes when the round's first kernel launches, each ghost pair when
+    the first kernel after its ``wait`` launches. ``stream``: the stream the
+    round's kernels launch on (the rank's compute stream, fetched once per
+    round), or None for the caller's current stream at each launch."""
 
     own: tuple  #: the 5 pre-round (nx, ny) planes u, v, s11, s22, s12
     h: int  #: ghost width
     split: tuple  #: (x, y): whether each axis is split over ranks
     gx: tuple = None  #: (lo, hi) x ghosts, each (5, h, ny)
     gy: tuple = None  #: (lo, hi) y ghosts, each (5, nx + 2hx, h)
+    stream: int = None
+    _built: tuple = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def hx(self) -> int:
@@ -66,6 +75,36 @@ class RoundSources:
     @property
     def hy(self) -> int:
         return self.h if self.split[1] else 0
+
+    def c_args(self, need_gx: bool, need_gy: bool):
+        """(pointer array, dims array) of RdmaSources in csrc/mevp_rdma.cu,
+        from the cache while the ghosts are the same objects; raises where
+        a needed ghost pair has not been received or a source is not what
+        the kernels take."""
+        for need, ghosts, name in ((need_gx, self.gx, "x"), (need_gy, self.gy, "y")):
+            if need and ghosts is None:
+                raise ValueError(f"the {name} ghosts of the round have not been received")
+        built = self._built
+        if built is not None and built[0] is self.gx and built[1] is self.gy:
+            return built[2], built[3]
+        nx, ny = self.own[0].shape
+        device = self.own[0].device
+        if built is None:
+            cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), self.own)))
+        for ghosts, name, shape in (
+            (self.gx, "x", (5, self.h, ny)), (self.gy, "y", (5, nx + 2 * self.hx, self.h)),
+        ):
+            if ghosts is not None:
+                cc._check(shape, device, **{f"g{name}_lo": ghosts[0], f"g{name}_hi": ghosts[1]})
+        gx = self.gx if self.gx is not None else (None, None)
+        gy = self.gy if self.gy is not None else (None, None)
+        ptrs = cc._pointers([*self.own, *gx, *gy])
+        dims = (ctypes.c_int * 5)(nx, ny, self.h, self.hx, self.hy)
+        self._built = (self.gx, self.gy, ptrs, dims)
+        return ptrs, dims
+
+    def launch_stream(self) -> int:
+        return self.stream if self.stream is not None else cc._stream(self.own[0].device)
 
 
 def _x_extended(src: RoundSources) -> torch.Tensor:
@@ -130,46 +169,21 @@ def shared_bytes(rows: int, cols: int, axis: int, tile: int, n_sub: int) -> int:
     return 7 * along * across * 4
 
 
-def _sources(src: RoundSources):
-    """(pointer array, dims array) of RdmaSources in csrc/mevp_rdma.cu."""
-    gx = src.gx if src.gx is not None else (None, None)
-    gy = src.gy if src.gy is not None else (None, None)
-    nx, ny = src.own[0].shape
-    dims = (ctypes.c_int * 5)(nx, ny, src.h, src.hx, src.hy)
-    return cc._pointers([*src.own, *gx, *gy]), dims
-
-
-def _check_sources(src: RoundSources, need_gx: bool, need_gy: bool) -> None:
-    nx, ny = src.own[0].shape
-    device = src.own[0].device
-    cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), src.own)))
-    for need, ghosts, name, shape in (
-        (need_gx, src.gx, "x", (5, src.h, ny)), (need_gy, src.gy, "y", (5, nx + 2 * src.hx, src.h)),
-    ):
-        if not need:
-            continue
-        if ghosts is None:
-            raise ValueError(f"the {name} ghosts of the round have not been received")
-        cc._check(shape, device, **{f"g{name}_lo": ghosts[0], f"g{name}_hi": ghosts[1]})
-
-
 def rdma_stage(src: RoundSources, axis: int) -> torch.Tensor:
     """The send strips of ``axis`` (see ``rdma_stage_reference``), in one
     launch on CUDA tensors; CPU tensors run the plain version."""
-    if cc._on_cpu(src.own[0]):
+    own = src.own[0]
+    if cc._on_cpu(own):
         return rdma_stage_reference(src, axis)
     if not src.split[axis]:
         raise ValueError(f"axis {axis} is not split over ranks: it has no strips to send")
     # The y strips of a grid split along x carry the x ghosts.
-    _check_sources(src, need_gx=axis == 1 and src.split[0], need_gy=False)
-    nx, ny = src.own[0].shape
+    ptrs, dims = src.c_args(need_gx=axis == 1 and src.split[0], need_gy=False)
+    nx, ny = own.shape
     h = src.h
     shape = (2, 5, h, ny) if axis == 0 else (2, 5, nx + 2 * src.hx, h)
-    out = torch.empty(shape, device=src.own[0].device, dtype=torch.float32)
-    ptrs, dims = _sources(src)
-    cc._launch(
-        "rdma_stage", ptrs, dims, axis, out.data_ptr(), out.device.index, cc._stream(out.device)
-    )
+    out = torch.empty(shape, device=own.device, dtype=torch.float32)
+    cc._launch("rdma_stage", ptrs, dims, axis, out.data_ptr(), own.device.index, src.launch_stream())
     return out
 
 
@@ -188,7 +202,7 @@ def rdma_band(solver: MEVPSolver, src: RoundSources, axis: int, consts_w: dict, 
     nx, ny = src.own[0].shape
     if not 1 <= n_sub <= h or (nx if axis == 0 else ny) < 2 * h:
         raise ValueError(f"a round needs n_sub <= h = {h} and a block of at least 2h along axis {axis}")
-    _check_sources(src, need_gx=src.split[0], need_gy=axis == 1)
+    ptrs, dims = src.c_args(need_gx=src.split[0], need_gy=axis == 1)
     device = src.own[0].device
     cc._check((nx + 2 * src.hx, ny + 2 * src.hy), device, **consts_w)
     cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), state)))
@@ -198,19 +212,19 @@ def rdma_band(solver: MEVPSolver, src: RoundSources, axis: int, consts_w: dict, 
     tile = TILE
     while shared_bytes(rows, cols, axis, tile, n_sub) > MAX_SHARED_BYTES and tile > 8:
         tile //= 2
-    ptrs, dims = _sources(src)
     scalars = cc._mevp_scalars(solver, dt)  # alive until the call returns
     cc._launch(
         "rdma_band", ptrs, dims, axis, cc._mevp_consts(consts_w), tile, n_sub, THREADS,
-        cc._pointers(state), ctypes.addressof(scalars), device.index, cc._stream(device),
+        cc._pointers(state), ctypes.addressof(scalars), device.index, src.launch_stream(),
     )
     return state
 
 
-def _round(solver, carry, consts, consts_w, dt, n_sub, h, axes, stage, band, interior):
-    """The steps of the module docstring with the given primitives."""
+def _round(solver, carry, consts, consts_w, dt, n_sub, h, axes, stage, band, interior, **sources):
+    """The steps of the module docstring with the given primitives;
+    ``sources``: the ``stream`` of the round's RoundSources."""
     ax_x, ax_y = axes
-    src = RoundSources(own=tuple(carry), h=h, split=(ax_x is not None, ax_y is not None))
+    src = RoundSources(own=tuple(carry), h=h, split=(ax_x is not None, ax_y is not None), **sources)
     if ax_x is not None:
         send = stage(src, 0)
         x_handle = ax_x.start(send[0], send[1])
@@ -266,5 +280,5 @@ def mevp_round_rdma(solver: MEVPSolver, carry, consts, consts_w, dt, n_sub, h, a
     _check_round(carry, consts_w, n_sub, h, axes)
     return _round(
         solver, carry, consts, consts_w, dt, n_sub, h, axes,
-        rdma_stage, rdma_band, mevp_subcycles_tiled,
+        rdma_stage, rdma_band, mevp_subcycles_tiled, stream=cc._stream(carry[0].device),
     )

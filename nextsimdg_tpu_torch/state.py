@@ -85,9 +85,9 @@ class PhysicsDiagnostics:
 class PrognosticBuilder:
     """Fluent builder for prognostic states: each setter takes a scalar
     (broadcast over the grid) or a full array; ``build()`` assembles the
-    :class:`PrognosticState`."""
+    :class:`PrognosticState`. The caller names the device and dtype."""
 
-    def __init__(self, nx: int, ny: int, nlayers: int = 1, dtype=torch.float64, device="cpu"):
+    def __init__(self, nx: int, ny: int, nlayers: int = 1, *, device, dtype):
         self._nx, self._ny, self._nlayers = nx, ny, nlayers
         self._dtype, self._device = dtype, device
         self._fields = {"hice": 0.0, "cice": 0.0, "hsnow": 0.0, "sst": 0.0, "sss": 0.0}
@@ -145,7 +145,7 @@ def safe_div(num, den):
     return torch.where(nonzero, num / torch.where(nonzero, den, 1.0), 0.0)
 
 
-def zeros_prognostic(nx: int, ny: int, nlayers: int = 1, dtype=torch.float64, device="cpu"):
+def zeros_prognostic(nx: int, ny: int, nlayers: int = 1, *, device, dtype):
     """An all-zero prognostic state of the given grid size."""
     f2 = lambda: torch.zeros((nx, ny), dtype=dtype, device=device)
     return PrognosticState(
@@ -154,7 +154,7 @@ def zeros_prognostic(nx: int, ny: int, nlayers: int = 1, dtype=torch.float64, de
     )
 
 
-def dummy_forcing(nx: int, ny: int, dtype=torch.float64, device="cpu") -> Forcing:
+def dummy_forcing(nx: int, ny: int, *, device, dtype) -> Forcing:
     """The reference's constant placeholder forcing
     (``DummyExternalData.hpp:22-34``): Tair=-1 C, dew=-4 C, P=1e5 Pa,
     SW=0 (night), LW=311 W m-2, MLD=10 m, no snowfall, calm wind."""

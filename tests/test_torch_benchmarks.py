@@ -61,6 +61,13 @@ def test_mevp_large_tile_configuration_is_for_tiled_schedules_only():
         mevp_large.bench(16, "single", n_sub=2, outer=1, device="cpu", tile=8)
 
 
+def test_mevp_tiled_sweep_runs_each_mesh_and_configuration():
+    configs = ((8, 2, 64), (16, 4, 256))
+    out = mevp_large.sweep_mevp_tiled("cpu", sizes=(16,), configs=configs, n_sub=2)
+    assert set(out) == {(mesh, 16, c) for mesh in ("uniform", "spherical") for c in configs}
+    assert all(ms > 0 for ms in out.values())
+
+
 def test_entry_points_refuse_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a GPU")

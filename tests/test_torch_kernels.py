@@ -168,9 +168,14 @@ def assert_same_schedule(got, ref):
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("tile, halo, threads", [(64, 8, 1024), (16, 4, 256), (8, 3, 512)])
-def test_mevp_tiled_matches_plain_and_k1_on_a_ragged_grid(device, tile, halo, threads):
-    model, carry, consts, _, _ = setup(device, n=40, ny=72, n_subcycles=11)
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("tile, halo, threads", [
+    (64, 8, 1024), (16, 4, 256), (8, 3, 512),
+    mt.SMALL, mt.LARGE,  # the shipped configurations: windows 80 wide, and 64 wide two blocks an SM
+    (48, 8, 512), (60, 2, 1024), (30, 5, 200),
+])
+def test_mevp_tiled_matches_plain_and_k1_on_a_ragged_grid(device, tile, halo, threads, spherical):
+    model, carry, consts, _, _ = setup(device, n=100, ny=136, n_subcycles=11, spherical=spherical)
     cc.reset_launches()
     got = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, 11, tile, halo, threads)
     assert cc.launches["mevp_tiled"] == -(-11 // halo)
@@ -179,7 +184,10 @@ def test_mevp_tiled_matches_plain_and_k1_on_a_ragged_grid(device, tile, halo, th
     for g, r, q in zip(got, ref, k1):
         assert_close(g, r, 1e-3)
         assert_same_schedule(g, q)
-    assert torch.equal(carry[2], setup(device, n=40, ny=72)[1][2])  # inputs untouched
+    # inputs untouched
+    assert torch.equal(carry[2], setup(device, n=100, ny=136, spherical=spherical)[1][2])
+    if threads <= 512 and 2 * (mt.shared_bytes(tile, halo) + 1024) <= 233472:
+        assert mt.max_blocks(device, tile, halo, threads, spherical) >= 2
 
 
 @pytest.mark.parametrize("scheme, k", [("rk2", 1), ("rk2", 4), ("rk1", 3)])

@@ -2,6 +2,7 @@
 CPU dispatch of the kernel wrappers, and chip_smoke.py's refusal to run
 without a GPU."""
 
+import itertools
 import re
 import shutil
 import subprocess
@@ -16,6 +17,7 @@ from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as ht
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
@@ -191,11 +193,73 @@ def test_tiled_wrappers_run_the_plain_version_for_cpu_tensors():
         tt.transport_substeps_tiled(model.transport, psi.to("meta"), *meta[:2], 60.0, 1)
 
 
+def test_rdma_round_sources_run_the_plain_version_for_cpu_tensors():
+    """rdma_stage takes the plain version for CPU tensors; the round's
+    pointer arrays are built and checked once per set of ghosts, and a
+    missing or malformed ghost pair raises."""
+    model, carry, _, _ = _inputs()
+    h, (nx, ny) = 2, carry[0].shape
+    src = rdma.RoundSources(own=carry, h=h, split=(True, True))
+    cc.reset_launches()
+    assert torch.equal(rdma.rdma_stage(src, 0), torch.stack([
+        torch.stack([c[:h] for c in carry]), torch.stack([c[nx - h:] for c in carry])
+    ]))
+    with pytest.raises(ValueError, match="not been received"):
+        src.c_args(need_gx=True, need_gy=False)
+    ptrs, dims = src.c_args(need_gx=False, need_gy=False)
+    assert src.c_args(need_gx=False, need_gy=False)[0] is ptrs and list(dims) == [nx, ny, h, h, h]
+    assert list(ptrs)[:5] == [c.data_ptr() for c in carry] and list(ptrs)[5:] == [None] * 4
+    ghosts = torch.arange(5 * h * ny, dtype=torch.float32).reshape(5, h, ny)
+    negative = -ghosts
+    src.gx = (ghosts, negative)
+    with_gx, _ = src.c_args(need_gx=True, need_gy=False)
+    assert with_gx is not ptrs and list(with_gx)[5:7] == [ghosts.data_ptr(), negative.data_ptr()]
+    assert src.c_args(need_gx=True, need_gy=False)[0] is with_gx
+    ext = torch.cat([ghosts, torch.stack(carry), negative], dim=1)
+    assert torch.equal(rdma.rdma_stage(src, 1), torch.stack([ext[:, :, :h], ext[:, :, -h:]]))
+    assert torch.equal(rdma.rdma_stage(src, 1), rdma.rdma_stage_reference(src, 1))
+    assert all(count == 0 for count in cc.launches.values())
+    src.gy = (ghosts, ghosts)  # (5, h, ny), not (5, nx + 2h, h)
+    with pytest.raises(ValueError, match="shape"):
+        src.c_args(need_gx=True, need_gy=True)
+    double = rdma.RoundSources(own=tuple(c.double() for c in carry), h=h, split=(True, True))
+    with pytest.raises(TypeError, match="float32"):
+        double.c_args(need_gx=False, need_gy=False)
+
+
+def test_launch_counts_are_per_kernel_and_reset():
+    """The launch counts hold one entry per kernel of the library, and a
+    reset clears every one of them."""
+    assert tuple(cc.launches) == cc.KERNELS
+    cc.launches["rdma_stage"] += 3
+    cc.launches["mevp_tiled"] += 1
+    cc.reset_launches()
+    assert tuple(cc.launches) == cc.KERNELS and sum(cc.launches.values()) == 0
+
+
 def test_launch_configurations_fit_a_block():
     """The default tiles fit the 227 KB of shared memory of a block for
     every halo the host picks."""
     limit = 232448
-    assert mt.shared_bytes() <= limit and mt.THREADS <= 1024
+    # mevp_tiled: a window of the 5 state planes for the launch configuration
+    # the host picks at every size (a launch of n_sub <= halo subcycles keeps
+    # the window of halo). The large uniform grids' runs two blocks an SM, by
+    # shared memory (228 KB an SM, 1 KB of it reserved per block) and by
+    # threads (2048 an SM); the other one block of 1024 threads.
+    per_sm, reserved = 233472, 1024
+    for n, metric in itertools.product((8, 256, 1024, 1448, 2048, 2080, 4096), (False, True)):
+        tile, halo, threads = mt.launch_config(n, n, metric)
+        large = not metric and n * n >= mt.LARGE_MIN_ELEMENTS
+        assert (tile, halo, threads) == (mt.LARGE if large else mt.SMALL)
+        assert mt.shared_bytes(tile, halo) == 5 * (tile + 2 * halo) ** 2 * 4 <= limit
+        assert threads <= 1024 and 1 <= mt.cells_per_thread(tile, halo, threads) <= mt.MAX_CELLS
+    tile, halo, threads = mt.LARGE
+    assert 2 * (mt.shared_bytes(tile, halo) + reserved) <= per_sm and 2 * threads <= 2048
+    assert mt.launch_config(2048, 2048) == mt.LARGE and mt.launch_config(1024, 1024) == mt.SMALL
+    assert mt.launch_config(4096, 4096, metric=True) == mt.SMALL
+    assert mt.cells_per_thread(64, 8, 1024) == 7 and mt.cells_per_thread(8, 3, 512) == 1
+    assert mt.cells_per_thread(56, 8, 256) > mt.MAX_CELLS  # refused by the kernel
+    assert mt.cells_per_thread(200, 8, 128) == 0  # fewer threads than a window row
     for k in range(1, 10):
         for stages in (1, 2):
             halo = tt.halo_for(k, stages)

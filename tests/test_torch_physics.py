@@ -44,6 +44,9 @@ N = 16
 RTOL = 1e-12
 PROG = ("hice", "cice", "hsnow", "sst", "sss", "tice")
 FORCING = ("tair", "dew2m", "pair", "sw_in", "lw_in", "mld", "snowfall", "wind")
+#: The port's constructors take the device and dtype from the caller; the
+#: JAX package's default here is float64 on the CPU.
+CPU64 = {"device": "cpu", "dtype": torch.float64}
 
 
 def close(got, ref, rtol=RTOL, name=""):
@@ -140,12 +143,12 @@ def test_state_helpers_match():
     den[::3] = 0.0
     got = port_state.safe_div(torch.tensor(num), torch.tensor(den))
     assert np.array_equal(got.numpy(), np.asarray(jax_safe_div(jnp.asarray(num), jnp.asarray(den))))
-    close_dataclass(port_state.zeros_prognostic(4, 5, 2), jax_zeros_prognostic(4, 5, 2), 0.0)
-    close_dataclass(port_state.dummy_forcing(4, 5), jax_dummy_forcing(4, 5), 0.0)
+    close_dataclass(port_state.zeros_prognostic(4, 5, 2, **CPU64), jax_zeros_prognostic(4, 5, 2), 0.0)
+    close_dataclass(port_state.dummy_forcing(4, 5, **CPU64), jax_dummy_forcing(4, 5), 0.0)
     tice = rng.uniform(-5.0, 0.0, (3, 4, 5))
     for t in (-3.0, [-1.0, -2.0, -3.0], tice):
         build = lambda b: b.hice(0.5).cice(0.8).hsnow(0.1).sst(-1.7).sss(33.0).tice(t).build()
-        got = build(port_state.PrognosticBuilder(4, 5, nlayers=3))
+        got = build(port_state.PrognosticBuilder(4, 5, nlayers=3, **CPU64))
         ref = build(JaxPrognosticBuilder(4, 5, nlayers=3))
         close_dataclass(got, ref, 0.0)
     prog, forcing, _ = grid_inputs()
@@ -155,6 +158,26 @@ def test_state_helpers_match():
     close(p.snow_true_thickness(), jp.snow_true_thickness())
     close(f.mixed_layer_bulk_heat_capacity(), jf.mixed_layer_bulk_heat_capacity())
     assert p.n_ice_layers == jp.n_ice_layers and p.shape == tuple(jp.shape)
+
+
+@pytest.mark.parametrize("build", [
+    lambda **kw: port_state.PrognosticBuilder(4, 5, **kw),
+    lambda **kw: port_state.zeros_prognostic(4, 5, **kw),
+    lambda **kw: port_state.dummy_forcing(4, 5, **kw),
+])
+def test_state_constructors_take_the_device_from_the_caller(build):
+    """No CPU default: the caller names the device and the dtype, as
+    ``CoupledModel.initial_state`` asks."""
+    for missing in ({}, {"dtype": torch.float32}, {"device": "cpu"}):
+        with pytest.raises(TypeError, match="keyword-only"):
+            build(**missing)
+    made = build(device="cpu", dtype=torch.float32)
+    if isinstance(made, port_state.PrognosticBuilder):
+        made = made.build()
+    assert all(
+        getattr(made, f.name).dtype == torch.float32 and getattr(made, f.name).device.type == "cpu"
+        for f in dataclasses.fields(made)
+    )
 
 
 def test_humidity_matches():
