@@ -38,7 +38,9 @@ CFL-adaptive transport substeps:
   (``run_benchmarks.py`` ``ho_coupled_1m``, ``bench_coupled_1m(high_order=True)``):
   config 4's mesh, state and forcing with ``Nextsim::IDynamics =
   Nextsim::MEVPHighOrder`` selected through the module registry, on "auto":
-  ho_tiled (ghost-zone tiles of the 17 HO state planes), the CG2 velocity
+  ho_tiled (ghost-zone windows of the 17 HO state planes, one a
+  thread-block cluster launch, shipped as clusters of one block: one 48^2
+  window a block; sm_90 or newer), the CG2 velocity
   sampled at the quadrature points, and the ``qv`` form of transport_tiled;
   and the same at 256^2 on ``mevp_backend="pallas"`` (``ho_coupled_256``):
   ho_single, all 100 HO subcycles in one cooperative launch;
@@ -49,7 +51,8 @@ CFL-adaptive transport substeps:
   rank a thread with a compute and a copy stream), on "auto" (the blocked
   exchange: mevp_tiled on blocks widened by h = 16 ghost cells once per 16
   subcycles) and on "rdma" (K7: rdma_stage, the strips copied while
-  mevp_tiled runs the interior, rdma_band on the edge bands); the
+  mevp_tiled runs the interior, rdma_band on the patch's cone of the edge
+  bands, by clusters of blocks along each band); the
   transport is transport_tiled on the block widened by H ghost cells, the
   CFL count one max over the ranks.
 
@@ -57,7 +60,12 @@ Phases, each printed on its own lines:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: the kernels' compile (or cache hit) time, registers and spills;
-   and, printed after the checks (``cuobjdump -sass`` of the library runs
+   the launch of the cluster kernels at their paths' shapes (ho_tiled at
+   1024^2, shipped and in 2 x 2 clusters; rdma_band on config 5's bands,
+   with its launch bound): cluster shape, sub-window or
+   segment, threads, shared bytes, registers, the clusters the card holds
+   at once, the blocks of a launch and the SMs it reaches; and, printed
+   after the checks (``cuobjdump -sass`` of the library runs
    beside them), the FFMA, FMUL and FADD counts of the chain kernel's fma,
    fma_imm and mul_add forms: --fmad=false must leave the first two fused
    and the third unfused;
@@ -77,8 +85,10 @@ Phases, each printed on its own lines:
    other at 1024^2 spherical with the coastline; then ho_single against its
    plain version (256^2, N = 1, 13, 100), ho_tiled against it (1024^2,
    N = 1 and 13, and 1000 x 968), the two against each other (256^2 and
-   512^2), and the qv form of transport_tiled against its plain version
-   (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
+   512^2), ho_tiled's shipped window (a cluster of one block) against
+   clusters of 2 to 16 blocks that push their edges through distributed
+   shared memory (1024^2, N = 13), and the qv form of transport_tiled
+   against its plain version (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
    launch by launch against their plain versions, and the rdma round
    against the blocked round;
 5. slice: for each path, one step on the kernels against the plain path on
@@ -100,8 +110,11 @@ Phases, each printed on its own lines:
    and on the plain path, and each kernel per call against its plain
    version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
    rdma steps, the blocked round against the rdma round, the dynamics step
-   at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles. One
-   card shows what the exchange costs, not how the step scales over cards.
+   at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; last,
+   the profiler's device duration of rdma_stage and of rdma_band on the x
+   and y bands, beside their back-to-back times (every row of the summary
+   carries the back-to-back time per call). One card shows what
+   the exchange costs, not how the step scales over cards.
    The "auto" threshold sweeps and the tile sweeps are
    ``python -m nextsimdg_tpu_torch.benchmarks.mevp_large``'s.
 
@@ -127,6 +140,7 @@ import torch
 
 from nextsimdg_tpu_torch import coupled, modules
 from nextsimdg_tpu_torch.benchmarks import mevp_large, roofline
+from nextsimdg_tpu_torch.benchmarks.common import device_ms
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics import mevp_ho
@@ -457,6 +471,11 @@ def ptxas_report(text: str):
             args = re.findall(r"L([bi])(\d+)E", rest.split("EE")[0] + "E") if rest.startswith("I") else []
             if kernel == "rdma_stage_kernel":  # its one template argument: 16-byte vectors
                 kernel += "<float4>" if args[0][1] == "1" else "<scalar>"
+            elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound
+                axis = "along columns, x bands" if args[0][1] == "1" else "along rows, y bands"
+                kernel += f"<{axis}, {args[1][1]} threads>"
+            elif kernel == "ho_tiled_kernel" and args:  # the sub-window width, 0: any
+                kernel += f"<width {args[0][1]}>" if args[0][1] != "0" else "<any width>"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
                 names = ["metric" if args[0][1] == "1" else "uniform"]
                 if kernel == "mevp_tiled_kernel":  # then the window width
@@ -793,6 +812,16 @@ def check_ho(device) -> dict:
         tiled = htc.ho_subcycles_tiled(model.mevp, carry, consts, DT, N_SUBCYCLES)
         for (name, g), (_, w) in zip(ho_planes(single), ho_planes(tiled)):
             same_schedule(f"ho_single {n_side}x{n_side} N={N_SUBCYCLES} {name}", g, w, "ho_tiled")
+    # The shipped window (a cluster of one block) against clusters of 2 to
+    # 16 blocks, whose blocks push their edges into each other's shared
+    # memory, at 1024^2, N = 13.
+    model, carry, consts, _, _ = inputs[N4]
+    shipped = htc.ho_subcycles_tiled(model.mevp, carry, consts, DT, 13, htc.SHIPPED)
+    for other in (htc.CLUSTER_2X2, htc.LaunchConfig(1, 2, 48, 8, 512), htc.LaunchConfig(2, 4, 48, 8, 512),
+                  htc.LaunchConfig(4, 4, 32, 8, 256)):
+        got = htc.ho_subcycles_tiled(model.mevp, carry, consts, DT, 13, other)
+        for (name, g), (_, w) in zip(ho_planes(got), ho_planes(shipped)):
+            same_schedule(f"ho_tiled {other} {N4}x{N4} N=13 {name}", g, w, f"ho_tiled {htc.SHIPPED}")
 
     # The qv form of transport_tiled at 1024^2: the CG2 samples of a
     # velocity scaled so that k = 4 runs two launches.
@@ -835,10 +864,7 @@ def check_ho(device) -> dict:
             f"{', '.join(f'{m:.4f}' for m in runs['kernel'])}), plain {mean['plain']:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}) per call of {n_sub} subcycles at {n_side}x{n_side}"
         ))
-    log("build", (
-        f"ho_single: {hsc.max_blocks(device)} resident blocks of 256 threads; ho_tiled: tile "
-        f"{htc.TILE}, halo {htc.HALO}, {htc.THREADS} threads, {htc.shared_bytes()} B shared"
-    ))
+    log("build", f"ho_single: {hsc.max_blocks(device)} resident blocks of 256 threads")
     return {**results, "transport_qv": max(qv_errs)}
 
 
@@ -1023,28 +1049,6 @@ def profile(tag: str, step, n_steps: int = 5) -> None:
     ))
 
 
-def device_ms(fn, kernel: str, n: int = 20) -> float:
-    """Mean device duration of the CUDA kernels whose name holds ``kernel``
-    over n calls of fn, from torch.profiler."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
-    ]
-    count = sum(e.count for e in events)
-    if count == 0:
-        raise AssertionError(f"the profiler saw no {kernel} kernel")
-    return sum(e.self_device_time_total for e in events) / count / 1e3
-
-
 def time_paths(device, card: str) -> None:
     """Phase 5: ms per step of the paths and schedules, in turns."""
     model, state, forcing = bench_model(device)
@@ -1213,8 +1217,8 @@ def check_multihost(device) -> tuple:
     the rdma round against the blocked round, one decomposed step against
     the single-device kernel step at 4096^2, the decomposed kernel step
     against the decomposed plain step at 512^2, and N5_STEPS steps of each form.
-    Returns (launch counts per path, K7's Row per kernel, an rdma_stage
-    launch on built sources for the profiler)."""
+    Returns (launch counts per path, K7's Row per kernel, rank 0's
+    rdma_stage and rdma_band launches for the profiler)."""
     model1, state, phys, dyn = config5_model(device)
     log("slice", (
         f"multihost_16m: {N16}x{N16} ({N16 * N16} elements) on a {RANKS[0]}x{RANKS[1]} rank grid "
@@ -1354,7 +1358,15 @@ def check_multihost(device) -> tuple:
         "rdma_stage": Row(errs["rdma_stage"], mean["new"], *times[("rdma_stage", 0)][1:], mean["stack"]),
         "rdma_band": Row(errs["rdma_band"], *times[("rdma_band", 0)]),
     }
-    return counts, kernels, lambda: rdma.rdma_stage(cached, 0)
+    # The device durations (torch.profiler, last in the run) of these launches.
+    probes = {"rdma_stage axis 0": lambda: rdma.rdma_stage(cached, 0)}
+    for axis in (0, 1):
+        local_a, src_a, consts_a, state_a = results[0][3][axis]
+        probes[f"rdma_band axis {axis}"] = (
+            lambda local_a=local_a, src_a=src_a, consts_a=consts_a, state_a=state_a, axis=axis:
+            rdma.rdma_band(local_a, src_a, axis, consts_a, DT, h, state_a)
+        )
+    return counts, kernels, probes
 
 
 def time_multihost(device, card: str) -> None:
@@ -1568,6 +1580,47 @@ def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     return {"kernels": [row_json(k) for k in cc.KERNELS]}
 
 
+def cluster_report(device, ptxas: str):
+    """[build] lines of the cluster kernels at their paths' shapes: the
+    shipped launch (and ho_tiled's 2 x 2 clusters), shared bytes,
+    registers and spills of the instantiation it runs (ptxas), the
+    clusters the card holds at once (cudaOccupancyMaxActiveClusters), the
+    blocks of a launch and the SMs it reaches."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    regs = {line.split(":")[0]: line.split(":", 1)[1].strip() for line in ptxas_report(ptxas)}
+    n = N4  # the HO 1M path's size
+    for config in (htc.launch_config(n, n), htc.CLUSTER_2X2):  # shipped, and the best cluster
+        ca, cb = config.clusters(n, n)
+        active = htc.max_clusters(device, config)
+        blocks = config.grid(n, n)[0] * config.grid(n, n)[1]
+        yield (
+            f"ho_tiled at {n}x{n}{' (shipped)' if config == htc.launch_config(n, n) else ''}: clusters of "
+            f"{config.rows}x{config.cols} blocks of {config.threads} "
+            f"threads, {config.sub}^2 sub-windows and their aprons, window {config.window}, interior "
+            f"{config.interior}, halo {config.halo} (redundancy {config.redundancy():.3f}), "
+            f"{config.shared_bytes()} B shared; ptxas "
+            f"{regs.get(f'ho_tiled_kernel<width {config.sub}>', regs.get('ho_tiled_kernel<any width>', '?'))}; "
+            f"{active} clusters at once ({active * config.rows * config.cols} blocks); a launch: "
+            f"{ca}x{cb} clusters, {blocks} blocks, {ca * cb / active:.2f} waves, reaches "
+            f"{min(blocks, active * config.rows * config.cols, sms)} of {sms} SMs"
+        )
+    h = 16  # config 5's ghost width
+    for axis, name in ((0, "along columns, x bands"), (1, "along rows, y bands")):
+        band = rdma.launch_config(axis)
+        bound = rdma.launch_bound(band.threads)
+        along = rdma.band_shape(axis, h, N16 // 2, N16 // 2, h)[1 - axis]
+        blocks = 2 * band.cluster * band.clusters(along, h)
+        active = rdma.max_clusters(device, axis, h, band)
+        yield (
+            f"rdma_band {name.split(', ')[1]} of a {N16 // 2}^2 rank block, h = {h}: clusters of "
+            f"{band.cluster} blocks of {band.threads} threads, {band.seg} cells along the band each, "
+            f"{band.cells_per_thread(h)} cells a thread, {band.shared_bytes(h, axis)} B shared; ptxas "
+            f"{regs.get(f'rdma_band_kernel<{name}, {bound} threads>', '?')}; {active} clusters at once; a launch "
+            f"(a pair of bands): {blocks} blocks, reaches {min(blocks, active * band.cluster, sms)} "
+            f"of {sms} SMs"
+        )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1602,15 +1655,17 @@ def main() -> int:
             f"{mt.max_blocks(device, *config)} resident blocks per SM (uniform), "
             f"{mt.max_blocks(device, *config, metric=True)} (metric)"
         ))
+    for line in cluster_report(device, path.with_suffix(".log").read_text()):
+        log("build", line)
     sass = start_sass(path)
     try:
-        return run_phases(device, name, smi, sass, t_start)
+        return run_phases(device, smi, sass, t_start)
     finally:
         sass.kill()  # nothing once it has been read
         sass.wait()
 
 
-def run_phases(device, name: str, smi: str, sass: subprocess.Popen, t_start: float) -> int:
+def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     """The phases after the build; the SASS count is read before the timings."""
 
     def phase(fn, *args):
@@ -1635,15 +1690,21 @@ def run_phases(device, name: str, smi: str, sass: subprocess.Popen, t_start: flo
     ):
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, extra[key]))
     counts = phase(check_slice, device)
-    counts_5, kernels_5, stage_x = phase(check_multihost, device)
+    counts_5, kernels_5, probes = phase(check_multihost, device)
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
     log("build", sass_report(sass))
     phase(time_paths, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
-    # Last, as a profiler session slows the host's later launches.
-    log("time", f"rdma_stage axis 0 device duration {device_ms(stage_x, 'rdma_stage'):.5f} ms (torch.profiler)")
+    # Last, as a profiler session slows the host's later launches. Every
+    # row's ms stays the back-to-back time per call; the device durations
+    # are logged beside it.
+    for probe, fn in probes.items():
+        ms = device_ms(fn, probe.split()[0])
+        log("time", f"{probe} device duration {ms:.5f} ms (torch.profiler)")
+        if probe == "rdma_band axis 0":
+            log("time", f"rdma_band: back to back {kernels['rdma_band'].ms:.5f} ms per call, device {ms:.5f} ms")
 
     summary = kernel_summary(kernels, counts, ceilings)
     log("time", f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
@@ -1651,7 +1712,7 @@ def run_phases(device, name: str, smi: str, sass: subprocess.Popen, t_start: flo
     print(json.dumps(summary))
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
     }))
     return 0
 

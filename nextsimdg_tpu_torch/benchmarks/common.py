@@ -1,5 +1,6 @@
 """What the battery's measurements share: the card they need, its name and
-power limit, CUDA-event timing, and models built with the HO solver."""
+power limit, CUDA-event timing, a kernel's device time from the profiler,
+and models built with the HO solver."""
 
 from __future__ import annotations
 
@@ -61,3 +62,26 @@ def best_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Mean device duration (ms) of the CUDA kernels whose name holds
+    ``kernel`` over n calls of fn, from torch.profiler: the kernel's own
+    time, whatever the host takes to issue it. A profiler session slows the
+    host's later launches, so time host-bound work before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
+    ]
+    count = sum(e.count for e in events)
+    if count == 0:
+        raise AssertionError(f"the profiler saw no {kernel} kernel")
+    return sum(e.self_device_time_total for e in events) / count / 1e3

@@ -7,6 +7,7 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large [n ...]      # plain and mevp_tiled at n (1024 2048 4096)
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --thresholds  # the "auto" threshold sweeps
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --barriers    # a cluster barrier's cost
 
 ``--thresholds``: K1's schedule against the tiled one on the dynamics step
 at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
@@ -14,15 +15,21 @@ at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
 128^2-1024^2 (``coupled.SINGLE_MAX_ELEMENTS``); ``ho_single`` against
 ``ho_tiled`` on the HO mEVP phase and dynamics step at 128^2-1024^2
 (``mevp_ho.HO_SINGLE_MAX_ELEMENTS``). ``--tiles``: the launch
-configurations of ``mevp_tiled`` (tile, halo, threads; its call alone, with its resident blocks per SM) at 1024^2, 2048^2 and 4096^2,
-uniform and spherical, then those of ``ho_tiled`` and ``transport_tiled``
-at 1024^2; ``--tiles=mevp_tiled`` the first part only. Each line names the
-card and its power limit. Times are CUDA-event ms, the pairs in turns
-(a b b a).
+configurations of ``mevp_tiled`` (tile, halo, threads; its call alone, with
+its resident blocks per SM) at 1024^2, 2048^2 and 4096^2, uniform and
+spherical; of ``ho_tiled`` (cluster shape, sub-window, halo, threads;
+with the window's redundancy and the clusters the card holds at once) at 512^2, 1024^2 and 2048^2; of ``rdma_band`` (cluster,
+segment, threads) on the x and y bands of config 5's 2048^2 rank blocks
+at h = 16; then those of ``transport_tiled`` at 1024^2.
+``--tiles=mevp_tiled``, ``--tiles=ho_tiled`` and ``--tiles=rdma_band``
+run one part only. ``--barriers``: what one barrier between two phases
+costs in ho_tiled's and rdma_band's cluster shapes. Each line names the card and its power limit. Times
+are CUDA-event ms, the pairs in turns (a b b a).
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 import time
 
@@ -34,9 +41,10 @@ from ..dynamics import RectMesh, SphericalMesh, synthetic_coastline
 from ..dynamics import mevp_ho
 from ..dynamics.kernels import coupled_cuda as cc
 from ..dynamics.kernels import ho_single_cuda, ho_tiled_cuda, mevp_single_cuda, mevp_tiled_cuda
+from ..dynamics.kernels import mevp_rdma_cuda as rdma_cuda
 from ..dynamics.kernels import transport_tiled_cuda
-from ..dynamics.mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
-from .common import best_ms, card, require_cuda, with_high_order
+from ..dynamics.mevp import UNIFORM_CONSTS, DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
+from .common import best_ms, card, device_ms, require_cuda, with_high_order
 
 DT = 600.0
 
@@ -83,7 +91,8 @@ def bench(n: int, backend: str, n_sub: int = 100, outer: int = None, reps: int =
     """Seconds per step (``step_consts`` and ``n_sub`` subcycles) of the
     mEVP phase at n^2 on ``backend`` (a key of ``SCHEDULES``), over
     ``outer`` steps, best of ``reps``; printed with the card. The tiled
-    backends take ``tile``, ``halo`` and ``threads`` (``tiled_kwargs``).
+    backends take a launch configuration (``tiled_kwargs``): ``tile``,
+    ``halo`` and ``threads`` (mevp_tiled), ``config`` (ho_tiled).
     ``device="cpu"`` (the tests) runs every schedule's plain version."""
     device = require_cuda("cuda") if device is None else torch.device(device)
     if tiled_kwargs and backend not in TILED:
@@ -228,16 +237,196 @@ def sweep_mevp_tiled(device, sizes=TILE_SIZES, configs=MEVP_TILED_CONFIGS, n_sub
     return out
 
 
-def sweep_tiles(device, n: int = 1024) -> None:
-    """Launch configurations (tile, halo, threads) of ``ho_tiled`` and
-    ``transport_tiled`` at n^2 that fit a block's 227 KB of shared memory
-    (``mevp_tiled``'s: ``sweep_mevp_tiled``)."""
+#: ho_tiled launch configurations (cluster rows, cols, sub-window, halo,
+#: threads): one 48^2 or 56^2 window a block (the design before clusters)
+#: and one a cluster of 2 to 16 blocks, sub-windows of 32 to 56, halos of 8
+#: and 10, 256 or 512 threads.
+HO_TILED_CONFIGS = tuple(
+    ho_tiled_cuda.LaunchConfig(*c) for c in (
+        (1, 1, 48, 8, 512), (1, 1, 56, 8, 512), (1, 2, 48, 8, 512), (1, 2, 56, 8, 512),
+        (2, 1, 56, 8, 512), (1, 4, 48, 8, 512), (2, 2, 48, 8, 512), (2, 2, 56, 8, 512),
+        (2, 2, 40, 8, 512), (2, 2, 32, 8, 256), (2, 4, 48, 8, 512), (4, 2, 48, 8, 512),
+        (4, 4, 48, 8, 512), (4, 4, 32, 8, 256),
+    )
+)
+HO_TILE_SIZES = (512, 1024, 2048)
+
+
+def seeded_ho_phase(n: int, device, seed: int = 0):
+    """(solver, carry, consts): seeded HO planes (a state in motion) and the
+    consts of ``_phase_inputs``' forcing at n^2."""
+    solver, _, args = _phase_inputs(n, True, False, device)
+    rng = np.random.default_rng(seed)
+    noise = lambda s: torch.tensor(rng.normal(0.0, s, (n, n)), device=device, dtype=torch.float32)
+    field = lambda s: mevp_ho.HOField(*(noise(s) for _ in range(4)))
+    stress = lambda s: torch.stack([noise(s) for _ in range(3)])
+    state = mevp_ho.HOVelocityState(u=field(0.2), v=field(0.2), s11=stress(1e3), s22=stress(1e3), s12=stress(5e2))
+    carry = (state.u, state.v, state.s11, state.s22, state.s12)
+    return solver, carry, solver.step_consts(state, *args, DT)
+
+
+def sweep_ho_tiled(device, sizes=HO_TILE_SIZES, configs=HO_TILED_CONFIGS, n_sub: int = 16) -> dict:
+    """ms per 8 subcycles and ps per element and subcycle of ``ho_tiled``
+    alone (``n_sub`` subcycles per timed call, best of 5) for each launch
+    configuration at each size, with its window's redundancy, its shared
+    bytes, the clusters the card holds at once and the waves a launch
+    takes; printed, and returned by (n, config). On the CPU (the tests) the
+    plain version runs once each and no clusters are counted."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    where = card(device)["nvidia_smi"] if on_card else "cpu"
+    out = {}
+    for n in sizes:
+        solver, carry, consts = seeded_ho_phase(n, device)
+        for config in configs:
+            run = lambda: ho_tiled_cuda.ho_subcycles_tiled(solver, carry, consts, DT, n_sub, config)
+            ca, cb = config.clusters(n, n)
+            if on_card:
+                active = ho_tiled_cuda.max_clusters(device, config)
+                if not active:
+                    print(f"ho_tiled {n}x{n} {config}: fits no SM", flush=True)
+                    continue
+                ms = best_ms(run, 5)
+                waves = f", {ca * cb / active:.2f} waves of {active}"
+            else:
+                waves, t0 = "", time.perf_counter()
+                run()
+                ms = (time.perf_counter() - t0) * 1e3
+            out[(n, config)] = ms
+            print(
+                f"ho_tiled {n}x{n} cluster {config.rows}x{config.cols} sub {config.sub} halo "
+                f"{config.halo} threads {config.threads}: "
+                f"{ms * 8 / n_sub:.4f} ms per 8 subcycles, {ms * 1e9 / (n * n * n_sub):.2f} ps per "
+                f"element and subcycle, redundancy {config.redundancy():.3f}, "
+                f"{config.shared_bytes()} B shared, {ca}x{cb} clusters{waves} on {where}", flush=True,
+            )
+    return out
+
+
+#: rdma_band launch configurations (cluster, seg, threads): tiles of one
+#: block (cluster 1) 40 to 80 cells along the band, and clusters of 2 to
+#: 16 blocks along it.
+RDMA_BAND_CONFIGS = tuple(
+    rdma_cuda.BandConfig(*c) for c in (
+        (1, 40, 640), (1, 48, 768), (1, 56, 896), (1, 62, 992), (1, 64, 768), (1, 64, 1024),
+        (1, 80, 1024), (2, 32, 512), (2, 64, 1024), (4, 32, 512), (8, 16, 256), (8, 24, 384),
+        (16, 8, 128), (16, 16, 256),
+    )
+)
+
+
+def band_round_sources(n: int, h: int, device, seed: int = 0):
+    """(solver, RoundSources with both ghost pairs, widened consts, state)
+    of one rank block of n^2 split on both axes, seeded (config 5's
+    blocks: n = 2048, h = 16)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    scale = np.array([0.2, 0.2, 1e3, 1e3, 1e3])[:, None, None]
+    solver = MEVPSolver(RectMesh(n, n, 2e3, 2e3), MEVPParams())
+    own = tuple(t(rng.normal(0.0, s, (n, n))) for s in scale[:, 0, 0])
+    gx = tuple(t(rng.normal(0.0, 1.0, (5, h, n)) * scale) for _ in range(2))
+    gy = tuple(t(rng.normal(0.0, 1.0, (5, n + 2 * h, h)) * scale) for _ in range(2))
+    src = rdma_cuda.RoundSources(own=own, h=h, split=(True, True), gx=gx, gy=gy)
+    wide = (n + 2 * h, n + 2 * h)
+    consts_w = {name: t(rng.uniform(0.1, 2.0, wide)) for name in UNIFORM_CONSTS}
+    consts_w["strength"] = t(rng.uniform(0.0, 3e4, wide))
+    state = [torch.empty_like(own[0]) for _ in range(5)]
+    return solver, src, consts_w, state
+
+
+def sweep_rdma_band(device, n: int = 2048, h: int = 16, configs=RDMA_BAND_CONFIGS) -> dict:
+    """ms per call of ``rdma_band`` (a pair of bands, h subcycles) for each
+    launch configuration, on the x bands (3h x n) and the y bands
+    ((n + 2h) x 3h) of an n^2 rank block: back to back (best of 5 over 20
+    calls; the wrapper's host path included) and, after all of those, the
+    kernel's device duration (torch.profiler, 20 calls), with its blocks,
+    the clusters the card holds at once and its shared bytes; printed, and
+    returned by (axis, config) as device ms. On the CPU (the tests) one
+    call each runs the plain version."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    where = card(device)["nvidia_smi"] if on_card else "cpu"
+    solver, src, consts_w, state = band_round_sources(n, h, device)
+    out, lines = {}, []
+    for axis in (0, 1):
+        along = rdma_cuda.band_shape(axis, h, n, n, h)[1 - axis]
+        for config in configs:
+            try:
+                config.check(axis, h, h)
+            except ValueError:
+                continue
+            run = lambda axis=axis, config=config: rdma_cuda.rdma_band(
+                solver.local(), src, axis, consts_w, DT, h, state, config
+            )
+            blocks = 2 * config.cluster * config.clusters(along, h)
+            if on_card:
+                active = rdma_cuda.max_clusters(device, axis, h, config)
+                if not active:
+                    print(f"rdma_band axis {axis} {config}: fits no SM", flush=True)
+                    continue
+
+                def calls():
+                    for _ in range(20):
+                        run()
+
+                ms = best_ms(calls, 5) / 20
+            else:
+                active, t0 = None, time.perf_counter()
+                run()
+                ms = (time.perf_counter() - t0) * 1e3
+            lines.append((axis, config, run, ms, (
+                f"rdma_band axis {axis} ({'x' if axis == 0 else 'y'} bands of {n}^2, h = {h}) cluster "
+                f"{config.cluster} seg {config.seg} threads {config.threads}: device {{device}} ms, "
+                f"{ms:.4f} ms per call back to back, {blocks} blocks, {active} clusters at once, "
+                f"{config.shared_bytes(h, axis)} B shared, {config.cells_per_thread(h)} cells a thread "
+                f"on {where}"
+            )))
+    for axis, config, run, ms, line in lines:
+        out[(axis, config)] = device_ms(run, "rdma_band") if on_card else ms
+        print(line.format(device=f"{out[(axis, config)]:.5f}" if on_card else "not measured"), flush=True)
+    return out
+
+
+#: Cluster shapes for the barrier probe (rows, cols, threads, shared
+#: bytes): ho_tiled's shipped window a block and its 2 x 2 clusters, and
+#: rdma_band's clusters of 16 at config 5's x bands.
+BARRIER_SHAPES = ((1, 1, 512, 170000), (2, 2, 512, 170000), (1, 16, 256, 17280))
+
+
+def sweep_barriers(device, shapes=BARRIER_SHAPES, n_barriers: int = 4096) -> dict:
+    """ns per barrier between two phases (``window_sync`` of
+    csrc/cluster_window.cuh: the block's barrier in a cluster of one,
+    ``cluster.sync()`` in larger ones) in clusters of each shape, one wave
+    of them on the card: a launch of ``n_barriers`` barriers less a launch
+    of none (best of 5 each), over ``n_barriers``; printed, and returned by
+    shape."""
+    device = torch.device(device)
+    lib, stream = cc._library(), cc._stream(device)
     where = card(device)["nvidia_smi"]
-    for tile, halo, threads in (
-        (32, 8, 512), (32, 8, 256), (32, 8, 384), (40, 8, 512), (48, 4, 512), (42, 8, 512),
-        (24, 8, 256), (16, 8, 256), (16, 4, 128), (32, 4, 256), (24, 12, 512), (26, 16, 512),
-    ):
-        bench(n, "ho_tiled", outer=2, device=device, tile=tile, halo=halo, threads=threads)
+    clusters, out = ctypes.c_int(0), {}
+    for rows, cols, threads, n_bytes in shapes:
+        def run(n):
+            err = lib.nst_window_syncs(
+                rows, cols, threads, n_bytes, n, device.index or 0, stream, ctypes.byref(clusters)
+            )
+            if err != 0:
+                raise RuntimeError(f"window_syncs: CUDA error {err}: {lib.nst_error_string(err).decode()}")
+
+        empty, full = best_ms(lambda: run(0)), best_ms(lambda: run(n_barriers))
+        out[(rows, cols, threads, n_bytes)] = ns = (full - empty) * 1e6 / n_barriers
+        print(
+            f"window_sync in clusters of {rows}x{cols} blocks of {threads} threads ({n_bytes} B shared, "
+            f"{clusters.value} clusters at once, one wave): {ns:.1f} ns per barrier ({full:.4f} ms for "
+            f"{n_barriers}, {empty:.4f} ms for none) on {where}", flush=True,
+        )
+    return out
+
+
+def sweep_tiles(device, n: int = 1024) -> None:
+    """Launch configurations (tile, threads) of ``transport_tiled`` at n^2
+    (``mevp_tiled``'s: ``sweep_mevp_tiled``; ``ho_tiled``'s:
+    ``sweep_ho_tiled``; ``rdma_band``'s: ``sweep_rdma_band``)."""
+    where = card(device)["nvidia_smi"]
     # transport_tiled: one rk2 substep on seeded tracers and velocity.
     rng = np.random.default_rng(0)
     t = lambda x: torch.tensor(x, device=device, dtype=torch.float32)
@@ -265,8 +454,14 @@ def main(argv=None) -> int:
         sweep_thresholds(device)
     if "--tiles" in argv or "--tiles=mevp_tiled" in argv:
         sweep_mevp_tiled(device)
+    if "--tiles" in argv or "--tiles=ho_tiled" in argv:
+        sweep_ho_tiled(device)
+    if "--tiles" in argv or "--tiles=rdma_band" in argv:
+        sweep_rdma_band(device)
     if "--tiles" in argv:
         sweep_tiles(device)
+    if "--barriers" in argv:
+        sweep_barriers(device)
     sizes = [int(a) for a in argv if not a.startswith("--")]
     if sizes or not any(a.startswith("--") for a in argv):
         for n in sizes or [1024, 2048, 4096]:

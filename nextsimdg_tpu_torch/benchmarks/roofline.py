@@ -370,23 +370,25 @@ def kernel_bytes_per_element_subcycle() -> dict:
       a launch of H subcycles reads the 5 state and 7 const planes over the
       (T + 2H)^2 window of each T^2 tile and writes the 5 state planes of the
       tile: ((5 + 7) (T + 2H)^2 / T^2 + 5) x 4 / H.
-    * ``ho_tiled`` at 1024^2 (T = ``ho_tiled_cuda.TILE``, H = ``HALO``): the
-      17 state planes over the window in and over the tile out once per
-      launch, and the 29 const planes read from L2 every subcycle (the
-      interior's; the ring work reads more): (17 (T + 2H)^2 / T^2 + 17) x 4
-      / H + 29 x 4.
+    * ``ho_tiled`` at 1024^2 (``ho_tiled_cuda.launch_config``: one window of
+      (wa, wb) cells a cluster, its (ta, tb) interior written back, H
+      subcycles a launch): the 17 state planes over the window in and over
+      the interior out once per launch, and the 29 const planes read from
+      L2 every subcycle (the interior's; the ring work reads more):
+      (17 wa wb / (ta tb) + 17) x 4 / H + 29 x 4.
     """
     from ..dynamics.kernels import ho_tiled_cuda, mevp_tiled_cuda
 
     out = {"fused_cg1_256": (10 + 5 + 12 + 2) * 4.0}
     T_cg1, H_cg1, _ = mevp_tiled_cuda.launch_config(2048, 2048)
     out["tiled_cg1_2048"] = ((5 + 7) * (T_cg1 + 2 * H_cg1) ** 2 / T_cg1**2 + 5) * 4 / H_cg1
-    T, H = ho_tiled_cuda.TILE, ho_tiled_cuda.HALO
-    out["tiled_ho_1024"] = (17 * (T + 2 * H) ** 2 / T**2 + 17) * 4 / H + 29 * 4
+    ho = ho_tiled_cuda.launch_config(1024, 1024)
+    (wa, wb), (ta, tb) = ho.window, ho.interior
+    out["tiled_ho_1024"] = (17 * wa * wb / (ta * tb) + 17) * 4 / ho.halo + 29 * 4
     out["_configs"] = {
         "fused_cg1_256": "mevp_single, all subcycles in one launch",
         "tiled_cg1_2048": {"tile": T_cg1, "halo": H_cg1},
-        "tiled_ho_1024": {"tile": ho_tiled_cuda.TILE, "halo": ho_tiled_cuda.HALO},
+        "tiled_ho_1024": {"cluster": [ho.rows, ho.cols], "sub": ho.sub, "halo": ho.halo},
     }
     return out
 

@@ -48,9 +48,10 @@
 //
 // Each element and node runs mevp_stress_body and mevp_velocity_body of
 // mevp_body.cuh, the bodies of mevp.cu's two kernels, with the same
-// arguments in the same order under --fmad=false, over the same cells per
-// subcycle as window_subcycles of mevp_window.cuh (rdma_band's loop), so
-// this schedule equals those bit for bit.
+// arguments in the same order under --fmad=false, so this schedule equals
+// K1's bit for bit. rdma_band (mevp_rdma.cu) runs the same bodies with the
+// same arguments on fewer cells (the cone of its patch, not the whole
+// window), and the cells it keeps equal this schedule's bit for bit too.
 //
 // What bounds it on the H100: the grid-wide schedule moves ~116 bytes per
 // element per subcycle (mevp.cu); at 1024^2 its ~56 MB working set is more

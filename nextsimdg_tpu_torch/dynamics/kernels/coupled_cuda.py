@@ -219,9 +219,9 @@ def _bind():
     lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 8 + [f, f, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 8 + [i] * 4 + tail
     lib.nst_ho_single.argtypes = [p, p] + [i] * 4 + [p] + tail
-    lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 6 + [p] + tail
+    lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 10 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
-    lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, p] + tail
+    lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, i, p, i, p] + tail
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
@@ -231,6 +231,12 @@ def _bind():
     lib.nst_mevp_single_max_blocks.restype = i
     lib.nst_ho_single_max_blocks.argtypes = [i]
     lib.nst_ho_single_max_blocks.restype = i
+    lib.nst_ho_tiled_max_clusters.argtypes = [i] * 6
+    lib.nst_ho_tiled_max_clusters.restype = i
+    lib.nst_rdma_band_max_clusters.argtypes = [i] * 6
+    lib.nst_rdma_band_max_clusters.restype = i
+    lib.nst_window_syncs.argtypes = [i] * 6 + [p, p]
+    lib.nst_window_syncs.restype = i
     for name in ("mevp_n_scalars", "dg1_n_table_floats", "ho_n_scalars", "ho_n_table_floats"):
         getattr(lib, "nst_" + name).restype = i
     lib.nst_error_string.argtypes = [i]

@@ -23,16 +23,20 @@ rank's compute stream:
    (nx + 2h) x [ghost h | own 2h] patches the own columns, corners last.
 
 Each subcycle spoils one ring, so the round needs n_sub <= h and, on each
-split axis, a block of at least 2h cells. The plain version,
+split axis, a block of at least 2h cells. ``rdma_band`` computes only the
+patch's cone (``band_cone``, which the host passes to the kernel), by
+clusters of blocks along the band (``launch_config``). The plain version,
 ``mevp_round_rdma_reference``, runs the same steps with the plain subcycle
-(``rdma_stage_reference``, ``rdma_band_reference``); the kernels run the
-bodies and the window loop of ``mevp_tiled``, so a round equals the
-blocked exchange's round and the single-device step bit for bit.
+on the whole bands (``rdma_stage_reference``, ``rdma_band_reference``);
+the kernels run the bodies of ``mevp_tiled`` with its arguments, so a
+round equals the blocked exchange's round and the single-device step bit
+for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, field
 
 import torch
@@ -41,11 +45,117 @@ from ..mevp import UNIFORM_CONSTS, MEVPSolver
 from . import coupled_cuda as cc
 from .mevp_tiled_cuda import mevp_subcycles_tiled
 
-#: Band tile along the long axis and threads per block of rdma_band.
-TILE = 64
-THREADS = 512
 #: Shared memory a block may use on the H100 (227 KB).
 MAX_SHARED_BYTES = 232448
+#: Subcycles an rdma_band launch may run, cells a thread of it may own, and
+#: blocks a cluster may have (kRdmaMaxSub, kRdmaMaxCells and
+#: kRdmaMaxClusterBlocks in csrc/mevp_rdma.cu).
+MAX_SUB = 64
+MAX_CELLS = 4
+MAX_CLUSTER_BLOCKS = 16
+#: The launch bounds of rdma_band's two builds (kRdmaBandThreads,
+#: kRdmaMaxThreads): blocks of up to 256 threads run the first.
+LAUNCH_BOUNDS = (256, 1024)
+
+
+def launch_bound(threads: int) -> int:
+    """The launch bound of the rdma_band build that blocks of ``threads``
+    threads run."""
+    return next(b for b in LAUNCH_BOUNDS if threads <= b)
+
+
+def band_shape(axis: int, h: int, nx: int, ny: int, hx: int) -> tuple:
+    """(rows, cols) of a band of ``axis`` on an (nx, ny) rank block: x
+    bands 3h x ny, y bands (nx + 2hx) x 3h."""
+    return (3 * h, ny) if axis == 0 else (nx + 2 * hx, 3 * h)
+
+
+def band_cone(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int) -> list:
+    """The patch's cone, per subcycle of an rdma_band launch, in band
+    coordinates: (element rows lo, hi, element columns lo, hi, node rows
+    lo, hi, node columns lo, hi), each [lo, hi) clipped to the band.
+
+    The patch is a band's h middle rows (x) or columns (y), over the own
+    columns (x) or rows (y). After subcycle ``sub`` come r = n_sub - 1 - sub
+    more, so it needs the nodes of the patch widened by r on either side,
+    and the elements that they and its own velocity phase read: widened by
+    r + 1 before and r after (a node reads the elements at -1 and 0, an
+    element the nodes at 0 and +1)."""
+    rows, cols = band_shape(axis, h, nx, ny, hx)
+    (pr0, prn), (pc0, pcn) = ((h, h), (0, ny)) if axis == 0 else ((hx, nx), (h, h))
+    cone = []
+    for sub in range(n_sub):
+        r = n_sub - 1 - sub
+        clip = lambda lo, hi, n: (max(lo, 0), min(hi, n))
+        cone.append(
+            clip(pr0 - r - 1, pr0 + prn + r, rows) + clip(pc0 - r - 1, pc0 + pcn + r, cols)
+            + clip(pr0 - r, pr0 + prn + r, rows) + clip(pc0 - r, pc0 + pcn + r, cols)
+        )
+    return cone
+
+
+@functools.lru_cache(maxsize=64)
+def _cone_array(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int):
+    """``band_cone`` as the kernel takes it (n_sub x 8 C ints), built once
+    per band shape: every round of a step launches the same ones."""
+    cone = band_cone(axis, h, n_sub, nx, ny, hx)
+    return (ctypes.c_int * (8 * n_sub))(*(x for sub in cone for x in sub))
+
+
+@dataclass(frozen=True)
+class BandConfig:
+    """rdma_band's launch: clusters of ``cluster`` blocks of ``threads``
+    threads along a band, each block ``seg`` cells along it."""
+
+    cluster: int
+    seg: int
+    threads: int
+
+    def shared_bytes(self, h: int, axis: int = 0) -> int:
+        """Dynamic shared memory of one block: 5 planes of its seg x 3h
+        cells and its apron along the band (the y bands' rows padded by a
+        cell)."""
+        return 5 * (3 * h + axis) * (self.seg + 2) * 4
+
+    def clusters(self, along: int, n_sub: int) -> int:
+        """Clusters a band of ``along`` cells takes: each writes the
+        cluster x seg - 2 n_sub cells of its window's interior."""
+        return -(-along // (self.cluster * self.seg - 2 * n_sub))
+
+    def cells_per_thread(self, h: int) -> int:
+        """Cells each thread owns: one position along the band, every
+        threads // seg-th of the band's 3h cells across it; 0 where a block
+        has fewer threads than positions."""
+        stride = self.threads // self.seg
+        return -(-3 * h // stride) if stride else 0
+
+    def check(self, axis: int, h: int, n_sub: int) -> None:
+        """Raises where the kernel does not take this configuration."""
+        if not (
+            1 <= self.cluster <= MAX_CLUSTER_BLOCKS and 32 <= self.threads <= LAUNCH_BOUNDS[-1]
+            and 1 <= self.cells_per_thread(h) <= MAX_CELLS
+            and self.cluster * self.seg > 2 * n_sub
+            and self.shared_bytes(h, axis) <= MAX_SHARED_BYTES
+        ):
+            raise ValueError(f"rdma_band takes no launch configuration {self} at h = {h}, n_sub = {n_sub}")
+
+
+#: rdma_band's launch, chosen on the H100 by ``benchmarks.mevp_large
+#: --tiles=rdma_band`` at config 5's 2048^2 blocks, h = 16, on the x bands
+#: (3h rows along ny columns) and the y bands (nx + 2h rows along, 3h
+#: columns) (PERF.md): clusters of 16 blocks of 16 cells along the band, so
+#: a pair of bands takes 320 blocks, all resident at once on every SM
+#: (the 256-thread launch bound asks for three blocks an SM). One-block
+#: tiles of 64 cells (one wave of 128-130 blocks) measured the same within
+#: 4% on either axis.
+BANDS = BandConfig(16, 16, 256)
+
+
+def launch_config(axis: int) -> BandConfig:
+    """The launch configuration that the host picks for the bands of
+    ``axis`` (the same for both: the sweep found neither axis better off
+    with another)."""
+    return BANDS
 
 
 @dataclass
@@ -160,15 +270,6 @@ def rdma_band_reference(solver, src: RoundSources, axis: int, consts_w: dict, dt
     return state
 
 
-def shared_bytes(rows: int, cols: int, axis: int, tile: int, n_sub: int) -> int:
-    """Dynamic shared memory of one rdma_band block: 7 planes of its window
-    (tiles of ``tile`` + 2 n_sub along the band, the band's 3h cells and
-    one of padding on either side across it)."""
-    along = tile + 2 * n_sub
-    across = (rows if axis == 0 else cols) + 2
-    return 7 * along * across * 4
-
-
 def rdma_stage(src: RoundSources, axis: int) -> torch.Tensor:
     """The send strips of ``axis`` (see ``rdma_stage_reference``), in one
     launch on CUDA tensors; CPU tensors run the plain version."""
@@ -187,10 +288,14 @@ def rdma_stage(src: RoundSources, axis: int) -> torch.Tensor:
     return out
 
 
-def rdma_band(solver: MEVPSolver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state):
+def rdma_band(
+    solver: MEVPSolver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state,
+    config: BandConfig = None,
+):
     """n_sub subcycles on the two bands of ``axis`` and their patches into
-    ``state`` (5 planes, in place; returned), in one launch on CUDA tensors;
-    CPU tensors run the plain version. ``consts_w``: the 7 uniform consts
+    ``state`` (5 planes, in place; returned), in one launch on CUDA tensors
+    (the patch's cone only, in ``config`` or ``launch_config``'s); CPU
+    tensors run the plain version. ``consts_w``: the 7 uniform consts
     widened by h on each split axis."""
     if cc._on_cpu(src.own[0]):
         return rdma_band_reference(solver, src, axis, consts_w, dt, n_sub, state)
@@ -200,24 +305,37 @@ def rdma_band(solver: MEVPSolver, src: RoundSources, axis: int, consts_w: dict, 
         raise ValueError(f"axis {axis} is not split over ranks: it has no bands")
     h = src.h
     nx, ny = src.own[0].shape
-    if not 1 <= n_sub <= h or (nx if axis == 0 else ny) < 2 * h:
+    if not 1 <= n_sub <= min(h, MAX_SUB) or (nx if axis == 0 else ny) < 2 * h:
         raise ValueError(f"a round needs n_sub <= h = {h} and a block of at least 2h along axis {axis}")
+    config = launch_config(axis) if config is None else config
+    config.check(axis, h, n_sub)
     ptrs, dims = src.c_args(need_gx=src.split[0], need_gy=axis == 1)
     device = src.own[0].device
     cc._check((nx + 2 * src.hx, ny + 2 * src.hy), device, **consts_w)
     cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), state)))
     if {t.data_ptr() for t in state} & {t.data_ptr() for t in src.own}:
         raise ValueError("rdma_band reads the pre-round planes: state must not alias them")
-    rows, cols = (3 * h, ny) if axis == 0 else (nx + 2 * src.hx, 3 * h)
-    tile = TILE
-    while shared_bytes(rows, cols, axis, tile, n_sub) > MAX_SHARED_BYTES and tile > 8:
-        tile //= 2
+    along = band_shape(axis, h, nx, ny, src.hx)[1 - axis]
     scalars = cc._mevp_scalars(solver, dt)  # alive until the call returns
     cc._launch(
-        "rdma_band", ptrs, dims, axis, cc._mevp_consts(consts_w), tile, n_sub, THREADS,
-        cc._pointers(state), ctypes.addressof(scalars), device.index, src.launch_stream(),
+        "rdma_band", ptrs, dims, axis, cc._mevp_consts(consts_w), config.cluster, config.seg,
+        config.threads, config.clusters(along, n_sub), _cone_array(axis, h, n_sub, nx, ny, src.hx),
+        n_sub, cc._pointers(state), ctypes.addressof(scalars), device.index, src.launch_stream(),
     )
     return state
+
+
+def max_clusters(device, axis: int, h: int, config: BandConfig) -> int:
+    """Clusters of ``config`` that the card holds at once for the bands of
+    ``axis`` at ghost width h (``cudaOccupancyMaxActiveClusters``; 0 where
+    none fits)."""
+    device = torch.device(device)
+    clusters = cc._library().nst_rdma_band_max_clusters(
+        axis, 3 * h, config.cluster, config.seg, config.threads, device.index or 0
+    )
+    if clusters < 0:
+        raise RuntimeError(f"rdma_band occupancy: CUDA error {-1 - clusters}")
+    return clusters
 
 
 def _round(solver, carry, consts, consts_w, dt, n_sub, h, axes, stage, band, interior, **sources):

@@ -5,11 +5,13 @@ K1's four kernels, the ghost-zone tiled ``mevp_tiled`` and
 equal K1's schedule on the same inputs (they run the same element bodies;
 expected 0, failure above 1e-6 of the plane's max), on uniform meshes and
 on a spherical one with its metric planes and a coastline. The HO kernels
-``ho_single`` and ``ho_tiled`` against their plain version and each other
-(the same bodies: expected 0), and the ``qv`` form of ``transport_tiled``
+``ho_single`` and ``ho_tiled`` (in cluster shapes of 1 to 16 blocks)
+against their plain version and
+each other (the same bodies: expected 0), and the ``qv`` form of ``transport_tiled``
 that advects with the CG2 velocity's quadrature samples. On a 2 x 2 rank
 grid of 200 x 136 blocks on one card, K7's ``rdma_stage`` and ``rdma_band``
-against their plain versions launch by launch, the rdma round against the
+against their plain versions launch by launch (``rdma_band`` also in
+one-block tiles and in clusters of 2 to 16 blocks), the rdma round against the
 blocked one and the single-device ``mevp_tiled`` (bit for bit: the same
 bodies on the same values), and the decomposed coupled step against the
 single-device step (expected 0) and the decomposed plain step. The
@@ -319,13 +321,19 @@ def ho_planes(carry):
 
 
 @pytest.mark.parametrize("n_sub", [1, 13])
-@pytest.mark.parametrize("tile, halo, threads", [(32, 8, 512), (16, 4, 256), (8, 3, 128)])
-def test_ho_kernels_match_plain_and_each_other(device, n_sub, tile, halo, threads):
+@pytest.mark.parametrize("config", [
+    ht.SHIPPED, ht.CLUSTER_2X2,  # the shipped window a block, and 2 x 2 clusters
+    ht.LaunchConfig(1, 2, 48, 8, 512),
+    ht.LaunchConfig(2, 2, 16, 4, 256), ht.LaunchConfig(2, 2, 16, 4, 32),  # 32 threads: many cells each
+    ht.LaunchConfig(4, 4, 8, 3, 128),  # 16 blocks a cluster: the non-portable size
+    ht.LaunchConfig(2, 4, 12, 2, 128), ht.LaunchConfig(3, 1, 20, 5, 256),
+], ids=str)
+def test_ho_kernels_match_plain_and_each_other(device, n_sub, config):
     solver, carry, consts = ho_setup(device)
     cc.reset_launches()
     single = hs.ho_subcycles_single(solver, carry, consts, DT, n_sub)
-    tiled = ht.ho_subcycles_tiled(solver, carry, consts, DT, n_sub, tile, halo, threads)
-    assert cc.launches["ho_single"] == 1 and cc.launches["ho_tiled"] == -(-n_sub // halo)
+    tiled = ht.ho_subcycles_tiled(solver, carry, consts, DT, n_sub, config)
+    assert cc.launches["ho_single"] == 1 and cc.launches["ho_tiled"] == -(-n_sub // config.halo)
     ref = hs.ho_single_reference(solver, carry, consts, DT, n_sub)
     for g, w, r in zip(ho_planes(single), ho_planes(tiled), ho_planes(ref)):
         assert_close(g, r, TOL_LAUNCH if n_sub == 1 else 1e-3)
@@ -339,7 +347,10 @@ def test_ho_kernels_raise_on_what_they_do_not_take(device):
     with pytest.raises(NotImplementedError, match="consts"):
         hs.ho_subcycles_single(solver, carry, {**consts, "a_v": consts["active_v"]}, DT, 3)
     with pytest.raises(RuntimeError, match="CUDA error"):  # more shared memory than a block has
-        ht.ho_subcycles_tiled(solver, carry, consts, DT, 4, tile=48, halo=8)
+        ht.ho_subcycles_tiled(solver, carry, consts, DT, 4, ht.LaunchConfig(1, 1, 64, 8, 512))
+    with pytest.raises(ValueError, match="launch configuration"):  # more blocks than a cluster has
+        ht.ho_subcycles_tiled(solver, carry, consts, DT, 4, ht.LaunchConfig(4, 8, 16, 4, 256))
+    assert ht.max_clusters(device, ht.SHIPPED) >= 1
     with pytest.raises(RuntimeError, match="CUDA error"):
         hs.ho_subcycles_single(solver, carry, consts, DT, 2, blocks=hs.max_blocks(device) + 1)
     double = tuple(carry[:2]) + tuple(x.double() for x in carry[2:])
@@ -384,7 +395,7 @@ def test_ho_dynamics_phase_matches_plain_and_counts_launches(device):
     for g, r in zip(ho_planes(got_carry), ho_planes(ref_carry)):
         assert_close(g, r, 1e-3)
     assert_close(got_tr, ref_tr, 1e-5)
-    assert counts["ho_tiled"] == 3 and counts["transport_tiled"] >= 1
+    assert counts["ho_tiled"] == -(-20 // ht.launch_config(40, 72).halo) and counts["transport_tiled"] >= 1
     assert counts["dg1_sample_cfl"] == counts["mevp_tiled"] == 0
     with pytest.raises(NotImplementedError, match="transport_tiled"):
         cc.dynamics_phase(model, carry, psi, consts, DT, 2, mevp="tiled", transport="xla")
@@ -461,6 +472,36 @@ def test_rdma_kernels_match_plain_launch_by_launch(device, n_sub):
         assert [name for name, _, _ in checked].count("rdma_band") == 2 * 5
         for name, got, ref in checked:
             assert_close(got, ref, TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("config", [
+    rdma.BandConfig(1, 40, 256), rdma.BandConfig(2, 16, 128), rdma.BandConfig(16, 8, 128),
+    rdma.BandConfig(1, 64, 1024), rdma.launch_config(0), rdma.launch_config(1),
+], ids=str)
+def test_rdma_band_launch_configurations_match_plain(device, axis, config):
+    """rdma_band on the cone, in one-block tiles and in clusters of 2 to 16
+    blocks along the band, under either launch bound (256 and 1024
+    threads), against its plain version on the whole bands."""
+    h, n_sub = 8, 7
+
+    def band(rank, solver, carry, consts):
+        axes, consts_w = solver.rdma_round_inputs(consts)
+        ghosts = [torch.full((5, h, carry[0].shape[1]), 0.5, device=device) for _ in range(2)]
+        wide = [torch.full((5, carry[0].shape[0] + 2 * h, h), -0.25, device=device) for _ in range(2)]
+        src = rdma.RoundSources(own=tuple(carry), h=h, split=(True, True), gx=tuple(ghosts), gy=tuple(wide))
+        state = [torch.zeros_like(c) for c in carry]
+        ref = rdma.rdma_band_reference(solver.local(), src, axis, consts_w, DT, n_sub, [x.clone() for x in state])
+        got = rdma.rdma_band(solver.local(), src, axis, consts_w, DT, n_sub, [x.clone() for x in state], config)
+        return got, ref
+
+    cc.reset_launches()
+    _, results = on_rank_grid(device, "rdma", band, h=h)
+    torch.cuda.synchronize()
+    assert cc.launches["rdma_band"] == 4
+    for got, ref in results:
+        for g, r in zip(got, ref):
+            assert_close(g, r, TOL_LAUNCH)
 
 
 @pytest.mark.parametrize("h, n_subcycles", [(4, 11), (8, 100), (16, 37)])
@@ -596,3 +637,16 @@ def test_chain_refuses_what_the_kernel_does_not_take(device):
         roofline.chain(a.t(), a, "fma", 1)
     with pytest.raises(ValueError, match="planes"):
         roofline.chain(a[None], a[None], "fma", 1)
+
+
+def test_window_sync_probe_times_each_cluster_shape(device):
+    """The barrier probe of ``mevp_large --barriers`` launches one wave of
+    each cluster shape (a block alone, 2 x 2, 16 along a row) and reports a
+    finite cost per barrier; a cluster larger than 16 blocks is refused."""
+    from nextsimdg_tpu_torch.benchmarks import mevp_large
+
+    shapes = ((1, 1, 128, 0), (2, 2, 128, 1024), (1, 16, 64, 0))
+    out = mevp_large.sweep_barriers(device, shapes=shapes, n_barriers=64)
+    assert set(out) == set(shapes) and all(np.isfinite(ns) for ns in out.values())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mevp_large.sweep_barriers(device, shapes=((4, 8, 128, 0),), n_barriers=1)

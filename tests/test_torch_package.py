@@ -266,11 +266,146 @@ def test_launch_configurations_fit_a_block():
             assert (halo - 1) // stages == min(k, tt.K_MAX)
             assert tt.shared_bytes(tt.TILE, halo) <= limit
     assert tt.THREADS <= 768
-    # ho_tiled: 17 window planes; a window of T + 2H <= 58 fits.
-    assert ht.shared_bytes() <= limit and ht.THREADS <= 512
-    assert ht.shared_bytes(26, 16) <= limit < ht.shared_bytes(27, 16)
-    for tile, halo in ((32, 8), (48, 4), (40, 8), (24, 12)):
-        assert ht.shared_bytes(tile, halo) <= limit
+    # ho_tiled: 17 planes of a block's sub-window and its one-cell apron; a
+    # sub-window of 56 fits.
+    for n in (8, 256, 512, 1000, 1024, 2048, 4096):
+        config = ht.launch_config(n, n)
+        assert config.shared_bytes() <= limit and config.threads <= ht.MAX_THREADS
+    L = ht.LaunchConfig
+    assert L(1, 1, 56, 8, 512).shared_bytes() <= limit < L(1, 1, 57, 8, 512).shared_bytes()
+    assert L(2, 2, 48, 8, 512).shared_bytes() == 17 * 50 * 50 * 4
+
+
+def test_ho_tiled_launch_config_fits_a_block_and_pads_the_grid():
+    """The shipped launch (one window a block, at every size) and the 2 x 2
+    clusters fit a block's 227 KB, their interiors and redundancy follow
+    from the window, and the grid is a whole number of clusters that covers
+    ragged and square grids; shapes the kernel does not take raise."""
+    limit = 232448
+    config = ht.launch_config(1024, 1024)
+    assert config == ht.SHIPPED and config.shared_bytes() <= limit
+    for n in (8, 256, 512, 513, 2048, 4096):
+        assert ht.launch_config(n, n) == ht.SHIPPED
+    assert ht.SHIPPED.rows * ht.SHIPPED.cols == 1 and ht.CLUSTER_2X2.rows * ht.CLUSTER_2X2.cols == 4
+    assert ht.CLUSTER_2X2.halo == ht.SHIPPED.halo == ht.HALO
+    for config in (ht.SHIPPED, ht.CLUSTER_2X2):
+        assert config.shared_bytes() <= limit
+        assert config.rows * config.cols <= ht.MAX_CLUSTER_BLOCKS and config.threads <= ht.MAX_THREADS
+        assert config.interior == (config.rows * config.sub - 2 * config.halo, config.cols * config.sub - 2 * config.halo)
+        for nx, ny in ((1000, 968), (1024, 1024), (37, 29)):
+            ca, cb = config.clusters(nx, ny)
+            gx, gy = config.grid(nx, ny)
+            assert gx % config.cols == 0 and gy % config.rows == 0
+            assert (gx // config.cols, gy // config.rows) == (cb, ca)
+            assert (ca - 1) * config.interior[0] < nx <= ca * config.interior[0]
+            assert (cb - 1) * config.interior[1] < ny <= cb * config.interior[1]
+    assert ht.SHIPPED.clusters(1024, 1024) == (32, 32)  # 32^2 interiors
+    L = ht.LaunchConfig
+    assert L(2, 2, 48, 8, 512).clusters(1024, 1024) == (13, 13)  # 80^2 interiors
+    assert L(2, 2, 48, 8, 512).grid(1000, 968) == (26, 26)
+    # The window's ring, averaged over the subcycles of a launch.
+    assert L(1, 1, 48, 8, 512).redundancy() == pytest.approx(1.583, abs=1e-3)
+    assert L(2, 2, 48, 8, 512).redundancy() == pytest.approx(1.213, abs=1e-3)
+    assert L(4, 4, 48, 8, 512).redundancy() < L(2, 4, 48, 8, 512).redundancy() < L(2, 2, 48, 8, 512).redundancy()
+    for bad in (L(4, 8, 16, 4, 256), L(1, 1, 16, 8, 256), L(2, 2, 48, 8, 1024), L(0, 2, 48, 8, 512)):
+        with pytest.raises(ValueError, match="launch configuration"):
+            bad.check()
+
+
+def test_rdma_band_launch_config_at_config5():
+    """rdma_band's launch at config 5's 2048^2 rank blocks, h = 16: the x
+    bands (48 x 2048) and the y bands (2080 x 48) each take more blocks a
+    pair than the 132 SMs (64-66 before the cone's redesign), in clusters
+    of at most 16 along the band, few enough a block (shared memory,
+    threads) that they are all resident at once; each thread owns at most
+    4 cells."""
+    h, n = 16, 2048
+    for axis, along in ((0, n), (1, n + 2 * h)):
+        assert rdma.band_shape(axis, h, n, n, h)[1 - axis] == along
+        config = rdma.launch_config(axis)
+        config.check(axis, h, h)
+        blocks = 2 * config.cluster * config.clusters(along, h)
+        assert 132 <= blocks and config.cluster <= rdma.MAX_CLUSTER_BLOCKS
+        per_sm = min(233472 // (config.shared_bytes(h, axis) + 1024), 2048 // config.threads)
+        assert blocks <= 132 * per_sm  # one wave
+        # The 256-thread launch bound asks for three blocks an SM: one wave too.
+        assert rdma.launch_bound(config.threads) == 256 and blocks <= 132 * 3
+        assert config.shared_bytes(h, axis) == 5 * (3 * h + axis) * (config.seg + 2) * 4
+        assert 1 <= config.cells_per_thread(h) <= rdma.MAX_CELLS
+        # The clusters' interiors tile the band and no cluster is idle.
+        inner = config.cluster * config.seg - 2 * h
+        assert (config.clusters(along, h) - 1) * inner < along <= config.clusters(along, h) * inner
+    assert rdma.launch_config(0).clusters(2048, 16) == rdma.launch_config(1).clusters(2080, 16) == 10
+    assert rdma.launch_bound(32) == rdma.launch_bound(256) == 256
+    assert rdma.launch_bound(257) == rdma.launch_bound(1024) == 1024
+    # The cone the kernel takes, built once per band shape.
+    first = rdma._cone_array(0, h, h, n, n, h)
+    assert rdma._cone_array(0, h, h, n, n, h) is first and list(first)[:8] == list(rdma.band_cone(0, h, h, n, n, h)[0])
+    with pytest.raises(ValueError, match="launch configuration"):
+        rdma.BandConfig(1, 16, 256).check(0, 16, 16)  # no interior left along the band
+    with pytest.raises(ValueError, match="launch configuration"):
+        rdma.BandConfig(8, 32, 32).check(1, 16, 16)  # fewer threads than the band is wide
+
+
+def _dependency_cone(axis, h, n_sub, nx, ny, hx):
+    """Per subcycle, (element mask, node mask) of the band cells that the
+    patch depends on, by walking the stencil backwards from the patch."""
+    rows, cols = rdma.band_shape(axis, h, nx, ny, hx)
+    need_n = np.zeros((rows, cols), bool)
+    if axis == 0:
+        need_n[h:2 * h, :] = True
+    else:
+        need_n[hx:hx + nx, h:2 * h] = True
+    need_e = np.zeros_like(need_n)
+    cones = []
+    for _ in range(n_sub):
+        # The velocity phase at node (i, j) reads elements i-1..i, j-1..j
+        # (its own c_w and inv_drag among them): element (i, j) is read by
+        # nodes i..i+1, j..j+1; the stress phase reads its own stress.
+        e = need_n.copy()
+        e[:-1, :] |= need_n[1:, :]
+        e[:, :-1] |= need_n[:, 1:]
+        e[:-1, :-1] |= need_n[1:, 1:]
+        need_e = e | need_e
+        cones.append((need_e.copy(), need_n.copy()))
+        # The stress phase at element (i, j) reads nodes i..i+1, j..j+1; the
+        # velocity phase reads its node's own velocity.
+        n_ = need_e.copy()
+        n_[1:, :] |= need_e[:-1, :]
+        n_[:, 1:] |= need_e[:, :-1]
+        n_[1:, 1:] |= need_e[:-1, :-1]
+        need_n = n_ | need_n
+    return cones[::-1]
+
+
+@pytest.mark.parametrize("h", [4, 8, 16])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_rdma_band_cone_is_the_patch_dependency_cone(h, axis):
+    """The cone that the host passes to rdma_band covers exactly the cells
+    the patch depends on, subcycle by subcycle, for every n_sub <= h; its
+    node count is what chip_smoke.rdma_band_work counts as the bound."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    sys.modules.setdefault("chip_smoke", smoke)  # its dataclasses look their module up
+    spec.loader.exec_module(smoke)
+    nx, ny = 2 * h + 5, 2 * h + 3
+    rows, cols = rdma.band_shape(axis, h, nx, ny, h)
+    box = lambda r0, r1, c0, c1: np.pad(np.ones((r1 - r0, c1 - c0), bool), ((r0, rows - r1), (c0, cols - c1)))
+    for n_sub in range(1, h + 1):
+        cone = rdma.band_cone(axis, h, n_sub, nx, ny, h)
+        assert len(cone) == n_sub
+        for sub, (ranges, (need_e, need_n)) in enumerate(zip(cone, _dependency_cone(axis, h, n_sub, nx, ny, h))):
+            assert np.array_equal(box(*ranges[:4]), need_e), (n_sub, sub)
+            assert np.array_equal(box(*ranges[4:]), need_n), (n_sub, sub)
+            # The kernel's region holds the band across: elements below its
+            # last row or column, nodes above its first.
+            e_hi, n_lo = (ranges[1], ranges[4]) if axis == 0 else (ranges[3], ranges[6])
+            assert e_hi <= 3 * h - 1 and n_lo >= 1
+        _, ops = smoke.rdma_band_work(axis, h, n_sub, nx, ny, h)
+        nodes = sum((r1 - r0) * (c1 - c0) for r0, r1, c0, c1 in (c[4:] for c in cone))
+        assert nodes == ops / (2 * (smoke.OPS["stress"] + smoke.OPS["velocity"]))
 
 
 def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):

@@ -129,11 +129,13 @@ def test_kernel_bytes_follow_the_tile_constants():
     T1, H1, _ = mevp_tiled_cuda.launch_config(2048, 2048)
     assert (T1, H1) == mevp_tiled_cuda.LARGE[:2]
     assert got["tiled_cg1_2048"] == pytest.approx((12 * ((T1 + 2 * H1) / T1) ** 2 + 5) * 4 / H1)
-    T, H = ho_tiled_cuda.TILE, ho_tiled_cuda.HALO
-    assert got["tiled_ho_1024"] == pytest.approx((17 * ((T + 2 * H) / T) ** 2 + 17) * 4 / H + 116)
+    ho = ho_tiled_cuda.launch_config(1024, 1024)
+    (wa, wb), (ta, tb), H = ho.window, ho.interior, ho.halo
+    assert (wa, ta) == (ho.rows * ho.sub, ho.rows * ho.sub - 2 * H) and wb - tb == 2 * H
+    assert got["tiled_ho_1024"] == pytest.approx((17 * wa * wb / (ta * tb) + 17) * 4 / H + 116)
     assert got["fused_cg1_256"] == 116.0
     assert got["_configs"]["tiled_cg1_2048"] == {"tile": T1, "halo": H1}
-    assert got["_configs"]["tiled_ho_1024"] == {"tile": 32, "halo": 8}
+    assert got["_configs"]["tiled_ho_1024"] == {"cluster": [ho.rows, ho.cols], "sub": ho.sub, "halo": H}
 
 
 def test_attainable_ps_by_hand():
