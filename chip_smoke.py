@@ -26,7 +26,8 @@ CFL-adaptive transport substeps:
   0.1, physics forcing tair -15, dew2m -17, pair 1e5, sw_in 5, lw_in 240,
   mld 10, snowfall 1e-4, wind 6; wind (6, 3) m/s, ocean (0.02, 0) m/s, on
   the default ("auto") schedule, the ghost-zone tiled kernels mevp_tiled
-  and transport_tiled with dg1_sample_cfl, and the column physics;
+  and transport_tiled (persistent blocks that copy the next window while
+  they compute this one) with dg1_sample_cfl, and the column physics;
 * config 4's spherical coastline variant (``run_benchmarks.py``
   ``coupled_1m_spherical``, ``bench_coupled_1m(land_mask=True,
   spherical=True)``): the same step on a closed 1024 x 1024 lon-lat window
@@ -43,7 +44,8 @@ CFL-adaptive transport substeps:
   window a block; sm_90 or newer), the CG2 velocity
   sampled at the quadrature points, and the ``qv`` form of transport_tiled;
   and the same at 256^2 on ``mevp_backend="pallas"`` (``ho_coupled_256``):
-  ho_single, all 100 HO subcycles in one cooperative launch;
+  ho_single, all 100 HO subcycles in one cooperative launch whose tiles
+  stay in shared memory and swap their edges with their neighbours only;
 * BASELINE config 5 (``run_benchmarks.py`` ``bench_multihost_16m``,
   ``multihost_16m``): a closed 4096 x 4096 mesh of 2 km elements with
   config 4's state and forcing, decomposed over a 2 x 2 grid of 2048^2 rank
@@ -77,7 +79,9 @@ Phases, each printed on its own lines:
 4. check: K1's four kernels against their plain PyTorch versions at 256^2,
    then mevp_tiled and transport_tiled against theirs and against K1's
    schedule on the same inputs, at 1024^2 and at a ragged 1000 x 968, with
-   100 subcycles and with a count that is not a multiple of the halo; then
+   100 subcycles and with a count that is not a multiple of the halo
+   (transport_tiled also by 4-byte copies and in two blocks an SM, and on a
+   1000 x 966 grid, whose rows take 4-byte copies); then
    mevp_single against its plain version (256^2 spherical, N = 1 and 13),
    K1's schedule (uniform consts, 256^2, N = 100) and mevp_tiled
    (spherical consts, 1024^2 and 1000 x 968), and the metric
@@ -85,7 +89,7 @@ Phases, each printed on its own lines:
    other at 1024^2 spherical with the coastline; then ho_single against its
    plain version (256^2, N = 1, 13, 100), ho_tiled against it (1024^2,
    N = 1 and 13, and 1000 x 968), the two against each other (256^2 and
-   512^2), ho_tiled's shipped window (a cluster of one block) against
+   512^2, ho_single by its neighbour waits and by grid.sync()), ho_tiled's shipped window (a cluster of one block) against
    clusters of 2 to 16 blocks that push their edges through distributed
    shared memory (1024^2, N = 13), and the qv form of transport_tiled
    against its plain version (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
@@ -111,8 +115,10 @@ Phases, each printed on its own lines:
    version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
    rdma steps, the blocked round against the rdma round, the dynamics step
    at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; last,
-   the profiler's device duration of rdma_stage and of rdma_band on the x
-   and y bands, beside their back-to-back times (every row of the summary
+   the profiler's device duration of K1's four kernels at 256^2,
+   transport_tiled at 1024^2, ho_single and ho_tiled at their paths'
+   shapes, rdma_stage and rdma_band on the x and y bands, beside their
+   back-to-back times (every row of the summary
    carries the back-to-back time per call). One card shows what
    the exchange costs, not how the step scales over cards.
    The "auto" threshold sweeps and the tile sweeps are
@@ -265,6 +271,11 @@ class Row:
     n_ops: float
     library_ms: float = None
     fused: bool = False
+
+
+#: Launches whose device duration (torch.profiler) the run logs last, by
+#: "kernel shape": the phases add them.
+DEVICE_PROBES = {}
 
 
 def log(phase: str, message: str) -> None:
@@ -430,6 +441,7 @@ def check_kernels(model, device) -> dict:
     }
     rows = {}
     for name, (kernel, plain) in timed.items():
+        DEVICE_PROBES[f"{name} {N}^2"] = kernel
         rows[name] = Row(results[name], time_ms(kernel, 200), time_ms(plain, 20), *work[name])
         log("time", (
             f"{name}: kernel {rows[name].ms:.4f} ms, plain {rows[name].plain_ms:.4f} ms, "
@@ -474,6 +486,15 @@ def ptxas_report(text: str):
             elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound
                 axis = "along columns, x bands" if args[0][1] == "1" else "along rows, y bands"
                 kernel += f"<{axis}, {args[1][1]} threads>"
+            elif kernel == "transport_tiled_kernel":  # metric, qv, copy form
+                kernel += "<" + ", ".join((
+                    "metric" if args[0][1] == "1" else "uniform", "qv" if args[1][1] == "1" else "cg1",
+                    "16-byte copies" if args[2][1] == "4" else "4-byte copies",
+                )) + ">"
+            elif kernel == "ho_single_kernel":  # consts in shared memory
+                kernel += "<consts shared>" if args[0][1] == "1" else "<consts global>"
+            elif kernel == "ho_single_sync_kernel":
+                kernel += "<grid sync>" if args[0][1] == "1" else "<neighbours>"
             elif kernel == "ho_tiled_kernel" and args:  # the sub-window width, 0: any
                 kernel += f"<width {args[0][1]}>" if args[0][1] != "0" else "<any width>"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
@@ -606,10 +627,23 @@ def check_tiled(device) -> dict:
         for k in (1, 4):  # 4 substeps run in two launches
             args = (transport, psi, u, v, DT / k, k, faces)
             got = tt.transport_substeps_tiled(*args)
-            tag = f"transport_tiled {nx}x{ny} k={k}"
+            tag = f"transport_tiled {nx}x{ny} k={k} ({tt.copy_form(ny, psi, u, v)} windows)"
             err = compare(tag, got, tt.transport_substeps_tiled_reference(*args), TOL_STEP_TRACER)
             errs["transport_tiled"] = max(errs["transport_tiled"], err)
-            same_schedule(tag, got, cc.transport_substeps(*args))
+            k1 = cc.transport_substeps(*args)
+            same_schedule(tag, got, k1)
+            # The other copy form and the two-block alternative: the same schedule.
+            for name, launch in (("4-byte copies", {"copy": "scalar"}), ("two blocks an SM", {"config": tt.TWO_BLOCKS})):
+                same_schedule(f"transport_tiled {nx}x{ny} k={k} {name}", tt.transport_substeps_tiled(*args, **launch), k1)
+    # A grid whose rows are no multiple of 16 bytes: 4-byte copies.
+    model, carry, _, psi, faces = tiled_inputs(RAGGED[0], RAGGED[1] - 2, device, SEED + 1)
+    for k in (1, 4):
+        args = (model.transport, psi, carry[0], carry[1], DT / k, k, faces)
+        got = tt.transport_substeps_tiled(*args)
+        tag = f"transport_tiled {RAGGED[0]}x{RAGGED[1] - 2} k={k} ({tt.copy_form(RAGGED[1] - 2, psi)} windows)"
+        err = compare(tag, got, tt.transport_substeps_tiled_reference(*args), TOL_STEP_TRACER)
+        errs["transport_tiled"] = max(errs["transport_tiled"], err)
+        same_schedule(tag, got, cc.transport_substeps(*args))
     torch.cuda.synchronize()
 
     model, carry, consts, psi, faces = inputs[(N4, N4)]
@@ -617,8 +651,11 @@ def check_tiled(device) -> dict:
     u, v = carry[0], carry[1]
     timed = {
         # 8 subcycles, one launch at 1024^2; the plain version runs the same subcycles
+        # (arguments bound now: the names are taken again for 4096^2 below,
+        # and DEVICE_PROBES runs these at the end)
         "mevp_tiled": (
-            lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, TILED_SUBCYCLES),
+            lambda solver=solver, carry=carry, consts=consts: mt.mevp_subcycles_tiled(
+                solver, carry, consts, DT, TILED_SUBCYCLES),
             lambda: mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, TILED_SUBCYCLES),
         ),
         # one launch: one rk2 substep with its velocity sampling
@@ -634,6 +671,7 @@ def check_tiled(device) -> dict:
     }
     results = {}
     for name, (kernel, plain) in timed.items():
+        DEVICE_PROBES[f"{name} {N4}^2"] = kernel
         ms_, plain_ms = time_ms(kernel, 50), time_ms(plain, 3)
         results[name] = Row(errs[name], ms_, plain_ms, *work[name])
         log("time", (
@@ -641,6 +679,28 @@ def check_tiled(device) -> dict:
             f"{bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]}) per call at {N4}x{N4} "
             f"({'8 subcycles' if name == 'mevp_tiled' else 'one rk2 substep'})"
         ))
+    # transport_tiled at config 5's 4096^2: one rk2 substep per call.
+    # The launch the host picks there (two blocks an SM from 2048^2) against
+    # its plain version and K1's schedule first.
+    transport16, psi16, u16, v16 = mevp_large.transport_inputs(N16, device, SEED + 1)
+    n16 = N16 * N16
+    config = tt.launch_config(tt.halo_for(1, 2), elements=n16)
+    args16 = (transport16, psi16, u16, v16, DT, 1)
+    got16 = tt.transport_substeps_tiled(*args16)
+    tag = f"transport_tiled {N16}x{N16} k=1 ({config}, the host's pick)"
+    err = compare(tag, got16, tt.transport_substeps_tiled_reference(*args16), TOL_STEP_TRACER)
+    errs["transport_tiled"] = max(errs["transport_tiled"], err)
+    results["transport_tiled"].err = errs["transport_tiled"]
+    same_schedule(tag, got16, cc.transport_substeps(*args16))
+    del got16
+    ms16 = time_ms(lambda: tt.transport_substeps_tiled(*args16), 20)
+    bound16 = bound((9 + 4 + 9) * 4 * n16, 2 * OPS["stage"] * n16)
+    log("time", (
+        f"transport_tiled: kernel {ms16:.4f} ms per call at {N16}x{N16} (one rk2 substep), bound "
+        f"{bound16[0]:.4f} ms ({bound16[1]}); {config}, "
+        f"{tt.blocks_per_sm(device, config, tt.halo_for(1, 2))} blocks an SM"
+    ))
+    del args16, psi16, u16, v16
     # mevp_tiled at config 5's 4096^2 (seeded planes in motion, mevp_large's)
     # against its plain version and K1's schedule, then per call of 8
     # subcycles and per element and subcycle.
@@ -808,8 +868,8 @@ def check_ho(device) -> dict:
             against_plain("ho_tiled", htc.ho_subcycles_tiled, f"ho_tiled {nx}x{ny}", model, carry, consts, n)
     for n_side in (N, 2 * N):
         model, carry, consts, _, _ = ho_inputs(n_side, n_side, device, SEED + 8)
-        single = hsc.ho_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
         tiled = htc.ho_subcycles_tiled(model.mevp, carry, consts, DT, N_SUBCYCLES)
+        single = hsc.ho_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
         for (name, g), (_, w) in zip(ho_planes(single), ho_planes(tiled)):
             same_schedule(f"ho_single {n_side}x{n_side} N={N_SUBCYCLES} {name}", g, w, "ho_tiled")
     # The shipped window (a cluster of one block) against clusters of 2 to
@@ -845,6 +905,10 @@ def check_ho(device) -> dict:
     ):
         model, carry, consts, _, _ = inputs[n_side]
         solver = model.mevp
+        DEVICE_PROBES[f"{kernel} {n_side}^2"] = (
+            lambda run=run, solver=solver, carry=carry, consts=consts, n_sub=n_sub:
+            run(solver, carry, consts, DT, n_sub)
+        )
         runs = time_in_turns(
             {
                 "kernel": lambda: run(solver, carry, consts, DT, n_sub),
@@ -864,7 +928,15 @@ def check_ho(device) -> dict:
             f"{', '.join(f'{m:.4f}' for m in runs['kernel'])}), plain {mean['plain']:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}) per call of {n_sub} subcycles at {n_side}x{n_side}"
         ))
-    log("build", f"ho_single: {hsc.max_blocks(device)} resident blocks of 256 threads")
+    for n_side in (N, 2 * N):
+        config = hsc.tiling(n_side, n_side, hsc.sm_count(device))
+        log("build", (
+            f"ho_single at {n_side}x{n_side}: {config.tiles[0]}x{config.tiles[1]} tiles of {config.tile}, "
+            f"{config.threads} threads, {config.shared_bytes()} B shared (consts "
+            f"{'in shared memory' if config.consts_shared else 'from global memory'}), "
+            f"{hsc.max_blocks(device, config)} blocks resident at once; holds grids up to "
+            f"{hsc.largest_square(hsc.sm_count(device))}^2"
+        ))
     return {**results, "transport_qv": max(qv_errs)}
 
 
@@ -1700,7 +1772,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     # Last, as a profiler session slows the host's later launches. Every
     # row's ms stays the back-to-back time per call; the device durations
     # are logged beside it.
-    for probe, fn in probes.items():
+    for probe, fn in {**DEVICE_PROBES, **probes}.items():
         ms = device_ms(fn, probe.split()[0])
         log("time", f"{probe} device duration {ms:.5f} ms (torch.profiler)")
         if probe == "rdma_band axis 0":

@@ -7,7 +7,8 @@
 * ``run_benchmarks``: element updates/s of each battery config the port
   runs, one JSON line each;
 * ``mevp_large``: the mEVP phase on each schedule at a size, the "auto"
-  threshold sweeps and the tile sweeps.
+  threshold sweeps, the tile sweeps and ``transport_tiled``'s and
+  ``ho_single``'s times per call.
 
 Each runs as ``python -m nextsimdg_tpu_torch.benchmarks.<name>`` on a
 machine with a CUDA card; see each module's usage. None falls back to the

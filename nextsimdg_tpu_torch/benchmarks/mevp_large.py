@@ -7,24 +7,38 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large [n ...]      # plain and mevp_tiled at n (1024 2048 4096)
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --thresholds  # the "auto" threshold sweeps
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps
-    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --barriers    # a cluster barrier's cost
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --barriers    # a barrier's cost
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --phases=transport_tiled  # load/store against compute
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --kernel-times  # transport_tiled, ho_single per call
 
 ``--thresholds``: K1's schedule against the tiled one on the dynamics step
 at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
 ``mevp_tiled`` on the spherical mEVP phase and dynamics step at
 128^2-1024^2 (``coupled.SINGLE_MAX_ELEMENTS``); ``ho_single`` against
 ``ho_tiled`` on the HO mEVP phase and dynamics step at 128^2-1024^2
-(``mevp_ho.HO_SINGLE_MAX_ELEMENTS``). ``--tiles``: the launch
+(``mevp_ho.HO_SINGLE_MAX_ELEMENTS``), ``ho_single`` only up to the
+largest grid it holds (``ho_single_cuda.tiling``). ``--tiles``: the launch
 configurations of ``mevp_tiled`` (tile, halo, threads; its call alone, with
 its resident blocks per SM) at 1024^2, 2048^2 and 4096^2, uniform and
 spherical; of ``ho_tiled`` (cluster shape, sub-window, halo, threads;
 with the window's redundancy and the clusters the card holds at once) at 512^2, 1024^2 and 2048^2; of ``rdma_band`` (cluster,
 segment, threads) on the x and y bands of config 5's 2048^2 rank blocks
-at h = 16; then those of ``transport_tiled`` at 1024^2.
-``--tiles=mevp_tiled``, ``--tiles=ho_tiled`` and ``--tiles=rdma_band``
-run one part only. ``--barriers``: what one barrier between two phases
-costs in ho_tiled's and rdma_band's cluster shapes. Each line names the card and its power limit. Times
-are CUDA-event ms, the pairs in turns (a b b a).
+at h = 16; then those of ``transport_tiled`` (tile, threads, window
+buffers, copy form, persistent blocks or a block per tile) at 1024^2 and
+4096^2. ``--tiles=mevp_tiled``, ``--tiles=ho_tiled``, ``--tiles=rdma_band``
+and ``--tiles=transport_tiled`` run one part only. ``--barriers``: what one barrier between two phases
+costs in ho_tiled's and rdma_band's cluster shapes, and ho_single's edge
+exchange over its 256^2 tiles, by grid.sync() and by the neighbours' edge
+words. ``--phases=transport_tiled``: a launch that only loads and stores
+each window against a full one, for the block-per-tile launch of one
+buffer (load, stages, store in turn) and the shipped persistent, double-buffered
+one. ``--kernel-times``: ``transport_tiled`` at 1024^2 and 4096^2 and
+``ho_single`` at 256^2 and 512^2 per call, as the host launches them
+(``kernel_times``, which also times an earlier checkout's kernels). Each
+line names the card and its power limit. Times are CUDA-event ms, the
+pairs in turns (a b b a); the rdma_band and transport_tiled sweeps, the
+phases and the kernel times also give the kernel's device time (the
+profiler), since one call between two events can be the host's issue.
 """
 
 from __future__ import annotations
@@ -167,7 +181,13 @@ def sweep_thresholds(device) -> None:
             bench(n, name, outer=5, spherical=True, device=device)
         pair("spherical", n, ("mevp_single", {"mevp_backend": "pallas"}),
              ("mevp_tiled", {"mevp_backend": "pallas-tiled"}), spherical=True)
+    sms = ho_single_cuda.sm_count(device)
     for n in (128, 256, 512, 1024):
+        if not ho_single_cuda.holds(n, n, sms):
+            print(f"HO at {n}x{n}: ho_tiled only; ho_single holds grids up to "
+                  f"{ho_single_cuda.largest_square(sms)}^2 on {sms} SMs", flush=True)
+            bench(n, "ho_tiled", outer=5, device=device)
+            continue
         for name in ("ho_single", "ho_tiled"):
             bench(n, name, outer=5, device=device)
         pair("HO", n, ("ho_single", {"mevp_backend": "pallas"}),
@@ -422,26 +442,166 @@ def sweep_barriers(device, shapes=BARRIER_SHAPES, n_barriers: int = 4096) -> dic
     return out
 
 
-def sweep_tiles(device, n: int = 1024) -> None:
-    """Launch configurations (tile, threads) of ``transport_tiled`` at n^2
-    (``mevp_tiled``'s: ``sweep_mevp_tiled``; ``ho_tiled``'s:
-    ``sweep_ho_tiled``; ``rdma_band``'s: ``sweep_rdma_band``)."""
+def sweep_ho_single_syncs(device, n: int = 256, n_barriers: int = 4096) -> dict:
+    """ns per exchange of ho_single over its tiles of an n^2 grid (one block
+    a tile, its threads and shared bytes): the edge words written, then the
+    apron's words polled from the three neighbours, by the words' own half
+    numbers ("neighbours") or after grid.sync() ("grid"); a launch of
+    ``n_barriers`` less a launch of none, best of 5 each, over
+    ``n_barriers``; printed, and returned by sync."""
+    device = torch.device(device)
+    lib, stream = cc._library(), cc._stream(device)
     where = card(device)["nvidia_smi"]
-    # transport_tiled: one rk2 substep on seeded tracers and velocity.
-    rng = np.random.default_rng(0)
+    config = ho_single_cuda.tiling(n, n, ho_single_cuda.sm_count(device))
+    out = {}
+    for sync in ("neighbours", "grid"):
+        def run(count):
+            words = ho_single_cuda.exchange(config, device)
+            err = lib.nst_ho_single_syncs(
+                words.data_ptr(), *config.tile, *config.tiles, config.threads, config.shared_bytes(),
+                count, int(sync == "grid"), device.index or 0, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"ho_single_syncs: CUDA error {err}: {lib.nst_error_string(err).decode()}")
+
+        empty, full = best_ms(lambda: run(0)), best_ms(lambda: run(n_barriers))
+        out[sync] = ns = (full - empty) * 1e6 / n_barriers
+        print(
+            f"ho_single exchange by {sync} over {config.n_tiles} tiles of {config.tile} "
+            f"({config.threads} threads, {config.shared_bytes()} B shared): {ns:.1f} ns per exchange "
+            f"({full:.4f} ms for {n_barriers}, {empty:.4f} ms for none) on {where}", flush=True,
+        )
+    return out
+
+
+def _seconds(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def transport_inputs(n: int, device, seed: int = 0):
+    """(transport, tracers, u, v): config 4's mesh at n^2 (4 km), seeded
+    tracers and a velocity in motion."""
+    rng = np.random.default_rng(seed)
     t = lambda x: torch.tensor(x, device=device, dtype=torch.float32)
     model = CoupledModel(RectMesh(n, n, 4e3, 4e3))
     u, v = t(rng.normal(0.0, 0.2, (n, n))), t(rng.normal(0.0, 0.2, (n, n)))
     psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, n, n)), rng.normal(0.0, 0.3, (2, 3, n, n))]))
-    halo = transport_tiled_cuda.halo_for(1, 2)
-    for tile, threads in ((24, 512), (32, 512), (32, 768), (40, 512), (40, 768), (44, 768)):
-        ms = best_ms(lambda: transport_tiled_cuda.transport_substeps_tiled(
-            model.transport, psi, u, v, DT, 1, tile=tile, threads=threads), 20)
+    return model.transport, psi, u, v
+
+
+def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100) -> dict:
+    """ms per call of the launch the host picks for ``transport_tiled`` (one
+    rk2 substep on ``transport_inputs`` at each of ``transport_sizes``) and
+    ``ho_single`` (``n_sub`` HO subcycles on ``seeded_ho_phase`` at each of
+    ``ho_sizes``): the kernel's device duration (profiler, mean of 20) and
+    the call back to back (CUDA events, best of 5); printed, and returned
+    by (kernel, n) as (device, back to back). It calls the two wrappers by
+    the signatures they have had since they were ported and nothing newer
+    at import, so this file copied into an earlier checkout times that
+    checkout's kernels on the same inputs (PERF.md). On the CPU (the tests)
+    the plain versions run once each."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    where = card(device)["nvidia_smi"] if on_card else "cpu"
+    cases = []
+    for n in transport_sizes:
+        transport, psi, u, v = transport_inputs(n, device)
+        cases.append(("transport_tiled", n, "one rk2 substep", lambda t=transport, p=psi, u=u, v=v: (
+            transport_tiled_cuda.transport_substeps_tiled(t, p, u, v, DT, 1))))
+    for n in ho_sizes:
+        solver, carry, consts = seeded_ho_phase(n, device)
+        cases.append(("ho_single", n, f"{n_sub} HO subcycles", lambda s=solver, c=carry, k=consts: (
+            ho_single_cuda.ho_subcycles_single(s, c, k, DT, n_sub))))
+    out = {}
+    for kernel, n, what, fn in cases:
+        if on_card:
+            ms, dev = best_ms(fn), device_ms(fn, kernel)
+        else:
+            ms = dev = _seconds(fn) * 1e3
+        out[(kernel, n)] = (dev, ms)
+        print(f"{kernel} {n}x{n}: device {dev:.5f} ms, back to back {ms:.5f} ms per call of {what} on {where}",
+              flush=True)
+    return out
+
+
+def transport_tiled_configs() -> tuple:
+    """transport_tiled launches (LaunchConfig, copy form) for the sweep: the
+    shipped persistent double-buffered one by 16-byte and 4-byte copies,
+    tiles of 24 and 28, one buffer, the two-block alternative (tiles 30 and
+    24) and the block-per-tile launch."""
+    T = transport_tiled_cuda.LaunchConfig
+    return (
+        (T(32, 768, 2), "vector"), (T(32, 768, 2), "scalar"), (T(28, 768, 2), "vector"),
+        (T(24, 768, 2), "vector"), (T(32, 512, 2), "vector"), (T(32, 768, 1), "vector"),
+        (T(30, 384, 1), "vector"), (T(30, 384, 1), "scalar"), (T(24, 384, 1), "vector"),
+        (T(32, 768, 1, False), "vector"), (T(32, 768, 1, False), "scalar"),
+    )
+
+
+def sweep_transport_tiled(device, sizes=(1024, 4096), configs=None, k: int = 1) -> dict:
+    """ms per call of ``k`` rk2 substeps (one launch, halo 2 k + 1; a
+    config's tile is narrowed to what fits the halo) of ``transport_tiled``
+    for each launch at each size: the kernel's device duration (profiler, mean
+    of 20) and the call back to back (CUDA events, best of 20, in turns a
+    b ... b a: the host's issue rate where it is the slower), with its
+    shared bytes and blocks an SM; printed, and the device ms returned by
+    (n, config, copy). On the CPU (the tests) the plain version runs once."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    where = card(device)["nvidia_smi"] if on_card else "cpu"
+    halo = transport_tiled_cuda.halo_for(k, 2)
+    configs = [(transport_tiled_cuda.fitted(config, halo), copy)
+               for config, copy in configs or transport_tiled_configs()]
+    out = {}
+    for n in sizes:
+        transport, psi, u, v = transport_inputs(n, device)
+        fns = {
+            (config, copy): (lambda c=config, f=copy: transport_tiled_cuda.transport_substeps_tiled(
+                transport, psi, u, v, DT / k, k, config=c, copy=f))
+            for config, copy in configs if config is not None
+        }
+        ms = _in_turns(fns, 20) if on_card else {key: _seconds(fn) * 1e3 for key, fn in fns.items()}
+        for (config, copy), t in ms.items():
+            per_sm = transport_tiled_cuda.blocks_per_sm(device, config, halo, copy=copy) if on_card else 0
+            dev = device_ms(fns[(config, copy)], "transport_tiled") if on_card else t
+            out[(n, config, copy)] = dev
+            print(
+                f"transport_tiled {n}x{n} tile {config.tile} halo {halo} threads {config.threads} buffers "
+                f"{config.buffers} {'persistent' if config.persistent else 'a block per tile'} {copy}: "
+                f"device {dev:.4f} ms, back to back {t:.4f} ms per {k} rk2 substep(s), "
+                f"{transport_tiled_cuda.shared_bytes(config.tile, halo, 3, config.buffers)} B shared, "
+                f"{per_sm} blocks an SM on {where}", flush=True,
+            )
+    return out
+
+
+def phases_transport_tiled(device, n: int = 1024) -> dict:
+    """What a transport_tiled launch spends on moving its windows: a launch
+    that only loads and stores each window (``compute=False``) against a
+    full one (one rk2 substep at n^2), by the kernel's device duration
+    (profiler, mean of 20), for the block-per-tile launch of one buffer (the
+    sequence: load, barrier, stages, store) and the shipped
+    persistent double-buffered one; printed, and returned by (config,
+    phase)."""
+    device = torch.device(device)
+    where = card(device)["nvidia_smi"]
+    transport, psi, u, v = transport_inputs(n, device)
+    configs = {"block per tile, one buffer": transport_tiled_cuda.PER_TILE,
+               "persistent, two buffers": transport_tiled_cuda.SHIPPED}
+    out = {}
+    for name, config in configs.items():
+        for phase in ("full", "load and store"):
+            out[(name, phase)] = device_ms(lambda: transport_tiled_cuda.transport_substeps_tiled(
+                transport, psi, u, v, DT, 1, config=config, compute=phase == "full"), "transport_tiled")
+        full, moves = out[(name, "full")], out[(name, "load and store")]
         print(
-            f"transport_tiled tile {tile} halo {halo} threads {threads} "
-            f"({transport_tiled_cuda.shared_bytes(tile, halo)} B shared): {ms:.4f} ms per rk2 "
-            f"substep at {n}x{n} on {where}", flush=True,
+            f"transport_tiled {n}x{n} {name}: device {full:.4f} ms a full launch, {moves:.4f} ms "
+            f"loading and storing only, the rest {full - moves:.4f} ms (one rk2 substep) on {where}",
+            flush=True,
         )
+    return out
 
 
 def main(argv=None) -> int:
@@ -458,10 +618,15 @@ def main(argv=None) -> int:
         sweep_ho_tiled(device)
     if "--tiles" in argv or "--tiles=rdma_band" in argv:
         sweep_rdma_band(device)
-    if "--tiles" in argv:
-        sweep_tiles(device)
+    if "--tiles" in argv or "--tiles=transport_tiled" in argv:
+        sweep_transport_tiled(device)
     if "--barriers" in argv:
         sweep_barriers(device)
+        sweep_ho_single_syncs(device)
+    if "--phases=transport_tiled" in argv:
+        phases_transport_tiled(device)
+    if "--kernel-times" in argv:
+        kernel_times(device)
     sizes = [int(a) for a in argv if not a.startswith("--")]
     if sizes or not any(a.startswith("--") for a in argv):
         for n in sizes or [1024, 2048, 4096]:

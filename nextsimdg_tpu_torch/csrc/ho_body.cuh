@@ -2,9 +2,9 @@
 // one node index at a time.
 //
 // Both schedules of the HO mEVP phase call these bodies: ho_single.cu (all
-// N subcycles in one cooperative launch, over planes in global memory) and
-// ho_tiled.cu (H subcycles per launch on a shared-memory window). With
-// --fmad=false they run the same float32 operations in the same order, so
+// N subcycles in one cooperative launch, each block's tile resident in its
+// shared memory) and ho_tiled.cu (H subcycles per launch on a shared-memory
+// window). With --fmad=false they run the same float32 operations in the same order, so
 // the two agree bit for bit. The expression order is that of
 // MEVPSolverHO.stress_update and MEVPSolverHO.velocity_update in
 // nextsimdg_tpu_torch/dynamics/mevp_ho.py.
@@ -232,24 +232,52 @@ __device__ __forceinline__ float2 ho_velocity_plane(const HoScalars& s, float fu
   return uv;
 }
 
-// The velocity half at node index (i, j) (flat index ij), all four planes:
-// forces from `load`, then each plane's update from `uv` (the 8 velocity
-// values, u planes then v planes, updated in place) and the consts.
-template <class Load>
-__device__ __forceinline__ void ho_velocity_body(const HoTables& t, const HoScalars& s,
-                                                 const HoConsts& k, long ij, const Load& load,
-                                                 float uv[2 * kHoPlanes]) {
+// The per-plane consts of the velocity half, in the order of HoConsts after
+// strength: const q of owned plane p is HoConsts plane 1 + 4 q + p.
+enum HoPlaneConst { kHoDtM, kHoActive, kHoBU, kHoBV, kHoInvW, kHoUOcean, kHoVOcean };
+constexpr int kHoPlaneConsts = 7;
+
+__device__ __forceinline__ const float* ho_const_plane(const HoConsts& k, int q, int p) {
+  switch (q) {
+    case kHoDtM: return k.dt_m[p];
+    case kHoActive: return k.active[p];
+    case kHoBU: return k.b_u[p];
+    case kHoBV: return k.b_v[p];
+    case kHoInvW: return k.inv_w[p];
+    case kHoUOcean: return k.u_ocean[p];
+    default: return k.v_ocean[p];
+  }
+}
+
+// The velocity half at one node index, all four planes: forces from
+// `load`, then each plane's update from `uv` (the 8 velocity values, u
+// planes then v planes, updated in place) and its consts, konst(q, p) for
+// const q (HoPlaneConst) of plane p.
+template <class Load, class Konst>
+__device__ __forceinline__ void ho_velocity_update(const HoTables& t, const HoScalars& s,
+                                                   const Konst& konst, const Load& load,
+                                                   float uv[2 * kHoPlanes]) {
   float fu[kHoPlanes], fv[kHoPlanes];
   ho_node_forces(t, s, load, fu, fv);
 #pragma unroll
   for (int p = 0; p < kHoPlanes; ++p) {
     const float2 out = ho_velocity_plane(
-        s, fu[p], fv[p], uv[p], uv[kHoPlanes + p], __ldg(k.u_ocean[p] + ij),
-        __ldg(k.v_ocean[p] + ij), __ldg(k.dt_m[p] + ij), __ldg(k.active[p] + ij),
-        __ldg(k.b_u[p] + ij), __ldg(k.b_v[p] + ij), __ldg(k.inv_w[p] + ij));
+        s, fu[p], fv[p], uv[p], uv[kHoPlanes + p], konst(kHoUOcean, p), konst(kHoVOcean, p),
+        konst(kHoDtM, p), konst(kHoActive, p), konst(kHoBU, p), konst(kHoBV, p),
+        konst(kHoInvW, p));
     uv[p] = out.x;
     uv[kHoPlanes + p] = out.y;
   }
+}
+
+// The same at node index (i, j) (flat index ij), its consts read from the
+// const planes in global memory.
+template <class Load>
+__device__ __forceinline__ void ho_velocity_body(const HoTables& t, const HoScalars& s,
+                                                 const HoConsts& k, long ij, const Load& load,
+                                                 float uv[2 * kHoPlanes]) {
+  ho_velocity_update(t, s, [&](int q, int p) { return __ldg(ho_const_plane(k, q, p) + ij); },
+                     load, uv);
 }
 
 }  // namespace nst

@@ -216,9 +216,9 @@ def _bind():
     lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i] * 5 + tail
     lib.nst_dg1_rk_stage.argtypes = [p] * 8 + [i, i, i, f, f, f] + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
-    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 8 + [f, f, f] + tail
+    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 12 + [f, f, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 8 + [i] * 4 + tail
-    lib.nst_ho_single.argtypes = [p, p] + [i] * 4 + [p] + tail
+    lib.nst_ho_single.argtypes = [p] * 3 + [i] * 9 + [p] + tail
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 10 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
     lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, i, p, i, p] + tail
@@ -229,8 +229,14 @@ def _bind():
     lib.nst_mevp_tiled_max_blocks.restype = i
     lib.nst_mevp_single_max_blocks.argtypes = [i, i]
     lib.nst_mevp_single_max_blocks.restype = i
-    lib.nst_ho_single_max_blocks.argtypes = [i]
+    lib.nst_ho_single_max_blocks.argtypes = [i] * 4
     lib.nst_ho_single_max_blocks.restype = i
+    lib.nst_ho_single_syncs.argtypes = [p] + [i] * 9 + [p]
+    lib.nst_ho_single_syncs.restype = i
+    lib.nst_transport_tiled_blocks_per_sm.argtypes = [i] * 6
+    lib.nst_transport_tiled_blocks_per_sm.restype = i
+    lib.nst_transport_tiled_shared_bytes.argtypes = [i] * 5
+    lib.nst_transport_tiled_shared_bytes.restype = i
     lib.nst_ho_tiled_max_clusters.argtypes = [i] * 6
     lib.nst_ho_tiled_max_clusters.restype = i
     lib.nst_rdma_band_max_clusters.argtypes = [i] * 6

@@ -4,13 +4,18 @@ CUDA kernel.
 Counterpart of ``nextsimdg_tpu/dynamics/kernels/transport_tiled.py``, whose
 ``transport_substeps_tiled`` runs up to ``K_CAP`` substeps per round on
 halo'd blocks in VMEM, re-sampling the velocity per block. Here
-(``csrc/transport_tiled.cu``) each thread block loads the
-(tile + 2 halo)^2 window of u, v and the tracer coefficients into shared
+(``csrc/transport_tiled.cu``) as many blocks as the card holds at once each
+walk a fixed stride of tiles: for each tile the block has the
+(tile + 2 halo)^2 window of u, v and the tracer coefficients in shared
 memory, samples the quadrature velocity there, runs up to
-``K_CAP = (halo - 1) // stages`` substeps and writes back its tile; one
-launch per round, ``ceil(k / K_CAP)`` rounds, ping-ponging between two
-buffers. The host knows k (``dynamics_phase`` reads it back once), so it
-sizes the halo to k: ``stages * min(k, K_MAX) + 1``.
+``K_CAP = (halo - 1) // stages`` substeps and writes back its tile, while
+the window of its next tile is already being copied into a second buffer
+(cp.async, 16 bytes a copy where ny is a multiple of 4, else 4); from
+2048^2 two blocks an SM of one buffer each instead, and at the widest
+halos one block of one buffer (``launch_config``). One launch per round,
+``ceil(k / K_CAP)`` rounds, ping-ponging between two buffers. The host
+knows k (``dynamics_phase`` reads it back once), so it sizes the halo to
+k: ``stages * min(k, K_MAX) + 1``, and the launch to the halo.
 
 Plain version: ``velocity_from_cg`` and k x ``DGTransport.step(limit=True)``
 (``transport_substeps_tiled_reference``). The kernel runs the element body
@@ -34,6 +39,8 @@ block widened by H ghost cells: one strip pair per axis buys
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, replace
+from functools import lru_cache
 
 import torch
 
@@ -43,12 +50,46 @@ from . import coupled_cuda as cc
 
 KERNEL = "transport_tiled"
 
-#: Elements per side of a block's tile and threads per block; chosen on
-#: the H100 by chip_smoke.py's sweep, see PERF.md.
-TILE = 32
-THREADS = 768
 #: Most substeps per launch; more run in further launches.
 K_MAX = 3
+#: Dynamic shared memory a block may take on the H100, and an SM holds
+#: (1 KB of it reserved per block).
+SHARED_LIMIT, SM_SHARED = 232448, 233472
+#: Most threads a block (the stage body's ~80 registers at one block of
+#: 768 an SM).
+MAX_THREADS = 768
+COPIES = ("auto", "vector", "scalar")
+
+
+@dataclass(frozen=True)
+class LaunchConfig:
+    """A launch of transport_tiled: tiles of ``tile`` elements a side,
+    ``threads`` a block, ``buffers`` input buffers a block (2: the next
+    tile's window loads while this one computes), and ``persistent``: as
+    many blocks as the card holds at once, each walking the tiles (else a
+    block per tile, which loads, computes and stores one tile in turn: the
+    sequence the persistent blocks were measured against)."""
+
+    tile: int
+    threads: int
+    buffers: int
+    persistent: bool = True
+
+
+#: The shipped launches, chosen on the H100 by ``benchmarks.mevp_large
+#: --tiles=transport_tiled`` (PERF.md), each where it fits at its full
+#: tile (a narrower tile's ring costs more than the overlap gains): from
+#: ``TWO_BLOCKS_MIN_ELEMENTS``, one buffer and windows small enough for two
+#: blocks an SM, so that one block's barriers and load overlap the other's
+#: compute; else persistent blocks of 768 threads, one an SM, with two
+#: window buffers each; else (the widest halos) with one.
+TWO_BLOCKS = LaunchConfig(30, 384, 1)
+TWO_BLOCKS_MIN_ELEMENTS = 2048 * 2048
+SHIPPED = LaunchConfig(32, 768, 2)
+ONE_BUFFER = LaunchConfig(32, 768, 1)
+#: A block per tile, one buffer: load, compute and store in turn (the
+#: measurement's yardstick).
+PER_TILE = LaunchConfig(32, 768, 1, persistent=False)
 
 _STAGES = {"rk1": (1, 0.0, 1.0), "rk2": (2, 0.5, 0.5)}
 #: The planes of a dG1 QuadVelocity, in the order of Dg1QvPlanes.
@@ -64,9 +105,82 @@ def halo_for(k: int, stages: int) -> int:
     return stages * min(max(k, 1), K_MAX) + 1
 
 
-def shared_bytes(tile: int, halo: int, n_tracers: int = 3) -> int:
-    """Dynamic shared memory of one block: u, v and two coefficient buffers."""
-    return (2 + 2 * 3 * n_tracers) * (tile + 2 * halo) ** 2 * 4
+def _round_128(floats: int) -> int:
+    return -(-floats // 32) * 32
+
+
+def shared_bytes(tile: int, halo: int, n_tracers: int = 3, buffers: int = 2, qv: bool = False) -> int:
+    """Dynamic shared memory of one block (TransportLayout of
+    csrc/transport_tiled.cu): ``buffers`` input buffers of the coefficient
+    window and, but for the ``qv`` form, u and v, each part 128-byte
+    aligned, with rows of the window's cells from up to 3 cells in (the
+    16-byte boundary before its first column) padded to a multiple of 4;
+    and a scratch buffer of the coefficients."""
+    w = tile + 2 * halo
+    plane = w * (-(-(w + 3) // 4) * 4)
+    coeffs = _round_128(3 * n_tracers * plane)
+    buffer = coeffs + (0 if qv else 2 * _round_128(plane))
+    return (buffers * buffer + coeffs) * 4
+
+
+@lru_cache(maxsize=64)
+def fitted(base: LaunchConfig, halo: int, qv: bool = False, n_tracers: int = 3):
+    """``base`` with the widest tile up to its own whose block fits the
+    shared memory at this halo (two blocks an SM where ``base`` has 384
+    threads or fewer), or None."""
+    per_sm = 2 if base.threads <= MAX_THREADS // 2 else 1
+    limit = min(SHARED_LIMIT, SM_SHARED // per_sm - 1024)
+    for tile in range(base.tile, 0, -1):
+        if shared_bytes(tile, halo, n_tracers, base.buffers, qv) <= limit:
+            return replace(base, tile=tile)
+    return None
+
+
+@lru_cache(maxsize=64)
+def launch_config(halo: int, qv: bool = False, n_tracers: int = 3, elements: int = 0) -> LaunchConfig:
+    """The shipped launch for a grid of ``elements`` at this halo."""
+    bases = ((TWO_BLOCKS,) if elements >= TWO_BLOCKS_MIN_ELEMENTS else ()) + (SHIPPED, ONE_BUFFER)
+    for base in bases:
+        if fitted(base, halo, qv, n_tracers) == base:
+            return base
+    config = fitted(ONE_BUFFER, halo, qv, n_tracers)
+    if config is None:
+        raise ValueError(f"transport_tiled: no tile fits at halo {halo}")
+    return config
+
+
+def copy_form(ny: int, *tensors) -> str:
+    """"vector" (16-byte copies) where rows of ny cells keep every 4th cell
+    16-byte aligned (ny a multiple of 4, aligned bases), else "scalar"."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+    return "vector" if ny % 4 == 0 and aligned else "scalar"
+
+
+@lru_cache(maxsize=256)
+def blocks_per_sm(device, config: LaunchConfig, halo: int, qv: bool = False, metric: bool = False,
+                  copy: str = "vector", n_tracers: int = 3) -> int:
+    """Blocks of ``config`` that one SM of the card holds at once at this
+    halo: a persistent launch runs that many times the SMs (cached: the
+    query costs the host more than a launch)."""
+    device = torch.device(device)
+    count = cc._library().nst_transport_tiled_blocks_per_sm(
+        int(metric), int(qv), int(copy == "vector"), config.threads,
+        shared_bytes(config.tile, halo, n_tracers, config.buffers, qv), device.index or 0,
+    )
+    if count < 0:
+        raise RuntimeError(f"transport_tiled: CUDA error {-count}")
+    return count
+
+
+@lru_cache(maxsize=8)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tile_walk(n_tiles: int, blocks: int) -> list:
+    """The tiles each of ``blocks`` persistent blocks computes, in order:
+    block b takes b, b + blocks, b + 2 blocks, ... (the kernel's walk)."""
+    return [list(range(b, n_tiles, blocks)) for b in range(min(blocks, n_tiles))]
 
 
 def _qv_planes(qv: QuadVelocity, shape, device):
@@ -79,7 +193,8 @@ def _qv_planes(qv: QuadVelocity, shape, device):
 
 def transport_substeps_tiled(
     transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None,
-    tile: int = TILE, halo: int = None, threads: int = THREADS, qv: QuadVelocity = None,
+    tile: int = None, halo: int = None, threads: int = None, qv: QuadVelocity = None,
+    config: LaunchConfig = None, copy: str = "auto", compute: bool = True,
 ):
     """The tracers after k limited substeps of ``dt_sub``.
 
@@ -87,7 +202,11 @@ def transport_substeps_tiled(
     run ``transport_tiled``. The velocity is the CG1 (u, v), or the
     precomputed quadrature velocity ``qv`` (u and v are then not read).
     ``face_masks``: optional (face_x, face_y), ones without a coastline.
-    The inputs are not modified.
+    The launch: ``config`` (default ``launch_config(halo)``), its tile and
+    threads overridden by ``tile`` and ``threads``; ``copy``: how windows
+    reach shared memory ("auto": ``copy_form``). ``compute=False`` only
+    loads and stores the windows (the phase measurement: the result is then
+    the input). The inputs are not modified.
     """
     if cc._on_cpu(tracers):
         return transport_substeps_tiled_reference(
@@ -97,34 +216,47 @@ def transport_substeps_tiled(
         raise NotImplementedError(
             f"the tiled transport kernel runs rk1 and rk2, not {transport.scheme}"
         )
+    if copy not in COPIES:
+        raise ValueError(f"copy must be one of {COPIES}, not {copy!r}")
     n_stages, a2, b2 = _STAGES[transport.scheme]
     nx, ny = transport.mesh.nx, transport.mesh.ny
     device = tracers.device
-    cc._check((3, tracers.shape[1], nx, ny), device, tracers=tracers)
+    n_tracers = tracers.shape[1]
+    cc._check((3, n_tracers, nx, ny), device, tracers=tracers)
     if qv is None:
         cc._check((nx, ny), device, u=u, v=v)
         u_ptr, v_ptr, qv_ptrs = u.data_ptr(), v.data_ptr(), None
     else:
+        u, v = None, None
         u_ptr, v_ptr, qv_ptrs = None, None, _qv_planes(qv, (nx, ny), device)
     face_x, face_y = cc._face_planes(tracers[0, 0], face_masks, (nx, ny))
     halo = halo_for(k, n_stages) if halo is None else halo
     k_cap = (halo - 1) // n_stages
-    if tile < 1 or k_cap < 1:
-        raise ValueError(f"tile {tile} / halo {halo} leaves no substep per launch")
+    config = config or launch_config(halo, qv is not None, n_tracers, nx * ny)
+    if tile or threads:
+        config = replace(config, tile=tile or config.tile, threads=threads or config.threads)
+    if config.tile < 1 or k_cap < 1:
+        raise ValueError(f"tile {config.tile} / halo {halo} leaves no substep per launch")
     tables = cc._dg1_tables(transport)
     metric = cc._dg1_metric(transport, device)
     stream = cc._stream(device)
     src = tracers
     buffers = [torch.empty_like(tracers) for _ in range(2)]
+    tiles = -(-nx // config.tile) * -(-ny // config.tile)
     done = 0
     while done < k:
         n_sub = min(k_cap, k - done)
         dst = buffers[0] if src is not buffers[0] else buffers[1]
+        form = copy_form(ny, src, u, v) if copy == "auto" else copy
+        blocks = tiles
+        if config.persistent:
+            per_sm = blocks_per_sm(device, config, halo, qv is not None, metric is not None, form, n_tracers)
+            blocks = min(tiles, per_sm * sm_count(device))
         cc._launch(
             KERNEL, src.data_ptr(), dst.data_ptr(), u_ptr, v_ptr, face_x.data_ptr(),
-            face_y.data_ptr(), metric, qv_ptrs, nx, ny, tracers.shape[1], tile, halo,
-            n_sub, n_stages, threads, a2, b2, dt_sub, ctypes.addressof(tables), device.index,
-            stream,
+            face_y.data_ptr(), metric, qv_ptrs, nx, ny, n_tracers, config.tile, halo,
+            n_sub, n_stages, config.threads, config.buffers, int(form == "vector"), blocks,
+            int(compute), a2, b2, dt_sub, ctypes.addressof(tables), device.index, stream,
         )
         src = dst
         done += n_sub

@@ -86,3 +86,14 @@ def test_entry_points_refuse_to_run_without_a_card():
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert done.returncode == 2 and "unknown" in done.stderr
+
+
+def test_transport_tiled_and_ho_single_sweeps_run_each_launch():
+    """The sweep of transport_tiled's launches and the times per call of
+    transport_tiled and ho_single run on the CPU (the plain versions), one
+    entry per launch and per kernel and size."""
+    out = mevp_large.sweep_transport_tiled("cpu", sizes=(16,))
+    assert len(out) == len(mevp_large.transport_tiled_configs())
+    out = mevp_large.kernel_times("cpu", transport_sizes=(16,), ho_sizes=(16, 24), n_sub=2)
+    assert sorted(out) == [("ho_single", 16), ("ho_single", 24), ("transport_tiled", 16)]
+    assert all(dev == ms > 0 for dev, ms in out.values())

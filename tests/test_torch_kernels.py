@@ -29,6 +29,8 @@ the CFL speeds and k; after 100 subcycles 1e-3 of the plane's max on the
 mEVP planes and 1e-5 on the tracers.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -192,20 +194,50 @@ def test_mevp_tiled_matches_plain_and_k1_on_a_ragged_grid(device, tile, halo, th
         assert mt.max_blocks(device, tile, halo, threads, spherical) >= 2
 
 
-@pytest.mark.parametrize("scheme, k", [("rk2", 1), ("rk2", 4), ("rk1", 3)])
-def test_transport_tiled_matches_plain_and_k1_on_a_ragged_grid(device, scheme, k):
-    model, carry, _, psi, rng = setup(device, n=40, ny=72)
+#: transport_tiled launches besides the one the host picks: the persistent
+#: walk over many small tiles by either copy form, the two-block
+#: alternative and the block-per-tile shape.
+TRANSPORT_LAUNCHES = [
+    {"tile": 16}, {"tile": 8}, {"tile": 8, "copy": "scalar"},
+    {"config": tt.TWO_BLOCKS, "tile": 8}, {"config": tt.PER_TILE, "tile": 8},
+]
+
+
+def transport_launches(ny):
+    """The launches a test runs on a grid ny wide: 16-byte copies need ny % 4 == 0."""
+    return [{}] + TRANSPORT_LAUNCHES + ([{"tile": 8, "copy": "vector"}] if ny % 4 == 0 else [])
+
+
+@pytest.mark.parametrize("ny", [72, 70])  # 16-byte window copies, and 4-byte ones (ny % 4 != 0)
+@pytest.mark.parametrize("scheme, k", [("rk2", 1), ("rk2", 4), ("rk1", 1), ("rk1", 4), ("rk1", 3)])
+def test_transport_tiled_matches_plain_and_k1_on_a_ragged_grid(device, scheme, k, ny):
+    model, carry, _, psi, rng = setup(device, n=40, ny=ny)
     model.transport.scheme = scheme
     faces = tuple(
-        torch.tensor((rng.uniform(size=(40, 72)) > 0.1).astype(np.float32), device=device)
+        torch.tensor((rng.uniform(size=(40, ny)) > 0.1).astype(np.float32), device=device)
         for _ in range(2)
     )
     args = (model.transport, psi, carry[0], carry[1], DT / k, k, faces)
-    cc.reset_launches()
-    got = tt.transport_substeps_tiled(*args, tile=16)
-    assert cc.launches["transport_tiled"] == -(-k // tt.K_MAX)
-    assert_close(got, tt.transport_substeps_tiled_reference(*args), 1e-5)
-    assert_same_schedule(got, cc.transport_substeps(*args))
+    ref = tt.transport_substeps_tiled_reference(*args)
+    k1 = cc.transport_substeps(*args)
+    for launch in transport_launches(ny):
+        cc.reset_launches()
+        got = tt.transport_substeps_tiled(*args, **launch)
+        assert cc.launches["transport_tiled"] == -(-k // tt.K_MAX)
+        assert_close(got, ref, 1e-5)
+        assert torch.equal(got, k1), launch
+    # Loading and storing the windows alone gives the input back.
+    assert torch.equal(tt.transport_substeps_tiled(*args, compute=False), psi)
+
+
+def test_transport_tiled_shared_bytes_agree_with_the_kernel(device):
+    lib = cc._library()
+    for tile, halo, buffers, qv in itertools.product((8, 28, 32), (2, 3, 5, 7), (1, 2), (False, True)):
+        assert lib.nst_transport_tiled_shared_bytes(tile, halo, 3, buffers, int(qv)) == tt.shared_bytes(
+            tile, halo, 3, buffers, qv
+        )
+    assert tt.blocks_per_sm(device, tt.SHIPPED, tt.halo_for(1, 2)) == 1
+    assert tt.blocks_per_sm(device, tt.TWO_BLOCKS, tt.halo_for(1, 2)) == 2
 
 
 def test_tiled_dynamics_phase_matches_plain_and_counts_launches(device):
@@ -266,15 +298,19 @@ def test_mevp_single_refuses_a_grid_that_cannot_be_resident(device):
         ms.mevp_subcycles_single(model.mevp, carry, {**consts, "a_node": carry[0]}, DT, 3)
 
 
+@pytest.mark.parametrize("ny", [72, 70])
 @pytest.mark.parametrize("k", [1, 4])
-def test_metric_transport_kernels_match_plain_and_each_other(device, k):
-    model, carry, _, psi, _ = setup(device, n=40, ny=72, spherical=True)
+def test_metric_transport_kernels_match_plain_and_each_other(device, k, ny):
+    model, carry, _, psi, _ = setup(device, n=40, ny=ny, spherical=True)
     faces = model.face_masks(device=device, dtype=torch.float32)
     u, v = carry[0] * 5.0, carry[1] * 5.0
     args = (model.transport, psi, u, v, DT / k, k, faces)
-    got = tt.transport_substeps_tiled(*args, tile=16)
-    assert_close(got, tt.transport_substeps_tiled_reference(*args), 1e-5)
-    assert_same_schedule(got, cc.transport_substeps(*args))
+    ref = tt.transport_substeps_tiled_reference(*args)
+    k1 = cc.transport_substeps(*args)
+    for launch in transport_launches(ny):
+        got = tt.transport_substeps_tiled(*args, **launch)
+        assert_close(got, ref, 1e-5)
+        assert torch.equal(got, k1), launch
     base = psi.flip(-1).contiguous()
     stage = (model.transport, psi, base, u, v, *faces, 0.5, 0.5, DT / k)
     assert_close(cc.dg1_rk_stage(*stage), cc.dg1_rk_stage_reference(*stage), TOL_LAUNCH)
@@ -351,28 +387,60 @@ def test_ho_kernels_raise_on_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="launch configuration"):  # more blocks than a cluster has
         ht.ho_subcycles_tiled(solver, carry, consts, DT, 4, ht.LaunchConfig(4, 8, 16, 4, 256))
     assert ht.max_clusters(device, ht.SHIPPED) >= 1
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        hs.ho_subcycles_single(solver, carry, consts, DT, 2, blocks=hs.max_blocks(device) + 1)
+    # ho_single: tiles that could not all be resident (4 x 4 tiles of a 40 x
+    # 72 grid outnumber the SMs; a 700^2 grid's state outgrows their shared
+    # memory) are refused before any launch.
+    with pytest.raises(ValueError, match="resident"):
+        hs.ho_subcycles_single(solver, carry, consts, DT, 2, tile=(4, 4))
+    big = ho_setup(device, 700, 700)
+    with pytest.raises(ValueError, match="shared memory"):
+        hs.ho_subcycles_single(*big, DT, 2)
     double = tuple(carry[:2]) + tuple(x.double() for x in carry[2:])
     with pytest.raises(TypeError, match="float32"):
         ht.ho_subcycles_tiled(solver, double, consts, DT, 3)
 
 
+@pytest.mark.parametrize("n_sub", [1, 13])
+@pytest.mark.parametrize("shape", [(40, 72), (600, 600)])  # few tiles; tiles of ~2700 elements
+def test_ho_single_tiles_and_syncs_match_ho_tiled(device, n_sub, shape):
+    """The tiles the host picks and a forced tile shape equal ho_tiled bit
+    for bit; at 600^2 the tiles are large and the consts stay in global
+    memory."""
+    solver, carry, consts = ho_setup(device, *shape)
+    tiled = ht.ho_subcycles_tiled(solver, carry, consts, DT, n_sub)
+    config = hs.tiling(*shape, hs.sm_count(device))
+    assert config.n_tiles <= hs.max_blocks(device, config)
+    assert config.consts_shared == (shape == (40, 72))
+    runs = [{}, {"tile": (-(-shape[0] // 12), -(-shape[1] // 10))}]
+    for run in runs:
+        cc.reset_launches()
+        got = hs.ho_subcycles_single(solver, carry, consts, DT, n_sub, **run)
+        assert cc.launches["ho_single"] == 1
+        for g, w in zip(ho_planes(got), ho_planes(tiled)):
+            assert torch.equal(g, w), run
+
+
+@pytest.mark.parametrize("ny", [72, 70])
 @pytest.mark.parametrize("k", [1, 4])
-def test_transport_tiled_qv_form_matches_plain(device, k):
-    solver, carry, _ = ho_setup(device)
-    model, _, _, psi, rng = setup(device, n=40, ny=72)
+def test_transport_tiled_qv_form_matches_plain(device, k, ny):
+    solver, carry, _ = ho_setup(device, 40, ny)
+    model, _, _, psi, rng = setup(device, n=40, ny=ny)
     faces = tuple(
-        torch.tensor((rng.uniform(size=(40, 72)) > 0.1).astype(np.float32), device=device)
+        torch.tensor((rng.uniform(size=(40, ny)) > 0.1).astype(np.float32), device=device)
         for _ in range(2)
     )
     scaled = tuple(mevp_ho.HOField(*(5.0 * x for x in f.planes())) for f in carry[:2])
     qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, *scaled)
     args = (model.transport, psi, None, None, DT / k, k, faces)
-    cc.reset_launches()
-    got = tt.transport_substeps_tiled(*args, tile=16, qv=qv)
-    assert cc.launches["transport_tiled"] == -(-k // tt.K_MAX)
-    assert_close(got, tt.transport_substeps_tiled_reference(*args, qv=qv), 1e-5)
+    ref = tt.transport_substeps_tiled_reference(*args, qv=qv)
+    first = None
+    for launch in transport_launches(ny):
+        cc.reset_launches()
+        got = tt.transport_substeps_tiled(*args, qv=qv, **launch)
+        assert cc.launches["transport_tiled"] == -(-k // tt.K_MAX)
+        assert_close(got, ref, 1e-5)
+        first = got if first is None else first
+        assert torch.equal(got, first), launch  # every launch the same schedule
 
 
 def test_ho_dynamics_phase_matches_plain_and_counts_launches(device):

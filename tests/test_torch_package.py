@@ -16,6 +16,7 @@ import torch
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hs
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as ht
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
@@ -260,12 +261,15 @@ def test_launch_configurations_fit_a_block():
     assert mt.cells_per_thread(64, 8, 1024) == 7 and mt.cells_per_thread(8, 3, 512) == 1
     assert mt.cells_per_thread(56, 8, 256) > mt.MAX_CELLS  # refused by the kernel
     assert mt.cells_per_thread(200, 8, 128) == 0  # fewer threads than a window row
+    # transport_tiled: two window buffers and the scratch buffer at the tile
+    # the host picks for the halo.
     for k in range(1, 10):
         for stages in (1, 2):
             halo = tt.halo_for(k, stages)
             assert (halo - 1) // stages == min(k, tt.K_MAX)
-            assert tt.shared_bytes(tt.TILE, halo) <= limit
-    assert tt.THREADS <= 768
+            config = tt.launch_config(halo)
+            assert tt.shared_bytes(config.tile, halo, 3, config.buffers) <= limit
+    assert tt.SHIPPED.threads <= tt.MAX_THREADS == 768
     # ho_tiled: 17 planes of a block's sub-window and its one-cell apron; a
     # sub-window of 56 fits.
     for n in (8, 256, 512, 1000, 1024, 2048, 4096):
@@ -310,6 +314,103 @@ def test_ho_tiled_launch_config_fits_a_block_and_pads_the_grid():
     for bad in (L(4, 8, 16, 4, 256), L(1, 1, 16, 8, 256), L(2, 2, 48, 8, 1024), L(0, 2, 48, 8, 512)):
         with pytest.raises(ValueError, match="launch configuration"):
             bad.check()
+
+
+RAGGED = (1000, 968)  # chip_smoke.py's ragged grid
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), RAGGED, (40, 70), (2064, 2064)])
+def test_transport_tiled_persistent_walk_visits_every_tile_once(shape):
+    """The persistent blocks' walk (block b takes tiles b, b + G, ...) visits
+    every tile of the grid exactly once, for grids of whole waves and of a
+    partial last wave, a ragged grid, one with ny % 4 != 0 and config 5's
+    widened rank block; the per-tile launch has one block a tile."""
+    nx, ny = shape
+    for config in (tt.SHIPPED, tt.TWO_BLOCKS, tt.ONE_BUFFER, tt.PER_TILE):
+        tiles = -(-nx // config.tile) * -(-ny // config.tile)
+        for blocks in ({132, 264, 7, tiles, tiles + 5} if config.persistent else {tiles}):
+            walk = tt.tile_walk(tiles, blocks)
+            assert len(walk) == min(blocks, tiles)
+            visited = sorted(t for block in walk for t in block)
+            assert visited == list(range(tiles))
+            sizes = {len(block) for block in walk}
+            assert max(sizes) - min(sizes) <= 1  # 1024 tiles on 132 blocks: 7 or 8 each
+    assert tt.copy_form(70, torch.zeros(4)) == "scalar"
+    assert tt.copy_form(72, torch.zeros(4), None) == "vector"
+    assert tt.copy_form(72, torch.zeros(5)[1:]) == "scalar"  # a base off 16 bytes
+
+
+@pytest.mark.parametrize("qv", [False, True])
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_transport_tiled_launch_fits_for_every_halo(k, stages, qv):
+    """The launch the host picks for each halo that halo_for gives fits a
+    block's shared memory at its full tile: two window buffers where they
+    fit, else one; from 2048^2 elements two blocks an SM of one buffer where
+    they fit at tile 30. Window rows hold the window from up to 3 cells in
+    (the 16-byte boundary before it) in a multiple of 16 bytes."""
+    limit, per_sm, reserved = 232448, 233472, 1024
+    halo = tt.halo_for(k, stages)
+    config = tt.launch_config(halo, qv)
+    assert config in (tt.SHIPPED, tt.ONE_BUFFER) and config.threads <= tt.MAX_THREADS
+    assert tt.shared_bytes(config.tile, halo, 3, config.buffers, qv) <= limit
+    if config == tt.ONE_BUFFER:  # two buffers do not fit at the full tile
+        assert tt.shared_bytes(tt.SHIPPED.tile, halo, 3, 2, qv) > limit
+    w = config.tile + 2 * halo
+    pitch = -(-(w + 3) // 4) * 4
+    assert pitch * 4 % 16 == 0 and pitch >= w + 3
+    large = tt.launch_config(halo, qv, 3, 2064 * 2064)
+    if large == tt.TWO_BLOCKS:
+        assert 2 * (tt.shared_bytes(large.tile, halo, 3, 1, qv) + reserved) <= per_sm
+    else:
+        assert large == config and 2 * (tt.shared_bytes(30, halo, 3, 1, qv) + reserved) > per_sm
+    assert tt.launch_config(halo, qv, 3, 2048 * 2048 - 1) == config
+    assert tt.launch_config(tt.halo_for(1, 2), qv) == tt.SHIPPED
+    assert tt.launch_config(tt.halo_for(1, 2), qv, 3, 4096 * 4096) == tt.TWO_BLOCKS
+    assert 2 * tt.TWO_BLOCKS.threads <= tt.MAX_THREADS
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (512, 512), (40, 72), (37, 29), (600, 600), (1, 1)])
+def test_ho_single_tiling_covers_the_grid_and_fits(shape):
+    """ho_single's tiles: at most one a SM (132 on the H100), covering the
+    grid with no empty tile, the state and apron within a block's shared
+    memory (and the consts where consts_shared), threads for the tile up to
+    512; each tile's neighbour table is symmetric (b reads a after the
+    velocity half exactly when a reads b after the stress half)."""
+    limit, sms = 232448, 132
+    nx, ny = shape
+    config = hs.tiling(nx, ny, sms)
+    (tr, tc), (ti, tj) = config.tile, config.tiles
+    assert config.n_tiles <= sms
+    assert (ti - 1) * tr < nx <= ti * tr and (tj - 1) * tc < ny <= tj * tc
+    assert config.shared_bytes() <= limit
+    assert hs.shared_bytes(config.tile, False) == 17 * (tr + 2) * (tc + 2) * 4
+    assert config.consts_shared == (hs.shared_bytes(config.tile, True) <= limit)
+    assert 32 <= config.threads <= hs.MAX_THREADS and config.threads % 32 == 0
+    for b in range(config.n_tiles):
+        for a in hs.neighbours(config.tiles, b, 1):
+            assert b in hs.neighbours(config.tiles, a, -1)
+        for a in hs.neighbours(config.tiles, b, -1):
+            assert b in hs.neighbours(config.tiles, a, 1)
+    if shape == (256, 256):
+        assert config.tile == (16, 32) and config.n_tiles == 128 and config.consts_shared
+        assert config.threads == 512
+    if shape == (512, 512):
+        assert config.tile[0] * config.tile[1] <= 2048 and not config.consts_shared
+
+
+def test_ho_single_refuses_a_grid_it_cannot_hold():
+    """A grid whose tiles outnumber the SMs, or whose state does not fit the
+    SMs' shared memory at one tile each, raises before any launch, on the
+    host; the largest square grid held on 132 SMs is above 512^2 and below
+    650^2."""
+    with pytest.raises(ValueError, match="resident"):
+        hs.tiling(40, 72, 132, (4, 4))
+    with pytest.raises(ValueError, match="shared memory"):
+        hs.tiling(700, 700, 132)
+    held = [n for n in range(500, 700, 10) if hs.holds(n, n, 132)]
+    assert held and 512 < max(held) < 650 and held == list(range(500, max(held) + 1, 10))
+    assert max(held) <= hs.largest_square(132) < max(held) + 10
 
 
 def test_rdma_band_launch_config_at_config5():
