@@ -82,8 +82,10 @@ Phases, each printed on its own lines:
    100 subcycles and with a count that is not a multiple of the halo
    (transport_tiled also by 4-byte copies and in two blocks an SM, and on a
    1000 x 966 grid, whose rows take 4-byte copies); then
-   mevp_single against its plain version (256^2 spherical, N = 1 and 13),
-   K1's schedule (uniform consts, 256^2, N = 100) and mevp_tiled
+   mevp_single (tiles resident in shared memory, edges swapped with the
+   neighbours only) against its plain version (256^2 spherical, N = 1, 13
+   and 100; 256^2 uniform, 1024^2 and 1000 x 968 spherical, N = 100), K1's
+   schedule (256^2 uniform, 1024^2 and 1000 x 968 spherical) and mevp_tiled
    (spherical consts, 1024^2 and 1000 x 968), and the metric
    transport_tiled and dg1_rk_stage against their plain versions and each
    other at 1024^2 spherical with the coastline; then ho_single against its
@@ -94,7 +96,10 @@ Phases, each printed on its own lines:
    shared memory (1024^2, N = 13), and the qv form of transport_tiled
    against its plain version (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
    launch by launch against their plain versions, and the rdma round
-   against the blocked round;
+   against the blocked round; dg1_sample_cfl (a streaming max on resident
+   blocks) at every shape the paths launch it: 256^2, 1024^2 uniform and
+   spherical, 4096^2 and a rank's 2048^2 block widened by H = 8, its speeds
+   equal to the plain version's;
 5. slice: for each path, one step on the kernels against the plain path on
    the card (the spherical one on "pallas" and on "auto", and one step of
    the uniform coastline variant ``coupled_1m_mask``; both HO paths), then
@@ -220,11 +225,13 @@ PEAK_FP32 = 67e12
 # float32 operations per element of each body, counted from
 # csrc/mevp_body.cuh and csrc/dg1_body.cuh (a sqrt or a divide counts as
 # one): the stress half, the velocity half (uniform consts), the CFL
-# sampling, and one RK stage (velocity sampling + 3 tracers); and, counted
+# sampling, and one RK stage (velocity sampling + 3 tracers); the velocity
+# half with the metric consts (16 multiplies of the weighted stresses, 14
+# adds, for the uniform forces' 18 operations); and, counted
 # from csrc/ho_body.cuh as the kernels run them (dense tables), the HO
 # stress half per element and velocity half per node index.
 OPS = {
-    "stress": 80, "velocity": 42, "cfl": 92, "stage": 80 + 3 * 243,
+    "stress": 80, "velocity": 42, "velocity_metric": 54, "cfl": 92, "stage": 80 + 3 * 243,
     "ho_stress": 516, "ho_velocity": 398,
 }
 #: Planes one HO call moves: 17 state planes in, 29 consts in, 17 out.
@@ -497,10 +504,14 @@ def ptxas_report(text: str):
                 kernel += "<grid sync>" if args[0][1] == "1" else "<neighbours>"
             elif kernel == "ho_tiled_kernel" and args:  # the sub-window width, 0: any
                 kernel += f"<width {args[0][1]}>" if args[0][1] != "0" else "<any width>"
+            elif kernel == "dg1_sample_cfl_kernel":  # elements a lane
+                kernel += "<16-byte loads>" if args[0][1] == "4" else "<4-byte loads>"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
                 names = ["metric" if args[0][1] == "1" else "uniform"]
                 if kernel == "mevp_tiled_kernel":  # then the window width
                     names.append(f"width {args[1][1]}" if args[1][1] != "0" else "any width")
+                if kernel == "mevp_single_kernel":  # then the const planes in shared memory
+                    names.append(f"{args[1][1]} const planes in shared memory")
                 kernel += "<" + ", ".join(names) + ">"
         elif "spill" in line:
             spills = line.strip()
@@ -719,23 +730,36 @@ def check_tiled(device) -> dict:
     return results
 
 
+def launches_per_call(fn, kernel: str) -> int:
+    """The launches of ``kernel`` that one ``fn()`` makes."""
+    before = cc.launches[kernel]
+    fn()
+    return cc.launches[kernel] - before
+
+
 def check_single(device) -> dict:
     """Phase 3, third part: mevp_single against its plain version, K1's
-    schedule and mevp_tiled, and the metric transport kernels against their
-    plain versions and each other; then mevp_single per call at 256^2."""
+    schedule and mevp_tiled (256^2 uniform and spherical, 1024^2 spherical,
+    the ragged shape), and the metric transport kernels against their plain
+    versions and each other; then mevp_single per call at 256^2 uniform and
+    at the spherical path's 1024^2 beside mevp_tiled on the same carry."""
     errs = []
     model, carry, consts, _, _ = tiled_inputs(N, N, device, SEED + 2, spherical=True)
-    for n in (1, 13):
+    for n in (1, 13, N_SUBCYCLES):
         got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, n)
         ref = single.mevp_single_reference(model.mevp, carry, consts, DT, n)
+        tol = TOL_LAUNCH if n == 1 else TOL_STEP_MEVP
         for name, g, r in zip(VELOCITY, got, ref):
-            errs.append(compare(f"mevp_single {N}x{N} spherical N={n} {name}", g, r, TOL_LAUNCH))
+            errs.append(compare(f"mevp_single {N}x{N} spherical N={n} {name}", g, r, tol))
     uniform = tiled_inputs(N, N, device, SEED + 3)
     model, carry, consts, _, _ = uniform
     got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
     k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, N_SUBCYCLES)
-    for name, g, q in zip(VELOCITY, got, k1):
-        same_schedule(f"mevp_single {N}x{N} uniform N={N_SUBCYCLES} {name}", g, q)
+    ref = single.mevp_single_reference(model.mevp, carry, consts, DT, N_SUBCYCLES)
+    for name, g, q, r in zip(VELOCITY, got, k1, ref):
+        tag = f"mevp_single {N}x{N} uniform N={N_SUBCYCLES} {name}"
+        errs.append(compare(tag, g, r, TOL_STEP_MEVP))
+        same_schedule(tag, g, q)
     spherical = {
         shape: tiled_inputs(*shape, device, SEED + 4, spherical=True) for shape in ((N4, N4), RAGGED)
     }
@@ -743,10 +767,13 @@ def check_single(device) -> dict:
         got = single.mevp_subcycles_single(model.mevp, carry, consts, DT, N_SUBCYCLES)
         ref = single.mevp_single_reference(model.mevp, carry, consts, DT, N_SUBCYCLES)
         tiled = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, N_SUBCYCLES)
-        for name, g, r, w in zip(VELOCITY, got, ref, tiled):
+        k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, N_SUBCYCLES)
+        for name, g, r, w, q in zip(VELOCITY, got, ref, tiled, k1):
             tag = f"mevp_single {nx}x{ny} spherical N={N_SUBCYCLES} {name}"
             errs.append(compare(tag, g, r, TOL_STEP_MEVP))
             same_schedule(tag, g, w, "mevp_tiled")
+            same_schedule(tag, g, q)
+        del got, ref, tiled, k1
 
     # The metric transport kernels with the coastline, at 1024^2.
     model, carry, _, psi, faces = spherical[(N4, N4)]
@@ -780,21 +807,90 @@ def check_single(device) -> dict:
     )
     mean = {name: sum(r) / len(r) for name, r in runs.items()}
     n = N * N
-    work = (
-        (5 + 7 + 5) * 4 * n, N_SUBCYCLES * (OPS["stress"] + OPS["velocity"]) * n
-    )
+    work = ((5 + 7 + 5) * 4 * n, N_SUBCYCLES * (OPS["stress"] + OPS["velocity"]) * n)
     bound_ms, bound_by = bound(*work)
+    config = single.tiling(N, N, single.sm_count(device))
     log("time", (
         f"mevp_single: {mean['mevp_single']:.4f} ms per call of {N_SUBCYCLES} subcycles at "
-        f"{N}x{N} (runs {', '.join(f'{m:.4f}' for m in runs['mevp_single'])}), K1's schedule "
-        f"{mean['K1']:.4f}, plain {mean['plain']:.4f}, bound {bound_ms:.4f} ms "
-        f"({bound_by}); {single.max_blocks(False, device)} resident blocks"
+        f"{N}x{N} uniform (runs {', '.join(f'{m:.4f}' for m in runs['mevp_single'])}), K1's schedule "
+        f"{mean['K1']:.4f}, plain {mean['plain']:.4f}, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{config.n_tiles} tiles of {config.tile}"
     ))
+    DEVICE_PROBES[f"mevp_single {N}^2 uniform"] = (
+        lambda solver=solver, carry=carry, consts=consts:
+        single.mevp_subcycles_single(solver, carry, consts, DT, N_SUBCYCLES)
+    )
+
+    # Per call at the spherical path's shape, 1024^2 with the metric consts,
+    # beside mevp_tiled's 13 launches on the same carry: the kernels line's row.
+    model, carry, consts, _, _ = spherical[(N4, N4)]
+    solver = model.mevp
+    fns = {
+        "mevp_single": lambda: single.mevp_subcycles_single(solver, carry, consts, DT, N_SUBCYCLES),
+        "mevp_tiled": lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, N_SUBCYCLES),
+        "plain": lambda: single.mevp_single_reference(solver, carry, consts, DT, N_SUBCYCLES),
+    }
+    runs = time_in_turns(fns, {"mevp_single": 20, "mevp_tiled": 20, "plain": None})
+    mean = {name: sum(r) / len(r) for name, r in runs.items()}
+    n = N4 * N4
+    work = (
+        (5 + 12 + 5) * 4 * n, N_SUBCYCLES * (OPS["stress"] + OPS["velocity_metric"]) * n
+    )
+    bound_ms, bound_by = bound(*work)
+    config = single.tiling(N4, N4, single.sm_count(device))
+    log("time", (
+        f"mevp_single: {mean['mevp_single']:.4f} ms per call of {N_SUBCYCLES} subcycles at "
+        f"{N4}x{N4} spherical (runs {', '.join(f'{m:.4f}' for m in runs['mevp_single'])}), "
+        f"mevp_tiled {mean['mevp_tiled']:.4f} in {launches_per_call(fns['mevp_tiled'], 'mevp_tiled')} "
+        f"launches (runs {', '.join(f'{m:.4f}' for m in runs['mevp_tiled'])}), plain "
+        f"{mean['plain']:.4f}, bound {bound_ms:.4f} ms ({bound_by}); {config.n_tiles} tiles of "
+        f"{config.tile}, {config.threads} threads, const planes in shared memory "
+        f"{config.resident(True)}"
+    ))
+    DEVICE_PROBES[f"mevp_single {N4}^2 spherical"] = fns["mevp_single"]
+    DEVICE_PROBES[f"mevp_tiled {N4}^2 spherical, {N_SUBCYCLES} subcycles"] = fns["mevp_tiled"]
     return {
         "mevp_single": Row(max(errs), mean["mevp_single"], mean["plain"], *work),
         "transport_metric": max(transport_errs),
         "dg1_rk_stage_metric": stage_err,
     }
+
+
+def check_cfl(device) -> float:
+    """Phase 3, fifth part: dg1_sample_cfl at every shape the paths launch
+    it (256^2 in check_kernels): config 4's and the spherical path's 1024^2,
+    config 5's single-device 4096^2, and a 2x2 rank's 2048^2 block widened
+    by the spmd transport's H = 8 (its halo form); speeds equal to the plain
+    version's, with nothing zeroed before, then per call against its plain
+    version and its bound (u and v read once)."""
+    err = 0.0
+    cases = (
+        ("uniform", N4, 0, False), ("spherical", N4, 0, True), ("uniform", N16, 0, False),
+        ("rank block", N16 // 2, 8, False),
+    )
+    for tag, n, halo, sphere in cases:
+        rng = np.random.default_rng(SEED + 14 + n + halo)
+        mesh = spherical_mesh(n) if sphere else RectMesh(n, n, 4e3, 4e3)
+        transport = CoupledModel(mesh).transport
+        shape = (n + 2 * halo, n + 2 * halo)
+        u, v = (torch.tensor(rng.normal(0.0, 0.3, shape), device=device, dtype=torch.float32) for _ in range(2))
+        speeds = torch.full((2,), float("nan"), device=device)
+        tables, stream = cc._dg1_tables(transport), cc._stream(device)
+        call = lambda u=u, v=v, speeds=speeds, tables=tables, halo=halo: cc._dg1_sample_cfl_(
+            u, v, speeds, tables, stream, halo=halo)
+        call()
+        ref = cc.dg1_sample_cfl_reference(transport, u, v, halo=halo)
+        label = f"dg1_sample_cfl {n}x{n} {tag}" + (f", halo {halo} ({shape[0]}^2 widened)" if halo else "")
+        err = max(err, compare(f"{label} speeds", speeds, ref, 0.0))
+        ms_ = time_ms(call, 50)
+        plain_ms = time_ms(lambda: cc.dg1_sample_cfl_reference(transport, u, v, halo=halo), 3)
+        work = (2 * 4 * (n + 1) ** 2 + 8, OPS["cfl"] * n * n)
+        log("time", (
+            f"{label}: kernel {ms_:.5f} ms back to back, plain {plain_ms:.4f} ms, bound "
+            f"{bound(*work)[0]:.5f} ms ({bound(*work)[1]}) per call"
+        ))
+        DEVICE_PROBES[f"dg1_sample_cfl {n}^2 {tag}" + (f" halo {halo}" if halo else "")] = call
+    return err
 
 
 def ho_model(device, n: int = N4, **backends):
@@ -1716,10 +1812,16 @@ def main() -> int:
     log("build", f"{path.name} ready in {time.perf_counter() - t0:.2f} s")
     for line in ptxas_report(path.with_suffix(".log").read_text()):
         log("build", line)
-    log("build", (
-        f"mevp_single: {single.max_blocks(False, device)} resident blocks (uniform), "
-        f"{single.max_blocks(True, device)} (metric), of 256 threads"
-    ))
+    sms = single.sm_count(device)
+    for (nx, ny), metric in (((N, N), False), ((N4, N4), True), (RAGGED, True)):
+        config = single.tiling(nx, ny, sms)
+        log("build", (
+            f"mevp_single at {nx}x{ny} ({'metric' if metric else 'uniform'} consts): "
+            f"{config.tiles[0]}x{config.tiles[1]} tiles of {config.tile}, {config.threads} threads, "
+            f"{config.shared_bytes(metric)} B shared, const planes in shared memory "
+            f"{config.resident(metric)}; {single.max_blocks(device, config, metric)} blocks resident "
+            f"at once; holds grids up to {single.largest_square(sms)}^2"
+        ))
     for size, config in (("large uniform", mt.LARGE), ("other", mt.SMALL)):
         log("build", (
             f"mevp_tiled {size} grids: tile, halo, threads {config}, c_w and inv_drag in registers, "
@@ -1753,6 +1855,8 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     kernels.update(phase(check_tiled, device))
     extra = phase(check_single, device)
     kernels["mevp_single"] = extra["mevp_single"]
+    cfl_err = phase(check_cfl, device)
+    kernels["dg1_sample_cfl"] = replace(kernels["dg1_sample_cfl"], err=max(kernels["dg1_sample_cfl"].err, cfl_err))
     extra_ho = phase(check_ho, device)
     kernels["ho_single"], kernels["ho_tiled"] = extra_ho["ho_single"], extra_ho["ho_tiled"]
     extra["transport_metric"] = max(extra["transport_metric"], extra_ho["transport_qv"])
@@ -1773,8 +1877,10 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     # row's ms stays the back-to-back time per call; the device durations
     # are logged beside it.
     for probe, fn in {**DEVICE_PROBES, **probes}.items():
-        ms = device_ms(fn, probe.split()[0])
-        log("time", f"{probe} device duration {ms:.5f} ms (torch.profiler)")
+        kernel = probe.split()[0]
+        ms, per_call = device_ms(fn, kernel), launches_per_call(fn, kernel)
+        calls = f", {ms * per_call:.5f} ms per call of {per_call} launches" if per_call > 1 else ""
+        log("time", f"{probe} device duration {ms:.5f} ms{calls} (torch.profiler)")
         if probe == "rdma_band axis 0":
             log("time", f"rdma_band: back to back {kernels['rdma_band'].ms:.5f} ms per call, device {ms:.5f} ms")
 

@@ -9,7 +9,7 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --barriers    # a barrier's cost
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --phases=transport_tiled  # load/store against compute
-    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --kernel-times  # transport_tiled, ho_single per call
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --kernel-times  # the single-launch kernels, transport_tiled, dg1_sample_cfl per call
 
 ``--thresholds``: K1's schedule against the tiled one on the dynamics step
 at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
@@ -25,16 +25,21 @@ with the window's redundancy and the clusters the card holds at once) at 512^2, 
 segment, threads) on the x and y bands of config 5's 2048^2 rank blocks
 at h = 16; then those of ``transport_tiled`` (tile, threads, window
 buffers, copy form, persistent blocks or a block per tile) at 1024^2 and
-4096^2. ``--tiles=mevp_tiled``, ``--tiles=ho_tiled``, ``--tiles=rdma_band``
-and ``--tiles=transport_tiled`` run one part only. ``--barriers``: what one barrier between two phases
+4096^2; of ``mevp_single`` (which const plane stays in shared memory, and
+tile shapes) at 1024^2 spherical. ``--tiles=mevp_tiled``, ``--tiles=ho_tiled``,
+``--tiles=rdma_band``, ``--tiles=transport_tiled`` and ``--tiles=mevp_single``
+run one part only. ``--barriers``: what one barrier between two phases
 costs in ho_tiled's and rdma_band's cluster shapes, and ho_single's edge
 exchange over its 256^2 tiles, by grid.sync() and by the neighbours' edge
 words. ``--phases=transport_tiled``: a launch that only loads and stores
 each window against a full one, for the block-per-tile launch of one
 buffer (load, stages, store in turn) and the shipped persistent, double-buffered
-one. ``--kernel-times``: ``transport_tiled`` at 1024^2 and 4096^2 and
-``ho_single`` at 256^2 and 512^2 per call, as the host launches them
-(``kernel_times``, which also times an earlier checkout's kernels). Each
+one. ``--kernel-times``: ``transport_tiled`` at 1024^2 and 4096^2,
+``ho_single`` at 256^2 and 512^2, ``mevp_single`` at 256^2 uniform and
+512^2 and 1024^2 spherical, ``mevp_tiled`` on the same 1024^2 spherical
+carry, and ``dg1_sample_cfl`` at every shape the paths launch it, per call,
+as the host launches them (``kernel_times``, which also times an earlier
+checkout's kernels). Each
 line names the card and its power limit. Times are CUDA-event ms, the
 pairs in turns (a b b a); the rdma_band and transport_tiled sweeps, the
 phases and the kernel times also give the kernel's device time (the
@@ -46,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -491,17 +497,46 @@ def transport_inputs(n: int, device, seed: int = 0):
     return model.transport, psi, u, v
 
 
-def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100) -> dict:
-    """ms per call of the launch the host picks for ``transport_tiled`` (one
-    rk2 substep on ``transport_inputs`` at each of ``transport_sizes``) and
+#: mevp_single's shapes (n, spherical): the headline's 256^2 uniform, the
+#: "auto" threshold's 512^2 and the spherical path's 1024^2.
+SINGLE_SIZES = ((256, False), (512, True), (1024, True))
+#: dg1_sample_cfl's shapes (n, halo, spherical): the headline's 256^2,
+#: config 4's and the spherical path's 1024^2, config 5's single-device
+#: 4096^2, and a 2 x 2 rank's 2048^2 block widened by the spmd transport's
+#: H = 8.
+CFL_SHAPES = ((256, 0, False), (1024, 0, False), (1024, 0, True), (4096, 0, False), (2048, 8, False))
+
+
+def cfl_inputs(n: int, halo: int, spherical: bool, device, seed: int = 0):
+    """(transport, u, v): config 4's mesh at n^2 (or the spherical window)
+    and a seeded velocity, widened by ``halo`` on every side."""
+    rng = np.random.default_rng(seed)
+    mesh = _mesh(n, True) if spherical else RectMesh(n, n, 4e3, 4e3)
+    shape = (n + 2 * halo, n + 2 * halo)
+    u, v = (torch.tensor(rng.normal(0.0, 0.3, shape), device=device, dtype=torch.float32) for _ in range(2))
+    return CoupledModel(mesh).transport, u, v
+
+
+def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100,
+                 single_sizes=SINGLE_SIZES, tiled_sizes=((1024, True),), cfl_shapes=CFL_SHAPES,
+                 stage_sizes=(256,)) -> dict:
+    """ms per call of the launches the host picks for ``transport_tiled``
+    (one rk2 substep on ``transport_inputs`` at each of ``transport_sizes``),
     ``ho_single`` (``n_sub`` HO subcycles on ``seeded_ho_phase`` at each of
-    ``ho_sizes``): the kernel's device duration (profiler, mean of 20) and
-    the call back to back (CUDA events, best of 5); printed, and returned
-    by (kernel, n) as (device, back to back). It calls the two wrappers by
-    the signatures they have had since they were ported and nothing newer
-    at import, so this file copied into an earlier checkout times that
-    checkout's kernels on the same inputs (PERF.md). On the CPU (the tests)
-    the plain versions run once each."""
+    ``ho_sizes``), ``mevp_single`` and ``mevp_tiled`` (``n_sub`` subcycles on
+    ``seeded_phase`` at each (n, spherical) of ``single_sizes`` and
+    ``tiled_sizes``), ``dg1_sample_cfl`` (at each (n, halo, spherical)
+    of ``cfl_shapes``) and ``dg1_rk_stage`` (one rk2 stage, a = b = 0.5, on
+    ``transport_inputs`` at each of ``stage_sizes``): the kernel's device
+    duration per call (profiler,
+    mean of 20 calls; a launch's mean times the launches of a call) and the
+    call back to back (CUDA events, best of 5); printed, and returned by
+    (kernel, n) (dg1_sample_cfl: (kernel, (n, halo, spherical))) as
+    (device, back to back). It calls the wrappers by the signatures they
+    have had since they were ported and nothing newer at import, so this
+    file copied into an earlier checkout times that checkout's kernels on
+    the same inputs (PERF.md). On the CPU (the tests) the plain versions
+    run once each."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     where = card(device)["nvidia_smi"] if on_card else "cpu"
@@ -514,15 +549,92 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
         solver, carry, consts = seeded_ho_phase(n, device)
         cases.append(("ho_single", n, f"{n_sub} HO subcycles", lambda s=solver, c=carry, k=consts: (
             ho_single_cuda.ho_subcycles_single(s, c, k, DT, n_sub))))
+    for kernel, run, sizes in (
+        ("mevp_single", mevp_single_cuda.mevp_subcycles_single, single_sizes),
+        ("mevp_tiled", mevp_tiled_cuda.mevp_subcycles_tiled, tiled_sizes),
+    ):
+        for n, spherical in sizes:
+            solver, carry, consts = seeded_phase(n, spherical, device)
+            what = f"{n_sub} subcycles, {'spherical' if spherical else 'uniform'}"
+            cases.append((kernel, n, what, lambda r=run, s=solver, c=carry, k=consts: r(s, c, k, DT, n_sub)))
+    for n, halo, spherical in cfl_shapes:
+        transport, u, v = cfl_inputs(n, halo, spherical, device)
+        what = f"{'spherical' if spherical else 'uniform'}" + (f", halo {halo}" if halo else "")
+        if on_card:
+            speeds, tables, stream = torch.zeros(2, device=device), cc._dg1_tables(transport), cc._stream(device)
+            fn = lambda u=u, v=v, s=speeds, t=tables, h=halo: cc._dg1_sample_cfl_(u, v, s, t, stream, halo=h)
+        else:
+            fn = lambda t=transport, u=u, v=v, h=halo: cc.dg1_sample_cfl_reference(t, u, v, halo=h)
+        cases.append(("dg1_sample_cfl", (n, halo, spherical), what, fn))
+    for n in stage_sizes:
+        transport, psi, u, v = transport_inputs(n, device)
+        ones = torch.ones_like(u)
+        args = (transport, psi, psi.flip(-1).contiguous(), u, v, ones, ones, 0.5, 0.5, DT)
+        if on_card:
+            out_psi, tables, stream = torch.empty_like(psi), cc._dg1_tables(transport), cc._stream(device)
+            fn = lambda a=args, o=out_psi, t=tables: cc._dg1_rk_stage_(*a[1:7], None, o, *a[7:], t, stream)
+        else:
+            fn = lambda a=args: cc.dg1_rk_stage_reference(*a)
+        cases.append(("dg1_rk_stage", n, "one stage of 3 tracers", fn))
     out = {}
     for kernel, n, what, fn in cases:
         if on_card:
-            ms, dev = best_ms(fn), device_ms(fn, kernel)
+            before = cc.launches[kernel]
+            ms = best_ms(fn)
+            per_call = (cc.launches[kernel] - before) // 6  # best_ms: a warm-up and 5 timed calls
+            dev = device_ms(fn, kernel) * per_call
         else:
             ms = dev = _seconds(fn) * 1e3
         out[(kernel, n)] = (dev, ms)
-        print(f"{kernel} {n}x{n}: device {dev:.5f} ms, back to back {ms:.5f} ms per call of {what} on {where}",
+        size = f"{n[0]}x{n[0]}" if isinstance(n, tuple) else f"{n}x{n}"
+        print(f"{kernel} {size}: device {dev:.5f} ms, back to back {ms:.5f} ms per call of {what} on {where}",
               flush=True)
+    return out
+
+
+#: mevp_single's sweep, (n, const planes in shared memory, tile); None:
+#: the host's. At the spherical path's 1024^2 one plane fits beside the
+#: state: it, or none; two other tiles of 8192 cells. At 512^2 all 12 fit:
+#: all, two, none.
+SINGLE_SWEEP = (
+    (1024, None, None), (1024, 0, None), (1024, None, (128, 64)), (1024, None, (32, 256)),
+    (512, None, None), (512, 2, None), (512, 0, None),
+)
+
+
+def sweep_mevp_single(device, cases=SINGLE_SWEEP, n_sub: int = 100) -> dict:
+    """Device ms per call of ``n_sub`` spherical subcycles of ``mevp_single``
+    (profiler, mean of 20) for each (n, room, tile) of ``cases``: ``room``
+    const planes in shared memory, ``tile`` forced (None: the host's);
+    printed, and returned by case. The wrapper runs each case through a
+    patched ``tiling``, restored after. On the CPU (the tests) the plain
+    version runs once."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    where = card(device)["nvidia_smi"] if on_card else "cpu"
+    sms = mevp_single_cuda.sm_count(device) if on_card else 132
+    tiling = mevp_single_cuda.tiling
+    inputs, out = {}, {}
+    for case in cases:
+        n, room, tile = case
+        if n not in inputs:
+            inputs[n] = seeded_phase(n, True, device)
+        solver, carry, consts = inputs[n]
+        config = tiling(n, n, sms, tile)
+        if room is not None:
+            config = replace(config, room=room)
+        mevp_single_cuda.tiling = lambda *args, config=config: config
+        try:
+            fn = lambda: mevp_single_cuda.mevp_subcycles_single(solver, carry, consts, DT, n_sub)
+            ms = device_ms(fn, "mevp_single") if on_card else _seconds(fn) * 1e3
+        finally:
+            mevp_single_cuda.tiling = tiling
+        out[case] = ms
+        print(
+            f"mevp_single {n}x{n} spherical, {config.n_tiles} tiles of {config.tile}, {config.threads} "
+            f"threads, const planes in shared memory {config.resident(True)}: device {ms:.5f} ms per "
+            f"call of {n_sub} subcycles on {where}", flush=True,
+        )
     return out
 
 
@@ -627,6 +739,8 @@ def main(argv=None) -> int:
         phases_transport_tiled(device)
     if "--kernel-times" in argv:
         kernel_times(device)
+    if "--tiles" in argv or "--tiles=mevp_single" in argv:
+        sweep_mevp_single(device)
     sizes = [int(a) for a in argv if not a.startswith("--")]
     if sizes or not any(a.startswith("--") for a in argv):
         for n in sizes or [1024, 2048, 4096]:

@@ -71,15 +71,16 @@ TRANSPORT_BACKENDS = ("auto", "xla", "tiled")
 TILED_MIN_ELEMENTS = 64 * 64
 #: Element count from which ``"auto"`` runs mevp_tiled instead of the
 #: single-launch mevp_single on a graded or spherical mesh. Derived on the
-#: H100 from chip_smoke.py's timings of the two on spherical meshes with a
-#: coastline: mevp_single was faster at 128^2 and 256^2 (its mEVP phase
-#: 2.4-2.9x, the dynamics step 1.5x: one launch instead of 13, and
-#: mevp_tiled's 64^2 tiles fill few SMs there); at 512^2 the two tied
-#: within the run-to-run spread; at 1024^2 mevp_tiled was 2x faster
-#: (mevp_single's ~120 bytes per element and subcycle stream from HBM once
-#: the planes outgrow the 50 MB L2). So the tie goes to mevp_tiled. See
-#: PERF.md.
-SINGLE_MAX_ELEMENTS = 512 * 512
+#: H100 from ``benchmarks.mevp_large --thresholds``, run in turns with the
+#: single-launch kernel it replaced (parent, new, new, parent): with its tiles
+#: resident in shared memory mevp_single ran the spherical dynamics step
+#: (100 subcycles) faster than mevp_tiled at every size swept, 128^2 to
+#: 1024^2 (512^2: 1.95, 1.90 against 2.45, 2.31 ms; 1024^2: 3.91, 3.84
+#: against 4.24, 4.01 ms), where the kernel it replaced tied at 512^2 and
+#: lost 2x at 1024^2. 1024^2 is the largest square grid it holds on the
+#: H100's 132 SMs (``mevp_single_cuda.largest_square``), so "auto" takes it
+#: up to there. See PERF.md.
+SINGLE_MAX_ELEMENTS = 1024 * 1024 + 1
 
 
 @dataclass(frozen=True)

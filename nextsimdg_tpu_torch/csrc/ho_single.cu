@@ -19,42 +19,13 @@
 //       (ho_velocity_update), out of shared memory;
 //   it writes its 17 planes back once, at the end.
 //
-// Between the halves only the tile's edge crosses to another SM. The stress
-// half at element (i, j) reads the velocity at node indices i..i+1,
-// j..j+1 (ho_gather), so the velocity of a tile's first row and column is
-// read by the tiles before it along i, along j and diagonally; the velocity
-// half at node index (i, j) reads the stresses of elements i-1..i, j-1..j
-// (ho_node_forces), so a tile's last row and column of stresses is read by
-// the tiles after it. The thread that computes an edge cell writes it at
-// once to the tile's slot of a global exchange buffer, each value in one
-// 64-bit word with the number of the half beside it (a relaxed store: the
-// word is written whole or not at all). After its half a thread copies its
-// share of the apron from the neighbours' slots, each word polled until it
-// carries the half's number, and one block barrier ends the half. So a
-// block waits on exactly the values it reads, from its three neighbours
-// only, and pays no fence, no flag and no barrier over the grid: one trip
-// through L2 per half. (The host zeroes the buffer before each launch; the
-// halves are numbered from 1.) Swapping after grid.sync() instead took
-// 2.5x as long an exchange and a launch 34% longer at 256^2
-// (ho_single_sync_kernel, benchmarks.mevp_large --barriers; PERF.md).
-//
-// A value needs no fence: it travels in the same word as its half number,
-// and a poll takes only the word of the half it waits for. Reusing a slot
-// needs none either. A slot is written again only after its readers have
-// copied it: a tile writes its stress edge of subcycle s + 1 after it has
-// read the velocity edge of subcycle s of the tiles that read its stresses,
-// which they write after they have read them; likewise for the velocity
-// edge. Each link of that chain is a store that follows, in program order
-// and after a block barrier, a poll loop that has exited. So a reader could
-// see the next half's word in its slot only if a store became visible
-// before the loads that its execution depends on had returned: the load
-// buffering that the PTX ISA's memory consistency model rules out by its
-// "No Thin Air" axiom (section "Memory Consistency Model", "Axioms"; the
-// poll loop is a control dependency from the load to every later store).
-// Should that ever fail, a reader would spin, never read a wrong value. In
-// place on the state is safe for the same reason: the tiles that load a
-// tile's first row and column into their apron at the start read its
-// stress edge of the first subcycle before it writes anything back.
+// Between the halves only the tile's edge crosses to another SM, through
+// words that carry the number of the half that wrote them, polled by the
+// three neighbours that read them (tile_exchange.cuh, shared with
+// mevp_single.cu; its notes say why no fence is needed). Swapping
+// after grid.sync() instead took 2.5x as long an exchange and a launch 34%
+// longer at 256^2 (ho_single_sync_kernel, benchmarks.mevp_large --barriers;
+// PERF.md).
 //
 // Each element and node index runs the bodies of ho_body.cuh, as ho_tiled.cu
 // does, with the same --fmad=false, so the two schedules agree bit for bit.
@@ -65,11 +36,11 @@
 // exchange, twice a subcycle. The state never leaves the SMs during the
 // launch: HBM sees the 17 state planes and the 29 consts once.
 #include <cooperative_groups.h>
-#include <cuda/atomic>
 
 #include <cstring>
 
 #include "ho_body.cuh"
+#include "tile_exchange.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -88,95 +59,11 @@ struct HoSingleArgs {
   HoTables t;
 };
 
-// Where a block sits in the tile grid, and its three neighbours after it
-// (dir = 1: +i, +j, +i+j) or before it (dir = -1).
-struct HoTile {
-  int ti, tj, tiles_i, tiles_j;
-  __device__ __forceinline__ int neighbour(int n, int dir) const {
-    const int di = n == 1 ? 0 : dir, dj = n == 0 ? 0 : dir;
-    const int i = ti + di, j = tj + dj;
-    return i >= 0 && i < tiles_i && j >= 0 && j < tiles_j ? i * tiles_j + j : -1;
-  }
-};
-
-__device__ __forceinline__ HoTile ho_tile(int tiles_j) {
-  const int b = static_cast<int>(blockIdx.x);
-  return {b / tiles_j, b % tiles_j, static_cast<int>(gridDim.x) / tiles_j, tiles_j};
-}
-
-// The exchange: edge cell e of plane p of a tile's slot, as one 64-bit word
-// of the value and the number of the half (1, 2, ...) that wrote it.
-__device__ __forceinline__ void ho_publish(unsigned long long* slot, int edge, int p, int e,
-                                           float value, int half) {
-  const unsigned long long word =
-      static_cast<unsigned long long>(static_cast<unsigned>(half)) << 32 | __float_as_uint(value);
-  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(slot[p * edge + e])
-      .store(word, cuda::memory_order_relaxed);
-}
-
-// The value of that word once the half `half` has written it.
-__device__ __forceinline__ float ho_take(unsigned long long* slot, int edge, int p, int e,
-                                         int half) {
-  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> word(slot[p * edge + e]);
-  unsigned long long w;
-  do {
-    w = word.load(cuda::memory_order_relaxed);
-  } while (static_cast<int>(w >> 32) != half);
-  return __uint_as_float(static_cast<unsigned>(w));
-}
-
-// A block's view of its tile: TR x TC cells from (i0, j0), at cell(r, c) of
-// each shared plane for r in [-1, TR], c in [-1, TC] (the tile and its
-// apron), and the exchange slots.
-struct HoTileView {
-  HoTile tile;
-  int tr, tc, i0, j0, nx, ny, pitch, edge;
-  unsigned long long* exchange;
-  __device__ __forceinline__ int cell(int r, int c) const { return (r + 1) * pitch + (c + 1); }
-  __device__ __forceinline__ unsigned long long* slot(int b) const {
-    return exchange + static_cast<long>(b) * kHoStatePlanes * edge;
-  }
-  __device__ __forceinline__ bool inside(int r, int c) const {
-    const int i = i0 + r, j = j0 + c;
-    return i >= 0 && i < nx && j >= 0 && j < ny;
-  }
-  // Publish planes [p0, p1) of cell (r, c), values[p - p0], for the half:
-  // on the last row (dir 1, the stress half) or the first (dir -1, the
-  // velocity half) at e = c, on the last or first column at e = TC + r.
-  __device__ __forceinline__ void publish(int r, int c, int dir, int p0, int p1,
-                                          const float* values, int half) const {
-    const int line_r = dir > 0 ? tr - 1 : 0, line_c = dir > 0 ? tc - 1 : 0;
-    unsigned long long* mine = slot(static_cast<int>(blockIdx.x));
-#pragma unroll
-    for (int p = p0; p < p1; ++p) {
-      if (r == line_r) ho_publish(mine, edge, p, c, values[p - p0], half);
-      if (c == line_c) ho_publish(mine, edge, p, tc + r, values[p - p0], half);
-    }
-  }
-  // Word x of the half's apron copy: plane p0 + x / (TR + TC + 1) at apron
-  // cell k = x % (TR + TC + 1) (k < TC: along the apron row, k < TR + TC:
-  // down the apron column, TR + TC: the corner), from the neighbour that
-  // wrote it: dir -1, the stresses of the tiles before (row and column -1);
-  // dir 1, the velocities of the tiles after (row TR, column TC). Cells
-  // beyond the domain stay zero; nobody writes them. One word a thread, so
-  // that a block's polls are in flight together.
-  __device__ __forceinline__ void take(float* smem, int plane, int x, int dir, int p0,
-                                       int half) const {
-    const int p = p0 + x / (edge + 1), k = x % (edge + 1);
-    const int n = k < tc ? 0 : k < edge ? 1 : 2;
-    const int r = k < tc ? (dir < 0 ? -1 : tr) : k < edge ? k - tc : (dir < 0 ? -1 : tr);
-    const int c = k < tc ? k : k < edge ? (dir < 0 ? -1 : tc) : (dir < 0 ? -1 : tc);
-    if (!inside(r, c)) return;
-    const int from = k < edge ? k : (dir < 0 ? tc - 1 : 0);
-    smem[p * plane + cell(r, c)] = ho_take(slot(tile.neighbour(n, dir)), edge, p, from, half);
-  }
-};
-
 template <bool kConstsShared>
 __global__ void __launch_bounds__(kHoSingleMaxThreads, 1) ho_single_kernel(HoSingleArgs a) {
   extern __shared__ float smem[];
-  HoTileView t;
-  t.tile = ho_tile(a.tiles_j);
+  TileView<kHoStatePlanes> t;
+  t.tile = tile_of_block(a.tiles_j);
   t.tr = a.tile_r;
   t.tc = a.tile_c;
   t.i0 = t.tile.ti * t.tr;
@@ -314,8 +201,8 @@ __global__ void __launch_bounds__(kHoSingleMaxThreads, 1)
 ho_single_sync_kernel(unsigned long long* exchange, int tile_r, int tile_c, int tiles_j,
                       int n_barriers) {
   extern __shared__ float smem[];
-  HoTileView t;
-  t.tile = ho_tile(tiles_j);
+  TileView<kHoStatePlanes> t;
+  t.tile = tile_of_block(tiles_j);
   t.tr = tile_r;
   t.tc = tile_c;
   t.i0 = t.tile.ti * t.tr;
@@ -351,20 +238,6 @@ int ho_single_state_bytes(int tile_r, int tile_c) {
   return kHoStatePlanes * (tile_r + 2) * (tile_c + 2) * static_cast<int>(sizeof(float));
 }
 
-// One cooperative launch of `kernel` over `blocks` blocks of `threads`
-// threads with `bytes` of dynamic shared memory; the error of the launch or
-// of its attribute (a grid that cannot be resident is refused).
-cudaError_t ho_single_launch(const void* kernel, int blocks, int threads, int bytes, void** args,
-                             cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) {
-    err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(threads), args, bytes, stream);
-  }
-  const cudaError_t last = cudaGetLastError();  // clears a refused launch's error
-  return err != cudaSuccess ? err : last;
-}
-
 }  // namespace nst
 
 extern "C" {
@@ -386,21 +259,8 @@ int nst_ho_single_shared_bytes(int tile_r, int tile_c, int consts_shared) {
 // once on `device`: the most tiles a launch takes. Minus a CUDA error code
 // where the runtime refuses.
 int nst_ho_single_max_blocks(int consts_shared, int threads, int bytes, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  const auto kernel = reinterpret_cast<const void*>(nst::ho_single_of(consts_shared));
-  int per_sm = 0, sms = 0;
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
-  }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return -static_cast<int>(err);
-  }
-  return per_sm * sms;
+  return nst::cooperative_max_blocks(reinterpret_cast<const void*>(nst::ho_single_of(consts_shared)),
+                                     threads, bytes, device);
 }
 
 // n_sub >= 1 subcycles in place on the (17, nx, ny) state, in one
@@ -438,7 +298,7 @@ int nst_ho_single(float* state, const void* const* consts, unsigned long long* e
   a.tiles_j = tiles_j;
   void* args[] = {&a};
   const auto kernel = reinterpret_cast<const void*>(nst::ho_single_of(consts_shared));
-  return static_cast<int>(nst::ho_single_launch(
+  return static_cast<int>(nst::cooperative_launch(
       kernel, tiles_i * tiles_j, threads, nst_ho_single_shared_bytes(tile_r, tile_c, consts_shared),
       args, static_cast<cudaStream_t>(stream)));
 }
@@ -461,7 +321,7 @@ int nst_ho_single_syncs(unsigned long long* exchange, int tile_r, int tile_c, in
   void* args[] = {&exchange, &tile_r, &tile_c, &tiles_j, &n_barriers};
   const auto kernel = grid_sync ? reinterpret_cast<const void*>(nst::ho_single_sync_kernel<true>)
                                 : reinterpret_cast<const void*>(nst::ho_single_sync_kernel<false>);
-  return static_cast<int>(nst::ho_single_launch(kernel, tiles_i * tiles_j, threads, bytes, args,
+  return static_cast<int>(nst::cooperative_launch(kernel, tiles_i * tiles_j, threads, bytes, args,
                                                 static_cast<cudaStream_t>(stream)));
 }
 

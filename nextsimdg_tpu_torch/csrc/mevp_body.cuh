@@ -3,7 +3,7 @@
 // The three schedules of the mEVP phase call these bodies: mevp.cu (two
 // grid-wide launches per subcycle), mevp_tiled.cu (H subcycles per launch
 // on a shared-memory window) and mevp_single.cu (all N subcycles in one
-// cooperative launch). With --fmad=false they run the same float32
+// cooperative launch, on tiles resident in shared memory). With --fmad=false they run the same float32
 // operations in the same order, so the schedules agree bit for bit.
 // The expression order is that of MEVPSolver.stress_update and
 // MEVPSolver.velocity_update in nextsimdg_tpu_torch/dynamics/mevp.py. On a
@@ -58,6 +58,28 @@ struct MevpConsts {
   const float* inv_w;    // per node: 1 / (the node's lumped area)
 };
 constexpr int kMevpConstPlanes = 12;
+// The planes by number, in that order.
+constexpr int kStrength = 0, kDtM = 1, kActive = 2, kBu = 3, kBv = 4, kUo = 5, kVo = 6,
+              kInvDx = 7, kInvDy = 8, kHalfDx = 9, kHalfDy = 10, kInvW = 11;
+
+// Const plane p of MevpConsts, read from the kernel's parameters where it is
+// used (p is a constant at every call, so the switch folds away).
+__device__ __forceinline__ const float* mevp_const_plane(const MevpConsts& k, int p) {
+  switch (p) {
+    case kStrength: return k.strength;
+    case kDtM: return k.dt_m;
+    case kActive: return k.active;
+    case kBu: return k.b_u;
+    case kBv: return k.b_v;
+    case kUo: return k.u_ocean;
+    case kVo: return k.v_ocean;
+    case kInvDx: return k.inv_dx;
+    case kInvDy: return k.inv_dy;
+    case kHalfDx: return k.half_dx;
+    case kHalfDy: return k.half_dy;
+    default: return k.inv_w;
+  }
+}
 
 // Element (i, j): velocities at its corner nodes (i, j), (i+1, j), (i, j+1),
 // (i+1, j+1), its stresses and its inverse widths in; the alpha-relaxed
@@ -202,6 +224,18 @@ __device__ __forceinline__ Around weighted(const float* f, const float* w, int i
   return {f[i * ny + j] * __ldg(w + i * ny + j), at(f, i - 1, j, nx, ny) * ldg_at(w, i - 1, j, nx, ny),
           at(f, i, j - 1, nx, ny) * ldg_at(w, i, j - 1, nx, ny),
           at(f, i - 1, j - 1, nx, ny) * ldg_at(w, i - 1, j - 1, nx, ny)};
+}
+
+// The stresses s around node (i, j) of the domain, at index c of a
+// shared-memory window whose rows are w wide (the stresses of the elements
+// before it at c - w, c - 1 and c - w - 1), times the metric plane f of
+// their own element, read through the read-only path; 0 beyond the domain.
+__device__ __forceinline__ Around weighted_tile(const float* s, const float* f, int c, int w,
+                                               int ij, int i, int j, int nx, int ny) {
+  const bool up = i > 0, left = j > 0;
+  return {s[c] * __ldg(f + ij), s[c - w] * (up ? __ldg(f + ij - ny) : 0.0f),
+          s[c - 1] * (left ? __ldg(f + ij - 1) : 0.0f),
+          s[c - w - 1] * (up && left ? __ldg(f + ij - ny - 1) : 0.0f)};
 }
 
 // The velocity half of a subcycle at node (i, j), from and into global

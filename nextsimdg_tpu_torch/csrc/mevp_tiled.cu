@@ -77,31 +77,6 @@ constexpr int kTiledMaxThreads = 1024;  // the block size is a launch parameter
 constexpr int kTiledStatePlanes = 5;    // u, v, s11, s22, s12
 constexpr int kTiledMaxCells = 8;       // window rows a thread owns, at most
 
-// Uniform const plane p of MevpConsts (strength, dt_m, active, b_u, b_v,
-// u_ocean, v_ocean), read from the kernel's parameters where it is used.
-__device__ __forceinline__ const float* uniform_plane(const MevpConsts& k, int p) {
-  switch (p) {
-    case 0: return k.strength;
-    case 1: return k.dt_m;
-    case 2: return k.active;
-    case 3: return k.b_u;
-    case 4: return k.b_v;
-    case 5: return k.u_ocean;
-    default: return k.v_ocean;
-  }
-}
-constexpr int kStrength = 0, kDtM = 1, kActive = 2, kBu = 3, kBv = 4, kUo = 5, kVo = 6;
-
-// The stresses s around node (window index c, row width w; domain (i, j))
-// times the metric plane f of their own element, 0 beyond the domain.
-__device__ __forceinline__ Around weighted_tile(const float* s, const float* f, int c, int w,
-                                               int ij, int i, int j, int nx, int ny) {
-  const bool up = i > 0, left = j > 0;
-  return {s[c] * __ldg(f + ij), s[c - w] * (up ? __ldg(f + ij - ny) : 0.0f),
-          s[c - 1] * (left ? __ldg(f + ij - 1) : 0.0f),
-          s[c - w - 1] * (up && left ? __ldg(f + ij - ny - 1) : 0.0f)};
-}
-
 // kW: the window width where it is known at compile time (shared-memory
 // offsets become immediates), 0 where it is read from tile and halo.
 template <bool kMetric, int kW>
@@ -148,7 +123,7 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
       if (a < a_end) fn(q, a);
     }
   };
-  const auto cst = [&](int p, int ij) { return __ldg(uniform_plane(k, p) + ij); };
+  const auto cst = [&](int p, int ij) { return __ldg(mevp_const_plane(k, p) + ij); };
 
   // The load: the window's state, zeros beyond the domain. Threads beyond
   // rows x w own nothing.

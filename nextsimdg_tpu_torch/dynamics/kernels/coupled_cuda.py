@@ -83,7 +83,8 @@ from ..mevp_ho import (
     HO_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
 )
 from ..transport import (
-    DGTransport, max_speeds, sampling_weights, substeps_from_speeds, velocity_from_cg,
+    DGTransport, QuadVelocity, max_speeds, sampling_weights, substeps_from_speeds,
+    velocity_from_cg,
 )
 
 KERNELS = (
@@ -213,11 +214,11 @@ def _bind():
     tail = [p, i, p]  # host scalars/tables, device index, stream
     lib.nst_mevp_stress.argtypes = [p] * 8 + [i, i] + tail
     lib.nst_mevp_velocity.argtypes = [p] * 8 + [i, i] + tail
-    lib.nst_dg1_sample_cfl.argtypes = [p] * 3 + [i] * 5 + tail
+    lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 7 + tail
     lib.nst_dg1_rk_stage.argtypes = [p] * 8 + [i, i, i, f, f, f] + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
     lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 12 + [f, f, f] + tail
-    lib.nst_mevp_single.argtypes = [p] * 8 + [i] * 4 + tail
+    lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 8 + [p] + tail
     lib.nst_ho_single.argtypes = [p] * 3 + [i] * 9 + [p] + tail
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 10 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
@@ -227,7 +228,7 @@ def _bind():
         getattr(lib, "nst_" + name).restype = i
     lib.nst_mevp_tiled_max_blocks.argtypes = [i] * 5
     lib.nst_mevp_tiled_max_blocks.restype = i
-    lib.nst_mevp_single_max_blocks.argtypes = [i, i]
+    lib.nst_mevp_single_max_blocks.argtypes = [i] * 6
     lib.nst_mevp_single_max_blocks.restype = i
     lib.nst_ho_single_max_blocks.argtypes = [i] * 4
     lib.nst_ho_single_max_blocks.restype = i
@@ -473,17 +474,42 @@ def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream):
     )
 
 
+#: Block pairs that a dg1_sample_cfl scratch holds: more blocks than the
+#: card keeps resident, which is what a launch takes at most.
+CFL_SCRATCH_BLOCKS = 4096
+_cfl_scratch = {}
+
+
+def _cfl_scratch_of(device, stream: int) -> torch.Tensor:
+    """The scratch of ``dg1_sample_cfl``'s launches on one stream: the count
+    of blocks done (zero between launches; each launch leaves it so) and a
+    pair of maxima per block. One a stream, made once, so that launches on
+    two streams (the ranks of a rank grid) never share one."""
+    key = (device.index, stream)
+    with _lock:
+        scratch = _cfl_scratch.get(key)
+        if scratch is None:
+            scratch = torch.zeros(1 + 2 * CFL_SCRATCH_BLOCKS, device=device, dtype=torch.int32)
+            _cfl_scratch[key] = scratch
+    return scratch
+
+
 def _dg1_sample_cfl_(u, v, speeds, tables, stream, halo: int = 0):
-    """The max speeds of the elements of (u, v), or with ``halo`` of the
-    elements of the block that (u, v) widen by ``halo`` on every side."""
+    """The max speeds of the elements of (u, v) into ``speeds`` (nothing to
+    zero before), or with ``halo`` of the elements of the block that (u, v)
+    widen by ``halo`` on every side. 16-byte loads where both planes and
+    their rows are 16-byte aligned and the last node column's 16 bytes lie
+    inside the row."""
     nx, ny = u.shape
     ex, ey = nx - 2 * halo, ny - 2 * halo
     offset = (halo * ny + halo) * u.element_size()
     extent = (ex + 1, ey + 1) if halo else (nx, ny)
+    pu, pv = u.data_ptr() + offset, v.data_ptr() + offset
+    vector = (pu | pv) % 16 == 0 and ny % 4 == 0 and halo + -(-extent[1] // 4) * 4 <= ny
+    scratch = _cfl_scratch_of(u.device, stream)
     _launch(
-        "dg1_sample_cfl",
-        u.data_ptr() + offset, v.data_ptr() + offset, speeds.data_ptr(),
-        ex, ey, *extent, ny, ctypes.addressof(tables), u.device.index, stream,
+        "dg1_sample_cfl", pu, pv, speeds.data_ptr(), scratch.data_ptr(), CFL_SCRATCH_BLOCKS,
+        ex, ey, *extent, ny, int(vector), ctypes.addressof(tables), u.device.index, stream,
     )
 
 
@@ -537,9 +563,17 @@ def mevp_velocity(solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float):
     return planes[0], planes[1]
 
 
-def dg1_sample_cfl_reference(transport: DGTransport, u, v):
-    """(max |vx|, max |vy|) over the quadrature points, as a (2,) tensor."""
-    qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
+def dg1_sample_cfl_reference(transport: DGTransport, u, v, halo: int = 0):
+    """(max |vx|, max |vy|) over the quadrature points, as a (2,) tensor;
+    with ``halo``, over the elements of the block that (u, v) widen by
+    ``halo`` on every side (their +1 nodes are the widened planes')."""
+    if halo:
+        ex, ey = u.shape[0] - 2 * halo, u.shape[1] - 2 * halo
+        nodes = (slice(halo, halo + ex + 1), slice(halo, halo + ey + 1))
+        qv = velocity_from_cg(transport.mesh, transport.basis, u[nodes], v[nodes])
+        qv = QuadVelocity(*(getattr(qv, f)[..., :ex, :ey] for f in ("vx_vol", "vy_vol", "vn_x", "vn_y")))
+    else:
+        qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
     return torch.stack(max_speeds(qv))
 
 
@@ -548,7 +582,7 @@ def dg1_sample_cfl(transport: DGTransport, u, v):
     if _on_cpu(u):
         return dg1_sample_cfl_reference(transport, u, v)
     _check((transport.mesh.nx, transport.mesh.ny), u.device, u=u, v=v)
-    speeds = torch.zeros(2, device=u.device, dtype=torch.float32)
+    speeds = torch.empty(2, device=u.device, dtype=torch.float32)
     _dg1_sample_cfl_(u, v, speeds, _dg1_tables(transport), _stream(u.device))
     return speeds
 
@@ -774,7 +808,7 @@ def dynamics_phase(
 
     # CFL substep count: the one host sync of the step.
     if model.auto_substeps:
-        speeds = torch.zeros(2, device=device, dtype=torch.float32)
+        speeds = torch.empty(2, device=device, dtype=torch.float32)
         _dg1_sample_cfl_(u, v, speeds, _dg1_tables(tr), _stream(device))
         k = _k_of_speeds(model, speeds, dt)
     else:
@@ -821,7 +855,7 @@ def _spmd_dynamics_phase(
         k = _substeps(model, velocity_from_cg(mesh, tr.basis, u, v, model.spmd), dt)
     else:
         H = (velocity_w.shape[1] - mesh.nx) // 2
-        speeds = torch.zeros(2, device=u.device, dtype=torch.float32)
+        speeds = torch.empty(2, device=u.device, dtype=torch.float32)
         _dg1_sample_cfl_(
             velocity_w[0], velocity_w[1], speeds, _dg1_tables(tr), _stream(u.device), halo=H
         )

@@ -268,34 +268,74 @@ def test_tiled_wrappers_raise_on_what_the_kernels_do_not_take(device):
         mt.mevp_subcycles_tiled(model.mevp, tuple(c.double() for c in carry), consts, DT, 8)
 
 
+#: A forced mevp_single tile per grid: few cells a tile (40 x 72: 90 tiles
+#: of 4 x 8), and tiles of many cells (600^2: 72 tiles of 50 x 100, five
+#: rows a thread; 1024^2: 128 tiles of 128 x 64, eight rows a thread).
+SINGLE_TILES = {(40, 72): (4, 8), (600, 600): (50, 100), (1024, 1024): (128, 64)}
+
+
 @pytest.mark.parametrize("spherical", [False, True])
 @pytest.mark.parametrize("n_sub", [1, 13])
-def test_mevp_single_matches_plain_k1_and_tiled(device, spherical, n_sub):
-    model, carry, consts, _, _ = setup(device, n=40, ny=72, spherical=spherical)
+@pytest.mark.parametrize("shape", list(SINGLE_TILES))
+def test_mevp_single_matches_plain_k1_and_tiled(device, spherical, n_sub, shape):
+    """The tiles the host picks and a forced tile shape equal K1's schedule
+    and mevp_tiled bit for bit, and the plain version within the launch
+    tolerance; at 1024^2 the const planes but one come from global memory."""
+    model, carry, consts, _, _ = setup(device, n=shape[0], ny=shape[1], spherical=spherical)
     assert len(consts) == (12 if spherical else 7)
-    cc.reset_launches()
-    got = ms.mevp_subcycles_single(model.mevp, carry, consts, DT, n_sub)
-    assert cc.launches["mevp_single"] == 1
+    config = ms.tiling(*shape, ms.sm_count(device))
+    assert config.n_tiles <= ms.max_blocks(device, config, spherical)
     ref = ms.mevp_single_reference(model.mevp, carry, consts, DT, n_sub)
     k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, n_sub)
     tiled = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, n_sub)
-    for g, r, q, w in zip(got, ref, k1, tiled):
-        assert_close(g, r, TOL_LAUNCH if n_sub == 1 else 1e-3)
-        assert_same_schedule(g, q)
-        assert_same_schedule(g, w)
-    assert torch.equal(carry[2], setup(device, n=40, ny=72, spherical=spherical)[1][2])
+    for run in ({}, {"tile": SINGLE_TILES[shape]}):
+        cc.reset_launches()
+        got = ms.mevp_subcycles_single(model.mevp, carry, consts, DT, n_sub, **run)
+        assert cc.launches["mevp_single"] == 1
+        for g, r, q, w in zip(got, ref, k1, tiled):
+            assert_close(g, r, TOL_LAUNCH if n_sub == 1 else 1e-3)
+            assert_same_schedule(g, q)
+            assert_same_schedule(g, w)
+    again = setup(device, n=shape[0], ny=shape[1], spherical=spherical)[1]
+    assert all(torch.equal(c, a) for c, a in zip(carry, again))
 
 
 def test_mevp_single_refuses_a_grid_that_cannot_be_resident(device):
     model, carry, consts, _, _ = setup(device)
-    limit = ms.max_blocks(False, device)
-    assert limit >= 132
-    got = ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3, blocks=7)
+    config = ms.tiling(N, N, ms.sm_count(device))
+    limit = ms.max_blocks(device, config, False)
+    assert limit >= config.n_tiles
+    got = ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3, tile=(32, 32))
     assert_same_schedule(got[0], ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3)[0])
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3, blocks=limit + 1)
+    with pytest.raises(ValueError, match="resident"):  # 256 tiles outnumber the SMs
+        ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 3, tile=(4, 4))
     with pytest.raises(NotImplementedError, match="consts"):
         ms.mevp_subcycles_single(model.mevp, carry, {**consts, "a_node": carry[0]}, DT, 3)
+    n = ms.largest_square(ms.sm_count(device)) + 1
+    big = setup(device, n=n, n_subcycles=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.mevp_subcycles_single(big[0].mevp, big[1], big[2], DT, 3)
+
+
+@pytest.mark.parametrize("n, halo", [(1024, 0), (4096, 0), (1000, 0), (998, 0), (2048, 8), (1024, 3)])
+def test_dg1_sample_cfl_streams_equal_speeds_at_the_paths_shapes(device, n, halo):
+    """The streaming max at the paths' shapes (16-byte loads where the rows
+    allow, 4-byte loads at 998 and on the odd halo) and on a rank block
+    widened by its halo: speeds equal to the plain version's, nothing
+    zeroed before, the scratch's count back at 0."""
+    rng = np.random.default_rng(n + halo)
+    shape = (n + 2 * halo, n + 2 * halo)
+    transport = CoupledModel(RectMesh(n, n, 2000.0, 2000.0)).transport
+    u, v = (torch.tensor(rng.normal(0.0, 0.3, shape), device=device, dtype=torch.float32) for _ in range(2))
+    speeds = torch.full((2,), float("nan"), device=device)
+    stream = cc._stream(device)
+    cc.reset_launches()
+    cc._dg1_sample_cfl_(u, v, speeds, cc._dg1_tables(transport), stream, halo=halo)
+    assert cc.launches["dg1_sample_cfl"] == 1
+    assert torch.equal(speeds, cc.dg1_sample_cfl_reference(transport, u, v, halo=halo))
+    assert int(cc._cfl_scratch_of(device, stream)[0]) == 0
+    if not halo:
+        assert torch.equal(cc.dg1_sample_cfl(transport, u, v), speeds)
 
 
 @pytest.mark.parametrize("ny", [72, 70])

@@ -19,6 +19,7 @@ from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hs
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as ht
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as ms
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
@@ -411,6 +412,77 @@ def test_ho_single_refuses_a_grid_it_cannot_hold():
     held = [n for n in range(500, 700, 10) if hs.holds(n, n, 132)]
     assert held and 512 < max(held) < 650 and held == list(range(500, max(held) + 1, 10))
     assert max(held) <= hs.largest_square(132) < max(held) + 10
+
+
+#: Const planes that fit beside mevp_single's state in a block's shared
+#: memory, as mevp_single_cuda documents them: all 12 up to 512^2, the first
+#: two of RESIDENT_ORDER (half_dx, half_dy) at 1000 x 968, half_dx alone at
+#: 1024^2.
+MEVP_SINGLE_ROOM = {(128, 128): 12, (256, 256): 12, (512, 512): 12, (1000, 968): 2, (1024, 1024): 1}
+
+
+@pytest.mark.parametrize("shape", list(MEVP_SINGLE_ROOM))
+def test_mevp_single_tiling_covers_the_grid_and_fits(shape):
+    """mevp_single's tiles on 132 SMs: at most one a SM, covering the grid
+    with no empty tile, at most 8 tile rows a thread of up to 1024, the
+    state and the resident const planes (each with its apron) within a
+    block's shared memory, and the const planes resident in RESIDENT_ORDER
+    (the uniform set of 7 or the metric set of 12): all of them where they
+    fit, else the most of PARTIAL_COUNTS that fit."""
+    limit, sms = 232448, 132
+    nx, ny = shape
+    config = ms.tiling(nx, ny, sms)
+    (tr, tc), (ti, tj) = config.tile, config.tiles
+    assert config.n_tiles <= sms
+    assert (ti - 1) * tr < nx <= ti * tr and (tj - 1) * tc < ny <= tj * tc
+    assert 32 <= config.threads <= 1024 and config.threads % 32 == 0
+    rows = config.threads // tc
+    assert rows >= 1 and -(-tr // rows) <= 8
+    assert config.room == MEVP_SINGLE_ROOM[shape]
+    for metric, n_consts in ((False, 7), (True, 12)):
+        resident = config.resident(metric)
+        partial = max(c for c in ms.PARTIAL_COUNTS if c <= config.room)
+        assert len(resident) == (n_consts if config.room >= n_consts else partial)
+        assert list(resident) == [n for n in ms.RESIDENT_ORDER if metric or n in ms.UNIFORM_CONSTS][:len(resident)]
+        assert config.shared_bytes(metric) == (5 + len(resident)) * (tr + 2) * (tc + 2) * 4 <= limit
+        assert len(resident) == n_consts or ms.shared_bytes(config.tile, len(resident) + 1) > limit
+    if shape == (256, 256):
+        assert config.tile == (16, 32) and config.n_tiles == 128 and config.threads == 512
+    if shape == (1024, 1024):
+        assert config.tile == (64, 128) and config.threads == 1024 and config.resident(True) == ("half_dx",)
+
+
+def test_mevp_single_refuses_a_grid_it_cannot_hold():
+    """A forced tile that outnumbers the SMs, and a grid above the largest
+    square mevp_single holds on 132 SMs (1024^2: a tile of 8 rows a thread
+    of 1024), raise before any launch, on the host; the grids the paths
+    send it are held."""
+    with pytest.raises(ValueError, match="resident"):
+        ms.tiling(40, 72, 132, (4, 4))
+    with pytest.raises(ValueError, match="threads"):
+        ms.tiling(1024, 1024, 132, (16, 2048))
+    n = ms.largest_square(132)
+    assert n == 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.tiling(n + 1, n + 1, 132)
+    assert all(ms.holds(*shape, 132) for shape in ((128, 128), (512, 512), (1000, 968), (1024, 1024)))
+
+
+def test_dg1_sample_cfl_reference_of_a_widened_block():
+    """The plain version of dg1_sample_cfl's halo form (a rank's own
+    elements inside its velocity widened by H) on a block widened by zeros
+    equals the plain version on the block alone, whose +1 nodes are walls;
+    and with nonzero ghosts it reads the ghost row and column."""
+    rng = np.random.default_rng(3)
+    model = CoupledModel(RectMesh(12, 20, 2000.0, 2000.0))
+    u, v = (torch.tensor(rng.normal(0.0, 0.3, (12, 20)), dtype=torch.float32) for _ in range(2))
+    halo = 4
+    wide = lambda f: torch.nn.functional.pad(f, (halo, halo, halo, halo))
+    plain = cc.dg1_sample_cfl_reference(model.transport, u, v)
+    assert torch.equal(cc.dg1_sample_cfl_reference(model.transport, wide(u), wide(v), halo=halo), plain)
+    ghosts = wide(u)
+    ghosts[halo + 12, halo:halo + 21] = 50.0  # the block's +1 node row
+    assert cc.dg1_sample_cfl_reference(model.transport, ghosts, wide(v), halo=halo)[0] > plain[0]
 
 
 def test_rdma_band_launch_config_at_config5():
