@@ -46,6 +46,10 @@ CFL-adaptive transport substeps:
   and the same at 256^2 on ``mevp_backend="pallas"`` (``ho_coupled_256``):
   ho_single, all 100 HO subcycles in one cooperative launch whose tiles
   stay in shared memory and swap their edges with their neighbours only;
+  then that step with ``transport_backend="xla"`` (``ho_coupled_256_staged``)
+  and with rk3 on "auto" (``ho_coupled_256_rk3``), whose transport is the
+  staged dg1_rk_stage in its qv form (one launch per RK stage on the CG2
+  velocity's quadrature samples);
 * BASELINE config 5 (``run_benchmarks.py`` ``bench_multihost_16m``,
   ``multihost_16m``): a closed 4096 x 4096 mesh of 2 km elements with
   config 4's state and forcing, decomposed over a 2 x 2 grid of 2048^2 rank
@@ -76,8 +80,9 @@ Phases, each printed on its own lines:
    64), on seeded planes at 512^2 and 1000 x 968, 160 and 128 links; then,
    from zeroed launch counts, ``measure_vpu_peak`` (fma, fma_imm, mul_add)
    and ``measure_hbm_peak``, each rate held below the data sheet's peak;
-4. check: K1's four kernels against their plain PyTorch versions at 256^2,
-   then mevp_tiled and transport_tiled against theirs and against K1's
+4. check: K1's four kernels against their plain PyTorch versions at 256^2
+   (dg1_rk_stage blended and with a = 0, on the CG1 velocity and in its qv
+   form), then mevp_tiled and transport_tiled against theirs and against K1's
    schedule on the same inputs, at 1024^2 and at a ragged 1000 x 968, with
    100 subcycles and with a count that is not a multiple of the halo
    (transport_tiled also by 4-byte copies and in two blocks an SM, and on a
@@ -94,7 +99,7 @@ Phases, each printed on its own lines:
    512^2, ho_single by its neighbour waits and by grid.sync()), ho_tiled's shipped window (a cluster of one block) against
    clusters of 2 to 16 blocks that push their edges through distributed
    shared memory (1024^2, N = 13), and the qv form of transport_tiled
-   against its plain version (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
+   against its plain version and the staged qv transport (1024^2); on config 5's 2048^2 rank blocks rdma_stage and rdma_band
    launch by launch against their plain versions, and the rdma round
    against the blocked round; dg1_sample_cfl (a streaming max on resident
    blocks) at every shape the paths launch it: 256^2, 1024^2 uniform and
@@ -102,7 +107,8 @@ Phases, each printed on its own lines:
    equal to the plain version's;
 5. slice: for each path, one step on the kernels against the plain path on
    the card (the spherical one on "pallas" and on "auto", and one step of
-   the uniform coastline variant ``coupled_1m_mask``; both HO paths), then
+   the uniform coastline variant ``coupled_1m_mask``; the HO paths, the two
+   staged ones included), then
    20 steps from zeroed launch counters: every leaf finite, 0 <= cice <= 1,
    hice >= 0, hsnow >= 0, every kernel of the path launched, and with a
    coastline the land tracers unchanged and u = v = 0 on every node that
@@ -120,7 +126,8 @@ Phases, each printed on its own lines:
    version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
    rdma steps, the blocked round against the rdma round, the dynamics step
    at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; last,
-   the profiler's device duration of K1's four kernels at 256^2,
+   the profiler's device duration of K1's four kernels at 256^2 (and
+   dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
    transport_tiled at 1024^2, ho_single and ho_tiled at their paths'
    shapes, rdma_stage and rdma_band on the x and y bands, beside their
    back-to-back times (every row of the summary
@@ -213,6 +220,8 @@ PATH_KERNELS = {
     "spherical": ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
     "ho_coupled_1m": ("ho_tiled", "transport_tiled"),
     "ho_coupled_256": ("ho_single", "transport_tiled"),
+    "ho_coupled_256_staged": ("ho_single", "dg1_rk_stage"),
+    "ho_coupled_256_rk3": ("ho_single", "dg1_rk_stage"),
     "multihost_16m": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled", "rdma_stage", "rdma_band"),
     "multihost_16m_blocked": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "roofline": ("chain",),
@@ -225,13 +234,21 @@ PEAK_FP32 = 67e12
 # float32 operations per element of each body, counted from
 # csrc/mevp_body.cuh and csrc/dg1_body.cuh (a sqrt or a divide counts as
 # one): the stress half, the velocity half (uniform consts), the CFL
-# sampling, and one RK stage (velocity sampling + 3 tracers); the velocity
+# sampling, and one RK stage as dg1_rk_stage does it: each face's flux
+# once, so an element and tracer takes 4 of the 8 face points (7
+# operations each) of the 243 operations of dg1_stage_cell; the CG1 form
+# samples the 8 volume velocities once an element (56) and the normal
+# velocity at its 4 face points once a tracer (3 each), the qv form reads
+# the samples, so it does the tracers' part only; transport_tiled's stage
+# (dg1_stage_cell an element: the velocity sampled in full, every face point
+# of each tracer); the velocity
 # half with the metric consts (16 multiplies of the weighted stresses, 14
 # adds, for the uniform forces' 18 operations); and, counted
 # from csrc/ho_body.cuh as the kernels run them (dense tables), the HO
 # stress half per element and velocity half per node index.
 OPS = {
-    "stress": 80, "velocity": 42, "velocity_metric": 54, "cfl": 92, "stage": 80 + 3 * 243,
+    "stress": 80, "velocity": 42, "velocity_metric": 54, "cfl": 92, "stage": 56 + 3 * (4 * 3 + 243 - 4 * 7),
+    "stage_qv": 3 * (243 - 4 * 7), "stage_cell": 80 + 3 * 243,
     "ho_stress": 516, "ho_velocity": 398,
 }
 #: Planes one HO call moves: 17 state planes in, 29 consts in, 17 out.
@@ -283,6 +300,9 @@ class Row:
 #: Launches whose device duration (torch.profiler) the run logs last, by
 #: "kernel shape": the phases add them.
 DEVICE_PROBES = {}
+#: dg1_rk_stage at the other shapes and forms the paths run it, by label:
+#: Rows whose bounds the run logs once the ceilings are measured.
+STAGE_FORMS = {}
 
 
 def log(phase: str, message: str) -> None:
@@ -406,6 +426,16 @@ def check_kernels(model, device) -> dict:
             f"dg1_rk_stage(a={a_}, b={b_})", cc.dg1_rk_stage(*args),
             cc.dg1_rk_stage_reference(*args), TOL_LAUNCH,
         ))
+    # The qv form (the HO path's staged transport): the quadrature samples
+    # of a seeded CG2 velocity in place of (u, v).
+    cg2 = lambda: mevp_ho.HOField(*(t(rng.normal(0.0, 0.2, (N, N))) for _ in range(4)))
+    qv = mevp_ho.ho_velocity_to_quad(model.mesh, transport.basis, cg2(), cg2())
+    for a_, b_ in ((0.0, 1.0), (0.5, 0.5)):
+        args = (transport, psi, base, None, None, face_x, face_y, a_, b_, 300.0)
+        errs.append(compare(
+            f"dg1_rk_stage qv form (a={a_}, b={b_})", cc.dg1_rk_stage(*args, qv=qv),
+            cc.dg1_rk_stage_reference(*args, qv=qv), TOL_LAUNCH,
+        ))
     results["dg1_rk_stage"] = max(errs)
     torch.cuda.synchronize()
 
@@ -454,6 +484,26 @@ def check_kernels(model, device) -> dict:
             f"{name}: kernel {rows[name].ms:.4f} ms, plain {rows[name].plain_ms:.4f} ms, "
             f"bound {bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]}) per call at {N}x{N}"
         ))
+    # dg1_rk_stage's other forms at 256^2: the first stage (a = 0: no base)
+    # and the blended qv form (12 sample planes in place of u and v).
+    qv_ptrs = cc._dg1_qv(qv, (N, N), device)
+    forms = {
+        "first stage": (
+            lambda: cc._dg1_rk_stage_(psi, base, u, v, face_x, face_y, None, out, 0.0, 1.0, 300.0, tables, stream),
+            lambda: cc.dg1_rk_stage_reference(transport, psi, base, u, v, face_x, face_y, 0.0, 1.0, 300.0),
+            (9 + 4 + 9) * 4 * n, OPS["stage"] * n,
+        ),
+        "qv form": (
+            lambda: cc._dg1_rk_stage_(
+                psi, base, None, None, face_x, face_y, None, out, 0.5, 0.5, 300.0, tables, stream, qv=qv_ptrs),
+            lambda: cc.dg1_rk_stage_reference(
+                transport, psi, base, None, None, face_x, face_y, 0.5, 0.5, 300.0, qv=qv),
+            (9 + 9 + 12 + 2 + 9) * 4 * n, OPS["stage_qv"] * n,
+        ),
+    }
+    for form, (kernel, plain, n_bytes, n_ops) in forms.items():
+        DEVICE_PROBES[f"dg1_rk_stage {N}^2 {form}"] = kernel
+        STAGE_FORMS[f"{form} at {N}x{N}"] = Row(0.0, time_ms(kernel, 200), time_ms(plain, 20), n_bytes, n_ops)
     return rows
 
 
@@ -504,6 +554,11 @@ def ptxas_report(text: str):
                 kernel += "<grid sync>" if args[0][1] == "1" else "<neighbours>"
             elif kernel == "ho_tiled_kernel" and args:  # the sub-window width, 0: any
                 kernel += f"<width {args[0][1]}>" if args[0][1] != "0" else "<any width>"
+            elif kernel == "dg1_rk_stage_kernel":  # metric, qv, blend
+                kernel += "<" + ", ".join((
+                    "metric" if args[0][1] == "1" else "uniform", "qv" if args[1][1] == "1" else "cg1",
+                    "blended" if args[2][1] == "1" else "a = 0",
+                )) + ">"
             elif kernel == "dg1_sample_cfl_kernel":  # elements a lane
                 kernel += "<16-byte loads>" if args[0][1] == "4" else "<4-byte loads>"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
@@ -678,7 +733,7 @@ def check_tiled(device) -> dict:
     n = N4 * N4
     work = {  # (bytes, operations) of one call at 1024^2
         "mevp_tiled": ((5 + 7 + 5) * 4 * n, TILED_SUBCYCLES * (OPS["stress"] + OPS["velocity"]) * n),
-        "transport_tiled": ((9 + 4 + 9) * 4 * n, 2 * OPS["stage"] * n),
+        "transport_tiled": ((9 + 4 + 9) * 4 * n, 2 * OPS["stage_cell"] * n),
     }
     results = {}
     for name, (kernel, plain) in timed.items():
@@ -704,8 +759,17 @@ def check_tiled(device) -> dict:
     results["transport_tiled"].err = errs["transport_tiled"]
     same_schedule(tag, got16, cc.transport_substeps(*args16))
     del got16
+    # dg1_rk_stage at 1024^2 (rk3 on one device, transport_backend="xla"):
+    # one blended stage against its plain version.
+    stage = (transport, psi, psi.flip(-1).contiguous(), u, v, *faces, 0.5, 0.5, DT)
+    compare(f"dg1_rk_stage {N4}x{N4}", cc.dg1_rk_stage(*stage), cc.dg1_rk_stage_reference(*stage), TOL_LAUNCH)
+    DEVICE_PROBES[f"dg1_rk_stage {N4}^2 uniform"] = lambda stage=stage: cc.dg1_rk_stage(*stage)
+    STAGE_FORMS[f"blended at {N4}x{N4}"] = Row(
+        0.0, time_ms(lambda: cc.dg1_rk_stage(*stage), 50), time_ms(lambda: cc.dg1_rk_stage_reference(*stage), 3),
+        (9 + 9 + 4 + 9) * 4 * n, OPS["stage"] * n,
+    )
     ms16 = time_ms(lambda: tt.transport_substeps_tiled(*args16), 20)
-    bound16 = bound((9 + 4 + 9) * 4 * n16, 2 * OPS["stage"] * n16)
+    bound16 = bound((9 + 4 + 9) * 4 * n16, 2 * OPS["stage_cell"] * n16)
     log("time", (
         f"transport_tiled: kernel {ms16:.4f} ms per call at {N16}x{N16} (one rk2 substep), bound "
         f"{bound16[0]:.4f} ms ({bound16[1]}); {config}, "
@@ -791,6 +855,12 @@ def check_single(device) -> dict:
     stage_err = compare(
         f"dg1_rk_stage {N4}x{N4} spherical, coastline", cc.dg1_rk_stage(*stage),
         cc.dg1_rk_stage_reference(*stage), TOL_LAUNCH,
+    )
+    DEVICE_PROBES[f"dg1_rk_stage {N4}^2 spherical"] = lambda stage=stage: cc.dg1_rk_stage(*stage)
+    n = N4 * N4
+    STAGE_FORMS[f"metric, blended at {N4}x{N4} spherical, coastline"] = Row(
+        0.0, time_ms(lambda: cc.dg1_rk_stage(*stage), 50), time_ms(lambda: cc.dg1_rk_stage_reference(*stage), 3),
+        (9 + 9 + 4 + 5 + 9) * 4 * n, OPS["stage"] * n,
     )
     torch.cuda.synchronize()
 
@@ -989,7 +1059,9 @@ def check_ho(device) -> dict:
         args = (model.transport, psi, None, None, DT / k, k, faces)
         got = tt.transport_substeps_tiled(*args, qv=qv)
         ref = tt.transport_substeps_tiled_reference(*args, qv=qv)
-        qv_errs.append(compare(f"transport_tiled qv form {N4}x{N4} k={k}", got, ref, TOL_STEP_TRACER))
+        tag = f"transport_tiled qv form {N4}x{N4} k={k}"
+        qv_errs.append(compare(tag, got, ref, TOL_STEP_TRACER))
+        same_schedule(tag, got, cc.transport_substeps(*args, qv=qv), "the staged qv transport")
     torch.cuda.synchronize()
 
     # Per call at the paths' shapes: ho_single's 100 subcycles at 256^2,
@@ -1117,7 +1189,7 @@ def check_slice(device) -> dict:
     counts = {"headline": drive_path("headline", model, state, None, forcing, False)}
 
     model, state, phys, dyn = config4_model(device)
-    schedule = (model.mevp_schedule(), model.transport_schedule())
+    schedule = model.schedule(device)
     log("slice", f"config4: {N4}x{N4}, auto schedule {schedule}")
     if schedule != ("pallas-tiled", "tiled"):
         raise AssertionError(f"config 4 does not run the tiled kernels: {schedule}")
@@ -1134,7 +1206,7 @@ def check_slice(device) -> dict:
 
     # The spherical coastline variant (coupled_1m_spherical).
     model, state, phys, dyn = spherical_model(device, mevp_backend="pallas")
-    schedule = (model.mevp_schedule(), model.transport_schedule())
+    schedule = model.schedule(device)
     log("slice", (
         f"spherical: {N4}x{N4}, min dx {float(np.min(model.mesh.dx)):.1f} m, max dx "
         f"{float(np.max(model.mesh.dx)):.1f} m, dy {model.mesh.dy:.1f} m, ocean share "
@@ -1143,7 +1215,7 @@ def check_slice(device) -> dict:
     if schedule != ("single", "tiled"):
         raise AssertionError(f"the spherical path does not run mevp_single: {schedule}")
     model_auto = spherical_model(device)[0]
-    log("slice", f"spherical: auto schedule {(model_auto.mevp_schedule(), model_auto.transport_schedule())}")
+    log("slice", f"spherical: auto schedule {model_auto.schedule(device)}")
     for tag, m in (("spherical.pallas.step", model), ("spherical.auto.step", model_auto)):
         compare_step(tag, m.step(state, phys, dyn, DT), plain_step(m, state, phys, dyn))
     counts["spherical"] = drive_path("spherical", model, state, phys, dyn, True)
@@ -1154,10 +1226,22 @@ def check_slice(device) -> dict:
         ("ho_coupled_256", N, "pallas", ("single", "tiled")),
     ):
         model, state, phys, dyn = ho_model(device, n, mevp_backend=backend)
-        schedule = (model.mevp_schedule(), model.transport_schedule())
+        schedule = model.schedule(device)
         log("slice", f"{path}: {n}x{n}, HO solver, {backend} schedule {schedule}")
         if not model.is_high_order or schedule != expected:
             raise AssertionError(f"{path} does not run {expected}: {schedule}")
+        compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
+        counts[path] = drive_path(path, model, state, phys, dyn, True)
+
+    # The HO 256^2 step on the staged transport: transport_backend="xla",
+    # and rk3 on "auto" (transport_tiled runs rk1 and rk2).
+    for path, scheme, transport in (("ho_coupled_256_staged", "rk2", "xla"), ("ho_coupled_256_rk3", "rk3", "auto")):
+        model, state, phys, dyn = ho_model(device, N, mevp_backend="pallas", transport_backend=transport)
+        model.transport.scheme = scheme
+        schedule = model.schedule(device)
+        log("slice", f"{path}: {N}x{N}, HO solver, {scheme}, transport_backend={transport!r}: schedule {schedule}")
+        if schedule != ("single", "xla"):
+            raise AssertionError(f"{path} does not run the staged transport: {schedule}")
         compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
         counts[path] = drive_path(path, model, state, phys, dyn, True)
     return counts
@@ -1269,8 +1353,11 @@ def time_paths(device, card: str) -> None:
 def time_ho(device, card: str) -> None:
     """Phase 5, HO part: the HO paths' step on their kernels and on the
     plain path, and a profile of ho_coupled_1m."""
-    for path, n, backend in (("ho_coupled_1m", N4, "auto"), ("ho_coupled_256", N, "pallas")):
-        model, state, phys, dyn = ho_model(device, n, mevp_backend=backend)
+    for path, n, backend, transport in (
+        ("ho_coupled_1m", N4, "auto", "auto"), ("ho_coupled_256", N, "pallas", "auto"),
+        ("ho_coupled_256_staged", N, "pallas", "xla"),
+    ):
+        model, state, phys, dyn = ho_model(device, n, mevp_backend=backend, transport_backend=transport)
         runs = time_in_turns(
             {
                 "kernel": lambda: model.step(state, phys, dyn, DT),
@@ -1279,10 +1366,11 @@ def time_ho(device, card: str) -> None:
             {"kernel": 10, "plain": None},
         )
         for name, ms in runs.items():
-            report(f"{path} coupled step, {name} path ({n}x{n}, {model.mevp_schedule()})", ms, n * n, card)
+            schedule = model.schedule(device)
+            report(f"{path} coupled step, {name} path ({n}x{n}, {schedule})", ms, n * n, card)
 
     model, state, phys, dyn = ho_model(device, N4)
-    profile(f"ho_coupled_1m coupled step ({N4}x{N4}, {model.mevp_schedule()})", lambda: model.step(state, phys, dyn, DT))
+    profile(f"ho_coupled_1m coupled step ({N4}x{N4}, {model.schedule(device)[0]})", lambda: model.step(state, phys, dyn, DT))
 
 
 # -- BASELINE config 5: the decomposed coupled step on a 2 x 2 rank grid --------
@@ -1391,7 +1479,7 @@ def check_multihost(device) -> tuple:
     log("slice", (
         f"multihost_16m: {N16}x{N16} ({N16 * N16} elements) on a {RANKS[0]}x{RANKS[1]} rank grid "
         f"of one card ({RANKS[0] * RANKS[1]} ranks, one thread and two streams each); "
-        f"single-device schedule {(model1.mevp_schedule(), model1.transport_schedule())}"
+        f"single-device schedule {model1.schedule(device)}"
     ))
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1401,7 +1489,7 @@ def check_multihost(device) -> tuple:
     forms = {}
     for path, backend in (("multihost_16m_blocked", "auto"), ("multihost_16m", "rdma")):
         model, sharded = sharded_model(device, mevp_backend=backend)
-        schedule = (model.mevp_schedule(), model.transport_schedule())
+        schedule = model.schedule(device)
         log("slice", (
             f"{path}: rank blocks {model.mesh.nx}x{model.mesh.ny}, schedule {schedule}, h = "
             f"{model.mevp.block_halo}, spmd transport (H, k_cap) = {tt.transport_tiled_spmd_config(model)}"
@@ -1454,7 +1542,7 @@ def check_multihost(device) -> tuple:
             plain = sharded_p.grid.gather_tree(run_ranks(sharded_p.grid.ring, lambda rank: plain_step(
                 sharded_p.models[rank.rank], *(b[rank.rank] for b in blocks)
             )), device)
-        compare_step(f"multihost_{N_PLAIN_GRID} ({model_p.mevp_schedule()}) decomposed step vs decomposed plain", got, plain)
+        compare_step(f"multihost_{N_PLAIN_GRID} ({model_p.schedule(device)[0]}) decomposed step vs decomposed plain", got, plain)
 
     # N5_STEPS steps of each form from zeroed launch counters.
     counts = {}
@@ -1568,7 +1656,7 @@ def time_multihost(device, card: str) -> None:
             *inputs[rank.rank], DT, h
         )), 5) for _ in range(2)]
         log("time", (
-            f"multihost_16m one {s.models[0].mevp_schedule()} round of {h} subcycles on 4 ranks: "
+            f"multihost_16m one {s.models[0].schedule(device)[0]} round of {h} subcycles on 4 ranks: "
             f"{sum(ms) / 2:.4f} ms (runs {', '.join(f'{m:.4f}' for m in ms)}) on {card}"
         ))
 
@@ -1884,6 +1972,13 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
         if probe == "rdma_band axis 0":
             log("time", f"rdma_band: back to back {kernels['rdma_band'].ms:.5f} ms per call, device {ms:.5f} ms")
 
+    for label, row in STAGE_FORMS.items():
+        measured = max(row.n_bytes / ceilings["bytes_per_s"], row.n_ops / ceilings["ops_per_s"]) * 1e3
+        log("time", (
+            f"dg1_rk_stage {label}: kernel {row.ms:.5f} ms back to back, plain {row.plain_ms:.4f} ms, bound "
+            f"{bound(row.n_bytes, row.n_ops)[0]:.5f} ms ({bound(row.n_bytes, row.n_ops)[1]}), measured bound "
+            f"{measured:.5f} ms"
+        ))
     summary = kernel_summary(kernels, counts, ceilings)
     log("time", f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -9,7 +9,9 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --barriers    # a barrier's cost
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --phases=transport_tiled  # load/store against compute
-    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --kernel-times  # the single-launch kernels, transport_tiled, dg1_sample_cfl per call
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --kernel-times  # the single-launch kernels, transport_tiled, dg1_sample_cfl, dg1_rk_stage per call
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --steps       # the headline dynamics step
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --steps --kernel-times=dg1_rk_stage  # the step, then dg1_rk_stage and transport_tiled
 
 ``--thresholds``: K1's schedule against the tiled one on the dynamics step
 at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
@@ -37,9 +39,14 @@ buffer (load, stages, store in turn) and the shipped persistent, double-buffered
 one. ``--kernel-times``: ``transport_tiled`` at 1024^2 and 4096^2,
 ``ho_single`` at 256^2 and 512^2, ``mevp_single`` at 256^2 uniform and
 512^2 and 1024^2 spherical, ``mevp_tiled`` on the same 1024^2 spherical
-carry, and ``dg1_sample_cfl`` at every shape the paths launch it, per call,
-as the host launches them (``kernel_times``, which also times an earlier
-checkout's kernels). Each
+carry, ``dg1_sample_cfl`` at every shape the paths launch it, and
+``dg1_rk_stage`` at the paths' shapes and forms (``STAGE_SHAPES``), per
+call, as the host launches them (``kernel_times``, which also times an
+earlier checkout's kernels); ``--kernel-times=dg1_rk_stage``: only
+``transport_tiled`` (which shares the stage's body) and ``dg1_rk_stage``.
+``--steps``: the headline dynamics step (256^2, K1's schedule: two
+``dg1_rk_stage`` launches a substep), mean and best of 20
+(``headline_step``), before any profiler session. Each
 line names the card and its power limit. Times are CUDA-event ms, the
 pairs in turns (a b b a); the rdma_band and transport_tiled sweeps, the
 phases and the kernel times also give the kernel's device time (the
@@ -49,6 +56,7 @@ profiler), since one call between two events can be the host's issue.
 from __future__ import annotations
 
 import ctypes
+import inspect
 import sys
 import time
 from dataclasses import replace
@@ -64,6 +72,7 @@ from ..dynamics.kernels import ho_single_cuda, ho_tiled_cuda, mevp_single_cuda, 
 from ..dynamics.kernels import mevp_rdma_cuda as rdma_cuda
 from ..dynamics.kernels import transport_tiled_cuda
 from ..dynamics.mevp import UNIFORM_CONSTS, DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
+from ..dynamics.transport import velocity_from_cg
 from .common import best_ms, card, device_ms, require_cuda, with_high_order
 
 DT = 600.0
@@ -507,6 +516,34 @@ SINGLE_SIZES = ((256, False), (512, True), (1024, True))
 CFL_SHAPES = ((256, 0, False), (1024, 0, False), (1024, 0, True), (4096, 0, False), (2048, 8, False))
 
 
+#: dg1_rk_stage's shapes and forms (n, spherical, form): one rk2 stage
+#: ("blend", a = b = 0.5) at the headline's 256^2, the first stage and rk1
+#: ("first", a = 0) there, the blended stage at 1024^2 (rk3 on one device,
+#: ``transport_backend="xla"``) and on the spherical coastline window (the
+#: metric form), the HO path's qv form at 256^2, and the blended stage at
+#: config 5's 4096^2 (rk3 on its single device).
+STAGE_SHAPES = (
+    (256, False, "blend"), (256, False, "first"), (1024, False, "blend"), (1024, True, "blend"),
+    (256, False, "qv"), (4096, False, "blend"),
+)
+
+
+def stage_inputs(n: int, spherical: bool, device, seed: int = 0):
+    """(transport, tracers, u, v, face masks): ``transport_inputs`` at n^2
+    with all-ones face masks, or the spherical window with the synthetic
+    coastline (its metric planes and face masks) and a seeded velocity."""
+    if not spherical:
+        transport, psi, u, v = transport_inputs(n, device, seed)
+        ones = torch.ones_like(u)
+        return transport, psi, u, v, (ones, ones)
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.tensor(x, device=device, dtype=torch.float32)
+    model = CoupledModel(_mesh(n, True), ocean_mask=synthetic_coastline(n))
+    u, v = t(rng.normal(0.0, 0.2, (n, n))), t(rng.normal(0.0, 0.2, (n, n)))
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, n, n)), rng.normal(0.0, 0.3, (2, 3, n, n))]))
+    return model.transport, psi, u, v, model.face_masks(device=device, dtype=torch.float32)
+
+
 def cfl_inputs(n: int, halo: int, spherical: bool, device, seed: int = 0):
     """(transport, u, v): config 4's mesh at n^2 (or the spherical window)
     and a seeded velocity, widened by ``halo`` on every side."""
@@ -519,26 +556,31 @@ def cfl_inputs(n: int, halo: int, spherical: bool, device, seed: int = 0):
 
 def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100,
                  single_sizes=SINGLE_SIZES, tiled_sizes=((1024, True),), cfl_shapes=CFL_SHAPES,
-                 stage_sizes=(256,)) -> dict:
+                 stage_sizes=STAGE_SHAPES) -> dict:
     """ms per call of the launches the host picks for ``transport_tiled``
     (one rk2 substep on ``transport_inputs`` at each of ``transport_sizes``),
     ``ho_single`` (``n_sub`` HO subcycles on ``seeded_ho_phase`` at each of
     ``ho_sizes``), ``mevp_single`` and ``mevp_tiled`` (``n_sub`` subcycles on
     ``seeded_phase`` at each (n, spherical) of ``single_sizes`` and
     ``tiled_sizes``), ``dg1_sample_cfl`` (at each (n, halo, spherical)
-    of ``cfl_shapes``) and ``dg1_rk_stage`` (one rk2 stage, a = b = 0.5, on
-    ``transport_inputs`` at each of ``stage_sizes``): the kernel's device
+    of ``cfl_shapes``) and ``dg1_rk_stage`` (one stage on ``stage_inputs``
+    at each (n, spherical, form) of ``stage_sizes``: "blend" a = b = 0.5,
+    "first" a = 0, "qv" the blended stage on the quadrature samples of the
+    same velocity, skipped where the checkout's wrapper has no qv form):
+    the kernel's device
     duration per call (profiler,
     mean of 20 calls; a launch's mean times the launches of a call) and the
     call back to back (CUDA events, best of 5); printed, and returned by
-    (kernel, n) (dg1_sample_cfl: (kernel, (n, halo, spherical))) as
-    (device, back to back). It calls the wrappers by the signatures they
+    (kernel, n) (dg1_sample_cfl: (kernel, (n, halo, spherical));
+    dg1_rk_stage: (kernel, (n, spherical, form))) as (device, back to back). It calls the wrappers by the signatures they
     have had since they were ported and nothing newer at import, so this
     file copied into an earlier checkout times that checkout's kernels on
     the same inputs (PERF.md). On the CPU (the tests) the plain versions
     run once each."""
     device = torch.device(device)
     on_card = device.type == "cuda"
+    if on_card:
+        device = require_cuda(device)  # with its index, as the wrappers check it
     where = card(device)["nvidia_smi"] if on_card else "cpu"
     cases = []
     for n in transport_sizes:
@@ -566,16 +608,25 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
         else:
             fn = lambda t=transport, u=u, v=v, h=halo: cc.dg1_sample_cfl_reference(t, u, v, halo=h)
         cases.append(("dg1_sample_cfl", (n, halo, spherical), what, fn))
-    for n in stage_sizes:
-        transport, psi, u, v = transport_inputs(n, device)
-        ones = torch.ones_like(u)
-        args = (transport, psi, psi.flip(-1).contiguous(), u, v, ones, ones, 0.5, 0.5, DT)
+    has_qv = "qv" in inspect.signature(cc._dg1_rk_stage_).parameters
+    for n, spherical, form in stage_sizes:
+        if form == "qv" and not has_qv:
+            print(f"dg1_rk_stage {n}x{n} qv form: not in this checkout", flush=True)
+            continue
+        transport, psi, u, v, faces = stage_inputs(n, spherical, device)
+        a, b = (0.0, 1.0) if form == "first" else (0.5, 0.5)
+        args = (transport, psi, psi.flip(-1).contiguous(), u, v, *faces, a, b, DT)
+        qv = velocity_from_cg(transport.mesh, transport.basis, u, v) if form == "qv" else None
         if on_card:
             out_psi, tables, stream = torch.empty_like(psi), cc._dg1_tables(transport), cc._stream(device)
-            fn = lambda a=args, o=out_psi, t=tables: cc._dg1_rk_stage_(*a[1:7], None, o, *a[7:], t, stream)
+            metric = cc._dg1_metric(transport, device)
+            qv_kw = {} if qv is None else {"qv": cc._dg1_qv(qv, (n, n), device)}
+            fn = lambda a=args, o=out_psi, t=tables, m=metric, kw=qv_kw: cc._dg1_rk_stage_(
+                *a[1:7], m, o, *a[7:], t, stream, **kw)
         else:
-            fn = lambda a=args: cc.dg1_rk_stage_reference(*a)
-        cases.append(("dg1_rk_stage", n, "one stage of 3 tracers", fn))
+            fn = lambda a=args, q=qv: cc.dg1_rk_stage_reference(*a, **({} if q is None else {"qv": q}))
+        what = f"one {'metric ' if spherical else ''}stage ({form}) of 3 tracers"
+        cases.append(("dg1_rk_stage", (n, spherical, form), what, fn))
     out = {}
     for kernel, n, what, fn in cases:
         if on_card:
@@ -587,9 +638,42 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
             ms = dev = _seconds(fn) * 1e3
         out[(kernel, n)] = (dev, ms)
         size = f"{n[0]}x{n[0]}" if isinstance(n, tuple) else f"{n}x{n}"
+        if kernel == "dg1_rk_stage":
+            size += " spherical" if n[1] else ""
         print(f"{kernel} {size}: device {dev:.5f} ms, back to back {ms:.5f} ms per call of {what} on {where}",
               flush=True)
     return out
+
+
+def headline_step(device, n: int = 256, reps: int = 20) -> tuple:
+    """ms per headline dynamics step (``bench.py``'s configuration: a closed
+    n^2 mesh of 512 km, 100 subcycles, K1's schedule, whose transport is two
+    ``dg1_rk_stage`` launches a substep): the mean of ``reps`` back-to-back
+    steps and the best single step (CUDA events); printed with the card.
+    On the CPU (the tests) the plain path runs once."""
+    device = torch.device(device)
+    mesh = RectMesh(n, n, dx=512e3 / n, dy=512e3 / n)
+    model = CoupledModel(mesh, n_subcycles=100, mevp_backend="pallas")
+    state = model.initial_state(
+        hice0=1.0, cice0=0.9, hsnow0=0.05, sst0=-1.6, sss0=32.0, device=device, dtype=torch.float32,
+    )
+    full = lambda value: torch.full((n, n), value, device=device, dtype=torch.float32)
+    forcing = DynamicsForcing(u_atm=full(8.0), v_atm=full(2.0), u_ocean=full(0.02), v_ocean=full(0.0))
+    step = lambda: model.step(state, None, forcing, DT, do_thermo=False)
+    if device.type != "cuda":
+        return (_seconds(step) * 1e3,) * 2
+    step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    mean, best = start.elapsed_time(end) / reps, best_ms(step, reps)
+    print(f"headline dynamics step {n}x{n} (K1's schedule): {mean:.4f} ms mean of {reps} back to back, "
+          f"best {best:.4f} ms on {card(device)['nvidia_smi']}", flush=True)
+    return mean, best
 
 
 #: mevp_single's sweep, (n, const planes in shared memory, tile); None:
@@ -737,8 +821,12 @@ def main(argv=None) -> int:
         sweep_ho_single_syncs(device)
     if "--phases=transport_tiled" in argv:
         phases_transport_tiled(device)
+    if "--steps" in argv:  # host-bound: before any profiler session
+        headline_step(device)
     if "--kernel-times" in argv:
         kernel_times(device)
+    if "--kernel-times=dg1_rk_stage" in argv:
+        kernel_times(device, ho_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=())
     if "--tiles" in argv or "--tiles=mevp_single" in argv:
         sweep_mevp_single(device)
     sizes = [int(a) for a in argv if not a.startswith("--")]

@@ -161,7 +161,7 @@ def bench_coupled_1m(
     ])
     return _result(
         f"coupled thermo+dynamics element updates/s ({n}x{n} = {n * n / 1e6:.2g}M elements{tags}, "
-        f"{model.mevp_schedule()}, f32)", n * n, chunk, best,
+        f"{model.schedule(device)[0]}, f32)", n * n, chunk, best,
     )
 
 

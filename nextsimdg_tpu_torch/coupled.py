@@ -49,7 +49,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .dynamics.kernels.coupled_cuda import dynamics_phase
+from .dynamics.kernels import mevp_single_cuda
+from .dynamics.kernels.coupled_cuda import dynamics_phase, sm_count
 from .dynamics.mesh import RectMesh
 from .dynamics.mevp import SPMD_BACKENDS, DynamicsForcing, MEVPParams, VelocityState
 from .dynamics.mevp_ho import (
@@ -79,7 +80,8 @@ TILED_MIN_ELEMENTS = 64 * 64
 #: against 4.24, 4.01 ms), where the kernel it replaced tied at 512^2 and
 #: lost 2x at 1024^2. 1024^2 is the largest square grid it holds on the
 #: H100's 132 SMs (``mevp_single_cuda.largest_square``), so "auto" takes it
-#: up to there. See PERF.md.
+#: up to there, where the card holds the grid (``mevp_schedule``). See
+#: PERF.md.
 SINGLE_MAX_ELEMENTS = 1024 * 1024 + 1
 
 
@@ -228,20 +230,43 @@ class CoupledModel:
         return isinstance(self.mevp, MEVPSolverHO)
 
     # -- kernel schedule -----------------------------------------------------
-    def mevp_schedule(self) -> str:
+    def mevp_schedule(self, sms: int = None) -> str:
         """``"pallas"`` (K1's schedule), ``"single"`` (mevp_single) or
         ``"pallas-tiled"`` (mevp_tiled); with the HO solver ``"single"``
         (ho_single) or ``"tiled"`` (ho_tiled); on a rank grid the exchange
-        schedule, ``"blocked"``, ``"rdma"`` or ``"xla"``."""
-        if self.is_high_order or self.exchange is not None:
+        schedule, ``"blocked"``, ``"rdma"`` or ``"xla"``.
+
+        ``sms``: the streaming multiprocessors of the card the step runs on
+        (None where there is none to ask, as on the CPU, whose plain path
+        ignores the schedule). "auto" takes a single-launch kernel only
+        where its tiles all fit on them (``holds``) and the tiled one
+        otherwise, as the JAX package asks ``pallas_supported`` first; an
+        explicit ``"pallas"`` on a grid the card does not hold raises in the
+        kernel's wrapper."""
+        if self.is_high_order:
+            return self.mevp.schedule(sms)
+        if self.exchange is not None:
             return self.mevp.schedule()
         backend = self.mevp_backend
-        if backend == "auto":
-            limit = TILED_MIN_ELEMENTS if self.mesh.uniform else SINGLE_MAX_ELEMENTS
-            backend = "pallas-tiled" if self.mesh.n_elements >= limit else "pallas"
-        if backend == "pallas" and not self.mesh.uniform:
+        mesh = self.mesh
+        if backend == "auto" and mesh.uniform:
+            backend = "pallas-tiled" if mesh.n_elements >= TILED_MIN_ELEMENTS else "pallas"
+        elif backend == "auto":
+            single = mesh.n_elements < SINGLE_MAX_ELEMENTS and (
+                sms is None or mevp_single_cuda.holds(mesh.nx, mesh.ny, sms)
+            )
+            backend = "pallas" if single else "pallas-tiled"
+        if backend == "pallas" and not mesh.uniform:
             return "single"
         return backend
+
+    def schedule(self, device) -> tuple:
+        """(``mevp_schedule``, ``transport_schedule``) of a step on
+        ``device``: on a CUDA card for its streaming multiprocessors (what
+        the step runs there), elsewhere with none to ask."""
+        device = torch.device(device)
+        sms = sm_count(device) if device.type == "cuda" else None
+        return self.mevp_schedule(sms), self.transport_schedule()
 
     def transport_schedule(self) -> str:
         """``"xla"`` (one dg1_rk_stage per stage; on a rank grid the plain
@@ -261,7 +286,11 @@ class CoupledModel:
                 )
             return "xla"
         if self.is_high_order:
-            return "xla" if self.transport_backend == "xla" else "tiled"
+            # transport_tiled runs rk1 and rk2; "auto" takes the staged
+            # dg1_rk_stage (the qv form) for rk3, as on the CG1 path.
+            if self.transport_backend != "auto":
+                return self.transport_backend
+            return "tiled" if self.transport.scheme in ("rk1", "rk2") else "xla"
         if self.mevp_schedule() == "pallas":
             return "xla"
         if self.transport_backend != "auto":
@@ -384,9 +413,8 @@ class CoupledModel:
         tracers = torch.stack([hice, cice, hsnow], dim=1)
         carry0 = (velocity.u, velocity.v, velocity.s11, velocity.s22, velocity.s12)
         if phase is None:
-            phase = functools.partial(
-                dynamics_phase, mevp=self.mevp_schedule(), transport=self.transport_schedule()
-            )
+            mevp, transport = self.schedule(hice.device)
+            phase = functools.partial(dynamics_phase, mevp=mevp, transport=transport)
         faces = self.face_masks(device=hice.device, dtype=hice.dtype)
         final, tracers = phase(self, carry0, tracers, consts, dt, self.n_subcycles, faces)
         velocity_cls = HOVelocityState if self.is_high_order else VelocityState

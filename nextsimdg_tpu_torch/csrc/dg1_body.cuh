@@ -1,9 +1,18 @@
-// One limited SSP-RK stage of the dG1 transport, one element at a time.
+// One limited SSP-RK stage of the dG1 transport: the face fluxes and the
+// element update.
 //
-// Both schedules of the transport phase call dg1_stage_cell: transport.cu
-// (one grid-wide launch per RK stage) and transport_tiled.cu (whole substeps
-// per launch on a shared-memory window). With --fmad=false they run the
-// same float32 operations in the same order, so they agree bit for bit.
+// Both schedules of the transport phase run these bodies: transport.cu
+// (dg1_rk_stage, one launch per RK stage: each face's flux computed once by
+// dg1_face_flux and shared by its two elements' dg1_stage_update) and
+// transport_tiled.cu (whole substeps per launch on a shared-memory window:
+// dg1_stage_cell, an element's four fluxes and its update in one body).
+// With --fmad=false they run the same float32 operations on the same
+// values, so they agree bit for bit. dg1_stage_cell keeps the operations of
+// dg1_face_flux and dg1_stage_update written out: composed from them,
+// transport_tiled compiled to other registers and ran 2% slower on the
+// H100 (PERF.md). Both schedules take the velocity sampled from the
+// CG1 nodes (sample_velocity, bilinear, along_face) or the HO path's
+// precomputed quadrature velocity (Dg1QvPlanes).
 //
 // The dG1 and 2-point Gauss table entries arrive in Dg1Tables, packed by
 // coupled_cuda.py from the port's DGTransport, so the kernels and the plain
@@ -97,6 +106,36 @@ __device__ __forceinline__ Dg1Velocity sample_velocity(const Dg1Tables& tb,
   return q;
 }
 
+// The precomputed quadrature velocity of the HO path (QuadVelocity), each a
+// read-only (nx, ny) plane; the host packs them in this order.
+struct Dg1QvPlanes {
+  const float* vx[kVol];
+  const float* vy[kVol];
+  const float* vn_x[kEdge];  // the left face of element (i, j)
+  const float* vn_y[kEdge];  // its bottom face
+};
+
+// Element (i, j)'s velocity from the precomputed planes; its right and top
+// faces are those of elements (i+1, j) and (i, j+1) (zero beyond the domain,
+// where there is no flux).
+__device__ __forceinline__ Dg1Velocity load_qv(const Dg1QvPlanes& qv, long ij, int ny,
+                                               bool has_right, bool has_top) {
+  Dg1Velocity q;
+#pragma unroll
+  for (int k = 0; k < kVol; ++k) {
+    q.vx[k] = __ldg(qv.vx[k] + ij);
+    q.vy[k] = __ldg(qv.vy[k] + ij);
+  }
+#pragma unroll
+  for (int e = 0; e < kEdge; ++e) {
+    q.vn_left[e] = __ldg(qv.vn_x[e] + ij);
+    q.vn_right[e] = has_right ? __ldg(qv.vn_x[e] + ij + ny) : 0.0f;
+    q.vn_bottom[e] = __ldg(qv.vn_y[e] + ij);
+    q.vn_top[e] = has_top ? __ldg(qv.vn_y[e] + ij + 1) : 0.0f;
+  }
+  return q;
+}
+
 // Where an element sits against the closed domain, and its face masks: the
 // global x = 0 and y = 0 faces are walls (zero flux), and beyond nx or ny
 // there is no right or top neighbour.
@@ -136,11 +175,108 @@ __device__ __forceinline__ Dg1Metric load_metric(const Dg1MetricPlanes& m, long 
   return g;
 }
 
-// out = lim(a*base + b*(p + dt*rhs(p))), or lim(p + dt*rhs(p)) when a == 0,
-// for one tracer of one element: p its coefficients, p_l/p_r/p_b/p_t those
-// of its left, right, bottom and top neighbours (zeros beyond the domain).
-// `base` is read only when a != 0; `g` only with kMetric.
+// The upwind normal flux at point e of one face, between the element `lo`
+// below it (left or bottom) and the element `hi` above it (right or top):
+// vn times the trace of the upwind side, 0 where the face is closed (a
+// global x = 0 or y = 0 wall, or beyond the domain), times the face's
+// coastline mask and, with kMetric, its length. The two elements of a face
+// would run the same operations on the same values, so the flux is the
+// same float32 number whichever of them computes it. lo_table, hi_table:
+// psi_x1, psi_x0 on an x face, psi_y1, psi_y0 on a y face. The upwind
+// side's table entries and coefficients are picked first and one trace runs
+// on them: the operations of dg1_stage_cell's trace on the same values,
+// with no branch (written as a choice between two traces, it compiles to a
+// divergent branch on the sign of vn, which cost the kernel 2-4%).
 template <bool kMetric>
+__device__ __forceinline__ float dg1_face_flux(const float lo_table[kDofs][kEdge],
+                                               const float hi_table[kDofs][kEdge], int e,
+                                               float vn, const float lo[kDofs],
+                                               const float hi[kDofs], bool open, float mask,
+                                               float len) {
+  const bool from_lo = vn >= 0.0f;
+  float up = (from_lo ? lo_table[0][e] : hi_table[0][e]) * (from_lo ? lo[0] : hi[0]);
+#pragma unroll
+  for (int k = 1; k < kDofs; ++k)
+    up = up + (from_lo ? lo_table[k][e] : hi_table[k][e]) * (from_lo ? lo[k] : hi[k]);
+  float g = open ? vn * up : 0.0f;
+  g = g * mask;
+  if (kMetric) g = g * len;
+  return g;
+}
+
+// An element's four face fluxes at the 2 points of each face.
+struct Dg1Fluxes {
+  float left[kEdge], right[kEdge], bottom[kEdge], top[kEdge];
+};
+
+// out = lim(a*base + b*(p + dt*rhs(p))), or lim(p + dt*rhs(p)) when a == 0
+// or without kBlend, for one tracer of one element: p its coefficients, vx
+// and vy its volume velocity, fl its face fluxes (dg1_face_flux). `base`
+// is read only with kBlend and a != 0; `g` only with kMetric.
+template <bool kMetric, bool kBlend = true>
+__device__ __forceinline__ void dg1_stage_update(
+    const Dg1Tables& tb, const float vx[kVol], const float vy[kVol], const Dg1Metric& g,
+    const float p[kDofs], const Dg1Fluxes& fl, const float base[kDofs], float a, float b,
+    float dt, float out[kDofs]) {
+  // Volume term, streamed over the quadrature points.
+  float acc_x[kDofs], acc_y[kDofs];
+#pragma unroll
+  for (int k = 0; k < kVol; ++k) {
+    float pq = tb.psi_vol[0][k] * p[0];
+#pragma unroll
+    for (int d = 1; d < kDofs; ++d) pq = pq + tb.psi_vol[d][k] * p[d];
+    const float fx = vx[k] * pq;
+    const float fy = vy[k] * pq;
+#pragma unroll
+    for (int d = 0; d < kDofs; ++d) {
+      acc_x[d] = k == 0 ? tb.wgx[k][d] * fx : acc_x[d] + tb.wgx[k][d] * fx;
+      acc_y[d] = k == 0 ? tb.wgy[k][d] * fy : acc_y[d] + tb.wgy[k][d] * fy;
+    }
+  }
+
+  float val[kDofs];
+#pragma unroll
+  for (int d = 0; d < kDofs; ++d) {
+    const float volume = kMetric ? acc_x[d] * g.inv_dx + acc_y[d] * g.inv_dy
+                                 : acc_x[d] * tb.inv_dx + acc_y[d] * tb.inv_dy;
+    float in_x = tb.wa_x1[d][0] * fl.right[0];
+    float out_x = tb.wa_x0[d][0] * fl.left[0];
+    float in_y = tb.wa_y1[d][0] * fl.top[0];
+    float out_y = tb.wa_y0[d][0] * fl.bottom[0];
+#pragma unroll
+    for (int e = 1; e < kEdge; ++e) {
+      in_x = in_x + tb.wa_x1[d][e] * fl.right[e];
+      out_x = out_x + tb.wa_x0[d][e] * fl.left[e];
+      in_y = in_y + tb.wa_y1[d][e] * fl.top[e];
+      out_y = out_y + tb.wa_y0[d][e] * fl.bottom[e];
+    }
+    const float edge_x = (in_x - out_x) * (kMetric ? g.inv_area : tb.edge_inv_dx);
+    const float edge_y = (in_y - out_y) * (kMetric ? g.inv_area : tb.edge_inv_dy);
+    const float rhs = tb.inv_mass[d] * (volume - edge_x - edge_y);
+    val[d] = p[d] + dt * rhs;
+    if (kBlend && a != 0.0f) val[d] = a * base[d] + b * val[d];
+  }
+
+  // dG1 positivity limiter: the linear polynomial's minimum is at a
+  // corner, mean - (|s1| + |s2|)/2.
+  const float mean = val[0];
+  const float mins = mean - 0.5f * (fabsf(val[1]) + fabsf(val[2]));
+  const float deficit = mean - mins;
+  const float theta =
+      mins < 0.0f ? fminf(fmaxf(mean / (deficit > 0.0f ? deficit : 1.0f), 0.0f), 1.0f)
+                  : 1.0f;
+  out[0] = mean;
+  out[1] = val[1] * theta;
+  out[2] = val[2] * theta;
+}
+
+// out = lim(a*base + b*(p + dt*rhs(p))), or lim(p + dt*rhs(p)) when a == 0
+// or without kBlend, for one tracer of one element: p its coefficients,
+// p_l/p_r/p_b/p_t those of its left, right, bottom and top neighbours
+// (zeros beyond the domain): dg1_face_flux on its four faces, then
+// dg1_stage_update, written out in one body. `base` is read only with
+// kBlend and a != 0; `g` only with kMetric.
+template <bool kMetric, bool kBlend = true>
 __device__ __forceinline__ void dg1_stage_cell(
     const Dg1Tables& tb, const Dg1Velocity& q, const Dg1Faces& f, const Dg1Metric& g,
     const float p[kDofs], const float p_l[kDofs], const float p_r[kDofs],
@@ -206,7 +342,7 @@ __device__ __forceinline__ void dg1_stage_cell(
     const float edge_y = (in_y - out_y) * (kMetric ? g.inv_area : tb.edge_inv_dy);
     const float rhs = tb.inv_mass[d] * (volume - edge_x - edge_y);
     val[d] = p[d] + dt * rhs;
-    if (a != 0.0f) val[d] = a * base[d] + b * val[d];
+    if (kBlend && a != 0.0f) val[d] = a * base[d] + b * val[d];
   }
 
   // dG1 positivity limiter: the linear polynomial's minimum is at a

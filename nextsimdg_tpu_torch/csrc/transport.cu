@@ -31,18 +31,21 @@
 //                  velocity widened by the halo exchange, so that the nodes
 //                  beyond the block are its neighbours' and not zeros.
 //   dg1_rk_stage   (elements): out = lim(a*base + b*(psi + dt*rhs(psi))), or
-//                  lim(psi + dt*rhs(psi)) when a == 0, for all T tracers x 3
-//                  dofs. It re-samples the velocity from u and v instead of
-//                  reading 12 quadrature planes, zeroes the global x = 0 and
-//                  y = 0 wall faces, multiplies the fluxes by the face_x and
-//                  face_y planes (all ones without a coastline), on a graded
-//                  or spherical mesh reads the transport's 5 metric planes,
-//                  and applies the dG1 corner positivity limiter. It reads
-//                  its neighbours' psi, so `out` must not alias `psi` (it
-//                  may alias `base`).
+//                  lim(psi + dt*rhs(psi)) when a == 0, for the 3 tracers x 3
+//                  dofs, one launch per RK stage (the TPU kernel's k loop,
+//                  coupled_pallas.py:113-128). The velocity is sampled from
+//                  the CG1 nodes u and v, or (the qv form, the HO path) read
+//                  from the 12 quadrature planes of ho_velocity_to_quad. It
+//                  zeroes the global x = 0 and y = 0 wall faces, multiplies
+//                  the fluxes by the face_x and face_y planes (all ones
+//                  without a coastline), on a graded or spherical mesh reads
+//                  the transport's 5 metric planes, and applies the dG1
+//                  corner positivity limiter. It reads its neighbours' psi,
+//                  so `out` must not alias `psi` (it may alias `base`).
 //
-// The tables, the velocity sampling and the per-element stage math live in
-// dg1_body.cuh, shared with the tiled schedule of transport_tiled.cu.
+// The tables, the velocity sampling and the per-face and per-element stage
+// math live in dg1_body.cuh, shared with the tiled schedule of
+// transport_tiled.cu.
 //
 // What bounds dg1_sample_cfl on the H100: the 8 bytes of u and v per node,
 // read once (64 MiB each at 4096^2, ~40 us at the data sheet's 3.35 TB/s);
@@ -50,46 +53,41 @@
 // 8 scalar loads and two atomicMax per block of 256 threads on the same two
 // words (131,072 of them at 4096^2), after a memset (PERF.md).
 //
-// What bounds dg1_rk_stage on the H100: a stage reads u, v, the two face planes and
-// 9 coefficient planes with a 5-point stencil, and writes 9 (about 88 bytes
-// per element when the neighbours hit in cache); the whole phase at 256^2
-// stays in L2, so again launch latency bounds it (2 stages per substep).
-// Keeping k on the device and fusing the stages is left for later.
+// What bounds dg1_rk_stage on the H100: its bytes would take 0.0024 ms at
+// 256^2 on the data sheet (31 planes an element blended, 22 without the
+// base, 41 in the qv form), but the first form ran at 40% of that. It ran
+// one element a thread in 32 x 8 blocks, 16 resident warps an SM at 256^2,
+// each thread walking the tracers with 15 dependent neighbour loads a
+// tracer; every coefficient was fetched 5 times and every interior face's
+// flux computed twice, once by each side: a latency- and issue-bound
+// kernel. This design: a tile of 4 x 32 elements a block of 384 threads,
+// one thread an element and tracer, four blocks an SM (48 warps at 256^2,
+// under a 40-register bound). The threads first copy the tile's windows
+// into shared memory by 16-byte cp.async (4-byte where a plane or its rows
+// are not 16-byte aligned), each window once and every thread a share of
+// each: the coefficients with a one-cell apron, then the CG1 nodes or the
+// qv planes, the face masks and the metric planes, all one shape so that
+// one flat loop takes them; meanwhile each thread loads its own base (only
+// in the blended instantiation). Then each face's flux is computed once,
+// by the element above or right of it (the tile's far faces by its last
+// row and first row's lanes), into shared memory, where its two elements
+// read it: with --fmad=false both sides would run the same operations on
+// the same values, so sharing changes no bit. In the CG1 form the
+// element's 8 volume velocities are sampled once, split over its 3 tracer
+// threads. After a barrier each thread updates its element. The blend, the
+// velocity source and the metric are template arguments. No tensor cores
+// (an FP32 stencil) and no TMA tensor copies (they faulted with an illegal
+// instruction under driver 580.159.03, CUDA 13.0: PERF.md).
 #include <cuda/atomic>
 
 #include <algorithm>
 #include <atomic>
 #include <cstring>
 
+#include "async_copy.cuh"
 #include "dg1_body.cuh"
 
 namespace nst {
-
-__device__ __forceinline__ Corners load_corners(const float* u, const float* v,
-                                                int i, int j, int nx, int ny) {
-  Corners c;
-  c.u00 = at(u, i, j, nx, ny);
-  c.u10 = at(u, i + 1, j, nx, ny);
-  c.u01 = at(u, i, j + 1, nx, ny);
-  c.u11 = at(u, i + 1, j + 1, nx, ny);
-  c.v00 = at(v, i, j, nx, ny);
-  c.v10 = at(v, i + 1, j, nx, ny);
-  c.v01 = at(v, i, j + 1, nx, ny);
-  c.v11 = at(v, i + 1, j + 1, nx, ny);
-  return c;
-}
-
-__device__ __forceinline__ void load_coeffs(const float* psi, int t, int n_tracers,
-                                            int i, int j, int nx, int ny,
-                                            float c[kDofs]) {
-  const long plane = static_cast<long>(nx) * ny;
-#pragma unroll
-  for (int k = 0; k < kDofs; ++k) {
-    c[k] = (i >= 0 && i < nx && j >= 0 && j < ny)
-               ? psi[(k * n_tracers + t) * plane + static_cast<long>(i) * ny + j]
-               : 0.0f;
-  }
-}
 
 constexpr int kCflThreads = 256;
 constexpr int kCflMaxRows = 32;  // rows a warp walks down a strip, at most, before it takes the next
@@ -259,48 +257,241 @@ int cfl_resident_blocks(int device) {
   return per_sm * sms;
 }
 
-template <bool kMetric>
-__global__ void dg1_rk_stage_kernel(
-    const float* __restrict__ psi, const float* base, const float* __restrict__ u,
-    const float* __restrict__ v, const float* __restrict__ face_x,
-    const float* __restrict__ face_y, Dg1MetricPlanes m, float* out, int nx, int ny,
-    int n_tracers, float a, float b, float dt, Dg1Tables tb) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  const int ij = i * ny + j;
+// -- dg1_rk_stage ---------------------------------------------------------------
+constexpr int kStageCols = 32;    // a tile: 32 elements along j (a warp's lanes) ...
+constexpr int kStageRows = 4;     // ... by 4 along i
+constexpr int kStageTracers = 3;  // hice, cice, hsnow: one warp a tracer and row
+constexpr int kStageThreads = kStageCols * kStageRows * kStageTracers;
+constexpr int kStageBlocksPerSm = 4;  // 48 warps an SM, at most 40 registers a thread
+// The coefficient window: rows i0 - 1 ... i0 + kStageRows, columns from
+// j0 - 4 (16-byte aligned; j0 - 1 is the left apron) to j0 + kStageCols + 3.
+constexpr int kPsiPitch = kStageCols + 8;
+constexpr int kPsiLead = 4;
+// Every other window: rows i0 ... i0 + kStageRows (the x faces below the
+// next tile, the nodes' last row), columns j0 ... j0 + kStageCols + 3 (the
+// y faces left of the next tile, the nodes' last column).
+constexpr int kWinRows = kStageRows + 1;
+constexpr int kWinPitch = kStageCols + 4;
+constexpr int kMaxWindows = 12 + 2 + 5;
+
+// The windows of a form, in the order of StageArgs::win: the velocity (CG1:
+// u, v; qv: vx[4], vy[4], vn_x[2], vn_y[2]), face_x, face_y, then with
+// kMetric len_x, len_y, inv_dx, inv_dy, inv_area.
+template <bool kMetric, bool kQv>
+struct StageWindows {
+  static constexpr int kVelocity = kQv ? 2 * kVol + 2 * kEdge : 2;
+  static constexpr int kFaceX = kVelocity, kFaceY = kVelocity + 1;
+  static constexpr int kLenX = kVelocity + 2, kLenY = kVelocity + 3;
+  static constexpr int kInv = kVelocity + 4;  // inv_dx, inv_dy, inv_area
+  static constexpr int kCount = kVelocity + 2 + (kMetric ? 5 : 0);
+};
+
+// Everything a launch takes.
+struct StageArgs {
+  const float* psi;   // (3 kStageTracers, nx, ny)
+  const float* base;  // read only with kBlend; may alias out
+  float* out;
+  const float* win[kMaxWindows];  // StageWindows' planes
+  int nx, ny;
+  int vector;         // 16-byte copies (every plane 16-byte aligned, ny % 4 == 0)
+  float a, b, dt;
+  Dg1Tables tb;
+};
+
+// A tile's windows in shared memory (beyond the domain, zeros), the CG1
+// form's sampled volume velocity and the face fluxes.
+template <int kWindows, bool kSampled>
+struct alignas(16) StageTile {
+  float psi[kDofs * kStageTracers][kStageRows + 2][kPsiPitch];  // plane d * 3 + t
+  float win[kWindows][kWinRows][kWinPitch];
+  float vol[kSampled ? 2 * kVol : 1][kStageRows][kStageCols];  // vx, then vy
+  float gx[kStageTracers][kEdge][kStageRows + 1][kStageCols];  // x face i0 + r
+  float gy[kStageTracers][kEdge][kStageRows][kStageCols + 1];  // y face j0 + c
+};
+
+// Copies the tile's windows by cp.async, every thread of the block a share
+// of each: kVec 4, 16-byte copies (ny % 4 == 0, every plane 16-byte
+// aligned), or 4-byte ones.
+template <int kVec, class Tile>
+__device__ __forceinline__ void copy_tile(const StageArgs& g, Tile& s, int n_windows, int i0,
+                                          int j0, int tid) {
+  const int nx = g.nx, ny = g.ny;
   const long plane = static_cast<long>(nx) * ny;
+  constexpr int kPsiChunks = kPsiPitch / kVec, kPsiItems = (kStageRows + 2) * kPsiChunks;
+  for (int c = tid; c < kDofs * kStageTracers * kPsiItems; c += kStageThreads) {
+    const int k = c / kPsiItems, rem = c - k * kPsiItems;
+    const int row = rem / kPsiChunks, col = (rem - row * kPsiChunks) * kVec;
+    const int a = i0 - 1 + row, b = j0 - kPsiLead + col;
+    const bool valid = a >= 0 && a < nx && b >= 0 && b < ny;
+    cp_async<kVec>(&s.psi[k][row][col],
+                   valid ? g.psi + k * plane + static_cast<long>(a) * ny + b : g.psi, valid);
+  }
+  constexpr int kWinChunks = kWinPitch / kVec, kWinItems = kWinRows * kWinChunks;
+  for (int c = tid; c < n_windows * kWinItems; c += kStageThreads) {
+    const int k = c / kWinItems, rem = c - k * kWinItems;
+    const int row = rem / kWinChunks, col = (rem - row * kWinChunks) * kVec;
+    const int a = i0 + row, b = j0 + col;
+    const bool valid = a < nx && b < ny;
+    const float* src = g.win[k];
+    cp_async<kVec>(&s.win[k][row][col], valid ? src + static_cast<long>(a) * ny + b : src, valid);
+  }
+  cp_async_commit();
+}
 
-  const Dg1Velocity q = sample_velocity(tb, load_corners(u, v, i, j, nx, ny));
-  Dg1Faces f;
-  f.left_wall = i == 0;
-  f.has_right = i + 1 < nx;
-  f.bottom_wall = j == 0;
-  f.has_top = j + 1 < ny;
-  f.fx_left = face_x[ij];
-  f.fx_right = f.has_right ? face_x[ij + ny] : 0.0f;
-  f.fy_bottom = face_y[ij];
-  f.fy_top = f.has_top ? face_y[ij + 1] : 0.0f;
-  Dg1Metric g = {};
-  if (kMetric) g = load_metric(m, ij, ny, f.has_right, f.has_top);
+// The 3 coefficients of tracer t at coefficient-window row r, column c.
+template <class Tile>
+__device__ __forceinline__ void tile_coeffs(const Tile& s, int t, int r, int c, float p[kDofs]) {
+#pragma unroll
+  for (int d = 0; d < kDofs; ++d) p[d] = s.psi[d * kStageTracers + t][r][c];
+}
 
-  for (int t = 0; t < n_tracers; ++t) {
-    float p[kDofs], p_l[kDofs], p_r[kDofs], p_b[kDofs], p_t[kDofs], p0[kDofs];
-    load_coeffs(psi, t, n_tracers, i, j, nx, ny, p);
-    load_coeffs(psi, t, n_tracers, i - 1, j, nx, ny, p_l);
-    load_coeffs(psi, t, n_tracers, i + 1, j, nx, ny, p_r);
-    load_coeffs(psi, t, n_tracers, i, j - 1, nx, ny, p_b);
-    load_coeffs(psi, t, n_tracers, i, j + 1, nx, ny, p_t);
+// The 2 points of x face i0 + r (between element rows i0 + r - 1 and
+// i0 + r) at column j0 + c, for tracer t, into s.gx.
+template <bool kMetric, bool kQv, class Tile>
+__device__ __forceinline__ void x_face(const StageArgs& g, Tile& s, int t, int r, int c,
+                                       const float lo[kDofs], const float hi[kDofs]) {
+  using W = StageWindows<kMetric, kQv>;
+  const int i = blockIdx.y * kStageRows + r;
+  const bool open = i > 0 && i < g.nx;
 #pragma unroll
-    for (int k = 0; k < kDofs; ++k) {
-      p0[k] = a != 0.0f ? base[(k * n_tracers + t) * plane + ij] : 0.0f;
-    }
-    float val[kDofs];
-    dg1_stage_cell<kMetric>(tb, q, f, g, p, p_l, p_r, p_b, p_t, p0, a, b, dt, val);
-#pragma unroll
-    for (int k = 0; k < kDofs; ++k) out[(k * n_tracers + t) * plane + ij] = val[k];
+  for (int e = 0; e < kEdge; ++e) {
+    const float vn = kQv ? s.win[2 * kVol + e][r][c]
+                         : along_face(g.tb.w_edge[e], s.win[0][r][c], s.win[0][r][c + 1]);
+    s.gx[t][e][r][c] = dg1_face_flux<kMetric>(g.tb.psi_x1, g.tb.psi_x0, e, vn, lo, hi, open,
+                                              s.win[W::kFaceX][r][c],
+                                              kMetric ? s.win[W::kLenX][r][c] : 0.0f);
   }
 }
+
+// The 2 points of y face j0 + c (between element columns j0 + c - 1 and
+// j0 + c) at row i0 + r, for tracer t, into s.gy.
+template <bool kMetric, bool kQv, class Tile>
+__device__ __forceinline__ void y_face(const StageArgs& g, Tile& s, int t, int r, int c,
+                                       const float lo[kDofs], const float hi[kDofs]) {
+  using W = StageWindows<kMetric, kQv>;
+  const int j = blockIdx.x * kStageCols + c;
+  const bool open = j > 0 && j < g.ny;
+#pragma unroll
+  for (int e = 0; e < kEdge; ++e) {
+    const float vn = kQv ? s.win[2 * kVol + kEdge + e][r][c]
+                         : along_face(g.tb.w_edge[e], s.win[1][r][c], s.win[1][r + 1][c]);
+    s.gy[t][e][r][c] = dg1_face_flux<kMetric>(g.tb.psi_y1, g.tb.psi_y0, e, vn, lo, hi, open,
+                                              s.win[W::kFaceY][r][c],
+                                              kMetric ? s.win[W::kLenY][r][c] : 0.0f);
+  }
+}
+
+// One limited SSP-RK stage on a tile of kStageRows x kStageCols elements,
+// one thread an element and tracer (a warp: one tracer of one row). 1. The
+// threads copy the windows by cp.async; each loads its own base. 2. Each
+// computes its element's left and bottom face fluxes for its tracer (the
+// tile's last row adds the faces below the next tile, the first row's
+// lanes the column left of it); in the CG1 form it also samples its share
+// of the element's 8 volume velocities. 3. Each updates its element from
+// the shared fluxes. kBlend: a != 0 (the base is read); kQv: the velocity
+// from the 12 qv planes.
+template <bool kMetric, bool kQv, bool kBlend>
+__global__ void __launch_bounds__(kStageThreads, kStageBlocksPerSm)
+dg1_rk_stage_kernel(const __grid_constant__ StageArgs g) {
+  using W = StageWindows<kMetric, kQv>;
+  __shared__ StageTile<W::kCount, !kQv> s;
+  const int lane = threadIdx.x, r = threadIdx.y, t = threadIdx.z;
+  const int tid = lane + kStageCols * (r + kStageRows * t);
+  const int i0 = blockIdx.y * kStageRows, j0 = blockIdx.x * kStageCols;
+  const int i = i0 + r, j = j0 + lane;
+  const int nx = g.nx, ny = g.ny;
+  const bool own = i < nx && j < ny;
+  const long plane = static_cast<long>(nx) * ny;
+  const long ij = static_cast<long>(i) * ny + j;
+
+  if (g.vector) {
+    copy_tile<4>(g, s, W::kCount, i0, j0, tid);
+  } else {
+    copy_tile<1>(g, s, W::kCount, i0, j0, tid);
+  }
+  float p0[kDofs] = {};
+  if (kBlend && own) {
+#pragma unroll
+    for (int d = 0; d < kDofs; ++d) p0[d] = g.base[(d * kStageTracers + t) * plane + ij];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. The fluxes of the element's left and bottom faces.
+  const int c = lane + kPsiLead;  // the element's column in the coefficient window
+  {
+    float p[kDofs], lo[kDofs];
+    tile_coeffs(s, t, r + 1, c, p);
+    tile_coeffs(s, t, r, c, lo);
+    x_face<kMetric, kQv>(g, s, t, r, lane, lo, p);
+    tile_coeffs(s, t, r + 1, c - 1, lo);
+    y_face<kMetric, kQv>(g, s, t, r, lane, lo, p);
+    if (r == kStageRows - 1) {  // the x face below the next tile's first row
+      float hi[kDofs];
+      tile_coeffs(s, t, r + 2, c, hi);
+      x_face<kMetric, kQv>(g, s, t, r + 1, lane, p, hi);
+    }
+    if (r == 0 && lane < kStageRows) {  // the y face left of the next tile, row `lane`
+      float hi[kDofs];
+      tile_coeffs(s, t, lane + 1, kPsiLead + kStageCols - 1, lo);
+      tile_coeffs(s, t, lane + 1, kPsiLead + kStageCols, hi);
+      y_face<kMetric, kQv>(g, s, t, lane, kStageCols, lo, hi);
+    }
+  }
+  if (!kQv) {
+    // The CG1 volume velocity, sampled once an element: value q by tracer q % 3.
+#pragma unroll
+    for (int q = 0; q < 2 * kVol; ++q) {
+      if (q % kStageTracers == t) {
+        const auto& f = s.win[q / kVol];  // u, then v
+        s.vol[q][r][lane] = bilinear(g.tb.w_vol[q % kVol], f[r][lane], f[r + 1][lane],
+                                     f[r][lane + 1], f[r + 1][lane + 1]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. The element's update from its four shared face fluxes.
+  if (!own) return;
+  float p[kDofs], vx[kVol], vy[kVol], val[kDofs];
+  tile_coeffs(s, t, r + 1, c, p);
+#pragma unroll
+  for (int k = 0; k < kVol; ++k) {
+    vx[k] = kQv ? s.win[k][r][lane] : s.vol[k][r][lane];
+    vy[k] = kQv ? s.win[kVol + k][r][lane] : s.vol[kVol + k][r][lane];
+  }
+  Dg1Fluxes fl;
+#pragma unroll
+  for (int e = 0; e < kEdge; ++e) {
+    fl.left[e] = s.gx[t][e][r][lane];
+    fl.right[e] = s.gx[t][e][r + 1][lane];
+    fl.bottom[e] = s.gy[t][e][r][lane];
+    fl.top[e] = s.gy[t][e][r][lane + 1];
+  }
+  Dg1Metric gm = {};
+  if (kMetric) {
+    gm.inv_dx = s.win[W::kInv][r][lane];
+    gm.inv_dy = s.win[W::kInv + 1][r][lane];
+    gm.inv_area = s.win[W::kInv + 2][r][lane];
+  }
+  dg1_stage_update<kMetric, kBlend>(g.tb, vx, vy, gm, p, fl, p0, g.a, g.b, g.dt, val);
+#pragma unroll
+  for (int d = 0; d < kDofs; ++d) g.out[(d * kStageTracers + t) * plane + ij] = val[d];
+}
+
+using StageKernel = void (*)(StageArgs);
+
+template <bool kMetric, bool kQv>
+StageKernel stage_kernel_of(bool blend) {
+  return blend ? dg1_rk_stage_kernel<kMetric, kQv, true> : dg1_rk_stage_kernel<kMetric, kQv, false>;
+}
+
+StageKernel stage_kernel_of(bool metric, bool qv, bool blend) {
+  if (metric) return qv ? stage_kernel_of<true, true>(blend) : stage_kernel_of<true, false>(blend);
+  return qv ? stage_kernel_of<false, true>(blend) : stage_kernel_of<false, false>(blend);
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 == 0; }
 
 }  // namespace nst
 
@@ -344,25 +535,55 @@ int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, unsigned i
   return static_cast<int>(cudaGetLastError());
 }
 
-// psi, base, out: (3, n_tracers, nx, ny); out may alias base, not psi.
-// metric: null on a uniform mesh, else the 5 plane pointers in the order
-// of Dg1MetricPlanes.
-int nst_dg1_rk_stage(const float* psi, const float* base, const float* u,
-                     const float* v, const float* face_x, const float* face_y,
-                     const void* const* metric, float* out, int nx, int ny,
-                     int n_tracers, float a, float b, float dt, const float* tables,
-                     int device, void* stream) {
+// One limited SSP-RK stage: psi, base, out (3, n_tracers, nx, ny), with
+// n_tracers 3 (the kernel's warps are laid out for hice, cice and hsnow);
+// out may alias base, not psi; base is read only where a != 0. The
+// velocity: the CG1 nodes u and v, or with qv (not null) the 12
+// quadrature-velocity plane pointers in the order of Dg1QvPlanes (u and v
+// are then not read). metric: null on a uniform mesh, else the 5 plane
+// pointers in the order of Dg1MetricPlanes. Returns cudaGetLastError();
+// does not synchronise.
+int nst_dg1_rk_stage(const float* psi, const float* base, const float* u, const float* v,
+                     const float* face_x, const float* face_y, const void* const* metric,
+                     const void* const* qv, float* out, int nx, int ny, int n_tracers, float a,
+                     float b, float dt, const float* tables, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nst::Dg1Tables tb;
-  std::memcpy(&tb, tables, sizeof(tb));
-  nst::Dg1MetricPlanes m = {};
-  if (metric != nullptr) std::memcpy(&m, metric, sizeof(m));
-  const auto kernel = metric != nullptr ? nst::dg1_rk_stage_kernel<true>
-                                        : nst::dg1_rk_stage_kernel<false>;
-  kernel<<<nst::plane_grid(nx, ny), nst::plane_block(), 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      psi, base, u, v, face_x, face_y, m, out, nx, ny, n_tracers, a, b, dt, tb);
+  if (nx < 1 || ny < 1 || n_tracers != nst::kStageTracers) return static_cast<int>(cudaErrorInvalidValue);
+  nst::StageArgs g = {};
+  g.psi = psi;
+  g.base = base;
+  g.out = out;
+  // The windows in the order of StageWindows.
+  int n = 0;
+  if (qv != nullptr) {
+    for (int k = 0; k < 12; ++k) g.win[n++] = static_cast<const float*>(qv[k]);
+  } else {
+    g.win[n++] = u;
+    g.win[n++] = v;
+  }
+  g.win[n++] = face_x;
+  g.win[n++] = face_y;
+  if (metric != nullptr) {  // Dg1MetricPlanes: inv_dx, inv_dy, len_x, len_y, inv_area
+    const int order[5] = {2, 3, 0, 1, 4};
+    for (int k : order) g.win[n++] = static_cast<const float*>(metric[k]);
+  }
+  g.nx = nx;
+  g.ny = ny;
+  g.a = a;
+  g.b = b;
+  g.dt = dt;
+  std::memcpy(&g.tb, tables, sizeof(g.tb));
+  // 16-byte copies where every copied plane is 16-byte aligned, and so is
+  // each of its rows.
+  bool vector = ny % 4 == 0 && nst::aligned16(psi);
+  for (int k = 0; k < n; ++k) vector = vector && nst::aligned16(g.win[k]);
+  g.vector = vector;
+  const auto kernel = nst::stage_kernel_of(metric != nullptr, qv != nullptr, a != 0.0f);
+  const dim3 grid((ny + nst::kStageCols - 1) / nst::kStageCols,
+                  (nx + nst::kStageRows - 1) / nst::kStageRows);
+  kernel<<<grid, dim3(nst::kStageCols, nst::kStageRows, nst::kStageTracers), 0,
+           static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -78,37 +78,6 @@
 
 namespace nst {
 
-// The precomputed quadrature velocity of the HO path (QuadVelocity), each a
-// read-only (nx, ny) plane; the host packs them in this order.
-struct Dg1QvPlanes {
-  const float* vx[kVol];
-  const float* vy[kVol];
-  const float* vn_x[kEdge];  // the left face of element (i, j)
-  const float* vn_y[kEdge];  // its bottom face
-};
-
-// Element (i, j)'s velocity from the precomputed planes; its right and top
-// faces are those of elements (i+1, j) and (i, j+1) (zero beyond the domain,
-// where there is no flux).
-__device__ __forceinline__ Dg1Velocity load_qv(const Dg1QvPlanes& qv, long ij, int ny,
-                                               bool has_right, bool has_top) {
-  Dg1Velocity q;
-#pragma unroll
-  for (int k = 0; k < kVol; ++k) {
-    q.vx[k] = __ldg(qv.vx[k] + ij);
-    q.vy[k] = __ldg(qv.vy[k] + ij);
-  }
-#pragma unroll
-  for (int e = 0; e < kEdge; ++e) {
-    q.vn_left[e] = __ldg(qv.vn_x[e] + ij);
-    q.vn_right[e] = has_right ? __ldg(qv.vn_x[e] + ij + ny) : 0.0f;
-    q.vn_bottom[e] = __ldg(qv.vn_y[e] + ij);
-    q.vn_top[e] = has_top ? __ldg(qv.vn_y[e] + ij + 1) : 0.0f;
-  }
-  return q;
-}
-
-
 // The block size is a launch parameter; at most 768 threads keep the ~80
 // registers of the stage body free of spills.
 constexpr int kTransportMaxThreads = 768;

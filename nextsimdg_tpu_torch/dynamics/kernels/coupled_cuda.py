@@ -28,7 +28,10 @@ kernel              source                      plain version (same inputs)
 The first four are K1's schedule, wrapped here. Per step: 2 launches per
 subcycle, one ``dg1_sample_cfl`` whose two max speeds are read back once
 to fix k (one host sync), then one ``dg1_rk_stage`` per RK stage and
-substep. The others have wrapper modules of their own:
+substep (a tile an element block, one thread an element and tracer, each
+face's flux computed once; 3 tracers). ``dg1_rk_stage``
+also takes the HO path's precomputed quadrature velocity (its ``qv`` form)
+in place of the CG1 (u, v). The others have wrapper modules of their own:
 ``mevp_tiled_cuda`` and ``transport_tiled_cuda`` (the ghost-zone tiled
 schedule, K2 and K3 of the JAX package) and ``mevp_single_cuda`` (all N
 subcycles in one launch, K4), and ``mevp_rdma_cuda`` (the overlapped
@@ -44,8 +47,9 @@ With the higher-order solver (``MEVPSolverHO``) the phase runs
 ``ho_tiled_cuda`` on the 17 state and 29 const planes packed here; the CG2
 velocity is sampled at the quadrature points in plain PyTorch
 (``ho_velocity_to_quad``, as the JAX package does it in XLA), k comes from
-those samples (one host sync), and ``transport_tiled`` advects the tracers
-with the precomputed samples (its ``qv`` form).
+those samples (one host sync), and ``transport_tiled`` or the staged
+``dg1_rk_stage`` (``transport="xla"``, and rk3) advects the tracers with the
+precomputed samples (their ``qv`` form).
 
 On a rank grid (``parallel``) the phase runs the solver's exchange
 schedule (``MEVPSolver.spmd_subcycles``: ``mevp_tiled`` on the widened
@@ -73,6 +77,7 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
@@ -115,6 +120,9 @@ _MEVP_CONSTS = UNIFORM_CONSTS + METRIC_CONSTS
 #: The transport's metric planes in the order of Dg1MetricPlanes in
 #: csrc/dg1_body.cuh.
 _DG1_METRIC = ("inv_dx", "inv_dy", "face_x", "face_y", "inv_area")
+#: The planes of a dG1 QuadVelocity, in the order of Dg1QvPlanes in
+#: csrc/dg1_body.cuh.
+_QV_PLANES = {"vx_vol": 4, "vy_vol": 4, "vn_x": 2, "vn_y": 2}
 _RK_STAGES = {
     "rk1": ((0.0, 1.0),),
     "rk2": ((0.0, 1.0), (0.5, 0.5)),
@@ -215,7 +223,7 @@ def _bind():
     lib.nst_mevp_stress.argtypes = [p] * 8 + [i, i] + tail
     lib.nst_mevp_velocity.argtypes = [p] * 8 + [i, i] + tail
     lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 7 + tail
-    lib.nst_dg1_rk_stage.argtypes = [p] * 8 + [i, i, i, f, f, f] + tail
+    lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 3 + [f, f, f] + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
     lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 12 + [f, f, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 8 + [p] + tail
@@ -442,6 +450,13 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@lru_cache(maxsize=8)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA card (cached: the query costs
+    the host more than a launch)."""
+    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
+
+
 def _pointers(tensors):
     """A C array of the tensors' device pointers (None: a null pointer)."""
     return (ctypes.c_void_p * len(tensors))(
@@ -462,6 +477,14 @@ def _dg1_metric(transport: DGTransport, device):
     return None if metric is None else _pointers([metric[name] for name in _DG1_METRIC])
 
 
+def _dg1_qv(qv: QuadVelocity, shape, device):
+    """Dg1QvPlanes of a dG1 ``QuadVelocity``: the 12 plane pointers."""
+    stacks = {"vx_vol": qv.vx_vol, "vy_vol": qv.vy_vol, "vn_x": qv.vn_x, "vn_y": qv.vn_y}
+    for name, count in _QV_PLANES.items():
+        _check((count, *shape), device, **{name: stacks[name]})
+    return _pointers([plane for name in _QV_PLANES for plane in stacks[name]])
+
+
 # -- in-place launches (arguments already checked) ----------------------------
 def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream):
     """``mevp_stress`` or ``mevp_velocity`` in place on the five planes;
@@ -473,6 +496,10 @@ def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream):
         const_ptrs, nx, ny, ctypes.addressof(scalars), u.device.index, stream,
     )
 
+
+#: The tracer count that dg1_rk_stage's tiles are laid out for (one warp a
+#: tracer and row; csrc/transport.cu kStageTracers).
+STAGE_TRACERS = 3
 
 #: Block pairs that a dg1_sample_cfl scratch holds: more blocks than the
 #: card keeps resident, which is what a launch takes at most.
@@ -513,16 +540,25 @@ def _dg1_sample_cfl_(u, v, speeds, tables, stream, halo: int = 0):
     )
 
 
-def _dg1_rk_stage_(psi, base, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream):
+def _dg1_rk_stage_(
+    psi, base, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream, qv=None,
+):
+    """One dg1_rk_stage launch (arguments already checked) into ``out``:
+    ``metric`` from ``_dg1_metric``; ``qv``, the 12 plane pointers of
+    ``_dg1_qv``, in place of (u, v), which are then not read."""
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("dg1_rk_stage reads its neighbours' psi: out must not alias psi")
-    nx, ny = u.shape
+    _, n_tracers, nx, ny = psi.shape
+    if n_tracers != STAGE_TRACERS:
+        raise ValueError(
+            f"dg1_rk_stage runs {STAGE_TRACERS} tracers (hice, cice, hsnow), got {n_tracers}"
+        )
+    uv = (u.data_ptr(), v.data_ptr()) if qv is None else (None, None)
     _launch(
         "dg1_rk_stage",
-        psi.data_ptr(), base.data_ptr(), u.data_ptr(), v.data_ptr(),
-        face_x.data_ptr(), face_y.data_ptr(), metric, out.data_ptr(),
-        nx, ny, psi.shape[1], a, b, dt_sub,
-        ctypes.addressof(tables), u.device.index, stream,
+        psi.data_ptr(), base.data_ptr(), *uv, face_x.data_ptr(), face_y.data_ptr(), metric, qv,
+        out.data_ptr(), nx, ny, n_tracers, a, b, dt_sub,
+        ctypes.addressof(tables), psi.device.index, stream,
     )
 
 
@@ -589,11 +625,13 @@ def dg1_sample_cfl(transport: DGTransport, u, v):
 
 def dg1_rk_stage_reference(
     transport: DGTransport, psi, base, u, v, face_x, face_y,
-    a: float, b: float, dt_sub: float,
+    a: float, b: float, dt_sub: float, qv: QuadVelocity = None,
 ):
     """lim(a base + b (psi + dt_sub rhs(psi))), or lim(psi + dt_sub rhs(psi))
-    when a == 0, on (3, T, nx, ny) dG1 coefficients."""
-    qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
+    when a == 0, on (3, T, nx, ny) dG1 coefficients, with the velocity
+    sampled from the CG1 nodes (u, v) or the quadrature velocity ``qv``."""
+    if qv is None:
+        qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
     value = psi + dt_sub * transport.rhs(psi, qv, (face_x, face_y))
     if a != 0.0:
         value = a * base + b * value
@@ -602,20 +640,26 @@ def dg1_rk_stage_reference(
 
 def dg1_rk_stage(
     transport: DGTransport, psi, base, u, v, face_x, face_y,
-    a: float, b: float, dt_sub: float,
+    a: float, b: float, dt_sub: float, qv: QuadVelocity = None,
 ):
-    """One limited SSP-RK stage of the dG1 tracers (see the reference)."""
+    """One limited SSP-RK stage of the dG1 tracers (see the reference); with
+    ``qv`` (the HO path's quadrature velocity) u and v are not read."""
     if _on_cpu(psi):
         return dg1_rk_stage_reference(
-            transport, psi, base, u, v, face_x, face_y, a, b, dt_sub
+            transport, psi, base, u, v, face_x, face_y, a, b, dt_sub, qv=qv
         )
     nx, ny = transport.mesh.nx, transport.mesh.ny
-    _check((nx, ny), psi.device, u=u, v=v, face_x=face_x, face_y=face_y)
+    _check((nx, ny), psi.device, face_x=face_x, face_y=face_y)
+    if qv is None:
+        _check((nx, ny), psi.device, u=u, v=v)
+        qv_ptrs = None
+    else:
+        qv_ptrs = _dg1_qv(qv, (nx, ny), psi.device)
     _check((3, psi.shape[1], nx, ny), psi.device, psi=psi, base=base)
     out = torch.empty_like(psi)
     _dg1_rk_stage_(
         psi, base, u, v, face_x, face_y, _dg1_metric(transport, psi.device), out, a, b,
-        dt_sub, _dg1_tables(transport), _stream(psi.device),
+        dt_sub, _dg1_tables(transport), _stream(psi.device), qv=qv_ptrs,
     )
     return out
 
@@ -668,16 +712,22 @@ def _face_planes(like, face_masks, shape):
 
 
 def transport_substeps(
-    transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None,
+    transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None, qv=None,
 ):
     """The tracers after k limited SSP-RK substeps on K1's schedule: one
-    ``dg1_rk_stage`` launch per RK stage. CPU tensors run the plain version."""
+    ``dg1_rk_stage`` launch per RK stage, with the velocity sampled from the
+    CG1 nodes (u, v) or the precomputed quadrature velocity ``qv`` (the HO
+    path; u and v are then not read). CPU tensors run the plain version."""
     if _on_cpu(tracers):
-        return transport_substeps_reference(transport, tracers, u, v, dt_sub, k, face_masks)
+        return transport_substeps_reference(transport, tracers, u, v, dt_sub, k, face_masks, qv=qv)
     shape = (transport.mesh.nx, transport.mesh.ny)
-    _check(shape, tracers.device, u=u, v=v)
+    if qv is None:
+        _check(shape, tracers.device, u=u, v=v)
+        qv_ptrs = None
+    else:
+        qv_ptrs = _dg1_qv(qv, shape, tracers.device)
     _check((3, tracers.shape[1], *shape), tracers.device, tracers=tracers)
-    face_x, face_y = _face_planes(u, face_masks, shape)
+    face_x, face_y = _face_planes(tracers[0, 0], face_masks, shape)
     tables, stream = _dg1_tables(transport), _stream(tracers.device)
     metric = _dg1_metric(transport, tracers.device)
     # A stage reads its neighbours' psi, so stages ping-pong between
@@ -691,7 +741,8 @@ def transport_substeps(
         for s, (a, b) in enumerate(stages):
             out = psi0 if (s > 0 and s == len(stages) - 1) else spare[s]
             _dg1_rk_stage_(
-                cur, psi0, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream
+                cur, psi0, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream,
+                qv=qv_ptrs,
             )
             cur = out
         if cur is not psi0:  # rk1: the single stage wrote a spare buffer
@@ -768,8 +819,9 @@ def dynamics_phase(
 
     With the HO solver (``model.is_high_order``) ``state_arrays`` is the HO
     carry and ``consts`` the output of ``MEVPSolverHO.step_consts``;
-    ``mevp`` is ``"single"`` or ``"tiled"`` and ``transport`` must be
-    ``"tiled"`` (``_ho_dynamics_phase``).
+    ``mevp`` is ``"single"`` or ``"tiled"``, and the transport advects with
+    the CG2 velocity's quadrature samples on either schedule
+    (``_ho_dynamics_phase``).
 
     On a rank grid (``model.exchange``) ``mevp`` is the solver's exchange
     schedule and ``transport`` ``"tiled"`` or ``"xla"``; see
@@ -870,27 +922,23 @@ def _ho_dynamics_phase(
     model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, mevp, transport,
 ):
     """``dynamics_phase`` with the HO solver on the card: ``mevp="single"``
-    runs ho_single, ``"tiled"`` ho_tiled; the transport is transport_tiled
-    on the precomputed CG2 samples (``transport="tiled"``; the staged
-    dg1_rk_stage takes CG1 (u, v) only)."""
+    runs ho_single, ``"tiled"`` ho_tiled; the transport advects with the
+    precomputed CG2 samples, on ``transport="tiled"`` transport_tiled and on
+    ``"xla"`` one dg1_rk_stage per RK stage (their ``qv`` forms)."""
     from .ho_single_cuda import ho_subcycles_single
     from .ho_tiled_cuda import ho_subcycles_tiled
     from .transport_tiled_cuda import transport_substeps_tiled
 
     run_mevp = {"single": ho_subcycles_single, "tiled": ho_subcycles_tiled}
-    if mevp not in run_mevp:
-        raise ValueError(f"unknown HO schedule: mevp={mevp!r}")
-    if transport != "tiled":
-        raise NotImplementedError(
-            f"the HO path on the card runs transport_tiled only, not {transport!r}: "
-            "dg1_rk_stage takes CG1 (u, v)"
-        )
+    run_transport = {"xla": transport_substeps, "tiled": transport_substeps_tiled}
+    if mevp not in run_mevp or transport not in run_transport:
+        raise ValueError(f"unknown HO schedule: mevp={mevp!r}, transport={transport!r}")
     mesh, tr = model.mesh, model.transport
     _check((3, tracers.shape[1], mesh.nx, mesh.ny), tracers.device, tracers=tracers)
     carry = run_mevp[mevp](model.mevp, state_arrays, consts, dt, n_subcycles)
     qv = ho_velocity_to_quad(mesh, tr.basis, carry[0], carry[1])
     k = _substeps(model, qv, dt)
-    return carry, transport_substeps_tiled(tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
+    return carry, run_transport[transport](tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
 
 
 def fused_dynamics(

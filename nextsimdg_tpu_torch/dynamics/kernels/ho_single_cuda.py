@@ -34,6 +34,7 @@ import torch
 
 from ..mevp_ho import MEVPSolverHO, ho_subcycles_reference
 from . import coupled_cuda as cc
+from .coupled_cuda import sm_count
 
 KERNEL = "ho_single"
 
@@ -153,10 +154,6 @@ def largest_square(sms: int) -> int:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if holds(mid, mid, sms) else (lo, mid)
     return lo
-
-
-def sm_count(device) -> int:
-    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
 
 
 def max_blocks(device, config: Tiling) -> int:

@@ -38,7 +38,8 @@ import torch
 
 from ..mevp import UNIFORM_CONSTS, MEVPSolver
 from . import coupled_cuda as cc
-from .ho_single_cuda import SHARED_LIMIT, sm_count
+from .coupled_cuda import sm_count
+from .ho_single_cuda import SHARED_LIMIT
 
 KERNEL = "mevp_single"
 

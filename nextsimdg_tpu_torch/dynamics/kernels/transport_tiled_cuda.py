@@ -92,8 +92,6 @@ ONE_BUFFER = LaunchConfig(32, 768, 1)
 PER_TILE = LaunchConfig(32, 768, 1, persistent=False)
 
 _STAGES = {"rk1": (1, 0.0, 1.0), "rk2": (2, 0.5, 0.5)}
-#: The planes of a dG1 QuadVelocity, in the order of Dg1QvPlanes.
-_QV_PLANES = {"vx_vol": 4, "vy_vol": 4, "vn_x": 2, "vn_y": 2}
 
 
 #: The plain version: k x DGTransport.step(limit=True).
@@ -172,23 +170,10 @@ def blocks_per_sm(device, config: LaunchConfig, halo: int, qv: bool = False, met
     return count
 
 
-@lru_cache(maxsize=8)
-def sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def tile_walk(n_tiles: int, blocks: int) -> list:
     """The tiles each of ``blocks`` persistent blocks computes, in order:
     block b takes b, b + blocks, b + 2 blocks, ... (the kernel's walk)."""
     return [list(range(b, n_tiles, blocks)) for b in range(min(blocks, n_tiles))]
-
-
-def _qv_planes(qv: QuadVelocity, shape, device):
-    """Dg1QvPlanes of csrc/transport_tiled.cu: the 12 plane pointers."""
-    stacks = {"vx_vol": qv.vx_vol, "vy_vol": qv.vy_vol, "vn_x": qv.vn_x, "vn_y": qv.vn_y}
-    for name, count in _QV_PLANES.items():
-        cc._check((count, *shape), device, **{name: stacks[name]})
-    return cc._pointers([plane for name in _QV_PLANES for plane in stacks[name]])
 
 
 def transport_substeps_tiled(
@@ -228,7 +213,7 @@ def transport_substeps_tiled(
         u_ptr, v_ptr, qv_ptrs = u.data_ptr(), v.data_ptr(), None
     else:
         u, v = None, None
-        u_ptr, v_ptr, qv_ptrs = None, None, _qv_planes(qv, (nx, ny), device)
+        u_ptr, v_ptr, qv_ptrs = None, None, cc._dg1_qv(qv, (nx, ny), device)
     face_x, face_y = cc._face_planes(tracers[0, 0], face_masks, (nx, ny))
     halo = halo_for(k, n_stages) if halo is None else halo
     k_cap = (halo - 1) // n_stages
@@ -251,7 +236,7 @@ def transport_substeps_tiled(
         blocks = tiles
         if config.persistent:
             per_sm = blocks_per_sm(device, config, halo, qv is not None, metric is not None, form, n_tracers)
-            blocks = min(tiles, per_sm * sm_count(device))
+            blocks = min(tiles, per_sm * cc.sm_count(device))
         cc._launch(
             KERNEL, src.data_ptr(), dst.data_ptr(), u_ptr, v_ptr, face_x.data_ptr(),
             face_y.data_ptr(), metric, qv_ptrs, nx, ny, n_tracers, config.tile, halo,

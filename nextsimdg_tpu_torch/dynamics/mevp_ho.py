@@ -48,7 +48,9 @@ MEVP_BACKENDS = ("auto", "pallas", "pallas-tiled")
 #: (3.07 against 2.94 ms; the dynamics step 10.9 against 11.4 ms, within
 #: the run-to-run spread); at 1024^2 ho_tiled was faster (11.3 against
 #: 12.7 ms: ho_single's 46 planes stream from HBM once they outgrow the
-#: 50 MB L2). So the tie goes to ho_tiled. See PERF.md.
+#: 50 MB L2). So the tie goes to ho_tiled. Below it "auto" still takes
+#: ho_tiled where the card does not hold the grid (``MEVPSolverHO.schedule``).
+#: See PERF.md.
 HO_SINGLE_MAX_ELEMENTS = 512 * 512
 
 
@@ -217,13 +219,20 @@ class MEVPSolverHO:
         # mass folded in, as the JAX package folds it.
         self.proj = (t.phi_dg1 * t.w_vol[None, :]) * (1.0 / np.array([1.0, 1 / 12, 1 / 12]))[:, None]
 
-    def schedule(self) -> str:
+    def schedule(self, sms: int = None) -> str:
         """``"single"`` (ho_single) or ``"tiled"`` (ho_tiled): the kernel
-        this solver runs on a CUDA card."""
+        this solver runs on a CUDA card of ``sms`` streaming multiprocessors
+        (None: not known). "auto" takes ho_single below
+        ``HO_SINGLE_MAX_ELEMENTS`` where its tiles all fit on the card
+        (``ho_single_cuda.holds``), else ho_tiled."""
         backend = self.backend
         if backend == "auto":
-            big = self.mesh.n_elements >= HO_SINGLE_MAX_ELEMENTS
-            backend = "pallas-tiled" if big else "pallas"
+            single = self.mesh.n_elements < HO_SINGLE_MAX_ELEMENTS
+            if single and sms is not None:
+                from .kernels.ho_single_cuda import holds
+
+                single = holds(self.mesh.nx, self.mesh.ny, sms)
+            backend = "pallas" if single else "pallas-tiled"
         return "single" if backend == "pallas" else "tiled"
 
     # -- plane <-> local-node machinery (closed meshes: no solver state) ------
@@ -380,12 +389,15 @@ class MEVPSolverHO:
         return (u, v, s11, s22, s12)
 
     def subcycles(self, carry, consts, dt: float, n_subcycles: int):
-        """The carry after N subcycles: the kernel of ``schedule()`` on a
-        CUDA card, the plain version on the CPU."""
+        """The carry after N subcycles: the kernel of ``schedule()`` for the
+        card the carry lies on, the plain version on the CPU."""
+        from .kernels.coupled_cuda import sm_count
         from .kernels.ho_single_cuda import ho_subcycles_single
         from .kernels.ho_tiled_cuda import ho_subcycles_tiled
 
-        run = ho_subcycles_single if self.schedule() == "single" else ho_subcycles_tiled
+        device = carry[0].v.device
+        sms = sm_count(device) if device.type == "cuda" else None
+        run = ho_subcycles_single if self.schedule(sms) == "single" else ho_subcycles_tiled
         return run(self, carry, consts, dt, n_subcycles)
 
     def step(

@@ -436,6 +436,38 @@ def test_auto_on_a_spherical_mesh_follows_its_threshold(side):
     assert port.mevp_schedule() == ("single" if single else "pallas-tiled")
 
 
+@pytest.mark.parametrize("sms, expected", [(None, "single"), (132, "single"), (78, "pallas-tiled")])
+def test_auto_on_a_spherical_mesh_asks_whether_the_card_holds_the_grid(sms, expected):
+    """900^2 is below SINGLE_MAX_ELEMENTS; mevp_single holds it on 132 SMs
+    but not on 78 (the tiles outnumber the SMs or outgrow a block's shared
+    memory), so "auto" falls back to mevp_tiled there, as the JAX package
+    falls back where ``pallas_supported`` is false. An explicit "pallas"
+    keeps mevp_single (whose wrapper then refuses the grid on such a
+    card)."""
+    n = 900
+    assert n * n < coupled.SINGLE_MAX_ELEMENTS
+    assert ms.holds(n, n, 132) and not ms.holds(n, n, 78)
+    sphere = mesh.SphericalMesh(n, n, -40.0, 40.0, 55.0, 85.0)
+    assert CoupledModel(sphere).mevp_schedule(sms) == expected
+    assert CoupledModel(sphere, mevp_backend="pallas").mevp_schedule(sms) == "single"
+    uniform = CoupledModel(mesh.RectMesh(n, n, 4e3, 4e3))  # "auto" takes no single kernel there
+    assert uniform.mevp_schedule(sms) == "pallas-tiled"
+
+
+@pytest.mark.parametrize(
+    "device, sms, expected",
+    [("cpu", 78, ("single", "tiled")), ("cuda", 132, ("single", "tiled")), ("cuda", 78, ("pallas-tiled", "tiled"))],
+)
+def test_the_schedule_of_a_step_asks_its_card(monkeypatch, device, sms, expected):
+    """``CoupledModel.schedule(device)``, which the step runs and the
+    scripts report, counts the SMs of a CUDA device (forced here) and asks
+    none of the CPU."""
+    monkeypatch.setattr(coupled, "sm_count", lambda d: sms)
+    n = 900
+    port = CoupledModel(mesh.SphericalMesh(n, n, -40.0, 40.0, 55.0, 85.0), transport_backend="tiled")
+    assert port.schedule(device) == expected
+
+
 def test_the_spherical_step_on_the_cpu_is_the_plain_version():
     port, state, pf, df = spherical_model(coast(), mevp_backend="pallas", transport_backend="tiled")
     cc.reset_launches()

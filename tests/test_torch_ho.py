@@ -396,6 +396,64 @@ def test_coupled_ho_step_with_physics_matches_jax(coast):
     assert float(np.abs(ref_np["velocity.u.c"]).max()) > 0.0
 
 
+@pytest.mark.parametrize("scheme", ["rk2", "rk3"])
+def test_coupled_ho_step_on_the_staged_transport_matches_jax(scheme):
+    """Two coupled HO steps with physics on ``transport_backend="xla"`` in
+    both packages (JAX's staged transport; the port's dg1_rk_stage schedule
+    in its qv form, whose plain version runs on the CPU), rk2 and rk3: all
+    18 leaves to 1e-8 of each plane's max."""
+    select_ho()
+    try:
+        jmodel = JaxCoupledModel(
+            JaxRectMesh(nx=NX, ny=NY, dx=DX, dy=DX), degree=1, n_subcycles=N_SUBCYCLES,
+            transport_backend="xla",
+        )
+        port = CoupledModel(
+            RectMesh(NX, NY, DX, DX), degree=1, n_subcycles=N_SUBCYCLES, transport_backend="xla",
+        )
+    finally:
+        reset_registries()
+    jmodel.transport.scheme = port.transport.scheme = scheme
+    assert jmodel.is_high_order and port.is_high_order
+    assert jmodel._tiled_transport_mode() is None
+    assert port.transport_schedule() == "xla"
+    state, dyn, phys = coupled_inputs(17)
+    got = port.run(*to_port(state, dyn, phys), DT, 2)
+    ref_state, ref_phys, ref_dyn = to_jax(state, dyn, phys)
+    for _ in range(2):
+        ref_state = jmodel.step(ref_state, ref_phys, ref_dyn, dt=DT)
+    got_np = dict(flat_leaves(interop.coupled_state_to_numpy(got)))
+    ref_np = dict(flat_leaves(interop.coupled_state_to_numpy(ref_state)))
+    assert sorted(got_np) == sorted(ref_np) and len(ref_np) == 18
+    for name in ref_np:
+        assert_close(got_np[name], ref_np[name], RTOL_SUBCYCLES, name)
+    assert float(np.abs(ref_np["hice"][1:]).max()) > 0.0
+
+
+@pytest.mark.parametrize("scheme", ["rk1", "rk2", "rk3"])
+def test_staged_transport_takes_the_cg2_samples_on_the_cpu(scheme):
+    """``transport_substeps`` and ``dg1_rk_stage`` with the HO path's
+    quadrature velocity (``qv``) run their plain versions on CPU tensors:
+    equal to ``transport_substeps_reference`` and ``dg1_rk_stage_reference``
+    with the same ``qv``, and u and v are not read."""
+    rng = np.random.default_rng(18)
+    port = ho_model()
+    tr = port.transport
+    tr.scheme = scheme
+    qv = mevp_ho.ho_velocity_to_quad(
+        port.mesh, tr.basis, t_field(fields(rng, 0.3)), t_field(fields(rng, 0.3))
+    )
+    state, _, _ = coupled_inputs(19)
+    psi = torch.stack([t64(state[name]) for name in ("hice", "cice", "hsnow")], dim=1)
+    faces = tuple(t64((rng.uniform(size=(NX, NY)) > 0.1).astype(float)) for _ in range(2))
+    got = cc.transport_substeps(tr, psi, None, None, 200.0, 3, faces, qv=qv)
+    ref = cc.transport_substeps_reference(tr, psi, None, None, 200.0, 3, faces, qv=qv)
+    assert torch.equal(got, ref)
+    stage = (tr, psi, psi.flip(-1), None, None, *faces, 0.5, 0.5, 200.0)
+    assert torch.equal(cc.dg1_rk_stage(*stage, qv=qv), cc.dg1_rk_stage_reference(*stage, qv=qv))
+    assert not torch.equal(got, psi)
+
+
 def test_coastline_keeps_land_and_pins_every_node_that_touches_it():
     ocean = landmask.synthetic_coastline(NX, NY)
     modules.get_loader().set_implementation("Nextsim::IDynamics", HO)
@@ -469,6 +527,46 @@ def ho_model(mesh=None, **kwargs):
 def test_ho_schedules(mevp_backend, transport_backend, expected):
     port = ho_model(mevp_backend=mevp_backend, transport_backend=transport_backend)
     assert (port.mevp_schedule(), port.transport_schedule()) == expected
+
+
+@pytest.mark.parametrize(
+    "transport_backend, expected",
+    [("auto", ("single", "xla")), ("xla", ("single", "xla")), ("tiled", ("single", "tiled"))],
+)
+def test_ho_rk3_takes_the_staged_transport(transport_backend, expected):
+    """transport_tiled runs rk1 and rk2, so "auto" advects rk3 with the
+    staged dg1_rk_stage (its qv form), as the CG1 path does; an explicit
+    backend is kept."""
+    port = ho_model(transport_backend=transport_backend)
+    port.transport.scheme = "rk3"
+    assert (port.mevp_schedule(), port.transport_schedule()) == expected
+
+
+@pytest.mark.parametrize("sms, expected", [(None, "single"), (132, "single"), (16, "tiled")])
+def test_ho_auto_takes_ho_tiled_where_the_card_does_not_hold_the_grid(sms, expected):
+    """400^2 is below HO_SINGLE_MAX_ELEMENTS; ho_single holds it on 132
+    SMs but not on 16 (its tiles would outgrow a block's shared memory), so
+    "auto" falls back to ho_tiled there. An explicit "pallas" keeps
+    ho_single (whose wrapper then refuses the grid on such a card)."""
+    n = 400
+    assert n * n < mevp_ho.HO_SINGLE_MAX_ELEMENTS
+    assert ho_single_cuda.holds(n, n, 132) and not ho_single_cuda.holds(n, n, 16)
+    mesh = RectMesh(n, n, DX, DX)
+    assert ho_model(mesh).mevp_schedule(sms) == expected
+    assert ho_model(mesh).mevp.schedule(sms) == expected
+    assert ho_model(mesh, mevp_backend="pallas").mevp_schedule(sms) == "single"
+
+
+@pytest.mark.parametrize(
+    "device, sms, expected", [("cpu", 16, "single"), ("cuda", 132, "single"), ("cuda", 16, "tiled")]
+)
+def test_ho_schedule_of_a_step_asks_its_card(monkeypatch, device, sms, expected):
+    """The HO step's schedule on a CUDA device counts its SMs (forced
+    here): ho_tiled where ho_single does not hold the 400^2 grid."""
+    from nextsimdg_tpu_torch import coupled
+
+    monkeypatch.setattr(coupled, "sm_count", lambda d: sms)
+    assert ho_model(RectMesh(400, 400, DX, DX)).schedule(device) == (expected, "tiled")
 
 
 @pytest.mark.parametrize("side", ["below", "at"])

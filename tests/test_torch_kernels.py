@@ -1,6 +1,9 @@
 """The CUDA kernels of the dynamics phase against their plain versions.
 
-K1's four kernels, the ghost-zone tiled ``mevp_tiled`` and
+K1's four kernels (``dg1_rk_stage`` also in its ``qv`` form, blended and
+not, at the paths' shapes on uniform and spherical coastline meshes and on
+a ragged grid, and the staged ``qv`` transport against ``transport_tiled``'s
+bit for bit), the ghost-zone tiled ``mevp_tiled`` and
 ``transport_tiled``, and the single-launch ``mevp_single``, which must also
 equal K1's schedule on the same inputs (they run the same element bodies;
 expected 0, failure above 1e-6 of the plane's max), on uniform meshes and
@@ -123,8 +126,18 @@ def test_dg1_sample_cfl_gives_equal_speeds_and_k(device, speed):
     assert k(got) == k(ref)
 
 
+def quad_velocity(model, rng, device, scale=0.3):
+    """The quadrature velocity of a seeded CG2 velocity (the HO path's qv)."""
+    shape = (model.mesh.nx, model.mesh.ny)
+    field = lambda: mevp_ho.HOField(*(
+        torch.tensor(rng.normal(0.0, scale, shape), device=device, dtype=torch.float32) for _ in range(4)
+    ))
+    return mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, field(), field())
+
+
+@pytest.mark.parametrize("form", ["cg1", "qv"])
 @pytest.mark.parametrize("a, b", [(0.0, 1.0), (0.5, 0.5), (0.75, 0.25), (1.0 / 3.0, 2.0 / 3.0)])
-def test_dg1_rk_stage_matches_plain(device, a, b):
+def test_dg1_rk_stage_matches_plain(device, a, b, form):
     model, carry, _, psi, rng = setup(device)
     base = psi.flip(-1).contiguous()
     face_x, face_y = (
@@ -132,7 +145,93 @@ def test_dg1_rk_stage_matches_plain(device, a, b):
         for _ in range(2)
     )
     args = (model.transport, psi, base, carry[0], carry[1], face_x, face_y, a, b, 300.0)
-    assert_close(cc.dg1_rk_stage(*args), cc.dg1_rk_stage_reference(*args), TOL_LAUNCH)
+    qv = quad_velocity(model, rng, device) if form == "qv" else None
+    cc.reset_launches()
+    got = cc.dg1_rk_stage(*args, qv=qv)
+    assert cc.launches["dg1_rk_stage"] == 1
+    assert_close(got, cc.dg1_rk_stage_reference(*args, qv=qv), TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("n_tracers", [1, 2, 4])
+def test_dg1_rk_stage_refuses_other_tracer_counts(device, n_tracers):
+    """The kernel's warps are laid out for the model's 3 tracers (hice,
+    cice, hsnow); another count raises rather than launching."""
+    model, carry, _, psi, _ = setup(device)
+    psi = psi[:, :1].repeat(1, n_tracers, 1, 1).contiguous()
+    ones = torch.ones_like(carry[0])
+    with pytest.raises(ValueError, match="3 tracers"):
+        cc.dg1_rk_stage(model.transport, psi, psi, carry[0], carry[1], ones, ones, 0.5, 0.5, 300.0)
+
+
+@pytest.mark.parametrize("a, b", [(0.0, 1.0), (0.5, 0.5)])
+@pytest.mark.parametrize("form", ["cg1", "qv"])
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("shape", [(256, 256), (1024, 1024), (1001, 1003)])  # 1001 x 1003: no multiple of the tile or of 4
+def test_dg1_rk_stage_matches_plain_at_the_paths_shapes(device, shape, spherical, form, a, b):
+    """One launch per case against the plain version: uniform meshes with
+    random face masks, and the spherical window with the synthetic
+    coastline (its metric planes and face masks); the velocity from the CG1
+    nodes or the CG2 samples; blended or not."""
+    model, carry, _, psi, rng = setup(device, n=shape[0], ny=shape[1], spherical=spherical, n_subcycles=1)
+    if spherical:
+        faces = model.face_masks(device=device, dtype=torch.float32)
+    else:
+        faces = tuple(
+            torch.tensor((rng.uniform(size=shape) > 0.1).astype(np.float32), device=device)
+            for _ in range(2)
+        )
+    qv = quad_velocity(model, rng, device) if form == "qv" else None
+    args = (model.transport, psi, psi.flip(-1).contiguous(), carry[0], carry[1], *faces, a, b, 300.0)
+    assert_close(cc.dg1_rk_stage(*args, qv=qv), cc.dg1_rk_stage_reference(*args, qv=qv), TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("ny", [72, 70])  # 16-byte window copies, and 4-byte ones
+@pytest.mark.parametrize("scheme, k", [("rk2", 1), ("rk2", 4), ("rk1", 3)])
+def test_staged_qv_transport_equals_transport_tiled(device, scheme, k, ny):
+    """The staged transport (one dg1_rk_stage a stage) and transport_tiled
+    run the same element bodies on the same CG2 samples: equal bit for
+    bit, and within 1e-5 of the plain version."""
+    model, _, _, psi, rng = setup(device, n=40, ny=ny)
+    model.transport.scheme = scheme
+    faces = tuple(
+        torch.tensor((rng.uniform(size=(40, ny)) > 0.1).astype(np.float32), device=device)
+        for _ in range(2)
+    )
+    qv = quad_velocity(model, rng, device, scale=1.0)
+    args = (model.transport, psi, None, None, DT / k, k, faces)
+    cc.reset_launches()
+    staged = cc.transport_substeps(*args, qv=qv)
+    assert cc.launches["dg1_rk_stage"] == k * {"rk1": 1, "rk2": 2}[scheme]
+    assert torch.equal(staged, tt.transport_substeps_tiled(*args, qv=qv))
+    assert_close(staged, cc.transport_substeps_reference(*args, qv=qv), 1e-5)
+
+
+@pytest.mark.parametrize("scheme", ["rk2", "rk3"])
+def test_ho_staged_dynamics_phase_matches_plain(device, scheme):
+    """The HO dynamics phase at 256^2 on ("single", "xla"): ho_single, then
+    the staged transport in its qv form (rk3 too), against the plain
+    phase."""
+    modules.get_loader().set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        model = CoupledModel(
+            RectMesh(256, 256, 4e3, 4e3), n_subcycles=100, mevp_backend="pallas", transport_backend="xla",
+        )
+    finally:
+        modules.get_loader().reset()
+    model.transport.scheme = scheme
+    assert (model.mevp_schedule(), model.transport_schedule()) == ("single", "xla")
+    _, carry, consts = ho_setup(device, 256, 256)
+    psi = setup(device, n=256)[3]
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, mevp="single", transport="xla")
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100)
+    for g, r in zip(ho_planes(got_carry), ho_planes(ref_carry)):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    stages = {"rk2": 2, "rk3": 3}[scheme]
+    assert counts["ho_single"] == 1 and counts["dg1_rk_stage"] >= stages
+    assert counts["dg1_rk_stage"] % stages == 0 and counts["transport_tiled"] == 0
 
 
 @pytest.mark.parametrize("scheme", ["rk1", "rk2", "rk3"])
@@ -505,8 +604,11 @@ def test_ho_dynamics_phase_matches_plain_and_counts_launches(device):
     assert_close(got_tr, ref_tr, 1e-5)
     assert counts["ho_tiled"] == -(-20 // ht.launch_config(40, 72).halo) and counts["transport_tiled"] >= 1
     assert counts["dg1_sample_cfl"] == counts["mevp_tiled"] == 0
-    with pytest.raises(NotImplementedError, match="transport_tiled"):
-        cc.dynamics_phase(model, carry, psi, consts, DT, 2, mevp="tiled", transport="xla")
+    # The staged transport on the same CG2 samples: the same tracers, bit for bit.
+    cc.reset_launches()
+    staged_carry, staged_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 20, mevp="tiled", transport="xla")
+    assert cc.launches["dg1_rk_stage"] >= 2 and cc.launches["transport_tiled"] == 0
+    assert torch.equal(staged_tr, got_tr)
 
 
 # -- K7 and the decomposed step on a 2 x 2 rank grid of one card ------------------

@@ -111,8 +111,7 @@ def test_host_packing_matches_the_c_structs():
     assert len(cc._ho_scalars(ho, 600.0)) == _struct_floats(ho_src, "HoScalars")
     assert len(cc._ho_tables(ho)) == _struct_floats(ho_src, "HoTables")
     assert _struct_pointers(ho_src, "HoConsts") == len(mevp_ho.HO_CONSTS) == 29
-    qv_src = (cc.CSRC / "transport_tiled.cu").read_text()
-    assert _struct_pointers(qv_src, "Dg1QvPlanes") == sum(tt._QV_PLANES.values()) == 12
+    assert _struct_pointers(transport_src, "Dg1QvPlanes") == sum(cc._QV_PLANES.values()) == 12
 
 
 REPLACED = {
