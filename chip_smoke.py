@@ -60,7 +60,17 @@ CFL-adaptive transport substeps:
   mevp_tiled runs the interior, rdma_band on the patch's cone of the edge
   bands, by clusters of blocks along each band); the
   transport is transport_tiled on the block widened by H ghost cells, the
-  CFL count one max over the ranks.
+  CFL count one max over the ranks;
+* the engine (``nextsimdg_tpu_torch.runtime``, ``python -m
+  nextsimdg_tpu_torch``), which runs no kernel: BASELINE config 1
+  (``run/dev1.cfg``: the 10 x 10 devgrid restart, 1 step of 1 s, dummy
+  forcing) through ``main()``, and a seeded 1024^2 rectgrid restart
+  (1,048,576 columns, config 4's grid: a pan-Arctic-size thermodynamics run)
+  for 20 steps of 600 s with a checkpoint every 10, with ThermoIce0 on 1
+  layer and with ThermoWinton (selected by ``[Modules]``) on 3. Restart files
+  need h5py: where it is not installed the same runs start from the
+  in-memory restart (``Model.configure(fields)``) and write no file, and the
+  script says so.
 
 Phases, each printed on its own lines:
 
@@ -116,7 +126,19 @@ Phases, each printed on its own lines:
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
-   form;
+   form; then the engine (phase ``check_engine``): whether h5py and the
+   system libnetcdf are installed; dev1 on the card against the JAX
+   package's anchors (cice 0.36670813, hice 0.04668325, tice -1.4445018,
+   rtol 1e-5), sst and sss unchanged, every field uniform; each 1024^2 run
+   against the port's CPU runs of the same restart in float32 and float64,
+   plane by plane (``TOL_ENGINE``: the columns beyond 1e-5 of the plane's
+   max of the CPU float32 run counted and printed, those beyond 1e-3 as
+   branch flips; the failure line is the card's distance from the float64
+   run); its ms per step and column updates/s by CUDA events over 20
+   back-to-back steps after a warm-up, beside the Timer's host time per step
+   (issue time), the restart's move to and from the card and, with h5py,
+   the restart file's write and read times (its profile runs after the
+   other timings);
 6. time (CUDA events, each function warmed up once; a plain path, run by
    the checks before, timed once): ms per step and element updates/s of
    each path, of the config-4 step on K1's schedule, on the tiled one and on
@@ -145,10 +167,13 @@ mul_add rates. The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import dataclass, replace
 from pathlib import Path
@@ -159,6 +184,7 @@ import torch
 from nextsimdg_tpu_torch import coupled, modules
 from nextsimdg_tpu_torch.benchmarks import mevp_large, roofline
 from nextsimdg_tpu_torch.benchmarks.common import device_ms
+from nextsimdg_tpu_torch.config import Configurator, ConfiguredModule
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics import mevp_ho
@@ -170,8 +196,16 @@ from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as single
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, MEVPSolver, VelocityState
+from nextsimdg_tpu_torch.grid import StructureFactory
+from nextsimdg_tpu_torch.io import netcdf_c, read_restart, write_restart_fields
 from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, run_ranks
+from nextsimdg_tpu_torch.runtime import Model
+from nextsimdg_tpu_torch.runtime.main import main as engine_main
 from nextsimdg_tpu_torch.state import Forcing
+from nextsimdg_tpu_torch.tools.make_dev_restart import (
+    dev_restart_fields, make_dev_restart, seeded_rect_fields,
+)
+from nextsimdg_tpu_torch.utils import main_timer
 
 N = 256
 N4 = 1024  # BASELINE config 4
@@ -1708,6 +1742,237 @@ def time_multihost(device, card: str) -> None:
 
 # -- the roofline path: K8's chain kernel and the measured ceilings -------------
 #: The chain forms whose SASS is counted: the two fused and the unfused.
+# -- the engine (BASELINE config 1 and a rectgrid run at config 4's size) -----
+#: The engine's 1024^2 rectgrid runs: steps, checkpoint period, and the
+#: thermodynamics modules with their layer counts.
+ENGINE_STEPS = 20
+ENGINE_CHECKPOINT = 10
+ENGINE_THERMO = (("Nextsim::ThermoIce0", 1), ("Nextsim::ThermoWinton", 3))
+#: The JAX package's dev1 regression anchors (tests/test_runtime.py:98-100),
+#: held at float32 on the card.
+DEV1_ANCHORS = {"cice": 0.36670813, "hice": 0.04668325, "tice": -1.4445018}
+TOL_DEV1 = 1e-5
+#: The card's float32 run against the CPU's float32 run of the same restart,
+#: in each plane's max: the columns beyond it are counted and printed, and
+#: those beyond BRANCH_FLIP (a branch taken on one side only) too. The
+#: failure line is the float64 run: the card's float32 run must lie within
+#: TOL_ENGINE of the plane's max of the CPU float32 run's own distance from
+#: it. float32 holds 273.15 + T to 3e-5 K, which at 20 steps is ~2e-5 of a
+#: surface-temperature plane whose max is ~1.7 degC, so the 1e-5 comparison
+#: against the CPU float32 run cannot hold there on either side.
+TOL_ENGINE = 1e-5
+BRANCH_FLIP = 1e-3
+RESTART_PLANES = ("hice", "cice", "hsnow", "sst", "sss", "tice")
+
+
+def engine_model(stream: str, fields, device, dtype):
+    """A Model configured from one config stream (and the module selection
+    it makes) on an in-memory restart; the port's Configurator and registry
+    are reset first."""
+    Configurator.clear()
+    modules.get_loader().reset()
+    Configurator.add_stream(stream)
+    modules.get_loader().set_all_defaults()
+    ConfiguredModule.parse_configurator()
+    model = Model(device=device, dtype=dtype)
+    model.configure(fields)
+    return model
+
+
+def engine_run(stream: str, fields, device, workdir: Path, files: bool):
+    """``stream`` through the port's engine on the card in float32: with
+    restart files, ``main()`` in ``workdir`` on the restart written there
+    (checkpoints and the final ``restart.nc`` written, read back); without,
+    a Model from the in-memory ``fields`` and its time loop. Returns the
+    final restart and the host seconds of the restart write and read."""
+    io_s = {}
+    if not files:
+        model = engine_model(stream, fields, device, torch.float32)
+        model.iterator.run()
+        return model.structure.restart_fields(), io_s
+    t0 = time.perf_counter()
+    write_restart_fields(str(workdir / "init.nc"), fields)
+    io_s["write"] = time.perf_counter() - t0
+    (workdir / "run.cfg").write_text(f"{stream}[model]\ninit_file = init.nc\n")
+    cwd = Path.cwd()
+    os.chdir(workdir)
+    try:
+        Configurator.clear()
+        modules.get_loader().reset()
+        if engine_main(["nextsim", "--config-file", "run.cfg"], device=device, dtype=torch.float32):
+            raise AssertionError(f"main() failed in {workdir}")
+    finally:
+        os.chdir(cwd)
+    t0 = time.perf_counter()
+    out = read_restart(str(workdir / "restart.nc"))
+    io_s["read"] = time.perf_counter() - t0
+    return out, io_s
+
+
+def check_dev1(device, workdir: Path, files: bool) -> None:
+    """run/dev1.cfg (10 x 10 devgrid, 1 step of 1 s) on the card: the JAX
+    package's anchors, sst and sss unchanged, every field uniform."""
+    stream = (Path(__file__).parent / "run" / "dev1.cfg").read_text()
+    if files:
+        # main() reads the restart file that run/dev1.cfg names, in workdir.
+        make_dev_restart(str(workdir / "dev1.res.nc"))
+    out, _ = engine_run(stream, dev_restart_fields(), device, workdir, files)
+    for name in RESTART_PLANES:
+        plane = getattr(out, name)
+        if not np.all(plane == plane.flat[0]):
+            raise AssertionError(f"dev1: {name} is not uniform")
+    if not (np.all(out.sst == -1.0) and np.all(out.sss == 32.0)):
+        raise AssertionError("dev1: sst or sss changed")
+    for name, anchor in DEV1_ANCHORS.items():
+        got = float(getattr(out, name).flat[0])
+        ok = abs(got - anchor) <= TOL_DEV1 * abs(anchor)
+        log("check", (
+            f"engine dev1 on the card: {name} {got:.8f} against the anchor {anchor} "
+            f"(rtol {TOL_DEV1:g}) {'ok' if ok else 'FAIL'}"
+        ))
+        if not ok:
+            raise AssertionError(f"dev1: {name} {got} is not within {TOL_DEV1:g} of {anchor}")
+
+
+def engine_stream(thermo: str, checkpoint: int) -> str:
+    stream = (
+        f"[model]\nstart = 0\nstop = {ENGINE_STEPS * DT:g}\ntime_step = {DT:g}\n"
+        f"[Modules]\nNextsim::IThermodynamics = {thermo}\n"
+    )
+    if checkpoint:
+        stream += f"[model]\ncheckpoint_period = {checkpoint}\n"
+    return stream
+
+
+def compare_engine(tag: str, card, cpu32, cpu64) -> None:
+    """The card's final restart against the CPU's float32 and float64 runs
+    of the same restart, plane by plane (see TOL_ENGINE)."""
+    failed = []
+    for name in RESTART_PLANES:
+        got, ref, exact = (getattr(r, name) for r in (card, cpu32, cpu64))
+        if not np.all(np.isfinite(got)):
+            raise AssertionError(f"{tag}: {name} has non-finite values")
+        scale = float(np.abs(exact).max())
+        diff = np.abs(got - ref).reshape(got.shape[0], got.shape[1], -1).max(-1)
+        beyond, flipped = (int((diff > tol * scale).sum()) for tol in (TOL_ENGINE, BRANCH_FLIP))
+        card64 = float(np.abs(got - exact).max())
+        cpu64_err = float(np.abs(ref - exact).max())
+        ok = card64 <= cpu64_err + TOL_ENGINE * scale
+        log("check", (
+            f"{tag} {name}: max_abs_err={diff.max():.3e} against the CPU float32 run, "
+            f"max_rel_err={diff.max() / scale:.3e} of max|float64|={scale:.3e}: {beyond} columns "
+            f"beyond {TOL_ENGINE:g}, {flipped} beyond {BRANCH_FLIP:g}; against the CPU float64 "
+            f"run: card {card64 / scale:.3e}, CPU float32 {cpu64_err / scale:.3e} (tol +{TOL_ENGINE:g}) "
+            f"{'ok' if ok else 'FAIL'}"
+        ))
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(
+            f"{tag}: {failed} further than {TOL_ENGINE:g} of the plane's max beyond the CPU "
+            "float32 run's distance from the float64 run"
+        )
+
+
+def time_engine(tag: str, thermo: str, fields, device, card: str) -> None:
+    """After a warm-up step: the Timer's host ms per step over the Iterator's
+    ENGINE_STEPS steps (the time to issue a step), then ms per step and
+    column updates/s by CUDA events over ENGINE_STEPS back-to-back steps,
+    and the restart's move to and from the card."""
+    model = engine_model(engine_stream(thermo, 0), fields, device, torch.float32)
+    model.model_step.run_steps_scanned(1, DT)
+    torch.cuda.synchronize()
+    main_timer.reset()
+    model.iterator.run()
+    torch.cuda.synchronize()
+    step = main_timer.root.children["time-loop"].children["step"].chrono
+    host_ms = step.wall_time() / step.ticks * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    model.model_step.run_steps_scanned(ENGINE_STEPS, DT)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / ENGINE_STEPS
+    columns = fields.nx * fields.ny
+    t0 = time.perf_counter()
+    loaded = StructureFactory.generate_from_fields(fields, device=device, dtype=torch.float32)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loaded.restart_fields()
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    log("time", (
+        f"{tag}: {ms:.4f} ms per step, {columns / ms * 1e3:.4g} column updates/s (CUDA events, "
+        f"{ENGINE_STEPS} steps back to back); the Timer's host time per step of the time loop "
+        f"{host_ms:.4f} ms (issue, not device time); restart to the card {load_ms:.2f} ms, "
+        f"to float64 host arrays {fetch_ms:.2f} ms; {card}"
+    ))
+
+
+def profile_engine(device) -> None:
+    """The profile of the 1024^2 ThermoIce0 step (after the timings: a
+    profiler session slows the host's later launches)."""
+    fields = seeded_rect_fields(N4, N4, 1, seed=SEED)
+    try:
+        model = engine_model(engine_stream(ENGINE_THERMO[0][0], 0), fields, device, torch.float32)
+        profile(
+            f"engine {N4}^2 rectgrid ThermoIce0 step",
+            lambda: model.model_step.run_steps_scanned(1, DT),
+        )
+    finally:
+        Configurator.clear()
+        modules.get_loader().reset()
+
+
+def check_engine(device, smi: str) -> None:
+    """The port's engine on the card: run/dev1.cfg, then 20 steps of a
+    seeded 1024^2 rectgrid restart with ThermoIce0 (1 layer) and with
+    ThermoWinton (3 layers), each against the port's CPU runs of the same
+    restart, and their times. Restart files need h5py; where it is missing
+    the same runs start from the in-memory restart."""
+    files = importlib.util.find_spec("h5py") is not None
+    log("engine", (
+        f"h5py {'installed' if files else 'not installed'}, system libnetcdf "
+        f"{'found' if netcdf_c.available() else 'not found'}"
+    ))
+    if not files:
+        log("engine", (
+            "restart file I/O not exercised on the card: no h5py here, so every run starts from "
+            "the in-memory RestartFields of the same arrays and writes no checkpoint or restart file"
+        ))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            check_dev1(device, Path(tmp), files)
+        for thermo, nlayers in ENGINE_THERMO:
+            name = thermo.split("::")[1]
+            tag = f"engine {N4}^2 rectgrid {name}"
+            fields = seeded_rect_fields(N4, N4, nlayers, seed=SEED)
+            with tempfile.TemporaryDirectory() as tmp:
+                card, io_s = engine_run(
+                    engine_stream(thermo, ENGINE_CHECKPOINT if files else 0), fields, device,
+                    Path(tmp), files,
+                )
+                if files:
+                    checkpoints = sorted(p.name for p in Path(tmp).glob("checkpoint.*.nc"))
+                    log("engine", f"{tag}: checkpoints {checkpoints}")
+            if io_s:
+                log("time", (
+                    f"{tag}: restart file write {io_s['write'] * 1e3:.1f} ms, read "
+                    f"{io_s['read'] * 1e3:.1f} ms (host clock); {smi}"
+                ))
+            stream = engine_stream(thermo, 0)
+            cpu = {}
+            for dtype in (torch.float32, torch.float64):
+                model = engine_model(stream, fields, "cpu", dtype)
+                model.iterator.run()
+                cpu[dtype] = model.structure.restart_fields()
+            compare_engine(tag, card, cpu[torch.float32], cpu[torch.float64])
+            time_engine(tag, thermo, fields, device, smi)
+    finally:
+        Configurator.clear()
+        modules.get_loader().reset()
+
+
 SASS_FORMS = ("fma", "fma_imm", "mul_add")
 
 
@@ -1955,12 +2220,14 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, extra[key]))
     counts = phase(check_slice, device)
     counts_5, kernels_5, probes = phase(check_multihost, device)
+    phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
     log("build", sass_report(sass))
     phase(time_paths, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
+    phase(profile_engine, device)
     # Last, as a profiler session slows the host's later launches. Every
     # row's ms stays the back-to-back time per call; the device durations
     # are logged beside it.

@@ -74,10 +74,9 @@ def _result(metric: str, elements: int, chunk: int, best: float, unit: str = "el
 def bench_dev1(n: int = 512, chunk: int = 100, device=None) -> dict:
     """Thermodynamics-only column physics throughput (dev1 physics, 512^2).
 
-    The port's ``NextsimPhysics()`` with its default modules and parameters
-    on ``state.dummy_forcing``; the JAX function calls ``configure()`` on
-    it first, which reads the (empty) config and leaves the same defaults:
-    the port has no config engine until ROADMAP M8.
+    The port's ``NextsimPhysics()``, configured from the registry and the
+    config sources as the JAX function's is (with none set: the default
+    modules and parameters), on ``state.dummy_forcing``.
     """
     from ..physics import NextsimPhysics
     from ..state import PrognosticBuilder, dummy_forcing
@@ -85,6 +84,7 @@ def bench_dev1(n: int = 512, chunk: int = 100, device=None) -> dict:
     device = _device(device)
     dtype = torch.float32
     phys = NextsimPhysics()
+    phys.configure()
     prog = (
         PrognosticBuilder(n, n, nlayers=1, dtype=dtype, device=device)
         .hice(0.1).cice(0.5).hsnow(0.0).sst(-1.0).sss(32.0).tice(-1.0)

@@ -11,7 +11,10 @@ stresses. The ``*_to_numpy``
 functions read any object with the fields whose leaves numpy can convert
 (a torch tensor, or an array of the JAX package). The ``*_rank_blocks``
 functions carry a global state or forcing into the rank blocks of a
-``parallel.RankGrid`` and back.
+``parallel.RankGrid`` and back. A restart (``io.RestartFields``, the
+netCDF-4 file either package reads and writes) converts to and from the
+port's ``PrognosticState`` with ``prognostic_from_restart`` and
+``restart_from_prognostic``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .coupled import CoupledState
 from .dynamics.mesh import EARTH_RADIUS, RectMesh, SphericalMesh
 from .dynamics.mevp import DynamicsForcing, MEVPParams, VelocityState
 from .dynamics.mevp_ho import HOField, HOVelocityState
+from .grid.structure import prognostic_from_restart, restart_from_prognostic  # noqa: F401
 from .state import Forcing, PrognosticState
 
 _STATE_FIELDS = ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice")

@@ -1,32 +1,53 @@
 """Ice/snow surface albedo.
 
 Counterpart of ``nextsimdg_tpu.physics.albedo`` (interface
-``Nextsim::IIceAlbedo``): ``SMUIceAlbedo``, the default, and
-``CCSMIceAlbedo``, whose two base albedos are constructor arguments here
-(config keys ``CCSMIceAlbedo.{iceAlbedo,snowAlbedo}`` in the reference).
+``Nextsim::IIceAlbedo``; ``SMUIceAlbedo.cpp``, ``SMU2IceAlbedo.cpp``,
+``CCSMIceAlbedo.cpp``), registered in the reference's order, SMU the
+default. ``CCSMIceAlbedo``'s two base albedos are constructor arguments and
+the config keys ``CCSMIceAlbedo.{iceAlbedo,snowAlbedo}`` (``configure``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..config import Configured
+from ..modules import register_implementation
+
+INTERFACE = "Nextsim::IIceAlbedo"
+
 _SMU_ICE_ALBEDO = 0.64
 _SMU_SNOW_ALBEDO = 0.85
 
 
+def _bare_ice(snow_thickness, i0):
+    """The SMU bare-ice albedo with the I0 term, as a plane of the snow
+    plane's dtype (i0 is a float)."""
+    return torch.full_like(snow_thickness, _SMU_ICE_ALBEDO + 0.4 * (1.0 - _SMU_ICE_ALBEDO) * i0)
+
+
+@register_implementation(INTERFACE, "Nextsim::SMUIceAlbedo")
 class SMUIceAlbedo:
     """Semtner 76 / Maykut & Untersteiner 71 constant albedos with I0 term."""
 
     def albedo(self, temperature, snow_thickness, i0):
-        bare_ice = _SMU_ICE_ALBEDO + 0.4 * (1.0 - _SMU_ICE_ALBEDO) * i0
-        # i0 is a float, so both branches are scalars: the result takes the
-        # dtype of the snow plane.
-        return torch.where(
-            snow_thickness > 0.0, _SMU_SNOW_ALBEDO, torch.full_like(snow_thickness, bare_ice)
+        return torch.where(snow_thickness > 0.0, _SMU_SNOW_ALBEDO, _bare_ice(snow_thickness, i0))
+
+
+@register_implementation(INTERFACE, "Nextsim::SMU2IceAlbedo")
+class SMU2IceAlbedo:
+    """SMU with a linear snow-depth ramp over 0.2 m."""
+
+    def albedo(self, temperature, snow_thickness, i0):
+        ramp = torch.clamp(
+            _SMU_ICE_ALBEDO + (_SMU_SNOW_ALBEDO - _SMU_ICE_ALBEDO) * snow_thickness / 0.2,
+            max=_SMU_SNOW_ALBEDO,
         )
+        return torch.where(snow_thickness > 0.0, ramp, _bare_ice(snow_thickness, i0))
 
 
-class CCSMIceAlbedo:
+@register_implementation(INTERFACE, "Nextsim::CCSMIceAlbedo")
+class CCSMIceAlbedo(Configured):
     """CCSM3 scheme: temperature decay above -1 degC, snow-fraction blend."""
 
     ICE_ALBEDO0 = 0.538
@@ -35,6 +56,11 @@ class CCSMIceAlbedo:
     def __init__(self, ice_albedo: float = ICE_ALBEDO0, snow_albedo: float = SNOW_ALBEDO0):
         self.ice_albedo = ice_albedo
         self.snow_albedo = snow_albedo
+
+    def configure(self) -> None:
+        """Read ``CCSMIceAlbedo.{iceAlbedo,snowAlbedo}`` (``CCSMIceAlbedo.cpp:38-42``)."""
+        self.ice_albedo = Configured.get_configuration("CCSMIceAlbedo.iceAlbedo", self.ICE_ALBEDO0)
+        self.snow_albedo = Configured.get_configuration("CCSMIceAlbedo.snowAlbedo", self.SNOW_ALBEDO0)
 
     def albedo(self, temperature, snow_thickness, i0):
         t_limit = -1.0

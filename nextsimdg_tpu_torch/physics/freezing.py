@@ -2,7 +2,7 @@
 
 Counterpart of ``nextsimdg_tpu.physics.freezing`` (interface
 ``Nextsim::IFreezingPoint``): ``LinearFreezing``, the default, and
-``UnescoFreezing``.
+``UnescoFreezing``, registered in the reference's order.
 """
 
 from __future__ import annotations
@@ -10,8 +10,12 @@ from __future__ import annotations
 import torch
 
 from ..constants import Water
+from ..modules import register_implementation
+
+INTERFACE = "Nextsim::IFreezingPoint"
 
 
+@register_implementation(INTERFACE, "Nextsim::LinearFreezing")
 class LinearFreezing:
     """T_f = -mu * S (mu > 0, so the freezing point is below zero) [degC]."""
 
@@ -19,6 +23,7 @@ class LinearFreezing:
         return -Water.mu * sss
 
 
+@register_implementation(INTERFACE, "Nextsim::UnescoFreezing")
 class UnescoFreezing:
     """Fofonoff & Millard (UNESCO tech. papers 44, 1983) polynomial [degC]."""
 

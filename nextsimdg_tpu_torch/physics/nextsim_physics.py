@@ -5,11 +5,13 @@ Counterpart of ``nextsimdg_tpu.physics.nextsim_physics`` (``NextsimPhysics``,
 template method, ``calculate`` composes the flux and mass updates in the
 reference order with the per-element branches as masks.
 
-The JAX version resolves its five sub-modules from the process-wide module
-registry and reads the ``nextsim_thermo.*`` config keys in ``configure()``.
-The port has no registry or configurator yet, so the sub-modules and the
-seven parameters are constructor arguments whose defaults are the default
-chain and the reference values.
+Registered as ``Nextsim::IPhysics1d`` -> ``Nextsim::NextsimPhysics``. The
+sub-modules and the seven parameters are constructor arguments whose
+defaults are the default chain and the reference values, which is what
+``CoupledModel`` and the tests use. ``configure()``, which the engine calls
+(``runtime.ModelStep.init``), resolves the five sub-modules from the
+process-wide registry, configures each, and reads the ``nextsim_thermo.*``
+config keys, as the JAX version's ``configure()`` does.
 
 The only cross-step physics memory is ``new_ice``: the reference keeps
 ``m_newice`` per element and overwrites it only in the supercooling branch,
@@ -23,7 +25,9 @@ from typing import Any
 
 import torch
 
+from ..config import Configured, try_configure
 from ..constants import Air, Ice, PhysicalConstants, Vapour, Water, kelvin
+from ..modules import ModuleRegistry, register_implementation
 from ..state import Forcing, PhysicsDiagnostics, PrognosticState, safe_div
 from .albedo import SMUIceAlbedo
 from .concentration import HiblerConcentration
@@ -31,6 +35,8 @@ from .freezing import LinearFreezing
 from .humidity import dq_dt_ice, spec_hum_ice, spec_hum_water
 from .ice_ocean_heat_flux import BasicIceOceanHeatFlux
 from .thermo_ice0 import ThermoIce0
+
+INTERFACE = "Nextsim::IPhysics1d"
 
 
 def stefan_boltzmann(temperature_c):
@@ -68,7 +74,8 @@ class DerivedData:
     hs_true: Any  #: true snow thickness of the prognostic state
 
 
-class NextsimPhysics:
+@register_implementation(INTERFACE, "Nextsim::NextsimPhysics")
+class NextsimPhysics(Configured):
     def __init__(
         self,
         *,
@@ -101,6 +108,32 @@ class NextsimPhysics:
         self.i0 = i0
         self.min_conc = min_conc
         self.min_thick = min_thick
+
+    # -- configuration (NextsimPhysics.cpp:60-83) ----------------------------
+    def configure(self) -> None:
+        """The registry's selected sub-modules, each configured, and the
+        ``nextsim_thermo.*`` keys with the reference defaults."""
+        loader = ModuleRegistry.get_loader()
+        self.ice_ocean_heat_flux = loader.get_implementation("Nextsim::IIceOceanHeatFlux")
+        try_configure(self.ice_ocean_heat_flux)
+        self.ice_albedo = loader.get_implementation("Nextsim::IIceAlbedo")
+        try_configure(self.ice_albedo)
+        self.thermo = loader.get_implementation("Nextsim::IThermodynamics")
+        try_configure(self.thermo)
+        self.concentration = loader.get_implementation("Nextsim::IConcentrationModel")
+        try_configure(self.concentration)
+        # Bound by PrognosticData::configure in the reference.
+        self.freezing_point = loader.get_implementation("Nextsim::IFreezingPoint")
+        try_configure(self.freezing_point)
+
+        get = Configured.get_configuration
+        self.drag_ocean_q = get("nextsim_thermo.drag_ocean_q", 1.5e-3)
+        self.drag_ocean_t = get("nextsim_thermo.drag_ocean_t", 0.83e-3)
+        self.drag_ice_t = get("nextsim_thermo.drag_ice_t", 1.3e-3)
+        self.ocean_albedo = get("nextsim_thermo.albedoW", 0.07)
+        self.i0 = get("nextsim_thermo.I_0", 0.17)
+        self.min_conc = get("nextsim_thermo.min_conc", 1e-12)
+        self.min_thick = get("nextsim_thermo.min_thick", 0.01)
 
     # -- derived data (IPhysics1d.hpp:33-45) ---------------------------------
     def update_derived_data(self, prog: PrognosticState, forcing: Forcing) -> DerivedData:

@@ -3,8 +3,9 @@
 Counterpart of ``nextsimdg_tpu.physics.thermo_ice0`` (``ThermoIce0``,
 ``ThermoIce0.cpp:34-133``) as straight-line tensor arithmetic: the zero-ice
 early return becomes a final select, the flooding and full-melt branches
-become masks. ``k_s`` and ``do_flooding`` are constructor arguments
-(config keys ``thermoice0.{ks,flooding}``).
+become masks. The first implementation of ``Nextsim::IThermodynamics``.
+``k_s`` and ``do_flooding`` are constructor arguments and the config keys
+``thermoice0.{ks,flooding}`` (``configure``).
 """
 
 from __future__ import annotations
@@ -13,8 +14,12 @@ from dataclasses import dataclass
 
 import torch
 
+from ..config import Configured
 from ..constants import Ice, Water
+from ..modules import register_implementation
 from ..state import safe_div
+
+INTERFACE = "Nextsim::IThermodynamics"
 
 #: Freezing point of sea ice [degC]: -mu * s_ice (ThermoIce0.cpp:38).
 FREEZING_POINT_ICE = -Water.mu * Ice.s
@@ -33,10 +38,15 @@ class SlabUpdate:
     t_layers: tuple = None
 
 
-class ThermoIce0:
+@register_implementation(INTERFACE, "Nextsim::ThermoIce0")
+class ThermoIce0(Configured):
     def __init__(self, k_s: float = 0.3096, do_flooding: bool = True) -> None:
         self.k_s = k_s
         self.do_flooding = do_flooding
+
+    def configure(self) -> None:
+        self.k_s = Configured.get_configuration("thermoice0.ks", 0.3096)
+        self.do_flooding = Configured.get_configuration("thermoice0.flooding", True)
 
     def calculate(
         self, *, hice, cice, hi_true, hs_true, tice0, t_bot, q_ia, dq_dt, q_io,

@@ -52,7 +52,25 @@ def test_port_imports_without_jax_or_triton():
         "import nextsimdg_tpu_torch.modules\n"
         "import nextsimdg_tpu_torch.benchmarks.roofline, nextsimdg_tpu_torch.benchmarks.common\n"
         "import nextsimdg_tpu_torch.benchmarks.run_benchmarks, nextsimdg_tpu_torch.benchmarks.mevp_large\n"
+        "import nextsimdg_tpu_torch.physics.thermo_winton\n"
+        "import nextsimdg_tpu_torch.config, nextsimdg_tpu_torch.config.configurator\n"
+        "import nextsimdg_tpu_torch.config.configured, nextsimdg_tpu_torch.config.configured_module\n"
+        "import nextsimdg_tpu_torch.config.command_line, nextsimdg_tpu_torch.config.enum_map\n"
+        "import nextsimdg_tpu_torch.utils, nextsimdg_tpu_torch.utils.chrono\n"
+        "import nextsimdg_tpu_torch.utils.timer, nextsimdg_tpu_torch.utils.logged\n"
+        "import nextsimdg_tpu_torch.io, nextsimdg_tpu_torch.io.restart, nextsimdg_tpu_torch.io.netcdf_c\n"
+        "import nextsimdg_tpu_torch.grid, nextsimdg_tpu_torch.grid.structure\n"
+        "import nextsimdg_tpu_torch.grid.devgrid, nextsimdg_tpu_torch.grid.rectgrid\n"
+        "import nextsimdg_tpu_torch.grid.factory\n"
+        "import nextsimdg_tpu_torch.runtime, nextsimdg_tpu_torch.runtime.iterator\n"
+        "import nextsimdg_tpu_torch.runtime.simple_iterant, nextsimdg_tpu_torch.runtime.model_step\n"
+        "import nextsimdg_tpu_torch.runtime.model, nextsimdg_tpu_torch.runtime.main\n"
+        "import nextsimdg_tpu_torch.tools.make_dev_restart\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
+        "assert not bad, bad\n"
+        "# Restart files need h5py, which the card machine may lack: the\n"
+        "# package imports without it.\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'h5py']\n"
         "assert not bad, bad\n"
     )
     done = subprocess.run(

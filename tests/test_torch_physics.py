@@ -6,7 +6,10 @@ freezing and new-ice formation, melting, the minimum concentration and
 thickness kill, flooding, full melt and cells without ice. Tolerance: 1e-12
 of each plane's max |value| (XLA and PyTorch may differ by an ulp in exp
 and pow). The reference golden cases of ``tests/test_physics_golden.py``
-run through the port at the same 1e-4 relative contract.
+run through the port at the same 1e-4 relative contract. ThermoWinton,
+``SMU2IceAlbedo``, the registry's defaults and the physics config keys run
+through both packages' registries and Configurators (both reset around every
+test).
 """
 
 import dataclasses
@@ -32,10 +35,14 @@ from nextsimdg_tpu.state import PrognosticState as JaxPrognosticState
 from nextsimdg_tpu.state import dummy_forcing as jax_dummy_forcing
 from nextsimdg_tpu.state import safe_div as jax_safe_div
 from nextsimdg_tpu.state import zeros_prognostic as jax_zeros_prognostic
+from nextsimdg_tpu.physics import thermo_winton as jax_thermo_winton
 from nextsimdg_tpu_torch import constants
+from nextsimdg_tpu_torch import modules as port_modules
 from nextsimdg_tpu_torch import state as port_state
+from nextsimdg_tpu_torch.config import Configurator as PortConfigurator
+from nextsimdg_tpu_torch.config import ConfiguredModule as PortConfiguredModule
 from nextsimdg_tpu_torch.physics import albedo, concentration, freezing, humidity
-from nextsimdg_tpu_torch.physics import ice_ocean_heat_flux, thermo_ice0
+from nextsimdg_tpu_torch.physics import ice_ocean_heat_flux, thermo_ice0, thermo_winton
 from nextsimdg_tpu_torch.physics.nextsim_physics import NextsimPhysics
 
 torch.set_num_threads(1)
@@ -47,6 +54,17 @@ FORCING = ("tair", "dew2m", "pair", "sw_in", "lw_in", "mld", "snowfall", "wind")
 #: The port's constructors take the device and dtype from the caller; the
 #: JAX package's default here is float64 on the CPU.
 CPU64 = {"device": "cpu", "dtype": torch.float64}
+
+
+@pytest.fixture(autouse=True)
+def clean_port_config():
+    """The port's Configurator and registry selections, reset around each
+    test (the JAX package's are reset by ``conftest.py``)."""
+    PortConfigurator.clear()
+    port_modules.get_loader().reset()
+    yield
+    PortConfigurator.clear()
+    port_modules.get_loader().reset()
 
 
 def close(got, ref, rtol=RTOL, name=""):
@@ -198,7 +216,7 @@ def test_freezing_point_matches(name):
     close(getattr(freezing, name)()(torch.tensor(sss)), getattr(jax_freezing, name)()(jnp.asarray(sss)))
 
 
-@pytest.mark.parametrize("name", ["SMUIceAlbedo", "CCSMIceAlbedo"])
+@pytest.mark.parametrize("name", ["SMUIceAlbedo", "CCSMIceAlbedo", "SMU2IceAlbedo"])
 def test_albedo_matches(name):
     rng = np.random.default_rng(5)
     temp = rng.uniform(-10.0, 1.0, (N, N))
@@ -415,3 +433,163 @@ def test_golden_freezing_conditions():
     assert scalar(diags.subl) == approx(2.15132e-06)
     assert scalar(diags.dq_dt) == approx(16.7615, rel=1e-2)
     assert scalar(diags.h_ice_from_snow) == pytest.approx(0.0, abs=1e-12)
+
+
+# -- the registry, the config keys and ThermoWinton -----------------------------
+def configured_pair(stream: str = ""):
+    """NextsimPhysics of both packages, configured from the same stream
+    through their own registries and Configurators."""
+    ref = jax_physics(stream)
+    PortConfigurator.add_stream(stream)
+    port_modules.get_loader().set_all_defaults()
+    PortConfiguredModule.parse_configurator()
+    port = NextsimPhysics()
+    port.configure()
+    return port, ref
+
+
+def test_the_registry_holds_the_reference_modules_in_order():
+    port_loader, jax_loader = port_modules.get_loader(), ModuleRegistry.get_loader()
+    physics_interfaces = [
+        "Nextsim::IFreezingPoint", "Nextsim::IIceAlbedo", "Nextsim::IIceOceanHeatFlux",
+        "Nextsim::IThermodynamics", "Nextsim::IConcentrationModel", "Nextsim::IPhysics1d",
+    ]
+    for interface in physics_interfaces:
+        assert port_loader.list_implementations(interface) == jax_loader.list_implementations(interface)
+    assert port_loader.list_implementations("Nextsim::IIceAlbedo") == [
+        "Nextsim::SMUIceAlbedo", "Nextsim::SMU2IceAlbedo", "Nextsim::CCSMIceAlbedo",
+    ]
+    assert port_loader.list_implementations("Nextsim::IThermodynamics") == [
+        "Nextsim::ThermoIce0", "Nextsim::ThermoWinton",
+    ]
+    port, ref = configured_pair()
+    for mine, theirs in (
+        (port.freezing_point, ref._freezing_point), (port.ice_albedo, ref._ice_albedo),
+        (port.thermo, ref._thermo), (port.concentration, ref._concentration),
+        (port.ice_ocean_heat_flux, ref._ice_ocean_heat_flux),
+    ):
+        assert type(mine).__name__ == type(theirs).__name__
+    assert type(port_loader.get_implementation("Nextsim::IPhysics1d")) is NextsimPhysics
+
+
+#: Every physics config key with a value other than its default.
+PHYSICS_KEYS = (
+    "[nextsim_thermo]\ndrag_ocean_q = 1.6e-3\ndrag_ocean_t = 0.9e-3\ndrag_ice_t = 1.2e-3\n"
+    "albedoW = 0.08\nI_0 = 0.2\nmin_conc = 2e-12\nmin_thick = 0.02\n"
+    "[thermoice0]\nks = 0.35\n[Hibler]\nh0 = 0.3\nphiM = 0.45\n"
+    "[CCSMIceAlbedo]\niceAlbedo = 0.6\nsnowAlbedo = 0.86\n"
+    "[thermowinton]\nks = 0.33\n"
+)
+
+
+@pytest.mark.parametrize("modules", [
+    "",
+    "[Modules]\nNextsim::IIceAlbedo = Nextsim::CCSMIceAlbedo\n"
+    "Nextsim::IFreezingPoint = Nextsim::UnescoFreezing\n",
+    "[Modules]\nNextsim::IIceAlbedo = Nextsim::SMU2IceAlbedo\n"
+    "Nextsim::IThermodynamics = Nextsim::ThermoWinton\n",
+], ids=["default", "unesco-ccsm", "smu2-winton"])
+def test_the_config_keys_reach_the_same_physics(modules):
+    port, ref = configured_pair(modules + PHYSICS_KEYS)
+    for name in ("drag_ocean_q", "drag_ocean_t", "drag_ice_t", "ocean_albedo", "i0",
+                 "min_conc", "min_thick"):
+        assert getattr(port, name) == getattr(ref, name) != getattr(NextsimPhysics(), name), name
+    assert (port.concentration.h0, port.concentration.phi_m) == (0.3, 0.45)
+    k = {"ThermoIce0": ("k_s", 0.35), "ThermoWinton": ("k_snow", 0.33)}[type(port.thermo).__name__]
+    assert getattr(port.thermo, k[0]) == getattr(ref._thermo, k[0]) == k[1]
+    if isinstance(port.ice_albedo, albedo.CCSMIceAlbedo):
+        assert (port.ice_albedo.ice_albedo, port.ice_albedo.snow_albedo) == (0.6, 0.86)
+    nlayers = 3 if "Winton" in modules else 1
+    (p, f), (jp, jf), new_ice = physics_inputs(seed=4, nlayers=nlayers)
+    got, got_diags = port.step(p, f, torch.tensor(new_ice), 600.0)
+    want, want_diags = ref.step(jp, jf, jnp.asarray(new_ice), 600.0)
+    close_dataclass(got, want)
+    close_dataclass(got_diags, want_diags)
+
+
+def test_flooding_disabled_by_config():
+    """The twin of ``test_physics_branches.py::test_flooding_disabled_by_config``."""
+    prog = make_state(hice=0.2, cice=0.5, hsnow=0.8, sst=-1.7, sss=32, tice=[-5.0])
+    forcing = make_forcing(tair=-5, tdew=-6, pair=1e5, lw=300, mld=10, wind=0)
+    port, _ = configured_pair()
+    _, diags = port.step(prog, forcing, torch.zeros((1, 1), dtype=torch.float64), 600.0)
+    assert scalar(diags.h_ice_from_snow) > 0.0  # floods by default
+    Configurator.clear()
+    PortConfigurator.clear()
+    port, ref = configured_pair("[thermoice0]\nflooding = false\n")
+    assert port.thermo.do_flooding is False and ref._thermo.do_flooding is False
+    updated, diags = port.step(prog, forcing, torch.zeros((1, 1), dtype=torch.float64), 600.0)
+    assert scalar(diags.h_ice_from_snow) == 0.0
+    jp = JaxPrognosticState(**{k: jnp.asarray(getattr(prog, k).numpy()) for k in PROG})
+    jf = JaxForcing(**{k: jnp.asarray(getattr(forcing, k).numpy()) for k in FORCING})
+    close_dataclass(updated, ref.step(jp, jf, jnp.zeros((1, 1)), 600.0)[0])
+
+
+@pytest.mark.parametrize("flooding", [True, False])
+def test_thermo_winton_matches_on_every_branch(flooding):
+    """Seeded columns in both regimes (growth under cold skies, surface and
+    bottom melt under warm ones, full melt, no ice, flooding)."""
+    prog, forcing, _ = grid_inputs(seed=1, nlayers=3)
+    kw = slab_inputs(prog, forcing, seed=9)
+    kw.update(tice1=prog["tice"][1], tice2=prog["tice"][2])
+    port = thermo_winton.ThermoWinton()
+    ref_mod = jax_thermo_winton.ThermoWinton()
+    port.do_flooding = ref_mod.do_flooding = flooding
+    for dt in (600.0, 86400.0):
+        got = port.calculate(**{k: torch.tensor(v) for k, v in kw.items()}, dt=dt, min_thickness=0.01)
+        ref = ref_mod.calculate(**{k: jnp.asarray(v) for k, v in kw.items()}, dt=dt, min_thickness=0.01)
+        close_dataclass(got, ref)
+        for mine, theirs in zip(got.t_layers, ref.t_layers):
+            close(mine, theirs)
+        close(port.last_f_atm, ref_mod.last_f_atm)
+        assert all(bool(torch.isfinite(t).all()) for t in (got.hi_true, got.t_surf, *got.t_layers))
+    got = port.calculate(**{k: torch.tensor(v) for k, v in kw.items()}, dt=600.0, min_thickness=0.01)
+    had_ice = (kw["hice"] != 0.0) & (kw["cice"] != 0.0)
+    grew = had_ice & (got.hi_true.numpy() > kw["hi_true"])
+    melted = had_ice & (got.hi_true.numpy() < kw["hi_true"])
+    assert grew.any() and melted.any() and (~had_ice).any()
+    assert (had_ice & (got.hi_true.numpy() == 0.0)).any()  # full melt
+    assert (got.t_surf.numpy()[had_ice] == 0.0).any()  # surface clamped under snow
+    assert (got.h_ice_from_snow.numpy() > 0).any() == flooding
+
+
+@pytest.mark.parametrize("regime", ["freezing", "melting"])
+def test_thermo_winton_energy_budget(regime):
+    """``tests/test_thermo_winton.py``'s budget: the total enthalpy changes by
+    dt (applied atmospheric flux + consumed ocean flux) to near round-off, in
+    the port as in the JAX package."""
+    case = {
+        "freezing": dict(hi=1.0, hs=0.1, t1=-5.0, t2=-2.5, tice0=-8.0, q_ia=60.0, dq_dt=18.0, q_io=3.0),
+        "melting": dict(hi=1.0, hs=0.05, t1=-2.0, t2=-1.5, tice0=-0.5, q_ia=-150.0, dq_dt=12.0, q_io=20.0),
+    }[regime]
+    dt = 3600.0
+    inputs = dict(
+        hice=case["hi"] * 0.9, cice=0.9, hi_true=case["hi"], hs_true=case["hs"], tice0=case["tice0"],
+        t_bot=-1.8, q_ia=case["q_ia"], dq_dt=case["dq_dt"], q_io=case["q_io"], subl=0.0,
+        snowfall=0.0, tice1=case["t1"], tice2=case["t2"],
+    )
+    port = thermo_winton.ThermoWinton()
+    out = port.calculate(
+        **{k: torch.full((1, 1), float(v), dtype=torch.float64) for k, v in inputs.items()},
+        dt=dt, min_thickness=0.01,
+    )
+    ref_mod = jax_thermo_winton.ThermoWinton()
+    ref = ref_mod.calculate(
+        **{k: jnp.full((1, 1), float(v), dtype=jnp.float64) for k, v in inputs.items()},
+        dt=dt, min_thickness=0.01,
+    )
+    close_dataclass(out, ref)
+    t = lambda v: torch.tensor(float(v), dtype=torch.float64)
+    e0 = float(thermo_winton.total_enthalpy(t(case["hi"]), t(case["hs"]), t(case["t1"]), t(case["t2"])))
+    e1 = float(thermo_winton.total_enthalpy(out.hi_true, out.hs_true, *out.t_layers)[0, 0])
+    q_back = float(out.q_io[0, 0]) - case["q_io"]
+    residual = e1 - e0 - dt * (float(port.last_f_atm[0, 0]) + case["q_io"]) + q_back * dt
+    assert abs(residual) < 1e-9 * abs(e0), residual
+    e0_ref = float(jax_thermo_winton.total_enthalpy(case["hi"], case["hs"], case["t1"], case["t2"]))
+    assert e0 == pytest.approx(e0_ref, rel=1e-15)
+    if regime == "freezing":
+        assert float(out.hi_true[0, 0]) > 1.0
+        assert float(out.t_layers[0][0, 0]) < float(out.t_layers[1][0, 0]) < 0.0
+    else:
+        assert float(out.hs_true[0, 0]) < 0.05
+        assert float(out.t_surf[0, 0]) == pytest.approx(0.0, abs=1e-9)
