@@ -5,7 +5,8 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``nextsimdg_tpu_torch/csrc`` and
-drives the port's roofline path and its six model paths. The roofline path
+drives the port's roofline path, its six model paths and, since dG0 and
+dG2 were ported, BASELINE config 2 and the degree variants (below). The roofline path
 (``nextsimdg_tpu_torch.benchmarks.roofline``, the twin of
 ``benchmarks/roofline.py``): the ``chain`` kernel (csrc/roofline.cu, the
 counterpart of the TPU kernel ``measure_vpu_peak``), a float32 chain held in
@@ -47,7 +48,7 @@ CFL-adaptive transport substeps:
   ho_single, all 100 HO subcycles in one cooperative launch whose tiles
   stay in shared memory and swap their edges with their neighbours only;
   then that step with ``transport_backend="xla"`` (``ho_coupled_256_staged``)
-  and with rk3 on "auto" (``ho_coupled_256_rk3``), whose transport is the
+  and with rk3 (``ho_coupled_256_rk3``), whose transport is the
   staged dg1_rk_stage in its qv form (one launch per RK stage on the CG2
   velocity's quadrature samples);
 * BASELINE config 5 (``run_benchmarks.py`` ``bench_multihost_16m``,
@@ -61,6 +62,15 @@ CFL-adaptive transport substeps:
   bands, by clusters of blocks along each band); the
   transport is transport_tiled on the block widened by H ghost cells, the
   CFL count one max over the ranks;
+* BASELINE config 2 (``run_benchmarks.py`` ``bench_advection``,
+  ``advection``): a closed 128 x 128 unit square, solid-body rotation
+  sampled at the quadrature points, a Gaussian at (0.5, 0.7) of width 0.01
+  projected, dt = 0.2/(128 2 pi), chunks of 400 unlimited steps
+  (``DGTransport.run``: dg1_rk_stage's no-limit instance, one launch a
+  stage), at dG2 (rk3) and dG1 (rk2); and the degree variants: the
+  headline and config 4 at dG0 (rk1) and dG2 (rk3, on transport_tiled at
+  1024^2), the HO 256^2 step at dG2 and a 2 x 2 rank grid of 256^2 blocks
+  at dG2 (the spmd transport_tiled with rk3);
 * the engine (``nextsimdg_tpu_torch.runtime``, ``python -m
   nextsimdg_tpu_torch``), which runs no kernel: BASELINE config 1
   (``run/dev1.cfg``: the 10 x 10 devgrid restart, 1 step of 1 s, dummy
@@ -122,7 +132,18 @@ Phases, each printed on its own lines:
    20 steps from zeroed launch counters: every leaf finite, 0 <= cice <= 1,
    hice >= 0, hsnow >= 0, every kernel of the path launched, and with a
    coastline the land tracers unchanged and u = v = 0 on every node that
-   touches land;
+   touches land; then (phase ``check_degrees``) dg1_sample_cfl at dG0 and
+   dG2 (speeds exactly, k equal) and dg1_rk_stage at dG0 and dG2 in every
+   form (uniform or metric, CG1 or qv, blended or first stage) and its
+   no-limit instance, launch by launch at 256^2; transport_tiled at dG2
+   with rk3 and at dG0 at 1024^2, its dG2 qv form, and its spmd form on a
+   2 x 2 rank grid, against the plain version, and the staged rk3 transport
+   against it (expected 0); config 2 at dG1 and dG2: 400 steps against the
+   plain path, one revolution (its L2 error against the projected start,
+   dG2's below half of dG1's, and the mass drift) and element updates/s;
+   the dG0 and dG2 headline and config 4 steps against the plain path and
+   20 steps bounded, the HO 256^2 step at dG2, the 2 x 2 rank grid's step at
+   dG2 against the single-device step (expected 0);
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -188,6 +209,7 @@ from nextsimdg_tpu_torch.config import Configurator, ConfiguredModule
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics import mevp_ho
+from nextsimdg_tpu_torch.dynamics.dgbasis import dg_basis
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hsc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as htc
@@ -259,6 +281,17 @@ PATH_KERNELS = {
     "multihost_16m": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled", "rdma_stage", "rdma_band"),
     "multihost_16m_blocked": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "roofline": ("chain",),
+    # dG0 and dG2 (check_degrees): config 2 on dg1_rk_stage's no-limit
+    # instance, the headline and config 4 at dG0 and dG2, HO and the rank
+    # grid at dG2 (rk3 on the spmd transport_tiled).
+    "advection_dg1": ("dg1_rk_stage",),
+    "advection_dg2": ("dg1_rk_stage",),
+    "headline_dg0": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    "headline_dg2": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    "config4_dg0": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    "config4_dg2": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    "ho_coupled_256_dg2": ("ho_single", "transport_tiled"),
+    "multihost_dg2": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
 }
 VELOCITY = ("u", "v", "s11", "s22", "s12")
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -388,11 +421,11 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_model(device, n: int = N):
+def bench_model(device, n: int = N, degree: int = 1):
     """The headline configuration (on a 512 km square; n elements a side)."""
     mesh = RectMesh(n, n, dx=512e3 / n, dy=512e3 / n)
     model = CoupledModel(
-        mesh, degree=1, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES,
+        mesh, degree=degree, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES,
         mevp_backend="pallas",
     )
     state = model.initial_state(
@@ -520,7 +553,7 @@ def check_kernels(model, device) -> dict:
         ))
     # dg1_rk_stage's other forms at 256^2: the first stage (a = 0: no base)
     # and the blended qv form (12 sample planes in place of u and v).
-    qv_ptrs = cc._dg1_qv(qv, (N, N), device)
+    qv_ptrs = cc._dg1_qv(qv, (N, N), device, transport.basis.degree)
     forms = {
         "first stage": (
             lambda: cc._dg1_rk_stage_(psi, base, u, v, face_x, face_y, None, out, 0.0, 1.0, 300.0, tables, stream),
@@ -577,10 +610,11 @@ def ptxas_report(text: str):
             elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound
                 axis = "along columns, x bands" if args[0][1] == "1" else "along rows, y bands"
                 kernel += f"<{axis}, {args[1][1]} threads>"
-            elif kernel == "transport_tiled_kernel":  # metric, qv, copy form
+            elif kernel == "transport_tiled_kernel":  # degree, metric, qv, copy form
                 kernel += "<" + ", ".join((
-                    "metric" if args[0][1] == "1" else "uniform", "qv" if args[1][1] == "1" else "cg1",
-                    "16-byte copies" if args[2][1] == "4" else "4-byte copies",
+                    f"dG{args[0][1]}", "metric" if args[1][1] == "1" else "uniform",
+                    "qv" if args[2][1] == "1" else "cg1",
+                    "16-byte copies" if args[3][1] == "4" else "4-byte copies",
                 )) + ">"
             elif kernel == "ho_single_kernel":  # consts in shared memory
                 kernel += "<consts shared>" if args[0][1] == "1" else "<consts global>"
@@ -588,13 +622,15 @@ def ptxas_report(text: str):
                 kernel += "<grid sync>" if args[0][1] == "1" else "<neighbours>"
             elif kernel == "ho_tiled_kernel" and args:  # the sub-window width, 0: any
                 kernel += f"<width {args[0][1]}>" if args[0][1] != "0" else "<any width>"
-            elif kernel == "dg1_rk_stage_kernel":  # metric, qv, blend
+            elif kernel == "dg1_rk_stage_kernel":  # degree, tracers, metric, qv, blend, limit
                 kernel += "<" + ", ".join((
-                    "metric" if args[0][1] == "1" else "uniform", "qv" if args[1][1] == "1" else "cg1",
-                    "blended" if args[2][1] == "1" else "a = 0",
+                    f"dG{args[0][1]}", f"{args[1][1]} tracers", "metric" if args[2][1] == "1" else "uniform",
+                    "qv" if args[3][1] == "1" else "cg1", "blended" if args[4][1] == "1" else "a = 0",
+                    "limited" if args[5][1] == "1" else "no limit",
                 )) + ">"
-            elif kernel == "dg1_sample_cfl_kernel":  # elements a lane
-                kernel += "<16-byte loads>" if args[0][1] == "4" else "<4-byte loads>"
+            elif kernel == "dg1_sample_cfl_kernel":  # elements a lane, volume points
+                kernel += "<" + ("16-byte loads" if args[0][1] == "4" else "4-byte loads") + (
+                    ", 3x3 points (dG2)" if args[1][1] == "9" else ", 2x2 points (dG0, dG1)") + ">"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
                 names = ["metric" if args[0][1] == "1" else "uniform"]
                 if kernel == "mevp_tiled_kernel":  # then the window width
@@ -613,10 +649,10 @@ def spherical_mesh(nx: int, ny: int = None):
     return SphericalMesh(nx, nx if ny is None else ny, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
 
 
-def config4_model(device, **backends):
+def config4_model(device, degree: int = 1, **backends):
     """BASELINE config 4 as ``bench_coupled_1m`` builds it (no land mask):
     (model, initial state, physics forcing, dynamics forcing)."""
-    return coupled_model(device, RectMesh(N4, N4, dx=4e3, dy=4e3), None, **backends)
+    return coupled_model(device, RectMesh(N4, N4, dx=4e3, dy=4e3), None, degree, **backends)
 
 
 def spherical_model(device, n: int = N4, **backends):
@@ -624,11 +660,11 @@ def spherical_model(device, n: int = N4, **backends):
     return coupled_model(device, spherical_mesh(n), synthetic_coastline(n), **backends)
 
 
-def coupled_model(device, mesh, ocean, **backends):
+def coupled_model(device, mesh, ocean, degree: int = 1, **backends):
     """Config 4's model, state and forcing on ``mesh`` with the coastline
-    ``ocean`` (or none)."""
+    ``ocean`` (or none), at DG ``degree``."""
     model = CoupledModel(
-        mesh, degree=1, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+        mesh, degree=degree, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
         **backends,
     )
     state = model.initial_state(
@@ -997,13 +1033,13 @@ def check_cfl(device) -> float:
     return err
 
 
-def ho_model(device, n: int = N4, **backends):
+def ho_model(device, n: int = N4, degree: int = 1, **backends):
     """``bench_coupled_1m(high_order=True)`` at n^2: config 4 with the HO
     solver selected through the module registry (reset after the build)."""
     loader = modules.get_loader()
     loader.set_implementation("Nextsim::IDynamics", HO)
     try:
-        return coupled_model(device, RectMesh(n, n, dx=4e3, dy=4e3), None, **backends)
+        return coupled_model(device, RectMesh(n, n, dx=4e3, dy=4e3), None, degree, **backends)
     finally:
         loader.reset()
 
@@ -1267,9 +1303,9 @@ def check_slice(device) -> dict:
         compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
         counts[path] = drive_path(path, model, state, phys, dyn, True)
 
-    # The HO 256^2 step on the staged transport: transport_backend="xla",
-    # and rk3 on "auto" (transport_tiled runs rk1 and rk2).
-    for path, scheme, transport in (("ho_coupled_256_staged", "rk2", "xla"), ("ho_coupled_256_rk3", "rk3", "auto")):
+    # The HO 256^2 step on the staged transport (transport_backend="xla"),
+    # with rk2 and with rk3 ("auto" takes transport_tiled for rk3 too).
+    for path, scheme, transport in (("ho_coupled_256_staged", "rk2", "xla"), ("ho_coupled_256_rk3", "rk3", "xla")):
         model, state, phys, dyn = ho_model(device, N, mevp_backend="pallas", transport_backend=transport)
         model.transport.scheme = scheme
         schedule = model.schedule(device)
@@ -1279,6 +1315,382 @@ def check_slice(device) -> dict:
         compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
         counts[path] = drive_path(path, model, state, phys, dyn, True)
     return counts
+
+
+#: BASELINE config 2 (``run_benchmarks.py`` ``bench_advection``): 128^2
+#: elements, chunks of 400 unlimited steps.
+N2 = 128
+CHUNK2 = 400
+#: The degree forms' rows of the summary's log: label -> Row.
+DEGREE_FORMS = {}
+
+
+def dg_sizes(degree: int) -> tuple:
+    """(K dofs, Q volume points, E points a face) of a degree."""
+    b = dg_basis(degree)
+    return b.n_dofs, len(b.w_vol), len(b.s_edge)
+
+
+def stage_cell_ops(degree: int, blend: bool, limit: bool) -> int:
+    """float32 operations of one element and tracer's stage, counted from
+    csrc/dg1_body.cuh: the volume term (Q traces of 2K - 1, 2 velocity
+    products, 2K accumulations), the update of K dofs (4 face sums of E
+    points, the metric, rhs, the step and, blended, 3 more), the limiter
+    (dG1 11, dG2 21 traces, 20 minima, theta and K - 1 scalings)."""
+    k, q, e = dg_sizes(degree)
+    volume = q * (2 * k + 1) + 2 * k + (q - 1) * 4 * k
+    update = k * (8 * e + 8 + (3 if blend else 0))
+    limiter = {0: 0, 1: 11, 2: 21 * (2 * k - 1) + 20 + 4 + (k - 1)}[degree] if limit else 0
+    return volume + update + limiter
+
+
+def stage_work(degree: int, n: int, qv: bool, metric: bool, blend: bool, limit: bool = True) -> tuple:
+    """(bytes, float32 operations) of one dg1_rk_stage launch on n elements:
+    the planes read once (psi, the base where blended, the velocity: CG1
+    nodes or the 2Q + 2E samples, with the limiter 2 face masks, 5 metric
+    planes) and written once (out); per element and tracer its stage and
+    the 2E face points it owns (a trace, the normal flux, with the limiter
+    the mask, on a metric the length); in the CG1 form, once an element,
+    its 2E normal velocities (3 each) and 2Q volume velocities (7 each).
+    The no-limit instance (config 2) reads no face masks."""
+    k, q, e = dg_sizes(degree)
+    tracers = cc.STAGE_TRACERS if limit else 1
+    faces = 2 * e * (2 * k + (1 if limit else 0) + (1 if metric else 0))
+    ops = tracers * (stage_cell_ops(degree, blend, limit) + faces) + (0 if qv else 2 * e * 3 + 2 * q * 7)
+    planes = k * tracers * (3 if blend else 2) + (2 * q + 2 * e if qv else 2) + (2 if limit else 0)
+    planes += 5 if metric else 0
+    return planes * 4 * n, ops * n
+
+
+def tiled_work(degree: int, n: int, k: int, stages: tuple, qv: bool, tracers: int = 3) -> tuple:
+    """(bytes, float32 operations) of k substeps of transport_tiled on n
+    elements with the RK ``stages`` ((a, b) each; a = 0: not blended): the
+    tracers, the velocity and the 2 face masks read once and the tracers
+    written once; per element, substep, stage and tracer its stage and the
+    2E face points it owns (a trace, the normal flux, the mask); in the CG1
+    form the velocity sampled once a launch (2Q bilinear, 2E along a face),
+    as the plain version samples it."""
+    kk, q, e = dg_sizes(degree)
+    planes = 2 * kk * tracers + (2 * q + 2 * e if qv else 2) + 2
+    faces = 2 * e * (2 * kk + 1)
+    cells = sum(stage_cell_ops(degree, a != 0.0, True) + faces for a, _ in stages)
+    ops = k * tracers * cells + (0 if qv else 2 * q * 7 + 2 * e * 3)
+    return planes * 4 * n, ops * n
+
+
+def time_form(label: str, probe: str, kernel, plain, work: tuple, reps: int = 200) -> Row:
+    """A form's row: the kernel back to back, the plain version, the bound;
+    the kernel's device duration is probed last (``probe``: "kernel ...")."""
+    row = Row(0.0, time_ms(kernel, reps), time_ms(plain, 5), *work)
+    DEGREE_FORMS[label] = row
+    DEVICE_PROBES[probe] = kernel
+    log("time", (
+        f"{label}: kernel {row.ms:.5f} ms, plain {row.plain_ms:.4f} ms, bound "
+        f"{bound(*work)[0]:.5f} ms ({bound(*work)[1]}) per call"
+    ))
+    return row
+
+
+def check_degree_launches(device) -> dict:
+    """dg1_sample_cfl and every form of dg1_rk_stage at dG0 and dG2 (and
+    the no-limit instance at dG1), launch by launch against their plain
+    versions at 256^2: uniform with random face masks, and the spherical
+    window with the coastline (its metric and face masks). Returns the
+    largest error per kernel."""
+    rng = np.random.default_rng(SEED + 2)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    errs = {"dg1_sample_cfl": 0.0, "dg1_rk_stage": 0.0}
+    for degree, spherical in ((0, False), (0, True), (1, False), (2, False), (2, True)):
+        mesh = spherical_mesh(N) if spherical else RectMesh(N, N, 2e3, 2e3)
+        ocean = synthetic_coastline(N) if spherical else None
+        transport = CoupledModel(mesh, degree=degree, n_subcycles=1, ocean_mask=ocean).transport
+        where = "metric" if spherical else "uniform"
+        u, v = t(rng.normal(0.0, 0.2, (N, N))), t(rng.normal(0.0, 0.2, (N, N)))
+        if not spherical:
+            speeds = cc.dg1_sample_cfl(transport, u, v)
+            ref = cc.dg1_sample_cfl_reference(transport, u, v)
+            errs["dg1_sample_cfl"] = max(errs["dg1_sample_cfl"], compare(
+                f"dg1_sample_cfl[dG{degree}].speeds", speeds, ref, 0.0))
+            k_of = lambda sp: int(cc.substeps_from_speeds(sp[0], sp[1], DT, mesh, degree))
+            if k_of(speeds) != k_of(ref):
+                raise AssertionError(f"dG{degree}: k differs: {k_of(speeds)} != {k_of(ref)}")
+        n_dofs = transport.basis.n_dofs
+        coeffs = lambda tracers: t(np.concatenate([
+            rng.uniform(0.1, 1.0, (1, tracers, N, N)), rng.normal(0.0, 0.3, (n_dofs - 1, tracers, N, N))
+        ]))
+        if spherical:
+            faces = CoupledModel(mesh, degree=degree, n_subcycles=1, ocean_mask=ocean).face_masks(
+                device=device, dtype=torch.float32)
+        else:
+            faces = tuple(t((rng.uniform(size=(N, N)) > 0.1).astype(np.float32)) for _ in range(2))
+        qv = cc.velocity_from_cg(mesh, transport.basis, u, v)
+        psi, base = coeffs(3), coeffs(3)
+        forms = [] if degree == 1 else [
+            (f"{'qv' if q is not None else 'cg1'},{where},{'first' if a == 0 else 'blend'}", q, a, b, True)
+            for q in (None, qv) for a, b in ((0.0, 1.0), (0.75, 0.25))
+        ]
+        forms += [(f"no limit,{where},{'first' if a == 0 else 'blend'}", qv, a, b, False)
+                  for a, b in ((0.0, 1.0), (1.0 / 3.0, 2.0 / 3.0))]
+        for label, q, a, b, limit in forms:
+            p, bs = (psi, base) if limit else (psi[:, :1].contiguous(), base[:, :1].contiguous())
+            args = (transport, p, bs, u, v, *(faces if limit else (None, None)), a, b, 300.0)
+            errs["dg1_rk_stage"] = max(errs["dg1_rk_stage"], compare(
+                f"dg1_rk_stage[dG{degree},{label}]", cc.dg1_rk_stage(*args, qv=q, limit=limit),
+                cc.dg1_rk_stage_reference(*args, qv=q, limit=limit), TOL_LAUNCH))
+        if not spherical and degree != 1:
+            time_headline_forms(transport, u, v, psi, base, faces)
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_headline_forms(transport, u, v, psi, base, faces) -> None:
+    """Times of the forms the headline path runs at 256^2 at the
+    transport's degree: dg1_sample_cfl and the blended CG1 stage (a
+    function of its own, so that the probes run later keep its inputs)."""
+    degree, device = transport.basis.degree, psi.device
+    tables, stream, out = cc._dg1_tables(transport), cc._stream(device), torch.empty_like(psi)
+    zeros2 = torch.zeros(2, device=device)
+    time_form(
+        f"dg1_sample_cfl[dG{degree}] at {N}x{N}", f"dg1_sample_cfl {N}^2 dG{degree}",
+        lambda: cc._dg1_sample_cfl_(u, v, zeros2, tables, stream),
+        lambda: cc.dg1_sample_cfl_reference(transport, u, v),
+        (2 * 4 * N * N + 8, (2 * len(transport.basis.w_vol) * 9 + 2 * len(transport.basis.s_edge) * 5) * N * N),
+    )
+    time_form(
+        f"dg1_rk_stage[dG{degree},cg1,blend] at {N}x{N}", f"dg1_rk_stage {N}^2 dG{degree} cg1",
+        lambda: cc._dg1_rk_stage_(psi, base, u, v, *faces, None, out, 0.75, 0.25, 300.0, tables, stream),
+        lambda: cc.dg1_rk_stage_reference(transport, psi, base, u, v, *faces, 0.75, 0.25, 300.0),
+        stage_work(degree, N * N, False, False, True),
+    )
+
+
+def tiled_degree_inputs(n, degree, device, seed, k=1):
+    """A transport at ``degree`` on a closed n^2 mesh of 4 km elements,
+    seeded (K, 3, n, n) tracers, CG1 velocity and random face masks."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    transport = CoupledModel(RectMesh(n, n, 4e3, 4e3), degree=degree, n_subcycles=1).transport
+    n_dofs = transport.basis.n_dofs
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, n, n)), rng.normal(0.0, 0.3, (n_dofs - 1, 3, n, n))]))
+    u, v = t(rng.normal(0.0, 0.3, (n, n))), t(rng.normal(0.0, 0.3, (n, n)))
+    faces = tuple(t((rng.uniform(size=(n, n)) > 0.1).astype(np.float32)) for _ in range(2))
+    return transport, psi, u, v, faces
+
+
+def check_degree_transport(device) -> dict:
+    """transport_tiled at dG2 with rk3 and at dG0 with rk1 at 1024^2 (k = 1
+    and 4: two launches) against the plain version, and the staged rk3
+    transport (one dg1_rk_stage a stage) against it on the same inputs
+    (expected 0); the spmd form on a 2 x 2 grid of 256^2 rank blocks
+    against the plain transport of the whole grid and the single-device
+    transport_tiled (expected 0)."""
+    errs = {"transport_tiled": 0.0, "dg1_rk_stage": 0.0}
+    for degree, k in ((2, 1), (2, 4), (0, 3)):
+        transport, psi, u, v, faces = tiled_degree_inputs(N4, degree, device, SEED + 3)
+        scheme = transport.scheme
+        args = (transport, psi, u, v, DT / k, k, faces)
+        cc.reset_launches()
+        got = tt.transport_substeps_tiled(*args)
+        launches = cc.launches["transport_tiled"]
+        errs["transport_tiled"] = max(errs["transport_tiled"], compare(
+            f"transport_tiled[dG{degree},{scheme}] k={k} at {N4}x{N4} ({launches} launches)",
+            got, cc.transport_substeps_reference(*args), TOL_LAUNCH))
+        if degree == 2:
+            same_schedule(f"staged {scheme} at dG2, k={k}", cc.transport_substeps(*args), got, "transport_tiled")
+        if k == 1:
+            halo = tt.halo_for(1, len(tt._STAGES[scheme]))
+            group = tt.window_tracers(halo, False, 3, N4 * N4, psi.shape[0], len(tt._STAGES[scheme]))
+            config = tt.launch_config(halo, False, group, N4 * N4, psi.shape[0], len(tt._STAGES[scheme]))
+            log("check", f"transport_tiled[dG{degree},{scheme}] launch: halo {halo}, {group} tracer(s) a window, {config}")
+            time_form(
+                f"transport_tiled[dG{degree},{scheme}] k=1 at {N4}x{N4}",
+                f"transport_tiled {N4}^2 dG{degree} {scheme}",
+                lambda a=args: tt.transport_substeps_tiled(*a), lambda a=args: cc.transport_substeps_reference(*a),
+                tiled_work(degree, N4 * N4, 1, tt._STAGES[scheme], False), reps=50,
+            )
+        if degree == 2 and k == 1:
+            # A window of one tracer at the full tile (shipped) against one
+            # of all three at the narrower tile that fits, in turns.
+            narrow = tt.launch_config(halo, False, 3, N4 * N4, psi.shape[0], len(tt._STAGES[scheme]))
+            same_schedule("transport_tiled[dG2,rk3] windows of 3 tracers", tt.transport_substeps_tiled(*args, group=3),
+                          got, "windows of 1")
+            runs = time_in_turns(
+                {"1": lambda a=args: tt.transport_substeps_tiled(*a, group=1),
+                 "3": lambda a=args: tt.transport_substeps_tiled(*a, group=3)}, {"1": 50, "3": 50})
+            log("time", (
+                f"transport_tiled[dG2,rk3] k=1 at {N4}x{N4}: windows of 1 tracer, tile {config.tile}: "
+                f"{', '.join(f'{m:.5f}' for m in runs['1'])} ms; of 3 tracers, tile {narrow.tile}: "
+                f"{', '.join(f'{m:.5f}' for m in runs['3'])} ms (in turns, back to back)"
+            ))
+    # The qv form at dG2 (the HO path's): the CG2 samples at 3 x 3 points.
+    transport, psi, _, _, faces = tiled_degree_inputs(N, 2, device, SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    cg2 = lambda: mevp_ho.HOField(*(torch.tensor(rng.normal(0.0, 0.3, (N, N)), device=device, dtype=torch.float32) for _ in range(4)))
+    qv = mevp_ho.ho_velocity_to_quad(transport.mesh, transport.basis, cg2(), cg2())
+    args = (transport, psi, None, None, DT / 2, 2, faces)
+    got = tt.transport_substeps_tiled(*args, qv=qv)
+    errs["transport_tiled"] = max(errs["transport_tiled"], compare(
+        "transport_tiled[dG2,rk3,qv] k=2", got, cc.transport_substeps_reference(*args, qv=qv), TOL_LAUNCH))
+    same_schedule("staged rk3 qv at dG2, k=2", cc.transport_substeps(*args, qv=qv), got, "transport_tiled")
+
+    # The spmd form on a 2 x 2 rank grid of the one card.
+    n = 2 * N
+    for degree, k in ((2, 4), (0, 3)):
+        transport, psi, u, v, faces = tiled_degree_inputs(n, degree, device, SEED + 5)
+        model, sharded = build_sharded_coupled_model(RectMesh(n, n, 4e3, 4e3), RankGrid(*RANKS, device), degree=degree)
+        grid = sharded.grid
+        parts = [grid.split(x) for x in (u, v, *faces)]
+        tracer_parts = grid.split(psi)
+
+        def body(rank, k=k):
+            m, r = sharded.models[rank.rank], rank.rank
+            velocity_w = tt.widen_velocity(m, parts[0][r], parts[1][r])
+            return tt.transport_substeps_tiled_spmd(m, tracer_parts[r], velocity_w, DT / k, k, (parts[2][r], parts[3][r]))
+
+        cc.reset_launches()
+        got = grid.gather(run_ranks(grid.ring, body), device)
+        torch.cuda.synchronize()
+        H = tt.transport_tiled_spmd_config(model)[0]
+        log("check", f"spmd transport_tiled[dG{degree},{model.transport.scheme}]: H = {H}, {cc.launches['transport_tiled']} launches on 4 ranks")
+        args = (transport, psi, u, v, DT / k, k, faces)
+        errs["transport_tiled"] = max(errs["transport_tiled"], compare(
+            f"spmd transport_tiled[dG{degree},{transport.scheme}] k={k} on 2x2 ranks of {N}^2",
+            got, cc.transport_substeps_reference(*args), TOL_LAUNCH))
+        same_schedule(f"spmd dG{degree} k={k}", got, tt.transport_substeps_tiled(*args), "transport_tiled on one domain")
+    return errs
+
+
+def check_advection(device) -> tuple:
+    """BASELINE config 2 at 128^2, dG1 and dG2: 400 steps on the kernels
+    (dg1_rk_stage's no-limit instance, one launch per stage) against the
+    plain path on the card; one full revolution with its L2 error and mass
+    drift; element updates/s by CUDA events. Returns (counts by path,
+    largest error)."""
+    from nextsimdg_tpu_torch.benchmarks.run_benchmarks import advection_setup
+
+    counts, errors, err = {}, {}, 0.0
+    for degree in (1, 2):
+        transport, vel, psi0, dt = advection_setup(N2, degree, device)
+        stages = len(cc._RK_STAGES[transport.scheme])
+        cc.reset_launches()
+        got = transport.run(psi0, vel, dt, CHUNK2)
+        torch.cuda.synchronize()
+        counts[f"advection_dg{degree}"] = dict(cc.launches)
+        if cc.launches["dg1_rk_stage"] != CHUNK2 * stages:
+            raise AssertionError(f"config 2 dG{degree}: {cc.launches['dg1_rk_stage']} dg1_rk_stage launches")
+        err = max(err, compare(
+            f"advection dG{degree}: {CHUNK2} steps", got,
+            cc.transport_run_reference(transport, psi0, vel, dt, CHUNK2), TOL_LAUNCH))
+        steps = int(round(1.0 / dt))
+        back = transport.run(psi0, vel, 1.0 / steps, steps)
+        l2 = float(torch.sqrt(torch.mean((back[0].double() - psi0[0].double()) ** 2)))
+        mass0 = float(transport.total_mass(psi0.double()))
+        drift = abs(float(transport.total_mass(back.double())) - mass0)
+        errors[degree] = l2
+        ms = time_ms(lambda: transport.run(psi0, vel, dt, CHUNK2), 3)
+        log("slice", (
+            f"advection dG{degree} ({transport.scheme}): one revolution of {steps} steps, L2 error "
+            f"{l2:.6e} against the projected start, mass drift {drift:.3e} of {mass0:.6e}"
+        ))
+        log("time", (
+            f"advection dG{degree}: {ms:.3f} ms per chunk of {CHUNK2} steps, "
+            f"{N2 * N2 * CHUNK2 / (ms / 1e3):.4e} element updates/s (CUDA events)"
+        ))
+        time_no_limit_form(transport, vel, psi0, dt)
+    if not errors[2] < 0.5 * errors[1]:
+        raise AssertionError(f"dG2's revolution error {errors[2]:.3e} is not below half of dG1's {errors[1]:.3e}")
+    log("check", f"advection: dG2's L2 error {errors[2]:.3e} < 0.5 x dG1's {errors[1]:.3e} ok")
+    return counts, err
+
+
+def time_no_limit_form(transport, vel, psi0, dt) -> None:
+    """Times of config 2's launch, dg1_rk_stage's no-limit instance (its
+    first stage), at the transport's degree."""
+    degree, device = transport.basis.degree, psi0.device
+    p, out = psi0[:, None].contiguous(), torch.empty((psi0.shape[0], 1, N2, N2), device=device)
+    qv_ptrs = cc._dg1_qv(vel, (N2, N2), device, degree)
+    tables, stream = cc._dg1_tables(transport), cc._stream(device)
+    time_form(
+        f"dg1_rk_stage[dG{degree},no limit,qv] at {N2}x{N2}", f"dg1_rk_stage {N2}^2 dG{degree} no limit",
+        lambda: cc._dg1_rk_stage_(p, p, None, None, None, None, None, out, 0.0, 1.0, dt, tables, stream,
+                                  qv=qv_ptrs, limit=False),
+        lambda: cc.dg1_rk_stage_reference(transport, p, p, None, None, None, None, 0.0, 1.0, dt, qv=vel, limit=False),
+        stage_work(degree, N2 * N2, True, False, False, limit=False),
+    )
+
+
+def check_degree_steps(device, card: str) -> dict:
+    """The coupled step at dG0 and dG2: the headline (256^2, K1's schedule,
+    dynamics only) and config 4 (1024^2, "auto": mevp_tiled and
+    transport_tiled with rk3 at dG2), the HO step at dG2 (256^2, ho_single
+    and the qv form of transport_tiled), and the 2 x 2 rank grid's step at
+    dG2 (512^2: the blocked mEVP and the spmd transport_tiled with rk3):
+    one step against the plain path (the rank grid's against the
+    single-device step, expected 0), 20 steps bounded with every kernel of
+    the path launched (the rank grid's one step), ms per step by CUDA
+    events. Returns the counts by path."""
+    counts = {}
+    for degree in (0, 2):
+        model, state, forcing = bench_model(device, degree=degree)
+        path = f"headline_dg{degree}"
+        got = model.step(state, None, forcing, DT, do_thermo=False)
+        ref = model.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference)
+        for name in ("hice", "cice", "hsnow"):
+            compare(f"{path}.step.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
+        for name in VELOCITY:
+            compare(f"{path}.step.velocity.{name}", getattr(got.velocity, name), getattr(ref.velocity, name), TOL_STEP_MEVP)
+        counts[path] = drive_path(path, model, state, None, forcing, False)
+        ms = time_ms(lambda: model.step(state, None, forcing, DT, do_thermo=False), 20)
+        log("time", f"{path}: {ms:.3f} ms/step ({N}x{N}, K1's schedule, dG{degree}), {N * N / (ms / 1e3):.4e} element updates/s, f32 on {card}")
+
+        model, state, phys, dyn = config4_model(device, degree=degree)
+        path = f"config4_dg{degree}"
+        schedule = model.schedule(device)
+        if schedule != ("pallas-tiled", "tiled"):
+            raise AssertionError(f"{path} does not run the tiled kernels: {schedule}")
+        compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
+        counts[path] = drive_path(path, model, state, phys, dyn, True)
+        ms = time_ms(lambda: model.step(state, phys, dyn, DT), 10)
+        log("time", f"{path}: {ms:.3f} ms/step ({N4}x{N4}, {schedule}, dG{degree}, {model.transport.scheme}), {N4 * N4 / (ms / 1e3):.4e} element updates/s, f32 on {card}")
+
+    model, state, phys, dyn = ho_model(device, N, degree=2, mevp_backend="pallas")
+    path = "ho_coupled_256_dg2"
+    schedule = model.schedule(device)
+    if not model.is_high_order or schedule != ("single", "tiled"):
+        raise AssertionError(f"{path} does not run ho_single and transport_tiled: {schedule}")
+    compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
+    counts[path] = drive_path(path, model, state, phys, dyn, True)
+
+    n = 2 * N
+    model, sharded = sharded_model(device, n, degree=2)
+    path = "multihost_dg2"
+    single, state, phys, dyn = coupled_model(device, RectMesh(n, n, dx=2e3, dy=2e3), None, 2)
+    log("slice", f"{path}: {n}x{n} on 2x2 ranks, schedule {(model.mevp_schedule(), model.transport_schedule())}, {model.transport.scheme}")
+    cc.reset_launches()
+    got = sharded(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts[path] = dict(cc.launches)
+    log("slice", f"{path}: 1 step, launches: {counts[path]}")
+    compare_sharded_step(path, got, single.step(state, phys, dyn, DT), tol_same=True)
+    check_bounded(f"{path}: 1 step", got, state)
+    missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+    if missing or counts[path]["dg1_rk_stage"]:
+        raise AssertionError(f"{path}: kernels not launched {missing}, or the staged transport ran")
+    return counts
+
+
+def check_degrees(device, card: str) -> tuple:
+    """Phase: dG0 and dG2, rk3 on transport_tiled and config 2 (the degree
+    forms of dg1_sample_cfl, dg1_rk_stage and transport_tiled, each against
+    its plain version; the paths that run them). Returns (counts by path,
+    largest error per kernel)."""
+    errs = check_degree_launches(device)
+    for kernel, err in check_degree_transport(device).items():
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+    counts, err = check_advection(device)
+    errs["dg1_rk_stage"] = max(errs["dg1_rk_stage"], err)
+    counts.update(check_degree_steps(device, card))
+    return counts, errs
 
 
 def report(what: str, ms: list, elements: int, card: str) -> float:
@@ -1416,13 +1828,13 @@ def config5_model(device, n: int = None, **backends):
     return coupled_model(device, RectMesh(n, n, dx=2e3, dy=2e3), None, **backends)
 
 
-def sharded_model(device, n: int = None, **backends):
+def sharded_model(device, n: int = None, degree: int = 1, **backends):
     """The decomposed model of config 5 (n = N16 by default) on a fresh
     2 x 2 rank grid of the one card: (rank 0's model, the ShardedCoupledModel)."""
     n = N16 if n is None else n
     grid = RankGrid(*RANKS, device)
     return build_sharded_coupled_model(
-        RectMesh(n, n, dx=2e3, dy=2e3), grid, degree=1, mevp_params=MEVPParams(),
+        RectMesh(n, n, dx=2e3, dy=2e3), grid, degree=degree, mevp_params=MEVPParams(),
         n_subcycles=N_SUBCYCLES, **backends,
     )
 
@@ -2219,6 +2631,10 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     ):
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, extra[key]))
     counts = phase(check_slice, device)
+    counts_dg, errs_dg = phase(check_degrees, device, smi)
+    counts.update(counts_dg)
+    for kernel, err in errs_dg.items():
+        kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     counts_5, kernels_5, probes = phase(check_multihost, device)
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
@@ -2239,10 +2655,11 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
         if probe == "rdma_band axis 0":
             log("time", f"rdma_band: back to back {kernels['rdma_band'].ms:.5f} ms per call, device {ms:.5f} ms")
 
-    for label, row in STAGE_FORMS.items():
+    forms = {**{f"dg1_rk_stage {label}": row for label, row in STAGE_FORMS.items()}, **DEGREE_FORMS}
+    for label, row in forms.items():
         measured = max(row.n_bytes / ceilings["bytes_per_s"], row.n_ops / ceilings["ops_per_s"]) * 1e3
         log("time", (
-            f"dg1_rk_stage {label}: kernel {row.ms:.5f} ms back to back, plain {row.plain_ms:.4f} ms, bound "
+            f"{label}: kernel {row.ms:.5f} ms back to back, plain {row.plain_ms:.4f} ms, bound "
             f"{bound(row.n_bytes, row.n_ops)[0]:.5f} ms ({bound(row.n_bytes, row.n_ops)[1]}), measured bound "
             f"{measured:.5f} ms"
         ))

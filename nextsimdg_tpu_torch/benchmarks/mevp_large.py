@@ -620,7 +620,9 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
         if on_card:
             out_psi, tables, stream = torch.empty_like(psi), cc._dg1_tables(transport), cc._stream(device)
             metric = cc._dg1_metric(transport, device)
-            qv_kw = {} if qv is None else {"qv": cc._dg1_qv(qv, (n, n), device)}
+            # Checkouts before dG0 and dG2 pack the dG1 planes without a degree.
+            degree = ((transport.basis.degree,) if "degree" in inspect.signature(cc._dg1_qv).parameters else ())
+            qv_kw = {} if qv is None else {"qv": cc._dg1_qv(qv, (n, n), device, *degree)}
             fn = lambda a=args, o=out_psi, t=tables, m=metric, kw=qv_kw: cc._dg1_rk_stage_(
                 *a[1:7], m, o, *a[7:], t, stream, **kw)
         else:

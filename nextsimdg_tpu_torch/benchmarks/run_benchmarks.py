@@ -3,9 +3,10 @@
 The twin of ``benchmarks/run_benchmarks.py``: the same config names, and
 per config the same mesh, state and forcing. Usage (repository root)::
 
-    python -m nextsimdg_tpu_torch.benchmarks.run_benchmarks [config ...|all] [--ranks PxQ]
+    python -m nextsimdg_tpu_torch.benchmarks.run_benchmarks [config ...|all] [--ranks PxQ] [--degree D]
 
-Default: the fast subset ``dev1 box``. ``--ranks 2x2`` runs
+Default: the fast subset ``dev1 box``. ``--degree 1`` runs ``advection``
+(BASELINE config 2, dG2 by default) at dG1. ``--ranks 2x2`` runs
 ``multihost_16m`` on a rank grid of the card (``parallel.RankGrid``), the
 twin of the JAX function's multi-device branch; without it that config
 runs single-device, as the JAX function does on one device. Each result
@@ -19,8 +20,8 @@ takes about 0.3 s or more on an H100 at the port's step times (PERF.md);
 the JAX ones were sized against its remote-dispatch latency.
 
 The JAX configs the port cannot run yet stay out of ``CONFIGS``:
-``advection`` (dG2 transport), ``box_adaptive``, ``coupled_1m_aweighted``,
-``ho_coupled_1m_periodic`` and the ``*_spmd`` ones (ROADMAP M11b).
+``box_adaptive``, ``coupled_1m_aweighted``, ``ho_coupled_1m_periodic`` and
+the ``*_spmd`` ones (ROADMAP M11b).
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ import sys
 import time
 from functools import partial
 
+import numpy as np
 import torch
 
 from ..coupled import CoupledModel
 from ..dynamics import RectMesh, SphericalMesh, synthetic_coastline
 from ..dynamics.mevp import DynamicsForcing
+from ..dynamics.transport import DGTransport, sample_velocity
 from ..state import Forcing
 from .common import card, require_cuda, with_high_order
 
@@ -103,6 +106,34 @@ def bench_dev1(n: int = 512, chunk: int = 100, device=None) -> dict:
     best = _timed_chunk(run, (prog, new_ice), device)
     return _result(
         f"thermo column updates/s (dev1 physics, {n}x{n}, f32)", n * n, chunk, best, "columns/s"
+    )
+
+
+def advection_setup(n: int = 128, degree: int = 2, device=None, dtype=torch.float32):
+    """BASELINE config 2 (``benchmarks/run_benchmarks.py`` ``bench_advection``):
+    (transport, velocity, start, dt) of a closed n x n unit square, the
+    solid-body rotation (-2 pi (y - 1/2), 2 pi (x - 1/2)) sampled at the
+    quadrature points, a Gaussian of width 0.01 at (0.5, 0.7) projected
+    onto dG``degree``, dt = 0.2 / (2 pi n)."""
+    device = _device(device)
+    mesh = RectMesh(n, n, dx=1.0 / n, dy=1.0 / n)
+    transport = DGTransport(mesh, degree=degree)
+    rotation = lambda x, y: (-2 * np.pi * (y - 0.5), 2 * np.pi * (x - 0.5))
+    velocity = sample_velocity(mesh, transport.basis, rotation, device=device, dtype=dtype)
+    gaussian = lambda x, y: np.exp(-((x - 0.5) ** 2 + (y - 0.7) ** 2) / 0.01)
+    psi = transport.project(gaussian, device=device, dtype=dtype)
+    return transport, velocity, psi, 0.2 / (n * 2 * np.pi)
+
+
+def bench_advection(n: int = 128, degree: int = 2, chunk: int = 400, device=None) -> dict:
+    """BASELINE config 2: DG advection by solid-body rotation, chunks of
+    ``chunk`` unlimited steps (``DGTransport.run``: on a card one
+    dg1_rk_stage launch, its no-limit qv form, per RK stage)."""
+    device = _device(device)
+    transport, velocity, psi, dt = advection_setup(n, degree, device)
+    best = _timed_chunk(lambda p: transport.run(p, velocity, dt, chunk), psi, device)
+    return _result(
+        f"DG advection element updates/s (dG{degree}, {n}x{n}, f32)", n * n, chunk, best
     )
 
 
@@ -205,6 +236,7 @@ def bench_multihost_16m(
 
 CONFIGS = {
     "dev1": bench_dev1,
+    "advection": bench_advection,
     "box": bench_box,
     "coupled_1m": bench_coupled_1m,
     "coupled_1m_mask": partial(bench_coupled_1m, land_mask=True),
@@ -233,10 +265,14 @@ def run_config(name: str, device=None, **overrides) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    ranks = None
+    ranks = degree = None
     if "--ranks" in argv:
         i = argv.index("--ranks")
         ranks = tuple(int(x) for x in argv[i + 1].lower().split("x"))
+        del argv[i:i + 2]
+    if "--degree" in argv:
+        i = argv.index("--degree")
+        degree = int(argv[i + 1])
         del argv[i:i + 2]
     names = argv or ["dev1", "box"]
     if names == ["all"]:
@@ -250,6 +286,8 @@ def main(argv=None) -> int:
         return 1
     for name in names:
         extra = {"ranks": ranks} if ranks and name == "multihost_16m" else {}
+        if degree is not None and name == "advection":
+            extra = {"degree": degree}
         print(json.dumps(run_config(name, torch.device("cuda", 0), **extra)), flush=True)
     return 0
 

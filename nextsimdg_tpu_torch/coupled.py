@@ -1,4 +1,4 @@
-"""The coupled sea-ice model: mEVP dynamics + dG1 transport + column physics.
+"""The coupled sea-ice model: mEVP dynamics + DG transport + column physics.
 
 Counterpart of ``nextsimdg_tpu.coupled`` on a closed mesh: uniform, graded
 or spherical, with an optional coastline (``ocean_mask``). Per outer
@@ -9,7 +9,8 @@ timestep:
    (``node_mask``);
 2. one dynamics phase (``dynamics.kernels.coupled_cuda.dynamics_phase``):
    N mEVP subcycles, CG1 -> quadrature sampling, the CFL substep count k
-   and k limited SSP-RK dG1 steps of the stacked (hice, cice, hsnow), with
+   and k limited SSP-RK DG steps (dG0, dG1 or dG2: ``degree``) of the
+   stacked (hice, cice, hsnow), with
    impermeable coastline faces (``face_masks``);
 3. bounds: 0 <= A <= 1, h >= 0 on the cell means;
 4. with ``do_thermo``, the column physics (``physics.NextsimPhysics``) on
@@ -120,7 +121,9 @@ class CoupledModel:
         transport_backend: str = "auto",
         mevp_block_halo="auto",
     ) -> None:
-        """``transport_substeps``: advect with k sub-steps of dt/k; with
+        """``degree``: the DG degree of the tracers (0, 1 or 2: 1, 3 or 6
+        coefficients each), advected with rk1, rk2 or rk3.
+        ``transport_substeps``: advect with k sub-steps of dt/k; with
         ``auto_substeps`` (default) k is chosen per step from the advective
         CFL number of the post-mEVP velocity and ``transport_substeps`` is
         its floor. ``physics``: the column physics (default: the reference
@@ -148,14 +151,15 @@ class CoupledModel:
           counterpart of the JAX staged path: one ``dg1_rk_stage`` per RK
           stage; ``"tiled"``, the counterpart of the JAX tiled kernel:
           ``transport_tiled``, whole substeps per launch; ``"auto"``: tiled
-          from ``TILED_MIN_ELEMENTS`` elements for rk1/rk2, staged below.
+          from ``TILED_MIN_ELEMENTS`` elements (every scheme: rk1, rk2 and
+          rk3), staged below.
 
         With the HO solver selected, ``mevp_backend`` goes to
         ``MEVPSolverHO``: ``"pallas"`` runs ho_single, ``"pallas-tiled"``
         ho_tiled, ``"auto"`` ho_single below
         ``mevp_ho.HO_SINGLE_MAX_ELEMENTS`` and ho_tiled from there; the
         transport is ``transport_tiled`` on the CG2 samples at every size
-        (``"xla"`` raises on a card: ``dg1_rk_stage`` takes CG1 (u, v)).
+        (``"xla"``: the staged ``dg1_rk_stage`` in its ``qv`` form).
 
         ``spmd``: on a rank grid, this rank's ``parallel.exchange.RankExchange``
         (``parallel.shardmap.build_sharded_coupled_model`` builds one model
@@ -166,9 +170,9 @@ class CoupledModel:
         ("auto": ``mevp.BLOCK_HALO``, at most half the block);
         ``transport_backend`` ``"tiled"`` (and ``"auto"``: the widened block
         on transport_tiled) or ``"xla"``. The ``"xla"`` schedules, and
-        ``"auto"`` where the block has no spmd tiled transport (rk3, or a
-        block under 3 cells), are the plain width-1 exchanges: CPU tensors
-        only, they raise on a card.
+        ``"auto"`` where the block has no spmd tiled transport (a block too
+        small for one substep's ghost cells), are the plain width-1
+        exchanges: CPU tensors only, they raise on a card.
         """
         self.exchange = None if isinstance(spmd, tuple) else spmd
         if self.exchange is None and any(axis is not None for axis in spmd):
@@ -286,20 +290,13 @@ class CoupledModel:
                 )
             return "xla"
         if self.is_high_order:
-            # transport_tiled runs rk1 and rk2; "auto" takes the staged
-            # dg1_rk_stage (the qv form) for rk3, as on the CG1 path.
-            if self.transport_backend != "auto":
-                return self.transport_backend
-            return "tiled" if self.transport.scheme in ("rk1", "rk2") else "xla"
+            # transport_tiled on the CG2 samples at every size and scheme.
+            return "tiled" if self.transport_backend == "auto" else self.transport_backend
         if self.mevp_schedule() == "pallas":
             return "xla"
         if self.transport_backend != "auto":
             return self.transport_backend
-        tiled = (
-            self.mesh.n_elements >= TILED_MIN_ELEMENTS
-            and self.transport.scheme in ("rk1", "rk2")
-        )
-        return "tiled" if tiled else "xla"
+        return "tiled" if self.mesh.n_elements >= TILED_MIN_ELEMENTS else "xla"
 
     # -- state construction --------------------------------------------------
     def initial_state(

@@ -1,5 +1,5 @@
-// One limited SSP-RK stage of the dG1 transport: the face fluxes and the
-// element update.
+// One SSP-RK stage of the DG transport (dG0, dG1 or dG2): the face fluxes,
+// the element update and the positivity limiter, templated on the degree.
 //
 // Both schedules of the transport phase run these bodies: transport.cu
 // (dg1_rk_stage, one launch per RK stage: each face's flux computed once by
@@ -7,38 +7,53 @@
 // transport_tiled.cu (whole substeps per launch on a shared-memory window:
 // dg1_stage_cell, an element's four fluxes and its update in one body).
 // With --fmad=false they run the same float32 operations on the same
-// values, so they agree bit for bit. dg1_stage_cell keeps the operations of
-// dg1_face_flux and dg1_stage_update written out: composed from them,
-// transport_tiled compiled to other registers and ran 2% slower on the
-// H100 (PERF.md). Both schedules take the velocity sampled from the
-// CG1 nodes (sample_velocity, bilinear, along_face) or the HO path's
-// precomputed quadrature velocity (Dg1QvPlanes).
+// values, so they agree bit for bit at every degree. dg1_stage_cell keeps
+// the operations of dg1_face_flux and dg1_stage_update written out:
+// composed from them, transport_tiled compiled to other registers and ran
+// 2% slower on the H100 (PERF.md). Both schedules take the velocity sampled
+// from the CG1 nodes (sample_velocity, bilinear, along_face) or the HO
+// path's precomputed quadrature velocity (DgQvPlanes).
 //
-// The dG1 and 2-point Gauss table entries arrive in Dg1Tables, packed by
-// coupled_cuda.py from the port's DGTransport, so the kernels and the plain
-// version share one source. The sums run densely over every table entry in
-// the plain version's ascending order: with --fmad=false a zero entry adds
-// an exact zero and a unit entry multiplies exactly, which is what the
-// plain version's skipped terms amount to. On a uniform mesh the edge
-// terms' division by the element width is a multiply by its float32
-// reciprocal, as PyTorch on CUDA divides a tensor by a Python scalar. On a
-// graded or spherical mesh (kMetric) the widths are per-element planes:
-// the volume term multiplies by inv_dx and inv_dy, each face flux is
-// weighted by its face's length after the coastline mask, and the edge
-// terms multiply by the element's inverse area, in the plain version's
-// order.
+// Each degree's basis and Gauss table entries arrive in DgTables<kDeg>,
+// packed by coupled_cuda.py from the port's DGTransport, so the kernels and
+// the plain version share one source:
+//
+//   degree  K (dofs)  volume points  face points  limiter
+//   dG0     1         2x2            2            none
+//   dG1     3         2x2            2            corner formula
+//   dG2     6         3x3            3            min over the 9 + 4x3 points
+//
+// The sums run densely over every table entry in the plain version's
+// ascending order: with --fmad=false a zero entry adds an exact zero and a
+// unit entry multiplies exactly, which is what the plain version's skipped
+// terms amount to. On a uniform mesh the edge terms' division by the
+// element width is a multiply by its float32 reciprocal, as PyTorch on CUDA
+// divides a tensor by a Python scalar. On a graded or spherical mesh
+// (kMetric) the widths are per-element planes: the volume term multiplies
+// by inv_dx and inv_dy, each face flux is weighted by its face's length
+// after the coastline mask, and the edge terms multiply by the element's
+// inverse area, in the plain version's order.
 #pragma once
 
 #include "common.cuh"
 
 namespace nst {
 
-constexpr int kDofs = 3;   // dG1
-constexpr int kVol = 4;    // 2x2 Gauss volume points
-constexpr int kEdge = 2;   // 2 Gauss points per face
+// The sizes of one DG degree.
+template <int kDeg>
+struct DgShape {
+  static_assert(kDeg >= 0 && kDeg <= 2, "the transport runs dG0, dG1 and dG2");
+  static constexpr int kDofs = kDeg == 0 ? 1 : (kDeg == 1 ? 3 : 6);
+  static constexpr int kVol = kDeg == 2 ? 9 : 4;   // 2x2 or 3x3 Gauss volume points
+  static constexpr int kEdge = kDeg == 2 ? 3 : 2;  // Gauss points per face
+};
 
-// Table entries, in the order that coupled_cuda.py packs them.
-struct Dg1Tables {
+// Table entries, in the order that coupled_cuda.py packs them. The first
+// two fields are the velocity sampling's (SamplePoints).
+template <int kDeg>
+struct DgTables {
+  static constexpr int kDofs = DgShape<kDeg>::kDofs, kVol = DgShape<kDeg>::kVol,
+                       kEdge = DgShape<kDeg>::kEdge;
   float w_vol[kVol][4];          // bilinear weights of nodes 00, 10, 01, 11
   float w_edge[kEdge][2];        // (1 - s, s) along a face
   float psi_vol[kDofs][kVol];    // basis at volume points
@@ -57,6 +72,13 @@ struct Dg1Tables {
   float edge_inv_dx, edge_inv_dy; // float32 reciprocals of the widths (edge terms)
 };
 
+// The sampling weights alone: the leading fields of DgTables.
+template <int kVol, int kEdge>
+struct SamplePoints {
+  float w_vol[kVol][4];
+  float w_edge[kEdge][2];
+};
+
 // The CG1 velocity at an element's nodes (i, j), (i+1, j), (i, j+1), (i+1, j+1).
 struct Corners {
   float u00, u10, u01, u11, v00, v10, v01, v11;
@@ -71,33 +93,37 @@ __device__ __forceinline__ float along_face(const float w[2], float f0, float f1
   return f0 * w[0] + f1 * w[1];
 }
 
-// sum_k table[k][e] * c[k], ascending k.
-__device__ __forceinline__ float trace(const float table[kDofs][kEdge], int e,
-                                       const float c[kDofs]) {
+// sum_k table[k][e] * c[k], ascending k: a face trace, or (with psi_vol)
+// the value at a volume point.
+template <int K, int E>
+__device__ __forceinline__ float trace(const float (&table)[K][E], int e, const float (&c)[K]) {
   float acc = table[0][e] * c[0];
 #pragma unroll
-  for (int k = 1; k < kDofs; ++k) acc = acc + table[k][e] * c[k];
+  for (int k = 1; k < K; ++k) acc = acc + table[k][e] * c[k];
   return acc;
 }
 
 // The velocity at an element's quadrature points and on its four faces (the
 // right face is element (i+1, j)'s left face, the top face element
 // (i, j+1)'s bottom face).
-struct Dg1Velocity {
+template <int kDeg>
+struct DgVelocity {
+  static constexpr int kVol = DgShape<kDeg>::kVol, kEdge = DgShape<kDeg>::kEdge;
   float vx[kVol], vy[kVol];
   float vn_left[kEdge], vn_right[kEdge], vn_bottom[kEdge], vn_top[kEdge];
 };
 
-__device__ __forceinline__ Dg1Velocity sample_velocity(const Dg1Tables& tb,
-                                                       const Corners& c) {
-  Dg1Velocity q;
+template <int kDeg>
+__device__ __forceinline__ DgVelocity<kDeg> sample_velocity(const DgTables<kDeg>& tb,
+                                                            const Corners& c) {
+  DgVelocity<kDeg> q;
 #pragma unroll
-  for (int k = 0; k < kVol; ++k) {
+  for (int k = 0; k < DgShape<kDeg>::kVol; ++k) {
     q.vx[k] = bilinear(tb.w_vol[k], c.u00, c.u10, c.u01, c.u11);
     q.vy[k] = bilinear(tb.w_vol[k], c.v00, c.v10, c.v01, c.v11);
   }
 #pragma unroll
-  for (int e = 0; e < kEdge; ++e) {
+  for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) {
     q.vn_left[e] = along_face(tb.w_edge[e], c.u00, c.u01);
     q.vn_right[e] = along_face(tb.w_edge[e], c.u10, c.u11);
     q.vn_bottom[e] = along_face(tb.w_edge[e], c.v00, c.v10);
@@ -106,9 +132,13 @@ __device__ __forceinline__ Dg1Velocity sample_velocity(const Dg1Tables& tb,
   return q;
 }
 
-// The precomputed quadrature velocity of the HO path (QuadVelocity), each a
-// read-only (nx, ny) plane; the host packs them in this order.
-struct Dg1QvPlanes {
+// The precomputed quadrature velocity of the HO path and of the advection
+// run (QuadVelocity), each a read-only (nx, ny) plane; the host packs them
+// in this order: 12 planes at dG0 and dG1, 24 at dG2.
+template <int kDeg>
+struct DgQvPlanes {
+  static constexpr int kVol = DgShape<kDeg>::kVol, kEdge = DgShape<kDeg>::kEdge,
+                       kCount = 2 * kVol + 2 * kEdge;
   const float* vx[kVol];
   const float* vy[kVol];
   const float* vn_x[kEdge];  // the left face of element (i, j)
@@ -118,16 +148,17 @@ struct Dg1QvPlanes {
 // Element (i, j)'s velocity from the precomputed planes; its right and top
 // faces are those of elements (i+1, j) and (i, j+1) (zero beyond the domain,
 // where there is no flux).
-__device__ __forceinline__ Dg1Velocity load_qv(const Dg1QvPlanes& qv, long ij, int ny,
-                                               bool has_right, bool has_top) {
-  Dg1Velocity q;
+template <int kDeg>
+__device__ __forceinline__ DgVelocity<kDeg> load_qv(const DgQvPlanes<kDeg>& qv, long ij, int ny,
+                                                    bool has_right, bool has_top) {
+  DgVelocity<kDeg> q;
 #pragma unroll
-  for (int k = 0; k < kVol; ++k) {
+  for (int k = 0; k < DgShape<kDeg>::kVol; ++k) {
     q.vx[k] = __ldg(qv.vx[k] + ij);
     q.vy[k] = __ldg(qv.vy[k] + ij);
   }
 #pragma unroll
-  for (int e = 0; e < kEdge; ++e) {
+  for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) {
     q.vn_left[e] = __ldg(qv.vn_x[e] + ij);
     q.vn_right[e] = has_right ? __ldg(qv.vn_x[e] + ij + ny) : 0.0f;
     q.vn_bottom[e] = __ldg(qv.vn_y[e] + ij);
@@ -187,16 +218,15 @@ __device__ __forceinline__ Dg1Metric load_metric(const Dg1MetricPlanes& m, long 
 // on them: the operations of dg1_stage_cell's trace on the same values,
 // with no branch (written as a choice between two traces, it compiles to a
 // divergent branch on the sign of vn, which cost the kernel 2-4%).
-template <bool kMetric>
-__device__ __forceinline__ float dg1_face_flux(const float lo_table[kDofs][kEdge],
-                                               const float hi_table[kDofs][kEdge], int e,
-                                               float vn, const float lo[kDofs],
-                                               const float hi[kDofs], bool open, float mask,
-                                               float len) {
+template <bool kMetric, int K, int E>
+__device__ __forceinline__ float dg1_face_flux(const float (&lo_table)[K][E],
+                                               const float (&hi_table)[K][E], int e, float vn,
+                                               const float (&lo)[K], const float (&hi)[K],
+                                               bool open, float mask, float len) {
   const bool from_lo = vn >= 0.0f;
   float up = (from_lo ? lo_table[0][e] : hi_table[0][e]) * (from_lo ? lo[0] : hi[0]);
 #pragma unroll
-  for (int k = 1; k < kDofs; ++k)
+  for (int k = 1; k < K; ++k)
     up = up + (from_lo ? lo_table[k][e] : hi_table[k][e]) * (from_lo ? lo[k] : hi[k]);
   float g = open ? vn * up : 0.0f;
   g = g * mask;
@@ -204,27 +234,73 @@ __device__ __forceinline__ float dg1_face_flux(const float lo_table[kDofs][kEdge
   return g;
 }
 
-// An element's four face fluxes at the 2 points of each face.
-struct Dg1Fluxes {
+// An element's four face fluxes at the points of each face.
+template <int kEdge>
+struct DgFluxes {
   float left[kEdge], right[kEdge], bottom[kEdge], top[kEdge];
 };
 
+// out = the positivity-limited val (DGTransport.limit_positivity), or val
+// without kLimit. dG0: no higher moment. dG1: the linear polynomial's
+// minimum is at a corner, mean - (|s1| + |s2|)/2. dG2: the minimum over the
+// 9 volume points and the 3 points of each face, each value an
+// ascending-k sum; the higher moments scale by
+// theta = min(1, mean / (mean - min)) where the minimum is negative.
+template <int kDeg, bool kLimit>
+__device__ __forceinline__ void dg_limit(const DgTables<kDeg>& tb,
+                                         const float (&val)[DgShape<kDeg>::kDofs],
+                                         float (&out)[DgShape<kDeg>::kDofs]) {
+  constexpr int K = DgShape<kDeg>::kDofs;
+  if constexpr (kDeg == 0 || !kLimit) {
+#pragma unroll
+    for (int d = 0; d < K; ++d) out[d] = val[d];
+  } else {
+    const float mean = val[0];
+    float mins;
+    if constexpr (kDeg == 1) {
+      mins = mean - 0.5f * (fabsf(val[1]) + fabsf(val[2]));
+    } else {
+      mins = trace(tb.psi_vol, 0, val);
+#pragma unroll
+      for (int q = 1; q < DgShape<kDeg>::kVol; ++q) mins = fminf(mins, trace(tb.psi_vol, q, val));
+#pragma unroll
+      for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) mins = fminf(mins, trace(tb.psi_x0, e, val));
+#pragma unroll
+      for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) mins = fminf(mins, trace(tb.psi_x1, e, val));
+#pragma unroll
+      for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) mins = fminf(mins, trace(tb.psi_y0, e, val));
+#pragma unroll
+      for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) mins = fminf(mins, trace(tb.psi_y1, e, val));
+    }
+    const float deficit = mean - mins;
+    const float theta =
+        mins < 0.0f ? fminf(fmaxf(mean / (deficit > 0.0f ? deficit : 1.0f), 0.0f), 1.0f)
+                    : 1.0f;
+    out[0] = mean;
+#pragma unroll
+    for (int d = 1; d < K; ++d) out[d] = val[d] * theta;
+  }
+}
+
 // out = lim(a*base + b*(p + dt*rhs(p))), or lim(p + dt*rhs(p)) when a == 0
 // or without kBlend, for one tracer of one element: p its coefficients, vx
-// and vy its volume velocity, fl its face fluxes (dg1_face_flux). `base`
-// is read only with kBlend and a != 0; `g` only with kMetric.
-template <bool kMetric, bool kBlend = true>
+// and vy its volume velocity, fl its face fluxes (dg1_face_flux); lim is the
+// identity without kLimit. `base` is read only with kBlend and a != 0; `g`
+// only with kMetric.
+template <int kDeg, bool kMetric, bool kBlend = true, bool kLimit = true>
 __device__ __forceinline__ void dg1_stage_update(
-    const Dg1Tables& tb, const float vx[kVol], const float vy[kVol], const Dg1Metric& g,
-    const float p[kDofs], const Dg1Fluxes& fl, const float base[kDofs], float a, float b,
-    float dt, float out[kDofs]) {
+    const DgTables<kDeg>& tb, const float (&vx)[DgShape<kDeg>::kVol],
+    const float (&vy)[DgShape<kDeg>::kVol], const Dg1Metric& g,
+    const float (&p)[DgShape<kDeg>::kDofs], const DgFluxes<DgShape<kDeg>::kEdge>& fl,
+    const float (&base)[DgShape<kDeg>::kDofs], float a, float b, float dt,
+    float (&out)[DgShape<kDeg>::kDofs]) {
+  constexpr int kDofs = DgShape<kDeg>::kDofs, kVol = DgShape<kDeg>::kVol,
+                kEdge = DgShape<kDeg>::kEdge;
   // Volume term, streamed over the quadrature points.
   float acc_x[kDofs], acc_y[kDofs];
 #pragma unroll
   for (int k = 0; k < kVol; ++k) {
-    float pq = tb.psi_vol[0][k] * p[0];
-#pragma unroll
-    for (int d = 1; d < kDofs; ++d) pq = pq + tb.psi_vol[d][k] * p[d];
+    const float pq = trace(tb.psi_vol, k, p);
     const float fx = vx[k] * pq;
     const float fy = vy[k] * pq;
 #pragma unroll
@@ -256,18 +332,7 @@ __device__ __forceinline__ void dg1_stage_update(
     val[d] = p[d] + dt * rhs;
     if (kBlend && a != 0.0f) val[d] = a * base[d] + b * val[d];
   }
-
-  // dG1 positivity limiter: the linear polynomial's minimum is at a
-  // corner, mean - (|s1| + |s2|)/2.
-  const float mean = val[0];
-  const float mins = mean - 0.5f * (fabsf(val[1]) + fabsf(val[2]));
-  const float deficit = mean - mins;
-  const float theta =
-      mins < 0.0f ? fminf(fmaxf(mean / (deficit > 0.0f ? deficit : 1.0f), 0.0f), 1.0f)
-                  : 1.0f;
-  out[0] = mean;
-  out[1] = val[1] * theta;
-  out[2] = val[2] * theta;
+  dg_limit<kDeg, kLimit>(tb, val, out);
 }
 
 // out = lim(a*base + b*(p + dt*rhs(p))), or lim(p + dt*rhs(p)) when a == 0
@@ -276,19 +341,20 @@ __device__ __forceinline__ void dg1_stage_update(
 // (zeros beyond the domain): dg1_face_flux on its four faces, then
 // dg1_stage_update, written out in one body. `base` is read only with
 // kBlend and a != 0; `g` only with kMetric.
-template <bool kMetric, bool kBlend = true>
+template <int kDeg, bool kMetric, bool kBlend = true>
 __device__ __forceinline__ void dg1_stage_cell(
-    const Dg1Tables& tb, const Dg1Velocity& q, const Dg1Faces& f, const Dg1Metric& g,
-    const float p[kDofs], const float p_l[kDofs], const float p_r[kDofs],
-    const float p_b[kDofs], const float p_t[kDofs], const float base[kDofs],
-    float a, float b, float dt, float out[kDofs]) {
+    const DgTables<kDeg>& tb, const DgVelocity<kDeg>& q, const Dg1Faces& f, const Dg1Metric& g,
+    const float (&p)[DgShape<kDeg>::kDofs], const float (&p_l)[DgShape<kDeg>::kDofs],
+    const float (&p_r)[DgShape<kDeg>::kDofs], const float (&p_b)[DgShape<kDeg>::kDofs],
+    const float (&p_t)[DgShape<kDeg>::kDofs], const float (&base)[DgShape<kDeg>::kDofs],
+    float a, float b, float dt, float (&out)[DgShape<kDeg>::kDofs]) {
+  constexpr int kDofs = DgShape<kDeg>::kDofs, kVol = DgShape<kDeg>::kVol,
+                kEdge = DgShape<kDeg>::kEdge;
   // Volume term, streamed over the quadrature points.
   float acc_x[kDofs], acc_y[kDofs];
 #pragma unroll
   for (int k = 0; k < kVol; ++k) {
-    float pq = tb.psi_vol[0][k] * p[0];
-#pragma unroll
-    for (int d = 1; d < kDofs; ++d) pq = pq + tb.psi_vol[d][k] * p[d];
+    const float pq = trace(tb.psi_vol, k, p);
     const float fx = q.vx[k] * pq;
     const float fy = q.vy[k] * pq;
 #pragma unroll
@@ -344,18 +410,7 @@ __device__ __forceinline__ void dg1_stage_cell(
     val[d] = p[d] + dt * rhs;
     if (kBlend && a != 0.0f) val[d] = a * base[d] + b * val[d];
   }
-
-  // dG1 positivity limiter: the linear polynomial's minimum is at a
-  // corner, mean - (|s1| + |s2|)/2.
-  const float mean = val[0];
-  const float mins = mean - 0.5f * (fabsf(val[1]) + fabsf(val[2]));
-  const float deficit = mean - mins;
-  const float theta =
-      mins < 0.0f ? fminf(fmaxf(mean / (deficit > 0.0f ? deficit : 1.0f), 0.0f), 1.0f)
-                  : 1.0f;
-  out[0] = mean;
-  out[1] = val[1] * theta;
-  out[2] = val[2] * theta;
+  dg_limit<kDeg, true>(tb, val, out);
 }
 
 }  // namespace nst

@@ -1,13 +1,16 @@
-// dG1 tracer transport on Hopper: CFL speeds and one limited SSP-RK stage.
+// DG tracer transport on Hopper (dG0, dG1, dG2): CFL speeds and one SSP-RK
+// stage.
 //
 // Replaces the transport part of the TPU kernel
 // nextsimdg_tpu/dynamics/kernels/coupled_pallas.py::fused_dynamics_pallas
 // (velocity_from_cg, cfl_substeps and k limited DGTransport.step calls on
-// the stacked (K=3, T, nx, ny) tracers, all resident on one core):
+// the stacked (K, T, nx, ny) tracers, all resident on one core, at any DG
+// degree), and runs DGTransport.run's unlimited steps (BASELINE config 2):
 //
-//   dg1_sample_cfl (elements): samples the CG1 velocity at the 2x2 volume
-//                  points and the 2 points of the element's left and bottom
-//                  faces and reduces max |vx| and max |vy| over the elements.
+//   dg1_sample_cfl (elements): samples the CG1 velocity at the degree's
+//                  volume points (2x2, or 3x3 at dG2) and the 2 (3) points
+//                  of the element's left and bottom faces and reduces
+//                  max |vx| and max |vy| over the elements.
 //                  It streams: at most as many blocks as are resident walk
 //                  the rows, each warp a strip of 128 columns (32 with
 //                  4-byte loads) down a chunk of rows (1 to 32, sized so
@@ -31,17 +34,21 @@
 //                  velocity widened by the halo exchange, so that the nodes
 //                  beyond the block are its neighbours' and not zeros.
 //   dg1_rk_stage   (elements): out = lim(a*base + b*(psi + dt*rhs(psi))), or
-//                  lim(psi + dt*rhs(psi)) when a == 0, for the 3 tracers x 3
+//                  lim(psi + dt*rhs(psi)) when a == 0, for the 3 tracers x K
 //                  dofs, one launch per RK stage (the TPU kernel's k loop,
 //                  coupled_pallas.py:113-128). The velocity is sampled from
-//                  the CG1 nodes u and v, or (the qv form, the HO path) read
-//                  from the 12 quadrature planes of ho_velocity_to_quad. It
-//                  zeroes the global x = 0 and y = 0 wall faces, multiplies
-//                  the fluxes by the face_x and face_y planes (all ones
-//                  without a coastline), on a graded or spherical mesh reads
-//                  the transport's 5 metric planes, and applies the dG1
-//                  corner positivity limiter. It reads its neighbours' psi,
-//                  so `out` must not alias `psi` (it may alias `base`).
+//                  the CG1 nodes u and v, or (the qv form: the HO path and
+//                  the advection run) read from the 12 (dG2: 24) quadrature
+//                  planes of a QuadVelocity. It zeroes the global x = 0 and
+//                  y = 0 wall faces, multiplies the fluxes by the face_x and
+//                  face_y planes (all ones without a coastline), on a graded
+//                  or spherical mesh reads the transport's 5 metric planes,
+//                  and applies the degree's positivity limiter. Its no-limit
+//                  instance (DGTransport.run, whose steps do not limit)
+//                  advects one tracer in the qv form and reads no face
+//                  masks (every face but the walls open). It reads its
+//                  neighbours' psi, so `out` must not alias `psi` (it may
+//                  alias `base`).
 //
 // The tables, the velocity sampling and the per-face and per-element stage
 // math live in dg1_body.cuh, shared with the tiled schedule of
@@ -62,7 +69,9 @@
 // flux computed twice, once by each side: a latency- and issue-bound
 // kernel. This design: a tile of 4 x 32 elements a block of 384 threads,
 // one thread an element and tracer, four blocks an SM (48 warps at 256^2,
-// under a 40-register bound). The threads first copy the tile's windows
+// under a 40-register bound; at dG2, whose thread holds 6 coefficients, 9
+// volume points and a 21-point limiter, two blocks an SM under an
+// 85-register bound). The threads first copy the tile's windows
 // into shared memory by 16-byte cp.async (4-byte where a plane or its rows
 // are not 16-byte aligned), each window once and every thread a share of
 // each: the coefficients with a one-cell apron, then the CG1 nodes or the
@@ -75,7 +84,10 @@
 // the same values, so sharing changes no bit. In the CG1 form the
 // element's 8 volume velocities are sampled once, split over its 3 tracer
 // threads. After a barrier each thread updates its element. The blend, the
-// velocity source and the metric are template arguments. No tensor cores
+// velocity source, the metric, the degree, the limiter and the tracers a
+// block (3, or 1 for the run's one tracer) are template arguments. The tile
+// lives in dynamic shared memory (at dG2 in the qv form with the metric
+// it exceeds the 48 KB of a static one). No tensor cores
 // (an FP32 stencil) and no TMA tensor copies (they faulted with an illegal
 // instruction under driver 580.159.03, CUDA 13.0: PERF.md).
 #include <cuda/atomic>
@@ -150,11 +162,12 @@ __device__ __forceinline__ void finish_nodes(float (&x)[kPer + 1]) {
 // fill the resident warps) of a strip of 32 kPer columns.
 // scratch: [0] the count of blocks done (0 between launches), then a
 // (max |vx|, max |vy|) pair per block.
-template <int kPer>
+// kVol, kEdge: the degree's volume and face points (SamplePoints).
+template <int kPer, int kVol, int kEdge>
 __global__ void __launch_bounds__(kCflThreads)
 dg1_sample_cfl_kernel(const float* __restrict__ u, const float* __restrict__ v, int ex, int ey,
-                      int nx, int ny, int ld, int rows, Dg1Tables tb, float* __restrict__ speeds,
-                      unsigned int* __restrict__ scratch) {
+                      int nx, int ny, int ld, int rows, SamplePoints<kVol, kEdge> tb,
+                      float* __restrict__ speeds, unsigned int* __restrict__ scratch) {
   constexpr int kStrip = 32 * kPer;
   const int lane = threadIdx.x & 31;
   const int warp = (blockIdx.x * kCflThreads + threadIdx.x) >> 5;
@@ -240,9 +253,9 @@ dg1_sample_cfl_kernel(const float* __restrict__ u, const float* __restrict__ v, 
   }
 }
 
-// Blocks of dg1_sample_cfl_kernel<kPer> resident at once on `device`,
-// worked out once per device and form.
-template <int kPer>
+// Blocks of dg1_sample_cfl_kernel<kPer, kVol, kEdge> resident at once on
+// `device`, worked out once per device and form.
+template <int kPer, int kVol, int kEdge>
 int cfl_resident_blocks(int device) {
   static std::atomic<int> known[64];
   if (device < 0 || device >= 64) return -static_cast<int>(cudaErrorInvalidDevice);
@@ -250,7 +263,7 @@ int cfl_resident_blocks(int device) {
   if (blocks > 0) return blocks;
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dg1_sample_cfl_kernel<kPer>, kCflThreads, 0);
+      &per_sm, dg1_sample_cfl_kernel<kPer, kVol, kEdge>, kCflThreads, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   known[device].store(per_sm * sms, std::memory_order_relaxed);
@@ -261,8 +274,17 @@ int cfl_resident_blocks(int device) {
 constexpr int kStageCols = 32;    // a tile: 32 elements along j (a warp's lanes) ...
 constexpr int kStageRows = 4;     // ... by 4 along i
 constexpr int kStageTracers = 3;  // hice, cice, hsnow: one warp a tracer and row
-constexpr int kStageThreads = kStageCols * kStageRows * kStageTracers;
-constexpr int kStageBlocksPerSm = 4;  // 48 warps an SM, at most 40 registers a thread
+
+// A block of kTracers warps a tile row (3: the coupled step's tracers; 1:
+// the advection run's one) at degree kDeg: its threads, and the blocks an
+// SM that its launch bound asks for: 48 warps an SM at dG0 and dG1 (at
+// most 40 registers a thread), 24 at dG2 (at most 85).
+template <int kDeg, int kTracers>
+struct StageShape {
+  static constexpr int kThreads = kStageCols * kStageRows * kTracers;
+  static constexpr int kBlocksPerSm = (kDeg == 2 ? 768 : 1536) / kThreads;
+};
+
 // The coefficient window: rows i0 - 1 ... i0 + kStageRows, columns from
 // j0 - 4 (16-byte aligned; j0 - 1 is the left apron) to j0 + kStageCols + 3.
 constexpr int kPsiPitch = kStageCols + 8;
@@ -272,53 +294,59 @@ constexpr int kPsiLead = 4;
 // y faces left of the next tile, the nodes' last column).
 constexpr int kWinRows = kStageRows + 1;
 constexpr int kWinPitch = kStageCols + 4;
-constexpr int kMaxWindows = 12 + 2 + 5;
+constexpr int kMaxWindows = DgQvPlanes<2>::kCount + 2 + 5;
 
 // The windows of a form, in the order of StageArgs::win: the velocity (CG1:
-// u, v; qv: vx[4], vy[4], vn_x[2], vn_y[2]), face_x, face_y, then with
-// kMetric len_x, len_y, inv_dx, inv_dy, inv_area.
-template <bool kMetric, bool kQv>
+// u, v; qv: vx[kVol], vy[kVol], vn_x[kEdge], vn_y[kEdge]), with kMasks
+// face_x and face_y, then with kMetric len_x, len_y, inv_dx, inv_dy,
+// inv_area. Without kMasks (the no-limit instance: DGTransport.run takes
+// no face masks) every face is open and no mask plane is read.
+template <int kDeg, bool kMetric, bool kQv, bool kMasks>
 struct StageWindows {
-  static constexpr int kVelocity = kQv ? 2 * kVol + 2 * kEdge : 2;
+  static constexpr int kVelocity = kQv ? DgQvPlanes<kDeg>::kCount : 2;
   static constexpr int kFaceX = kVelocity, kFaceY = kVelocity + 1;
-  static constexpr int kLenX = kVelocity + 2, kLenY = kVelocity + 3;
-  static constexpr int kInv = kVelocity + 4;  // inv_dx, inv_dy, inv_area
-  static constexpr int kCount = kVelocity + 2 + (kMetric ? 5 : 0);
+  static constexpr int kLenX = kVelocity + (kMasks ? 2 : 0), kLenY = kLenX + 1;
+  static constexpr int kInv = kLenX + 2;  // inv_dx, inv_dy, inv_area
+  static constexpr int kCount = kLenX + (kMetric ? 5 : 0);
 };
 
 // Everything a launch takes.
+template <int kDeg>
 struct StageArgs {
-  const float* psi;   // (3 kStageTracers, nx, ny)
+  const float* psi;   // (K, n_tracers, nx, ny)
   const float* base;  // read only with kBlend; may alias out
   float* out;
   const float* win[kMaxWindows];  // StageWindows' planes
   int nx, ny;
   int vector;         // 16-byte copies (every plane 16-byte aligned, ny % 4 == 0)
   float a, b, dt;
-  Dg1Tables tb;
+  DgTables<kDeg> tb;
 };
 
 // A tile's windows in shared memory (beyond the domain, zeros), the CG1
 // form's sampled volume velocity and the face fluxes.
-template <int kWindows, bool kSampled>
+template <int kDeg, int kTracers, int kWindows, bool kSampled>
 struct alignas(16) StageTile {
-  float psi[kDofs * kStageTracers][kStageRows + 2][kPsiPitch];  // plane d * 3 + t
+  static constexpr int kDofs = DgShape<kDeg>::kDofs, kVol = DgShape<kDeg>::kVol,
+                       kEdge = DgShape<kDeg>::kEdge;
+  float psi[kDofs * kTracers][kStageRows + 2][kPsiPitch];  // plane d * kTracers + t
   float win[kWindows][kWinRows][kWinPitch];
   float vol[kSampled ? 2 * kVol : 1][kStageRows][kStageCols];  // vx, then vy
-  float gx[kStageTracers][kEdge][kStageRows + 1][kStageCols];  // x face i0 + r
-  float gy[kStageTracers][kEdge][kStageRows][kStageCols + 1];  // y face j0 + c
+  float gx[kTracers][kEdge][kStageRows + 1][kStageCols];  // x face i0 + r
+  float gy[kTracers][kEdge][kStageRows][kStageCols + 1];  // y face j0 + c
 };
 
 // Copies the tile's windows by cp.async, every thread of the block a share
 // of each: kVec 4, 16-byte copies (ny % 4 == 0, every plane 16-byte
 // aligned), or 4-byte ones.
-template <int kVec, class Tile>
-__device__ __forceinline__ void copy_tile(const StageArgs& g, Tile& s, int n_windows, int i0,
-                                          int j0, int tid) {
+template <int kVec, int kTracers, int kDeg, class Tile>
+__device__ __forceinline__ void copy_tile(const StageArgs<kDeg>& g, Tile& s, int n_windows,
+                                          int i0, int j0, int tid) {
+  constexpr int kThreads = StageShape<kDeg, kTracers>::kThreads;
   const int nx = g.nx, ny = g.ny;
   const long plane = static_cast<long>(nx) * ny;
   constexpr int kPsiChunks = kPsiPitch / kVec, kPsiItems = (kStageRows + 2) * kPsiChunks;
-  for (int c = tid; c < kDofs * kStageTracers * kPsiItems; c += kStageThreads) {
+  for (int c = tid; c < DgShape<kDeg>::kDofs * kTracers * kPsiItems; c += kThreads) {
     const int k = c / kPsiItems, rem = c - k * kPsiItems;
     const int row = rem / kPsiChunks, col = (rem - row * kPsiChunks) * kVec;
     const int a = i0 - 1 + row, b = j0 - kPsiLead + col;
@@ -327,7 +355,7 @@ __device__ __forceinline__ void copy_tile(const StageArgs& g, Tile& s, int n_win
                    valid ? g.psi + k * plane + static_cast<long>(a) * ny + b : g.psi, valid);
   }
   constexpr int kWinChunks = kWinPitch / kVec, kWinItems = kWinRows * kWinChunks;
-  for (int c = tid; c < n_windows * kWinItems; c += kStageThreads) {
+  for (int c = tid; c < n_windows * kWinItems; c += kThreads) {
     const int k = c / kWinItems, rem = c - k * kWinItems;
     const int row = rem / kWinChunks, col = (rem - row * kWinChunks) * kVec;
     const int a = i0 + row, b = j0 + col;
@@ -338,37 +366,39 @@ __device__ __forceinline__ void copy_tile(const StageArgs& g, Tile& s, int n_win
   cp_async_commit();
 }
 
-// The 3 coefficients of tracer t at coefficient-window row r, column c.
-template <class Tile>
-__device__ __forceinline__ void tile_coeffs(const Tile& s, int t, int r, int c, float p[kDofs]) {
+// The K coefficients of tracer t at coefficient-window row r, column c.
+template <int kTracers, int K, class Tile>
+__device__ __forceinline__ void tile_coeffs(const Tile& s, int t, int r, int c, float (&p)[K]) {
 #pragma unroll
-  for (int d = 0; d < kDofs; ++d) p[d] = s.psi[d * kStageTracers + t][r][c];
+  for (int d = 0; d < K; ++d) p[d] = s.psi[d * kTracers + t][r][c];
 }
 
-// The 2 points of x face i0 + r (between element rows i0 + r - 1 and
-// i0 + r) at column j0 + c, for tracer t, into s.gx.
-template <bool kMetric, bool kQv, class Tile>
-__device__ __forceinline__ void x_face(const StageArgs& g, Tile& s, int t, int r, int c,
-                                       const float lo[kDofs], const float hi[kDofs]) {
-  using W = StageWindows<kMetric, kQv>;
+// The points of x face i0 + r (between element rows i0 + r - 1 and i0 + r)
+// at column j0 + c, for tracer t, into s.gx.
+template <int kDeg, bool kMetric, bool kQv, bool kMasks, class Tile, int K>
+__device__ __forceinline__ void x_face(const StageArgs<kDeg>& g, Tile& s, int t, int r, int c,
+                                       const float (&lo)[K], const float (&hi)[K]) {
+  using W = StageWindows<kDeg, kMetric, kQv, kMasks>;
+  constexpr int kVol = DgShape<kDeg>::kVol;
   const int i = blockIdx.y * kStageRows + r;
   const bool open = i > 0 && i < g.nx;
 #pragma unroll
-  for (int e = 0; e < kEdge; ++e) {
+  for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) {
     const float vn = kQv ? s.win[2 * kVol + e][r][c]
                          : along_face(g.tb.w_edge[e], s.win[0][r][c], s.win[0][r][c + 1]);
     s.gx[t][e][r][c] = dg1_face_flux<kMetric>(g.tb.psi_x1, g.tb.psi_x0, e, vn, lo, hi, open,
-                                              s.win[W::kFaceX][r][c],
+                                              kMasks ? s.win[W::kFaceX][r][c] : 1.0f,
                                               kMetric ? s.win[W::kLenX][r][c] : 0.0f);
   }
 }
 
-// The 2 points of y face j0 + c (between element columns j0 + c - 1 and
+// The points of y face j0 + c (between element columns j0 + c - 1 and
 // j0 + c) at row i0 + r, for tracer t, into s.gy.
-template <bool kMetric, bool kQv, class Tile>
-__device__ __forceinline__ void y_face(const StageArgs& g, Tile& s, int t, int r, int c,
-                                       const float lo[kDofs], const float hi[kDofs]) {
-  using W = StageWindows<kMetric, kQv>;
+template <int kDeg, bool kMetric, bool kQv, bool kMasks, class Tile, int K>
+__device__ __forceinline__ void y_face(const StageArgs<kDeg>& g, Tile& s, int t, int r, int c,
+                                       const float (&lo)[K], const float (&hi)[K]) {
+  using W = StageWindows<kDeg, kMetric, kQv, kMasks>;
+  constexpr int kVol = DgShape<kDeg>::kVol, kEdge = DgShape<kDeg>::kEdge;
   const int j = blockIdx.x * kStageCols + c;
   const bool open = j > 0 && j < g.ny;
 #pragma unroll
@@ -376,25 +406,30 @@ __device__ __forceinline__ void y_face(const StageArgs& g, Tile& s, int t, int r
     const float vn = kQv ? s.win[2 * kVol + kEdge + e][r][c]
                          : along_face(g.tb.w_edge[e], s.win[1][r][c], s.win[1][r + 1][c]);
     s.gy[t][e][r][c] = dg1_face_flux<kMetric>(g.tb.psi_y1, g.tb.psi_y0, e, vn, lo, hi, open,
-                                              s.win[W::kFaceY][r][c],
+                                              kMasks ? s.win[W::kFaceY][r][c] : 1.0f,
                                               kMetric ? s.win[W::kLenY][r][c] : 0.0f);
   }
 }
 
-// One limited SSP-RK stage on a tile of kStageRows x kStageCols elements,
-// one thread an element and tracer (a warp: one tracer of one row). 1. The
+// One SSP-RK stage on a tile of kStageRows x kStageCols elements, one
+// thread an element and tracer (a warp: one tracer of one row). 1. The
 // threads copy the windows by cp.async; each loads its own base. 2. Each
 // computes its element's left and bottom face fluxes for its tracer (the
 // tile's last row adds the faces below the next tile, the first row's
 // lanes the column left of it); in the CG1 form it also samples its share
-// of the element's 8 volume velocities. 3. Each updates its element from
+// of the element's volume velocities. 3. Each updates its element from
 // the shared fluxes. kBlend: a != 0 (the base is read); kQv: the velocity
-// from the 12 qv planes.
-template <bool kMetric, bool kQv, bool kBlend>
-__global__ void __launch_bounds__(kStageThreads, kStageBlocksPerSm)
-dg1_rk_stage_kernel(const __grid_constant__ StageArgs g) {
-  using W = StageWindows<kMetric, kQv>;
-  __shared__ StageTile<W::kCount, !kQv> s;
+// from the qv planes; kLimit: the positivity limiter.
+template <int kDeg, int kTracers, bool kMetric, bool kQv, bool kBlend, bool kLimit>
+__global__ void __launch_bounds__(StageShape<kDeg, kTracers>::kThreads,
+                                  StageShape<kDeg, kTracers>::kBlocksPerSm)
+dg1_rk_stage_kernel(const __grid_constant__ StageArgs<kDeg> g) {
+  using W = StageWindows<kDeg, kMetric, kQv, kLimit>;
+  using Tile = StageTile<kDeg, kTracers, W::kCount, !kQv>;
+  constexpr int kDofs = DgShape<kDeg>::kDofs, kVol = DgShape<kDeg>::kVol,
+                kEdge = DgShape<kDeg>::kEdge;
+  extern __shared__ __align__(16) unsigned char stage_smem[];
+  Tile& s = *reinterpret_cast<Tile*>(stage_smem);
   const int lane = threadIdx.x, r = threadIdx.y, t = threadIdx.z;
   const int tid = lane + kStageCols * (r + kStageRows * t);
   const int i0 = blockIdx.y * kStageRows, j0 = blockIdx.x * kStageCols;
@@ -405,14 +440,14 @@ dg1_rk_stage_kernel(const __grid_constant__ StageArgs g) {
   const long ij = static_cast<long>(i) * ny + j;
 
   if (g.vector) {
-    copy_tile<4>(g, s, W::kCount, i0, j0, tid);
+    copy_tile<4, kTracers>(g, s, W::kCount, i0, j0, tid);
   } else {
-    copy_tile<1>(g, s, W::kCount, i0, j0, tid);
+    copy_tile<1, kTracers>(g, s, W::kCount, i0, j0, tid);
   }
   float p0[kDofs] = {};
   if (kBlend && own) {
 #pragma unroll
-    for (int d = 0; d < kDofs; ++d) p0[d] = g.base[(d * kStageTracers + t) * plane + ij];
+    for (int d = 0; d < kDofs; ++d) p0[d] = g.base[(d * kTracers + t) * plane + ij];
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -421,28 +456,29 @@ dg1_rk_stage_kernel(const __grid_constant__ StageArgs g) {
   const int c = lane + kPsiLead;  // the element's column in the coefficient window
   {
     float p[kDofs], lo[kDofs];
-    tile_coeffs(s, t, r + 1, c, p);
-    tile_coeffs(s, t, r, c, lo);
-    x_face<kMetric, kQv>(g, s, t, r, lane, lo, p);
-    tile_coeffs(s, t, r + 1, c - 1, lo);
-    y_face<kMetric, kQv>(g, s, t, r, lane, lo, p);
+    tile_coeffs<kTracers>(s, t, r + 1, c, p);
+    tile_coeffs<kTracers>(s, t, r, c, lo);
+    x_face<kDeg, kMetric, kQv, kLimit>(g, s, t, r, lane, lo, p);
+    tile_coeffs<kTracers>(s, t, r + 1, c - 1, lo);
+    y_face<kDeg, kMetric, kQv, kLimit>(g, s, t, r, lane, lo, p);
     if (r == kStageRows - 1) {  // the x face below the next tile's first row
       float hi[kDofs];
-      tile_coeffs(s, t, r + 2, c, hi);
-      x_face<kMetric, kQv>(g, s, t, r + 1, lane, p, hi);
+      tile_coeffs<kTracers>(s, t, r + 2, c, hi);
+      x_face<kDeg, kMetric, kQv, kLimit>(g, s, t, r + 1, lane, p, hi);
     }
     if (r == 0 && lane < kStageRows) {  // the y face left of the next tile, row `lane`
       float hi[kDofs];
-      tile_coeffs(s, t, lane + 1, kPsiLead + kStageCols - 1, lo);
-      tile_coeffs(s, t, lane + 1, kPsiLead + kStageCols, hi);
-      y_face<kMetric, kQv>(g, s, t, lane, kStageCols, lo, hi);
+      tile_coeffs<kTracers>(s, t, lane + 1, kPsiLead + kStageCols - 1, lo);
+      tile_coeffs<kTracers>(s, t, lane + 1, kPsiLead + kStageCols, hi);
+      y_face<kDeg, kMetric, kQv, kLimit>(g, s, t, lane, kStageCols, lo, hi);
     }
   }
   if (!kQv) {
-    // The CG1 volume velocity, sampled once an element: value q by tracer q % 3.
+    // The CG1 volume velocity, sampled once an element: value q by tracer
+    // q % kTracers.
 #pragma unroll
     for (int q = 0; q < 2 * kVol; ++q) {
-      if (q % kStageTracers == t) {
+      if (q % kTracers == t) {
         const auto& f = s.win[q / kVol];  // u, then v
         s.vol[q][r][lane] = bilinear(g.tb.w_vol[q % kVol], f[r][lane], f[r + 1][lane],
                                      f[r][lane + 1], f[r + 1][lane + 1]);
@@ -454,13 +490,13 @@ dg1_rk_stage_kernel(const __grid_constant__ StageArgs g) {
   // 3. The element's update from its four shared face fluxes.
   if (!own) return;
   float p[kDofs], vx[kVol], vy[kVol], val[kDofs];
-  tile_coeffs(s, t, r + 1, c, p);
+  tile_coeffs<kTracers>(s, t, r + 1, c, p);
 #pragma unroll
   for (int k = 0; k < kVol; ++k) {
     vx[k] = kQv ? s.win[k][r][lane] : s.vol[k][r][lane];
     vy[k] = kQv ? s.win[kVol + k][r][lane] : s.vol[kVol + k][r][lane];
   }
-  Dg1Fluxes fl;
+  DgFluxes<kEdge> fl;
 #pragma unroll
   for (int e = 0; e < kEdge; ++e) {
     fl.left[e] = s.gx[t][e][r][lane];
@@ -474,96 +510,84 @@ dg1_rk_stage_kernel(const __grid_constant__ StageArgs g) {
     gm.inv_dy = s.win[W::kInv + 1][r][lane];
     gm.inv_area = s.win[W::kInv + 2][r][lane];
   }
-  dg1_stage_update<kMetric, kBlend>(g.tb, vx, vy, gm, p, fl, p0, g.a, g.b, g.dt, val);
+  dg1_stage_update<kDeg, kMetric, kBlend, kLimit>(g.tb, vx, vy, gm, p, fl, p0, g.a, g.b, g.dt,
+                                                  val);
 #pragma unroll
-  for (int d = 0; d < kDofs; ++d) g.out[(d * kStageTracers + t) * plane + ij] = val[d];
+  for (int d = 0; d < kDofs; ++d) g.out[(d * kTracers + t) * plane + ij] = val[d];
 }
 
-using StageKernel = void (*)(StageArgs);
-
-template <bool kMetric, bool kQv>
-StageKernel stage_kernel_of(bool blend) {
-  return blend ? dg1_rk_stage_kernel<kMetric, kQv, true> : dg1_rk_stage_kernel<kMetric, kQv, false>;
+// One launch of an instance: its tile in dynamic shared memory.
+template <int kDeg, int kTracers, bool kMetric, bool kQv, bool kBlend, bool kLimit>
+cudaError_t launch_stage(const StageArgs<kDeg>& g, cudaStream_t stream) {
+  using W = StageWindows<kDeg, kMetric, kQv, kLimit>;
+  constexpr int bytes = static_cast<int>(sizeof(StageTile<kDeg, kTracers, W::kCount, !kQv>));
+  const auto kernel = dg1_rk_stage_kernel<kDeg, kTracers, kMetric, kQv, kBlend, kLimit>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((g.ny + kStageCols - 1) / kStageCols, (g.nx + kStageRows - 1) / kStageRows);
+  kernel<<<grid, dim3(kStageCols, kStageRows, kTracers), bytes, stream>>>(g);
+  return cudaGetLastError();
 }
 
-StageKernel stage_kernel_of(bool metric, bool qv, bool blend) {
-  if (metric) return qv ? stage_kernel_of<true, true>(blend) : stage_kernel_of<true, false>(blend);
-  return qv ? stage_kernel_of<false, true>(blend) : stage_kernel_of<false, false>(blend);
+// The instance of the launch's form: with the limiter, the coupled step's 3
+// tracers in every form; without it (the advection run), one tracer in the
+// qv form, without face masks.
+template <int kDeg>
+cudaError_t run_stage(const StageArgs<kDeg>& g, bool metric, bool qv, bool blend, bool limit,
+                      cudaStream_t s) {
+  if (!limit) {
+    if (metric) {
+      return blend ? launch_stage<kDeg, 1, true, true, true, false>(g, s)
+                   : launch_stage<kDeg, 1, true, true, false, false>(g, s);
+    }
+    return blend ? launch_stage<kDeg, 1, false, true, true, false>(g, s)
+                 : launch_stage<kDeg, 1, false, true, false, false>(g, s);
+  }
+  constexpr int T = kStageTracers;
+  if (metric) {
+    if (qv) {
+      return blend ? launch_stage<kDeg, T, true, true, true, true>(g, s)
+                   : launch_stage<kDeg, T, true, true, false, true>(g, s);
+    }
+    return blend ? launch_stage<kDeg, T, true, false, true, true>(g, s)
+                 : launch_stage<kDeg, T, true, false, false, true>(g, s);
+  }
+  if (qv) {
+    return blend ? launch_stage<kDeg, T, false, true, true, true>(g, s)
+                 : launch_stage<kDeg, T, false, true, false, true>(g, s);
+  }
+  return blend ? launch_stage<kDeg, T, false, false, true, true>(g, s)
+               : launch_stage<kDeg, T, false, false, false, true>(g, s);
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 == 0; }
 
-}  // namespace nst
-
-extern "C" {
-
-int nst_dg1_n_table_floats() { return sizeof(nst::Dg1Tables) / sizeof(float); }
-
-// `speeds` receives max |vx| and max |vy| over the first ex x ey elements
-// of the nx x ny node planes u and v (row stride ld); nothing needs to be
-// zeroed before. scratch: 1 + 2 * scratch_blocks words on the device, the
-// first 0 (and left 0 by each launch); launches on the same scratch must
-// not overlap (one scratch a stream). vector: 16-byte loads (u and v
-// 16-byte aligned, ld % 4 == 0, and 4 nodes from the last node column's
-// 16-byte boundary inside the row). Returns cudaGetLastError(); does not
-// synchronise.
-int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, unsigned int* scratch,
-                       int scratch_blocks, int ex, int ey, int nx, int ny, int ld, int vector,
-                       const float* tables, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ex > nx || ey > ny || ny > ld || scratch_blocks < 1 ||
-      (vector && ((reinterpret_cast<size_t>(u) | reinterpret_cast<size_t>(v)) % 16 != 0 ||
-                  ld % 4 != 0))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  nst::Dg1Tables tb;
-  std::memcpy(&tb, tables, sizeof(tb));
-  const int resident = vector ? nst::cfl_resident_blocks<4>(device) : nst::cfl_resident_blocks<1>(device);
-  if (resident < 0) return -resident;
-  // Rows an item: enough items for every resident warp, at most 32 rows.
-  const long strips = (ey + 32L * (vector ? 4 : 1) - 1) / (32L * (vector ? 4 : 1));
-  const long warps = static_cast<long>(std::min(resident, scratch_blocks)) * (nst::kCflThreads / 32);
-  const int rows = static_cast<int>(
-      std::max(1L, std::min<long>(nst::kCflMaxRows, (strips * ex + warps - 1) / warps)));
-  const long items = strips * ((ex + rows - 1) / rows);
-  const long blocks = std::max(1L, std::min((items + nst::kCflThreads / 32 - 1) / (nst::kCflThreads / 32),
-                                            static_cast<long>(std::min(resident, scratch_blocks))));
-  const auto kernel = vector ? nst::dg1_sample_cfl_kernel<4> : nst::dg1_sample_cfl_kernel<1>;
-  kernel<<<static_cast<int>(blocks), nst::kCflThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, v, ex, ey, nx, ny, ld, rows, tb, speeds, scratch);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One limited SSP-RK stage: psi, base, out (3, n_tracers, nx, ny), with
-// n_tracers 3 (the kernel's warps are laid out for hice, cice and hsnow);
-// out may alias base, not psi; base is read only where a != 0. The
-// velocity: the CG1 nodes u and v, or with qv (not null) the 12
-// quadrature-velocity plane pointers in the order of Dg1QvPlanes (u and v
-// are then not read). metric: null on a uniform mesh, else the 5 plane
-// pointers in the order of Dg1MetricPlanes. Returns cudaGetLastError();
-// does not synchronise.
-int nst_dg1_rk_stage(const float* psi, const float* base, const float* u, const float* v,
-                     const float* face_x, const float* face_y, const void* const* metric,
-                     const void* const* qv, float* out, int nx, int ny, int n_tracers, float a,
-                     float b, float dt, const float* tables, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (nx < 1 || ny < 1 || n_tracers != nst::kStageTracers) return static_cast<int>(cudaErrorInvalidValue);
-  nst::StageArgs g = {};
+// The launch's arguments at degree kDeg (see nst_dg1_rk_stage), then the
+// launch.
+template <int kDeg>
+int stage_call(const float* psi, const float* base, const float* u, const float* v,
+               const float* face_x, const float* face_y, const void* const* metric,
+               const void* const* qv, float* out, int nx, int ny, bool limit, float a, float b,
+               float dt, const float* tables, cudaStream_t stream) {
+  StageArgs<kDeg> g = {};
   g.psi = psi;
   g.base = base;
   g.out = out;
   // The windows in the order of StageWindows.
   int n = 0;
   if (qv != nullptr) {
-    for (int k = 0; k < 12; ++k) g.win[n++] = static_cast<const float*>(qv[k]);
+    for (int k = 0; k < DgQvPlanes<kDeg>::kCount; ++k) g.win[n++] = static_cast<const float*>(qv[k]);
   } else {
     g.win[n++] = u;
     g.win[n++] = v;
   }
-  g.win[n++] = face_x;
-  g.win[n++] = face_y;
+  if (limit) {
+    g.win[n++] = face_x;
+    g.win[n++] = face_y;
+  }
   if (metric != nullptr) {  // Dg1MetricPlanes: inv_dx, inv_dy, len_x, len_y, inv_area
     const int order[5] = {2, 3, 0, 1, 4};
     for (int k : order) g.win[n++] = static_cast<const float*>(metric[k]);
@@ -576,15 +600,113 @@ int nst_dg1_rk_stage(const float* psi, const float* base, const float* u, const 
   std::memcpy(&g.tb, tables, sizeof(g.tb));
   // 16-byte copies where every copied plane is 16-byte aligned, and so is
   // each of its rows.
-  bool vector = ny % 4 == 0 && nst::aligned16(psi);
-  for (int k = 0; k < n; ++k) vector = vector && nst::aligned16(g.win[k]);
+  bool vector = ny % 4 == 0 && aligned16(psi);
+  for (int k = 0; k < n; ++k) vector = vector && aligned16(g.win[k]);
   g.vector = vector;
-  const auto kernel = nst::stage_kernel_of(metric != nullptr, qv != nullptr, a != 0.0f);
-  const dim3 grid((ny + nst::kStageCols - 1) / nst::kStageCols,
-                  (nx + nst::kStageRows - 1) / nst::kStageRows);
-  kernel<<<grid, dim3(nst::kStageCols, nst::kStageRows, nst::kStageTracers), 0,
-           static_cast<cudaStream_t>(stream)>>>(g);
+  return static_cast<int>(
+      run_stage<kDeg>(g, metric != nullptr, qv != nullptr, a != 0.0f, limit, stream));
+}
+
+// dg1_sample_cfl at the volume and face points of one degree.
+template <int kVol, int kEdge>
+int sample_call(const float* u, const float* v, float* speeds, unsigned int* scratch,
+                int scratch_blocks, int ex, int ey, int nx, int ny, int ld, int vector,
+                const float* tables, int device, cudaStream_t stream) {
+  SamplePoints<kVol, kEdge> tb;
+  std::memcpy(&tb, tables, sizeof(tb));
+  const int resident = vector ? cfl_resident_blocks<4, kVol, kEdge>(device)
+                              : cfl_resident_blocks<1, kVol, kEdge>(device);
+  if (resident < 0) return -resident;
+  // Rows an item: enough items for every resident warp, at most 32 rows.
+  const long strips = (ey + 32L * (vector ? 4 : 1) - 1) / (32L * (vector ? 4 : 1));
+  const long warps = static_cast<long>(std::min(resident, scratch_blocks)) * (kCflThreads / 32);
+  const int rows = static_cast<int>(
+      std::max(1L, std::min<long>(kCflMaxRows, (strips * ex + warps - 1) / warps)));
+  const long items = strips * ((ex + rows - 1) / rows);
+  const long blocks = std::max(1L, std::min((items + kCflThreads / 32 - 1) / (kCflThreads / 32),
+                                            static_cast<long>(std::min(resident, scratch_blocks))));
+  const auto kernel = vector ? dg1_sample_cfl_kernel<4, kVol, kEdge>
+                             : dg1_sample_cfl_kernel<1, kVol, kEdge>;
+  kernel<<<static_cast<int>(blocks), kCflThreads, 0, stream>>>(u, v, ex, ey, nx, ny, ld, rows, tb,
+                                                               speeds, scratch);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace nst
+
+extern "C" {
+
+// Floats of DgTables at `degree` (0, 1 or 2), or -1.
+int nst_dg1_n_table_floats(int degree) {
+  switch (degree) {
+    case 0: return sizeof(nst::DgTables<0>) / sizeof(float);
+    case 1: return sizeof(nst::DgTables<1>) / sizeof(float);
+    case 2: return sizeof(nst::DgTables<2>) / sizeof(float);
+    default: return -1;
+  }
+}
+
+// `speeds` receives max |vx| and max |vy| over the first ex x ey elements
+// of the nx x ny node planes u and v (row stride ld), sampled at the
+// quadrature points of `degree` (tables: its DgTables); nothing needs to be
+// zeroed before. scratch: 1 + 2 * scratch_blocks words on the device, the
+// first 0 (and left 0 by each launch); launches on the same scratch must
+// not overlap (one scratch a stream). vector: 16-byte loads (u and v
+// 16-byte aligned, ld % 4 == 0, and 4 nodes from the last node column's
+// 16-byte boundary inside the row). Returns cudaGetLastError(); does not
+// synchronise.
+int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, unsigned int* scratch,
+                       int scratch_blocks, int ex, int ey, int nx, int ny, int ld, int vector,
+                       int degree, const float* tables, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ex > nx || ey > ny || ny > ld || scratch_blocks < 1 || degree < 0 || degree > 2 ||
+      (vector && ((reinterpret_cast<size_t>(u) | reinterpret_cast<size_t>(v)) % 16 != 0 ||
+                  ld % 4 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  return degree == 2 ? nst::sample_call<9, 3>(u, v, speeds, scratch, scratch_blocks, ex, ey, nx,
+                                              ny, ld, vector, tables, device, s)
+                     : nst::sample_call<4, 2>(u, v, speeds, scratch, scratch_blocks, ex, ey, nx,
+                                              ny, ld, vector, tables, device, s);
+}
+
+// One SSP-RK stage at `degree` (0, 1 or 2; tables: its DgTables): psi,
+// base, out (K, n_tracers, nx, ny); out may alias base, not psi; base is
+// read only where a != 0. With `limit` (the coupled step) n_tracers is 3
+// (the kernel's warps are laid out for hice, cice and hsnow); without it
+// (DGTransport.run) n_tracers is 1, the velocity comes from qv and
+// face_x and face_y are not read (every face is open). The
+// velocity: the CG1 nodes u and v, or with qv (not null) the quadrature-
+// velocity plane pointers in the order of DgQvPlanes (12, or 24 at dG2;
+// u and v are then not read). metric: null on a uniform mesh, else the 5
+// plane pointers in the order of Dg1MetricPlanes. Returns
+// cudaGetLastError(); does not synchronise.
+int nst_dg1_rk_stage(const float* psi, const float* base, const float* u, const float* v,
+                     const float* face_x, const float* face_y, const void* const* metric,
+                     const void* const* qv, float* out, int nx, int ny, int n_tracers, int degree,
+                     int limit, float a, float b, float dt, const float* tables, int device,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool form_ok = limit ? n_tracers == nst::kStageTracers && face_x && face_y
+                             : n_tracers == 1 && qv != nullptr;
+  if (nx < 1 || ny < 1 || !form_ok || degree < 0 || degree > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+    case 0:
+      return nst::stage_call<0>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, limit,
+                                a, b, dt, tables, s);
+    case 1:
+      return nst::stage_call<1>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, limit,
+                                a, b, dt, tables, s);
+    default:
+      return nst::stage_call<2>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, limit,
+                                a, b, dt, tables, s);
+  }
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Sea-ice dynamical core in PyTorch: dG1 transport, CG1 and CG2/dG1 mEVP.
+"""Sea-ice dynamical core in PyTorch: dG0/dG1/dG2 transport, CG1 and CG2/dG1 mEVP.
 
 The port of ``nextsimdg_tpu.dynamics`` for closed uniform, graded and
 spherical meshes with coastlines (the CG2/dG1 solver on uniform meshes).

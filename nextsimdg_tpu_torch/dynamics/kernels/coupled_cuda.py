@@ -31,7 +31,11 @@ to fix k (one host sync), then one ``dg1_rk_stage`` per RK stage and
 substep (a tile an element block, one thread an element and tracer, each
 face's flux computed once; 3 tracers). ``dg1_rk_stage``
 also takes the HO path's precomputed quadrature velocity (its ``qv`` form)
-in place of the CG1 (u, v). The others have wrapper modules of their own:
+in place of the CG1 (u, v), and runs ``DGTransport.run``'s unlimited steps
+(``transport_run``: its no-limit instance, one tracer a launch, in the
+``qv`` form). The transport kernels run dG0, dG1 and dG2: each launch
+takes the tables of its transport's degree (``_dg1_tables``), and the
+tracers are (K, T, nx, ny) with K = 1, 3 or 6. The others have wrapper modules of their own:
 ``mevp_tiled_cuda`` and ``transport_tiled_cuda`` (the ghost-zone tiled
 schedule, K2 and K3 of the JAX package) and ``mevp_single_cuda`` (all N
 subcycles in one launch, K4), and ``mevp_rdma_cuda`` (the overlapped
@@ -87,6 +91,7 @@ from ..mevp import METRIC_CONSTS, UNIFORM_CONSTS, MEVPSolver
 from ..mevp_ho import (
     HO_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
 )
+from ..dgbasis import dg_basis
 from ..transport import (
     DGTransport, QuadVelocity, max_speeds, sampling_weights, substeps_from_speeds,
     velocity_from_cg,
@@ -120,9 +125,6 @@ _MEVP_CONSTS = UNIFORM_CONSTS + METRIC_CONSTS
 #: The transport's metric planes in the order of Dg1MetricPlanes in
 #: csrc/dg1_body.cuh.
 _DG1_METRIC = ("inv_dx", "inv_dy", "face_x", "face_y", "inv_area")
-#: The planes of a dG1 QuadVelocity, in the order of Dg1QvPlanes in
-#: csrc/dg1_body.cuh.
-_QV_PLANES = {"vx_vol": 4, "vy_vol": 4, "vn_x": 2, "vn_y": 2}
 _RK_STAGES = {
     "rk1": ((0.0, 1.0),),
     "rk2": ((0.0, 1.0), (0.5, 0.5)),
@@ -222,10 +224,10 @@ def _bind():
     tail = [p, i, p]  # host scalars/tables, device index, stream
     lib.nst_mevp_stress.argtypes = [p] * 8 + [i, i] + tail
     lib.nst_mevp_velocity.argtypes = [p] * 8 + [i, i] + tail
-    lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 7 + tail
-    lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 3 + [f, f, f] + tail
+    lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 8 + tail
+    lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 5 + [f, f, f] + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
-    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 12 + [f, f, f] + tail
+    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 14 + [p, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 8 + [p] + tail
     lib.nst_ho_single.argtypes = [p] * 3 + [i] * 9 + [p] + tail
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 10 + [p] + tail
@@ -242,9 +244,9 @@ def _bind():
     lib.nst_ho_single_max_blocks.restype = i
     lib.nst_ho_single_syncs.argtypes = [p] + [i] * 9 + [p]
     lib.nst_ho_single_syncs.restype = i
-    lib.nst_transport_tiled_blocks_per_sm.argtypes = [i] * 6
+    lib.nst_transport_tiled_blocks_per_sm.argtypes = [i] * 7
     lib.nst_transport_tiled_blocks_per_sm.restype = i
-    lib.nst_transport_tiled_shared_bytes.argtypes = [i] * 5
+    lib.nst_transport_tiled_shared_bytes.argtypes = [i] * 6
     lib.nst_transport_tiled_shared_bytes.restype = i
     lib.nst_ho_tiled_max_clusters.argtypes = [i] * 6
     lib.nst_ho_tiled_max_clusters.restype = i
@@ -254,12 +256,13 @@ def _bind():
     lib.nst_window_syncs.restype = i
     for name in ("mevp_n_scalars", "dg1_n_table_floats", "ho_n_scalars", "ho_n_table_floats"):
         getattr(lib, "nst_" + name).restype = i
+    lib.nst_dg1_n_table_floats.argtypes = [i]
     lib.nst_error_string.argtypes = [i]
     lib.nst_error_string.restype = ctypes.c_char_p
     if lib.nst_mevp_n_scalars() != _N_MEVP_SCALARS:
         raise RuntimeError("csrc/mevp.cu MevpScalars disagrees with the packing")
-    if lib.nst_dg1_n_table_floats() != _N_DG1_TABLE:
-        raise RuntimeError("csrc/transport.cu Dg1Tables disagrees with the packing")
+    if any(lib.nst_dg1_n_table_floats(d) != _n_dg1_table(d) for d in DEGREES):
+        raise RuntimeError("csrc/dg1_body.cuh DgTables disagrees with the packing")
     if lib.nst_ho_n_scalars() != _N_HO_SCALARS or lib.nst_ho_n_table_floats() != _N_HO_TABLE:
         raise RuntimeError("csrc/ho_body.cuh HoScalars or HoTables disagrees with the packing")
     _lib = lib
@@ -279,7 +282,8 @@ def _launch(name: str, *args) -> None:
 
 # -- host-side packing of the kernels' scalars -------------------------------
 _N_MEVP_SCALARS = 17
-_N_DG1_TABLE = 111
+#: The DG degrees the transport kernels run.
+DEGREES = (0, 1, 2)
 _N_HO_SCALARS = 16
 _N_HO_TABLE = 132
 
@@ -318,12 +322,35 @@ def _mevp_scalars(solver: MEVPSolver, dt: float):
     return _floats(values)
 
 
+def _n_dg1_table(degree: int) -> int:
+    """Floats of DgTables<degree> (csrc/dg1_body.cuh): the sampling weights
+    of Q volume and E face points, the K x Q basis and two gradient tables,
+    8 K x E face tables, K inverse masses and 4 widths."""
+    b = dg_basis(degree)
+    k, q, e = b.n_dofs, len(b.w_vol), len(b.s_edge)
+    return 4 * q + 2 * e + 3 * k * q + 8 * k * e + k + 4
+
+
+@lru_cache(maxsize=None)
+def _table_type(degree: int):
+    """The ctypes array of DgTables<degree>; its ``degree`` attribute is the
+    template argument that the launches pass beside the tables."""
+    return type(f"DgTables{degree}", (ctypes.c_float * _n_dg1_table(degree),), {"degree": degree})
+
+
+def _qv_planes(degree: int) -> dict:
+    """The planes of a QuadVelocity at ``degree``, in the order of
+    DgQvPlanes in csrc/dg1_body.cuh: 12 at dG0 and dG1, 24 at dG2."""
+    b = dg_basis(degree)
+    q, e = len(b.w_vol), len(b.s_edge)
+    return {"vx_vol": q, "vy_vol": q, "vn_x": e, "vn_y": e}
+
+
 def _dg1_tables(transport: DGTransport):
-    """Dg1Tables of csrc/transport.cu, field for field, from the port's
-    dG1 basis (2x2 volume points, 2 points per face)."""
+    """DgTables of csrc/dg1_body.cuh at the transport's degree, field for
+    field, from the port's basis (dG0 and dG1: 2x2 volume points and 2
+    points a face; dG2: 3x3 and 3)."""
     b, mesh = transport.basis, transport.mesh
-    if b.n_dofs != 3 or len(b.w_vol) != 4 or len(b.s_edge) != 2:
-        raise NotImplementedError("the transport kernels are dG1 with 2-point Gauss")
     w_vol, w_edge = sampling_weights(b)
     values = [x for w in w_vol for x in w] + [x for w in w_edge for x in w]
     for table in (
@@ -339,8 +366,8 @@ def _dg1_tables(transport: DGTransport):
         ]
     else:  # the kernels read the transport's metric planes instead
         values += [float("nan")] * 4
-    assert len(values) == _N_DG1_TABLE
-    return _floats(values)
+    assert len(values) == _n_dg1_table(b.degree)
+    return _table_type(b.degree)(*map(float, values))
 
 
 def _ho_scalars(solver: MEVPSolverHO, dt: float):
@@ -477,12 +504,14 @@ def _dg1_metric(transport: DGTransport, device):
     return None if metric is None else _pointers([metric[name] for name in _DG1_METRIC])
 
 
-def _dg1_qv(qv: QuadVelocity, shape, device):
-    """Dg1QvPlanes of a dG1 ``QuadVelocity``: the 12 plane pointers."""
+def _dg1_qv(qv: QuadVelocity, shape, device, degree: int):
+    """DgQvPlanes of a ``QuadVelocity`` at ``degree``: the 12 (dG2: 24)
+    plane pointers."""
     stacks = {"vx_vol": qv.vx_vol, "vy_vol": qv.vy_vol, "vn_x": qv.vn_x, "vn_y": qv.vn_y}
-    for name, count in _QV_PLANES.items():
+    counts = _qv_planes(degree)
+    for name, count in counts.items():
         _check((count, *shape), device, **{name: stacks[name]})
-    return _pointers([plane for name in _QV_PLANES for plane in stacks[name]])
+    return _pointers([plane for name in counts for plane in stacks[name]])
 
 
 # -- in-place launches (arguments already checked) ----------------------------
@@ -498,7 +527,8 @@ def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream):
 
 
 #: The tracer count that dg1_rk_stage's tiles are laid out for (one warp a
-#: tracer and row; csrc/transport.cu kStageTracers).
+#: tracer and row; csrc/transport.cu kStageTracers); its no-limit instance
+#: (``transport_run``) takes one.
 STAGE_TRACERS = 3
 
 #: Block pairs that a dg1_sample_cfl scratch holds: more blocks than the
@@ -536,28 +566,40 @@ def _dg1_sample_cfl_(u, v, speeds, tables, stream, halo: int = 0):
     scratch = _cfl_scratch_of(u.device, stream)
     _launch(
         "dg1_sample_cfl", pu, pv, speeds.data_ptr(), scratch.data_ptr(), CFL_SCRATCH_BLOCKS,
-        ex, ey, *extent, ny, int(vector), ctypes.addressof(tables), u.device.index, stream,
+        ex, ey, *extent, ny, int(vector), tables.degree, ctypes.addressof(tables),
+        u.device.index, stream,
     )
 
 
 def _dg1_rk_stage_(
     psi, base, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream, qv=None,
+    limit: bool = True,
 ):
-    """One dg1_rk_stage launch (arguments already checked) into ``out``:
-    ``metric`` from ``_dg1_metric``; ``qv``, the 12 plane pointers of
-    ``_dg1_qv``, in place of (u, v), which are then not read."""
+    """One dg1_rk_stage launch (arguments already checked) into ``out`` at
+    the degree of ``tables``: ``metric`` from ``_dg1_metric``; ``qv``, the
+    plane pointers of ``_dg1_qv``, in place of (u, v), which are then not
+    read. With ``limit`` the 3 tracers of the coupled step and the face
+    masks; without it one tracer in the ``qv`` form and no face masks
+    (``transport_run``: face_x and face_y are None)."""
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("dg1_rk_stage reads its neighbours' psi: out must not alias psi")
     _, n_tracers, nx, ny = psi.shape
-    if n_tracers != STAGE_TRACERS:
+    if limit and n_tracers != STAGE_TRACERS:
         raise ValueError(
             f"dg1_rk_stage runs {STAGE_TRACERS} tracers (hice, cice, hsnow), got {n_tracers}"
         )
+    if not limit and (n_tracers != 1 or qv is None or face_x is not None or face_y is not None):
+        raise ValueError(
+            "dg1_rk_stage's no-limit instance runs one tracer in the qv form without face "
+            f"masks, got {n_tracers} tracers{'' if qv is not None else ', no qv'}"
+            f"{'' if face_x is None and face_y is None else ', face masks'}"
+        )
     uv = (u.data_ptr(), v.data_ptr()) if qv is None else (None, None)
+    faces = (face_x.data_ptr(), face_y.data_ptr()) if limit else (None, None)
     _launch(
         "dg1_rk_stage",
-        psi.data_ptr(), base.data_ptr(), *uv, face_x.data_ptr(), face_y.data_ptr(), metric, qv,
-        out.data_ptr(), nx, ny, n_tracers, a, b, dt_sub,
+        psi.data_ptr(), base.data_ptr(), *uv, *faces, metric, qv,
+        out.data_ptr(), nx, ny, n_tracers, tables.degree, int(limit), a, b, dt_sub,
         ctypes.addressof(tables), psi.device.index, stream,
     )
 
@@ -625,41 +667,47 @@ def dg1_sample_cfl(transport: DGTransport, u, v):
 
 def dg1_rk_stage_reference(
     transport: DGTransport, psi, base, u, v, face_x, face_y,
-    a: float, b: float, dt_sub: float, qv: QuadVelocity = None,
+    a: float, b: float, dt_sub: float, qv: QuadVelocity = None, limit: bool = True,
 ):
     """lim(a base + b (psi + dt_sub rhs(psi))), or lim(psi + dt_sub rhs(psi))
-    when a == 0, on (3, T, nx, ny) dG1 coefficients, with the velocity
-    sampled from the CG1 nodes (u, v) or the quadrature velocity ``qv``."""
+    when a == 0, on (K, T, nx, ny) coefficients, with the velocity sampled
+    from the CG1 nodes (u, v) or the quadrature velocity ``qv``; lim is the
+    positivity limiter, or the identity without ``limit``; face_x and
+    face_y may be None (every face open)."""
     if qv is None:
         qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
-    value = psi + dt_sub * transport.rhs(psi, qv, (face_x, face_y))
+    faces = None if face_x is None and face_y is None else (face_x, face_y)
+    value = psi + dt_sub * transport.rhs(psi, qv, faces)
     if a != 0.0:
         value = a * base + b * value
-    return transport.limit_positivity(value)
+    return transport.limit_positivity(value) if limit else value
 
 
 def dg1_rk_stage(
     transport: DGTransport, psi, base, u, v, face_x, face_y,
-    a: float, b: float, dt_sub: float, qv: QuadVelocity = None,
+    a: float, b: float, dt_sub: float, qv: QuadVelocity = None, limit: bool = True,
 ):
-    """One limited SSP-RK stage of the dG1 tracers (see the reference); with
-    ``qv`` (the HO path's quadrature velocity) u and v are not read."""
+    """One SSP-RK stage of the (K, T, nx, ny) tracers at the transport's
+    degree (see the reference); with ``qv`` (a quadrature velocity) u and v
+    are not read. With ``limit`` T is 3; without it (the no-limit instance)
+    T is 1, ``qv`` is given and face_x and face_y are None."""
     if _on_cpu(psi):
         return dg1_rk_stage_reference(
-            transport, psi, base, u, v, face_x, face_y, a, b, dt_sub, qv=qv
+            transport, psi, base, u, v, face_x, face_y, a, b, dt_sub, qv=qv, limit=limit
         )
     nx, ny = transport.mesh.nx, transport.mesh.ny
-    _check((nx, ny), psi.device, face_x=face_x, face_y=face_y)
+    if limit:
+        _check((nx, ny), psi.device, face_x=face_x, face_y=face_y)
     if qv is None:
         _check((nx, ny), psi.device, u=u, v=v)
         qv_ptrs = None
     else:
-        qv_ptrs = _dg1_qv(qv, (nx, ny), psi.device)
-    _check((3, psi.shape[1], nx, ny), psi.device, psi=psi, base=base)
+        qv_ptrs = _dg1_qv(qv, (nx, ny), psi.device, transport.basis.degree)
+    _check((transport.basis.n_dofs, psi.shape[1], nx, ny), psi.device, psi=psi, base=base)
     out = torch.empty_like(psi)
     _dg1_rk_stage_(
         psi, base, u, v, face_x, face_y, _dg1_metric(transport, psi.device), out, a, b,
-        dt_sub, _dg1_tables(transport), _stream(psi.device), qv=qv_ptrs,
+        dt_sub, _dg1_tables(transport), _stream(psi.device), qv=qv_ptrs, limit=limit,
     )
     return out
 
@@ -695,7 +743,7 @@ def transport_substeps_reference(
 ):
     """k x ``transport.step(limit=True)`` with the velocity sampled from the
     CG1 nodes (u, v), or with the precomputed quadrature velocity ``qv``
-    (the HO path; u and v are then not read); ``tracers`` is (3, T, nx, ny)."""
+    (the HO path; u and v are then not read); ``tracers`` is (K, T, nx, ny)."""
     if qv is None:
         qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
     for _ in range(k):
@@ -725,29 +773,75 @@ def transport_substeps(
         _check(shape, tracers.device, u=u, v=v)
         qv_ptrs = None
     else:
-        qv_ptrs = _dg1_qv(qv, shape, tracers.device)
-    _check((3, tracers.shape[1], *shape), tracers.device, tracers=tracers)
+        qv_ptrs = _dg1_qv(qv, shape, tracers.device, transport.basis.degree)
+    _check((transport.basis.n_dofs, tracers.shape[1], *shape), tracers.device, tracers=tracers)
     face_x, face_y = _face_planes(tracers[0, 0], face_masks, shape)
     tables, stream = _dg1_tables(transport), _stream(tracers.device)
     metric = _dg1_metric(transport, tracers.device)
-    # A stage reads its neighbours' psi, so stages ping-pong between
-    # buffers; the last stage may overwrite the step's base in place (each
-    # element reads only its own base value).
-    stages = _RK_STAGES[transport.scheme]
-    psi0 = tracers.clone()
+    return _staged_steps(
+        tracers.clone(), _RK_STAGES[transport.scheme], k,
+        lambda cur, base, out, a, b: _dg1_rk_stage_(
+            cur, base, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream,
+            qv=qv_ptrs,
+        ),
+    )
+
+
+def _staged_steps(psi0, stages, k: int, stage):
+    """k SSP-RK steps of one launch per stage, ``stage(cur, base, out, a,
+    b)`` each; ``psi0`` (a fresh tensor) becomes the result or a buffer. A
+    stage reads its neighbours' psi, so stages ping-pong between buffers;
+    the last stage may overwrite the step's base in place (each element
+    reads only its own base value)."""
     spare = [torch.empty_like(psi0) for _ in range(max(1, len(stages) - 1))]
     for _ in range(k):
         cur = psi0
         for s, (a, b) in enumerate(stages):
             out = psi0 if (s > 0 and s == len(stages) - 1) else spare[s]
-            _dg1_rk_stage_(
-                cur, psi0, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream,
-                qv=qv_ptrs,
-            )
+            stage(cur, psi0, out, a, b)
             cur = out
         if cur is not psi0:  # rk1: the single stage wrote a spare buffer
             psi0, spare[0] = cur, psi0
     return psi0
+
+
+def transport_run_reference(transport: DGTransport, psi, vel: QuadVelocity, dt: float, n_steps: int):
+    """n_steps x ``transport.step`` (unlimited), as the JAX ``DGTransport.run``."""
+    for _ in range(n_steps):
+        psi = transport.step(psi, vel, dt)
+    return psi
+
+
+def transport_run(transport: DGTransport, psi, vel: QuadVelocity, dt: float, n_steps: int):
+    """``DGTransport.run``: n_steps unlimited SSP-RK steps of the (K, ...,
+    nx, ny) coefficients ``psi`` (extra middle dims: several tracers) in
+    the quadrature velocity ``vel``. CPU tensors run the plain version;
+    CUDA tensors one launch of dg1_rk_stage's no-limit instance per RK
+    stage and tracer (float32, contiguous; no face masks)."""
+    if _on_cpu(psi):
+        return transport_run_reference(transport, psi, vel, dt, n_steps)
+    mesh, degree = transport.mesh, transport.basis.degree
+    shape, n_dofs = (mesh.nx, mesh.ny), transport.basis.n_dofs
+    if psi.ndim < 3 or psi.shape[0] != n_dofs or tuple(psi.shape[-2:]) != shape:
+        raise ValueError(
+            f"psi has shape {tuple(psi.shape)}, expected ({n_dofs}, ..., {mesh.nx}, {mesh.ny})"
+        )
+    flat = psi.reshape(n_dofs, -1, *shape)
+    _check(flat.shape, psi.device, psi=flat)
+    qv_ptrs = _dg1_qv(vel, shape, psi.device, degree)
+    tables, stream = _dg1_tables(transport), _stream(psi.device)
+    metric = _dg1_metric(transport, psi.device)
+    out = [
+        _staged_steps(
+            flat[:, t: t + 1].clone(memory_format=torch.contiguous_format), _RK_STAGES[transport.scheme], n_steps,
+            lambda cur, base, dst, a, b: _dg1_rk_stage_(
+                cur, base, None, None, None, None, metric, dst, a, b, dt, tables, stream,
+                qv=qv_ptrs, limit=False,
+            ),
+        )
+        for t in range(flat.shape[1])
+    ]
+    return torch.cat(out, dim=1).reshape(psi.shape)
 
 
 # -- the dynamics phase ----------------------------------------------------------
@@ -802,7 +896,7 @@ def dynamics_phase(
     """Returns ((u, v, s11, s22, s12), tracers) after one dynamics phase.
 
     ``state_arrays``: the five (nx, ny) velocity/stress planes; ``tracers``:
-    (3, T, nx, ny) stacked dG1 coefficients; ``consts``: the output of
+    (K, T, nx, ny) stacked DG coefficients (K = 1, 3, 6 at dG0, dG1, dG2); ``consts``: the output of
     ``MEVPSolver.step_consts``; ``face_masks``: optional (face_x, face_y).
     CPU tensors run ``fused_dynamics_reference``; CUDA tensors the kernels.
     The schedule on the card:
@@ -853,7 +947,7 @@ def dynamics_phase(
         raise ValueError(f"unknown schedule: mevp={mevp!r}, transport={transport!r}")
     solver, tr, mesh = model.mevp, model.transport, model.mesh
     device = tracers.device
-    _check((3, tracers.shape[1], mesh.nx, mesh.ny), device, tracers=tracers)
+    _check((tr.basis.n_dofs, tracers.shape[1], mesh.nx, mesh.ny), device, tracers=tracers)
     face_masks = _face_planes(state_arrays[0], face_masks, (mesh.nx, mesh.ny))
     planes = run_mevp[mevp](solver, state_arrays, consts, dt, n_subcycles)
     u, v = planes[0], planes[1]
@@ -934,7 +1028,7 @@ def _ho_dynamics_phase(
     if mevp not in run_mevp or transport not in run_transport:
         raise ValueError(f"unknown HO schedule: mevp={mevp!r}, transport={transport!r}")
     mesh, tr = model.mesh, model.transport
-    _check((3, tracers.shape[1], mesh.nx, mesh.ny), tracers.device, tracers=tracers)
+    _check((tr.basis.n_dofs, tracers.shape[1], mesh.nx, mesh.ny), tracers.device, tracers=tracers)
     carry = run_mevp[mevp](model.mevp, state_arrays, consts, dt, n_subcycles)
     qv = ho_velocity_to_quad(mesh, tr.basis, carry[0], carry[1])
     k = _substeps(model, qv, dt)

@@ -1,13 +1,14 @@
-"""k limited SSP-RK dG1 substeps by ghost-zone tiles: the ``transport_tiled``
-CUDA kernel.
+"""k limited SSP-RK DG substeps (dG0, dG1, dG2) by ghost-zone tiles: the
+``transport_tiled`` CUDA kernel.
 
 Counterpart of ``nextsimdg_tpu/dynamics/kernels/transport_tiled.py``, whose
 ``transport_substeps_tiled`` runs up to ``K_CAP`` substeps per round on
 halo'd blocks in VMEM, re-sampling the velocity per block. Here
 (``csrc/transport_tiled.cu``) as many blocks as the card holds at once each
 walk a fixed stride of tiles: for each tile the block has the
-(tile + 2 halo)^2 window of u, v and the tracer coefficients in shared
-memory, samples the quadrature velocity there, runs up to
+(tile + 2 halo)^2 window of u, v and the coefficients of a group of the
+tracers in shared memory (all of them at dG0 and dG1, one at dG2:
+``window_tracers``), samples the quadrature velocity there, runs up to
 ``K_CAP = (halo - 1) // stages`` substeps and writes back its tile, while
 the window of its next tile is already being copied into a second buffer
 (cp.async, 16 bytes a copy where ny is a multiple of 4, else 4); from
@@ -20,13 +21,15 @@ k: ``stages * min(k, K_MAX) + 1``, and the launch to the halo.
 Plain version: ``velocity_from_cg`` and k x ``DGTransport.step(limit=True)``
 (``transport_substeps_tiled_reference``). The kernel runs the element body
 of ``dg1_rk_stage``, so it also equals k substeps of that schedule bit for
-bit. rk1 and rk2 (the default) are covered; rk3 raises on CUDA tensors.
+bit. rk1, rk2 and rk3 run (rk3, dG2's default, with a second scratch
+buffer: its third stage needs the step's base after the second has
+written its output).
 On a graded or spherical mesh it reads the transport's 5 metric planes
 from global memory, beside the coastline face masks.
 
 The HO path passes ``qv``, the quadrature velocity that
 ``ho_velocity_to_quad`` sampled from the CG2 velocity (at dG1 4 + 4 volume
-and 2 + 2 face planes), instead of (u, v): the kernel reads those planes
+and 2 + 2 face planes, at dG2 9 + 9 and 3 + 3), instead of (u, v): the kernel reads those planes
 from global memory and skips its own sampling, as the JAX kernel takes them
 as constant planes.
 
@@ -44,6 +47,7 @@ from functools import lru_cache
 
 import torch
 
+from ..dgbasis import DG_DOFS
 from ..stencil import halo_widen, is_global_edge
 from ..transport import DGTransport, QuadVelocity
 from . import coupled_cuda as cc
@@ -56,8 +60,9 @@ K_MAX = 3
 #: (1 KB of it reserved per block).
 SHARED_LIMIT, SM_SHARED = 232448, 233472
 #: Most threads a block (the stage body's ~80 registers at one block of
-#: 768 an SM).
+#: 768 an SM); at dG2 (6 dofs) the larger body takes at most 384.
 MAX_THREADS = 768
+MAX_THREADS_DG2 = 384
 COPIES = ("auto", "vector", "scalar")
 
 
@@ -91,7 +96,15 @@ ONE_BUFFER = LaunchConfig(32, 768, 1)
 #: measurement's yardstick).
 PER_TILE = LaunchConfig(32, 768, 1, persistent=False)
 
-_STAGES = {"rk1": (1, 0.0, 1.0), "rk2": (2, 0.5, 0.5)}
+#: The RK stages of each scheme: (a, b) of lim(a base + b (psi + dt rhs)).
+_STAGES = cc._RK_STAGES
+
+
+def max_threads(n_dofs: int = 3) -> int:
+    """Most threads a block at this many dofs (csrc/transport_tiled.cu)."""
+    return MAX_THREADS_DG2 if n_dofs == DG_DOFS[2] else MAX_THREADS
+
+
 
 
 #: The plain version: k x DGTransport.step(limit=True).
@@ -107,44 +120,80 @@ def _round_128(floats: int) -> int:
     return -(-floats // 32) * 32
 
 
-def shared_bytes(tile: int, halo: int, n_tracers: int = 3, buffers: int = 2, qv: bool = False) -> int:
+def shared_bytes(
+    tile: int, halo: int, n_tracers: int = 3, buffers: int = 2, qv: bool = False,
+    n_dofs: int = 3, stages: int = 2,
+) -> int:
     """Dynamic shared memory of one block (TransportLayout of
-    csrc/transport_tiled.cu): ``buffers`` input buffers of the coefficient
+    csrc/transport_tiled.cu) whose window holds ``n_tracers`` tracers of
+    ``n_dofs`` coefficients: ``buffers`` input buffers of the coefficient
     window and, but for the ``qv`` form, u and v, each part 128-byte
     aligned, with rows of the window's cells from up to 3 cells in (the
     16-byte boundary before its first column) padded to a multiple of 4;
-    and a scratch buffer of the coefficients."""
+    and a scratch buffer of the coefficients (two for 3 ``stages``)."""
     w = tile + 2 * halo
     plane = w * (-(-(w + 3) // 4) * 4)
-    coeffs = _round_128(3 * n_tracers * plane)
+    coeffs = _round_128(n_dofs * n_tracers * plane)
     buffer = coeffs + (0 if qv else 2 * _round_128(plane))
-    return (buffers * buffer + coeffs) * 4
+    return (buffers * buffer + (2 if stages == 3 else 1) * coeffs) * 4
 
 
 @lru_cache(maxsize=64)
-def fitted(base: LaunchConfig, halo: int, qv: bool = False, n_tracers: int = 3):
+def fitted(
+    base: LaunchConfig, halo: int, qv: bool = False, n_tracers: int = 3, n_dofs: int = 3,
+    stages: int = 2,
+):
     """``base`` with the widest tile up to its own whose block fits the
     shared memory at this halo (two blocks an SM where ``base`` has 384
-    threads or fewer), or None."""
+    threads or fewer), and at most ``max_threads(n_dofs)`` threads, or
+    None."""
     per_sm = 2 if base.threads <= MAX_THREADS // 2 else 1
     limit = min(SHARED_LIMIT, SM_SHARED // per_sm - 1024)
+    threads = min(base.threads, max_threads(n_dofs))
     for tile in range(base.tile, 0, -1):
-        if shared_bytes(tile, halo, n_tracers, base.buffers, qv) <= limit:
-            return replace(base, tile=tile)
+        if shared_bytes(tile, halo, n_tracers, base.buffers, qv, n_dofs, stages) <= limit:
+            return replace(base, tile=tile, threads=threads)
+    return None
+
+
+def _full_launch(halo, qv, n_tracers, elements, n_dofs, stages):
+    """The first shipped base that fits at its full tile, or None."""
+    bases = ((TWO_BLOCKS,) if elements >= TWO_BLOCKS_MIN_ELEMENTS else ()) + (SHIPPED, ONE_BUFFER)
+    for base in bases:
+        config = fitted(base, halo, qv, n_tracers, n_dofs, stages)
+        if config is not None and config.tile == base.tile:
+            return config
     return None
 
 
 @lru_cache(maxsize=64)
-def launch_config(halo: int, qv: bool = False, n_tracers: int = 3, elements: int = 0) -> LaunchConfig:
-    """The shipped launch for a grid of ``elements`` at this halo."""
-    bases = ((TWO_BLOCKS,) if elements >= TWO_BLOCKS_MIN_ELEMENTS else ()) + (SHIPPED, ONE_BUFFER)
-    for base in bases:
-        if fitted(base, halo, qv, n_tracers) == base:
-            return base
-    config = fitted(ONE_BUFFER, halo, qv, n_tracers)
+def launch_config(
+    halo: int, qv: bool = False, n_tracers: int = 3, elements: int = 0, n_dofs: int = 3,
+    stages: int = 2,
+) -> LaunchConfig:
+    """The shipped launch for a grid of ``elements`` at this halo, for
+    windows of ``n_tracers`` tracers of ``n_dofs`` coefficients and a
+    scheme of ``stages`` stages: the first base that fits at its full tile,
+    else ``ONE_BUFFER`` at a narrower one."""
+    config = _full_launch(halo, qv, n_tracers, elements, n_dofs, stages)
+    if config is not None:
+        return config
+    config = fitted(ONE_BUFFER, halo, qv, n_tracers, n_dofs, stages)
     if config is None:
         raise ValueError(f"transport_tiled: no tile fits at halo {halo}")
     return config
+
+
+def window_tracers(
+    halo: int, qv: bool = False, n_tracers: int = 3, elements: int = 0, n_dofs: int = 3,
+    stages: int = 2,
+) -> int:
+    """Tracers in a block's window: all of them where such a window fits at
+    a shipped base's full tile (dG0, and dG1 but at rk3's widest halos),
+    else one, whose window fits a wider tile (dG2: 6 planes a tracer), at
+    the cost of sampling the velocity once a tracer."""
+    full = _full_launch(halo, qv, n_tracers, elements, n_dofs, stages)
+    return n_tracers if full is not None else 1
 
 
 def copy_form(ny: int, *tensors) -> str:
@@ -156,14 +205,19 @@ def copy_form(ny: int, *tensors) -> str:
 
 @lru_cache(maxsize=256)
 def blocks_per_sm(device, config: LaunchConfig, halo: int, qv: bool = False, metric: bool = False,
-                  copy: str = "vector", n_tracers: int = 3) -> int:
+                  copy: str = "vector", n_tracers: int = 3, degree: int = 1,
+                  stages: int = 2) -> int:
     """Blocks of ``config`` that one SM of the card holds at once at this
-    halo: a persistent launch runs that many times the SMs (cached: the
-    query costs the host more than a launch)."""
+    halo (windows of ``n_tracers`` tracers at ``degree``, a scheme of
+    ``stages`` stages): a persistent launch runs that many times the SMs
+    (cached: the query costs the host more than a launch)."""
     device = torch.device(device)
+    n_bytes = shared_bytes(
+        config.tile, halo, n_tracers, config.buffers, qv, DG_DOFS[degree], stages
+    )
     count = cc._library().nst_transport_tiled_blocks_per_sm(
-        int(metric), int(qv), int(copy == "vector"), config.threads,
-        shared_bytes(config.tile, halo, n_tracers, config.buffers, qv), device.index or 0,
+        degree, int(metric), int(qv), int(copy == "vector"), config.threads, n_bytes,
+        device.index or 0,
     )
     if count < 0:
         raise RuntimeError(f"transport_tiled: CUDA error {-count}")
@@ -179,7 +233,7 @@ def tile_walk(n_tiles: int, blocks: int) -> list:
 def transport_substeps_tiled(
     transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None,
     tile: int = None, halo: int = None, threads: int = None, qv: QuadVelocity = None,
-    config: LaunchConfig = None, copy: str = "auto", compute: bool = True,
+    config: LaunchConfig = None, copy: str = "auto", compute: bool = True, group: int = None,
 ):
     """The tracers after k limited substeps of ``dt_sub``.
 
@@ -189,35 +243,42 @@ def transport_substeps_tiled(
     ``face_masks``: optional (face_x, face_y), ones without a coastline.
     The launch: ``config`` (default ``launch_config(halo)``), its tile and
     threads overridden by ``tile`` and ``threads``; ``copy``: how windows
-    reach shared memory ("auto": ``copy_form``). ``compute=False`` only
-    loads and stores the windows (the phase measurement: the result is then
-    the input). The inputs are not modified.
+    reach shared memory ("auto": ``copy_form``); ``group``: tracers in a
+    block's window (default ``window_tracers``; a divisor of T).
+    ``compute=False`` only loads and stores the windows (the phase
+    measurement: the result is then the input). The inputs are not
+    modified.
     """
     if cc._on_cpu(tracers):
         return transport_substeps_tiled_reference(
             transport, tracers, u, v, dt_sub, k, face_masks, qv=qv
         )
-    if transport.scheme not in _STAGES:
-        raise NotImplementedError(
-            f"the tiled transport kernel runs rk1 and rk2, not {transport.scheme}"
-        )
     if copy not in COPIES:
         raise ValueError(f"copy must be one of {COPIES}, not {copy!r}")
-    n_stages, a2, b2 = _STAGES[transport.scheme]
+    stages = _STAGES[transport.scheme]
+    n_stages = len(stages)
+    # a[0..2], then b[0..2] (unused stages: 0).
+    pad = lambda xs: xs + [0.0] * (3 - len(xs))
+    weights = cc._floats(pad([a for a, _ in stages]) + pad([b for _, b in stages]))
     nx, ny = transport.mesh.nx, transport.mesh.ny
+    degree, n_dofs = transport.basis.degree, transport.basis.n_dofs
     device = tracers.device
     n_tracers = tracers.shape[1]
-    cc._check((3, n_tracers, nx, ny), device, tracers=tracers)
+    cc._check((n_dofs, n_tracers, nx, ny), device, tracers=tracers)
     if qv is None:
         cc._check((nx, ny), device, u=u, v=v)
         u_ptr, v_ptr, qv_ptrs = u.data_ptr(), v.data_ptr(), None
     else:
         u, v = None, None
-        u_ptr, v_ptr, qv_ptrs = None, None, cc._dg1_qv(qv, (nx, ny), device)
+        u_ptr, v_ptr, qv_ptrs = None, None, cc._dg1_qv(qv, (nx, ny), device, degree)
     face_x, face_y = cc._face_planes(tracers[0, 0], face_masks, (nx, ny))
     halo = halo_for(k, n_stages) if halo is None else halo
     k_cap = (halo - 1) // n_stages
-    config = config or launch_config(halo, qv is not None, n_tracers, nx * ny)
+    if group is None:
+        group = window_tracers(halo, qv is not None, n_tracers, nx * ny, n_dofs, n_stages)
+    if group < 1 or n_tracers % group:
+        raise ValueError(f"a window of {group} tracers does not divide {n_tracers}")
+    config = config or launch_config(halo, qv is not None, group, nx * ny, n_dofs, n_stages)
     if tile or threads:
         config = replace(config, tile=tile or config.tile, threads=threads or config.threads)
     if config.tile < 1 or k_cap < 1:
@@ -227,21 +288,25 @@ def transport_substeps_tiled(
     stream = cc._stream(device)
     src = tracers
     buffers = [torch.empty_like(tracers) for _ in range(2)]
-    tiles = -(-nx // config.tile) * -(-ny // config.tile)
+    items = -(-nx // config.tile) * -(-ny // config.tile) * (n_tracers // group)
     done = 0
     while done < k:
         n_sub = min(k_cap, k - done)
         dst = buffers[0] if src is not buffers[0] else buffers[1]
         form = copy_form(ny, src, u, v) if copy == "auto" else copy
-        blocks = tiles
+        blocks = items
         if config.persistent:
-            per_sm = blocks_per_sm(device, config, halo, qv is not None, metric is not None, form, n_tracers)
-            blocks = min(tiles, per_sm * cc.sm_count(device))
+            per_sm = blocks_per_sm(
+                device, config, halo, qv is not None, metric is not None, form, group, degree,
+                n_stages,
+            )
+            blocks = min(items, per_sm * cc.sm_count(device))
         cc._launch(
             KERNEL, src.data_ptr(), dst.data_ptr(), u_ptr, v_ptr, face_x.data_ptr(),
-            face_y.data_ptr(), metric, qv_ptrs, nx, ny, n_tracers, config.tile, halo,
-            n_sub, n_stages, config.threads, config.buffers, int(form == "vector"), blocks,
-            int(compute), a2, b2, dt_sub, ctypes.addressof(tables), device.index, stream,
+            face_y.data_ptr(), metric, qv_ptrs, nx, ny, n_tracers, group, degree, config.tile,
+            halo, n_sub, n_stages, config.threads, config.buffers, int(form == "vector"), blocks,
+            int(compute), ctypes.addressof(weights), dt_sub, ctypes.addressof(tables),
+            device.index, stream,
         )
         src = dst
         done += n_sub
@@ -255,15 +320,13 @@ def transport_tiled_spmd_config(model):
     the widened block: each substep spoils ``stages`` rings of it, and the
     velocity sampled at its edge spoils one more, once. With k rarely above
     the K_MAX = 3 substeps of one transport_tiled launch, the first H from
-    8 up that gives k_cap >= K_MAX serves one launch per exchange; the
-    strips are slices of the block, so H may not exceed it, and a smaller
-    block takes the largest H that still gives k_cap >= 1. rk3 raises in
-    the kernel, so it gets None (the staged path).
+    8 up that gives k_cap >= K_MAX serves one launch per exchange (rk3:
+    16); the strips are slices of the block, so H may not exceed it, and a
+    smaller block takes the largest H that still gives k_cap >= 1 (None
+    where none does).
     """
     tr, mesh = model.transport, model.mesh
-    if tr.scheme not in _STAGES:
-        return None
-    stages = _STAGES[tr.scheme][0]
+    stages = len(_STAGES[tr.scheme])
     limit = min(mesh.nx, mesh.ny)
     for H in (8, 16, 24, 32):
         if (H - 1) // stages >= K_MAX and H <= limit:
@@ -300,7 +363,7 @@ def transport_substeps_tiled_spmd(
     model, tracers, velocity_w, dt_sub: float, k: int, face_masks=None,
 ):
     """The rank's tracers after k limited substeps (``model``: the rank's
-    ``CoupledModel``; ``tracers`` (3, T, nx, ny) and ``face_masks`` its
+    ``CoupledModel``; ``tracers`` (K, T, nx, ny) and ``face_masks`` its
     block's; ``velocity_w`` its (u, v) widened by H, from
     ``widen_velocity``, which fixes H). Per exchange round: widen the
     tracers by H ghost cells (one strip pair per axis), run up to
@@ -316,9 +379,7 @@ def transport_substeps_tiled_spmd(
     ax_x, ax_y = model.spmd
     nx, ny = mesh.nx, mesh.ny
     H = (velocity_w.shape[-2] - nx) // 2
-    if tr.scheme not in _STAGES:
-        raise NotImplementedError(f"no spmd tiled transport for {tr.scheme}")
-    k_cap = (H - 1) // _STAGES[tr.scheme][0]
+    k_cap = (H - 1) // len(_STAGES[tr.scheme])
     if velocity_w.shape != (2, nx + 2 * H, ny + 2 * H) or k_cap < 1 or H > min(nx, ny):
         raise ValueError(
             f"a velocity widened to {tuple(velocity_w.shape)} does not fit a "

@@ -98,11 +98,45 @@ class RectMesh:
             "face_y": (self._dx, ones_y),
         }
 
+    @property
+    def _xn(self) -> np.ndarray:
+        return self.x0 + np.concatenate([[0.0], np.cumsum(self._dx)])
+
+    @property
+    def _yn(self) -> np.ndarray:
+        return self.y0 + np.concatenate([[0.0], np.cumsum(self._dy)])
+
     def node_coords(self):
         """(x, y) arrays of CG1 node coordinates, each (nx+1, ny+1)."""
-        xn = self.x0 + np.concatenate([[0.0], np.cumsum(self._dx)])
-        yn = self.y0 + np.concatenate([[0.0], np.cumsum(self._dy)])
-        return np.meshgrid(xn, yn, indexing="ij")
+        return np.meshgrid(self._xn, self._yn, indexing="ij")
+
+    def edge_x_coords(self, s_edge):
+        """Coordinates of the x-face (vertical edge) quadrature points:
+        each (nx+1, ny, NE), ``s_edge`` the points along a face."""
+        xn, yn = self._xn, self._yn
+        ey = yn[:-1][:, None] + s_edge[None, :] * self._dy[:, None]
+        x = np.broadcast_to(xn[:, None, None], (self.nx + 1, self.ny, len(s_edge)))
+        y = np.broadcast_to(ey[None, :, :], (self.nx + 1, self.ny, len(s_edge)))
+        return x, y
+
+    def edge_y_coords(self, s_edge):
+        """Coordinates of the y-face (horizontal edge) quadrature points:
+        each (nx, ny+1, NE)."""
+        xn, yn = self._xn, self._yn
+        ex = xn[:-1][:, None] + s_edge[None, :] * self._dx[:, None]
+        x = np.broadcast_to(ex[:, None, :], (self.nx, self.ny + 1, len(s_edge)))
+        y = np.broadcast_to(yn[None, :, None], (self.nx, self.ny + 1, len(s_edge)))
+        return x, y
+
+    def volume_quad_coords(self, xq_vol, yq_vol):
+        """Coordinates of the volume quadrature points (reference
+        coordinates ``xq_vol``, ``yq_vol``): each (NQ, nx, ny)."""
+        xn, yn = self._xn, self._yn
+        x = xn[:-1][None, :, None] + xq_vol[:, None, None] * self._dx[None, :, None]
+        y = yn[:-1][None, None, :] + yq_vol[:, None, None] * self._dy[None, None, :]
+        x = np.broadcast_to(x, (len(xq_vol), self.nx, self.ny))
+        y = np.broadcast_to(y, (len(yq_vol), self.nx, self.ny))
+        return x, y
 
     @property
     def n_elements(self) -> int:

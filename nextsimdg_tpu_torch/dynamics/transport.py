@@ -1,8 +1,9 @@
-"""Discontinuous-Galerkin tracer transport (dG1 on a closed mesh).
+"""Discontinuous-Galerkin tracer transport (dG0, dG1, dG2 on a closed mesh).
 
 Counterpart of ``nextsimdg_tpu.dynamics.transport``. Solves
 d(psi)/dt + div(v psi) = 0 per tracer with upwind edge fluxes and SSP-RK
-time stepping; the semi-discrete RHS is
+time stepping (rk1, rk2, rk3; by default the one matched to the degree);
+the semi-discrete RHS is
 
     dpsi_k/dt = M_k^-1 [ V_k  -  E_k ]
     V_k = sum_q w_q [ (vx_q/dx) dphi_k/dxi + (vy_q/dy) dphi_k/deta ] psi(x_q)
@@ -15,7 +16,7 @@ quadrature dims is an unrolled sum of scalar-weighted planes in ascending
 order with zero entries skipped, as in the JAX package, so that float64
 results agree to rounding. The CUDA transport kernels in
 ``dynamics.kernels.coupled_cuda`` take their table entries from this
-module's ``DGTransport``.
+module's ``DGTransport``, at every degree.
 
 On a graded or spherical mesh the widths become per-element planes: the
 volume term multiplies by ``inv_dx``/``inv_dy``, each owned face flux is
@@ -34,6 +35,7 @@ advects with ``transport_tiled`` on a widened block instead
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -93,6 +95,23 @@ class QuadVelocity:
     vy_vol: torch.Tensor
     vn_x: torch.Tensor
     vn_y: torch.Tensor
+
+
+def sample_velocity(mesh: RectMesh, basis: DGBasis, fn: Callable, *, device, dtype) -> QuadVelocity:
+    """An analytic velocity ``fn(x, y) -> (vx, vy)`` (numpy, float64)
+    sampled at the quadrature points, then cast to ``dtype`` on ``device``."""
+    xv, yv = mesh.volume_quad_coords(basis.xq_vol, basis.yq_vol)
+    vx_vol, vy_vol = fn(xv, yv)
+    vnx, _ = fn(*mesh.edge_x_coords(basis.s_edge))
+    _, vny = fn(*mesh.edge_y_coords(basis.s_edge))
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+    return QuadVelocity(
+        vx_vol=as_t(vx_vol),
+        vy_vol=as_t(vy_vol),
+        # The owned left (bottom) faces; the domain's last face is a wall.
+        vn_x=as_t(np.moveaxis(vnx[: mesh.nx], 2, 0)),
+        vn_y=as_t(np.moveaxis(vny[:, : mesh.ny], 2, 0)),
+    )
 
 
 def sampling_weights(basis: DGBasis):
@@ -177,16 +196,19 @@ def cfl_substeps(
     return substeps_from_speeds(speed_x, speed_y, dt, mesh, degree, k_floor, k_max)
 
 
+#: The SSP-RK scheme matched to each DG degree.
+DEFAULT_SCHEME = {0: "rk1", 1: "rk2", 2: "rk3"}
+
+
 class DGTransport:
-    """The dG1 transport operator for one closed mesh (uniform, graded or
-    spherical). ``spmd``: on a rank grid, the rank's (x, y) exchange axes,
-    with its block of a uniform mesh as ``mesh``."""
+    """The transport operator for one closed mesh (uniform, graded or
+    spherical) and DG degree (0, 1 or 2). ``spmd``: on a rank grid, the
+    rank's (x, y) exchange axes, with its block of a uniform mesh as
+    ``mesh``."""
 
     def __init__(
         self, mesh: RectMesh, degree: int = 1, scheme: str = None, spmd=(None, None),
     ) -> None:
-        if degree != 1:
-            raise NotImplementedError("only dG1 transport is ported yet")
         if mesh.periodic_x or mesh.periodic_y:
             raise NotImplementedError("only closed meshes are ported")
         self.spmd = tuple(spmd)
@@ -198,7 +220,7 @@ class DGTransport:
         self.mesh = mesh
         self._metric = {}
         self.basis = dg_basis(degree)
-        self.scheme = scheme or "rk2"
+        self.scheme = scheme or DEFAULT_SCHEME[degree]
         if self.scheme not in ("rk1", "rk2", "rk3"):
             raise ValueError(f"unknown scheme {self.scheme}")
         b = self.basis
@@ -216,6 +238,11 @@ class DGTransport:
         self._wa_y0 = b.psi_y0 * b.w_edge[None, :]
         self._wa_y1 = b.psi_y1 * b.w_edge[None, :]
         self._inv_mass = b.inv_mass_diag
+        # The limiter's evaluation points: the volume points, then each
+        # face's (left, right, bottom, top).
+        self._limit_table = np.concatenate(
+            [b.psi_vol, b.psi_x0, b.psi_x1, b.psi_y0, b.psi_y1], axis=1
+        )
 
     def metric_planes(self, *, device, dtype):
         """None when uniform; else dict(inv_dx, inv_dy, face_x, face_y,
@@ -334,15 +361,32 @@ class DGTransport:
 
     # -- positivity limiting (Zhang & Shu) -----------------------------------
     def limit_positivity(self, psi):
-        """Scale the dG1 slopes so the polynomial stays >= 0 everywhere.
+        """Scale the higher moments so the polynomial stays >= 0.
 
-        A linear polynomial's minimum over the element is at a corner:
-        mean - (|s1| + |s2|)/2. The deviation from the (conserved) mean is
-        shrunk by theta = min(1, mean / (mean - min)) where that corner
-        value is negative.
+        The deviation from the (conserved) mean is shrunk by
+        theta = min(1, mean / (mean - min)) where the minimum is negative.
+        dG0 has no higher moment (a no-op). dG1: a linear polynomial's
+        minimum over the element is at a corner, mean - (|s1| + |s2|)/2.
+        dG2: the minimum over the volume points and every face's points,
+        streamed point by point (each value an ascending-k sum).
         """
+        n_dofs = self.basis.n_dofs
+        if n_dofs == 1:
+            return psi
         mean = psi[0]
-        mins = mean - 0.5 * (torch.abs(psi[1]) + torch.abs(psi[2]))
+        if n_dofs == 3:
+            mins = mean - 0.5 * (torch.abs(psi[1]) + torch.abs(psi[2]))
+        else:
+            mins = None
+            for q in range(self._limit_table.shape[1]):
+                value = None
+                for k in range(n_dofs):
+                    c = float(self._limit_table[k, q])
+                    if c == 0.0:
+                        continue
+                    term = psi[k] if c == 1.0 else c * psi[k]
+                    value = term if value is None else value + term
+                mins = value if mins is None else torch.minimum(mins, value)
         deficit = mean - mins
         theta = torch.where(
             mins < 0.0,
@@ -369,6 +413,27 @@ class DGTransport:
         psi1 = lim(psi + dt * rhs(psi))
         psi2 = lim(0.75 * psi + 0.25 * (psi1 + dt * rhs(psi1)))
         return lim(psi / 3.0 + 2.0 / 3.0 * (psi2 + dt * rhs(psi2)))
+
+    def run(self, psi, vel: QuadVelocity, dt: float, n_steps: int):
+        """n_steps unlimited SSP-RK steps (``step`` with ``limit=False``).
+        CPU tensors run ``step``; CUDA tensors the kernels, one
+        ``dg1_rk_stage`` launch per RK stage and tracer
+        (``kernels.coupled_cuda.transport_run``)."""
+        from .kernels.coupled_cuda import transport_run
+
+        return transport_run(self, psi, vel, dt, n_steps)
+
+    # -- setup helpers -------------------------------------------------------
+    def project(self, fn: Callable, *, device, dtype):
+        """L2-project an analytic field ``fn(x, y)`` (numpy, float64) onto
+        (K, nx, ny) DG coefficients. The projection lives in reference
+        coordinates, so the element metric cancels."""
+        b = self.basis
+        x, y = self.mesh.volume_quad_coords(b.xq_vol, b.yq_vol)
+        values = np.broadcast_to(fn(x, y), (len(b.w_vol), self.mesh.nx, self.mesh.ny))
+        coeffs = np.einsum("q,kq,qxy->kxy", b.w_vol, b.psi_vol, values)
+        coeffs = coeffs / b.mass_diag[:, None, None]
+        return torch.as_tensor(coeffs, device=device).to(dtype)
 
     def total_mass(self, psi):
         """Integral of the tracer over the domain (cell means x areas)."""

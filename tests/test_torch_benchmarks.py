@@ -41,6 +41,41 @@ def test_multihost_runs_on_a_rank_grid():
     assert "2x2 rank grid" in result["metric"] and result["value"] > 0
 
 
+@pytest.mark.parametrize("degree", [1, 2])
+def test_advection_matches_the_jax_config_at_16(degree):
+    """BASELINE config 2 at 16^2 for 5 steps at float64: the port's set-up
+    and ``DGTransport.run`` against the JAX battery's (its
+    ``bench_advection`` builds the same mesh, velocity and start, then runs
+    ``tr.step`` in a scan), to 1e-10 of the plane's max; the rate on the CPU
+    has the JAX metric's name."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from nextsimdg_tpu.dynamics import DGTransport, RectMesh
+    from nextsimdg_tpu.dynamics.transport import sample_velocity
+
+    n = 16
+    tr, vel, psi, dt = run_benchmarks.advection_setup(n, degree, "cpu", torch.float64)
+    got = tr.run(psi, vel, dt, 5)
+    mesh = RectMesh(nx=n, ny=n, dx=1.0 / n, dy=1.0 / n)
+    jtr = DGTransport(mesh, degree=degree)
+    jvel = sample_velocity(
+        mesh, jtr.basis, lambda x, y: (-2 * np.pi * (y - 0.5), 2 * np.pi * (x - 0.5)),
+        dtype=jnp.float64,
+    )
+    jpsi = jtr.project(lambda x, y: np.exp(-((x - 0.5) ** 2 + (y - 0.7) ** 2) / 0.01), dtype=jnp.float64)
+    assert dt == 0.2 / (n * 2 * np.pi)
+    assert np.array_equal(psi.numpy(), np.asarray(jpsi))
+    for _ in range(5):
+        jpsi = jtr.step(jpsi, jvel, dt)
+    ref = np.asarray(jpsi)
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10, atol=1e-10 * scale)
+    result = run_benchmarks.run_config("advection", "cpu", n=n, degree=degree, chunk=2)
+    assert result["metric"] == f"DG advection element updates/s (dG{degree}, {n}x{n}, f32)"
+    assert result["value"] > 0 and result["chunk"] == 2
+
+
 def test_config_names_are_the_jax_battery_names():
     spec = importlib.util.spec_from_file_location(
         "jax_benchmarks_run_benchmarks", REPO / "benchmarks" / "run_benchmarks.py"
@@ -82,10 +117,12 @@ def test_entry_points_refuse_to_run_without_a_card():
         )
         assert done.returncode != 0 and not done.stdout
     done = subprocess.run(
-        [sys.executable, "-m", "nextsimdg_tpu_torch.benchmarks.run_benchmarks", "advection"],
+        [sys.executable, "-m", "nextsimdg_tpu_torch.benchmarks.run_benchmarks", "box_adaptive"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert done.returncode == 2 and "unknown" in done.stderr
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_benchmarks.run_config("advection")
 
 
 def test_transport_tiled_and_ho_single_sweeps_run_each_launch():

@@ -250,7 +250,7 @@ def test_interop_round_trip():
     "kwargs",
     [
         dict(mevp_params=coupled.MEVPParams(a_weighted_stress=True)), dict(spmd=("x", None)),
-        dict(tvb_m=0.0), dict(degree=2),
+        dict(tvb_m=0.0), dict(degree=2, mevp_params=coupled.MEVPParams(adaptive_alpha=True)),
     ],
 )
 def test_unported_options_raise(kwargs):
@@ -401,8 +401,8 @@ def test_auto_backends_follow_the_element_threshold(side):
     assert port.mevp_schedule() == ("pallas-tiled" if tiled else "pallas")
     assert port.transport_schedule() == ("tiled" if tiled else "xla")
     if tiled:
-        port.transport.scheme = "rk3"  # the tiled transport kernel runs rk1 and rk2
-        assert port.transport_schedule() == "xla"
+        port.transport.scheme = "rk3"  # the tiled transport kernel runs rk3 too
+        assert port.transport_schedule() == "tiled"
 
 
 @pytest.mark.parametrize("kwargs", [dict(mevp_backend="xla"), dict(transport_backend="banded")])

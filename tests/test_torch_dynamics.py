@@ -286,6 +286,12 @@ def test_transport_step(meshes, fields, scheme, limit):
 
 
 def test_transport_rejects_unported_degrees(meshes):
+    """Every degree of the JAX package (0, 1, 2) is ported; what is not
+    (a periodic mesh, the M7c item) raises at each of them, and a degree the
+    JAX package has not either."""
     for degree in (0, 2):
+        assert transport.DGTransport(meshes[0], degree=degree).basis.degree == degree
         with pytest.raises(NotImplementedError):
-            transport.DGTransport(meshes[0], degree=degree)
+            transport.DGTransport(mesh.RectMesh(N, N, DX, DX, periodic_x=True), degree=degree)
+    with pytest.raises(ValueError, match="degree"):
+        transport.DGTransport(meshes[0], degree=3)

@@ -531,12 +531,12 @@ def test_ho_schedules(mevp_backend, transport_backend, expected):
 
 @pytest.mark.parametrize(
     "transport_backend, expected",
-    [("auto", ("single", "xla")), ("xla", ("single", "xla")), ("tiled", ("single", "tiled"))],
+    [("auto", ("single", "tiled")), ("xla", ("single", "xla")), ("tiled", ("single", "tiled"))],
 )
 def test_ho_rk3_takes_the_staged_transport(transport_backend, expected):
-    """transport_tiled runs rk1 and rk2, so "auto" advects rk3 with the
-    staged dg1_rk_stage (its qv form), as the CG1 path does; an explicit
-    backend is kept."""
+    """rk3 takes the staged dg1_rk_stage (its qv form) where it is asked
+    for ("xla"); "auto" advects rk3 with transport_tiled, which runs rk3,
+    as it does rk1 and rk2; an explicit backend is kept."""
     port = ho_model(transport_backend=transport_backend)
     port.transport.scheme = "rk3"
     assert (port.mevp_schedule(), port.transport_schedule()) == expected

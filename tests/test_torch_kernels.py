@@ -79,15 +79,17 @@ def assert_close(got, ref, tol):
     assert float((got - ref).abs().max()) <= tol * scale
 
 
-def setup(device, n=N, n_subcycles=100, ny=None, spherical=False):
+def setup(device, n=N, n_subcycles=100, ny=None, spherical=False, degree=1):
     rng = np.random.default_rng(0)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     shape = (n, n if ny is None else ny)
     if spherical:  # a pan-Arctic window with a coastline: metric consts, land
         mesh = SphericalMesh(*shape, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
-        model = CoupledModel(mesh, n_subcycles=n_subcycles, ocean_mask=synthetic_coastline(*shape))
+        model = CoupledModel(
+            mesh, degree=degree, n_subcycles=n_subcycles, ocean_mask=synthetic_coastline(*shape)
+        )
     else:
-        model = CoupledModel(RectMesh(*shape, 2000.0, 2000.0), n_subcycles=n_subcycles)
+        model = CoupledModel(RectMesh(*shape, 2000.0, 2000.0), degree=degree, n_subcycles=n_subcycles)
     carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
         u_atm=t(rng.normal(8.0, 2.0, shape)), v_atm=t(rng.normal(2.0, 2.0, shape)),
@@ -96,7 +98,8 @@ def setup(device, n=N, n_subcycles=100, ny=None, spherical=False):
     h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
     mask = model.node_mask(device=device, dtype=torch.float32)
     consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
-    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))]))
+    k = model.transport.basis.n_dofs
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (k - 1, 3, *shape))]))
     return model, carry, consts, psi, rng
 
 
@@ -330,11 +333,17 @@ def test_transport_tiled_matches_plain_and_k1_on_a_ragged_grid(device, scheme, k
 
 
 def test_transport_tiled_shared_bytes_agree_with_the_kernel(device):
+    """The host's sizing against the kernel's own layout, at each degree's
+    window of 1 and 3 tracers (K x the tracers coefficient planes) and for
+    rk3's second scratch buffer."""
     lib = cc._library()
-    for tile, halo, buffers, qv in itertools.product((8, 28, 32), (2, 3, 5, 7), (1, 2), (False, True)):
-        assert lib.nst_transport_tiled_shared_bytes(tile, halo, 3, buffers, int(qv)) == tt.shared_bytes(
-            tile, halo, 3, buffers, qv
-        )
+    cases = itertools.product(
+        (8, 28, 31, 32), (2, 3, 4, 5, 7, 10), (1, 2), (False, True), (1, 3, 6), (1, 3), (2, 3)
+    )
+    for tile, halo, buffers, qv, n_dofs, group, stages in cases:
+        assert lib.nst_transport_tiled_shared_bytes(
+            tile, halo, n_dofs * group, buffers, int(qv), stages
+        ) == tt.shared_bytes(tile, halo, group, buffers, qv, n_dofs, stages)
     assert tt.blocks_per_sm(device, tt.SHIPPED, tt.halo_for(1, 2)) == 1
     assert tt.blocks_per_sm(device, tt.TWO_BLOCKS, tt.halo_for(1, 2)) == 2
 
@@ -357,10 +366,13 @@ def test_tiled_dynamics_phase_matches_plain_and_counts_launches(device):
 
 def test_tiled_wrappers_raise_on_what_the_kernels_do_not_take(device):
     model, carry, consts, psi, _ = setup(device)
-    model.transport.scheme = "rk3"
-    with pytest.raises(NotImplementedError, match="rk3"):
-        tt.transport_substeps_tiled(model.transport, psi, carry[0], carry[1], DT, 1)
-    model.transport.scheme = "rk2"
+    with pytest.raises(ValueError, match="tracers"):  # a window of 2 of the 3 tracers
+        tt.transport_substeps_tiled(model.transport, psi, carry[0], carry[1], DT, 1, group=2)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # 768 threads: dG2's body takes 384
+        tt.transport_substeps_tiled(
+            setup(device, degree=2)[0].transport, setup(device, degree=2)[3], carry[0], carry[1],
+            DT, 1, threads=768,
+        )
     with pytest.raises(RuntimeError, match="CUDA error"):  # more shared memory than a block has
         mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, 8, tile=256, halo=8)
     with pytest.raises(TypeError, match="float32"):
@@ -860,3 +872,155 @@ def test_window_sync_probe_times_each_cluster_shape(device):
     assert set(out) == set(shapes) and all(np.isfinite(ns) for ns in out.values())
     with pytest.raises(RuntimeError, match="CUDA error"):
         mevp_large.sweep_barriers(device, shapes=((4, 8, 128, 0),), n_barriers=1)
+
+
+# -- dG0 and dG2, rk3 on transport_tiled, and the no-limit instance ---------------------
+@pytest.mark.parametrize("speed", [0.2, 5.0])
+@pytest.mark.parametrize("degree", [0, 2])
+def test_dg1_sample_cfl_at_every_degree(device, degree, speed):
+    """The speeds at the degree's points (3 x 3 and 3 a face at dG2)
+    exactly, and k equal, at 256^2 and in a widened rank block."""
+    model, carry, _, _, _ = setup(device, n=256, degree=degree, n_subcycles=1)
+    u, v = carry[0] * speed, carry[1] * speed
+    got = cc.dg1_sample_cfl(model.transport, u, v)
+    ref = cc.dg1_sample_cfl_reference(model.transport, u, v)
+    assert torch.equal(got, ref)
+    k = lambda s: int(substeps_from_speeds(s[0], s[1], DT, model.mesh, degree))
+    assert k(got) == k(ref)
+    speeds = torch.empty(2, device=device)
+    cc._dg1_sample_cfl_(u, v, speeds, cc._dg1_tables(model.transport), cc._stream(device), halo=8)
+    assert torch.equal(speeds, cc.dg1_sample_cfl_reference(model.transport, u, v, halo=8))
+
+
+@pytest.mark.parametrize("a, b", [(0.0, 1.0), (0.75, 0.25)])
+@pytest.mark.parametrize("form", ["cg1", "qv"])
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("degree", [0, 2])
+def test_dg1_rk_stage_at_every_degree_matches_plain(device, degree, spherical, form, a, b):
+    """One launch of each form at dG0 and dG2: uniform with random face
+    masks or spherical with the coastline, CG1 or qv velocity, blended or
+    not; on a ragged 101 x 70 grid (4-byte copies)."""
+    model, carry, _, psi, rng = setup(device, n=101, ny=70, spherical=spherical, degree=degree, n_subcycles=1)
+    if spherical:
+        faces = model.face_masks(device=device, dtype=torch.float32)
+    else:
+        faces = tuple(
+            torch.tensor((rng.uniform(size=(101, 70)) > 0.1).astype(np.float32), device=device)
+            for _ in range(2)
+        )
+    qv = quad_velocity(model, rng, device) if form == "qv" else None
+    args = (model.transport, psi, psi.flip(-1).contiguous(), carry[0], carry[1], *faces, a, b, 300.0)
+    cc.reset_launches()
+    got = cc.dg1_rk_stage(*args, qv=qv)
+    assert cc.launches["dg1_rk_stage"] == 1
+    assert_close(got, cc.dg1_rk_stage_reference(*args, qv=qv), TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("a, b", [(0.0, 1.0), (1.0 / 3.0, 2.0 / 3.0)])
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_dg1_rk_stage_no_limit_instance_matches_plain(device, degree, spherical, a, b):
+    """The no-limit instance (DGTransport.run): one tracer, the qv form, no
+    face masks."""
+    model, carry, _, psi, rng = setup(device, n=128, spherical=spherical, degree=degree, n_subcycles=1)
+    psi = psi[:, :1].contiguous()
+    ones = torch.ones_like(carry[0])
+    qv = quad_velocity(model, rng, device)
+    args = (model.transport, psi, psi.flip(-1).contiguous(), None, None, None, None, a, b, 300.0)
+    got = cc.dg1_rk_stage(*args, qv=qv, limit=False)
+    assert_close(got, cc.dg1_rk_stage_reference(*args, qv=qv, limit=False), TOL_LAUNCH)
+    psi3 = setup(device, n=128, degree=degree)[3]  # the coupled step's 3 tracers
+    with pytest.raises(ValueError, match="one tracer"):
+        cc.dg1_rk_stage(model.transport, psi3, psi3, *args[3:], qv=qv, limit=False)
+    with pytest.raises(ValueError, match="without face masks"):
+        cc.dg1_rk_stage(*args[:5], ones, ones, *args[7:], qv=qv, limit=False)
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_transport_run_matches_plain_and_counts_launches(device, degree):
+    """BASELINE config 2 at 128^2 for 20 steps on the kernels against
+    DGTransport.step on the card."""
+    from nextsimdg_tpu_torch.benchmarks.run_benchmarks import advection_setup
+
+    tr, vel, psi, dt = advection_setup(128, degree, device)
+    cc.reset_launches()
+    got = tr.run(psi, vel, dt, 20)
+    assert cc.launches["dg1_rk_stage"] == 20 * (degree + 1)
+    assert_close(got, cc.transport_run_reference(tr, psi, vel, dt, 20), 1e-5)
+
+
+@pytest.mark.parametrize("form", ["cg1", "qv"])
+@pytest.mark.parametrize("ny", [72, 70])  # 16-byte window copies, and 4-byte ones
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("degree, scheme", [(0, "rk1"), (1, "rk3"), (2, "rk3"), (2, "rk2")])
+def test_staged_transport_equals_transport_tiled_at_every_degree(device, degree, scheme, k, ny, form):
+    """rk3 and the new degrees: the staged transport (one dg1_rk_stage a
+    stage) and transport_tiled run the same element bodies, so they agree
+    bit for bit, on the CG1 velocity and on the CG2 samples, and within
+    1e-5 of the plain version; transport_tiled's window of one tracer
+    equals its window of all three."""
+    model, carry, _, psi, rng = setup(device, n=40, ny=ny, degree=degree, n_subcycles=1)
+    model.transport.scheme = scheme
+    faces = tuple(
+        torch.tensor((rng.uniform(size=(40, ny)) > 0.1).astype(np.float32), device=device)
+        for _ in range(2)
+    )
+    qv = quad_velocity(model, rng, device, scale=1.0) if form == "qv" else None
+    u, v = (None, None) if form == "qv" else (carry[0], carry[1])
+    args = (model.transport, psi, u, v, DT / k, k, faces)
+    cc.reset_launches()
+    staged = cc.transport_substeps(*args, qv=qv)
+    assert cc.launches["dg1_rk_stage"] == k * {"rk1": 1, "rk2": 2, "rk3": 3}[scheme]
+    for group in (None, 1, 3):
+        assert torch.equal(staged, tt.transport_substeps_tiled(*args, qv=qv, group=group)), group
+    assert_close(staged, cc.transport_substeps_reference(*args, qv=qv), 1e-5)
+
+
+@pytest.mark.parametrize("degree", [0, 2])
+@pytest.mark.parametrize("mevp, transport", [("pallas", "xla"), ("pallas-tiled", "tiled")])
+def test_dynamics_phase_at_every_degree_matches_plain(device, degree, mevp, transport):
+    """The dynamics phase at dG0 (rk1) and dG2 (rk3) on K1's schedule and
+    on the tiled one against the plain phase, with its launches."""
+    model, carry, consts, psi, _ = setup(device, n=64, ny=72, degree=degree)
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, mevp=mevp, transport=transport)
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100)
+    for g, r in zip(got_carry, ref_carry):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert counts["dg1_sample_cfl"] == 1
+    staged = "dg1_rk_stage" if transport == "xla" else "transport_tiled"
+    assert counts[staged] > 0 and counts["transport_tiled" if transport == "xla" else "dg1_rk_stage"] == 0
+
+
+@pytest.mark.parametrize("degree", [0, 2])
+def test_rank_grid_rk3_step_equals_single_device_and_matches_plain(device, degree):
+    """The 2 x 2 decomposed step with the coastline at dG0 and dG2 (rk3 on
+    the spmd transport_tiled) against the single-device step (expected 0)
+    and the decomposed plain step."""
+    mesh = RectMesh(*GLOBAL, 4e3, 4e3)
+    ocean = synthetic_coastline(*GLOBAL)
+    single = CoupledModel(mesh, degree=degree, n_subcycles=20, ocean_mask=ocean)
+    state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
+    phys, dyn = coupled_inputs(device, mesh)
+    grid = RankGrid(*RANKS, device, timeout=120)
+    model, step = build_sharded_coupled_model(
+        mesh, grid, degree=degree, n_subcycles=20, ocean_mask=ocean, mevp_block_halo=8,
+    )
+    assert model.transport_schedule() == "tiled"
+    cc.reset_launches()
+    got = step(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    assert cc.launches["transport_tiled"] > 0 and cc.launches["dg1_rk_stage"] == 0
+    expected = single.step(state, phys, dyn, DT)
+    blocks = [grid.split_tree(x) for x in (state, phys, dyn)]
+
+    def plain_rank(rank):
+        m, (s, p, d) = step.models[rank.rank], (b[rank.rank] for b in blocks)
+        return m.step_thermo(m.step_dynamics(s, d, DT, phase=cc.fused_dynamics_reference), p, DT)
+
+    plain = grid.gather_tree(run_ranks(grid.ring, plain_rank), device)
+    for (name, g), (_, e), (_, p) in zip(state_leaves(got), state_leaves(expected), state_leaves(plain)):
+        assert_same_schedule(g, e)
+        assert_close(g, p, 1e-3 if name in VELOCITY else 1e-5)

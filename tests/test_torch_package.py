@@ -24,6 +24,7 @@ from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
 from nextsimdg_tpu_torch.dynamics import mevp_ho
+from nextsimdg_tpu_torch.dynamics.dgbasis import DG_DOFS, dg_basis
 from nextsimdg_tpu_torch.dynamics.mevp_ho import MEVPSolverHO
 
 torch.set_num_threads(1)
@@ -87,8 +88,18 @@ def test_port_sources_never_name_jax():
     assert offenders == []
 
 
-def _struct_floats(source: str, name: str) -> int:
-    """Floats declared in a plain-float C struct, arrays included."""
+HO_DIMS = {"kHoCoeffs": 3, "kHoNodes": 9, "kHoGauss": 4, "kHoPlanes": 4}
+
+
+def _dg_dims(degree: int) -> dict:
+    """The sizes of DgShape<degree> in csrc/dg1_body.cuh, from the basis."""
+    b = dg_basis(degree)
+    return {"kDofs": b.n_dofs, "kVol": len(b.w_vol), "kEdge": len(b.s_edge)}
+
+
+def _struct_floats(source: str, name: str, dims=HO_DIMS) -> int:
+    """Floats declared in a plain-float C struct, arrays included (``dims``:
+    the sizes that its array bounds name)."""
     body = re.search(rf"struct {name} {{(.*?)\n}};", source, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     count = 0
@@ -96,15 +107,12 @@ def _struct_floats(source: str, name: str) -> int:
         for item in decl.split(","):
             size = 1
             for dim in re.findall(r"\[(\w+)\]", item):
-                size *= int({
-                    "kDofs": 3, "kVol": 4, "kEdge": 2, "kHoCoeffs": 3, "kHoNodes": 9,
-                    "kHoGauss": 4,
-                }.get(dim, dim))
+                size *= int(dims.get(dim, dim))
             count += size
     return count
 
 
-def _struct_pointers(source: str, name: str) -> int:
+def _struct_pointers(source: str, name: str, dims=HO_DIMS) -> int:
     """Pointers declared in a plain struct of ``const float*``, arrays included."""
     body = re.search(rf"struct {name} {{(.*?)\n}};", source, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -113,7 +121,7 @@ def _struct_pointers(source: str, name: str) -> int:
         for item in decl.split(","):
             size = 1
             for dim in re.findall(r"\[(\w+)\]", item):
-                size *= int({"kHoPlanes": 4, "kVol": 4, "kEdge": 2}.get(dim, dim))
+                size *= int(dims.get(dim, dim))
             count += size
     return count
 
@@ -124,12 +132,17 @@ def test_host_packing_matches_the_c_structs():
     transport_src = (cc.CSRC / "dg1_body.cuh").read_text()
     ho_src = (cc.CSRC / "ho_body.cuh").read_text()
     assert len(cc._mevp_scalars(model.mevp, 600.0)) == _struct_floats(mevp_src, "MevpScalars")
-    assert len(cc._dg1_tables(model.transport)) == _struct_floats(transport_src, "Dg1Tables")
+    for degree in (0, 1, 2):
+        transport = CoupledModel(RectMesh(8, 8, 2000.0, 2000.0), degree=degree).transport
+        dims = _dg_dims(degree)
+        assert len(cc._dg1_tables(transport)) == _struct_floats(transport_src, "DgTables", dims)
+        assert cc._dg1_tables(transport).degree == degree
+        assert _struct_pointers(transport_src, "DgQvPlanes", dims) == sum(cc._qv_planes(degree).values())
+    assert [sum(cc._qv_planes(d).values()) for d in (0, 1, 2)] == [12, 12, 24]
     ho = MEVPSolverHO(model.mesh)
     assert len(cc._ho_scalars(ho, 600.0)) == _struct_floats(ho_src, "HoScalars")
     assert len(cc._ho_tables(ho)) == _struct_floats(ho_src, "HoTables")
     assert _struct_pointers(ho_src, "HoConsts") == len(mevp_ho.HO_CONSTS) == 29
-    assert _struct_pointers(transport_src, "Dg1QvPlanes") == sum(cc._QV_PLANES.values()) == 12
 
 
 REPLACED = {
@@ -282,11 +295,11 @@ def test_launch_configurations_fit_a_block():
     # transport_tiled: two window buffers and the scratch buffer at the tile
     # the host picks for the halo.
     for k in range(1, 10):
-        for stages in (1, 2):
+        for stages in (1, 2, 3):
             halo = tt.halo_for(k, stages)
             assert (halo - 1) // stages == min(k, tt.K_MAX)
-            config = tt.launch_config(halo)
-            assert tt.shared_bytes(config.tile, halo, 3, config.buffers) <= limit
+            config = tt.launch_config(halo, stages=stages)
+            assert tt.shared_bytes(config.tile, halo, 3, config.buffers, stages=stages) <= limit
     assert tt.SHIPPED.threads <= tt.MAX_THREADS == 768
     # ho_tiled: 17 planes of a block's sub-window and its one-cell apron; a
     # sub-window of 56 fits.
@@ -358,31 +371,43 @@ def test_transport_tiled_persistent_walk_visits_every_tile_once(shape):
     assert tt.copy_form(72, torch.zeros(5)[1:]) == "scalar"  # a base off 16 bytes
 
 
+@pytest.mark.parametrize("degree", [0, 1, 2])
 @pytest.mark.parametrize("qv", [False, True])
-@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("stages", [1, 2, 3])
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
-def test_transport_tiled_launch_fits_for_every_halo(k, stages, qv):
-    """The launch the host picks for each halo that halo_for gives fits a
-    block's shared memory at its full tile: two window buffers where they
-    fit, else one; from 2048^2 elements two blocks an SM of one buffer where
-    they fit at tile 30. Window rows hold the window from up to 3 cells in
-    (the 16-byte boundary before it) in a multiple of 16 bytes."""
+def test_transport_tiled_launch_fits_for_every_halo(k, stages, qv, degree):
+    """The launch the host picks for each halo that halo_for gives, at each
+    degree and scheme, fits a block's shared memory: at its full tile with
+    a window of all 3 tracers where that fits (two window buffers where
+    they fit, else one), else with a window of one tracer at the widest
+    tile that fits; at most 384 threads at dG2; from 2048^2 elements two
+    blocks an SM of one buffer where they fit at tile 30. Window rows hold
+    the window from up to 3 cells in (the 16-byte boundary before it) in a
+    multiple of 16 bytes."""
     limit, per_sm, reserved = 232448, 233472, 1024
+    n_dofs = DG_DOFS[degree]
     halo = tt.halo_for(k, stages)
-    config = tt.launch_config(halo, qv)
-    assert config in (tt.SHIPPED, tt.ONE_BUFFER) and config.threads <= tt.MAX_THREADS
-    assert tt.shared_bytes(config.tile, halo, 3, config.buffers, qv) <= limit
-    if config == tt.ONE_BUFFER:  # two buffers do not fit at the full tile
-        assert tt.shared_bytes(tt.SHIPPED.tile, halo, 3, 2, qv) > limit
+    group = tt.window_tracers(halo, qv, 3, 0, n_dofs, stages)
+    config = tt.launch_config(halo, qv, group, 0, n_dofs, stages)
+    size = lambda tile, buffers: tt.shared_bytes(tile, halo, group, buffers, qv, n_dofs, stages)
+    assert config.threads == min(tt.SHIPPED.threads, tt.max_threads(n_dofs))
+    assert config.threads <= (384 if degree == 2 else 768) and size(config.tile, config.buffers) <= limit
+    if config.tile == tt.SHIPPED.tile and config.buffers == 1:  # two do not fit
+        assert size(tt.SHIPPED.tile, 2) > limit
+    all_three = tt.shared_bytes(tt.SHIPPED.tile, halo, 3, 1, qv, n_dofs, stages) <= limit
+    assert group == (3 if all_three else 1)
+    if config.tile < tt.SHIPPED.tile:  # one tracer a window, the widest tile that fits
+        assert group == 1 and config.buffers == 1 and size(config.tile + 1, 1) > limit
+    assert degree < 2 or stages < 3 or group == 1  # dG2 with rk3: a tracer a window
     w = config.tile + 2 * halo
     pitch = -(-(w + 3) // 4) * 4
     assert pitch * 4 % 16 == 0 and pitch >= w + 3
-    large = tt.launch_config(halo, qv, 3, 2064 * 2064)
-    if large == tt.TWO_BLOCKS:
-        assert 2 * (tt.shared_bytes(large.tile, halo, 3, 1, qv) + reserved) <= per_sm
+    large = tt.launch_config(halo, qv, group, 2064 * 2064, n_dofs, stages)
+    if large.tile == tt.TWO_BLOCKS.tile and large.buffers == 1 and large.threads <= 384:
+        assert 2 * (size(large.tile, 1) + reserved) <= per_sm
     else:
-        assert large == config and 2 * (tt.shared_bytes(30, halo, 3, 1, qv) + reserved) > per_sm
-    assert tt.launch_config(halo, qv, 3, 2048 * 2048 - 1) == config
+        assert large == config and 2 * (size(30, 1) + reserved) > per_sm
+    assert tt.launch_config(halo, qv, group, 2048 * 2048 - 1, n_dofs, stages) == config
     assert tt.launch_config(tt.halo_for(1, 2), qv) == tt.SHIPPED
     assert tt.launch_config(tt.halo_for(1, 2), qv, 3, 4096 * 4096) == tt.TWO_BLOCKS
     assert 2 * tt.TWO_BLOCKS.threads <= tt.MAX_THREADS
