@@ -6,7 +6,9 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the hand-written kernels from ``nextsimdg_tpu_torch/csrc`` and
 drives the port's roofline path, its six model paths and, since dG0 and
-dG2 were ported, BASELINE config 2 and the degree variants (below). The roofline path
+dG2 were ported, BASELINE config 2 and the degree variants, and since the
+momentum forms were ported, the battery's ``box_adaptive`` and
+``coupled_1m_aweighted`` and the forms' other paths (below). The roofline path
 (``nextsimdg_tpu_torch.benchmarks.roofline``, the twin of
 ``benchmarks/roofline.py``): the ``chain`` kernel (csrc/roofline.cu, the
 counterpart of the TPU kernel ``measure_vpu_peak``), a float32 chain held in
@@ -71,6 +73,15 @@ CFL-adaptive transport substeps:
   headline and config 4 at dG0 (rk1) and dG2 (rk3, on transport_tiled at
   1024^2), the HO 256^2 step at dG2 and a 2 x 2 rank grid of 256^2 blocks
   at dG2 (the spmd transport_tiled with rk3);
+* the momentum forms of ``MEVPParams`` (phase ``check_momentum_forms``):
+  the battery's ``box_adaptive`` (``bench_box`` with adaptive alpha = beta:
+  the headline box on "auto", mevp_tiled, and on K1's schedule) and
+  ``coupled_1m_aweighted`` (config 4 with the A-weighted stresses, on
+  "auto"), the spherical coastline step A-weighted on mevp_single, the
+  headline box with ``Nextsim::FreeDrift`` (its momentum step plain
+  PyTorch, as in the JAX package; dg1_sample_cfl and transport_tiled), and
+  the A-weighted 2 x 2 rank grid of 256^2 blocks (blocked: mevp_tiled on
+  the widened blocks);
 * the engine (``nextsimdg_tpu_torch.runtime``, ``python -m
   nextsimdg_tpu_torch``), which runs no kernel: BASELINE config 1
   (``run/dev1.cfg``: the 10 x 10 devgrid restart, 1 step of 1 s, dummy
@@ -143,7 +154,16 @@ Phases, each printed on its own lines:
    dG2's below half of dG1's, and the mass drift) and element updates/s;
    the dG0 and dG2 headline and config 4 steps against the plain path and
    20 steps bounded, the HO 256^2 step at dG2, the 2 x 2 rank grid's step at
-   dG2 against the single-device step (expected 0);
+   dG2 against the single-device step (expected 0); then (phase
+   ``check_momentum_forms``) mevp_stress and mevp_velocity at 256^2,
+   mevp_tiled at 1024^2 and mevp_single at 1024^2 spherical with the
+   coastline, each in the A-weighted, the adaptive and the combined form
+   on seeded inputs with partial cover (nodes below a_dyn_min, alpha above
+   its floor), launch by launch against the plain version (TOL_LAUNCH) and
+   over 8 and 100 subcycles against it and against K1's schedule (and
+   mevp_tiled; expected 0); the forms' paths one step against the plain
+   path and 20 steps bounded (the rank grid's one step against the
+   single-device step, expected 0);
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -167,7 +187,8 @@ Phases, each printed on its own lines:
    on mevp_tiled and on the plain path, the HO paths' step on their kernels
    and on the plain path, and each kernel per call against its plain
    version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
-   rdma steps, the blocked round against the rdma round, the dynamics step
+   rdma steps, box_adaptive beside box and coupled_1m_aweighted beside
+   coupled_1m in turns, the blocked round against the rdma round, the dynamics step
    at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
@@ -292,6 +313,17 @@ PATH_KERNELS = {
     "config4_dg2": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "ho_coupled_256_dg2": ("ho_single", "transport_tiled"),
     "multihost_dg2": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    # The momentum forms (check_momentum_forms): the battery's box_adaptive
+    # on "auto" and on K1's schedule, coupled_1m_aweighted, the spherical
+    # coastline step A-weighted on mevp_single, free drift at 256^2 (its
+    # momentum step is plain PyTorch: no TPU kernel exists for it), and the
+    # A-weighted 2 x 2 rank grid.
+    "box_adaptive": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    "box_adaptive_k1": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    "coupled_1m_aweighted": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    "spherical_aweighted": ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
+    "free_drift": ("dg1_sample_cfl", "transport_tiled"),
+    "multihost_aweighted": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
 }
 VELOCITY = ("u", "v", "s11", "s22", "s12")
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -313,8 +345,13 @@ PEAK_FP32 = 67e12
 # adds, for the uniform forces' 18 operations); and, counted
 # from csrc/ho_body.cuh as the kernels run them (dense tables), the HO
 # stress half per element and velocity half per node index.
+#: The momentum forms (csrc/mevp_body.cuh) add to the stress half: the
+#: weighted form one multiply (c_w a_node); the adaptive form gives up the
+#: shared divide's 9 operations (one divide) for 13 (three divides, a
+#: square root and a select): 4 more, of which 2 divides and the square root.
 OPS = {
-    "stress": 80, "velocity": 42, "velocity_metric": 54, "cfl": 92, "stage": 56 + 3 * (4 * 3 + 243 - 4 * 7),
+    "stress": 80, "stress_weighted": 81, "stress_adaptive": 84, "stress_both": 85,
+    "velocity": 42, "velocity_metric": 54, "cfl": 92, "stage": 56 + 3 * (4 * 3 + 243 - 4 * 7),
     "stage_qv": 3 * (243 - 4 * 7), "stage_cell": 80 + 3 * 243,
     "ho_stress": 516, "ho_velocity": 398,
 }
@@ -370,6 +407,9 @@ DEVICE_PROBES = {}
 #: dg1_rk_stage at the other shapes and forms the paths run it, by label:
 #: Rows whose bounds the run logs once the ceilings are measured.
 STAGE_FORMS = {}
+#: The CG1 mEVP kernels in the momentum forms, by label: Rows whose bounds
+#: the run logs once the ceilings are measured.
+MOMENTUM_FORMS = {}
 
 
 def log(phase: str, message: str) -> None:
@@ -637,11 +677,17 @@ def ptxas_report(text: str):
                     names.append(f"width {args[1][1]}" if args[1][1] != "0" else "any width")
                 if kernel == "mevp_single_kernel":  # then the const planes in shared memory
                     names.append(f"{args[1][1]} const planes in shared memory")
+                if args[-1][0] == "i" and kernel.startswith("mevp_"):  # the momentum form last
+                    names.append(MOMENTUM_FORM_NAMES[int(args[-1][1])])
                 kernel += "<" + ", ".join(names) + ">"
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
             yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
+
+
+#: The momentum forms' template bits (csrc/mevp_body.cuh kForm), by name.
+MOMENTUM_FORM_NAMES = {0: "fixed alpha", 1: "A-weighted", 2: "adaptive alpha", 3: "A-weighted, adaptive alpha"}
 
 
 def spherical_mesh(nx: int, ny: int = None):
@@ -660,11 +706,12 @@ def spherical_model(device, n: int = N4, **backends):
     return coupled_model(device, spherical_mesh(n), synthetic_coastline(n), **backends)
 
 
-def coupled_model(device, mesh, ocean, degree: int = 1, **backends):
+def coupled_model(device, mesh, ocean, degree: int = 1, mevp_params=MEVPParams(), **backends):
     """Config 4's model, state and forcing on ``mesh`` with the coastline
-    ``ocean`` (or none), at DG ``degree``."""
+    ``ocean`` (or none), at DG ``degree``, in the momentum form of
+    ``mevp_params``."""
     model = CoupledModel(
-        mesh, degree=degree, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+        mesh, degree=degree, mevp_params=mevp_params, n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
         **backends,
     )
     state = model.initial_state(
@@ -1693,6 +1740,296 @@ def check_degrees(device, card: str) -> tuple:
     return counts, errs
 
 
+#: The momentum forms of MEVPParams that check_momentum_forms holds each CG1
+#: kernel to: the A-weighted stresses, the adaptive alpha (its floor lowered
+#: to 20, so that the stability bound sets alpha on the calm nodes of the
+#: seeded inputs) and both.
+MEVP_FORMS = {
+    "weighted": MEVPParams(a_weighted_stress=True),
+    "adaptive": MEVPParams(adaptive_alpha=True, alpha_min=20.0),
+    "both": MEVPParams(a_weighted_stress=True, adaptive_alpha=True, alpha_min=20.0),
+}
+
+
+def form_inputs(nx, ny, device, seed, params, spherical=False):
+    """``tiled_inputs`` in a momentum form, with partial cover: A below 0.06
+    on the first quarter of the rows (some nodes below a_dyn_min), and the
+    last half of the rows calm (velocities 1e-4 of the rest: a small strain
+    rate, a large zeta and an adaptive alpha above its floor). Returns
+    (solver, carry, consts)."""
+    model, carry, _, _, _ = tiled_inputs(nx, ny, device, seed, spherical)
+    mesh, ocean = model.mesh, model.ocean_mask
+    model = CoupledModel(mesh, n_subcycles=N_SUBCYCLES, ocean_mask=ocean, mevp_params=params)
+    rng = np.random.default_rng(seed + 100)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    a = rng.uniform(0.3, 1.0, (nx, ny))
+    a[: nx // 4] = rng.uniform(0.0, 0.06, (nx // 4, ny))
+    calm = t(np.where(np.arange(nx)[:, None] < nx // 2, 1.0, 1e-4) * np.ones((nx, ny)))
+    carry = (carry[0] * calm, carry[1] * calm, *carry[2:])
+    forcing = DynamicsForcing(
+        u_atm=t(rng.normal(6.0, 2.0, (nx, ny))), v_atm=t(rng.normal(3.0, 2.0, (nx, ny))),
+        u_ocean=t(rng.normal(0.0, 0.05, (nx, ny))), v_ocean=t(rng.normal(0.0, 0.05, (nx, ny))),
+    )
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(VelocityState(*carry), t(rng.uniform(0.2, 2.0, (nx, ny))), t(a), forcing, mask, DT)
+    return model.mevp, carry, consts
+
+
+def form_coverage(tag: str, solver, carry, consts) -> None:
+    """Logs (and requires) what makes the forms' checks bite: nodes below
+    a_dyn_min in the weighted form, an alpha above its floor in the adaptive
+    one."""
+    p = solver.params
+    notes = []
+    if p.a_weighted_stress:
+        a_node = consts["a_node"]
+        low = int(((a_node > 0) & (a_node < p.a_dyn_min)).sum())
+        notes.append(f"a_node in [{float(a_node.min()):.3f}, {float(a_node.max()):.3f}], {low} nodes below a_dyn_min")
+        if not low or float(a_node.max()) < 0.5:
+            raise AssertionError(f"{tag}: the cover is not partial")
+    if p.adaptive_alpha:
+        beta = solver.stress_update(carry, consts)[5]
+        above = int((beta > p.alpha_min).sum())
+        notes.append(f"alpha in [{float(beta.min()):.1f}, {float(beta.max()):.1f}], above its floor at {above} nodes")
+        if not above:
+            raise AssertionError(f"{tag}: the adaptive alpha never leaves its floor")
+    log("check", f"{tag}: {'; '.join(notes)}")
+
+
+def form_row(label: str, err: float, kernel, plain, work: tuple, reps: int = 200, plain_reps: int = 20) -> None:
+    """A form's Row: back-to-back ms of the kernel and its plain version,
+    its bytes and operations; its device duration is probed last."""
+    MOMENTUM_FORMS[label] = Row(err, time_ms(kernel, reps), time_ms(plain, plain_reps), *work)
+    DEVICE_PROBES[label] = kernel
+
+
+def check_form_launches(device) -> dict:
+    """Each CG1 mEVP kernel in each momentum form against its plain version
+    launch by launch, at its path's shape with partial cover: mevp_stress
+    and mevp_velocity at 256^2 (uniform), mevp_tiled at 1024^2 (uniform,
+    one launch of one subcycle and of the shipped 8; 100 subcycles against
+    plain and K1's schedule), mevp_single at 1024^2 spherical with the
+    coastline (one launch of 1 subcycle and of 100; against K1's schedule and
+    mevp_tiled). Returns the largest error per kernel; each form's timing
+    and bound are logged last."""
+    errs = dict.fromkeys(("mevp_stress", "mevp_velocity", "mevp_tiled", "mevp_single"), 0.0)
+
+    def held(kernel, tag, got, ref, tol):
+        for name, g, r in zip(("s11", "s22", "s12", "c_w", "inv_drag", "beta"), got, ref):
+            errs[kernel] = max(errs[kernel], compare(f"{tag} {name}", g, r, tol))
+
+    n = N * N
+    for form, params in MEVP_FORMS.items():
+        solver, carry, consts = form_inputs(N, N, device, SEED + 20, params)
+        form_coverage(f"mevp_stress {N}x{N} {form}", solver, carry, consts)
+        ref = solver.stress_update(carry, consts)
+        got = cc.mevp_stress(solver, carry, consts)
+        held("mevp_stress", f"mevp_stress {N}x{N} {form}", got, ref, TOL_LAUNCH)
+        carry_v = (carry[0], carry[1], *ref[:3])
+        nodes = (ref[3], ref[4], DT, *ref[5:])
+        got_uv = cc.mevp_velocity(solver, carry_v, consts, *nodes)
+        ref_uv = solver.velocity_update(carry_v, consts, *nodes)
+        for name, g, r in zip("uv", got_uv, ref_uv):
+            errs["mevp_velocity"] = max(errs["mevp_velocity"], compare(f"mevp_velocity {N}x{N} {form} {name}", g, r, TOL_LAUNCH))
+        # Per launch, in place, as K1's schedule launches them.
+        planes = tuple(x.clone() for x in carry)
+        c_w, inv_drag = torch.empty_like(carry[0]), torch.empty_like(carry[0])
+        beta = torch.empty_like(carry[0]) if params.adaptive_alpha else None
+        scalars, stream, ptrs = cc._mevp_scalars(solver, DT), cc._stream(device), cc._mevp_consts(consts)
+        weighted, adaptive = int(params.a_weighted_stress), int(params.adaptive_alpha)
+        form_row(
+            f"mevp_stress {N}^2 {form}", errs["mevp_stress"],
+            lambda planes=planes, c_w=c_w, inv_drag=inv_drag, beta=beta, scalars=scalars, ptrs=ptrs:
+            cc._mevp_half_("mevp_stress", planes, ptrs, c_w, inv_drag, scalars, stream, beta),
+            lambda solver=solver, carry=carry, consts=consts: solver.stress_update(carry, consts),
+            ((15 + weighted + adaptive) * 4 * n, OPS[f"stress_{form}"] * n),
+        )
+        form_row(
+            f"mevp_velocity {N}^2 {form}", errs["mevp_velocity"],
+            lambda planes=planes, c_w=c_w, inv_drag=inv_drag, beta=beta, scalars=scalars, ptrs=ptrs:
+            cc._mevp_half_("mevp_velocity", planes, ptrs, c_w, inv_drag, scalars, stream, beta),
+            lambda solver=solver, carry_v=carry_v, consts=consts, nodes=nodes:
+            solver.velocity_update(carry_v, consts, *nodes),
+            ((14 + adaptive) * 4 * n, OPS["velocity"] * n),
+        )
+
+    n = N4 * N4
+    for form, params in MEVP_FORMS.items():
+        solver, carry, consts = form_inputs(N4, N4, device, SEED + 21, params)
+        form_coverage(f"mevp_tiled {N4}x{N4} {form}", solver, carry, consts)
+        for n_sub, tol in ((1, TOL_LAUNCH), (TILED_SUBCYCLES, TOL_STEP_MEVP), (N_SUBCYCLES, TOL_STEP_MEVP)):
+            got = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n_sub)
+            ref = mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, n_sub)
+            k1 = cc.mevp_subcycles(solver, carry, consts, DT, n_sub)
+            for name, g, r, q in zip(VELOCITY, got, ref, k1):
+                tag = f"mevp_tiled {N4}x{N4} {form} N={n_sub} {name}"
+                errs["mevp_tiled"] = max(errs["mevp_tiled"], compare(tag, g, r, tol))
+                same_schedule(tag, g, q)
+        weighted = int(params.a_weighted_stress)
+        form_row(
+            f"mevp_tiled {N4}^2 {form}", errs["mevp_tiled"],
+            lambda solver=solver, carry=carry, consts=consts: mt.mevp_subcycles_tiled(solver, carry, consts, DT, TILED_SUBCYCLES),
+            lambda solver=solver, carry=carry, consts=consts: mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, TILED_SUBCYCLES),
+            ((5 + 7 + weighted + 5) * 4 * n, TILED_SUBCYCLES * (OPS[f"stress_{form}"] + OPS["velocity"]) * n),
+            reps=50, plain_reps=3,
+        )
+
+    for form, params in MEVP_FORMS.items():
+        solver, carry, consts = form_inputs(N4, N4, device, SEED + 22, params, spherical=True)
+        form_coverage(f"mevp_single {N4}x{N4} spherical {form}", solver, carry, consts)
+        for n_sub, tol in ((1, TOL_LAUNCH), (N_SUBCYCLES, TOL_STEP_MEVP)):
+            got = single.mevp_subcycles_single(solver, carry, consts, DT, n_sub)
+            ref = single.mevp_single_reference(solver, carry, consts, DT, n_sub)
+            k1 = cc.mevp_subcycles(solver, carry, consts, DT, n_sub)
+            tiled = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n_sub)
+            for name, g, r, q, w in zip(VELOCITY, got, ref, k1, tiled):
+                tag = f"mevp_single {N4}x{N4} spherical, coastline {form} N={n_sub} {name}"
+                errs["mevp_single"] = max(errs["mevp_single"], compare(tag, g, r, tol))
+                same_schedule(tag, g, q)
+                same_schedule(tag, g, w, "mevp_tiled")
+        weighted = int(params.a_weighted_stress)
+        config = single.tiling(N4, N4, single.sm_count(device))
+        log("check", (
+            f"mevp_single {N4}x{N4} spherical {form}: const planes in shared memory "
+            f"{config.resident(True, bool(weighted))}"
+        ))
+        form_row(
+            f"mevp_single {N4}^2 spherical {form}", errs["mevp_single"],
+            lambda solver=solver, carry=carry, consts=consts: single.mevp_subcycles_single(solver, carry, consts, DT, N_SUBCYCLES),
+            lambda solver=solver, carry=carry, consts=consts: single.mevp_single_reference(solver, carry, consts, DT, N_SUBCYCLES),
+            ((5 + 12 + weighted + 5) * 4 * n, N_SUBCYCLES * (OPS[f"stress_{form}"] + OPS["velocity_metric"]) * n),
+            reps=20, plain_reps=1,
+        )
+    torch.cuda.synchronize()
+    return errs
+
+
+def free_drift_model(device):
+    """The headline configuration (256^2 box) with Nextsim::FreeDrift
+    selected through the registry (reset after the build)."""
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", "Nextsim::FreeDrift")
+    try:
+        return bench_model(device)
+    finally:
+        loader.reset()
+
+
+def box_model(device, adaptive: bool, **backends):
+    """The battery's ``box`` (``adaptive=False``) or ``box_adaptive``:
+    ``bench_box`` builds a 256^2 box of 2 km elements, wind (8, 2), on
+    "auto"; (model, state, forcing)."""
+    mesh = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N)
+    model = CoupledModel(
+        mesh, degree=1, n_subcycles=N_SUBCYCLES, mevp_params=MEVPParams(adaptive_alpha=adaptive), **backends,
+    )
+    state = model.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, device=device, dtype=torch.float32)
+    full = lambda value: torch.full((N, N), value, device=device, dtype=torch.float32)
+    return model, state, DynamicsForcing(u_atm=full(8.0), v_atm=full(2.0), u_ocean=full(0.02), v_ocean=full(0.0))
+
+
+def check_form_paths(device) -> dict:
+    """The paths of the momentum forms: one step against the plain path on
+    the card, then 20 steps from zeroed launch counts (finite, bounded,
+    every kernel of the path launched): box_adaptive on "auto" (mevp_tiled)
+    and on K1's schedule, coupled_1m_aweighted on "auto", the spherical
+    coastline step A-weighted on mevp_single, free drift at 256^2; and the
+    A-weighted 2 x 2 rank grid's step (512^2, blocked) against the
+    single-device step (expected 0). Returns the counts by path."""
+    counts = {}
+    for path, backends, expected in (
+        ("box_adaptive", {}, ("pallas-tiled", "tiled")),
+        ("box_adaptive_k1", {"mevp_backend": "pallas"}, ("pallas", "xla")),
+    ):
+        model, state, forcing = box_model(device, True, **backends)
+        schedule = model.schedule(device)
+        log("slice", f"{path}: {N}x{N}, adaptive alpha, schedule {schedule}")
+        if schedule != expected:
+            raise AssertionError(f"{path} does not run {expected}: {schedule}")
+        got = model.step(state, None, forcing, DT, do_thermo=False)
+        ref = model.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference)
+        for name, g, r in leaves(got, ref):
+            compare(f"{path}.step.{name}", g, r, TOL_STEP_MEVP if name.startswith("velocity") else TOL_STEP_TRACER)
+        counts[path] = drive_path(path, model, state, None, forcing, False)
+
+    weighted = MEVPParams(a_weighted_stress=True)
+    for path, mesh, ocean, backends, expected in (
+        ("coupled_1m_aweighted", RectMesh(N4, N4, dx=4e3, dy=4e3), None, {}, ("pallas-tiled", "tiled")),
+        ("spherical_aweighted", spherical_mesh(N4), synthetic_coastline(N4), {"mevp_backend": "pallas"}, ("single", "tiled")),
+    ):
+        model, state, phys, dyn = coupled_model(device, mesh, ocean, mevp_params=weighted, **backends)
+        schedule = model.schedule(device)
+        log("slice", f"{path}: {N4}x{N4}, A-weighted, schedule {schedule}")
+        if schedule != expected:
+            raise AssertionError(f"{path} does not run {expected}: {schedule}")
+        compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
+        counts[path] = drive_path(path, model, state, phys, dyn, True)
+
+    model, state, forcing = free_drift_model(device)
+    schedule = model.schedule(device)
+    log("slice", f"free_drift: {N}x{N}, Nextsim::FreeDrift, schedule {schedule}")
+    if not model.is_free_drift or schedule != ("free-drift", "tiled"):
+        raise AssertionError(f"free_drift does not run the free-drift step and transport_tiled: {schedule}")
+    got = model.step(state, None, forcing, DT, do_thermo=False)
+    ref = model.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference)
+    for name, g, r in leaves(got, ref):
+        compare(f"free_drift.step.{name}", g, r, TOL_STEP_MEVP if name.startswith("velocity") else TOL_STEP_TRACER)
+    counts["free_drift"] = drive_path("free_drift", model, state, None, forcing, False)
+
+    n = 2 * N
+    model, sharded = sharded_model(device, n, mevp_params=weighted)
+    path = "multihost_aweighted"
+    single_model, state, phys, dyn = coupled_model(device, RectMesh(n, n, dx=2e3, dy=2e3), None, mevp_params=weighted)
+    log("slice", f"{path}: {n}x{n} on 2x2 ranks, A-weighted, schedule {(model.mevp_schedule(), model.transport_schedule())}")
+    cc.reset_launches()
+    got = sharded(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts[path] = dict(cc.launches)
+    log("slice", f"{path}: 1 step, launches: {counts[path]}")
+    compare_sharded_step(path, got, single_model.step(state, phys, dyn, DT), tol_same=True)
+    check_bounded(f"{path}: 1 step", got, state)
+    missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels not launched {missing}")
+    return counts
+
+
+def check_momentum_forms(device) -> tuple:
+    """Phase: the A-weighted and adaptive momentum forms of the four CG1
+    mEVP kernels (launch by launch) and the paths that run them, free drift
+    included. Returns (counts by path, largest error per kernel)."""
+    errs = check_form_launches(device)
+    return check_form_paths(device), errs
+
+
+def time_momentum_forms(device, card: str) -> None:
+    """ms per step of box_adaptive beside box, and of coupled_1m_aweighted
+    beside coupled_1m, on "auto", in turns."""
+    box, state_b, forcing_b = box_model(device, False)
+    box_a = box_model(device, True)[0]
+    runs = time_in_turns(
+        {
+            "box": lambda: box.step(state_b, None, forcing_b, DT, do_thermo=False),
+            "box_adaptive": lambda: box_a.step(state_b, None, forcing_b, DT, do_thermo=False),
+        },
+        {"box": 10, "box_adaptive": 10},
+    )
+    for name, ms in runs.items():
+        report(f"{name} step ({N}x{N}, {N_SUBCYCLES} subcycles, auto: mevp_tiled)", ms, N * N, card)
+    model, state, phys, dyn = config4_model(device)
+    model_w = coupled_model(device, RectMesh(N4, N4, dx=4e3, dy=4e3), None, mevp_params=MEVPParams(a_weighted_stress=True))[0]
+    runs = time_in_turns(
+        {
+            "coupled_1m": lambda: model.step(state, phys, dyn, DT),
+            "coupled_1m_aweighted": lambda: model_w.step(state, phys, dyn, DT),
+        },
+        {"coupled_1m": 10, "coupled_1m_aweighted": 10},
+    )
+    for name, ms in runs.items():
+        report(f"{name} coupled step ({N4}x{N4}, auto: mevp_tiled)", ms, N4 * N4, card)
+    profile(f"coupled_1m_aweighted coupled step ({N4}x{N4})", lambda: model_w.step(state, phys, dyn, DT))
+
+
 def report(what: str, ms: list, elements: int, card: str) -> float:
     mean = sum(ms) / len(ms)
     log("time", (
@@ -1828,13 +2165,13 @@ def config5_model(device, n: int = None, **backends):
     return coupled_model(device, RectMesh(n, n, dx=2e3, dy=2e3), None, **backends)
 
 
-def sharded_model(device, n: int = None, degree: int = 1, **backends):
+def sharded_model(device, n: int = None, degree: int = 1, mevp_params=MEVPParams(), **backends):
     """The decomposed model of config 5 (n = N16 by default) on a fresh
     2 x 2 rank grid of the one card: (rank 0's model, the ShardedCoupledModel)."""
     n = N16 if n is None else n
     grid = RankGrid(*RANKS, device)
     return build_sharded_coupled_model(
-        RectMesh(n, n, dx=2e3, dy=2e3), grid, degree=degree, mevp_params=MEVPParams(),
+        RectMesh(n, n, dx=2e3, dy=2e3), grid, degree=degree, mevp_params=mevp_params,
         n_subcycles=N_SUBCYCLES, **backends,
     )
 
@@ -2584,15 +2921,20 @@ def main() -> int:
             f"mevp_single at {nx}x{ny} ({'metric' if metric else 'uniform'} consts): "
             f"{config.tiles[0]}x{config.tiles[1]} tiles of {config.tile}, {config.threads} threads, "
             f"{config.shared_bytes(metric)} B shared, const planes in shared memory "
-            f"{config.resident(metric)}; {single.max_blocks(device, config, metric)} blocks resident "
-            f"at once; holds grids up to {single.largest_square(sms)}^2"
+            f"{config.resident(metric)} ({len(config.resident(metric, True))} A-weighted); blocks resident "
+            f"at once by form: " + ", ".join(
+                f"{single.max_blocks(device, config, metric, form)} ({name})"
+                for form, name in MOMENTUM_FORM_NAMES.items()
+            ) + f"; holds grids up to {single.largest_square(sms)}^2"
         ))
     for size, config in (("large uniform", mt.LARGE), ("other", mt.SMALL)):
         log("build", (
             f"mevp_tiled {size} grids: tile, halo, threads {config}, c_w and inv_drag in registers, "
             f"{mt.cells_per_thread(*config)} cells a thread, {mt.shared_bytes(*config[:2])} B shared; "
-            f"{mt.max_blocks(device, *config)} resident blocks per SM (uniform), "
-            f"{mt.max_blocks(device, *config, metric=True)} (metric)"
+            f"resident blocks per SM by form, uniform/metric: " + ", ".join(
+                f"{mt.max_blocks(device, *config, form=form)}/{mt.max_blocks(device, *config, metric=True, form=form)} ({name})"
+                for form, name in MOMENTUM_FORM_NAMES.items()
+            )
         ))
     for line in cluster_report(device, path.with_suffix(".log").read_text()):
         log("build", line)
@@ -2635,12 +2977,17 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     counts.update(counts_dg)
     for kernel, err in errs_dg.items():
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
+    counts_forms, errs_forms = phase(check_momentum_forms, device)
+    counts.update(counts_forms)
+    for kernel, err in errs_forms.items():
+        kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     counts_5, kernels_5, probes = phase(check_multihost, device)
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
     log("build", sass_report(sass))
     phase(time_paths, device, smi)
+    phase(time_momentum_forms, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
     phase(profile_engine, device)
@@ -2655,7 +3002,10 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
         if probe == "rdma_band axis 0":
             log("time", f"rdma_band: back to back {kernels['rdma_band'].ms:.5f} ms per call, device {ms:.5f} ms")
 
-    forms = {**{f"dg1_rk_stage {label}": row for label, row in STAGE_FORMS.items()}, **DEGREE_FORMS}
+    forms = {
+        **{f"dg1_rk_stage {label}": row for label, row in STAGE_FORMS.items()}, **DEGREE_FORMS,
+        **MOMENTUM_FORMS,
+    }
     for label, row in forms.items():
         measured = max(row.n_bytes / ceilings["bytes_per_s"], row.n_ops / ceilings["ops_per_s"]) * 1e3
         log("time", (

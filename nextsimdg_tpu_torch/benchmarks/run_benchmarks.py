@@ -20,8 +20,7 @@ takes about 0.3 s or more on an H100 at the port's step times (PERF.md);
 the JAX ones were sized against its remote-dispatch latency.
 
 The JAX configs the port cannot run yet stay out of ``CONFIGS``:
-``box_adaptive``, ``coupled_1m_aweighted``, ``ho_coupled_1m_periodic`` and
-the ``*_spmd`` ones (ROADMAP M11b).
+``ho_coupled_1m_periodic`` and the ``*_spmd`` ones (ROADMAP M11b).
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ import torch
 
 from ..coupled import CoupledModel
 from ..dynamics import RectMesh, SphericalMesh, synthetic_coastline
-from ..dynamics.mevp import DynamicsForcing
+from ..dynamics.mevp import DynamicsForcing, MEVPParams
 from ..dynamics.transport import DGTransport, sample_velocity
 from ..state import Forcing
 from .common import card, require_cuda, with_high_order
@@ -149,22 +148,30 @@ def _forcing(n: int, device, tair, dew2m, sw_in, lw_in, wind, v_atm):
     return pf, df
 
 
-def bench_box(n: int = 256, n_subcycles: int = 100, chunk: int = 160, device=None) -> dict:
+def bench_box(
+    n: int = 256, n_subcycles: int = 100, chunk: int = 160, device=None, adaptive: bool = False,
+) -> dict:
     """BASELINE config 3: wind-driven box, 100 mEVP subcycles, thermo off
-    ("auto" schedule: the tiled kernels)."""
+    ("auto" schedule: the tiled kernels). ``adaptive=True`` is the JAX
+    battery's ``box_adaptive``: the same box with the aEVP-style adaptive
+    alpha = beta (``MEVPParams(adaptive_alpha=True)``)."""
     device = _device(device)
-    model = CoupledModel(RectMesh(n, n, dx=512e3 / n, dy=512e3 / n), degree=1, n_subcycles=n_subcycles)
+    model = CoupledModel(
+        RectMesh(n, n, dx=512e3 / n, dy=512e3 / n), degree=1, n_subcycles=n_subcycles,
+        mevp_params=MEVPParams(adaptive_alpha=adaptive),
+    )
     state = model.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, device=device, dtype=torch.float32)
     pf, df = _forcing(n, device, -10.0, -12.0, 10.0, 250.0, 8.0, 2.0)
     best = _timed_chunk(lambda s: model.run(s, pf, df, DT, chunk, do_thermo=False), state, device)
     return _result(
-        f"mEVP box element updates/s ({n}x{n}, {n_subcycles} subcycles, f32)", n * n, chunk, best
+        f"{'adaptive-alpha ' if adaptive else ''}mEVP box element updates/s "
+        f"({n}x{n}, {n_subcycles} subcycles, f32)", n * n, chunk, best
     )
 
 
 def bench_coupled_1m(
     n: int = 1024, land_mask: bool = False, spherical: bool = False, high_order: bool = False,
-    chunk: int = 40, n_subcycles: int = 100, device=None,
+    chunk: int = 40, n_subcycles: int = 100, device=None, a_weighted: bool = False,
 ) -> dict:
     """BASELINE config 4: coupled thermo+dynamics, ~1M elements, on the
     "auto" schedule.
@@ -172,7 +179,9 @@ def bench_coupled_1m(
     ``land_mask=True`` adds the synthetic pan-Arctic-style coastline;
     ``spherical=True`` runs the lon-lat window 40W-40E, 55N-85N;
     ``high_order=True`` selects the CG2/dG1 solver through the registry
-    (reset after the build).
+    (reset after the build); ``a_weighted=True`` runs the canonical
+    A-weighted momentum form (``MEVPParams(a_weighted_stress=True)``: the
+    a_node const plane in the mEVP kernel).
     """
     device = _device(device)
     if spherical:
@@ -180,7 +189,10 @@ def bench_coupled_1m(
     else:
         mesh = RectMesh(n, n, dx=4e3, dy=4e3)
     ocean = synthetic_coastline(n) if land_mask else None
-    build = lambda: CoupledModel(mesh, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean)
+    build = lambda: CoupledModel(
+        mesh, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean,
+        mevp_params=MEVPParams(a_weighted_stress=a_weighted),
+    )
     model = with_high_order(build) if high_order else build()
     state = model.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
     pf, df = _forcing(n, device, -15.0, -17.0, 5.0, 240.0, 6.0, 3.0)
@@ -189,6 +201,7 @@ def bench_coupled_1m(
         ", synthetic coastline" if land_mask else "",
         ", spherical lon-lat" if spherical else "",
         ", CG2/dG1" if high_order else "",
+        ", A-weighted" if a_weighted else "",
     ])
     return _result(
         f"coupled thermo+dynamics element updates/s ({n}x{n} = {n * n / 1e6:.2g}M elements{tags}, "
@@ -238,7 +251,9 @@ CONFIGS = {
     "dev1": bench_dev1,
     "advection": bench_advection,
     "box": bench_box,
+    "box_adaptive": partial(bench_box, adaptive=True),
     "coupled_1m": bench_coupled_1m,
+    "coupled_1m_aweighted": partial(bench_coupled_1m, a_weighted=True),
     "coupled_1m_mask": partial(bench_coupled_1m, land_mask=True),
     "coupled_1m_spherical": partial(bench_coupled_1m, land_mask=True, spherical=True, chunk=32),
     "spherical_16m": partial(bench_coupled_1m, n=4096, land_mask=True, spherical=True, chunk=5),

@@ -24,8 +24,10 @@ versions.
 
 The momentum solver comes from the module registry, as in the JAX package:
 ``Nextsim::IDynamics`` is ``Nextsim::MEVPDynamics`` (the CG1 ``MEVPSolver``,
-the default) or ``Nextsim::MEVPHighOrder`` (the CG2/dG1 ``MEVPSolverHO``,
-on uniform meshes), selected with
+the default), ``Nextsim::FreeDrift`` (``FreeDriftSolver``: no internal
+stress, its momentum step plain PyTorch on every device, then the usual
+CFL count and transport) or ``Nextsim::MEVPHighOrder`` (the CG2/dG1
+``MEVPSolverHO``, on uniform meshes), selected with
 ``modules.get_loader().set_implementation(...)`` before the model is built
 (and ``reset()`` after). With the HO solver the velocity state is an
 ``HOVelocityState``, the forcing is interpolated to the CG2 nodes, the node
@@ -36,9 +38,10 @@ On a rank grid (``spmd``, built by ``parallel.shardmap``) the model holds
 one rank's block of a uniform, closed CG1 mesh, runs in that rank's thread
 and exchanges halos with the other ranks (``parallel.exchange``): the mEVP
 on the blocked or rdma schedule, the transport on the widened block, the
-physics per block. The HO solver, graded and spherical blocks, periodic
-axes and the TVB limiter raise ``NotImplementedError`` there (ROADMAP
-M10b); periodic axes and TVB are not ported on one domain either.
+physics per block. The HO solver, free drift, graded and spherical blocks,
+periodic axes and the TVB limiter raise ``NotImplementedError`` there
+(ROADMAP M10b); periodic axes and TVB are not ported on one domain either
+(ROADMAP M7c).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from .dynamics.kernels import mevp_single_cuda
+from .dynamics.freedrift import FreeDriftSolver
 from .dynamics.kernels.coupled_cuda import dynamics_phase, sm_count
 from .dynamics.mesh import RectMesh
 from .dynamics.mevp import SPMD_BACKENDS, DynamicsForcing, MEVPParams, VelocityState
@@ -191,7 +195,7 @@ class CoupledModel:
             )
         if tvb_m is not None:
             raise NotImplementedError(
-                "the TVB slope limiter is not ported yet (ROADMAP M7b; on a rank grid M10b)"
+                "the TVB slope limiter is not ported yet (ROADMAP M7c; on a rank grid M10b)"
             )
         self.mesh = mesh
         solver_cls = get_loader().get_implementation("Nextsim::IDynamics")
@@ -199,6 +203,8 @@ class CoupledModel:
             raise NotImplementedError(
                 "the HO solver on a rank grid (its blocked and rdma schedules) is ROADMAP M10b"
             )
+        if self.exchange is not None and issubclass(solver_cls, FreeDriftSolver):
+            raise NotImplementedError("free drift on a rank grid is ROADMAP M10b")
         self.ocean_mask = None
         if ocean_mask is not None:
             self.ocean_mask = np.asarray(ocean_mask, dtype=np.float64)
@@ -233,11 +239,17 @@ class CoupledModel:
         """Whether the momentum solver is the CG2/dG1 ``MEVPSolverHO``."""
         return isinstance(self.mevp, MEVPSolverHO)
 
+    @property
+    def is_free_drift(self) -> bool:
+        """Whether the momentum solver is ``FreeDriftSolver``."""
+        return isinstance(self.mevp, FreeDriftSolver)
+
     # -- kernel schedule -----------------------------------------------------
     def mevp_schedule(self, sms: int = None) -> str:
         """``"pallas"`` (K1's schedule), ``"single"`` (mevp_single) or
         ``"pallas-tiled"`` (mevp_tiled); with the HO solver ``"single"``
-        (ho_single) or ``"tiled"`` (ho_tiled); on a rank grid the exchange
+        (ho_single) or ``"tiled"`` (ho_tiled); with free drift
+        ``"free-drift"`` (its plain step); on a rank grid the exchange
         schedule, ``"blocked"``, ``"rdma"`` or ``"xla"``.
 
         ``sms``: the streaming multiprocessors of the card the step runs on
@@ -249,6 +261,8 @@ class CoupledModel:
         kernel's wrapper."""
         if self.is_high_order:
             return self.mevp.schedule(sms)
+        if self.is_free_drift:
+            return "free-drift"
         if self.exchange is not None:
             return self.mevp.schedule()
         backend = self.mevp_backend
@@ -403,10 +417,13 @@ class CoupledModel:
         if self.is_high_order:
             dyn_forcing = HODynamicsForcing.from_vertex_forcing(dyn_forcing)
         mask = self.node_mask(device=hice.device, dtype=hice.dtype)
-        consts = self.mevp.step_consts(
-            velocity, hice[0], torch.clamp(cice[0], 0.0, 1.0),
-            dyn_forcing, mask, dt,
-        )
+        if self.is_free_drift:  # no per-step consts: the phase gets the step's inputs
+            consts = dict(h=hice[0], a=torch.clamp(cice[0], 0.0, 1.0), forcing=dyn_forcing, mask=mask)
+        else:
+            consts = self.mevp.step_consts(
+                velocity, hice[0], torch.clamp(cice[0], 0.0, 1.0),
+                dyn_forcing, mask, dt,
+            )
         tracers = torch.stack([hice, cice, hsnow], dim=1)
         carry0 = (velocity.u, velocity.v, velocity.s11, velocity.s22, velocity.s12)
         if phase is None:

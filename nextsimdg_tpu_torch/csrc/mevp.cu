@@ -16,7 +16,11 @@
 // In-place updates are safe: mevp_stress reads only its own stresses and
 // mevp_velocity only its own velocity; the neighbour reads are of planes the
 // kernel does not write. Both take the 7 uniform consts or, on a graded or
-// spherical mesh, the 12 with the metric planes (a template on which).
+// spherical mesh, the 12 with the metric planes (a template on which), and
+// a_node besides in the A-weighted form. The momentum form is a second
+// template argument (mevp_body.cuh); in the adaptive form mevp_stress also
+// writes each node's beta into a third node plane, which mevp_velocity
+// reads: one more plane each way a subcycle.
 //
 // What bounds it on the H100: each subcycle moves about 116 bytes per
 // element (mevp_stress reads 10 planes and writes 5, mevp_velocity reads 12
@@ -33,28 +37,60 @@
 
 namespace nst {
 
-template <bool kMetric>
+template <bool kMetric, int kForm>
 __global__ void mevp_stress_kernel(MevpState p, MevpConsts k, int nx, int ny, MevpScalars s) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i < nx && j < ny) stress_cell<kMetric>(p, k, i, j, nx, ny, s);
+  if (i < nx && j < ny) stress_cell<kMetric, kForm>(p, k, i, j, nx, ny, s);
 }
 
-template <bool kMetric>
+template <bool kMetric, int kForm>
 __global__ void mevp_velocity_kernel(MevpState p, MevpConsts k, int nx, int ny,
                                      MevpScalars s) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i < nx && j < ny) velocity_cell<kMetric>(p, k, i, j, nx, ny, s);
+  if (i < nx && j < ny) velocity_cell<kMetric, kForm>(p, k, i, j, nx, ny, s);
 }
 
-// Unpacks the host's arguments shared by the entry points below.
-inline void unpack(float* u, float* v, float* s11, float* s22, float* s12, float* c_w,
-                   float* inv_drag, const void* const* consts, const float* scalars,
-                   MevpState& p, MevpConsts& k, MevpScalars& s) {
-  p = {u, v, s11, s22, s12, c_w, inv_drag};
+using HalfKernel = void (*)(MevpState, MevpConsts, int, int, MevpScalars);
+
+// The instance of a half (0: stress, 1: velocity) for a mesh and form.
+template <int kForm>
+HalfKernel half_kernel_of(int half, bool metric) {
+  if (half == 0) return metric ? mevp_stress_kernel<true, kForm> : mevp_stress_kernel<false, kForm>;
+  return metric ? mevp_velocity_kernel<true, kForm> : mevp_velocity_kernel<false, kForm>;
+}
+
+inline HalfKernel half_kernel(int half, bool metric, int form) {
+  switch (form) {
+    case 0: return half_kernel_of<0>(half, metric);
+    case kFormWeighted: return half_kernel_of<kFormWeighted>(half, metric);
+    case kFormAdaptive: return half_kernel_of<kFormAdaptive>(half, metric);
+    case kFormWeighted | kFormAdaptive: return half_kernel_of<kFormWeighted | kFormAdaptive>(half, metric);
+    default: return nullptr;
+  }
+}
+
+// Launches one half (0: stress, 1: velocity) from the host's arguments.
+// The form must agree with the planes: a_node exactly in the weighted
+// form, beta exactly in the adaptive one.
+inline int launch_half(int half, float* u, float* v, float* s11, float* s22, float* s12,
+                       float* c_w, float* inv_drag, float* beta, const void* const* consts,
+                       int nx, int ny, int form, const float* scalars, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  MevpState p = {u, v, s11, s22, s12, c_w, inv_drag, beta};
+  MevpConsts k;
+  MevpScalars s;
   std::memcpy(&k, consts, sizeof(k));
   std::memcpy(&s, scalars, sizeof(s));
+  const HalfKernel kernel = half_kernel(half, k.inv_dx != nullptr, form);
+  if (kernel == nullptr || ((form & kFormWeighted) != 0) != (k.a_node != nullptr) ||
+      ((form & kFormAdaptive) != 0) != (beta != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<plane_grid(nx, ny), plane_block(), 0, static_cast<cudaStream_t>(stream)>>>(p, k, nx, ny, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace nst
@@ -65,39 +101,23 @@ int nst_mevp_n_scalars() { return sizeof(nst::MevpScalars) / sizeof(float); }
 
 // Each entry point launches one kernel on `stream` (the caller's PyTorch
 // stream) and returns cudaGetLastError(); it does not synchronise. consts
-// points to the 12 const-plane pointers in the order of MevpConsts, the last
-// five null on a uniform mesh.
+// points to the 13 const-plane pointers in the order of MevpConsts, the
+// five metric ones null on a uniform mesh and a_node null outside the
+// weighted form; form: the momentum form's bits (kFormWeighted,
+// kFormAdaptive); beta: the adaptive form's node plane, null in the others.
 int nst_mevp_stress(float* u, float* v, float* s11, float* s22, float* s12, float* c_w,
-                    float* inv_drag, const void* const* consts, int nx, int ny,
-                    const float* scalars, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nst::MevpState p;
-  nst::MevpConsts k;
-  nst::MevpScalars s;
-  nst::unpack(u, v, s11, s22, s12, c_w, inv_drag, consts, scalars, p, k, s);
-  const auto kernel = k.inv_dx != nullptr ? nst::mevp_stress_kernel<true>
-                                          : nst::mevp_stress_kernel<false>;
-  kernel<<<nst::plane_grid(nx, ny), nst::plane_block(), 0,
-           static_cast<cudaStream_t>(stream)>>>(p, k, nx, ny, s);
-  return static_cast<int>(cudaGetLastError());
+                    float* inv_drag, float* beta, const void* const* consts, int nx, int ny,
+                    int form, const float* scalars, int device, void* stream) {
+  return nst::launch_half(0, u, v, s11, s22, s12, c_w, inv_drag, beta, consts, nx, ny, form,
+                          scalars, device, stream);
 }
 
-// c_w and inv_drag are read here (written by nst_mevp_stress).
+// c_w, inv_drag and beta are read here (written by nst_mevp_stress).
 int nst_mevp_velocity(float* u, float* v, float* s11, float* s22, float* s12, float* c_w,
-                      float* inv_drag, const void* const* consts, int nx, int ny,
-                      const float* scalars, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nst::MevpState p;
-  nst::MevpConsts k;
-  nst::MevpScalars s;
-  nst::unpack(u, v, s11, s22, s12, c_w, inv_drag, consts, scalars, p, k, s);
-  const auto kernel = k.inv_dx != nullptr ? nst::mevp_velocity_kernel<true>
-                                          : nst::mevp_velocity_kernel<false>;
-  kernel<<<nst::plane_grid(nx, ny), nst::plane_block(), 0,
-           static_cast<cudaStream_t>(stream)>>>(p, k, nx, ny, s);
-  return static_cast<int>(cudaGetLastError());
+                      float* inv_drag, float* beta, const void* const* consts, int nx, int ny,
+                      int form, const float* scalars, int device, void* stream) {
+  return nst::launch_half(1, u, v, s11, s22, s12, c_w, inv_drag, beta, consts, nx, ny, form,
+                          scalars, device, stream);
 }
 
 const char* nst_error_string(int err) {

@@ -12,6 +12,17 @@
 // divided by a Python scalar (and it keeps the kernels off the division's
 // slow path for the zero strain rates of a fluid at rest). On a graded or
 // spherical mesh the widths arrive as the metric const planes instead.
+//
+// The momentum forms of MEVPParams are a template argument of the bodies
+// and of every kernel that calls them (kForm, bits of the host's `form`):
+// kFormWeighted (a_weighted_stress) multiplies c_w by the a_node const
+// plane; kFormAdaptive (adaptive_alpha) gives up the shared divide for two
+// divides and a square root, and hands each node's alpha = beta from the
+// stress half to the velocity half. Form 0 is the unweighted fixed-alpha
+// subcycle, the same operations as before the forms existed. Divides and
+// square roots are IEEE-rounded (nvcc's defaults, as PyTorch's CUDA
+// kernels compute 1 / tensor and torch.sqrt), so each form equals its
+// plain version on the card too.
 #pragma once
 
 #include "common.cuh"
@@ -37,12 +48,20 @@ struct MevpScalars {
   float f_cor;             // Coriolis parameter (0 without Coriolis)
   float neg_f_cor;         // -f_cor
   float dt;                // outer time step [s]
+  float alpha_min;         // the adaptive form's floor of alpha = beta
+  float c_stab;            // the adaptive form's factor of sqrt(zeta dt_m / area)
 };
 
+// The momentum forms (MEVPParams): bits of a kernel's kForm.
+constexpr int kFormWeighted = 1;  // a_weighted_stress: c_w times a_node
+constexpr int kFormAdaptive = 2;  // adaptive_alpha: per-node alpha = beta
+constexpr int kForms = 4;
+
 // The per-step constant planes, read-only for a whole launch (so they may
-// be read through the read-only data path). The last five are the metric
-// planes of a graded or spherical mesh, null on a uniform one; the host
-// packs them in this order.
+// be read through the read-only data path). Then the five metric planes of
+// a graded or spherical mesh, null on a uniform one, and the nodal
+// concentration of the A-weighted form, null without it; the host packs
+// them in this order (mevp.MEVP_CONSTS).
 struct MevpConsts {
   const float* strength;
   const float* dt_m;
@@ -56,11 +75,12 @@ struct MevpConsts {
   const float* half_dx;  // per element
   const float* half_dy;
   const float* inv_w;    // per node: 1 / (the node's lumped area)
+  const float* a_node;   // per node: the lumped concentration in [0, 1]
 };
-constexpr int kMevpConstPlanes = 12;
+constexpr int kMevpConstPlanes = 13;
 // The planes by number, in that order.
 constexpr int kStrength = 0, kDtM = 1, kActive = 2, kBu = 3, kBv = 4, kUo = 5, kVo = 6,
-              kInvDx = 7, kInvDy = 8, kHalfDx = 9, kHalfDy = 10, kInvW = 11;
+              kInvDx = 7, kInvDy = 8, kHalfDx = 9, kHalfDy = 10, kInvW = 11, kANode = 12;
 
 // Const plane p of MevpConsts, read from the kernel's parameters where it is
 // used (p is a constant at every call, so the switch folds away).
@@ -77,23 +97,29 @@ __device__ __forceinline__ const float* mevp_const_plane(const MevpConsts& k, in
     case kInvDy: return k.inv_dy;
     case kHalfDx: return k.half_dx;
     case kHalfDy: return k.half_dy;
-    default: return k.inv_w;
+    case kInvW: return k.inv_w;
+    default: return k.a_node;
   }
 }
 
 // Element (i, j): velocities at its corner nodes (i, j), (i+1, j), (i, j+1),
 // (i+1, j+1), its stresses and its inverse widths in; the alpha-relaxed
 // stresses out, plus node (i, j)'s c_w and inv_drag (the two share one
-// divide with the element).
+// divide with the element) and its beta (s.beta, or in the adaptive form
+// the node's own). Element (i, j)'s zeta and node (i, j)'s dt_m share an
+// index. a_node: node (i, j)'s concentration (read in the weighted form);
+// inv_area: its 1/(lumped area) (read in the adaptive form: the inv_w
+// plane, or s.inv_w on a uniform mesh).
 struct StressOut {
-  float s11, s22, s12, c_w, inv_drag;
+  float s11, s22, s12, c_w, inv_drag, beta;
 };
 
+template <int kForm = 0>
 __device__ __forceinline__ StressOut mevp_stress_body(
     float u00, float u10, float u01, float u11, float v00, float v10, float v01,
     float v11, float a11, float a22, float a12, float strength, float dt_m,
     float active, float u_ocean, float v_ocean, float inv_dx, float inv_dy,
-    const MevpScalars& s) {
+    const MevpScalars& s, float a_node = 1.0f, float inv_area = 0.0f) {
   // Strain rates from the element's four corner nodes.
   const float e11 = 0.5f * ((u10 - u00) + (u11 - u01)) * inv_dx;
   const float e22 = 0.5f * ((v01 - v00) + (v11 - v10)) * inv_dy;
@@ -104,17 +130,33 @@ __device__ __forceinline__ StressOut mevp_stress_body(
                             2.0f * e11 * e22 * s.c_delta2 +
                             s.c_delta3 * e12 * e12);
 
-  // The shared divide: element (i, j)'s Delta + Delta_min and node (i, j)'s
-  // 1 + beta + dt_m c_w.
   const float rel_u = u_ocean - u00;
   const float rel_v = v_ocean - v00;
-  const float c_w = s.rho_cd_ocean * sqrtf(rel_u * rel_u + rel_v * rel_v);
+  float c_w = s.rho_cd_ocean * sqrtf(rel_u * rel_u + rel_v * rel_v);
+  if constexpr ((kForm & kFormWeighted) != 0) c_w = c_w * a_node;  // the A-weighted drag
   const float denom_rheo = delta + s.delta_min;
-  const float denom_drag = s.one_plus_beta + dt_m * c_w;
-  const float inv_both = 1.0f / (denom_rheo * denom_drag);
-  const float inv_denom = inv_both * denom_drag;
-  const float inv_drag = active * (inv_both * denom_rheo);
-  const float zeta = 0.5f * strength * inv_denom;
+  float inv_denom, inv_drag, zeta, inv_alpha, beta;
+  if constexpr ((kForm & kFormAdaptive) != 0) {
+    // alpha depends on zeta: two divides, and the square root of the
+    // stability bound (max as torch.clamp: a NaN stays NaN).
+    inv_denom = 1.0f / denom_rheo;
+    zeta = 0.5f * strength * inv_denom;
+    const float bound = s.c_stab * sqrtf(zeta * dt_m * inv_area);
+    const float alpha = bound < s.alpha_min ? s.alpha_min : bound;
+    beta = alpha;
+    inv_drag = active / (1.0f + beta + dt_m * c_w);
+    inv_alpha = 1.0f / alpha;
+  } else {
+    // The shared divide: element (i, j)'s Delta + Delta_min and node
+    // (i, j)'s 1 + beta + dt_m c_w.
+    const float denom_drag = s.one_plus_beta + dt_m * c_w;
+    const float inv_both = 1.0f / (denom_rheo * denom_drag);
+    inv_denom = inv_both * denom_drag;
+    inv_drag = active * (inv_both * denom_rheo);
+    zeta = 0.5f * strength * inv_denom;
+    inv_alpha = s.inv_alpha;
+    beta = s.beta;
+  }
   const float eta = zeta * s.inv_e2;
   const float p_rep = strength * delta * inv_denom;
 
@@ -123,11 +165,12 @@ __device__ __forceinline__ StressOut mevp_stress_body(
   const float s22_vp = 2.0f * eta * e22 + (zeta - eta) * div - 0.5f * p_rep;
   const float s12_vp = 2.0f * eta * e12;
   StressOut out;
-  out.s11 = a11 + (s11_vp - a11) * s.inv_alpha;
-  out.s22 = a22 + (s22_vp - a22) * s.inv_alpha;
-  out.s12 = a12 + (s12_vp - a12) * s.inv_alpha;
+  out.s11 = a11 + (s11_vp - a11) * inv_alpha;
+  out.s22 = a22 + (s22_vp - a22) * inv_alpha;
+  out.s12 = a12 + (s12_vp - a12) * inv_alpha;
   out.c_w = c_w;
   out.inv_drag = inv_drag;
+  out.beta = beta;
   return out;
 }
 
@@ -165,18 +208,39 @@ __device__ __forceinline__ float2 forces_metric(const Around& w11, const Around&
 }
 
 // Node (i, j): the new (u, v) from its forces f (normalised here by inv_w)
-// and the beta-relaxed update with semi-implicit ocean drag.
+// and the beta-relaxed update with semi-implicit ocean drag; beta is
+// s.beta, or in the adaptive form the node's own from the stress half.
 __device__ __forceinline__ float2 mevp_velocity_body(
     float2 f, float inv_w, float u0, float v0, float u_ocean, float v_ocean, float c_w,
-    float dt_m, float b_u, float b_v, float inv_drag, const MevpScalars& s) {
+    float dt_m, float b_u, float b_v, float inv_drag, float beta, const MevpScalars& s) {
   const float fu = f.x * inv_w;
   const float fv = f.y * inv_w;
   const float cor_u = s.f_cor * (v0 - v_ocean);
   const float cor_v = s.neg_f_cor * (u0 - u_ocean);
   float2 uv;
-  uv.x = (s.beta * u0 + b_u + dt_m * (fu + c_w * u_ocean) + s.dt * cor_u) * inv_drag;
-  uv.y = (s.beta * v0 + b_v + dt_m * (fv + c_w * v_ocean) + s.dt * cor_v) * inv_drag;
+  uv.x = (beta * u0 + b_u + dt_m * (fu + c_w * u_ocean) + s.dt * cor_u) * inv_drag;
+  uv.y = (beta * v0 + b_v + dt_m * (fv + c_w * v_ocean) + s.dt * cor_v) * inv_drag;
   return uv;
+}
+
+// The fixed-beta form (every schedule's form 0).
+__device__ __forceinline__ float2 mevp_velocity_body(
+    float2 f, float inv_w, float u0, float v0, float u_ocean, float v_ocean, float c_w,
+    float dt_m, float b_u, float b_v, float inv_drag, const MevpScalars& s) {
+  return mevp_velocity_body(f, inv_w, u0, v0, u_ocean, v_ocean, c_w, dt_m, b_u, b_v, inv_drag,
+                            s.beta, s);
+}
+
+// The form's extra operands of the stress body at element/node ij: a_node
+// (weighted) and 1/area (adaptive: the inv_w plane on a metric mesh, else
+// s.inv_w); 1 and 0 where the form does not read them.
+template <int kForm>
+__device__ __forceinline__ float form_a_node(const MevpConsts& k, int ij) {
+  return (kForm & kFormWeighted) != 0 ? __ldg(k.a_node + ij) : 1.0f;
+}
+template <bool kMetric, int kForm>
+__device__ __forceinline__ float form_inv_area(const MevpConsts& k, int ij, const MevpScalars& s) {
+  return (kForm & kFormAdaptive) == 0 ? 0.0f : kMetric ? __ldg(k.inv_w + ij) : s.inv_w;
 }
 
 // A read-only const plane at (i, j), or 0 beyond the owned range.
@@ -186,31 +250,34 @@ __device__ __forceinline__ float ldg_at(const float* f, int i, int j, int nx, in
 
 // The state planes of the grid-wide schedules, updated in place. They are
 // written during the launch (by this or another block), so they are never
-// read through the read-only data path.
+// read through the read-only data path. beta: the adaptive form's node
+// plane (null in the others).
 struct MevpState {
-  float *u, *v, *s11, *s22, *s12, *c_w, *inv_drag;
+  float *u, *v, *s11, *s22, *s12, *c_w, *inv_drag, *beta;
 };
 
 // The stress half of a subcycle at element (i, j), from and into global
 // memory: reads u, v at the element's four nodes and its own stresses;
-// writes its stresses and node (i, j)'s c_w and inv_drag.
-template <bool kMetric>
+// writes its stresses and node (i, j)'s c_w and inv_drag (and beta).
+template <bool kMetric, int kForm>
 __device__ __forceinline__ void stress_cell(const MevpState& p, const MevpConsts& k, int i,
                                             int j, int nx, int ny, const MevpScalars& s) {
   const int ij = i * ny + j;
   const float inv_dx = kMetric ? __ldg(k.inv_dx + ij) : s.inv_dx;
   const float inv_dy = kMetric ? __ldg(k.inv_dy + ij) : s.inv_dy;
-  const StressOut o = mevp_stress_body(
+  const StressOut o = mevp_stress_body<kForm>(
       p.u[ij], at(p.u, i + 1, j, nx, ny), at(p.u, i, j + 1, nx, ny),
       at(p.u, i + 1, j + 1, nx, ny), p.v[ij], at(p.v, i + 1, j, nx, ny),
       at(p.v, i, j + 1, nx, ny), at(p.v, i + 1, j + 1, nx, ny), p.s11[ij], p.s22[ij],
       p.s12[ij], __ldg(k.strength + ij), __ldg(k.dt_m + ij), __ldg(k.active + ij),
-      __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij), inv_dx, inv_dy, s);
+      __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij), inv_dx, inv_dy, s,
+      form_a_node<kForm>(k, ij), form_inv_area<kMetric, kForm>(k, ij, s));
   p.s11[ij] = o.s11;
   p.s22[ij] = o.s22;
   p.s12[ij] = o.s12;
   p.c_w[ij] = o.c_w;
   p.inv_drag[ij] = o.inv_drag;
+  if constexpr ((kForm & kFormAdaptive) != 0) p.beta[ij] = o.beta;
 }
 
 __device__ __forceinline__ Around around(const float* f, int i, int j, int nx, int ny) {
@@ -240,8 +307,8 @@ __device__ __forceinline__ Around weighted_tile(const float* s, const float* f, 
 
 // The velocity half of a subcycle at node (i, j), from and into global
 // memory: reads the stresses of its four elements and its own u, v, c_w and
-// inv_drag; writes u and v.
-template <bool kMetric>
+// inv_drag (and beta); writes u and v.
+template <bool kMetric, int kForm>
 __device__ __forceinline__ void velocity_cell(const MevpState& p, const MevpConsts& k, int i,
                                               int j, int nx, int ny, const MevpScalars& s) {
   const int ij = i * ny + j;
@@ -260,7 +327,8 @@ __device__ __forceinline__ void velocity_cell(const MevpState& p, const MevpCons
   }
   const float2 uv = mevp_velocity_body(
       f, inv_w, p.u[ij], p.v[ij], __ldg(k.u_ocean + ij), __ldg(k.v_ocean + ij), p.c_w[ij],
-      __ldg(k.dt_m + ij), __ldg(k.b_u + ij), __ldg(k.b_v + ij), p.inv_drag[ij], s);
+      __ldg(k.dt_m + ij), __ldg(k.b_u + ij), __ldg(k.b_v + ij), p.inv_drag[ij],
+      (kForm & kFormAdaptive) != 0 ? p.beta[ij] : s.beta, s);
   p.u[ij] = uv.x;
   p.v[ij] = uv.y;
 }

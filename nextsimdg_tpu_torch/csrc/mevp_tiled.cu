@@ -29,6 +29,10 @@
 // two arrays of 8 registers (the loop over its cells unrolled): the
 // window holds 5 planes, not 7. A window 64 wide then takes 80 KB, and two
 // blocks of 512 threads share an SM (at most 64 registers a thread).
+// The momentum form is a template argument (mevp_body.cuh): the adaptive
+// form keeps each cell's beta in a third array of registers, the weighted
+// one reads a_node, a const plane like the others (the window stays at 5
+// planes in every form).
 //
 // The per-step constant planes (7 on a uniform mesh, 12 with the metric
 // planes of a graded or spherical one) are read-only for the launch and
@@ -79,7 +83,8 @@ constexpr int kTiledMaxCells = 8;       // window rows a thread owns, at most
 
 // kW: the window width where it is known at compile time (shared-memory
 // offsets become immediates), 0 where it is read from tile and halo.
-template <bool kMetric, int kW>
+// kForm: the momentum form.
+template <bool kMetric, int kW, int kForm>
 __global__ void __launch_bounds__(kTiledMaxThreads)
 mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
                   const float* __restrict__ s11_in, const float* __restrict__ s22_in,
@@ -142,7 +147,7 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
   }
   __syncthreads();
 
-  float cw[kTiledMaxCells], inv[kTiledMaxCells];
+  float cw[kTiledMaxCells], inv[kTiledMaxCells], bt[kTiledMaxCells];
   for (int sub = 0; sub < n_sub; ++sub) {
     // Stress phase: element (a, b), elements [sub, w - 1 - sub) along each
     // axis, reads nodes a..a+1, b..b+1.
@@ -150,17 +155,18 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
       const int i = i0 + a;
       if (i < 0 || i >= nx || sub > min(eb, min(a, w - 2 - a))) return;
       const int c = a * w + b, ij = i * ny + j;
-      const StressOut o = mevp_stress_body(
+      const StressOut o = mevp_stress_body<kForm>(
           su[c], su[c + w], su[c + 1], su[c + w + 1], sv[c], sv[c + w], sv[c + 1],
           sv[c + w + 1], s11[c], s22[c], s12[c], cst(kStrength, ij), cst(kDtM, ij),
           cst(kActive, ij), cst(kUo, ij), cst(kVo, ij),
           kMetric ? __ldg(k.inv_dx + ij) : s.inv_dx, kMetric ? __ldg(k.inv_dy + ij) : s.inv_dy,
-          s);
+          s, form_a_node<kForm>(k, ij), form_inv_area<kMetric, kForm>(k, ij, s));
       s11[c] = o.s11;
       s22[c] = o.s22;
       s12[c] = o.s12;
       cw[q] = o.c_w;
       inv[q] = o.inv_drag;
+      if constexpr ((kForm & kFormAdaptive) != 0) bt[q] = o.beta;
     });
     __syncthreads();
 
@@ -188,7 +194,7 @@ mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in
       }
       const float2 uv = mevp_velocity_body(
           f, inv_node_w, su[c], sv[c], cst(kUo, ij), cst(kVo, ij), cw[q], cst(kDtM, ij),
-          cst(kBu, ij), cst(kBv, ij), inv[q], s);
+          cst(kBu, ij), cst(kBv, ij), inv[q], (kForm & kFormAdaptive) != 0 ? bt[q] : s.beta, s);
       su[c] = uv.x;
       sv[c] = uv.y;
     });
@@ -214,21 +220,33 @@ using TiledKernel = void (*)(const float*, const float*, const float*, const flo
                              const float*, float*, float*, float*, float*, float*, MevpConsts,
                              int, int, int, int, int, MevpScalars);
 
-template <bool kMetric>
+template <bool kMetric, int kForm>
 TiledKernel tiled_kernel_of(int w) {
-  return w == 80 ? mevp_tiled_kernel<kMetric, 80> : mevp_tiled_kernel<kMetric, 0>;
+  return w == 80 ? mevp_tiled_kernel<kMetric, 80, kForm> : mevp_tiled_kernel<kMetric, 0, kForm>;
 }
 
-// The kernel of a launch configuration, or null where it has none: fewer
-// threads than a window row, or more than 8 window rows a thread.
-TiledKernel tiled_kernel(bool metric, int tile, int halo, int threads) {
+template <int kForm>
+TiledKernel tiled_kernel_of(bool metric, int w) {
+  return metric ? tiled_kernel_of<true, kForm>(w) : tiled_kernel_of<false, kForm>(w);
+}
+
+// The kernel of a launch configuration and momentum form, or null where it
+// has none: fewer threads than a window row, more than 8 window rows a
+// thread, or an unknown form.
+TiledKernel tiled_kernel(bool metric, int form, int tile, int halo, int threads) {
   const int w = tile + 2 * halo;
   if (tile < 1 || halo < 1 || threads < 32 || threads > kTiledMaxThreads || w > threads) {
     return nullptr;
   }
   const int rows = threads / w;
   if ((w + rows - 1) / rows > kTiledMaxCells) return nullptr;
-  return metric ? tiled_kernel_of<true>(w) : tiled_kernel_of<false>(w);
+  switch (form) {
+    case 0: return tiled_kernel_of<0>(metric, w);
+    case kFormWeighted: return tiled_kernel_of<kFormWeighted>(metric, w);
+    case kFormAdaptive: return tiled_kernel_of<kFormAdaptive>(metric, w);
+    case kFormWeighted | kFormAdaptive: return tiled_kernel_of<kFormWeighted | kFormAdaptive>(metric, w);
+    default: return nullptr;
+  }
 }
 
 }  // namespace nst
@@ -243,9 +261,9 @@ int nst_mevp_tiled_shared_bytes(int tile, int halo) {
 // Resident blocks per SM of a launch configuration (0 where it has no
 // kernel or does not fit), from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
 // -1 - error where the runtime refuses.
-int nst_mevp_tiled_max_blocks(int tile, int halo, int threads, int metric, int device) {
+int nst_mevp_tiled_max_blocks(int tile, int halo, int threads, int metric, int form, int device) {
   if (cudaSetDevice(device) != cudaSuccess) return -1;
-  const auto kernel = nst::tiled_kernel(metric != 0, tile, halo, threads);
+  const auto kernel = nst::tiled_kernel(metric != 0, form, tile, halo, threads);
   if (kernel == nullptr) return 0;
   const int bytes = nst_mevp_tiled_shared_bytes(tile, halo);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -263,22 +281,24 @@ int nst_mevp_tiled_max_blocks(int tile, int halo, int threads, int metric, int d
 // One round: n_sub (<= halo) subcycles, by blocks of `threads` threads (at
 // most 1024, at least one window row, at most 8 window rows each), from the
 // *_in planes into the *_out planes, which must not alias them. consts
-// points to the 12 const-plane pointers in the order of MevpConsts, the
-// last five null on a uniform mesh. Launches on `stream`, returns
+// points to the 13 const-plane pointers in the order of MevpConsts, the
+// metric ones null on a uniform mesh, a_node null outside the weighted
+// form; form: the momentum form's bits. Launches on `stream`, returns
 // cudaGetLastError() (or the error of the shared-memory attribute); does
 // not synchronise.
 int nst_mevp_tiled(const float* u_in, const float* v_in, const float* s11_in,
                    const float* s22_in, const float* s12_in, float* u_out,
                    float* v_out, float* s11_out, float* s22_out, float* s12_out,
                    const void* const* consts, int nx, int ny, int tile, int halo,
-                   int n_sub, int threads, const float* scalars, int device,
+                   int n_sub, int threads, int form, const float* scalars, int device,
                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   nst::MevpConsts k;
   std::memcpy(&k, consts, sizeof(k));
-  const auto kernel = nst::tiled_kernel(k.inv_dx != nullptr, tile, halo, threads);
-  if (kernel == nullptr || halo < n_sub || n_sub < 1) {
+  const auto kernel = nst::tiled_kernel(k.inv_dx != nullptr, form, tile, halo, threads);
+  if (kernel == nullptr || halo < n_sub || n_sub < 1 ||
+      ((form & nst::kFormWeighted) != 0) != (k.a_node != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int bytes = nst_mevp_tiled_shared_bytes(tile, halo);

@@ -42,8 +42,14 @@ subcycles in one launch, K4), and ``mevp_rdma_cuda`` (the overlapped
 halo round of a rank block, K7); ``chain``, the ceiling probe (K8), is
 wrapped by ``nextsimdg_tpu_torch.benchmarks.roofline``. Every mEVP kernel
 takes the 7 uniform consts or, on a graded or spherical mesh, the 12 with
-the metric planes; the transport kernels read the transport's metric
-planes on such a mesh.
+the metric planes, and ``a_node`` besides in the A-weighted form; the
+momentum form (``mevp_form``: weighted, adaptive, both or neither) selects
+a template instance of each CG1 mEVP kernel. The transport kernels read the
+transport's metric planes on such a mesh.
+
+With ``FreeDriftSolver`` the momentum part of the phase is its plain step
+on every device (``free_drift_subcycles``: no TPU kernel exists for it
+either), followed by the same CFL count and transport kernels.
 
 With the higher-order solver (``MEVPSolverHO``) the phase runs
 ``ho_single`` (all N subcycles in one launch, K5 of the JAX package) or
@@ -87,7 +93,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..mevp import METRIC_CONSTS, UNIFORM_CONSTS, MEVPSolver
+from ..mevp import MEVP_CONSTS, MEVPSolver, VelocityState, const_names
 from ..mevp_ho import (
     HO_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
 )
@@ -120,8 +126,9 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-shared",)
 
-#: The const planes in the order of MevpConsts in csrc/mevp_body.cuh.
-_MEVP_CONSTS = UNIFORM_CONSTS + METRIC_CONSTS
+#: The momentum forms' bits (kFormWeighted, kFormAdaptive of
+#: csrc/mevp_body.cuh).
+FORM_WEIGHTED, FORM_ADAPTIVE = 1, 2
 #: The transport's metric planes in the order of Dg1MetricPlanes in
 #: csrc/dg1_body.cuh.
 _DG1_METRIC = ("inv_dx", "inv_dy", "face_x", "face_y", "inv_area")
@@ -222,13 +229,13 @@ def _bind():
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [p, i, p]  # host scalars/tables, device index, stream
-    lib.nst_mevp_stress.argtypes = [p] * 8 + [i, i] + tail
-    lib.nst_mevp_velocity.argtypes = [p] * 8 + [i, i] + tail
+    lib.nst_mevp_stress.argtypes = [p] * 9 + [i, i, i] + tail
+    lib.nst_mevp_velocity.argtypes = [p] * 9 + [i, i, i] + tail
     lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 8 + tail
     lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 5 + [f, f, f] + tail
-    lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 6 + tail
+    lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 7 + tail
     lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 14 + [p, f] + tail
-    lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 8 + [p] + tail
+    lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 9 + [p] + tail
     lib.nst_ho_single.argtypes = [p] * 3 + [i] * 9 + [p] + tail
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 10 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
@@ -236,9 +243,9 @@ def _bind():
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
-    lib.nst_mevp_tiled_max_blocks.argtypes = [i] * 5
+    lib.nst_mevp_tiled_max_blocks.argtypes = [i] * 6
     lib.nst_mevp_tiled_max_blocks.restype = i
-    lib.nst_mevp_single_max_blocks.argtypes = [i] * 6
+    lib.nst_mevp_single_max_blocks.argtypes = [i] * 7
     lib.nst_mevp_single_max_blocks.restype = i
     lib.nst_ho_single_max_blocks.argtypes = [i] * 4
     lib.nst_ho_single_max_blocks.restype = i
@@ -281,7 +288,7 @@ def _launch(name: str, *args) -> None:
 
 
 # -- host-side packing of the kernels' scalars -------------------------------
-_N_MEVP_SCALARS = 17
+_N_MEVP_SCALARS = 19
 #: The DG degrees the transport kernels run.
 DEGREES = (0, 1, 2)
 _N_HO_SCALARS = 16
@@ -316,10 +323,17 @@ def _mevp_scalars(solver: MEVPSolver, dt: float):
         1.0 + 1.0 / e2, 1.0 - 1.0 / e2, 4.0 / e2,
         p.rho_ocean * p.cd_ocean, p.delta_min, 1.0 + p.beta, 1.0 / e2,
         1.0 / p.alpha, half_dx, half_dy, inv_w,
-        p.beta, f, -f, dt,
+        p.beta, f, -f, dt, p.alpha_min, p.c_stab,
     ]
     assert len(values) == _N_MEVP_SCALARS
     return _floats(values)
+
+
+def mevp_form(params) -> int:
+    """The momentum form of ``MEVPParams`` as the kernels' template bits:
+    ``FORM_WEIGHTED`` for ``a_weighted_stress``, ``FORM_ADAPTIVE`` for
+    ``adaptive_alpha``."""
+    return FORM_WEIGHTED * bool(params.a_weighted_stress) + FORM_ADAPTIVE * bool(params.adaptive_alpha)
 
 
 def _n_dg1_table(degree: int) -> int:
@@ -438,8 +452,9 @@ def _check(shape, device, **tensors) -> None:
 def _check_mevp(solver: MEVPSolver, carry, consts) -> None:
     """The const set must be the solver's (the sorted names, as the JAX
     kernels key it): the 7 uniform planes, or the 12 with the metric planes
-    on a graded or spherical mesh."""
-    expected = UNIFORM_CONSTS if solver.mesh.uniform else _MEVP_CONSTS
+    on a graded or spherical mesh, and a_node besides in the A-weighted
+    form."""
+    expected = const_names(solver.params.a_weighted_stress, solver.mesh.uniform)
     if tuple(sorted(consts)) != tuple(sorted(expected)):
         raise NotImplementedError(
             f"the mEVP kernels take the consts {tuple(sorted(expected))} on this mesh, "
@@ -492,9 +507,9 @@ def _pointers(tensors):
 
 
 def _mevp_consts(consts: dict):
-    """The 12 const-plane pointers of MevpConsts; the metric ones null when
-    the consts have none."""
-    return _pointers([consts.get(name) for name in _MEVP_CONSTS])
+    """The 13 const-plane pointers of MevpConsts; the metric ones and
+    a_node null when the consts have none."""
+    return _pointers([consts.get(name) for name in MEVP_CONSTS])
 
 
 def _dg1_metric(transport: DGTransport, device):
@@ -515,14 +530,19 @@ def _dg1_qv(qv: QuadVelocity, shape, device, degree: int):
 
 
 # -- in-place launches (arguments already checked) ----------------------------
-def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream):
+def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream, beta=None):
     """``mevp_stress`` or ``mevp_velocity`` in place on the five planes;
-    ``const_ptrs`` from ``_mevp_consts``."""
+    ``const_ptrs`` from ``_mevp_consts``. The momentum form follows from
+    the planes: weighted where a_node is among the consts, adaptive where
+    the node plane ``beta`` is given."""
     u = planes[0]
     nx, ny = u.shape
+    form = FORM_WEIGHTED * (const_ptrs[MEVP_CONSTS.index("a_node")] is not None)
+    form += FORM_ADAPTIVE * (beta is not None)
     _launch(
         name, *(t.data_ptr() for t in planes), c_w.data_ptr(), inv_drag.data_ptr(),
-        const_ptrs, nx, ny, ctypes.addressof(scalars), u.device.index, stream,
+        None if beta is None else beta.data_ptr(), const_ptrs, nx, ny, form,
+        ctypes.addressof(scalars), u.device.index, stream,
     )
 
 
@@ -606,7 +626,8 @@ def _dg1_rk_stage_(
 
 # -- the four kernels, one launch each -----------------------------------------
 def mevp_stress(solver: MEVPSolver, carry, consts):
-    """First half of an mEVP subcycle: (s11, s22, s12, c_w, inv_drag).
+    """First half of an mEVP subcycle: (s11, s22, s12, c_w, inv_drag), and
+    with ``adaptive_alpha`` the per-node beta last.
 
     Plain version: ``solver.stress_update(carry, consts)``.
     """
@@ -616,27 +637,33 @@ def mevp_stress(solver: MEVPSolver, carry, consts):
     u, v, s11, s22, s12 = carry
     planes = (u, v, s11.clone(), s22.clone(), s12.clone())
     c_w, inv_drag = torch.empty_like(u), torch.empty_like(u)
+    beta = torch.empty_like(u) if solver.params.adaptive_alpha else None
     _mevp_half_(
         "mevp_stress", planes, _mevp_consts(consts), c_w, inv_drag,
-        _mevp_scalars(solver, 0.0), _stream(u.device),
+        _mevp_scalars(solver, 0.0), _stream(u.device), beta=beta,
     )
-    return planes[2], planes[3], planes[4], c_w, inv_drag
+    return (planes[2], planes[3], planes[4], c_w, inv_drag) + (() if beta is None else (beta,))
 
 
-def mevp_velocity(solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float):
-    """Second half of an mEVP subcycle: the new (u, v).
+def mevp_velocity(solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float, beta=None):
+    """Second half of an mEVP subcycle: the new (u, v); ``beta``: the
+    per-node plane of ``mevp_stress`` with ``adaptive_alpha``.
 
-    Plain version: ``solver.velocity_update(carry, consts, c_w, inv_drag, dt)``.
+    Plain version: ``solver.velocity_update(carry, consts, c_w, inv_drag, dt, beta)``.
     """
     if _on_cpu(carry[0]):
-        return solver.velocity_update(carry, consts, c_w, inv_drag, dt)
+        return solver.velocity_update(carry, consts, c_w, inv_drag, dt, beta)
     _check_mevp(solver, carry, consts)
+    if (beta is not None) != solver.params.adaptive_alpha:
+        raise ValueError("mevp_velocity takes beta exactly in the adaptive form")
     u = carry[0]
     _check(u.shape, u.device, c_w=c_w, inv_drag=inv_drag)
+    if beta is not None:
+        _check(u.shape, u.device, beta=beta)
     planes = (u.clone(), carry[1].clone(), *carry[2:])
     _mevp_half_(
         "mevp_velocity", planes, _mevp_consts(consts), c_w, inv_drag,
-        _mevp_scalars(solver, dt), _stream(u.device),
+        _mevp_scalars(solver, dt), _stream(u.device), beta=beta,
     )
     return planes[0], planes[1]
 
@@ -724,18 +751,33 @@ def mevp_subcycles_reference(solver: MEVPSolver, carry, consts, dt: float, n_sub
 def mevp_subcycles(solver: MEVPSolver, carry, consts, dt: float, n_subcycles: int):
     """(u, v, s11, s22, s12) after N subcycles on K1's schedule: one
     ``mevp_stress`` and one ``mevp_velocity`` launch per subcycle, in place
-    on copies of the inputs. CPU tensors run the plain version."""
+    on copies of the inputs (the node planes c_w, inv_drag and, in the
+    adaptive form, beta in scratch). CPU tensors run the plain version."""
     if _on_cpu(carry[0]):
         return mevp_subcycles_reference(solver, carry, consts, dt, n_subcycles)
     _check_mevp(solver, carry, consts)
     planes = tuple(t.clone() for t in carry)
     c_w, inv_drag = torch.empty_like(planes[0]), torch.empty_like(planes[0])
+    beta = torch.empty_like(planes[0]) if solver.params.adaptive_alpha else None
     scalars, stream = _mevp_scalars(solver, dt), _stream(planes[0].device)
     const_ptrs = _mevp_consts(consts)
     for _ in range(n_subcycles):
-        _mevp_half_("mevp_stress", planes, const_ptrs, c_w, inv_drag, scalars, stream)
-        _mevp_half_("mevp_velocity", planes, const_ptrs, c_w, inv_drag, scalars, stream)
+        _mevp_half_("mevp_stress", planes, const_ptrs, c_w, inv_drag, scalars, stream, beta)
+        _mevp_half_("mevp_velocity", planes, const_ptrs, c_w, inv_drag, scalars, stream, beta)
     return planes
+
+
+def free_drift_subcycles(solver, carry, consts, dt: float, n_subcycles: int):
+    """The momentum part of a dynamics phase with ``FreeDriftSolver``: its
+    step (``n_subcycles`` fixed-point iterations of the drag balance) on the
+    carry (u, v, s11, s22, s12), with ``consts`` the step's inputs (h, a,
+    forcing, mask) as ``CoupledModel.step_dynamics`` packs them. Plain
+    PyTorch on every device: the JAX package has no kernel for it either."""
+    out = solver.step(
+        VelocityState(*carry), consts["h"], consts["a"], consts["forcing"], consts["mask"],
+        dt, n_subcycles,
+    )
+    return out.u, out.v, out.s11, out.s22, out.s12
 
 
 def transport_substeps_reference(
@@ -881,6 +923,9 @@ def fused_dynamics_reference(
     if model.is_high_order:
         carry = ho_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
         qv = ho_velocity_to_quad(mesh, transport.basis, carry[0], carry[1])
+    elif model.is_free_drift:
+        carry = free_drift_subcycles(solver, state_arrays, consts, dt, n_subcycles)
+        qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1])
     else:
         carry = mevp_subcycles_reference(solver, state_arrays, consts, dt, n_subcycles)
         qv = velocity_from_cg(mesh, transport.basis, carry[0], carry[1], model.spmd)
@@ -905,7 +950,8 @@ def dynamics_phase(
       (K1's schedule, ``mevp_subcycles``); ``"single"``: ``mevp_single``,
       all N subcycles in one launch (``mevp_single_cuda``);
       ``"pallas-tiled"``: ``mevp_tiled``, H subcycles per launch
-      (``mevp_tiled_cuda``);
+      (``mevp_tiled_cuda``); ``"free-drift"``: the free-drift step
+      (``free_drift_subcycles``, plain: ``consts`` are the step's inputs);
     * then ``dg1_sample_cfl`` and one host sync for k;
     * ``transport="xla"``: one ``dg1_rk_stage`` per RK stage (K1's
       schedule, ``transport_substeps``); ``"tiled"``: ``transport_tiled``,
@@ -940,7 +986,7 @@ def dynamics_phase(
 
     run_mevp = {
         "pallas": mevp_subcycles, "single": mevp_subcycles_single,
-        "pallas-tiled": mevp_subcycles_tiled,
+        "pallas-tiled": mevp_subcycles_tiled, "free-drift": free_drift_subcycles,
     }
     run_transport = {"xla": transport_substeps, "tiled": transport_substeps_tiled}
     if mevp not in run_mevp or transport not in run_transport:

@@ -25,7 +25,13 @@ refused, as the TPU kernel refuses grids beyond VMEM
 Plain version: N x ``MEVPSolver.subcycle_body`` (``mevp_single_reference``).
 The kernel runs the element and node bodies of ``mevp_stress``/``mevp_velocity``
 of ``coupled_cuda``, so it equals N subcycles of that schedule, and of
-``mevp_tiled``, bit for bit.
+``mevp_tiled``, bit for bit. The solver's momentum form
+(``coupled_cuda.mevp_form``) selects the template instance: the A-weighted
+form reads the ``a_node`` plane (last in ``RESIDENT_ORDER``, so it is
+resident where every plane fits), the adaptive form keeps each cell's beta
+in registers. The thirteenth plane changes no tiling (``holds``): the tiles
+hold the 5 state planes, and a const plane that does not fit beside them
+is read from L2.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from functools import lru_cache
 
 import torch
 
-from ..mevp import UNIFORM_CONSTS, MEVPSolver
+from ..mevp import MEVP_CONSTS, MEVPSolver, const_names
 from . import coupled_cuda as cc
 from .coupled_cuda import sm_count
 from .ho_single_cuda import SHARED_LIMIT
@@ -54,16 +60,17 @@ STATE_PLANES = 5
 #: them beside the state, in this order (the rest are read from L2; the
 #: order of resident_rank in csrc/mevp_single.cu): the velocity half reads
 #: half_dx and half_dy at four elements each, dt_m and the ocean current are
-#: read by both halves, the others once a subcycle.
+#: read by both halves, the others (a_node of the A-weighted form last) once
+#: a subcycle.
 RESIDENT_ORDER = (
     "half_dx", "half_dy", "dt_m", "u_ocean", "v_ocean", "strength", "active", "b_u", "b_v",
-    "inv_dx", "inv_dy", "inv_w",
+    "inv_dx", "inv_dy", "inv_w", "a_node",
 )
 #: How many of the first const planes of that order the kernel can keep in
 #: shared memory, short of all of them (one kernel each, compiled).
 PARTIAL_COUNTS = (0, 1, 2)
 #: The kernel's const-plane order (MevpConsts of csrc/mevp_body.cuh).
-CONST_ORDER = cc._MEVP_CONSTS
+CONST_ORDER = MEVP_CONSTS
 
 
 @dataclass(frozen=True)
@@ -71,8 +78,8 @@ class Tiling:
     """TR x TC tiles (``tile``), ``tiles`` = (along i, along j) of them,
     one block of ``threads`` threads each (``threads / TC`` tile rows at a
     time, at most 8 rows a thread); ``room``: how many const planes fit
-    beside the state in a block's shared memory (at most the 12 of a
-    non-uniform mesh)."""
+    beside the state in a block's shared memory (at most the 13 of a
+    non-uniform mesh in the A-weighted form)."""
 
     tile: tuple
     tiles: tuple
@@ -83,17 +90,20 @@ class Tiling:
     def n_tiles(self) -> int:
         return self.tiles[0] * self.tiles[1]
 
-    def resident(self, metric: bool) -> tuple:
+    def resident(self, metric: bool, weighted: bool = False) -> tuple:
         """The const planes kept in shared memory: the first of
-        ``RESIDENT_ORDER`` among the mesh's const set, all of them where
-        ``room`` allows, else the most of ``PARTIAL_COUNTS`` that fit."""
-        names = [n for n in RESIDENT_ORDER if metric or n in UNIFORM_CONSTS]
+        ``RESIDENT_ORDER`` among the const set of the mesh and form (with
+        ``weighted``, a_node too), all of them where ``room`` allows, else
+        the most of ``PARTIAL_COUNTS`` that fit."""
+        consts = const_names(weighted, not metric)
+        names = [n for n in RESIDENT_ORDER if n in consts]
         if self.room >= len(names):
             return tuple(names)
         return tuple(names[: max(c for c in PARTIAL_COUNTS if c <= self.room)])
 
-    def shared_bytes(self, metric: bool) -> int:
-        return shared_bytes(self.tile, len(self.resident(metric)))
+    def shared_bytes(self, metric: bool, weighted: bool = False) -> int:
+        return shared_bytes(self.tile, len(self.resident(metric, weighted)))
+
 
 
 def shared_bytes(tile, n_consts: int = 0) -> int:
@@ -185,12 +195,14 @@ def largest_square(sms: int) -> int:
     return lo
 
 
-def max_blocks(device, config: Tiling, metric: bool) -> int:
-    """The most blocks of ``config``'s shape that can be resident at once:
-    the most tiles a launch of it takes."""
+def max_blocks(device, config: Tiling, metric: bool, form: int = 0) -> int:
+    """The most blocks of ``config``'s shape in a momentum form that can be
+    resident at once: the most tiles a launch of it takes."""
     device = torch.device(device)
+    weighted = bool(form & cc.FORM_WEIGHTED)
     count = cc._library().nst_mevp_single_max_blocks(
-        int(metric), *config.tile, len(config.resident(metric)), config.threads, device.index or 0,
+        int(metric), form, *config.tile, len(config.resident(metric, weighted)), config.threads,
+        device.index or 0,
     )
     if count <= 0:
         raise RuntimeError(f"mevp_single: no resident blocks (CUDA error {-count})")
@@ -233,12 +245,13 @@ def mevp_subcycles_single(
     nx, ny = u.shape
     device = u.device
     config = tiling(nx, ny, sm_count(device), None if tile is None else tuple(tile))
-    slots = _slots(config.resident(not solver.mesh.uniform))
+    slots = _slots(config.resident(not solver.mesh.uniform, solver.params.a_weighted_stress))
     scalars = cc._mevp_scalars(solver, dt)
     words = exchange(config, device)
     cc._launch(
         KERNEL, *(t.data_ptr() for t in planes), words.data_ptr(), cc._mevp_consts(consts),
-        nx, ny, n_subcycles, *config.tile, *config.tiles, config.threads, slots,
-        ctypes.addressof(scalars), device.index, cc._stream(device),
+        nx, ny, n_subcycles, *config.tile, *config.tiles, config.threads,
+        cc.mevp_form(solver.params), slots, ctypes.addressof(scalars), device.index,
+        cc._stream(device),
     )
     return planes

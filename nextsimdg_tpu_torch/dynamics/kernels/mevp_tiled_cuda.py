@@ -15,7 +15,10 @@ Plain version: N x ``MEVPSolver.subcycle_body``
 node bodies as ``mevp_stress``/``mevp_velocity`` of ``coupled_cuda``, so
 it also equals N rounds of that schedule bit for bit. It takes the 7
 uniform consts or the 12 with the metric planes of a graded or spherical
-mesh, read from L1/L2 where they are used.
+mesh, and a_node besides in the A-weighted form, read from L1/L2 where
+they are used; the solver's momentum form (``coupled_cuda.mevp_form``)
+selects the kernel's template instance, and the adaptive form keeps each
+cell's beta in registers beside c_w and inv_drag.
 """
 
 from __future__ import annotations
@@ -66,12 +69,14 @@ def cells_per_thread(tile: int, halo: int, threads: int) -> int:
     return -(-w // rows) if rows else 0
 
 
-def max_blocks(device, tile: int, halo: int, threads: int, metric: bool = False) -> int:
-    """Resident blocks per SM of a launch configuration on ``device``
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where it has no
-    kernel or does not fit)."""
+def max_blocks(device, tile: int, halo: int, threads: int, metric: bool = False, form: int = 0) -> int:
+    """Resident blocks per SM of a launch configuration on ``device`` in a
+    momentum form (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0
+    where it has no kernel or does not fit)."""
     device = torch.device(device)
-    blocks = cc._library().nst_mevp_tiled_max_blocks(tile, halo, threads, int(metric), device.index or 0)
+    blocks = cc._library().nst_mevp_tiled_max_blocks(
+        tile, halo, threads, int(metric), form, device.index or 0
+    )
     if blocks < 0:
         raise RuntimeError(f"mevp_tiled occupancy: CUDA error {-1 - blocks}")
     return blocks
@@ -100,6 +105,7 @@ def mevp_subcycles_tiled(
     scalars = cc._mevp_scalars(solver, dt)
     stream = cc._stream(u.device)
     const_ptrs = cc._mevp_consts(consts)
+    form = cc.mevp_form(solver.params)
     src = tuple(carry)
     buffers = [tuple(torch.empty_like(u) for _ in range(5)) for _ in range(2)]
     done = 0
@@ -108,7 +114,7 @@ def mevp_subcycles_tiled(
         dst = buffers[0] if src is not buffers[0] else buffers[1]
         cc._launch(
             KERNEL, *(t.data_ptr() for t in src), *(t.data_ptr() for t in dst), const_ptrs,
-            nx, ny, tile, halo, n_sub, threads, ctypes.addressof(scalars), u.device.index,
+            nx, ny, tile, halo, n_sub, threads, form, ctypes.addressof(scalars), u.device.index,
             stream,
         )
         src = dst

@@ -41,7 +41,7 @@ class RectMesh:
     ) -> None:
         if periodic_x or periodic_y:
             raise NotImplementedError(
-                "periodic meshes are not ported yet (ROADMAP M7b; on a rank grid M10b)"
+                "periodic meshes are not ported yet (ROADMAP M7c; on a rank grid M10b)"
             )
         self.nx = int(nx)
         self.ny = int(ny)

@@ -16,6 +16,13 @@ planes (``inv_dx``, ``inv_dy``, ``half_dx``, ``half_dy``, ``inv_w``), the
 metric forms of the strain rates and the stress divergence read them, and
 the 7 uniform consts become 12, as in the JAX package.
 
+Two momentum forms of ``MEVPParams`` change the subcycle, as in the JAX
+package: ``a_weighted_stress`` scales both surface stresses by the lumped
+nodal concentration (one more const plane, ``a_node``, and the nodes below
+``a_dyn_min`` held at rest) and ``adaptive_alpha`` gives every element and
+node its own alpha = beta (the aEVP stabilisation), at the price of the
+shared divide: two divides and a square root more a subcycle.
+
 The expression order is the JAX package's, operation for operation, so
 that the two agree to rounding at float64. Scalars stay Python floats, so
 a float32 state never promotes.
@@ -47,9 +54,11 @@ from .stencil import halo_widen, is_global_edge, shift_m, shift_p
 class MEVPParams:
     """Physical + numerical parameters (VP rheology and mEVP relaxation).
 
-    Field for field the JAX package's ``MEVPParams``; see there for the
-    meaning of the A-weighting and adaptive-alpha options, which this port
-    does not run yet.
+    Field for field the JAX package's ``MEVPParams``: ``a_weighted_stress``
+    scales the wind and ocean stresses by the nodal concentration A and
+    holds nodes with A below ``a_dyn_min`` at rest; ``adaptive_alpha`` sets
+    alpha = beta = max(``alpha_min``, ``c_stab`` sqrt(zeta dt / (m A))) per
+    node and subcycle in place of the fixed ``alpha`` and ``beta``.
     """
 
     rho_ice: float = 917.0  #: ice density [kg m-3]
@@ -103,6 +112,20 @@ class DynamicsForcing:
 #: graded or spherical mesh adds to them.
 UNIFORM_CONSTS = ("strength", "dt_m", "active", "b_u", "b_v", "u_ocean", "v_ocean")
 METRIC_CONSTS = ("inv_dx", "inv_dy", "half_dx", "half_dy", "inv_w")
+#: Every const plane in the kernels' order (MevpConsts in
+#: csrc/mevp_body.cuh): the uniform ones, the metric ones, and the nodal
+#: concentration of the A-weighted form.
+MEVP_CONSTS = UNIFORM_CONSTS + METRIC_CONSTS + ("a_node",)
+
+
+def const_names(weighted: bool, uniform: bool) -> tuple:
+    """The const planes that ``step_consts`` returns on a uniform or a
+    graded/spherical mesh, with or without ``a_weighted_stress``, in the
+    kernels' order."""
+    return tuple(
+        name for name in MEVP_CONSTS
+        if (name not in METRIC_CONSTS or not uniform) and (name != "a_node" or weighted)
+    )
 
 
 def _div(c: float, t: torch.Tensor) -> torch.Tensor:
@@ -148,10 +171,6 @@ class MEVPSolver:
     ) -> None:
         if mesh.periodic_x or mesh.periodic_y:
             raise NotImplementedError("only closed meshes are ported")
-        if params.a_weighted_stress:
-            raise NotImplementedError("a_weighted_stress is not ported yet")
-        if params.adaptive_alpha:
-            raise NotImplementedError("adaptive_alpha is not ported yet")
         self.spmd = tuple(spmd)
         on_grid = any(axis is not None for axis in self.spmd)
         if backend not in (SPMD_BACKENDS if on_grid else ("auto",)):
@@ -163,6 +182,12 @@ class MEVPSolver:
             raise NotImplementedError(
                 "rank grids run uniform meshes; graded and spherical blocks "
                 "(LocalMeshView) are ROADMAP M10b"
+            )
+        if on_grid and backend == "rdma" and (params.a_weighted_stress or params.adaptive_alpha):
+            raise NotImplementedError(
+                "the rdma schedule runs the fixed-alpha, unweighted form; rdma_band's "
+                "a_weighted_stress and adaptive_alpha forms are ROADMAP M10b (the "
+                "'blocked' schedule runs both)"
             )
         self.mesh = mesh
         self.params = params
@@ -327,7 +352,12 @@ class MEVPSolver:
         (mask * ice) factor, the constant numerator terms b_u/b_v =
         u_n + (dt/m) tau_a, and the ocean currents; on a non-uniform mesh
         also the five metric planes inv_w, inv_dx, inv_dy, half_dx and
-        half_dy (12 in all)."""
+        half_dy (12 in all); with ``a_weighted_stress`` also ``a_node``,
+        the lumped nodal concentration clipped to [0, 1], which weighs the
+        wind stress here (b_u, b_v) and the ocean drag in every subcycle,
+        and whose nodes below ``a_dyn_min`` are held at rest (``active``).
+        The names are
+        ``const_names(params.a_weighted_stress, mesh.uniform)``."""
         p = self.params
         px, py = self.mesh.periodic_x, self.mesh.periodic_y
 
@@ -353,25 +383,41 @@ class MEVPSolver:
 
         active = mask * ice_node.to(h.dtype)
         dt_m = _div(dt, m_safe)
+        wind_u, wind_v = dt_m * tau_au, dt_m * tau_av
+        if p.a_weighted_stress:
+            # The lumped nodal concentration (area-weighted as m_node),
+            # clipped to [0, 1]; nodes below a_dyn_min are held at rest.
+            a_node = torch.clamp(
+                cell_to_node(a * cell_area, px, py, self.spmd) / node_area, 0.0, 1.0
+            )
+            active = active * (a_node >= p.a_dyn_min).to(h.dtype)
+            wind_u, wind_v = dt_m * a_node * tau_au, dt_m * a_node * tau_av
         consts = dict(
             strength=strength,
             dt_m=dt_m,
             active=active,
-            b_u=state.u + dt_m * tau_au,
-            b_v=state.v + dt_m * tau_av,
+            b_u=state.u + wind_u,
+            b_v=state.v + wind_v,
             u_ocean=forcing.u_ocean,
             v_ocean=forcing.v_ocean,
         )
         if metric is not None:
             consts.update({name: metric[name] for name in METRIC_CONSTS})
+        if p.a_weighted_stress:
+            consts["a_node"] = a_node
         return consts
 
     def stress_update(self, carry, consts):
         """First half of a subcycle, per element: strain, Delta, the shared
         rheology/drag divide and the alpha-relaxed stress.
 
-        Returns (s11, s22, s12, c_w, inv_drag); c_w and inv_drag are node
-        planes (index (i, j) of the shared divide) for ``velocity_update``.
+        Returns (s11, s22, s12, c_w, inv_drag) and, with ``adaptive_alpha``,
+        the per-node beta last: the node planes (index (i, j) of the shared
+        divide) that ``velocity_update`` takes after ``consts``. With
+        ``a_node`` among the consts (``a_weighted_stress``) c_w is the
+        A-weighted drag coefficient. The adaptive form gives up the shared
+        divide: alpha depends on zeta, so 1/(Delta + Delta_min) and the drag
+        denominator are two divides, and alpha = beta a square root.
         """
         p = self.params
         e2 = p.ellipse * p.ellipse
@@ -389,22 +435,35 @@ class MEVPSolver:
             + 2.0 * e11 * e22 * (1.0 - 1.0 / e2)
             + 4.0 / e2 * e12 * e12
         )
-        # The rheology denominator (Delta + Delta_min, element (i, j)) and
-        # the drag denominator (1 + beta + dt_m c_w, node (i, j)) share ONE
-        # division: 1/a = (1/(a b)) b.
         rel_u = consts["u_ocean"] - u
         rel_v = consts["v_ocean"] - v
         c_w = p.rho_ocean * p.cd_ocean * torch.sqrt(rel_u * rel_u + rel_v * rel_v)
+        if "a_node" in consts:
+            c_w = c_w * consts["a_node"]  # the A-weighted ocean stress
         denom_rheo = delta + p.delta_min
-        denom_drag = 1.0 + p.beta + dt_m * c_w
-        inv_both = 1.0 / (denom_rheo * denom_drag)
-        inv_denom = inv_both * denom_drag
-        inv_drag = active * (inv_both * denom_rheo)
-        zeta = 0.5 * strength * inv_denom
+        if p.adaptive_alpha:
+            # Element (i, j)'s zeta and node (i, j)'s dt_m share an index,
+            # as the shared divide's two denominators do.
+            inv_denom = 1.0 / denom_rheo
+            zeta = 0.5 * strength * inv_denom
+            inv_area = consts["inv_w"] if graded else 1.0 / (self.mesh.dx * self.mesh.dy)
+            alpha = torch.clamp(p.c_stab * torch.sqrt(zeta * dt_m * inv_area), min=p.alpha_min)
+            beta = alpha
+            inv_drag = active / (1.0 + beta + dt_m * c_w)
+            inv_alpha = 1.0 / alpha
+        else:
+            # The rheology denominator (Delta + Delta_min, element (i, j))
+            # and the drag denominator (1 + beta + dt_m c_w, node (i, j))
+            # share ONE division: 1/a = (1/(a b)) b.
+            denom_drag = 1.0 + p.beta + dt_m * c_w
+            inv_both = 1.0 / (denom_rheo * denom_drag)
+            inv_denom = inv_both * denom_drag
+            inv_drag = active * (inv_both * denom_rheo)
+            zeta = 0.5 * strength * inv_denom
+            inv_alpha = 1.0 / p.alpha
         eta = zeta * (1.0 / e2)
         p_rep = strength * delta * inv_denom
 
-        inv_alpha = 1.0 / p.alpha
         div = e11 + e22
         s11_vp = 2.0 * eta * e11 + (zeta - eta) * div - 0.5 * p_rep
         s22_vp = 2.0 * eta * e22 + (zeta - eta) * div - 0.5 * p_rep
@@ -412,13 +471,23 @@ class MEVPSolver:
         s11 = s11 + (s11_vp - s11) * inv_alpha
         s22 = s22 + (s22_vp - s22) * inv_alpha
         s12 = s12 + (s12_vp - s12) * inv_alpha
+        if p.adaptive_alpha:
+            return s11, s22, s12, c_w, inv_drag, beta
         return s11, s22, s12, c_w, inv_drag
 
-    def velocity_update(self, carry, consts, c_w, inv_drag, dt: float):
+    def velocity_update(self, carry, consts, c_w, inv_drag, dt: float, beta=None):
         """Second half of a subcycle, per node: stress divergence and the
         beta-relaxed velocity update with semi-implicit ocean drag (the
-        Dirichlet mask is folded into ``inv_drag``). Returns (u, v)."""
+        Dirichlet mask is folded into ``inv_drag``). ``beta``: the per-node
+        plane that ``stress_update`` returns with ``adaptive_alpha``, None
+        for the fixed ``params.beta``. Returns (u, v)."""
         p = self.params
+        if (beta is not None) != p.adaptive_alpha:
+            raise ValueError(
+                "velocity_update takes the per-node beta of stress_update exactly when "
+                f"adaptive_alpha is on (adaptive_alpha={p.adaptive_alpha})"
+            )
+        beta = p.beta if beta is None else beta
         u, v, s11, s22, s12 = carry
         u_ocean, v_ocean = consts["u_ocean"], consts["v_ocean"]
         graded = "inv_dx" in consts
@@ -431,22 +500,20 @@ class MEVPSolver:
         cor_u = p.f_coriolis * (v - v_ocean) if p.use_coriolis else 0.0
         cor_v = -p.f_coriolis * (u - u_ocean) if p.use_coriolis else 0.0
         u_new = (
-            p.beta * u + consts["b_u"]
+            beta * u + consts["b_u"]
             + consts["dt_m"] * (fu + c_w * u_ocean) + dt * cor_u
         ) * inv_drag
         v_new = (
-            p.beta * v + consts["b_v"]
+            beta * v + consts["b_v"]
             + consts["dt_m"] * (fv + c_w * v_ocean) + dt * cor_v
         ) * inv_drag
         return u_new, v_new
 
     def subcycle_body(self, carry, consts, dt: float):
         """One mEVP subcycle: ``carry`` is (u, v, s11, s22, s12)."""
-        s11, s22, s12, c_w, inv_drag = self.stress_update(carry, consts)
+        s11, s22, s12, *nodes = self.stress_update(carry, consts)
         u, v = carry[0], carry[1]
-        u_new, v_new = self.velocity_update(
-            (u, v, s11, s22, s12), consts, c_w, inv_drag, dt
-        )
+        u_new, v_new = self.velocity_update((u, v, s11, s22, s12), consts, *nodes[:2], dt, *nodes[2:])
         return (u_new, v_new, s11, s22, s12)
 
     def boundary_mask(self, *, device, dtype):

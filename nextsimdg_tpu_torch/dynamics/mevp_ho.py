@@ -201,7 +201,10 @@ class MEVPSolverHO:
             # the dG1 stress at Gauss points.
             raise NotImplementedError("adaptive_alpha is implemented for the CG1 solver only")
         if params.a_weighted_stress:
-            raise NotImplementedError("a_weighted_stress is not ported for the HO solver yet")
+            raise NotImplementedError(
+                "a_weighted_stress is not ported for the HO solver yet (ROADMAP M7c: the "
+                "a_{k} planes of ho_single and ho_tiled)"
+            )
         if mesh.periodic_x or mesh.periodic_y:
             raise NotImplementedError("only closed meshes are ported")
         if not mesh.uniform:

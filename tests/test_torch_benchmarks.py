@@ -76,6 +76,24 @@ def test_advection_matches_the_jax_config_at_16(degree):
     assert result["value"] > 0 and result["chunk"] == 2
 
 
+@pytest.mark.parametrize("name", ["box_adaptive", "coupled_1m_aweighted"])
+def test_the_momentum_form_configs_report_the_jax_metric(name):
+    """The battery's adaptive-alpha box and A-weighted config 4 run at 16^2
+    on the CPU and name their metric as the JAX functions do
+    (``bench_box_adaptive``, ``bench_coupled_1m(a_weighted=True)``); the
+    coupled one adds the port's mEVP schedule, as its ``coupled_1m`` does."""
+    result = run_benchmarks.run_config(name, "cpu", **TINY)
+    n = TINY["n"]
+    if name == "box_adaptive":
+        expected = f"adaptive-alpha mEVP box element updates/s ({n}x{n}, 2 subcycles, f32)"
+    else:
+        expected = (
+            f"coupled thermo+dynamics element updates/s ({n}x{n} = {n * n / 1e6:.2g}M elements, "
+            "A-weighted, pallas, f32)"
+        )
+    assert result["metric"] == expected and result["value"] > 0
+
+
 def test_config_names_are_the_jax_battery_names():
     spec = importlib.util.spec_from_file_location(
         "jax_benchmarks_run_benchmarks", REPO / "benchmarks" / "run_benchmarks.py"
@@ -117,7 +135,7 @@ def test_entry_points_refuse_to_run_without_a_card():
         )
         assert done.returncode != 0 and not done.stdout
     done = subprocess.run(
-        [sys.executable, "-m", "nextsimdg_tpu_torch.benchmarks.run_benchmarks", "box_adaptive"],
+        [sys.executable, "-m", "nextsimdg_tpu_torch.benchmarks.run_benchmarks", "ho_coupled_1m_periodic"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert done.returncode == 2 and "unknown" in done.stderr

@@ -249,8 +249,8 @@ def test_interop_round_trip():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(mevp_params=coupled.MEVPParams(a_weighted_stress=True)), dict(spmd=("x", None)),
-        dict(tvb_m=0.0), dict(degree=2, mevp_params=coupled.MEVPParams(adaptive_alpha=True)),
+        dict(spmd=("x", "y"), mevp_params=coupled.MEVPParams(a_weighted_stress=True)),
+        dict(spmd=("x", None)), dict(tvb_m=0.0), dict(degree=2, tvb_m=1.0),
     ],
 )
 def test_unported_options_raise(kwargs):

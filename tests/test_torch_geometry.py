@@ -239,7 +239,8 @@ def test_the_kernels_take_the_sorted_const_set_of_the_mesh():
     cc._check_mevp(flat, carry, uniform)
     # The geometric scalars and table entries are not used on this mesh.
     scalars = list(cc._mevp_scalars(tsolver, DT))
-    assert np.isnan(scalars[0]) and np.isnan(scalars[12]) and scalars[-1] == DT
+    # dt, then the adaptive form's alpha_min and c_stab, close MevpScalars.
+    assert np.isnan(scalars[0]) and np.isnan(scalars[12]) and scalars[-3] == DT
     assert np.all(np.isnan(list(cc._dg1_tables(CoupledModel(tsolver.mesh).transport))[-4:]))
 
 

@@ -79,23 +79,38 @@ def assert_close(got, ref, tol):
     assert float((got - ref).abs().max()) <= tol * scale
 
 
-def setup(device, n=N, n_subcycles=100, ny=None, spherical=False, degree=1):
+def setup(device, n=N, n_subcycles=100, ny=None, spherical=False, degree=1, mevp_params=MEVPParams()):
+    """(model, carry, consts, tracers, rng) on seeded inputs. With a
+    momentum form (``mevp_params``) the cover is partial: the first quarter
+    of the rows has A below 0.06, some nodes below a_dyn_min; and the last
+    half of the rows is calm (velocities 1e-4 of the rest), where the
+    adaptive alpha rises above its floor."""
     rng = np.random.default_rng(0)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     shape = (n, n if ny is None else ny)
     if spherical:  # a pan-Arctic window with a coastline: metric consts, land
         mesh = SphericalMesh(*shape, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
         model = CoupledModel(
-            mesh, degree=degree, n_subcycles=n_subcycles, ocean_mask=synthetic_coastline(*shape)
+            mesh, degree=degree, n_subcycles=n_subcycles, ocean_mask=synthetic_coastline(*shape),
+            mevp_params=mevp_params,
         )
     else:
-        model = CoupledModel(RectMesh(*shape, 2000.0, 2000.0), degree=degree, n_subcycles=n_subcycles)
+        model = CoupledModel(
+            RectMesh(*shape, 2000.0, 2000.0), degree=degree, n_subcycles=n_subcycles,
+            mevp_params=mevp_params,
+        )
     carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
         u_atm=t(rng.normal(8.0, 2.0, shape)), v_atm=t(rng.normal(2.0, 2.0, shape)),
         u_ocean=t(rng.normal(0.0, 0.05, shape)), v_ocean=t(rng.normal(0.0, 0.05, shape)),
     )
     h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
+    if mevp_params != MEVPParams():
+        a[: shape[0] // 4] = t(rng.uniform(0.0, 0.06, (shape[0] // 4, shape[1])))
+        calm = shape[0] // 2
+        carry = (carry[0].clone(), carry[1].clone(), *carry[2:])
+        carry[0][calm:] *= 1e-4
+        carry[1][calm:] *= 1e-4
     mask = model.node_mask(device=device, dtype=torch.float32)
     consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
     k = model.transport.basis.n_dofs
@@ -409,6 +424,76 @@ def test_mevp_single_matches_plain_k1_and_tiled(device, spherical, n_sub, shape)
             assert_same_schedule(g, w)
     again = setup(device, n=shape[0], ny=shape[1], spherical=spherical)[1]
     assert all(torch.equal(c, a) for c, a in zip(carry, again))
+
+
+#: The momentum forms (MEVPParams) of the CG1 kernels' template instances.
+FORMS = {
+    "weighted": MEVPParams(a_weighted_stress=True),
+    "adaptive": MEVPParams(adaptive_alpha=True, alpha_min=20.0),
+    "both": MEVPParams(a_weighted_stress=True, adaptive_alpha=True, alpha_min=20.0),
+}
+
+
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_momentum_forms_match_plain_in_each_kernel(device, form, spherical):
+    """Each form of the four CG1 kernels with partial cover: mevp_stress and
+    mevp_velocity launch by launch against the plain halves (TOL_LAUNCH;
+    the adaptive form's beta too), K1's schedule over 11 subcycles against
+    plain (1e-3), and mevp_tiled (shipped and small tiles) and mevp_single
+    (the tiles the host picks and a forced tile) against K1's schedule bit
+    for bit (the same bodies)."""
+    params = FORMS[form]
+    model, carry, consts, _, _ = setup(device, n=100, ny=136, n_subcycles=11, spherical=spherical, mevp_params=params)
+    solver = model.mevp
+    if params.a_weighted_stress:
+        a_node = consts["a_node"]
+        assert bool(((a_node > 0) & (a_node < params.a_dyn_min)).any()) and float(a_node.max()) > 0.5
+    ref = solver.stress_update(carry, consts)
+    got = cc.mevp_stress(solver, carry, consts)
+    assert len(got) == len(ref) == (6 if params.adaptive_alpha else 5)
+    for g, r in zip(got, ref):
+        assert_close(g, r, TOL_LAUNCH)
+    if params.adaptive_alpha:
+        assert bool((ref[5] > params.alpha_min).any())
+    carry_v = (carry[0], carry[1], *ref[:3])
+    ref_uv = solver.velocity_update(carry_v, consts, *ref[3:5], DT, *ref[5:])
+    got_uv = cc.mevp_velocity(solver, carry_v, consts, *ref[3:5], DT, *ref[5:])
+    for g, r in zip(got_uv, ref_uv):
+        assert_close(g, r, TOL_LAUNCH)
+    plain = cc.mevp_subcycles_reference(solver, carry, consts, DT, 11)
+    k1 = cc.mevp_subcycles(solver, carry, consts, DT, 11)
+    for g, r in zip(k1, plain):
+        assert_close(g, r, 1e-3)
+    runs = [
+        mt.mevp_subcycles_tiled(solver, carry, consts, DT, 11),
+        mt.mevp_subcycles_tiled(solver, carry, consts, DT, 11, 16, 4, 256),
+        ms.mevp_subcycles_single(solver, carry, consts, DT, 11),
+        ms.mevp_subcycles_single(solver, carry, consts, DT, 11, tile=(10, 17)),
+    ]
+    for got in runs:
+        for g, q in zip(got, k1):
+            assert_same_schedule(g, q)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_momentum_forms_raise_on_what_the_kernels_do_not_take(device, form):
+    """A const set without a_node in the weighted form (or with it in the
+    adaptive one) and a beta in the wrong form are refused."""
+    params = FORMS[form]
+    model, carry, consts, _, _ = setup(device, n_subcycles=3, mevp_params=params)
+    wrong = dict(consts)
+    if params.a_weighted_stress:
+        del wrong["a_node"]
+    else:
+        wrong["a_node"] = carry[0]
+    for run in (cc.mevp_subcycles, mt.mevp_subcycles_tiled, ms.mevp_subcycles_single):
+        with pytest.raises(NotImplementedError, match="consts"):
+            run(model.mevp, carry, wrong, DT, 3)
+    halves = cc.mevp_stress(model.mevp, carry, consts)
+    beta = None if params.adaptive_alpha else carry[0]
+    with pytest.raises(ValueError, match="adaptive"):
+        cc.mevp_velocity(model.mevp, (*carry[:2], *halves[:3]), consts, *halves[3:5], DT, beta)
 
 
 def test_mevp_single_refuses_a_grid_that_cannot_be_resident(device):

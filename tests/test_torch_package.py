@@ -22,7 +22,7 @@ from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as ms
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
-from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState
+from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, VelocityState, const_names
 from nextsimdg_tpu_torch.dynamics import mevp_ho
 from nextsimdg_tpu_torch.dynamics.dgbasis import DG_DOFS, dg_basis
 from nextsimdg_tpu_torch.dynamics.mevp_ho import MEVPSolverHO
@@ -151,6 +151,7 @@ REPLACED = {
     "mevp_tiled.cu": "mevp_tiled.py::mevp_subcycles_tiled",
     "transport_tiled.cu": "transport_tiled.py::transport_substeps_tiled",
     "mevp_single.cu": "mevp_pallas.py::mevp_subcycles_pallas",
+    "mevp_single_adaptive.cu": "mevp_pallas.py::mevp_subcycles_pallas",
     "ho_single.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "ho_tiled.cu": "mevp_ho_tiled.py::ho_subcycles_tiled",
     "mevp_rdma.cu": "mevp_rdma.py::mevp_round_rdma",
@@ -457,10 +458,10 @@ def test_ho_single_refuses_a_grid_it_cannot_hold():
 
 
 #: Const planes that fit beside mevp_single's state in a block's shared
-#: memory, as mevp_single_cuda documents them: all 12 up to 512^2, the first
-#: two of RESIDENT_ORDER (half_dx, half_dy) at 1000 x 968, half_dx alone at
-#: 1024^2.
-MEVP_SINGLE_ROOM = {(128, 128): 12, (256, 256): 12, (512, 512): 12, (1000, 968): 2, (1024, 1024): 1}
+#: memory, as mevp_single_cuda documents them: all 13 (the metric set and
+#: a_node) up to 512^2, the first two of RESIDENT_ORDER (half_dx, half_dy)
+#: at 1000 x 968, half_dx alone at 1024^2.
+MEVP_SINGLE_ROOM = {(128, 128): 13, (256, 256): 13, (512, 512): 13, (1000, 968): 2, (1024, 1024): 1}
 
 
 @pytest.mark.parametrize("shape", list(MEVP_SINGLE_ROOM))
@@ -469,8 +470,9 @@ def test_mevp_single_tiling_covers_the_grid_and_fits(shape):
     with no empty tile, at most 8 tile rows a thread of up to 1024, the
     state and the resident const planes (each with its apron) within a
     block's shared memory, and the const planes resident in RESIDENT_ORDER
-    (the uniform set of 7 or the metric set of 12): all of them where they
-    fit, else the most of PARTIAL_COUNTS that fit."""
+    (the uniform set of 7 or the metric set of 12, with a_node 8 or 13 in
+    the A-weighted form): all of them where they fit, else the most of
+    PARTIAL_COUNTS that fit."""
     limit, sms = 232448, 132
     nx, ny = shape
     config = ms.tiling(nx, ny, sms)
@@ -481,12 +483,14 @@ def test_mevp_single_tiling_covers_the_grid_and_fits(shape):
     rows = config.threads // tc
     assert rows >= 1 and -(-tr // rows) <= 8
     assert config.room == MEVP_SINGLE_ROOM[shape]
-    for metric, n_consts in ((False, 7), (True, 12)):
-        resident = config.resident(metric)
+    for metric, weighted, n_consts in ((False, False, 7), (True, False, 12), (False, True, 8), (True, True, 13)):
+        resident = config.resident(metric, weighted)
         partial = max(c for c in ms.PARTIAL_COUNTS if c <= config.room)
         assert len(resident) == (n_consts if config.room >= n_consts else partial)
-        assert list(resident) == [n for n in ms.RESIDENT_ORDER if metric or n in ms.UNIFORM_CONSTS][:len(resident)]
-        assert config.shared_bytes(metric) == (5 + len(resident)) * (tr + 2) * (tc + 2) * 4 <= limit
+        names = const_names(weighted, not metric)
+        assert len(names) == n_consts
+        assert list(resident) == [n for n in ms.RESIDENT_ORDER if n in names][:len(resident)]
+        assert config.shared_bytes(metric, weighted) == (5 + len(resident)) * (tr + 2) * (tc + 2) * 4 <= limit
         assert len(resident) == n_consts or ms.shared_bytes(config.tile, len(resident) + 1) > limit
     if shape == (256, 256):
         assert config.tile == (16, 32) and config.n_tiles == 128 and config.threads == 512

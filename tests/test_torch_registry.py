@@ -84,7 +84,9 @@ def test_select_reset_and_the_static_instance(fresh):
 
 def test_the_dynamics_solvers_are_registered_in_order():
     loader = modules.get_loader()
-    assert loader.list_implementations(DYNAMICS) == ["Nextsim::MEVPDynamics", HO]
+    assert loader.list_implementations(DYNAMICS) == [
+        "Nextsim::MEVPDynamics", "Nextsim::FreeDrift", HO,
+    ]
     assert loader.get_instance(DYNAMICS) is MEVPSolver  # the registered instance is the class
     loader.set_implementation(DYNAMICS, HO)
     try:
