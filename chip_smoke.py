@@ -82,6 +82,20 @@ CFL-adaptive transport substeps:
   PyTorch, as in the JAX package; dg1_sample_cfl and transport_tiled), and
   the A-weighted 2 x 2 rank grid of 256^2 blocks (blocked: mevp_tiled on
   the widened blocks);
+* periodic axes and the TVB slope limiter (phase ``check_tvb_periodic``):
+  (a) the headline box periodic in both axes, dG1 rk2, from a state with
+  fronts (a seeded patch of thicker, looser ice and seeded moments), with
+  ``tvb_m`` = 0 (pure TVD) and with a middle M taken from that step's
+  |psi1| (the limiter then cuts some elements and keeps others: both
+  shares printed), on "auto" (mevp_tiled, transport_tiled's TVB form), on
+  K1's schedule (dg1_rk_stage's unlimited stage and dg1_limit a stage) and
+  on mevp_tiled with the staged transport; (b) config 4 periodic in both
+  axes at dG2 rk3 with the same two M on the same three schedules; (c) a
+  1024^2 lon-lat ring (0-360E, 60-85N, periodic in x) with the coastline,
+  without TVB on "auto" (mevp_single with its tiles in a ring,
+  transport_tiled), on mevp_single with the staged transport and on
+  mevp_tiled, and with M = 0 on "auto" (mevp_single, the staged transport
+  with dg1_limit and its tolerance planes) and on mevp_tiled;
 * the engine (``nextsimdg_tpu_torch.runtime``, ``python -m
   nextsimdg_tpu_torch``), which runs no kernel: BASELINE config 1
   (``run/dev1.cfg``: the 10 x 10 devgrid restart, 1 step of 1 s, dummy
@@ -163,7 +177,12 @@ Phases, each printed on its own lines:
    over 8 and 100 subcycles against it and against K1's schedule (and
    mevp_tiled; expected 0); the forms' paths one step against the plain
    path and 20 steps bounded (the rank grid's one step against the
-   single-device step, expected 0);
+   single-device step, expected 0); then (phase ``check_tvb_periodic``)
+   each periodic and TVB form launch by launch against its plain version
+   (TOL_LAUNCH) and the schedules against each other (expected 0), and the
+   periodic and TVB paths one step against the plain path and 3 steps
+   bounded, every kernel of the path launched (dg1_limit on the staged TVB
+   ones);
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -189,7 +208,10 @@ Phases, each printed on its own lines:
    version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
    rdma steps, box_adaptive beside box and coupled_1m_aweighted beside
    coupled_1m in turns, the blocked round against the rdma round, the dynamics step
-   at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; last,
+   at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; each
+   periodic and TVB form in turns with its closed (or untouched) instance,
+   and the periodic, TVB and ring steps in turns with their closed ones;
+   last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
    transport_tiled at 1024^2, ho_single and ho_tiled at their paths'
@@ -204,7 +226,8 @@ Any failure raises (non-zero exit); there is no CPU path. The script's wall
 time, the card's ``nvidia-smi`` name and power limit and the kernels' JSON
 summary come last but one; each kernel's row carries ``bound_ms`` on the
 data sheet's peaks and ``measured_bound_ms`` on the measured HBM and
-mul_add rates. The last line is ``{"ok": true, "device": {...}}``.
+mul_add rates, and each new periodic or TVB form of an earlier kernel has a
+row of its own ("mevp_stress (periodic form)", ...). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -268,6 +291,7 @@ N5_STEPS = 4
 K1 = "nextsimdg_tpu/dynamics/kernels/coupled_pallas.py:62"
 REPLACES = {
     "mevp_stress": K1, "mevp_velocity": K1, "dg1_sample_cfl": K1, "dg1_rk_stage": K1,
+    "dg1_limit": K1,
     "mevp_tiled": "nextsimdg_tpu/dynamics/kernels/mevp_tiled.py:173",
     "transport_tiled": "nextsimdg_tpu/dynamics/kernels/transport_tiled.py:105",
     "mevp_single": "nextsimdg_tpu/dynamics/kernels/mevp_pallas.py:49",
@@ -282,6 +306,7 @@ SOURCES = {
     "mevp_velocity": "nextsimdg_tpu_torch/csrc/mevp.cu",
     "dg1_sample_cfl": "nextsimdg_tpu_torch/csrc/transport.cu",
     "dg1_rk_stage": "nextsimdg_tpu_torch/csrc/transport.cu",
+    "dg1_limit": "nextsimdg_tpu_torch/csrc/transport_tvb.cu",
     "mevp_tiled": "nextsimdg_tpu_torch/csrc/mevp_tiled.cu",
     "transport_tiled": "nextsimdg_tpu_torch/csrc/transport_tiled.cu",
     "mevp_single": "nextsimdg_tpu_torch/csrc/mevp_single.cu",
@@ -650,35 +675,41 @@ def ptxas_report(text: str):
             elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound
                 axis = "along columns, x bands" if args[0][1] == "1" else "along rows, y bands"
                 kernel += f"<{axis}, {args[1][1]} threads>"
-            elif kernel == "transport_tiled_kernel":  # degree, metric, qv, copy form
+            elif kernel == "transport_tiled_kernel":  # degree, metric, qv, copy form, TVB, periodic
                 kernel += "<" + ", ".join((
                     f"dG{args[0][1]}", "metric" if args[1][1] == "1" else "uniform",
                     "qv" if args[2][1] == "1" else "cg1",
                     "16-byte copies" if args[3][1] == "4" else "4-byte copies",
-                )) + ">"
+                ) + tuple(name for name, arg in zip(("TVB", "periodic"), args[4:]) if arg[1] == "1")) + ">"
             elif kernel == "ho_single_kernel":  # consts in shared memory
                 kernel += "<consts shared>" if args[0][1] == "1" else "<consts global>"
             elif kernel == "ho_single_sync_kernel":
                 kernel += "<grid sync>" if args[0][1] == "1" else "<neighbours>"
             elif kernel == "ho_tiled_kernel" and args:  # the sub-window width, 0: any
                 kernel += f"<width {args[0][1]}>" if args[0][1] != "0" else "<any width>"
-            elif kernel == "dg1_rk_stage_kernel":  # degree, tracers, metric, qv, blend, limit
+            elif kernel == "dg1_rk_stage_kernel":  # degree, tracers, metric, qv, blend, limit, periodic
                 kernel += "<" + ", ".join((
                     f"dG{args[0][1]}", f"{args[1][1]} tracers", "metric" if args[2][1] == "1" else "uniform",
                     "qv" if args[3][1] == "1" else "cg1", "blended" if args[4][1] == "1" else "a = 0",
                     "limited" if args[5][1] == "1" else "no limit",
-                )) + ">"
-            elif kernel == "dg1_sample_cfl_kernel":  # elements a lane, volume points
+                ) + tuple("periodic" for arg in args[6:] if arg[1] == "1")) + ">"
+            elif kernel == "dg1_sample_cfl_kernel":  # elements a lane, volume points, periodic
                 kernel += "<" + ("16-byte loads" if args[0][1] == "4" else "4-byte loads") + (
-                    ", 3x3 points (dG2)" if args[1][1] == "9" else ", 2x2 points (dG0, dG1)") + ">"
+                    ", 3x3 points (dG2)" if args[1][1] == "9" else ", 2x2 points (dG0, dG1)") + (
+                    ", periodic" if args[3:] and args[3][1] == "1" else "") + ">"
+            elif kernel == "dg1_limit_kernel":  # degree, metric tolerance planes
+                kernel += f"<dG{args[0][1]}, {'metric' if args[1][1] == '1' else 'uniform'}>"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
                 names = ["metric" if args[0][1] == "1" else "uniform"]
                 if kernel == "mevp_tiled_kernel":  # then the window width
                     names.append(f"width {args[1][1]}" if args[1][1] != "0" else "any width")
                 if kernel == "mevp_single_kernel":  # then the const planes in shared memory
                     names.append(f"{args[1][1]} const planes in shared memory")
-                if args[-1][0] == "i" and kernel.startswith("mevp_"):  # the momentum form last
-                    names.append(MOMENTUM_FORM_NAMES[int(args[-1][1])])
+                ints = [value for kind, value in args[1:] if kind == "i"]
+                if ints and kernel.startswith("mevp_"):  # the momentum form, then the periodic form
+                    names.append(MOMENTUM_FORM_NAMES[int(ints[-1])])
+                    if args[-1] == ("b", "1"):
+                        names.append("periodic")
                 kernel += "<" + ", ".join(names) + ">"
         elif "spill" in line:
             spills = line.strip()
@@ -1247,12 +1278,15 @@ def max_u(velocity) -> float:
 
 
 def check_land(tag: str, model, out, first) -> None:
-    """With a coastline: land elements keep their initial tracers exactly,
-    and every node that touches land (node mask 0) is at rest."""
+    """With a coastline: land elements keep their initial tracers exactly
+    (with the TVB limiter, which limits the slopes of every element as the
+    JAX package's does, their cell means), and every node that touches land
+    (node mask 0) is at rest."""
     device = out.hice.device
     land = torch.as_tensor(model.ocean_mask == 0.0, device=device)
+    kept = slice(0, 1) if model.transport.limits_slopes else slice(None)
     for name in ("hice", "cice", "hsnow"):
-        if not torch.equal(getattr(out, name)[:, land], getattr(first, name)[:, land]):
+        if not torch.equal(getattr(out, name)[kept][:, land], getattr(first, name)[kept][:, land]):
             raise AssertionError(f"{tag}: {name} changed on land")
     pinned = model.node_mask(device=device, dtype=out.hice.dtype) == 0.0
     for name in ("u", "v"):
@@ -1274,17 +1308,17 @@ def compare_step(tag: str, got, ref) -> None:
         compare(f"{tag}.velocity.{name}", g, r, TOL_STEP_MEVP)
 
 
-def drive_path(path: str, model, state, phys, dyn, do_thermo: bool) -> dict:
-    """20 steps from zeroed launch counters; fails unless every kernel of
-    the path was launched."""
+def drive_path(path: str, model, state, phys, dyn, do_thermo: bool, n_steps: int = 20) -> dict:
+    """n_steps steps from zeroed launch counters; fails unless every kernel
+    of the path was launched."""
     cc.reset_launches()
-    out = model.run(state, phys, dyn, DT, 20, do_thermo=do_thermo)
+    out = model.run(state, phys, dyn, DT, n_steps, do_thermo=do_thermo)
     torch.cuda.synchronize()
     counts = dict(cc.launches)
-    log("slice", f"{path}: 20 steps, launches: {counts}")
-    check_bounded(f"{path}: 20 steps", out, state)
+    log("slice", f"{path}: {n_steps} steps, launches: {counts}")
+    check_bounded(f"{path}: {n_steps} steps", out, state)
     if model.ocean_mask is not None:
-        check_land(f"{path}: 20 steps", model, out, state)
+        check_land(f"{path}: {n_steps} steps", model, out, state)
     missing = [name for name in PATH_KERNELS[path] if counts[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -2822,6 +2856,492 @@ def check_roofline(device, card: str) -> tuple:
     return counts, Row(err, ms, plain_ms, *work, fused=True), ceilings
 
 
+# -- periodic axes and the TVB limiter (M7c items 1-2) ------------------------------------------
+#: Steps of each periodic or TVB path from zeroed launch counts (20 on the
+#: earlier paths): every kernel of the path launches in each step.
+TVB_STEPS = 3
+#: The kernels of each schedule, and with the TVB limiter on a staged one.
+SCHEDULE_KERNELS = {
+    ("pallas", "xla"): ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    ("pallas-tiled", "tiled"): ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    ("pallas-tiled", "xla"): ("mevp_tiled", "dg1_sample_cfl", "dg1_rk_stage"),
+    ("single", "tiled"): ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
+    ("single", "xla"): ("mevp_single", "dg1_sample_cfl", "dg1_rk_stage"),
+}
+#: The paths of phase check_tvb_periodic: (a) the 256^2 headline periodic in
+#: both axes, dG1 rk2, with tvb_m = 0 and the middle M; (b) config 4's
+#: 1024^2, periodic in both axes, dG2 rk3, the same two; (c) the 1024^2 ring
+#: (lon 0-360, periodic in x, lat 60-85) with the coastline, without TVB and
+#: with M = 0. Each on "auto" and on every explicit schedule that applies:
+#: (path, mesh kind, tvb: None, 0.0 or "mid", backends, the schedule).
+TVB_PATHS = [
+    (f"tvb_{kind}_{name}_{m}", kind, tvb, backends, schedule)
+    for kind, tvbs, schedules in (
+        ("headline", ((0.0, "m0"), ("mid", "mmid")), (
+            ("auto", {}, ("pallas-tiled", "tiled")),
+            ("k1", {"mevp_backend": "pallas"}, ("pallas", "xla")),
+            ("tiled_staged", {"mevp_backend": "pallas-tiled", "transport_backend": "xla"}, ("pallas-tiled", "xla")),
+        )),
+        ("config4", ((0.0, "m0"), ("mid", "mmid")), (
+            ("auto", {}, ("pallas-tiled", "tiled")),
+            ("k1", {"mevp_backend": "pallas"}, ("pallas", "xla")),
+            ("tiled_staged", {"mevp_backend": "pallas-tiled", "transport_backend": "xla"}, ("pallas-tiled", "xla")),
+        )),
+    )
+    for tvb, m in tvbs
+    for name, backends, schedule in schedules
+] + [
+    ("ring_auto", "ring", None, {}, ("single", "tiled")),
+    ("ring_single_staged", "ring", None, {"transport_backend": "xla"}, ("single", "xla")),
+    ("ring_tiled", "ring", None, {"mevp_backend": "pallas-tiled"}, ("pallas-tiled", "tiled")),
+    ("tvb_ring_auto_m0", "ring", 0.0, {}, ("single", "xla")),
+    ("tvb_ring_tiled_m0", "ring", 0.0, {"mevp_backend": "pallas-tiled"}, ("pallas-tiled", "xla")),
+]
+PATH_KERNELS.update({
+    path: SCHEDULE_KERNELS[schedule] + (("dg1_limit",) if tvb is not None and schedule[1] == "xla" else ())
+    for path, _, tvb, _, schedule in TVB_PATHS
+})
+#: The new forms' rows of the kernels line: row -> (kernel, source, the
+#: paths whose launches of that kernel are the form's). The periodic rows
+#: count the launches of their kernel on the periodic paths (all of them);
+#: the TVB rows those of the TVB paths, which are periodic too (their
+#: closed instances, in transport_tvb.cu and transport_tiled_forms.cu, are
+#: the cuda tests').
+_TVB = [p for p, _, tvb, _, _ in TVB_PATHS if tvb is not None]
+_ALL = [p for p, *_ in TVB_PATHS]
+FORM_ROWS = {
+    "mevp_stress periodic": ("mevp_stress", "nextsimdg_tpu_torch/csrc/mevp.cu", _ALL),
+    "mevp_velocity periodic": ("mevp_velocity", "nextsimdg_tpu_torch/csrc/mevp.cu", _ALL),
+    "dg1_sample_cfl periodic": ("dg1_sample_cfl", "nextsimdg_tpu_torch/csrc/transport.cu", _ALL),
+    "dg1_rk_stage periodic": ("dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_periodic.cu", _ALL),
+    "dg1_rk_stage tvb": ("dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_periodic.cu", _TVB),
+    "mevp_tiled periodic": ("mevp_tiled", "nextsimdg_tpu_torch/csrc/mevp_tiled_periodic.cu", _ALL),
+    "transport_tiled periodic": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_forms.cu", _ALL),
+    "transport_tiled tvb": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_forms.cu", _TVB),
+    "mevp_single periodic": ("mevp_single", "nextsimdg_tpu_torch/csrc/mevp_single_periodic.cu", _ALL),
+}
+#: Rows of the new forms, and per row the (periodic or TVB form, its
+#: closed or untouched instance, plain version, (bytes, operations)) that
+#: time_tvb_periodic times in turns.
+TVB_FORMS = {}
+TVB_TIMED = {}
+
+
+def ring_mesh(n: int = None):
+    """The 360 degree lon-lat ring (lat 60-85), periodic in x; n^2
+    elements (config 4's size by default)."""
+    n = N4 if n is None else n
+    return SphericalMesh(n, n, lon0=0.0, lon1=360.0, lat0=60.0, lat1=85.0, periodic_x=True)
+
+
+def with_fronts(state, seed: int):
+    """``state`` with fronts: a seeded patch of thicker, looser ice with more
+    snow, and seeded sub-element moments, so that the TVB limiter has
+    slopes to cut."""
+    nx, ny = state.hice.shape[-2:]
+    rng = np.random.default_rng(seed)
+    patch = np.zeros((nx, ny), dtype=np.float32)
+    i0, j0 = rng.integers(nx // 8, nx // 2), rng.integers(ny // 8, ny // 2)
+    patch[i0: i0 + nx // 3, j0: j0 + ny // 3] = 1.0
+    device = state.hice.device
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+
+    def front(c, jump):
+        c = c.clone()
+        c[0] += jump * t(patch)
+        c[1:] = t(rng.normal(0.0, 0.02 * abs(jump), tuple(c[1:].shape)))
+        return c
+
+    return replace(state, hice=front(state.hice, 1.0), cice=front(state.cice, -0.4),
+                   hsnow=front(state.hsnow, 0.05))
+
+
+def middle_m(coeffs, mesh) -> float:
+    """The TVB constant M at which about half of the elements of ``coeffs``
+    (K, nx, ny) keep both linear moments within their tolerances M dx^2 and
+    M dy^2 (per element on a graded or spherical mesh): the median of the
+    larger of |psi1| / dx^2 and |psi2| / dy^2."""
+    plane = lambda w: torch.as_tensor(
+        np.broadcast_to(np.asarray(w, dtype=np.float64), (mesh.nx, mesh.ny)).copy())
+    c = coeffs.double().cpu()
+    ratio = torch.maximum(c[1].abs() / plane(mesh.dx) ** 2, c[2].abs() / plane(mesh.dy) ** 2)
+    return float(ratio[ratio > 0].median())
+
+
+def tvb_shares(transport, tracers) -> tuple:
+    """(cut, kept): the shares of elements where the TVB limiter (plain)
+    changes a linear moment of some tracer, and where it changes none."""
+    stacked = torch.stack([tracers.hice, tracers.cice, tracers.hsnow], dim=1)
+    limited = transport.limit_slopes(stacked)
+    cut = (limited[1:3] != stacked[1:3]).any(dim=0).any(dim=0)
+    share = float(cut.float().mean())
+    return share, 1.0 - share
+
+
+def tvb_path_model(device, kind: str, tvb_m, backends: dict):
+    """(model, state, phys, dyn, do_thermo) of a TVB or periodic path."""
+    if kind == "headline":
+        mesh = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N, periodic_x=True, periodic_y=True)
+        model = CoupledModel(mesh, degree=1, n_subcycles=N_SUBCYCLES, tvb_m=tvb_m, **backends)
+        state = model.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, sst0=-1.6, sss0=32.0,
+                                    device=device, dtype=torch.float32)
+        full = lambda value: torch.full((N, N), value, device=device, dtype=torch.float32)
+        dyn = DynamicsForcing(u_atm=full(8.0), v_atm=full(2.0), u_ocean=full(0.02), v_ocean=full(0.0))
+        return model, with_fronts(state, SEED + 30), None, dyn, False
+    if kind == "config4":
+        mesh = RectMesh(N4, N4, dx=4e3, dy=4e3, periodic_x=True, periodic_y=True)
+        model, state, phys, dyn = coupled_model(device, mesh, None, degree=2, tvb_m=tvb_m, **backends)
+        return model, with_fronts(state, SEED + 31), phys, dyn, True
+    model, state, phys, dyn = coupled_model(device, ring_mesh(), synthetic_coastline(N4), tvb_m=tvb_m, **backends)
+    return model, with_fronts(state, SEED + 32), phys, dyn, True
+
+
+def tvb_plain(model, state, phys, dyn, do_thermo):
+    state = model.step_dynamics(state, dyn, DT, phase=cc.fused_dynamics_reference)
+    return model.step_thermo(state, phys, DT) if do_thermo else state
+
+
+def check_tvb_paths(device) -> dict:
+    """Each TVB and periodic path (TVB_PATHS) on its schedule: one step
+    against the plain path on the card, then TVB_STEPS steps from zeroed
+    launch counts (finite, bounded, land untouched, every kernel of the
+    path launched). The middle M of a kind comes from the |psi1| of the
+    hice that enters its steps (``middle_m``), and each TVB path prints the
+    shares of elements its limiter cuts and keeps on the tracers that enter
+    the step. Returns the counts by path."""
+    counts, mid = {}, {}
+    for path, kind, tvb, backends, expected in TVB_PATHS:
+        tvb_m = mid[kind] if tvb == "mid" else tvb
+        model, state, phys, dyn, do_thermo = tvb_path_model(device, kind, tvb_m, backends)
+        mesh = model.mesh
+        schedule = model.schedule(device)
+        log("slice", (
+            f"{path}: {mesh.nx}x{mesh.ny} {type(mesh).__name__} periodic "
+            f"({mesh.periodic_x}, {mesh.periodic_y}), dG{model.transport.basis.degree} "
+            f"{model.transport.scheme}, tvb_m {tvb_m}, schedule {schedule}"
+        ))
+        if schedule != expected:
+            raise AssertionError(f"{path} does not run {expected}: {schedule}")
+        got = model.step(state, phys, dyn, DT, do_thermo=do_thermo)
+        ref = tvb_plain(model, state, phys, dyn, do_thermo)
+        if do_thermo:
+            compare_step(f"{path}.step", got, ref)
+        else:
+            for name, g, r in leaves(got, ref):
+                compare(f"{path}.step.{name}", g, r, TOL_STEP_MEVP if name.startswith("velocity") else TOL_STEP_TRACER)
+        if tvb == 0.0 and kind not in mid:
+            mid[kind] = middle_m(state.hice, mesh)
+            log("slice", f"{kind}: the middle M from the step's |psi1|: {mid[kind]:.4e}")
+        if tvb is not None:
+            cut, kept = tvb_shares(model.transport, state)
+            log("slice", f"{path}: the limiter cuts {cut:.4f} of the elements and keeps {kept:.4f} of the step's tracers")
+            if tvb == "mid" and not (cut > 0.05 and kept > 0.05):
+                raise AssertionError(f"{path}: the middle M does not take both branches ({cut:.4f} cut)")
+        counts[path] = drive_path(path, model, state, phys, dyn, do_thermo, n_steps=TVB_STEPS)
+    return counts
+
+
+def periodic_inputs(nx, ny, device, seed, spherical=False, degree=1):
+    """``tiled_inputs`` on the periodic counterpart of its mesh: uniform
+    periodic in both axes, or the ring (periodic in x) with the coastline;
+    (model, carry, consts, psi, faces)."""
+    model, carry, _, _, _ = tiled_inputs(nx, ny, device, seed, spherical)
+    mesh = ring_mesh(nx) if spherical else RectMesh(nx, ny, 4e3, 4e3, periodic_x=True, periodic_y=True)
+    model = CoupledModel(mesh, degree=degree, n_subcycles=N_SUBCYCLES, ocean_mask=model.ocean_mask)
+    rng = np.random.default_rng(seed + 200)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    forcing = DynamicsForcing(
+        u_atm=t(rng.normal(6.0, 2.0, (nx, ny))), v_atm=t(rng.normal(3.0, 2.0, (nx, ny))),
+        u_ocean=t(rng.normal(0.0, 0.05, (nx, ny))), v_ocean=t(rng.normal(0.0, 0.05, (nx, ny))),
+    )
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(VelocityState(*carry), t(rng.uniform(0.2, 2.0, (nx, ny))),
+                                    t(rng.uniform(0.3, 1.0, (nx, ny))), forcing, mask, DT)
+    k = model.transport.basis.n_dofs
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, nx, ny)), rng.normal(0.0, 0.3, (k - 1, 3, nx, ny))]))
+    faces = model.face_masks(device=device, dtype=torch.float32) or (torch.ones_like(carry[0]),) * 2
+    return model, carry, consts, psi, faces
+
+
+def closed_twin(model, tvb_m=None):
+    """The model on the closed counterpart of its mesh (the closed instance)."""
+    m = model.mesh
+    mesh = (spherical_mesh(m.nx, m.ny) if isinstance(m, SphericalMesh)
+            else RectMesh(m.nx, m.ny, m.dx, m.dy))
+    return CoupledModel(mesh, degree=model.transport.basis.degree, n_subcycles=N_SUBCYCLES,
+                        ocean_mask=model.ocean_mask, tvb_m=tvb_m)
+
+
+def tvb_limit_ops(degree: int) -> int:
+    """float32 operations of dg1_limit an element and tracer: 4 mean
+    differences, each linear moment's tolerance test and minmod (3 signs, 2
+    compares, 3 absolute values, 2 minima, a multiply and 2 selects), at dG2
+    the cut test (2 differences, 2 absolute values, 2 compares) and 3
+    multiplies, then the positivity limiter."""
+    positivity = stage_cell_ops(degree, False, True) - stage_cell_ops(degree, False, False)
+    return 4 + 2 * 14 + (9 if degree == 2 else 0) + positivity
+
+
+def timed_form(label: str, err: float, form, closed, plain, work: tuple) -> None:
+    """Registers a new form's row: its check error now, its times in turns
+    with its closed (or untouched) instance in time_tvb_periodic."""
+    TVB_FORMS[label] = Row(err, 0.0, 0.0, *work)
+    TVB_TIMED[label] = (form, closed, plain)
+
+
+def check_tvb_launches(device) -> dict:
+    """Each new form launch by launch against its plain version at its
+    path's shape, and the periodic schedules against each other: the
+    periodic mevp_stress, mevp_velocity, dg1_sample_cfl and dg1_rk_stage at
+    256^2 (both axes), dg1_rk_stage's unlimited TVB stage and dg1_limit
+    (an M that cuts some slopes and keeps others) at 256^2 dG1, 1024^2 dG2
+    and on the 1024^2 ring (its tolerance planes), mevp_tiled (1 and 8
+    subcycles) and transport_tiled (TVB at dG2 rk3, periodic at dG1 rk2) at
+    1024^2, mevp_single (1 and 100 subcycles) on the ring. Each section is a
+    function of its own, so that the timed closures keep its inputs.
+    Returns the largest error per kernel."""
+    errs = dict.fromkeys(("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage", "dg1_limit",
+                          "mevp_tiled", "transport_tiled", "mevp_single"), 0.0)
+
+    def held(kernel, tag, got, ref, tol):
+        for i, (g, r) in enumerate(zip(got, ref)):
+            errs[kernel] = max(errs[kernel], compare(f"{tag} [{i}]", g, r, tol))
+
+    stream = cc._stream(device)
+    _periodic_k1_launches(device, held, errs, stream)
+    for tag, case in {
+        f"{N}^2 dG1": (N, False, 1), f"{N4}^2 dG2": (N4, False, 2), f"{N4}^2 ring dG1": (N4, True, 1),
+    }.items():
+        _tvb_stage_launches(device, held, errs, stream, tag, *case)
+    _periodic_tiled_launches(device, held, errs)
+    _ring_single_launches(device, held, errs)
+    for label, row in TVB_FORMS.items():
+        TVB_FORMS[label] = replace(row, err=errs[label.split()[0]])
+    torch.cuda.synchronize()
+    return errs
+
+
+def _periodic_k1_launches(device, held, errs, stream) -> None:
+    """K1's four kernels periodic in both axes at 256^2."""
+    n = N * N
+    model, carry, consts, psi, faces = periodic_inputs(N, N, device, SEED + 40)
+    solver, tr = model.mevp, model.transport
+    ref = solver.stress_update(carry, consts)
+    held("mevp_stress", f"mevp_stress {N}x{N} periodic", cc.mevp_stress(solver, carry, consts), ref, TOL_LAUNCH)
+    carry_v = (carry[0], carry[1], *ref[:3])
+    nodes = (ref[3], ref[4], DT)
+    held("mevp_velocity", f"mevp_velocity {N}x{N} periodic", cc.mevp_velocity(solver, carry_v, consts, *nodes),
+         solver.velocity_update(carry_v, consts, *nodes), TOL_LAUNCH)
+    u, v = carry[0] * 5.0, carry[1] * 5.0
+    speeds = cc.dg1_sample_cfl(tr, u, v)
+    errs["dg1_sample_cfl"] = compare(f"dg1_sample_cfl {N}x{N} periodic speeds", speeds,
+                                     cc.dg1_sample_cfl_reference(tr, u, v), 0.0)
+    base = psi.flip(-1).contiguous()
+    args = (tr, psi, base, carry[0], carry[1], *faces, 0.5, 0.5, 300.0)
+    held("dg1_rk_stage", f"dg1_rk_stage {N}x{N} periodic", [cc.dg1_rk_stage(*args)],
+         [cc.dg1_rk_stage_reference(*args)], TOL_LAUNCH)
+    planes = tuple(p.clone() for p in carry)
+    c_w, inv_drag = torch.empty_like(carry[0]), torch.empty_like(carry[0])
+    scalars, tables, ptrs = cc._mevp_scalars(solver, DT), cc._dg1_tables(tr), cc._mevp_consts(consts)
+    wrap = cc.wrap_bits(model.mesh)
+    zeros2, out = torch.zeros(2, device=device), torch.empty_like(psi)
+
+    def half(name, w):
+        return lambda: cc._mevp_half_(name, planes, ptrs, c_w, inv_drag, scalars, stream, None, w)
+
+    def stage(w):
+        return lambda: cc._dg1_rk_stage_(psi, base, carry[0], carry[1], *faces, None, out, 0.5, 0.5, 300.0,
+                                         tables, stream, wrap=w)
+
+    timed_form("mevp_stress periodic", errs["mevp_stress"], half("mevp_stress", wrap), half("mevp_stress", 0),
+               lambda: solver.stress_update(carry, consts), (15 * 4 * n, OPS["stress"] * n))
+    timed_form("mevp_velocity periodic", errs["mevp_velocity"], half("mevp_velocity", wrap),
+               half("mevp_velocity", 0), lambda: solver.velocity_update(carry_v, consts, *nodes),
+               (14 * 4 * n, OPS["velocity"] * n))
+    timed_form("dg1_sample_cfl periodic", errs["dg1_sample_cfl"],
+               lambda: cc._dg1_sample_cfl_(u, v, zeros2, tables, stream, wrap=wrap),
+               lambda: cc._dg1_sample_cfl_(u, v, zeros2, tables, stream),
+               lambda: cc.dg1_sample_cfl_reference(tr, u, v), (2 * 4 * n + 8, OPS["cfl"] * n))
+    timed_form("dg1_rk_stage periodic", errs["dg1_rk_stage"], stage(wrap), stage(0),
+               lambda: cc.dg1_rk_stage_reference(*args), stage_work(1, n, False, False, True))
+
+
+def _tvb_stage_launches(device, held, errs, stream, tag, nx, spherical, degree) -> None:
+    """The TVB form at one shape: the unlimited stage and dg1_limit, with M
+    cutting some slopes and keeping others; at 256^2 its timed rows."""
+    model, carry, consts, psi, faces = periodic_inputs(nx, nx, device, SEED + 41, spherical, degree)
+    tr = model.transport
+    tr.tvb_m = middle_m(psi[:, 0], model.mesh)
+    base = psi.flip(-1).contiguous()
+    args = (tr, psi, base, carry[0], carry[1], *faces, 0.5, 0.5, 300.0)
+    unlimited = cc.dg1_rk_stage(*args, tvb=True)
+    held("dg1_rk_stage", f"dg1_rk_stage TVB stage {tag}", [unlimited],
+         [cc.dg1_rk_stage_reference(*args, tvb=True)], TOL_LAUNCH)
+    limited = cc.dg1_limit(tr, unlimited)
+    held("dg1_limit", f"dg1_limit {tag}", [limited], [cc.dg1_limit_reference(tr, unlimited)], TOL_LAUNCH)
+    share = float((limited[1:3] != unlimited[1:3]).any(dim=0).float().mean())
+    log("check", f"dg1_limit {tag}: M = {tr.tvb_m:.4e} cuts {share:.4f} of the element tracers, keeps {1 - share:.4f}")
+    if not 0.05 < share < 0.95:
+        raise AssertionError(f"dg1_limit {tag}: M does not take both branches")
+    if nx != N:
+        return
+    n = N * N
+    work = stage_work(1, n, False, False, True)
+    limit_ops = stage_cell_ops(1, True, True) - stage_cell_ops(1, True, False)
+    out = torch.empty_like(psi)
+    wrap, tables = cc.wrap_bits(model.mesh), cc._dg1_tables(tr)
+
+    def stage(tvb):
+        return lambda: cc._dg1_rk_stage_(psi, base, carry[0], carry[1], *faces, None, out, 0.5, 0.5, 300.0,
+                                         tables, stream, tvb=tvb, wrap=wrap)
+
+    timed_form("dg1_rk_stage tvb", errs["dg1_rk_stage"], stage(True), stage(False),
+               lambda: cc.dg1_rk_stage_reference(*args, tvb=True),
+               (work[0], work[1] - cc.STAGE_TRACERS * limit_ops * n))
+    # In place on a scratch copy: from its second call on the input is the
+    # limited stage, which the limiter reads as it would any other.
+    tolerances = tr.tvb_tolerances(device=device, dtype=torch.float32)
+    scratch = unlimited.clone()
+    timed_form("dg1_limit", errs["dg1_limit"], lambda: cc._dg1_limit_(scratch, tolerances, tables, stream, wrap),
+               None, lambda: cc.dg1_limit_reference(tr, unlimited),
+               ((2 * 3 - 1) * 3 * 4 * n, 3 * tvb_limit_ops(1) * n))
+
+
+def _periodic_tiled_launches(device, held, errs) -> None:
+    """mevp_tiled and transport_tiled at 1024^2, periodic in both axes
+    (transport_tiled also in its TVB form at dG2 rk3)."""
+    n = N4 * N4
+    model, carry, consts, psi, faces = periodic_inputs(N4, N4, device, SEED + 42)
+    solver, closed = model.mevp, closed_twin(model)
+    for n_sub, tol in ((1, TOL_LAUNCH), (TILED_SUBCYCLES, TOL_STEP_MEVP)):
+        got = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n_sub)
+        ref = mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, n_sub)
+        k1 = cc.mevp_subcycles(solver, carry, consts, DT, n_sub)
+        for name, g, r, q in zip(VELOCITY, got, ref, k1):
+            tag = f"mevp_tiled {N4}x{N4} periodic N={n_sub} {name}"
+            held("mevp_tiled", tag, [g], [r], tol)
+            same_schedule(tag, g, q)
+    timed_form("mevp_tiled periodic", errs["mevp_tiled"],
+               lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, TILED_SUBCYCLES),
+               lambda: mt.mevp_subcycles_tiled(closed.mevp, carry, consts, DT, TILED_SUBCYCLES),
+               lambda: mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, TILED_SUBCYCLES),
+               ((5 + 7 + 5) * 4 * n, TILED_SUBCYCLES * (OPS["stress"] + OPS["velocity"]) * n))
+    tr, closed_tr = model.transport, closed.transport
+    targs = (tr, psi, carry[0], carry[1], 60.0, 1, faces)
+    got = tt.transport_substeps_tiled(*targs)
+    held("transport_tiled", f"transport_tiled {N4}x{N4} periodic dG1 rk2 k=1", [got],
+         [tt.transport_substeps_tiled_reference(*targs)], TOL_LAUNCH)
+    same_schedule(f"transport_tiled {N4}x{N4} periodic", got, cc.transport_substeps(*targs))
+    timed_form("transport_tiled periodic", errs["transport_tiled"], lambda: tt.transport_substeps_tiled(*targs),
+               lambda: tt.transport_substeps_tiled(closed_tr, *targs[1:]),
+               lambda: tt.transport_substeps_tiled_reference(*targs),
+               tiled_work(1, n, 1, cc._RK_STAGES[tr.scheme], False))
+    model2, carry2, _, psi2, faces2 = periodic_inputs(N4, N4, device, SEED + 43, degree=2)
+    tr2 = model2.transport
+    tr2.tvb_m = 0.0
+    untouched = closed_twin(model2).transport
+    targs2 = (tr2, psi2, carry2[0] * 3.0, carry2[1] * 3.0, 60.0, 1, faces2)
+    got = tt.transport_substeps_tiled(*targs2)
+    held("transport_tiled", f"transport_tiled {N4}x{N4} periodic TVB dG2 rk3 k=1", [got],
+         [tt.transport_substeps_tiled_reference(*targs2)], TOL_LAUNCH)
+    same_schedule(f"transport_tiled {N4}x{N4} periodic TVB dG2", got, cc.transport_substeps(*targs2),
+                  "the staged TVB schedule")
+    work = tiled_work(2, n, 1, cc._RK_STAGES[tr2.scheme], False)
+    timed_form("transport_tiled tvb", errs["transport_tiled"], lambda: tt.transport_substeps_tiled(*targs2),
+               lambda: tt.transport_substeps_tiled(untouched, *targs2[1:]),
+               lambda: tt.transport_substeps_tiled_reference(*targs2),
+               (work[0], work[1] + 3 * 3 * tvb_limit_ops(2) * n))
+
+
+def _ring_single_launches(device, held, errs) -> None:
+    """mevp_single on the 1024^2 ring, against plain, K1's schedule and
+    mevp_tiled."""
+    n = N4 * N4
+    model, carry, consts, _, _ = periodic_inputs(N4, N4, device, SEED + 44, spherical=True)
+    solver, closed = model.mevp, closed_twin(model)
+    config = single.tiling(N4, N4, single.sm_count(device), periodic=(True, False))
+    log("check", f"mevp_single {N4}x{N4} ring: {config.tiles[0]}x{config.tiles[1]} tiles of {config.tile}")
+    for n_sub, tol in ((1, TOL_LAUNCH), (N_SUBCYCLES, TOL_STEP_MEVP)):
+        got = single.mevp_subcycles_single(solver, carry, consts, DT, n_sub)
+        ref = single.mevp_single_reference(solver, carry, consts, DT, n_sub)
+        k1 = cc.mevp_subcycles(solver, carry, consts, DT, n_sub)
+        tiled = mt.mevp_subcycles_tiled(solver, carry, consts, DT, n_sub)
+        for name, g, r, q, w in zip(VELOCITY, got, ref, k1, tiled):
+            tag = f"mevp_single {N4}x{N4} ring N={n_sub} {name}"
+            held("mevp_single", tag, [g], [r], tol)
+            same_schedule(tag, g, q)
+            same_schedule(tag, g, w, "mevp_tiled")
+    timed_form("mevp_single periodic", errs["mevp_single"],
+               lambda: single.mevp_subcycles_single(solver, carry, consts, DT, N_SUBCYCLES),
+               lambda: single.mevp_subcycles_single(closed.mevp, carry, consts, DT, N_SUBCYCLES),
+               lambda: single.mevp_single_reference(solver, carry, consts, DT, N_SUBCYCLES),
+               ((5 + 12 + 5) * 4 * n, N_SUBCYCLES * (OPS["stress"] + OPS["velocity_metric"]) * n))
+
+
+def check_tvb_periodic(device) -> tuple:
+    """Phase: the periodic and TVB forms launch by launch, then their paths.
+    Returns (counts by path, largest error per kernel)."""
+    errs = check_tvb_launches(device)
+    return check_tvb_paths(device), errs
+
+
+def time_tvb_periodic(device, card: str) -> None:
+    """Each new form in turns with its closed (or untouched) instance,
+    back to back, and its plain version once; then the steps: the headline
+    closed, periodic and periodic with TVB (M = 0) on K1's schedule, config
+    4 at dG2 closed and periodic with TVB on "auto", and the ring against the
+    closed window, in turns; one profile of the periodic TVB config-4
+    step."""
+    for label, (form, closed, plain) in TVB_TIMED.items():
+        fns, reps = {"form": form, "plain": plain}, {"form": 50, "plain": None}
+        if closed is not None:
+            fns["closed"], reps["closed"] = closed, 50
+        runs = time_in_turns(fns, reps)
+        row = TVB_FORMS[label]
+        TVB_FORMS[label] = replace(row, ms=sum(runs["form"]) / len(runs["form"]), plain_ms=runs["plain"][0])
+        DEVICE_PROBES[f"{label.split()[0]} {label}"] = form
+        if closed is not None:
+            DEVICE_PROBES[f"{label.split()[0]} {label} (closed instance)"] = closed
+        b = bound(row.n_bytes, row.n_ops)
+        log("time", (
+            f"{label}: form {', '.join(f'{m:.5f}' for m in runs['form'])} ms"
+            + (f", closed instance {', '.join(f'{m:.5f}' for m in runs['closed'])} ms" if closed else "")
+            + f" (in turns, back to back), plain {runs['plain'][0]:.4f} ms, bound {b[0]:.5f} ms ({b[1]}) on {card}"
+        ))
+    steps = {}
+    for tag, kind, tvb_m, backends in (
+        ("headline closed K1", "closed", None, {"mevp_backend": "pallas"}),
+        ("headline periodic K1", "headline", None, {"mevp_backend": "pallas"}),
+        ("headline periodic TVB K1", "headline", 0.0, {"mevp_backend": "pallas"}),
+        ("headline periodic TVB auto", "headline", 0.0, {}),
+    ):
+        if kind == "closed":
+            model, state, forcing = bench_model(device, N)
+            state = with_fronts(state, SEED + 30)
+            steps[tag] = (lambda m=model, s=state, f=forcing: m.step(s, None, f, DT, do_thermo=False))
+        else:
+            model, state, _, dyn, _ = tvb_path_model(device, kind, tvb_m, backends)
+            steps[tag] = (lambda m=model, s=state, f=dyn: m.step(s, None, f, DT, do_thermo=False))
+    runs = time_in_turns(steps, dict.fromkeys(steps, 10))
+    for tag, ms in runs.items():
+        report(f"{tag} step ({N}x{N}, dG1)", ms, N * N, card)
+    closed4, state4, phys4, dyn4 = coupled_model(device, RectMesh(N4, N4, dx=4e3, dy=4e3), None, degree=2)
+    state4 = with_fronts(state4, SEED + 31)
+    periodic4 = tvb_path_model(device, "config4", 0.0, {})[0]
+    ring = tvb_path_model(device, "ring", None, {})[0]
+    window, state_w, phys_w, dyn_w = spherical_model(device, N4, mevp_backend="pallas")
+    runs = time_in_turns({
+        "config4 dG2 closed": lambda: closed4.step(state4, phys4, dyn4, DT),
+        "config4 dG2 periodic TVB": lambda: periodic4.step(state4, phys4, dyn4, DT),
+        "spherical window (closed)": lambda: window.step(state_w, phys_w, dyn_w, DT),
+        "ring (periodic x)": lambda: ring.step(state_w, phys_w, dyn_w, DT),
+    }, dict.fromkeys(("config4 dG2 closed", "config4 dG2 periodic TVB", "spherical window (closed)",
+                      "ring (periodic x)"), 5))
+    for tag, ms in runs.items():
+        report(f"{tag} coupled step ({N4}x{N4}, auto)", ms, N4 * N4, card)
+    profile(f"config4 dG2 periodic TVB coupled step ({N4}x{N4})", lambda: periodic4.step(state4, phys4, dyn4, DT))
+
+
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     """The kernels' JSON line: per kernel its launches on the main paths,
     check error, times, ``bound_ms`` on the data sheet's peaks and
@@ -2845,9 +3365,23 @@ def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
             "library_ms": row.library_ms,
         }
 
+    def form_json(label: str) -> dict:
+        kernel, source, paths = FORM_ROWS[label]
+        row = TVB_FORMS[label]
+        bound_ms, bound_by = bound(row.n_bytes, row.n_ops)
+        measured = max(row.n_bytes / ceilings["bytes_per_s"], row.n_ops / ceilings["ops_per_s"]) * 1e3
+        return {
+            "name": f"{kernel} ({label.split(' ', 1)[1].replace('tvb', 'TVB')} form)", "route": "cuda",
+            "source": source,
+            "replaces": REPLACES[kernel], "launches": sum(counts[p][kernel] for p in paths),
+            "max_abs_err": row.err, "ms": row.ms, "plain_ms": row.plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "measured_bound_ms": measured, "library_ms": row.library_ms,
+        }
+
     # No single PyTorch call computes these stencils or the chain, so
     # library_ms is null, except for rdma_stage's strip pack (one torch.stack).
-    return {"kernels": [row_json(k) for k in cc.KERNELS]}
+    # The new forms of earlier kernels follow as rows of their own.
+    return {"kernels": [row_json(k) for k in cc.KERNELS] + [form_json(label) for label in FORM_ROWS]}
 
 
 def cluster_report(device, ptxas: str):
@@ -2981,6 +3515,11 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     counts.update(counts_forms)
     for kernel, err in errs_forms.items():
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
+    counts_tvb, errs_tvb = phase(check_tvb_periodic, device)
+    counts.update(counts_tvb)
+    for kernel, err in errs_tvb.items():
+        if kernel != "dg1_limit":
+            kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     counts_5, kernels_5, probes = phase(check_multihost, device)
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
@@ -2990,6 +3529,8 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_momentum_forms, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
+    phase(time_tvb_periodic, device, smi)
+    kernels["dg1_limit"] = TVB_FORMS["dg1_limit"]
     phase(profile_engine, device)
     # Last, as a profiler session slows the host's later launches. Every
     # row's ms stays the back-to-back time per call; the device durations
@@ -3004,7 +3545,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
 
     forms = {
         **{f"dg1_rk_stage {label}": row for label, row in STAGE_FORMS.items()}, **DEGREE_FORMS,
-        **MOMENTUM_FORMS,
+        **MOMENTUM_FORMS, **TVB_FORMS,
     }
     for label, row in forms.items():
         measured = max(row.n_bytes / ceilings["bytes_per_s"], row.n_ops / ceilings["ops_per_s"]) * 1e3

@@ -556,7 +556,7 @@ def cfl_inputs(n: int, halo: int, spherical: bool, device, seed: int = 0):
 
 def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100,
                  single_sizes=SINGLE_SIZES, tiled_sizes=((1024, True),), cfl_shapes=CFL_SHAPES,
-                 stage_sizes=STAGE_SHAPES) -> dict:
+                 stage_sizes=STAGE_SHAPES, k1_sizes=()) -> dict:
     """ms per call of the launches the host picks for ``transport_tiled``
     (one rk2 substep on ``transport_inputs`` at each of ``transport_sizes``),
     ``ho_single`` (``n_sub`` HO subcycles on ``seeded_ho_phase`` at each of
@@ -566,7 +566,9 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
     of ``cfl_shapes``) and ``dg1_rk_stage`` (one stage on ``stage_inputs``
     at each (n, spherical, form) of ``stage_sizes``: "blend" a = b = 0.5,
     "first" a = 0, "qv" the blended stage on the quadrature samples of the
-    same velocity, skipped where the checkout's wrapper has no qv form):
+    same velocity, skipped where the checkout's wrapper has no qv form) and
+    K1's ``mevp_stress`` and ``mevp_velocity`` (one launch in place on
+    ``seeded_phase``'s uniform carry at each of ``k1_sizes``):
     the kernel's device
     duration per call (profiler,
     mean of 20 calls; a launch's mean times the launches of a call) and the
@@ -599,6 +601,17 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
             solver, carry, consts = seeded_phase(n, spherical, device)
             what = f"{n_sub} subcycles, {'spherical' if spherical else 'uniform'}"
             cases.append((kernel, n, what, lambda r=run, s=solver, c=carry, k=consts: r(s, c, k, DT, n_sub)))
+    for n in k1_sizes:
+        solver, carry, consts = seeded_phase(n, False, device)
+        for name in ("mevp_stress", "mevp_velocity"):
+            if on_card:
+                planes = tuple(p.clone() for p in carry)
+                c_w, inv_drag = torch.empty_like(carry[0]), torch.empty_like(carry[0])
+                fn = lambda name=name, p=planes, c=c_w, i=inv_drag, k=cc._mevp_consts(consts), \
+                    s=cc._mevp_scalars(solver, DT): cc._mevp_half_(name, p, k, c, i, s, cc._stream(device))
+            else:
+                fn = lambda s=solver, c=carry, k=consts: s.subcycle_body(c, k, DT)
+            cases.append((name, n, "one launch (uniform)", fn))
     for n, halo, spherical in cfl_shapes:
         transport, u, v = cfl_inputs(n, halo, spherical, device)
         what = f"{'spherical' if spherical else 'uniform'}" + (f", halo {halo}" if halo else "")
@@ -826,7 +839,7 @@ def main(argv=None) -> int:
     if "--steps" in argv:  # host-bound: before any profiler session
         headline_step(device)
     if "--kernel-times" in argv:
-        kernel_times(device)
+        kernel_times(device, k1_sizes=(256,))
     if "--kernel-times=dg1_rk_stage" in argv:
         kernel_times(device, ho_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=())
     if "--tiles" in argv or "--tiles=mevp_single" in argv:

@@ -1,7 +1,8 @@
 """The coupled sea-ice model: mEVP dynamics + DG transport + column physics.
 
-Counterpart of ``nextsimdg_tpu.coupled`` on a closed mesh: uniform, graded
-or spherical, with an optional coastline (``ocean_mask``). Per outer
+Counterpart of ``nextsimdg_tpu.coupled`` on a uniform, graded or spherical
+mesh, each axis closed or periodic, with an optional coastline
+(``ocean_mask``) and the optional TVB slope limiter (``tvb_m``). Per outer
 timestep:
 
 1. the per-step mEVP constants from the current cell means (h, A), with
@@ -9,8 +10,9 @@ timestep:
    (``node_mask``);
 2. one dynamics phase (``dynamics.kernels.coupled_cuda.dynamics_phase``):
    N mEVP subcycles, CG1 -> quadrature sampling, the CFL substep count k
-   and k limited SSP-RK DG steps (dG0, dG1 or dG2: ``degree``) of the
-   stacked (hice, cice, hsnow), with
+   and k limited SSP-RK DG steps (dG0, dG1 or dG2: ``degree``; each stage
+   limited by TVB, with ``tvb_m``, then positivity) of the stacked
+   (hice, cice, hsnow), with
    impermeable coastline faces (``face_masks``);
 3. bounds: 0 <= A <= 1, h >= 0 on the cell means;
 4. with ``do_thermo``, the column physics (``physics.NextsimPhysics``) on
@@ -40,8 +42,8 @@ and exchanges halos with the other ranks (``parallel.exchange``): the mEVP
 on the blocked or rdma schedule, the transport on the widened block, the
 physics per block. The HO solver, free drift, graded and spherical blocks,
 periodic axes and the TVB limiter raise ``NotImplementedError`` there
-(ROADMAP M10b); periodic axes and TVB are not ported on one domain either
-(ROADMAP M7c).
+(ROADMAP M10b). The HO solver on a periodic mesh raises on one domain too
+(ROADMAP M7c item 4).
 """
 
 from __future__ import annotations
@@ -156,7 +158,15 @@ class CoupledModel:
           stage; ``"tiled"``, the counterpart of the JAX tiled kernel:
           ``transport_tiled``, whole substeps per launch; ``"auto"``: tiled
           from ``TILED_MIN_ELEMENTS`` elements (every scheme: rk1, rk2 and
-          rk3), staged below.
+          rk3), staged below. With ``tvb_m`` on a graded or spherical mesh
+          (a per-element TVB tolerance) the transport is staged: ``"auto"``
+          takes ``"xla"`` and ``"tiled"`` raises.
+
+        ``tvb_m``: the TVB constant M of the minmod slope limiter, applied
+        to the linear moments before the positivity limiter at every RK
+        stage (``DGTransport.limit_slopes``; 0: pure TVD; None: off). On
+        the card the staged transport runs it as one more launch a stage
+        (``coupled_cuda.dg1_limit``), transport_tiled in its window.
 
         With the HO solver selected, ``mevp_backend`` goes to
         ``MEVPSolverHO``: ``"pallas"`` runs ho_single, ``"pallas-tiled"``
@@ -193,9 +203,9 @@ class CoupledModel:
                 f"transport_backend must be one of {TRANSPORT_BACKENDS}, "
                 f"got {transport_backend!r}"
             )
-        if tvb_m is not None:
+        if self.exchange is not None and (tvb_m is not None or mesh.periodic_x or mesh.periodic_y):
             raise NotImplementedError(
-                "the TVB slope limiter is not ported yet (ROADMAP M7c; on a rank grid M10b)"
+                "the TVB limiter and periodic axes on a rank grid are ROADMAP M10b"
             )
         self.mesh = mesh
         solver_cls = get_loader().get_implementation("Nextsim::IDynamics")
@@ -217,7 +227,7 @@ class CoupledModel:
                 )
         self._masks = {}
         self._widened_transport = {}
-        self.transport = DGTransport(mesh, degree=degree, spmd=self.spmd)
+        self.transport = DGTransport(mesh, degree=degree, spmd=self.spmd, tvb_m=tvb_m)
         if issubclass(solver_cls, MEVPSolverHO):
             self.mevp = solver_cls(mesh, mevp_params, backend=mevp_backend)
         elif self.exchange is not None:
@@ -232,7 +242,18 @@ class CoupledModel:
         self.auto_substeps = bool(auto_substeps)
         self.mevp_backend = mevp_backend
         self.transport_backend = transport_backend
+        if transport_backend == "tiled" and not self._tiled_transport_runs():
+            raise NotImplementedError(
+                "transport_tiled takes the TVB tolerance as one number: TVB on a graded or "
+                "spherical mesh runs the staged transport (transport_backend 'xla' or 'auto')"
+            )
         self.physics = NextsimPhysics() if physics is None else physics
+
+    def _tiled_transport_runs(self) -> bool:
+        """Whether transport_tiled runs this model's transport: not with the
+        TVB limiter on a graded or spherical mesh, whose tolerance M dx^2 is
+        a per-element plane (the JAX package's rule too)."""
+        return self.mesh.uniform or not self.transport.limits_slopes
 
     @property
     def is_high_order(self) -> bool:
@@ -271,7 +292,8 @@ class CoupledModel:
             backend = "pallas-tiled" if mesh.n_elements >= TILED_MIN_ELEMENTS else "pallas"
         elif backend == "auto":
             single = mesh.n_elements < SINGLE_MAX_ELEMENTS and (
-                sms is None or mevp_single_cuda.holds(mesh.nx, mesh.ny, sms)
+                sms is None
+                or mevp_single_cuda.holds(mesh.nx, mesh.ny, sms, (mesh.periodic_x, mesh.periodic_y))
             )
             backend = "pallas" if single else "pallas-tiled"
         if backend == "pallas" and not mesh.uniform:
@@ -310,6 +332,8 @@ class CoupledModel:
             return "xla"
         if self.transport_backend != "auto":
             return self.transport_backend
+        if not self._tiled_transport_runs():
+            return "xla"
         return "tiled" if self.mesh.n_elements >= TILED_MIN_ELEMENTS else "xla"
 
     # -- state construction --------------------------------------------------
@@ -369,10 +393,11 @@ class CoupledModel:
             faces = is_ocean = None
             if self.ocean_mask is not None:
                 ax_x, ax_y = self.spmd
+                px, py = self.mesh.periodic_x, self.mesh.periodic_y
                 ocean = torch.as_tensor(self._local_ocean_mask(), device=device).to(dtype)
-                o_x = shift_m(ocean, 0, False, ax_x)
-                o_y = shift_m(ocean, 1, False, ax_y)
-                o_xy = shift_m(o_x, 1, False, ax_y)
+                o_x = shift_m(ocean, 0, px, ax_x)
+                o_y = shift_m(ocean, 1, py, ax_y)
+                o_xy = shift_m(o_x, 1, py, ax_y)
                 if self.is_high_order:
                     # A CG2 node is no-slip unless every element it touches
                     # is ocean: a vertex touches 4, an edge midpoint 2, a
@@ -385,7 +410,7 @@ class CoupledModel:
                     # CG1 node (i, j): no-slip unless all 4 adjacent
                     # elements are ocean.
                     mask = mask * ocean * o_x * o_y * o_xy
-                faces = face_masks_from_land(ocean, spmd=self.spmd)
+                faces = face_masks_from_land(ocean, px, py, spmd=self.spmd)
                 is_ocean = ocean == 1.0
             self._masks[key] = {"node": mask, "faces": faces, "ocean": is_ocean}
         return self._masks[key]

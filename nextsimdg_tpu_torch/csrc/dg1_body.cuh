@@ -148,9 +148,12 @@ struct DgQvPlanes {
 // Element (i, j)'s velocity from the precomputed planes; its right and top
 // faces are those of elements (i+1, j) and (i, j+1) (zero beyond the domain,
 // where there is no flux).
+// ij_right, ij_top: the indices of elements (i+1, j) and (i, j+1), wrapped
+// on a periodic axis.
 template <int kDeg>
-__device__ __forceinline__ DgVelocity<kDeg> load_qv(const DgQvPlanes<kDeg>& qv, long ij, int ny,
-                                                    bool has_right, bool has_top) {
+__device__ __forceinline__ DgVelocity<kDeg> load_qv(const DgQvPlanes<kDeg>& qv, long ij,
+                                                    long ij_right, long ij_top, bool has_right,
+                                                    bool has_top) {
   DgVelocity<kDeg> q;
 #pragma unroll
   for (int k = 0; k < DgShape<kDeg>::kVol; ++k) {
@@ -160,16 +163,17 @@ __device__ __forceinline__ DgVelocity<kDeg> load_qv(const DgQvPlanes<kDeg>& qv, 
 #pragma unroll
   for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) {
     q.vn_left[e] = __ldg(qv.vn_x[e] + ij);
-    q.vn_right[e] = has_right ? __ldg(qv.vn_x[e] + ij + ny) : 0.0f;
+    q.vn_right[e] = has_right ? __ldg(qv.vn_x[e] + ij_right) : 0.0f;
     q.vn_bottom[e] = __ldg(qv.vn_y[e] + ij);
-    q.vn_top[e] = has_top ? __ldg(qv.vn_y[e] + ij + 1) : 0.0f;
+    q.vn_top[e] = has_top ? __ldg(qv.vn_y[e] + ij_top) : 0.0f;
   }
   return q;
 }
 
-// Where an element sits against the closed domain, and its face masks: the
-// global x = 0 and y = 0 faces are walls (zero flux), and beyond nx or ny
-// there is no right or top neighbour.
+// Where an element sits against the domain, and its face masks: on a
+// closed axis the global x = 0 and y = 0 faces are walls (zero flux), and
+// beyond nx or ny there is no right or top neighbour; a periodic axis has
+// neither.
 struct Dg1Faces {
   bool left_wall, has_right, bottom_wall, has_top;
   float fx_left, fx_right, fy_bottom, fy_top;
@@ -193,16 +197,16 @@ struct Dg1Metric {
   float inv_dx, inv_dy, inv_area, len_left, len_right, len_bottom, len_top;
 };
 
-__device__ __forceinline__ Dg1Metric load_metric(const Dg1MetricPlanes& m, long ij, int ny,
-                                                 bool has_right, bool has_top) {
+__device__ __forceinline__ Dg1Metric load_metric(const Dg1MetricPlanes& m, long ij, long ij_right,
+                                                 long ij_top, bool has_right, bool has_top) {
   Dg1Metric g;
   g.inv_dx = __ldg(m.inv_dx + ij);
   g.inv_dy = __ldg(m.inv_dy + ij);
   g.inv_area = __ldg(m.inv_area + ij);
   g.len_left = __ldg(m.len_x + ij);
-  g.len_right = has_right ? __ldg(m.len_x + ij + ny) : 0.0f;
+  g.len_right = has_right ? __ldg(m.len_x + ij_right) : 0.0f;
   g.len_bottom = __ldg(m.len_y + ij);
-  g.len_top = has_top ? __ldg(m.len_y + ij + 1) : 0.0f;
+  g.len_top = has_top ? __ldg(m.len_y + ij_top) : 0.0f;
   return g;
 }
 
@@ -340,8 +344,9 @@ __device__ __forceinline__ void dg1_stage_update(
 // p_l/p_r/p_b/p_t those of its left, right, bottom and top neighbours
 // (zeros beyond the domain): dg1_face_flux on its four faces, then
 // dg1_stage_update, written out in one body. `base` is read only with
-// kBlend and a != 0; `g` only with kMetric.
-template <int kDeg, bool kMetric, bool kBlend = true>
+// kBlend and a != 0; `g` only with kMetric. lim: the positivity limiter, or
+// without kLimit the identity (the TVB form, whose limiter pass follows).
+template <int kDeg, bool kMetric, bool kBlend = true, bool kLimit = true>
 __device__ __forceinline__ void dg1_stage_cell(
     const DgTables<kDeg>& tb, const DgVelocity<kDeg>& q, const Dg1Faces& f, const Dg1Metric& g,
     const float (&p)[DgShape<kDeg>::kDofs], const float (&p_l)[DgShape<kDeg>::kDofs],
@@ -410,7 +415,63 @@ __device__ __forceinline__ void dg1_stage_cell(
     val[d] = p[d] + dt * rhs;
     if (kBlend && a != 0.0f) val[d] = a * base[d] + b * val[d];
   }
-  dg_limit<kDeg, true>(tb, val, out);
+  dg_limit<kDeg, kLimit>(tb, val, out);
+}
+
+// torch.sign: -1, 0 or 1.
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// minmod(a, b, c) of DGTransport.limit_slopes: sign(a) min(|a|, |b|, |c|)
+// where the three signs agree, else 0.
+__device__ __forceinline__ float minmod3(float a, float b, float c) {
+  const float sa = sign_of(a);
+  const bool same = sa == sign_of(b) && sa == sign_of(c);
+  const float m = sa * fminf(fabsf(a), fminf(fabsf(b), fabsf(c)));
+  return same ? m : 0.0f;
+}
+
+// An element's neighbourhood for the TVB limiter: the cell means of its
+// left, right, bottom and top neighbours (after the stage), whether a
+// closed wall stands on that side (a zero-gradient ghost: that difference
+// is 0), and the tolerances M dx^2, M dy^2.
+struct TvbNeighbours {
+  float m_l, m_r, m_b, m_t;
+  bool wall_l, wall_r, wall_b, wall_t;
+  float tol_x, tol_y;
+};
+
+// out = limit_positivity(limit_slopes(val)) of DGTransport for one element
+// (dG1 and dG2): each linear moment minmod-limited against the forward and
+// backward mean differences (shift_p(mean) - mean, then mean -
+// shift_m(mean), as the plain version computes them) unless within its
+// tolerance; at dG2, where a linear moment moved by more than 1e-12, the
+// quadratic moments are zeroed; then the positivity limiter. The mean is
+// never changed.
+template <int kDeg>
+__device__ __forceinline__ void dg_tvb_limit(const DgTables<kDeg>& tb,
+                                             const float (&val)[DgShape<kDeg>::kDofs],
+                                             const TvbNeighbours& n,
+                                             float (&out)[DgShape<kDeg>::kDofs]) {
+  static_assert(kDeg > 0, "dG0 has no slopes");
+  constexpr int K = DgShape<kDeg>::kDofs;
+  const float mean = val[0];
+  const float dpx = n.wall_r ? 0.0f : n.m_r - mean;
+  const float dmx = n.wall_l ? 0.0f : mean - n.m_l;
+  const float dpy = n.wall_t ? 0.0f : n.m_t - mean;
+  const float dmy = n.wall_b ? 0.0f : mean - n.m_b;
+  float lim[K];
+  lim[0] = mean;
+  lim[1] = fabsf(val[1]) <= n.tol_x ? val[1] : minmod3(val[1], dpx, dmx);
+  lim[2] = fabsf(val[2]) <= n.tol_y ? val[2] : minmod3(val[2], dpy, dmy);
+  if constexpr (kDeg == 2) {
+    const bool cut = fabsf(lim[1] - val[1]) > 1e-12f || fabsf(lim[2] - val[2]) > 1e-12f;
+    const float keep = cut ? 0.0f : 1.0f;
+#pragma unroll
+    for (int d = 3; d < K; ++d) lim[d] = val[d] * keep;
+  }
+  dg_limit<kDeg, true>(tb, lim, out);
 }
 
 }  // namespace nst

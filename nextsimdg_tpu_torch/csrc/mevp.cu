@@ -18,7 +18,9 @@
 // kernel does not write. Both take the 7 uniform consts or, on a graded or
 // spherical mesh, the 12 with the metric planes (a template on which), and
 // a_node besides in the A-weighted form. The momentum form is a second
-// template argument (mevp_body.cuh); in the adaptive form mevp_stress also
+// template argument (mevp_body.cuh), the periodic form a third (kWrap: the
+// neighbour reads wrap on the launch's periodic axes, a runtime flag; the
+// closed instances are the code without it); in the adaptive form mevp_stress also
 // writes each node's beta into a third node plane, which mevp_velocity
 // reads: one more plane each way a subcycle.
 //
@@ -37,43 +39,53 @@
 
 namespace nst {
 
-template <bool kMetric, int kForm>
-__global__ void mevp_stress_kernel(MevpState p, MevpConsts k, int nx, int ny, MevpScalars s) {
+// kWrap: the periodic form, whose neighbour reads wrap on the axes of
+// `wrap`; without it (the closed instances) they read zeros beyond the
+// domain, and `wrap` is 0.
+template <bool kMetric, int kForm, bool kWrap>
+__global__ void mevp_stress_kernel(MevpState p, MevpConsts k, int nx, int ny, MevpScalars s,
+                                   int wrap) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i < nx && j < ny) stress_cell<kMetric, kForm>(p, k, i, j, nx, ny, s);
+  if (i < nx && j < ny) stress_cell<kMetric, kForm, kWrap>(p, k, i, j, nx, ny, s, wrap);
 }
 
-template <bool kMetric, int kForm>
+template <bool kMetric, int kForm, bool kWrap>
 __global__ void mevp_velocity_kernel(MevpState p, MevpConsts k, int nx, int ny,
-                                     MevpScalars s) {
+                                     MevpScalars s, int wrap) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i < nx && j < ny) velocity_cell<kMetric, kForm>(p, k, i, j, nx, ny, s);
+  if (i < nx && j < ny) velocity_cell<kMetric, kForm, kWrap>(p, k, i, j, nx, ny, s, wrap);
 }
 
-using HalfKernel = void (*)(MevpState, MevpConsts, int, int, MevpScalars);
+using HalfKernel = void (*)(MevpState, MevpConsts, int, int, MevpScalars, int);
 
-// The instance of a half (0: stress, 1: velocity) for a mesh and form.
-template <int kForm>
+// The instance of a half (0: stress, 1: velocity) for a mesh, form and wrap.
+template <int kForm, bool kWrap>
 HalfKernel half_kernel_of(int half, bool metric) {
-  if (half == 0) return metric ? mevp_stress_kernel<true, kForm> : mevp_stress_kernel<false, kForm>;
-  return metric ? mevp_velocity_kernel<true, kForm> : mevp_velocity_kernel<false, kForm>;
+  if (half == 0) {
+    return metric ? mevp_stress_kernel<true, kForm, kWrap> : mevp_stress_kernel<false, kForm, kWrap>;
+  }
+  return metric ? mevp_velocity_kernel<true, kForm, kWrap> : mevp_velocity_kernel<false, kForm, kWrap>;
 }
 
-inline HalfKernel half_kernel(int half, bool metric, int form) {
+template <bool kWrap>
+HalfKernel half_kernel(int half, bool metric, int form) {
   switch (form) {
-    case 0: return half_kernel_of<0>(half, metric);
-    case kFormWeighted: return half_kernel_of<kFormWeighted>(half, metric);
-    case kFormAdaptive: return half_kernel_of<kFormAdaptive>(half, metric);
-    case kFormWeighted | kFormAdaptive: return half_kernel_of<kFormWeighted | kFormAdaptive>(half, metric);
+    case 0: return half_kernel_of<0, kWrap>(half, metric);
+    case kFormWeighted: return half_kernel_of<kFormWeighted, kWrap>(half, metric);
+    case kFormAdaptive: return half_kernel_of<kFormAdaptive, kWrap>(half, metric);
+    case kFormWeighted | kFormAdaptive:
+      return half_kernel_of<kFormWeighted | kFormAdaptive, kWrap>(half, metric);
     default: return nullptr;
   }
 }
 
-// Launches one half (0: stress, 1: velocity) from the host's arguments.
-// The form must agree with the planes: a_node exactly in the weighted
-// form, beta exactly in the adaptive one.
+// Launches one half (0: stress, 1: velocity) from the host's arguments:
+// `form` holds the momentum form in its low bits and the periodic axes
+// (kWrapX, kWrapY) shifted by kFormWrapShift. The form must agree with the
+// planes: a_node exactly in the weighted form, beta exactly in the
+// adaptive one.
 inline int launch_half(int half, float* u, float* v, float* s11, float* s22, float* s12,
                        float* c_w, float* inv_drag, float* beta, const void* const* consts,
                        int nx, int ny, int form, const float* scalars, int device, void* stream) {
@@ -84,12 +96,17 @@ inline int launch_half(int half, float* u, float* v, float* s11, float* s22, flo
   MevpScalars s;
   std::memcpy(&k, consts, sizeof(k));
   std::memcpy(&s, scalars, sizeof(s));
-  const HalfKernel kernel = half_kernel(half, k.inv_dx != nullptr, form);
-  if (kernel == nullptr || ((form & kFormWeighted) != 0) != (k.a_node != nullptr) ||
+  const int wrap = form >> kFormWrapShift;
+  form &= kForms - 1;
+  const HalfKernel kernel = wrap ? half_kernel<true>(half, k.inv_dx != nullptr, form)
+                                 : half_kernel<false>(half, k.inv_dx != nullptr, form);
+  if (kernel == nullptr || wrap > (kWrapX | kWrapY) ||
+      ((form & kFormWeighted) != 0) != (k.a_node != nullptr) ||
       ((form & kFormAdaptive) != 0) != (beta != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  kernel<<<plane_grid(nx, ny), plane_block(), 0, static_cast<cudaStream_t>(stream)>>>(p, k, nx, ny, s);
+  kernel<<<plane_grid(nx, ny), plane_block(), 0, static_cast<cudaStream_t>(stream)>>>(p, k, nx, ny,
+                                                                                   s, wrap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -104,7 +121,8 @@ int nst_mevp_n_scalars() { return sizeof(nst::MevpScalars) / sizeof(float); }
 // points to the 13 const-plane pointers in the order of MevpConsts, the
 // five metric ones null on a uniform mesh and a_node null outside the
 // weighted form; form: the momentum form's bits (kFormWeighted,
-// kFormAdaptive); beta: the adaptive form's node plane, null in the others.
+// kFormAdaptive), and the periodic axes' (kWrapX, kWrapY) shifted left by
+// kFormWrapShift; beta: the adaptive form's node plane, null in the others.
 int nst_mevp_stress(float* u, float* v, float* s11, float* s22, float* s12, float* c_w,
                     float* inv_drag, float* beta, const void* const* consts, int nx, int ny,
                     int form, const float* scalars, int device, void* stream) {

@@ -56,6 +56,9 @@ struct MevpScalars {
 constexpr int kFormWeighted = 1;  // a_weighted_stress: c_w times a_node
 constexpr int kFormAdaptive = 2;  // adaptive_alpha: per-node alpha = beta
 constexpr int kForms = 4;
+// The host passes a kernel's form and its periodic axes in one int: the
+// momentum form's bits, then kWrapX and kWrapY shifted by this.
+constexpr int kFormWrapShift = 2;
 
 // The per-step constant planes, read-only for a whole launch (so they may
 // be read through the read-only data path). Then the five metric planes of
@@ -256,15 +259,28 @@ struct MevpState {
   float *u, *v, *s11, *s22, *s12, *c_w, *inv_drag, *beta;
 };
 
+// A neighbour's value for the grid-wide kernels: at() on a closed domain
+// (kWrap false: the closed instances), at_wrap() on the axes of `wrap`.
+template <bool kWrap>
+__device__ __forceinline__ float neighbour_at(const float* f, int i, int j, int nx, int ny,
+                                              int wrap) {
+  return kWrap ? at_wrap(f, i, j, nx, ny, wrap) : at(f, i, j, nx, ny);
+}
+
 // The stress half of a subcycle at element (i, j), from and into global
 // memory: reads u, v at the element's four nodes and its own stresses;
 // writes its stresses and node (i, j)'s c_w and inv_drag (and beta).
-template <bool kMetric, int kForm>
+// kWrap: the periodic form (the axes of `wrap` wrap node nx to node 0).
+template <bool kMetric, int kForm, bool kWrap = false>
 __device__ __forceinline__ void stress_cell(const MevpState& p, const MevpConsts& k, int i,
-                                            int j, int nx, int ny, const MevpScalars& s) {
+                                            int j, int nx, int ny, const MevpScalars& s,
+                                            int wrap = 0) {
   const int ij = i * ny + j;
   const float inv_dx = kMetric ? __ldg(k.inv_dx + ij) : s.inv_dx;
   const float inv_dy = kMetric ? __ldg(k.inv_dy + ij) : s.inv_dy;
+  const auto at = [&](const float* f, int a, int b, int, int) {
+    return neighbour_at<kWrap>(f, a, b, nx, ny, wrap);
+  };
   const StressOut o = mevp_stress_body<kForm>(
       p.u[ij], at(p.u, i + 1, j, nx, ny), at(p.u, i, j + 1, nx, ny),
       at(p.u, i + 1, j + 1, nx, ny), p.v[ij], at(p.v, i + 1, j, nx, ny),
@@ -293,6 +309,40 @@ __device__ __forceinline__ Around weighted(const float* f, const float* w, int i
           at(f, i - 1, j - 1, nx, ny) * ldg_at(w, i - 1, j - 1, nx, ny)};
 }
 
+// The periodic forms of around() and weighted(): the elements before node
+// (i, j) wrap on the axes of `wrap`.
+__device__ __forceinline__ Around around_wrap(const float* f, int i, int j, int nx, int ny,
+                                              int wrap) {
+  return {f[i * ny + j], at_wrap(f, i - 1, j, nx, ny, wrap), at_wrap(f, i, j - 1, nx, ny, wrap),
+          at_wrap(f, i - 1, j - 1, nx, ny, wrap)};
+}
+
+__device__ __forceinline__ float ldg_at_wrap(const float* f, int i, int j, int nx, int ny,
+                                             int wrap) {
+  wrap_near_ij(i, j, nx, ny, wrap);
+  return ldg_at(f, i, j, nx, ny);
+}
+
+__device__ __forceinline__ Around weighted_wrap(const float* f, const float* w, int i, int j,
+                                                int nx, int ny, int wrap) {
+  return {f[i * ny + j] * __ldg(w + i * ny + j),
+          at_wrap(f, i - 1, j, nx, ny, wrap) * ldg_at_wrap(w, i - 1, j, nx, ny, wrap),
+          at_wrap(f, i, j - 1, nx, ny, wrap) * ldg_at_wrap(w, i, j - 1, nx, ny, wrap),
+          at_wrap(f, i - 1, j - 1, nx, ny, wrap) * ldg_at_wrap(w, i - 1, j - 1, nx, ny, wrap)};
+}
+
+// weighted_tile() where (i, j) is the node's domain index (already wrapped)
+// and the elements before it wrap on the axes of `wrap` (the metric plane
+// f read at their wrapped indices); 0 beyond a closed wall.
+__device__ __forceinline__ Around weighted_tile_wrap(const float* s, const float* f, int c, int w,
+                                                    int i, int j, int nx, int ny, int wrap) {
+  const int iu = i > 0 ? i - 1 : ((wrap & kWrapX) ? nx - 1 : -1);
+  const int jl = j > 0 ? j - 1 : ((wrap & kWrapY) ? ny - 1 : -1);
+  return {s[c] * __ldg(f + i * ny + j), s[c - w] * (iu >= 0 ? __ldg(f + iu * ny + j) : 0.0f),
+          s[c - 1] * (jl >= 0 ? __ldg(f + i * ny + jl) : 0.0f),
+          s[c - w - 1] * (iu >= 0 && jl >= 0 ? __ldg(f + iu * ny + jl) : 0.0f)};
+}
+
 // The stresses s around node (i, j) of the domain, at index c of a
 // shared-memory window whose rows are w wide (the stresses of the elements
 // before it at c - w, c - 1 and c - w - 1), times the metric plane f of
@@ -307,11 +357,18 @@ __device__ __forceinline__ Around weighted_tile(const float* s, const float* f, 
 
 // The velocity half of a subcycle at node (i, j), from and into global
 // memory: reads the stresses of its four elements and its own u, v, c_w and
-// inv_drag (and beta); writes u and v.
-template <bool kMetric, int kForm>
+// inv_drag (and beta); writes u and v. kWrap: the periodic form.
+template <bool kMetric, int kForm, bool kWrap = false>
 __device__ __forceinline__ void velocity_cell(const MevpState& p, const MevpConsts& k, int i,
-                                              int j, int nx, int ny, const MevpScalars& s) {
+                                              int j, int nx, int ny, const MevpScalars& s,
+                                              int wrap = 0) {
   const int ij = i * ny + j;
+  const auto weighted = [&](const float* f, const float* w, int a, int b, int, int) {
+    return kWrap ? weighted_wrap(f, w, a, b, nx, ny, wrap) : nst::weighted(f, w, a, b, nx, ny);
+  };
+  const auto around = [&](const float* f, int a, int b, int, int) {
+    return kWrap ? around_wrap(f, a, b, nx, ny, wrap) : nst::around(f, a, b, nx, ny);
+  };
   float2 f;
   float inv_w;
   if (kMetric) {

@@ -64,7 +64,8 @@
 
 namespace nst {
 
-inline const void* single_kernel(bool metric, int form, int n_resident) {
+inline const void* single_kernel(bool metric, int form, int n_resident, int wrap = 0) {
+  if (wrap) return single_kernel_periodic(metric, form, n_resident);
   switch (form) {
     case 0: return single_kernel_of<0>(metric, n_resident);
     case kFormWeighted: return single_kernel_of<kFormWeighted>(metric, n_resident);
@@ -102,7 +103,9 @@ int nst_mevp_single_max_blocks(int metric, int form, int tile_r, int tile_c, int
 // exchange: (tiles, 5, TR + TC) 64-bit words, zero. consts points to the 13
 // const-plane pointers in the order of MevpConsts, the metric ones null on
 // a uniform mesh, a_node null outside the weighted form; form: the
-// momentum form's bits. slots[p]: the shared-memory plane of const plane p,
+// momentum form's bits, and the periodic axes' (kWrapX, kWrapY) shifted by
+// kFormWrapShift: the tiles must divide a periodic axis exactly, and the
+// tiles along it form a ring. slots[p]: the shared-memory plane of const plane p,
 // or -1 to read it from global memory: the first 0, 1, 2 or all of the
 // planes in the order of resident_rank, at their place in it. A grid larger
 // than can be resident is refused by the launch with an error, which is
@@ -115,6 +118,12 @@ int nst_mevp_single(float* u, float* v, float* s11, float* s22, float* s12,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = tile_c >= 1 ? threads / tile_c : 0;
+  const int wrap = form >> nst::kFormWrapShift;
+  form &= nst::kForms - 1;
+  if (wrap > (nst::kWrapX | nst::kWrapY) || ((wrap & nst::kWrapX) && nx % tile_r != 0) ||
+      ((wrap & nst::kWrapY) && ny % tile_c != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (nx < 1 || ny < 1 || n_sub < 1 || tile_r < 1 || tile_c < 1 || tiles_i < 1 || tiles_j < 1 ||
       static_cast<long>(tiles_i) * tile_r < nx || static_cast<long>(tiles_i - 1) * tile_r >= nx ||
       static_cast<long>(tiles_j) * tile_c < ny || static_cast<long>(tiles_j - 1) * tile_c >= ny ||
@@ -134,6 +143,7 @@ int nst_mevp_single(float* u, float* v, float* s11, float* s22, float* s12,
   a.tile_r = tile_r;
   a.tile_c = tile_c;
   a.tiles_j = tiles_j;
+  a.wrap = wrap;
   const bool metric = a.k.inv_dx != nullptr;
   if (((form & nst::kFormWeighted) != 0) != (a.k.a_node != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -145,7 +155,7 @@ int nst_mevp_single(float* u, float* v, float* s11, float* s22, float* s12,
     const int rank = nst::resident_rank(metric, p);
     if (slots[p] != (rank < n_resident ? rank : -1)) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* kernel = nst::single_kernel(metric, form, n_resident);
+  const void* kernel = nst::single_kernel(metric, form, n_resident, wrap);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&a};
   return static_cast<int>(nst::cooperative_launch(

@@ -47,13 +47,18 @@ struct SingleArgs {
   int nx, ny, n_sub;
   int tile_r, tile_c, tiles_j;  // TR x TC tiles, tiles_j of them along j
   MevpScalars s;
+  int wrap;  // the periodic instances' axes (kWrapX, kWrapY), tiled exactly; last, so that
+             // the closed instances read their parameters at the offsets they always had
 };
 
-template <bool kMetric, int kResident, int kForm>
+// kWrap: the periodic form, whose tiles form a ring on the axes of a.wrap;
+// without it a.wrap is not read and the code is the closed domain's.
+template <bool kMetric, int kResident, int kForm, bool kWrap>
 __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(SingleArgs a) {
   extern __shared__ float smem[];
-  TileView<kSinglePlanes> t;
+  TileView<kSinglePlanes, kWrap> t;
   t.tile = tile_of_block(a.tiles_j);
+  if constexpr (kWrap) t.wrap = a.wrap;
   t.tr = a.tile_r;
   t.tc = a.tile_c;
   t.i0 = t.tile.ti * t.tr;
@@ -82,7 +87,7 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
   for (int x = tid; x < plane; x += n_threads) {
     const int r = region_row(x, inv_pitch) - 1, c = x - (r + 1) * pitch - 1;
     const bool in = t.inside(r, c), state_in = in && r >= 0 && c >= 0;
-    const int ij = in ? (t.i0 + r) * ny + (t.j0 + c) : 0;
+    const int ij = in ? (kWrap ? t.index(r, c) : (t.i0 + r) * ny + (t.j0 + c)) : 0;
 #pragma unroll
     for (int p = 0; p < kSinglePlanes; ++p) smem[p * plane + x] = state_in ? a.state[p][ij] : 0.0f;
 #pragma unroll
@@ -113,7 +118,10 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
   // The stresses s around the node at e, times metric plane p of their own
   // element (0 beyond the domain, as weighted() of mevp_body.cuh).
   const auto weighted = [&](const float* s, int p, int e, int ij, int i) {
-    if (!shared(p)) return weighted_tile(s, mevp_const_plane(a.k, p), e, pitch, ij, i, j, nx, ny);
+    if (!shared(p)) {
+      return kWrap ? weighted_tile_wrap(s, mevp_const_plane(a.k, p), e, pitch, i, j, nx, ny, a.wrap)
+                   : weighted_tile(s, mevp_const_plane(a.k, p), e, pitch, ij, i, j, nx, ny);
+    }
     const float* w = konst + resident_rank(kMetric, p) * plane;
     return Around{s[e] * w[e], s[e - pitch] * w[e - pitch], s[e - 1] * w[e - 1],
                   s[e - pitch - 1] * w[e - pitch - 1]};
@@ -194,26 +202,33 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
 // The kernel for a mesh (metric or uniform) and momentum form with the
 // first n_resident of its const planes in shared memory: none, one, two or
 // all of them (null for another count).
-template <bool kMetric, int kForm>
+template <bool kMetric, int kForm, bool kWrap>
 const void* single_kernel_of(int n_resident) {
   constexpr int kAll = all_planes(kMetric, kForm);
   switch (n_resident) {
-    case 0: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, 0, kForm>);
-    case 1: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, 1, kForm>);
-    case 2: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, 2, kForm>);
-    case kAll: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, kAll, kForm>);
+    case 0: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, 0, kForm, kWrap>);
+    case 1: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, 1, kForm, kWrap>);
+    case 2: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, 2, kForm, kWrap>);
+    case kAll: return reinterpret_cast<const void*>(&mevp_single_kernel<kMetric, kAll, kForm, kWrap>);
     default: return nullptr;
   }
 }
 
-template <int kForm>
+template <int kForm, bool kWrap = false>
 const void* single_kernel_of(bool metric, int n_resident) {
-  return metric ? single_kernel_of<true, kForm>(n_resident) : single_kernel_of<false, kForm>(n_resident);
+  return metric ? single_kernel_of<true, kForm, kWrap>(n_resident)
+                : single_kernel_of<false, kForm, kWrap>(n_resident);
 }
 
 // The adaptive-alpha forms' kernels (mevp_single_adaptive.cu), as
 // single_kernel_of<kForm>(metric, n_resident) for kForm = kFormAdaptive and
 // kFormWeighted | kFormAdaptive; null for another form or count.
 const void* single_kernel_adaptive(bool metric, int form, int n_resident);
+
+// The periodic instances of every form (mevp_single_periodic.cu, and
+// mevp_single_periodic_adaptive.cu for the adaptive forms); null for an
+// unknown form or count.
+const void* single_kernel_periodic(bool metric, int form, int n_resident);
+const void* single_kernel_periodic_adaptive(bool metric, int form, int n_resident);
 
 }  // namespace nst

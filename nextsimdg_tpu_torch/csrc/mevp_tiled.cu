@@ -48,7 +48,12 @@
 // Walls: a load outside the domain is a zero, in every plane, exactly as
 // at() in common.cuh. Cells outside the domain are never updated, so they
 // stay zero, which is what the grid-wide kernels of mevp.cu read there;
-// nx and ny need not be multiples of T, nor N of H.
+// nx and ny need not be multiples of T, nor N of H. On a periodic axis (the
+// periodic instances, kWrap, compiled in mevp_tiled_periodic.cu, on the
+// launch's `wrap` axes) no window cell is outside: each loads and computes
+// as its wrapped domain cell, and the metric planes are read at wrapped
+// indices; only the tile's own cells are written back. The kernel template
+// lives in mevp_tiled.cuh.
 //
 // Each element and node runs mevp_stress_body and mevp_velocity_body of
 // mevp_body.cuh, the bodies of mevp.cu's two kernels, with the same
@@ -73,180 +78,21 @@
 // (PERF.md).
 #include <cstring>
 
-#include "mevp_body.cuh"
+#include "mevp_tiled.cuh"
 
 namespace nst {
 
-constexpr int kTiledMaxThreads = 1024;  // the block size is a launch parameter
-constexpr int kTiledStatePlanes = 5;    // u, v, s11, s22, s12
-constexpr int kTiledMaxCells = 8;       // window rows a thread owns, at most
-
-// kW: the window width where it is known at compile time (shared-memory
-// offsets become immediates), 0 where it is read from tile and halo.
-// kForm: the momentum form.
-template <bool kMetric, int kW, int kForm>
-__global__ void __launch_bounds__(kTiledMaxThreads)
-mevp_tiled_kernel(const float* __restrict__ u_in, const float* __restrict__ v_in,
-                  const float* __restrict__ s11_in, const float* __restrict__ s22_in,
-                  const float* __restrict__ s12_in, float* __restrict__ u_out,
-                  float* __restrict__ v_out, float* __restrict__ s11_out,
-                  float* __restrict__ s22_out, float* __restrict__ s12_out,
-                  MevpConsts k, int nx, int ny, int tile, int halo, int n_sub,
-                  MevpScalars s) {
-  extern __shared__ float smem[];
-  const int w = kW ? kW : tile + 2 * halo;  // window width, both axes
-  const int plane = w * w;
-  float* su = smem;
-  float* sv = su + plane;
-  float* s11 = sv + plane;
-  float* s22 = s11 + plane;
-  float* s12 = s22 + plane;
-
-  // Window cell (a, b) is grid cell (i0 + a, j0 + b). This thread owns
-  // column b of rows a0, a0 + rows, ... < w.
-  const int i0 = blockIdx.y * tile - halo;
-  const int j0 = blockIdx.x * tile - halo;
-  const int rows = blockDim.x / w;
-  const int a0 = threadIdx.x / w;
-  const int b = threadIdx.x - a0 * w;
-  const int j = j0 + b;
-  // Ring limits along the columns: this thread's cells are elements while
-  // sub <= eb and nodes while sub <= nb (-1: never, beyond the domain).
-  const bool in_j = a0 < rows && j >= 0 && j < ny;
-  const int eb = in_j ? min(b, w - 2 - b) : -1;
-  const int nb = in_j ? min(b - 1, w - 2 - b) : -1;
-  const int a_end = in_j ? w : 0;  // rows past it: none of this thread's
-
-  // fn(q, a) over the owned rows a; q is the cell's register slot.
-  const auto owned = [&](auto fn) {
-#pragma unroll
-    for (int q = 0; q < kTiledMaxCells; ++q) {
-      int a = a0 + q * rows;
-      // Opaque to the compiler, so that the cells' addresses are not all
-      // hoisted out of the subcycle loop into registers (they spill).
-      asm volatile("" : "+r"(a));
-      if (a < a_end) fn(q, a);
-    }
-  };
-  const auto cst = [&](int p, int ij) { return __ldg(mevp_const_plane(k, p) + ij); };
-
-  // The load: the window's state, zeros beyond the domain. Threads beyond
-  // rows x w own nothing.
-#pragma unroll 1
-  for (int a = a0; a < (a0 < rows ? w : 0); a += rows) {
-    const int c = a * w + b, i = i0 + a, ij = i * ny + j;
-    if (in_j && i >= 0 && i < nx) {
-      su[c] = u_in[ij];
-      sv[c] = v_in[ij];
-      s11[c] = s11_in[ij];
-      s22[c] = s22_in[ij];
-      s12[c] = s12_in[ij];
-    } else {
-      su[c] = sv[c] = s11[c] = s22[c] = s12[c] = 0.0f;
-    }
-  }
-  __syncthreads();
-
-  float cw[kTiledMaxCells], inv[kTiledMaxCells], bt[kTiledMaxCells];
-  for (int sub = 0; sub < n_sub; ++sub) {
-    // Stress phase: element (a, b), elements [sub, w - 1 - sub) along each
-    // axis, reads nodes a..a+1, b..b+1.
-    owned([&](int q, int a) {
-      const int i = i0 + a;
-      if (i < 0 || i >= nx || sub > min(eb, min(a, w - 2 - a))) return;
-      const int c = a * w + b, ij = i * ny + j;
-      const StressOut o = mevp_stress_body<kForm>(
-          su[c], su[c + w], su[c + 1], su[c + w + 1], sv[c], sv[c + w], sv[c + 1],
-          sv[c + w + 1], s11[c], s22[c], s12[c], cst(kStrength, ij), cst(kDtM, ij),
-          cst(kActive, ij), cst(kUo, ij), cst(kVo, ij),
-          kMetric ? __ldg(k.inv_dx + ij) : s.inv_dx, kMetric ? __ldg(k.inv_dy + ij) : s.inv_dy,
-          s, form_a_node<kForm>(k, ij), form_inv_area<kMetric, kForm>(k, ij, s));
-      s11[c] = o.s11;
-      s22[c] = o.s22;
-      s12[c] = o.s12;
-      cw[q] = o.c_w;
-      inv[q] = o.inv_drag;
-      if constexpr ((kForm & kFormAdaptive) != 0) bt[q] = o.beta;
-    });
-    __syncthreads();
-
-    // Velocity phase: node (a, b), nodes [sub + 1, w - 1 - sub), reads
-    // elements a-1..a, b-1..b and the c_w and inv_drag that this thread
-    // computed at element (a, b) above.
-    owned([&](int q, int a) {
-      const int i = i0 + a;
-      if (i < 0 || i >= nx || sub > min(nb, min(a - 1, w - 2 - a))) return;
-      const int c = a * w + b, ij = i * ny + j;
-      float2 f;
-      float inv_node_w;
-      if (kMetric) {
-        f = forces_metric(weighted_tile(s11, k.half_dy, c, w, ij, i, j, nx, ny),
-                          weighted_tile(s12, k.half_dx, c, w, ij, i, j, nx, ny),
-                          weighted_tile(s12, k.half_dy, c, w, ij, i, j, nx, ny),
-                          weighted_tile(s22, k.half_dx, c, w, ij, i, j, nx, ny));
-        inv_node_w = __ldg(k.inv_w + ij);
-      } else {
-        const Around a11 = {s11[c], s11[c - w], s11[c - 1], s11[c - w - 1]};
-        const Around a22 = {s22[c], s22[c - w], s22[c - 1], s22[c - w - 1]};
-        const Around a12 = {s12[c], s12[c - w], s12[c - 1], s12[c - w - 1]};
-        f = forces_uniform(a11, a22, a12, s);
-        inv_node_w = s.inv_w;
-      }
-      const float2 uv = mevp_velocity_body(
-          f, inv_node_w, su[c], sv[c], cst(kUo, ij), cst(kVo, ij), cw[q], cst(kDtM, ij),
-          cst(kBu, ij), cst(kBv, ij), inv[q], (kForm & kFormAdaptive) != 0 ? bt[q] : s.beta, s);
-      su[c] = uv.x;
-      sv[c] = uv.y;
-    });
-    __syncthreads();
-  }
-
-  // The T x T interior (window cells [halo, halo + tile)) is exact.
-  if (b < halo || b >= halo + tile || j >= ny || a0 >= rows) return;
-#pragma unroll 1
-  for (int a = a0; a < halo + tile; a += rows) {
-    const int i = i0 + a;
-    if (a < halo || i >= nx) continue;
-    const int c = a * w + b, ij = i * ny + j;
-    u_out[ij] = su[c];
-    v_out[ij] = sv[c];
-    s11_out[ij] = s11[c];
-    s22_out[ij] = s22[c];
-    s12_out[ij] = s12[c];
-  }
-}
-
-using TiledKernel = void (*)(const float*, const float*, const float*, const float*,
-                             const float*, float*, float*, float*, float*, float*, MevpConsts,
-                             int, int, int, int, int, MevpScalars);
-
-template <bool kMetric, int kForm>
-TiledKernel tiled_kernel_of(int w) {
-  return w == 80 ? mevp_tiled_kernel<kMetric, 80, kForm> : mevp_tiled_kernel<kMetric, 0, kForm>;
-}
-
-template <int kForm>
-TiledKernel tiled_kernel_of(bool metric, int w) {
-  return metric ? tiled_kernel_of<true, kForm>(w) : tiled_kernel_of<false, kForm>(w);
-}
-
-// The kernel of a launch configuration and momentum form, or null where it
-// has none: fewer threads than a window row, more than 8 window rows a
-// thread, or an unknown form.
-TiledKernel tiled_kernel(bool metric, int form, int tile, int halo, int threads) {
+// The kernel of a launch configuration, momentum form and periodic form
+// (wrap != 0), or null where it has none: fewer threads than a window row,
+// more than 8 window rows a thread, or an unknown form.
+TiledKernel tiled_kernel(bool metric, int form, int tile, int halo, int threads, int wrap = 0) {
   const int w = tile + 2 * halo;
   if (tile < 1 || halo < 1 || threads < 32 || threads > kTiledMaxThreads || w > threads) {
     return nullptr;
   }
   const int rows = threads / w;
   if ((w + rows - 1) / rows > kTiledMaxCells) return nullptr;
-  switch (form) {
-    case 0: return tiled_kernel_of<0>(metric, w);
-    case kFormWeighted: return tiled_kernel_of<kFormWeighted>(metric, w);
-    case kFormAdaptive: return tiled_kernel_of<kFormAdaptive>(metric, w);
-    case kFormWeighted | kFormAdaptive: return tiled_kernel_of<kFormWeighted | kFormAdaptive>(metric, w);
-    default: return nullptr;
-  }
+  return wrap ? tiled_kernel_periodic(metric, form, w) : tiled_kernel_of_form<false>(metric, form, w);
 }
 
 }  // namespace nst
@@ -283,7 +129,8 @@ int nst_mevp_tiled_max_blocks(int tile, int halo, int threads, int metric, int f
 // *_in planes into the *_out planes, which must not alias them. consts
 // points to the 13 const-plane pointers in the order of MevpConsts, the
 // metric ones null on a uniform mesh, a_node null outside the weighted
-// form; form: the momentum form's bits. Launches on `stream`, returns
+// form; form: the momentum form's bits, and the periodic axes' shifted by
+// kFormWrapShift (a periodic axis at least `halo` long). Launches on `stream`, returns
 // cudaGetLastError() (or the error of the shared-memory attribute); does
 // not synchronise.
 int nst_mevp_tiled(const float* u_in, const float* v_in, const float* s11_in,
@@ -296,8 +143,12 @@ int nst_mevp_tiled(const float* u_in, const float* v_in, const float* s11_in,
   if (err != cudaSuccess) return static_cast<int>(err);
   nst::MevpConsts k;
   std::memcpy(&k, consts, sizeof(k));
-  const auto kernel = nst::tiled_kernel(k.inv_dx != nullptr, form, tile, halo, threads);
-  if (kernel == nullptr || halo < n_sub || n_sub < 1 ||
+  const int wrap = form >> nst::kFormWrapShift;
+  form &= nst::kForms - 1;
+  const auto kernel = nst::tiled_kernel(k.inv_dx != nullptr, form, tile, halo, threads, wrap);
+  // A periodic axis takes at most its own extent of halo on either side.
+  if (kernel == nullptr || halo < n_sub || n_sub < 1 || wrap > (nst::kWrapX | nst::kWrapY) ||
+      ((wrap & nst::kWrapX) && halo > nx) || ((wrap & nst::kWrapY) && halo > ny) ||
       ((form & nst::kFormWeighted) != 0) != (k.a_node != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -312,7 +163,7 @@ int nst_mevp_tiled(const float* u_in, const float* v_in, const float* s11_in,
   const dim3 grid((ny + tile - 1) / tile, (nx + tile - 1) / tile);
   kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
       u_in, v_in, s11_in, s22_in, s12_in, u_out, v_out, s11_out, s22_out, s12_out,
-      k, nx, ny, tile, halo, n_sub, s);
+      k, nx, ny, tile, halo, n_sub, s, wrap);
   return static_cast<int>(cudaGetLastError());
 }
 

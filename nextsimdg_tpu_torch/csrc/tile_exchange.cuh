@@ -50,12 +50,26 @@
 namespace nst {
 
 // Where a block sits in the tile grid, and its three neighbours after it
-// (dir = 1: +i, +j, +i+j) or before it (dir = -1).
+// (dir = 1: +i, +j, +i+j) or before it (dir = -1). On a periodic axis
+// (wrap: kWrapX, kWrapY; 0 for a closed domain) the tiles form a ring: the
+// last tile's neighbour after it is the first. With one tile along such an
+// axis a tile is its own neighbour, and it publishes its edge words before
+// it polls them (each half's owned cells, then the apron copy), so it waits
+// on its own threads only; with two, the tiles before and after it are
+// the same tile, whose slot holds both edges in separate planes.
 struct TileGrid {
   int ti, tj, tiles_i, tiles_j;
   __device__ __forceinline__ int neighbour(int n, int dir) const {
     const int di = n == 1 ? 0 : dir, dj = n == 0 ? 0 : dir;
     const int i = ti + di, j = tj + dj;
+    return i >= 0 && i < tiles_i && j >= 0 && j < tiles_j ? i * tiles_j + j : -1;
+  }
+  // The same with the tiles in a ring along the periodic axes of `wrap`.
+  __device__ __forceinline__ int neighbour_wrap(int n, int dir, int wrap) const {
+    const int di = n == 1 ? 0 : dir, dj = n == 0 ? 0 : dir;
+    int i = ti + di, j = tj + dj;
+    if (wrap & kWrapX) i = wrap_index(i, tiles_i);
+    if (wrap & kWrapY) j = wrap_index(j, tiles_j);
     return i >= 0 && i < tiles_i && j >= 0 && j < tiles_j ? i * tiles_j + j : -1;
   }
 };
@@ -89,18 +103,40 @@ __device__ __forceinline__ float take_word(unsigned long long* slot, int edge, i
 // A block's view of its tile: TR x TC cells from (i0, j0), at cell(r, c) of
 // each shared plane for r in [-1, TR], c in [-1, TC] (the tile and its
 // apron), and the exchange slots of kPlanes planes of TR + TC words.
-template <int kPlanes>
+// kWrap: the periodic form, on the axes of `wrap` (read only there).
+template <int kPlanes, bool kWrap = false>
 struct TileView {
   TileGrid tile;
   int tr, tc, i0, j0, nx, ny, pitch, edge;
   unsigned long long* exchange;
+  int wrap;
   __device__ __forceinline__ int cell(int r, int c) const { return (r + 1) * pitch + (c + 1); }
   __device__ __forceinline__ unsigned long long* slot(int b) const {
     return exchange + static_cast<long>(b) * kPlanes * edge;
   }
+  // Whether cell (r, c) is a domain cell: in the periodic form every cell
+  // of a periodic axis is (the tiles divide such an axis exactly, so the
+  // apron beyond the last tile is the first tile's edge).
   __device__ __forceinline__ bool inside(int r, int c) const {
     const int i = i0 + r, j = j0 + c;
-    return i >= 0 && i < nx && j >= 0 && j < ny;
+    if constexpr (kWrap) {
+      return ((wrap & kWrapX) || (i >= 0 && i < nx)) && ((wrap & kWrapY) || (j >= 0 && j < ny));
+    } else {
+      return i >= 0 && i < nx && j >= 0 && j < ny;
+    }
+  }
+  // The domain index of cell (r, c), wrapped on the periodic axes.
+  __device__ __forceinline__ int index(int r, int c) const {
+    int i = i0 + r, j = j0 + c;
+    if constexpr (kWrap) wrap_ij(i, j, nx, ny, wrap);
+    return i * ny + j;
+  }
+  __device__ __forceinline__ int neighbour(int n, int dir) const {
+    if constexpr (kWrap) {
+      return tile.neighbour_wrap(n, dir, wrap);
+    } else {
+      return tile.neighbour(n, dir);
+    }
   }
   // Publish planes [p0, p1) of cell (r, c), values[p - p0], for the half:
   // on the last row (dir 1, the stress half) or the first (dir -1, the
@@ -130,7 +166,7 @@ struct TileView {
     const int c = k < tc ? k : k < edge ? (dir < 0 ? -1 : tc) : (dir < 0 ? -1 : tc);
     if (!inside(r, c)) return;
     const int from = k < edge ? k : (dir < 0 ? tc - 1 : 0);
-    smem[p * plane + cell(r, c)] = take_word(slot(tile.neighbour(n, dir)), edge, p, from, half);
+    smem[p * plane + cell(r, c)] = take_word(slot(neighbour(n, dir)), edge, p, from, half);
   }
 };
 

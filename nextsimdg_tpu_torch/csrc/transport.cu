@@ -52,7 +52,14 @@
 //
 // The tables, the velocity sampling and the per-face and per-element stage
 // math live in dg1_body.cuh, shared with the tiled schedule of
-// transport_tiled.cu.
+// transport_tiled.cu; the dg1_rk_stage kernel template lives in
+// dg1_stage.cuh, instantiated here (the closed instances), in
+// transport_tvb.cu (the TVB form's unlimited 3-tracer instances, with
+// dg1_limit) and in transport_periodic.cu (the periodic instances). On a
+// periodic axis (the periodic instances, a template argument kWrap, on the
+// launch's `wrap` axes) both kernels' loads wrap: node nx is node 0, a
+// window cell beyond the domain is copied from its wrapped cell, and no
+// face is a wall.
 //
 // What bounds dg1_sample_cfl on the H100: the 8 bytes of u and v per node,
 // read once (64 MiB each at 4096^2, ~40 us at the data sheet's 3.35 TB/s);
@@ -98,6 +105,7 @@
 
 #include "async_copy.cuh"
 #include "dg1_body.cuh"
+#include "dg1_stage.cuh"
 
 namespace nst {
 
@@ -131,9 +139,10 @@ __device__ __forceinline__ float2 block_max(float x, float y, float* wx, float* 
 // computed: load_nodes issues the lane's own kPer (one 16-byte load for
 // kPer = 4) and, in the last lane, the node after them; finish_nodes takes
 // the node after them from the next lane. Every lane of the warp calls both.
-template <int kPer>
+template <int kPer, bool kWrap>
 __device__ __forceinline__ void load_nodes(const float* f, int a, int b, int nx, int ny, int ld,
-                                           float (&x)[kPer + 1]) {
+                                           float (&x)[kPer + 1], int wrap) {
+  if (kWrap && (wrap & kWrapX) && a >= nx) a -= nx;  // node row nx is row 0
   const bool row = a < nx;
   const float* p = f + static_cast<long>(a) * ld + b;
   if (kPer == 4) {
@@ -147,12 +156,17 @@ __device__ __forceinline__ void load_nodes(const float* f, int a, int b, int nx,
     x[0] = row && b < ny ? *p : 0.0f;
   }
   x[kPer] = (threadIdx.x & 31) == 31 && row && b + kPer < ny ? p[kPer] : 0.0f;
+  // Node column ny is column 0 on a periodic y axis: the lane whose nodes
+  // end the row loads it (after finish_nodes, which would take a zero).
+  if (kWrap && (wrap & kWrapY) && row && b < ny && b + kPer >= ny) x[kPer] = f[static_cast<long>(a) * ld];
 }
 
-template <int kPer>
-__device__ __forceinline__ void finish_nodes(float (&x)[kPer + 1]) {
+template <int kPer, bool kWrap>
+__device__ __forceinline__ void finish_nodes(float (&x)[kPer + 1], int b, int ny, int wrap) {
   const float next = __shfl_down_sync(0xffffffffu, x[0], 1);
-  if ((threadIdx.x & 31) != 31) x[kPer] = next;
+  if ((threadIdx.x & 31) != 31 && !(kWrap && (wrap & kWrapY) && b < ny && b + kPer >= ny)) {
+    x[kPer] = next;
+  }
 }
 
 // kPer consecutive elements a lane: 4 by 16-byte loads (u and v 16-byte
@@ -163,11 +177,13 @@ __device__ __forceinline__ void finish_nodes(float (&x)[kPer + 1]) {
 // scratch: [0] the count of blocks done (0 between launches), then a
 // (max |vx|, max |vy|) pair per block.
 // kVol, kEdge: the degree's volume and face points (SamplePoints).
-template <int kPer, int kVol, int kEdge>
+// kWrap: the periodic form (node nx is node 0 on the axes of `wrap`);
+// without it `wrap` is not read and the code is the closed domain's.
+template <int kPer, int kVol, int kEdge, bool kWrap>
 __global__ void __launch_bounds__(kCflThreads)
 dg1_sample_cfl_kernel(const float* __restrict__ u, const float* __restrict__ v, int ex, int ey,
                       int nx, int ny, int ld, int rows, SamplePoints<kVol, kEdge> tb,
-                      float* __restrict__ speeds, unsigned int* __restrict__ scratch) {
+                      float* __restrict__ speeds, unsigned int* __restrict__ scratch, int wrap) {
   constexpr int kStrip = 32 * kPer;
   const int lane = threadIdx.x & 31;
   const int warp = (blockIdx.x * kCflThreads + threadIdx.x) >> 5;
@@ -180,21 +196,21 @@ dg1_sample_cfl_kernel(const float* __restrict__ u, const float* __restrict__ v, 
     const int chunk = item / strips, i0 = chunk * rows, i1 = min(i0 + rows, ex);
     const int j = (item - chunk * strips) * kStrip + lane * kPer;
     float u_top[kPer + 1], v_top[kPer + 1], u_bot[kPer + 1], v_bot[kPer + 1];
-    load_nodes<kPer>(u, i0, j, nx, ny, ld, u_top);
-    load_nodes<kPer>(v, i0, j, nx, ny, ld, v_top);
-    load_nodes<kPer>(u, i0 + 1, j, nx, ny, ld, u_bot);
-    load_nodes<kPer>(v, i0 + 1, j, nx, ny, ld, v_bot);
-    finish_nodes<kPer>(u_top);
-    finish_nodes<kPer>(v_top);
-    finish_nodes<kPer>(u_bot);
-    finish_nodes<kPer>(v_bot);
+    load_nodes<kPer, kWrap>(u, i0, j, nx, ny, ld, u_top, wrap);
+    load_nodes<kPer, kWrap>(v, i0, j, nx, ny, ld, v_top, wrap);
+    load_nodes<kPer, kWrap>(u, i0 + 1, j, nx, ny, ld, u_bot, wrap);
+    load_nodes<kPer, kWrap>(v, i0 + 1, j, nx, ny, ld, v_bot, wrap);
+    finish_nodes<kPer, kWrap>(u_top, j, ny, wrap);
+    finish_nodes<kPer, kWrap>(v_top, j, ny, wrap);
+    finish_nodes<kPer, kWrap>(u_bot, j, ny, wrap);
+    finish_nodes<kPer, kWrap>(v_bot, j, ny, wrap);
     for (int i = i0; i < i1; ++i) {
       // The next row's loads go out before this row's maxima.
       float u_next[kPer + 1] = {}, v_next[kPer + 1] = {};
       const bool more = i + 1 < i1;
       if (more) {
-        load_nodes<kPer>(u, i + 2, j, nx, ny, ld, u_next);
-        load_nodes<kPer>(v, i + 2, j, nx, ny, ld, v_next);
+        load_nodes<kPer, kWrap>(u, i + 2, j, nx, ny, ld, u_next, wrap);
+        load_nodes<kPer, kWrap>(v, i + 2, j, nx, ny, ld, v_next, wrap);
       }
 #pragma unroll
       for (int q = 0; q < kPer; ++q) {
@@ -212,8 +228,8 @@ dg1_sample_cfl_kernel(const float* __restrict__ u, const float* __restrict__ v, 
         }
       }
       if (more) {
-        finish_nodes<kPer>(u_next);
-        finish_nodes<kPer>(v_next);
+        finish_nodes<kPer, kWrap>(u_next, j, ny, wrap);
+        finish_nodes<kPer, kWrap>(v_next, j, ny, wrap);
       }
 #pragma unroll
       for (int q = 0; q <= kPer; ++q) {
@@ -263,282 +279,29 @@ int cfl_resident_blocks(int device) {
   if (blocks > 0) return blocks;
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dg1_sample_cfl_kernel<kPer, kVol, kEdge>, kCflThreads, 0);
+      &per_sm, dg1_sample_cfl_kernel<kPer, kVol, kEdge, false>, kCflThreads, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   known[device].store(per_sm * sms, std::memory_order_relaxed);
   return per_sm * sms;
 }
 
-// -- dg1_rk_stage ---------------------------------------------------------------
-constexpr int kStageCols = 32;    // a tile: 32 elements along j (a warp's lanes) ...
-constexpr int kStageRows = 4;     // ... by 4 along i
-constexpr int kStageTracers = 3;  // hice, cice, hsnow: one warp a tracer and row
-
-// A block of kTracers warps a tile row (3: the coupled step's tracers; 1:
-// the advection run's one) at degree kDeg: its threads, and the blocks an
-// SM that its launch bound asks for: 48 warps an SM at dG0 and dG1 (at
-// most 40 registers a thread), 24 at dG2 (at most 85).
-template <int kDeg, int kTracers>
-struct StageShape {
-  static constexpr int kThreads = kStageCols * kStageRows * kTracers;
-  static constexpr int kBlocksPerSm = (kDeg == 2 ? 768 : 1536) / kThreads;
-};
-
-// The coefficient window: rows i0 - 1 ... i0 + kStageRows, columns from
-// j0 - 4 (16-byte aligned; j0 - 1 is the left apron) to j0 + kStageCols + 3.
-constexpr int kPsiPitch = kStageCols + 8;
-constexpr int kPsiLead = 4;
-// Every other window: rows i0 ... i0 + kStageRows (the x faces below the
-// next tile, the nodes' last row), columns j0 ... j0 + kStageCols + 3 (the
-// y faces left of the next tile, the nodes' last column).
-constexpr int kWinRows = kStageRows + 1;
-constexpr int kWinPitch = kStageCols + 4;
-constexpr int kMaxWindows = DgQvPlanes<2>::kCount + 2 + 5;
-
-// The windows of a form, in the order of StageArgs::win: the velocity (CG1:
-// u, v; qv: vx[kVol], vy[kVol], vn_x[kEdge], vn_y[kEdge]), with kMasks
-// face_x and face_y, then with kMetric len_x, len_y, inv_dx, inv_dy,
-// inv_area. Without kMasks (the no-limit instance: DGTransport.run takes
-// no face masks) every face is open and no mask plane is read.
-template <int kDeg, bool kMetric, bool kQv, bool kMasks>
-struct StageWindows {
-  static constexpr int kVelocity = kQv ? DgQvPlanes<kDeg>::kCount : 2;
-  static constexpr int kFaceX = kVelocity, kFaceY = kVelocity + 1;
-  static constexpr int kLenX = kVelocity + (kMasks ? 2 : 0), kLenY = kLenX + 1;
-  static constexpr int kInv = kLenX + 2;  // inv_dx, inv_dy, inv_area
-  static constexpr int kCount = kLenX + (kMetric ? 5 : 0);
-};
-
-// Everything a launch takes.
-template <int kDeg>
-struct StageArgs {
-  const float* psi;   // (K, n_tracers, nx, ny)
-  const float* base;  // read only with kBlend; may alias out
-  float* out;
-  const float* win[kMaxWindows];  // StageWindows' planes
-  int nx, ny;
-  int vector;         // 16-byte copies (every plane 16-byte aligned, ny % 4 == 0)
-  float a, b, dt;
-  DgTables<kDeg> tb;
-};
-
-// A tile's windows in shared memory (beyond the domain, zeros), the CG1
-// form's sampled volume velocity and the face fluxes.
-template <int kDeg, int kTracers, int kWindows, bool kSampled>
-struct alignas(16) StageTile {
-  static constexpr int kDofs = DgShape<kDeg>::kDofs, kVol = DgShape<kDeg>::kVol,
-                       kEdge = DgShape<kDeg>::kEdge;
-  float psi[kDofs * kTracers][kStageRows + 2][kPsiPitch];  // plane d * kTracers + t
-  float win[kWindows][kWinRows][kWinPitch];
-  float vol[kSampled ? 2 * kVol : 1][kStageRows][kStageCols];  // vx, then vy
-  float gx[kTracers][kEdge][kStageRows + 1][kStageCols];  // x face i0 + r
-  float gy[kTracers][kEdge][kStageRows][kStageCols + 1];  // y face j0 + c
-};
-
-// Copies the tile's windows by cp.async, every thread of the block a share
-// of each: kVec 4, 16-byte copies (ny % 4 == 0, every plane 16-byte
-// aligned), or 4-byte ones.
-template <int kVec, int kTracers, int kDeg, class Tile>
-__device__ __forceinline__ void copy_tile(const StageArgs<kDeg>& g, Tile& s, int n_windows,
-                                          int i0, int j0, int tid) {
-  constexpr int kThreads = StageShape<kDeg, kTracers>::kThreads;
-  const int nx = g.nx, ny = g.ny;
-  const long plane = static_cast<long>(nx) * ny;
-  constexpr int kPsiChunks = kPsiPitch / kVec, kPsiItems = (kStageRows + 2) * kPsiChunks;
-  for (int c = tid; c < DgShape<kDeg>::kDofs * kTracers * kPsiItems; c += kThreads) {
-    const int k = c / kPsiItems, rem = c - k * kPsiItems;
-    const int row = rem / kPsiChunks, col = (rem - row * kPsiChunks) * kVec;
-    const int a = i0 - 1 + row, b = j0 - kPsiLead + col;
-    const bool valid = a >= 0 && a < nx && b >= 0 && b < ny;
-    cp_async<kVec>(&s.psi[k][row][col],
-                   valid ? g.psi + k * plane + static_cast<long>(a) * ny + b : g.psi, valid);
-  }
-  constexpr int kWinChunks = kWinPitch / kVec, kWinItems = kWinRows * kWinChunks;
-  for (int c = tid; c < n_windows * kWinItems; c += kThreads) {
-    const int k = c / kWinItems, rem = c - k * kWinItems;
-    const int row = rem / kWinChunks, col = (rem - row * kWinChunks) * kVec;
-    const int a = i0 + row, b = j0 + col;
-    const bool valid = a < nx && b < ny;
-    const float* src = g.win[k];
-    cp_async<kVec>(&s.win[k][row][col], valid ? src + static_cast<long>(a) * ny + b : src, valid);
-  }
-  cp_async_commit();
-}
-
-// The K coefficients of tracer t at coefficient-window row r, column c.
-template <int kTracers, int K, class Tile>
-__device__ __forceinline__ void tile_coeffs(const Tile& s, int t, int r, int c, float (&p)[K]) {
-#pragma unroll
-  for (int d = 0; d < K; ++d) p[d] = s.psi[d * kTracers + t][r][c];
-}
-
-// The points of x face i0 + r (between element rows i0 + r - 1 and i0 + r)
-// at column j0 + c, for tracer t, into s.gx.
-template <int kDeg, bool kMetric, bool kQv, bool kMasks, class Tile, int K>
-__device__ __forceinline__ void x_face(const StageArgs<kDeg>& g, Tile& s, int t, int r, int c,
-                                       const float (&lo)[K], const float (&hi)[K]) {
-  using W = StageWindows<kDeg, kMetric, kQv, kMasks>;
-  constexpr int kVol = DgShape<kDeg>::kVol;
-  const int i = blockIdx.y * kStageRows + r;
-  const bool open = i > 0 && i < g.nx;
-#pragma unroll
-  for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) {
-    const float vn = kQv ? s.win[2 * kVol + e][r][c]
-                         : along_face(g.tb.w_edge[e], s.win[0][r][c], s.win[0][r][c + 1]);
-    s.gx[t][e][r][c] = dg1_face_flux<kMetric>(g.tb.psi_x1, g.tb.psi_x0, e, vn, lo, hi, open,
-                                              kMasks ? s.win[W::kFaceX][r][c] : 1.0f,
-                                              kMetric ? s.win[W::kLenX][r][c] : 0.0f);
-  }
-}
-
-// The points of y face j0 + c (between element columns j0 + c - 1 and
-// j0 + c) at row i0 + r, for tracer t, into s.gy.
-template <int kDeg, bool kMetric, bool kQv, bool kMasks, class Tile, int K>
-__device__ __forceinline__ void y_face(const StageArgs<kDeg>& g, Tile& s, int t, int r, int c,
-                                       const float (&lo)[K], const float (&hi)[K]) {
-  using W = StageWindows<kDeg, kMetric, kQv, kMasks>;
-  constexpr int kVol = DgShape<kDeg>::kVol, kEdge = DgShape<kDeg>::kEdge;
-  const int j = blockIdx.x * kStageCols + c;
-  const bool open = j > 0 && j < g.ny;
-#pragma unroll
-  for (int e = 0; e < kEdge; ++e) {
-    const float vn = kQv ? s.win[2 * kVol + kEdge + e][r][c]
-                         : along_face(g.tb.w_edge[e], s.win[1][r][c], s.win[1][r + 1][c]);
-    s.gy[t][e][r][c] = dg1_face_flux<kMetric>(g.tb.psi_y1, g.tb.psi_y0, e, vn, lo, hi, open,
-                                              kMasks ? s.win[W::kFaceY][r][c] : 1.0f,
-                                              kMetric ? s.win[W::kLenY][r][c] : 0.0f);
-  }
-}
-
-// One SSP-RK stage on a tile of kStageRows x kStageCols elements, one
-// thread an element and tracer (a warp: one tracer of one row). 1. The
-// threads copy the windows by cp.async; each loads its own base. 2. Each
-// computes its element's left and bottom face fluxes for its tracer (the
-// tile's last row adds the faces below the next tile, the first row's
-// lanes the column left of it); in the CG1 form it also samples its share
-// of the element's volume velocities. 3. Each updates its element from
-// the shared fluxes. kBlend: a != 0 (the base is read); kQv: the velocity
-// from the qv planes; kLimit: the positivity limiter.
-template <int kDeg, int kTracers, bool kMetric, bool kQv, bool kBlend, bool kLimit>
-__global__ void __launch_bounds__(StageShape<kDeg, kTracers>::kThreads,
-                                  StageShape<kDeg, kTracers>::kBlocksPerSm)
-dg1_rk_stage_kernel(const __grid_constant__ StageArgs<kDeg> g) {
-  using W = StageWindows<kDeg, kMetric, kQv, kLimit>;
-  using Tile = StageTile<kDeg, kTracers, W::kCount, !kQv>;
-  constexpr int kDofs = DgShape<kDeg>::kDofs, kVol = DgShape<kDeg>::kVol,
-                kEdge = DgShape<kDeg>::kEdge;
-  extern __shared__ __align__(16) unsigned char stage_smem[];
-  Tile& s = *reinterpret_cast<Tile*>(stage_smem);
-  const int lane = threadIdx.x, r = threadIdx.y, t = threadIdx.z;
-  const int tid = lane + kStageCols * (r + kStageRows * t);
-  const int i0 = blockIdx.y * kStageRows, j0 = blockIdx.x * kStageCols;
-  const int i = i0 + r, j = j0 + lane;
-  const int nx = g.nx, ny = g.ny;
-  const bool own = i < nx && j < ny;
-  const long plane = static_cast<long>(nx) * ny;
-  const long ij = static_cast<long>(i) * ny + j;
-
-  if (g.vector) {
-    copy_tile<4, kTracers>(g, s, W::kCount, i0, j0, tid);
-  } else {
-    copy_tile<1, kTracers>(g, s, W::kCount, i0, j0, tid);
-  }
-  float p0[kDofs] = {};
-  if (kBlend && own) {
-#pragma unroll
-    for (int d = 0; d < kDofs; ++d) p0[d] = g.base[(d * kTracers + t) * plane + ij];
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // 2. The fluxes of the element's left and bottom faces.
-  const int c = lane + kPsiLead;  // the element's column in the coefficient window
-  {
-    float p[kDofs], lo[kDofs];
-    tile_coeffs<kTracers>(s, t, r + 1, c, p);
-    tile_coeffs<kTracers>(s, t, r, c, lo);
-    x_face<kDeg, kMetric, kQv, kLimit>(g, s, t, r, lane, lo, p);
-    tile_coeffs<kTracers>(s, t, r + 1, c - 1, lo);
-    y_face<kDeg, kMetric, kQv, kLimit>(g, s, t, r, lane, lo, p);
-    if (r == kStageRows - 1) {  // the x face below the next tile's first row
-      float hi[kDofs];
-      tile_coeffs<kTracers>(s, t, r + 2, c, hi);
-      x_face<kDeg, kMetric, kQv, kLimit>(g, s, t, r + 1, lane, p, hi);
-    }
-    if (r == 0 && lane < kStageRows) {  // the y face left of the next tile, row `lane`
-      float hi[kDofs];
-      tile_coeffs<kTracers>(s, t, lane + 1, kPsiLead + kStageCols - 1, lo);
-      tile_coeffs<kTracers>(s, t, lane + 1, kPsiLead + kStageCols, hi);
-      y_face<kDeg, kMetric, kQv, kLimit>(g, s, t, lane, kStageCols, lo, hi);
-    }
-  }
-  if (!kQv) {
-    // The CG1 volume velocity, sampled once an element: value q by tracer
-    // q % kTracers.
-#pragma unroll
-    for (int q = 0; q < 2 * kVol; ++q) {
-      if (q % kTracers == t) {
-        const auto& f = s.win[q / kVol];  // u, then v
-        s.vol[q][r][lane] = bilinear(g.tb.w_vol[q % kVol], f[r][lane], f[r + 1][lane],
-                                     f[r][lane + 1], f[r + 1][lane + 1]);
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. The element's update from its four shared face fluxes.
-  if (!own) return;
-  float p[kDofs], vx[kVol], vy[kVol], val[kDofs];
-  tile_coeffs<kTracers>(s, t, r + 1, c, p);
-#pragma unroll
-  for (int k = 0; k < kVol; ++k) {
-    vx[k] = kQv ? s.win[k][r][lane] : s.vol[k][r][lane];
-    vy[k] = kQv ? s.win[kVol + k][r][lane] : s.vol[kVol + k][r][lane];
-  }
-  DgFluxes<kEdge> fl;
-#pragma unroll
-  for (int e = 0; e < kEdge; ++e) {
-    fl.left[e] = s.gx[t][e][r][lane];
-    fl.right[e] = s.gx[t][e][r + 1][lane];
-    fl.bottom[e] = s.gy[t][e][r][lane];
-    fl.top[e] = s.gy[t][e][r][lane + 1];
-  }
-  Dg1Metric gm = {};
-  if (kMetric) {
-    gm.inv_dx = s.win[W::kInv][r][lane];
-    gm.inv_dy = s.win[W::kInv + 1][r][lane];
-    gm.inv_area = s.win[W::kInv + 2][r][lane];
-  }
-  dg1_stage_update<kDeg, kMetric, kBlend, kLimit>(g.tb, vx, vy, gm, p, fl, p0, g.a, g.b, g.dt,
-                                                  val);
-#pragma unroll
-  for (int d = 0; d < kDofs; ++d) g.out[(d * kTracers + t) * plane + ij] = val[d];
-}
-
-// One launch of an instance: its tile in dynamic shared memory.
-template <int kDeg, int kTracers, bool kMetric, bool kQv, bool kBlend, bool kLimit>
-cudaError_t launch_stage(const StageArgs<kDeg>& g, cudaStream_t stream) {
-  using W = StageWindows<kDeg, kMetric, kQv, kLimit>;
-  constexpr int bytes = static_cast<int>(sizeof(StageTile<kDeg, kTracers, W::kCount, !kQv>));
-  const auto kernel = dg1_rk_stage_kernel<kDeg, kTracers, kMetric, kQv, kBlend, kLimit>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((g.ny + kStageCols - 1) / kStageCols, (g.nx + kStageRows - 1) / kStageRows);
-  kernel<<<grid, dim3(kStageCols, kStageRows, kTracers), bytes, stream>>>(g);
-  return cudaGetLastError();
-}
-
 // The instance of the launch's form: with the limiter, the coupled step's 3
-// tracers in every form; without it (the advection run), one tracer in the
-// qv form, without face masks.
+// tracers in every form; without it, the advection run's one tracer in the
+// qv form, without face masks, or (kStageUnlimited, dG1 and dG2) the
+// coupled step's 3 tracers in every form, which dg1_limit then limits.
 template <int kDeg>
-cudaError_t run_stage(const StageArgs<kDeg>& g, bool metric, bool qv, bool blend, bool limit,
+cudaError_t run_stage(const StageArgs<kDeg>& g, bool metric, bool qv, bool blend, int mode,
                       cudaStream_t s) {
-  if (!limit) {
+  if (g.wrap) return run_stage_periodic<kDeg>(g, metric, qv, blend, mode, s);
+  if (mode == kStageUnlimited) {
+    if constexpr (kDeg == 0) {
+      return cudaErrorInvalidValue;  // dG0 has no slopes: its stage limits in place
+    } else {
+      return run_stage_unlimited<kDeg>(g, metric, qv, blend, s);
+    }
+  }
+  if (mode == kStageRun) {
     if (metric) {
       return blend ? launch_stage<kDeg, 1, true, true, true, false>(g, s)
                    : launch_stage<kDeg, 1, true, true, false, false>(g, s);
@@ -563,15 +326,13 @@ cudaError_t run_stage(const StageArgs<kDeg>& g, bool metric, bool qv, bool blend
                : launch_stage<kDeg, T, false, false, false, true>(g, s);
 }
 
-bool aligned16(const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 == 0; }
-
 // The launch's arguments at degree kDeg (see nst_dg1_rk_stage), then the
 // launch.
 template <int kDeg>
 int stage_call(const float* psi, const float* base, const float* u, const float* v,
                const float* face_x, const float* face_y, const void* const* metric,
-               const void* const* qv, float* out, int nx, int ny, bool limit, float a, float b,
-               float dt, const float* tables, cudaStream_t stream) {
+               const void* const* qv, float* out, int nx, int ny, int mode, int wrap, float a,
+               float b, float dt, const float* tables, cudaStream_t stream) {
   StageArgs<kDeg> g = {};
   g.psi = psi;
   g.base = base;
@@ -584,7 +345,7 @@ int stage_call(const float* psi, const float* base, const float* u, const float*
     g.win[n++] = u;
     g.win[n++] = v;
   }
-  if (limit) {
+  if (mode != kStageRun) {
     g.win[n++] = face_x;
     g.win[n++] = face_y;
   }
@@ -594,6 +355,7 @@ int stage_call(const float* psi, const float* base, const float* u, const float*
   }
   g.nx = nx;
   g.ny = ny;
+  g.wrap = wrap;
   g.a = a;
   g.b = b;
   g.dt = dt;
@@ -604,14 +366,14 @@ int stage_call(const float* psi, const float* base, const float* u, const float*
   for (int k = 0; k < n; ++k) vector = vector && aligned16(g.win[k]);
   g.vector = vector;
   return static_cast<int>(
-      run_stage<kDeg>(g, metric != nullptr, qv != nullptr, a != 0.0f, limit, stream));
+      run_stage<kDeg>(g, metric != nullptr, qv != nullptr, a != 0.0f, mode, stream));
 }
 
 // dg1_sample_cfl at the volume and face points of one degree.
 template <int kVol, int kEdge>
 int sample_call(const float* u, const float* v, float* speeds, unsigned int* scratch,
                 int scratch_blocks, int ex, int ey, int nx, int ny, int ld, int vector,
-                const float* tables, int device, cudaStream_t stream) {
+                int wrap, const float* tables, int device, cudaStream_t stream) {
   SamplePoints<kVol, kEdge> tb;
   std::memcpy(&tb, tables, sizeof(tb));
   const int resident = vector ? cfl_resident_blocks<4, kVol, kEdge>(device)
@@ -625,10 +387,12 @@ int sample_call(const float* u, const float* v, float* speeds, unsigned int* scr
   const long items = strips * ((ex + rows - 1) / rows);
   const long blocks = std::max(1L, std::min((items + kCflThreads / 32 - 1) / (kCflThreads / 32),
                                             static_cast<long>(std::min(resident, scratch_blocks))));
-  const auto kernel = vector ? dg1_sample_cfl_kernel<4, kVol, kEdge>
-                             : dg1_sample_cfl_kernel<1, kVol, kEdge>;
+  const auto kernel = wrap ? (vector ? dg1_sample_cfl_kernel<4, kVol, kEdge, true>
+                                     : dg1_sample_cfl_kernel<1, kVol, kEdge, true>)
+                           : (vector ? dg1_sample_cfl_kernel<4, kVol, kEdge, false>
+                                     : dg1_sample_cfl_kernel<1, kVol, kEdge, false>);
   kernel<<<static_cast<int>(blocks), kCflThreads, 0, stream>>>(u, v, ex, ey, nx, ny, ld, rows, tb,
-                                                               speeds, scratch);
+                                                               speeds, scratch, wrap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -653,13 +417,17 @@ int nst_dg1_n_table_floats(int degree) {
 // first 0 (and left 0 by each launch); launches on the same scratch must
 // not overlap (one scratch a stream). vector: 16-byte loads (u and v
 // 16-byte aligned, ld % 4 == 0, and 4 nodes from the last node column's
-// 16-byte boundary inside the row). Returns cudaGetLastError(); does not
-// synchronise.
+// 16-byte boundary inside the row). wrap: the periodic axes (kWrapX,
+// kWrapY; node nx is node 0), on the whole domain only (ex = nx, ey = ny).
+// Returns cudaGetLastError(); does not synchronise.
 int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, unsigned int* scratch,
                        int scratch_blocks, int ex, int ey, int nx, int ny, int ld, int vector,
-                       int degree, const float* tables, int device, void* stream) {
+                       int wrap, int degree, const float* tables, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (wrap < 0 || wrap > (nst::kWrapX | nst::kWrapY) || (wrap && (ex != nx || ey != ny))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (ex > nx || ey > ny || ny > ld || scratch_blocks < 1 || degree < 0 || degree > 2 ||
       (vector && ((reinterpret_cast<size_t>(u) | reinterpret_cast<size_t>(v)) % 16 != 0 ||
                   ld % 4 != 0))) {
@@ -667,17 +435,20 @@ int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, unsigned i
   }
   const auto s = static_cast<cudaStream_t>(stream);
   return degree == 2 ? nst::sample_call<9, 3>(u, v, speeds, scratch, scratch_blocks, ex, ey, nx,
-                                              ny, ld, vector, tables, device, s)
+                                              ny, ld, vector, wrap, tables, device, s)
                      : nst::sample_call<4, 2>(u, v, speeds, scratch, scratch_blocks, ex, ey, nx,
-                                              ny, ld, vector, tables, device, s);
+                                              ny, ld, vector, wrap, tables, device, s);
 }
 
 // One SSP-RK stage at `degree` (0, 1 or 2; tables: its DgTables): psi,
 // base, out (K, n_tracers, nx, ny); out may alias base, not psi; base is
-// read only where a != 0. With `limit` (the coupled step) n_tracers is 3
-// (the kernel's warps are laid out for hice, cice and hsnow); without it
-// (DGTransport.run) n_tracers is 1, the velocity comes from qv and
-// face_x and face_y are not read (every face is open). The
+// read only where a != 0. mode kStageLimited (the coupled step): n_tracers
+// is 3 (the kernel's warps are laid out for hice, cice and hsnow), the
+// positivity limiter applies; kStageUnlimited (the TVB form's stage, dG1
+// and dG2): the same without the limiter (dg1_limit follows); kStageRun
+// (DGTransport.run): n_tracers is 1, the velocity comes from qv and face_x
+// and face_y are not read (every face is open). wrap: the periodic axes
+// (kWrapX, kWrapY): the window loads wrap and no face is a wall. The
 // velocity: the CG1 nodes u and v, or with qv (not null) the quadrature-
 // velocity plane pointers in the order of DgQvPlanes (12, or 24 at dG2;
 // u and v are then not read). metric: null on a uniform mesh, else the 5
@@ -686,26 +457,29 @@ int nst_dg1_sample_cfl(const float* u, const float* v, float* speeds, unsigned i
 int nst_dg1_rk_stage(const float* psi, const float* base, const float* u, const float* v,
                      const float* face_x, const float* face_y, const void* const* metric,
                      const void* const* qv, float* out, int nx, int ny, int n_tracers, int degree,
-                     int limit, float a, float b, float dt, const float* tables, int device,
-                     void* stream) {
+                     int mode, int wrap, float a, float b, float dt, const float* tables,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool form_ok = limit ? n_tracers == nst::kStageTracers && face_x && face_y
-                             : n_tracers == 1 && qv != nullptr;
-  if (nx < 1 || ny < 1 || !form_ok || degree < 0 || degree > 2) {
+  const bool form_ok = mode == nst::kStageRun
+                           ? n_tracers == 1 && qv != nullptr
+                           : (mode == nst::kStageLimited || (mode == nst::kStageUnlimited && degree > 0)) &&
+                                 n_tracers == nst::kStageTracers && face_x && face_y;
+  if (nx < 1 || ny < 1 || !form_ok || degree < 0 || degree > 2 || wrap < 0 ||
+      wrap > (nst::kWrapX | nst::kWrapY)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   switch (degree) {
     case 0:
-      return nst::stage_call<0>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, limit,
-                                a, b, dt, tables, s);
+      return nst::stage_call<0>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, mode,
+                                wrap, a, b, dt, tables, s);
     case 1:
-      return nst::stage_call<1>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, limit,
-                                a, b, dt, tables, s);
+      return nst::stage_call<1>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, mode,
+                                wrap, a, b, dt, tables, s);
     default:
-      return nst::stage_call<2>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, limit,
-                                a, b, dt, tables, s);
+      return nst::stage_call<2>(psi, base, u, v, face_x, face_y, metric, qv, out, nx, ny, mode,
+                                wrap, a, b, dt, tables, s);
   }
 }
 

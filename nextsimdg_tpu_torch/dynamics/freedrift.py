@@ -20,7 +20,7 @@ from .mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState, cell_t
 
 
 class FreeDriftSolver:
-    """Free drift on a closed ``RectMesh`` or ``SphericalMesh``.
+    """Free drift on a ``RectMesh`` or ``SphericalMesh``, closed or periodic.
 
     ``backend`` and ``block_halo`` are accepted for the interface of the
     other solvers and unused; ``spmd`` is a rank's exchange axes, which the
@@ -32,8 +32,6 @@ class FreeDriftSolver:
         self, mesh: RectMesh, params: MEVPParams = MEVPParams(), backend: str = "auto",
         spmd=(None, None), block_halo="auto",
     ) -> None:
-        if mesh.periodic_x or mesh.periodic_y:
-            raise NotImplementedError("only closed meshes are ported")
         self.mesh = mesh
         self.params = params
         self.spmd = tuple(spmd)

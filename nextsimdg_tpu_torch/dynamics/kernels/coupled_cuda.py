@@ -15,6 +15,7 @@ kernel              source                      plain version (same inputs)
 ``mevp_velocity``   ``csrc/mevp.cu``            ``MEVPSolver.velocity_update``
 ``dg1_sample_cfl``  ``csrc/transport.cu``       ``dg1_sample_cfl_reference``
 ``dg1_rk_stage``    ``csrc/transport.cu``       ``dg1_rk_stage_reference``
+``dg1_limit``       ``csrc/transport_tvb.cu``   ``dg1_limit_reference``
 ``mevp_tiled``      ``csrc/mevp_tiled.cu``      ``mevp_subcycles_reference``
 ``transport_tiled`` ``csrc/transport_tiled.cu`` ``transport_substeps_reference``
 ``mevp_single``     ``csrc/mevp_single.cu``     ``mevp_subcycles_reference``
@@ -46,6 +47,16 @@ the metric planes, and ``a_node`` besides in the A-weighted form; the
 momentum form (``mevp_form``: weighted, adaptive, both or neither) selects
 a template instance of each CG1 mEVP kernel. The transport kernels read the
 transport's metric planes on such a mesh.
+
+A periodic axis (``wrap_bits``) selects the periodic template instances of
+every single-domain kernel above (the mEVP kernels take it above the
+momentum form's bits, ``kernel_form``): the loads wrap and no face is a
+wall; the closed instances keep their code. With the transport's TVB limiter (``DGTransport(tvb_m=)``,
+dG1 and dG2) each staged stage is ``dg1_rk_stage``'s unlimited instance
+(``csrc/transport_tvb.cu``) and one ``dg1_limit`` launch, which applies
+``limit_slopes`` and the positivity limiter in place (``dg1_limit``, plain
+version ``dg1_limit_reference``); ``transport_tiled`` has a TVB form of its
+own (``transport_tiled_cuda``).
 
 With ``FreeDriftSolver`` the momentum part of the phase is its plain step
 on every device (``free_drift_subcycles``: no TPU kernel exists for it
@@ -104,7 +115,7 @@ from ..transport import (
 )
 
 KERNELS = (
-    "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage",
+    "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage", "dg1_limit",
     "mevp_tiled", "transport_tiled", "mevp_single", "ho_single", "ho_tiled",
     "rdma_stage", "rdma_band", "chain",
 )
@@ -129,6 +140,14 @@ LINK_FLAGS = ("-shared",)
 #: The momentum forms' bits (kFormWeighted, kFormAdaptive of
 #: csrc/mevp_body.cuh).
 FORM_WEIGHTED, FORM_ADAPTIVE = 1, 2
+#: The periodic axes' bits (kWrapX, kWrapY of csrc/common.cuh), and their
+#: shift in an mEVP kernel's form argument (kFormWrapShift).
+WRAP_X, WRAP_Y = 1, 2
+_FORM_WRAP_SHIFT = 2
+#: dg1_rk_stage's modes (csrc/transport.cu): the advection run's no-limit
+#: instance, the coupled step's limited stage, and the TVB form's stage
+#: without the limiter (dg1_limit follows).
+_STAGE_RUN, _STAGE_LIMITED, _STAGE_UNLIMITED = 0, 1, 2
 #: The transport's metric planes in the order of Dg1MetricPlanes in
 #: csrc/dg1_body.cuh.
 _DG1_METRIC = ("inv_dx", "inv_dy", "face_x", "face_y", "inv_area")
@@ -231,10 +250,11 @@ def _bind():
     tail = [p, i, p]  # host scalars/tables, device index, stream
     lib.nst_mevp_stress.argtypes = [p] * 9 + [i, i, i] + tail
     lib.nst_mevp_velocity.argtypes = [p] * 9 + [i, i, i] + tail
-    lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 8 + tail
-    lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 5 + [f, f, f] + tail
+    lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 9 + tail
+    lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 6 + [f, f, f] + tail
+    lib.nst_dg1_limit.argtypes = [p, p, p, f, f] + [i] * 5 + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 7 + tail
-    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 14 + [p, f] + tail
+    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 15 + [p, p, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 9 + [p] + tail
     lib.nst_ho_single.argtypes = [p] * 3 + [i] * 9 + [p] + tail
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 10 + [p] + tail
@@ -251,7 +271,7 @@ def _bind():
     lib.nst_ho_single_max_blocks.restype = i
     lib.nst_ho_single_syncs.argtypes = [p] + [i] * 9 + [p]
     lib.nst_ho_single_syncs.restype = i
-    lib.nst_transport_tiled_blocks_per_sm.argtypes = [i] * 7
+    lib.nst_transport_tiled_blocks_per_sm.argtypes = [i] * 8
     lib.nst_transport_tiled_blocks_per_sm.restype = i
     lib.nst_transport_tiled_shared_bytes.argtypes = [i] * 6
     lib.nst_transport_tiled_shared_bytes.restype = i
@@ -334,6 +354,18 @@ def mevp_form(params) -> int:
     ``FORM_WEIGHTED`` for ``a_weighted_stress``, ``FORM_ADAPTIVE`` for
     ``adaptive_alpha``."""
     return FORM_WEIGHTED * bool(params.a_weighted_stress) + FORM_ADAPTIVE * bool(params.adaptive_alpha)
+
+
+def wrap_bits(mesh) -> int:
+    """The mesh's periodic axes as the kernels' ``wrap`` bits: ``WRAP_X``
+    for ``periodic_x``, ``WRAP_Y`` for ``periodic_y``; 0 when closed."""
+    return WRAP_X * bool(mesh.periodic_x) + WRAP_Y * bool(mesh.periodic_y)
+
+
+def kernel_form(solver) -> int:
+    """An mEVP kernel's ``form`` argument: the momentum form's bits and,
+    above them, the solver mesh's periodic axes."""
+    return mevp_form(solver.params) | wrap_bits(solver.mesh) << _FORM_WRAP_SHIFT
 
 
 def _n_dg1_table(degree: int) -> int:
@@ -530,15 +562,17 @@ def _dg1_qv(qv: QuadVelocity, shape, device, degree: int):
 
 
 # -- in-place launches (arguments already checked) ----------------------------
-def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream, beta=None):
+def _mevp_half_(name, planes, const_ptrs, c_w, inv_drag, scalars, stream, beta=None, wrap=0):
     """``mevp_stress`` or ``mevp_velocity`` in place on the five planes;
     ``const_ptrs`` from ``_mevp_consts``. The momentum form follows from
     the planes: weighted where a_node is among the consts, adaptive where
-    the node plane ``beta`` is given."""
+    the node plane ``beta`` is given; ``wrap``: the periodic axes
+    (``wrap_bits``), the kernels' periodic instances."""
     u = planes[0]
     nx, ny = u.shape
     form = FORM_WEIGHTED * (const_ptrs[MEVP_CONSTS.index("a_node")] is not None)
     form += FORM_ADAPTIVE * (beta is not None)
+    form |= wrap << _FORM_WRAP_SHIFT
     _launch(
         name, *(t.data_ptr() for t in planes), c_w.data_ptr(), inv_drag.data_ptr(),
         None if beta is None else beta.data_ptr(), const_ptrs, nx, ny, form,
@@ -571,12 +605,13 @@ def _cfl_scratch_of(device, stream: int) -> torch.Tensor:
     return scratch
 
 
-def _dg1_sample_cfl_(u, v, speeds, tables, stream, halo: int = 0):
+def _dg1_sample_cfl_(u, v, speeds, tables, stream, halo: int = 0, wrap: int = 0):
     """The max speeds of the elements of (u, v) into ``speeds`` (nothing to
     zero before), or with ``halo`` of the elements of the block that (u, v)
     widen by ``halo`` on every side. 16-byte loads where both planes and
     their rows are 16-byte aligned and the last node column's 16 bytes lie
-    inside the row."""
+    inside the row. ``wrap``: the periodic axes (node nx is node 0), on the
+    whole domain only."""
     nx, ny = u.shape
     ex, ey = nx - 2 * halo, ny - 2 * halo
     offset = (halo * ny + halo) * u.element_size()
@@ -586,21 +621,23 @@ def _dg1_sample_cfl_(u, v, speeds, tables, stream, halo: int = 0):
     scratch = _cfl_scratch_of(u.device, stream)
     _launch(
         "dg1_sample_cfl", pu, pv, speeds.data_ptr(), scratch.data_ptr(), CFL_SCRATCH_BLOCKS,
-        ex, ey, *extent, ny, int(vector), tables.degree, ctypes.addressof(tables),
+        ex, ey, *extent, ny, int(vector), wrap, tables.degree, ctypes.addressof(tables),
         u.device.index, stream,
     )
 
 
 def _dg1_rk_stage_(
     psi, base, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream, qv=None,
-    limit: bool = True,
+    limit: bool = True, tvb: bool = False, wrap: int = 0,
 ):
     """One dg1_rk_stage launch (arguments already checked) into ``out`` at
     the degree of ``tables``: ``metric`` from ``_dg1_metric``; ``qv``, the
     plane pointers of ``_dg1_qv``, in place of (u, v), which are then not
     read. With ``limit`` the 3 tracers of the coupled step and the face
-    masks; without it one tracer in the ``qv`` form and no face masks
-    (``transport_run``: face_x and face_y are None)."""
+    masks, positivity-limited, or with ``tvb`` (dG1, dG2) not limited (the
+    TVB form's stage, which ``_dg1_limit_`` limits); without ``limit`` one
+    tracer in the ``qv`` form and no face masks (``transport_run``: face_x
+    and face_y are None). ``wrap``: the periodic axes (``wrap_bits``)."""
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("dg1_rk_stage reads its neighbours' psi: out must not alias psi")
     _, n_tracers, nx, ny = psi.shape
@@ -614,14 +651,63 @@ def _dg1_rk_stage_(
             f"masks, got {n_tracers} tracers{'' if qv is not None else ', no qv'}"
             f"{'' if face_x is None and face_y is None else ', face masks'}"
         )
+    if tvb and (not limit or tables.degree == 0):
+        raise ValueError("dg1_rk_stage's TVB form runs the coupled step's 3 tracers at dG1 and dG2")
+    if wrap and limit and qv is not None:
+        raise NotImplementedError(
+            "dg1_rk_stage's periodic form takes the CG1 velocity: the HO path's qv form on a "
+            "periodic mesh is ROADMAP M7c item 4"
+        )
     uv = (u.data_ptr(), v.data_ptr()) if qv is None else (None, None)
     faces = (face_x.data_ptr(), face_y.data_ptr()) if limit else (None, None)
+    mode = (_STAGE_UNLIMITED if tvb else _STAGE_LIMITED) if limit else _STAGE_RUN
     _launch(
         "dg1_rk_stage",
         psi.data_ptr(), base.data_ptr(), *uv, *faces, metric, qv,
-        out.data_ptr(), nx, ny, n_tracers, tables.degree, int(limit), a, b, dt_sub,
+        out.data_ptr(), nx, ny, n_tracers, tables.degree, mode, wrap, a, b, dt_sub,
         ctypes.addressof(tables), psi.device.index, stream,
     )
+
+
+def _dg1_limit_(psi, tolerances, tables, stream, wrap: int = 0):
+    """One dg1_limit launch in place on ``psi`` (K, T, nx, ny), checked:
+    TVB, then positivity, at the degree of ``tables`` (1 or 2);
+    ``tolerances``: the transport's float32 ``tvb_tolerances`` (two floats,
+    or on a graded or spherical mesh two planes on the card)."""
+    _, n_tracers, nx, ny = psi.shape
+    tol_x, tol_y = tolerances
+    if isinstance(tol_x, torch.Tensor):
+        planes, scalars = (tol_x.data_ptr(), tol_y.data_ptr()), (0.0, 0.0)
+    else:
+        planes, scalars = (None, None), (tol_x, tol_y)
+    _launch(
+        "dg1_limit", psi.data_ptr(), *planes, *scalars, nx, ny, n_tracers, tables.degree, wrap,
+        ctypes.addressof(tables), psi.device.index, stream,
+    )
+
+
+def dg1_limit_reference(transport: DGTransport, psi):
+    """``transport.limit(psi)``: the TVB slope limiter, then positivity."""
+    return transport.limit(psi)
+
+
+def dg1_limit(transport: DGTransport, psi):
+    """The limiter of a TVB stage on (K, T, nx, ny) coefficients at dG1 or
+    dG2: ``limit_slopes`` (with the transport's ``tvb_m``), then
+    ``limit_positivity``. CPU tensors run the plain version; CUDA tensors
+    one ``dg1_limit`` launch on a copy."""
+    if _on_cpu(psi):
+        return dg1_limit_reference(transport, psi)
+    if not transport.limits_slopes:
+        raise ValueError("dg1_limit runs the TVB limiter: the transport needs tvb_m at dG1 or dG2")
+    mesh = transport.mesh
+    _check((transport.basis.n_dofs, psi.shape[1], mesh.nx, mesh.ny), psi.device, psi=psi)
+    out = psi.clone()
+    tolerances = transport.tvb_tolerances(device=psi.device, dtype=torch.float32)
+    if isinstance(tolerances[0], torch.Tensor):
+        _check((mesh.nx, mesh.ny), psi.device, tol_x=tolerances[0], tol_y=tolerances[1])
+    _dg1_limit_(out, tolerances, _dg1_tables(transport), _stream(psi.device), wrap_bits(mesh))
+    return out
 
 
 # -- the four kernels, one launch each -----------------------------------------
@@ -640,7 +726,7 @@ def mevp_stress(solver: MEVPSolver, carry, consts):
     beta = torch.empty_like(u) if solver.params.adaptive_alpha else None
     _mevp_half_(
         "mevp_stress", planes, _mevp_consts(consts), c_w, inv_drag,
-        _mevp_scalars(solver, 0.0), _stream(u.device), beta=beta,
+        _mevp_scalars(solver, 0.0), _stream(u.device), beta=beta, wrap=wrap_bits(solver.mesh),
     )
     return (planes[2], planes[3], planes[4], c_w, inv_drag) + (() if beta is None else (beta,))
 
@@ -663,7 +749,7 @@ def mevp_velocity(solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float, b
     planes = (u.clone(), carry[1].clone(), *carry[2:])
     _mevp_half_(
         "mevp_velocity", planes, _mevp_consts(consts), c_w, inv_drag,
-        _mevp_scalars(solver, dt), _stream(u.device), beta=beta,
+        _mevp_scalars(solver, dt), _stream(u.device), beta=beta, wrap=wrap_bits(solver.mesh),
     )
     return planes[0], planes[1]
 
@@ -688,39 +774,46 @@ def dg1_sample_cfl(transport: DGTransport, u, v):
         return dg1_sample_cfl_reference(transport, u, v)
     _check((transport.mesh.nx, transport.mesh.ny), u.device, u=u, v=v)
     speeds = torch.empty(2, device=u.device, dtype=torch.float32)
-    _dg1_sample_cfl_(u, v, speeds, _dg1_tables(transport), _stream(u.device))
+    _dg1_sample_cfl_(
+        u, v, speeds, _dg1_tables(transport), _stream(u.device), wrap=wrap_bits(transport.mesh)
+    )
     return speeds
 
 
 def dg1_rk_stage_reference(
     transport: DGTransport, psi, base, u, v, face_x, face_y,
     a: float, b: float, dt_sub: float, qv: QuadVelocity = None, limit: bool = True,
+    tvb: bool = False,
 ):
     """lim(a base + b (psi + dt_sub rhs(psi))), or lim(psi + dt_sub rhs(psi))
     when a == 0, on (K, T, nx, ny) coefficients, with the velocity sampled
     from the CG1 nodes (u, v) or the quadrature velocity ``qv``; lim is the
-    positivity limiter, or the identity without ``limit``; face_x and
-    face_y may be None (every face open)."""
+    positivity limiter, or the identity without ``limit`` or with ``tvb``
+    (the TVB form's stage, which ``dg1_limit`` limits); face_x and face_y
+    may be None (every face open)."""
     if qv is None:
         qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
     faces = None if face_x is None and face_y is None else (face_x, face_y)
     value = psi + dt_sub * transport.rhs(psi, qv, faces)
     if a != 0.0:
         value = a * base + b * value
-    return transport.limit_positivity(value) if limit else value
+    return transport.limit_positivity(value) if limit and not tvb else value
 
 
 def dg1_rk_stage(
     transport: DGTransport, psi, base, u, v, face_x, face_y,
     a: float, b: float, dt_sub: float, qv: QuadVelocity = None, limit: bool = True,
+    tvb: bool = False,
 ):
     """One SSP-RK stage of the (K, T, nx, ny) tracers at the transport's
     degree (see the reference); with ``qv`` (a quadrature velocity) u and v
-    are not read. With ``limit`` T is 3; without it (the no-limit instance)
+    are not read. With ``limit`` T is 3, and ``tvb`` (dG1, dG2) leaves the
+    stage unlimited for ``dg1_limit``; without it (the no-limit instance)
     T is 1, ``qv`` is given and face_x and face_y are None."""
     if _on_cpu(psi):
         return dg1_rk_stage_reference(
-            transport, psi, base, u, v, face_x, face_y, a, b, dt_sub, qv=qv, limit=limit
+            transport, psi, base, u, v, face_x, face_y, a, b, dt_sub, qv=qv, limit=limit,
+            tvb=tvb,
         )
     nx, ny = transport.mesh.nx, transport.mesh.ny
     if limit:
@@ -734,7 +827,8 @@ def dg1_rk_stage(
     out = torch.empty_like(psi)
     _dg1_rk_stage_(
         psi, base, u, v, face_x, face_y, _dg1_metric(transport, psi.device), out, a, b,
-        dt_sub, _dg1_tables(transport), _stream(psi.device), qv=qv_ptrs, limit=limit,
+        dt_sub, _dg1_tables(transport), _stream(psi.device), qv=qv_ptrs, limit=limit, tvb=tvb,
+        wrap=wrap_bits(transport.mesh),
     )
     return out
 
@@ -761,9 +855,10 @@ def mevp_subcycles(solver: MEVPSolver, carry, consts, dt: float, n_subcycles: in
     beta = torch.empty_like(planes[0]) if solver.params.adaptive_alpha else None
     scalars, stream = _mevp_scalars(solver, dt), _stream(planes[0].device)
     const_ptrs = _mevp_consts(consts)
+    wrap = wrap_bits(solver.mesh)
     for _ in range(n_subcycles):
-        _mevp_half_("mevp_stress", planes, const_ptrs, c_w, inv_drag, scalars, stream, beta)
-        _mevp_half_("mevp_velocity", planes, const_ptrs, c_w, inv_drag, scalars, stream, beta)
+        _mevp_half_("mevp_stress", planes, const_ptrs, c_w, inv_drag, scalars, stream, beta, wrap)
+        _mevp_half_("mevp_velocity", planes, const_ptrs, c_w, inv_drag, scalars, stream, beta, wrap)
     return planes
 
 
@@ -807,7 +902,9 @@ def transport_substeps(
     """The tracers after k limited SSP-RK substeps on K1's schedule: one
     ``dg1_rk_stage`` launch per RK stage, with the velocity sampled from the
     CG1 nodes (u, v) or the precomputed quadrature velocity ``qv`` (the HO
-    path; u and v are then not read). CPU tensors run the plain version."""
+    path; u and v are then not read); with the transport's TVB limiter
+    (``limits_slopes``) the stage's unlimited form and one ``dg1_limit``
+    launch after it. CPU tensors run the plain version."""
     if _on_cpu(tracers):
         return transport_substeps_reference(transport, tracers, u, v, dt_sub, k, face_masks, qv=qv)
     shape = (transport.mesh.nx, transport.mesh.ny)
@@ -820,13 +917,18 @@ def transport_substeps(
     face_x, face_y = _face_planes(tracers[0, 0], face_masks, shape)
     tables, stream = _dg1_tables(transport), _stream(tracers.device)
     metric = _dg1_metric(transport, tracers.device)
-    return _staged_steps(
-        tracers.clone(), _RK_STAGES[transport.scheme], k,
-        lambda cur, base, out, a, b: _dg1_rk_stage_(
+    wrap, tvb = wrap_bits(transport.mesh), transport.limits_slopes
+    tolerances = transport.tvb_tolerances(device=tracers.device, dtype=torch.float32) if tvb else None
+
+    def stage(cur, base, out, a, b):
+        _dg1_rk_stage_(
             cur, base, u, v, face_x, face_y, metric, out, a, b, dt_sub, tables, stream,
-            qv=qv_ptrs,
-        ),
-    )
+            qv=qv_ptrs, tvb=tvb, wrap=wrap,
+        )
+        if tvb:
+            _dg1_limit_(out, tolerances, tables, stream, wrap)
+
+    return _staged_steps(tracers.clone(), _RK_STAGES[transport.scheme], k, stage)
 
 
 def _staged_steps(psi0, stages, k: int, stage):
@@ -878,7 +980,7 @@ def transport_run(transport: DGTransport, psi, vel: QuadVelocity, dt: float, n_s
             flat[:, t: t + 1].clone(memory_format=torch.contiguous_format), _RK_STAGES[transport.scheme], n_steps,
             lambda cur, base, dst, a, b: _dg1_rk_stage_(
                 cur, base, None, None, None, None, metric, dst, a, b, dt, tables, stream,
-                qv=qv_ptrs, limit=False,
+                qv=qv_ptrs, limit=False, wrap=wrap_bits(mesh),
             ),
         )
         for t in range(flat.shape[1])
@@ -1001,7 +1103,7 @@ def dynamics_phase(
     # CFL substep count: the one host sync of the step.
     if model.auto_substeps:
         speeds = torch.empty(2, device=device, dtype=torch.float32)
-        _dg1_sample_cfl_(u, v, speeds, _dg1_tables(tr), _stream(device))
+        _dg1_sample_cfl_(u, v, speeds, _dg1_tables(tr), _stream(device), wrap=wrap_bits(mesh))
         k = _k_of_speeds(model, speeds, dt)
     else:
         k = model.transport_substeps

@@ -32,6 +32,10 @@ resident where every plane fits), the adaptive form keeps each cell's beta
 in registers. The thirteenth plane changes no tiling (``holds``): the tiles
 hold the 5 state planes, and a const plane that does not fit beside them
 is read from L2.
+
+On a periodic axis the tiles form a ring (``csrc/tile_exchange.cuh``): the
+last tile's neighbour after it is the first, so its apron comes from the
+opposite side; ``tiling`` then takes only tiles that divide that axis.
 """
 
 from __future__ import annotations
@@ -130,22 +134,35 @@ def _fits(tile) -> bool:
     return threads_for(tile) is not None and shared_bytes(tile) <= SHARED_LIMIT
 
 
+def _exact_rows(nx: int, tr: int):
+    """The smallest divisor of nx from tr up (tiles that cut a periodic
+    axis exactly), or None."""
+    return next((d for d in range(tr, nx + 1) if nx % d == 0), None)
+
+
 @lru_cache(maxsize=64)
-def tiling(nx: int, ny: int, sms: int, tile=None) -> Tiling:
+def tiling(nx: int, ny: int, sms: int, tile=None, periodic=(False, False)) -> Tiling:
     """The tiles of an nx x ny grid on a card of ``sms`` SMs: at most one
     an SM, the smallest area (then the shortest edge, then the widest rows)
-    unless ``tile`` = (TR, TC) is given. Raises ValueError where the tiles
+    unless ``tile`` = (TR, TC) is given. A periodic axis (``periodic`` =
+    (x, y)) takes only tiles that divide it exactly: its tiles form a ring
+    whose last edge is the first tile's. Raises ValueError where the tiles
     outnumber the SMs, or a tile needs more than 8 cells a thread of 1024 or
     more shared memory than a block has for its 5 state planes: such a grid
     cannot be resident."""
+    px, py = periodic
     if tile is None:
         best = None
         for tc in range(1, ny + 1):
             tiles_j = -(-ny // tc)
             if tiles_j > sms or (tc > 1 and -(-ny // (tc - 1)) == tiles_j):
                 continue  # too many columns, or a narrower tile gives as many
+            if py and ny % tc:
+                continue
             tr = -(-nx // (sms // tiles_j))
-            if not _fits((tr, tc)):
+            if px:
+                tr = _exact_rows(nx, tr)
+            if tr is None or not _fits((tr, tc)):
                 continue
             key = (tr * tc, tr + tc, -tc)
             if best is None or key < best[0]:
@@ -160,6 +177,11 @@ def tiling(nx: int, ny: int, sms: int, tile=None) -> Tiling:
     tr, tc = tile
     if tr < 1 or tc < 1:
         raise ValueError(f"mevp_single: tile {tile} is empty")
+    if (px and nx % tr) or (py and ny % tc):
+        raise ValueError(
+            f"mevp_single: a {tr} x {tc} tile does not divide the periodic axes of the "
+            f"{nx} x {ny} grid"
+        )
     tiles = (-(-nx // tr), -(-ny // tc))
     if tiles[0] * tiles[1] > sms:
         raise ValueError(
@@ -177,10 +199,11 @@ def tiling(nx: int, ny: int, sms: int, tile=None) -> Tiling:
     return Tiling(tile, tiles, threads_for(tile), room)
 
 
-def holds(nx: int, ny: int, sms: int) -> bool:
-    """Whether ``tiling`` takes an nx x ny grid on ``sms`` SMs."""
+def holds(nx: int, ny: int, sms: int, periodic=(False, False)) -> bool:
+    """Whether ``tiling`` takes an nx x ny grid on ``sms`` SMs (with the
+    periodic axes ``periodic`` = (x, y))."""
     try:
-        tiling(nx, ny, sms)
+        tiling(nx, ny, sms, periodic=tuple(periodic))
     except ValueError:
         return False
     return True
@@ -244,14 +267,18 @@ def mevp_subcycles_single(
     u = planes[0]
     nx, ny = u.shape
     device = u.device
-    config = tiling(nx, ny, sm_count(device), None if tile is None else tuple(tile))
+    mesh = solver.mesh
+    config = tiling(
+        nx, ny, sm_count(device), None if tile is None else tuple(tile),
+        (mesh.periodic_x, mesh.periodic_y),
+    )
     slots = _slots(config.resident(not solver.mesh.uniform, solver.params.a_weighted_stress))
     scalars = cc._mevp_scalars(solver, dt)
     words = exchange(config, device)
     cc._launch(
         KERNEL, *(t.data_ptr() for t in planes), words.data_ptr(), cc._mevp_consts(consts),
         nx, ny, n_subcycles, *config.tile, *config.tiles, config.threads,
-        cc.mevp_form(solver.params), slots, ctypes.addressof(scalars), device.index,
+        cc.kernel_form(solver), slots, ctypes.addressof(scalars), device.index,
         cc._stream(device),
     )
     return planes

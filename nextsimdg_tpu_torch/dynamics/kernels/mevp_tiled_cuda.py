@@ -18,7 +18,9 @@ uniform consts or the 12 with the metric planes of a graded or spherical
 mesh, and a_node besides in the A-weighted form, read from L1/L2 where
 they are used; the solver's momentum form (``coupled_cuda.mevp_form``)
 selects the kernel's template instance, and the adaptive form keeps each
-cell's beta in registers beside c_w and inv_drag.
+cell's beta in registers beside c_w and inv_drag. On a periodic axis the
+window loads wrap (the mesh's axes ride the form argument,
+``coupled_cuda.kernel_form``).
 """
 
 from __future__ import annotations
@@ -102,10 +104,13 @@ def mevp_subcycles_tiled(
     tile, halo, threads = (d if x is None else x for x, d in zip((tile, halo, threads), default))
     if tile < 1 or halo < 1:
         raise ValueError(f"tile ({tile}) and halo ({halo}) must be positive")
+    mesh = solver.mesh
+    if (mesh.periodic_x and halo > nx) or (mesh.periodic_y and halo > ny):
+        raise ValueError(f"halo {halo} is wider than a periodic axis of the {nx} x {ny} grid")
     scalars = cc._mevp_scalars(solver, dt)
     stream = cc._stream(u.device)
     const_ptrs = cc._mevp_consts(consts)
-    form = cc.mevp_form(solver.params)
+    form = cc.kernel_form(solver)
     src = tuple(carry)
     buffers = [tuple(torch.empty_like(u) for _ in range(5)) for _ in range(2)]
     done = 0

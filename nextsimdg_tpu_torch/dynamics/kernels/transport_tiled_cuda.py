@@ -33,6 +33,13 @@ and 2 + 2 face planes, at dG2 9 + 9 and 3 + 3), instead of (u, v): the kernel re
 from global memory and skips its own sampling, as the JAX kernel takes them
 as constant planes.
 
+With the TVB limiter (``DGTransport(tvb_m=...)``, dG1 and dG2 on a uniform
+mesh) the kernel's TVB form limits each stage in its window, which costs a
+second ring a stage: ``K_CAP = (halo - 1) // (2 stages)``, and where the
+widest halo would shrink the tile (dG2 with rk3) fewer substeps a launch
+(``tvb_halo``). On a periodic axis a window beyond the domain is loaded from
+the opposite side.
+
 On a rank grid, ``transport_substeps_tiled_spmd`` (the counterpart of the
 JAX ``transport_substeps_tiled_spmd``) runs the same kernel on each rank's
 block widened by H ghost cells: one strip pair per axis buys
@@ -112,8 +119,29 @@ transport_substeps_tiled_reference = cc.transport_substeps_reference
 
 
 def halo_for(k: int, stages: int) -> int:
-    """The halo that fits min(k, K_MAX) substeps in one launch."""
+    """The halo that fits min(k, K_MAX) substeps in one launch of
+    ``stages`` rings a substep."""
     return stages * min(max(k, 1), K_MAX) + 1
+
+
+def rings_per_substep(transport: DGTransport) -> int:
+    """The window rings one substep spoils: one a stage, two with the TVB
+    limiter (its neighbours' means after the stage), as the JAX kernel's
+    ``_rings_per_substep``."""
+    return len(_STAGES[transport.scheme]) * (2 if transport.limits_slopes else 1)
+
+
+def tvb_halo(k: int, rings: int, qv: bool, n_tracers: int, elements: int, n_dofs: int,
+             stages: int) -> int:
+    """The TVB form's halo: for the most substeps up to min(k, K_MAX) whose
+    launch still takes a shipped base's full tile (at dG2 with rk3, one),
+    else for one substep."""
+    for n in range(min(max(k, 1), K_MAX), 1, -1):
+        halo = rings * n + 1
+        group = window_tracers(halo, qv, n_tracers, elements, n_dofs, stages)
+        if _full_launch(halo, qv, group, elements, n_dofs, stages) is not None:
+            return halo
+    return rings + 1
 
 
 def _round_128(floats: int) -> int:
@@ -206,17 +234,18 @@ def copy_form(ny: int, *tensors) -> str:
 @lru_cache(maxsize=256)
 def blocks_per_sm(device, config: LaunchConfig, halo: int, qv: bool = False, metric: bool = False,
                   copy: str = "vector", n_tracers: int = 3, degree: int = 1,
-                  stages: int = 2) -> int:
+                  stages: int = 2, tvb: bool = False) -> int:
     """Blocks of ``config`` that one SM of the card holds at once at this
     halo (windows of ``n_tracers`` tracers at ``degree``, a scheme of
-    ``stages`` stages): a persistent launch runs that many times the SMs
-    (cached: the query costs the host more than a launch)."""
+    ``stages`` stages, the TVB form or not): a persistent launch runs that
+    many times the SMs (cached: the query costs the host more than a
+    launch)."""
     device = torch.device(device)
     n_bytes = shared_bytes(
         config.tile, halo, n_tracers, config.buffers, qv, DG_DOFS[degree], stages
     )
     count = cc._library().nst_transport_tiled_blocks_per_sm(
-        degree, int(metric), int(qv), int(copy == "vector"), config.threads, n_bytes,
+        degree, int(metric), int(qv), int(copy == "vector"), int(tvb), config.threads, n_bytes,
         device.index or 0,
     )
     if count < 0:
@@ -240,6 +269,9 @@ def transport_substeps_tiled(
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     run ``transport_tiled``. The velocity is the CG1 (u, v), or the
     precomputed quadrature velocity ``qv`` (u and v are then not read).
+    With the transport's TVB limiter (a uniform mesh) its TVB form, two
+    window rings a stage (``rings_per_substep``, ``tvb_halo``); a periodic
+    axis wraps the window loads.
     ``face_masks``: optional (face_x, face_y), ones without a coastline.
     The launch: ``config`` (default ``launch_config(halo)``), its tile and
     threads overridden by ``tile`` and ``threads``; ``copy``: how windows
@@ -272,8 +304,24 @@ def transport_substeps_tiled(
         u, v = None, None
         u_ptr, v_ptr, qv_ptrs = None, None, cc._dg1_qv(qv, (nx, ny), device, degree)
     face_x, face_y = cc._face_planes(tracers[0, 0], face_masks, (nx, ny))
-    halo = halo_for(k, n_stages) if halo is None else halo
-    k_cap = (halo - 1) // n_stages
+    tvb = transport.limits_slopes
+    if tvb and not transport.mesh.uniform:
+        raise NotImplementedError(
+            "transport_tiled's TVB form takes one tolerance an axis (a uniform mesh); TVB on a "
+            "graded or spherical mesh runs the staged transport"
+        )
+    rings = rings_per_substep(transport)
+    if halo is None:
+        halo = (
+            tvb_halo(k, rings, qv is not None, n_tracers, nx * ny, n_dofs, n_stages)
+            if tvb else halo_for(k, rings)
+        )
+    k_cap = (halo - 1) // rings
+    mesh = transport.mesh
+    if (mesh.periodic_x and halo > nx) or (mesh.periodic_y and halo > ny):
+        raise ValueError(f"halo {halo} is wider than a periodic axis of the {nx} x {ny} grid")
+    wrap = cc.wrap_bits(mesh)
+    tolerances = cc._floats(transport.tvb_tolerances(device="cpu", dtype=torch.float32)) if tvb else None
     if group is None:
         group = window_tracers(halo, qv is not None, n_tracers, nx * ny, n_dofs, n_stages)
     if group < 1 or n_tracers % group:
@@ -298,15 +346,15 @@ def transport_substeps_tiled(
         if config.persistent:
             per_sm = blocks_per_sm(
                 device, config, halo, qv is not None, metric is not None, form, group, degree,
-                n_stages,
+                n_stages, tvb,
             )
             blocks = min(items, per_sm * cc.sm_count(device))
         cc._launch(
             KERNEL, src.data_ptr(), dst.data_ptr(), u_ptr, v_ptr, face_x.data_ptr(),
             face_y.data_ptr(), metric, qv_ptrs, nx, ny, n_tracers, group, degree, config.tile,
             halo, n_sub, n_stages, config.threads, config.buffers, int(form == "vector"), blocks,
-            int(compute), ctypes.addressof(weights), dt_sub, ctypes.addressof(tables),
-            device.index, stream,
+            int(compute), wrap, None if tolerances is None else ctypes.addressof(tolerances),
+            ctypes.addressof(weights), dt_sub, ctypes.addressof(tables), device.index, stream,
         )
         src = dst
         done += n_sub

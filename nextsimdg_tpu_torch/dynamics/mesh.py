@@ -1,7 +1,6 @@
 """Structured meshes for the dynamical core: uniform, graded and spherical.
 
-Counterpart of ``nextsimdg_tpu.dynamics.mesh`` for closed (no-flux /
-no-slip) domains:
+Counterpart of ``nextsimdg_tpu.dynamics.mesh``:
 
 * uniform rectangles (one ``dx`` by one ``dy``);
 * tensor-graded rectangles (``dx`` per column, ``dy`` per row);
@@ -11,8 +10,10 @@ no-slip) domains:
 The solvers read only the metric interface: ``dx``/``dy`` for in-element
 gradients, ``face_len_x``/``face_len_y`` for shared-face flux lengths and
 ``cell_area``. On a non-uniform mesh they take these as full (nx, ny)
-planes on the device (``device_metric_planes``). Periodic meshes are not
-ported yet; the constructor rejects them instead of running them wrongly.
+planes on the device (``device_metric_planes``). Each axis is closed
+(no-flux / no-slip walls) or periodic (``periodic_x``, ``periodic_y``: the
+last element's neighbour is the first, node nx is node 0); a lon-lat
+window that spans 360 degrees of longitude is periodic in x.
 """
 
 from __future__ import annotations
@@ -32,17 +33,14 @@ def _as_spacing(value, count: int) -> np.ndarray:
 
 class RectMesh:
     """nx x ny elements, ``dx`` per column and ``dy`` per row (scalars
-    broadcast), closed on all four sides."""
+    broadcast); ``periodic_x``/``periodic_y`` wrap an axis around, else its
+    two sides are closed walls."""
 
     def __init__(
         self, nx: int, ny: int, dx, dy,
         x0: float = 0.0, y0: float = 0.0,
         periodic_x: bool = False, periodic_y: bool = False,
     ) -> None:
-        if periodic_x or periodic_y:
-            raise NotImplementedError(
-                "periodic meshes are not ported yet (ROADMAP M7c; on a rank grid M10b)"
-            )
         self.nx = int(nx)
         self.ny = int(ny)
         if self.nx < 1 or self.ny < 1:
@@ -54,8 +52,8 @@ class RectMesh:
         )
         self.x0 = float(x0)
         self.y0 = float(y0)
-        self.periodic_x = False
-        self.periodic_y = False
+        self.periodic_x = bool(periodic_x)
+        self.periodic_y = bool(periodic_y)
 
     # -- metric interface (scalars when uniform, broadcastable arrays else) --
     @property

@@ -1,7 +1,8 @@
 """mEVP (modified elastic-viscous-plastic) momentum and rheology solver.
 
 Counterpart of ``nextsimdg_tpu.dynamics.mevp`` for the CG1 solver on a
-closed mesh (uniform, graded or spherical), in eager PyTorch:
+uniform, graded or spherical mesh, each axis closed or periodic, in eager
+PyTorch:
 
 * velocity (u, v) on CG1 nodes, stresses (s11, s22, s12) per element, all
   (nx, ny) in the owned layout of ``dynamics.stencil``;
@@ -9,7 +10,8 @@ closed mesh (uniform, graded or spherical), in eager PyTorch:
   with ellipse ratio e and replacement pressure -> alpha-relaxation of the
   stress -> weak-form stress divergence assembled to nodes -> beta-relaxed
   velocity update with semi-implicit ocean drag and explicit Coriolis;
-* Dirichlet (no-slip) walls and ice-free nodes held at rest.
+* Dirichlet (no-slip) walls on closed axes and ice-free nodes held at
+  rest; a periodic axis wraps every neighbour shift.
 
 On a graded or spherical mesh the geometry rides five extra per-step const
 planes (``inv_dx``, ``inv_dy``, ``half_dx``, ``half_dy``, ``inv_w``), the
@@ -169,10 +171,12 @@ class MEVPSolver:
         self, mesh: RectMesh, params: MEVPParams = MEVPParams(), backend: str = "auto",
         spmd=(None, None), block_halo="auto",
     ) -> None:
-        if mesh.periodic_x or mesh.periodic_y:
-            raise NotImplementedError("only closed meshes are ported")
         self.spmd = tuple(spmd)
         on_grid = any(axis is not None for axis in self.spmd)
+        if on_grid and (mesh.periodic_x or mesh.periodic_y):
+            raise NotImplementedError(
+                "periodic axes on a rank grid (the exchange's ring wrap) are ROADMAP M10b"
+            )
         if backend not in (SPMD_BACKENDS if on_grid else ("auto",)):
             raise ValueError(
                 f"backend {backend!r}: a rank grid takes one of {SPMD_BACKENDS}, "
@@ -517,15 +521,16 @@ class MEVPSolver:
         return (u_new, v_new, s11, s22, s12)
 
     def boundary_mask(self, *, device, dtype):
-        """1 on interior owned nodes, 0 on the no-slip walls i = 0, j = 0
-        (the i = nx / j = ny nodes are implicit and always zero). On a rank
-        grid only the block that owns the global first row (column) pins
-        its row 0 (column 0): the mask rides ``inv_drag``, so pinning an
-        interior rank boundary would freeze the velocity there."""
+        """1 on interior owned nodes, 0 on the no-slip walls i = 0, j = 0 of
+        the closed axes (the i = nx / j = ny nodes are implicit and always
+        zero there); a periodic axis has no wall. On a rank grid only the
+        block that owns the global first row (column) pins its row 0
+        (column 0): the mask rides ``inv_drag``, so pinning an interior rank
+        boundary would freeze the velocity there."""
         mask = torch.ones((self.mesh.nx, self.mesh.ny), device=device, dtype=dtype)
-        if is_global_edge("first", self.spmd[0]):
+        if not self.mesh.periodic_x and is_global_edge("first", self.spmd[0]):
             mask[0, :] = 0.0
-        if is_global_edge("first", self.spmd[1]):
+        if not self.mesh.periodic_y and is_global_edge("first", self.spmd[1]):
             mask[:, 0] = 0.0
         return mask
 

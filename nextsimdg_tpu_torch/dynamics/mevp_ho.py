@@ -202,11 +202,13 @@ class MEVPSolverHO:
             raise NotImplementedError("adaptive_alpha is implemented for the CG1 solver only")
         if params.a_weighted_stress:
             raise NotImplementedError(
-                "a_weighted_stress is not ported for the HO solver yet (ROADMAP M7c: the "
+                "a_weighted_stress is not ported for the HO solver yet (ROADMAP M7c item 3: the "
                 "a_{k} planes of ho_single and ho_tiled)"
             )
         if mesh.periodic_x or mesh.periodic_y:
-            raise NotImplementedError("only closed meshes are ported")
+            raise NotImplementedError(
+                "the HO solver on a periodic mesh is not ported yet (ROADMAP M7c item 4)"
+            )
         if not mesh.uniform:
             raise NotImplementedError(
                 "the HO solver is ported for uniform meshes only (graded and spherical: not yet)"

@@ -1,4 +1,4 @@
-"""Discontinuous-Galerkin tracer transport (dG0, dG1, dG2 on a closed mesh).
+"""Discontinuous-Galerkin tracer transport (dG0, dG1, dG2).
 
 Counterpart of ``nextsimdg_tpu.dynamics.transport``. Solves
 d(psi)/dt + div(v psi) = 0 per tracer with upwind edge fluxes and SSP-RK
@@ -23,6 +23,10 @@ volume term multiplies by ``inv_dx``/``inv_dy``, each owned face flux is
 weighted by its face length before the neighbour shift (``face_x``,
 ``face_y``, so both sides of a face exchange the same amount) and the
 edge terms divide by the element area (``inv_area``).
+
+A limited step applies the positivity limiter after every stage, and with
+``tvb_m`` the TVB minmod slope limiter before it (``limit_slopes``). A
+periodic axis wraps every neighbour shift and has no wall face.
 
 On a rank grid (``nextsimdg_tpu_torch.parallel``) the operator holds one
 rank's block of a uniform mesh and its ``spmd`` exchange axes: the
@@ -201,24 +205,32 @@ DEFAULT_SCHEME = {0: "rk1", 1: "rk2", 2: "rk3"}
 
 
 class DGTransport:
-    """The transport operator for one closed mesh (uniform, graded or
-    spherical) and DG degree (0, 1 or 2). ``spmd``: on a rank grid, the
-    rank's (x, y) exchange axes, with its block of a uniform mesh as
-    ``mesh``."""
+    """The transport operator for one mesh (uniform, graded or spherical;
+    closed or periodic axes) and DG degree (0, 1 or 2). ``tvb_m``: the TVB
+    constant M of the slope limiter (None: positivity only). ``spmd``: on a
+    rank grid, the rank's (x, y) exchange axes, with its block of a
+    uniform, closed mesh as ``mesh``."""
 
     def __init__(
         self, mesh: RectMesh, degree: int = 1, scheme: str = None, spmd=(None, None),
+        tvb_m: float = None,
     ) -> None:
-        if mesh.periodic_x or mesh.periodic_y:
-            raise NotImplementedError("only closed meshes are ported")
         self.spmd = tuple(spmd)
-        if any(axis is not None for axis in self.spmd) and not mesh.uniform:
-            raise NotImplementedError(
-                "rank grids run uniform meshes; graded and spherical blocks "
-                "(LocalMeshView) are ROADMAP M10b"
-            )
+        if any(axis is not None for axis in self.spmd):
+            if not mesh.uniform:
+                raise NotImplementedError(
+                    "rank grids run uniform meshes; graded and spherical blocks "
+                    "(LocalMeshView) are ROADMAP M10b"
+                )
+            if mesh.periodic_x or mesh.periodic_y or tvb_m is not None:
+                raise NotImplementedError(
+                    "periodic axes and the TVB limiter on a rank grid (wall-delta masks, "
+                    "ring wrap) are ROADMAP M10b"
+                )
         self.mesh = mesh
+        self.tvb_m = None if tvb_m is None else float(tvb_m)
         self._metric = {}
+        self._tvb_tol = {}
         self.basis = dg_basis(degree)
         self.scheme = scheme or DEFAULT_SCHEME[degree]
         if self.scheme not in ("rk1", "rk2", "rk3"):
@@ -395,15 +407,104 @@ class DGTransport:
         )
         return torch.cat([mean[None], psi[1:] * theta[None]], dim=0)
 
+    # -- TVB slope limiting (Cockburn & Shu) ----------------------------------
+    @property
+    def limits_slopes(self) -> bool:
+        """Whether ``limit_slopes`` acts: ``tvb_m`` set and a degree with
+        slopes (dG1, dG2)."""
+        return self.tvb_m is not None and self.basis.n_dofs > 1
+
+    def tvb_tolerances(self, *, device, dtype):
+        """(tol_x, tol_y) = (M dx^2, M dy^2), evaluated left to right as
+        ``tvb_m * dx * dx``: Python floats on a uniform mesh, else (nx, ny)
+        planes of ``dtype`` on ``device`` (built once per (device, dtype, M);
+        the per-element widths of a graded or spherical mesh cast to
+        ``dtype`` first, as the JAX package does)."""
+        mesh = self.mesh
+        if mesh.uniform:
+            return self.tvb_m * mesh.dx * mesh.dx, self.tvb_m * mesh.dy * mesh.dy
+        key = (torch.device(device), dtype, self.tvb_m)
+        if key not in self._tvb_tol:
+            shape = (mesh.nx, mesh.ny)
+
+            def plane(width):
+                if isinstance(width, float):
+                    return torch.full(shape, self.tvb_m * width * width, device=device, dtype=dtype)
+                w = torch.as_tensor(np.asarray(width), device=device).to(dtype)
+                return (self.tvb_m * w * w).expand(shape).contiguous()
+
+            self._tvb_tol[key] = (plane(mesh.dx), plane(mesh.dy))
+        return self._tvb_tol[key]
+
+    def limit_slopes(self, psi, wall_masks=None):
+        """TVB minmod slope limiter on the linear moments (dG1, dG2).
+
+        Each linear moment is compared with the forward and backward
+        cell-mean differences, ``psi1' = minmod(psi1, mean_{i+1} - mean_i,
+        mean_i - mean_{i-1})``, except where ``|psi1| <= M dx^2`` (the TVB
+        tolerance, ``tvb_m`` = M; 0 is pure TVD). At dG2, where a linear
+        moment was cut (by more than 1e-12), the element's quadratic moments
+        are zeroed. Cell means are never touched. Closed walls take
+        zero-gradient ghost means; periodic axes wrap. dG0 and
+        ``tvb_m=None``: a no-op. ``wall_masks``: optional (fwd_x, bwd_x,
+        fwd_y, bwd_y) planes, 1.0 where the forward or backward mean
+        difference is zeroed, in place of the walls of the mesh (the JAX
+        package's spmd tiled transport passes them for a widened block).
+        """
+        if not self.limits_slopes:
+            return psi
+        mesh = self.mesh
+        mean = psi[0]
+        x_axis, y_axis = mean.ndim - 2, mean.ndim - 1
+
+        def deltas(axis, periodic, masks):
+            d_fwd = shift_p(mean, axis, periodic) - mean
+            d_bwd = mean - shift_m(mean, axis, periodic)
+            if masks is not None:
+                d_fwd = torch.where(masks[0] == 1.0, 0.0, d_fwd)
+                d_bwd = torch.where(masks[1] == 1.0, 0.0, d_bwd)
+            elif not periodic:
+                # Zero-gradient ghosts at the walls (the zero-filled shifts
+                # would otherwise make a -mean jump there).
+                n = mean.shape[axis]
+                d_fwd = d_fwd.clone()
+                d_bwd = d_bwd.clone()
+                d_fwd.narrow(axis, n - 1, 1).zero_()
+                d_bwd.narrow(axis, 0, 1).zero_()
+            return d_fwd, d_bwd
+
+        def minmod3(a, b, c):
+            same = (torch.sign(a) == torch.sign(b)) & (torch.sign(a) == torch.sign(c))
+            smallest = torch.minimum(torch.abs(a), torch.minimum(torch.abs(b), torch.abs(c)))
+            return torch.where(same, torch.sign(a) * smallest, 0.0)
+
+        tol_x, tol_y = self.tvb_tolerances(device=psi.device, dtype=psi.dtype)
+        dpx, dmx = deltas(x_axis, mesh.periodic_x, None if wall_masks is None else wall_masks[:2])
+        dpy, dmy = deltas(y_axis, mesh.periodic_y, None if wall_masks is None else wall_masks[2:])
+        s1 = torch.where(torch.abs(psi[1]) <= tol_x, psi[1], minmod3(psi[1], dpx, dmx))
+        s2 = torch.where(torch.abs(psi[2]) <= tol_y, psi[2], minmod3(psi[2], dpy, dmy))
+        if self.basis.n_dofs == 3:
+            return torch.stack([mean, s1, s2])
+        eps = torch.tensor(1e-12, dtype=psi.dtype, device=psi.device)
+        cut = (torch.abs(s1 - psi[1]) > eps) | (torch.abs(s2 - psi[2]) > eps)
+        keep = torch.where(cut, 0.0, 1.0).to(psi.dtype)
+        return torch.stack([mean, s1, s2, psi[3] * keep, psi[4] * keep, psi[5] * keep])
+
+    def limit(self, psi):
+        """The limiter of a limited stage: ``limit_positivity`` after
+        ``limit_slopes`` (the latter a no-op without ``tvb_m``)."""
+        return self.limit_positivity(self.limit_slopes(psi))
+
     # -- SSP-RK time stepping ------------------------------------------------
     def step(
         self, psi, vel: QuadVelocity, dt: float, limit: bool = False, face_masks=None,
         metric=None,
     ):
-        """One SSP-RK step; ``limit`` applies the positivity limiter after
-        every RK stage (SSP keeps the limited property through the convex
-        combinations)."""
-        lim = self.limit_positivity if limit else (lambda p: p)
+        """One SSP-RK step; ``limit`` applies the limiters after every RK
+        stage (SSP keeps the limited property through the convex
+        combinations): with ``tvb_m`` the TVB slope limiter, then the
+        positivity limiter."""
+        lim = self.limit if limit else (lambda p: p)
         rhs = lambda p: self.rhs(p, vel, face_masks, metric)
         if self.scheme == "rk1":
             return lim(psi + dt * rhs(psi))

@@ -139,6 +139,10 @@ _MESH_KEYS = {
     "rect": {"kind", "nx", "ny", "dx", "dy"},
     "spherical": {"kind", "nx", "ny", "lon0", "lon1", "lat0", "lat1"},
 }
+_MESH_OPTIONAL = {
+    "rect": {"periodic_x", "periodic_y"},
+    "spherical": {"radius", "periodic_x"},
+}
 
 
 def mesh_from_description(d: dict):
@@ -147,21 +151,28 @@ def mesh_from_description(d: dict):
     ``{"kind": "rect", "nx", "ny", "dx", "dy"}``: a ``RectMesh``, ``dx`` and
     ``dy`` scalars or per-column/per-row arrays;
     ``{"kind": "spherical", "nx", "ny", "lon0", "lon1", "lat0", "lat1"}``
-    and optionally ``"radius"``: a ``SphericalMesh``.
+    and optionally ``"radius"``: a ``SphericalMesh``. Optional
+    ``"periodic_x"`` (both kinds) and ``"periodic_y"`` (rect) make an axis
+    periodic; they default to closed.
     """
     kind = d.get("kind")
     if kind not in _MESH_KEYS:
         raise KeyError(f"a mesh description needs kind 'rect' or 'spherical', got {kind!r}")
-    keys = set(d) - ({"radius"} if kind == "spherical" else set())
+    keys = set(d) - _MESH_OPTIONAL[kind]
     if keys != _MESH_KEYS[kind]:
         raise KeyError(
-            f"a {kind} mesh needs exactly the keys {sorted(_MESH_KEYS[kind])}, got {sorted(d)}"
+            f"a {kind} mesh needs exactly the keys {sorted(_MESH_KEYS[kind])} (and may take "
+            f"{sorted(_MESH_OPTIONAL[kind])}), got {sorted(d)}"
         )
     if kind == "rect":
-        return RectMesh(d["nx"], d["ny"], np.asarray(d["dx"]), np.asarray(d["dy"]))
+        return RectMesh(
+            d["nx"], d["ny"], np.asarray(d["dx"]), np.asarray(d["dy"]),
+            periodic_x=bool(d.get("periodic_x", False)),
+            periodic_y=bool(d.get("periodic_y", False)),
+        )
     return SphericalMesh(
         d["nx"], d["ny"], d["lon0"], d["lon1"], d["lat0"], d["lat1"],
-        radius=d.get("radius", EARTH_RADIUS),
+        radius=d.get("radius", EARTH_RADIUS), periodic_x=bool(d.get("periodic_x", False)),
     )
 
 

@@ -75,11 +75,13 @@ def build_sharded_coupled_model(global_mesh: RectMesh, rank_grid: RankGrid, degr
     ``ShardedCoupledModel``, whose call is the global-shaped step.
     ``model_kwargs`` go to every rank's ``CoupledModel`` (``ocean_mask`` is
     the global mask). Uniform, closed CG1 meshes only: graded and spherical
-    meshes raise ``NotImplementedError`` here, the HO solver and TVB in
-    ``CoupledModel`` (ROADMAP M10b; the port's meshes are not periodic
-    yet). A grid that does not divide the mesh raises ``ValueError``.
+    meshes and periodic axes raise ``NotImplementedError`` here, the HO
+    solver and TVB in ``CoupledModel`` (ROADMAP M10b). A grid that does not
+    divide the mesh raises ``ValueError``.
     """
     nx, ny = rank_grid.local_shape(global_mesh.nx, global_mesh.ny)
+    if global_mesh.periodic_x or global_mesh.periodic_y:
+        raise NotImplementedError("periodic axes on a rank grid (the ring wrap) are ROADMAP M10b")
     if not global_mesh.uniform:
         raise NotImplementedError(
             "graded and spherical meshes on a rank grid (LocalMeshView) are ROADMAP M10b"

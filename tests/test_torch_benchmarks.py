@@ -174,3 +174,26 @@ def test_mevp_single_sweep_runs_each_variant():
     out = mevp_large.sweep_mevp_single("cpu", cases=cases, n_sub=2)
     assert set(out) == set(cases) and all(ms > 0 for ms in out.values())
     assert mevp_large.mevp_single_cuda.tiling is tiling
+
+
+def test_build_report_matches_closed_instances_to_the_parent():
+    """The SASS comparison takes a closed instance (its trailing false
+    template arguments removed) to the parent's kernel of that name, and
+    counts equal opcode sequences (operands ignored)."""
+    from nextsimdg_tpu_torch.benchmarks import build_report
+
+    sass = lambda name, ops: f"        Function : {name}\n" + "".join(
+        f"        /*{i:04x}*/                   {op} R1, R2 ;\n" for i, op in enumerate(ops)
+    )
+    parent = build_report.opcodes(
+        sass("_ZN3nst17mevp_tiled_kernelILb0ELi80ELi0EEEvPKf", ["LDG.E", "FADD", "EXIT"])
+        + sass("_ZN3nst22transport_tiled_kernelILi1ELb0ELb0ELi4EEEvNS_18", ["LDS", "EXIT"])
+    )
+    new = build_report.opcodes(
+        sass("_ZN3nst17mevp_tiled_kernelILb0ELi80ELi0ELb0EEEvPKfi", ["LDG.E", "FADD", "EXIT"])
+        + sass("_ZN3nst17mevp_tiled_kernelILb0ELi80ELi0ELb1EEEvPKfi", ["LDG.E", "IMAD", "EXIT"])
+        + sass("_ZN3nst22transport_tiled_kernelILi1ELb0ELb0ELi4ELb0ELb0EEEvNS_18", ["LDS", "NOP", "EXIT"])
+    )
+    assert parent["_ZN3nst17mevp_tiled_kernelILb0ELi80ELi0EEEvPKf"] == ["LDG.E", "FADD", "EXIT"]
+    same, differ = build_report.compare(parent, new)
+    assert same == 1 and len(differ) == 1 and "transport_tiled" in differ[0]

@@ -250,11 +250,22 @@ def test_interop_round_trip():
     "kwargs",
     [
         dict(spmd=("x", "y"), mevp_params=coupled.MEVPParams(a_weighted_stress=True)),
-        dict(spmd=("x", None)), dict(tvb_m=0.0), dict(degree=2, tvb_m=1.0),
+        dict(spmd=("x", None)), dict(tvb_m=0.0, spmd="rank"), dict(degree=2, tvb_m=1.0, spmd="rank"),
     ],
 )
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    """JAX device-mesh axis names; and the TVB limiter, ported on one
+    domain, on a rank grid (``spmd="rank"``: rank 0 of a 2 x 2 grid),
+    ROADMAP M10b."""
+    match = None
+    if kwargs.get("spmd") == "rank":
+        from nextsimdg_tpu_torch.parallel import RankGrid
+
+        kwargs = dict(kwargs, spmd=RankGrid(2, 2, "cpu").ranks[0])
+        match = "M10b"
+        assert CoupledModel(RectMesh(N, N, 1e3, 1e3), degree=kwargs.get("degree", 1),
+                            tvb_m=kwargs["tvb_m"]).transport.tvb_m == kwargs["tvb_m"]
+    with pytest.raises(NotImplementedError, match=match):
         CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
 
 

@@ -109,13 +109,15 @@ def test_mesh_uniform_closed_and_rejects_the_rest():
     ref = jax_mesh.RectMesh(nx=8, ny=12, dx=1000.0, dy=2000.0)
     assert (m.dx, m.dy, m.cell_area, m.n_elements) == (ref.dx, ref.dy, ref.cell_area, ref.n_elements)
     assert m.uniform and not m.periodic_x and not m.periodic_y
-    # Graded meshes are ported (tests/test_torch_geometry.py); periodic ones
-    # and mismatched spacings are refused.
+    # Graded meshes are ported (tests/test_torch_geometry.py), and periodic
+    # axes (tests/test_torch_tvb_periodic.py); mismatched spacings are
+    # refused.
     assert not mesh.RectMesh(8, 8, np.linspace(1.0, 2.0, 8), 1.0).uniform
     with pytest.raises(ValueError):
         mesh.RectMesh(8, 8, np.linspace(1.0, 2.0, 7), 1.0)
-    with pytest.raises(NotImplementedError):
-        mesh.RectMesh(8, 8, 1.0, 1.0, periodic_x=True)
+    ring = mesh.RectMesh(8, 8, 1.0, 1.0, periodic_x=True)
+    jring = jax_mesh.RectMesh(nx=8, ny=8, dx=1.0, dy=1.0, periodic_x=True)
+    assert (ring.periodic_x, ring.periodic_y) == (jring.periodic_x, jring.periodic_y) == (True, False)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
@@ -291,12 +293,15 @@ def test_transport_step(meshes, fields, scheme, limit):
 
 
 def test_transport_rejects_unported_degrees(meshes):
-    """Every degree of the JAX package (0, 1, 2) is ported; what is not
-    (a periodic mesh, the M7c item) raises at each of them, and a degree the
-    JAX package has not either."""
+    """Every degree of the JAX package (0, 1, 2) is ported, on closed and
+    periodic meshes; what is not (a periodic mesh on a rank grid, ROADMAP
+    M10b) raises at each of them, and a degree the JAX package has not
+    either."""
+    ring = mesh.RectMesh(N, N, DX, DX, periodic_x=True)
     for degree in (0, 2):
         assert transport.DGTransport(meshes[0], degree=degree).basis.degree == degree
-        with pytest.raises(NotImplementedError):
-            transport.DGTransport(mesh.RectMesh(N, N, DX, DX, periodic_x=True), degree=degree)
+        assert transport.DGTransport(ring, degree=degree).mesh.periodic_x
+        with pytest.raises(NotImplementedError, match="M10b"):
+            transport.DGTransport(ring, degree=degree, spmd=("x", None))
     with pytest.raises(ValueError, match="degree"):
         transport.DGTransport(meshes[0], degree=3)

@@ -117,8 +117,12 @@ def test_mesh_descriptions_and_what_stays_unported():
         interop.mesh_from_description({**GRADED, "lon0": 0.0})
     with pytest.raises(KeyError):
         interop.mesh_from_description({"kind": "polar", "nx": 4, "ny": 4})
-    with pytest.raises(NotImplementedError):
-        mesh.SphericalMesh(8, 8, 0.0, 10.0, 60.0, 70.0, periodic_x=True)
+    # A 360 degree ring is periodic in x (tests/test_torch_tvb_periodic.py),
+    # from a description too.
+    ring = interop.mesh_from_description({**SPHERE, "lon1": 360.0, "periodic_x": True})
+    jring = jax_mesh.SphericalMesh(N, N, 0.0, 360.0, 68.0, 78.0, periodic_x=True)
+    assert ring.periodic_x and not ring.periodic_y and jring.periodic_x
+    assert np.array_equal(np.asarray(ring.dx), np.asarray(jring.dx))
     with pytest.raises(ValueError):
         mesh.SphericalMesh(8, 8, 0.0, 10.0, 60.0, 90.0)
 

@@ -21,6 +21,11 @@ single-device step (expected 0) and the decomposed plain step. The
 ceiling probe's ``chain`` kernel against its plain version for every link
 and both unrolls, at 512^2 and a ragged shape.
 
+The periodic forms of K1's four kernels, mevp_tiled, mevp_single and
+transport_tiled, and the TVB forms (``dg1_rk_stage``'s unlimited stage,
+``dg1_limit`` and transport_tiled's TVB form), against their plain versions
+and each other, on periodic and closed uniform and spherical meshes.
+
 These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 elsewhere. On a machine with one, run them with
 ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
@@ -79,25 +84,30 @@ def assert_close(got, ref, tol):
     assert float((got - ref).abs().max()) <= tol * scale
 
 
-def setup(device, n=N, n_subcycles=100, ny=None, spherical=False, degree=1, mevp_params=MEVPParams()):
+def setup(device, n=N, n_subcycles=100, ny=None, spherical=False, degree=1, mevp_params=MEVPParams(),
+          periodic=(False, False), tvb_m=None):
     """(model, carry, consts, tracers, rng) on seeded inputs. With a
     momentum form (``mevp_params``) the cover is partial: the first quarter
     of the rows has A below 0.06, some nodes below a_dyn_min; and the last
     half of the rows is calm (velocities 1e-4 of the rest), where the
-    adaptive alpha rises above its floor."""
+    adaptive alpha rises above its floor. ``periodic``: (x, y) axes (the
+    spherical window then spans 360 degrees, periodic in x); ``tvb_m``: the
+    TVB limiter's M."""
     rng = np.random.default_rng(0)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     shape = (n, n if ny is None else ny)
     if spherical:  # a pan-Arctic window with a coastline: metric consts, land
-        mesh = SphericalMesh(*shape, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
+        lon = (0.0, 360.0) if periodic[0] else (-40.0, 40.0)
+        mesh = SphericalMesh(*shape, lon0=lon[0], lon1=lon[1], lat0=55.0, lat1=85.0,
+                             periodic_x=periodic[0])
         model = CoupledModel(
             mesh, degree=degree, n_subcycles=n_subcycles, ocean_mask=synthetic_coastline(*shape),
-            mevp_params=mevp_params,
+            mevp_params=mevp_params, tvb_m=tvb_m,
         )
     else:
         model = CoupledModel(
-            RectMesh(*shape, 2000.0, 2000.0), degree=degree, n_subcycles=n_subcycles,
-            mevp_params=mevp_params,
+            RectMesh(*shape, 2000.0, 2000.0, periodic_x=periodic[0], periodic_y=periodic[1]),
+            degree=degree, n_subcycles=n_subcycles, mevp_params=mevp_params, tvb_m=tvb_m,
         )
     carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
@@ -1109,3 +1119,186 @@ def test_rank_grid_rk3_step_equals_single_device_and_matches_plain(device, degre
     for (name, g), (_, e), (_, p) in zip(state_leaves(got), state_leaves(expected), state_leaves(plain)):
         assert_same_schedule(g, e)
         assert_close(g, p, 1e-3 if name in VELOCITY else 1e-5)
+
+
+# -- periodic axes and the TVB limiter -----------------------------------------------
+PERIODIC = {"x": (True, False), "y": (False, True), "xy": (True, True)}
+#: (periodic axes, spherical): the uniform mesh on each combination and the
+#: 360 degree ring.
+PERIODIC_MESHES = [("x", False), ("y", False), ("xy", False), ("x", True)]
+
+
+@pytest.mark.parametrize("periodic, spherical", PERIODIC_MESHES)
+def test_periodic_mevp_kernels_match_plain_and_each_other(device, periodic, spherical):
+    """The periodic forms of mevp_stress, mevp_velocity (one launch each
+    against the plain halves), and 13 subcycles of K1's schedule, mevp_tiled
+    and mevp_single (tiles that divide the periodic axes) against the plain
+    subcycles and each other."""
+    model, carry, consts, _, _ = setup(device, n=64, ny=72, spherical=spherical, periodic=PERIODIC[periodic])
+    assert cc.wrap_bits(model.mesh) != 0
+    ref = model.mevp.stress_update(carry, consts)
+    for g, r in zip(cc.mevp_stress(model.mevp, carry, consts), ref):
+        assert_close(g, r, TOL_LAUNCH)
+    carry_v = (carry[0], carry[1], *ref[:3])
+    ref_uv = model.mevp.velocity_update(carry_v, consts, ref[3], ref[4], DT)
+    for g, r in zip(cc.mevp_velocity(model.mevp, carry_v, consts, ref[3], ref[4], DT), ref_uv):
+        assert_close(g, r, TOL_LAUNCH)
+    plain = cc.mevp_subcycles_reference(model.mevp, carry, consts, DT, 13)
+    k1 = cc.mevp_subcycles(model.mevp, carry, consts, DT, 13)
+    cc.reset_launches()
+    tiled = mt.mevp_subcycles_tiled(model.mevp, carry, consts, DT, 13, 16, 4, 256)
+    single = ms.mevp_subcycles_single(model.mevp, carry, consts, DT, 13)
+    assert cc.launches["mevp_tiled"] == 4 and cc.launches["mevp_single"] == 1
+    for p, q, w, o in zip(plain, k1, tiled, single):
+        assert_close(q, p, 1e-3)
+        assert_same_schedule(w, q)
+        assert_same_schedule(o, q)
+
+
+@pytest.mark.parametrize("periodic, spherical", PERIODIC_MESHES)
+def test_periodic_sampling_and_stage_match_plain(device, periodic, spherical):
+    """dg1_sample_cfl's periodic form gives the plain speeds; dg1_rk_stage's
+    (blended and not) the plain stage, and its no-limit instance (the
+    advection run, qv form) two plain unlimited steps, at 16-byte copies
+    (ny = 72) and 4-byte ones (ny = 70). The limited stage's qv form (the HO
+    path) raises on a periodic mesh (ROADMAP M7c item 4)."""
+    for ny in (72, 70):
+        model, carry, _, psi, rng = setup(device, n=40, ny=ny, spherical=spherical,
+                                          periodic=PERIODIC[periodic])
+        tr = model.transport
+        u, v = carry[0] * 5.0, carry[1] * 5.0
+        assert torch.equal(cc.dg1_sample_cfl(tr, u, v), cc.dg1_sample_cfl_reference(tr, u, v))
+        faces = model.face_masks(device=device, dtype=torch.float32) or (torch.ones_like(u),) * 2
+        base = psi.flip(-1).contiguous()
+        for a, b in ((0.0, 1.0), (0.75, 0.25)):
+            args = (tr, psi, base, carry[0], carry[1], *faces, a, b, 300.0)
+            assert_close(cc.dg1_rk_stage(*args), cc.dg1_rk_stage_reference(*args), TOL_LAUNCH)
+        qv = quad_velocity(model, rng, device)
+        with pytest.raises(NotImplementedError, match="M7c item 4"):
+            cc.dg1_rk_stage(tr, psi, base, None, None, *faces, 0.0, 1.0, 300.0, qv=qv)
+        one = psi[:, :1].contiguous()
+        assert_close(cc.transport_run(tr, one, qv, 100.0, 2), cc.transport_run_reference(tr, one, qv, 100.0, 2),
+                     TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+@pytest.mark.parametrize("periodic, spherical", [("closed", False), ("closed", True)] + PERIODIC_MESHES)
+def test_tvb_stage_and_limit_match_plain(device, degree, periodic, spherical):
+    """The TVB form launch by launch: dg1_rk_stage's unlimited stage and
+    dg1_limit (TVB, then positivity) against their plain versions, with an
+    M that cuts some slopes and keeps others; the limiter leaves the means
+    as they were."""
+    axes = PERIODIC.get(periodic, (False, False))
+    model, carry, _, psi, rng = setup(device, n=40, ny=72, degree=degree, spherical=spherical,
+                                      periodic=axes, tvb_m=0.0)
+    tr = model.transport
+    width = float(np.mean(np.asarray(model.mesh.dx)))
+    tr.tvb_m = float(psi[1].abs().median()) / width**2
+    faces = model.face_masks(device=device, dtype=torch.float32) or (torch.ones_like(carry[0]),) * 2
+    args = (tr, psi, psi.flip(-1).contiguous(), carry[0], carry[1], *faces, 0.5, 0.5, 300.0)
+    cc.reset_launches()
+    stage = cc.dg1_rk_stage(*args, tvb=True)
+    assert_close(stage, cc.dg1_rk_stage_reference(*args, tvb=True), TOL_LAUNCH)
+    limited = cc.dg1_limit(tr, stage)
+    assert cc.launches["dg1_rk_stage"] == 1 and cc.launches["dg1_limit"] == 1
+    ref = cc.dg1_limit_reference(tr, stage)
+    assert_close(limited, ref, TOL_LAUNCH)
+    assert torch.equal(limited[0], stage[0])
+    cut = limited[1:3] != stage[1:3]
+    assert bool(cut.any()) and not bool(cut.all())
+
+
+@pytest.mark.parametrize("degree, scheme", [(1, "rk2"), (2, "rk3"), (1, "rk1")])
+@pytest.mark.parametrize("periodic", ["closed", "x", "xy"])
+@pytest.mark.parametrize("ny", [72, 70])
+def test_tvb_transport_staged_equals_tiled_and_matches_plain(device, degree, scheme, periodic, ny):
+    """k = 4 TVB substeps (M = 0, pure TVD) on the staged schedule (one
+    stage and one dg1_limit launch a stage) and transport_tiled's TVB form
+    (two rings a stage): equal to each other (the same bodies) and to the
+    plain substeps within 1e-5."""
+    model, carry, _, psi, rng = setup(device, n=40, ny=ny, degree=degree,
+                                      periodic=PERIODIC.get(periodic, (False, False)), tvb_m=0.0)
+    model.transport.scheme = scheme
+    k = 4
+    faces = tuple(torch.tensor((rng.uniform(size=(40, ny)) > 0.1).astype(np.float32), device=device)
+                  for _ in range(2))
+    args = (model.transport, psi, carry[0], carry[1], DT / k, k, faces)
+    cc.reset_launches()
+    staged = cc.transport_substeps(*args)
+    stages = {"rk1": 1, "rk2": 2, "rk3": 3}[scheme]
+    assert cc.launches["dg1_rk_stage"] == cc.launches["dg1_limit"] == k * stages
+    cc.reset_launches()
+    tiled = tt.transport_substeps_tiled(*args)
+    assert cc.launches["transport_tiled"] >= 2 and cc.launches["dg1_limit"] == 0
+    assert_same_schedule(tiled, staged)
+    assert_close(staged, cc.transport_substeps_reference(*args), 1e-5)
+
+
+@pytest.mark.parametrize("mevp, transport", [("pallas", "xla"), ("pallas-tiled", "tiled"), ("pallas-tiled", "xla")])
+@pytest.mark.parametrize("degree", [1, 2])
+def test_periodic_tvb_dynamics_phase_matches_plain(device, mevp, transport, degree):
+    """The dynamics phase on a doubly periodic mesh with TVB (M = 0) on each
+    schedule against the plain phase, with its launches."""
+    model, carry, consts, psi, _ = setup(device, n=64, ny=72, degree=degree, periodic=(True, True), tvb_m=0.0)
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, mevp=mevp, transport=transport)
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100)
+    for g, r in zip(got_carry, ref_carry):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert (counts["dg1_limit"] > 0) == (transport == "xla")
+
+
+def test_spherical_ring_tvb_phase_matches_plain(device):
+    """The 360 degree ring with a coastline and TVB: mevp_single, then the
+    staged transport with dg1_limit (its tolerance planes), as "auto" takes
+    them."""
+    model, carry, consts, psi, _ = setup(device, n=40, ny=72, spherical=True, periodic=(True, False), tvb_m=0.0)
+    assert model.schedule(device) == ("single", "xla")
+    faces = model.face_masks(device=device, dtype=torch.float32)
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, faces, mevp="single", transport="xla")
+    assert cc.launches["mevp_single"] == 1 and cc.launches["dg1_limit"] > 0
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100, faces)
+    for g, r in zip(got_carry, ref_carry):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+
+
+def test_tvb_and_periodic_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    model, carry, _, psi, _ = setup(device, n=40, ny=72, spherical=True, tvb_m=0.0)
+    with pytest.raises(NotImplementedError, match="staged"):
+        tt.transport_substeps_tiled(model.transport, psi, carry[0], carry[1], 60.0, 1)
+    plain, _, _, psi, _ = setup(device, n=40, ny=72)
+    with pytest.raises(ValueError, match="tvb_m"):
+        cc.dg1_limit(plain.transport, psi)
+    thin, carry, consts, psi, _ = setup(device, n=6, ny=72, periodic=(True, False), tvb_m=0.0)
+    with pytest.raises(ValueError, match="periodic"):
+        tt.transport_substeps_tiled(thin.transport, psi, carry[0], carry[1], 60.0, 3)
+    with pytest.raises(ValueError, match="periodic"):
+        mt.mevp_subcycles_tiled(thin.mevp, carry, consts, DT, 8, 16, 8, 256)
+
+
+@pytest.mark.parametrize("transport", ["tiled", "xla"])
+def test_ho_tvb_dynamics_phase_matches_plain(device, transport):
+    """The HO step's transport with the TVB limiter (M = 0) on the CG2
+    samples: transport_tiled's TVB form in its qv form, and the staged
+    unlimited qv stage with dg1_limit, against the plain phase."""
+    modules.get_loader().set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        model = CoupledModel(RectMesh(40, 72, 4e3, 4e3), n_subcycles=20, mevp_backend="pallas-tiled", tvb_m=0.0)
+    finally:
+        modules.get_loader().reset()
+    _, carry, _ = ho_setup(device)
+    psi = setup(device, n=40, ny=72)[3]
+    consts = model.mevp.step_consts(
+        mevp_ho.HOVelocityState(*carry), psi[0, 0], psi[0, 1].clamp(0.0, 1.0),
+        mevp_ho.HODynamicsForcing(*(carry[0],) * 4), model.node_mask(device=device, dtype=torch.float32), DT,
+    )
+    cc.reset_launches()
+    _, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 20, mevp="tiled", transport=transport)
+    counts = dict(cc.launches)
+    _, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 20)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert (counts["dg1_limit"] > 0) == (transport == "xla")

@@ -148,6 +148,12 @@ def test_host_packing_matches_the_c_structs():
 REPLACED = {
     "mevp.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "transport.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "transport_tvb.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "transport_periodic.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "transport_tiled_forms.cu": "transport_tiled.py::transport_substeps_tiled",
+    "mevp_tiled_periodic.cu": "mevp_tiled.py::mevp_subcycles_tiled",
+    "mevp_single_periodic.cu": "mevp_pallas.py::mevp_subcycles_pallas",
+    "mevp_single_periodic_adaptive.cu": "mevp_pallas.py::mevp_subcycles_pallas",
     "mevp_tiled.cu": "mevp_tiled.py::mevp_subcycles_tiled",
     "transport_tiled.cu": "transport_tiled.py::transport_substeps_tiled",
     "mevp_single.cu": "mevp_pallas.py::mevp_subcycles_pallas",
