@@ -96,6 +96,15 @@ CFL-adaptive transport substeps:
   transport_tiled), on mevp_single with the staged transport and on
   mevp_tiled, and with M = 0 on "auto" (mevp_single, the staged transport
   with dg1_limit and its tolerance planes) and on mevp_tiled;
+* the HO solver's A-weighted and periodic forms (phase ``check_ho_forms``):
+  the battery's ``ho_coupled_1m_periodic`` (``bench_coupled_1m(
+  high_order=True, periodic=True)``: config 4 with both axes periodic, on
+  "auto": ho_tiled's periodic form and transport_tiled's periodic qv form),
+  the same with tvb_m = 0 (the qv TVB form), the HO 256^2 step periodic in
+  both axes on ho_single with the staged transport (dg1_rk_stage's periodic
+  qv stage; with tvb_m = 0 its TVB stage and dg1_limit), and the A-weighted
+  HO step (``MEVPParams(a_weighted_stress=True)``) at 1024^2 on ho_tiled and
+  at 256^2 on ho_single;
 * the engine (``nextsimdg_tpu_torch.runtime``, ``python -m
   nextsimdg_tpu_torch``), which runs no kernel: BASELINE config 1
   (``run/dev1.cfg``: the 10 x 10 devgrid restart, 1 step of 1 s, dummy
@@ -182,7 +191,17 @@ Phases, each printed on its own lines:
    (TOL_LAUNCH) and the schedules against each other (expected 0), and the
    periodic and TVB paths one step against the plain path and 3 steps
    bounded, every kernel of the path launched (dg1_limit on the staged TVB
-   ones);
+   ones); then (phase ``check_ho_forms``) ho_single at 256^2 and ho_tiled
+   at 1024^2 in the A-weighted, periodic and combined forms on seeded
+   inputs with partial cover and a wind that varies along the seams, one
+   subcycle against the plain version (TOL_LAUNCH) and 100 against it
+   (TOL_STEP_MEVP), ho_single against ho_tiled and ho_tiled's 2 x 2
+   clusters against its shipped window (expected 0); dg1_rk_stage's
+   periodic qv stage and its TVB stage with dg1_limit at 256^2;
+   transport_tiled's periodic qv form and its TVB form at 1024^2 (k = 1
+   and 4) against the plain version and the staged schedule (expected 0);
+   and the forms' paths one step against the plain path and 20 steps
+   bounded, every kernel of the path launched;
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -211,6 +230,10 @@ Phases, each printed on its own lines:
    at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; each
    periodic and TVB form in turns with its closed (or untouched) instance,
    and the periodic, TVB and ring steps in turns with their closed ones;
+   each HO form in turns with its closed instance, and
+   ``ho_coupled_1m_periodic`` and the A-weighted HO step beside
+   ``ho_coupled_1m``, the periodic HO 256^2 staged step beside the closed
+   one, with a profile of ``ho_coupled_1m_periodic``;
    last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
@@ -227,7 +250,8 @@ time, the card's ``nvidia-smi`` name and power limit and the kernels' JSON
 summary come last but one; each kernel's row carries ``bound_ms`` on the
 data sheet's peaks and ``measured_bound_ms`` on the measured HBM and
 mul_add rates, and each new periodic or TVB form of an earlier kernel has a
-row of its own ("mevp_stress (periodic form)", ...). The last line is ``{"ok": true, "device": {...}}``.
+row of its own ("mevp_stress (periodic form)", ..., "ho_tiled (A-weighted form)",
+"transport_tiled (periodic qv form)", ...). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3342,6 +3366,317 @@ def time_tvb_periodic(device, card: str) -> None:
     profile(f"config4 dG2 periodic TVB coupled step ({N4}x{N4})", lambda: periodic4.step(state4, phys4, dyn4, DT))
 
 
+# -- the HO solver's A-weighted and periodic forms (phase check_ho_forms) ---------
+#: The paths of phase check_ho_forms: the battery's ho_coupled_1m_periodic
+#: (config 4's 1024^2 mesh periodic in both axes, HO, "auto": ho_tiled and
+#: transport_tiled's periodic qv form), the same with the TVB limiter (M = 0:
+#: the qv TVB form), the HO 256^2 step periodic in both axes on ho_single
+#: with the staged transport (dg1_rk_stage's periodic qv form), with and
+#: without M = 0, and the A-weighted HO step at 1024^2 (ho_tiled) and 256^2
+#: (ho_single): (path, n, periodic, A-weighted, tvb_m, backends, schedule).
+HO_FORM_PATHS = [
+    ("ho_coupled_1m_periodic", N4, True, False, None, {}, ("tiled", "tiled")),
+    ("ho_coupled_1m_periodic_tvb", N4, True, False, 0.0, {}, ("tiled", "tiled")),
+    ("ho_periodic_256_staged", N, True, False, None, {"mevp_backend": "pallas", "transport_backend": "xla"},
+     ("single", "xla")),
+    ("ho_periodic_256_staged_tvb", N, True, False, 0.0, {"mevp_backend": "pallas", "transport_backend": "xla"},
+     ("single", "xla")),
+    ("ho_coupled_1m_aweighted", N4, False, True, None, {}, ("tiled", "tiled")),
+    ("ho_coupled_256_aweighted", N, False, True, None, {"mevp_backend": "pallas"}, ("single", "tiled")),
+]
+_HO_SCHEDULE_KERNELS = {
+    ("tiled", "tiled"): ("ho_tiled", "transport_tiled"), ("single", "tiled"): ("ho_single", "transport_tiled"),
+    ("single", "xla"): ("ho_single", "dg1_rk_stage"),
+}
+PATH_KERNELS.update({
+    path: _HO_SCHEDULE_KERNELS[schedule] + (("dg1_limit",) if tvb is not None and schedule[1] == "xla" else ())
+    for path, _, _, _, tvb, _, schedule in HO_FORM_PATHS
+})
+FORM_ROWS.update({
+    "ho_single A-weighted": ("ho_single", "nextsimdg_tpu_torch/csrc/ho_single_forms.cu", ["ho_coupled_256_aweighted"]),
+    "ho_single periodic": ("ho_single", "nextsimdg_tpu_torch/csrc/ho_single_forms.cu",
+                           ["ho_periodic_256_staged", "ho_periodic_256_staged_tvb"]),
+    "ho_tiled A-weighted": ("ho_tiled", "nextsimdg_tpu_torch/csrc/ho_tiled_forms.cu", ["ho_coupled_1m_aweighted"]),
+    "ho_tiled periodic": ("ho_tiled", "nextsimdg_tpu_torch/csrc/ho_tiled_forms.cu",
+                          ["ho_coupled_1m_periodic", "ho_coupled_1m_periodic_tvb"]),
+    "dg1_rk_stage periodic qv": ("dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_periodic_qv.cu",
+                                 ["ho_periodic_256_staged"]),
+    "dg1_rk_stage periodic qv tvb": ("dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_periodic_qv.cu",
+                                     ["ho_periodic_256_staged_tvb"]),
+    "transport_tiled periodic qv": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_qv.cu",
+                                    ["ho_coupled_1m_periodic"]),
+    "transport_tiled periodic qv tvb": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_qv.cu",
+                                        ["ho_coupled_1m_periodic_tvb"]),
+})
+#: The forms checked launch by launch: (periodic in both axes, A-weighted).
+HO_FORMS = {"A-weighted": (False, True), "periodic": (True, False), "A-weighted periodic": (True, True)}
+
+
+def ho_form_model(device, n: int, periodic: bool, weighted: bool, degree: int = 1, **kwargs):
+    """A coupled HO model on an n^2 RectMesh of 4 km elements, periodic in
+    both axes or closed, A-weighted or not (the HO solver selected through
+    the registry, reset after the build)."""
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        return CoupledModel(
+            RectMesh(n, n, 4e3, 4e3, periodic_x=periodic, periodic_y=periodic), degree=degree,
+            n_subcycles=N_SUBCYCLES, mevp_params=MEVPParams(a_weighted_stress=weighted), **kwargs,
+        )
+    finally:
+        loader.reset()
+
+
+def ho_form_inputs(n, device, seed, periodic, weighted, **kwargs):
+    """Seeded HO inputs of a form at n^2: (model, carry, consts, psi, faces),
+    with partial cover (A in [0.3, 1) and below 0.06 on the first quarter of
+    the rows: some nodes below a_dyn_min) and a wind that varies from cell
+    to cell, along the seams too (a periodic axis's wrap carries signal)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    shape = (n, n)
+    model = ho_form_model(device, n, periodic, weighted, **kwargs)
+    field = lambda s, m=0.0: mevp_ho.HOField(*(t(m + rng.normal(0.0, s, shape)) for _ in range(4)))
+    state = mevp_ho.HOVelocityState(
+        u=field(0.2), v=field(0.2), s11=t(rng.normal(0.0, 1e3, (3, *shape))),
+        s22=t(rng.normal(0.0, 1e3, (3, *shape))), s12=t(rng.normal(0.0, 5e2, (3, *shape))),
+    )
+    forcing = mevp_ho.HODynamicsForcing(field(2.0, 6.0), field(2.0, 3.0), field(0.05), field(0.05))
+    a = rng.uniform(0.3, 1.0, shape)
+    a[: n // 4] = rng.uniform(0.0, 0.06, (n // 4, n))
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(state, t(rng.uniform(0.0, 2.0, shape)), t(a), forcing, mask, DT)
+    carry = (state.u, state.v, state.s11, state.s22, state.s12)
+    k = model.transport.basis.n_dofs
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (k - 1, 3, *shape))]))
+    faces = tuple(t((rng.uniform(size=shape) > 0.1).astype(np.float32)) for _ in range(2))
+    return model, carry, consts, psi, faces
+
+
+def ho_form_coverage(tag: str, solver, consts) -> None:
+    """Logs (and requires) the partial cover of an A-weighted form's a_{k}."""
+    a = torch.stack([consts[f"a_{k}"] for k in mevp_ho.PLANES])
+    low = int(((a > 0) & (a < solver.params.a_dyn_min)).sum())
+    inner = int(((a > 0.1) & (a < 0.99)).sum())
+    log("check", f"{tag}: a_k in [{float(a.min()):.3f}, {float(a.max()):.3f}], {low} nodes below a_dyn_min, "
+                 f"{inner} in (0.1, 0.99)")
+    if not low or not inner:
+        raise AssertionError(f"{tag}: the cover is not partial")
+
+
+def check_ho_form_launches(device) -> dict:
+    """Each new form launch by launch against its plain version at its
+    path's shape, and the schedules against each other: ho_single at 256^2
+    and ho_tiled at 1024^2 in the A-weighted, periodic and combined forms
+    (one subcycle at TOL_LAUNCH, 100 at TOL_STEP_MEVP; ho_single against
+    ho_tiled over 100 subcycles at 256^2 and ho_tiled's shipped window
+    against 2 x 2 clusters, expected 0); dg1_rk_stage's periodic qv stage
+    and its TVB stage with dg1_limit at 256^2; transport_tiled's periodic
+    qv form (dG1 rk2, k = 1 and 4) and its TVB form at 1024^2, against the
+    plain version and the staged schedule (expected 0). Registers each
+    form's timed row. Returns the largest error per kernel."""
+    errs = dict.fromkeys(("ho_single", "ho_tiled", "dg1_rk_stage", "dg1_limit", "transport_tiled"), 0.0)
+
+    def against_plain(kernel, run, tag, solver, carry, consts, n_sub, **kw):
+        got = run(solver, carry, consts, DT, n_sub, **kw)
+        ref = mevp_ho.ho_subcycles_reference(solver, carry, consts, DT, n_sub)
+        tol = TOL_LAUNCH if n_sub == 1 else TOL_STEP_MEVP
+        for (name, g), (_, r) in zip(ho_planes(got), ho_planes(ref)):
+            errs[kernel] = max(errs[kernel], compare(f"{tag} N={n_sub} {name}", g, r, tol))
+        return got
+
+    for form, (periodic, weighted) in HO_FORMS.items():
+        for kernel, n, run, n_subs in (
+            ("ho_single", N, hsc.ho_subcycles_single, (1, N_SUBCYCLES)),
+            ("ho_tiled", N4, htc.ho_subcycles_tiled, (1, 13, N_SUBCYCLES)),
+        ):
+            model, carry, consts, _, _ = ho_form_inputs(n, device, SEED + 50, periodic, weighted)
+            solver = model.mevp
+            tag = f"{kernel} {n}x{n} {form}"
+            if weighted:
+                ho_form_coverage(tag, solver, consts)
+            for n_sub in n_subs:
+                got = against_plain(kernel, run, tag, solver, carry, consts, n_sub)
+            if kernel == "ho_single":
+                tiled = htc.ho_subcycles_tiled(solver, carry, consts, DT, N_SUBCYCLES)
+                for (name, g), (_, w) in zip(ho_planes(got), ho_planes(tiled)):
+                    same_schedule(f"{tag} N={N_SUBCYCLES} {name}", g, w, "ho_tiled")
+            else:
+                shipped = htc.ho_subcycles_tiled(solver, carry, consts, DT, 13)
+                clusters = htc.ho_subcycles_tiled(solver, carry, consts, DT, 13, htc.CLUSTER_2X2)
+                for (name, g), (_, w) in zip(ho_planes(clusters), ho_planes(shipped)):
+                    same_schedule(f"{tag} {htc.CLUSTER_2X2} N=13 {name}", g, w, f"ho_tiled {htc.SHIPPED}")
+            if form == "A-weighted periodic":
+                continue
+            # The timed row: the form in turns with the closed unweighted
+            # instance on the same carry (its 29 consts).
+            closed = ho_form_model(device, n, False, False).mevp
+            closed_consts = {name: consts[name] for name in mevp_ho.HO_CONSTS}
+            n_sub = N_SUBCYCLES if kernel == "ho_single" else htc.HALO
+            planes = HO_PLANES_MOVED + (4 if weighted else 0)
+            ops = n_sub * (OPS["ho_stress"] + OPS["ho_velocity"] + (4 if weighted else 0)) * n * n
+            timed_form(
+                f"{kernel} {form}", errs[kernel],
+                lambda run=run, s=solver, c=carry, k=consts, m=n_sub: run(s, c, k, DT, m),
+                lambda run=run, s=closed, c=carry, k=closed_consts, m=n_sub: run(s, c, k, DT, m),
+                lambda s=solver, c=carry, k=consts, m=n_sub: mevp_ho.ho_subcycles_reference(s, c, k, DT, m),
+                (planes * 4 * n * n, ops),
+            )
+
+    stream = cc._stream(device)
+    _ho_qv_stage_launches(device, errs, stream)
+    _ho_qv_tiled_launches(device, errs)
+    for label in FORM_ROWS:
+        if label in TVB_FORMS and label.startswith(("ho_", "dg1_rk_stage periodic qv", "transport_tiled periodic qv")):
+            TVB_FORMS[label] = replace(TVB_FORMS[label], err=errs[label.split()[0]])
+    torch.cuda.synchronize()
+    return errs
+
+
+def _ho_qv_stage_launches(device, errs, stream) -> None:
+    """dg1_rk_stage's periodic qv stage (blended and first) and its TVB
+    stage with dg1_limit (a middle M) at 256^2, dG1, on the CG2 samples of
+    a seeded velocity."""
+    n = N * N
+    model, carry, _, psi, faces = ho_form_inputs(N, device, SEED + 51, True, False)
+    tr = model.transport
+    qv = mevp_ho.ho_velocity_to_quad(model.mesh, tr.basis, *(
+        mevp_ho.HOField(*(5.0 * x for x in f.planes())) for f in carry[:2]))
+    base = psi.flip(-1).contiguous()
+    for a, b in ((0.0, 1.0), (0.5, 0.5)):
+        args = (tr, psi, base, None, None, *faces, a, b, 300.0)
+        err = compare(f"dg1_rk_stage {N}x{N} periodic qv a={a}", cc.dg1_rk_stage(*args, qv=qv),
+                      cc.dg1_rk_stage_reference(*args, qv=qv), TOL_LAUNCH)
+        errs["dg1_rk_stage"] = max(errs["dg1_rk_stage"], err)
+    tr.tvb_m = middle_m(psi[:, 0], model.mesh)
+    args = (tr, psi, base, None, None, *faces, 0.5, 0.5, 300.0)
+    unlimited = cc.dg1_rk_stage(*args, qv=qv, tvb=True)
+    errs["dg1_rk_stage"] = max(errs["dg1_rk_stage"], compare(
+        f"dg1_rk_stage {N}x{N} periodic qv TVB stage", unlimited,
+        cc.dg1_rk_stage_reference(*args, qv=qv, tvb=True), TOL_LAUNCH))
+    limited = cc.dg1_limit(tr, unlimited)
+    errs["dg1_limit"] = compare(f"dg1_limit {N}x{N} periodic (qv stage)", limited,
+                                cc.dg1_limit_reference(tr, unlimited), TOL_LAUNCH)
+    share = float((limited[1:3] != unlimited[1:3]).any(dim=0).float().mean())
+    log("check", f"dg1_limit {N}x{N} periodic qv: M = {tr.tvb_m:.4e} cuts {share:.4f} of the element tracers")
+    tables, wrap = cc._dg1_tables(tr), cc.wrap_bits(model.mesh)
+    qv_ptrs = cc._dg1_qv(qv, (N, N), device, tr.basis.degree)
+    out = torch.empty_like(psi)
+
+    def stage(tvb, w):
+        return lambda: cc._dg1_rk_stage_(psi, base, None, None, *faces, None, out, 0.5, 0.5, 300.0, tables,
+                                         stream, qv=qv_ptrs, tvb=tvb, wrap=w)
+
+    work = stage_work(1, n, True, False, True)
+    limit_ops = stage_cell_ops(1, True, True) - stage_cell_ops(1, True, False)
+    timed_form("dg1_rk_stage periodic qv", errs["dg1_rk_stage"], stage(False, wrap), stage(False, 0),
+               lambda: cc.dg1_rk_stage_reference(*args, qv=qv), work)
+    timed_form("dg1_rk_stage periodic qv tvb", errs["dg1_rk_stage"], stage(True, wrap), stage(True, 0),
+               lambda: cc.dg1_rk_stage_reference(*args, qv=qv, tvb=True),
+               (work[0], work[1] - cc.STAGE_TRACERS * limit_ops * n))
+
+
+def _ho_qv_tiled_launches(device, errs) -> None:
+    """transport_tiled's periodic qv form (dG1 rk2) at 1024^2, k = 1 and 4,
+    and its TVB form (M = 0), against the plain version and the staged
+    schedule; the timed rows in turns with the closed instances."""
+    n = N4 * N4
+    model, carry, _, psi, faces = ho_form_inputs(N4, device, SEED + 52, True, False)
+    closed = ho_form_model(device, N4, False, False)
+    tvb = ho_form_model(device, N4, True, False, tvb_m=0.0)
+    closed_tvb = ho_form_model(device, N4, False, False, tvb_m=0.0)
+    for k in (1, 4):
+        qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, *(
+            mevp_ho.HOField(*(k * x for x in f.planes())) for f in carry[:2]))
+        for tag, tr in (("", model.transport), (" TVB", tvb.transport)):
+            args = (tr, psi, None, None, DT / k, k, faces)
+            got = tt.transport_substeps_tiled(*args, qv=qv)
+            name = f"transport_tiled {N4}x{N4} periodic qv{tag} k={k}"
+            errs["transport_tiled"] = max(errs["transport_tiled"], compare(
+                name, got, tt.transport_substeps_tiled_reference(*args, qv=qv), TOL_STEP_TRACER))
+            same_schedule(name, got, cc.transport_substeps(*args, qv=qv), "the staged qv transport")
+    qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, *carry[:2])
+    stages = cc._RK_STAGES[model.transport.scheme]
+    work = tiled_work(1, n, 1, stages, True)
+    for label, form, untouched in (
+        ("transport_tiled periodic qv", model.transport, closed.transport),
+        ("transport_tiled periodic qv tvb", tvb.transport, closed_tvb.transport),
+    ):
+        extra = 3 * len(stages) * tvb_limit_ops(1) * n if form.limits_slopes else 0
+        timed_form(label, errs["transport_tiled"],
+                   lambda tr=form: tt.transport_substeps_tiled(tr, psi, None, None, 60.0, 1, faces, qv=qv),
+                   lambda tr=untouched: tt.transport_substeps_tiled(tr, psi, None, None, 60.0, 1, faces, qv=qv),
+                   lambda tr=form: tt.transport_substeps_tiled_reference(tr, psi, None, None, 60.0, 1, faces, qv=qv),
+                   (work[0], work[1] + extra))
+
+
+def ho_form_path(device, n: int, periodic: bool, weighted: bool, **backends):
+    """``bench_coupled_1m(high_order=True, periodic=, a_weighted=)`` at n^2:
+    config 4's state and forcing, the HO solver selected through the
+    registry (reset after the build); (model, state, phys, dyn)."""
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        mesh = RectMesh(n, n, dx=4e3, dy=4e3, periodic_x=periodic, periodic_y=periodic)
+        return coupled_model(device, mesh, None, mevp_params=MEVPParams(a_weighted_stress=weighted), **backends)
+    finally:
+        loader.reset()
+
+
+def check_ho_form_paths(device) -> dict:
+    """Each path of HO_FORM_PATHS on its schedule: one step against the
+    plain path on the card, then 20 steps from zeroed launch counts (finite,
+    bounded, every kernel of the path launched). Returns the counts by
+    path."""
+    counts = {}
+    for path, n, periodic, weighted, tvb_m, backends, expected in HO_FORM_PATHS:
+        model, state, phys, dyn = ho_form_path(device, n, periodic, weighted, tvb_m=tvb_m, **backends)
+        if tvb_m is not None:
+            state = with_fronts(state, SEED + 53)
+        schedule = model.schedule(device)
+        log("slice", (
+            f"{path}: {n}x{n} HO, periodic {periodic}, A-weighted {weighted}, tvb_m {tvb_m}, schedule {schedule}"
+        ))
+        if not model.is_high_order or schedule != expected:
+            raise AssertionError(f"{path} does not run {expected}: {schedule}")
+        compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
+        counts[path] = drive_path(path, model, state, phys, dyn, True)
+    return counts
+
+
+def check_ho_forms(device) -> tuple:
+    """Phase: the A-weighted and periodic forms of ho_single and ho_tiled,
+    and the periodic qv forms of dg1_rk_stage and transport_tiled, launch by
+    launch, then their paths. Returns (counts by path, largest error per
+    kernel)."""
+    errs = check_ho_form_launches(device)
+    return check_ho_form_paths(device), errs
+
+
+def time_ho_forms(device, card: str) -> None:
+    """ms per step of ho_coupled_1m_periodic beside ho_coupled_1m, of the
+    A-weighted HO step beside the unweighted one at 1024^2 and of the
+    periodic HO 256^2 staged step beside the closed one, in turns; one
+    profile of ho_coupled_1m_periodic."""
+    staged = {"transport_backend": "xla", "mevp_backend": "pallas"}
+    for n, cases in (
+        (N4, (("ho_coupled_1m", False, False, {}), ("ho_coupled_1m_periodic", True, False, {}),
+              ("ho_coupled_1m_aweighted", False, True, {}))),
+        (N, (("ho_coupled_256_staged", False, False, staged), ("ho_periodic_256_staged", True, False, staged))),
+    ):
+        steps = {tag: ho_form_path(device, n, periodic, weighted, **backends)
+                 for tag, periodic, weighted, backends in cases}
+        runs = time_in_turns(
+            {tag: (lambda m=m, s=s, p=p, d=d: m.step(s, p, d, DT)) for tag, (m, s, p, d) in steps.items()},
+            dict.fromkeys(steps, 10),
+        )
+        for tag, ms in runs.items():
+            report(f"{tag} coupled step ({n}x{n}, {steps[tag][0].schedule(device)})", ms, n * n, card)
+    model, state, phys, dyn = ho_form_path(device, N4, True, False)
+    profile(f"ho_coupled_1m_periodic coupled step ({N4}x{N4}, {model.schedule(device)})",
+            lambda: model.step(state, phys, dyn, DT))
+
+
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     """The kernels' JSON line: per kernel its launches on the main paths,
     check error, times, ``bound_ms`` on the data sheet's peaks and
@@ -3520,6 +3855,11 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     for kernel, err in errs_tvb.items():
         if kernel != "dg1_limit":
             kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
+    counts_hof, errs_hof = phase(check_ho_forms, device)
+    counts.update(counts_hof)
+    for kernel, err in errs_hof.items():
+        if kernel != "dg1_limit":
+            kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     counts_5, kernels_5, probes = phase(check_multihost, device)
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
@@ -3530,7 +3870,8 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
     phase(time_tvb_periodic, device, smi)
-    kernels["dg1_limit"] = TVB_FORMS["dg1_limit"]
+    phase(time_ho_forms, device, smi)
+    kernels["dg1_limit"] = replace(TVB_FORMS["dg1_limit"], err=max(TVB_FORMS["dg1_limit"].err, errs_hof["dg1_limit"]))
     phase(profile_engine, device)
     # Last, as a profiler session slows the host's later launches. Every
     # row's ms stays the back-to-back time per call; the device durations

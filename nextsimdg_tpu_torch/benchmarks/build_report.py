@@ -11,8 +11,9 @@ longest. ``--sass`` compares, by ``cuobjdump -sass``, the opcode sequences
 (operands ignored) of the kernels in LIB (default: this tree's library,
 built if missing) with those of another checkout's library PARENT_LIB, for
 the instances that this tree compiles with its added template arguments
-false (the periodic form ``kWrap``, and ``kTvb`` of transport_tiled): the
-closed instances, which should be the parent's code. Both need the CUDA
+false or 0 (the periodic form ``kWrap``, ``kTvb`` of transport_tiled, and
+the HO kernels' momentum form ``kForm``): the closed instances, which
+should be the parent's code. Both need the CUDA
 toolkit (the card's machine); they launch nothing on the card.
 """
 
@@ -32,6 +33,7 @@ from ..dynamics.kernels import coupled_cuda as cc
 KERNELS = (
     "mevp_stress_kernel", "mevp_velocity_kernel", "mevp_tiled_kernel", "mevp_single_kernel",
     "transport_tiled_kernel", "dg1_rk_stage_kernel", "dg1_sample_cfl_kernel", "ho_single_kernel",
+    "ho_tiled_kernel",
 )
 
 
@@ -79,9 +81,12 @@ def opcodes(sass: str) -> dict:
 def closed_name(name: str, parent_names) -> str:
     """The parent's kernel of a closed instance: the template arguments of
     ``name`` without its trailing false ones (``Lb0E``), up to two of them,
-    that name a kernel of the parent; None for another instance."""
+    or a trailing 0 and false (``Li0ELb0E``: the HO kernels' form and
+    ``kWrap``), that name a kernel of the parent; None for another
+    instance."""
     key = name.split("EEv")[0]
-    for candidate in (re.sub(r"Lb0ELb0E$", "", key), re.sub(r"Lb0E$", "", key), key):
+    candidates = (re.sub(r"Lb0ELb0E$", "", key), re.sub(r"Lb0E$", "", key), re.sub(r"Li0ELb0E$", "", key), key)
+    for candidate in candidates:
         if candidate in parent_names:
             return candidate
     return None

@@ -37,13 +37,15 @@ words. ``--phases=transport_tiled``: a launch that only loads and stores
 each window against a full one, for the block-per-tile launch of one
 buffer (load, stages, store in turn) and the shipped persistent, double-buffered
 one. ``--kernel-times``: ``transport_tiled`` at 1024^2 and 4096^2,
-``ho_single`` at 256^2 and 512^2, ``mevp_single`` at 256^2 uniform and
+``ho_single`` at 256^2 and 512^2, ``ho_tiled`` at 1024^2 (one launch),
+``mevp_single`` at 256^2 uniform and
 512^2 and 1024^2 spherical, ``mevp_tiled`` on the same 1024^2 spherical
 carry, ``dg1_sample_cfl`` at every shape the paths launch it, and
 ``dg1_rk_stage`` at the paths' shapes and forms (``STAGE_SHAPES``), per
 call, as the host launches them (``kernel_times``, which also times an
 earlier checkout's kernels); ``--kernel-times=dg1_rk_stage``: only
-``transport_tiled`` (which shares the stage's body) and ``dg1_rk_stage``.
+``transport_tiled`` (which shares the stage's body) and ``dg1_rk_stage``;
+``--kernel-times=ho``: only ``ho_single`` and ``ho_tiled``.
 ``--steps``: the headline dynamics step (256^2, K1's schedule: two
 ``dg1_rk_stage`` launches a substep), mean and best of 20
 (``headline_step``), before any profiler session. Each
@@ -556,11 +558,13 @@ def cfl_inputs(n: int, halo: int, spherical: bool, device, seed: int = 0):
 
 def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100,
                  single_sizes=SINGLE_SIZES, tiled_sizes=((1024, True),), cfl_shapes=CFL_SHAPES,
-                 stage_sizes=STAGE_SHAPES, k1_sizes=()) -> dict:
+                 stage_sizes=STAGE_SHAPES, k1_sizes=(), ho_tiled_sizes=()) -> dict:
     """ms per call of the launches the host picks for ``transport_tiled``
     (one rk2 substep on ``transport_inputs`` at each of ``transport_sizes``),
     ``ho_single`` (``n_sub`` HO subcycles on ``seeded_ho_phase`` at each of
-    ``ho_sizes``), ``mevp_single`` and ``mevp_tiled`` (``n_sub`` subcycles on
+    ``ho_sizes``), ``ho_tiled`` (one launch of its shipped subcycles on
+    ``seeded_ho_phase`` at each of ``ho_tiled_sizes``), ``mevp_single`` and
+    ``mevp_tiled`` (``n_sub`` subcycles on
     ``seeded_phase`` at each (n, spherical) of ``single_sizes`` and
     ``tiled_sizes``), ``dg1_sample_cfl`` (at each (n, halo, spherical)
     of ``cfl_shapes``) and ``dg1_rk_stage`` (one stage on ``stage_inputs``
@@ -593,6 +597,11 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
         solver, carry, consts = seeded_ho_phase(n, device)
         cases.append(("ho_single", n, f"{n_sub} HO subcycles", lambda s=solver, c=carry, k=consts: (
             ho_single_cuda.ho_subcycles_single(s, c, k, DT, n_sub))))
+    for n in ho_tiled_sizes:
+        solver, carry, consts = seeded_ho_phase(n, device)
+        h = ho_tiled_cuda.HALO
+        cases.append(("ho_tiled", n, f"{h} HO subcycles (one launch)", lambda s=solver, c=carry, k=consts: (
+            ho_tiled_cuda.ho_subcycles_tiled(s, c, k, DT, h))))
     for kernel, run, sizes in (
         ("mevp_single", mevp_single_cuda.mevp_subcycles_single, single_sizes),
         ("mevp_tiled", mevp_tiled_cuda.mevp_subcycles_tiled, tiled_sizes),
@@ -839,7 +848,10 @@ def main(argv=None) -> int:
     if "--steps" in argv:  # host-bound: before any profiler session
         headline_step(device)
     if "--kernel-times" in argv:
-        kernel_times(device, k1_sizes=(256,))
+        kernel_times(device, k1_sizes=(256,), ho_tiled_sizes=(1024,))
+    if "--kernel-times=ho" in argv:
+        kernel_times(device, transport_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=(),
+                     stage_sizes=(), ho_tiled_sizes=(1024,))
     if "--kernel-times=dg1_rk_stage" in argv:
         kernel_times(device, ho_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=())
     if "--tiles" in argv or "--tiles=mevp_single" in argv:

@@ -19,8 +19,8 @@ chunk, as in the JAX battery. The chunks are sized so that a timed chunk
 takes about 0.3 s or more on an H100 at the port's step times (PERF.md);
 the JAX ones were sized against its remote-dispatch latency.
 
-The JAX configs the port cannot run yet stay out of ``CONFIGS``:
-``ho_coupled_1m_periodic`` and the ``*_spmd`` ones (ROADMAP M11b).
+The JAX configs the port cannot run yet stay out of ``CONFIGS``: the
+``*_spmd`` ones (ROADMAP M11b).
 """
 
 from __future__ import annotations
@@ -172,6 +172,7 @@ def bench_box(
 def bench_coupled_1m(
     n: int = 1024, land_mask: bool = False, spherical: bool = False, high_order: bool = False,
     chunk: int = 40, n_subcycles: int = 100, device=None, a_weighted: bool = False,
+    periodic: bool = False,
 ) -> dict:
     """BASELINE config 4: coupled thermo+dynamics, ~1M elements, on the
     "auto" schedule.
@@ -181,13 +182,14 @@ def bench_coupled_1m(
     ``high_order=True`` selects the CG2/dG1 solver through the registry
     (reset after the build); ``a_weighted=True`` runs the canonical
     A-weighted momentum form (``MEVPParams(a_weighted_stress=True)``: the
-    a_node const plane in the mEVP kernel).
+    a_node const plane in the mEVP kernel, the a_{k} planes in the HO
+    ones); ``periodic=True`` makes both axes of the RectMesh periodic.
     """
     device = _device(device)
     if spherical:
         mesh = SphericalMesh(n, n, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
     else:
-        mesh = RectMesh(n, n, dx=4e3, dy=4e3)
+        mesh = RectMesh(n, n, dx=4e3, dy=4e3, periodic_x=periodic, periodic_y=periodic)
     ocean = synthetic_coastline(n) if land_mask else None
     build = lambda: CoupledModel(
         mesh, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean,
@@ -202,6 +204,7 @@ def bench_coupled_1m(
         ", spherical lon-lat" if spherical else "",
         ", CG2/dG1" if high_order else "",
         ", A-weighted" if a_weighted else "",
+        ", periodic" if periodic else "",
     ])
     return _result(
         f"coupled thermo+dynamics element updates/s ({n}x{n} = {n * n / 1e6:.2g}M elements{tags}, "
@@ -260,6 +263,7 @@ CONFIGS = {
     "ho_coupled_256": partial(bench_coupled_1m, n=256, high_order=True, chunk=24),
     "ho_coupled_512": partial(bench_coupled_1m, n=512, high_order=True, chunk=24),
     "ho_coupled_1m": partial(bench_coupled_1m, high_order=True, chunk=16),
+    "ho_coupled_1m_periodic": partial(bench_coupled_1m, high_order=True, chunk=8, periodic=True),
     "multihost_16m": bench_multihost_16m,
 }
 

@@ -29,7 +29,8 @@ The momentum solver comes from the module registry, as in the JAX package:
 the default), ``Nextsim::FreeDrift`` (``FreeDriftSolver``: no internal
 stress, its momentum step plain PyTorch on every device, then the usual
 CFL count and transport) or ``Nextsim::MEVPHighOrder`` (the CG2/dG1
-``MEVPSolverHO``, on uniform meshes), selected with
+``MEVPSolverHO``, on uniform meshes, each axis closed or periodic),
+selected with
 ``modules.get_loader().set_implementation(...)`` before the model is built
 (and ``reset()`` after). With the HO solver the velocity state is an
 ``HOVelocityState``, the forcing is interpolated to the CG2 nodes, the node
@@ -42,8 +43,7 @@ and exchanges halos with the other ranks (``parallel.exchange``): the mEVP
 on the blocked or rdma schedule, the transport on the widened block, the
 physics per block. The HO solver, free drift, graded and spherical blocks,
 periodic axes and the TVB limiter raise ``NotImplementedError`` there
-(ROADMAP M10b). The HO solver on a periodic mesh raises on one domain too
-(ROADMAP M7c item 4).
+(ROADMAP M10b).
 """
 
 from __future__ import annotations
@@ -121,11 +121,11 @@ class CoupledModel:
         spmd=(None, None),
         ocean_mask=None,
         mevp_backend: str = "auto",
+        mevp_block_halo="auto",
         transport_substeps: int = 1,
         auto_substeps: bool = True,
         tvb_m: float = None,
         transport_backend: str = "auto",
-        mevp_block_halo="auto",
     ) -> None:
         """``degree``: the DG degree of the tracers (0, 1 or 2: 1, 3 or 6
         coefficients each), advected with rk1, rk2 or rk3.
@@ -440,7 +440,9 @@ class CoupledModel:
         hice, cice, hsnow = state.hice, state.cice, state.hsnow
         velocity = state.velocity
         if self.is_high_order:
-            dyn_forcing = HODynamicsForcing.from_vertex_forcing(dyn_forcing)
+            dyn_forcing = HODynamicsForcing.from_vertex_forcing(
+                dyn_forcing, self.mesh.periodic_x, self.mesh.periodic_y
+            )
         mask = self.node_mask(device=hice.device, dtype=hice.dtype)
         if self.is_free_drift:  # no per-step consts: the phase gets the step's inputs
             consts = dict(h=hice[0], a=torch.clamp(cice[0], 0.0, 1.0), forcing=dyn_forcing, mask=mask)

@@ -29,6 +29,9 @@ __device__ __forceinline__ float at(const float* f, int i, int j, int nx, int ny
 // Every kernel takes the periodic form as a template argument (kWrap), so
 // that its closed instances keep their code, and reads `wrap` only there.
 constexpr int kWrapX = 1, kWrapY = 2;
+// The host passes an mEVP kernel's form and its periodic axes in one int:
+// the momentum form's bits, then kWrapX and kWrapY shifted by this.
+constexpr int kFormWrapShift = 2;
 
 // i modulo n, in [0, n), for any i; the integer remainder only where i
 // lies outside [0, n) (the seam), so that a wrapped form pays it at the

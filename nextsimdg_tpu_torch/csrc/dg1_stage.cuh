@@ -300,11 +300,18 @@ constexpr int kStageLimited = 1;    // the coupled step: 3 tracers, face masks, 
 constexpr int kStageUnlimited = 2;  // the TVB form's stage: 3 tracers, face masks, no limiter
 
 // The periodic instances (transport_periodic.cu): every mode, mesh and
-// blend of the CG1 velocity (and of the qv form in the advection run's
-// mode; the HO solver on a periodic mesh is not ported).
+// blend of the CG1 velocity, and of the qv form in the advection run's
+// mode.
 template <int kDeg>
 cudaError_t run_stage_periodic(const StageArgs<kDeg>& g, bool metric, bool qv, bool blend, int mode,
                                cudaStream_t s);
+
+// The periodic instances of the HO path's qv form in the coupled step's
+// modes (transport_periodic_qv.cu): the limited stage and, at dG1 and dG2,
+// the TVB form's unlimited stage, on a uniform mesh (the HO solver's).
+template <int kDeg>
+cudaError_t run_stage_periodic_qv(const StageArgs<kDeg>& g, bool metric, bool blend, int mode,
+                                  cudaStream_t s);
 
 inline bool aligned16(const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 == 0; }
 

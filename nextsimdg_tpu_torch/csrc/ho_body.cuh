@@ -23,6 +23,11 @@
 // (4-7), then the three dG1 coefficients of s11 (8-10), s22 (11-13) and s12
 // (14-16). The owned plane of local node n = 3a + b of element (i, j) is
 // that of cg2basis.LOCAL_NODE_SOURCE, at (i + a/2, j + b/2) rounded down.
+//
+// The form of a kernel instance (kForm, a template argument): kHoWeighted,
+// the A-weighted stress of MEVPParams.a_weighted_stress, whose ocean drag
+// c_w is weighted by the nodal concentration a_{k} of the node's plane (four
+// more const planes); without it the code is the unweighted form's.
 #pragma once
 
 #include "common.cuh"
@@ -64,9 +69,10 @@ struct HoScalars {
   float dt;              // outer time step [s]
 };
 
-// The 29 per-step constant planes of MEVPSolverHO.step_consts, read-only for
-// a whole launch: the element strength, then per quantity its four owned
-// planes v, b, l, c. The host packs them in this order.
+// The per-step constant planes of MEVPSolverHO.step_consts, read-only for a
+// whole launch: the element strength, then per quantity its four owned
+// planes v, b, l, c; the A-weighted form's a_{k} last (null in the
+// unweighted form). The host packs them in this order (mevp_ho.HO_WEIGHTED_CONSTS).
 struct HoConsts {
   const float* strength;
   const float* dt_m[kHoPlanes];
@@ -76,8 +82,14 @@ struct HoConsts {
   const float* inv_w[kHoPlanes];
   const float* u_ocean[kHoPlanes];
   const float* v_ocean[kHoPlanes];
+  const float* a[kHoPlanes];
 };
-constexpr int kHoConstPlanes = 29;
+constexpr int kHoWeighted = 1;  // the form bit of the A-weighted stress
+
+// The const planes of a form: 29, and the four a_{k} in the weighted form.
+__host__ __device__ constexpr int ho_const_planes(int form) {
+  return (form & kHoWeighted) != 0 ? 33 : 29;
+}
 
 // The 9 local node values of element (i, j) of one CG2 field, n = 3a + b
 // (gather_local): at(p, di, dj) is owned plane p (0 v, 1 b, 2 l, 3 c) at
@@ -215,14 +227,17 @@ __device__ __forceinline__ void ho_node_forces(const HoTables& t, const HoScalar
 
 // The velocity half of a subcycle on one owned plane k of node index (i, j):
 // fu, fv its raw forces, uk, vk its velocity; the rest are plane k's consts
-// at (i, j). One c_w and one shared reciprocal per plane.
+// at (i, j) (a_k: read in the weighted form only). One c_w and one shared
+// reciprocal per plane.
+template <int kForm>
 __device__ __forceinline__ float2 ho_velocity_plane(const HoScalars& s, float fu, float fv,
                                                     float uk, float vk, float uo, float vo,
                                                     float dm, float active, float b_u,
-                                                    float b_v, float inv_w) {
+                                                    float b_v, float inv_w, float a_k) {
   const float rel_u = uo - uk;
   const float rel_v = vo - vk;
-  const float c_w = s.rho_cd_ocean * sqrtf(rel_u * rel_u + rel_v * rel_v);
+  float c_w = s.rho_cd_ocean * sqrtf(rel_u * rel_u + rel_v * rel_v);
+  if constexpr ((kForm & kHoWeighted) != 0) c_w = c_w * a_k;  // tau_w = A c_w (v_w - v)
   const float cor_u = s.f_cor * (vk - vo);
   const float cor_v = s.neg_f_cor * (uk - uo);
   const float inv_drag = active / (s.one_plus_beta + dm * c_w);
@@ -233,9 +248,14 @@ __device__ __forceinline__ float2 ho_velocity_plane(const HoScalars& s, float fu
 }
 
 // The per-plane consts of the velocity half, in the order of HoConsts after
-// strength: const q of owned plane p is HoConsts plane 1 + 4 q + p.
-enum HoPlaneConst { kHoDtM, kHoActive, kHoBU, kHoBV, kHoInvW, kHoUOcean, kHoVOcean };
-constexpr int kHoPlaneConsts = 7;
+// strength: const q of owned plane p is HoConsts plane 1 + 4 q + p (kHoA:
+// the weighted form's).
+enum HoPlaneConst { kHoDtM, kHoActive, kHoBU, kHoBV, kHoInvW, kHoUOcean, kHoVOcean, kHoA };
+
+// The per-plane consts of a form: 7, and a_{k} in the weighted form.
+__host__ __device__ constexpr int ho_plane_consts(int form) {
+  return (form & kHoWeighted) != 0 ? 8 : 7;
+}
 
 __device__ __forceinline__ const float* ho_const_plane(const HoConsts& k, int q, int p) {
   switch (q) {
@@ -245,7 +265,8 @@ __device__ __forceinline__ const float* ho_const_plane(const HoConsts& k, int q,
     case kHoBV: return k.b_v[p];
     case kHoInvW: return k.inv_w[p];
     case kHoUOcean: return k.u_ocean[p];
-    default: return k.v_ocean[p];
+    case kHoVOcean: return k.v_ocean[p];
+    default: return k.a[p];
   }
 }
 
@@ -253,7 +274,7 @@ __device__ __forceinline__ const float* ho_const_plane(const HoConsts& k, int q,
 // `load`, then each plane's update from `uv` (the 8 velocity values, u
 // planes then v planes, updated in place) and its consts, konst(q, p) for
 // const q (HoPlaneConst) of plane p.
-template <class Load, class Konst>
+template <int kForm, class Load, class Konst>
 __device__ __forceinline__ void ho_velocity_update(const HoTables& t, const HoScalars& s,
                                                    const Konst& konst, const Load& load,
                                                    float uv[2 * kHoPlanes]) {
@@ -261,10 +282,10 @@ __device__ __forceinline__ void ho_velocity_update(const HoTables& t, const HoSc
   ho_node_forces(t, s, load, fu, fv);
 #pragma unroll
   for (int p = 0; p < kHoPlanes; ++p) {
-    const float2 out = ho_velocity_plane(
+    const float2 out = ho_velocity_plane<kForm>(
         s, fu[p], fv[p], uv[p], uv[kHoPlanes + p], konst(kHoUOcean, p), konst(kHoVOcean, p),
         konst(kHoDtM, p), konst(kHoActive, p), konst(kHoBU, p), konst(kHoBV, p),
-        konst(kHoInvW, p));
+        konst(kHoInvW, p), (kForm & kHoWeighted) != 0 ? konst(kHoA, p) : 1.0f);
     uv[p] = out.x;
     uv[kHoPlanes + p] = out.y;
   }
@@ -272,12 +293,13 @@ __device__ __forceinline__ void ho_velocity_update(const HoTables& t, const HoSc
 
 // The same at node index (i, j) (flat index ij), its consts read from the
 // const planes in global memory.
-template <class Load>
+template <int kForm, class Load>
 __device__ __forceinline__ void ho_velocity_body(const HoTables& t, const HoScalars& s,
                                                  const HoConsts& k, long ij, const Load& load,
                                                  float uv[2 * kHoPlanes]) {
-  ho_velocity_update(t, s, [&](int q, int p) { return __ldg(ho_const_plane(k, q, p) + ij); },
-                     load, uv);
+  ho_velocity_update<kForm>(t, s,
+                            [&](int q, int p) { return __ldg(ho_const_plane(k, q, p) + ij); },
+                            load, uv);
 }
 
 }  // namespace nst

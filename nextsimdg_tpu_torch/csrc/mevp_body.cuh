@@ -56,9 +56,6 @@ struct MevpScalars {
 constexpr int kFormWeighted = 1;  // a_weighted_stress: c_w times a_node
 constexpr int kFormAdaptive = 2;  // adaptive_alpha: per-node alpha = beta
 constexpr int kForms = 4;
-// The host passes a kernel's form and its periodic axes in one int: the
-// momentum form's bits, then kWrapX and kWrapY shifted by this.
-constexpr int kFormWrapShift = 2;
 
 // The per-step constant planes, read-only for a whole launch (so they may
 // be read through the read-only data path). Then the five metric planes of

@@ -2,7 +2,9 @@
 // with transport.cu and transport_tvb.cu, the RK stages of the TPU kernel
 // nextsimdg_tpu/dynamics/kernels/coupled_pallas.py::fused_dynamics_pallas
 // on a periodic mesh: the windows wrap on the launch's periodic axes and no
-// face is a wall. Compiled beside transport.cu, which dispatches to them.
+// face is a wall. Compiled beside transport.cu, which dispatches to them;
+// the HO path's qv form of the coupled step's stages is compiled in
+// transport_periodic_qv.cu.
 #include "dg1_stage.cuh"
 
 namespace nst {
@@ -20,7 +22,7 @@ cudaError_t run_stage_periodic(const StageArgs<kDeg>& g, bool metric, bool qv, b
     return blend ? launch_stage<kDeg, 1, false, true, true, false, true>(g, s)
                  : launch_stage<kDeg, 1, false, true, false, false, true>(g, s);
   }
-  if (qv) return cudaErrorInvalidValue;  // the HO path: closed meshes only
+  if (qv) return run_stage_periodic_qv<kDeg>(g, metric, blend, mode, s);  // the HO path
   if (mode == kStageUnlimited) {
     if constexpr (kDeg == 0) {
       return cudaErrorInvalidValue;

@@ -327,9 +327,8 @@ template <int kDeg>
 using TransportKernel = void (*)(TransportTiledArgs<kDeg>);
 
 // The instance of a launch for one TVB and periodic form, or null where
-// there is none: the TVB form runs dG1 and dG2 on a uniform mesh, and the
-// periodic instances leave out the HO path's qv form (the HO solver on a
-// periodic mesh is not ported).
+// there is none: the TVB form runs dG1 and dG2 on a uniform mesh; the
+// periodic instances of the HO path's qv form are transport_tiled_qv_of's.
 template <int kDeg, bool kTvb, bool kWrap>
 TransportKernel<kDeg> transport_tiled_select(bool metric, bool qv, bool vec) {
   if constexpr (kTvb && kDeg == 0) {
@@ -350,8 +349,33 @@ TransportKernel<kDeg> transport_tiled_select(bool metric, bool qv, bool vec) {
   }
 }
 
+// The periodic instances of the HO path's qv form: a uniform mesh (the HO
+// solver's), untouched or with TVB (dG1, dG2), whose windows take the
+// quadrature planes at their wrapped indices; null where there is none.
+template <int kDeg, bool kTvb>
+TransportKernel<kDeg> transport_tiled_select_qv(bool metric, bool vec) {
+  if constexpr (kTvb && kDeg == 0) {
+    return nullptr;
+  } else {
+    if (metric) return nullptr;
+    return vec ? transport_tiled_kernel<kDeg, false, true, 4, kTvb, true>
+               : transport_tiled_kernel<kDeg, false, true, 1, kTvb, true>;
+  }
+}
+
+// The periodic qv instances at degree kDeg (transport_tiled_qv.cu).
+template <int kDeg>
+TransportKernel<kDeg> transport_tiled_qv_of(bool metric, bool vec, bool tvb);
+
+// The closed TVB instances at degree kDeg (transport_tiled_tvb.cu): dG1 and
+// dG2 on a uniform mesh, CG1 or qv velocity.
+template <int kDeg>
+TransportKernel<kDeg> transport_tiled_tvb_of(bool metric, bool qv, bool vec);
+
 // The TVB and periodic forms at degree kDeg (transport_tiled_forms.cu):
-// the closed TVB instances and every periodic one.
+// every periodic instance, those of the qv form through
+// transport_tiled_qv_of, and the closed TVB ones through
+// transport_tiled_tvb_of.
 template <int kDeg>
 TransportKernel<kDeg> transport_tiled_forms_of(bool metric, bool qv, bool vec, bool tvb, int wrap);
 

@@ -65,7 +65,9 @@ either), followed by the same CFL count and transport kernels.
 With the higher-order solver (``MEVPSolverHO``) the phase runs
 ``ho_single`` (all N subcycles in one launch, K5 of the JAX package) or
 ``ho_tiled`` (ghost-zone tiles, K6), wrapped by ``ho_single_cuda`` and
-``ho_tiled_cuda`` on the 17 state and 29 const planes packed here; the CG2
+``ho_tiled_cuda`` on the 17 state and 29 const planes packed here (33 with
+``a_weighted_stress``, and the periodic axes in the kernels' ``form``, as
+``kernel_form`` gives it for the CG1 kernels); the CG2
 velocity is sampled at the quadrature points in plain PyTorch
 (``ho_velocity_to_quad``, as the JAX package does it in XLA), k comes from
 those samples (one host sync), and ``transport_tiled`` or the staged
@@ -106,7 +108,7 @@ import torch
 
 from ..mevp import MEVP_CONSTS, MEVPSolver, VelocityState, const_names
 from ..mevp_ho import (
-    HO_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
+    HO_WEIGHTED_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
 )
 from ..dgbasis import dg_basis
 from ..transport import (
@@ -256,8 +258,8 @@ def _bind():
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 7 + tail
     lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 15 + [p, p, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 9 + [p] + tail
-    lib.nst_ho_single.argtypes = [p] * 3 + [i] * 9 + [p] + tail
-    lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 10 + [p] + tail
+    lib.nst_ho_single.argtypes = [p] * 3 + [i] * 10 + [p] + tail
+    lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 11 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
     lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, i, p, i, p] + tail
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
@@ -267,7 +269,7 @@ def _bind():
     lib.nst_mevp_tiled_max_blocks.restype = i
     lib.nst_mevp_single_max_blocks.argtypes = [i] * 7
     lib.nst_mevp_single_max_blocks.restype = i
-    lib.nst_ho_single_max_blocks.argtypes = [i] * 4
+    lib.nst_ho_single_max_blocks.argtypes = [i] * 5
     lib.nst_ho_single_max_blocks.restype = i
     lib.nst_ho_single_syncs.argtypes = [p] + [i] * 9 + [p]
     lib.nst_ho_single_syncs.restype = i
@@ -275,7 +277,7 @@ def _bind():
     lib.nst_transport_tiled_blocks_per_sm.restype = i
     lib.nst_transport_tiled_shared_bytes.argtypes = [i] * 6
     lib.nst_transport_tiled_shared_bytes.restype = i
-    lib.nst_ho_tiled_max_clusters.argtypes = [i] * 6
+    lib.nst_ho_tiled_max_clusters.argtypes = [i] * 7
     lib.nst_ho_tiled_max_clusters.restype = i
     lib.nst_rdma_band_max_clusters.argtypes = [i] * 6
     lib.nst_rdma_band_max_clusters.restype = i
@@ -364,7 +366,8 @@ def wrap_bits(mesh) -> int:
 
 def kernel_form(solver) -> int:
     """An mEVP kernel's ``form`` argument: the momentum form's bits and,
-    above them, the solver mesh's periodic axes."""
+    above them, the solver mesh's periodic axes; for ``MEVPSolverHO`` (no
+    adaptive form) the form of ``ho_single`` and ``ho_tiled``."""
     return mevp_form(solver.params) | wrap_bits(solver.mesh) << _FORM_WRAP_SHIFT
 
 
@@ -500,11 +503,13 @@ def _check_mevp(solver: MEVPSolver, carry, consts) -> None:
 
 
 def _check_ho(solver: MEVPSolverHO, carry, consts) -> None:
-    """The HO kernels take the 29 uniform consts, float32 (nx, ny) planes,
+    """The HO kernels take the solver's const set (``const_names``: the 29,
+    and the four a_{k} in the A-weighted form), float32 (nx, ny) planes,
     and the carry's 8 velocity and 3 x 3 stress planes."""
-    if tuple(sorted(consts)) != tuple(sorted(HO_CONSTS)):
+    expected = tuple(sorted(solver.const_names()))
+    if tuple(sorted(consts)) != expected:
         raise NotImplementedError(
-            f"the HO kernels take the consts {tuple(sorted(HO_CONSTS))}, got {tuple(sorted(consts))}"
+            f"the HO kernels take the consts {expected} for this solver, got {tuple(sorted(consts))}"
         )
     u, v, s11, s22, s12 = carry
     shape = (solver.mesh.nx, solver.mesh.ny)
@@ -516,8 +521,9 @@ def _check_ho(solver: MEVPSolverHO, carry, consts) -> None:
 
 
 def _ho_consts(consts: dict):
-    """The 29 const-plane pointers of HoConsts."""
-    return _pointers([consts[name] for name in HO_CONSTS])
+    """The 33 const-plane pointers of HoConsts; the a_{k} null when the
+    consts have none."""
+    return _pointers([consts.get(name) for name in HO_WEIGHTED_CONSTS])
 
 
 def _stream(device) -> int:
@@ -653,11 +659,6 @@ def _dg1_rk_stage_(
         )
     if tvb and (not limit or tables.degree == 0):
         raise ValueError("dg1_rk_stage's TVB form runs the coupled step's 3 tracers at dG1 and dG2")
-    if wrap and limit and qv is not None:
-        raise NotImplementedError(
-            "dg1_rk_stage's periodic form takes the CG1 velocity: the HO path's qv form on a "
-            "periodic mesh is ROADMAP M7c item 4"
-        )
     uv = (u.data_ptr(), v.data_ptr()) if qv is None else (None, None)
     faces = (face_x.data_ptr(), face_y.data_ptr()) if limit else (None, None)
     mode = (_STAGE_UNLIMITED if tvb else _STAGE_LIMITED) if limit else _STAGE_RUN

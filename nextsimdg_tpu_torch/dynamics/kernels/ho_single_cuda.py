@@ -13,6 +13,12 @@ words that carry the half that wrote them: a block waits on the words it
 reads and on nothing else (a swap after grid.sync() measured slower, as did
 two or four smaller tiles an SM; PERF.md).
 
+In the A-weighted form the four a_{k} planes join the consts (33); on a
+periodic axis the tiles divide the axis exactly and form a ring
+(``tiling(..., periodic=)``), the apron beyond the last tile being the
+first tile's edge. The form (``coupled_cuda.kernel_form``) selects a
+template instance of the kernel.
+
 The tiles must all be resident at once, so a grid whose 17 state planes
 do not fit the card's shared memory at one tile an SM (about 640^2 on the
 H100) is refused, as the TPU kernel refuses grids beyond VMEM
@@ -50,32 +56,40 @@ SHARED_LIMIT, SM_SHARED = 232448, 233472
 STATE_PLANES, CONST_PLANES = 17, 29
 
 
+def const_planes(weighted: bool) -> int:
+    """The const planes of a form: 29, and the four a_{k} with
+    ``a_weighted_stress``."""
+    return CONST_PLANES + 4 * bool(weighted)
+
+
 @dataclass(frozen=True)
 class Tiling:
     """TR x TC tiles (``tile``), ``tiles`` = (along i, along j) of them,
-    one block of ``threads`` threads each; ``consts_shared``: the 29 const
-    planes fit beside the state in shared memory."""
+    one block of ``threads`` threads each; ``consts_shared``: the
+    ``n_consts`` const planes of the form (29, or 33 A-weighted) fit beside
+    the state in shared memory."""
 
     tile: tuple
     tiles: tuple
     threads: int
     consts_shared: bool
+    n_consts: int = CONST_PLANES
 
     @property
     def n_tiles(self) -> int:
         return self.tiles[0] * self.tiles[1]
 
     def shared_bytes(self) -> int:
-        return shared_bytes(self.tile, self.consts_shared)
+        return shared_bytes(self.tile, self.consts_shared, self.n_consts)
 
 
-def shared_bytes(tile, consts_shared: bool) -> int:
+def shared_bytes(tile, consts_shared: bool, n_consts: int = CONST_PLANES) -> int:
     """Dynamic shared memory of one block: the 17 state planes of a TR x TC
-    tile with a one-cell apron, and its 29 const planes where they are
-    kept there."""
+    tile with a one-cell apron, and its ``n_consts`` const planes where they
+    are kept there."""
     tr, tc = tile
     state = STATE_PLANES * (tr + 2) * (tc + 2) * 4
-    return state + (CONST_PLANES * tr * tc * 4 if consts_shared else 0)
+    return state + (n_consts * tr * tc * 4 if consts_shared else 0)
 
 
 def neighbours(tiles, b: int, direction: int) -> list:
@@ -92,23 +106,37 @@ def neighbours(tiles, b: int, direction: int) -> list:
     return out
 
 
+def _exact_rows(nx: int, tr: int):
+    """The smallest divisor of nx from tr up (tiles that cut a periodic
+    axis exactly), or None."""
+    return next((d for d in range(tr, nx + 1) if nx % d == 0), None)
+
+
 @lru_cache(maxsize=64)
-def tiling(nx: int, ny: int, sms: int, tile=None) -> Tiling:
+def tiling(nx: int, ny: int, sms: int, tile=None, periodic=(False, False), weighted: bool = False) -> Tiling:
     """The tiles of an nx x ny grid on a card of ``sms`` SMs: at most one
     an SM, the smallest area (then the shortest edge, then the widest rows)
-    unless ``tile`` = (TR, TC) is given; up to 512 threads a block. Raises
-    ValueError where the state of a tile does not fit a block's shared
-    memory or the tiles outnumber the SMs: such a grid cannot be
-    resident."""
+    unless ``tile`` = (TR, TC) is given; up to 512 threads a block. A
+    periodic axis (``periodic`` = (x, y)) takes only tiles that divide it
+    exactly: its tiles form a ring whose last edge is the first tile's.
+    ``weighted``: the A-weighted form's 33 const planes decide whether the
+    consts fit in shared memory. Raises ValueError where the state of a
+    tile does not fit a block's shared memory or the tiles outnumber the
+    SMs: such a grid cannot be resident."""
     slots, limit = sms, SHARED_LIMIT
+    px, py = periodic
     if tile is None:
         best = None
         for tc in range(1, ny + 1):
             tiles_j = -(-ny // tc)
             if tiles_j > slots or (tc > 1 and -(-ny // (tc - 1)) == tiles_j):
                 continue  # too many columns, or a narrower tile gives as many
+            if py and ny % tc:
+                continue
             tr = -(-nx // (slots // tiles_j))
-            if shared_bytes((tr, tc), False) > limit:
+            if px:
+                tr = _exact_rows(nx, tr)
+            if tr is None or shared_bytes((tr, tc), False) > limit:
                 continue
             key = (tr * tc, tr + tc, -tc)
             if best is None or key < best[0]:
@@ -122,6 +150,11 @@ def tiling(nx: int, ny: int, sms: int, tile=None) -> Tiling:
     tr, tc = tile
     if tr < 1 or tc < 1:
         raise ValueError(f"ho_single: tile {tile} is empty")
+    if (px and nx % tr) or (py and ny % tc):
+        raise ValueError(
+            f"ho_single: a {tr} x {tc} tile does not divide the periodic axes of the "
+            f"{nx} x {ny} grid"
+        )
     tiles = (-(-nx // tr), -(-ny // tc))
     if tiles[0] * tiles[1] > slots:
         raise ValueError(
@@ -135,13 +168,15 @@ def tiling(nx: int, ny: int, sms: int, tile=None) -> Tiling:
             f"{limit}); ho_tiled runs it"
         )
     threads = min(MAX_THREADS, -(-tr * tc // 32) * 32)
-    return Tiling(tile, tiles, threads, shared_bytes(tile, True) <= limit)
+    n_consts = const_planes(weighted)
+    return Tiling(tile, tiles, threads, shared_bytes(tile, True, n_consts) <= limit, n_consts)
 
 
-def holds(nx: int, ny: int, sms: int) -> bool:
-    """Whether ``tiling`` takes an nx x ny grid on ``sms`` SMs."""
+def holds(nx: int, ny: int, sms: int, periodic=(False, False)) -> bool:
+    """Whether ``tiling`` takes an nx x ny grid with these periodic axes on
+    ``sms`` SMs."""
     try:
-        tiling(nx, ny, sms)
+        tiling(nx, ny, sms, periodic=tuple(periodic))
     except ValueError:
         return False
     return True
@@ -156,12 +191,13 @@ def largest_square(sms: int) -> int:
     return lo
 
 
-def max_blocks(device, config: Tiling) -> int:
+def max_blocks(device, config: Tiling, form: int = 0) -> int:
     """The most blocks of ``config``'s shape that can be resident at once:
-    the most tiles a launch of it takes."""
+    the most tiles a launch of it takes (the instance of ``form``,
+    ``coupled_cuda.kernel_form``)."""
     device = torch.device(device)
     count = cc._library().nst_ho_single_max_blocks(
-        int(config.consts_shared), config.threads, config.shared_bytes(), device.index or 0,
+        int(config.consts_shared), form, config.threads, config.shared_bytes(), device.index or 0,
     )
     if count <= 0:
         raise RuntimeError(f"ho_single: no resident blocks (CUDA error {-count})")
@@ -181,10 +217,11 @@ def ho_subcycles_single(
 
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     run ``ho_single``: one cooperative launch of one block per tile
-    (``tiling``; ``tile`` = (TR, TC) forces the tile shape), in place on a
-    flat copy of the carry (``coupled_cuda.ho_flatten``), so the inputs are
-    not modified. Raises ValueError for a grid whose tiles cannot all be
-    resident.
+    (``tiling`` on the solver mesh's periodic axes; ``tile`` = (TR, TC)
+    forces the tile shape), in place on a flat copy of the carry
+    (``coupled_cuda.ho_flatten``), so the inputs are not modified; the
+    solver's form (A-weighted, periodic) selects the kernel's instance.
+    Raises ValueError for a grid whose tiles cannot all be resident.
     """
     if cc._on_cpu(carry[0].v):
         return ho_single_reference(solver, carry, consts, dt, n_subcycles)
@@ -196,13 +233,18 @@ def ho_subcycles_single(
         return cc.ho_unflatten(state)
     _, nx, ny = state.shape
     device = state.device
-    config = tiling(nx, ny, sm_count(device), None if tile is None else tuple(tile))
+    mesh = solver.mesh
+    config = tiling(
+        nx, ny, sm_count(device), None if tile is None else tuple(tile),
+        (mesh.periodic_x, mesh.periodic_y), solver.params.a_weighted_stress,
+    )
     scalars, tables = cc._ho_scalars(solver, dt), cc._ho_tables(solver)
     words = exchange(config, device)
+    const_ptrs = cc._ho_consts(consts)
     cc._launch(
-        KERNEL, state.data_ptr(), cc._ho_consts(consts), words.data_ptr(),
+        KERNEL, state.data_ptr(), const_ptrs, words.data_ptr(),
         nx, ny, n_subcycles, *config.tile, *config.tiles, config.threads,
-        int(config.consts_shared), ctypes.addressof(scalars),
+        int(config.consts_shared), cc.kernel_form(solver), ctypes.addressof(scalars),
         ctypes.addressof(tables), device.index, cc._stream(device),
     )
     return cc.ho_unflatten(state)

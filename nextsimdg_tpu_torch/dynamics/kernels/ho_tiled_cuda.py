@@ -12,7 +12,11 @@ shared memory; the cluster runs up to ``halo`` subcycles on the window and
 writes back its interior. The shipped launch (``launch_config``) is a
 cluster of one block: one 48^2 window a block. One launch per round,
 ``ceil(N / halo)`` rounds, ping-ponging between two (17, nx, ny) buffers.
-The 29 const planes are read from global memory. Cluster launches need a
+The 29 const planes (33 with the A-weighted form's a_{k}) are read from
+global memory. On a periodic axis the window loads wrap (the windows
+beyond the domain are the opposite side's); the form
+(``coupled_cuda.kernel_form``) selects a template instance of the kernel.
+Cluster launches need a
 card of compute capability 9.0 or newer; a launch the card refuses
 (cluster shape, shared memory, non-portable cluster size) raises.
 
@@ -119,13 +123,15 @@ HALO = SHIPPED.halo
 ho_tiled_reference = ho_subcycles_reference
 
 
-def max_clusters(device, config: LaunchConfig) -> int:
-    """Clusters of ``config`` the card holds at once
+def max_clusters(device, config: LaunchConfig, form: int = 0) -> int:
+    """Clusters of ``config`` (the instance of ``form``,
+    ``coupled_cuda.kernel_form``) the card holds at once
     (``cudaOccupancyMaxActiveClusters``; 0 where none fits)."""
     device = torch.device(device)
     config.check()
     clusters = cc._library().nst_ho_tiled_max_clusters(
-        config.rows, config.cols, config.sub, config.halo, config.threads, device.index or 0,
+        config.rows, config.cols, config.sub, config.halo, config.threads, form,
+        device.index or 0,
     )
     if clusters < 0:
         raise RuntimeError(f"ho_tiled occupancy: CUDA error {-1 - clusters}")
@@ -139,8 +145,9 @@ def ho_subcycles_tiled(
 
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     run ``ho_tiled``, one launch per ``config.halo`` subcycles, in the
-    launch configuration given or else ``launch_config``'s. The inputs are
-    not modified.
+    launch configuration given or else ``launch_config``'s; the solver's
+    form (A-weighted, periodic) selects the kernel's instance. The inputs
+    are not modified.
     """
     if cc._on_cpu(carry[0].v):
         return ho_tiled_reference(solver, carry, consts, dt, n_subcycles)
@@ -153,6 +160,7 @@ def ho_subcycles_tiled(
     scalars, tables = cc._ho_scalars(solver, dt), cc._ho_tables(solver)
     stream = cc._stream(src.device)
     const_ptrs = cc._ho_consts(consts)
+    form = cc.kernel_form(solver)
     buffers = [src, torch.empty_like(src)]
     done = 0
     while done < n_subcycles:
@@ -161,7 +169,7 @@ def ho_subcycles_tiled(
         cc._launch(
             KERNEL, src.data_ptr(), dst.data_ptr(), const_ptrs, nx, ny, config.rows, config.cols,
             config.sub, config.halo, clusters_a, clusters_b, n_sub,
-            config.threads, ctypes.addressof(scalars), ctypes.addressof(tables),
+            config.threads, form, ctypes.addressof(scalars), ctypes.addressof(tables),
             src.device.index, stream,
         )
         src = dst

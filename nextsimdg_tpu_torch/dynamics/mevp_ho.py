@@ -1,7 +1,7 @@
 """Higher-order mEVP: CG2 velocity + dG1 stress (the neXtSIM_DG core).
 
-Counterpart of ``nextsimdg_tpu.dynamics.mevp_ho`` on a closed uniform mesh,
-in eager PyTorch. Velocity is biquadratic CG2, strain and stress dG1 (3
+Counterpart of ``nextsimdg_tpu.dynamics.mevp_ho`` on a uniform mesh, each
+axis closed or periodic, in eager PyTorch. Velocity is biquadratic CG2, strain and stress dG1 (3
 coefficients per component); the VP law is evaluated at the 2x2 Gauss
 points and projected back.
 
@@ -18,8 +18,13 @@ same float32 operations in the same order. The expression order is the
 JAX package's, operation for operation, so that the two agree to rounding
 at float64.
 
-Graded, spherical and periodic meshes, ``a_weighted_stress`` and
-``adaptive_alpha`` raise ``NotImplementedError``.
+With ``MEVPParams(a_weighted_stress=True)`` the lumped nodal concentration
+of each CG2 plane (``a_{k}``, four more const planes) weights the wind and
+the ocean drag, and nodes below ``a_dyn_min`` are pinned, as in the JAX
+package. On a periodic axis every shift wraps and no node is a wall.
+
+Graded and spherical meshes (ROADMAP M9b) and ``adaptive_alpha`` (as in
+the JAX package) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,10 @@ from .transport import QuadVelocity, apply_table
 #: The per-plane const names; with "strength" the 29 planes of step_consts.
 HO_PLANE_CONSTS = ("dt_m", "active", "b_u", "b_v", "inv_w", "u_ocean", "v_ocean")
 HO_CONSTS = ("strength",) + tuple(f"{name}_{k}" for name in HO_PLANE_CONSTS for k in PLANES)
+#: The 33 planes of the A-weighted form: the 29, then a_{k} of each plane.
+#: Also every const plane that a kernel takes, in the kernels' order
+#: (HoConsts of csrc/ho_body.cuh).
+HO_WEIGHTED_CONSTS = HO_CONSTS + tuple(f"a_{k}" for k in PLANES)
 
 MEVP_BACKENDS = ("auto", "pallas", "pallas-tiled")
 #: Element count from which ``backend="auto"`` runs ho_tiled instead of the
@@ -87,11 +96,12 @@ class HOField:
         })
 
     @classmethod
-    def from_vertex_field(cls, vertex) -> "HOField":
-        """Mid and centre planes interpolated from a vertex (CG1) field."""
-        vx = shift_p(vertex, 0, False)
-        vy = shift_p(vertex, 1, False)
-        vxy = shift_p(vx, 1, False)
+    def from_vertex_field(cls, vertex, periodic_x: bool = False, periodic_y: bool = False) -> "HOField":
+        """Mid and centre planes interpolated from a vertex (CG1) field; on
+        a periodic axis the node beyond the last is the first."""
+        vx = shift_p(vertex, 0, periodic_x)
+        vy = shift_p(vertex, 1, periodic_y)
+        vxy = shift_p(vx, 1, periodic_y)
         return cls(
             v=vertex, b=0.5 * (vertex + vx), l=0.5 * (vertex + vy),
             c=0.25 * (vertex + vx + vy + vxy),
@@ -128,40 +138,46 @@ class HODynamicsForcing:
     v_ocean: HOField
 
     @classmethod
-    def from_vertex_forcing(cls, forcing) -> "HODynamicsForcing":
-        """The CG2 forcing of a CG1 ``DynamicsForcing`` (vertex planes)."""
+    def from_vertex_forcing(
+        cls, forcing, periodic_x: bool = False, periodic_y: bool = False,
+    ) -> "HODynamicsForcing":
+        """The CG2 forcing of a CG1 ``DynamicsForcing`` (vertex planes) on a
+        mesh with these periodic axes."""
         return cls(**{
-            name: HOField.from_vertex_field(getattr(forcing, name))
+            name: HOField.from_vertex_field(getattr(forcing, name), periodic_x, periodic_y)
             for name in ("u_atm", "v_atm", "u_ocean", "v_ocean")
         })
 
 
-def gather_local(field: HOField):
-    """The 9 local node values of every element, (9, nx, ny), n = 3a + b."""
+def gather_local(field: HOField, periodic_x: bool = False, periodic_y: bool = False):
+    """The 9 local node values of every element, (9, nx, ny), n = 3a + b;
+    beyond the last node of a closed axis a zero, of a periodic one the
+    first."""
     planes = {"v": field.v, "b": field.b, "l": field.l, "c": field.c}
     out = []
     for n in range(9):
         plane, sx, sy = LOCAL_NODE_SOURCE[divmod(n, 3)]
         arr = planes[plane]
         if sx:
-            arr = shift_p(arr, 0, False)
+            arr = shift_p(arr, 0, periodic_x)
         if sy:
-            arr = shift_p(arr, 1, False)
+            arr = shift_p(arr, 1, periodic_y)
         out.append(arr)
     return torch.stack(out)
 
 
-def scatter_local(contribs) -> HOField:
+def scatter_local(contribs, periodic_x: bool = False, periodic_y: bool = False) -> HOField:
     """Accumulate (9, nx, ny) per-element local-node contributions onto the
-    owned planes, in ascending n (the adjoint of ``gather_local``)."""
+    owned planes, in ascending n (the adjoint of ``gather_local`` on the
+    same axes)."""
     planes = dict.fromkeys(PLANES)
     for n in range(9):
         plane, sx, sy = LOCAL_NODE_SOURCE[divmod(n, 3)]
         arr = contribs[n]
         if sx:
-            arr = shift_m(arr, 0, False)
+            arr = shift_m(arr, 0, periodic_x)
         if sy:
-            arr = shift_m(arr, 1, False)
+            arr = shift_m(arr, 1, periodic_y)
         planes[plane] = arr if planes[plane] is None else planes[plane] + arr
     return HOField(**planes)
 
@@ -169,24 +185,27 @@ def scatter_local(contribs) -> HOField:
 def ho_velocity_to_quad(mesh: RectMesh, basis, u: HOField, v: HOField) -> QuadVelocity:
     """Sample a CG2 velocity at the transport's quadrature points (exact):
     the 9-node interpolation at the volume points, the quadratic trace
-    through a face's 3 nodes on the faces (single-valued across elements)."""
-    u_loc, v_loc = gather_local(u), gather_local(v)
+    through a face's 3 nodes on the faces (single-valued across elements).
+    On a periodic axis the nodes beyond the last are the first."""
+    px, py = mesh.periodic_x, mesh.periodic_y
+    u_loc, v_loc = gather_local(u, px, py), gather_local(v, px, py)
     n_vol = cg2_sampling_table(basis.degree)
     vx_vol = apply_table(n_vol, u_loc)
     vy_vol = apply_table(n_vol, v_loc)
     # The quadratic trace weights of each face point, as Python floats.
     weights = [[float(_lagrange_1d(i, s)) for i in range(3)] for s in basis.s_edge]
     # Left face (x = 0): nodes v(i, j), l(i, j), v(i, j+1), quadratic in s.
-    u_v_up = shift_p(u.v, 1, False)
+    u_v_up = shift_p(u.v, 1, py)
     vn_x = torch.stack([w0 * u.v + w1 * u.l + w2 * u_v_up for w0, w1, w2 in weights])
     # Bottom face (y = 0): nodes v(i, j), b(i, j), v(i+1, j).
-    v_v_right = shift_p(v.v, 0, False)
+    v_v_right = shift_p(v.v, 0, px)
     vn_y = torch.stack([w0 * v.v + w1 * v.b + w2 * v_v_right for w0, w1, w2 in weights])
     return QuadVelocity(vx_vol=vx_vol, vy_vol=vy_vol, vn_x=vn_x, vn_y=vn_y)
 
 
 class MEVPSolverHO:
-    """The higher-order mEVP solver on a closed uniform ``RectMesh``.
+    """The higher-order mEVP solver on a uniform ``RectMesh``, each axis
+    closed or periodic, with or without ``a_weighted_stress``.
 
     ``backend`` picks the kernel on a CUDA card (CPU tensors always run the
     plain version): ``"pallas"`` ho_single (all N subcycles in one
@@ -200,18 +219,10 @@ class MEVPSolverHO:
             # As in the JAX package: no element-level alpha is designed for
             # the dG1 stress at Gauss points.
             raise NotImplementedError("adaptive_alpha is implemented for the CG1 solver only")
-        if params.a_weighted_stress:
-            raise NotImplementedError(
-                "a_weighted_stress is not ported for the HO solver yet (ROADMAP M7c item 3: the "
-                "a_{k} planes of ho_single and ho_tiled)"
-            )
-        if mesh.periodic_x or mesh.periodic_y:
-            raise NotImplementedError(
-                "the HO solver on a periodic mesh is not ported yet (ROADMAP M7c item 4)"
-            )
         if not mesh.uniform:
             raise NotImplementedError(
-                "the HO solver is ported for uniform meshes only (graded and spherical: not yet)"
+                "the HO solver is ported for uniform meshes only: graded and spherical meshes "
+                "(the metric const planes of ho_single and ho_tiled) are ROADMAP M9b"
             )
         if backend not in MEVP_BACKENDS:
             raise ValueError(f"backend must be one of {MEVP_BACKENDS}, got {backend!r}")
@@ -236,20 +247,28 @@ class MEVPSolverHO:
             if single and sms is not None:
                 from .kernels.ho_single_cuda import holds
 
-                single = holds(self.mesh.nx, self.mesh.ny, sms)
+                single = holds(self.mesh.nx, self.mesh.ny, sms, (self.mesh.periodic_x, self.mesh.periodic_y))
             backend = "pallas" if single else "pallas-tiled"
         return "single" if backend == "pallas" else "tiled"
 
-    # -- plane <-> local-node machinery (closed meshes: no solver state) ------
-    gather_local = staticmethod(gather_local)
-    scatter_local = staticmethod(scatter_local)
+    # -- plane <-> local-node machinery, on the mesh's axes ------------------
+    def gather_local(self, field: HOField):
+        return gather_local(field, self.mesh.periodic_x, self.mesh.periodic_y)
+
+    def scatter_local(self, contribs) -> HOField:
+        return scatter_local(contribs, self.mesh.periodic_x, self.mesh.periodic_y)
+
+    def const_names(self) -> tuple:
+        """The const planes of ``step_consts``, in the kernels' order:
+        ``HO_CONSTS``, or with ``a_weighted_stress`` ``HO_WEIGHTED_CONSTS``."""
+        return HO_WEIGHTED_CONSTS if self.params.a_weighted_stress else HO_CONSTS
 
     # -- strain: CG2 velocity -> dG1 coefficients ----------------------------
     def strain_rates(self, u: HOField, v: HOField):
         """(e11, e22, e12) as (3, nx, ny) dG1 coefficients."""
         t = self.tables
         dx, dy = self.mesh.dx, self.mesh.dy
-        u_loc, v_loc = gather_local(u), gather_local(v)
+        u_loc, v_loc = self.gather_local(u), self.gather_local(v)
         du_dx = apply_table(t.grad_x_to_dg1.T, u_loc) / dx
         du_dy = apply_table(t.grad_y_to_dg1.T, u_loc) / dy
         dv_dx = apply_table(t.grad_x_to_dg1.T, v_loc) / dx
@@ -264,32 +283,33 @@ class MEVPSolverHO:
         dx, dy = self.mesh.dx, self.mesh.dy
         fu_loc = -(apply_table(t.div_x, s11) * dy + apply_table(t.div_y, s12) * dx)
         fv_loc = -(apply_table(t.div_x, s12) * dy + apply_table(t.div_y, s22) * dx)
-        return scatter_local(fu_loc), scatter_local(fv_loc)
+        return self.scatter_local(fu_loc), self.scatter_local(fv_loc)
 
     def node_weights(self, *, device, dtype) -> HOField:
         """W_n = int phi_n dA accumulated per owned node."""
         area = torch.full((self.mesh.nx, self.mesh.ny), self.mesh.cell_area, device=device, dtype=dtype)
         lumped = self.tables.lumped_mass
-        return scatter_local(torch.stack([float(lumped[n]) * area for n in range(9)]))
+        return self.scatter_local(torch.stack([float(lumped[n]) * area for n in range(9)]))
 
     def node_thickness(self, h) -> HOField:
         """Lumped-mass-weighted thickness at the nodes: sum(h W) / sum(W)."""
         area = self.mesh.cell_area
         lumped = self.tables.lumped_mass
-        num = scatter_local(torch.stack([float(lumped[n]) * area * h for n in range(9)]))
+        num = self.scatter_local(torch.stack([float(lumped[n]) * area * h for n in range(9)]))
         den = self.node_weights(device=h.device, dtype=h.dtype)
         return HOField(v=num.v / den.v, b=num.b / den.b, l=num.l / den.l, c=num.c / den.c)
 
     def boundary_mask(self, *, device, dtype) -> HOField:
-        """Per-plane no-slip masks (1 interior, 0 wall): the vertex and left
-        mid nodes of row i = 0 and the vertex and bottom mid nodes of column
-        j = 0 sit on the walls."""
+        """Per-plane no-slip masks (1 interior, 0 wall): on a closed x axis
+        the vertex and left mid nodes of row i = 0, on a closed y axis the
+        vertex and bottom mid nodes of column j = 0 sit on the walls; a
+        periodic axis has none."""
         masks = {}
         for name in PLANES:
             mask = torch.ones((self.mesh.nx, self.mesh.ny), device=device, dtype=dtype)
-            if name in ("v", "l"):
+            if not self.mesh.periodic_x and name in ("v", "l"):
                 mask[0, :] = 0.0
-            if name in ("v", "b"):
+            if not self.mesh.periodic_y and name in ("v", "b"):
                 mask[:, 0] = 0.0
             masks[name] = mask
         return HOField(**masks)
@@ -299,20 +319,32 @@ class MEVPSolverHO:
         """The 29 per-step constant planes: element ice strength, and per CG2
         plane k dt/m, the active (mask * has-ice) factor, the constant
         velocity numerators b = u_n + (dt/m) tau_a, the reciprocal lumped
-        weights and the ocean currents."""
+        weights and the ocean currents. With ``a_weighted_stress`` also
+        a_{k}, the lumped nodal concentration clipped to [0, 1] (33
+        planes): it weights the wind here and the ocean drag in
+        ``velocity_update``, and nodes below ``a_dyn_min`` are held at
+        rest through the active factor."""
         p = self.params
         consts = {"strength": p.p_star * h * torch.exp(-p.c_compaction * (1.0 - a))}
         h_node = self.node_thickness(h)
         weights = self.node_weights(device=h.device, dtype=h.dtype)
+        a_node = self.node_thickness(a) if p.a_weighted_stress else None
         for k in PLANES:
             m = p.rho_ice * getattr(h_node, k)
             dm = _div(dt, torch.clamp(m, min=p.min_ice_mass))
             ua, va = getattr(forcing.u_atm, k), getattr(forcing.v_atm, k)
             wind = p.rho_atm * p.cd_atm * torch.sqrt(ua * ua + va * va)
+            active = getattr(mask, k) * (m > p.min_ice_mass).to(h.dtype)
+            dm_wind = dm
+            if a_node is not None:
+                ak = torch.clamp(getattr(a_node, k), 0.0, 1.0)
+                active = active * (ak >= p.a_dyn_min).to(h.dtype)
+                dm_wind = dm * ak
+                consts[f"a_{k}"] = ak
             consts[f"dt_m_{k}"] = dm
-            consts[f"active_{k}"] = getattr(mask, k) * (m > p.min_ice_mass).to(h.dtype)
-            consts[f"b_u_{k}"] = getattr(state.u, k) + dm * wind * ua
-            consts[f"b_v_{k}"] = getattr(state.v, k) + dm * wind * va
+            consts[f"active_{k}"] = active
+            consts[f"b_u_{k}"] = getattr(state.u, k) + dm_wind * wind * ua
+            consts[f"b_v_{k}"] = getattr(state.v, k) + dm_wind * wind * va
             consts[f"inv_w_{k}"] = 1.0 / getattr(weights, k)
             consts[f"u_ocean_{k}"] = getattr(forcing.u_ocean, k)
             consts[f"v_ocean_{k}"] = getattr(forcing.v_ocean, k)
@@ -360,8 +392,9 @@ class MEVPSolverHO:
     def velocity_update(self, carry, consts, dt: float):
         """Second half of a subcycle, per node plane: the divergence of the
         new stresses, then the beta-relaxed update with semi-implicit ocean
-        drag (one c_w and one shared reciprocal per plane). Returns the new
-        (u, v) HOFields."""
+        drag (one c_w and one shared reciprocal per plane; with the a_{k}
+        consts the drag weighted by the nodal concentration). Returns the
+        new (u, v) HOFields."""
         p = self.params
         u, v, s11, s22, s12 = carry
         fu_raw, fv_raw = self.stress_divergence(s11, s22, s12)
@@ -372,6 +405,8 @@ class MEVPSolverHO:
             rel_u = uo - uk
             rel_v = vo - vk
             c_w = p.rho_ocean * p.cd_ocean * torch.sqrt(rel_u * rel_u + rel_v * rel_v)
+            if f"a_{k}" in consts:  # A-weighted ocean stress: tau_w = A c_w (v_w - v)
+                c_w = c_w * consts[f"a_{k}"]
             cor_u = p.f_coriolis * (vk - vo) if p.use_coriolis else 0.0
             cor_v = -p.f_coriolis * (uk - uo) if p.use_coriolis else 0.0
             dm = consts[f"dt_m_{k}"]

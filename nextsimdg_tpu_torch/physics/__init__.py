@@ -7,9 +7,9 @@ registered: ``LinearFreezing``/``UnescoFreezing``,
 ``SMUIceAlbedo``/``SMU2IceAlbedo``/``CCSMIceAlbedo``,
 ``BasicIceOceanHeatFlux``, ``ThermoIce0``/``ThermoWinton``,
 ``HiblerConcentration`` and ``NextsimPhysics`` (``Nextsim::IPhysics1d``).
-``NextsimPhysics()`` takes its sub-modules and parameters as constructor
-arguments; its ``configure()``, which the engine calls, resolves them from
-the registry and reads the config keys. The JAX package computes the
+``NextsimPhysics()`` may take its sub-modules and parameters as constructor
+arguments; its ``configure()``, which the engine calls, or else its first
+use resolves the others from the registry and the config keys. The JAX package computes the
 physics in XLA, not in a Pallas kernel, so there is no CUDA kernel here.
 """
 

@@ -6,12 +6,15 @@ template method, ``calculate`` composes the flux and mass updates in the
 reference order with the per-element branches as masks.
 
 Registered as ``Nextsim::IPhysics1d`` -> ``Nextsim::NextsimPhysics``. The
-sub-modules and the seven parameters are constructor arguments whose
-defaults are the default chain and the reference values, which is what
-``CoupledModel`` and the tests use. ``configure()``, which the engine calls
-(``runtime.ModelStep.init``), resolves the five sub-modules from the
-process-wide registry, configures each, and reads the ``nextsim_thermo.*``
-config keys, as the JAX version's ``configure()`` does.
+five sub-modules and the seven parameters may be given to the constructor.
+Those not given are resolved as the JAX version resolves them: the
+sub-modules from the process-wide registry (each configured), the
+parameters from the ``nextsim_thermo.*`` config keys with the reference
+defaults, by ``configure()``, which the engine calls
+(``runtime.ModelStep.init``), or else on first use (the first ``calculate``,
+or the first read of a sub-module). So a ``CoupledModel``'s default physics
+runs the modules that the registry selects when it first steps. Until then
+the parameters read the reference values. Given ones always win.
 
 The only cross-step physics memory is ``new_ice``: the reference keeps
 ``m_newice`` per element and overwrites it only in the supercooling branch,
@@ -29,12 +32,10 @@ from ..config import Configured, try_configure
 from ..constants import Air, Ice, PhysicalConstants, Vapour, Water, kelvin
 from ..modules import ModuleRegistry, register_implementation
 from ..state import Forcing, PhysicsDiagnostics, PrognosticState, safe_div
-from .albedo import SMUIceAlbedo
-from .concentration import HiblerConcentration
-from .freezing import LinearFreezing
+# The sub-modules register themselves: the registry resolves them by name.
+from . import albedo, concentration, freezing, ice_ocean_heat_flux  # noqa: F401
+from . import thermo_ice0, thermo_winton  # noqa: F401
 from .humidity import dq_dt_ice, spec_hum_ice, spec_hum_water
-from .ice_ocean_heat_flux import BasicIceOceanHeatFlux
-from .thermo_ice0 import ThermoIce0
 
 INTERFACE = "Nextsim::IPhysics1d"
 
@@ -74,6 +75,27 @@ class DerivedData:
     hs_true: Any  #: true snow thickness of the prognostic state
 
 
+#: The sub-modules: attribute name -> interface, in the order the JAX
+#: version's ``configure()`` resolves them.
+_MODULES = {
+    "ice_ocean_heat_flux": "Nextsim::IIceOceanHeatFlux",
+    "ice_albedo": "Nextsim::IIceAlbedo",
+    "thermo": "Nextsim::IThermodynamics",
+    "concentration": "Nextsim::IConcentrationModel",
+    "freezing_point": "Nextsim::IFreezingPoint",  # bound by PrognosticData::configure
+}
+#: The parameters: attribute name -> (config key, reference value).
+_PARAMETERS = {
+    "drag_ocean_q": ("nextsim_thermo.drag_ocean_q", 1.5e-3),
+    "drag_ocean_t": ("nextsim_thermo.drag_ocean_t", 0.83e-3),
+    "drag_ice_t": ("nextsim_thermo.drag_ice_t", 1.3e-3),
+    "ocean_albedo": ("nextsim_thermo.albedoW", 0.07),
+    "i0": ("nextsim_thermo.I_0", 0.17),
+    "min_conc": ("nextsim_thermo.min_conc", 1e-12),
+    "min_thick": ("nextsim_thermo.min_thick", 0.01),
+}
+
+
 @register_implementation(INTERFACE, "Nextsim::NextsimPhysics")
 class NextsimPhysics(Configured):
     def __init__(
@@ -84,56 +106,65 @@ class NextsimPhysics(Configured):
         thermo=None,
         concentration=None,
         freezing_point=None,
-        drag_ocean_q: float = 1.5e-3,
-        drag_ocean_t: float = 0.83e-3,
-        drag_ice_t: float = 1.3e-3,
-        ocean_albedo: float = 0.07,
-        i0: float = 0.17,
-        min_conc: float = 1e-12,
-        min_thick: float = 0.01,
+        drag_ocean_q: float = None,
+        drag_ocean_t: float = None,
+        drag_ice_t: float = None,
+        ocean_albedo: float = None,
+        i0: float = None,
+        min_conc: float = None,
+        min_thick: float = None,
     ) -> None:
-        """Sub-modules default to the reference's default chain (None
-        builds it); the parameters are the ``nextsim_thermo.*`` keys
-        ``drag_ocean_q``, ``drag_ocean_t``, ``drag_ice_t``, ``albedoW``,
-        ``I_0``, ``min_conc`` and ``min_thick``."""
-        self.ice_ocean_heat_flux = ice_ocean_heat_flux or BasicIceOceanHeatFlux()
-        self.ice_albedo = ice_albedo or SMUIceAlbedo()
-        self.thermo = thermo or ThermoIce0()
-        self.concentration = concentration or HiblerConcentration()
-        self.freezing_point = freezing_point or LinearFreezing()
-        self.drag_ocean_q = drag_ocean_q
-        self.drag_ocean_t = drag_ocean_t
-        self.drag_ice_t = drag_ice_t
-        self.ocean_albedo = ocean_albedo
-        self.i0 = i0
-        self.min_conc = min_conc
-        self.min_thick = min_thick
+        """Sub-modules and parameters given here are kept; those left None
+        are resolved from the registry and the ``nextsim_thermo.*`` keys
+        (``drag_ocean_q``, ``drag_ocean_t``, ``drag_ice_t``, ``albedoW``,
+        ``I_0``, ``min_conc``, ``min_thick``) on first use. Until then a
+        parameter left None reads its reference value."""
+        given = dict(
+            ice_ocean_heat_flux=ice_ocean_heat_flux, ice_albedo=ice_albedo, thermo=thermo,
+            concentration=concentration, freezing_point=freezing_point,
+        )
+        self._modules = dict(given)
+        self._given_modules = {name for name, module in given.items() if module is not None}
+        values = dict(
+            drag_ocean_q=drag_ocean_q, drag_ocean_t=drag_ocean_t, drag_ice_t=drag_ice_t,
+            ocean_albedo=ocean_albedo, i0=i0, min_conc=min_conc, min_thick=min_thick,
+        )
+        self._given_parameters = {name for name, value in values.items() if value is not None}
+        for name, (_, default) in _PARAMETERS.items():
+            setattr(self, name, default if values[name] is None else values[name])
+        self._resolved = False
 
     # -- configuration (NextsimPhysics.cpp:60-83) ----------------------------
     def configure(self) -> None:
         """The registry's selected sub-modules, each configured, and the
-        ``nextsim_thermo.*`` keys with the reference defaults."""
+        ``nextsim_thermo.*`` keys with the reference defaults, for those not
+        given to the constructor."""
         loader = ModuleRegistry.get_loader()
-        self.ice_ocean_heat_flux = loader.get_implementation("Nextsim::IIceOceanHeatFlux")
-        try_configure(self.ice_ocean_heat_flux)
-        self.ice_albedo = loader.get_implementation("Nextsim::IIceAlbedo")
-        try_configure(self.ice_albedo)
-        self.thermo = loader.get_implementation("Nextsim::IThermodynamics")
-        try_configure(self.thermo)
-        self.concentration = loader.get_implementation("Nextsim::IConcentrationModel")
-        try_configure(self.concentration)
-        # Bound by PrognosticData::configure in the reference.
-        self.freezing_point = loader.get_implementation("Nextsim::IFreezingPoint")
-        try_configure(self.freezing_point)
+        for name, interface in _MODULES.items():
+            if name not in self._given_modules:
+                self._modules[name] = loader.get_implementation(interface)
+                try_configure(self._modules[name])
+        for name, (key, default) in _PARAMETERS.items():
+            if name not in self._given_parameters:
+                setattr(self, name, Configured.get_configuration(key, default))
+        self._resolved = True
 
-        get = Configured.get_configuration
-        self.drag_ocean_q = get("nextsim_thermo.drag_ocean_q", 1.5e-3)
-        self.drag_ocean_t = get("nextsim_thermo.drag_ocean_t", 0.83e-3)
-        self.drag_ice_t = get("nextsim_thermo.drag_ice_t", 1.3e-3)
-        self.ocean_albedo = get("nextsim_thermo.albedoW", 0.07)
-        self.i0 = get("nextsim_thermo.I_0", 0.17)
-        self.min_conc = get("nextsim_thermo.min_conc", 1e-12)
-        self.min_thick = get("nextsim_thermo.min_thick", 0.01)
+    def _resolve(self) -> None:
+        """``configure()`` on first use, where nobody called it (the JAX
+        version's ``_modules_resolved``)."""
+        if not self._resolved:
+            self.configure()
+
+    def _module(self, name: str):
+        if self._modules[name] is None:
+            self._resolve()
+        return self._modules[name]
+
+    ice_ocean_heat_flux = property(lambda self: self._module("ice_ocean_heat_flux"))
+    ice_albedo = property(lambda self: self._module("ice_albedo"))
+    thermo = property(lambda self: self._module("thermo"))
+    concentration = property(lambda self: self._module("concentration"))
+    freezing_point = property(lambda self: self._module("freezing_point"))
 
     # -- derived data (IPhysics1d.hpp:33-45) ---------------------------------
     def update_derived_data(self, prog: PrognosticState, forcing: Forcing) -> DerivedData:
@@ -162,6 +193,7 @@ class NextsimPhysics(Configured):
 
         Returns ``(updated_prognostic, diagnostics)``.
         """
+        self._resolve()
         tice0 = prog.tice[0]
         wind = forcing.wind
         rho_air = derived.rho_air

@@ -442,3 +442,50 @@ def test_every_schedule_runs_the_plain_version_on_the_cpu(mevp_backend):
     )
     assert all(count == 0 for count in cc.launches.values())
     assert_states_close(interop.coupled_state_to_numpy(got), interop.coupled_state_to_numpy(ref), 0.0)
+
+
+# -- the registry and the signature, as the JAX package has them -----------------
+def test_registry_selected_thermodynamics_reaches_the_default_physics():
+    """The model's default physics resolves its modules from the registry on
+    first use, as JAX's does: with ThermoWinton selected in both registries
+    (3 ice layers), two coupled steps at f64 match JAX's, and the port ran
+    ThermoWinton. Both registries are reset in ``finally``."""
+    from nextsimdg_tpu_torch import modules
+
+    winton = ("Nextsim::IThermodynamics", "Nextsim::ThermoWinton")
+    state_np, forcing_np, phys_np = thermo_state(4), seeded_forcing(5), seeded_physics_forcing(6)
+    rng = np.random.default_rng(8)
+    state_np["tice"] = np.sort(rng.uniform(-15.0, -2.0, (3, N, N)), axis=0)
+    ModuleRegistry.get_loader().set_implementation(*winton)
+    modules.get_loader().set_implementation(*winton)
+    try:
+        port = CoupledModel(RectMesh(N, N, 4e3, 4e3), degree=1, n_subcycles=N_SUBCYCLES)
+        jmodel = JaxCoupledModel(JaxRectMesh(nx=N, ny=N, dx=4e3, dy=4e3), degree=1, n_subcycles=N_SUBCYCLES)
+        got = interop.coupled_state_from_numpy(state_np, device="cpu", dtype=torch.float64)
+        forcing = interop.dynamics_forcing_from_numpy(forcing_np, device="cpu", dtype=torch.float64)
+        phys = interop.forcing_from_numpy(phys_np, device="cpu", dtype=torch.float64)
+        ref = to_jax_state(state_np)
+        jphys = JaxForcing(**{k: jnp.asarray(v, dtype=jnp.float64) for k, v in phys_np.items()})
+        for _ in range(2):
+            got = port.step(got, phys, forcing, DT)
+            ref = jmodel.step(ref, jphys, to_jax_forcing(forcing_np), dt=DT)
+    finally:
+        ModuleRegistry.get_loader().reset()
+        modules.get_loader().reset()
+    assert type(port.physics.thermo).__name__ == "ThermoWinton"
+    assert type(jmodel.physics._thermo).__name__ == "ThermoWinton"
+    got_np, ref_np = interop.coupled_state_to_numpy(got), interop.coupled_state_to_numpy(ref)
+    assert_states_close(got_np, ref_np)
+    assert not np.allclose(ref_np["tice"][1:], state_np["tice"][1:])  # the interior layers moved
+
+
+def test_coupled_model_takes_its_arguments_in_the_jax_order():
+    """The same parameters in the same order, so that a positional call
+    means the same in both packages (mevp_block_halo right after
+    mevp_backend)."""
+    import inspect
+
+    port = list(inspect.signature(CoupledModel.__init__).parameters)
+    ref = list(inspect.signature(JaxCoupledModel.__init__).parameters)
+    assert port == ref
+    assert port.index("mevp_block_halo") == port.index("mevp_backend") + 1

@@ -578,12 +578,18 @@ def test_spherical_dynamics_phase_matches_plain_and_counts_launches(device):
     assert counts["transport_tiled"] >= 1 and counts["mevp_stress"] == 0
 
 
-def ho_setup(device, nx=40, ny=72, seed=0):
-    """An HO solver and seeded carry and consts (some nodes without ice)."""
+def ho_setup(device, nx=40, ny=72, seed=0, periodic=(False, False), weighted=False):
+    """An HO solver and seeded carry and consts (some nodes without ice).
+    ``periodic``: the mesh's (x, y) axes; ``weighted``: the A-weighted form,
+    with the first quarter of the rows below 0.06 cover (some nodes below
+    a_dyn_min). The wind varies from cell to cell, along the seams too."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     shape = (nx, ny)
-    solver = mevp_ho.MEVPSolverHO(RectMesh(nx, ny, 4e3, 4e3))
+    solver = mevp_ho.MEVPSolverHO(
+        RectMesh(nx, ny, 4e3, 4e3, periodic_x=periodic[0], periodic_y=periodic[1]),
+        MEVPParams(a_weighted_stress=weighted),
+    )
     field = lambda s, m=0.0: mevp_ho.HOField(*(t(m + rng.normal(0.0, s, shape)) for _ in range(4)))
     state = mevp_ho.HOVelocityState(
         u=field(0.2), v=field(0.2), s11=t(rng.normal(0.0, 1e3, (3, *shape))),
@@ -592,6 +598,8 @@ def ho_setup(device, nx=40, ny=72, seed=0):
     forcing = mevp_ho.HODynamicsForcing(field(2.0, 8.0), field(2.0, 2.0), field(0.05), field(0.05))
     h = t(rng.uniform(0.0, 2.0, shape))
     a = t(rng.uniform(0.3, 1.0, shape))
+    if weighted:
+        a[: nx // 4] = t(rng.uniform(0.0, 0.06, (nx // 4, ny)))
     mask = solver.boundary_mask(device=device, dtype=torch.float32)
     consts = solver.step_consts(state, h, a, forcing, mask, DT)
     carry = (state.u, state.v, state.s11, state.s22, state.s12)
@@ -1158,10 +1166,11 @@ def test_periodic_mevp_kernels_match_plain_and_each_other(device, periodic, sphe
 @pytest.mark.parametrize("periodic, spherical", PERIODIC_MESHES)
 def test_periodic_sampling_and_stage_match_plain(device, periodic, spherical):
     """dg1_sample_cfl's periodic form gives the plain speeds; dg1_rk_stage's
-    (blended and not) the plain stage, and its no-limit instance (the
-    advection run, qv form) two plain unlimited steps, at 16-byte copies
-    (ny = 72) and 4-byte ones (ny = 70). The limited stage's qv form (the HO
-    path) raises on a periodic mesh (ROADMAP M7c item 4)."""
+    (blended and not) the plain stage, also in the HO path's qv form on a
+    uniform mesh, and its no-limit instance (the advection run, qv form) two
+    plain unlimited steps, at 16-byte copies (ny = 72) and 4-byte ones
+    (ny = 70). The qv form of the limited stage has no metric instance (the
+    HO solver runs on uniform meshes): the ring's launch is refused."""
     for ny in (72, 70):
         model, carry, _, psi, rng = setup(device, n=40, ny=ny, spherical=spherical,
                                           periodic=PERIODIC[periodic])
@@ -1174,8 +1183,13 @@ def test_periodic_sampling_and_stage_match_plain(device, periodic, spherical):
             args = (tr, psi, base, carry[0], carry[1], *faces, a, b, 300.0)
             assert_close(cc.dg1_rk_stage(*args), cc.dg1_rk_stage_reference(*args), TOL_LAUNCH)
         qv = quad_velocity(model, rng, device)
-        with pytest.raises(NotImplementedError, match="M7c item 4"):
-            cc.dg1_rk_stage(tr, psi, base, None, None, *faces, 0.0, 1.0, 300.0, qv=qv)
+        for a, b in ((0.0, 1.0), (0.75, 0.25)):
+            args = (tr, psi, base, None, None, *faces, a, b, 300.0)
+            if spherical:
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    cc.dg1_rk_stage(*args, qv=qv)
+                continue
+            assert_close(cc.dg1_rk_stage(*args, qv=qv), cc.dg1_rk_stage_reference(*args, qv=qv), TOL_LAUNCH)
         one = psi[:, :1].contiguous()
         assert_close(cc.transport_run(tr, one, qv, 100.0, 2), cc.transport_run_reference(tr, one, qv, 100.0, 2),
                      TOL_LAUNCH)
@@ -1302,3 +1316,131 @@ def test_ho_tvb_dynamics_phase_matches_plain(device, transport):
     _, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 20)
     assert_close(got_tr, ref_tr, 1e-5)
     assert (counts["dg1_limit"] > 0) == (transport == "xla")
+
+
+# -- the HO solver's A-weighted and periodic forms ------------------------------------
+#: (periodic axes, A-weighted) of each new HO form.
+HO_FORMS = {
+    "weighted": ((False, False), True), "x": ((True, False), False), "y": ((False, True), False),
+    "xy": ((True, True), False), "weighted-xy": ((True, True), True),
+}
+
+
+@pytest.mark.parametrize("n_sub", [1, 13])
+@pytest.mark.parametrize("form", list(HO_FORMS))
+def test_ho_forms_match_plain_and_each_other(device, form, n_sub):
+    """Each A-weighted and periodic form of ho_single (its own tiles and a
+    forced tile that divides the axes) and ho_tiled (the shipped window,
+    2 x 2 clusters and windows wider than a periodic axis's tiles) against
+    the plain subcycles, one launch at 1e-5 and 13 subcycles at 1e-3, and
+    against each other (the same bodies: expected 0)."""
+    periodic, weighted = HO_FORMS[form]
+    solver, carry, consts = ho_setup(device, periodic=periodic, weighted=weighted)
+    assert cc.kernel_form(solver) == cc.FORM_WEIGHTED * weighted | cc.wrap_bits(solver.mesh) << 2
+    assert sorted(consts) == sorted(solver.const_names()) and len(consts) == (33 if weighted else 29)
+    ref = hs.ho_single_reference(solver, carry, consts, DT, n_sub)
+    cc.reset_launches()
+    single = hs.ho_subcycles_single(solver, carry, consts, DT, n_sub)
+    forced = hs.ho_subcycles_single(solver, carry, consts, DT, n_sub, tile=(10, 8))
+    configs = (ht.SHIPPED, ht.CLUSTER_2X2, ht.LaunchConfig(2, 2, 16, 4, 256))
+    tiled = [ht.ho_subcycles_tiled(solver, carry, consts, DT, n_sub, config) for config in configs]
+    assert cc.launches["ho_single"] == 2
+    assert cc.launches["ho_tiled"] == sum(-(-n_sub // c.halo) for c in configs)
+    for planes in zip(ho_planes(ref), ho_planes(single), ho_planes(forced), *map(ho_planes, tiled)):
+        r, g, rest = planes[0], planes[1], planes[2:]
+        assert_close(g, r, TOL_LAUNCH if n_sub == 1 else 1e-3)
+        for w in rest:
+            assert_same_schedule(w, g)
+    again = ho_setup(device, periodic=periodic, weighted=weighted)[1]
+    assert all(torch.equal(x, y) for x, y in zip(ho_planes(carry), ho_planes(again)))
+
+
+def test_ho_forms_take_their_const_planes_and_tiles(device):
+    """The A-weighted form keeps its 33 const planes in shared memory where
+    they fit (40 x 72) and not at 600^2; a periodic axis takes only tiles
+    that divide it; the kernels refuse the unweighted consts for the
+    weighted form."""
+    solver, carry, consts = ho_setup(device, weighted=True)
+    config = hs.tiling(40, 72, hs.sm_count(device), weighted=True)
+    assert config.consts_shared and config.n_consts == 33
+    assert config.n_tiles <= hs.max_blocks(device, config, cc.kernel_form(solver))
+    assert not hs.tiling(600, 600, hs.sm_count(device), weighted=True).consts_shared
+    ring = hs.tiling(40, 72, hs.sm_count(device), periodic=(True, True))
+    assert 40 % ring.tile[0] == 0 and 72 % ring.tile[1] == 0
+    with pytest.raises(ValueError, match="periodic"):
+        hs.tiling(40, 72, hs.sm_count(device), (12, 8), (True, False))
+    unweighted = {name: consts[name] for name in mevp_ho.HO_CONSTS}
+    with pytest.raises(NotImplementedError, match="consts"):
+        ht.ho_subcycles_tiled(solver, carry, unweighted, DT, 3)
+    assert ht.max_clusters(device, ht.SHIPPED, cc.kernel_form(solver)) >= 1
+
+
+def ho_forms_model(device, periodic, weighted, tvb_m=None, nx=40, ny=72):
+    """A coupled HO model of the form, with seeded HO carry, tracers and
+    step consts."""
+    modules.get_loader().set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        model = CoupledModel(
+            RectMesh(nx, ny, 4e3, 4e3, periodic_x=periodic[0], periodic_y=periodic[1]), n_subcycles=20,
+            mevp_backend="pallas-tiled", tvb_m=tvb_m, mevp_params=MEVPParams(a_weighted_stress=weighted),
+        )
+    finally:
+        modules.get_loader().reset()
+    _, carry, _ = ho_setup(device, nx, ny, periodic=periodic, weighted=weighted)
+    psi = setup(device, n=nx, ny=ny)[3]
+    consts = model.mevp.step_consts(
+        mevp_ho.HOVelocityState(*carry), psi[0, 0], psi[0, 1].clamp(0.0, 1.0),
+        mevp_ho.HODynamicsForcing(*(carry[0],) * 4), model.node_mask(device=device, dtype=torch.float32), DT,
+    )
+    return model, carry, psi, consts
+
+
+@pytest.mark.parametrize("degree, tvb", [(0, False), (1, False), (2, False), (1, True), (2, True)])
+@pytest.mark.parametrize("periodic", ["x", "y", "xy"])
+def test_periodic_qv_stage_and_transport_match_plain(device, periodic, degree, tvb):
+    """The HO path's qv form on a periodic mesh: dg1_rk_stage's limited stage
+    (and with TVB its unlimited stage and dg1_limit) launch by launch
+    against the plain ones, and k = 4 substeps on the staged schedule and
+    on transport_tiled's qv form (untouched or TVB) equal to each other and
+    to the plain substeps."""
+    model, _, _, psi, rng = setup(device, n=40, ny=72, degree=degree, periodic=PERIODIC[periodic],
+                                  tvb_m=0.0 if tvb else None)
+    tr = model.transport
+    qv = quad_velocity(model, rng, device, scale=1.5)
+    faces = tuple(torch.tensor((rng.uniform(size=(40, 72)) > 0.1).astype(np.float32), device=device)
+                  for _ in range(2))
+    args = (tr, psi, psi.flip(-1).contiguous(), None, None, *faces, 0.5, 0.5, 300.0)
+    cc.reset_launches()
+    stage = cc.dg1_rk_stage(*args, qv=qv, tvb=tvb)
+    assert_close(stage, cc.dg1_rk_stage_reference(*args, qv=qv, tvb=tvb), TOL_LAUNCH)
+    if tvb:
+        assert_close(cc.dg1_limit(tr, stage), cc.dg1_limit_reference(tr, stage), TOL_LAUNCH)
+    k = 4
+    sub = (tr, psi, None, None, DT / k, k, faces)
+    cc.reset_launches()
+    staged = cc.transport_substeps(*sub, qv=qv)
+    assert cc.launches["dg1_rk_stage"] == k * len(cc._RK_STAGES[tr.scheme])
+    tiled = tt.transport_substeps_tiled(*sub, qv=qv)
+    assert cc.launches["transport_tiled"] >= 1
+    assert_same_schedule(tiled, staged)
+    assert_close(staged, cc.transport_substeps_reference(*sub, qv=qv), 1e-5)
+
+
+@pytest.mark.parametrize("mevp, transport", [("tiled", "tiled"), ("single", "xla"), ("tiled", "xla")])
+@pytest.mark.parametrize("form, tvb_m", [("xy", None), ("xy", 0.0), ("x", None), ("weighted", None),
+                                         ("weighted-xy", 0.0)])
+def test_ho_forms_dynamics_phase_matches_plain(device, form, tvb_m, mevp, transport):
+    """The HO dynamics phase of each form on each schedule against the plain
+    phase: 20 subcycles at 1e-3, the tracers at 1e-5, with its launches."""
+    periodic, weighted = HO_FORMS[form]
+    model, carry, psi, consts = ho_forms_model(device, periodic, weighted, tvb_m)
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 20, mevp=mevp, transport=transport)
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 20)
+    for g, r in zip(ho_planes(got_carry), ho_planes(ref_carry)):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert counts["ho_single" if mevp == "single" else "ho_tiled"] >= 1
+    assert (counts["transport_tiled"] > 0) == (transport == "tiled")
+    assert (counts["dg1_limit"] > 0) == (transport == "xla" and tvb_m is not None)
