@@ -105,6 +105,16 @@ CFL-adaptive transport substeps:
   qv stage; with tvb_m = 0 its TVB stage and dg1_limit), and the A-weighted
   HO step (``MEVPParams(a_weighted_stress=True)``) at 1024^2 on ho_tiled and
   at 256^2 on ho_single;
+* the HO solver on graded and spherical meshes (phase ``check_ho_metric``):
+  the HO spherical coastline step at 1024^2 (``bench_coupled_1m(
+  land_mask=True, spherical=True, high_order=True)``'s model, "auto":
+  ho_tiled's metric form and transport_tiled's metric qv form), also
+  A-weighted; the same window at 256^2 (ho_single's metric form, with
+  transport_tiled and with the staged dg1_rk_stage); the 1024^2 ring with
+  the coastline (ho_tiled's metric form wrapped in x, with transport_tiled's
+  periodic metric qv form, with the staged periodic metric qv stage, and
+  with M = 0 its TVB stage and dg1_limit); and a graded 256^2 RectMesh
+  on ho_single and on ho_tiled;
 * the engine (``nextsimdg_tpu_torch.runtime``, ``python -m
   nextsimdg_tpu_torch``), which runs no kernel: BASELINE config 1
   (``run/dev1.cfg``: the 10 x 10 devgrid restart, 1 step of 1 s, dummy
@@ -201,7 +211,18 @@ Phases, each printed on its own lines:
    transport_tiled's periodic qv form and its TVB form at 1024^2 (k = 1
    and 4) against the plain version and the staged schedule (expected 0);
    and the forms' paths one step against the plain path and 20 steps
-   bounded, every kernel of the path launched;
+   bounded, every kernel of the path launched; then (phase
+   ``check_ho_metric``) ho_single at 256^2 (the spherical window
+   unweighted and A-weighted, the graded mesh, the ring) and ho_tiled at
+   1024^2 (the window both ways, the ring) in their metric forms, one
+   subcycle against the plain version (TOL_LAUNCH), 13 and 100 against it
+   (TOL_STEP_MEVP), ho_single against ho_tiled and 2 x 2 clusters against
+   the shipped window (expected 0); on the 1024^2 ring transport_tiled's
+   periodic metric qv form (k = 1 and 4) against the plain version and the
+   staged schedule (expected 0), dg1_rk_stage's periodic metric qv stage
+   and its TVB stage with dg1_limit; and the metric paths one step against
+   the plain path and 20 steps bounded, land untouched, every kernel of the
+   path launched;
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -233,7 +254,9 @@ Phases, each printed on its own lines:
    each HO form in turns with its closed instance, and
    ``ho_coupled_1m_periodic`` and the A-weighted HO step beside
    ``ho_coupled_1m``, the periodic HO 256^2 staged step beside the closed
-   one, with a profile of ``ho_coupled_1m_periodic``;
+   one, with a profile of ``ho_coupled_1m_periodic``; each metric form in
+   turns with its closed instance, and the HO spherical coastline step and
+   the HO ring beside ``ho_coupled_1m``, with a profile of each;
    last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
@@ -1312,13 +1335,20 @@ def check_land(tag: str, model, out, first) -> None:
     for name in ("hice", "cice", "hsnow"):
         if not torch.equal(getattr(out, name)[kept][:, land], getattr(first, name)[kept][:, land]):
             raise AssertionError(f"{tag}: {name} changed on land")
-    pinned = model.node_mask(device=device, dtype=out.hice.dtype) == 0.0
-    for name in ("u", "v"):
-        if not bool((getattr(out.velocity, name)[pinned] == 0.0).all()):
-            raise AssertionError(f"{tag}: {name} is not zero on a node that touches land")
+    mask = model.node_mask(device=device, dtype=out.hice.dtype)
+    # The HO velocity: the nodes of each CG2 plane against that plane's mask.
+    planes = mevp_ho.PLANES if model.is_high_order else (None,)
+    at = lambda x, k: x if k is None else getattr(x, k)
+    n_pinned = 0
+    for k in planes:
+        pinned = at(mask, k) == 0.0
+        n_pinned += int(pinned.sum())
+        for name in ("u", "v"):
+            if not bool((at(getattr(out.velocity, name), k)[pinned] == 0.0).all()):
+                raise AssertionError(f"{tag}: {name} is not zero on a node that touches land")
     log("slice", (
         f"{tag}: land tracers unchanged on {int(land.sum())} elements, u = v = 0 on "
-        f"{int(pinned.sum())} pinned nodes"
+        f"{n_pinned} pinned nodes"
     ))
 
 
@@ -1467,17 +1497,20 @@ def stage_work(degree: int, n: int, qv: bool, metric: bool, blend: bool, limit: 
     return planes * 4 * n, ops * n
 
 
-def tiled_work(degree: int, n: int, k: int, stages: tuple, qv: bool, tracers: int = 3) -> tuple:
+def tiled_work(
+    degree: int, n: int, k: int, stages: tuple, qv: bool, tracers: int = 3, metric: bool = False,
+) -> tuple:
     """(bytes, float32 operations) of k substeps of transport_tiled on n
     elements with the RK ``stages`` ((a, b) each; a = 0: not blended): the
     tracers, the velocity and the 2 face masks read once and the tracers
     written once; per element, substep, stage and tracer its stage and the
-    2E face points it owns (a trace, the normal flux, the mask); in the CG1
-    form the velocity sampled once a launch (2Q bilinear, 2E along a face),
-    as the plain version samples it."""
+    2E face points it owns (a trace, the normal flux, the mask; on a
+    ``metric`` mesh the length, and its 5 metric planes read once); in the
+    CG1 form the velocity sampled once a launch (2Q bilinear, 2E along a
+    face), as the plain version samples it."""
     kk, q, e = dg_sizes(degree)
-    planes = 2 * kk * tracers + (2 * q + 2 * e if qv else 2) + 2
-    faces = 2 * e * (2 * kk + 1)
+    planes = 2 * kk * tracers + (2 * q + 2 * e if qv else 2) + 2 + (5 if metric else 0)
+    faces = 2 * e * (2 * kk + 1 + (1 if metric else 0))
     cells = sum(stage_cell_ops(degree, a != 0.0, True) + faces for a, _ in stages)
     ops = k * tracers * cells + (0 if qv else 2 * q * 7 + 2 * e * 3)
     return planes * 4 * n, ops * n
@@ -3432,10 +3465,17 @@ def ho_form_inputs(n, device, seed, periodic, weighted, **kwargs):
     with partial cover (A in [0.3, 1) and below 0.06 on the first quarter of
     the rows: some nodes below a_dyn_min) and a wind that varies from cell
     to cell, along the seams too (a periodic axis's wrap carries signal)."""
+    return ho_seeded_inputs(ho_form_model(device, n, periodic, weighted, **kwargs), device, seed)
+
+
+def ho_seeded_inputs(model, device, seed):
+    """``ho_form_inputs``'s seeded carry, consts, tracers and random face
+    masks on the n^2 mesh of an HO ``model``: (model, carry, consts, psi,
+    faces)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    n = model.mesh.nx
     shape = (n, n)
-    model = ho_form_model(device, n, periodic, weighted, **kwargs)
     field = lambda s, m=0.0: mevp_ho.HOField(*(t(m + rng.normal(0.0, s, shape)) for _ in range(4)))
     state = mevp_ho.HOVelocityState(
         u=field(0.2), v=field(0.2), s11=t(rng.normal(0.0, 1e3, (3, *shape))),
@@ -3677,6 +3717,277 @@ def time_ho_forms(device, card: str) -> None:
             lambda: model.step(state, phys, dyn, DT))
 
 
+# -- the HO solver on graded and spherical meshes (phase check_ho_metric) ----------
+#: The paths of phase check_ho_metric, config 4's state and forcing with the HO
+#: solver on a metric mesh: (a) the HO spherical coastline step (the lon-lat
+#: window of coupled_1m_spherical at 1024^2 with synthetic_coastline, "auto":
+#: ho_tiled's metric form and the closed metric qv transport_tiled), also
+#: A-weighted; (b) the same window at 256^2 ("auto": ho_single's metric form
+#: and transport_tiled; transport_backend "xla": dg1_rk_stage's metric qv
+#: stage); (c) the 1024^2 ring (lon 0-360, lat 60-85, periodic in x) with the
+#: coastline ("auto": ho_tiled's metric form wrapped in x and transport_tiled's
+#: periodic metric qv form; "xla": dg1_rk_stage's periodic metric qv stage;
+#: tvb_m = 0: its TVB stage and dg1_limit with the tolerance planes); (d) a
+#: graded 256^2 RectMesh (dx graded along x, dy along y) on ho_single and
+#: ho_tiled: (path, mesh kind, n, A-weighted, tvb_m, backends, the schedule).
+HO_METRIC_PATHS = [
+    ("ho_coupled_1m_spherical", "spherical", N4, False, None, {}, ("tiled", "tiled")),
+    ("ho_coupled_1m_spherical_aweighted", "spherical", N4, True, None, {}, ("tiled", "tiled")),
+    ("ho_spherical_256", "spherical", N, False, None, {}, ("single", "tiled")),
+    ("ho_spherical_256_staged", "spherical", N, False, None, {"transport_backend": "xla"}, ("single", "xla")),
+    ("ho_ring_1m", "ring", N4, False, None, {}, ("tiled", "tiled")),
+    ("ho_ring_1m_staged", "ring", N4, False, None, {"transport_backend": "xla"}, ("tiled", "xla")),
+    ("ho_ring_1m_tvb", "ring", N4, False, 0.0, {}, ("tiled", "xla")),
+    ("ho_graded_256_single", "graded", N, False, None, {"mevp_backend": "pallas"}, ("single", "tiled")),
+    ("ho_graded_256_tiled", "graded", N, False, None, {"mevp_backend": "pallas-tiled"}, ("tiled", "tiled")),
+]
+_HO_SCHEDULE_KERNELS[("tiled", "xla")] = ("ho_tiled", "dg1_rk_stage")
+PATH_KERNELS.update({
+    path: _HO_SCHEDULE_KERNELS[schedule] + (("dg1_limit",) if tvb is not None else ())
+    for path, _, _, _, tvb, _, schedule in HO_METRIC_PATHS
+})
+FORM_ROWS.update({
+    "ho_single metric": ("ho_single", "nextsimdg_tpu_torch/csrc/ho_single_metric.cu",
+                         [p for p, *_, schedule in HO_METRIC_PATHS if schedule[0] == "single"]),
+    "ho_tiled metric": ("ho_tiled", "nextsimdg_tpu_torch/csrc/ho_tiled_metric.cu",
+                        [p for p, *_, schedule in HO_METRIC_PATHS if schedule[0] == "tiled"]),
+    "dg1_rk_stage periodic metric qv": (
+        "dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_periodic_qv_metric.cu", ["ho_ring_1m_staged"]),
+    "dg1_rk_stage periodic metric qv tvb": (
+        "dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_periodic_qv_metric.cu", ["ho_ring_1m_tvb"]),
+    "transport_tiled periodic metric qv": (
+        "transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_qv_metric.cu", ["ho_ring_1m"]),
+})
+
+
+def ho_metric_mesh(kind: str, n: int):
+    """The n^2 metric mesh of a kind: the lon-lat window of
+    coupled_1m_spherical, the 360 degree ring, or a graded RectMesh (dx from
+    4 to 6 km along x, dy from 6 to 4 km along y)."""
+    if kind == "spherical":
+        return spherical_mesh(n)
+    if kind == "ring":
+        return ring_mesh(n)
+    x = np.arange(n) / n
+    return RectMesh(n, n, dx=4e3 * (1.0 + 0.5 * x), dy=4e3 * (1.5 - 0.5 * x))
+
+
+def ho_metric_model(device, kind: str, n: int, weighted: bool = False, **backends):
+    """Config 4's model, state and forcing with the HO solver (selected
+    through the registry, reset after the build) on the metric mesh of a
+    kind, with synthetic_coastline(n) on the lon-lat ones: (model, state,
+    phys, dyn)."""
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        ocean = None if kind == "graded" else synthetic_coastline(n)
+        return coupled_model(device, ho_metric_mesh(kind, n), ocean,
+                             mevp_params=MEVPParams(a_weighted_stress=weighted), **backends)
+    finally:
+        loader.reset()
+
+
+def check_ho_metric_launches(device) -> dict:
+    """Each metric form launch by launch against its plain version at its
+    path's shape, and the schedules against each other: ho_single at 256^2
+    on the spherical window (unweighted and A-weighted), the graded mesh and
+    the ring, 1 subcycle at TOL_LAUNCH and 100 at TOL_STEP_MEVP, then
+    against ho_tiled over 100 (expected 0); ho_tiled at 1024^2 on the window
+    (both forms) and the ring, 1, 13 and 100 subcycles, and its 2 x 2
+    clusters against the shipped window (expected 0); then the ring's qv
+    forms (``_ho_metric_qv_launches``). Registers each form's timed row.
+    Returns the largest error per kernel."""
+    errs = dict.fromkeys(("ho_single", "ho_tiled", "dg1_rk_stage", "dg1_limit", "transport_tiled"), 0.0)
+    sms = hsc.sm_count(device)
+
+    def against_plain(kernel, run, tag, solver, carry, consts, n_sub):
+        got = run(solver, carry, consts, DT, n_sub)
+        ref = mevp_ho.ho_subcycles_reference(solver, carry, consts, DT, n_sub)
+        tol = TOL_LAUNCH if n_sub == 1 else TOL_STEP_MEVP
+        for (name, g), (_, r) in zip(ho_planes(got), ho_planes(ref)):
+            errs[kernel] = max(errs[kernel], compare(f"{tag} N={n_sub} {name}", g, r, tol))
+        return got
+
+    def inputs(kind, n, weighted=False):
+        return ho_seeded_inputs(ho_metric_model(device, kind, n, weighted)[0], device, SEED + 60)
+
+    for n in (N, 2 * N):
+        for weighted in (False, True):
+            config = hsc.tiling(n, n, sms, weighted=weighted, metric=True)
+            log("build", (
+                f"ho_single metric form at {n}x{n}{' A-weighted' if weighted else ''}: {config.tiles[0]}x"
+                f"{config.tiles[1]} tiles of {config.tile}, {config.threads} threads, {config.n_consts} const "
+                f"planes {'in shared memory' if config.consts_shared else 'from global memory'}, "
+                f"{config.shared_bytes()} B shared"
+            ))
+    timed = {}
+    for kernel, n, run, cases, n_subs in (
+        ("ho_single", N, hsc.ho_subcycles_single,
+         (("spherical", False), ("spherical", True), ("graded", False), ("ring", False)), (1, N_SUBCYCLES)),
+        ("ho_tiled", N4, htc.ho_subcycles_tiled,
+         (("spherical", False), ("spherical", True), ("ring", False)), (1, 13, N_SUBCYCLES)),
+    ):
+        for kind, weighted in cases:
+            model, carry, consts, _, _ = inputs(kind, n, weighted)
+            solver = model.mevp
+            tag = f"{kernel} {n}x{n} {kind}{' A-weighted' if weighted else ''}"
+            if weighted:
+                ho_form_coverage(tag, solver, consts)
+            for n_sub in n_subs:
+                got = against_plain(kernel, run, tag, solver, carry, consts, n_sub)
+            if kernel == "ho_single":
+                tiled = htc.ho_subcycles_tiled(solver, carry, consts, DT, N_SUBCYCLES)
+                for (name, g), (_, w) in zip(ho_planes(got), ho_planes(tiled)):
+                    same_schedule(f"{tag} N={N_SUBCYCLES} {name}", g, w, "ho_tiled")
+            else:
+                shipped = htc.ho_subcycles_tiled(solver, carry, consts, DT, 13)
+                clusters = htc.ho_subcycles_tiled(solver, carry, consts, DT, 13, htc.CLUSTER_2X2)
+                for (name, g), (_, w) in zip(ho_planes(clusters), ho_planes(shipped)):
+                    same_schedule(f"{tag} {htc.CLUSTER_2X2} N=13 {name}", g, w, f"ho_tiled {htc.SHIPPED}")
+            if (kind, weighted) == ("spherical", False):
+                timed[kernel] = (n, run, solver, carry, consts)
+    # The timed rows: the form on the spherical window in turns with the
+    # closed uniform instance on the same carry (its 29 consts).
+    for kernel, (n, run, solver, carry, consts) in timed.items():
+        closed = ho_form_model(device, n, False, False).mevp
+        closed_consts = {name: consts[name] for name in mevp_ho.HO_CONSTS}
+        n_sub = N_SUBCYCLES if kernel == "ho_single" else htc.HALO
+        work = ((HO_PLANES_MOVED + 4) * 4 * n * n, n_sub * (OPS["ho_stress"] + OPS["ho_velocity"]) * n * n)
+        timed_form(
+            f"{kernel} metric", errs[kernel],
+            lambda run=run, s=solver, c=carry, k=consts, m=n_sub: run(s, c, k, DT, m),
+            lambda run=run, s=closed, c=carry, k=closed_consts, m=n_sub: run(s, c, k, DT, m),
+            lambda s=solver, c=carry, k=consts, m=n_sub: mevp_ho.ho_subcycles_reference(s, c, k, DT, m),
+            work,
+        )
+    _ho_metric_qv_launches(device, errs)
+    for label in FORM_ROWS:
+        if label in TVB_FORMS and "metric" in label:
+            TVB_FORMS[label] = replace(TVB_FORMS[label], err=errs[label.split()[0]])
+    torch.cuda.synchronize()
+    return errs
+
+
+def _ho_metric_qv_launches(device, errs) -> None:
+    """On the 1024^2 ring with the coastline, dG1, the CG2 samples of a
+    seeded velocity: transport_tiled's periodic metric qv form (rk2, k = 1
+    and 4) against the plain version and the staged schedule (expected 0);
+    dg1_rk_stage's periodic metric qv stage (blended and first) and, with a
+    middle M, its TVB stage and dg1_limit with the tolerance planes; the
+    timed rows in turns with the closed metric qv instances (the window)."""
+    n = N4 * N4
+    model, carry, _, psi, _ = ho_seeded_inputs(ho_metric_model(device, "ring", N4)[0], device, SEED + 61)
+    window = ho_metric_model(device, "spherical", N4)[0]
+    faces = model.face_masks(device=device, dtype=torch.float32)
+    tr = model.transport
+    for k in (1, 4):
+        qv = mevp_ho.ho_velocity_to_quad(model.mesh, tr.basis, *(
+            mevp_ho.HOField(*(k * x for x in f.planes())) for f in carry[:2]))
+        args = (tr, psi, None, None, DT / k, k, faces)
+        got = tt.transport_substeps_tiled(*args, qv=qv)
+        name = f"transport_tiled {N4}x{N4} ring metric qv k={k}"
+        errs["transport_tiled"] = max(errs["transport_tiled"], compare(
+            name, got, tt.transport_substeps_tiled_reference(*args, qv=qv), TOL_STEP_TRACER))
+        same_schedule(name, got, cc.transport_substeps(*args, qv=qv), "the staged qv transport")
+    qv = mevp_ho.ho_velocity_to_quad(model.mesh, tr.basis, *carry[:2])
+    stages = cc._RK_STAGES[tr.scheme]
+    timed_form("transport_tiled periodic metric qv", errs["transport_tiled"],
+               lambda: tt.transport_substeps_tiled(tr, psi, None, None, 60.0, 1, faces, qv=qv),
+               lambda: tt.transport_substeps_tiled(window.transport, psi, None, None, 60.0, 1, faces, qv=qv),
+               lambda: tt.transport_substeps_tiled_reference(tr, psi, None, None, 60.0, 1, faces, qv=qv),
+               tiled_work(1, n, 1, stages, True, metric=True))
+
+    tvb = ho_metric_model(device, "ring", N4, tvb_m=0.0)[0].transport
+    tvb.tvb_m = middle_m(psi[:, 0], model.mesh)
+    fast = mevp_ho.ho_velocity_to_quad(model.mesh, tr.basis, *(
+        mevp_ho.HOField(*(5.0 * x for x in f.planes())) for f in carry[:2]))
+    base = psi.flip(-1).contiguous()
+    for a, b in ((0.0, 1.0), (0.5, 0.5)):
+        args = (tr, psi, base, None, None, *faces, a, b, 300.0)
+        errs["dg1_rk_stage"] = max(errs["dg1_rk_stage"], compare(
+            f"dg1_rk_stage {N4}x{N4} ring metric qv a={a}", cc.dg1_rk_stage(*args, qv=fast),
+            cc.dg1_rk_stage_reference(*args, qv=fast), TOL_LAUNCH))
+    args = (tvb, psi, base, None, None, *faces, 0.5, 0.5, 300.0)
+    unlimited = cc.dg1_rk_stage(*args, qv=fast, tvb=True)
+    errs["dg1_rk_stage"] = max(errs["dg1_rk_stage"], compare(
+        f"dg1_rk_stage {N4}x{N4} ring metric qv TVB stage", unlimited,
+        cc.dg1_rk_stage_reference(*args, qv=fast, tvb=True), TOL_LAUNCH))
+    limited = cc.dg1_limit(tvb, unlimited)
+    errs["dg1_limit"] = compare(f"dg1_limit {N4}x{N4} ring (metric qv stage)", limited,
+                                cc.dg1_limit_reference(tvb, unlimited), TOL_LAUNCH)
+    share = float((limited[1:3] != unlimited[1:3]).any(dim=0).float().mean())
+    log("check", f"dg1_limit {N4}x{N4} ring metric qv: M = {tvb.tvb_m:.4e} cuts {share:.4f} of the element tracers")
+    tables, metric, stream = cc._dg1_tables(tr), cc._dg1_metric(tr, device), cc._stream(device)
+    qv_ptrs = cc._dg1_qv(fast, (N4, N4), device, tr.basis.degree)
+    out = torch.empty_like(psi)
+
+    def stage(tvb_form, w):
+        return lambda: cc._dg1_rk_stage_(psi, base, None, None, *faces, metric, out, 0.5, 0.5, 300.0, tables,
+                                         stream, qv=qv_ptrs, tvb=tvb_form, wrap=w)
+
+    work = stage_work(1, n, True, True, True)
+    limit_ops = stage_cell_ops(1, True, True) - stage_cell_ops(1, True, False)
+    wrap = cc.wrap_bits(model.mesh)
+    timed_form("dg1_rk_stage periodic metric qv", errs["dg1_rk_stage"], stage(False, wrap), stage(False, 0),
+               lambda: cc.dg1_rk_stage_reference(tr, psi, base, None, None, *faces, 0.5, 0.5, 300.0, qv=fast),
+               work)
+    timed_form("dg1_rk_stage periodic metric qv tvb", errs["dg1_rk_stage"], stage(True, wrap), stage(True, 0),
+               lambda: cc.dg1_rk_stage_reference(*args, qv=fast, tvb=True),
+               (work[0], work[1] - cc.STAGE_TRACERS * limit_ops * n))
+
+
+def check_ho_metric_paths(device) -> dict:
+    """Each path of HO_METRIC_PATHS on its schedule: one step against the
+    plain path on the card, then 20 steps from zeroed launch counts (finite,
+    bounded, land untouched, every kernel of the path launched). Returns the
+    counts by path."""
+    counts = {}
+    for path, kind, n, weighted, tvb_m, backends, expected in HO_METRIC_PATHS:
+        model, state, phys, dyn = ho_metric_model(device, kind, n, weighted, tvb_m=tvb_m, **backends)
+        if tvb_m is not None:
+            state = with_fronts(state, SEED + 62)
+        schedule = model.schedule(device)
+        log("slice", (
+            f"{path}: {n}x{n} HO on the {kind} mesh ({type(model.mesh).__name__}, periodic "
+            f"({model.mesh.periodic_x}, {model.mesh.periodic_y})), A-weighted {weighted}, tvb_m {tvb_m}, "
+            f"schedule {schedule}"
+        ))
+        if not model.is_high_order or schedule != expected:
+            raise AssertionError(f"{path} does not run {expected}: {schedule}")
+        compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
+        counts[path] = drive_path(path, model, state, phys, dyn, True)
+    return counts
+
+
+def check_ho_metric(device) -> tuple:
+    """Phase: the metric forms of ho_single and ho_tiled and the periodic
+    metric qv forms of dg1_rk_stage and transport_tiled, launch by launch,
+    then their paths. Returns (counts by path, largest error per kernel)."""
+    errs = check_ho_metric_launches(device)
+    return check_ho_metric_paths(device), errs
+
+
+def time_ho_metric(device, card: str) -> None:
+    """ms per step and element updates/s of the HO spherical coastline step
+    and the HO ring beside ho_coupled_1m, in turns on "auto"; one profile of
+    each of the two."""
+    steps = {
+        "ho_coupled_1m": ho_form_path(device, N4, False, False),
+        "ho_coupled_1m_spherical": ho_metric_model(device, "spherical", N4),
+        "ho_ring_1m": ho_metric_model(device, "ring", N4),
+    }
+    runs = time_in_turns(
+        {tag: (lambda m=m, s=s, p=p, d=d: m.step(s, p, d, DT)) for tag, (m, s, p, d) in steps.items()},
+        dict.fromkeys(steps, 10),
+    )
+    for tag, ms in runs.items():
+        report(f"{tag} coupled step ({N4}x{N4}, {steps[tag][0].schedule(device)})", ms, N4 * N4, card)
+    for tag in ("ho_coupled_1m_spherical", "ho_ring_1m"):
+        model, state, phys, dyn = steps[tag]
+        profile(f"{tag} coupled step ({N4}x{N4}, {model.schedule(device)})",
+                lambda: model.step(state, phys, dyn, DT))
+
+
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     """The kernels' JSON line: per kernel its launches on the main paths,
     check error, times, ``bound_ms`` on the data sheet's peaks and
@@ -3857,9 +4168,12 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
             kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     counts_hof, errs_hof = phase(check_ho_forms, device)
     counts.update(counts_hof)
-    for kernel, err in errs_hof.items():
-        if kernel != "dg1_limit":
-            kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
+    counts_hom, errs_hom = phase(check_ho_metric, device)
+    counts.update(counts_hom)
+    for errs in (errs_hof, errs_hom):
+        for kernel, err in errs.items():
+            if kernel != "dg1_limit":
+                kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     counts_5, kernels_5, probes = phase(check_multihost, device)
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
@@ -3871,7 +4185,9 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_multihost, device, smi)
     phase(time_tvb_periodic, device, smi)
     phase(time_ho_forms, device, smi)
-    kernels["dg1_limit"] = replace(TVB_FORMS["dg1_limit"], err=max(TVB_FORMS["dg1_limit"].err, errs_hof["dg1_limit"]))
+    phase(time_ho_metric, device, smi)
+    kernels["dg1_limit"] = replace(TVB_FORMS["dg1_limit"], err=max(
+        TVB_FORMS["dg1_limit"].err, errs_hof["dg1_limit"], errs_hom["dg1_limit"]))
     phase(profile_engine, device)
     # Last, as a profiler session slows the host's later launches. Every
     # row's ms stays the back-to-back time per call; the device durations

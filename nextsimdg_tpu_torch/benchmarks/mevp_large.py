@@ -6,6 +6,7 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
 
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large [n ...]      # plain and mevp_tiled at n (1024 2048 4096)
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --thresholds  # the "auto" threshold sweeps
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --thresholds=ho_metric  # the HO one on the spherical window
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --barriers    # a barrier's cost
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --phases=transport_tiled  # load/store against compute
@@ -19,7 +20,9 @@ at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
 128^2-1024^2 (``coupled.SINGLE_MAX_ELEMENTS``); ``ho_single`` against
 ``ho_tiled`` on the HO mEVP phase and dynamics step at 128^2-1024^2
 (``mevp_ho.HO_SINGLE_MAX_ELEMENTS``), ``ho_single`` only up to the
-largest grid it holds (``ho_single_cuda.tiling``). ``--tiles``: the launch
+largest grid it holds (``ho_single_cuda.tiling``); ``--thresholds=ho_metric``
+the last at 256^2-1024^2 on the spherical coastline window (their metric
+forms). ``--tiles``: the launch
 configurations of ``mevp_tiled`` (tile, halo, threads; its call alone, with
 its resident blocks per SM) at 1024^2, 2048^2 and 4096^2, uniform and
 spherical; of ``ho_tiled`` (cluster shape, sub-window, halo, threads;
@@ -58,6 +61,7 @@ profiler), since one call between two events can be the host's issue.
 from __future__ import annotations
 
 import ctypes
+import functools
 import inspect
 import sys
 import time
@@ -174,22 +178,42 @@ def _dynamics(n: int, device, high_order: bool = False, spherical: bool = False,
     return model, state, dyn
 
 
+def _pair(device, tag, n, first, second, high_order=False, spherical=False) -> None:
+    """Two schedules ((name, backends) each) of the dynamics step at n^2, in
+    turns."""
+    models = {
+        name: _dynamics(n, device, high_order, spherical, **backends) for name, backends in (first, second)
+    }
+    ms = _in_turns({
+        name: (lambda m=m: m[0].step_dynamics(m[1], m[2], DT)) for name, m in models.items()
+    }, 5)
+    print(f"{tag} dynamics step at {n}x{n}: " + ", ".join(
+        f"{name} {v:.4f} ms" for name, v in ms.items()) + f" on {card(device)['nvidia_smi']}", flush=True)
+
+
+def sweep_ho_thresholds(device, sizes=(128, 256, 512, 1024), spherical: bool = False) -> None:
+    """ho_single against ho_tiled (``mevp_ho.HO_SINGLE_MAX_ELEMENTS``) on the
+    HO mEVP phase and dynamics step, on the uniform mesh or, ``spherical``,
+    on the lon-lat window with its coastline (their metric forms);
+    ho_single only where it holds the grid."""
+    sms = ho_single_cuda.sm_count(device)
+    tag = "HO spherical" if spherical else "HO"
+    for n in sizes:
+        if not ho_single_cuda.holds(n, n, sms):
+            print(f"{tag} at {n}x{n}: ho_tiled only; ho_single holds grids up to "
+                  f"{ho_single_cuda.largest_square(sms)}^2 on {sms} SMs", flush=True)
+            bench(n, "ho_tiled", outer=5, spherical=spherical, device=device)
+            continue
+        for name in ("ho_single", "ho_tiled"):
+            bench(n, name, outer=5, spherical=spherical, device=device)
+        _pair(device, tag, n, ("ho_single", {"mevp_backend": "pallas"}),
+              ("ho_tiled", {"mevp_backend": "pallas-tiled"}), high_order=True, spherical=spherical)
+
+
 def sweep_thresholds(device) -> None:
     """The three "auto" thresholds: each pair of schedules on the mEVP phase
     (100 subcycles) and the dynamics step, in turns."""
-    where = card(device)["nvidia_smi"]
-
-    def pair(tag, n, first, second, high_order=False, spherical=False):
-        models = {
-            name: _dynamics(n, device, high_order, spherical, **backends)
-            for name, backends in (first, second)
-        }
-        ms = _in_turns({
-            name: (lambda m=m: m[0].step_dynamics(m[1], m[2], DT)) for name, m in models.items()
-        }, 5)
-        print(f"{tag} dynamics step at {n}x{n}: " + ", ".join(
-            f"{name} {v:.4f} ms" for name, v in ms.items()) + f" on {where}", flush=True)
-
+    pair = functools.partial(_pair, device)
     for n in (64, 128, 256, 1024):
         pair("uniform", n, ("K1", {"mevp_backend": "pallas"}),
              ("tiled", {"mevp_backend": "pallas-tiled", "transport_backend": "tiled"}))
@@ -198,17 +222,7 @@ def sweep_thresholds(device) -> None:
             bench(n, name, outer=5, spherical=True, device=device)
         pair("spherical", n, ("mevp_single", {"mevp_backend": "pallas"}),
              ("mevp_tiled", {"mevp_backend": "pallas-tiled"}), spherical=True)
-    sms = ho_single_cuda.sm_count(device)
-    for n in (128, 256, 512, 1024):
-        if not ho_single_cuda.holds(n, n, sms):
-            print(f"HO at {n}x{n}: ho_tiled only; ho_single holds grids up to "
-                  f"{ho_single_cuda.largest_square(sms)}^2 on {sms} SMs", flush=True)
-            bench(n, "ho_tiled", outer=5, device=device)
-            continue
-        for name in ("ho_single", "ho_tiled"):
-            bench(n, name, outer=5, device=device)
-        pair("HO", n, ("ho_single", {"mevp_backend": "pallas"}),
-             ("ho_tiled", {"mevp_backend": "pallas-tiled"}), high_order=True)
+    sweep_ho_thresholds(device)
 
 
 #: mevp_tiled launch configurations (tile, halo, threads): windows of 5
@@ -830,6 +844,8 @@ def main(argv=None) -> int:
         print("mevp_large: no CUDA device; this benchmark runs only on a GPU", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    if "--thresholds=ho_metric" in argv:
+        sweep_ho_thresholds(device, (256, 512, 1024), spherical=True)
     if "--thresholds" in argv:
         sweep_thresholds(device)
     if "--tiles" in argv or "--tiles=mevp_tiled" in argv:

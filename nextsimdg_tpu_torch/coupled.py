@@ -29,7 +29,8 @@ The momentum solver comes from the module registry, as in the JAX package:
 the default), ``Nextsim::FreeDrift`` (``FreeDriftSolver``: no internal
 stress, its momentum step plain PyTorch on every device, then the usual
 CFL count and transport) or ``Nextsim::MEVPHighOrder`` (the CG2/dG1
-``MEVPSolverHO``, on uniform meshes, each axis closed or periodic),
+``MEVPSolverHO``, on uniform, graded or spherical meshes, each axis closed
+or periodic),
 selected with
 ``modules.get_loader().set_implementation(...)`` before the model is built
 (and ``reset()`` after). With the HO solver the velocity state is an
@@ -172,8 +173,9 @@ class CoupledModel:
         ``MEVPSolverHO``: ``"pallas"`` runs ho_single, ``"pallas-tiled"``
         ho_tiled, ``"auto"`` ho_single below
         ``mevp_ho.HO_SINGLE_MAX_ELEMENTS`` and ho_tiled from there; the
-        transport is ``transport_tiled`` on the CG2 samples at every size
-        (``"xla"``: the staged ``dg1_rk_stage`` in its ``qv`` form).
+        transport is ``transport_tiled`` on the CG2 samples at every size,
+        except with ``tvb_m`` on a graded or spherical mesh (``"xla"``: the
+        staged ``dg1_rk_stage`` in its ``qv`` form).
 
         ``spmd``: on a rank grid, this rank's ``parallel.exchange.RankExchange``
         (``parallel.shardmap.build_sharded_coupled_model`` builds one model
@@ -326,8 +328,11 @@ class CoupledModel:
                 )
             return "xla"
         if self.is_high_order:
-            # transport_tiled on the CG2 samples at every size and scheme.
-            return "tiled" if self.transport_backend == "auto" else self.transport_backend
+            # transport_tiled on the CG2 samples at every size and scheme,
+            # where it runs this transport (not TVB on a non-uniform mesh).
+            if self.transport_backend != "auto":
+                return self.transport_backend
+            return "tiled" if self._tiled_transport_runs() else "xla"
         if self.mevp_schedule() == "pallas":
             return "xla"
         if self.transport_backend != "auto":

@@ -308,10 +308,17 @@ cudaError_t run_stage_periodic(const StageArgs<kDeg>& g, bool metric, bool qv, b
 
 // The periodic instances of the HO path's qv form in the coupled step's
 // modes (transport_periodic_qv.cu): the limited stage and, at dG1 and dG2,
-// the TVB form's unlimited stage, on a uniform mesh (the HO solver's).
+// the TVB form's unlimited stage; those of a graded or spherical mesh
+// (metric) through run_stage_periodic_qv_metric.
 template <int kDeg>
 cudaError_t run_stage_periodic_qv(const StageArgs<kDeg>& g, bool metric, bool blend, int mode,
                                   cudaStream_t s);
+
+// The same instances with the transport's metric planes
+// (transport_periodic_qv_metric.cu).
+template <int kDeg>
+cudaError_t run_stage_periodic_qv_metric(const StageArgs<kDeg>& g, bool blend, int mode,
+                                         cudaStream_t s);
 
 inline bool aligned16(const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 == 0; }
 

@@ -27,7 +27,12 @@
 // The form of a kernel instance (kForm, a template argument): kHoWeighted,
 // the A-weighted stress of MEVPParams.a_weighted_stress, whose ocean drag
 // c_w is weighted by the nodal concentration a_{k} of the node's plane (four
-// more const planes); without it the code is the unweighted form's.
+// more const planes); kHoMetric, a graded or spherical mesh, whose element
+// widths are four more const planes (dx, dy and their float32 reciprocals,
+// as MEVPSolverHO.step_consts makes them): the strain multiplies by the
+// element's reciprocals, and each of the four elements that share a node
+// weights its force contribution by its own widths before the sum. Without
+// a bit the code is that of the form without it.
 #pragma once
 
 #include "common.cuh"
@@ -83,12 +88,28 @@ struct HoConsts {
   const float* u_ocean[kHoPlanes];
   const float* v_ocean[kHoPlanes];
   const float* a[kHoPlanes];
+  const float* dx;      // the metric form's element widths (null in the others)
+  const float* dy;
+  const float* inv_dx;  // their float32 reciprocals
+  const float* inv_dy;
 };
 constexpr int kHoWeighted = 1;  // the form bit of the A-weighted stress
+constexpr int kHoMetric = 2;    // the form bit of a graded or spherical mesh
 
-// The const planes of a form: 29, and the four a_{k} in the weighted form.
+// The const planes of a form: 29, the four a_{k} in the weighted form and
+// the four widths in the metric form.
 __host__ __device__ constexpr int ho_const_planes(int form) {
-  return (form & kHoWeighted) != 0 ? 33 : 29;
+  return 29 + ((form & kHoWeighted) != 0 ? 4 : 0) + ((form & kHoMetric) != 0 ? 4 : 0);
+}
+
+// Where the metric form's widths sit among the const planes of a form, in
+// the order of HoConsts: dx, dy, inv_dx, inv_dy after the a_{k}.
+enum HoWidth { kHoDx, kHoDy, kHoInvDx, kHoInvDy };
+__host__ __device__ constexpr int ho_width_plane(int form, int w) {
+  return 29 + ((form & kHoWeighted) != 0 ? 4 : 0) + w;
+}
+__device__ __forceinline__ const float* ho_width(const HoConsts& k, int w) {
+  return w == kHoDx ? k.dx : w == kHoDy ? k.dy : w == kHoInvDx ? k.inv_dx : k.inv_dy;
 }
 
 // The 9 local node values of element (i, j) of one CG2 field, n = 3a + b
@@ -117,19 +138,21 @@ __device__ __forceinline__ float ho_row9(const float row[kHoNodes], const float 
 
 // The stress half of a subcycle at one element: u, v its 9 node velocities,
 // s11, s22, s12 its dG1 coefficients (updated in place), strength its ice
-// strength. Strain, the VP law at the 4 Gauss points, projection to dG1 and
-// alpha relaxation.
+// strength, inv_dx and inv_dy the reciprocals of its widths (the scalars'
+// on a uniform mesh). Strain, the VP law at the 4 Gauss points, projection
+// to dG1 and alpha relaxation.
 __device__ __forceinline__ void ho_stress_body(const HoTables& t, const HoScalars& s,
                                                const float u[kHoNodes], const float v[kHoNodes],
                                                float s11[kHoCoeffs], float s22[kHoCoeffs],
-                                               float s12[kHoCoeffs], float strength) {
+                                               float s12[kHoCoeffs], float strength,
+                                               float inv_dx, float inv_dy) {
   float e11[kHoCoeffs], e22[kHoCoeffs], e12[kHoCoeffs];
 #pragma unroll
   for (int c = 0; c < kHoCoeffs; ++c) {
-    const float du_dx = ho_row9(t.grad_x[c], u) * s.inv_dx;
-    const float du_dy = ho_row9(t.grad_y[c], u) * s.inv_dy;
-    const float dv_dx = ho_row9(t.grad_x[c], v) * s.inv_dx;
-    const float dv_dy = ho_row9(t.grad_y[c], v) * s.inv_dy;
+    const float du_dx = ho_row9(t.grad_x[c], u) * inv_dx;
+    const float du_dy = ho_row9(t.grad_y[c], u) * inv_dy;
+    const float dv_dx = ho_row9(t.grad_x[c], v) * inv_dx;
+    const float dv_dy = ho_row9(t.grad_y[c], v) * inv_dy;
     e11[c] = du_dx;
     e22[c] = dv_dy;
     e12[c] = 0.5f * (du_dy + dv_dx);
@@ -175,8 +198,9 @@ __device__ __forceinline__ void ho_stress_body(const HoTables& t, const HoScalar
 }
 
 // One element's raw force contribution to its local node n:
-// -(int sigma . grad phi_n), as (fu, fv) (stress_divergence).
-__device__ __forceinline__ float2 ho_contrib(const HoTables& t, const HoScalars& s, int n,
+// -(int sigma . grad phi_n), as (fu, fv) (stress_divergence); w its widths
+// (dx, dy).
+__device__ __forceinline__ float2 ho_contrib(const HoTables& t, float2 w, int n,
                                              const float s11[kHoCoeffs],
                                              const float s22[kHoCoeffs],
                                              const float s12[kHoCoeffs]) {
@@ -189,32 +213,36 @@ __device__ __forceinline__ float2 ho_contrib(const HoTables& t, const HoScalars&
     dx12 = dx12 + t.div_x[c][n] * s12[c];
     dy22 = dy22 + t.div_y[c][n] * s22[c];
   }
-  return make_float2(-(dx11 * s.dy + dy12 * s.dx), -(dx12 * s.dy + dy22 * s.dx));
+  return make_float2(-(dx11 * w.y + dy12 * w.x), -(dx12 * w.y + dy22 * w.x));
 }
 
 // The raw forces (fu, fv) on the four owned planes of node index (i, j):
 // the contributions of the elements that share its nodes, summed in the
 // plain version's order (scatter_local, ascending local node n).
 // load(di, dj, s11, s22, s12) fills element (i + di, j + dj)'s coefficients,
-// zeros beyond the domain.
-template <class Load>
-__device__ __forceinline__ void ho_node_forces(const HoTables& t, const HoScalars& s,
-                                               const Load& load, float fu[kHoPlanes],
+// zeros beyond the domain; widths(di, dj) gives its (dx, dy).
+template <class Load, class Widths>
+__device__ __forceinline__ void ho_node_forces(const HoTables& t, const Load& load,
+                                               const Widths& widths, float fu[kHoPlanes],
                                                float fv[kHoPlanes]) {
   float a11[kHoCoeffs], a22[kHoCoeffs], a12[kHoCoeffs];
   load(0, 0, a11, a22, a12);  // element (i, j): its nodes 0 (v), 1 (l), 3 (b), 4 (c)
-  const float2 c0 = ho_contrib(t, s, 0, a11, a22, a12);
-  const float2 c1 = ho_contrib(t, s, 1, a11, a22, a12);
-  const float2 c3 = ho_contrib(t, s, 3, a11, a22, a12);
-  const float2 c4 = ho_contrib(t, s, 4, a11, a22, a12);
+  float2 w = widths(0, 0);
+  const float2 c0 = ho_contrib(t, w, 0, a11, a22, a12);
+  const float2 c1 = ho_contrib(t, w, 1, a11, a22, a12);
+  const float2 c3 = ho_contrib(t, w, 3, a11, a22, a12);
+  const float2 c4 = ho_contrib(t, w, 4, a11, a22, a12);
   load(0, -1, a11, a22, a12);  // element (i, j-1): nodes 2 (v), 5 (b)
-  const float2 c2 = ho_contrib(t, s, 2, a11, a22, a12);
-  const float2 c5 = ho_contrib(t, s, 5, a11, a22, a12);
+  w = widths(0, -1);
+  const float2 c2 = ho_contrib(t, w, 2, a11, a22, a12);
+  const float2 c5 = ho_contrib(t, w, 5, a11, a22, a12);
   load(-1, 0, a11, a22, a12);  // element (i-1, j): nodes 6 (v), 7 (l)
-  const float2 c6 = ho_contrib(t, s, 6, a11, a22, a12);
-  const float2 c7 = ho_contrib(t, s, 7, a11, a22, a12);
+  w = widths(-1, 0);
+  const float2 c6 = ho_contrib(t, w, 6, a11, a22, a12);
+  const float2 c7 = ho_contrib(t, w, 7, a11, a22, a12);
   load(-1, -1, a11, a22, a12);  // element (i-1, j-1): node 8 (v)
-  const float2 c8 = ho_contrib(t, s, 8, a11, a22, a12);
+  w = widths(-1, -1);
+  const float2 c8 = ho_contrib(t, w, 8, a11, a22, a12);
   fu[0] = c0.x + c2.x + c6.x + c8.x;
   fv[0] = c0.y + c2.y + c6.y + c8.y;
   fu[1] = c3.x + c5.x;
@@ -271,15 +299,16 @@ __device__ __forceinline__ const float* ho_const_plane(const HoConsts& k, int q,
 }
 
 // The velocity half at one node index, all four planes: forces from
-// `load`, then each plane's update from `uv` (the 8 velocity values, u
-// planes then v planes, updated in place) and its consts, konst(q, p) for
-// const q (HoPlaneConst) of plane p.
-template <int kForm, class Load, class Konst>
+// `load` and `widths` (ho_node_forces), then each plane's update from `uv`
+// (the 8 velocity values, u planes then v planes, updated in place) and its
+// consts, konst(q, p) for const q (HoPlaneConst) of plane p.
+template <int kForm, class Load, class Widths, class Konst>
 __device__ __forceinline__ void ho_velocity_update(const HoTables& t, const HoScalars& s,
                                                    const Konst& konst, const Load& load,
+                                                   const Widths& widths,
                                                    float uv[2 * kHoPlanes]) {
   float fu[kHoPlanes], fv[kHoPlanes];
-  ho_node_forces(t, s, load, fu, fv);
+  ho_node_forces(t, load, widths, fu, fv);
 #pragma unroll
   for (int p = 0; p < kHoPlanes; ++p) {
     const float2 out = ho_velocity_plane<kForm>(
@@ -293,13 +322,18 @@ __device__ __forceinline__ void ho_velocity_update(const HoTables& t, const HoSc
 
 // The same at node index (i, j) (flat index ij), its consts read from the
 // const planes in global memory.
-template <int kForm, class Load>
+template <int kForm, class Load, class Widths>
 __device__ __forceinline__ void ho_velocity_body(const HoTables& t, const HoScalars& s,
                                                  const HoConsts& k, long ij, const Load& load,
-                                                 float uv[2 * kHoPlanes]) {
+                                                 const Widths& widths, float uv[2 * kHoPlanes]) {
   ho_velocity_update<kForm>(t, s,
                             [&](int q, int p) { return __ldg(ho_const_plane(k, q, p) + ij); },
-                            load, uv);
+                            load, widths, uv);
+}
+
+// The widths of every element on a uniform mesh: the scalars'.
+__device__ __forceinline__ float2 ho_uniform_widths(const HoScalars& s) {
+  return make_float2(s.dx, s.dy);
 }
 
 }  // namespace nst

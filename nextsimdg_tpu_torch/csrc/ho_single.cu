@@ -43,7 +43,11 @@
 // (TileView<17, true>: the apron beyond the last tile is the first tile's
 // edge), the tiles dividing such an axis exactly. Their instances are
 // compiled in ho_single_forms.cu, so that the closed unweighted ones here
-// keep their code.
+// keep their code. On a graded or spherical mesh (the metric form) the
+// element widths are four more const planes (33, or 37 A-weighted), in
+// shared memory with the others where they fit; a force reads each
+// neighbour element's widths (a neighbour tile's from global memory). Its
+// instances are compiled in ho_single_metric.cu.
 #include "ho_single.cuh"
 
 namespace nst {
@@ -88,6 +92,7 @@ ho_single_sync_kernel(unsigned long long* exchange, int tile_r, int tile_c, int 
 }
 
 HoSingleKernel ho_single_of(bool consts_shared, int form) {
+  if ((form & kHoMetric) != 0) return ho_single_metric_of(consts_shared, form);
   if (form != 0) return ho_single_forms_of(consts_shared, form);
   return consts_shared ? ho_single_kernel<true, 0, false> : ho_single_kernel<false, 0, false>;
 }
@@ -102,9 +107,11 @@ int nst_ho_n_table_floats() { return static_cast<int>(sizeof(nst::HoTables) / si
 
 int nst_ho_n_scalars() { return static_cast<int>(sizeof(nst::HoScalars) / sizeof(float)); }
 
+int nst_ho_n_consts() { return static_cast<int>(sizeof(nst::HoConsts) / sizeof(const float*)); }
+
 // Dynamic shared memory of one block: the 17 state planes of a TR x TC tile
-// and its apron, and the const planes of the form (29, or 33 with
-// kHoWeighted) where consts_shared.
+// and its apron, and the const planes of the form (29, 4 more with
+// kHoWeighted and 4 more with kHoMetric) where consts_shared.
 int nst_ho_single_shared_bytes(int tile_r, int tile_c, int consts_shared, int form) {
   return nst::ho_single_bytes(tile_r, tile_c, consts_shared != 0, form);
 }
@@ -123,10 +130,11 @@ int nst_ho_single_max_blocks(int consts_shared, int form, int threads, int bytes
 // cooperative launch of one block of `threads` threads (at most 512) per
 // TR x TC tile (tile_r, tile_c), tiles_i x tiles_j of them covering the
 // grid. exchange: (tiles, 17, TR + TC) 64-bit words, zero. consts points to
-// the 33 const-plane pointers in the order of HoConsts, the a_{k} null
-// outside the weighted form; scalars and tables to HoScalars and HoTables.
-// consts_shared keeps the consts in shared memory. form: kHoWeighted, and
-// the periodic axes' bits (kWrapX, kWrapY) shifted by kFormWrapShift: the
+// the 37 const-plane pointers in the order of HoConsts, the a_{k} null
+// outside the weighted form, the widths null outside the metric form;
+// scalars and tables to HoScalars and HoTables. consts_shared keeps the
+// consts in shared memory. form: kHoWeighted, kHoMetric, and the periodic
+// axes' bits (kWrapX, kWrapY) shifted by kFormWrapShift: the
 // tiles must divide a periodic axis exactly, and the tiles along it form a
 // ring. A grid larger than can be resident is refused by the launch with an
 // error, which is returned; so is any other launch error. Launches on
@@ -162,7 +170,8 @@ int nst_ho_single(float* state, const void* const* consts, unsigned long long* e
   a.tile_c = tile_c;
   a.tiles_j = tiles_j;
   a.wrap = wrap;
-  if (((form & nst::kHoWeighted) != 0) != (a.k.a[0] != nullptr)) {
+  if (((form & nst::kHoWeighted) != 0) != (a.k.a[0] != nullptr) ||
+      ((form & nst::kHoMetric) != 0) != (a.k.dx != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto kernel = nst::ho_single_of(consts_shared != 0, form);

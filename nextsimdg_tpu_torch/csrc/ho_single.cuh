@@ -1,9 +1,10 @@
 // The higher-order (CG2/dG1) mEVP single-launch kernel (ho_single.cu) as a
-// template on the resident const planes, the momentum form and the periodic
-// form, shared by the two sources that instantiate it: ho_single.cu (the
-// closed unweighted instances, and the entry points) and ho_single_forms.cu
-// (the A-weighted and periodic forms), which nvcc compiles in parallel. The
-// design is described in ho_single.cu.
+// template on the resident const planes, the form (momentum, metric) and the
+// periodic form, shared by the three sources that instantiate it:
+// ho_single.cu (the closed unweighted instances of a uniform mesh, and the
+// entry points), ho_single_forms.cu (the A-weighted and periodic forms) and
+// ho_single_metric.cu (the metric forms of a graded or spherical mesh),
+// which nvcc compiles in parallel. The design is described in ho_single.cu.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -33,12 +34,17 @@ struct HoSingleArgs {
 };
 
 // kConstsShared: the const planes of the form (ho_const_planes) in shared
-// memory beside the state. kForm: the momentum form (kHoWeighted). kWrap: the
-// periodic form, whose tiles form a ring on the axes of a.wrap; without it
-// a.wrap is not read and the code is the closed domain's.
+// memory beside the state. kForm: the momentum form (kHoWeighted) and the
+// metric form (kHoMetric: the strain reads the element's reciprocal widths,
+// the forces each neighbour element's widths, from shared memory for the
+// tile's own elements where the consts are there, else at the element's
+// (wrapped) index in global memory). kWrap: the periodic form, whose tiles
+// form a ring on the axes of a.wrap; without it a.wrap is not read and the
+// code is the closed domain's.
 template <bool kConstsShared, int kForm, bool kWrap>
 __global__ void __launch_bounds__(kHoSingleMaxThreads, 1) ho_single_kernel(HoSingleArgs a) {
   constexpr int kPlaneConsts = ho_plane_consts(kForm);
+  constexpr bool kMetric = (kForm & kHoMetric) != 0;
   extern __shared__ float smem[];
   TileView<kHoStatePlanes, kWrap> t;
   t.tile = tile_of_block(a.tiles_j);
@@ -86,8 +92,19 @@ __global__ void __launch_bounds__(kHoSingleMaxThreads, 1) ho_single_kernel(HoSin
               in ? __ldg(ho_const_plane(a.k, q, p) + ij) : 0.0f;
         }
       }
+      if constexpr (kMetric) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          konst[ho_width_plane(kForm, w) * owned + x] = in ? __ldg(ho_width(a.k, w) + ij) : 0.0f;
+        }
+      }
     }
   }
+  // The metric form's width w of the tile's element (r, c), x = r TC + c.
+  const auto own_width = [&](int w, int r, int c, int x) {
+    return kConstsShared ? konst[ho_width_plane(kForm, w) * owned + x]
+                         : __ldg(ho_width(a.k, w) + global(r, c));
+  };
   __syncthreads();
 
   for (int sub = 0; sub < a.n_sub; ++sub) {
@@ -109,7 +126,12 @@ __global__ void __launch_bounds__(kHoSingleMaxThreads, 1) ho_single_kernel(HoSin
 #pragma unroll
       for (int q = 0; q < 3 * kHoCoeffs; ++q) sig[q] = smem[(kHoS11 + q) * plane + e];
       const float strength = kConstsShared ? konst[x] : __ldg(a.k.strength + global(r, c));
-      ho_stress_body(a.t, a.s, u, v, s11, s22, s12, strength);
+      if constexpr (kMetric) {
+        ho_stress_body(a.t, a.s, u, v, s11, s22, s12, strength, own_width(kHoInvDx, r, c, x),
+                       own_width(kHoInvDy, r, c, x));
+      } else {
+        ho_stress_body(a.t, a.s, u, v, s11, s22, s12, strength, a.s.inv_dx, a.s.inv_dy);
+      }
 #pragma unroll
       for (int q = 0; q < 3 * kHoCoeffs; ++q) smem[(kHoS11 + q) * plane + e] = sig[q];
       t.publish(r, c, 1, kHoS11, kHoStatePlanes, sig, stress_half);
@@ -140,12 +162,25 @@ __global__ void __launch_bounds__(kHoSingleMaxThreads, 1) ho_single_kernel(HoSin
           s12[q] = smem[(kHoS12 + q) * plane + f];
         }
       };
+      // The widths of element (r + di, c + dj): in the metric form the
+      // tile's own element's from own_width, a neighbour's at its (wrapped)
+      // index, zeros beyond a closed domain (whose stresses are zeros).
+      const auto widths = [&](int di, int dj) {
+        if constexpr (kMetric) {
+          if (di == 0 && dj == 0) return make_float2(own_width(kHoDx, r, c, x), own_width(kHoDy, r, c, x));
+          if (!t.inside(r + di, c + dj)) return make_float2(0.0f, 0.0f);
+          const int ij = t.index(r + di, c + dj);
+          return make_float2(__ldg(a.k.dx + ij), __ldg(a.k.dy + ij));
+        } else {
+          return ho_uniform_widths(a.s);
+        }
+      };
       if (kConstsShared) {
         ho_velocity_update<kForm>(
             a.t, a.s, [&](int q, int p) { return konst[(1 + kHoPlanes * q + p) * owned + x]; },
-            load, uv);
+            load, widths, uv);
       } else {
-        ho_velocity_body<kForm>(a.t, a.s, a.k, global(r, c), load, uv);
+        ho_velocity_body<kForm>(a.t, a.s, a.k, global(r, c), load, widths, uv);
       }
 #pragma unroll
       for (int p = 0; p < 2 * kHoPlanes; ++p) smem[p * plane + e] = uv[p];
@@ -172,12 +207,14 @@ __global__ void __launch_bounds__(kHoSingleMaxThreads, 1) ho_single_kernel(HoSin
 
 using HoSingleKernel = void (*)(HoSingleArgs);
 
-// The kernel of a form (kHoWeighted, and the periodic axes' bits shifted by
-// kFormWrapShift) with or without its consts in shared memory; null for an
-// unknown form. The closed unweighted instances are compiled in
-// ho_single.cu, the others in ho_single_forms.cu.
+// The kernel of a form (kHoWeighted, kHoMetric, and the periodic axes' bits
+// shifted by kFormWrapShift) with or without its consts in shared memory;
+// null for an unknown form. The closed unweighted instances of a uniform
+// mesh are compiled in ho_single.cu, the metric forms in
+// ho_single_metric.cu, the others in ho_single_forms.cu.
 HoSingleKernel ho_single_of(bool consts_shared, int form);
 HoSingleKernel ho_single_forms_of(bool consts_shared, int form);
+HoSingleKernel ho_single_metric_of(bool consts_shared, int form);
 
 // Dynamic shared memory of one block: the 17 state planes of a TR x TC tile
 // and its apron, and the const planes of the form where consts_shared.

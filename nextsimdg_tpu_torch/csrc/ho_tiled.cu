@@ -63,7 +63,10 @@
 // The A-weighted form (kHoWeighted) reads four more const planes, a_{k}, and
 // weights the ocean drag by them. Its instances and the periodic ones are
 // compiled in ho_tiled_forms.cu, so that the closed unweighted ones here keep
-// their code.
+// their code. On a graded or spherical mesh (the metric form, kHoMetric) the
+// element widths are four more const planes, read at each element's index,
+// the apron's elements' too (wrapped on a periodic axis); its instances are
+// compiled in ho_tiled_metric.cu.
 //
 // Each element and node index runs ho_stress_body and ho_velocity_body of
 // ho_body.cuh, as ho_single.cu does, with the same --fmad=false, so the two
@@ -95,6 +98,7 @@ __global__ void window_sync_kernel(int n_barriers) {
 }
 
 HoTiledKernel ho_tiled_of(int sub, int form) {
+  if ((form & kHoMetric) != 0) return ho_tiled_metric_of(sub, form);
   if (form != 0) return ho_tiled_forms_of(sub, form);
   return sub == 48 ? ho_tiled_kernel<48, 0, false> : ho_tiled_kernel<0, 0, false>;
 }
@@ -163,10 +167,11 @@ int nst_window_syncs(int ca, int cb, int threads, int bytes, int n_barriers, int
 // ca x cb blocks of `threads` threads (at most 512), each block an S x S
 // sub-window (sub) and its apron; the clusters must cover the
 // domain (clusters_a (ca sub - 2 halo) >= nx, and along j likewise). consts
-// points to the 33 const-plane pointers in the order of HoConsts, the a_{k}
-// null outside the weighted form; scalars and tables to HoScalars and
-// HoTables. form: kHoWeighted, and the periodic axes' bits (kWrapX, kWrapY)
-// shifted by kFormWrapShift, on which the windows wrap. Launches on
+// points to the 37 const-plane pointers in the order of HoConsts, the a_{k}
+// null outside the weighted form, the widths null outside the metric form;
+// scalars and tables to HoScalars and HoTables. form: kHoWeighted,
+// kHoMetric, and the periodic axes' bits (kWrapX, kWrapY) shifted by
+// kFormWrapShift, on which the windows wrap. Launches on
 // `stream`, returns the CUDA error of the launch or its attributes (a
 // refused cluster shape, shared memory size or non-portable size included);
 // does not synchronise.
@@ -191,7 +196,8 @@ int nst_ho_tiled(const float* state_in, float* state_out, const void* const* con
   std::memcpy(&s, scalars, sizeof(s));
   nst::HoTables t;
   std::memcpy(&t, tables, sizeof(t));
-  if (((form & nst::kHoWeighted) != 0) != (k.a[0] != nullptr)) {
+  if (((form & nst::kHoWeighted) != 0) != (k.a[0] != nullptr) ||
+      ((form & nst::kHoMetric) != 0) != (k.dx != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int bytes = nst_ho_tiled_shared_bytes(sub);

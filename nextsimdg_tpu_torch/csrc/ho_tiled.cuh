@@ -1,9 +1,10 @@
 // The higher-order (CG2/dG1) mEVP ghost-zone kernel (ho_tiled.cu) as a
-// template on the sub-window width, the momentum form and the periodic
-// form, shared by the two sources that instantiate it: ho_tiled.cu (the
-// closed unweighted instances, and the entry points) and ho_tiled_forms.cu
-// (the A-weighted and periodic forms), which nvcc compiles in parallel. The
-// design is described in ho_tiled.cu.
+// template on the sub-window width, the form (momentum, metric) and the
+// periodic form, shared by the three sources that instantiate it:
+// ho_tiled.cu (the closed unweighted instances of a uniform mesh, and the
+// entry points), ho_tiled_forms.cu (the A-weighted and periodic forms) and
+// ho_tiled_metric.cu (the metric forms of a graded or spherical mesh),
+// which nvcc compiles in parallel. The design is described in ho_tiled.cu.
 #pragma once
 
 #include "cluster_window.cuh"
@@ -31,14 +32,17 @@ __device__ __forceinline__ void copy_velocity(float* dst, int to, const float* s
 
 // kS: the sub-window width where it is known at compile time (shared-memory
 // offsets become immediates), 0 where it is read from sub_w. kForm: the
-// momentum form (kHoWeighted). kWrap: the periodic form, whose windows wrap
-// on the axes of `wrap` (read only there; last, so that the closed instances
-// read their parameters at the offsets they always had).
+// momentum form (kHoWeighted) and the metric form (kHoMetric: each element's
+// widths read from global memory at its (wrapped) index, the apron's
+// elements too). kWrap: the periodic form, whose windows wrap on the axes of
+// `wrap` (read only there; last, so that the closed instances read their
+// parameters at the offsets they always had).
 template <int kS, int kForm, bool kWrap>
 __global__ void __launch_bounds__(kHoTiledMaxThreads)
 ho_tiled_kernel(const float* __restrict__ state_in, float* __restrict__ state_out, HoConsts k,
                 int nx, int ny, int sub_w, int halo, int n_sub, HoScalars s, HoTables t,
                 int wrap) {
+  constexpr bool kMetric = (kForm & kHoMetric) != 0;
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterPos pos = cluster_pos(cluster);
@@ -143,7 +147,13 @@ ho_tiled_kernel(const float* __restrict__ state_in, float* __restrict__ state_ou
         s22[q] = smem[(kHoS22 + q) * plane + c];
         s12[q] = smem[(kHoS12 + q) * plane + c];
       }
-      ho_stress_body(t, s, u, v, s11, s22, s12, __ldg(k.strength + index(i, j)));
+      const long ij = index(i, j);
+      if constexpr (kMetric) {
+        ho_stress_body(t, s, u, v, s11, s22, s12, __ldg(k.strength + ij), __ldg(k.inv_dx + ij),
+                       __ldg(k.inv_dy + ij));
+      } else {
+        ho_stress_body(t, s, u, v, s11, s22, s12, __ldg(k.strength + ij), s.inv_dx, s.inv_dy);
+      }
 #pragma unroll
       for (int q = 0; q < kHoCoeffs; ++q) {
         smem[(kHoS11 + q) * plane + c] = s11[q];
@@ -176,6 +186,18 @@ ho_tiled_kernel(const float* __restrict__ state_in, float* __restrict__ state_ou
                            s12[q] = smem[(kHoS12 + q) * plane + e];
                          }
                        },
+                       // The widths of element (i + di, j + dj): in the
+                       // metric form at its (wrapped) index, zeros beyond a
+                       // closed domain (whose stresses are zeros).
+                       [&](int di, int dj) {
+                         if constexpr (kMetric) {
+                           if (!inside(i + di, j + dj)) return make_float2(0.0f, 0.0f);
+                           const long e = index(i + di, j + dj);
+                           return make_float2(__ldg(k.dx + e), __ldg(k.dy + e));
+                         } else {
+                           return ho_uniform_widths(s);
+                         }
+                       },
                        uv);
 #pragma unroll
       for (int p = 0; p < 2 * kHoPlanes; ++p) smem[p * plane + c] = uv[p];
@@ -203,10 +225,12 @@ using HoTiledKernel = void (*)(const float*, float*, HoConsts, int, int, int, in
                                HoScalars, HoTables, int);
 
 // The kernel of a sub-window width (the shipped width 48 has its own) and a
-// form (kHoWeighted, and the periodic axes' bits shifted by kFormWrapShift);
-// null for an unknown form. The closed unweighted instances are compiled in
-// ho_tiled.cu, the others in ho_tiled_forms.cu.
+// form (kHoWeighted, kHoMetric, and the periodic axes' bits shifted by
+// kFormWrapShift); null for an unknown form. The closed unweighted instances
+// of a uniform mesh are compiled in ho_tiled.cu, the metric forms in
+// ho_tiled_metric.cu, the others in ho_tiled_forms.cu.
 HoTiledKernel ho_tiled_of(int sub, int form);
 HoTiledKernel ho_tiled_forms_of(int sub, int form);
+HoTiledKernel ho_tiled_metric_of(int sub, int form);
 
 }  // namespace nst

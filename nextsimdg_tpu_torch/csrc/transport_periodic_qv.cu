@@ -5,7 +5,8 @@
 // coupled step's 3 tracers and face masks, the velocity from the CG2
 // quadrature samples, the windows wrapped on the launch's periodic axes;
 // positivity-limited, or unlimited for the TVB form (dg1_limit follows).
-// Compiled beside transport_periodic.cu, which dispatches to them.
+// Compiled beside transport_periodic.cu, which dispatches to them; those of
+// a graded or spherical mesh are compiled in transport_periodic_qv_metric.cu.
 #include "dg1_stage.cuh"
 
 namespace nst {
@@ -14,7 +15,7 @@ template <int kDeg>
 cudaError_t run_stage_periodic_qv(const StageArgs<kDeg>& g, bool metric, bool blend, int mode,
                                   cudaStream_t s) {
   constexpr int T = kStageTracers;
-  if (metric) return cudaErrorInvalidValue;  // the HO solver runs on uniform meshes
+  if (metric) return run_stage_periodic_qv_metric<kDeg>(g, blend, mode, s);
   if (mode == kStageLimited) {
     return blend ? launch_stage<kDeg, T, false, true, true, true, true>(g, s)
                  : launch_stage<kDeg, T, false, true, false, true, true>(g, s);

@@ -349,15 +349,22 @@ TransportKernel<kDeg> transport_tiled_select(bool metric, bool qv, bool vec) {
   }
 }
 
-// The periodic instances of the HO path's qv form: a uniform mesh (the HO
-// solver's), untouched or with TVB (dG1, dG2), whose windows take the
-// quadrature planes at their wrapped indices; null where there is none.
+// The periodic metric qv instances at degree kDeg, untouched
+// (transport_tiled_qv_metric.cu).
+template <int kDeg>
+TransportKernel<kDeg> transport_tiled_qv_metric_of(bool vec);
+
+// The periodic instances of the HO path's qv form, whose windows take the
+// quadrature planes at their wrapped indices: on a uniform mesh untouched or
+// with TVB (dG1, dG2); on a graded or spherical one untouched, from
+// transport_tiled_qv_metric_of (TVB there runs the staged transport, as the
+// JAX gate transport_tiled_config has it); null where there is none.
 template <int kDeg, bool kTvb>
 TransportKernel<kDeg> transport_tiled_select_qv(bool metric, bool vec) {
   if constexpr (kTvb && kDeg == 0) {
     return nullptr;
   } else {
-    if (metric) return nullptr;
+    if (metric) return kTvb ? nullptr : transport_tiled_qv_metric_of<kDeg>(vec);
     return vec ? transport_tiled_kernel<kDeg, false, true, 4, kTvb, true>
                : transport_tiled_kernel<kDeg, false, true, 1, kTvb, true>;
   }

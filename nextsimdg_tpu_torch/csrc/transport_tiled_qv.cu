@@ -4,8 +4,9 @@
 // for the higher-order solver on a periodic mesh: the velocity from the CG2
 // quadrature samples, read at the wrapped indices of a window beyond the
 // domain, no face a wall; untouched, or with the TVB limiter where the JAX
-// gate (transport_tiled_config) takes it, on a uniform mesh. Compiled beside
-// transport_tiled_forms.cu, which dispatches to them.
+// gate (transport_tiled_config) takes it, on a uniform mesh (those of a
+// graded or spherical mesh are in transport_tiled_qv_metric.cu). Compiled
+// beside transport_tiled_forms.cu, which dispatches to them.
 #include "transport_tiled.cuh"
 
 namespace nst {

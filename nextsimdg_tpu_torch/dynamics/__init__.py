@@ -1,8 +1,7 @@
 """Sea-ice dynamical core in PyTorch: dG0/dG1/dG2 transport, CG1 and CG2/dG1 mEVP.
 
 The port of ``nextsimdg_tpu.dynamics`` for uniform, graded and spherical
-meshes, each axis closed or periodic, with coastlines (the CG2/dG1 solver
-on uniform meshes).
+meshes, each axis closed or periodic, with coastlines.
 It imports no JAX.
 
 The momentum solver is a module of the port's registry

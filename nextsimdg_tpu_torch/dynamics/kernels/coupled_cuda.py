@@ -66,8 +66,9 @@ With the higher-order solver (``MEVPSolverHO``) the phase runs
 ``ho_single`` (all N subcycles in one launch, K5 of the JAX package) or
 ``ho_tiled`` (ghost-zone tiles, K6), wrapped by ``ho_single_cuda`` and
 ``ho_tiled_cuda`` on the 17 state and 29 const planes packed here (33 with
-``a_weighted_stress``, and the periodic axes in the kernels' ``form``, as
-``kernel_form`` gives it for the CG1 kernels); the CG2
+``a_weighted_stress`` or on a graded or spherical mesh, whose element
+widths are four more planes, 37 with both; the forms and the periodic axes
+in the kernels' ``form``, ``kernel_form``); the CG2
 velocity is sampled at the quadrature points in plain PyTorch
 (``ho_velocity_to_quad``, as the JAX package does it in XLA), k comes from
 those samples (one host sync), and ``transport_tiled`` or the staged
@@ -108,7 +109,7 @@ import torch
 
 from ..mevp import MEVP_CONSTS, MEVPSolver, VelocityState, const_names
 from ..mevp_ho import (
-    HO_WEIGHTED_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
+    HO_KERNEL_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
 )
 from ..dgbasis import dg_basis
 from ..transport import (
@@ -140,8 +141,10 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-shared",)
 
 #: The momentum forms' bits (kFormWeighted, kFormAdaptive of
-#: csrc/mevp_body.cuh).
+#: csrc/mevp_body.cuh), and the HO kernels' metric form (kHoMetric of
+#: csrc/ho_body.cuh: the HO solver has no adaptive form).
 FORM_WEIGHTED, FORM_ADAPTIVE = 1, 2
+HO_FORM_METRIC = 2
 #: The periodic axes' bits (kWrapX, kWrapY of csrc/common.cuh), and their
 #: shift in an mEVP kernel's form argument (kFormWrapShift).
 WRAP_X, WRAP_Y = 1, 2
@@ -283,7 +286,7 @@ def _bind():
     lib.nst_rdma_band_max_clusters.restype = i
     lib.nst_window_syncs.argtypes = [i] * 6 + [p, p]
     lib.nst_window_syncs.restype = i
-    for name in ("mevp_n_scalars", "dg1_n_table_floats", "ho_n_scalars", "ho_n_table_floats"):
+    for name in ("mevp_n_scalars", "dg1_n_table_floats", "ho_n_scalars", "ho_n_table_floats", "ho_n_consts"):
         getattr(lib, "nst_" + name).restype = i
     lib.nst_dg1_n_table_floats.argtypes = [i]
     lib.nst_error_string.argtypes = [i]
@@ -292,8 +295,11 @@ def _bind():
         raise RuntimeError("csrc/mevp.cu MevpScalars disagrees with the packing")
     if any(lib.nst_dg1_n_table_floats(d) != _n_dg1_table(d) for d in DEGREES):
         raise RuntimeError("csrc/dg1_body.cuh DgTables disagrees with the packing")
-    if lib.nst_ho_n_scalars() != _N_HO_SCALARS or lib.nst_ho_n_table_floats() != _N_HO_TABLE:
-        raise RuntimeError("csrc/ho_body.cuh HoScalars or HoTables disagrees with the packing")
+    if (
+        lib.nst_ho_n_scalars() != _N_HO_SCALARS or lib.nst_ho_n_table_floats() != _N_HO_TABLE
+        or lib.nst_ho_n_consts() != len(HO_KERNEL_CONSTS)
+    ):
+        raise RuntimeError("csrc/ho_body.cuh HoScalars, HoTables or HoConsts disagrees with the packing")
     _lib = lib
     return lib
 
@@ -367,8 +373,12 @@ def wrap_bits(mesh) -> int:
 def kernel_form(solver) -> int:
     """An mEVP kernel's ``form`` argument: the momentum form's bits and,
     above them, the solver mesh's periodic axes; for ``MEVPSolverHO`` (no
-    adaptive form) the form of ``ho_single`` and ``ho_tiled``."""
-    return mevp_form(solver.params) | wrap_bits(solver.mesh) << _FORM_WRAP_SHIFT
+    adaptive form) the form of ``ho_single`` and ``ho_tiled``, with
+    ``HO_FORM_METRIC`` on a graded or spherical mesh."""
+    form = mevp_form(solver.params) | wrap_bits(solver.mesh) << _FORM_WRAP_SHIFT
+    if isinstance(solver, MEVPSolverHO) and not solver.mesh.uniform:
+        form |= HO_FORM_METRIC
+    return form
 
 
 def _n_dg1_table(degree: int) -> int:
@@ -420,12 +430,18 @@ def _dg1_tables(transport: DGTransport):
 
 
 def _ho_scalars(solver: MEVPSolverHO, dt: float):
-    """HoScalars of csrc/ho_body.cuh, field for field."""
+    """HoScalars of csrc/ho_body.cuh, field for field; the four widths are
+    NaN on a graded or spherical mesh, whose kernels read the width planes
+    instead."""
     p, mesh = solver.params, solver.mesh
     e2 = p.ellipse * p.ellipse
     f = p.f_coriolis if p.use_coriolis else 0.0
+    if mesh.uniform:
+        widths = [_f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy), mesh.dx, mesh.dy]
+    else:
+        widths = [float("nan")] * 4
     values = [
-        _f32_reciprocal(mesh.dx), _f32_reciprocal(mesh.dy), mesh.dx, mesh.dy,
+        *widths,
         1.0 + 1.0 / e2, 1.0 - 1.0 / e2, 4.0 / e2, p.delta_min, 1.0 / e2, 1.0 / p.alpha,
         p.rho_ocean * p.cd_ocean, 1.0 + p.beta, p.beta, f, -f, dt,
     ]
@@ -504,8 +520,9 @@ def _check_mevp(solver: MEVPSolver, carry, consts) -> None:
 
 def _check_ho(solver: MEVPSolverHO, carry, consts) -> None:
     """The HO kernels take the solver's const set (``const_names``: the 29,
-    and the four a_{k} in the A-weighted form), float32 (nx, ny) planes,
-    and the carry's 8 velocity and 3 x 3 stress planes."""
+    the four a_{k} in the A-weighted form and the four widths on a graded
+    or spherical mesh), float32 (nx, ny) planes, and the carry's 8 velocity
+    and 3 x 3 stress planes."""
     expected = tuple(sorted(solver.const_names()))
     if tuple(sorted(consts)) != expected:
         raise NotImplementedError(
@@ -521,9 +538,9 @@ def _check_ho(solver: MEVPSolverHO, carry, consts) -> None:
 
 
 def _ho_consts(consts: dict):
-    """The 33 const-plane pointers of HoConsts; the a_{k} null when the
-    consts have none."""
-    return _pointers([consts.get(name) for name in HO_WEIGHTED_CONSTS])
+    """The 37 const-plane pointers of HoConsts; the a_{k} and the widths
+    null when the consts have none."""
+    return _pointers([consts.get(name) for name in HO_KERNEL_CONSTS])
 
 
 def _stream(device) -> int:

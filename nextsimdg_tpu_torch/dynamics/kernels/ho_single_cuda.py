@@ -13,11 +13,16 @@ words that carry the half that wrote them: a block waits on the words it
 reads and on nothing else (a swap after grid.sync() measured slower, as did
 two or four smaller tiles an SM; PERF.md).
 
-In the A-weighted form the four a_{k} planes join the consts (33); on a
-periodic axis the tiles divide the axis exactly and form a ring
-(``tiling(..., periodic=)``), the apron beyond the last tile being the
-first tile's edge. The form (``coupled_cuda.kernel_form``) selects a
-template instance of the kernel.
+In the A-weighted form the four a_{k} planes join the consts (33), and on
+a graded or spherical mesh the four element widths dx, dy, inv_dx and
+inv_dy (33, or 37 with both; a force reads each neighbour element's
+widths, a neighbour tile's from global memory); on a periodic axis the
+tiles divide the axis exactly and form a ring (``tiling(...,
+periodic=)``), the apron beyond the last tile being the first tile's edge.
+The form (``coupled_cuda.kernel_form``) selects a template instance of the
+kernel. At 256^2 the 37 const planes still fit beside the state (128 tiles
+of 16 x 32: 41,616 B of state and 75,776 B of consts a block); at 512^2
+and above no form's consts do, and they are read from global memory.
 
 The tiles must all be resident at once, so a grid whose 17 state planes
 do not fit the card's shared memory at one tile an SM (about 640^2 on the
@@ -56,18 +61,19 @@ SHARED_LIMIT, SM_SHARED = 232448, 233472
 STATE_PLANES, CONST_PLANES = 17, 29
 
 
-def const_planes(weighted: bool) -> int:
-    """The const planes of a form: 29, and the four a_{k} with
-    ``a_weighted_stress``."""
-    return CONST_PLANES + 4 * bool(weighted)
+def const_planes(weighted: bool, metric: bool = False) -> int:
+    """The const planes of a form: 29, the four a_{k} with
+    ``a_weighted_stress`` and the four widths on a graded or spherical
+    mesh (``metric``)."""
+    return CONST_PLANES + 4 * bool(weighted) + 4 * bool(metric)
 
 
 @dataclass(frozen=True)
 class Tiling:
     """TR x TC tiles (``tile``), ``tiles`` = (along i, along j) of them,
     one block of ``threads`` threads each; ``consts_shared``: the
-    ``n_consts`` const planes of the form (29, or 33 A-weighted) fit beside
-    the state in shared memory."""
+    ``n_consts`` const planes of the form (29, 33 A-weighted or metric, 37
+    both) fit beside the state in shared memory."""
 
     tile: tuple
     tiles: tuple
@@ -113,14 +119,18 @@ def _exact_rows(nx: int, tr: int):
 
 
 @lru_cache(maxsize=64)
-def tiling(nx: int, ny: int, sms: int, tile=None, periodic=(False, False), weighted: bool = False) -> Tiling:
+def tiling(
+    nx: int, ny: int, sms: int, tile=None, periodic=(False, False), weighted: bool = False,
+    metric: bool = False,
+) -> Tiling:
     """The tiles of an nx x ny grid on a card of ``sms`` SMs: at most one
     an SM, the smallest area (then the shortest edge, then the widest rows)
     unless ``tile`` = (TR, TC) is given; up to 512 threads a block. A
     periodic axis (``periodic`` = (x, y)) takes only tiles that divide it
     exactly: its tiles form a ring whose last edge is the first tile's.
-    ``weighted``: the A-weighted form's 33 const planes decide whether the
-    consts fit in shared memory. Raises ValueError where the state of a
+    ``weighted`` (the A-weighted form) and ``metric`` (a graded or
+    spherical mesh) give the form's const planes (``const_planes``), which
+    decide whether the consts fit in shared memory. Raises ValueError where the state of a
     tile does not fit a block's shared memory or the tiles outnumber the
     SMs: such a grid cannot be resident."""
     slots, limit = sms, SHARED_LIMIT
@@ -168,7 +178,7 @@ def tiling(nx: int, ny: int, sms: int, tile=None, periodic=(False, False), weigh
             f"{limit}); ho_tiled runs it"
         )
     threads = min(MAX_THREADS, -(-tr * tc // 32) * 32)
-    n_consts = const_planes(weighted)
+    n_consts = const_planes(weighted, metric)
     return Tiling(tile, tiles, threads, shared_bytes(tile, True, n_consts) <= limit, n_consts)
 
 
@@ -217,10 +227,11 @@ def ho_subcycles_single(
 
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     run ``ho_single``: one cooperative launch of one block per tile
-    (``tiling`` on the solver mesh's periodic axes; ``tile`` = (TR, TC)
-    forces the tile shape), in place on a flat copy of the carry
-    (``coupled_cuda.ho_flatten``), so the inputs are not modified; the
-    solver's form (A-weighted, periodic) selects the kernel's instance.
+    (``tiling`` on the solver mesh's periodic axes and the solver's form;
+    ``tile`` = (TR, TC) forces the tile shape), in place on a flat copy of
+    the carry (``coupled_cuda.ho_flatten``), so the inputs are not
+    modified; the solver's form (A-weighted, metric, periodic) selects the
+    kernel's instance.
     Raises ValueError for a grid whose tiles cannot all be resident.
     """
     if cc._on_cpu(carry[0].v):
@@ -236,7 +247,7 @@ def ho_subcycles_single(
     mesh = solver.mesh
     config = tiling(
         nx, ny, sm_count(device), None if tile is None else tuple(tile),
-        (mesh.periodic_x, mesh.periodic_y), solver.params.a_weighted_stress,
+        (mesh.periodic_x, mesh.periodic_y), solver.params.a_weighted_stress, not mesh.uniform,
     )
     scalars, tables = cc._ho_scalars(solver, dt), cc._ho_tables(solver)
     words = exchange(config, device)

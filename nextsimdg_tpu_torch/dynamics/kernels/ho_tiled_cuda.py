@@ -12,9 +12,11 @@ shared memory; the cluster runs up to ``halo`` subcycles on the window and
 writes back its interior. The shipped launch (``launch_config``) is a
 cluster of one block: one 48^2 window a block. One launch per round,
 ``ceil(N / halo)`` rounds, ping-ponging between two (17, nx, ny) buffers.
-The 29 const planes (33 with the A-weighted form's a_{k}) are read from
-global memory. On a periodic axis the window loads wrap (the windows
-beyond the domain are the opposite side's); the form
+The 29 const planes (33 with the A-weighted form's a_{k} or on a graded
+or spherical mesh with its element widths dx, dy, inv_dx and inv_dy, 37
+with both) are read from global memory, the widths at each element's
+index, the apron's elements' too. On a periodic axis the window loads wrap
+(the windows beyond the domain are the opposite side's); the form
 (``coupled_cuda.kernel_form``) selects a template instance of the kernel.
 Cluster launches need a
 card of compute capability 9.0 or newer; a launch the card refuses
@@ -146,7 +148,7 @@ def ho_subcycles_tiled(
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     run ``ho_tiled``, one launch per ``config.halo`` subcycles, in the
     launch configuration given or else ``launch_config``'s; the solver's
-    form (A-weighted, periodic) selects the kernel's instance. The inputs
+    form (A-weighted, metric, periodic) selects the kernel's instance. The inputs
     are not modified.
     """
     if cc._on_cpu(carry[0].v):

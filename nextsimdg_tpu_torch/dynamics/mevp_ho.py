@@ -1,7 +1,7 @@
 """Higher-order mEVP: CG2 velocity + dG1 stress (the neXtSIM_DG core).
 
-Counterpart of ``nextsimdg_tpu.dynamics.mevp_ho`` on a uniform mesh, each
-axis closed or periodic, in eager PyTorch. Velocity is biquadratic CG2, strain and stress dG1 (3
+Counterpart of ``nextsimdg_tpu.dynamics.mevp_ho`` on a uniform, graded or
+spherical mesh, each axis closed or periodic, in eager PyTorch. Velocity is biquadratic CG2, strain and stress dG1 (3
 coefficients per component); the VP law is evaluated at the 2x2 Gauss
 points and projected back.
 
@@ -23,8 +23,14 @@ of each CG2 plane (``a_{k}``, four more const planes) weights the wind and
 the ocean drag, and nodes below ``a_dyn_min`` are pinned, as in the JAX
 package. On a periodic axis every shift wraps and no node is a wall.
 
-Graded and spherical meshes (ROADMAP M9b) and ``adaptive_alpha`` (as in
-the JAX package) raise ``NotImplementedError``.
+On a graded or spherical mesh the element widths are per-element planes
+(``mesh.device_metric_planes``): ``step_consts`` adds ``dx``, ``dy`` and
+their reciprocals ``inv_dx``, ``inv_dy`` (four more const planes, as the
+JAX package passes them to its kernels) and weights the lumped masses by
+the element areas; the strain multiplies by the reciprocals, and the
+divergence weights each element's contribution by its own widths before
+the scatter. ``adaptive_alpha`` raises ``NotImplementedError``, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from .cg2basis import LOCAL_NODE_SOURCE, PLANES, _lagrange_1d, cg2_sampling_table, cg2_tables
-from .mesh import RectMesh
+from .mesh import RectMesh, device_metric_planes
 from .mevp import MEVPParams, _div
 from .stencil import shift_m, shift_p
 from .transport import QuadVelocity, apply_table
@@ -44,9 +50,12 @@ from .transport import QuadVelocity, apply_table
 HO_PLANE_CONSTS = ("dt_m", "active", "b_u", "b_v", "inv_w", "u_ocean", "v_ocean")
 HO_CONSTS = ("strength",) + tuple(f"{name}_{k}" for name in HO_PLANE_CONSTS for k in PLANES)
 #: The 33 planes of the A-weighted form: the 29, then a_{k} of each plane.
-#: Also every const plane that a kernel takes, in the kernels' order
-#: (HoConsts of csrc/ho_body.cuh).
 HO_WEIGHTED_CONSTS = HO_CONSTS + tuple(f"a_{k}" for k in PLANES)
+#: The element widths of a graded or spherical mesh, four more planes.
+HO_METRIC_CONSTS = ("dx", "dy", "inv_dx", "inv_dy")
+#: Every const plane that a kernel takes, in the kernels' order (HoConsts of
+#: csrc/ho_body.cuh): 37, of which a form reads 29, 33 or all.
+HO_KERNEL_CONSTS = HO_WEIGHTED_CONSTS + HO_METRIC_CONSTS
 
 MEVP_BACKENDS = ("auto", "pallas", "pallas-tiled")
 #: Element count from which ``backend="auto"`` runs ho_tiled instead of the
@@ -204,8 +213,9 @@ def ho_velocity_to_quad(mesh: RectMesh, basis, u: HOField, v: HOField) -> QuadVe
 
 
 class MEVPSolverHO:
-    """The higher-order mEVP solver on a uniform ``RectMesh``, each axis
-    closed or periodic, with or without ``a_weighted_stress``.
+    """The higher-order mEVP solver on a uniform, graded or spherical
+    ``RectMesh``, each axis closed or periodic, with or without
+    ``a_weighted_stress``.
 
     ``backend`` picks the kernel on a CUDA card (CPU tensors always run the
     plain version): ``"pallas"`` ho_single (all N subcycles in one
@@ -219,11 +229,6 @@ class MEVPSolverHO:
             # As in the JAX package: no element-level alpha is designed for
             # the dG1 stress at Gauss points.
             raise NotImplementedError("adaptive_alpha is implemented for the CG1 solver only")
-        if not mesh.uniform:
-            raise NotImplementedError(
-                "the HO solver is ported for uniform meshes only: graded and spherical meshes "
-                "(the metric const planes of ho_single and ho_tiled) are ROADMAP M9b"
-            )
         if backend not in MEVP_BACKENDS:
             raise ValueError(f"backend must be one of {MEVP_BACKENDS}, got {backend!r}")
         self.mesh = mesh
@@ -234,6 +239,7 @@ class MEVPSolverHO:
         # Gauss-point projection table with the weights and the inverse dG1
         # mass folded in, as the JAX package folds it.
         self.proj = (t.phi_dg1 * t.w_vol[None, :]) * (1.0 / np.array([1.0, 1 / 12, 1 / 12]))[:, None]
+        self._metric = {}
 
     def schedule(self, sms: int = None) -> str:
         """``"single"`` (ho_single) or ``"tiled"`` (ho_tiled): the kernel
@@ -247,6 +253,8 @@ class MEVPSolverHO:
             if single and sms is not None:
                 from .kernels.ho_single_cuda import holds
 
+                # The state decides (a form's consts are read from global
+                # memory where they do not fit beside it).
                 single = holds(self.mesh.nx, self.mesh.ny, sms, (self.mesh.periodic_x, self.mesh.periodic_y))
             backend = "pallas" if single else "pallas-tiled"
         return "single" if backend == "pallas" else "tiled"
@@ -260,15 +268,45 @@ class MEVPSolverHO:
 
     def const_names(self) -> tuple:
         """The const planes of ``step_consts``, in the kernels' order:
-        ``HO_CONSTS``, or with ``a_weighted_stress`` ``HO_WEIGHTED_CONSTS``."""
-        return HO_WEIGHTED_CONSTS if self.params.a_weighted_stress else HO_CONSTS
+        ``HO_CONSTS``, with ``a_weighted_stress`` the four a_{k}
+        (``HO_WEIGHTED_CONSTS``), on a graded or spherical mesh the four
+        ``HO_METRIC_CONSTS`` last."""
+        names = HO_WEIGHTED_CONSTS if self.params.a_weighted_stress else HO_CONSTS
+        return names if self.mesh.uniform else names + HO_METRIC_CONSTS
+
+    def metric_planes(self, *, device, dtype):
+        """None when uniform; else dict(dx, dy, inv_dx, inv_dy, area) of
+        (nx, ny) planes on ``device``, made once per (device, dtype)."""
+        if self.mesh.uniform:
+            return None
+        key = (torch.device(device), dtype)
+        if key not in self._metric:
+            m = device_metric_planes(self.mesh, device=device, dtype=dtype)
+            self._metric[key] = {
+                "dx": m["dx"], "dy": m["dy"], "inv_dx": 1.0 / m["dx"], "inv_dy": 1.0 / m["dy"],
+                "area": m["area"],
+            }
+        return self._metric[key]
 
     # -- strain: CG2 velocity -> dG1 coefficients ----------------------------
-    def strain_rates(self, u: HOField, v: HOField):
-        """(e11, e22, e12) as (3, nx, ny) dG1 coefficients."""
+    def strain_rates(self, u: HOField, v: HOField, metric=None):
+        """(e11, e22, e12) as (3, nx, ny) dG1 coefficients; ``metric``: the
+        (inv_dx, inv_dy) planes of a graded or spherical mesh, broadcast
+        over the dof axis (each element's own widths; by default its
+        ``metric_planes``)."""
         t = self.tables
-        dx, dy = self.mesh.dx, self.mesh.dy
         u_loc, v_loc = self.gather_local(u), self.gather_local(v)
+        if metric is None and not self.mesh.uniform:
+            m = self.metric_planes(device=u.v.device, dtype=u.v.dtype)
+            metric = (m["inv_dx"][None], m["inv_dy"][None])
+        if metric is not None:
+            inv_dx, inv_dy = metric
+            du_dx = apply_table(t.grad_x_to_dg1.T, u_loc) * inv_dx
+            du_dy = apply_table(t.grad_y_to_dg1.T, u_loc) * inv_dy
+            dv_dx = apply_table(t.grad_x_to_dg1.T, v_loc) * inv_dx
+            dv_dy = apply_table(t.grad_y_to_dg1.T, v_loc) * inv_dy
+            return du_dx, dv_dy, 0.5 * (du_dy + dv_dx)
+        dx, dy = self.mesh.dx, self.mesh.dy
         du_dx = apply_table(t.grad_x_to_dg1.T, u_loc) / dx
         du_dy = apply_table(t.grad_y_to_dg1.T, u_loc) / dy
         dv_dx = apply_table(t.grad_x_to_dg1.T, v_loc) / dx
@@ -276,27 +314,41 @@ class MEVPSolverHO:
         return du_dx, dv_dy, 0.5 * (du_dy + dv_dx)
 
     # -- weak-form stress divergence -> CG2 nodal forces ---------------------
-    def stress_divergence(self, s11, s22, s12):
+    def stress_divergence(self, s11, s22, s12, metric=None):
         """The raw nodal force integrals (Fu, Fv) as HOFields (stress x
-        length; the 1/W normalisation is the velocity update's)."""
+        length; the 1/W normalisation is the velocity update's). ``metric``:
+        the (dx, dy) planes of a graded or spherical mesh (by default its
+        ``metric_planes``); each element's contribution is weighted by its
+        own widths before the scatter."""
         t = self.tables
-        dx, dy = self.mesh.dx, self.mesh.dy
+        if metric is None and not self.mesh.uniform:
+            m = self.metric_planes(device=s11.device, dtype=s11.dtype)
+            metric = (m["dx"], m["dy"])
+        dx, dy = (self.mesh.dx, self.mesh.dy) if metric is None else metric
         fu_loc = -(apply_table(t.div_x, s11) * dy + apply_table(t.div_y, s12) * dx)
         fv_loc = -(apply_table(t.div_x, s12) * dy + apply_table(t.div_y, s22) * dx)
         return self.scatter_local(fu_loc), self.scatter_local(fv_loc)
 
-    def node_weights(self, *, device, dtype) -> HOField:
-        """W_n = int phi_n dA accumulated per owned node."""
-        area = torch.full((self.mesh.nx, self.mesh.ny), self.mesh.cell_area, device=device, dtype=dtype)
+    def node_weights(self, *, device, dtype, area=None) -> HOField:
+        """W_n = int phi_n dA accumulated per owned node; ``area``: the
+        element areas (default: the uniform mesh's cell area everywhere,
+        a graded or spherical mesh's area plane)."""
+        if area is None and not self.mesh.uniform:
+            area = self.metric_planes(device=device, dtype=dtype)["area"]
+        if area is None:
+            area = torch.full((self.mesh.nx, self.mesh.ny), self.mesh.cell_area, device=device, dtype=dtype)
         lumped = self.tables.lumped_mass
         return self.scatter_local(torch.stack([float(lumped[n]) * area for n in range(9)]))
 
-    def node_thickness(self, h) -> HOField:
-        """Lumped-mass-weighted thickness at the nodes: sum(h W) / sum(W)."""
-        area = self.mesh.cell_area
+    def node_thickness(self, h, area=None) -> HOField:
+        """Lumped-mass-weighted thickness at the nodes: sum(h W) / sum(W);
+        ``area`` as for ``node_weights``."""
         lumped = self.tables.lumped_mass
-        num = self.scatter_local(torch.stack([float(lumped[n]) * area * h for n in range(9)]))
-        den = self.node_weights(device=h.device, dtype=h.dtype)
+        if area is None and not self.mesh.uniform:
+            area = self.metric_planes(device=h.device, dtype=h.dtype)["area"]
+        scale = self.mesh.cell_area if area is None else area
+        num = self.scatter_local(torch.stack([float(lumped[n]) * scale * h for n in range(9)]))
+        den = self.node_weights(device=h.device, dtype=h.dtype, area=area)
         return HOField(v=num.v / den.v, b=num.b / den.b, l=num.l / den.l, c=num.c / den.c)
 
     def boundary_mask(self, *, device, dtype) -> HOField:
@@ -323,12 +375,19 @@ class MEVPSolverHO:
         a_{k}, the lumped nodal concentration clipped to [0, 1] (33
         planes): it weights the wind here and the ocean drag in
         ``velocity_update``, and nodes below ``a_dyn_min`` are held at
-        rest through the active factor."""
+        rest through the active factor. On a graded or spherical mesh also
+        the element widths dx, dy and their reciprocals (``const_names``),
+        and the lumped masses take the element areas."""
         p = self.params
         consts = {"strength": p.p_star * h * torch.exp(-p.c_compaction * (1.0 - a))}
-        h_node = self.node_thickness(h)
-        weights = self.node_weights(device=h.device, dtype=h.dtype)
-        a_node = self.node_thickness(a) if p.a_weighted_stress else None
+        metric = self.metric_planes(device=h.device, dtype=h.dtype)
+        area = None
+        if metric is not None:
+            consts.update({name: metric[name] for name in HO_METRIC_CONSTS})
+            area = metric["area"]
+        h_node = self.node_thickness(h, area)
+        weights = self.node_weights(device=h.device, dtype=h.dtype, area=area)
+        a_node = self.node_thickness(a, area) if p.a_weighted_stress else None
         for k in PLANES:
             m = p.rho_ice * getattr(h_node, k)
             dm = _div(dt, torch.clamp(m, min=p.min_ice_mass))
@@ -359,7 +418,8 @@ class MEVPSolverHO:
         e2 = p.ellipse * p.ellipse
         u, v, s11, s22, s12 = carry
         strength = consts["strength"]
-        e11, e22, e12 = self.strain_rates(u, v)
+        metric = (consts["inv_dx"][None], consts["inv_dy"][None]) if "inv_dx" in consts else None
+        e11, e22, e12 = self.strain_rates(u, v, metric)
 
         phi_at_q = t.phi_dg1  # (3, NQ)
         e11_q = apply_table(phi_at_q, e11)
@@ -397,7 +457,8 @@ class MEVPSolverHO:
         new (u, v) HOFields."""
         p = self.params
         u, v, s11, s22, s12 = carry
-        fu_raw, fv_raw = self.stress_divergence(s11, s22, s12)
+        metric = (consts["dx"], consts["dy"]) if "dx" in consts else None
+        fu_raw, fv_raw = self.stress_divergence(s11, s22, s12, metric)
         new_u, new_v = {}, {}
         for k in PLANES:
             uk, vk = getattr(u, k), getattr(v, k)

@@ -24,7 +24,10 @@ and both unrolls, at 512^2 and a ragged shape.
 The periodic forms of K1's four kernels, mevp_tiled, mevp_single and
 transport_tiled, and the TVB forms (``dg1_rk_stage``'s unlimited stage,
 ``dg1_limit`` and transport_tiled's TVB form), against their plain versions
-and each other, on periodic and closed uniform and spherical meshes.
+and each other, on periodic and closed uniform and spherical meshes. The
+HO kernels' A-weighted, periodic and metric forms (graded, spherical and
+the 360 degree ring), and the periodic metric qv forms of ``dg1_rk_stage``
+and ``transport_tiled``, likewise.
 
 These tests need an NVIDIA card (the kernels have no CPU mode) and skip
 elsewhere. On a machine with one, run them with
@@ -1166,11 +1169,10 @@ def test_periodic_mevp_kernels_match_plain_and_each_other(device, periodic, sphe
 @pytest.mark.parametrize("periodic, spherical", PERIODIC_MESHES)
 def test_periodic_sampling_and_stage_match_plain(device, periodic, spherical):
     """dg1_sample_cfl's periodic form gives the plain speeds; dg1_rk_stage's
-    (blended and not) the plain stage, also in the HO path's qv form on a
-    uniform mesh, and its no-limit instance (the advection run, qv form) two
-    plain unlimited steps, at 16-byte copies (ny = 72) and 4-byte ones
-    (ny = 70). The qv form of the limited stage has no metric instance (the
-    HO solver runs on uniform meshes): the ring's launch is refused."""
+    (blended and not) the plain stage, also in the HO path's qv form (on the
+    ring its metric instance), and its no-limit instance (the advection run,
+    qv form) two plain unlimited steps, at 16-byte copies (ny = 72) and
+    4-byte ones (ny = 70)."""
     for ny in (72, 70):
         model, carry, _, psi, rng = setup(device, n=40, ny=ny, spherical=spherical,
                                           periodic=PERIODIC[periodic])
@@ -1185,10 +1187,6 @@ def test_periodic_sampling_and_stage_match_plain(device, periodic, spherical):
         qv = quad_velocity(model, rng, device)
         for a, b in ((0.0, 1.0), (0.75, 0.25)):
             args = (tr, psi, base, None, None, *faces, a, b, 300.0)
-            if spherical:
-                with pytest.raises(RuntimeError, match="CUDA error"):
-                    cc.dg1_rk_stage(*args, qv=qv)
-                continue
             assert_close(cc.dg1_rk_stage(*args, qv=qv), cc.dg1_rk_stage_reference(*args, qv=qv), TOL_LAUNCH)
         one = psi[:, :1].contiguous()
         assert_close(cc.transport_run(tr, one, qv, 100.0, 2), cc.transport_run_reference(tr, one, qv, 100.0, 2),
@@ -1444,3 +1442,137 @@ def test_ho_forms_dynamics_phase_matches_plain(device, form, tvb_m, mevp, transp
     assert counts["ho_single" if mevp == "single" else "ho_tiled"] >= 1
     assert (counts["transport_tiled"] > 0) == (transport == "tiled")
     assert (counts["dg1_limit"] > 0) == (transport == "xla" and tvb_m is not None)
+
+
+# -- the HO solver on graded and spherical meshes (the metric forms) ----------------
+def metric_mesh(kind, nx=40, ny=72):
+    """A graded RectMesh (dx graded along x, dy along y), the closed lon-lat
+    window or the 360 degree ring (periodic in x)."""
+    if kind == "graded":
+        return RectMesh(nx, ny, 4e3 * (1.0 + 0.02 * np.arange(nx)), 3e3 * (1.0 + 0.01 * np.arange(ny)))
+    lon = (0.0, 360.0) if kind == "ring" else (-40.0, 40.0)
+    return SphericalMesh(nx, ny, lon[0], lon[1], 55.0, 85.0, periodic_x=kind == "ring")
+
+
+def ho_metric_setup(device, kind, weighted=False, nx=40, ny=72):
+    """ho_setup's seeded carry and consts on a metric mesh: an HO solver of
+    the form, its 33 (37 A-weighted) const planes."""
+    solver, carry, _ = ho_setup(device, nx, ny, periodic=(kind == "ring", False), weighted=weighted)
+    solver = mevp_ho.MEVPSolverHO(metric_mesh(kind, nx, ny), MEVPParams(a_weighted_stress=weighted))
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    field = lambda s, m=0.0: mevp_ho.HOField(*(t(m + rng.normal(0.0, s, (nx, ny))) for _ in range(4)))
+    forcing = mevp_ho.HODynamicsForcing(field(2.0, 8.0), field(2.0, 2.0), field(0.05), field(0.05))
+    a = t(rng.uniform(0.3, 1.0, (nx, ny)))
+    if weighted:
+        a[: nx // 4] = t(rng.uniform(0.0, 0.06, (nx // 4, ny)))
+    consts = solver.step_consts(
+        mevp_ho.HOVelocityState(*carry), t(rng.uniform(0.0, 2.0, (nx, ny))), a, forcing,
+        solver.boundary_mask(device=device, dtype=torch.float32), DT,
+    )
+    return solver, carry, consts
+
+
+HO_METRIC_FORMS = [("graded", False), ("spherical", False), ("spherical", True), ("ring", False), ("ring", True)]
+
+
+@pytest.mark.parametrize("n_sub", [1, 13])
+@pytest.mark.parametrize("kind, weighted", HO_METRIC_FORMS)
+def test_ho_metric_forms_match_plain_and_each_other(device, kind, weighted, n_sub):
+    """Each metric form of ho_single (its own tiles, consts in shared memory,
+    and a forced tile) and ho_tiled (the shipped window, 2 x 2 clusters and
+    small windows with aprons in every block) against the plain subcycles,
+    one launch at 1e-5 and 13 subcycles at 1e-3, and against each other
+    (the same bodies: expected 0)."""
+    solver, carry, consts = ho_metric_setup(device, kind, weighted)
+    assert cc.kernel_form(solver) & cc.HO_FORM_METRIC
+    assert sorted(consts) == sorted(solver.const_names()) and len(consts) == (37 if weighted else 33)
+    ref = hs.ho_single_reference(solver, carry, consts, DT, n_sub)
+    cc.reset_launches()
+    single = hs.ho_subcycles_single(solver, carry, consts, DT, n_sub)
+    forced = hs.ho_subcycles_single(solver, carry, consts, DT, n_sub, tile=(10, 8))
+    configs = (ht.SHIPPED, ht.CLUSTER_2X2, ht.LaunchConfig(2, 2, 16, 4, 256))
+    tiled = [ht.ho_subcycles_tiled(solver, carry, consts, DT, n_sub, config) for config in configs]
+    assert cc.launches["ho_single"] == 2
+    assert cc.launches["ho_tiled"] == sum(-(-n_sub // c.halo) for c in configs)
+    for planes in zip(ho_planes(ref), ho_planes(single), ho_planes(forced), *map(ho_planes, tiled)):
+        r, g, rest = planes[0], planes[1], planes[2:]
+        assert_close(g, r, TOL_LAUNCH if n_sub == 1 else 1e-3)
+        for w in rest:
+            assert_same_schedule(w, g)
+
+
+def test_ho_metric_forms_take_their_const_planes(device):
+    """The metric forms keep their 33 or 37 const planes in shared memory
+    where they fit (40 x 72) and not at 600^2; the kernels refuse a metric
+    mesh's consts without the widths."""
+    solver, carry, consts = ho_metric_setup(device, "ring", weighted=True)
+    config = hs.tiling(40, 72, hs.sm_count(device), periodic=(True, False), weighted=True, metric=True)
+    assert config.consts_shared and config.n_consts == 37
+    assert config.n_tiles <= hs.max_blocks(device, config, cc.kernel_form(solver))
+    assert not hs.tiling(600, 600, hs.sm_count(device), metric=True).consts_shared
+    assert ht.max_clusters(device, ht.SHIPPED, cc.kernel_form(solver)) >= 1
+    no_widths = {name: consts[name] for name in mevp_ho.HO_WEIGHTED_CONSTS}
+    for run in (hs.ho_subcycles_single, ht.ho_subcycles_tiled):
+        with pytest.raises(NotImplementedError, match="consts"):
+            run(solver, carry, no_widths, DT, 3)
+
+
+@pytest.mark.parametrize("degree, tvb", [(0, False), (1, False), (2, False), (1, True), (2, True)])
+def test_ring_metric_qv_stage_and_transport_match_plain(device, degree, tvb):
+    """The HO path's qv form on the 360 degree ring with the coastline:
+    dg1_rk_stage's periodic metric limited stage (and with TVB its
+    unlimited stage and dg1_limit with the tolerance planes) launch by
+    launch against the plain ones; without TVB, k = 4 substeps on the
+    staged schedule and on transport_tiled's periodic metric qv form equal
+    to each other and to the plain substeps."""
+    model, _, _, psi, rng = setup(device, n=40, ny=72, degree=degree, spherical=True,
+                                  periodic=(True, False), tvb_m=0.0 if tvb else None)
+    tr = model.transport
+    qv = quad_velocity(model, rng, device, scale=1.5)
+    faces = model.face_masks(device=device, dtype=torch.float32)
+    args = (tr, psi, psi.flip(-1).contiguous(), None, None, *faces, 0.5, 0.5, 300.0)
+    stage = cc.dg1_rk_stage(*args, qv=qv, tvb=tvb)
+    assert_close(stage, cc.dg1_rk_stage_reference(*args, qv=qv, tvb=tvb), TOL_LAUNCH)
+    if tvb:
+        assert_close(cc.dg1_limit(tr, stage), cc.dg1_limit_reference(tr, stage), TOL_LAUNCH)
+        return
+    k = 4
+    sub = (tr, psi, None, None, DT / k, k, faces)
+    cc.reset_launches()
+    staged = cc.transport_substeps(*sub, qv=qv)
+    assert cc.launches["dg1_rk_stage"] == k * len(cc._RK_STAGES[tr.scheme])
+    tiled = tt.transport_substeps_tiled(*sub, qv=qv)
+    assert cc.launches["transport_tiled"] >= 1
+    assert_same_schedule(tiled, staged)
+    assert_close(staged, cc.transport_substeps_reference(*sub, qv=qv), 1e-5)
+
+
+@pytest.mark.parametrize("kind, tvb_m, mevp, transport", [
+    (kind, None, mevp, transport)
+    for kind in ("spherical", "ring", "graded")
+    for mevp, transport in (("tiled", "tiled"), ("single", "xla"), ("single", "tiled"))
+] + [("ring", 0.0, "tiled", "xla"), ("spherical", 0.0, "single", "xla")])
+def test_ho_metric_dynamics_phase_matches_plain(device, kind, tvb_m, mevp, transport):
+    """The HO dynamics phase on each metric mesh and schedule (TVB on the
+    staged transport, which "auto" runs there) against the plain phase: 20
+    subcycles at 1e-3, the tracers at 1e-5, with its launches."""
+    modules.get_loader().set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        model = CoupledModel(metric_mesh(kind), n_subcycles=20, tvb_m=tvb_m,
+                             ocean_mask=None if kind == "graded" else synthetic_coastline(40, 72))
+    finally:
+        modules.get_loader().reset()
+    _, carry, consts = ho_metric_setup(device, kind)
+    psi = setup(device, n=40, ny=72)[3]
+    faces = model.face_masks(device=device, dtype=torch.float32)
+    cc.reset_launches()
+    got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 20, faces, mevp=mevp, transport=transport)
+    counts = dict(cc.launches)
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 20, faces)
+    for g, r in zip(ho_planes(got_carry), ho_planes(ref_carry)):
+        assert_close(g, r, 1e-3)
+    assert_close(got_tr, ref_tr, 1e-5)
+    assert counts["ho_single" if mevp == "single" else "ho_tiled"] >= 1
+    assert (counts["transport_tiled"] > 0) == (transport == "tiled")
+    assert (counts["dg1_limit"] > 0) == (tvb_m is not None)

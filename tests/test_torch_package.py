@@ -142,7 +142,8 @@ def test_host_packing_matches_the_c_structs():
     ho = MEVPSolverHO(model.mesh)
     assert len(cc._ho_scalars(ho, 600.0)) == _struct_floats(ho_src, "HoScalars")
     assert len(cc._ho_tables(ho)) == _struct_floats(ho_src, "HoTables")
-    assert _struct_pointers(ho_src, "HoConsts") == len(mevp_ho.HO_WEIGHTED_CONSTS) == 33
+    assert _struct_pointers(ho_src, "HoConsts") == len(mevp_ho.HO_KERNEL_CONSTS) == 37
+    assert len(mevp_ho.HO_WEIGHTED_CONSTS) == 33
     assert len(mevp_ho.HO_CONSTS) == 29
 
 
@@ -152,10 +153,14 @@ REPLACED = {
     "transport_tvb.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "transport_periodic.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "transport_periodic_qv.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "transport_periodic_qv_metric.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "transport_tiled_qv.cu": "transport_tiled.py::transport_substeps_tiled",
+    "transport_tiled_qv_metric.cu": "transport_tiled.py::transport_substeps_tiled",
     "transport_tiled_tvb.cu": "transport_tiled.py::transport_substeps_tiled",
     "ho_single_forms.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
+    "ho_single_metric.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "ho_tiled_forms.cu": "mevp_ho_tiled.py::ho_subcycles_tiled",
+    "ho_tiled_metric.cu": "mevp_ho_tiled.py::ho_subcycles_tiled",
     "transport_tiled_forms.cu": "transport_tiled.py::transport_substeps_tiled",
     "mevp_tiled_periodic.cu": "mevp_tiled.py::mevp_subcycles_tiled",
     "mevp_single_periodic.cu": "mevp_pallas.py::mevp_subcycles_pallas",

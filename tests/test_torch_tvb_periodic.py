@@ -600,20 +600,23 @@ def test_halo_widen_wraps_a_periodic_axis(axis):
         stencil.halo_widen(t64(a), 8, axis + 1, True)
 
 
-def test_ho_on_a_periodic_mesh_raises_naming_its_item():
-    """The HO solver runs on a periodic RectMesh; on the 360 degree ring (a
-    spherical mesh) it raises, naming its item (M9b: the metric planes)."""
+def test_ho_on_a_periodic_mesh_pins_closed_axes_only():
+    """The HO solver runs on a periodic RectMesh and on the 360 degree ring
+    (a spherical mesh, periodic in x): the node mask pins the closed axis's
+    wall and no node of the periodic one."""
     loader = modules.get_loader()
     loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
     try:
         ring = CoupledModel(RectMesh(N, N, 4e3, 4e3, periodic_y=True))
-        with pytest.raises(NotImplementedError, match="M9b"):
-            CoupledModel(SphericalMesh(N, N, 0.0, 360.0, 60.0, 80.0, periodic_x=True))
+        sphere = CoupledModel(SphericalMesh(N, N, 0.0, 360.0, 60.0, 80.0, periodic_x=True))
     finally:
         loader.reset()
     assert ring.is_high_order and ring.mevp.mesh.periodic_y
     mask = ring.node_mask(device="cpu", dtype=torch.float64)
     assert bool((mask.v[1:, 0] == 1).all()) and bool((mask.v[0] == 0).all())
+    assert sphere.is_high_order and sphere.mevp.mesh.periodic_x
+    mask = sphere.node_mask(device="cpu", dtype=torch.float64)
+    assert bool((mask.v[:, 1:] == 1).all()) and bool((mask.v[:, 0] == 0).all())
 
 
 @pytest.mark.parametrize("degree, transport_backend", [(1, "tiled"), (2, "xla")])
