@@ -115,6 +115,22 @@ CFL-adaptive transport substeps:
   periodic metric qv form, with the staged periodic metric qv stage, and
   with M = 0 its TVB stage and dg1_limit); and a graded 256^2 RectMesh
   on ho_single and on ho_tiled;
+* the rank grid on graded, spherical and periodic meshes (phase
+  ``check_grid_forms``, ROADMAP M10b part 1): the battery's
+  ``coupled_1m_spherical_spmd`` (the 1024^2 spherical coastline window,
+  config 4's state and forcing, on 2 x 2 ranks of 512^2
+  ``LocalMeshView`` blocks: the blocked schedule, mevp_tiled with the
+  widened metric consts, and rdma, rdma_band's metric form; the spmd
+  transport_tiled with the widened metric planes) and
+  ``spherical_16m_spmd`` (the same at 4096^2 on 2048^2 blocks: BASELINE
+  config 5 on the spherical coastline domain); the 1024^2 ring with the
+  coastline on rdma on 2 x 2, 2 x 1 (a ring of two ranks) and 1 x 2 (the
+  ring's axis not split: mevp_tiled's periodic interior, rdma_band's ring
+  form) and blocked on 1 x 2; config 4 periodic in both axes with
+  ``tvb_m`` = 0 and a middle M, and closed with M = 0 (transport_tiled's
+  rank grid TVB form: the global walls inside the widened block); the
+  A-weighted config 4 and ``box_adaptive``'s forms on rdma; free drift on
+  config 4;
 * the engine (``nextsimdg_tpu_torch.runtime``, ``python -m
   nextsimdg_tpu_torch``), which runs no kernel: BASELINE config 1
   (``run/dev1.cfg``: the 10 x 10 devgrid restart, 1 step of 1 s, dummy
@@ -223,6 +239,14 @@ Phases, each printed on its own lines:
    and its TVB stage with dg1_limit; and the metric paths one step against
    the plain path and 20 steps bounded, land untouched, every kernel of the
    path launched;
+   then (phase ``check_grid_forms``) each new form of rdma_band (metric,
+   ring, A-weighted, adaptive) and of the spmd transport_tiled (the TVB
+   walls, the widened metric planes) launch by launch against its plain
+   version (TOL_LAUNCH), the rdma rounds against the blocked round
+   (expected 0), each grid path one decomposed step against the
+   single-device step (expected 0) and 20 steps (4 but on the two cells
+   and the 2 x 2 ring) bounded with land untouched, and 4 steps of
+   ``spherical_16m_spmd``;
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -257,13 +281,21 @@ Phases, each printed on its own lines:
    one, with a profile of ``ho_coupled_1m_periodic``; each metric form in
    turns with its closed instance, and the HO spherical coastline step and
    the HO ring beside ``ho_coupled_1m``, with a profile of each;
+   ``coupled_1m_spherical_spmd`` and ``spherical_16m_spmd`` in chunks of 4
+   steps at h = 16 and 32 beside the single-device spherical step, with a
+   profile of the 16M grid step; each new form of rdma_band and the spmd
+   transport_tiled in turns with the closed uniform instance on the same
+   launch;
    last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
    transport_tiled at 1024^2, ho_single and ho_tiled at their paths'
    shapes, rdma_stage and rdma_band on the x and y bands, beside their
    back-to-back times (every row of the summary
-   carries the back-to-back time per call). One card shows what
+   carries the back-to-back time per call) and the CUDA events' time of
+   the whole call, which stands alone where a profiler session records
+   nothing (CUPTI on some H100 machines now and then stops recording for the
+   rest of the process). One card shows what
    the exchange costs, not how the step scales over cards.
    The "auto" threshold sweeps and the tile sweeps are
    ``python -m nextsimdg_tpu_torch.benchmarks.mevp_large``'s.
@@ -295,7 +327,7 @@ import torch
 
 from nextsimdg_tpu_torch import coupled, modules
 from nextsimdg_tpu_torch.benchmarks import mevp_large, roofline
-from nextsimdg_tpu_torch.benchmarks.common import device_ms
+from nextsimdg_tpu_torch.benchmarks.common import best_ms, profiled_ms
 from nextsimdg_tpu_torch.config import Configurator, ConfiguredModule
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
@@ -719,15 +751,23 @@ def ptxas_report(text: str):
             args = re.findall(r"L([bi])(\d+)E", rest.split("EE")[0] + "E") if rest.startswith("I") else []
             if kernel == "rdma_stage_kernel":  # its one template argument: 16-byte vectors
                 kernel += "<float4>" if args[0][1] == "1" else "<scalar>"
-            elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound
+            elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound, the forms
                 axis = "along columns, x bands" if args[0][1] == "1" else "along rows, y bands"
-                kernel += f"<{axis}, {args[1][1]} threads>"
-            elif kernel == "transport_tiled_kernel":  # degree, metric, qv, copy form, TVB, periodic
+                forms = []
+                if args[2:] and args[2][1] == "1":
+                    forms.append("metric")
+                if args[3:] and args[3][1] != "0":
+                    forms.append(MOMENTUM_FORM_NAMES[int(args[3][1])])
+                if args[4:] and args[4][1] == "1":
+                    forms.append("ring")
+                kernel += f"<{axis}, {args[1][1]} threads{''.join(', ' + f for f in forms)}>"
+            elif kernel == "transport_tiled_kernel":  # degree, metric, qv, copy form, TVB, periodic, walls
                 kernel += "<" + ", ".join((
                     f"dG{args[0][1]}", "metric" if args[1][1] == "1" else "uniform",
                     "qv" if args[2][1] == "1" else "cg1",
                     "16-byte copies" if args[3][1] == "4" else "4-byte copies",
-                ) + tuple(name for name, arg in zip(("TVB", "periodic"), args[4:]) if arg[1] == "1")) + ">"
+                ) + tuple(name for name, arg in zip(("TVB", "periodic", "rank grid walls"), args[4:])
+                          if arg[1] == "1")) + ">"
             elif kernel == "ho_single_kernel":  # consts in shared memory
                 kernel += "<consts shared>" if args[0][1] == "1" else "<consts global>"
             elif kernel == "ho_single_sync_kernel":
@@ -2163,6 +2203,9 @@ def profile(tag: str, step, n_steps: int = 5) -> None:
     events = [
         e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
     ]
+    if not events:
+        log("time", f"profile {tag}: wall {wall:.3f} ms/step (profiled); the profiler recorded no device event")
+        return
     per_step = lambda e: e.self_device_time_total / 1e3 / n_steps
     busy = sum(per_step(e) for e in events)
     top = sorted(events, key=per_step, reverse=True)[:5]
@@ -2312,21 +2355,25 @@ def rdma_round_checked(model, carry, consts):
     return errors, out, blocked.spmd_subcycles(carry, consts, DT, h), captured
 
 
-def rdma_band_work(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int) -> tuple:
+def rdma_band_work(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int, n_consts: int = 7,
+                   cell_ops: int = None) -> tuple:
     """(bytes, operations) that one rdma_band launch (a pair of bands) needs
     for its patch: the cone of dependence of the h patch rows (x) or
     columns (y), which narrows by one ring per subcycle. At subcycle s of
     n_sub it spans h + 2 (n_sub - s) cells across the band and, along it,
     the ny columns of an x band or nx + 2 (n_sub - s) of the nx + 2 hx rows
-    of a y band. Bytes: the 5 state and 7 const planes of the first
-    subcycle's cone read once, the patch written once."""
+    of a y band. Bytes: the 5 state and ``n_consts`` const planes (7; 12 or
+    13 in the metric and A-weighted forms) of the first subcycle's cone
+    read once, the patch written once; ``cell_ops``: the stress and velocity
+    bodies' operations a cell (the uniform fixed-alpha ones by default)."""
+    cell_ops = OPS["stress"] + OPS["velocity"] if cell_ops is None else cell_ops
     across = lambda s: min(3 * h, h + 2 * (n_sub - s))
     along = lambda s: ny if axis == 0 else min(nx + 2 * hx, nx + 2 * (n_sub - s))
     cells = sum(across(s) * along(s) for s in range(1, n_sub + 1))
     patch = 5 * h * (ny if axis == 0 else nx) * 4
     return (
-        2 * ((5 + 7) * across(1) * along(1) * 4 + patch),
-        2 * cells * (OPS["stress"] + OPS["velocity"]),
+        2 * ((5 + n_consts) * across(1) * along(1) * 4 + patch),
+        2 * cells * cell_ops,
     )
 
 
@@ -3987,6 +4034,400 @@ def time_ho_metric(device, card: str) -> None:
         profile(f"{tag} coupled step ({N4}x{N4}, {model.schedule(device)})",
                 lambda: model.step(state, phys, dyn, DT))
 
+# -- M10b part 1: the rank grid on graded, spherical and periodic meshes -----------
+#: The paths of phase check_grid_forms, each on a rank grid of the one card:
+#: the battery's coupled_1m_spherical_spmd (the spherical coastline window at
+#: 1024^2 on 2 x 2 ranks of 512^2, the blocked schedule and rdma); the 1024^2
+#: ring with the coastline on 2 x 2, 2 x 1 (a ring of two ranks) and 1 x 2
+#: (the ring's axis not split: mevp_tiled's periodic interior, the y bands
+#: wrap); config 4 periodic in both axes with tvb_m = 0 and a middle M, and
+#: closed with tvb_m = 0 (the spmd transport's TVB walls inside the widened
+#: block); coupled_1m_aweighted and box_adaptive's forms on rdma; free drift.
+#: (path, mesh kind, rank grid, model keywords, mEVP schedule, steps).
+GRID_PATHS = [
+    ("coupled_1m_spherical_spmd", "spherical", (2, 2), {"mevp_backend": "blocked"}, "blocked"),
+    ("coupled_1m_spherical_spmd_rdma", "spherical", (2, 2), {"mevp_backend": "rdma"}, "rdma"),
+    ("grid_ring_2x2", "ring", (2, 2), {"mevp_backend": "rdma"}, "rdma"),
+    ("grid_ring_2x1", "ring", (2, 1), {"mevp_backend": "rdma"}, "rdma"),
+    ("grid_ring_1x2", "ring", (1, 2), {"mevp_backend": "rdma"}, "rdma"),
+    ("grid_ring_1x2_blocked", "ring", (1, 2), {"mevp_backend": "blocked"}, "blocked"),
+    ("grid_periodic_tvb_m0", "periodic", (2, 2), {"tvb_m": 0.0}, "blocked"),
+    ("grid_periodic_tvb_mmid", "periodic", (2, 2), {"tvb_m": "mid"}, "blocked"),
+    ("grid_closed_tvb_m0", "config4", (2, 2), {"tvb_m": 0.0}, "blocked"),
+    ("grid_aweighted_rdma", "config4", (2, 2),
+     {"mevp_backend": "rdma", "mevp_params": MEVPParams(a_weighted_stress=True)}, "rdma"),
+    ("grid_adaptive_rdma", "box", (2, 2),
+     {"mevp_backend": "rdma", "mevp_params": MEVPParams(adaptive_alpha=True)}, "rdma"),
+    ("grid_free_drift", "config4", (2, 2), {"free_drift": True}, "free-drift"),
+]
+_GRID_MEVP = {
+    "blocked": ("mevp_tiled",), "rdma": ("mevp_tiled", "rdma_stage", "rdma_band"), "free-drift": (),
+}
+PATH_KERNELS.update({
+    path: _GRID_MEVP[schedule] + ("dg1_sample_cfl", "transport_tiled")
+    for path, _, _, _, schedule in GRID_PATHS
+})
+PATH_KERNELS["spherical_16m_spmd"] = ("mevp_tiled", "dg1_sample_cfl", "transport_tiled")
+#: Steps of the two cells' paths and the 2 x 2 ring from zeroed launch
+#: counts; N5_STEPS on the other grid paths and at 16M (a 2 x 2 step takes
+#: ~0.2 s of host issue).
+GRID_STEPS = 20
+GRID_STEPS_LONG = ("coupled_1m_spherical_spmd", "coupled_1m_spherical_spmd_rdma", "grid_ring_2x2")
+#: The rows of the new forms of rdma_band and the spmd transport_tiled (their
+#: sources, and the paths whose launches of the kernel are the form's).
+_METRIC_RDMA = ["coupled_1m_spherical_spmd_rdma", "grid_ring_2x2", "grid_ring_2x1"]  # not 1x2: the ring row
+FORM_ROWS.update({
+    "rdma_band metric": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_metric.cu", _METRIC_RDMA),
+    "rdma_band ring": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_metric.cu", ["grid_ring_1x2"]),
+    "rdma_band A-weighted": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_forms.cu", ["grid_aweighted_rdma"]),
+    "rdma_band adaptive": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_forms.cu", ["grid_adaptive_rdma"]),
+    "transport_tiled spmd-tvb": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_spmd.cu",
+                                 ["grid_periodic_tvb_m0", "grid_periodic_tvb_mmid", "grid_closed_tvb_m0"]),
+    "transport_tiled spmd-metric": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled.cu",
+                                    [p for p, kind, *_ in GRID_PATHS if kind in ("spherical", "ring")]
+                                    + ["spherical_16m_spmd"]),
+})
+
+
+def grid_path_model(device, kind: str, shape, kwargs: dict, n: int = None, mid: dict = None):
+    """(single-device model, rank 0's model, the ShardedCoupledModel, state,
+    phys, dyn) of a grid path: ``kind`` "spherical" (the window with the
+    coastline), "ring" (with the coastline), "periodic" (config 4 periodic
+    in both axes, with fronts), "config4" (closed; with fronts under TVB)
+    or "box" (box_adaptive's 256^2); ``kwargs`` the models' keywords
+    ("free_drift": select Nextsim::FreeDrift; tvb_m "mid": ``mid[kind]``)."""
+    n = N4 if n is None else n
+    kwargs = dict(kwargs)
+    free_drift = kwargs.pop("free_drift", False)
+    if kwargs.get("tvb_m") == "mid":
+        kwargs["tvb_m"] = mid[kind]
+    grid_kw = {k: kwargs.pop(k) for k in ("mevp_backend", "mevp_block_halo") if k in kwargs}
+    loader = modules.get_loader()
+    if free_drift:
+        loader.set_implementation("Nextsim::IDynamics", "Nextsim::FreeDrift")
+    try:
+        if kind == "box":
+            mesh, ocean = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N), None
+        elif kind in ("spherical", "ring"):
+            mesh, ocean = (spherical_mesh(n) if kind == "spherical" else ring_mesh(n)), synthetic_coastline(n)
+        else:
+            mesh, ocean = RectMesh(n, n, dx=4e3, dy=4e3, periodic_x=kind == "periodic",
+                                   periodic_y=kind == "periodic"), None
+        single, state, phys, dyn = coupled_model(device, mesh, ocean, **kwargs)
+        model, sharded = build_sharded_coupled_model(
+            mesh, RankGrid(*shape, device), degree=1, n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+            **kwargs, **grid_kw,
+        )
+    finally:
+        if free_drift:
+            loader.reset()
+    if "tvb_m" in kwargs:
+        state = with_fronts(state, SEED + 50)
+    return single, model, sharded, state, phys, dyn
+
+
+def rdma_form_launches(device, sharded, state, phys, dyn, tag: str, errs: dict) -> dict:
+    """One rdma round on every rank of a grid path (its state after a step),
+    each rdma_stage and rdma_band launch against its plain version and the
+    round against the blocked round; returns rank 0's captured x and y
+    launches {axis: (band solver, sources, widened consts, state)}."""
+    states, _, dyns = blocks_of(sharded, state, phys, dyn)
+
+    def check_round(rank):
+        model = sharded.models[rank.rank]
+        carry, consts = step_consts_of(model, states[rank.rank], dyns[rank.rank])
+        return rdma_round_checked(model, carry, consts)
+
+    results = run_ranks(sharded.grid.ring, check_round)
+    torch.cuda.synchronize()
+    for r, (errors, out, blocked, _) in enumerate(results):
+        for kernel, what, g, ref in errors:
+            errs[kernel] = max(errs[kernel], compare(f"{tag} {kernel} rank {r} {what}", g, ref, TOL_LAUNCH))
+        for name, g, b in zip(VELOCITY, out, blocked):
+            same_schedule(f"{tag} rdma round rank {r} {name}", g, b, "the blocked round")
+    return next(res[3] for res in results if res[3])
+
+
+def closed_band(local, consts_w):
+    """The closed uniform instance's solver and consts at a form's band: the
+    uniform 7 consts, a unit mesh closed along the band, fixed alpha."""
+    from nextsimdg_tpu_torch.dynamics.mevp import UNIFORM_CONSTS
+
+    mesh = RectMesh(local.mesh.nx, local.mesh.ny, 4e3, 4e3)
+    return MEVPSolver(mesh, MEVPParams()), {k: consts_w[k] for k in UNIFORM_CONSTS}
+
+
+def register_band_form(label: str, captured: dict, errs: dict) -> None:
+    """The row of an rdma_band form: its x launch (the y launch where only
+    y is split) timed in turns with the closed uniform instance on the same
+    band, and its bytes and operations (``rdma_band_work``: the form's
+    const planes and bodies); where both axes are split, the y launch's
+    device duration and its closed instance's are probed too (the y bands
+    run along the rows)."""
+    axis = 0 if 0 in captured else 1
+    local, src, consts_w, state0 = captured[axis]
+    h = src.h
+    nx, ny = src.own[0].shape
+    closed, closed_consts = closed_band(local, consts_w)
+    if axis == 0 and 1 in captured:  # the y launch too: its device duration, and its closed instance's
+        local_y, src_y, consts_y, state_y = captured[1]
+        closed_y, closed_consts_y = closed_band(local_y, consts_y)
+        state_fy, state_cy = [x.clone() for x in state_y], [x.clone() for x in state_y]
+        DEVICE_PROBES[f"rdma_band {label} y bands"] = (
+            lambda: rdma.rdma_band(local_y, src_y, 1, consts_y, DT, h, state_fy))
+        DEVICE_PROBES[f"rdma_band {label} y bands (closed instance)"] = (
+            lambda: rdma.rdma_band(closed_y, src_y, 1, closed_consts_y, DT, h, state_cy))
+    p = local.params
+    stress = OPS["stress_both" if p.a_weighted_stress and p.adaptive_alpha else
+                 "stress_weighted" if p.a_weighted_stress else
+                 "stress_adaptive" if p.adaptive_alpha else "stress"]
+    velocity = OPS["velocity_metric" if not local.mesh.uniform else "velocity"]
+    work = rdma_band_work(axis, h, h, nx, ny, src.hx, len(consts_w), stress + velocity)
+    state_f, state_c = [x.clone() for x in state0], [x.clone() for x in state0]
+    timed_form(label, errs["rdma_band"],
+               lambda: rdma.rdma_band(local, src, axis, consts_w, DT, h, state_f),
+               lambda: rdma.rdma_band(closed, src, axis, closed_consts, DT, h, state_c),
+               lambda: rdma.rdma_band_reference(local, src, axis, consts_w, DT, h, [x.clone() for x in state0]),
+               work)
+
+
+def spmd_transport_launches(device, sharded, state, tag: str, errs: dict) -> list:
+    """One call of the spmd transport on every rank (k = 3 substeps of the
+    state's tracers and velocity), each transport_tiled launch against its
+    plain version on the same widened block (the TVB walls as the plain
+    version's wall-delta masks, the widened metric planes); returns rank
+    0's launches (kernel output, plain output, arguments, keywords)."""
+    import threading
+
+    blocks = sharded.grid.split_tree(state)
+    checked = {}
+    kernel = tt.transport_substeps_tiled
+
+    def checking(transport, psi, u, v, dt_sub, n, faces_w, **kw):
+        got = kernel(transport, psi, u, v, dt_sub, n, faces_w, **kw)
+        walls = kw.get("walls")
+        masks = None if walls is None else tt.wall_masks(walls, psi.shape[-2:], psi[0, 0])
+        ref = tt.transport_substeps_tiled_reference(
+            transport, psi, u, v, dt_sub, n, faces_w, metric=kw.get("metric"), wall_masks=masks,
+        )
+        checked.setdefault(threading.current_thread().name, []).append(
+            (got, ref, (transport, psi, u, v, dt_sub, n, faces_w), kw))
+        return got
+
+    def body(rank):
+        model, st = sharded.models[rank.rank], blocks[rank.rank]
+        faces = model.face_masks(device=device, dtype=torch.float32)
+        velocity_w = tt.widen_velocity(model, st.velocity.u, st.velocity.v)
+        return tt.transport_substeps_tiled_spmd(
+            model, torch.stack([st.hice, st.cice, st.hsnow], dim=1), velocity_w, DT / 3, 3, faces)
+
+    tt.transport_substeps_tiled = checking
+    try:
+        run_ranks(sharded.grid.ring, body)
+    finally:
+        tt.transport_substeps_tiled = kernel
+    torch.cuda.synchronize()
+    for name, launches in sorted(checked.items()):
+        for i, (got, ref, _, kw) in enumerate(launches):
+            what = (f" walls {kw['walls']}" if kw.get("walls") else "") + (" metric" if kw.get("metric") else "")
+            errs["transport_tiled"] = max(errs["transport_tiled"], compare(
+                f"{tag} transport_tiled {name} launch {i}{what}", got, ref, TOL_LAUNCH))
+    return checked["rank0"]
+
+
+def register_transport_form(label: str, launches: list, errs: dict, closed) -> None:
+    """The row of an spmd transport_tiled form: rank 0's first launch timed
+    in turns with the same launch on the untouched instance (``closed``:
+    (transport, keywords) that drop the form), and its bytes and
+    operations."""
+    _, _, args, kw = launches[0]
+    transport, psi, u, v, dt_sub, n, faces_w = args
+    nxw, nyw = psi.shape[-2:]
+    work = tiled_work(1, nxw * nyw, n, cc._RK_STAGES[transport.scheme], False, metric=kw.get("metric") is not None)
+    if transport.limits_slopes:  # the limiter after each of the 2 stages, 3 tracers
+        work = (work[0], work[1] + n * 2 * 3 * tvb_limit_ops(1) * nxw * nyw)
+    closed_tr, closed_kw = closed
+    masks = None if kw.get("walls") is None else tt.wall_masks(kw["walls"], psi.shape[-2:], psi[0, 0])
+    timed_form(label, errs["transport_tiled"],
+               lambda: tt.transport_substeps_tiled(*args, **kw),
+               lambda: tt.transport_substeps_tiled(closed_tr, *args[1:], **closed_kw),
+               lambda: tt.transport_substeps_tiled_reference(*args, metric=kw.get("metric"), wall_masks=masks),
+               work)
+
+
+def widened_tiled_launches(tag: str, run):
+    """``run()`` with each rank's second mevp_tiled call of the blocked
+    schedule (h subcycles on the widened block, from a state whose stresses
+    the first call made nonzero) held against its plain version, and one
+    subcycle on the same inputs; returns run()'s result. The extra launches
+    are made before the launch counts are zeroed."""
+    import threading
+
+    kernel = mt.mevp_subcycles_tiled
+    calls, checked = {}, {}
+
+    def checking(solver, carry, consts, dt, n_sub, *args, **kw):
+        got = kernel(solver, carry, consts, dt, n_sub, *args, **kw)
+        name = threading.current_thread().name
+        calls[name] = calls.get(name, 0) + 1
+        if calls[name] == 2:
+            checked[name] = [
+                (n_sub, got, mt.mevp_subcycles_tiled_reference(solver, carry, consts, dt, n_sub), carry[0].shape),
+                (1, kernel(solver, carry, consts, dt, 1), mt.mevp_subcycles_tiled_reference(solver, carry, consts, dt, 1),
+                 carry[0].shape),
+            ]
+        return got
+
+    mt.mevp_subcycles_tiled = checking
+    try:
+        out = run()
+    finally:
+        mt.mevp_subcycles_tiled = kernel
+    torch.cuda.synchronize()
+    if len(checked) != RANKS[0] * RANKS[1]:
+        raise AssertionError(f"{tag}: mevp_tiled ran on {sorted(checked)} only")
+    for name, pairs in sorted(checked.items()):
+        for n_sub, got, ref, shape in pairs:
+            for plane, g, r in zip(VELOCITY, got, ref):
+                compare(f"{tag} mevp_tiled {name} widened {shape[0]}x{shape[1]} N={n_sub} {plane}", g, r,
+                        TOL_LAUNCH if n_sub == 1 else TOL_STEP_MEVP)
+    return out
+
+
+def check_grid_forms(device) -> tuple:
+    """Phase: M10b part 1. Each new form of rdma_band (the metric round, the
+    ring along the band, A-weighted, adaptive) and of the spmd
+    transport_tiled (the TVB walls inside the widened block, the widened
+    metric planes) launch by launch against its plain version (TOL_LAUNCH);
+    each grid path (GRID_PATHS) one decomposed step against the
+    single-device step (expected 0), then GRID_STEPS steps (N5_STEPS but on
+    the two cells and the 2 x 2 ring) from zeroed launch counts (finite,
+    bounded, land untouched, every kernel of the path launched; the TVB
+    paths print the shares their limiter cuts and keeps); spherical_16m_spmd (BASELINE config 5 on the spherical
+    coastline domain, 4096^2 on 2 x 2 ranks) one decomposed step against
+    the single-device step (expected 0) with each rank's widened mevp_tiled
+    launch and every spmd transport_tiled launch against plain at its 2048^2
+    blocks, then N5_STEPS steps. Returns (counts by path, largest error per
+    kernel)."""
+    errs = {"rdma_band": 0.0, "rdma_stage": 0.0, "transport_tiled": 0.0}
+    counts, mid = {}, {}
+    band_forms = {
+        "coupled_1m_spherical_spmd_rdma": "rdma_band metric", "grid_ring_1x2": "rdma_band ring",
+        "grid_aweighted_rdma": "rdma_band A-weighted", "grid_adaptive_rdma": "rdma_band adaptive",
+    }
+    for path, kind, shape, kwargs, schedule in GRID_PATHS:
+        if kwargs.get("tvb_m") == "mid" and kind not in mid:
+            mesh = RectMesh(N4, N4, dx=4e3, dy=4e3, periodic_x=True, periodic_y=True)
+            mid[kind] = middle_m(with_fronts(coupled_model(device, mesh, None)[1], SEED + 50).hice, mesh)
+            log("slice", f"{kind}: the middle M from the state's |psi1|: {mid[kind]:.4e}")
+        single, model, sharded, state, phys, dyn = grid_path_model(device, kind, shape, kwargs, mid=mid)
+        got_schedule = model.schedule(device)
+        mesh = model.mesh
+        log("slice", (
+            f"{path}: {N4 if kind != 'box' else N}^2 {type(single.mesh).__name__} periodic "
+            f"({single.mesh.periodic_x}, {single.mesh.periodic_y}) on a {shape[0]}x{shape[1]} rank grid of "
+            f"{mesh.nx}x{mesh.ny} blocks ({type(mesh).__name__}), schedule {got_schedule}, "
+            f"single-device {single.schedule(device)}; h = {getattr(model.mevp, 'block_halo', None)}, spmd "
+            f"transport (H, k_cap) = {tt.transport_tiled_spmd_config(model)}, tvb_m {model.transport.tvb_m}"
+        ))
+        if got_schedule != (schedule, "tiled"):
+            raise AssertionError(f"{path} does not run {(schedule, 'tiled')}: {got_schedule}")
+        if single.transport.limits_slopes:
+            cut, kept = tvb_shares(single.transport, state)
+            log("slice", f"{path}: the limiter cuts {cut:.4f} of the elements and keeps {kept:.4f} of the step's tracers")
+            if kwargs.get("tvb_m") == "mid" and not (cut > 0.05 and kept > 0.05):
+                raise AssertionError(f"{path}: the middle M does not take both branches ({cut:.4f} cut)")
+        ref = single.step(state, phys, dyn, DT)
+        got = sharded(state, phys, dyn, DT)
+        torch.cuda.synchronize()
+        compare_sharded_step(f"{path}.step vs single-device", got, ref, tol_same=True)
+        if path in band_forms:
+            captured = rdma_form_launches(device, sharded, got, phys, dyn, path, errs)
+            register_band_form(band_forms[path], captured, errs)
+        if path == "grid_closed_tvb_m0":
+            launches = spmd_transport_launches(device, sharded, got, path, errs)
+            transport = launches[0][2][0]
+            register_transport_form("transport_tiled spmd-tvb", launches, errs, (transport, {}))
+        if path == "coupled_1m_spherical_spmd":
+            launches = spmd_transport_launches(device, sharded, got, path, errs)
+            nxw, nyw = launches[0][2][1].shape[-2:]
+            uniform = tt.DGTransport(RectMesh(nxw, nyw, 4e3, 4e3), 1)
+            register_transport_form("transport_tiled spmd-metric", launches, errs, (uniform, {}))
+        if kind in ("periodic",) and path.endswith("m0"):
+            spmd_transport_launches(device, sharded, got, path, errs)
+        n_steps = GRID_STEPS if path in GRID_STEPS_LONG else N5_STEPS
+        cc.reset_launches()
+        out = sharded.run_blocks(*blocks_of(sharded, state, phys, dyn), DT, n_steps)
+        torch.cuda.synchronize()
+        counts[path] = dict(cc.launches)
+        log("slice", f"{path}: {n_steps} steps, launches: {counts[path]}")
+        out = sharded.grid.gather_tree(out, device)
+        check_bounded(f"{path}: {n_steps} steps", out, state)
+        if single.ocean_mask is not None:
+            check_land(f"{path}: {n_steps} steps", single, out, state)
+        missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+    # spherical_16m_spmd on 2048^2 blocks: one step against the
+    # single-device step, the kernels at the blocks' shapes against plain,
+    # then N5_STEPS steps.
+    single, model, sharded, state, phys, dyn = grid_path_model(
+        device, "spherical", RANKS, {"mevp_backend": "blocked"}, n=N16)
+    log("slice", (
+        f"spherical_16m_spmd: {N16}^2 spherical window with the coastline on a {RANKS[0]}x{RANKS[1]} rank "
+        f"grid of {model.mesh.nx}x{model.mesh.ny} blocks, schedule {model.schedule(device)}, h = "
+        f"{model.mevp.block_halo}, spmd transport (H, k_cap) = {tt.transport_tiled_spmd_config(model)}; "
+        f"single-device {single.schedule(device)}"
+    ))
+    if model.schedule(device) != ("blocked", "tiled"):
+        raise AssertionError(f"spherical_16m_spmd does not run ('blocked', 'tiled'): {model.schedule(device)}")
+    ref = single.step(state, phys, dyn, DT)
+    got = widened_tiled_launches("spherical_16m_spmd", lambda: sharded(state, phys, dyn, DT))
+    compare_sharded_step("spherical_16m_spmd.step vs single-device", got, ref, tol_same=True)
+    del ref
+    spmd_transport_launches(device, sharded, got, "spherical_16m_spmd", errs)
+    del got
+    cc.reset_launches()
+    out = sharded.run_blocks(*blocks_of(sharded, state, phys, dyn), DT, N5_STEPS)
+    torch.cuda.synchronize()
+    counts["spherical_16m_spmd"] = dict(cc.launches)
+    log("slice", f"spherical_16m_spmd: {N5_STEPS} steps, launches: {counts['spherical_16m_spmd']}")
+    out = sharded.grid.gather_tree(out, device)
+    check_bounded(f"spherical_16m_spmd: {N5_STEPS} steps", out, state)
+    check_land(f"spherical_16m_spmd: {N5_STEPS} steps", single, out, state)
+    for label in ("rdma_band metric", "rdma_band ring", "rdma_band A-weighted", "rdma_band adaptive",
+                  "transport_tiled spmd-tvb", "transport_tiled spmd-metric"):
+        TVB_FORMS[label] = replace(TVB_FORMS[label], err=errs[label.split()[0]])
+    return counts, errs
+
+
+def time_grid_forms(device, card: str) -> None:
+    """coupled_1m_spherical_spmd and spherical_16m_spmd: ms per step and
+    element updates/s in chunks of N5_STEPS steps on resident blocks, h =
+    16 (the port's "auto") and 32, in turns with the single-device
+    spherical step; a profile of the 16M grid step (its idle share). The
+    new forms' rows are timed in turns with their closed instances in
+    time_tvb_periodic."""
+    for n, tag in ((N4, "coupled_1m_spherical_spmd"), (N16, "spherical_16m_spmd")):
+        fns, grids = {}, {}
+        single, _, _, state, phys, dyn = grid_path_model(device, "spherical", RANKS, {}, n=n)
+        fns["single-device"] = lambda single=single, state=state, phys=phys, dyn=dyn: single.run(
+            state, phys, dyn, DT, N5_STEPS)
+        for h in (16, 32):
+            _, model, sharded, *_ = grid_path_model(
+                device, "spherical", RANKS, {"mevp_backend": "blocked", "mevp_block_halo": h}, n=n)
+            blocks = blocks_of(sharded, state, phys, dyn)
+            grids[h] = (sharded, blocks)
+            fns[f"2x2 blocked h={h}"] = lambda s=sharded, b=blocks: s.run_blocks(*b, DT, N5_STEPS)
+        runs = time_in_turns(fns, dict.fromkeys(fns, 1))
+        for name, ms in runs.items():
+            report(f"{tag} coupled step, {name} ({n}x{n}, {N5_STEPS} steps a chunk)",
+                   [m / N5_STEPS for m in ms], n * n, card)
+    sharded, blocks = grids[16]
+    profile(f"spherical_16m_spmd coupled step, 2x2 blocked h=16 ({N16}x{N16})",
+            lambda: sharded.run_blocks(*blocks, DT, 1), n_steps=2)
+
+
 
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     """The kernels' JSON line: per kernel its launches on the main paths,
@@ -4175,14 +4616,19 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
             if kernel != "dg1_limit":
                 kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     counts_5, kernels_5, probes = phase(check_multihost, device)
+    counts_grid, errs_grid = phase(check_grid_forms, device)
+    counts.update(counts_grid)
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
+    for kernel, err in errs_grid.items():
+        kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     log("build", sass_report(sass))
     phase(time_paths, device, smi)
     phase(time_momentum_forms, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
+    phase(time_grid_forms, device, smi)
     phase(time_tvb_periodic, device, smi)
     phase(time_ho_forms, device, smi)
     phase(time_ho_metric, device, smi)
@@ -4191,12 +4637,18 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(profile_engine, device)
     # Last, as a profiler session slows the host's later launches. Every
     # row's ms stays the back-to-back time per call; the device durations
-    # are logged beside it.
+    # are logged beside it, with the CUDA events' time of the whole call,
+    # which is all there is where the profiler records nothing.
     for probe, fn in {**DEVICE_PROBES, **probes}.items():
         kernel = probe.split()[0]
-        ms, per_call = device_ms(fn, kernel), launches_per_call(fn, kernel)
+        per_call = launches_per_call(fn, kernel)
+        events = f"CUDA events {best_ms(fn):.5f} ms per call of {per_call} launches"
+        ms = profiled_ms(fn, kernel)
+        if ms is None:
+            log("time", f"{probe}: the profiler recorded no {kernel} kernel in 3 sessions; {events}")
+            continue
         calls = f", {ms * per_call:.5f} ms per call of {per_call} launches" if per_call > 1 else ""
-        log("time", f"{probe} device duration {ms:.5f} ms{calls} (torch.profiler)")
+        log("time", f"{probe} device duration {ms:.5f} ms{calls} (torch.profiler); {events}")
         if probe == "rdma_band axis 0":
             log("time", f"rdma_band: back to back {kernels['rdma_band'].ms:.5f} ms per call, device {ms:.5f} ms")
 

@@ -11,9 +11,10 @@ longest. ``--sass`` compares, by ``cuobjdump -sass``, the opcode sequences
 (operands ignored) of the kernels in LIB (default: this tree's library,
 built if missing) with those of another checkout's library PARENT_LIB, for
 the instances that this tree compiles with its added template arguments
-false or 0 (the periodic form ``kWrap``, ``kTvb`` of transport_tiled, and
-the HO kernels' momentum form ``kForm``): the closed instances, which
-should be the parent's code. Both need the CUDA
+false or 0 (the periodic form ``kWrap``, ``kTvb`` and ``kWalls`` of
+transport_tiled, the HO kernels' momentum form ``kForm``, and rdma_band's
+``kMetric``, ``kForm`` and ``kWrap``): the closed instances, which should
+be the parent's code. Both need the CUDA
 toolkit (the card's machine); they launch nothing on the card.
 """
 
@@ -33,8 +34,10 @@ from ..dynamics.kernels import coupled_cuda as cc
 KERNELS = (
     "mevp_stress_kernel", "mevp_velocity_kernel", "mevp_tiled_kernel", "mevp_single_kernel",
     "transport_tiled_kernel", "dg1_rk_stage_kernel", "dg1_sample_cfl_kernel", "ho_single_kernel",
-    "ho_tiled_kernel",
+    "ho_tiled_kernel", "rdma_band_kernel", "rdma_stage_kernel",
 )
+#: Trailing template arguments that are false or 0 (the closed forms).
+_CLOSED_ARG = re.compile(r"L[bi]0E$")
 
 
 def compile_times() -> dict:
@@ -80,16 +83,17 @@ def opcodes(sass: str) -> dict:
 
 def closed_name(name: str, parent_names) -> str:
     """The parent's kernel of a closed instance: the template arguments of
-    ``name`` without its trailing false ones (``Lb0E``), up to two of them,
-    or a trailing 0 and false (``Li0ELb0E``: the HO kernels' form and
-    ``kWrap``), that name a kernel of the parent; None for another
-    instance."""
+    ``name`` without some of its trailing false or 0 ones (``Lb0E``,
+    ``Li0E``), the fewest first, that name a kernel of the parent (the
+    name itself where the parent has it); None for another instance."""
     key = name.split("EEv")[0]
-    candidates = (re.sub(r"Lb0ELb0E$", "", key), re.sub(r"Lb0E$", "", key), re.sub(r"Li0ELb0E$", "", key), key)
-    for candidate in candidates:
-        if candidate in parent_names:
-            return candidate
-    return None
+    while True:
+        if key in parent_names:
+            return key
+        stripped = _CLOSED_ARG.sub("", key)
+        if stripped == key:
+            return None
+        key = stripped
 
 
 def compare(parent: dict, new: dict) -> tuple:

@@ -64,13 +64,14 @@ def best_ms(fn, reps: int = 5) -> float:
     return best
 
 
-def device_ms(fn, kernel: str, n: int = 20) -> float:
+def profiled_ms(fn, kernel: str, n: int = 20) -> float | None:
     """Mean device duration (ms) of the CUDA kernels whose name holds
     ``kernel`` over n calls of fn, from torch.profiler: the kernel's own
     time, whatever the host takes to issue it. A session that records no
-    event at all (seen on the H100 machines now and then) is taken again,
-    up to three; a kernel that no session sees raises. A profiler session slows the
-    host's later launches, so time host-bound work before it."""
+    event at all (seen on the H100 machines now and then, sometimes for the
+    rest of the process) is taken again, up to three; None where no session
+    sees the kernel. A profiler session slows the host's later launches, so
+    time host-bound work before it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -87,4 +88,12 @@ def device_ms(fn, kernel: str, n: int = 20) -> float:
         count = sum(e.count for e in events)
         if count:
             return sum(e.self_device_time_total for e in events) / count / 1e3
-    raise AssertionError(f"the profiler saw no {kernel} kernel in 3 sessions")
+    return None
+
+
+def device_ms(fn, kernel: str, n: int = 20) -> float:
+    """``profiled_ms``, raising where no session sees the kernel."""
+    ms = profiled_ms(fn, kernel, n)
+    if ms is None:
+        raise AssertionError(f"the profiler saw no {kernel} kernel in 3 sessions")
+    return ms

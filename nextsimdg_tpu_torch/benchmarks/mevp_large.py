@@ -10,6 +10,7 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --tiles       # the tile sweeps
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --barriers    # a barrier's cost
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --phases=transport_tiled  # load/store against compute
+    python -m nextsimdg_tpu_torch.benchmarks.mevp_large --kernel-times=rdma  # the closed kernels of config 5's rank blocks
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --kernel-times  # the single-launch kernels, transport_tiled, dg1_sample_cfl, dg1_rk_stage per call
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --steps       # the headline dynamics step
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --steps --kernel-times=dg1_rk_stage  # the step, then dg1_rk_stage and transport_tiled
@@ -48,7 +49,11 @@ carry, ``dg1_sample_cfl`` at every shape the paths launch it, and
 call, as the host launches them (``kernel_times``, which also times an
 earlier checkout's kernels); ``--kernel-times=dg1_rk_stage``: only
 ``transport_tiled`` (which shares the stage's body) and ``dg1_rk_stage``;
-``--kernel-times=ho``: only ``ho_single`` and ``ho_tiled``.
+``--kernel-times=ho``: only ``ho_single`` and ``ho_tiled``;
+``--kernel-times=rdma``: only the closed uniform kernels of config 5's
+2 x 2 rank blocks, ``mevp_tiled`` at 2048^2 and 1024^2, ``transport_tiled``
+at 1024^2, ``rdma_stage`` and ``rdma_band`` on a 2048^2 block (``--kernel-times``
+includes them).
 ``--steps``: the headline dynamics step (256^2, K1's schedule: two
 ``dg1_rk_stage`` launches a substep), mean and best of 20
 (``headline_step``), before any profiler session. Each
@@ -572,7 +577,8 @@ def cfl_inputs(n: int, halo: int, spherical: bool, device, seed: int = 0):
 
 def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100,
                  single_sizes=SINGLE_SIZES, tiled_sizes=((1024, True),), cfl_shapes=CFL_SHAPES,
-                 stage_sizes=STAGE_SHAPES, k1_sizes=(), ho_tiled_sizes=()) -> dict:
+                 stage_sizes=STAGE_SHAPES, k1_sizes=(), ho_tiled_sizes=(), rdma_sizes=(),
+                 rdma_halo: int = 16) -> dict:
     """ms per call of the launches the host picks for ``transport_tiled``
     (one rk2 substep on ``transport_inputs`` at each of ``transport_sizes``),
     ``ho_single`` (``n_sub`` HO subcycles on ``seeded_ho_phase`` at each of
@@ -586,13 +592,17 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
     "first" a = 0, "qv" the blended stage on the quadrature samples of the
     same velocity, skipped where the checkout's wrapper has no qv form) and
     K1's ``mevp_stress`` and ``mevp_velocity`` (one launch in place on
-    ``seeded_phase``'s uniform carry at each of ``k1_sizes``):
+    ``seeded_phase``'s uniform carry at each of ``k1_sizes``), and
+    ``rdma_stage`` (the x strips) and ``rdma_band`` (the x or the y bands,
+    ``rdma_halo`` subcycles) on ``band_round_sources`` at each of
+    ``rdma_sizes``:
     the kernel's device
     duration per call (profiler,
     mean of 20 calls; a launch's mean times the launches of a call) and the
     call back to back (CUDA events, best of 5); printed, and returned by
     (kernel, n) (dg1_sample_cfl: (kernel, (n, halo, spherical));
-    dg1_rk_stage: (kernel, (n, spherical, form))) as (device, back to back). It calls the wrappers by the signatures they
+    dg1_rk_stage: (kernel, (n, spherical, form)); rdma_band: (kernel,
+    (n, axis))) as (device, back to back). It calls the wrappers by the signatures they
     have had since they were ported and nothing newer at import, so this
     file copied into an earlier checkout times that checkout's kernels on
     the same inputs (PERF.md). On the CPU (the tests) the plain versions
@@ -665,6 +675,13 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
             fn = lambda a=args, q=qv: cc.dg1_rk_stage_reference(*a, **({} if q is None else {"qv": q}))
         what = f"one {'metric ' if spherical else ''}stage ({form}) of 3 tracers"
         cases.append(("dg1_rk_stage", (n, spherical, form), what, fn))
+    for n in rdma_sizes:
+        solver, src, consts_w, state = band_round_sources(n, rdma_halo, device)
+        cases.append(("rdma_stage", n, "the x strips", lambda s=src: rdma_cuda.rdma_stage(s, 0)))
+        for axis in (0, 1):
+            what = f"the {'xy'[axis]} bands, {rdma_halo} subcycles"
+            cases.append(("rdma_band", (n, axis), what, lambda a=axis, s=solver, r=src, c=consts_w, o=state: (
+                rdma_cuda.rdma_band(s, r, a, c, DT, rdma_halo, o))))
     out = {}
     for kernel, n, what, fn in cases:
         if on_card:
@@ -864,7 +881,10 @@ def main(argv=None) -> int:
     if "--steps" in argv:  # host-bound: before any profiler session
         headline_step(device)
     if "--kernel-times" in argv:
-        kernel_times(device, k1_sizes=(256,), ho_tiled_sizes=(1024,))
+        kernel_times(device, k1_sizes=(256,), ho_tiled_sizes=(1024,), rdma_sizes=(2048,))
+    if "--kernel-times=rdma" in argv:
+        kernel_times(device, transport_sizes=(1024,), ho_sizes=(), single_sizes=(),
+                     tiled_sizes=((2048, False), (1024, False)), cfl_shapes=(), stage_sizes=(), rdma_sizes=(2048,))
     if "--kernel-times=ho" in argv:
         kernel_times(device, transport_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=(),
                      stage_sizes=(), ho_tiled_sizes=(1024,))

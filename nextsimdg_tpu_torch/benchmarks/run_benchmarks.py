@@ -9,9 +9,13 @@ Default: the fast subset ``dev1 box``. ``--degree 1`` runs ``advection``
 (BASELINE config 2, dG2 by default) at dG1. ``--ranks 2x2`` runs
 ``multihost_16m`` on a rank grid of the card (``parallel.RankGrid``), the
 twin of the JAX function's multi-device branch; without it that config
-runs single-device, as the JAX function does on one device. Each result
-prints as one JSON line with its ``config``, its ``chunk`` of steps and the
-card (name, ``nvidia-smi`` name and power limit).
+runs single-device, as the JAX function does on one device. The ``*_spmd``
+configs (``coupled_1m_spherical_spmd``, ``spherical_16m_spmd``: BASELINE
+config 5 on the spherical coastline domain) always run on a rank grid of
+the card, 2x2 unless ``--ranks`` says otherwise: the JAX functions run
+them over the device mesh. Each result prints as one JSON line with its
+``config``, its ``chunk`` of steps and the card (name, ``nvidia-smi`` name
+and power limit).
 
 Timing: a warm-up chunk, then the best of 3 chunks on the host clock, each
 ending in ``torch.cuda.synchronize()``; the state carries on from chunk to
@@ -19,8 +23,8 @@ chunk, as in the JAX battery. The chunks are sized so that a timed chunk
 takes about 0.3 s or more on an H100 at the port's step times (PERF.md);
 the JAX ones were sized against its remote-dispatch latency.
 
-The JAX configs the port cannot run yet stay out of ``CONFIGS``: the
-``*_spmd`` ones (ROADMAP M11b).
+The JAX configs the port cannot run yet stay out of ``CONFIGS``: the HO
+``*_spmd`` ones and their ablations (ROADMAP M10b part 2, M11b).
 """
 
 from __future__ import annotations
@@ -250,6 +254,47 @@ def bench_multihost_16m(
     )
 
 
+def bench_coupled_1m_spherical_spmd(
+    n: int = 1024, chunk: int = 16, ranks=(2, 2), halo="auto", mevp_backend: str = "blocked",
+    n_subcycles: int = 100, device=None,
+) -> dict:
+    """BASELINE config 5 as it is run: the lon-lat window 40W-40E, 55N-85N
+    with the synthetic coastline, config 4's state and forcing, dG1, f32, on
+    a ``ranks`` = (P, Q) ``RankGrid`` of the device: a ``LocalMeshView`` per
+    rank, its metric planes riding the blocked mEVP (``mevp_backend``, with
+    ``halo`` ghost cells: "auto" is the port's ``mevp.BLOCK_HALO``) and the
+    spmd tiled transport, on resident rank blocks. The JAX function's
+    "auto" halo (64) is a TPU lane-alignment rule that the port does not
+    copy."""
+    from ..parallel import RankGrid, build_sharded_coupled_model
+
+    device = _device(device)
+    mesh = SphericalMesh(n, n, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
+    ocean = synthetic_coastline(n)
+    grid = RankGrid(*ranks, device)
+    model, sharded = build_sharded_coupled_model(
+        mesh, grid, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean,
+        mevp_backend=mevp_backend, mevp_block_halo=halo,
+    )
+    global_model = CoupledModel(mesh, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean)
+    state = global_model.initial_state(
+        hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32
+    )
+    pf, df = _forcing(n, device, -15.0, -17.0, 5.0, 240.0, 6.0, 3.0)
+    pf_blocks, df_blocks = grid.split_tree(pf), grid.split_tree(df)
+    run = lambda blocks: sharded.run_blocks(blocks, pf_blocks, df_blocks, DT, chunk)
+    best = _timed_chunk(run, grid.split_tree(state), device)
+    return _result(
+        f"coupled thermo+dynamics element updates/s ({n}x{n} = {n * n / 1e6:.3g}M elements, "
+        f"synthetic coastline, spherical lon-lat, {ranks[0]}x{ranks[1]} rank grid on one device, "
+        f"{model.mevp_schedule()} h={model.mevp.block_halo} + {model.transport_schedule()} "
+        "transport, f32)", n * n, chunk, best,
+    )
+
+
+#: The configs that run on a rank grid: ``--ranks`` applies to them.
+RANKED = ("multihost_16m", "coupled_1m_spherical_spmd", "spherical_16m_spmd")
+
 CONFIGS = {
     "dev1": bench_dev1,
     "advection": bench_advection,
@@ -265,13 +310,15 @@ CONFIGS = {
     "ho_coupled_1m": partial(bench_coupled_1m, high_order=True, chunk=16),
     "ho_coupled_1m_periodic": partial(bench_coupled_1m, high_order=True, chunk=8, periodic=True),
     "multihost_16m": bench_multihost_16m,
+    "coupled_1m_spherical_spmd": bench_coupled_1m_spherical_spmd,
+    "spherical_16m_spmd": partial(bench_coupled_1m_spherical_spmd, n=4096, chunk=4),
 }
 
 
 def run_config(name: str, device=None, **overrides) -> dict:
     """One config's result with its ``config`` and ``device``; ``overrides``
-    shrink it (the tests: n, n_subcycles, chunk) or give ``multihost_16m``
-    its ``ranks``."""
+    shrink it (the tests: n, n_subcycles, chunk) or give a ``RANKED``
+    config its ``ranks``."""
     device = _device(device)
     result = CONFIGS[name](device=device, **overrides)
     result["config"] = name
@@ -304,7 +351,7 @@ def main(argv=None) -> int:
         print("run_benchmarks: no CUDA device; the battery runs only on a GPU", file=sys.stderr)
         return 1
     for name in names:
-        extra = {"ranks": ranks} if ranks and name == "multihost_16m" else {}
+        extra = {"ranks": ranks} if ranks and name in RANKED else {}
         if degree is not None and name == "advection":
             extra = {"degree": degree}
         print(json.dumps(run_config(name, torch.device("cuda", 0), **extra)), flush=True)

@@ -39,12 +39,13 @@ mask gets its per-plane form and the transport advects with the CG2
 velocity sampled at the quadrature points.
 
 On a rank grid (``spmd``, built by ``parallel.shardmap``) the model holds
-one rank's block of a uniform, closed CG1 mesh, runs in that rank's thread
-and exchanges halos with the other ranks (``parallel.exchange``): the mEVP
-on the blocked or rdma schedule, the transport on the widened block, the
-physics per block. The HO solver, free drift, graded and spherical blocks,
-periodic axes and the TVB limiter raise ``NotImplementedError`` there
-(ROADMAP M10b).
+one rank's block (of a uniform mesh, or a ``LocalMeshView`` of a graded or
+spherical one, each axis closed or a ring), runs in that rank's thread and
+exchanges halos with the other ranks (``parallel.exchange``): the mEVP on
+the blocked or rdma schedule in any momentum form, or free drift; the
+transport on the widened block, with TVB too (staged on a graded or
+spherical mesh: CPU tensors only, ROADMAP M10c); the physics per block. The
+HO solver raises ``NotImplementedError`` there (ROADMAP M10b part 2).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ import torch
 from .dynamics.kernels import mevp_single_cuda
 from .dynamics.freedrift import FreeDriftSolver
 from .dynamics.kernels.coupled_cuda import dynamics_phase, sm_count
-from .dynamics.mesh import RectMesh
+from .dynamics.mesh import RectMesh, block_mesh
 from .dynamics.mevp import SPMD_BACKENDS, DynamicsForcing, MEVPParams, VelocityState
 from .dynamics.mevp_ho import (
     MEVP_BACKENDS, HODynamicsForcing, HOField, HOVelocityState, MEVPSolverHO,
@@ -187,7 +188,8 @@ class CoupledModel:
         ``transport_backend`` ``"tiled"`` (and ``"auto"``: the widened block
         on transport_tiled) or ``"xla"``. The ``"xla"`` schedules, and
         ``"auto"`` where the block has no spmd tiled transport (a block too
-        small for one substep's ghost cells), are the plain width-1
+        small for one substep's ghost cells, and TVB on a graded or
+        spherical mesh, as on one domain), are the plain width-1
         exchanges: CPU tensors only, they raise on a card.
         """
         self.exchange = None if isinstance(spmd, tuple) else spmd
@@ -205,18 +207,12 @@ class CoupledModel:
                 f"transport_backend must be one of {TRANSPORT_BACKENDS}, "
                 f"got {transport_backend!r}"
             )
-        if self.exchange is not None and (tvb_m is not None or mesh.periodic_x or mesh.periodic_y):
-            raise NotImplementedError(
-                "the TVB limiter and periodic axes on a rank grid are ROADMAP M10b"
-            )
         self.mesh = mesh
         solver_cls = get_loader().get_implementation("Nextsim::IDynamics")
         if self.exchange is not None and issubclass(solver_cls, MEVPSolverHO):
             raise NotImplementedError(
-                "the HO solver on a rank grid (its blocked and rdma schedules) is ROADMAP M10b"
+                "the HO solver on a rank grid (its blocked and rdma schedules) is ROADMAP M10b part 2"
             )
-        if self.exchange is not None and issubclass(solver_cls, FreeDriftSolver):
-            raise NotImplementedError("free drift on a rank grid is ROADMAP M10b")
         self.ocean_mask = None
         if ocean_mask is not None:
             self.ocean_mask = np.asarray(ocean_mask, dtype=np.float64)
@@ -229,6 +225,7 @@ class CoupledModel:
                 )
         self._masks = {}
         self._widened_transport = {}
+        self._widened_metric = {}
         self.transport = DGTransport(mesh, degree=degree, spmd=self.spmd, tvb_m=tvb_m)
         if issubclass(solver_cls, MEVPSolverHO):
             self.mevp = solver_cls(mesh, mevp_params, backend=mevp_backend)
@@ -369,14 +366,41 @@ class CoupledModel:
 
     def widened_transport(self, halo: int) -> DGTransport:
         """The transport operator, without an exchange, of this rank's block
-        widened by ``halo`` cells on every side (built once per halo)."""
+        widened by ``halo`` cells on every side (built once per halo): a
+        closed block (its strips are the exchange's, round the ring on a
+        periodic axis) of the block's widths, or a ``MetricShim`` whose
+        metric is ``widened_metric``; with the model's TVB constant."""
         if halo not in self._widened_transport:
             mesh = self.mesh
-            widened = RectMesh(mesh.nx + 2 * halo, mesh.ny + 2 * halo, mesh.dx, mesh.dy)
+            widened = block_mesh(mesh.nx + 2 * halo, mesh.ny + 2 * halo, mesh)
             self._widened_transport[halo] = DGTransport(
-                widened, self.transport.basis.degree, self.transport.scheme
+                widened, self.transport.basis.degree, self.transport.scheme,
+                tvb_m=self.transport.tvb_m,
             )
         return self._widened_transport[halo]
+
+    def widened_metric(self, halo: int, *, device, dtype):
+        """The transport's metric planes (``DGTransport.metric_planes``) of
+        this rank's block widened by ``halo`` cells, or None on a uniform
+        mesh: the global mesh's there (a ``LocalMeshView``'s
+        ``window_metric``), round a ring, and 0 beyond a closed wall, where
+        the JAX package's exchange brings zero strips (inert: every use is
+        a multiply). Built once per (halo, device, dtype)."""
+        mesh = self.mesh
+        if mesh.uniform:
+            return None
+        key = (halo, torch.device(device), dtype)
+        if key not in self._widened_metric:
+            m, inside = mesh.window_metric(halo, device=device, dtype=dtype)
+            zero = torch.zeros((), device=device, dtype=dtype)
+            self._widened_metric[key] = {
+                "inv_dx": torch.where(inside, 1.0 / m["dx"], zero),
+                "inv_dy": torch.where(inside, 1.0 / m["dy"], zero),
+                "face_x": m["face_x"],
+                "face_y": m["face_y"],
+                "inv_area": torch.where(inside, 1.0 / m["area"], zero),
+            }
+        return self._widened_metric[key]
 
     def _local_ocean_mask(self):
         """This block's part of the ocean mask: on a rank grid the model

@@ -78,7 +78,12 @@
 // The kernel template lives in transport_tiled.cuh; this source compiles
 // its closed instances without TVB, transport_tiled_forms.cu the TVB and
 // the periodic forms (template arguments, kTvb and kWrap, so that the
-// closed instances keep their code).
+// closed instances keep their code), and transport_tiled_spmd.cu the TVB
+// form of a rank block widened by ghost cells (kWalls): there the global
+// walls sit inside the launch's domain, at rows and columns the host
+// passes, and the edges of the widened block are no walls to the limiter
+// (the ring beyond them is discarded), as the JAX kernel's wall-delta
+// masks have it.
 //
 // The TVB form (kTvb, dG1 and dG2 on a uniform mesh, whose tolerance is one
 // number an axis): each stage writes its unlimited values, and after a
@@ -103,11 +108,12 @@ namespace nst {
 
 // The instance of a launch as an untyped function pointer (for the
 // attribute and occupancy queries); null where there is none.
-const void* transport_tiled_ptr(int degree, bool metric, bool qv, bool vec, bool tvb, int wrap) {
+const void* transport_tiled_ptr(int degree, bool metric, bool qv, bool vec, bool tvb, int wrap,
+                                bool walls) {
   switch (degree) {
-    case 0: return reinterpret_cast<const void*>(transport_tiled_of<0>(metric, qv, vec, tvb, wrap));
-    case 1: return reinterpret_cast<const void*>(transport_tiled_of<1>(metric, qv, vec, tvb, wrap));
-    default: return reinterpret_cast<const void*>(transport_tiled_of<2>(metric, qv, vec, tvb, wrap));
+    case 0: return reinterpret_cast<const void*>(transport_tiled_of<0>(metric, qv, vec, tvb, wrap, walls));
+    case 1: return reinterpret_cast<const void*>(transport_tiled_of<1>(metric, qv, vec, tvb, wrap, walls));
+    default: return reinterpret_cast<const void*>(transport_tiled_of<2>(metric, qv, vec, tvb, wrap, walls));
   }
 }
 
@@ -118,8 +124,9 @@ int tiled_call(const float* psi_in, float* psi_out, const float* u, const float*
                const float* face_x, const float* face_y, const void* const* metric,
                const void* const* qv, int nx, int ny, int n_tracers, int group, int tile,
                int halo, int n_sub, int n_stages, int threads, int n_buffers, int vec,
-               int blocks, int compute, int wrap, const float* tvb, const float* weights,
-               float dt, const float* tables, int bytes, cudaStream_t stream) {
+               int blocks, int compute, int wrap, const float* tvb, const int* walls,
+               const float* weights, float dt, const float* tables, int bytes,
+               cudaStream_t stream) {
   TransportTiledArgs<kDeg> g = {};
   g.psi_in = psi_in;
   g.psi_out = psi_out;
@@ -147,14 +154,15 @@ int tiled_call(const float* psi_in, float* psi_out, const float* u, const float*
     g.tol_x = tvb[0];
     g.tol_y = tvb[1];
   }
+  for (int w = 0; w < 4; ++w) g.wall[w] = walls != nullptr ? walls[w] : -1;
   for (int s = 0; s < kTransportMaxStages; ++s) {
     g.a[s] = weights[s];
     g.b[s] = weights[kTransportMaxStages + s];
   }
   g.dt = dt;
   std::memcpy(&g.tb, tables, sizeof(g.tb));
-  const auto kernel =
-      transport_tiled_of<kDeg>(metric != nullptr, qv != nullptr, vec != 0, tvb != nullptr, wrap);
+  const auto kernel = transport_tiled_of<kDeg>(metric != nullptr, qv != nullptr, vec != 0,
+                                               tvb != nullptr, wrap, walls != nullptr);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) {
@@ -181,11 +189,13 @@ int nst_transport_tiled_shared_bytes(int tile, int halo, int n_coeff, int n_buff
 
 // Blocks of `threads` threads with `bytes` of shared memory that one SM
 // holds at once (the kernel of the degree, metric, qv, copy width and TVB
-// form given), or minus a CUDA error code.
+// form given: tvb 1, the TVB form, 2 its rank grid form with the walls
+// given), or minus a CUDA error code.
 int nst_transport_tiled_blocks_per_sm(int degree, int metric, int qv, int vec, int tvb,
                                       int threads, int bytes, int device) {
   cudaError_t err = cudaSetDevice(device);
-  const void* kernel = nst::transport_tiled_ptr(degree, metric != 0, qv != 0, vec != 0, tvb != 0, 0);
+  const void* kernel =
+      nst::transport_tiled_ptr(degree, metric != 0, qv != 0, vec != 0, tvb != 0, 0, tvb == 2);
   if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   int per_sm = 0;
   if (err == cudaSuccess) {
@@ -220,7 +230,10 @@ int nst_transport_tiled_blocks_per_sm(int degree, int metric, int qv, int vec, i
 // periodic axes (kWrapX, kWrapY): window loads wrap, no face is a wall; a
 // periodic axis at least `halo` long. tvb: null, or the TVB form's two
 // tolerances (dG1 and dG2 on a uniform mesh; each stage then spoils two
-// rings: n_sub * n_stages * 2 <= halo - 1). Launches on
+// rings: n_sub * n_stages * 2 <= halo - 1). walls: null, or with tvb (a
+// closed launch) the rank grid's form: 4 ints, the rows of the zeroed
+// forward and backward x mean differences, then the columns of y's, -1
+// for none (the global walls inside a widened block). Launches on
 // `stream`, returns cudaGetLastError() (or the error of the shared-memory
 // attribute); does not synchronise.
 int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u, const float* v,
@@ -228,8 +241,8 @@ int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u, con
                         const void* const* qv, int nx, int ny, int n_tracers, int group,
                         int degree, int tile, int halo, int n_sub, int n_stages, int threads,
                         int n_buffers, int vec, int blocks, int compute, int wrap,
-                        const float* tvb, const float* weights, float dt, const float* tables,
-                        int device, void* stream) {
+                        const float* tvb, const int* walls, const float* weights, float dt,
+                        const float* tables, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int max_threads =
@@ -256,17 +269,20 @@ int nst_transport_tiled(const float* psi_in, float* psi_out, const float* u, con
     case 0:
       return nst::tiled_call<0>(psi_in, psi_out, u, v, face_x, face_y, metric, qv, nx, ny,
                                 n_tracers, group, tile, halo, n_sub, n_stages, threads,
-                                n_buffers, vec, blocks, compute, wrap, tvb, weights, dt, tables, bytes,
+                                n_buffers, vec, blocks, compute, wrap, tvb, walls, weights, dt, tables,
+                                bytes,
                                 s);
     case 1:
       return nst::tiled_call<1>(psi_in, psi_out, u, v, face_x, face_y, metric, qv, nx, ny,
                                 n_tracers, group, tile, halo, n_sub, n_stages, threads,
-                                n_buffers, vec, blocks, compute, wrap, tvb, weights, dt, tables, bytes,
+                                n_buffers, vec, blocks, compute, wrap, tvb, walls, weights, dt, tables,
+                                bytes,
                                 s);
     default:
       return nst::tiled_call<2>(psi_in, psi_out, u, v, face_x, face_y, metric, qv, nx, ny,
                                 n_tracers, group, tile, halo, n_sub, n_stages, threads,
-                                n_buffers, vec, blocks, compute, wrap, tvb, weights, dt, tables, bytes,
+                                n_buffers, vec, blocks, compute, wrap, tvb, walls, weights, dt, tables,
+                                bytes,
                                 s);
   }
 }

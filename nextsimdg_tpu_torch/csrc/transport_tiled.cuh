@@ -1,9 +1,10 @@
 // The DG ghost-zone tiled transport kernel (transport_tiled.cu) as a
 // template on the degree, the metric, the velocity source, the copy width,
-// the TVB form and the periodic form, shared by the two sources that
-// instantiate it: transport_tiled.cu (the closed instances without TVB,
-// and the entry points) and transport_tiled_forms.cu (the TVB and periodic
-// forms), which nvcc compiles in parallel. The design is described in transport_tiled.cu.
+// the TVB form, the periodic form and the TVB walls' source, shared by the
+// sources that instantiate it: transport_tiled.cu (the closed instances
+// without TVB, and the entry points), transport_tiled_forms.cu (the TVB and
+// periodic forms) and transport_tiled_spmd.cu (the rank grid's TVB form),
+// which nvcc compiles in parallel. The design is described in transport_tiled.cu.
 #pragma once
 
 #include <cstdint>
@@ -44,9 +45,13 @@ struct TransportTiledArgs {
   DgTables<kDeg> tb;
   // Last, so that the closed instances read their parameters at the offsets
   // they always had: the periodic axes (kWrapX, kWrapY; read by the
-  // periodic instances) and the TVB form's tolerances M dx^2, M dy^2.
+  // periodic instances), the TVB form's tolerances M dx^2, M dy^2, and the
+  // global walls of the rank grid's TVB form (kWalls): the row whose
+  // forward x difference is zeroed, the row of the backward one, then the
+  // columns of y's, -1 for none.
   int wrap;
   float tol_x, tol_y;
+  int wall[4];
 };
 
 // Floats of shared memory, rounded up to 128 bytes.
@@ -73,8 +78,11 @@ struct TransportLayout {
 // unlimited, then the TVB and positivity limiter on the window, one ring
 // further in. kWrap: the periodic form (the windows wrap on the axes of
 // g.wrap); without it g.wrap is not read and the code is the closed
-// domain's.
-template <int kDeg, bool kMetric, bool kQv, int kVec, bool kTvb, bool kWrap>
+// domain's. kWalls: the TVB form on a rank block widened by ghost cells,
+// whose global walls sit inside it: the limiter zeroes the mean
+// differences at the rows and columns of g.wall (the plain version's
+// wall_masks) instead of at the edges of the launch's domain.
+template <int kDeg, bool kMetric, bool kQv, int kVec, bool kTvb, bool kWrap, bool kWalls = false>
 __global__ void __launch_bounds__(TransportShape<kDeg>::kMaxThreads, 1)
 transport_tiled_kernel(const TransportTiledArgs<kDeg> g) {
   constexpr int kDofs = DgShape<kDeg>::kDofs;
@@ -269,10 +277,17 @@ transport_tiled_kernel(const TransportTiledArgs<kDeg> g) {
             if ((!wx && (i < 0 || i >= nx)) || (!wy && (j < 0 || j >= ny))) continue;
             const int c = a * P + b;
             TvbNeighbours n;
-            n.wall_l = !wx && i == 0;
-            n.wall_r = !wx && i == nx - 1;
-            n.wall_b = !wy && j == 0;
-            n.wall_t = !wy && j == ny - 1;
+            if constexpr (kWalls) {
+              n.wall_l = i == g.wall[1];
+              n.wall_r = i == g.wall[0];
+              n.wall_b = j == g.wall[3];
+              n.wall_t = j == g.wall[2];
+            } else {
+              n.wall_l = !wx && i == 0;
+              n.wall_r = !wx && i == nx - 1;
+              n.wall_b = !wy && j == 0;
+              n.wall_t = !wy && j == ny - 1;
+            }
             n.tol_x = g.tol_x;
             n.tol_y = g.tol_y;
             for (int t = 0; t < group; ++t) {
@@ -386,10 +401,19 @@ TransportKernel<kDeg> transport_tiled_tvb_of(bool metric, bool qv, bool vec);
 template <int kDeg>
 TransportKernel<kDeg> transport_tiled_forms_of(bool metric, bool qv, bool vec, bool tvb, int wrap);
 
-// The instance of a launch: the closed, untouched instances are compiled in
-// transport_tiled.cu, the forms in transport_tiled_forms.cu.
+// The rank grid's TVB instances at degree kDeg (transport_tiled_spmd.cu):
+// dG1 and dG2 on a uniform mesh, the CG1 velocity, closed (the widened
+// block's ring is the exchange's), the walls from g.wall; null at dG0.
 template <int kDeg>
-TransportKernel<kDeg> transport_tiled_of(bool metric, bool qv, bool vec, bool tvb, int wrap) {
+TransportKernel<kDeg> transport_tiled_walls_of(bool vec);
+
+// The instance of a launch: the closed, untouched instances are compiled in
+// transport_tiled.cu, the forms in transport_tiled_forms.cu and, with the
+// TVB walls given (walls), transport_tiled_spmd.cu.
+template <int kDeg>
+TransportKernel<kDeg> transport_tiled_of(bool metric, bool qv, bool vec, bool tvb, int wrap,
+                                         bool walls = false) {
+  if (walls) return tvb && !metric && !qv && !wrap ? transport_tiled_walls_of<kDeg>(vec) : nullptr;
   return tvb || wrap ? transport_tiled_forms_of<kDeg>(metric, qv, vec, tvb, wrap)
                      : transport_tiled_select<kDeg, false, false>(metric, qv, vec);
 }

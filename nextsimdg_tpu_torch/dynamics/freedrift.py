@@ -23,9 +23,8 @@ class FreeDriftSolver:
     """Free drift on a ``RectMesh`` or ``SphericalMesh``, closed or periodic.
 
     ``backend`` and ``block_halo`` are accepted for the interface of the
-    other solvers and unused; ``spmd`` is a rank's exchange axes, which the
-    node averages would exchange over (``CoupledModel`` does not run free
-    drift on a rank grid: ROADMAP M10b).
+    other solvers and unused; ``spmd`` is a rank's exchange axes on a rank
+    grid, over which the node averages exchange.
     """
 
     def __init__(

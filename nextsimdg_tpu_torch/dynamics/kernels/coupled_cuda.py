@@ -77,10 +77,13 @@ precomputed samples (their ``qv`` form).
 
 On a rank grid (``parallel``) the phase runs the solver's exchange
 schedule (``MEVPSolver.spmd_subcycles``: ``mevp_tiled`` on the widened
-block, or the rdma round), samples the CFL speeds of the rank's own
-elements in its widened velocity, agrees k over the ranks with one host
-sync for the whole grid, and advects with ``transport_tiled`` on the
-widened block (``transport_tiled_cuda.transport_substeps_tiled_spmd``).
+block, or the rdma round; free drift's plain step), samples the CFL
+speeds of the rank's own elements in its widened velocity, agrees k over
+the ranks with one host sync for the whole grid, and advects with
+``transport_tiled`` on the widened block
+(``transport_tiled_cuda.transport_substeps_tiled_spmd``: on a graded or
+spherical mesh with the widened metric planes, with TVB with the global
+walls inside the block).
 
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
@@ -259,12 +262,12 @@ def _bind():
     lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 6 + [f, f, f] + tail
     lib.nst_dg1_limit.argtypes = [p, p, p, f, f] + [i] * 5 + tail
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 7 + tail
-    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 15 + [p, p, f] + tail
+    lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 15 + [p, p, p, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 9 + [p] + tail
     lib.nst_ho_single.argtypes = [p] * 3 + [i] * 10 + [p] + tail
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 11 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
-    lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, i, p, i, p] + tail
+    lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, i, p, i, p, p, i, i, i, p]
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
@@ -567,10 +570,12 @@ def _mevp_consts(consts: dict):
     return _pointers([consts.get(name) for name in MEVP_CONSTS])
 
 
-def _dg1_metric(transport: DGTransport, device):
+def _dg1_metric(transport: DGTransport, device, metric=None):
     """Dg1MetricPlanes of the transport's float32 metric planes on
-    ``device``, or None (a null pointer) on a uniform mesh."""
-    metric = transport.metric_planes(device=device, dtype=torch.float32)
+    ``device`` (or of ``metric``, planes given in their place), or None (a
+    null pointer) on a uniform mesh."""
+    if metric is None:
+        metric = transport.metric_planes(device=device, dtype=torch.float32)
     return None if metric is None else _pointers([metric[name] for name in _DG1_METRIC])
 
 
@@ -895,14 +900,21 @@ def free_drift_subcycles(solver, carry, consts, dt: float, n_subcycles: int):
 
 def transport_substeps_reference(
     transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None, qv=None,
+    metric=None, wall_masks=None,
 ):
     """k x ``transport.step(limit=True)`` with the velocity sampled from the
     CG1 nodes (u, v), or with the precomputed quadrature velocity ``qv``
-    (the HO path; u and v are then not read); ``tracers`` is (K, T, nx, ny)."""
+    (the HO path; u and v are then not read); ``tracers`` is (K, T, nx, ny).
+    ``metric``: the metric planes in place of the transport's (a widened
+    rank block's); ``wall_masks``: the TVB wall-delta masks (its global
+    walls)."""
     if qv is None:
         qv = velocity_from_cg(transport.mesh, transport.basis, u, v)
     for _ in range(k):
-        tracers = transport.step(tracers, qv, dt_sub, limit=True, face_masks=face_masks)
+        tracers = transport.step(
+            tracers, qv, dt_sub, limit=True, face_masks=face_masks, metric=metric,
+            wall_masks=wall_masks,
+        )
     return tracers
 
 
@@ -1132,7 +1144,8 @@ def _spmd_dynamics_phase(
     model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, mevp, transport,
 ):
     """``dynamics_phase`` on one rank of a rank grid: the N subcycles on the
-    solver's exchange schedule (``mevp``: "blocked", "rdma" or "xla"); the
+    solver's exchange schedule (``mevp``: "blocked", "rdma" or "xla"; or
+    the free-drift step, "free-drift", plain on every device); the
     max speeds of the rank's own elements, the max over the ranks and k;
     then ``transport="tiled"``: ``transport_substeps_tiled_spmd``
     (transport_tiled on the block widened by H), or ``"xla"``: the plain
@@ -1145,20 +1158,28 @@ def _spmd_dynamics_phase(
     from .transport_tiled_cuda import transport_substeps_tiled_spmd, widen_velocity
 
     solver, tr, mesh = model.mevp, model.transport, model.mesh
-    if mevp != solver.schedule() or transport not in ("tiled", "xla"):
+    if mevp != model.mevp_schedule() or transport not in ("tiled", "xla"):
         raise ValueError(
             f"unknown rank-grid schedule: mevp={mevp!r} (the solver runs "
-            f"{solver.schedule()!r}), transport={transport!r}"
+            f"{model.mevp_schedule()!r}), transport={transport!r}"
         )
     on_cpu = _on_cpu(tracers)
     if transport == "xla" and not on_cpu:
+        if tr.limits_slopes and not mesh.uniform:
+            raise NotImplementedError(
+                "TVB on a graded or spherical rank grid runs the staged transport with "
+                "width-1 exchanges, the plain path (CPU tensors); on a card it is ROADMAP M10c"
+            )
         raise NotImplementedError(
             "on a card the rank grid advects with transport_tiled only; the plain "
             "staged transport with width-1 exchanges ('xla') takes CPU tensors "
             f"(transport_backend={model.transport_backend!r}: {tr.scheme} on a "
             f"{mesh.nx} x {mesh.ny} block)"
         )
-    planes = solver.spmd_subcycles(state_arrays, consts, dt, n_subcycles)
+    if mevp == "free-drift":  # plain on every device; its node averages exchange
+        planes = free_drift_subcycles(solver, state_arrays, consts, dt, n_subcycles)
+    else:
+        planes = solver.spmd_subcycles(state_arrays, consts, dt, n_subcycles)
     u, v = planes[0], planes[1]
     velocity_w = widen_velocity(model, u, v) if transport == "tiled" else None
     if not model.auto_substeps:

@@ -23,7 +23,18 @@ rank's compute stream:
    (nx + 2h) x [ghost h | own 2h] patches the own columns, corners last.
 
 Each subcycle spoils one ring, so the round needs n_sub <= h and, on each
-split axis, a block of at least 2h cells. ``rdma_band`` computes only the
+split axis, a block of at least 2h cells.
+
+Every form of the JAX round runs: the 7 uniform consts or the 12 of a rank
+block of a graded or spherical mesh (a ``LocalMeshView``: the metric planes
+widen with the other consts and the kernels read them by offset), a_node
+besides in the A-weighted form, and the adaptive body (the momentum forms
+select template instances, ``coupled_cuda.mevp_form``). On a periodic axis
+split over ranks the ring is the exchange's (the ghosts come from the
+wrapped neighbour, and nothing is zeroed); on a periodic axis of one rank
+the round wraps along it: the interior pass is ``mevp_tiled``'s periodic
+form and the bands of the other axis wrap along the band
+(``phase_solvers``). ``rdma_band`` computes only the
 patch's cone (``band_cone``, which the host passes to the kernel), by
 clusters of blocks along the band (``launch_config``). The plain version,
 ``mevp_round_rdma_reference``, runs the same steps with the plain subcycle
@@ -41,7 +52,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..mevp import UNIFORM_CONSTS, MEVPSolver
+from ..mesh import block_mesh
+from ..mevp import MEVPSolver, const_names
 from . import coupled_cuda as cc
 from .mevp_tiled_cuda import mevp_subcycles_tiled
 
@@ -70,10 +82,11 @@ def band_shape(axis: int, h: int, nx: int, ny: int, hx: int) -> tuple:
     return (3 * h, ny) if axis == 0 else (nx + 2 * hx, 3 * h)
 
 
-def band_cone(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int) -> list:
+def band_cone(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int, wrap: bool = False) -> list:
     """The patch's cone, per subcycle of an rdma_band launch, in band
     coordinates: (element rows lo, hi, element columns lo, hi, node rows
-    lo, hi, node columns lo, hi), each [lo, hi) clipped to the band.
+    lo, hi, node columns lo, hi), each [lo, hi) clipped to the band; with
+    ``wrap`` (the band wraps along its length) not clipped along it.
 
     The patch is a band's h middle rows (x) or columns (y), over the own
     columns (x) or rows (y). After subcycle ``sub`` come r = n_sub - 1 - sub
@@ -83,22 +96,25 @@ def band_cone(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int) -> list:
     element the nodes at 0 and +1)."""
     rows, cols = band_shape(axis, h, nx, ny, hx)
     (pr0, prn), (pc0, pcn) = ((h, h), (0, ny)) if axis == 0 else ((hx, nx), (h, h))
+    clip = lambda lo, hi, n: (max(lo, 0), min(hi, n))
+    keep = lambda lo, hi, n: (lo, hi)
+    clip_rows = keep if wrap and axis == 1 else clip  # y bands run along the rows
+    clip_cols = keep if wrap and axis == 0 else clip
     cone = []
     for sub in range(n_sub):
         r = n_sub - 1 - sub
-        clip = lambda lo, hi, n: (max(lo, 0), min(hi, n))
         cone.append(
-            clip(pr0 - r - 1, pr0 + prn + r, rows) + clip(pc0 - r - 1, pc0 + pcn + r, cols)
-            + clip(pr0 - r, pr0 + prn + r, rows) + clip(pc0 - r, pc0 + pcn + r, cols)
+            clip_rows(pr0 - r - 1, pr0 + prn + r, rows) + clip_cols(pc0 - r - 1, pc0 + pcn + r, cols)
+            + clip_rows(pr0 - r, pr0 + prn + r, rows) + clip_cols(pc0 - r, pc0 + pcn + r, cols)
         )
     return cone
 
 
 @functools.lru_cache(maxsize=64)
-def _cone_array(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int):
+def _cone_array(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int, wrap: bool = False):
     """``band_cone`` as the kernel takes it (n_sub x 8 C ints), built once
     per band shape: every round of a step launches the same ones."""
-    cone = band_cone(axis, h, n_sub, nx, ny, hx)
+    cone = band_cone(axis, h, n_sub, nx, ny, hx, wrap)
     return (ctypes.c_int * (8 * n_sub))(*(x for sub in cone for x in sub))
 
 
@@ -243,9 +259,10 @@ def _band_consts(consts_w: dict, rows: slice, cols: slice) -> dict:
 
 
 def rdma_band_reference(solver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state):
-    """n_sub plain subcycles (``solver`` without an exchange) on the two
-    bands of ``axis``; patches their rows (x) or columns (y) into the 5
-    planes of ``state`` in place and returns it."""
+    """n_sub plain subcycles (``solver`` without an exchange: the band
+    solver of ``phase_solvers``, periodic along the band where it wraps) on
+    the two bands of ``axis``; patches their rows (x) or columns (y) into
+    the 5 planes of ``state`` in place and returns it."""
     h, hx, hy = src.h, src.hx, src.hy
     own = torch.stack(src.own)
     nx, ny = own.shape[1:]
@@ -295,20 +312,38 @@ def rdma_band(
     """n_sub subcycles on the two bands of ``axis`` and their patches into
     ``state`` (5 planes, in place; returned), in one launch on CUDA tensors
     (the patch's cone only, in ``config`` or ``launch_config``'s); CPU
-    tensors run the plain version. ``consts_w``: the 7 uniform consts
-    widened by h on each split axis."""
+    tensors run the plain version. ``solver``: the band solver of
+    ``phase_solvers`` (its momentum form, its mesh's metric form and its
+    periodic axis along the band select the instance); ``consts_w``: its
+    consts (``mevp.const_names``) widened by h on each split axis."""
     if cc._on_cpu(src.own[0]):
         return rdma_band_reference(solver, src, axis, consts_w, dt, n_sub, state)
-    if tuple(sorted(consts_w)) != tuple(sorted(UNIFORM_CONSTS)) or not solver.mesh.uniform:
-        raise NotImplementedError("rdma_band takes the 7 consts of a uniform mesh")
+    mesh = solver.mesh
+    expected = const_names(solver.params.a_weighted_stress, mesh.uniform)
+    if tuple(sorted(consts_w)) != tuple(sorted(expected)):
+        raise NotImplementedError(
+            f"rdma_band takes the consts {tuple(sorted(expected))} for this solver, "
+            f"got {tuple(sorted(consts_w))}"
+        )
     if not src.split[axis]:
         raise ValueError(f"axis {axis} is not split over ranks: it has no bands")
+    wrap = mesh.periodic_y if axis == 0 else mesh.periodic_x
+    if (mesh.periodic_x if axis == 0 else mesh.periodic_y) or (wrap and src.split[1 - axis]):
+        raise ValueError(
+            "a band wraps only along an axis not split over ranks, and never across itself"
+        )
     h = src.h
     nx, ny = src.own[0].shape
     if not 1 <= n_sub <= min(h, MAX_SUB) or (nx if axis == 0 else ny) < 2 * h:
         raise ValueError(f"a round needs n_sub <= h = {h} and a block of at least 2h along axis {axis}")
     config = launch_config(axis) if config is None else config
     config.check(axis, h, n_sub)
+    form = cc.kernel_form(solver)
+    if (form or not mesh.uniform) and config.threads > LAUNCH_BOUNDS[0]:
+        raise ValueError(
+            f"rdma_band's forms are built for blocks of at most {LAUNCH_BOUNDS[0]} threads, "
+            f"not {config.threads}"
+        )
     ptrs, dims = src.c_args(need_gx=src.split[0], need_gy=axis == 1)
     device = src.own[0].device
     cc._check((nx + 2 * src.hx, ny + 2 * src.hy), device, **consts_w)
@@ -319,8 +354,9 @@ def rdma_band(
     scalars = cc._mevp_scalars(solver, dt)  # alive until the call returns
     cc._launch(
         "rdma_band", ptrs, dims, axis, cc._mevp_consts(consts_w), config.cluster, config.seg,
-        config.threads, config.clusters(along, n_sub), _cone_array(axis, h, n_sub, nx, ny, src.hx),
-        n_sub, cc._pointers(state), ctypes.addressof(scalars), device.index, src.launch_stream(),
+        config.threads, config.clusters(along, n_sub),
+        _cone_array(axis, h, n_sub, nx, ny, src.hx, wrap), n_sub, cc._pointers(state),
+        ctypes.addressof(scalars), int(not mesh.uniform), form, device.index, src.launch_stream(),
     )
     return state
 
@@ -338,11 +374,31 @@ def max_clusters(device, axis: int, h: int, config: BandConfig) -> int:
     return clusters
 
 
+def phase_solvers(solver: MEVPSolver, split) -> tuple:
+    """(interior, x bands, y bands): ``solver`` (the rank's, without an
+    exchange, its mesh the block's with the global periodic axes) on the
+    periodic axes of each phase of a round whose axes ``split`` (x, y) are
+    split over ranks. A split axis is closed in every phase (its ring is
+    the exchange's); an axis of one rank that is periodic wraps in the
+    interior pass and along the bands of the other axis; a band never
+    wraps across itself."""
+    mesh = solver.mesh
+    wx, wy = mesh.periodic_x and not split[0], mesh.periodic_y and not split[1]
+
+    def on(periodic):
+        if periodic == (mesh.periodic_x, mesh.periodic_y):
+            return solver
+        return MEVPSolver(block_mesh(mesh.nx, mesh.ny, mesh, periodic), solver.params)
+
+    return on((wx, wy)), on((False, wy)), on((wx, False))
+
+
 def _round(solver, carry, consts, consts_w, dt, n_sub, h, axes, stage, band, interior, **sources):
     """The steps of the module docstring with the given primitives;
     ``sources``: the ``stream`` of the round's RoundSources."""
     ax_x, ax_y = axes
     src = RoundSources(own=tuple(carry), h=h, split=(ax_x is not None, ax_y is not None), **sources)
+    solver, x_bands, y_bands = phase_solvers(solver, src.split)
     if ax_x is not None:
         send = stage(src, 0)
         x_handle = ax_x.start(send[0], send[1])
@@ -355,10 +411,10 @@ def _round(solver, carry, consts, consts_w, dt, n_sub, h, axes, stage, band, int
         if ax_y is not None:
             send = stage(src, 1)
             y_handle = ax_y.start(send[0], send[1])
-        state = band(solver, src, 0, consts_w, dt, n_sub, state)
+        state = band(x_bands, src, 0, consts_w, dt, n_sub, state)
     if ax_y is not None:
         src.gy = ax_y.wait(y_handle)
-        state = band(solver, src, 1, consts_w, dt, n_sub, state)
+        state = band(y_bands, src, 1, consts_w, dt, n_sub, state)
     return state
 
 
@@ -377,7 +433,8 @@ def _check_round(carry, consts_w, n_sub, h, axes) -> None:
 
 def mevp_round_rdma_reference(solver: MEVPSolver, carry, consts, consts_w, dt, n_sub, h, axes):
     """One round on the plain subcycle, on any device. ``solver``: the
-    rank's solver without an exchange (``MEVPSolver.local()``); ``consts``:
+    rank's solver without an exchange (``MEVPSolver.local()``: the global
+    periodic axes, which ``phase_solvers`` applies); ``consts``:
     the step's consts; ``consts_w``: the same widened by h on each split
     axis; ``axes``: the (x, y) ``AxisExchange`` of each split axis, None for
     an axis that is not split. Returns the 5 planes after the round."""

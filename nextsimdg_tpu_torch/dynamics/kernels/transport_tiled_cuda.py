@@ -42,8 +42,14 @@ the opposite side.
 
 On a rank grid, ``transport_substeps_tiled_spmd`` (the counterpart of the
 JAX ``transport_substeps_tiled_spmd``) runs the same kernel on each rank's
-block widened by H ghost cells: one strip pair per axis buys
-(H - 1) // stages substeps, after which the interior is kept.
+block widened by H ghost cells: one strip pair per axis (round the ring of
+a periodic axis) buys (H - 1) // rings substeps, after which the interior
+is kept. On a rank block of a graded or spherical mesh the widened block's
+metric planes are passed to the kernel explicitly (``metric``: slices of
+the global mesh's, zero beyond a closed wall), its own mesh being a
+``MetricShim``. With TVB (uniform meshes) the global walls sit H rows
+inside the widened block: the kernel's rank grid form takes their indices
+(``walls``), the plain version the JAX package's wall-delta mask planes.
 """
 
 from __future__ import annotations
@@ -234,12 +240,12 @@ def copy_form(ny: int, *tensors) -> str:
 @lru_cache(maxsize=256)
 def blocks_per_sm(device, config: LaunchConfig, halo: int, qv: bool = False, metric: bool = False,
                   copy: str = "vector", n_tracers: int = 3, degree: int = 1,
-                  stages: int = 2, tvb: bool = False) -> int:
+                  stages: int = 2, tvb: int = 0) -> int:
     """Blocks of ``config`` that one SM of the card holds at once at this
     halo (windows of ``n_tracers`` tracers at ``degree``, a scheme of
-    ``stages`` stages, the TVB form or not): a persistent launch runs that
-    many times the SMs (cached: the query costs the host more than a
-    launch)."""
+    ``stages`` stages; ``tvb``: 0 without TVB, 1 its form, 2 its rank grid
+    form): a persistent launch runs that many times the SMs (cached: the
+    query costs the host more than a launch)."""
     device = torch.device(device)
     n_bytes = shared_bytes(
         config.tile, halo, n_tracers, config.buffers, qv, DG_DOFS[degree], stages
@@ -253,6 +259,20 @@ def blocks_per_sm(device, config: LaunchConfig, halo: int, qv: bool = False, met
     return count
 
 
+def wall_masks(walls, shape, like):
+    """The (fwd_x, bwd_x, fwd_y, bwd_y) wall-delta planes of
+    ``DGTransport.limit_slopes`` from the wall indices of the kernel's rank
+    grid form: 1.0 on the row (x) or column (y) given, 0 elsewhere and
+    everywhere for -1."""
+    planes = []
+    for axis, index in zip((0, 0, 1, 1), walls):
+        plane = like.new_zeros(shape)
+        if index >= 0:
+            plane.narrow(axis, index, 1).fill_(1.0)
+        planes.append(plane)
+    return tuple(planes)
+
+
 def tile_walk(n_tiles: int, blocks: int) -> list:
     """The tiles each of ``blocks`` persistent blocks computes, in order:
     block b takes b, b + blocks, b + 2 blocks, ... (the kernel's walk)."""
@@ -263,6 +283,7 @@ def transport_substeps_tiled(
     transport: DGTransport, tracers, u, v, dt_sub: float, k: int, face_masks=None,
     tile: int = None, halo: int = None, threads: int = None, qv: QuadVelocity = None,
     config: LaunchConfig = None, copy: str = "auto", compute: bool = True, group: int = None,
+    metric: dict = None, walls=None,
 ):
     """The tracers after k limited substeps of ``dt_sub``.
 
@@ -278,12 +299,23 @@ def transport_substeps_tiled(
     reach shared memory ("auto": ``copy_form``); ``group``: tracers in a
     block's window (default ``window_tracers``; a divisor of T).
     ``compute=False`` only loads and stores the windows (the phase
-    measurement: the result is then the input). The inputs are not
-    modified.
+    measurement: the result is then the input). ``metric``: the metric
+    planes (``DGTransport.metric_planes``' names) in place of the
+    transport's, for a mesh whose metric is not its own (a widened rank
+    block). ``walls``: with the TVB limiter, the rank grid form's global
+    walls inside the domain, (fwd_x, bwd_x, fwd_y, bwd_y) row and column
+    indices, -1 for none, in place of the domain's edges (a closed launch;
+    the plain version takes them as ``wall_masks`` planes). The inputs are
+    not modified.
     """
+    nx, ny = transport.mesh.nx, transport.mesh.ny
+    if walls is not None and not transport.limits_slopes:
+        raise ValueError("TVB walls are given to a transport without the TVB limiter")
     if cc._on_cpu(tracers):
+        masks = None if walls is None else wall_masks(walls, (nx, ny), tracers[0, 0])
         return transport_substeps_tiled_reference(
-            transport, tracers, u, v, dt_sub, k, face_masks, qv=qv
+            transport, tracers, u, v, dt_sub, k, face_masks, qv=qv, metric=metric,
+            wall_masks=masks,
         )
     if copy not in COPIES:
         raise ValueError(f"copy must be one of {COPIES}, not {copy!r}")
@@ -292,7 +324,6 @@ def transport_substeps_tiled(
     # a[0..2], then b[0..2] (unused stages: 0).
     pad = lambda xs: xs + [0.0] * (3 - len(xs))
     weights = cc._floats(pad([a for a, _ in stages]) + pad([b for _, b in stages]))
-    nx, ny = transport.mesh.nx, transport.mesh.ny
     degree, n_dofs = transport.basis.degree, transport.basis.n_dofs
     device = tracers.device
     n_tracers = tracers.shape[1]
@@ -321,7 +352,10 @@ def transport_substeps_tiled(
     if (mesh.periodic_x and halo > nx) or (mesh.periodic_y and halo > ny):
         raise ValueError(f"halo {halo} is wider than a periodic axis of the {nx} x {ny} grid")
     wrap = cc.wrap_bits(mesh)
+    if walls is not None and (wrap or len(walls) != 4):
+        raise ValueError("the TVB walls are four indices of a closed launch")
     tolerances = cc._floats(transport.tvb_tolerances(device="cpu", dtype=torch.float32)) if tvb else None
+    wall_array = None if walls is None else (ctypes.c_int * 4)(*map(int, walls))
     if group is None:
         group = window_tracers(halo, qv is not None, n_tracers, nx * ny, n_dofs, n_stages)
     if group < 1 or n_tracers % group:
@@ -332,7 +366,9 @@ def transport_substeps_tiled(
     if config.tile < 1 or k_cap < 1:
         raise ValueError(f"tile {config.tile} / halo {halo} leaves no substep per launch")
     tables = cc._dg1_tables(transport)
-    metric = cc._dg1_metric(transport, device)
+    if metric is not None:
+        cc._check((nx, ny), device, **{f"metric {name}": metric[name] for name in cc._DG1_METRIC})
+    metric = cc._dg1_metric(transport, device, metric)
     stream = cc._stream(device)
     src = tracers
     buffers = [torch.empty_like(tracers) for _ in range(2)]
@@ -346,7 +382,7 @@ def transport_substeps_tiled(
         if config.persistent:
             per_sm = blocks_per_sm(
                 device, config, halo, qv is not None, metric is not None, form, group, degree,
-                n_stages, tvb,
+                n_stages, 2 if walls is not None else int(tvb),
             )
             blocks = min(items, per_sm * cc.sm_count(device))
         cc._launch(
@@ -354,6 +390,7 @@ def transport_substeps_tiled(
             face_y.data_ptr(), metric, qv_ptrs, nx, ny, n_tracers, group, degree, config.tile,
             halo, n_sub, n_stages, config.threads, config.buffers, int(form == "vector"), blocks,
             int(compute), wrap, None if tolerances is None else ctypes.addressof(tolerances),
+            None if wall_array is None else ctypes.addressof(wall_array),
             ctypes.addressof(weights), dt_sub, ctypes.addressof(tables), device.index, stream,
         )
         src = dst
@@ -364,31 +401,51 @@ def transport_substeps_tiled(
 def transport_tiled_spmd_config(model):
     """(H, k_cap) of the spmd wrapper on ``model``'s rank block, or None.
 
-    The exchange's ghost width H buys k_cap = (H - 1) // stages substeps on
-    the widened block: each substep spoils ``stages`` rings of it, and the
-    velocity sampled at its edge spoils one more, once. With k rarely above
-    the K_MAX = 3 substeps of one transport_tiled launch, the first H from
-    8 up that gives k_cap >= K_MAX serves one launch per exchange (rk3:
-    16); the strips are slices of the block, so H may not exceed it, and a
+    The exchange's ghost width H buys k_cap = (H - 1) // rings substeps on
+    the widened block: each substep spoils ``rings_per_substep`` rings of
+    it (a ring a stage, two with TVB), and the velocity sampled at its edge
+    spoils one more, once. With k rarely above the K_MAX = 3 substeps of
+    one transport_tiled launch, the first H from 8 up that gives k_cap >=
+    K_MAX serves one launch per exchange (rk2: 8, rk3 or rk2 with TVB: 16);
+    the strips are slices of the block, so H may not exceed it, and a
     smaller block takes the largest H that still gives k_cap >= 1 (None
-    where none does).
+    where none does, and for TVB on a graded or spherical mesh, whose
+    tolerance planes transport_tiled does not take: that runs staged).
     """
     tr, mesh = model.transport, model.mesh
-    stages = len(_STAGES[tr.scheme])
+    if tr.limits_slopes and not mesh.uniform:
+        return None
+    rings = rings_per_substep(tr)
     limit = min(mesh.nx, mesh.ny)
     for H in (8, 16, 24, 32):
-        if (H - 1) // stages >= K_MAX and H <= limit:
-            return H, (H - 1) // stages
+        if (H - 1) // rings >= K_MAX and H <= limit:
+            return H, (H - 1) // rings
     H = limit
-    return (H, (H - 1) // stages) if H >= stages + 1 else None
+    return (H, (H - 1) // rings) if H >= rings + 1 else None
 
 
 def _widen(model, f, H: int):
     """``f``'s last two axes widened by H ghost cells from the rank's
-    neighbours: one strip pair per axis."""
+    neighbours: one strip pair per axis, round the ring of a periodic
+    axis."""
     ax_x, ax_y = model.spmd
-    f = halo_widen(f, H, f.ndim - 2, False, ax_x)
-    return halo_widen(f, H, f.ndim - 1, False, ax_y)
+    f = halo_widen(f, H, f.ndim - 2, model.mesh.periodic_x, ax_x)
+    return halo_widen(f, H, f.ndim - 1, model.mesh.periodic_y, ax_y)
+
+
+def spmd_walls(model, H: int):
+    """The TVB walls of the rank's block widened by H, as the kernel's rank
+    grid form takes them: (fwd_x, bwd_x, fwd_y, bwd_y), the widened block's
+    row (column) of the global last and first wall of each closed axis that
+    this block owns, -1 for none (the JAX package's wall-delta masks)."""
+    mesh = model.mesh
+    out = []
+    for n, periodic, exchange in ((mesh.nx, mesh.periodic_x, model.spmd[0]),
+                                  (mesh.ny, mesh.periodic_y, model.spmd[1])):
+        last = not periodic and is_global_edge("last", exchange)
+        first = not periodic and is_global_edge("first", exchange)
+        out += [H + n - 1 if last else -1, H if first else -1]
+    return tuple(out)
 
 
 def widen_velocity(model, u, v, H: int = None):
@@ -421,13 +478,16 @@ def transport_substeps_tiled_spmd(
     once. The global walls: the wall-face zeroing of the first block is
     baked into the face masks before they are widened, and beyond a global
     wall the strips are zeros (no velocity, no face), so no flux crosses
-    it, as on one domain.
+    it, as on one domain. On a periodic axis the strips come round the
+    ring and no face is a wall. On a rank block of a graded or spherical
+    mesh the widened metric planes (``CoupledModel.widened_metric``) go to
+    the kernel; with TVB its walls (``spmd_walls``).
     """
     mesh, tr = model.mesh, model.transport
     ax_x, ax_y = model.spmd
     nx, ny = mesh.nx, mesh.ny
     H = (velocity_w.shape[-2] - nx) // 2
-    k_cap = (H - 1) // len(_STAGES[tr.scheme])
+    k_cap = (H - 1) // rings_per_substep(tr)
     if velocity_w.shape != (2, nx + 2 * H, ny + 2 * H) or k_cap < 1 or H > min(nx, ny):
         raise ValueError(
             f"a velocity widened to {tuple(velocity_w.shape)} does not fit a "
@@ -437,18 +497,20 @@ def transport_substeps_tiled_spmd(
     ones = torch.ones_like(tracers[0, 0])
     fx, fy = (ones, ones) if face_masks is None else face_masks
     fx, fy = fx.clone(), fy.clone()
-    if is_global_edge("first", ax_x):
+    if not mesh.periodic_x and is_global_edge("first", ax_x):
         fx[0, :] = 0.0
-    if is_global_edge("first", ax_y):
+    if not mesh.periodic_y and is_global_edge("first", ax_y):
         fy[:, 0] = 0.0
     faces_w = _widen(model, torch.stack([fx, fy]), H)
     local = model.widened_transport(H)
+    metric = model.widened_metric(H, device=tracers.device, dtype=tracers.dtype)
+    walls = spmd_walls(model, H) if tr.limits_slopes else None
     done = 0
     while done < k:
         n_sub = min(k_cap, k - done)
         padded = transport_substeps_tiled(
             local, _widen(model, tracers, H), velocity_w[0], velocity_w[1], dt_sub, n_sub,
-            (faces_w[0], faces_w[1]),
+            (faces_w[0], faces_w[1]), metric=metric, walls=walls,
         )
         tracers = padded[:, :, H: H + nx, H: H + ny]
         done += n_sub

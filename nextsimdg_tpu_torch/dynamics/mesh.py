@@ -14,6 +14,10 @@ planes on the device (``device_metric_planes``). Each axis is closed
 (no-flux / no-slip walls) or periodic (``periodic_x``, ``periodic_y``: the
 last element's neighbour is the first, node nx is node 0); a lon-lat
 window that spans 360 degrees of longitude is periodic in x.
+
+On a rank grid a graded or spherical mesh is held by each rank as a
+:class:`LocalMeshView` of its block: the global mesh, the grid's shape and
+the rank's coordinates, whose metric planes are slices of the global ones.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ class RectMesh:
     """nx x ny elements, ``dx`` per column and ``dy`` per row (scalars
     broadcast); ``periodic_x``/``periodic_y`` wrap an axis around, else its
     two sides are closed walls."""
+
+    #: Whether this is one rank's ``LocalMeshView`` of a global mesh.
+    is_local_view = False
 
     def __init__(
         self, nx: int, ny: int, dx, dy,
@@ -229,3 +236,183 @@ class SphericalMesh(RectMesh):
             "face_x": (ones_x, (self.radius * self.dphi) * ones_y),
             "face_y": (ones_x, (self.radius * self.dlam) * self._cos_node[:-1]),
         }
+
+
+class LocalMeshView(RectMesh):
+    """One rank's (nx // px, ny // py) block of a graded or spherical global
+    mesh on a rank grid.
+
+    Counterpart of the JAX package's ``LocalMeshView``. Under ``shard_map``
+    one program serves every device, so there the view slices the global
+    metric factors by ``lax.axis_index`` at trace time; here each rank
+    builds a model of its own, so the view is concrete: it holds the global
+    mesh, the grid's shape (px, py) and the rank's coordinates (ix, iy).
+    ``metric_factors`` are the global 1-D factors sliced to the block, so
+    ``device_metric_planes`` of the view are bit-identical slices of the
+    global planes (each factor is cast before the product, as there), and
+    ``window_metric`` gives the same planes over the block widened by ghost
+    cells. The static metric accessors (``dx``, ``cell_area``, ...) raise, as
+    the JAX package's do: a solver reading them would take one number or
+    one global array for a block's metric. Shape and topology (``nx``,
+    ``ny``, ``periodic_x``, ``periodic_y``) are the block's.
+    """
+
+    is_local_view = True
+
+    def __init__(self, global_mesh: RectMesh, px: int, py: int, coords) -> None:
+        if global_mesh.uniform:
+            raise ValueError("a uniform global mesh splits into plain RectMesh blocks")
+        if global_mesh.nx % px or global_mesh.ny % py:
+            raise ValueError(
+                f"grid {global_mesh.nx}x{global_mesh.ny} not divisible by rank grid {px}x{py}"
+            )
+        ix, iy = (int(c) for c in coords)
+        if not (0 <= ix < px and 0 <= iy < py):
+            raise ValueError(f"rank coordinates {coords} outside a {px} x {py} grid")
+        super().__init__(
+            global_mesh.nx // px, global_mesh.ny // py, 1.0, 1.0,
+            periodic_x=global_mesh.periodic_x, periodic_y=global_mesh.periodic_y,
+        )
+        self.uniform = False
+        self.global_mesh = global_mesh
+        self.px, self.py = int(px), int(py)
+        self.coords = (ix, iy)
+
+    def _no_static_metric(self, name: str):
+        raise TypeError(
+            f"LocalMeshView.{name} would be one number or global array for a rank's block; "
+            "use metric_factors(), device_metric_planes(view) or the global_mesh"
+        )
+
+    @property
+    def dx(self):
+        self._no_static_metric("dx")
+
+    @property
+    def dy(self):
+        self._no_static_metric("dy")
+
+    @property
+    def cell_area(self):
+        self._no_static_metric("cell_area")
+
+    @property
+    def face_len_x(self):
+        self._no_static_metric("face_len_x")
+
+    @property
+    def face_len_y(self):
+        self._no_static_metric("face_len_y")
+
+    def node_coords(self):
+        self._no_static_metric("node_coords")
+
+    def edge_x_coords(self, s_edge):
+        self._no_static_metric("edge_x_coords")
+
+    def edge_y_coords(self, s_edge):
+        self._no_static_metric("edge_y_coords")
+
+    def volume_quad_coords(self, xq_vol, yq_vol):
+        self._no_static_metric("volume_quad_coords")
+
+    def _window(self, axis: int, lo: int, hi: int):
+        """(global indices, inside) of the block's cells [-lo, n + hi) along
+        ``axis``: wrapped on a periodic axis; beyond a closed wall the index
+        is clipped and ``inside`` False."""
+        n, n_global = (self.nx, self.global_mesh.nx) if axis == 0 else (self.ny, self.global_mesh.ny)
+        periodic = self.periodic_x if axis == 0 else self.periodic_y
+        idx = self.coords[axis] * n + np.arange(-lo, n + hi)
+        if periodic:
+            return idx % n_global, np.ones(idx.shape, dtype=bool)
+        inside = (idx >= 0) & (idx < n_global)
+        return np.clip(idx, 0, n_global - 1), inside
+
+    def block_of(self, value):
+        """This block of a global static metric value: a float stays a
+        float, an array broadcastable to the global (nx, ny) is sliced to
+        the block's (nx, ny)."""
+        if isinstance(value, float):
+            return value
+        g, (ix, iy) = self.global_mesh, self.coords
+        full = np.broadcast_to(np.asarray(value), (g.nx, g.ny))
+        return full[ix * self.nx: (ix + 1) * self.nx, iy * self.ny: (iy + 1) * self.ny].copy()
+
+    def metric_factors(self) -> dict:
+        """The global mesh's (col, row) factors sliced to this block."""
+        (cols, _), (rows, _) = self._window(0, 0, 0), self._window(1, 0, 0)
+        return {
+            name: (col[cols], row[rows])
+            for name, (col, row) in self.global_mesh.metric_factors().items()
+        }
+
+    def window_metric(self, lo: int, hi: int = None, *, device, dtype):
+        """(planes, inside) over the block widened by ``lo`` cells before and
+        ``hi`` (default ``lo``) after it on both axes: dict(dx, dy, area,
+        face_x, face_y) of the global mesh's cells there, each the product
+        of its factors cast to ``dtype`` (bit-identical to the global
+        planes), wrapped round a periodic axis; and ``inside``, a bool plane
+        that is False beyond a closed global wall, where every plane is 0
+        (the zero strips of an exchange at a wall)."""
+        hi = lo if hi is None else hi
+        (cols, in_x), (rows, in_y) = self._window(0, lo, hi), self._window(1, lo, hi)
+        inside = torch.as_tensor(in_x[:, None] & in_y[None, :], device=device)
+        as_t = lambda a: torch.as_tensor(a, device=device).to(dtype)
+        planes = {}
+        for name, (col, row) in self.global_mesh.metric_factors().items():
+            c = as_t(np.where(in_x, col[cols], 0.0))
+            r = as_t(np.where(in_y, row[rows], 0.0))
+            planes[name] = c[:, None] * r[None, :]
+        return planes, inside
+
+
+class MetricShim(RectMesh):
+    """An (nx, ny) block whose metric is not a mesh's own: the inner
+    engine's mesh of a rank block of a graded or spherical mesh (the block
+    widened by ghost cells, or an rdma round's bands). The geometry rides
+    the solvers' metric planes instead: the mEVP's metric consts, widened
+    with the state, and the transport's planes passed to it explicitly (the
+    JAX package's unit shim mesh, whose metric is never read). It counts as
+    non-uniform, so that the kernels take the metric forms, and its static
+    metric and ``metric_factors`` raise."""
+
+    def __init__(self, nx: int, ny: int, periodic_x: bool = False, periodic_y: bool = False) -> None:
+        super().__init__(nx, ny, 1.0, 1.0, periodic_x=periodic_x, periodic_y=periodic_y)
+        self.uniform = False
+
+    def _no_metric(self, name: str):
+        raise TypeError(f"MetricShim.{name}: a shim's metric rides the solvers' metric planes")
+
+    @property
+    def dx(self):
+        self._no_metric("dx")
+
+    @property
+    def dy(self):
+        self._no_metric("dy")
+
+    @property
+    def cell_area(self):
+        self._no_metric("cell_area")
+
+    @property
+    def face_len_x(self):
+        self._no_metric("face_len_x")
+
+    @property
+    def face_len_y(self):
+        self._no_metric("face_len_y")
+
+    def metric_factors(self) -> dict:
+        self._no_metric("metric_factors")
+
+
+def block_mesh(nx: int, ny: int, like: RectMesh, periodic=(False, False)) -> RectMesh:
+    """The mesh of an (nx, ny) block that an inner engine runs in place of
+    ``like``'s (a rank block widened by ghost cells, an rdma round's bands),
+    with the periodic axes ``periodic``: a uniform one of ``like``'s widths,
+    or a ``MetricShim`` where ``like`` is graded or spherical."""
+    px, py = (bool(p) for p in periodic)
+    if like.uniform:
+        return RectMesh(nx, ny, like.dx, like.dy, periodic_x=px, periodic_y=py)
+    return MetricShim(nx, ny, periodic_x=px, periodic_y=py)

@@ -34,12 +34,15 @@ The subcycle is split in two halves, ``stress_update`` (per element) and
 kernels in ``dynamics.kernels.coupled_cuda``.
 
 On a rank grid (``nextsimdg_tpu_torch.parallel``) the solver holds one
-rank's block of a uniform mesh and its ``spmd`` exchange axes, and runs the
-N subcycles on one of the JAX package's exchange schedules
-(``MEVPSolver.schedule``): ``"blocked"`` widens the block by h ghost cells
-once per h subcycles (``mevp_tiled`` on the widened block on a card),
-``"rdma"`` runs the overlapped round of K7 (``kernels.mevp_rdma_cuda``),
-``"xla"`` exchanges width-1 halos in every subcycle (the plain path).
+rank's block (a uniform ``RectMesh``, or a ``LocalMeshView`` of a graded or
+spherical mesh) and its ``spmd`` exchange axes, which are rings on the
+periodic axes, and runs the N subcycles on one of the JAX package's
+exchange schedules (``MEVPSolver.schedule``): ``"blocked"`` widens the
+block by h ghost cells once per h subcycles (``mevp_tiled`` on the widened
+block on a card), ``"rdma"`` runs the overlapped round of K7
+(``kernels.mevp_rdma_cuda``), ``"xla"`` exchanges width-1 halos in every
+subcycle (the plain path). On a view the metric rides the const planes
+through every schedule, widened with the others, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .mesh import RectMesh, device_metric_planes
+from .mesh import RectMesh, block_mesh, device_metric_planes
 from .stencil import halo_widen, is_global_edge, shift_m, shift_p
 
 
@@ -157,10 +160,12 @@ BLOCK_HALO = 16
 
 
 class MEVPSolver:
-    """The CG1 mEVP solver on a closed ``RectMesh`` or ``SphericalMesh``.
+    """The CG1 mEVP solver on a ``RectMesh`` or ``SphericalMesh``, each axis
+    closed or periodic.
 
     ``spmd``: on a rank grid, this rank's (x, y) ``AxisExchange`` pair
-    (``RankExchange.axes``) and its block of a uniform mesh as ``mesh``;
+    (``RankExchange.axes``) and its block as ``mesh`` (a ``RectMesh``, or a
+    ``LocalMeshView`` of a graded or spherical mesh);
     ``backend`` (one of ``SPMD_BACKENDS``) and ``block_halo`` (ghost cells
     per exchange; "auto": ``BLOCK_HALO``, at most half the block) then pick
     the exchange schedule. Without a rank grid the kernel schedule is chosen by
@@ -173,25 +178,10 @@ class MEVPSolver:
     ) -> None:
         self.spmd = tuple(spmd)
         on_grid = any(axis is not None for axis in self.spmd)
-        if on_grid and (mesh.periodic_x or mesh.periodic_y):
-            raise NotImplementedError(
-                "periodic axes on a rank grid (the exchange's ring wrap) are ROADMAP M10b"
-            )
         if backend not in (SPMD_BACKENDS if on_grid else ("auto",)):
             raise ValueError(
                 f"backend {backend!r}: a rank grid takes one of {SPMD_BACKENDS}, "
                 "a single domain only 'auto' (CoupledModel picks its kernels)"
-            )
-        if on_grid and not mesh.uniform:
-            raise NotImplementedError(
-                "rank grids run uniform meshes; graded and spherical blocks "
-                "(LocalMeshView) are ROADMAP M10b"
-            )
-        if on_grid and backend == "rdma" and (params.a_weighted_stress or params.adaptive_alpha):
-            raise NotImplementedError(
-                "the rdma schedule runs the fixed-alpha, unweighted form; rdma_band's "
-                "a_weighted_stress and adaptive_alpha forms are ROADMAP M10b (the "
-                "'blocked' schedule runs both)"
             )
         self.mesh = mesh
         self.params = params
@@ -211,10 +201,15 @@ class MEVPSolver:
         return any(axis is not None for axis in self.spmd)
 
     def local(self) -> "MEVPSolver":
-        """This solver on the same block without an exchange: its shifts
-        zero-fill at the block's edges (the inner solver of the exchange
-        schedules)."""
-        return MEVPSolver(self.mesh, self.params)
+        """This solver on the same block without an exchange (the inner
+        solver of the exchange schedules): on a uniform block its mesh, on a
+        view a ``MetricShim`` (the metric rides the consts), each with the
+        global periodic axes, which the rdma round wraps where an axis is
+        not split over ranks."""
+        mesh = self.mesh
+        return MEVPSolver(
+            block_mesh(mesh.nx, mesh.ny, mesh, (mesh.periodic_x, mesh.periodic_y)), self.params
+        )
 
     def schedule(self) -> str:
         """The exchange schedule on a rank grid: "blocked", "rdma" or "xla"."""
@@ -226,14 +221,21 @@ class MEVPSolver:
         """None when uniform; else dict(area, node_area, inv_w, inv_dx,
         inv_dy, half_dx, half_dy) of (nx, ny) planes, built once per
         (device, dtype): the JAX package rebuilds the same values in every
-        step."""
+        step. On a ``LocalMeshView`` the node areas read the area one cell
+        before the block, sliced from the global mesh (0 beyond a closed
+        wall, wrapped on a ring) where the JAX package exchanges it: the
+        same values, so the planes are the single domain's slices."""
         if self.mesh.uniform:
             return None
         key = (torch.device(device), dtype)
         if key not in self._metric:
             px, py = self.mesh.periodic_x, self.mesh.periodic_y
             m = device_metric_planes(self.mesh, device=device, dtype=dtype)
-            node_area = cell_to_node(m["area"], px, py)
+            if self.mesh.is_local_view:
+                area = self.mesh.window_metric(1, 0, device=device, dtype=dtype)[0]["area"]
+                node_area = 0.25 * (area[1:, 1:] + area[:-1, 1:] + area[1:, :-1] + area[:-1, :-1])
+            else:
+                node_area = cell_to_node(m["area"], px, py)
             self._metric[key] = {
                 "area": m["area"],
                 "node_area": node_area,
@@ -568,7 +570,10 @@ class MEVPSolver:
         The widened block runs ``mevp_tiled`` on a card (the inner engine on
         a uniform mesh: the single-device rule, ``coupled.TILED_MIN_ELEMENTS``,
         takes it from 64^2 up, below every rank block of config 5; K4 is not
-        needed here) and the plain subcycle on the CPU.
+        needed here) and the plain subcycle on the CPU. On a view its mesh is
+        a ``MetricShim``: the metric consts widen with the others (zeros
+        beyond a closed wall are inert: every use is a multiply). On a ring
+        the strips wrap round the ranks and the widened block stays closed.
         """
         from .kernels.mevp_tiled_cuda import mevp_subcycles_tiled
 
@@ -580,7 +585,7 @@ class MEVPSolver:
             f = halo_widen(f, h, 1, self.mesh.periodic_x, ax_x)
             return halo_widen(f, h, 2, self.mesh.periodic_y, ax_y)
 
-        local = MEVPSolver(RectMesh(nx + 2 * h, ny + 2 * h, self.mesh.dx, self.mesh.dy), self.params)
+        local = MEVPSolver(block_mesh(nx + 2 * h, ny + 2 * h, self.mesh), self.params)
         consts_w = dict(zip(consts, widen(torch.stack(list(consts.values())))))
         state = torch.stack(list(carry))
         remaining = n_subcycles
@@ -598,7 +603,9 @@ class MEVPSolver:
         subcycles: not worth hiding); every round's 5 state strips ride the
         exchange behind the interior pass, corners via the x-then-extended-y
         exchange. An axis with one rank is not split: its walls are the
-        block's own zero edges."""
+        block's own zero edges, or on a periodic axis the round wraps along
+        it (``mevp_tiled``'s periodic form for the interior, the bands'
+        wrap along the band)."""
         from .kernels.mevp_rdma_cuda import mevp_round_rdma
 
         h = self.block_halo
@@ -615,11 +622,13 @@ class MEVPSolver:
     def rdma_round_inputs(self, consts):
         """(axes, consts_w) of the rdma rounds of a step: the (x, y)
         exchange of each axis split over ranks (None for an axis of one
-        rank), and the consts widened by h along the split axes."""
+        rank), and the consts widened by h along the split axes (round the
+        ring of a periodic axis)."""
         h = self.block_halo
         axes = tuple(ax if ax is not None and ax.size > 1 else None for ax in self.spmd)
+        periodic = (self.mesh.periodic_x, self.mesh.periodic_y)
         stacked = torch.stack(list(consts.values()))
         for axis, exchange in enumerate(axes):
             if exchange is not None:
-                stacked = halo_widen(stacked, h, axis + 1, False, exchange)
+                stacked = halo_widen(stacked, h, axis + 1, periodic[axis], exchange)
         return axes, dict(zip(consts, stacked))

@@ -18,7 +18,10 @@ block of the global domain. Each function then takes that rank's
 ``AxisExchange`` for the shifted axis (``RankExchange.axes[0]`` for x,
 ``[1]`` for y) where the JAX package takes a device-mesh axis name: the
 missing slice comes from the neighbour rank, and a closed global wall
-receives zeros. With none given they act on the whole domain.
+receives zeros. On a periodic axis the exchange is a ring of ranks
+(``AxisExchange.periodic``): the last rank's +1 neighbour is the first, as
+``lax.ppermute`` over the JAX package's ring permutation. With none given
+they act on the whole domain.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def halo_widen(f: torch.Tensor, h: int, axis: int, periodic: bool, exchange=None
     One strip pair per axis for h subcycles: the ghost-zone ("temporally
     blocked") exchange of the blocked mEVP and the spmd tiled transport.
     Without ``exchange`` (or at a closed global wall) the strips are zeros,
-    the wall condition; periodic axes wrap. Widening axis 0 first and then
+    the wall condition; periodic axes wrap (with ``exchange``, round the
+    ring of ranks). Widening axis 0 first and then
     axis 1 of the result fills the corners: the second exchange carries
     the first one's strips.
     """
@@ -88,7 +92,8 @@ def halo_widen(f: torch.Tensor, h: int, axis: int, periodic: bool, exchange=None
 def is_global_edge(side: str, exchange=None) -> bool:
     """Whether this block owns the global first or last slice along the
     axis of ``exchange``: always True without one (the block is the
-    domain)."""
+    domain). It does not know whether the axis is periodic: callers test
+    that first, as the JAX package's do."""
     if side not in ("first", "last"):
         raise ValueError(f"side must be 'first' or 'last', got {side!r}")
     if exchange is None:

@@ -29,10 +29,13 @@ A limited step applies the positivity limiter after every stage, and with
 periodic axis wraps every neighbour shift and has no wall face.
 
 On a rank grid (``nextsimdg_tpu_torch.parallel``) the operator holds one
-rank's block of a uniform mesh and its ``spmd`` exchange axes: the
-neighbour shifts exchange width-1 halos and only the block that owns the
-global first row (column) closes its wall face. The coupled step on a card
-advects with ``transport_tiled`` on a widened block instead
+rank's block (a uniform ``RectMesh`` or a ``LocalMeshView``, whose metric
+planes are slices of the global ones) and its ``spmd`` exchange axes,
+rings on the periodic axes: the neighbour shifts exchange width-1 halos,
+only the block that owns the global first row (column) closes its wall
+face, and the TVB limiter reads its neighbours' means through the exchange
+and takes its zero-gradient walls only at the global walls. The coupled
+step on a card advects with ``transport_tiled`` on a widened block instead
 (``kernels.transport_tiled_cuda.transport_substeps_tiled_spmd``).
 """
 
@@ -178,12 +181,14 @@ def substeps_from_speeds(
     ``cfl_substeps`` and the CUDA path both end here, so that the same max
     speeds give the same k. The speeds are held against the smallest
     element widths: on a spherical mesh the poleward rows are the
-    thinnest.
+    thinnest. On a rank grid those of the global mesh, so that every rank
+    agrees on k, and with the single domain.
     """
     # Cockburn & Shu's RKDG bound 1/(2p+1), with a 15% safety margin.
     c_stab = 0.85 / (2 * degree + 1)
-    dx_min = float(np.min(np.asarray(mesh.dx)))
-    dy_min = float(np.min(np.asarray(mesh.dy)))
+    geo = mesh.global_mesh if mesh.is_local_view else mesh
+    dx_min = float(np.min(np.asarray(geo.dx)))
+    dy_min = float(np.min(np.asarray(geo.dy)))
     nu = (speed_x / dx_min + speed_y / dy_min) * dt
     k = torch.ceil(nu / c_stab).to(torch.int32)
     return torch.clamp(torch.clamp(k, min=k_floor), 1, k_max)
@@ -208,25 +213,14 @@ class DGTransport:
     """The transport operator for one mesh (uniform, graded or spherical;
     closed or periodic axes) and DG degree (0, 1 or 2). ``tvb_m``: the TVB
     constant M of the slope limiter (None: positivity only). ``spmd``: on a
-    rank grid, the rank's (x, y) exchange axes, with its block of a
-    uniform, closed mesh as ``mesh``."""
+    rank grid, the rank's (x, y) exchange axes, with its block as ``mesh``
+    (a ``RectMesh`` or a ``LocalMeshView``)."""
 
     def __init__(
         self, mesh: RectMesh, degree: int = 1, scheme: str = None, spmd=(None, None),
         tvb_m: float = None,
     ) -> None:
         self.spmd = tuple(spmd)
-        if any(axis is not None for axis in self.spmd):
-            if not mesh.uniform:
-                raise NotImplementedError(
-                    "rank grids run uniform meshes; graded and spherical blocks "
-                    "(LocalMeshView) are ROADMAP M10b"
-                )
-            if mesh.periodic_x or mesh.periodic_y or tvb_m is not None:
-                raise NotImplementedError(
-                    "periodic axes and the TVB limiter on a rank grid (wall-delta masks, "
-                    "ring wrap) are ROADMAP M10b"
-                )
         self.mesh = mesh
         self.tvb_m = None if tvb_m is None else float(tvb_m)
         self._metric = {}
@@ -419,13 +413,18 @@ class DGTransport:
         ``tvb_m * dx * dx``: Python floats on a uniform mesh, else (nx, ny)
         planes of ``dtype`` on ``device`` (built once per (device, dtype, M);
         the per-element widths of a graded or spherical mesh cast to
-        ``dtype`` first, as the JAX package does)."""
+        ``dtype`` first, as the JAX package does; on a ``LocalMeshView`` its
+        slices of the global widths)."""
         mesh = self.mesh
         if mesh.uniform:
             return self.tvb_m * mesh.dx * mesh.dx, self.tvb_m * mesh.dy * mesh.dy
         key = (torch.device(device), dtype, self.tvb_m)
         if key not in self._tvb_tol:
             shape = (mesh.nx, mesh.ny)
+            if mesh.is_local_view:
+                widths = (mesh.block_of(mesh.global_mesh.dx), mesh.block_of(mesh.global_mesh.dy))
+            else:
+                widths = (mesh.dx, mesh.dy)
 
             def plane(width):
                 if isinstance(width, float):
@@ -433,7 +432,7 @@ class DGTransport:
                 w = torch.as_tensor(np.asarray(width), device=device).to(dtype)
                 return (self.tvb_m * w * w).expand(shape).contiguous()
 
-            self._tvb_tol[key] = (plane(mesh.dx), plane(mesh.dy))
+            self._tvb_tol[key] = tuple(plane(width) for width in widths)
         return self._tvb_tol[key]
 
     def limit_slopes(self, psi, wall_masks=None):
@@ -448,29 +447,34 @@ class DGTransport:
         zero-gradient ghost means; periodic axes wrap. dG0 and
         ``tvb_m=None``: a no-op. ``wall_masks``: optional (fwd_x, bwd_x,
         fwd_y, bwd_y) planes, 1.0 where the forward or backward mean
-        difference is zeroed, in place of the walls of the mesh (the JAX
-        package's spmd tiled transport passes them for a widened block).
+        difference is zeroed, in place of the walls of the mesh (the spmd
+        tiled transport passes them for a widened block, whose global walls
+        sit inside it). On a rank grid the neighbours' means come through
+        the exchange, and only the blocks at a global wall zero it.
         """
         if not self.limits_slopes:
             return psi
         mesh = self.mesh
+        ax_x, ax_y = self.spmd
         mean = psi[0]
         x_axis, y_axis = mean.ndim - 2, mean.ndim - 1
 
-        def deltas(axis, periodic, masks):
-            d_fwd = shift_p(mean, axis, periodic) - mean
-            d_bwd = mean - shift_m(mean, axis, periodic)
+        def deltas(axis, periodic, exchange, masks):
+            d_fwd = shift_p(mean, axis, periodic, exchange) - mean
+            d_bwd = mean - shift_m(mean, axis, periodic, exchange)
             if masks is not None:
                 d_fwd = torch.where(masks[0] == 1.0, 0.0, d_fwd)
                 d_bwd = torch.where(masks[1] == 1.0, 0.0, d_bwd)
             elif not periodic:
-                # Zero-gradient ghosts at the walls (the zero-filled shifts
-                # would otherwise make a -mean jump there).
+                # Zero-gradient ghosts at the global walls (the zero-filled
+                # shifts would otherwise make a -mean jump there).
                 n = mean.shape[axis]
                 d_fwd = d_fwd.clone()
                 d_bwd = d_bwd.clone()
-                d_fwd.narrow(axis, n - 1, 1).zero_()
-                d_bwd.narrow(axis, 0, 1).zero_()
+                if is_global_edge("last", exchange):
+                    d_fwd.narrow(axis, n - 1, 1).zero_()
+                if is_global_edge("first", exchange):
+                    d_bwd.narrow(axis, 0, 1).zero_()
             return d_fwd, d_bwd
 
         def minmod3(a, b, c):
@@ -479,8 +483,8 @@ class DGTransport:
             return torch.where(same, torch.sign(a) * smallest, 0.0)
 
         tol_x, tol_y = self.tvb_tolerances(device=psi.device, dtype=psi.dtype)
-        dpx, dmx = deltas(x_axis, mesh.periodic_x, None if wall_masks is None else wall_masks[:2])
-        dpy, dmy = deltas(y_axis, mesh.periodic_y, None if wall_masks is None else wall_masks[2:])
+        dpx, dmx = deltas(x_axis, mesh.periodic_x, ax_x, None if wall_masks is None else wall_masks[:2])
+        dpy, dmy = deltas(y_axis, mesh.periodic_y, ax_y, None if wall_masks is None else wall_masks[2:])
         s1 = torch.where(torch.abs(psi[1]) <= tol_x, psi[1], minmod3(psi[1], dpx, dmx))
         s2 = torch.where(torch.abs(psi[2]) <= tol_y, psi[2], minmod3(psi[2], dpy, dmy))
         if self.basis.n_dofs == 3:
@@ -498,13 +502,18 @@ class DGTransport:
     # -- SSP-RK time stepping ------------------------------------------------
     def step(
         self, psi, vel: QuadVelocity, dt: float, limit: bool = False, face_masks=None,
-        metric=None,
+        metric=None, wall_masks=None,
     ):
         """One SSP-RK step; ``limit`` applies the limiters after every RK
         stage (SSP keeps the limited property through the convex
         combinations): with ``tvb_m`` the TVB slope limiter, then the
-        positivity limiter."""
-        lim = self.limit if limit else (lambda p: p)
+        positivity limiter. ``metric``: the metric planes in place of this
+        operator's (a widened block's); ``wall_masks``: the TVB wall-delta
+        masks of ``limit_slopes``."""
+        if limit and wall_masks is not None:
+            lim = lambda p: self.limit_positivity(self.limit_slopes(p, wall_masks))
+        else:
+            lim = self.limit if limit else (lambda p: p)
         rhs = lambda p: self.rhs(p, vel, face_masks, metric)
         if self.scheme == "rk1":
             return lim(psi + dt * rhs(psi))

@@ -5,7 +5,7 @@ Counterpart of ``nextsimdg_tpu.parallel``'s explicit SPMD form
 process (``ranks``), their in-process halo exchange and max reduction
 (``exchange``), and the coupled model on the grid (``shardmap``). The
 GSPMD auto-partition form has no PyTorch counterpart; the multi-process
-form over ``torch.distributed`` is ROADMAP M10b.
+form over ``torch.distributed`` is ROADMAP M10b part 3.
 """
 
 from .exchange import RankAborted, RankExchange, run_ranks

@@ -13,7 +13,12 @@ is kept narrow so that a ``torch.distributed`` implementation can replace
 this one: per axis (``RankExchange.axes``), ``start`` posts a strip to the
 -1 and/or the +1 neighbour and ``wait`` returns the neighbours' strips
 (zeros at a closed global wall); ``max`` reduces a small tensor over all
-ranks and returns it on the host.
+ranks and returns it on the host. An axis of the grid is closed or
+periodic (``InProcessRing.periodic``, the global mesh's axes): on a
+periodic axis the neighbours form a ring, the last rank's +1 neighbour
+being the first (the counterpart of ``lax.ppermute`` over a ring
+permutation), so an axis of one rank is its own neighbour on either side,
+and nothing is a wall.
 
 On CUDA every rank has a compute stream (its thread's current stream while
 it steps) and a copy stream. ``start`` records an event on the compute
@@ -57,12 +62,19 @@ class InProcessRing:
     """The shared mailbox of the ranks of one grid.
 
     ``shape`` = (px, py) ranks; ``devices`` = one torch.device per rank, in
-    row-major rank order (rank = ix * py + iy). On CUDA devices each rank
-    gets its own compute and copy streams.
+    row-major rank order (rank = ix * py + iy). ``periodic``: (x, y), whether
+    each axis is a ring; closed until ``RankGrid.periodic`` sets it. On CUDA
+    devices each rank gets its own compute and copy streams.
+
+    A strip is posted under the key (receiving rank, axis, side, sequence
+    number), side being the edge it arrives at: on a ring of two ranks both
+    neighbours are the same rank, and its two strips of one exchange stay
+    apart by their sides.
     """
 
     def __init__(self, shape, devices, timeout: float = WAIT_TIMEOUT) -> None:
         self.shape = (int(shape[0]), int(shape[1]))
+        self.periodic = (False, False)
         self.n_ranks = self.shape[0] * self.shape[1]
         self.devices = [torch.device(d) for d in devices]
         if len(self.devices) != self.n_ranks:
@@ -171,11 +183,14 @@ class RankExchange:
 
     def neighbour(self, axis: int, step: int):
         """The rank index of the neighbour ``step`` (+-1) along ``axis``, or
-        None beyond a closed global wall."""
+        None beyond a closed global wall; on a periodic axis the ranks form
+        a ring (an axis of one rank is its own neighbour)."""
         coords = list(self.coords)
         coords[axis] += step
         if not 0 <= coords[axis] < self.shape[axis]:
-            return None
+            if not self.ring.periodic[axis]:
+                return None
+            coords[axis] %= self.shape[axis]
         return coords[0] * self.shape[1] + coords[1]
 
     def _record(self):
@@ -241,6 +256,11 @@ class AxisExchange:
         """This rank's coordinate along this axis."""
         return self.rank.coords[self.axis]
 
+    @property
+    def periodic(self) -> bool:
+        """Whether this axis is a ring: no rank holds a global wall."""
+        return self.rank.ring.periodic[self.axis]
+
     def start(self, to_prev, to_next):
         """Post ``to_prev`` to the -1 neighbour and ``to_next`` to the +1
         neighbour (either may be None: nothing is sent that way), after the
@@ -259,8 +279,9 @@ class AxisExchange:
 
     def wait(self, handle):
         """(from_prev, from_next): the -1 neighbour's ``to_next`` and the +1
-        neighbour's ``to_prev`` strips of the matching ``start``, zeros
-        beyond a closed global wall, None where nothing was sent."""
+        neighbour's ``to_prev`` strips of the matching ``start`` (on a ring
+        the wrapped neighbour's), zeros beyond a closed global wall, None
+        where nothing was sent."""
         seq, to_prev, to_next = handle
         rank, ring = self.rank, self.rank.ring
         out = []

@@ -41,6 +41,9 @@ class RankGrid:
     ``devices``: one device for all ranks (a ``torch.device`` or a string),
     or one per rank in row-major order (rank = ix * py + iy). On CUDA each
     rank gets its own compute and copy streams (``parallel.exchange``).
+    ``periodic``: (x, y), whether each axis is a ring of ranks (the last
+    rank's +1 neighbour is the first); closed until set, and set once:
+    ``build_sharded_coupled_model`` sets it to the global mesh's axes.
     """
 
     def __init__(self, px: int, py: int, devices, timeout: float = None) -> None:
@@ -52,6 +55,25 @@ class RankGrid:
         kwargs = {} if timeout is None else {"timeout": timeout}
         self.shape = (int(px), int(py))
         self.ring = InProcessRing(self.shape, list(devices), **kwargs)
+        self._axes_set = False
+
+    @property
+    def periodic(self) -> tuple:
+        """(x, y): whether each axis is a ring of ranks."""
+        return self.ring.periodic
+
+    @periodic.setter
+    def periodic(self, value) -> None:
+        """Set once: the models built on the grid exchange through it, so
+        other axes later raise ``ValueError``."""
+        value = (bool(value[0]), bool(value[1]))
+        if self._axes_set and value != self.ring.periodic:
+            raise ValueError(
+                f"the rank grid's axes are already periodic {self.ring.periodic}, not {value}: "
+                "build a new grid for a mesh with other periodic axes"
+            )
+        self.ring.periodic = value
+        self._axes_set = True
 
     @property
     def ranks(self):

@@ -14,7 +14,7 @@ exchanges sit inside the model code that every rank runs, as under
 from __future__ import annotations
 
 from ..coupled import CoupledModel
-from ..dynamics.mesh import RectMesh
+from ..dynamics.mesh import LocalMeshView, RectMesh
 from .exchange import run_ranks
 from .ranks import RankGrid
 
@@ -74,21 +74,29 @@ def build_sharded_coupled_model(global_mesh: RectMesh, rank_grid: RankGrid, degr
     block; ``model.initial_state`` builds a block) and the
     ``ShardedCoupledModel``, whose call is the global-shaped step.
     ``model_kwargs`` go to every rank's ``CoupledModel`` (``ocean_mask`` is
-    the global mask). Uniform, closed CG1 meshes only: graded and spherical
-    meshes and periodic axes raise ``NotImplementedError`` here, the HO
-    solver and TVB in ``CoupledModel`` (ROADMAP M10b). A grid that does not
-    divide the mesh raises ``ValueError``.
+    the global mask). A uniform global mesh gives each rank a plain
+    ``RectMesh`` block with the global periodic axes; a graded or spherical
+    one a ``LocalMeshView`` per rank, as in the JAX package. The grid's
+    axes become rings where the mesh's are periodic (the 360 degree
+    lon-lat ring included); a grid already set to other axes raises
+    ``ValueError``. The HO solver raises ``NotImplementedError``
+    in ``CoupledModel`` (ROADMAP M10b part 2); a grid that does not divide
+    the mesh raises ``ValueError``.
     """
     nx, ny = rank_grid.local_shape(global_mesh.nx, global_mesh.ny)
-    if global_mesh.periodic_x or global_mesh.periodic_y:
-        raise NotImplementedError("periodic axes on a rank grid (the ring wrap) are ROADMAP M10b")
-    if not global_mesh.uniform:
-        raise NotImplementedError(
-            "graded and spherical meshes on a rank grid (LocalMeshView) are ROADMAP M10b"
+    rank_grid.periodic = (global_mesh.periodic_x, global_mesh.periodic_y)
+    px, py = rank_grid.shape
+
+    def block(rank):
+        if not global_mesh.uniform:
+            return LocalMeshView(global_mesh, px, py, rank.coords)
+        return RectMesh(
+            nx, ny, global_mesh.dx, global_mesh.dy,
+            periodic_x=global_mesh.periodic_x, periodic_y=global_mesh.periodic_y,
         )
-    local_mesh = RectMesh(nx, ny, global_mesh.dx, global_mesh.dy)
+
     models = [
-        CoupledModel(local_mesh, degree=degree, spmd=rank, **model_kwargs)
+        CoupledModel(block(rank), degree=degree, spmd=rank, **model_kwargs)
         for rank in rank_grid.ranks
     ]
     return models[0], ShardedCoupledModel(rank_grid, models)

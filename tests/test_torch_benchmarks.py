@@ -149,7 +149,7 @@ def test_entry_points_refuse_to_run_without_a_card():
 def test_transport_tiled_and_ho_single_sweeps_run_each_launch():
     """The sweep of transport_tiled's launches and the times per call of
     transport_tiled, ho_single, mevp_single, mevp_tiled, dg1_sample_cfl
-    and dg1_rk_stage (in each form) run on the CPU (the plain versions), one
+    dg1_rk_stage (in each form), rdma_stage and rdma_band run on the CPU (the plain versions), one
     entry per launch and per kernel and size; so does the headline step."""
     out = mevp_large.sweep_transport_tiled("cpu", sizes=(16,))
     assert len(out) == len(mevp_large.transport_tiled_configs())
@@ -157,13 +157,14 @@ def test_transport_tiled_and_ho_single_sweeps_run_each_launch():
         "cpu", transport_sizes=(16,), ho_sizes=(16, 24), n_sub=2, single_sizes=((16, False), (24, True)),
         tiled_sizes=((24, True),), cfl_shapes=((16, 0, False), (16, 0, True), (16, 4, False)),
         stage_sizes=((16, False, "blend"), (16, False, "first"), (16, True, "blend"), (16, False, "qv")),
+        rdma_sizes=(16,), rdma_halo=2,
     )
     assert sorted(out) == [
         ("dg1_rk_stage", (16, False, "blend")), ("dg1_rk_stage", (16, False, "first")),
         ("dg1_rk_stage", (16, False, "qv")), ("dg1_rk_stage", (16, True, "blend")),
         ("dg1_sample_cfl", (16, 0, False)), ("dg1_sample_cfl", (16, 0, True)),
         ("dg1_sample_cfl", (16, 4, False)), ("ho_single", 16), ("ho_single", 24), ("mevp_single", 16), ("mevp_single", 24), ("mevp_tiled", 24),
-        ("transport_tiled", 16),
+        ("rdma_band", (16, 0)), ("rdma_band", (16, 1)), ("rdma_stage", 16), ("transport_tiled", 16),
     ]
     assert all(dev == ms > 0 for dev, ms in out.values())
     assert all(ms > 0 for ms in mevp_large.headline_step("cpu", n=16))

@@ -254,19 +254,27 @@ def test_interop_round_trip():
     ],
 )
 def test_unported_options_raise(kwargs):
-    """JAX device-mesh axis names; and the TVB limiter, ported on one
-    domain, on a rank grid (``spmd="rank"``: rank 0 of a 2 x 2 grid),
-    ROADMAP M10b."""
-    match = None
-    if kwargs.get("spmd") == "rank":
-        from nextsimdg_tpu_torch.parallel import RankGrid
+    """JAX device-mesh axis names raise. The TVB limiter on a rank grid
+    (``spmd="rank"``: rank 0 of a 2 x 2 grid) runs since M10b part 1; with
+    the HO solver selected the rank grid raises (ROADMAP M10b part 2)."""
+    from nextsimdg_tpu_torch import modules
 
-        kwargs = dict(kwargs, spmd=RankGrid(2, 2, "cpu").ranks[0])
-        match = "M10b"
-        assert CoupledModel(RectMesh(N, N, 1e3, 1e3), degree=kwargs.get("degree", 1),
-                            tvb_m=kwargs["tvb_m"]).transport.tvb_m == kwargs["tvb_m"]
-    with pytest.raises(NotImplementedError, match=match):
-        CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
+    if kwargs.get("spmd") != "rank":
+        with pytest.raises(NotImplementedError):
+            CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
+        return
+    from nextsimdg_tpu_torch.parallel import RankGrid
+
+    kwargs = dict(kwargs, spmd=RankGrid(2, 2, "cpu").ranks[0])
+    model = CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
+    assert model.transport.tvb_m == kwargs["tvb_m"] and model.exchange is kwargs["spmd"]
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        with pytest.raises(NotImplementedError, match="M10b part 2"):
+            CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
+    finally:
+        loader.reset()
 
 
 def test_thermodynamics_not_ported_raises():

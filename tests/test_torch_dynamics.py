@@ -198,12 +198,17 @@ def test_mevp_step_over_subcycles(meshes, fields, use_coriolis):
 
 @pytest.mark.parametrize("option", ["a_weighted_stress", "adaptive_alpha"])
 def test_mevp_options_not_ported_raise(meshes, option):
-    """Both forms run on one domain and on the blocked rank grid; the rdma
-    schedule's form of them (rdma_band) is not ported."""
+    """Both forms run on one domain and, since M10b part 1, on every rank
+    grid schedule (the rdma schedule's rdma_band too); what a rank grid
+    refuses is a schedule it has no counterpart of."""
     mevp.MEVPSolver(meshes[0], mevp.MEVPParams(**{option: True}))
-    with pytest.raises(NotImplementedError, match="M10b"):
+    solver = mevp.MEVPSolver(
+        meshes[0], mevp.MEVPParams(**{option: True}), backend="rdma", spmd=(object(), None)
+    )
+    assert solver.schedule() == "rdma"
+    with pytest.raises(ValueError, match="backend"):
         mevp.MEVPSolver(
-            meshes[0], mevp.MEVPParams(**{option: True}), backend="rdma", spmd=(object(), None)
+            meshes[0], mevp.MEVPParams(**{option: True}), backend="pallas", spmd=(object(), None)
         )
 
 
@@ -294,14 +299,18 @@ def test_transport_step(meshes, fields, scheme, limit):
 
 def test_transport_rejects_unported_degrees(meshes):
     """Every degree of the JAX package (0, 1, 2) is ported, on closed and
-    periodic meshes; what is not (a periodic mesh on a rank grid, ROADMAP
-    M10b) raises at each of them, and a degree the JAX package has not
-    either."""
+    periodic meshes, and since M10b part 1 on a ring of ranks too; a degree
+    the JAX package has not raises."""
+    from nextsimdg_tpu_torch.parallel import RankGrid
+
     ring = mesh.RectMesh(N, N, DX, DX, periodic_x=True)
+    grid = RankGrid(2, 1, "cpu")
+    grid.periodic = (True, False)
+    axes = grid.ranks[0].axes
     for degree in (0, 2):
         assert transport.DGTransport(meshes[0], degree=degree).basis.degree == degree
         assert transport.DGTransport(ring, degree=degree).mesh.periodic_x
-        with pytest.raises(NotImplementedError, match="M10b"):
-            transport.DGTransport(ring, degree=degree, spmd=("x", None))
+        on_ring = transport.DGTransport(ring, degree=degree, spmd=axes)
+        assert on_ring.basis.degree == degree and on_ring.spmd[0].periodic
     with pytest.raises(ValueError, match="degree"):
         transport.DGTransport(meshes[0], degree=3)

@@ -1576,3 +1576,231 @@ def test_ho_metric_dynamics_phase_matches_plain(device, kind, tvb_m, mevp, trans
     assert counts["ho_single" if mevp == "single" else "ho_tiled"] >= 1
     assert (counts["transport_tiled"] > 0) == (transport == "tiled")
     assert (counts["dg1_limit"] > 0) == (tvb_m is not None)
+
+
+# -- the rank grid's forms: the metric round, the momentum forms, rings and TVB ------
+GRID_FORMS = {
+    # name: (mesh kind, rank grid, MEVPParams)
+    "metric": ("spherical", (2, 2), MEVPParams()),
+    "metric ring": ("ring", (2, 2), MEVPParams()),
+    "metric ring along y bands": ("ring", (1, 2), MEVPParams()),
+    "metric periodic y along x bands": ("graded periodic y", (2, 1), MEVPParams(a_weighted_stress=True)),
+    "weighted": ("uniform", (2, 2), MEVPParams(a_weighted_stress=True)),
+    "adaptive": ("uniform", (2, 2), MEVPParams(adaptive_alpha=True)),
+    "weighted adaptive ring": ("periodic", (1, 2), MEVPParams(a_weighted_stress=True, adaptive_alpha=True)),
+    "metric adaptive": ("graded", (2, 2), MEVPParams(adaptive_alpha=True)),
+}
+
+
+def grid_mesh(kind, shape):
+    """The global mesh of ``kind`` whose ``shape`` rank blocks are LOCAL."""
+    nx, ny = shape[0] * LOCAL[0], shape[1] * LOCAL[1]
+    if kind in ("spherical", "ring"):
+        ring = kind == "ring"
+        return SphericalMesh(nx, ny, 0.0 if ring else -40.0, 360.0 if ring else 40.0, 55.0, 85.0, periodic_x=ring)
+    if kind.startswith("graded"):
+        dx = 2000.0 * (1.0 + 0.5 * np.cos(np.linspace(0, np.pi, nx)))
+        return RectMesh(nx, ny, dx, 2000.0 * np.linspace(0.6, 1.4, ny), periodic_y=kind.endswith("y"))
+    periodic = kind == "periodic"
+    return RectMesh(nx, ny, 2000.0, 2000.0, periodic_x=periodic, periodic_y=periodic)
+
+
+def on_form_grid(device, form, backend, fn, h=8, seed=0):
+    """``fn(rank, solver, carry, consts)`` on every rank of the rank grid of
+    ``form`` (``GRID_FORMS``) on ``device``: its solver on ``backend`` with
+    its block (a ``LocalMeshView`` of a graded or spherical mesh), its block
+    of seeded inputs (partial cover: some nodes below a_dyn_min) and its
+    step consts; returns (grid, mesh, results in rank order)."""
+    from nextsimdg_tpu_torch.dynamics.mesh import LocalMeshView
+
+    kind, shape, params = GRID_FORMS[form]
+    mesh = grid_mesh(kind, shape)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    size = (mesh.nx, mesh.ny)
+    inputs = {k: t(rng.normal(0.0, s, size)) for k, s in zip(VELOCITY, (0.2, 0.2, 1e3, 1e3, 1e3))}
+    for k, (m, s) in {"u_atm": (8.0, 2.0), "v_atm": (2.0, 2.0), "u_ocean": (0.0, 0.05), "v_ocean": (0.0, 0.05)}.items():
+        inputs[k] = t(rng.normal(m, s, size))
+    inputs["h"], inputs["a"] = t(rng.uniform(0.2, 2.0, size)), t(rng.uniform(0.02, 1.0, size))
+    grid = RankGrid(*shape, device, timeout=120)
+    grid.periodic = (mesh.periodic_x, mesh.periodic_y)
+    parts = {k: grid.split(x) for k, x in inputs.items()}
+
+    def body(rank):
+        r = rank.rank
+        block = LOCAL if mesh.uniform else None
+        local = (RectMesh(*block, mesh.dx, mesh.dy, periodic_x=mesh.periodic_x, periodic_y=mesh.periodic_y)
+                 if block else LocalMeshView(mesh, *shape, rank.coords))
+        solver = MEVPSolver(local, params, backend=backend, spmd=rank.axes, block_halo=h)
+        carry = tuple(parts[k][r] for k in VELOCITY)
+        forcing = DynamicsForcing(*(parts[k][r] for k in ("u_atm", "v_atm", "u_ocean", "v_ocean")))
+        mask = solver.boundary_mask(device=device, dtype=torch.float32)
+        consts = solver.step_consts(VelocityState(*carry), parts["h"][r], parts["a"][r], forcing, mask, DT)
+        return fn(rank, solver, carry, consts)
+
+    return grid, mesh, inputs, run_ranks(grid.ring, body)
+
+
+@pytest.mark.parametrize("form", list(GRID_FORMS))
+def test_rdma_band_forms_match_plain_launch_by_launch(device, form):
+    """Each new form of rdma_band (the metric round, a_node, the adaptive
+    body, the ring along the band) one launch at a time against its plain
+    version, in a round of 8 subcycles; rdma_stage beside it."""
+    h = n_sub = 8
+
+    def round_checked(rank, solver, carry, consts):
+        axes, consts_w = solver.rdma_round_inputs(consts)
+        checked = []
+
+        def stage(src, axis):
+            got = rdma.rdma_stage(src, axis)
+            checked.append((got, rdma.rdma_stage_reference(src, axis)))
+            return got
+
+        def band(local, src, axis, consts_w, dt, n, state):
+            ref = rdma.rdma_band_reference(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
+            got = rdma.rdma_band(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
+            checked.extend(zip(got, ref))
+            return got
+
+        rdma._round(solver.local(), carry, consts, consts_w, DT, n_sub, h, axes, stage, band,
+                    mt.mevp_subcycles_tiled)
+        return checked
+
+    cc.reset_launches()
+    _, _, _, results = on_form_grid(device, form, "rdma", round_checked, h=h)
+    torch.cuda.synchronize()
+    assert cc.launches["rdma_band"] > 0 and cc.launches["mevp_tiled"] > 0
+    for checked in results:
+        assert checked
+        for got, ref in checked:
+            assert_close(got, ref, TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("form", list(GRID_FORMS))
+def test_rdma_round_forms_equal_blocked_and_single_device(device, form):
+    """37 subcycles (rounds of 8 and a last of 5) of each form on the rdma
+    schedule equal the blocked schedule bit for bit (the same bodies on the
+    same values) and the single-device step on mevp_tiled (expected 0)."""
+    run = lambda rank, solver, carry, consts: solver.spmd_subcycles(carry, consts, DT, 37)
+    grid, mesh, g, rdma_out = on_form_grid(device, form, "rdma", run)
+    _, _, _, blocked_out = on_form_grid(device, form, "blocked", run)
+    params = GRID_FORMS[form][2]
+    single = MEVPSolver(mesh, params)
+    carry = tuple(g[k] for k in VELOCITY)
+    forcing = DynamicsForcing(g["u_atm"], g["v_atm"], g["u_ocean"], g["v_ocean"])
+    mask = single.boundary_mask(device=device, dtype=torch.float32)
+    consts = single.step_consts(VelocityState(*carry), g["h"], g["a"], forcing, mask, DT)
+    ref = mt.mevp_subcycles_tiled(single, carry, consts, DT, 37)
+    for p in range(5):
+        got = grid.gather([planes[p] for planes in rdma_out])
+        assert torch.equal(got, grid.gather([planes[p] for planes in blocked_out]))
+        assert_same_schedule(got, ref[p])
+
+
+SPMD_TRANSPORT_FORMS = {
+    # name: (mesh kind, rank grid, CoupledModel keywords)
+    "tvb walls M=0": ("uniform", (2, 2), dict(tvb_m=0.0)),
+    "tvb walls middle M": ("uniform", (2, 2), dict(tvb_m=1e-9, ocean=True)),
+    "tvb walls dG2": ("uniform", (1, 2), dict(tvb_m=0.0, degree=2)),
+    "tvb periodic": ("periodic", (2, 2), dict(tvb_m=1e-9)),
+    "metric ring": ("ring", (2, 2), dict(ocean=True)),
+    "metric window": ("spherical", (2, 1), dict(ocean=True)),
+}
+
+
+@pytest.mark.parametrize("form", list(SPMD_TRANSPORT_FORMS))
+def test_spmd_transport_tiled_forms_match_plain_launch_by_launch(device, form, monkeypatch):
+    """The spmd transport's new forms, each transport_tiled launch against
+    its plain version on the same widened block: the TVB walls inside the
+    block (the kernel's indices, the plain version's wall-delta masks), and
+    the widened metric planes passed explicitly."""
+    kind, shape, kwargs = SPMD_TRANSPORT_FORMS[form]
+    kwargs = dict(kwargs)
+    mesh = grid_mesh(kind, shape)
+    ocean = synthetic_coastline(mesh.nx, mesh.ny) if kwargs.pop("ocean", False) else None
+    grid = RankGrid(*shape, device, timeout=120)
+    _, sharded = build_sharded_coupled_model(mesh, grid, ocean_mask=ocean, **kwargs)
+    rng = np.random.default_rng(3)
+    k = sharded.models[0].transport.basis.n_dofs
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    tracers = t(np.concatenate([rng.uniform(0.5, 2.0, (1, 3, mesh.nx, mesh.ny)),
+                                rng.normal(0.0, 0.3, (k - 1, 3, mesh.nx, mesh.ny))]))
+    u, v = t(rng.normal(0.0, 0.3, (mesh.nx, mesh.ny))), t(rng.normal(0.0, 0.3, (mesh.nx, mesh.ny)))
+    parts = grid.split(tracers), grid.split(u), grid.split(v)
+    checked = []
+    kernel = tt.transport_substeps_tiled
+
+    def checking(transport, psi, uu, vv, dt_sub, n, faces, **kw):
+        got = kernel(transport, psi, uu, vv, dt_sub, n, faces, **kw)
+        walls = kw.get("walls")
+        masks = None if walls is None else tt.wall_masks(walls, psi.shape[-2:], psi[0, 0])
+        ref = tt.transport_substeps_tiled_reference(
+            transport, psi, uu, vv, dt_sub, n, faces, metric=kw.get("metric"), wall_masks=masks,
+        )
+        checked.append((got, ref, walls, kw.get("metric") is not None))
+        return got
+
+    monkeypatch.setattr(tt, "transport_substeps_tiled", checking)
+
+    def body(rank):
+        model = sharded.models[rank.rank]
+        faces = model.face_masks(device=device, dtype=torch.float32)
+        vw = tt.widen_velocity(model, parts[1][rank.rank], parts[2][rank.rank])
+        return tt.transport_substeps_tiled_spmd(model, parts[0][rank.rank], vw, 300.0, 3, faces)
+
+    cc.reset_launches()
+    run_ranks(grid.ring, body)
+    torch.cuda.synchronize()
+    assert cc.launches["transport_tiled"] >= len(checked) > 0  # a call may take several launches
+    for got, ref, walls, metric in checked:
+        assert (walls is not None) == ("tvb_m" in kwargs) and metric == (not mesh.uniform)
+        assert_close(got, ref, TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("case", [
+    ("spherical", (2, 2), dict(mevp_backend="blocked", ocean=True)),
+    ("ring", (2, 2), dict(mevp_backend="rdma", ocean=True)),
+    ("ring", (1, 2), dict(mevp_backend="rdma")),
+    ("periodic", (2, 2), dict(mevp_backend="blocked", tvb_m=1e-9)),
+    ("uniform", (2, 2), dict(mevp_backend="rdma", mevp_params=MEVPParams(a_weighted_stress=True))),
+], ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}-{c[2]['mevp_backend']}")
+def test_decomposed_forms_step_equals_single_device(device, case):
+    """The coupled step of each form on the grid against the single-device
+    step on the card (expected 0, failure above 1e-6 of the plane's max)."""
+    kind, shape, kwargs = case
+    kwargs = dict(kwargs)
+    mesh = grid_mesh(kind, shape)
+    ocean = synthetic_coastline(mesh.nx, mesh.ny) if kwargs.pop("ocean", False) else None
+    single = CoupledModel(mesh, n_subcycles=20, ocean_mask=ocean,
+                          **{k: v for k, v in kwargs.items() if k != "mevp_backend"})
+    state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
+    phys, dyn = coupled_inputs(device, mesh)
+    grid = RankGrid(*shape, device, timeout=120)
+    model, step = build_sharded_coupled_model(mesh, grid, n_subcycles=20, ocean_mask=ocean,
+                                              mevp_block_halo=8, **kwargs)
+    assert model.schedule(device) == (kwargs["mevp_backend"], "tiled")
+    cc.reset_launches()
+    got = step(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    expected = single.step(state, phys, dyn, DT)
+    for (_, g), (_, e) in zip(state_leaves(got), state_leaves(expected)):
+        assert_same_schedule(g, e)
+    assert counts["transport_tiled"] > 0
+    assert (counts["rdma_band"] > 0) == (kwargs["mevp_backend"] == "rdma")
+
+
+def test_tvb_on_a_metric_grid_is_refused_on_cuda_tensors(device):
+    """TVB on a graded or spherical rank grid runs the plain staged
+    transport with width-1 exchanges: on the card it raises, naming its
+    ROADMAP item, and is never run as plain PyTorch there."""
+    mesh = grid_mesh("spherical", (2, 2))
+    grid = RankGrid(2, 2, device, timeout=120)
+    model, sharded = build_sharded_coupled_model(mesh, grid, n_subcycles=2, tvb_m=2.0)
+    assert model.transport_schedule() == "xla"
+    single = CoupledModel(mesh, n_subcycles=2)
+    state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
+    phys, dyn = coupled_inputs(device, mesh)
+    with pytest.raises(NotImplementedError, match="M10c"):
+        sharded(state, phys, dyn, DT)

@@ -201,13 +201,31 @@ def test_blocked_rank_grid_matches_the_single_domain_and_jax_sharded_step(form):
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
-def test_the_rdma_schedule_raises_for_the_forms(form):
+def test_the_rdma_schedule_raises_for_the_forms(form, monkeypatch):
+    """Since M10b part 1 the rdma schedule runs every form (its rounds:
+    tests/test_torch_grid_metric.py); rdma_band's form instances are built
+    for the shipped launch bound only, so a launch of more threads a block
+    raises before any work (the CPU check patched to answer as for CUDA
+    tensors; nothing is launched)."""
+    from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
+
     grid = RankGrid(2, 2, "cpu")
-    with pytest.raises(NotImplementedError, match="M10b"):
-        build_sharded_coupled_model(
-            RectMesh(N, N, 1e3, 1e3), grid, mevp_backend="rdma",
-            mevp_params=mevp.MEVPParams(**FORMS[form]),
-        )
+    model, _ = build_sharded_coupled_model(
+        RectMesh(N, N, 1e3, 1e3), grid, mevp_backend="rdma", mevp_block_halo=4,
+        mevp_params=mevp.MEVPParams(**FORMS[form]),
+    )
+    assert model.mevp_schedule() == "rdma"
+    solver, h = model.mevp.local(), 4
+    nx, ny = model.mesh.nx, model.mesh.ny
+    plane = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    own = tuple(plane(nx, ny) for _ in range(5))
+    src = rdma.RoundSources(own=own, h=h, split=(True, True), gx=(plane(5, h, ny),) * 2,
+                            gy=(plane(5, nx + 2 * h, h),) * 2)
+    consts_w = {name: plane(nx + 2 * h, ny + 2 * h)
+                for name in mevp.const_names(solver.params.a_weighted_stress, True)}
+    monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
+    with pytest.raises(ValueError, match="at most 256 threads"):
+        rdma.rdma_band(solver, src, 0, consts_w, DT, h, [x.clone() for x in own], rdma.BandConfig(1, 16, 512))
 
 
 def test_wind8_box_weighted_stays_finite():
@@ -477,9 +495,28 @@ def test_free_drift_coupled_step_matches_jax(free_drift, do_thermo):
     assert not np.any(got["velocity"]["s11"]) and np.any(got["velocity"]["u"])
 
 
-def test_free_drift_on_a_rank_grid_raises(free_drift):
-    with pytest.raises(NotImplementedError, match="M10b"):
-        build_sharded_coupled_model(RectMesh(N, N, 1e3, 1e3), RankGrid(2, 2, "cpu"))
+def test_free_drift_on_a_rank_grid_raises(free_drift, monkeypatch):
+    """Since M10b part 1 free drift runs on a rank grid (its step against
+    one domain's: tests/test_torch_grid_metric.py); what still raises there
+    is the plain staged transport on a card (the CPU check patched to
+    answer as for CUDA tensors; nothing is launched), and a schedule that a
+    rank grid has no counterpart of."""
+    grid = RankGrid(2, 2, "cpu")
+    model, sharded = build_sharded_coupled_model(
+        RectMesh(N, N, 1e3, 1e3), grid, n_subcycles=2, transport_backend="xla",
+    )
+    assert model.is_free_drift and model.schedule("cpu") == ("free-drift", "xla")
+    state, phys, dyn = coupled_inputs()
+    blocks = (
+        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float64),
+        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float64),
+        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float64),
+    )
+    monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
+    with pytest.raises(NotImplementedError, match="CPU tensors"):
+        sharded.run_blocks(*blocks, DT, 1)
+    with pytest.raises(ValueError, match="mevp_backend"):
+        build_sharded_coupled_model(RectMesh(N, N, 1e3, 1e3), grid, mevp_backend="pallas")
 
 
 # -- twins of tests/test_dynamics_module.py ----------------------------------------------

@@ -172,6 +172,9 @@ REPLACED = {
     "ho_single.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "ho_tiled.cu": "mevp_ho_tiled.py::ho_subcycles_tiled",
     "mevp_rdma.cu": "mevp_rdma.py::mevp_round_rdma",
+    "mevp_rdma_forms.cu": "mevp_rdma.py::mevp_round_rdma",
+    "mevp_rdma_metric.cu": "mevp_rdma.py::mevp_round_rdma",
+    "transport_tiled_spmd.cu": "transport_tiled.py::transport_substeps_tiled",
     "roofline.cu": "roofline.py::measure_vpu_peak",
 }
 

@@ -469,21 +469,18 @@ def test_a_failing_or_hung_rank_stops_every_rank(where):
     assert [float(r[0]) for r in run_ranks(grid.ring, fn_ok)] == [4.0] * 4
 
 
-@pytest.mark.parametrize("kind", ["high_order", "periodic", "graded", "spherical", "tvb"])
+@pytest.mark.parametrize("kind", ["high_order"])
 def test_unported_configurations_raise_on_a_rank_grid(kind):
-    grid = RankGrid(2, 2, "cpu")
-    build = {
-        "periodic": lambda: RectMesh(16, 16, 4e3, 4e3, periodic_x=True),
-        "graded": lambda: RectMesh(16, 16, 4e3 * (1.0 + 0.01 * np.arange(16)), 4e3),
-        "spherical": lambda: SphericalMesh(16, 16, lon0=0.0, lon1=12.0, lat0=68.0, lat1=78.0),
-    }.get(kind, lambda: RectMesh(16, 16, 4e3, 4e3))
-    kwargs = dict(tvb_m=1.0) if kind == "tvb" else {}
+    """The HO solver on a rank grid is ROADMAP M10b part 2. Periodic axes,
+    graded and spherical meshes and TVB run on the grid since M10b part 1
+    (tests/test_torch_grid_metric.py, tests/test_torch_grid_ring.py)."""
     loader = modules.get_loader()
-    if kind == "high_order":
-        loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
     try:
-        with pytest.raises(NotImplementedError, match="M10b"):
-            build_sharded_coupled_model(build(), grid, **kwargs)
+        for mesh in (RectMesh(16, 16, 4e3, 4e3),
+                     SphericalMesh(16, 16, lon0=0.0, lon1=360.0, lat0=68.0, lat1=78.0, periodic_x=True)):
+            with pytest.raises(NotImplementedError, match="M10b part 2"):
+                build_sharded_coupled_model(mesh, RankGrid(2, 2, "cpu"))
     finally:
         loader.reset()
 
