@@ -246,7 +246,16 @@ Phases, each printed on its own lines:
    (expected 0), each grid path one decomposed step against the
    single-device step (expected 0) and 20 steps (4 but on the two cells
    and the 2 x 2 ring) bounded with land untouched, and 4 steps of
-   ``spherical_16m_spmd``;
+   ``spherical_16m_spmd``; then (phase ``check_grid_ho``) the battery's six
+   HO ``*_spmd`` configs on 2 x 2 ranks at full size (the spherical
+   coastline window and its ablations at 1024^2, ``ho_spherical_16m_spmd``
+   at 4096^2): one decomposed step against the single-device HO step
+   (expected 0; at h = 16, 32 and 64 on the two timed configs), rank 0's
+   widened ho_tiled launch of each new shape and form against plain (one
+   subcycle at TOL_LAUNCH, a round at TOL_STEP_MEVP), each spmd qv
+   transport_tiled launch against plain at the 512^2 and 2048^2 blocks,
+   then 20 steps (``ho_coupled_1m_spherical_spmd``) or 4 bounded with land
+   untouched;
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -285,7 +294,9 @@ Phases, each printed on its own lines:
    steps at h = 16 and 32 beside the single-device spherical step, with a
    profile of the 16M grid step; each new form of rdma_band and the spmd
    transport_tiled in turns with the closed uniform instance on the same
-   launch;
+   launch; the HO grid configs in chunks of 2 steps, the two timed ones at
+   h = 16, 32 and 64 beside the single-device HO step, with a profile of
+   each; the spmd qv form of transport_tiled in turns with its CG1 form;
    last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
@@ -306,7 +317,9 @@ summary come last but one; each kernel's row carries ``bound_ms`` on the
 data sheet's peaks and ``measured_bound_ms`` on the measured HBM and
 mul_add rates, and each new periodic or TVB form of an earlier kernel has a
 row of its own ("mevp_stress (periodic form)", ..., "ho_tiled (A-weighted form)",
-"transport_tiled (periodic qv form)", ...). The last line is ``{"ok": true, "device": {...}}``.
+"transport_tiled (periodic qv form)", ...); each launch counts on one row
+(a path's launches of a kernel on the last form row that names the path).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -4193,10 +4206,12 @@ def register_band_form(label: str, captured: dict, errs: dict) -> None:
 
 def spmd_transport_launches(device, sharded, state, tag: str, errs: dict) -> list:
     """One call of the spmd transport on every rank (k = 3 substeps of the
-    state's tracers and velocity), each transport_tiled launch against its
-    plain version on the same widened block (the TVB walls as the plain
-    version's wall-delta masks, the widened metric planes); returns rank
-    0's launches (kernel output, plain output, arguments, keywords)."""
+    state's tracers and velocity; with the HO solver its CG2 velocity's
+    quadrature samples, widened by the wrapper), each transport_tiled launch
+    against its plain version on the same widened block (the TVB walls as
+    the plain version's wall-delta masks, the widened metric planes, the
+    widened samples); returns rank 0's launches (kernel output, plain
+    output, arguments, keywords)."""
     import threading
 
     blocks = sharded.grid.split_tree(state)
@@ -4208,7 +4223,8 @@ def spmd_transport_launches(device, sharded, state, tag: str, errs: dict) -> lis
         walls = kw.get("walls")
         masks = None if walls is None else tt.wall_masks(walls, psi.shape[-2:], psi[0, 0])
         ref = tt.transport_substeps_tiled_reference(
-            transport, psi, u, v, dt_sub, n, faces_w, metric=kw.get("metric"), wall_masks=masks,
+            transport, psi, u, v, dt_sub, n, faces_w, qv=kw.get("qv"), metric=kw.get("metric"),
+            wall_masks=masks,
         )
         checked.setdefault(threading.current_thread().name, []).append(
             (got, ref, (transport, psi, u, v, dt_sub, n, faces_w), kw))
@@ -4217,9 +4233,13 @@ def spmd_transport_launches(device, sharded, state, tag: str, errs: dict) -> lis
     def body(rank):
         model, st = sharded.models[rank.rank], blocks[rank.rank]
         faces = model.face_masks(device=device, dtype=torch.float32)
+        tracers = torch.stack([st.hice, st.cice, st.hsnow], dim=1)
+        if model.is_high_order:
+            qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, st.velocity.u, st.velocity.v,
+                                             rank.axes)
+            return tt.transport_substeps_tiled_spmd(model, tracers, None, DT / 3, 3, faces, qv=qv)
         velocity_w = tt.widen_velocity(model, st.velocity.u, st.velocity.v)
-        return tt.transport_substeps_tiled_spmd(
-            model, torch.stack([st.hice, st.cice, st.hsnow], dim=1), velocity_w, DT / 3, 3, faces)
+        return tt.transport_substeps_tiled_spmd(model, tracers, velocity_w, DT / 3, 3, faces)
 
     tt.transport_substeps_tiled = checking
     try:
@@ -4229,7 +4249,8 @@ def spmd_transport_launches(device, sharded, state, tag: str, errs: dict) -> lis
     torch.cuda.synchronize()
     for name, launches in sorted(checked.items()):
         for i, (got, ref, _, kw) in enumerate(launches):
-            what = (f" walls {kw['walls']}" if kw.get("walls") else "") + (" metric" if kw.get("metric") else "")
+            what = ((f" walls {kw['walls']}" if kw.get("walls") else "") + (" metric" if kw.get("metric") else "")
+                    + (" qv" if kw.get("qv") else ""))
             errs["transport_tiled"] = max(errs["transport_tiled"], compare(
                 f"{tag} transport_tiled {name} launch {i}{what}", got, ref, TOL_LAUNCH))
     return checked["rank0"]
@@ -4429,16 +4450,235 @@ def time_grid_forms(device, card: str) -> None:
 
 
 
+
+# -- M10b part 2a: the HO solver on the rank grid's blocked schedule -----------------
+#: The battery's six HO *_spmd configs (run_benchmarks.CONFIGS), each on
+#: 2 x 2 ranks of the one card at the JAX battery's sizes, config 4's state
+#: and forcing, 100 subcycles, dG1, f32, the blocked schedule: (path, mesh
+#: kind, n, coastline, mEVP ghost width).
+HO_GRID_PATHS = [
+    ("ho_coupled_1m_spherical_spmd", "spherical", N4, True, "auto"),
+    ("ho_ablate_uniform_spmd", "uniform", N4, False, "auto"),
+    ("ho_ablate_spherical_spmd", "spherical", N4, False, "auto"),
+    ("ho_ablate_h16_spmd", "spherical", N4, True, 16),
+    ("ho_ablate_h32_spmd", "spherical", N4, True, 32),
+    ("ho_spherical_16m_spmd", "spherical", N16, True, "auto"),
+]
+#: Ghost widths whose widened ho_tiled launches are checked besides the
+#: configs' own (the h sweep's, on the two configs it times).
+HO_GRID_SWEEP = (16, 32, 64)
+HO_GRID_TIMED = ("ho_coupled_1m_spherical_spmd", "ho_spherical_16m_spmd")
+#: Configs whose spmd qv transport_tiled launches are held against plain:
+#: the 512^2 blocks (metric and closed) and the 2048^2 ones.
+HO_GRID_TRANSPORT = ("ho_coupled_1m_spherical_spmd", "ho_ablate_uniform_spmd", "ho_spherical_16m_spmd")
+#: Steps a timed chunk of time_grid_ho: a 2 x 2 HO step takes 0.4-0.8 s of
+#: host issue on the H100 (PERF.md).
+HO_GRID_CHUNK = 2
+PATH_KERNELS.update({path: ("ho_tiled", "transport_tiled") for path, *_ in HO_GRID_PATHS})
+# Each launch counts on one row: the metric ho_tiled launches of the
+# spherical configs on the metric form's row, every spmd qv transport_tiled
+# launch on its own (the closed and metric qv instances of
+# transport_tiled.cu on the widened blocks).
+FORM_ROWS["ho_tiled metric"][2].extend(path for path, kind, *_ in HO_GRID_PATHS if kind == "spherical")
+FORM_ROWS["transport_tiled spmd-qv"] = (
+    "transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled.cu", [path for path, *_ in HO_GRID_PATHS])
+
+
+def ho_grid_model(device, kind: str, n: int, coast: bool, halo="auto"):
+    """(single-device model, rank 0's model, the ShardedCoupledModel, state,
+    phys, dyn) of an HO grid config: config 4's model, state and forcing
+    with the HO solver (selected through the registry, reset after the
+    build) on the spherical window or config 4's uniform mesh, with
+    synthetic_coastline(n) or none, on a 2 x 2 grid of the card, blocked
+    with ghost width ``halo``."""
+    mesh = spherical_mesh(n) if kind == "spherical" else RectMesh(n, n, dx=4e3, dy=4e3)
+    ocean = synthetic_coastline(n) if coast else None
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        single, state, phys, dyn = coupled_model(device, mesh, ocean)
+        model, sharded = build_sharded_coupled_model(
+            mesh, RankGrid(*RANKS, device), degree=1, n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+            mevp_backend="blocked", mevp_block_halo=halo,
+        )
+    finally:
+        loader.reset()
+    return single, model, sharded, state, phys, dyn
+
+
+def widened_ho_launches(tag: str, run, seen: set, errs: dict):
+    """``run()`` with rank 0's second widened-block call of the HO blocked
+    schedule (h subcycles, from a state whose stresses the first round made
+    nonzero), where its (shape, form) is not in ``seen``, held against the
+    plain subcycles on the same inputs, and one ho_tiled launch of one
+    subcycle against plain (TOL_LAUNCH); returns run()'s result. The extra
+    launches are made before the launch counts are zeroed."""
+    import threading
+
+    subcycles = mevp_ho.MEVPSolverHO.subcycles
+    calls, checked = {}, []
+    sms = cc.sm_count(torch.device("cuda", 0))
+
+    def checking(solver, carry, consts, dt, n_sub):
+        got = subcycles(solver, carry, consts, dt, n_sub)
+        name = threading.current_thread().name
+        calls[name] = calls.get(name, 0) + 1
+        key = (tuple(carry[0].v.shape), cc.kernel_form(solver))
+        if name == "rank0" and calls[name] == 2 and key not in seen:
+            seen.add(key)
+            checked.append((key, solver.schedule(sms), n_sub, got,
+                            htc.ho_tiled_reference(solver, carry, consts, dt, n_sub),
+                            htc.ho_subcycles_tiled(solver, carry, consts, dt, 1),
+                            htc.ho_tiled_reference(solver, carry, consts, dt, 1)))
+        return got
+
+    mevp_ho.MEVPSolverHO.subcycles = checking
+    try:
+        out = run()
+    finally:
+        mevp_ho.MEVPSolverHO.subcycles = subcycles
+    torch.cuda.synchronize()
+    for (shape, form), schedule, n_sub, got, ref, got1, ref1 in checked:
+        metric = bool(form & cc.HO_FORM_METRIC)
+        label = "ho_tiled metric" if metric else "ho_tiled"
+        if schedule != "tiled":
+            raise AssertionError(f"{tag}: the {shape[0]}x{shape[1]} widened block runs {schedule}, not ho_tiled")
+        what = f"{tag} ho_tiled {'metric' if metric else 'closed'} form, widened {shape[0]}x{shape[1]}"
+        for (name, g), (_, r) in zip(ho_planes(got1), ho_planes(ref1)):
+            errs[label] = max(errs[label], compare(f"{what} N=1 {name}", g, r, TOL_LAUNCH))
+        for (name, g), (_, r) in zip(ho_planes(got), ho_planes(ref)):
+            compare(f"{what} N={n_sub} (a round) {name}", g, r, TOL_STEP_MEVP)
+    return out
+
+
+def register_qv_transport_form(label: str, launches: list, errs: dict) -> None:
+    """The row of the spmd qv form of transport_tiled: rank 0's first
+    launch timed in turns with the same launch in the CG1 form (the
+    velocity sampled from two planes of the samples' shape, which the qv
+    form skips), and its bytes and operations."""
+    _, _, args, kw = launches[0]
+    transport, psi, _, _, dt_sub, n, faces_w = args
+    qv, metric = kw["qv"], kw.get("metric")
+    nxw, nyw = psi.shape[-2:]
+    u, v = qv.vx_vol[0].contiguous(), qv.vy_vol[0].contiguous()
+    work = tiled_work(1, nxw * nyw, n, cc._RK_STAGES[transport.scheme], True, metric=metric is not None)
+    timed_form(label, errs["transport_tiled"],
+               lambda: tt.transport_substeps_tiled(*args, **kw),
+               lambda: tt.transport_substeps_tiled(transport, psi, u, v, dt_sub, n, faces_w, metric=metric),
+               lambda: tt.transport_substeps_tiled_reference(*args, qv=qv, metric=metric),
+               work)
+
+
+def check_grid_ho(device) -> tuple:
+    """Phase: M10b part 2a. Each of the battery's six HO *_spmd configs
+    (HO_GRID_PATHS) at full size on 2 x 2 ranks of the card: one decomposed
+    step against the single-device HO step (expected 0, failing above
+    TOL_SAME_SCHEDULE), with rank 0's widened ho_tiled launch of each new
+    (shape, form) against plain (one subcycle at TOL_LAUNCH, a round at
+    TOL_STEP_MEVP); on the two timed configs also at the h sweep's other
+    ghost widths; each spmd qv transport_tiled launch of one call on every
+    rank against plain at the 512^2 (closed and metric) and 2048^2 blocks
+    (TOL_LAUNCH); then GRID_STEPS steps (ho_coupled_1m_spherical_spmd) or
+    N5_STEPS (the others) from zeroed launch counts: finite, bounded, land
+    untouched, ho_tiled and transport_tiled launched. Returns (counts by
+    path, largest error per row)."""
+    errs = {"ho_tiled": 0.0, "ho_tiled metric": 0.0, "transport_tiled": 0.0}
+    counts, seen = {}, set()
+    for path, kind, n, coast, halo in HO_GRID_PATHS:
+        single, model, sharded, state, phys, dyn = ho_grid_model(device, kind, n, coast, halo)
+        schedule = model.schedule(device)
+        log("slice", (
+            f"{path}: {n}^2 {type(single.mesh).__name__}{' with the coastline' if coast else ''}, HO on a "
+            f"{RANKS[0]}x{RANKS[1]} rank grid of {model.mesh.nx}x{model.mesh.ny} blocks "
+            f"({type(model.mesh).__name__}), schedule {schedule}, h = {model.mevp.block_halo}, spmd "
+            f"transport (H, k_cap) = {tt.transport_tiled_spmd_config(model)}; single-device "
+            f"{single.schedule(device)}"
+        ))
+        if not model.is_high_order or schedule != ("blocked", "tiled"):
+            raise AssertionError(f"{path} does not run HO on ('blocked', 'tiled'): {schedule}")
+        ref = single.step(state, phys, dyn, DT)
+        got = widened_ho_launches(path, lambda: sharded(state, phys, dyn, DT), seen, errs)
+        compare_sharded_step(f"{path}.step vs single-device", got, ref, tol_same=True)
+        if path in HO_GRID_TIMED:
+            for h in HO_GRID_SWEEP:
+                if h == model.mevp.block_halo:
+                    continue
+                swept = ho_grid_model(device, kind, n, coast, h)[2]
+                out = widened_ho_launches(f"{path} h={h}", lambda: swept(state, phys, dyn, DT), seen, errs)
+                compare_sharded_step(f"{path} h={h}.step vs single-device", out, ref, tol_same=True)
+                del swept, out
+        del ref
+        if path in HO_GRID_TRANSPORT:
+            launches = spmd_transport_launches(device, sharded, got, path, errs)
+            if path == "ho_coupled_1m_spherical_spmd":
+                register_qv_transport_form("transport_tiled spmd-qv", launches, errs)
+            del launches
+        del got
+        n_steps = GRID_STEPS if path == "ho_coupled_1m_spherical_spmd" else N5_STEPS
+        cc.reset_launches()
+        out = sharded.run_blocks(*blocks_of(sharded, state, phys, dyn), DT, n_steps)
+        torch.cuda.synchronize()
+        counts[path] = dict(cc.launches)
+        log("slice", f"{path}: {n_steps} steps, launches: {counts[path]}")
+        out = sharded.grid.gather_tree(out, device)
+        check_bounded(f"{path}: {n_steps} steps", out, state)
+        if coast:
+            check_land(f"{path}: {n_steps} steps", single, out, state)
+        missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+        del single, model, sharded, state, out
+    widened = sorted(f"{s[0]}x{s[1]} {'metric' if form & cc.HO_FORM_METRIC else 'closed'}" for s, form in seen)
+    log("check", f"widened ho_tiled launches checked at: {', '.join(widened)}")
+    TVB_FORMS["transport_tiled spmd-qv"] = replace(TVB_FORMS["transport_tiled spmd-qv"], err=errs["transport_tiled"])
+    TVB_FORMS["ho_tiled metric"] = replace(
+        TVB_FORMS["ho_tiled metric"], err=max(TVB_FORMS["ho_tiled metric"].err, errs["ho_tiled metric"]))
+    return counts, errs["ho_tiled"]
+
+
+def time_grid_ho(device, card: str) -> None:
+    """The HO grid configs: ms per step and element updates/s in chunks of
+    HO_GRID_CHUNK steps on resident blocks. ho_coupled_1m_spherical_spmd and
+    ho_spherical_16m_spmd at h = 16 (the port's "auto"), 32 and 64 in turns
+    with the single-device HO step; the other four configs once each; a
+    profile of each config's step (its idle share)."""
+    for path, kind, n, coast, halo in HO_GRID_PATHS:
+        single, model, sharded, state, phys, dyn = ho_grid_model(device, kind, n, coast, halo)
+        fns = {f"2x2 blocked h={model.mevp.block_halo}": (
+            lambda s=sharded, b=blocks_of(sharded, state, phys, dyn): s.run_blocks(*b, DT, HO_GRID_CHUNK))}
+        if path in HO_GRID_TIMED:
+            fns["single-device"] = lambda: single.run(state, phys, dyn, DT, HO_GRID_CHUNK)
+            for h in HO_GRID_SWEEP:
+                if h != model.mevp.block_halo:
+                    swept = ho_grid_model(device, kind, n, coast, h)[2]
+                    fns[f"2x2 blocked h={h}"] = (
+                        lambda s=swept, b=blocks_of(swept, state, phys, dyn): s.run_blocks(*b, DT, HO_GRID_CHUNK))
+        runs = time_in_turns(fns, dict.fromkeys(fns, 1))
+        for name, ms in runs.items():
+            report(f"{path} coupled step, {name} ({n}x{n}, {HO_GRID_CHUNK} steps a chunk)",
+                   [m / HO_GRID_CHUNK for m in ms], n * n, card)
+        blocks = blocks_of(sharded, state, phys, dyn)
+        profile(f"{path} coupled step, 2x2 blocked h={model.mevp.block_halo} ({n}x{n})",
+                lambda: sharded.run_blocks(*blocks, DT, 1), n_steps=2)
+        del single, model, sharded, state, fns, runs, blocks
+
+
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     """The kernels' JSON line: per kernel its launches on the main paths,
     check error, times, ``bound_ms`` on the data sheet's peaks and
     ``measured_bound_ms`` on the measured HBM rate and the measured mul_add
     rate (the port's kernels issue unfused float32; the chain's fma form,
-    fused, on the fma_imm rate)."""
+    fused, on the fma_imm rate). Each launch counts on one row: a path's
+    launches of a kernel go to the last form row (``FORM_ROWS``) that names
+    the path for that kernel, else to the kernel's own row."""
+    claimed = {}
+    for label, (kernel, _, paths) in FORM_ROWS.items():
+        claimed.update({(path, kernel): label for path in paths})
     launches = dict.fromkeys(cc.KERNELS, 0)
     for path, names in PATH_KERNELS.items():
         for k in names:
-            launches[k] += counts[path][k]
+            if (path, k) not in claimed:
+                launches[k] += counts[path][k]
 
     def row_json(k: str) -> dict:
         row = kernels[k]
@@ -4460,7 +4700,8 @@ def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
         return {
             "name": f"{kernel} ({label.split(' ', 1)[1].replace('tvb', 'TVB')} form)", "route": "cuda",
             "source": source,
-            "replaces": REPLACES[kernel], "launches": sum(counts[p][kernel] for p in paths),
+            "replaces": REPLACES[kernel],
+            "launches": sum(counts[p][kernel] for p in paths if claimed[(p, kernel)] == label),
             "max_abs_err": row.err, "ms": row.ms, "plain_ms": row.plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "measured_bound_ms": measured, "library_ms": row.library_ms,
         }
@@ -4618,6 +4859,9 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     counts_5, kernels_5, probes = phase(check_multihost, device)
     counts_grid, errs_grid = phase(check_grid_forms, device)
     counts.update(counts_grid)
+    counts_grid_ho, err_grid_ho = phase(check_grid_ho, device)
+    counts.update(counts_grid_ho)
+    kernels["ho_tiled"] = replace(kernels["ho_tiled"], err=max(kernels["ho_tiled"].err, err_grid_ho))
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
@@ -4629,6 +4873,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
     phase(time_grid_forms, device, smi)
+    phase(time_grid_ho, device, smi)
     phase(time_tvb_periodic, device, smi)
     phase(time_ho_forms, device, smi)
     phase(time_ho_metric, device, smi)

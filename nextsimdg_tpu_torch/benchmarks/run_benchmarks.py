@@ -11,9 +11,11 @@ Default: the fast subset ``dev1 box``. ``--degree 1`` runs ``advection``
 twin of the JAX function's multi-device branch; without it that config
 runs single-device, as the JAX function does on one device. The ``*_spmd``
 configs (``coupled_1m_spherical_spmd``, ``spherical_16m_spmd``: BASELINE
-config 5 on the spherical coastline domain) always run on a rank grid of
-the card, 2x2 unless ``--ranks`` says otherwise: the JAX functions run
-them over the device mesh. Each result prints as one JSON line with its
+config 5 on the spherical coastline domain; ``ho_coupled_1m_spherical_spmd``,
+``ho_spherical_16m_spmd``: the same with the CG2/dG1 solver, and the HO
+ablations ``ho_ablate_*_spmd``) always run on a rank grid of the card, 2x2
+unless ``--ranks`` says otherwise: the JAX functions run them over the
+device mesh. Each result prints as one JSON line with its
 ``config``, its ``chunk`` of steps and the card (name, ``nvidia-smi`` name
 and power limit).
 
@@ -22,9 +24,6 @@ ending in ``torch.cuda.synchronize()``; the state carries on from chunk to
 chunk, as in the JAX battery. The chunks are sized so that a timed chunk
 takes about 0.3 s or more on an H100 at the port's step times (PERF.md);
 the JAX ones were sized against its remote-dispatch latency.
-
-The JAX configs the port cannot run yet stay out of ``CONFIGS``: the HO
-``*_spmd`` ones and their ablations (ROADMAP M10b part 2, M11b).
 """
 
 from __future__ import annotations
@@ -256,7 +255,8 @@ def bench_multihost_16m(
 
 def bench_coupled_1m_spherical_spmd(
     n: int = 1024, chunk: int = 16, ranks=(2, 2), halo="auto", mevp_backend: str = "blocked",
-    n_subcycles: int = 100, device=None,
+    n_subcycles: int = 100, device=None, high_order: bool = False, spherical: bool = True,
+    coastline: bool = True,
 ) -> dict:
     """BASELINE config 5 as it is run: the lon-lat window 40W-40E, 55N-85N
     with the synthetic coastline, config 4's state and forcing, dG1, f32, on
@@ -264,19 +264,28 @@ def bench_coupled_1m_spherical_spmd(
     rank, its metric planes riding the blocked mEVP (``mevp_backend``, with
     ``halo`` ghost cells: "auto" is the port's ``mevp.BLOCK_HALO``) and the
     spmd tiled transport, on resident rank blocks. The JAX function's
-    "auto" halo (64) is a TPU lane-alignment rule that the port does not
-    copy."""
+    "auto" halo (64; its HO solver's, n / 16 from 16 to 64) is a TPU rule
+    that the port does not copy. ``high_order=True`` selects the CG2/dG1
+    solver through the registry (reset after the build); ``spherical=False``
+    runs config 4's uniform 4 km mesh and ``coastline=False`` drops the
+    coastline (the JAX battery's HO ablations)."""
     from ..parallel import RankGrid, build_sharded_coupled_model
 
     device = _device(device)
-    mesh = SphericalMesh(n, n, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
-    ocean = synthetic_coastline(n)
+    if spherical:
+        mesh = SphericalMesh(n, n, lon0=-40.0, lon1=40.0, lat0=55.0, lat1=85.0)
+    else:
+        mesh = RectMesh(n, n, dx=4e3, dy=4e3)
+    ocean = synthetic_coastline(n) if coastline else None
     grid = RankGrid(*ranks, device)
-    model, sharded = build_sharded_coupled_model(
-        mesh, grid, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean,
-        mevp_backend=mevp_backend, mevp_block_halo=halo,
-    )
-    global_model = CoupledModel(mesh, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean)
+
+    def build():
+        return build_sharded_coupled_model(
+            mesh, grid, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean,
+            mevp_backend=mevp_backend, mevp_block_halo=halo,
+        ), CoupledModel(mesh, degree=1, n_subcycles=n_subcycles, ocean_mask=ocean)
+
+    (model, sharded), global_model = with_high_order(build) if high_order else build()
     state = global_model.initial_state(
         hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32
     )
@@ -284,16 +293,27 @@ def bench_coupled_1m_spherical_spmd(
     pf_blocks, df_blocks = grid.split_tree(pf), grid.split_tree(df)
     run = lambda blocks: sharded.run_blocks(blocks, pf_blocks, df_blocks, DT, chunk)
     best = _timed_chunk(run, grid.split_tree(state), device)
+    tags = "".join([
+        ", synthetic coastline" if coastline else "",
+        ", spherical lon-lat" if spherical else "",
+        ", CG2/dG1" if high_order else "",
+    ])
     return _result(
-        f"coupled thermo+dynamics element updates/s ({n}x{n} = {n * n / 1e6:.3g}M elements, "
-        f"synthetic coastline, spherical lon-lat, {ranks[0]}x{ranks[1]} rank grid on one device, "
+        f"coupled thermo+dynamics element updates/s ({n}x{n} = {n * n / 1e6:.3g}M elements{tags}, "
+        f"{ranks[0]}x{ranks[1]} rank grid on one device, "
         f"{model.mevp_schedule()} h={model.mevp.block_halo} + {model.transport_schedule()} "
         "transport, f32)", n * n, chunk, best,
     )
 
 
+_HO_SPMD = partial(bench_coupled_1m_spherical_spmd, high_order=True, chunk=4)
+
 #: The configs that run on a rank grid: ``--ranks`` applies to them.
-RANKED = ("multihost_16m", "coupled_1m_spherical_spmd", "spherical_16m_spmd")
+RANKED = (
+    "multihost_16m", "coupled_1m_spherical_spmd", "spherical_16m_spmd", "ho_coupled_1m_spherical_spmd",
+    "ho_ablate_uniform_spmd", "ho_ablate_spherical_spmd", "ho_ablate_h16_spmd", "ho_ablate_h32_spmd",
+    "ho_spherical_16m_spmd",
+)
 
 CONFIGS = {
     "dev1": bench_dev1,
@@ -312,6 +332,17 @@ CONFIGS = {
     "multihost_16m": bench_multihost_16m,
     "coupled_1m_spherical_spmd": bench_coupled_1m_spherical_spmd,
     "spherical_16m_spmd": partial(bench_coupled_1m_spherical_spmd, n=4096, chunk=4),
+    # The CG2/dG1 solver on the rank grid (blocked schedule) and the JAX
+    # battery's ablations of it, one axis at a time: config 4's uniform mesh
+    # without the coastline, the spherical window without it, and the ghost
+    # width h = 16 and 32; then BASELINE config 5 with the flagship
+    # discretisation at full size.
+    "ho_coupled_1m_spherical_spmd": _HO_SPMD,
+    "ho_ablate_uniform_spmd": partial(_HO_SPMD, spherical=False, coastline=False),
+    "ho_ablate_spherical_spmd": partial(_HO_SPMD, coastline=False),
+    "ho_ablate_h16_spmd": partial(_HO_SPMD, halo=16),
+    "ho_ablate_h32_spmd": partial(_HO_SPMD, halo=32),
+    "ho_spherical_16m_spmd": partial(_HO_SPMD, n=4096, chunk=2),
 }
 
 

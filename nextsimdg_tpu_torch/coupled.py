@@ -42,10 +42,11 @@ On a rank grid (``spmd``, built by ``parallel.shardmap``) the model holds
 one rank's block (of a uniform mesh, or a ``LocalMeshView`` of a graded or
 spherical one, each axis closed or a ring), runs in that rank's thread and
 exchanges halos with the other ranks (``parallel.exchange``): the mEVP on
-the blocked or rdma schedule in any momentum form, or free drift; the
-transport on the widened block, with TVB too (staged on a graded or
-spherical mesh: CPU tensors only, ROADMAP M10c); the physics per block. The
-HO solver raises ``NotImplementedError`` there (ROADMAP M10b part 2).
+the blocked or rdma schedule in any momentum form, the HO solver on the
+blocked schedule (its rdma schedule, and HO with TVB on a card, are ROADMAP
+M10b part 2b and raise), or free drift; the transport on the widened block,
+with TVB too (staged on a graded or spherical mesh: CPU tensors only,
+ROADMAP M10c); the physics per block.
 """
 
 from __future__ import annotations
@@ -183,8 +184,10 @@ class CoupledModel:
         per rank), with ``mesh`` the rank's block and ``ocean_mask`` the
         global mask. ``mevp_backend`` is then one of
         ``mevp.SPMD_BACKENDS``: ``"blocked"`` (and ``"auto"``), ``"rdma"``
-        or ``"xla"``, with ``mevp_block_halo`` ghost cells per exchange
-        ("auto": ``mevp.BLOCK_HALO``, at most half the block);
+        (not with the HO solver) or ``"xla"``, with ``mevp_block_halo``
+        ghost cells per exchange (``mevp.block_halo_of``: "auto" is
+        ``mevp.BLOCK_HALO``, at most half the block); with the HO solver
+        the transport advects with the CG2 samples on the widened block;
         ``transport_backend`` ``"tiled"`` (and ``"auto"``: the widened block
         on transport_tiled) or ``"xla"``. The ``"xla"`` schedules, and
         ``"auto"`` where the block has no spmd tiled transport (a block too
@@ -209,10 +212,6 @@ class CoupledModel:
             )
         self.mesh = mesh
         solver_cls = get_loader().get_implementation("Nextsim::IDynamics")
-        if self.exchange is not None and issubclass(solver_cls, MEVPSolverHO):
-            raise NotImplementedError(
-                "the HO solver on a rank grid (its blocked and rdma schedules) is ROADMAP M10b part 2"
-            )
         self.ocean_mask = None
         if ocean_mask is not None:
             self.ocean_mask = np.asarray(ocean_mask, dtype=np.float64)
@@ -227,13 +226,13 @@ class CoupledModel:
         self._widened_transport = {}
         self._widened_metric = {}
         self.transport = DGTransport(mesh, degree=degree, spmd=self.spmd, tvb_m=tvb_m)
-        if issubclass(solver_cls, MEVPSolverHO):
-            self.mevp = solver_cls(mesh, mevp_params, backend=mevp_backend)
-        elif self.exchange is not None:
+        if self.exchange is not None:
             self.mevp = solver_cls(
                 mesh, mevp_params, backend=mevp_backend, spmd=self.spmd,
                 block_halo=mevp_block_halo,
             )
+        elif issubclass(solver_cls, MEVPSolverHO):
+            self.mevp = solver_cls(mesh, mevp_params, backend=mevp_backend)
         else:
             self.mevp = solver_cls(mesh, mevp_params)
         self.n_subcycles = int(n_subcycles)
@@ -470,7 +469,7 @@ class CoupledModel:
         velocity = state.velocity
         if self.is_high_order:
             dyn_forcing = HODynamicsForcing.from_vertex_forcing(
-                dyn_forcing, self.mesh.periodic_x, self.mesh.periodic_y
+                dyn_forcing, self.mesh.periodic_x, self.mesh.periodic_y, self.spmd
             )
         mask = self.node_mask(device=hice.device, dtype=hice.dtype)
         if self.is_free_drift:  # no per-step consts: the phase gets the step's inputs

@@ -77,13 +77,14 @@ precomputed samples (their ``qv`` form).
 
 On a rank grid (``parallel``) the phase runs the solver's exchange
 schedule (``MEVPSolver.spmd_subcycles``: ``mevp_tiled`` on the widened
-block, or the rdma round; free drift's plain step), samples the CFL
-speeds of the rank's own elements in its widened velocity, agrees k over
-the ranks with one host sync for the whole grid, and advects with
-``transport_tiled`` on the widened block
-(``transport_tiled_cuda.transport_substeps_tiled_spmd``: on a graded or
-spherical mesh with the widened metric planes, with TVB with the global
-walls inside the block).
+block, or the rdma round; ``MEVPSolverHO.spmd_subcycles``: ho_tiled or
+ho_single on the widened block; free drift's plain step), samples the CFL
+speeds of the rank's own elements (in its widened CG1 velocity, or its CG2
+velocity's quadrature samples), agrees k over the ranks with one host sync
+for the whole grid, and advects with ``transport_tiled`` on the widened
+block (``transport_tiled_cuda.transport_substeps_tiled_spmd``: on a graded
+or spherical mesh with the widened metric planes, with TVB with the global
+walls inside the block, with the HO solver with the widened samples).
 
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
@@ -1154,7 +1155,8 @@ def _spmd_dynamics_phase(
     With the tiled transport the velocity is widened by H once: on a card
     ``dg1_sample_cfl`` samples the block's own elements inside it (the nodes
     beyond the block are the neighbours'), and the transport advects with
-    it."""
+    it. With the HO solver (``_spmd_ho_phase``) the CG2 velocity is sampled
+    at the quadrature points through the exchange instead."""
     from .transport_tiled_cuda import transport_substeps_tiled_spmd, widen_velocity
 
     solver, tr, mesh = model.mevp, model.transport, model.mesh
@@ -1176,6 +1178,10 @@ def _spmd_dynamics_phase(
             f"(transport_backend={model.transport_backend!r}: {tr.scheme} on a "
             f"{mesh.nx} x {mesh.ny} block)"
         )
+    if model.is_high_order:
+        return _spmd_ho_phase(
+            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport, on_cpu
+        )
     if mevp == "free-drift":  # plain on every device; its node averages exchange
         planes = free_drift_subcycles(solver, state_arrays, consts, dt, n_subcycles)
     else:
@@ -1196,6 +1202,34 @@ def _spmd_dynamics_phase(
     if transport == "tiled":
         return planes, transport_substeps_tiled_spmd(model, tracers, velocity_w, dt / k, k, face_masks)
     qv = velocity_from_cg(mesh, tr.basis, u, v, model.spmd)
+    return planes, transport_substeps_reference(tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
+
+
+def _spmd_ho_phase(
+    model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport, on_cpu,
+):
+    """The HO solver's ``_spmd_dynamics_phase``: the N subcycles on the
+    blocked (or, on the CPU, width-1) exchange schedule, the CG2 velocity
+    sampled at the quadrature points through the exchange
+    (``ho_velocity_to_quad``), k from the max speeds of the rank's own
+    elements over the ranks (one host sync for the grid), then the spmd
+    transport_tiled with the samples widened by H (``qv``), or the plain
+    staged transport on the CPU. HO with TVB on a card is ROADMAP M10b
+    part 2b (transport_tiled has no instance with the samples and the
+    walls inside the widened block) and raises before any work."""
+    from .transport_tiled_cuda import transport_substeps_tiled_spmd
+
+    mesh, tr = model.mesh, model.transport
+    if tr.limits_slopes and not on_cpu:
+        raise NotImplementedError(
+            "the HO solver with TVB on a card's rank grid (transport_tiled with the CG2 samples "
+            "and the global walls inside the widened block) is ROADMAP M10b part 2b"
+        )
+    planes = model.mevp.spmd_subcycles(state_arrays, consts, dt, n_subcycles)
+    qv = ho_velocity_to_quad(mesh, tr.basis, planes[0], planes[1], model.spmd)
+    k = _substeps(model, qv, dt)
+    if transport == "tiled":
+        return planes, transport_substeps_tiled_spmd(model, tracers, None, dt / k, k, face_masks, qv=qv)
     return planes, transport_substeps_reference(tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
 
 

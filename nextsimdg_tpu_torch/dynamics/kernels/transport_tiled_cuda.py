@@ -50,6 +50,10 @@ the global mesh's, zero beyond a closed wall), its own mesh being a
 ``MetricShim``. With TVB (uniform meshes) the global walls sit H rows
 inside the widened block: the kernel's rank grid form takes their indices
 (``walls``), the plain version the JAX package's wall-delta mask planes.
+The HO solver's rank passes its quadrature samples (``qv``), whose four
+families are widened by H once, as the JAX wrapper widens them: each
+sample of a ghost element is the neighbour rank's own (zero beyond a
+closed wall), so the widened samples equal the single domain's there.
 """
 
 from __future__ import annotations
@@ -448,29 +452,34 @@ def spmd_walls(model, H: int):
     return tuple(out)
 
 
+def spmd_halo(model) -> int:
+    """The spmd wrapper's exchange width H on ``model``'s rank block
+    (``transport_tiled_spmd_config``); raises where there is none."""
+    config = transport_tiled_spmd_config(model)
+    if config is None:
+        raise NotImplementedError(
+            f"no spmd tiled transport for {model.transport.scheme} on a "
+            f"{model.mesh.nx} x {model.mesh.ny} block"
+        )
+    return config[0]
+
+
 def widen_velocity(model, u, v, H: int = None):
     """(2, nx + 2H, ny + 2H): the rank's (u, v) widened by H, by default the
-    spmd wrapper's (``transport_tiled_spmd_config``; raises where there is
-    none). The dynamics phase samples the CFL speeds from it and passes it
-    on to ``transport_substeps_tiled_spmd``."""
-    if H is None:
-        config = transport_tiled_spmd_config(model)
-        if config is None:
-            raise NotImplementedError(
-                f"no spmd tiled transport for {model.transport.scheme} on a "
-                f"{model.mesh.nx} x {model.mesh.ny} block"
-            )
-        H = config[0]
-    return _widen(model, torch.stack([u, v]), H)
+    spmd wrapper's (``spmd_halo``). The dynamics phase samples the CFL
+    speeds from it and passes it on to ``transport_substeps_tiled_spmd``."""
+    return _widen(model, torch.stack([u, v]), spmd_halo(model) if H is None else H)
 
 
 def transport_substeps_tiled_spmd(
-    model, tracers, velocity_w, dt_sub: float, k: int, face_masks=None,
+    model, tracers, velocity_w, dt_sub: float, k: int, face_masks=None, qv: QuadVelocity = None,
 ):
     """The rank's tracers after k limited substeps (``model``: the rank's
     ``CoupledModel``; ``tracers`` (K, T, nx, ny) and ``face_masks`` its
     block's; ``velocity_w`` its (u, v) widened by H, from
-    ``widen_velocity``, which fixes H). Per exchange round: widen the
+    ``widen_velocity``, which fixes H; or, with the HO solver, None and
+    ``qv`` the block's quadrature samples, which are widened here by the H
+    of ``transport_tiled_spmd_config``). Per exchange round: widen the
     tracers by H ghost cells (one strip pair per axis), run up to
     k_cap = (H - 1) // stages substeps on the widened block with
     ``transport_substeps_tiled`` (transport_tiled on a card, the plain
@@ -486,13 +495,19 @@ def transport_substeps_tiled_spmd(
     mesh, tr = model.mesh, model.transport
     ax_x, ax_y = model.spmd
     nx, ny = mesh.nx, mesh.ny
-    H = (velocity_w.shape[-2] - nx) // 2
+    if (velocity_w is None) == (qv is None):
+        raise ValueError("the spmd transport takes the widened (u, v) or the samples qv, one of them")
+    if qv is None:
+        H = (velocity_w.shape[-2] - nx) // 2
+        u_w, v_w, qv_w = velocity_w[0], velocity_w[1], None
+    else:
+        H = spmd_halo(model)
+        u_w = v_w = None
+        qv_w = QuadVelocity(*(_widen(model, getattr(qv, f), H) for f in ("vx_vol", "vy_vol", "vn_x", "vn_y")))
     k_cap = (H - 1) // rings_per_substep(tr)
-    if velocity_w.shape != (2, nx + 2 * H, ny + 2 * H) or k_cap < 1 or H > min(nx, ny):
-        raise ValueError(
-            f"a velocity widened to {tuple(velocity_w.shape)} does not fit a "
-            f"{nx} x {ny} block for {tr.scheme}"
-        )
+    fits = qv is not None or tuple(velocity_w.shape) == (2, nx + 2 * H, ny + 2 * H)
+    if not fits or k_cap < 1 or H > min(nx, ny):
+        raise ValueError(f"an exchange width of {H} does not fit a {nx} x {ny} block for {tr.scheme}")
 
     ones = torch.ones_like(tracers[0, 0])
     fx, fy = (ones, ones) if face_masks is None else face_masks
@@ -509,8 +524,8 @@ def transport_substeps_tiled_spmd(
     while done < k:
         n_sub = min(k_cap, k - done)
         padded = transport_substeps_tiled(
-            local, _widen(model, tracers, H), velocity_w[0], velocity_w[1], dt_sub, n_sub,
-            (faces_w[0], faces_w[1]), metric=metric, walls=walls,
+            local, _widen(model, tracers, H), u_w, v_w, dt_sub, n_sub,
+            (faces_w[0], faces_w[1]), qv=qv_w, metric=metric, walls=walls,
         )
         tracers = padded[:, :, H: H + nx, H: H + ny]
         done += n_sub

@@ -159,6 +159,22 @@ SPMD_BACKENDS = ("auto", "blocked", "rdma", "xla")
 BLOCK_HALO = 16
 
 
+def block_halo_of(block_halo, mesh: RectMesh, on_grid: bool) -> int:
+    """The ghost width h of a solver on ``mesh`` (a rank's block): "auto" is
+    ``BLOCK_HALO``, at most half the block (the rdma round's limit); on a
+    rank grid h must lie in [1, min(nx, ny)] (the exchange strips are slices
+    of the block). The CG1 and HO solvers both take it from here."""
+    if block_halo == "auto":
+        block_halo = max(1, min(BLOCK_HALO, mesh.nx // 2, mesh.ny // 2))
+    block_halo = int(block_halo)
+    if on_grid and not 1 <= block_halo <= min(mesh.nx, mesh.ny):
+        raise ValueError(
+            f"block_halo {block_halo} must lie in [1, {min(mesh.nx, mesh.ny)}] "
+            "(the exchange strips are slices of the block)"
+        )
+    return block_halo
+
+
 class MEVPSolver:
     """The CG1 mEVP solver on a ``RectMesh`` or ``SphericalMesh``, each axis
     closed or periodic.
@@ -186,14 +202,7 @@ class MEVPSolver:
         self.mesh = mesh
         self.params = params
         self.backend = backend
-        if block_halo == "auto":  # at most half the block: the rdma round's limit
-            block_halo = max(1, min(BLOCK_HALO, mesh.nx // 2, mesh.ny // 2))
-        self.block_halo = int(block_halo)
-        if on_grid and not 1 <= self.block_halo <= min(mesh.nx, mesh.ny):
-            raise ValueError(
-                f"block_halo {self.block_halo} must lie in [1, {min(mesh.nx, mesh.ny)}] "
-                "(the exchange strips are slices of the block)"
-            )
+        self.block_halo = block_halo_of(block_halo, mesh, on_grid)
         self._metric = {}
 
     @property

@@ -31,6 +31,18 @@ the element areas; the strain multiplies by the reciprocals, and the
 divergence weights each element's contribution by its own widths before
 the scatter. ``adaptive_alpha`` raises ``NotImplementedError``, as in the
 JAX package.
+
+On a rank grid (``nextsimdg_tpu_torch.parallel``) the solver holds one
+rank's block (a uniform ``RectMesh``, or a ``LocalMeshView`` of a graded or
+spherical mesh) and its ``spmd`` exchange axes: every shift of the node
+machinery goes through the exchange, only the global first row and column
+of a closed axis are walls, and the N subcycles run on the exchange
+schedule of ``MEVPSolverHO.schedule``: ``"blocked"`` widens the 17 state
+planes by h ghost cells once per h subcycles and runs the single-device
+kernels (ho_single or ho_tiled, by the single-device rule) on the widened
+block; ``"xla"`` exchanges width-1 halos in every subcycle (the plain path,
+CPU tensors only). The HO solver's rdma schedule is ROADMAP M10b part 2b
+and raises.
 """
 
 from __future__ import annotations
@@ -41,9 +53,9 @@ import numpy as np
 import torch
 
 from .cg2basis import LOCAL_NODE_SOURCE, PLANES, _lagrange_1d, cg2_sampling_table, cg2_tables
-from .mesh import RectMesh, device_metric_planes
-from .mevp import MEVPParams, _div
-from .stencil import shift_m, shift_p
+from .mesh import RectMesh, block_mesh, device_metric_planes
+from .mevp import SPMD_BACKENDS, MEVPParams, _div, block_halo_of
+from .stencil import halo_widen, is_global_edge, shift_m, shift_p
 from .transport import QuadVelocity, apply_table
 
 #: The per-plane const names; with "strength" the 29 planes of step_consts.
@@ -105,12 +117,15 @@ class HOField:
         })
 
     @classmethod
-    def from_vertex_field(cls, vertex, periodic_x: bool = False, periodic_y: bool = False) -> "HOField":
+    def from_vertex_field(
+        cls, vertex, periodic_x: bool = False, periodic_y: bool = False, spmd=(None, None),
+    ) -> "HOField":
         """Mid and centre planes interpolated from a vertex (CG1) field; on
-        a periodic axis the node beyond the last is the first."""
-        vx = shift_p(vertex, 0, periodic_x)
-        vy = shift_p(vertex, 1, periodic_y)
-        vxy = shift_p(vx, 1, periodic_y)
+        a periodic axis the node beyond the last is the first; ``spmd``: a
+        rank's (x, y) exchange axes, through which the shifts go."""
+        vx = shift_p(vertex, 0, periodic_x, spmd[0])
+        vy = shift_p(vertex, 1, periodic_y, spmd[1])
+        vxy = shift_p(vx, 1, periodic_y, spmd[1])
         return cls(
             v=vertex, b=0.5 * (vertex + vx), l=0.5 * (vertex + vy),
             c=0.25 * (vertex + vx + vy + vxy),
@@ -148,66 +163,70 @@ class HODynamicsForcing:
 
     @classmethod
     def from_vertex_forcing(
-        cls, forcing, periodic_x: bool = False, periodic_y: bool = False,
+        cls, forcing, periodic_x: bool = False, periodic_y: bool = False, spmd=(None, None),
     ) -> "HODynamicsForcing":
         """The CG2 forcing of a CG1 ``DynamicsForcing`` (vertex planes) on a
-        mesh with these periodic axes."""
+        mesh with these periodic axes (on a rank grid: the rank's block and
+        exchange axes ``spmd``)."""
         return cls(**{
-            name: HOField.from_vertex_field(getattr(forcing, name), periodic_x, periodic_y)
+            name: HOField.from_vertex_field(getattr(forcing, name), periodic_x, periodic_y, spmd)
             for name in ("u_atm", "v_atm", "u_ocean", "v_ocean")
         })
 
 
-def gather_local(field: HOField, periodic_x: bool = False, periodic_y: bool = False):
+def gather_local(field: HOField, periodic_x: bool = False, periodic_y: bool = False, spmd=(None, None)):
     """The 9 local node values of every element, (9, nx, ny), n = 3a + b;
     beyond the last node of a closed axis a zero, of a periodic one the
-    first."""
+    first; on a rank grid (``spmd``: the rank's exchange axes) the
+    neighbour rank's."""
     planes = {"v": field.v, "b": field.b, "l": field.l, "c": field.c}
     out = []
     for n in range(9):
         plane, sx, sy = LOCAL_NODE_SOURCE[divmod(n, 3)]
         arr = planes[plane]
         if sx:
-            arr = shift_p(arr, 0, periodic_x)
+            arr = shift_p(arr, 0, periodic_x, spmd[0])
         if sy:
-            arr = shift_p(arr, 1, periodic_y)
+            arr = shift_p(arr, 1, periodic_y, spmd[1])
         out.append(arr)
     return torch.stack(out)
 
 
-def scatter_local(contribs, periodic_x: bool = False, periodic_y: bool = False) -> HOField:
+def scatter_local(contribs, periodic_x: bool = False, periodic_y: bool = False, spmd=(None, None)) -> HOField:
     """Accumulate (9, nx, ny) per-element local-node contributions onto the
     owned planes, in ascending n (the adjoint of ``gather_local`` on the
-    same axes)."""
+    same axes and exchange)."""
     planes = dict.fromkeys(PLANES)
     for n in range(9):
         plane, sx, sy = LOCAL_NODE_SOURCE[divmod(n, 3)]
         arr = contribs[n]
         if sx:
-            arr = shift_m(arr, 0, periodic_x)
+            arr = shift_m(arr, 0, periodic_x, spmd[0])
         if sy:
-            arr = shift_m(arr, 1, periodic_y)
+            arr = shift_m(arr, 1, periodic_y, spmd[1])
         planes[plane] = arr if planes[plane] is None else planes[plane] + arr
     return HOField(**planes)
 
 
-def ho_velocity_to_quad(mesh: RectMesh, basis, u: HOField, v: HOField) -> QuadVelocity:
+def ho_velocity_to_quad(mesh: RectMesh, basis, u: HOField, v: HOField, spmd=(None, None)) -> QuadVelocity:
     """Sample a CG2 velocity at the transport's quadrature points (exact):
     the 9-node interpolation at the volume points, the quadratic trace
     through a face's 3 nodes on the faces (single-valued across elements).
-    On a periodic axis the nodes beyond the last are the first."""
+    On a periodic axis the nodes beyond the last are the first; on a rank
+    grid (``spmd``) the neighbour rank's."""
     px, py = mesh.periodic_x, mesh.periodic_y
-    u_loc, v_loc = gather_local(u, px, py), gather_local(v, px, py)
+    ax, ay = spmd
+    u_loc, v_loc = gather_local(u, px, py, spmd), gather_local(v, px, py, spmd)
     n_vol = cg2_sampling_table(basis.degree)
     vx_vol = apply_table(n_vol, u_loc)
     vy_vol = apply_table(n_vol, v_loc)
     # The quadratic trace weights of each face point, as Python floats.
     weights = [[float(_lagrange_1d(i, s)) for i in range(3)] for s in basis.s_edge]
     # Left face (x = 0): nodes v(i, j), l(i, j), v(i, j+1), quadratic in s.
-    u_v_up = shift_p(u.v, 1, py)
+    u_v_up = shift_p(u.v, 1, py, ay)
     vn_x = torch.stack([w0 * u.v + w1 * u.l + w2 * u_v_up for w0, w1, w2 in weights])
     # Bottom face (y = 0): nodes v(i, j), b(i, j), v(i+1, j).
-    v_v_right = shift_p(v.v, 0, px)
+    v_v_right = shift_p(v.v, 0, px, ax)
     vn_y = torch.stack([w0 * v.v + w1 * v.b + w2 * v_v_right for w0, w1, w2 in weights])
     return QuadVelocity(vx_vol=vx_vol, vy_vol=vy_vol, vn_x=vn_x, vn_y=vn_y)
 
@@ -222,18 +241,36 @@ class MEVPSolverHO:
     cooperative launch, the JAX K5's counterpart), ``"pallas-tiled"``
     ho_tiled (ghost-zone tiles, H subcycles per launch, K6's), ``"auto"``
     ho_single below ``HO_SINGLE_MAX_ELEMENTS`` and ho_tiled from there.
+
+    ``spmd``: on a rank grid, this rank's (x, y) ``AxisExchange`` pair and
+    its block as ``mesh``; ``backend`` is then the exchange schedule (one
+    of ``mevp.SPMD_BACKENDS``: "auto" is "blocked"; "rdma" raises, ROADMAP
+    M10b part 2b) and ``block_halo`` its ghost width (``mevp.block_halo_of``,
+    the CG1 solver's rule: "auto" is ``mevp.BLOCK_HALO``).
     """
 
-    def __init__(self, mesh: RectMesh, params: MEVPParams = MEVPParams(), backend: str = "auto") -> None:
+    def __init__(
+        self, mesh: RectMesh, params: MEVPParams = MEVPParams(), backend: str = "auto",
+        spmd=(None, None), block_halo="auto",
+    ) -> None:
         if params.adaptive_alpha:
             # As in the JAX package: no element-level alpha is designed for
             # the dG1 stress at Gauss points.
             raise NotImplementedError("adaptive_alpha is implemented for the CG1 solver only")
-        if backend not in MEVP_BACKENDS:
-            raise ValueError(f"backend must be one of {MEVP_BACKENDS}, got {backend!r}")
+        self.spmd = tuple(spmd)
+        on_grid = any(axis is not None for axis in self.spmd)
+        backends = SPMD_BACKENDS if on_grid else MEVP_BACKENDS
+        if backend not in backends:
+            raise ValueError(f"backend must be one of {backends}, got {backend!r}")
+        if backend == "rdma":
+            raise NotImplementedError(
+                "the HO solver's rdma schedule (K7's 17-plane HO round) is ROADMAP M10b part 2b; "
+                "its rank grid runs 'blocked' or 'xla'"
+            )
         self.mesh = mesh
         self.params = params
         self.backend = backend
+        self.block_halo = block_halo_of(block_halo, mesh, on_grid)
         self.tables = cg2_tables()
         t = self.tables
         # Gauss-point projection table with the weights and the inverse dG1
@@ -241,12 +278,19 @@ class MEVPSolverHO:
         self.proj = (t.phi_dg1 * t.w_vol[None, :]) * (1.0 / np.array([1.0, 1 / 12, 1 / 12]))[:, None]
         self._metric = {}
 
+    @property
+    def on_rank_grid(self) -> bool:
+        return any(axis is not None for axis in self.spmd)
+
     def schedule(self, sms: int = None) -> str:
         """``"single"`` (ho_single) or ``"tiled"`` (ho_tiled): the kernel
         this solver runs on a CUDA card of ``sms`` streaming multiprocessors
         (None: not known). "auto" takes ho_single below
         ``HO_SINGLE_MAX_ELEMENTS`` where its tiles all fit on the card
-        (``ho_single_cuda.holds``), else ho_tiled."""
+        (``ho_single_cuda.holds``), else ho_tiled. On a rank grid the
+        exchange schedule, "blocked" or "xla"."""
+        if self.on_rank_grid:
+            return "blocked" if self.backend == "auto" else self.backend
         backend = self.backend
         if backend == "auto":
             single = self.mesh.n_elements < HO_SINGLE_MAX_ELEMENTS
@@ -259,12 +303,12 @@ class MEVPSolverHO:
             backend = "pallas" if single else "pallas-tiled"
         return "single" if backend == "pallas" else "tiled"
 
-    # -- plane <-> local-node machinery, on the mesh's axes ------------------
+    # -- plane <-> local-node machinery, on the mesh's axes and exchange ----
     def gather_local(self, field: HOField):
-        return gather_local(field, self.mesh.periodic_x, self.mesh.periodic_y)
+        return gather_local(field, self.mesh.periodic_x, self.mesh.periodic_y, self.spmd)
 
     def scatter_local(self, contribs) -> HOField:
-        return scatter_local(contribs, self.mesh.periodic_x, self.mesh.periodic_y)
+        return scatter_local(contribs, self.mesh.periodic_x, self.mesh.periodic_y, self.spmd)
 
     def const_names(self) -> tuple:
         """The const planes of ``step_consts``, in the kernels' order:
@@ -355,13 +399,15 @@ class MEVPSolverHO:
         """Per-plane no-slip masks (1 interior, 0 wall): on a closed x axis
         the vertex and left mid nodes of row i = 0, on a closed y axis the
         vertex and bottom mid nodes of column j = 0 sit on the walls; a
-        periodic axis has none."""
+        periodic axis has none. On a rank grid only the block that owns the
+        global first row (column) pins it, as in ``MEVPSolver``."""
+        ax_x, ax_y = self.spmd
         masks = {}
         for name in PLANES:
             mask = torch.ones((self.mesh.nx, self.mesh.ny), device=device, dtype=dtype)
-            if not self.mesh.periodic_x and name in ("v", "l"):
+            if not self.mesh.periodic_x and name in ("v", "l") and is_global_edge("first", ax_x):
                 mask[0, :] = 0.0
-            if not self.mesh.periodic_y and name in ("v", "b"):
+            if not self.mesh.periodic_y and name in ("v", "b") and is_global_edge("first", ax_y):
                 mask[:, 0] = 0.0
             masks[name] = mask
         return HOField(**masks)
@@ -507,7 +553,65 @@ class MEVPSolverHO:
     ) -> HOVelocityState:
         consts = self.step_consts(state, h, a, forcing, mask, dt)
         carry = (state.u, state.v, state.s11, state.s22, state.s12)
-        return HOVelocityState(*self.subcycles(carry, consts, dt, n_subcycles))
+        run = self.spmd_subcycles if self.on_rank_grid else self.subcycles
+        return HOVelocityState(*run(carry, consts, dt, n_subcycles))
+
+    # -- the exchange schedules of a rank grid --------------------------------
+    def spmd_subcycles(self, carry, consts, dt: float, n_subcycles: int):
+        """The HO carry after N subcycles on this rank's block, on the
+        solver's exchange schedule (``schedule``): "blocked" runs the
+        kernels on a card and the plain subcycle on the CPU; "xla" is the
+        plain path and takes CPU tensors only."""
+        from .kernels.coupled_cuda import _on_cpu
+
+        if self.schedule() == "blocked":
+            return self._blocked_subcycles(carry, consts, dt, n_subcycles)
+        carry = tuple(carry)
+        if not _on_cpu(carry[0].v):
+            raise NotImplementedError(
+                "the per-subcycle width-1 exchange ('xla') is the plain path and "
+                "takes CPU tensors; on a card the HO rank grid runs 'blocked'"
+            )
+        return ho_subcycles_reference(self, carry, consts, dt, n_subcycles)
+
+    def _blocked_subcycles(self, carry, consts, dt: float, n_subcycles: int):
+        """Ghost-zone ("temporally blocked") exchange, the HO counterpart of
+        ``MEVPSolver._blocked_subcycles``: widen the consts by h ghost cells
+        once per step and the 17 state planes once per round (one strip
+        pair per axis each), run min(h, remaining) subcycles on the widened
+        block with closed shifts, keep the interior. Each subcycle's gather
+        (+1 shifts) and scatter (-1 shifts) spoil one ghost ring, so the
+        interior equals the per-subcycle exchange exactly; beyond a global
+        wall the strips are zeros (no strength, no mass, no mask), and on a
+        ring they wrap round the ranks.
+
+        The widened block runs the single-device rule (``schedule(sms)`` of
+        a solver on ``block_mesh`` of the widened shape: ho_single where
+        the card holds it below ``HO_SINGLE_MAX_ELEMENTS``, else ho_tiled)
+        on a card, the plain subcycle on the CPU. On a view its mesh is a
+        ``MetricShim``: the four width planes widen with the other consts
+        (zeros beyond a closed wall are inert: the HO bodies only multiply
+        by them)."""
+        from .kernels.coupled_cuda import ho_flatten, ho_unflatten
+
+        h = self.block_halo
+        nx, ny = self.mesh.nx, self.mesh.ny
+        ax_x, ax_y = self.spmd
+
+        def widen(f):  # stacked planes: one strip pair per axis for all
+            f = halo_widen(f, h, 1, self.mesh.periodic_x, ax_x)
+            return halo_widen(f, h, 2, self.mesh.periodic_y, ax_y)
+
+        local = MEVPSolverHO(block_mesh(nx + 2 * h, ny + 2 * h, self.mesh), self.params)
+        consts_w = dict(zip(consts, widen(torch.stack(list(consts.values())))))
+        state = ho_flatten(carry)
+        remaining = n_subcycles
+        while remaining > 0:
+            n_sub = min(h, remaining)
+            remaining -= n_sub
+            padded = local.subcycles(ho_unflatten(widen(state)), consts_w, dt, n_sub)
+            state = ho_flatten(padded)[:, h: h + nx, h: h + ny]
+        return ho_unflatten(state.contiguous())
 
 
 def ho_subcycles_reference(solver: MEVPSolverHO, carry, consts, dt: float, n_subcycles: int):

@@ -309,9 +309,12 @@ def run_ranks(ring: InProcessRing, fn):
     first one is raised here. A rank still running after the ring's timeout
     aborts the grid with ``TimeoutError``; so does a rank that has not
     stopped the ring's timeout after an abort (it is left behind: a daemon
-    thread).
+    thread). Each rank's thread takes the caller's intra-op thread count
+    (``torch.get_num_threads``): a new thread's OpenMP default is every
+    core, which every rank of a grid on the CPU would take at once.
     """
     ring.reset()
+    n_threads = torch.get_num_threads()
     starts = {}
     for rank in ring.ranks:
         if rank.device.type == "cuda" and rank.device not in starts:
@@ -324,6 +327,7 @@ def run_ranks(ring: InProcessRing, fn):
 
     def body(rank: RankExchange) -> None:
         try:
+            torch.set_num_threads(n_threads)
             streams = rank.streams()
             if streams is None:
                 results[rank.rank] = fn(rank)

@@ -255,8 +255,10 @@ def test_interop_round_trip():
 )
 def test_unported_options_raise(kwargs):
     """JAX device-mesh axis names raise. The TVB limiter on a rank grid
-    (``spmd="rank"``: rank 0 of a 2 x 2 grid) runs since M10b part 1; with
-    the HO solver selected the rank grid raises (ROADMAP M10b part 2)."""
+    (``spmd="rank"``: rank 0 of a 2 x 2 grid) runs since M10b part 1, and
+    with the HO solver selected since M10b part 2a (on CPU tensors; on a
+    card it raises at the step, ``tests/test_torch_grid_ho_coupled.py``);
+    the HO solver's rdma schedule raises (ROADMAP M10b part 2b)."""
     from nextsimdg_tpu_torch import modules
 
     if kwargs.get("spmd") != "rank":
@@ -271,8 +273,11 @@ def test_unported_options_raise(kwargs):
     loader = modules.get_loader()
     loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
     try:
-        with pytest.raises(NotImplementedError, match="M10b part 2"):
-            CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
+        model = CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
+        assert model.is_high_order and model.mevp_schedule() == "blocked"
+        assert model.transport.tvb_m == kwargs["tvb_m"]
+        with pytest.raises(NotImplementedError, match="M10b part 2b"):
+            CoupledModel(RectMesh(N, N, 1e3, 1e3), mevp_backend="rdma", **kwargs)
     finally:
         loader.reset()
 

@@ -40,6 +40,7 @@ the CFL speeds and k; after 100 subcycles 1e-3 of the plane's max on the
 mEVP planes and 1e-5 on the tracers.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -1804,3 +1805,149 @@ def test_tvb_on_a_metric_grid_is_refused_on_cuda_tensors(device):
     phys, dyn = coupled_inputs(device, mesh)
     with pytest.raises(NotImplementedError, match="M10c"):
         sharded(state, phys, dyn, DT)
+
+
+# -- the HO solver on a rank grid's blocked schedule ---------------------------------
+HO_BLOCK = 96  # a rank's block; the grid is 2 x 2 of them
+
+
+def ho_grid_mesh(kind):
+    """The 192^2 global mesh of ``kind``: config 4's uniform 2 km mesh or
+    the lon-lat window 40W-40E, 55N-85N."""
+    n = 2 * HO_BLOCK
+    return RectMesh(n, n, 2e3, 2e3) if kind == "uniform" else SphericalMesh(n, n, -40.0, 40.0, 55.0, 85.0)
+
+
+def ho_grid_model(device, kind, n_subcycles=20, **kwargs):
+    """(single-device HO model, rank 0's model, the sharded step, seeded
+    global HO state with the coastline's land) on a 2 x 2 grid of
+    ``HO_BLOCK``^2 blocks, h = 8."""
+    mesh = ho_grid_mesh(kind)
+    ocean = synthetic_coastline(mesh.nx) if kind == "spherical" else None
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        single = CoupledModel(mesh, n_subcycles=n_subcycles, ocean_mask=ocean, **kwargs)
+        model, sharded = build_sharded_coupled_model(
+            mesh, RankGrid(2, 2, device, timeout=120), n_subcycles=n_subcycles, ocean_mask=ocean,
+            mevp_block_halo=8, **kwargs,
+        )
+    finally:
+        loader.reset()
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
+    shape = (mesh.nx, mesh.ny)
+    field = lambda: mevp_ho.HOField(*(t(rng.normal(0.0, 0.2, shape)) for _ in range(4)))
+    velocity = mevp_ho.HOVelocityState(field(), field(), *(t(rng.normal(0.0, 500.0, (3, *shape))) for _ in range(3)))
+    return single, model, sharded, dataclasses.replace(state, velocity=velocity)
+
+
+def ho_state_leaves(state):
+    for name in ("hice", "cice", "hsnow", "sst", "sss", "tice", "new_ice"):
+        yield name, getattr(state, name)
+    yield from zip(("u.v", "u.b", "u.l", "u.c", "v.v", "v.b", "v.l", "v.c", "s11", "s22", "s12"),
+                   ho_planes(tuple(getattr(state.velocity, k) for k in VELOCITY)))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "spherical"])
+def test_widened_ho_tiled_launch_matches_plain(device, kind, monkeypatch):
+    """ho_tiled on each rank's widened block of the blocked schedule (its
+    closed form on a uniform mesh, the metric form on the window, whose
+    width planes are the global ones' slices and zero beyond a wall): one
+    subcycle at 1e-5 and a round of h = 8 subcycles (one launch) at 1e-3
+    against the plain subcycles, on the round's own inputs."""
+    _, _, sharded, state = ho_grid_model(device, kind)
+    checked = {}
+    run = mevp_ho.MEVPSolverHO.subcycles
+
+    def checking(solver, carry, consts, dt, n):
+        import threading
+
+        name = threading.current_thread().name
+        if name not in checked:
+            checked[name] = [
+                (ht.ho_subcycles_tiled(solver, carry, consts, dt, m), ht.ho_tiled_reference(solver, carry, consts, dt, m),
+                 m, tuple(carry[0].v.shape), cc.kernel_form(solver))
+                for m in (1, n)
+            ]
+        return run(solver, carry, consts, dt, n)
+
+    monkeypatch.setattr(mevp_ho.MEVPSolverHO, "subcycles", checking)
+    cc.reset_launches()
+    phys, dyn = coupled_inputs(device, ho_grid_mesh(kind))
+    sharded(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    assert len(checked) == 4 and cc.launches["ho_tiled"] >= 8
+    for launches in checked.values():
+        for got, ref, m, shape, form in launches:
+            assert shape == (HO_BLOCK + 16, HO_BLOCK + 16)
+            assert bool(form & cc.HO_FORM_METRIC) == (kind == "spherical")
+            for g, r in zip(ho_planes(got), ho_planes(ref)):
+                assert_close(g, r, TOL_LAUNCH if m == 1 else 1e-3)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "spherical"])
+def test_spmd_qv_transport_launch_matches_plain(device, kind, monkeypatch):
+    """transport_substeps_tiled_spmd with the CG2 samples (``qv``, widened
+    by H): each transport_tiled launch against its plain version on the
+    same widened block (on the window with the widened metric planes)."""
+    _, _, sharded, state = ho_grid_model(device, kind)
+    blocks = sharded.grid.split_tree(state)
+    checked = []
+    kernel = tt.transport_substeps_tiled
+
+    def checking(transport, psi, uu, vv, dt_sub, n, faces, **kw):
+        got = kernel(transport, psi, uu, vv, dt_sub, n, faces, **kw)
+        ref = tt.transport_substeps_tiled_reference(transport, psi, uu, vv, dt_sub, n, faces, qv=kw["qv"],
+                                                    metric=kw.get("metric"))
+        checked.append((got, ref, kw.get("metric") is not None))
+        return got
+
+    monkeypatch.setattr(tt, "transport_substeps_tiled", checking)
+
+    def body(rank):
+        model, st = sharded.models[rank.rank], blocks[rank.rank]
+        qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, st.velocity.u, st.velocity.v, rank.axes)
+        tracers = torch.stack([st.hice, st.cice, st.hsnow], dim=1)
+        faces = model.face_masks(device=device, dtype=torch.float32)
+        return tt.transport_substeps_tiled_spmd(model, tracers, None, 300.0, 3, faces, qv=qv)
+
+    cc.reset_launches()
+    run_ranks(sharded.grid.ring, body)
+    torch.cuda.synchronize()
+    assert cc.launches["transport_tiled"] >= len(checked) >= 4
+    for got, ref, metric in checked:
+        assert metric == (kind == "spherical")
+        assert_close(got, ref, TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "spherical"])
+def test_ho_grid_step_equals_single_device(device, kind):
+    """The decomposed HO coupled step (ho_single on the 112^2 widened
+    blocks, the spmd qv transport) against the single-device step on the
+    card (expected 0, failure above 1e-6 of the plane's max)."""
+    single, model, sharded, state = ho_grid_model(device, kind)
+    assert model.schedule(device) == ("blocked", "tiled")
+    phys, dyn = coupled_inputs(device, single.mesh)
+    cc.reset_launches()
+    got = sharded(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    expected = single.step(state, phys, dyn, DT)
+    for (name, g), (_, e) in zip(ho_state_leaves(got), ho_state_leaves(expected)):
+        assert bool(torch.isfinite(g).all()), name
+        assert_same_schedule(g, e)
+    assert counts["ho_single"] > 0 and counts["transport_tiled"] > 0
+
+
+def test_ho_tvb_on_a_grid_is_refused_on_cuda_tensors(device):
+    """HO with TVB on a card's rank grid (transport_tiled with the samples
+    and the walls inside the widened block) is ROADMAP M10b part 2b: it
+    raises before any launch."""
+    single, _, sharded, state = ho_grid_model(device, "uniform", n_subcycles=2, tvb_m=2.0)
+    phys, dyn = coupled_inputs(device, single.mesh)
+    cc.reset_launches()
+    with pytest.raises(NotImplementedError, match="M10b part 2b"):
+        sharded(state, phys, dyn, DT)
+    assert cc.launches["ho_single"] == cc.launches["ho_tiled"] == 0

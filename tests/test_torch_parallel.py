@@ -469,20 +469,35 @@ def test_a_failing_or_hung_rank_stops_every_rank(where):
     assert [float(r[0]) for r in run_ranks(grid.ring, fn_ok)] == [4.0] * 4
 
 
-@pytest.mark.parametrize("kind", ["high_order"])
+@pytest.mark.parametrize("kind", ["high_order", "high_order_tvb"])
 def test_unported_configurations_raise_on_a_rank_grid(kind):
-    """The HO solver on a rank grid is ROADMAP M10b part 2. Periodic axes,
-    graded and spherical meshes and TVB run on the grid since M10b part 1
-    (tests/test_torch_grid_metric.py, tests/test_torch_grid_ring.py)."""
+    """The HO solver runs on a rank grid's blocked schedule since M10b part
+    2a (tests/test_torch_grid_ho.py, tests/test_torch_grid_ho_coupled.py);
+    its rdma schedule, and HO with TVB on a card, are ROADMAP M10b part 2b
+    and raise. Periodic axes, graded and spherical meshes and TVB run on
+    the grid since M10b part 1 (tests/test_torch_grid_metric.py,
+    tests/test_torch_grid_ring.py)."""
+    if kind == "high_order_tvb" and not torch.cuda.is_available():
+        pytest.skip("HO with TVB raises on CUDA tensors only: no CUDA device here")
     loader = modules.get_loader()
     loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
     try:
-        for mesh in (RectMesh(16, 16, 4e3, 4e3),
-                     SphericalMesh(16, 16, lon0=0.0, lon1=360.0, lat0=68.0, lat1=78.0, periodic_x=True)):
-            with pytest.raises(NotImplementedError, match="M10b part 2"):
-                build_sharded_coupled_model(mesh, RankGrid(2, 2, "cpu"))
+        if kind == "high_order":
+            for mesh in (RectMesh(16, 16, 4e3, 4e3),
+                         SphericalMesh(16, 16, lon0=0.0, lon1=360.0, lat0=68.0, lat1=78.0, periodic_x=True)):
+                with pytest.raises(NotImplementedError, match="M10b part 2b"):
+                    build_sharded_coupled_model(mesh, RankGrid(2, 2, "cpu"), mevp_backend="rdma")
+            return
+        grid = RankGrid(2, 2, "cuda")
+        model, sharded = build_sharded_coupled_model(RectMesh(N, N, 4e3, 4e3), grid, n_subcycles=2, tvb_m=2.0)
     finally:
         loader.reset()
+    state = model.initial_state(hice0=1.0, cice0=0.9, device="cuda", dtype=torch.float32)
+    state = grid.gather_tree([state] * 4)
+    phys, dyn = coupled_inputs()[1:]
+    with pytest.raises(NotImplementedError, match="M10b part 2b"):
+        sharded(state, interop.forcing_from_numpy(phys, device="cuda", dtype=torch.float32),
+                interop.dynamics_forcing_from_numpy(dyn, device="cuda", dtype=torch.float32), DT)
 
 
 @pytest.mark.parametrize("mevp_backend, transport_backend", [("xla", "tiled"), ("blocked", "xla")])
