@@ -255,7 +255,16 @@ Phases, each printed on its own lines:
    subcycle at TOL_LAUNCH, a round at TOL_STEP_MEVP), each spmd qv
    transport_tiled launch against plain at the 512^2 and 2048^2 blocks,
    then 20 steps (``ho_coupled_1m_spherical_spmd``) or 4 bounded with land
-   untouched;
+   untouched; then (phase ``check_grid_ho_rdma``) the HO solver on the
+   rdma schedule (K7's 17-plane round): ``ho_coupled_1m_spherical_spmd``,
+   ``ho_ablate_uniform_spmd`` and ``ho_spherical_16m_spmd`` on rdma, and
+   a 256^2 A-weighted grid and the 256^2 ring on 1 x 2 ranks (the HO
+   band's other forms), each one decomposed step against the single-device
+   HO step and (the battery's three) the blocked decomposed step (expected
+   0), one round on every rank with each rdma_stage launch and rank 0's HO
+   rdma_band launches against plain (TOL_LAUNCH, per plane) and every
+   round against the blocked round (expected 0), then 4 steps (at 16M the
+   one) bounded with land untouched;
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -297,6 +306,11 @@ Phases, each printed on its own lines:
    launch; the HO grid configs in chunks of 2 steps, the two timed ones at
    h = 16, 32 and 64 beside the single-device HO step, with a profile of
    each; the spmd qv form of transport_tiled in turns with its CG1 form;
+   the two timed HO grid configs on rdma at h = 16 and 32 in turns with
+   blocked at h = 16, with a profile of the 1M rdma step (its HO
+   rdma_band's ms a launch), rdma_stage's 17-plane x launch in turns with
+   one torch.stack of its strips, and each HO rdma_band form in turns
+   with the closed uniform HO instance on the same band;
    last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
@@ -474,6 +488,9 @@ OPS = {
 }
 #: Planes one HO call moves: 17 state planes in, 29 consts in, 17 out.
 HO_PLANES_MOVED = 17 + 29 + 17
+#: The 17 HO state planes in the kernels' order (coupled_cuda.ho_flatten).
+HO_PLANE_NAMES = tuple(f"{q}.{k}" for q in "uv" for k in "vblc") + tuple(
+    f"{s}[{c}]" for s in ("s11", "s22", "s12") for c in range(3))
 HO = "Nextsim::MEVPHighOrder"
 # Single launches: the kernel and the plain version run the same float32
 # operations in the same order (a width divides through its float32
@@ -762,8 +779,13 @@ def ptxas_report(text: str):
             kernel = found.group(2)[: int(found.group(1))]
             rest = found.group(2)[int(found.group(1)):]
             args = re.findall(r"L([bi])(\d+)E", rest.split("EE")[0] + "E") if rest.startswith("I") else []
-            if kernel == "rdma_stage_kernel":  # its one template argument: 16-byte vectors
-                kernel += "<float4>" if args[0][1] == "1" else "<scalar>"
+            if kernel == "rdma_stage_kernel":  # the state's planes, 16-byte vectors
+                kernel += f"<{args[0][1]} planes, {'float4' if args[1][1] == '1' else 'scalar'}>"
+            elif kernel == "rdma_band_ho_kernel":  # the band's long axis, the HO form, the ring
+                forms = [name for bit, name in ((2, "metric"), (1, "A-weighted")) if int(args[1][1]) & bit]
+                kernel += "<" + ", ".join(
+                    ["along columns, x bands" if args[0][1] == "1" else "along rows, y bands"] + forms
+                    + (["ring"] if args[2][1] == "1" else [])) + ">"
             elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound, the forms
                 axis = "along columns, x bands" if args[0][1] == "1" else "along rows, y bands"
                 forms = []
@@ -2198,10 +2220,11 @@ def time_in_turns(fns: dict, reps: dict) -> dict:
     return runs
 
 
-def profile(tag: str, step, n_steps: int = 5) -> None:
+def profile(tag: str, step, n_steps: int = 5, watch: str = None) -> None:
     """Device busy time per step and the device's idle share over n_steps
     back-to-back steps under torch.profiler, and the kernels that took the
-    most device time. Busy time sums the CUDA events' own device time."""
+    most device time (and the kernels whose names hold ``watch``: their ms
+    a launch). Busy time sums the CUDA events' own device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -2229,6 +2252,11 @@ def profile(tag: str, step, n_steps: int = 5) -> None:
             f"{e.key[:48]} {per_step(e):.3f} ms x{e.count / n_steps:g}" for e in top
         )
     ))
+    for e in (e for e in events if watch and watch in e.key):
+        log("time", (
+            f"profile {tag}: {e.key[:64]} {per_step(e):.4f} ms/step in {e.count / n_steps:g} launches, "
+            f"{e.self_device_time_total / 1e3 / e.count:.5f} ms a launch"
+        ))
 
 
 def time_paths(device, card: str) -> None:
@@ -2328,25 +2356,35 @@ def blocks_of(sharded, state, phys, dyn):
 
 
 def step_consts_of(model, state, dyn):
-    """(carry, consts) of one rank's mEVP step from its state block."""
+    """(carry, consts) of one rank's mEVP step from its state block (with
+    the HO solver its CG2 forcing through the rank's exchange)."""
     mask = model.node_mask(device=state.hice.device, dtype=state.hice.dtype)
     velocity = state.velocity
+    if model.is_high_order:
+        dyn = mevp_ho.HODynamicsForcing.from_vertex_forcing(
+            dyn, model.mesh.periodic_x, model.mesh.periodic_y, model.spmd)
     consts = model.mevp.step_consts(
         velocity, state.hice[0], torch.clamp(state.cice[0], 0.0, 1.0), dyn, mask, DT
     )
     return (velocity.u, velocity.v, velocity.s11, velocity.s22, velocity.s12), consts
 
 
-def rdma_round_checked(model, carry, consts):
+def rdma_round_checked(model, carry, consts, plain_bands: bool = True):
     """One rdma round of h subcycles on a rank whose rdma_stage and
     rdma_band launches are each held against their plain versions on the
-    same inputs (those launches are not counted), then the blocked round on
-    the same inputs. Returns (errors, rdma round, blocked round, the x
-    launch's inputs for timing)."""
+    same inputs (those launches are not counted; ``plain_bands`` False: the
+    stage's only), then the blocked round on the same inputs. With the HO
+    solver the round is K7's 17-plane one (its state one (17, nx, ny)
+    tensor, the interior pass ``rdma.ho_interior``). Returns (errors, rdma
+    round, blocked round, the launches' inputs by axis for timing), the
+    rounds as planes."""
     solver = model.mevp
     h = solver.block_halo
+    ho = model.is_high_order
     axes, consts_w = solver.rdma_round_inputs(consts)
     errors, captured = [], {}
+    clone = (lambda st: st.clone()) if ho else (lambda st: [x.clone() for x in st])
+    names = HO_PLANE_NAMES if ho else VELOCITY
 
     def stage(src, axis):
         got = rdma.rdma_stage(src, axis)
@@ -2355,12 +2393,18 @@ def rdma_round_checked(model, carry, consts):
         return got
 
     def band(local, src, axis, consts_w, dt, n, state):
-        ref = rdma.rdma_band_reference(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
-        got = rdma.rdma_band(local, src, axis, consts_w, dt, n, [x.clone() for x in state])
-        errors.extend(("rdma_band", f"axis {axis} {name}", g, r) for name, g, r in zip(VELOCITY, got, ref))
-        captured.setdefault(axis, (local, src, consts_w, [x.clone() for x in state]))
+        got = rdma.rdma_band(local, src, axis, consts_w, dt, n, clone(state))
+        if plain_bands:
+            ref = rdma.rdma_band_reference(local, src, axis, consts_w, dt, n, clone(state))
+            errors.extend(("rdma_band", f"axis {axis} {name}", g, r) for name, g, r in zip(names, got, ref))
+        captured.setdefault(axis, (local, src, consts_w, clone(state)))
         return got
 
+    if ho:
+        out = rdma._round(solver.local(), cc.ho_flatten(carry), consts, consts_w, DT, h, h, axes, stage, band,
+                          rdma.ho_interior)
+        blocked = mevp_ho.MEVPSolverHO(model.mesh, solver.params, backend="blocked", spmd=model.spmd, block_halo=h)
+        return errors, tuple(out), tuple(cc.ho_flatten(blocked.spmd_subcycles(carry, consts, DT, h))), captured
     out = rdma._round(
         solver.local(), carry, consts, consts_w, DT, h, h, axes, stage, band, mt.mevp_subcycles_tiled,
     )
@@ -2369,34 +2413,37 @@ def rdma_round_checked(model, carry, consts):
 
 
 def rdma_band_work(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int, n_consts: int = 7,
-                   cell_ops: int = None) -> tuple:
+                   cell_ops: int = None, planes: int = 5) -> tuple:
     """(bytes, operations) that one rdma_band launch (a pair of bands) needs
     for its patch: the cone of dependence of the h patch rows (x) or
     columns (y), which narrows by one ring per subcycle. At subcycle s of
     n_sub it spans h + 2 (n_sub - s) cells across the band and, along it,
     the ny columns of an x band or nx + 2 (n_sub - s) of the nx + 2 hx rows
-    of a y band. Bytes: the 5 state and ``n_consts`` const planes (7; 12 or
-    13 in the metric and A-weighted forms) of the first subcycle's cone
-    read once, the patch written once; ``cell_ops``: the stress and velocity
-    bodies' operations a cell (the uniform fixed-alpha ones by default)."""
+    of a y band. Bytes: the ``planes`` state planes (5; the HO form's 17)
+    and ``n_consts`` const planes (7; 12 or 13 in the metric and A-weighted
+    forms; the HO form's 29-37) of the first subcycle's cone read once, the
+    patch written once; ``cell_ops``: the stress and velocity bodies'
+    operations a cell (the uniform fixed-alpha ones by default; the HO
+    form's element and node index, all four planes)."""
     cell_ops = OPS["stress"] + OPS["velocity"] if cell_ops is None else cell_ops
     across = lambda s: min(3 * h, h + 2 * (n_sub - s))
     along = lambda s: ny if axis == 0 else min(nx + 2 * hx, nx + 2 * (n_sub - s))
     cells = sum(across(s) * along(s) for s in range(1, n_sub + 1))
-    patch = 5 * h * (ny if axis == 0 else nx) * 4
+    patch = planes * h * (ny if axis == 0 else nx) * 4
     return (
-        2 * ((5 + n_consts) * across(1) * along(1) * 4 + patch),
+        2 * ((planes + n_consts) * across(1) * along(1) * 4 + patch),
         2 * cells * cell_ops,
     )
 
 
-def compare_sharded_step(tag: str, got, ref, tol_same: bool = False) -> None:
+def compare_sharded_step(tag: str, got, ref, tol_same: bool = False,
+                         other: str = "the single-device kernel step") -> None:
     """Every leaf of a decomposed step against another step of the same
     state: the plain path (the step tolerances), or with ``tol_same``
-    another schedule of the same bodies (expected 0)."""
+    another schedule of the same bodies, ``other`` (expected 0)."""
     for name, g, r in leaves(got, ref):
         if tol_same:
-            same_schedule(f"{tag}.{name}", g, r, "the single-device kernel step")
+            same_schedule(f"{tag}.{name}", g, r, other)
         else:
             compare(f"{tag}.{name}", g, r, TOL_STEP_MEVP if name.startswith("velocity") else TOL_STEP_TRACER)
 
@@ -4139,24 +4186,27 @@ def grid_path_model(device, kind: str, shape, kwargs: dict, n: int = None, mid: 
     return single, model, sharded, state, phys, dyn
 
 
-def rdma_form_launches(device, sharded, state, phys, dyn, tag: str, errs: dict) -> dict:
+def rdma_form_launches(device, sharded, state, phys, dyn, tag: str, errs: dict, band_ranks=None) -> dict:
     """One rdma round on every rank of a grid path (its state after a step),
-    each rdma_stage and rdma_band launch against its plain version and the
-    round against the blocked round; returns rank 0's captured x and y
-    launches {axis: (band solver, sources, widened consts, state)}."""
+    each rdma_stage and rdma_band launch against its plain version (the
+    bands on the ranks of ``band_ranks`` only, default all) and the round
+    against the blocked round (with the HO solver K7's 17-plane round);
+    returns rank 0's captured x and y launches {axis: (band solver,
+    sources, widened consts, state)}."""
     states, _, dyns = blocks_of(sharded, state, phys, dyn)
 
     def check_round(rank):
         model = sharded.models[rank.rank]
         carry, consts = step_consts_of(model, states[rank.rank], dyns[rank.rank])
-        return rdma_round_checked(model, carry, consts)
+        return rdma_round_checked(model, carry, consts, band_ranks is None or rank.rank in band_ranks)
 
     results = run_ranks(sharded.grid.ring, check_round)
     torch.cuda.synchronize()
     for r, (errors, out, blocked, _) in enumerate(results):
         for kernel, what, g, ref in errors:
             errs[kernel] = max(errs[kernel], compare(f"{tag} {kernel} rank {r} {what}", g, ref, TOL_LAUNCH))
-        for name, g, b in zip(VELOCITY, out, blocked):
+        names = HO_PLANE_NAMES if sharded.models[r].is_high_order else VELOCITY
+        for name, g, b in zip(names, out, blocked):
             same_schedule(f"{tag} rdma round rank {r} {name}", g, b, "the blocked round")
     return next(res[3] for res in results if res[3])
 
@@ -4484,22 +4534,25 @@ FORM_ROWS["transport_tiled spmd-qv"] = (
     "transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled.cu", [path for path, *_ in HO_GRID_PATHS])
 
 
-def ho_grid_model(device, kind: str, n: int, coast: bool, halo="auto"):
+def ho_grid_model(device, kind: str, n: int, coast: bool, halo="auto", backend: str = "blocked",
+                  shape=RANKS, weighted: bool = False):
     """(single-device model, rank 0's model, the ShardedCoupledModel, state,
     phys, dyn) of an HO grid config: config 4's model, state and forcing
     with the HO solver (selected through the registry, reset after the
-    build) on the spherical window or config 4's uniform mesh, with
-    synthetic_coastline(n) or none, on a 2 x 2 grid of the card, blocked
-    with ghost width ``halo``."""
-    mesh = spherical_mesh(n) if kind == "spherical" else RectMesh(n, n, dx=4e3, dy=4e3)
+    build) on the spherical window, the 360 degree ring ("ring") or config
+    4's uniform mesh, with synthetic_coastline(n) or none, A-weighted or
+    not, on a ``shape`` grid of the card (2 x 2 by default), on the
+    exchange schedule ``backend`` with ghost width ``halo``."""
+    mesh = {"spherical": spherical_mesh, "ring": ring_mesh}.get(kind, lambda m: RectMesh(m, m, dx=4e3, dy=4e3))(n)
     ocean = synthetic_coastline(n) if coast else None
+    params = MEVPParams(a_weighted_stress=weighted)
     loader = modules.get_loader()
     loader.set_implementation("Nextsim::IDynamics", HO)
     try:
-        single, state, phys, dyn = coupled_model(device, mesh, ocean)
+        single, state, phys, dyn = coupled_model(device, mesh, ocean, mevp_params=params)
         model, sharded = build_sharded_coupled_model(
-            mesh, RankGrid(*RANKS, device), degree=1, n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
-            mevp_backend="blocked", mevp_block_halo=halo,
+            mesh, RankGrid(*shape, device), degree=1, n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+            mevp_params=params, mevp_backend=backend, mevp_block_halo=halo,
         )
     finally:
         loader.reset()
@@ -4663,6 +4716,214 @@ def time_grid_ho(device, card: str) -> None:
         del single, model, sharded, state, fns, runs, blocks
 
 
+# -- M10b part 2b, first half: K7's HO round, the HO solver's rdma schedule ----------
+#: The paths of phase check_grid_ho_rdma, each the HO solver on the rdma
+#: schedule (h = 16) of a rank grid of the card: the battery's
+#: ho_coupled_1m_spherical_spmd (512^2 metric blocks, the coastline),
+#: ho_ablate_uniform_spmd (512^2 closed uniform blocks) and
+#: ho_spherical_16m_spmd (2048^2 blocks), and two small grids for the HO
+#: band's other forms: config 4's mesh at 256^2, A-weighted, on 2 x 2, and
+#: the 256^2 ring with the coastline on 1 x 2 (the ring's axis on one rank:
+#: the y bands wrap along x). (path, mesh kind, n, coastline, rank grid,
+#: A-weighted).
+HO_RDMA_PATHS = [
+    ("ho_coupled_1m_spherical_spmd_rdma", "spherical", N4, True, RANKS, False),
+    ("ho_ablate_uniform_spmd_rdma", "uniform", N4, False, RANKS, False),
+    ("ho_spherical_16m_spmd_rdma", "spherical", N16, True, RANKS, False),
+    ("ho_grid_aweighted_rdma", "uniform", N, False, RANKS, True),
+    ("ho_grid_ring_1x2_rdma", "ring", N, True, (1, 2), False),
+]
+#: The HO band's rows and the path whose launches each is checked and timed
+#: on (its x launch, or its y launch where only y is split).
+HO_RDMA_ROWS = {
+    "rdma_band HO": "ho_ablate_uniform_spmd_rdma", "rdma_band HO metric": "ho_coupled_1m_spherical_spmd_rdma",
+    "rdma_band HO A-weighted": "ho_grid_aweighted_rdma", "rdma_band HO ring": "ho_grid_ring_1x2_rdma",
+}
+PATH_KERNELS.update({
+    path: ("ho_tiled" if n >= N4 else "ho_single", "rdma_stage", "rdma_band", "transport_tiled")
+    for path, _, n, *_ in HO_RDMA_PATHS
+})
+_HO_RDMA_METRIC = [p for p, kind, *_ in HO_RDMA_PATHS if kind != "uniform"]
+FORM_ROWS.update({
+    "rdma_stage HO": ("rdma_stage", "nextsimdg_tpu_torch/csrc/mevp_rdma.cu", [p for p, *_ in HO_RDMA_PATHS]),
+    "rdma_band HO": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_ho.cu", ["ho_ablate_uniform_spmd_rdma"]),
+    "rdma_band HO metric": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_ho_metric.cu",
+                            ["ho_coupled_1m_spherical_spmd_rdma", "ho_spherical_16m_spmd_rdma"]),
+    "rdma_band HO A-weighted": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_ho_forms.cu",
+                                ["ho_grid_aweighted_rdma"]),
+    "rdma_band HO ring": ("rdma_band", "nextsimdg_tpu_torch/csrc/mevp_rdma_ho_metric.cu", ["ho_grid_ring_1x2_rdma"]),
+})
+FORM_ROWS["ho_tiled metric"][2].extend(_HO_RDMA_METRIC)
+FORM_ROWS["ho_single metric"][2].extend(_HO_RDMA_METRIC)
+FORM_ROWS["ho_single A-weighted"][2].append("ho_grid_aweighted_rdma")
+FORM_ROWS["transport_tiled spmd-qv"][2].extend(p for p, *_ in HO_RDMA_PATHS)
+#: rdma_stage's HO row: its x launch on rank 0's sources of the 1M metric
+#: path, timed in time_grid_ho (its library yardstick: one torch.stack).
+HO_STAGE_TIMED = {}
+
+
+def closed_ho_band(local, consts_w):
+    """The closed unweighted uniform HO instance's solver and consts at a
+    form's band: the 29 consts, a 4 km mesh closed along the band."""
+    mesh = RectMesh(local.mesh.nx, local.mesh.ny, 4e3, 4e3)
+    return mevp_ho.MEVPSolverHO(mesh, MEVPParams()), {k: consts_w[k] for k in mevp_ho.HO_CONSTS}
+
+
+def register_ho_band_form(label: str, captured: dict, err: float) -> None:
+    """The row of an rdma_band HO form: its x launch (the y launch where only
+    y is split) timed in turns with the closed unweighted uniform instance
+    on the same band (none for that instance's own row), its plain version,
+    and its bytes and operations (``rdma_band_work``: 17 planes and the
+    form's 29-37 consts, the HO bodies' operations)."""
+    axis = 0 if 0 in captured else 1
+    local, src, consts_w, state0 = captured[axis]
+    h = src.h
+    nx, ny = src.own[0].shape
+    work = rdma_band_work(axis, h, h, nx, ny, src.hx, len(consts_w), OPS["ho_stress"] + OPS["ho_velocity"],
+                          planes=rdma.HO_PLANES)
+    state_f, state_c = state0.clone(), state0.clone()
+    closed = None
+    if label != "rdma_band HO":
+        solver_c, consts_c = closed_ho_band(local, consts_w)
+        closed = lambda: rdma.rdma_band(solver_c, src, axis, consts_c, DT, h, state_c)
+    timed_form(label, err, lambda: rdma.rdma_band(local, src, axis, consts_w, DT, h, state_f), closed,
+               lambda: rdma.rdma_band_reference(local, src, axis, consts_w, DT, h, state0.clone()), work)
+    log("check", (
+        f"{label}: timed on rank 0's {'xy'[axis]} bands of a {nx}x{ny} block, h = {h}, {len(consts_w)} consts, "
+        f"launch {rdma.launch_config(axis, rdma.HO_PLANES, h)}"
+    ))
+
+
+def check_grid_ho_rdma(device) -> tuple:
+    """Phase: M10b part 2b, first half. Each HO_RDMA_PATHS path on the rdma
+    schedule: one decomposed step from zeroed launch counts against the
+    single-device HO step and (the battery's configs) the blocked
+    schedule's decomposed step (expected 0, failing above
+    TOL_SAME_SCHEDULE); one round on every rank from the state after it,
+    each rdma_stage launch (17 planes) and rank 0's HO rdma_band launches,
+    x and y, against their plain versions (TOL_LAUNCH, per plane) and every
+    rank's round against the blocked round (expected 0); then N5_STEPS
+    steps from zeroed launch
+    counts (at 16M the one step above): finite, bounded, land untouched,
+    the interior kernel, rdma_stage, rdma_band and transport_tiled
+    launched. Returns (counts by path, the largest error per kernel)."""
+    errs = {"rdma_stage": 0.0, "rdma_band": 0.0}
+    counts, rows = {}, {path: label for label, path in HO_RDMA_ROWS.items()}
+    for path, kind, n, coast, shape, weighted in HO_RDMA_PATHS:
+        t0 = time.perf_counter()
+        single, model, sharded, state, phys, dyn = ho_grid_model(
+            device, kind, n, coast, backend="rdma", shape=shape, weighted=weighted)
+        schedule = model.schedule(device)
+        interior = model.mevp.local().schedule(cc.sm_count(device))
+        log("slice", (
+            f"{path}: {n}^2 {type(single.mesh).__name__}{' with the coastline' if coast else ''}"
+            f"{', A-weighted' if weighted else ''}, HO on a {shape[0]}x{shape[1]} rank grid of "
+            f"{model.mesh.nx}x{model.mesh.ny} blocks ({type(model.mesh).__name__}), schedule {schedule}, h = "
+            f"{model.mevp.block_halo}, interior pass {interior}, HO band launch "
+            f"{rdma.launch_config(0, rdma.HO_PLANES, model.mevp.block_halo)}; single-device {single.schedule(device)}"
+        ))
+        if (not model.is_high_order or schedule != ("rdma", "tiled")
+                or PATH_KERNELS[path] and PATH_KERNELS[path][0] != f"ho_{interior}"):
+            raise AssertionError(f"{path} does not run HO on ('rdma', 'tiled') with {PATH_KERNELS[path][0]}: "
+                                 f"{schedule}, interior {interior}")
+        t1 = time.perf_counter()
+        ref = single.step(state, phys, dyn, DT)
+        cc.reset_launches()
+        got = sharded(state, phys, dyn, DT)
+        torch.cuda.synchronize()
+        counts[path] = dict(cc.launches)
+        compare_sharded_step(f"{path}.step vs single-device", got, ref, tol_same=True)
+        del ref
+        if shape == RANKS and n >= N4:  # the battery's configs
+            blocked = ho_grid_model(device, kind, n, coast, shape=shape, weighted=weighted)[2]
+            compare_sharded_step(f"{path}.step", got, blocked(state, phys, dyn, DT), tol_same=True,
+                                 other="the blocked schedule's decomposed step")
+            del blocked
+        t2 = time.perf_counter()
+        # Every rank's round against the blocked round, and each launch of
+        # rank 0's round (its x and y bands) against plain: the plain HO
+        # band takes ~2.5 s of host issue a pair of bands.
+        captured = rdma_form_launches(device, sharded, got, phys, dyn, path, errs, band_ranks=(0,))
+        if path in rows:
+            register_ho_band_form(rows[path], captured, errs["rdma_band"])
+        if path == "ho_coupled_1m_spherical_spmd_rdma":
+            HO_STAGE_TIMED["x"] = captured[0][1]
+        del captured
+        t3 = time.perf_counter()
+        # N5_STEPS steps from zeroed launch counts; at 16M the one step above.
+        n_steps = 1 if n > N4 else N5_STEPS
+        if n_steps > 1:
+            del got
+            cc.reset_launches()
+            got = sharded.grid.gather_tree(
+                sharded.run_blocks(*blocks_of(sharded, state, phys, dyn), DT, n_steps), device)
+            torch.cuda.synchronize()
+            counts[path] = dict(cc.launches)
+        log("slice", f"{path}: {n_steps} steps, launches: {counts[path]}")
+        check_bounded(f"{path}: {n_steps} steps", got, state)
+        if coast:
+            check_land(f"{path}: {n_steps} steps", single, got, state)
+        missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+        log("time", (
+            f"check_grid_ho_rdma {path}: build {t1 - t0:.1f} s, steps against single-device and blocked "
+            f"{t2 - t1:.1f} s, the round's launches {t3 - t2:.1f} s, {n_steps} steps {time.perf_counter() - t3:.1f} s"
+        ))
+        del single, model, sharded, state, got
+    for label in HO_RDMA_ROWS:
+        TVB_FORMS[label] = replace(TVB_FORMS[label], err=errs["rdma_band"])
+    src = HO_STAGE_TIMED["x"]
+    strip = rdma.HO_PLANES * src.h * src.own[0].shape[1] * 4
+    TVB_FORMS["rdma_stage HO"] = Row(errs["rdma_stage"], 0.0, 0.0, 2 * 2 * strip, 0)
+    return counts, errs
+
+
+def time_grid_ho_rdma(device, card: str) -> None:
+    """The HO rdma schedule: ms per step of ho_coupled_1m_spherical_spmd and
+    ho_spherical_16m_spmd on it at h = 16 and 32, in turns with the
+    blocked schedule at h = 16, in chunks of HO_GRID_CHUNK steps on
+    resident blocks; a profile of each rdma step (its idle share and the
+    HO rdma_band's ms a launch); rdma_stage's HO row (its x launch on a
+    round's new sources in turns with one torch.stack of the 34 strips)."""
+    for path, kind, n, coast, _ in HO_GRID_PATHS:
+        if path not in HO_GRID_TIMED:
+            continue
+        fns, grids = {}, {}
+        for backend, h in (("blocked", 16), ("rdma", 16), ("rdma", 32)):
+            _, _, sharded, state, phys, dyn = ho_grid_model(device, kind, n, coast, h, backend=backend)
+            grids[(backend, h)] = (sharded, blocks_of(sharded, state, phys, dyn))
+            fns[f"2x2 {backend} h={h}"] = lambda g=grids[(backend, h)]: g[0].run_blocks(*g[1], DT, HO_GRID_CHUNK)
+        runs = time_in_turns(fns, dict.fromkeys(fns, 1))
+        for name, ms in runs.items():
+            report(f"{path} coupled step, {name} ({n}x{n}, {HO_GRID_CHUNK} steps a chunk)",
+                   [m / HO_GRID_CHUNK for m in ms], n * n, card)
+        sharded, blocks = grids[("rdma", 16)]
+        profile(f"{path} coupled step, 2x2 rdma h=16 ({n}x{n})", lambda: sharded.run_blocks(*blocks, DT, 1),
+                n_steps=2, watch="rdma_band_ho")
+        del fns, grids, runs
+    src = HO_STAGE_TIMED["x"]
+    device = src.own[0].device
+    fresh = lambda: rdma.RoundSources(src.own, src.h, src.split, src.gx, src.gy, stream=cc._stream(device))
+    nx, h = src.own[0].shape[0], src.h
+    runs = time_in_turns({
+        "new": lambda: rdma.rdma_stage(fresh(), 0),
+        "stack": lambda: torch.stack([p[:h] for p in src.own] + [p[nx - h:] for p in src.own]),
+        "plain": lambda: rdma.rdma_stage_reference(src, 0),
+    }, {"new": 50, "stack": 50, "plain": None})
+    mean = {name: sum(ms) / len(ms) for name, ms in runs.items()}
+    row = TVB_FORMS["rdma_stage HO"]
+    TVB_FORMS["rdma_stage HO"] = replace(row, ms=mean["new"], plain_ms=mean["plain"], library_ms=mean["stack"])
+    cached = fresh()
+    DEVICE_PROBES["rdma_stage HO axis 0"] = lambda: rdma.rdma_stage(cached, 0)
+    log("time", (
+        f"rdma_stage HO axis 0 (17 planes, a {nx}x{src.own[0].shape[1]} block, h = {h}): "
+        f"{', '.join(f'{m:.5f}' for m in runs['new'])} ms per call on a round's new sources, library "
+        f"yardstick (one torch.stack of the 34 strips) {', '.join(f'{m:.5f}' for m in runs['stack'])} ms "
+        f"(in turns), plain {mean['plain']:.5f} ms, bound {bound(row.n_bytes, 0)[0]:.5f} ms on {card}"
+    ))
+
+
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     """The kernels' JSON line: per kernel its launches on the main paths,
     check error, times, ``bound_ms`` on the data sheet's peaks and
@@ -4750,6 +5011,20 @@ def cluster_report(device, ptxas: str):
             f"{regs.get(f'rdma_band_kernel<{name}, {bound} threads>', '?')}; {active} clusters at once; a launch "
             f"(a pair of bands): {blocks} blocks, reaches {min(blocks, active * band.cluster, sms)} "
             f"of {sms} SMs"
+        )
+    for n, (axis, name) in ((n, a) for n in (N4 // 2, N16 // 2) for a in ((0, "along columns, x bands"),
+                                                                         (1, "along rows, y bands"))):
+        band = rdma.launch_config(axis, rdma.HO_PLANES, h)
+        along = rdma.band_shape(axis, h, n, n, h)[1 - axis]
+        blocks = 2 * band.cluster * band.clusters(along, h)
+        active = rdma.max_clusters(device, axis, h, band, rdma.HO_PLANES)
+        yield (
+            f"rdma_band HO {name.split(', ')[1]} of a {n}^2 rank block, h = {h}: clusters of {band.cluster} "
+            f"blocks of {band.threads} threads, {band.seg} cells along the band each, "
+            f"{band.shared_bytes(h, axis, rdma.HO_PLANES)} B shared; ptxas closed "
+            f"{regs.get(f'rdma_band_ho_kernel<{name}>', '?')}, metric "
+            f"{regs.get(f'rdma_band_ho_kernel<{name}, metric>', '?')}; {active} clusters at once; a launch "
+            f"(a pair of bands): {blocks} blocks, reaches {min(blocks, active * band.cluster, sms)} of {sms} SMs"
         )
 
 
@@ -4861,6 +5136,8 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     counts.update(counts_grid)
     counts_grid_ho, err_grid_ho = phase(check_grid_ho, device)
     counts.update(counts_grid_ho)
+    counts_grid_ho_rdma, _ = phase(check_grid_ho_rdma, device)
+    counts.update(counts_grid_ho_rdma)
     kernels["ho_tiled"] = replace(kernels["ho_tiled"], err=max(kernels["ho_tiled"].err, err_grid_ho))
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
@@ -4874,6 +5151,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_multihost, device, smi)
     phase(time_grid_forms, device, smi)
     phase(time_grid_ho, device, smi)
+    phase(time_grid_ho_rdma, device, smi)
     phase(time_tvb_periodic, device, smi)
     phase(time_ho_forms, device, smi)
     phase(time_ho_metric, device, smi)

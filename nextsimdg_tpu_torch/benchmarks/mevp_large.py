@@ -29,7 +29,9 @@ its resident blocks per SM) at 1024^2, 2048^2 and 4096^2, uniform and
 spherical; of ``ho_tiled`` (cluster shape, sub-window, halo, threads;
 with the window's redundancy and the clusters the card holds at once) at 512^2, 1024^2 and 2048^2; of ``rdma_band`` (cluster,
 segment, threads) on the x and y bands of config 5's 2048^2 rank blocks
-at h = 16; then those of ``transport_tiled`` (tile, threads, window
+at h = 16, and of its HO form on the x and y bands of the HO battery
+configs' 512^2 and 2048^2 rank blocks at h = 16 and 32 (``--tiles=rdma_band_ho``
+alone); then those of ``transport_tiled`` (tile, threads, window
 buffers, copy form, persistent blocks or a block per tile) at 1024^2 and
 4096^2; of ``mevp_single`` (which const plane stays in shared memory, and
 tile shapes) at 1024^2 spherical. ``--tiles=mevp_tiled``, ``--tiles=ho_tiled``,
@@ -371,75 +373,95 @@ RDMA_BAND_CONFIGS = tuple(
 )
 
 
-def band_round_sources(n: int, h: int, device, seed: int = 0):
-    """(solver, RoundSources with both ghost pairs, widened consts, state)
-    of one rank block of n^2 split on both axes, seeded (config 5's
-    blocks: n = 2048, h = 16)."""
+#: Launch configurations (cluster, seg, threads) of rdma_band's HO form,
+#: whose blocks hold 17 planes of 3h x (seg + 2) cells and run at most 256
+#: threads: one-block tiles of 32 and 64 cells, and clusters of 2 to 16
+#: blocks of 8 to 32 cells along the band (``check`` drops those that do
+#: not fit at a ghost width).
+HO_RDMA_BAND_CONFIGS = tuple(
+    rdma_cuda.BandConfig(*c) for c in (
+        (1, 32, 256), (1, 64, 256), (2, 32, 256), (4, 16, 256), (4, 32, 256), (8, 8, 128),
+        (8, 16, 128), (8, 16, 256), (8, 32, 256), (16, 8, 256), (16, 12, 256), (16, 16, 256),
+    )
+)
+
+
+def band_round_sources(n: int, h: int, device, seed: int = 0, planes: int = rdma_cuda.CG1_PLANES):
+    """(band solver, RoundSources with both ghost pairs, widened consts,
+    state) of one rank block of n^2 split on both axes, seeded: the CG1
+    round's 5 planes and 7 consts (config 5's blocks: n = 2048, h = 16),
+    or with ``planes`` 17 the HO round's planes (one (17, n, n) state) and
+    29 consts."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
-    scale = np.array([0.2, 0.2, 1e3, 1e3, 1e3])[:, None, None]
-    solver = MEVPSolver(RectMesh(n, n, 2e3, 2e3), MEVPParams())
+    ho = planes == rdma_cuda.HO_PLANES
+    scale = np.array([0.2] * (8 if ho else 2) + [1e3] * (9 if ho else 3))[:, None, None]
+    mesh = RectMesh(n, n, 4e3 if ho else 2e3, 4e3 if ho else 2e3)
+    solver = mevp_ho.MEVPSolverHO(mesh, MEVPParams()) if ho else MEVPSolver(mesh, MEVPParams())
     own = tuple(t(rng.normal(0.0, s, (n, n))) for s in scale[:, 0, 0])
-    gx = tuple(t(rng.normal(0.0, 1.0, (5, h, n)) * scale) for _ in range(2))
-    gy = tuple(t(rng.normal(0.0, 1.0, (5, n + 2 * h, h)) * scale) for _ in range(2))
+    gx = tuple(t(rng.normal(0.0, 1.0, (planes, h, n)) * scale) for _ in range(2))
+    gy = tuple(t(rng.normal(0.0, 1.0, (planes, n + 2 * h, h)) * scale) for _ in range(2))
     src = rdma_cuda.RoundSources(own=own, h=h, split=(True, True), gx=gx, gy=gy)
     wide = (n + 2 * h, n + 2 * h)
-    consts_w = {name: t(rng.uniform(0.1, 2.0, wide)) for name in UNIFORM_CONSTS}
+    consts_w = {name: t(rng.uniform(0.1, 2.0, wide)) for name in (mevp_ho.HO_CONSTS if ho else UNIFORM_CONSTS)}
     consts_w["strength"] = t(rng.uniform(0.0, 3e4, wide))
-    state = [torch.empty_like(own[0]) for _ in range(5)]
-    return solver, src, consts_w, state
+    state = torch.empty((17, n, n), device=device) if ho else [torch.empty_like(own[0]) for _ in range(5)]
+    return solver.local(), src, consts_w, state
 
 
-def sweep_rdma_band(device, n: int = 2048, h: int = 16, configs=RDMA_BAND_CONFIGS) -> dict:
+def sweep_rdma_band(device, sizes=(2048,), halos=(16,), configs=RDMA_BAND_CONFIGS,
+                    planes: int = rdma_cuda.CG1_PLANES) -> dict:
     """ms per call of ``rdma_band`` (a pair of bands, h subcycles) for each
-    launch configuration, on the x bands (3h x n) and the y bands
-    ((n + 2h) x 3h) of an n^2 rank block: back to back (best of 5 over 20
-    calls; the wrapper's host path included) and, after all of those, the
-    kernel's device duration (torch.profiler, 20 calls), with its blocks,
-    the clusters the card holds at once and its shared bytes; printed, and
-    returned by (axis, config) as device ms. On the CPU (the tests) one
-    call each runs the plain version."""
+    launch configuration that fits, on the x bands (3h x n) and the y bands
+    ((n + 2h) x 3h) of n^2 rank blocks (``sizes``) at each ghost width of
+    ``halos``, of the CG1 form or (``planes`` 17) the HO form: back to back
+    (best of 5 over 20 calls; the wrapper's host path included) and, after
+    all of those, the kernel's device duration (torch.profiler), with its
+    blocks, the clusters the card holds at once and its shared bytes;
+    printed, and returned by (n, h, axis, config) as device ms. On the CPU
+    (the tests) one call each runs the plain version."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     where = card(device)["nvidia_smi"] if on_card else "cpu"
-    solver, src, consts_w, state = band_round_sources(n, h, device)
+    form = "rdma_band HO" if planes == rdma_cuda.HO_PLANES else "rdma_band"
     out, lines = {}, []
-    for axis in (0, 1):
-        along = rdma_cuda.band_shape(axis, h, n, n, h)[1 - axis]
-        for config in configs:
-            try:
-                config.check(axis, h, h)
-            except ValueError:
-                continue
-            run = lambda axis=axis, config=config: rdma_cuda.rdma_band(
-                solver.local(), src, axis, consts_w, DT, h, state, config
-            )
-            blocks = 2 * config.cluster * config.clusters(along, h)
-            if on_card:
-                active = rdma_cuda.max_clusters(device, axis, h, config)
-                if not active:
-                    print(f"rdma_band axis {axis} {config}: fits no SM", flush=True)
-                    continue
+    for n in sizes:
+        for h in halos:
+            solver, src, consts_w, state = band_round_sources(n, h, device, planes=planes)
+            for axis in (0, 1):
+                along = rdma_cuda.band_shape(axis, h, n, n, h)[1 - axis]
+                for config in configs:
+                    try:
+                        config.check(axis, h, h, planes)
+                    except ValueError:
+                        continue
+                    run = lambda a=axis, c=config, s=solver, r=src, w=consts_w, o=state, h=h: (
+                        rdma_cuda.rdma_band(s, r, a, w, DT, h, o, c))
+                    blocks = 2 * config.cluster * config.clusters(along, h)
+                    if on_card:
+                        active = rdma_cuda.max_clusters(device, axis, h, config, planes)
+                        if not active:
+                            print(f"{form} axis {axis} {config} at h = {h}: fits no SM", flush=True)
+                            continue
 
-                def calls():
-                    for _ in range(20):
+                        def calls(run=run):
+                            for _ in range(20):
+                                run()
+
+                        ms = best_ms(calls, 5) / 20
+                    else:
+                        active, t0 = None, time.perf_counter()
                         run()
-
-                ms = best_ms(calls, 5) / 20
-            else:
-                active, t0 = None, time.perf_counter()
-                run()
-                ms = (time.perf_counter() - t0) * 1e3
-            lines.append((axis, config, run, ms, (
-                f"rdma_band axis {axis} ({'x' if axis == 0 else 'y'} bands of {n}^2, h = {h}) cluster "
-                f"{config.cluster} seg {config.seg} threads {config.threads}: device {{device}} ms, "
-                f"{ms:.4f} ms per call back to back, {blocks} blocks, {active} clusters at once, "
-                f"{config.shared_bytes(h, axis)} B shared, {config.cells_per_thread(h)} cells a thread "
-                f"on {where}"
-            )))
-    for axis, config, run, ms, line in lines:
-        out[(axis, config)] = device_ms(run, "rdma_band") if on_card else ms
-        print(line.format(device=f"{out[(axis, config)]:.5f}" if on_card else "not measured"), flush=True)
+                        ms = (time.perf_counter() - t0) * 1e3
+                    lines.append(((n, h, axis, config), run, (
+                        f"{form} axis {axis} ({'x' if axis == 0 else 'y'} bands of {n}^2, h = {h}) cluster "
+                        f"{config.cluster} seg {config.seg} threads {config.threads}: device {{device}} ms, "
+                        f"{ms:.4f} ms per call back to back, {blocks} blocks, {active} clusters at once, "
+                        f"{config.shared_bytes(h, axis, planes)} B shared on {where}"
+                    ), ms))
+    for key, run, line, ms in lines:
+        out[key] = device_ms(run, "rdma_band") if on_card else ms
+        print(line.format(device=f"{out[key]:.5f}" if on_card else "not measured"), flush=True)
     return out
 
 
@@ -871,6 +893,8 @@ def main(argv=None) -> int:
         sweep_ho_tiled(device)
     if "--tiles" in argv or "--tiles=rdma_band" in argv:
         sweep_rdma_band(device)
+    if "--tiles" in argv or "--tiles=rdma_band" in argv or "--tiles=rdma_band_ho" in argv:
+        sweep_rdma_band(device, (512, 2048), (16, 32), HO_RDMA_BAND_CONFIGS, rdma_cuda.HO_PLANES)
     if "--tiles" in argv or "--tiles=transport_tiled" in argv:
         sweep_transport_tiled(device)
     if "--barriers" in argv:

@@ -3,7 +3,7 @@
 The twin of ``benchmarks/run_benchmarks.py``: the same config names, and
 per config the same mesh, state and forcing. Usage (repository root)::
 
-    python -m nextsimdg_tpu_torch.benchmarks.run_benchmarks [config ...|all] [--ranks PxQ] [--degree D]
+    python -m nextsimdg_tpu_torch.benchmarks.run_benchmarks [config ...|all] [--ranks PxQ] [--degree D] [--mevp-backend B]
 
 Default: the fast subset ``dev1 box``. ``--degree 1`` runs ``advection``
 (BASELINE config 2, dG2 by default) at dG1. ``--ranks 2x2`` runs
@@ -15,7 +15,9 @@ config 5 on the spherical coastline domain; ``ho_coupled_1m_spherical_spmd``,
 ``ho_spherical_16m_spmd``: the same with the CG2/dG1 solver, and the HO
 ablations ``ho_ablate_*_spmd``) always run on a rank grid of the card, 2x2
 unless ``--ranks`` says otherwise: the JAX functions run them over the
-device mesh. Each result prints as one JSON line with its
+device mesh; ``--mevp-backend rdma`` runs their mEVP on K7's overlapped
+round in place of the blocked schedule (CG1 and HO). Each result prints
+as one JSON line with its
 ``config``, its ``chunk`` of steps and the card (name, ``nvidia-smi`` name
 and power limit).
 
@@ -315,6 +317,9 @@ RANKED = (
     "ho_spherical_16m_spmd",
 )
 
+#: The ranked configs whose mEVP schedule ``--mevp-backend`` picks.
+SPMD_CONFIGS = RANKED[1:]
+
 CONFIGS = {
     "dev1": bench_dev1,
     "advection": bench_advection,
@@ -371,6 +376,11 @@ def main(argv=None) -> int:
         i = argv.index("--degree")
         degree = int(argv[i + 1])
         del argv[i:i + 2]
+    backend = None
+    if "--mevp-backend" in argv:
+        i = argv.index("--mevp-backend")
+        backend = argv[i + 1]
+        del argv[i:i + 2]
     names = argv or ["dev1", "box"]
     if names == ["all"]:
         names = list(CONFIGS)
@@ -385,6 +395,8 @@ def main(argv=None) -> int:
         extra = {"ranks": ranks} if ranks and name in RANKED else {}
         if degree is not None and name == "advection":
             extra = {"degree": degree}
+        if backend is not None and name in SPMD_CONFIGS:
+            extra["mevp_backend"] = backend
         print(json.dumps(run_config(name, torch.device("cuda", 0), **extra)), flush=True)
     return 0
 

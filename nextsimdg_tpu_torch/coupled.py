@@ -43,8 +43,8 @@ one rank's block (of a uniform mesh, or a ``LocalMeshView`` of a graded or
 spherical one, each axis closed or a ring), runs in that rank's thread and
 exchanges halos with the other ranks (``parallel.exchange``): the mEVP on
 the blocked or rdma schedule in any momentum form, the HO solver on the
-blocked schedule (its rdma schedule, and HO with TVB on a card, are ROADMAP
-M10b part 2b and raise), or free drift; the transport on the widened block,
+blocked or rdma schedule (HO with TVB on a card is ROADMAP M10b part 2b,
+second half, and raises), or free drift; the transport on the widened block,
 with TVB too (staged on a graded or spherical mesh: CPU tensors only,
 ROADMAP M10c); the physics per block.
 """
@@ -184,7 +184,7 @@ class CoupledModel:
         per rank), with ``mesh`` the rank's block and ``ocean_mask`` the
         global mask. ``mevp_backend`` is then one of
         ``mevp.SPMD_BACKENDS``: ``"blocked"`` (and ``"auto"``), ``"rdma"``
-        (not with the HO solver) or ``"xla"``, with ``mevp_block_halo``
+        (the CG1 and the HO solver) or ``"xla"``, with ``mevp_block_halo``
         ghost cells per exchange (``mevp.block_halo_of``: "auto" is
         ``mevp.BLOCK_HALO``, at most half the block); with the HO solver
         the transport advects with the CG2 samples on the widened block;

@@ -13,7 +13,8 @@
 // pass is mevp_tiled on the block. What is left is here:
 //
 //   rdma_stage: packs a rank's send strips, in one launch, into a
-//               (2, 5, ., .) buffer (lo, hi): along x its first and last h
+//               (2, P, ., .) buffer (lo, hi) of the state's P planes (5;
+//               17 in the HO round): along x its first and last h
 //               rows; along y its first and last h columns, extended above
 //               and below by the x ghosts it received (zeros at a closed
 //               global wall), so that the y neighbours receive the corners
@@ -90,11 +91,12 @@ namespace nst {
 // strip row it is copied to, `len` floats each. x: own rows [0, h) or
 // [nx - h, nx); y: E's rows (the x ghosts above and below the own rows),
 // own columns [0, h) or [ny - h, ny).
-__device__ __forceinline__ const float* stage_source(const RdmaSources& src, int axis, int side,
+template <int P>
+__device__ __forceinline__ const float* stage_source(const RdmaSourcesT<P>& src, int axis, int side,
                                                      int k, int r) {
   const float* own = src.own[0];
 #pragma unroll
-  for (int p = 1; p < kRdmaPlanes; ++p) own = k == p ? src.own[p] : own;
+  for (int p = 1; p < P; ++p) own = k == p ? src.own[p] : own;
   if (axis == 0) return own + (r + (side ? src.nx - src.h : 0)) * src.ny;
   const int col = side ? src.ny - src.h : 0;
   const int ir = r - src.hx;
@@ -103,16 +105,16 @@ __device__ __forceinline__ const float* stage_source(const RdmaSources& src, int
   return own + ir * src.ny + col;
 }
 
-// A 3-D grid: z = side x plane (10), y x blockDim.y = strip rows, x x
+// A 3-D grid: z = side x plane (2P), y x blockDim.y = strip rows, x x
 // blockDim.x = the row's floats (kVec: float4s). No division by a run-time
-// value.
-template <bool kVec>
+// value. P: the state's planes, 5 (CG1) or 17 (HO).
+template <int P, bool kVec>
 __global__ void __launch_bounds__(kRdmaMaxThreads)
-rdma_stage_kernel(RdmaSources src, int axis, int rows, int len, float* __restrict__ out) {
+rdma_stage_kernel(RdmaSourcesT<P> src, int axis, int rows, int len, float* __restrict__ out) {
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.z;
-  const int side = z / kRdmaPlanes, k = z - side * kRdmaPlanes;
+  const int side = z / P, k = z - side * P;
   if (r >= rows || x >= (kVec ? len / 4 : len)) return;
   const float* from = stage_source(src, axis, side, k, r);
   float* to = out + (z * rows + r) * len;
@@ -121,6 +123,36 @@ rdma_stage_kernel(RdmaSources src, int axis, int rows, int len, float* __restric
   } else {
     to[x] = from[x];
   }
+}
+
+// The send strips of `axis` of a state of P planes into out (see
+// nst_rdma_stage).
+template <int P>
+int rdma_stage_launch(const void* const* sources, const int* dims, int axis, float* out,
+                      cudaStream_t stream) {
+  RdmaSourcesT<P> src;
+  rdma_sources_of(sources, dims, src);
+  if (src.h < 1 || (axis != 0 && axis != 1) || (axis == 0 && src.hx != src.h) ||
+      (axis == 1 && src.hy != src.h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = axis == 0 ? src.h : src.nx + 2 * src.hx;
+  const int len = axis == 0 ? src.ny : src.h;
+  bool vec = src.ny % 4 == 0 && src.h % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int p = 0; p < P + 4; ++p) vec = vec && reinterpret_cast<uintptr_t>(sources[p]) % 16 == 0;
+  const int per_row = vec ? len / 4 : len;
+  // Up to 256 threads along a row (a power of two), the rest of a
+  // 256-thread block over rows.
+  int bx = 1;
+  while (bx < per_row && bx < 256) bx *= 2;
+  const dim3 block(bx, 256 / bx);
+  const dim3 grid((per_row + bx - 1) / bx, (rows + block.y - 1) / block.y, 2 * P);
+  if (vec) {
+    rdma_stage_kernel<P, true><<<grid, block, 0, stream>>>(src, axis, rows, len, out);
+  } else {
+    rdma_stage_kernel<P, false><<<grid, block, 0, stream>>>(src, axis, rows, len, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The kernel of a band axis, block size and form: the closed uniform
@@ -148,113 +180,26 @@ bool rdma_band_valid(int across, int cluster, int seg, int threads) {
 
 }  // namespace nst
 
-// Dynamic shared memory of one rdma_band block: 5 planes of its region and
-// its apron along the band (the y bands' rows padded by one cell).
-static int rdma_band_shared_bytes(int long_axis, int across, int seg) {
-  const int cells = long_axis ? across * (seg + 2) : (seg + 2) * (across + 1);
-  return nst::kRdmaPlanes * cells * static_cast<int>(sizeof(float));
-}
-
 extern "C" {
 
-// sources: 9 pointers (the 5 pre-round planes, gx_lo, gx_hi, gy_lo, gy_hi;
-// the ghosts of an axis that is not split are null); ints: nx, ny, h, hx, hy.
-static nst::RdmaSources rdma_sources(const void* const* sources, const int* dims) {
-  nst::RdmaSources src;
-  std::memcpy(src.own, sources, sizeof(src.own));
-  src.gx_lo = static_cast<const float*>(sources[5]);
-  src.gx_hi = static_cast<const float*>(sources[6]);
-  src.gy_lo = static_cast<const float*>(sources[7]);
-  src.gy_hi = static_cast<const float*>(sources[8]);
-  src.nx = dims[0];
-  src.ny = dims[1];
-  src.h = dims[2];
-  src.hx = dims[3];
-  src.hy = dims[4];
-  return src;
-}
-
-// The send strips of `axis` into out: (2, 5, h, ny) for x, (2, 5, nx + 2hx,
-// h) for y, in 16-byte vectors where every row starts 16-byte aligned.
-// Returns cudaGetLastError(); does not synchronise.
+// sources: P + 4 pointers (the P pre-round planes, gx_lo, gx_hi, gy_lo,
+// gy_hi; the ghosts of an axis that is not split are null); dims: nx, ny,
+// h, hx, hy and P, the state's planes: 5 (CG1) or 17 (HO, in the order of
+// coupled_cuda.ho_flatten). The send strips of `axis` into out: (2, P, h,
+// ny) for x, (2, P, nx + 2hx, h) for y, in 16-byte vectors where every
+// row starts 16-byte aligned. Returns cudaGetLastError(); does not
+// synchronise.
 int nst_rdma_stage(const void* const* sources, const int* dims, int axis, float* out,
                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const nst::RdmaSources src = rdma_sources(sources, dims);
-  if (src.h < 1 || (axis != 0 && axis != 1) || (axis == 0 && src.hx != src.h) ||
-      (axis == 1 && src.hy != src.h)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int rows = axis == 0 ? src.h : src.nx + 2 * src.hx;
-  const int len = axis == 0 ? src.ny : src.h;
-  bool vec = src.ny % 4 == 0 && src.h % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  for (int p = 0; p < 9; ++p) vec = vec && reinterpret_cast<uintptr_t>(sources[p]) % 16 == 0;
-  const int per_row = vec ? len / 4 : len;
-  // Up to 256 threads along a row (a power of two), the rest of a
-  // 256-thread block over rows.
-  int bx = 1;
-  while (bx < per_row && bx < 256) bx *= 2;
-  const dim3 block(bx, 256 / bx);
-  const dim3 grid((per_row + bx - 1) / bx, (rows + block.y - 1) / block.y, 2 * nst::kRdmaPlanes);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    nst::rdma_stage_kernel<true><<<grid, block, 0, s>>>(src, axis, rows, len, out);
-  } else {
-    nst::rdma_stage_kernel<false><<<grid, block, 0, s>>>(src, axis, rows, len, out);
+  switch (dims[5]) {
+    case nst::kRdmaPlanes: return nst::rdma_stage_launch<nst::kRdmaPlanes>(sources, dims, axis, out, s);
+    case nst::kRdmaHoPlanes:
+      return nst::rdma_stage_launch<nst::kRdmaHoPlanes>(sources, dims, axis, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The band pair of `axis` (0: x, 1: y) of a round's sources.
-static nst::RdmaBands rdma_bands(const nst::RdmaSources& src, int axis) {
-  const int h = src.h;
-  nst::RdmaBands bands;
-  if (axis == 0) {  // rows [ghost h | own 2h] over the own columns
-    bands.rows = 3 * h;
-    bands.cols = src.ny;
-    bands.r0[0] = 0;
-    bands.r0[1] = src.nx - h;
-    bands.c0[0] = bands.c0[1] = src.hy;
-    bands.pr0 = h;
-    bands.prn = h;
-    bands.pc0 = 0;
-    bands.pcn = src.ny;
-    bands.long_axis = 1;
-  } else {  // columns [ghost h | own 2h] over all of E's rows
-    bands.rows = src.nx + 2 * src.hx;
-    bands.cols = 3 * h;
-    bands.r0[0] = bands.r0[1] = 0;
-    bands.c0[0] = 0;
-    bands.c0[1] = src.ny - h;
-    bands.pr0 = src.hx;
-    bands.prn = src.nx;
-    bands.pc0 = h;
-    bands.pcn = h;
-    bands.long_axis = 0;
-  }
-  return bands;
-}
-
-// Whether the cone's ranges lie in the band, elements before nodes, and
-// across the band within the cells a block holds (elements below the last
-// row or column, nodes above the first: true for n_sub <= h). On a ring
-// (wrap) the range along the band is not clipped to it.
-static bool rdma_cone_valid(const int* cone, int n_sub, const nst::RdmaBands& bands, bool wrap) {
-  const int across_axis = bands.long_axis ? 0 : 1;
-  for (int sub = 0; sub < n_sub; ++sub) {
-    const int* r = cone + 8 * sub;
-    for (int axis = 0; axis < 2; ++axis) {
-      const int n = axis == 0 ? bands.rows : bands.cols;
-      const int e0 = r[2 * axis], e1 = r[2 * axis + 1], n0 = r[4 + 2 * axis], n1 = r[5 + 2 * axis];
-      if (e0 > e1 || n0 > n1 || n0 < e0 || n1 > e1) return false;
-      if ((axis == across_axis || !wrap) && (e0 < 0 || e1 > n || n0 < 0 || n1 > n)) {
-        return false;
-      }
-      if (axis == across_axis && (e1 > n - 1 || n0 < 1)) return false;
-    }
-  }
-  return true;
 }
 
 // Clusters of `cluster` rdma_band blocks of `threads` threads, each `seg`
@@ -267,8 +212,8 @@ int nst_rdma_band_max_clusters(int axis, int across, int cluster, int seg, int t
   if (cudaSetDevice(device) != cudaSuccess) return -1;
   const int long_axis = axis == 0 ? 1 : 0;
   if (!nst::rdma_band_valid(across, cluster, seg, threads)) return 0;
-  const nst::ClusterLaunch launch(dim3(cluster, 1, 2), cluster, 1, threads,
-                                  rdma_band_shared_bytes(long_axis, across, seg), nullptr);
+  const int bytes = nst::rdma_band_shared_bytes(nst::kRdmaPlanes, long_axis, across, seg);
+  const nst::ClusterLaunch launch(dim3(cluster, 1, 2), cluster, 1, threads, bytes, nullptr);
   return nst::max_active_clusters(nst::rdma_band_of(long_axis, threads), launch);
 }
 
@@ -290,14 +235,15 @@ int nst_rdma_band(const void* const* sources, const int* dims, int axis,
                   int metric, int form, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const nst::RdmaSources src = rdma_sources(sources, dims);
+  nst::RdmaSources src;
+  const bool planes = nst::rdma_sources_of(sources, dims, src);
   const int h = src.h;
-  if (n_sub < 1 || n_sub > h || n_sub > nst::kRdmaMaxSub || (axis != 0 && axis != 1) ||
+  if (!planes || n_sub < 1 || n_sub > h || n_sub > nst::kRdmaMaxSub || (axis != 0 && axis != 1) ||
       (axis == 0 && (src.hx != h || src.nx < 2 * h)) ||
       (axis == 1 && (src.hy != h || src.ny < 2 * h))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const nst::RdmaBands bands = rdma_bands(src, axis);
+  const nst::RdmaBands bands = nst::rdma_bands(src, axis);
   const int across = bands.long_axis ? bands.rows : bands.cols;
   const int along = bands.long_axis ? bands.cols : bands.rows;
   const int wrap = form >> nst::kFormWrapShift;
@@ -313,7 +259,7 @@ int nst_rdma_band(const void* const* sources, const int* dims, int axis,
   if (kernel == nullptr || !nst::rdma_band_valid(across, cluster, seg, threads) ||
       cluster * seg <= 2 * n_sub || n_clusters < 1 ||
       static_cast<long>(n_clusters) * (cluster * seg - 2 * n_sub) < along ||
-      !rdma_cone_valid(cone, n_sub, bands, wraps)) {
+      !nst::rdma_cone_valid(cone, n_sub, bands, wraps)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   nst::RdmaCone cn = {};
@@ -322,7 +268,7 @@ int nst_rdma_band(const void* const* sources, const int* dims, int axis,
   std::memcpy(&k, consts, nst::kMevpConstPlanes * sizeof(const float*));
   nst::MevpScalars s;
   std::memcpy(&s, scalars, sizeof(s));
-  const int bytes = rdma_band_shared_bytes(bands.long_axis, across, seg);
+  const int bytes = nst::rdma_band_shared_bytes(nst::kRdmaPlanes, bands.long_axis, across, seg);
   err = nst::prepare_cluster_kernel(kernel, bytes, cluster);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* const* out = reinterpret_cast<float* const*>(state);

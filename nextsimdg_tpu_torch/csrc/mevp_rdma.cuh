@@ -14,7 +14,8 @@
 
 namespace nst {
 
-constexpr int kRdmaPlanes = 5;  // u, v, s11, s22, s12
+constexpr int kRdmaPlanes = 5;     // u, v, s11, s22, s12
+constexpr int kRdmaHoPlanes = 17;  // the HO round's (kHoStatePlanes, mevp_rdma_ho.cuh)
 constexpr int kRdmaMaxThreads = 1024;
 // rdma_band's launch bound for blocks of up to 256 threads (the shipped
 // launch): at least 3 such blocks an SM, so 80 registers a thread and a
@@ -29,18 +30,23 @@ constexpr int kRdmaMaxSub = 64;            // subcycles of one rdma_band launch,
 constexpr int kRdmaMaxCells = 4;           // cells a thread of rdma_band owns, at most
 constexpr int kRdmaMaxClusterBlocks = 16;  // the H100's non-portable cluster size
 
-// The round's sources in E's coordinates (see the file comment).
-struct RdmaSources {
-  const float* own[kRdmaPlanes];  // the pre-round (nx, ny) planes
-  const float* gx_lo;             // (5, h, ny): E rows [0, hx), columns [hy, hy + ny)
-  const float* gx_hi;             // (5, h, ny): E rows [hx + nx, nx + 2hx)
-  const float* gy_lo;             // (5, nx + 2hx, h): E columns [0, hy), all rows
-  const float* gy_hi;             // (5, nx + 2hx, h): E columns [hy + ny, ny + 2hy)
+// The round's sources in E's coordinates (see the file comment), of a
+// state of P planes: the CG1 round's 5 (RdmaSources), the HO round's 17
+// (mevp_rdma_ho.cuh).
+template <int P>
+struct RdmaSourcesT {
+  const float* own[P];  // the pre-round (nx, ny) planes
+  const float* gx_lo;   // (P, h, ny): E rows [0, hx), columns [hy, hy + ny)
+  const float* gx_hi;   // (P, h, ny): E rows [hx + nx, nx + 2hx)
+  const float* gy_lo;   // (P, nx + 2hx, h): E columns [0, hy), all rows
+  const float* gy_hi;   // (P, nx + 2hx, h): E columns [hy + ny, ny + 2hy)
   int nx, ny, h, hx, hy;
 };
+using RdmaSources = RdmaSourcesT<kRdmaPlanes>;
 
 // Plane k of E at (r, c), or 0 where no source covers it.
-__device__ __forceinline__ float load_e(const RdmaSources& src, int k, int r, int c) {
+template <int P>
+__device__ __forceinline__ float load_e(const RdmaSourcesT<P>& src, int k, int r, int c) {
   const int nxe = src.nx + 2 * src.hx;
   const int jc = c - src.hy;
   if (jc < 0) {
@@ -85,6 +91,86 @@ struct ConstView {
 struct RdmaCone {
   int r[kRdmaMaxSub][8];
 };
+
+// -- the host's side of a launch, shared by the CG1 and the HO entry points --
+
+// A round's sources from the host's arrays: P + 4 pointers (the P pre-round
+// planes, gx_lo, gx_hi, gy_lo, gy_hi; the ghosts of an axis that is not
+// split are null) and 6 ints: nx, ny, h, hx, hy and the plane count, which
+// must be P (false where it is not).
+template <int P>
+inline bool rdma_sources_of(const void* const* sources, const int* dims, RdmaSourcesT<P>& src) {
+  for (int p = 0; p < P; ++p) src.own[p] = static_cast<const float*>(sources[p]);
+  src.gx_lo = static_cast<const float*>(sources[P]);
+  src.gx_hi = static_cast<const float*>(sources[P + 1]);
+  src.gy_lo = static_cast<const float*>(sources[P + 2]);
+  src.gy_hi = static_cast<const float*>(sources[P + 3]);
+  src.nx = dims[0];
+  src.ny = dims[1];
+  src.h = dims[2];
+  src.hx = dims[3];
+  src.hy = dims[4];
+  return dims[5] == P;
+}
+
+// The band pair of `axis` (0: x, 1: y) of a round's sources.
+template <int P>
+inline RdmaBands rdma_bands(const RdmaSourcesT<P>& src, int axis) {
+  const int h = src.h;
+  RdmaBands bands;
+  if (axis == 0) {  // rows [ghost h | own 2h] over the own columns
+    bands.rows = 3 * h;
+    bands.cols = src.ny;
+    bands.r0[0] = 0;
+    bands.r0[1] = src.nx - h;
+    bands.c0[0] = bands.c0[1] = src.hy;
+    bands.pr0 = h;
+    bands.prn = h;
+    bands.pc0 = 0;
+    bands.pcn = src.ny;
+    bands.long_axis = 1;
+  } else {  // columns [ghost h | own 2h] over all of E's rows
+    bands.rows = src.nx + 2 * src.hx;
+    bands.cols = 3 * h;
+    bands.r0[0] = bands.r0[1] = 0;
+    bands.c0[0] = 0;
+    bands.c0[1] = src.ny - h;
+    bands.pr0 = src.hx;
+    bands.prn = src.nx;
+    bands.pc0 = h;
+    bands.pcn = h;
+    bands.long_axis = 0;
+  }
+  return bands;
+}
+
+// Whether the cone's ranges lie in the band, elements before nodes, and
+// across the band within the cells a block holds (elements below the last
+// row or column, nodes above the first: true for n_sub <= h). On a ring
+// (wrap) the range along the band is not clipped to it.
+inline bool rdma_cone_valid(const int* cone, int n_sub, const RdmaBands& bands, bool wrap) {
+  const int across_axis = bands.long_axis ? 0 : 1;
+  for (int sub = 0; sub < n_sub; ++sub) {
+    const int* r = cone + 8 * sub;
+    for (int axis = 0; axis < 2; ++axis) {
+      const int n = axis == 0 ? bands.rows : bands.cols;
+      const int e0 = r[2 * axis], e1 = r[2 * axis + 1], n0 = r[4 + 2 * axis], n1 = r[5 + 2 * axis];
+      if (e0 > e1 || n0 > n1 || n0 < e0 || n1 > e1) return false;
+      if ((axis == across_axis || !wrap) && (e0 < 0 || e1 > n || n0 < 0 || n1 > n)) {
+        return false;
+      }
+      if (axis == across_axis && (e1 > n - 1 || n0 < 1)) return false;
+    }
+  }
+  return true;
+}
+
+// Dynamic shared memory of one band block: `planes` planes of its region
+// and its apron along the band (the y bands' rows padded by one cell).
+inline int rdma_band_shared_bytes(int planes, int long_axis, int across, int seg) {
+  const int cells = long_axis ? across * (seg + 2) : (seg + 2) * (across + 1);
+  return planes * cells * static_cast<int>(sizeof(float));
+}
 
 // n_sub subcycles on one band of a pair (blockIdx.z: lo or hi) by clusters
 // of blocks along the band's long axis (kAlong 1: along the columns, the x

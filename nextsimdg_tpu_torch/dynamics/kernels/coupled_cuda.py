@@ -23,6 +23,7 @@ kernel              source                      plain version (same inputs)
 ``ho_tiled``        ``csrc/ho_tiled.cu``        ``ho_subcycles_reference``
 ``rdma_stage``      ``csrc/mevp_rdma.cu``       ``rdma_stage_reference``
 ``rdma_band``       ``csrc/mevp_rdma.cu``       ``rdma_band_reference``
+                    (HO: ``mevp_rdma_ho.cu``)
 ``chain``           ``csrc/roofline.cu``        ``benchmarks.roofline.chain_reference``
 =================== =========================== ===================================
 
@@ -78,7 +79,8 @@ precomputed samples (their ``qv`` form).
 On a rank grid (``parallel``) the phase runs the solver's exchange
 schedule (``MEVPSolver.spmd_subcycles``: ``mevp_tiled`` on the widened
 block, or the rdma round; ``MEVPSolverHO.spmd_subcycles``: ho_tiled or
-ho_single on the widened block; free drift's plain step), samples the CFL
+ho_single on the widened block, or the rdma round on 17 planes; free
+drift's plain step), samples the CFL
 speeds of the rank's own elements (in its widened CG1 velocity, or its CG2
 velocity's quadrature samples), agrees k over the ranks with one host sync
 for the whole grid, and advects with ``transport_tiled`` on the widened
@@ -269,6 +271,8 @@ def _bind():
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 11 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
     lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, i, p, i, p, p, i, i, i, p]
+    lib.nst_rdma_band_ho.argtypes = [p, p, i, p, i, i, i, i, p, i, p, p, p, i, i, p]
+    lib.nst_rdma_band_ho.restype = i
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
     for name in KERNELS:
         getattr(lib, "nst_" + name).restype = i
@@ -288,6 +292,8 @@ def _bind():
     lib.nst_ho_tiled_max_clusters.restype = i
     lib.nst_rdma_band_max_clusters.argtypes = [i] * 6
     lib.nst_rdma_band_max_clusters.restype = i
+    lib.nst_rdma_band_ho_max_clusters.argtypes = [i] * 6
+    lib.nst_rdma_band_ho_max_clusters.restype = i
     lib.nst_window_syncs.argtypes = [i] * 6 + [p, p]
     lib.nst_window_syncs.restype = i
     for name in ("mevp_n_scalars", "dg1_n_table_floats", "ho_n_scalars", "ho_n_table_floats", "ho_n_consts"):
@@ -308,9 +314,11 @@ def _bind():
     return lib
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, entry: str = None) -> None:
+    """Calls ``nst_<entry>`` (default: ``nst_<name>``) and counts one launch
+    of kernel ``name``; raises on its CUDA error."""
     lib = _library()
-    err = getattr(lib, "nst_" + name)(*args)
+    err = getattr(lib, "nst_" + (entry or name))(*args)
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA error {err}: {lib.nst_error_string(err).decode()}"
@@ -1209,21 +1217,21 @@ def _spmd_ho_phase(
     model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport, on_cpu,
 ):
     """The HO solver's ``_spmd_dynamics_phase``: the N subcycles on the
-    blocked (or, on the CPU, width-1) exchange schedule, the CG2 velocity
+    blocked or rdma (or, on the CPU, width-1) exchange schedule, the CG2 velocity
     sampled at the quadrature points through the exchange
     (``ho_velocity_to_quad``), k from the max speeds of the rank's own
     elements over the ranks (one host sync for the grid), then the spmd
     transport_tiled with the samples widened by H (``qv``), or the plain
     staged transport on the CPU. HO with TVB on a card is ROADMAP M10b
-    part 2b (transport_tiled has no instance with the samples and the
-    walls inside the widened block) and raises before any work."""
+    part 2b, second half (transport_tiled has no instance with the samples
+    and the walls inside the widened block) and raises before any work."""
     from .transport_tiled_cuda import transport_substeps_tiled_spmd
 
     mesh, tr = model.mesh, model.transport
     if tr.limits_slopes and not on_cpu:
         raise NotImplementedError(
             "the HO solver with TVB on a card's rank grid (transport_tiled with the CG2 samples "
-            "and the global walls inside the widened block) is ROADMAP M10b part 2b"
+            "and the global walls inside the widened block) is ROADMAP M10b part 2b, second half"
         )
     planes = model.mevp.spmd_subcycles(state_arrays, consts, dt, n_subcycles)
     qv = ho_velocity_to_quad(mesh, tr.basis, planes[0], planes[1], model.spmd)

@@ -1,5 +1,6 @@
-"""One overlapped halo round of CG1 mEVP on a rank block: ``rdma_stage`` and
-``rdma_band``, the CUDA kernels of K7.
+"""One overlapped halo round of mEVP on a rank block: ``rdma_stage`` and
+``rdma_band``, the CUDA kernels of K7, for the CG1 solver (5 state planes)
+and the HO (CG2/dG1) solver (17).
 
 Counterpart of ``nextsimdg_tpu/dynamics/kernels/mevp_rdma.py``, whose
 ``mevp_round_rdma`` runs one ghost-zone round of n_sub <= h subcycles in a
@@ -42,6 +43,17 @@ on the whole bands (``rdma_stage_reference``, ``rdma_band_reference``);
 the kernels run the bodies of ``mevp_tiled`` with its arguments, so a
 round equals the blocked exchange's round and the single-device step bit
 for bit.
+
+The HO round (a ``MEVPSolverHO``, K7's 17-plane instantiation) is the same
+round on the 17 planes of ``coupled_cuda.ho_flatten``, as one (17, nx, ny)
+tensor: ``rdma_stage`` packs 17-plane strips, the interior pass is the
+single-device rule of the HO solver on the rank's own block (ho_tiled, or
+ho_single below ``mevp_ho.HO_SINGLE_MAX_ELEMENTS`` where the card holds
+it), and ``rdma_band``'s HO form (``csrc/mevp_rdma_ho.cu``) runs the HO
+bodies of ho_tiled on the same cone in its own launch configuration
+(``launch_config(axis, HO_PLANES, h)``), reading the 29-37 widened HO
+consts by offset. Its plain version runs ``ho_subcycles_reference`` on the
+whole bands.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ import torch
 
 from ..mesh import block_mesh
 from ..mevp import MEVPSolver, const_names
+from ..mevp_ho import MEVPSolverHO, ho_subcycles_reference
 from . import coupled_cuda as cc
 from .mevp_tiled_cuda import mevp_subcycles_tiled
 
@@ -68,6 +81,11 @@ MAX_CLUSTER_BLOCKS = 16
 #: The launch bounds of rdma_band's two builds (kRdmaBandThreads,
 #: kRdmaMaxThreads): blocks of up to 256 threads run the first.
 LAUNCH_BOUNDS = (256, 1024)
+#: The state planes of a CG1 round and of an HO round (kRdmaPlanes,
+#: kRdmaHoPlanes), and the HO band's launch bound (kRdmaHoThreads in
+#: csrc/mevp_rdma_ho.cuh).
+CG1_PLANES, HO_PLANES = 5, 17
+HO_MAX_THREADS = 256
 
 
 def launch_bound(threads: int) -> int:
@@ -127,11 +145,11 @@ class BandConfig:
     seg: int
     threads: int
 
-    def shared_bytes(self, h: int, axis: int = 0) -> int:
-        """Dynamic shared memory of one block: 5 planes of its seg x 3h
-        cells and its apron along the band (the y bands' rows padded by a
-        cell)."""
-        return 5 * (3 * h + axis) * (self.seg + 2) * 4
+    def shared_bytes(self, h: int, axis: int = 0, planes: int = CG1_PLANES) -> int:
+        """Dynamic shared memory of one block: the state's planes (5, or
+        17 in the HO form) of its seg x 3h cells and its apron along the
+        band (the y bands' rows padded by a cell)."""
+        return planes * (3 * h + axis) * (self.seg + 2) * 4
 
     def clusters(self, along: int, n_sub: int) -> int:
         """Clusters a band of ``along`` cells takes: each writes the
@@ -145,15 +163,22 @@ class BandConfig:
         stride = self.threads // self.seg
         return -(-3 * h // stride) if stride else 0
 
-    def check(self, axis: int, h: int, n_sub: int) -> None:
-        """Raises where the kernel does not take this configuration."""
+    def check(self, axis: int, h: int, n_sub: int, planes: int = CG1_PLANES) -> None:
+        """Raises where the kernel does not take this configuration: the
+        CG1 form owns at most ``MAX_CELLS`` cells a thread, the HO form
+        (``planes`` 17) runs a flat loop over blocks of at most
+        ``HO_MAX_THREADS`` threads, a multiple of 32."""
+        fits = (
+            1 <= self.cells_per_thread(h) <= MAX_CELLS and self.threads <= LAUNCH_BOUNDS[-1]
+            if planes == CG1_PLANES else self.threads <= HO_MAX_THREADS and self.threads % 32 == 0
+        )
         if not (
-            1 <= self.cluster <= MAX_CLUSTER_BLOCKS and 32 <= self.threads <= LAUNCH_BOUNDS[-1]
-            and 1 <= self.cells_per_thread(h) <= MAX_CELLS
+            fits and 1 <= self.cluster <= MAX_CLUSTER_BLOCKS and 32 <= self.threads and 1 <= self.seg
             and self.cluster * self.seg > 2 * n_sub
-            and self.shared_bytes(h, axis) <= MAX_SHARED_BYTES
+            and self.shared_bytes(h, axis, planes) <= MAX_SHARED_BYTES
         ):
-            raise ValueError(f"rdma_band takes no launch configuration {self} at h = {h}, n_sub = {n_sub}")
+            form = "rdma_band's HO form" if planes == HO_PLANES else "rdma_band"
+            raise ValueError(f"{form} takes no launch configuration {self} at h = {h}, n_sub = {n_sub}")
 
 
 #: rdma_band's launch, chosen on the H100 by ``benchmarks.mevp_large
@@ -167,11 +192,28 @@ class BandConfig:
 BANDS = BandConfig(16, 16, 256)
 
 
-def launch_config(axis: int) -> BandConfig:
+#: The HO form's launch configurations, chosen on the H100 by
+#: ``benchmarks.mevp_large --tiles=rdma_band_ho`` on the HO configs' 512^2
+#: and 2048^2 rank blocks (PERF.md): clusters of 16 blocks of 16 cells
+#: along the band up to h = 16 (the fastest at 2048^2, 0.238-0.244 ms a
+#: pair of bands; at 512^2 0.141-0.142, where 8-cell blocks took
+#: 0.109-0.113), and of 12 cells above (at h = 32 on 2048^2 1.259-1.360
+#: ms against 1.812-1.891 for 16 cells; at h = 64 the 16-cell blocks'
+#: 17 planes no longer fit in shared memory).
+HO_BANDS = (BandConfig(16, 16, 256), BandConfig(16, 12, 256))
+
+
+def launch_config(axis: int, planes: int = CG1_PLANES, h: int = None) -> BandConfig:
     """The launch configuration that the host picks for the bands of
-    ``axis`` (the same for both: the sweep found neither axis better off
-    with another)."""
-    return BANDS
+    ``axis``: the CG1 form's ``BANDS`` (the same for both axes: the sweep
+    found neither axis better off with another); the HO form's (``planes``
+    17) the first of ``HO_BANDS`` up to h = 16 and the second above, the
+    same for both axes (raises where it does not fit h)."""
+    if planes == CG1_PLANES:
+        return BANDS
+    config = HO_BANDS[0] if h <= 16 else HO_BANDS[1]
+    config.check(axis, h, h, planes)
+    return config
 
 
 @dataclass
@@ -186,13 +228,17 @@ class RoundSources:
     round's kernels launch on (the rank's compute stream, fetched once per
     round), or None for the caller's current stream at each launch."""
 
-    own: tuple  #: the 5 pre-round (nx, ny) planes u, v, s11, s22, s12
+    own: tuple  #: the P pre-round (nx, ny) planes: u, v, s11, s22, s12, or the HO round's 17
     h: int  #: ghost width
     split: tuple  #: (x, y): whether each axis is split over ranks
-    gx: tuple = None  #: (lo, hi) x ghosts, each (5, h, ny)
-    gy: tuple = None  #: (lo, hi) y ghosts, each (5, nx + 2hx, h)
+    gx: tuple = None  #: (lo, hi) x ghosts, each (P, h, ny)
+    gy: tuple = None  #: (lo, hi) y ghosts, each (P, nx + 2hx, h)
     stream: int = None
     _built: tuple = field(default=None, init=False, repr=False, compare=False)
+
+    @property
+    def planes(self) -> int:
+        return len(self.own)
 
     @property
     def hx(self) -> int:
@@ -215,17 +261,21 @@ class RoundSources:
             return built[2], built[3]
         nx, ny = self.own[0].shape
         device = self.own[0].device
+        p = self.planes
+        if p not in (CG1_PLANES, HO_PLANES):
+            raise ValueError(f"a round moves {CG1_PLANES} (CG1) or {HO_PLANES} (HO) state planes, not {p}")
         if built is None:
-            cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), self.own)))
+            names = ("u", "v", "s11", "s22", "s12") if p == CG1_PLANES else (f"plane {k}" for k in range(p))
+            cc._check((nx, ny), device, **dict(zip(names, self.own)))
         for ghosts, name, shape in (
-            (self.gx, "x", (5, self.h, ny)), (self.gy, "y", (5, nx + 2 * self.hx, self.h)),
+            (self.gx, "x", (p, self.h, ny)), (self.gy, "y", (p, nx + 2 * self.hx, self.h)),
         ):
             if ghosts is not None:
                 cc._check(shape, device, **{f"g{name}_lo": ghosts[0], f"g{name}_hi": ghosts[1]})
         gx = self.gx if self.gx is not None else (None, None)
         gy = self.gy if self.gy is not None else (None, None)
         ptrs = cc._pointers([*self.own, *gx, *gy])
-        dims = (ctypes.c_int * 5)(nx, ny, self.h, self.hx, self.hy)
+        dims = (ctypes.c_int * 6)(nx, ny, self.h, self.hx, self.hy, p)
         self._built = (self.gx, self.gy, ptrs, dims)
         return ptrs, dims
 
@@ -234,7 +284,7 @@ class RoundSources:
 
 
 def _x_extended(src: RoundSources) -> torch.Tensor:
-    """(5, nx + 2hx, ny): the pre-round state with the x ghosts above and
+    """(P, nx + 2hx, ny): the pre-round state with the x ghosts above and
     below it."""
     state = torch.stack(src.own)
     if src.gx is None:
@@ -243,7 +293,7 @@ def _x_extended(src: RoundSources) -> torch.Tensor:
 
 
 def rdma_stage_reference(src: RoundSources, axis: int) -> torch.Tensor:
-    """The send strips of ``axis`` as a (2, 5, ., .) tensor (lo, hi): x, the
+    """The send strips of ``axis`` as a (2, P, ., .) tensor (lo, hi): x, the
     first and last h rows; y, the first and last h columns of the state
     extended by the x ghosts."""
     h = src.h
@@ -258,21 +308,31 @@ def _band_consts(consts_w: dict, rows: slice, cols: slice) -> dict:
     return {name: plane[rows, cols] for name, plane in consts_w.items()}
 
 
+def subcycles_reference(solver, planes, consts, dt, n_sub):
+    """n_sub plain subcycles of ``solver`` on stacked state planes: the 5
+    of a CG1 solver (``coupled_cuda.mevp_subcycles_reference``, a tuple of
+    planes) or the 17 of an HO solver (``ho_subcycles_reference``, one
+    (17, ., .) tensor in ``coupled_cuda.ho_flatten``'s order)."""
+    if isinstance(solver, MEVPSolverHO):
+        return cc.ho_flatten(ho_subcycles_reference(solver, cc.ho_unflatten(planes), consts, dt, n_sub))
+    return cc.mevp_subcycles_reference(solver, tuple(planes), consts, dt, n_sub)
+
+
 def rdma_band_reference(solver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state):
     """n_sub plain subcycles (``solver`` without an exchange: the band
     solver of ``phase_solvers``, periodic along the band where it wraps) on
     the two bands of ``axis``; patches their rows (x) or columns (y) into
-    the 5 planes of ``state`` in place and returns it."""
+    the P planes of ``state`` in place and returns it."""
     h, hx, hy = src.h, src.hx, src.hy
     own = torch.stack(src.own)
     nx, ny = own.shape[1:]
-    run = lambda planes, consts: cc.mevp_subcycles_reference(solver, tuple(planes), consts, dt, n_sub)
+    run = lambda planes, consts: subcycles_reference(solver, planes, consts, dt, n_sub)
     if axis == 0:
         lo = run(torch.cat([src.gx[0], own[:, : 2 * h]], dim=1),
                  _band_consts(consts_w, slice(0, 3 * h), slice(hy, hy + ny)))
         hi = run(torch.cat([own[:, nx - 2 * h:], src.gx[1]], dim=1),
                  _band_consts(consts_w, slice(nx - h, nx + 2 * h), slice(hy, hy + ny)))
-        for k in range(5):
+        for k in range(src.planes):
             state[k][:h] = lo[k][h: 2 * h]
             state[k][nx - h:] = hi[k][h: 2 * h]
         return state
@@ -281,7 +341,7 @@ def rdma_band_reference(solver, src: RoundSources, axis: int, consts_w: dict, dt
              _band_consts(consts_w, slice(None), slice(0, 3 * h)))
     hi = run(torch.cat([ext[:, :, ny - 2 * h:], src.gy[1]], dim=2),
              _band_consts(consts_w, slice(None), slice(ny - h, ny + 2 * h)))
-    for k in range(5):
+    for k in range(src.planes):
         state[k][:, :h] = lo[k][hx: hx + nx, h: 2 * h]
         state[k][:, ny - h:] = hi[k][hx: hx + nx, h: 2 * h]
     return state
@@ -299,32 +359,39 @@ def rdma_stage(src: RoundSources, axis: int) -> torch.Tensor:
     ptrs, dims = src.c_args(need_gx=axis == 1 and src.split[0], need_gy=False)
     nx, ny = own.shape
     h = src.h
-    shape = (2, 5, h, ny) if axis == 0 else (2, 5, nx + 2 * src.hx, h)
+    p = src.planes
+    shape = (2, p, h, ny) if axis == 0 else (2, p, nx + 2 * src.hx, h)
     out = torch.empty(shape, device=own.device, dtype=torch.float32)
     cc._launch("rdma_stage", ptrs, dims, axis, out.data_ptr(), own.device.index, src.launch_stream())
     return out
 
 
 def rdma_band(
-    solver: MEVPSolver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state,
-    config: BandConfig = None,
+    solver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state, config: BandConfig = None,
 ):
     """n_sub subcycles on the two bands of ``axis`` and their patches into
-    ``state`` (5 planes, in place; returned), in one launch on CUDA tensors
-    (the patch's cone only, in ``config`` or ``launch_config``'s); CPU
-    tensors run the plain version. ``solver``: the band solver of
-    ``phase_solvers`` (its momentum form, its mesh's metric form and its
-    periodic axis along the band select the instance); ``consts_w``: its
-    consts (``mevp.const_names``) widened by h on each split axis."""
+    ``state`` (in place; returned), in one launch on CUDA tensors (the
+    patch's cone only, in ``config`` or ``launch_config``'s); CPU tensors
+    run the plain version. ``solver``: the band solver of ``phase_solvers``
+    (its momentum form, its mesh's metric form and its periodic axis along
+    the band select the instance): a ``MEVPSolver``, whose ``state`` is 5
+    planes, or a ``MEVPSolverHO``, whose ``state`` is one (17, nx, ny)
+    tensor (the HO form, ``csrc/mevp_rdma_ho.cu``); ``consts_w``: its
+    consts (``mevp.const_names``, ``MEVPSolverHO.const_names``) widened by
+    h on each split axis."""
     if cc._on_cpu(src.own[0]):
         return rdma_band_reference(solver, src, axis, consts_w, dt, n_sub, state)
+    ho = isinstance(solver, MEVPSolverHO)
     mesh = solver.mesh
-    expected = const_names(solver.params.a_weighted_stress, mesh.uniform)
+    planes = HO_PLANES if ho else CG1_PLANES
+    expected = solver.const_names() if ho else const_names(solver.params.a_weighted_stress, mesh.uniform)
     if tuple(sorted(consts_w)) != tuple(sorted(expected)):
         raise NotImplementedError(
             f"rdma_band takes the consts {tuple(sorted(expected))} for this solver, "
             f"got {tuple(sorted(consts_w))}"
         )
+    if src.planes != planes:
+        raise ValueError(f"this solver's round moves {planes} state planes, not {src.planes}")
     if not src.split[axis]:
         raise ValueError(f"axis {axis} is not split over ranks: it has no bands")
     wrap = mesh.periodic_y if axis == 0 else mesh.periodic_x
@@ -336,10 +403,10 @@ def rdma_band(
     nx, ny = src.own[0].shape
     if not 1 <= n_sub <= min(h, MAX_SUB) or (nx if axis == 0 else ny) < 2 * h:
         raise ValueError(f"a round needs n_sub <= h = {h} and a block of at least 2h along axis {axis}")
-    config = launch_config(axis) if config is None else config
-    config.check(axis, h, n_sub)
+    config = launch_config(axis, planes, h) if config is None else config
+    config.check(axis, h, n_sub, planes)
     form = cc.kernel_form(solver)
-    if (form or not mesh.uniform) and config.threads > LAUNCH_BOUNDS[0]:
+    if not ho and (form or not mesh.uniform) and config.threads > LAUNCH_BOUNDS[0]:
         raise ValueError(
             f"rdma_band's forms are built for blocks of at most {LAUNCH_BOUNDS[0]} threads, "
             f"not {config.threads}"
@@ -347,36 +414,50 @@ def rdma_band(
     ptrs, dims = src.c_args(need_gx=src.split[0], need_gy=axis == 1)
     device = src.own[0].device
     cc._check((nx + 2 * src.hx, ny + 2 * src.hy), device, **consts_w)
-    cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), state)))
+    if ho:
+        cc._check((HO_PLANES, nx, ny), device, state=state)
+    else:
+        cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), state)))
     if {t.data_ptr() for t in state} & {t.data_ptr() for t in src.own}:
         raise ValueError("rdma_band reads the pre-round planes: state must not alias them")
     along = band_shape(axis, h, nx, ny, src.hx)[1 - axis]
-    scalars = cc._mevp_scalars(solver, dt)  # alive until the call returns
+    launch = (
+        ptrs, dims, axis, cc._ho_consts(consts_w) if ho else cc._mevp_consts(consts_w), config.cluster,
+        config.seg, config.threads, config.clusters(along, n_sub),
+        _cone_array(axis, h, n_sub, nx, ny, src.hx, wrap), n_sub,
+    )
+    if ho:  # the host arrays stay alive until the call returns
+        scalars, tables = cc._ho_scalars(solver, dt), cc._ho_tables(solver)
+        cc._launch(
+            "rdma_band", *launch, state.data_ptr(), ctypes.addressof(scalars), ctypes.addressof(tables),
+            form, device.index, src.launch_stream(), entry="rdma_band_ho",
+        )
+        return state
+    scalars = cc._mevp_scalars(solver, dt)
     cc._launch(
-        "rdma_band", ptrs, dims, axis, cc._mevp_consts(consts_w), config.cluster, config.seg,
-        config.threads, config.clusters(along, n_sub),
-        _cone_array(axis, h, n_sub, nx, ny, src.hx, wrap), n_sub, cc._pointers(state),
-        ctypes.addressof(scalars), int(not mesh.uniform), form, device.index, src.launch_stream(),
+        "rdma_band", *launch, cc._pointers(state), ctypes.addressof(scalars), int(not mesh.uniform), form,
+        device.index, src.launch_stream(),
     )
     return state
 
 
-def max_clusters(device, axis: int, h: int, config: BandConfig) -> int:
+def max_clusters(device, axis: int, h: int, config: BandConfig, planes: int = CG1_PLANES) -> int:
     """Clusters of ``config`` that the card holds at once for the bands of
     ``axis`` at ghost width h (``cudaOccupancyMaxActiveClusters``; 0 where
-    none fits)."""
+    none fits), of the CG1 form or (``planes`` 17) the HO form."""
     device = torch.device(device)
-    clusters = cc._library().nst_rdma_band_max_clusters(
-        axis, 3 * h, config.cluster, config.seg, config.threads, device.index or 0
-    )
+    lib = cc._library()
+    count = lib.nst_rdma_band_max_clusters if planes == CG1_PLANES else lib.nst_rdma_band_ho_max_clusters
+    clusters = count(axis, 3 * h, config.cluster, config.seg, config.threads, device.index or 0)
     if clusters < 0:
         raise RuntimeError(f"rdma_band occupancy: CUDA error {-1 - clusters}")
     return clusters
 
 
-def phase_solvers(solver: MEVPSolver, split) -> tuple:
-    """(interior, x bands, y bands): ``solver`` (the rank's, without an
-    exchange, its mesh the block's with the global periodic axes) on the
+def phase_solvers(solver, split) -> tuple:
+    """(interior, x bands, y bands): ``solver`` (the rank's ``MEVPSolver``
+    or ``MEVPSolverHO`` without an exchange, its mesh the block's with the
+    global periodic axes) on the
     periodic axes of each phase of a round whose axes ``split`` (x, y) are
     split over ranks. A split axis is closed in every phase (its ring is
     the exchange's); an axis of one rank that is periodic wraps in the
@@ -388,7 +469,7 @@ def phase_solvers(solver: MEVPSolver, split) -> tuple:
     def on(periodic):
         if periodic == (mesh.periodic_x, mesh.periodic_y):
             return solver
-        return MEVPSolver(block_mesh(mesh.nx, mesh.ny, mesh, periodic), solver.params)
+        return type(solver)(block_mesh(mesh.nx, mesh.ny, mesh, periodic), solver.params)
 
     return on((wx, wy)), on((False, wy)), on((wx, False))
 
@@ -405,7 +486,7 @@ def _round(solver, carry, consts, consts_w, dt, n_sub, h, axes, stage, band, int
     elif ax_y is not None:
         send = stage(src, 1)
         y_handle = ax_y.start(send[0], send[1])
-    state = tuple(interior(solver, carry, consts, dt, n_sub))
+    state = interior(solver, carry, consts, dt, n_sub)
     if ax_x is not None:
         src.gx = ax_x.wait(x_handle)
         if ax_y is not None:
@@ -431,29 +512,41 @@ def _check_round(carry, consts_w, n_sub, h, axes) -> None:
             raise ValueError(f"widened const {name} has shape {tuple(plane.shape)}, expected {shape}")
 
 
-def mevp_round_rdma_reference(solver: MEVPSolver, carry, consts, consts_w, dt, n_sub, h, axes):
+def ho_interior(solver: MEVPSolverHO, carry, consts, dt, n_sub) -> torch.Tensor:
+    """The HO round's interior pass on the (17, nx, ny) state: the HO
+    solver's single-device rule (``MEVPSolverHO.subcycles``: ho_tiled, or
+    ho_single below ``HO_SINGLE_MAX_ELEMENTS`` where the card holds the
+    block; the plain subcycle on the CPU), into a fresh tensor."""
+    return cc.ho_flatten(solver.subcycles(cc.ho_unflatten(carry), consts, dt, n_sub))
+
+
+def mevp_round_rdma_reference(solver, carry, consts, consts_w, dt, n_sub, h, axes):
     """One round on the plain subcycle, on any device. ``solver``: the
-    rank's solver without an exchange (``MEVPSolver.local()``: the global
-    periodic axes, which ``phase_solvers`` applies); ``consts``:
+    rank's solver without an exchange (``MEVPSolver.local()`` or
+    ``MEVPSolverHO.local()``: the global periodic axes, which
+    ``phase_solvers`` applies); ``carry``: the 5 CG1 planes, or the HO
+    solver's (17, nx, ny) tensor (``coupled_cuda.ho_flatten``); ``consts``:
     the step's consts; ``consts_w``: the same widened by h on each split
     axis; ``axes``: the (x, y) ``AxisExchange`` of each split axis, None for
-    an axis that is not split. Returns the 5 planes after the round."""
+    an axis that is not split. Returns the planes after the round, as
+    ``carry`` holds them."""
     _check_round(carry, consts_w, n_sub, h, axes)
     return _round(
         solver, carry, consts, consts_w, dt, n_sub, h, axes,
-        rdma_stage_reference, rdma_band_reference, cc.mevp_subcycles_reference,
+        rdma_stage_reference, rdma_band_reference, subcycles_reference,
     )
 
 
-def mevp_round_rdma(solver: MEVPSolver, carry, consts, consts_w, dt, n_sub, h, axes):
+def mevp_round_rdma(solver, carry, consts, consts_w, dt, n_sub, h, axes):
     """One round (arguments as ``mevp_round_rdma_reference``): on CUDA
-    tensors rdma_stage, mevp_tiled and rdma_band on the rank's compute
-    stream, the strips on the exchange's copy streams; CPU tensors run the
-    plain version."""
+    tensors rdma_stage, the interior pass (mevp_tiled; for the HO solver
+    ``ho_interior``) and rdma_band on the rank's compute stream, the strips
+    on the exchange's copy streams; CPU tensors run the plain version."""
     if cc._on_cpu(carry[0]):
         return mevp_round_rdma_reference(solver, carry, consts, consts_w, dt, n_sub, h, axes)
     _check_round(carry, consts_w, n_sub, h, axes)
+    interior = ho_interior if isinstance(solver, MEVPSolverHO) else mevp_subcycles_tiled
     return _round(
         solver, carry, consts, consts_w, dt, n_sub, h, axes,
-        rdma_stage, rdma_band, mevp_subcycles_tiled, stream=cc._stream(carry[0].device),
+        rdma_stage, rdma_band, interior, stream=cc._stream(carry[0].device),
     )

@@ -216,7 +216,7 @@ class MEVPSolver:
         global periodic axes, which the rdma round wraps where an axis is
         not split over ranks."""
         mesh = self.mesh
-        return MEVPSolver(
+        return type(self)(
             block_mesh(mesh.nx, mesh.ny, mesh, (mesh.periodic_x, mesh.periodic_y)), self.params
         )
 

@@ -40,9 +40,11 @@ of a closed axis are walls, and the N subcycles run on the exchange
 schedule of ``MEVPSolverHO.schedule``: ``"blocked"`` widens the 17 state
 planes by h ghost cells once per h subcycles and runs the single-device
 kernels (ho_single or ho_tiled, by the single-device rule) on the widened
-block; ``"xla"`` exchanges width-1 halos in every subcycle (the plain path,
-CPU tensors only). The HO solver's rdma schedule is ROADMAP M10b part 2b
-and raises.
+block; ``"rdma"`` runs K7's overlapped round on the 17 planes
+(``kernels.mevp_rdma_cuda``: the strips travel while the interior pass runs
+on the rank's own block, then the edge bands are re-run and patched);
+``"xla"`` exchanges width-1 halos in every subcycle (the plain path, CPU
+tensors only).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ import torch
 
 from .cg2basis import LOCAL_NODE_SOURCE, PLANES, _lagrange_1d, cg2_sampling_table, cg2_tables
 from .mesh import RectMesh, block_mesh, device_metric_planes
-from .mevp import SPMD_BACKENDS, MEVPParams, _div, block_halo_of
+from .mevp import SPMD_BACKENDS, MEVPParams, MEVPSolver, _div, block_halo_of
 from .stencil import halo_widen, is_global_edge, shift_m, shift_p
 from .transport import QuadVelocity, apply_table
 
@@ -244,9 +246,9 @@ class MEVPSolverHO:
 
     ``spmd``: on a rank grid, this rank's (x, y) ``AxisExchange`` pair and
     its block as ``mesh``; ``backend`` is then the exchange schedule (one
-    of ``mevp.SPMD_BACKENDS``: "auto" is "blocked"; "rdma" raises, ROADMAP
-    M10b part 2b) and ``block_halo`` its ghost width (``mevp.block_halo_of``,
-    the CG1 solver's rule: "auto" is ``mevp.BLOCK_HALO``).
+    of ``mevp.SPMD_BACKENDS``: "auto" is "blocked") and ``block_halo`` its
+    ghost width (``mevp.block_halo_of``, the CG1 solver's rule: "auto" is
+    ``mevp.BLOCK_HALO``).
     """
 
     def __init__(
@@ -262,11 +264,6 @@ class MEVPSolverHO:
         backends = SPMD_BACKENDS if on_grid else MEVP_BACKENDS
         if backend not in backends:
             raise ValueError(f"backend must be one of {backends}, got {backend!r}")
-        if backend == "rdma":
-            raise NotImplementedError(
-                "the HO solver's rdma schedule (K7's 17-plane HO round) is ROADMAP M10b part 2b; "
-                "its rank grid runs 'blocked' or 'xla'"
-            )
         self.mesh = mesh
         self.params = params
         self.backend = backend
@@ -288,7 +285,7 @@ class MEVPSolverHO:
         (None: not known). "auto" takes ho_single below
         ``HO_SINGLE_MAX_ELEMENTS`` where its tiles all fit on the card
         (``ho_single_cuda.holds``), else ho_tiled. On a rank grid the
-        exchange schedule, "blocked" or "xla"."""
+        exchange schedule, "blocked", "rdma" or "xla"."""
         if self.on_rank_grid:
             return "blocked" if self.backend == "auto" else self.backend
         backend = self.backend
@@ -302,6 +299,10 @@ class MEVPSolverHO:
                 single = holds(self.mesh.nx, self.mesh.ny, sms, (self.mesh.periodic_x, self.mesh.periodic_y))
             backend = "pallas" if single else "pallas-tiled"
         return "single" if backend == "pallas" else "tiled"
+
+    #: This solver on the same block without an exchange, the inner solver
+    #: of the rdma round (the CG1 solver's rule).
+    local = MEVPSolver.local
 
     # -- plane <-> local-node machinery, on the mesh's axes and exchange ----
     def gather_local(self, field: HOField):
@@ -559,13 +560,16 @@ class MEVPSolverHO:
     # -- the exchange schedules of a rank grid --------------------------------
     def spmd_subcycles(self, carry, consts, dt: float, n_subcycles: int):
         """The HO carry after N subcycles on this rank's block, on the
-        solver's exchange schedule (``schedule``): "blocked" runs the
-        kernels on a card and the plain subcycle on the CPU; "xla" is the
-        plain path and takes CPU tensors only."""
+        solver's exchange schedule (``schedule``): "blocked" and "rdma" run
+        the kernels on a card and the plain subcycle on the CPU; "xla" is
+        the plain path and takes CPU tensors only."""
         from .kernels.coupled_cuda import _on_cpu
 
-        if self.schedule() == "blocked":
+        schedule = self.schedule()
+        if schedule == "blocked":
             return self._blocked_subcycles(carry, consts, dt, n_subcycles)
+        if schedule == "rdma":
+            return self._rdma_subcycles(carry, consts, dt, n_subcycles)
         carry = tuple(carry)
         if not _on_cpu(carry[0].v):
             raise NotImplementedError(
@@ -612,6 +616,39 @@ class MEVPSolverHO:
             padded = local.subcycles(ho_unflatten(widen(state)), consts_w, dt, n_sub)
             state = ho_flatten(padded)[:, h: h + nx, h: h + ny]
         return ho_unflatten(state.contiguous())
+
+    def _rdma_subcycles(self, carry, consts, dt: float, n_subcycles: int):
+        """Ghost-zone rounds whose 17 state strips travel while the
+        interior computes (``kernels.mevp_rdma_cuda.mevp_round_rdma`` on
+        the HO solver, K7's 17-plane round), the twin of
+        ``MEVPSolver._rdma_subcycles``: the 29-37 consts are widened once a
+        step along the split axes (``rdma_round_inputs``), the state is
+        flattened once a step (``coupled_cuda.ho_flatten``) and each round
+        runs rdma_stage, the interior pass (the single-device rule on the
+        rank's own block), and rdma_band's HO form on the x bands and then
+        the y bands. An axis with one rank is not split: its walls are the
+        block's own zero edges, or on a periodic axis the round wraps along
+        it (the interior pass's periodic form, the other axis's bands wrap
+        along the band). Each subcycle's gather (+1 shifts) and scatter (-1
+        shifts) spoil one ring, as CG1's do, so the patched block equals
+        the blocked schedule's and the single domain's exactly."""
+        from .kernels.coupled_cuda import ho_flatten, ho_unflatten
+        from .kernels.mevp_rdma_cuda import mevp_round_rdma
+
+        h = self.block_halo
+        axes, consts_w = self.rdma_round_inputs(consts)
+        local = self.local()
+        state = ho_flatten(carry)
+        remaining = n_subcycles
+        while remaining > 0:
+            n_sub = min(h, remaining)
+            remaining -= n_sub
+            state = mevp_round_rdma(local, state, consts, consts_w, dt, n_sub, h, axes)
+        return ho_unflatten(state)
+
+    #: (axes, consts_w) of the rdma rounds of a step: the CG1 solver's rule
+    #: (the split axes' exchanges, the consts widened by h along them).
+    rdma_round_inputs = MEVPSolver.rdma_round_inputs
 
 
 def ho_subcycles_reference(solver: MEVPSolverHO, carry, consts, dt: float, n_subcycles: int):

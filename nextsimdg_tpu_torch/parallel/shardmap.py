@@ -80,10 +80,10 @@ def build_sharded_coupled_model(global_mesh: RectMesh, rank_grid: RankGrid, degr
     axes become rings where the mesh's are periodic (the 360 degree
     lon-lat ring included); a grid already set to other axes raises
     ``ValueError``. With ``Nextsim::MEVPHighOrder`` selected in the
-    registry every rank runs the HO solver on the blocked schedule (its
-    state an ``HOVelocityState``, split and gathered plane by plane like any
-    other); its rdma schedule raises ``NotImplementedError`` (ROADMAP M10b
-    part 2b). A grid that does not divide the mesh raises ``ValueError``.
+    registry every rank runs the HO solver on the blocked or rdma schedule
+    (its state an ``HOVelocityState``, split and gathered plane by plane
+    like any other). A grid that does not divide the mesh raises
+    ``ValueError``.
     """
     nx, ny = rank_grid.local_shape(global_mesh.nx, global_mesh.ny)
     rank_grid.periodic = (global_mesh.periodic_x, global_mesh.periodic_y)

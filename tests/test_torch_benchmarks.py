@@ -14,6 +14,7 @@ import torch
 
 from nextsimdg_tpu_torch import modules
 from nextsimdg_tpu_torch.benchmarks import mevp_large, run_benchmarks
+from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma_cuda
 
 torch.set_num_threads(1)
 
@@ -38,6 +39,15 @@ def test_each_config_runs_and_reports(name):
     assert result["value"] > 0 and result["chunk"] == 1
     # The HO configs select the solver in the registry and reset it.
     assert modules.get_loader().selected_name("Nextsim::IDynamics") == "Nextsim::MEVPDynamics"
+
+
+@pytest.mark.parametrize("name", ["coupled_1m_spherical_spmd", "ho_ablate_uniform_spmd"])
+def test_spmd_configs_run_on_the_rdma_schedule(name):
+    """``--mevp-backend rdma``: the ``*_spmd`` configs, CG1 and HO, run their
+    mEVP on K7's round and say so in their metric."""
+    result = run_benchmarks.run_config(name, "cpu", mevp_backend="rdma", **TINY)
+    assert "rdma h=4" in result["metric"] and result["value"] > 0  # 8^2 blocks: h = 4
+    assert name in run_benchmarks.SPMD_CONFIGS and "multihost_16m" not in run_benchmarks.SPMD_CONFIGS
 
 
 def test_multihost_runs_on_a_rank_grid():
@@ -172,6 +182,21 @@ def test_transport_tiled_and_ho_single_sweeps_run_each_launch():
     ]
     assert all(dev == ms > 0 for dev, ms in out.values())
     assert all(ms > 0 for ms in mevp_large.headline_step("cpu", n=16))
+
+
+def test_ho_rdma_band_sweep_runs_each_configuration_that_fits():
+    """The sweep of rdma_band's HO form runs on the CPU (the plain version,
+    one call each) for every configuration that the kernel takes at each
+    ghost width, on both band axes, and drops the others (a window no
+    wider than its 2h-cell ring); the host's launch falls back to the
+    second of ``HO_BANDS`` where the first does not fit (h = 64)."""
+    configs = (rdma_cuda.BandConfig(2, 16, 64), rdma_cuda.BandConfig(1, 40, 64), rdma_cuda.BandConfig(1, 6, 64))
+    out = mevp_large.sweep_rdma_band("cpu", (16,), (2, 4), configs, rdma_cuda.HO_PLANES)
+    # seg 6 in a one-block window: 6 > 2 n_sub only at h = 2.
+    expected = {(16, h, axis, c) for h in (2, 4) for axis in (0, 1) for c in configs if c.cluster * c.seg > 2 * h}
+    assert set(out) == expected and all(ms > 0 for ms in out.values())
+    assert rdma_cuda.launch_config(0, rdma_cuda.HO_PLANES, 16) == rdma_cuda.HO_BANDS[0]
+    assert rdma_cuda.launch_config(1, rdma_cuda.HO_PLANES, 64) == rdma_cuda.HO_BANDS[1]
 
 
 def test_mevp_single_sweep_runs_each_variant():

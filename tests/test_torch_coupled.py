@@ -258,7 +258,7 @@ def test_unported_options_raise(kwargs):
     (``spmd="rank"``: rank 0 of a 2 x 2 grid) runs since M10b part 1, and
     with the HO solver selected since M10b part 2a (on CPU tensors; on a
     card it raises at the step, ``tests/test_torch_grid_ho_coupled.py``);
-    the HO solver's rdma schedule raises (ROADMAP M10b part 2b)."""
+    the HO solver's rdma schedule builds since M10b part 2b's first half."""
     from nextsimdg_tpu_torch import modules
 
     if kwargs.get("spmd") != "rank":
@@ -276,8 +276,8 @@ def test_unported_options_raise(kwargs):
         model = CoupledModel(RectMesh(N, N, 1e3, 1e3), **kwargs)
         assert model.is_high_order and model.mevp_schedule() == "blocked"
         assert model.transport.tvb_m == kwargs["tvb_m"]
-        with pytest.raises(NotImplementedError, match="M10b part 2b"):
-            CoupledModel(RectMesh(N, N, 1e3, 1e3), mevp_backend="rdma", **kwargs)
+        model = CoupledModel(RectMesh(N, N, 1e3, 1e3), mevp_backend="rdma", **kwargs)
+        assert model.is_high_order and model.mevp_schedule() == "rdma"
     finally:
         loader.reset()
 

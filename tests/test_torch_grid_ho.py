@@ -291,8 +291,8 @@ def test_a_weighted_ho_on_a_grid_matches_one_domain():
 def test_ho_rank_grid_schedules_and_halo_are_checked(monkeypatch):
     grid = RankGrid(2, 2, "cpu")
     block = RectMesh(8, 8, 4e3, 4e3)
-    with pytest.raises(NotImplementedError, match="M10b part 2b"):
-        mevp_ho.MEVPSolverHO(block, backend="rdma", spmd=grid.ranks[0].axes)
+    # The rdma schedule builds since M10b part 2b (tests/test_torch_grid_ho_rdma.py).
+    assert mevp_ho.MEVPSolverHO(block, backend="rdma", spmd=grid.ranks[0].axes).schedule() == "rdma"
     with pytest.raises(ValueError, match="backend"):
         mevp_ho.MEVPSolverHO(block, backend="blocked")  # no rank grid
     with pytest.raises(ValueError, match="block_halo"):

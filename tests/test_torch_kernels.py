@@ -21,6 +21,12 @@ single-device step (expected 0) and the decomposed plain step. The
 ceiling probe's ``chain`` kernel against its plain version for every link
 and both unrolls, at 512^2 and a ragged shape.
 
+K7's HO round: ``rdma_stage`` at 17 planes and ``rdma_band``'s HO form in
+each of its forms (closed, metric, A-weighted, the ring along the band)
+against their plain versions launch by launch, the HO rdma round against
+the blocked round and the decomposed HO rdma step against the
+single-device step (bit for bit).
+
 The periodic forms of K1's four kernels, mevp_tiled, mevp_single and
 transport_tiled, and the TVB forms (``dg1_rk_stage``'s unlimited stage,
 ``dg1_limit`` and transport_tiled's TVB form), against their plain versions
@@ -1818,10 +1824,11 @@ def ho_grid_mesh(kind):
     return RectMesh(n, n, 2e3, 2e3) if kind == "uniform" else SphericalMesh(n, n, -40.0, 40.0, 55.0, 85.0)
 
 
-def ho_grid_model(device, kind, n_subcycles=20, **kwargs):
+def ho_grid_model(device, kind, n_subcycles=20, mevp_backend="auto", **kwargs):
     """(single-device HO model, rank 0's model, the sharded step, seeded
     global HO state with the coastline's land) on a 2 x 2 grid of
-    ``HO_BLOCK``^2 blocks, h = 8."""
+    ``HO_BLOCK``^2 blocks, h = 8, on the exchange schedule
+    ``mevp_backend``."""
     mesh = ho_grid_mesh(kind)
     ocean = synthetic_coastline(mesh.nx) if kind == "spherical" else None
     loader = modules.get_loader()
@@ -1830,7 +1837,7 @@ def ho_grid_model(device, kind, n_subcycles=20, **kwargs):
         single = CoupledModel(mesh, n_subcycles=n_subcycles, ocean_mask=ocean, **kwargs)
         model, sharded = build_sharded_coupled_model(
             mesh, RankGrid(2, 2, device, timeout=120), n_subcycles=n_subcycles, ocean_mask=ocean,
-            mevp_block_halo=8, **kwargs,
+            mevp_backend=mevp_backend, mevp_block_halo=8, **kwargs,
         )
     finally:
         loader.reset()
@@ -1951,3 +1958,202 @@ def test_ho_tvb_on_a_grid_is_refused_on_cuda_tensors(device):
     with pytest.raises(NotImplementedError, match="M10b part 2b"):
         sharded(state, phys, dyn, DT)
     assert cc.launches["ho_single"] == cc.launches["ho_tiled"] == 0
+
+
+# -- K7's HO round: rdma_stage at 17 planes and rdma_band's HO form -------------------
+#: (mesh kind, rank grid, A-weighted) of each HO band form: the closed
+#: uniform instance, the metric one (a spherical window's views), the
+#: A-weighted ones, and the ring along the band (a periodic box whose
+#: unsplit axis wraps, the x bands on (2, 1) and the y bands on (1, 2), and
+#: the 360 degree lon-lat ring on (1, 2), metric).
+HO_RDMA_FORMS = {
+    "closed": ("uniform", (2, 2), False), "metric": ("spherical", (2, 2), False),
+    "weighted": ("uniform", (2, 2), True), "weighted metric": ("spherical", (2, 2), True),
+    "ring x bands": ("periodic", (2, 1), False), "ring y bands": ("periodic", (1, 2), False),
+    "metric ring": ("ring", (1, 2), False),
+}
+
+
+def ho_rdma_mesh(kind):
+    n = 2 * HO_BLOCK
+    if kind in ("uniform", "periodic"):
+        return RectMesh(n, n, 2e3, 2e3, periodic_x=kind == "periodic", periodic_y=kind == "periodic")
+    if kind == "ring":
+        return SphericalMesh(n, n, 0.0, 360.0, 60.0, 85.0, periodic_x=True)
+    return SphericalMesh(n, n, -40.0, 40.0, 55.0, 85.0)
+
+
+def on_ho_rank_grid(device, form, h, fn, backend="rdma", seed=5):
+    """``fn(rank, solver, carry, consts)`` on every rank of the grid of an
+    HO_RDMA_FORMS form (each rank's HO solver on ``backend`` with ghost
+    width h, its block of seeded global inputs and its step consts, A below
+    a_dyn_min in places); returns (grid, results in rank order)."""
+    from nextsimdg_tpu_torch.dynamics.mesh import LocalMeshView
+
+    kind, shape, weighted = HO_RDMA_FORMS[form]
+    mesh = ho_rdma_mesh(kind)
+    grid = RankGrid(*shape, device, timeout=120)
+    grid.periodic = (mesh.periodic_x, mesh.periodic_y)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    n = (mesh.nx, mesh.ny)
+    fields = {k: [t(rng.normal(m, s, n)) for _ in range(4)] for k, (m, s) in {
+        "u": (0.0, 0.2), "v": (0.0, 0.2), "u_atm": (8.0, 2.0), "v_atm": (2.0, 2.0),
+        "u_ocean": (0.0, 0.05), "v_ocean": (0.0, 0.05)}.items()}
+    stress = [t(rng.normal(0.0, 500.0, (3, *n))) for _ in range(3)]
+    hh, aa = t(rng.uniform(0.2, 2.0, n)), t(rng.uniform(0.02, 1.0, n))
+    parts = {k: [grid.split(p) for p in planes] for k, planes in fields.items()}
+    stress_parts, h_parts, a_parts = [grid.split(s) for s in stress], grid.split(hh), grid.split(aa)
+    params = MEVPParams(a_weighted_stress=weighted)
+    px, py = shape
+
+    def body(rank):
+        r = rank.rank
+        block = (RectMesh(mesh.nx // px, mesh.ny // py, mesh.dx, mesh.dy, periodic_x=mesh.periodic_x,
+                          periodic_y=mesh.periodic_y)
+                 if mesh.uniform else LocalMeshView(mesh, px, py, rank.coords))
+        solver = mevp_ho.MEVPSolverHO(block, params, backend=backend, spmd=rank.axes, block_halo=h)
+        field = lambda k: mevp_ho.HOField(*(p[r] for p in parts[k]))
+        state = mevp_ho.HOVelocityState(field("u"), field("v"), *(s[r] for s in stress_parts))
+        forcing = mevp_ho.HODynamicsForcing(*(field(k) for k in ("u_atm", "v_atm", "u_ocean", "v_ocean")))
+        mask = solver.boundary_mask(device=device, dtype=torch.float32)
+        consts = solver.step_consts(state, h_parts[r], a_parts[r], forcing, mask, DT)
+        return fn(rank, solver, (state.u, state.v, state.s11, state.s22, state.s12), consts)
+
+    return grid, run_ranks(grid.ring, body)
+
+
+@pytest.mark.parametrize("h, n_sub", [(16, 1), (16, 7), (16, 16), (32, 32)])
+@pytest.mark.parametrize("form", list(HO_RDMA_FORMS))
+def test_ho_rdma_kernels_match_plain_launch_by_launch(device, form, h, n_sub):
+    """One HO rdma round on every rank of a 2 x 2 (or 2 x 1, 1 x 2) grid of
+    96^2 blocks: each rdma_stage launch (17-plane strips) and, on the first
+    and the last rank (a wall on either side of each split axis), each
+    launch of rdma_band's HO form (x and y bands where their axis is split)
+    against its plain version on the same inputs (1e-5 of the plane's
+    max), and every rank's round against the blocked schedule's round
+    (ho_tiled on the widened block) bit for bit."""
+    last = HO_RDMA_FORMS[form][1][0] * HO_RDMA_FORMS[form][1][1] - 1
+
+    def round_checked(rank, solver, carry, consts):
+        axes, consts_w = solver.rdma_round_inputs(consts)
+        checked = []
+
+        def stage(src, axis):
+            got = rdma.rdma_stage(src, axis)
+            checked.append(("rdma_stage", axis, got, rdma.rdma_stage_reference(src, axis)))
+            return got
+
+        def band(local, src, axis, cw, dt, n, state):
+            got = rdma.rdma_band(local, src, axis, cw, dt, n, state.clone())
+            if rank.rank in (0, last):  # the plain HO band is ~40 ms of host issue a subcycle
+                checked.append(("rdma_band", axis, got, rdma.rdma_band_reference(local, src, axis, cw, dt, n,
+                                                                                 state.clone())))
+            return got
+
+        out = rdma._round(solver.local(), cc.ho_flatten(carry), consts, consts_w, DT, n_sub, h, axes, stage,
+                          band, rdma.ho_interior)
+        blocked = mevp_ho.MEVPSolverHO(solver.mesh, solver.params, backend="blocked", spmd=solver.spmd,
+                                       block_halo=h)
+        return checked, out, cc.ho_flatten(blocked.spmd_subcycles(carry, consts, DT, n_sub))
+
+    cc.reset_launches()
+    grid, results = on_ho_rank_grid(device, form, h, round_checked)
+    torch.cuda.synchronize()
+    split = [n > 1 for n in grid.shape]
+    ranks = len(results)
+    assert cc.launches["rdma_band"] == sum(split) * ranks
+    assert cc.launches["rdma_stage"] == sum(split) * ranks
+    for r, (checked, out, blocked) in enumerate(results):
+        kernels = ("rdma_band", "rdma_stage") if r in (0, last) else ("rdma_stage",)
+        assert sorted({(name, axis) for name, axis, _, _ in checked}) == sorted(
+            (name, axis) for name in kernels for axis in (0, 1) if split[axis])
+        for _, _, got, ref in checked:
+            assert_close(got, ref, TOL_LAUNCH)
+        assert torch.equal(out, blocked)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("config", [
+    rdma.BandConfig(1, 40, 256), rdma.BandConfig(2, 16, 128), rdma.BandConfig(16, 8, 64),
+    rdma.BandConfig(4, 24, 192), *rdma.HO_BANDS,
+], ids=str)
+def test_ho_rdma_band_launch_configurations_match_plain(device, axis, config):
+    """rdma_band's HO form in one-block tiles and in clusters of 2 to 16
+    blocks along the band, 64 to 256 threads, on the metric form of the
+    spherical window's blocks, against its plain version on whole bands."""
+    h, n_sub = 8, 7
+
+    def band(rank, solver, carry, consts):
+        _, consts_w = solver.rdma_round_inputs(consts)
+        nx, ny = solver.mesh.nx, solver.mesh.ny
+        src = rdma.RoundSources(
+            own=tuple(cc.ho_flatten(carry)), h=h, split=(True, True),
+            gx=tuple(torch.full((17, h, ny), 0.5, device=device) for _ in range(2)),
+            gy=tuple(torch.full((17, nx + 2 * h, h), -0.25, device=device) for _ in range(2)),
+        )
+        state = torch.zeros((17, nx, ny), device=device)
+        local = solver.local()
+        ref = rdma.rdma_band_reference(local, src, axis, consts_w, DT, n_sub, state.clone())
+        return rdma.rdma_band(local, src, axis, consts_w, DT, n_sub, state.clone(), config), ref
+
+    cc.reset_launches()
+    _, results = on_ho_rank_grid(device, "metric", h, band)
+    torch.cuda.synchronize()
+    assert cc.launches["rdma_band"] == 4
+    for got, ref in results:
+        assert_close(got, ref, TOL_LAUNCH)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "spherical"])
+def test_ho_rdma_grid_step_equals_single_device(device, kind):
+    """The decomposed HO coupled step on the rdma schedule (h = 8: rounds of
+    rdma_stage, ho_single on the 96^2 blocks, the HO rdma_band; the spmd
+    qv transport) against the single-device step on the card (expected 0,
+    failure above 1e-6 of the plane's max) and the blocked schedule's
+    decomposed step (bit for bit)."""
+    single, model, sharded, state = ho_grid_model(device, kind, mevp_backend="rdma")
+    _, _, blocked, _ = ho_grid_model(device, kind)
+    assert model.schedule(device) == ("rdma", "tiled")
+    phys, dyn = coupled_inputs(device, single.mesh)
+    cc.reset_launches()
+    got = sharded(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    expected = single.step(state, phys, dyn, DT)
+    other = blocked(state, phys, dyn, DT)
+    for (name, g), (_, e), (_, b) in zip(ho_state_leaves(got), ho_state_leaves(expected), ho_state_leaves(other)):
+        assert bool(torch.isfinite(g).all()), name
+        assert_same_schedule(g, e)
+        assert torch.equal(g, b), name
+    assert counts["rdma_stage"] > 0 and counts["rdma_band"] > 0 and counts["ho_single"] > 0
+    assert counts["ho_tiled"] == 0 and counts["transport_tiled"] > 0
+
+
+def test_ho_rdma_band_refuses_what_the_kernel_does_not_take(device):
+    """The HO form takes blocks of at most 256 threads, a (17, nx, ny)
+    state that does not alias the pre-round planes, and a shared-memory
+    footprint within the card's."""
+
+    def bad_calls(rank, solver, carry, consts):
+        axes, consts_w = solver.rdma_round_inputs(consts)
+        own = cc.ho_flatten(carry)
+        nx, ny = own.shape[1:]
+        src = rdma.RoundSources(own=tuple(own), h=8, split=(True, True),
+                                gx=tuple(torch.zeros((17, 8, ny), device=device) for _ in range(2)))
+        local = solver.local()
+        errors = []
+        for call in (
+            lambda: rdma.rdma_band(local, src, 0, consts_w, DT, 8, own.clone(), rdma.BandConfig(1, 64, 512)),
+            lambda: rdma.rdma_band(local, src, 0, consts_w, DT, 8, own),
+            lambda: rdma.rdma_band(local, src, 0, consts_w, DT, 8, own.clone(), rdma.BandConfig(1, 200, 256)),
+            lambda: rdma.rdma_band(local, src, 1, consts_w, DT, 8, own.clone()),  # the y ghosts have not arrived
+        ):
+            try:
+                call()
+            except ValueError as exc:
+                errors.append(type(exc))
+        return errors
+
+    _, results = on_ho_rank_grid(device, "closed", 8, bad_calls)
+    assert all(errors == [ValueError] * 4 for errors in results)

@@ -174,6 +174,9 @@ REPLACED = {
     "mevp_rdma.cu": "mevp_rdma.py::mevp_round_rdma",
     "mevp_rdma_forms.cu": "mevp_rdma.py::mevp_round_rdma",
     "mevp_rdma_metric.cu": "mevp_rdma.py::mevp_round_rdma",
+    "mevp_rdma_ho.cu": "mevp_rdma.py::mevp_round_rdma",
+    "mevp_rdma_ho_forms.cu": "mevp_rdma.py::mevp_round_rdma",
+    "mevp_rdma_ho_metric.cu": "mevp_rdma.py::mevp_round_rdma",
     "transport_tiled_spmd.cu": "transport_tiled.py::transport_substeps_tiled",
     "roofline.cu": "roofline.py::measure_vpu_peak",
 }
@@ -260,7 +263,8 @@ def test_rdma_round_sources_run_the_plain_version_for_cpu_tensors():
     with pytest.raises(ValueError, match="not been received"):
         src.c_args(need_gx=True, need_gy=False)
     ptrs, dims = src.c_args(need_gx=False, need_gy=False)
-    assert src.c_args(need_gx=False, need_gy=False)[0] is ptrs and list(dims) == [nx, ny, h, h, h]
+    # The dims carry the plane count last (5; the HO round's 17).
+    assert src.c_args(need_gx=False, need_gy=False)[0] is ptrs and list(dims) == [nx, ny, h, h, h, 5]
     assert list(ptrs)[:5] == [c.data_ptr() for c in carry] and list(ptrs)[5:] == [None] * 4
     ghosts = torch.arange(5 * h * ny, dtype=torch.float32).reshape(5, h, ny)
     negative = -ghosts

@@ -472,11 +472,12 @@ def test_a_failing_or_hung_rank_stops_every_rank(where):
 @pytest.mark.parametrize("kind", ["high_order", "high_order_tvb"])
 def test_unported_configurations_raise_on_a_rank_grid(kind):
     """The HO solver runs on a rank grid's blocked schedule since M10b part
-    2a (tests/test_torch_grid_ho.py, tests/test_torch_grid_ho_coupled.py);
-    its rdma schedule, and HO with TVB on a card, are ROADMAP M10b part 2b
-    and raise. Periodic axes, graded and spherical meshes and TVB run on
-    the grid since M10b part 1 (tests/test_torch_grid_metric.py,
-    tests/test_torch_grid_ring.py)."""
+    2a (tests/test_torch_grid_ho.py, tests/test_torch_grid_ho_coupled.py)
+    and on its rdma schedule since part 2b's first half (it builds here on
+    a closed box and a 360 degree ring; tests/test_torch_grid_ho_rdma.py);
+    HO with TVB on a card is part 2b's second half and raises. Periodic
+    axes, graded and spherical meshes and TVB run on the grid since M10b
+    part 1 (tests/test_torch_grid_metric.py, tests/test_torch_grid_ring.py)."""
     if kind == "high_order_tvb" and not torch.cuda.is_available():
         pytest.skip("HO with TVB raises on CUDA tensors only: no CUDA device here")
     loader = modules.get_loader()
@@ -485,8 +486,8 @@ def test_unported_configurations_raise_on_a_rank_grid(kind):
         if kind == "high_order":
             for mesh in (RectMesh(16, 16, 4e3, 4e3),
                          SphericalMesh(16, 16, lon0=0.0, lon1=360.0, lat0=68.0, lat1=78.0, periodic_x=True)):
-                with pytest.raises(NotImplementedError, match="M10b part 2b"):
-                    build_sharded_coupled_model(mesh, RankGrid(2, 2, "cpu"), mevp_backend="rdma")
+                model, _ = build_sharded_coupled_model(mesh, RankGrid(2, 2, "cpu"), mevp_backend="rdma")
+                assert model.is_high_order and model.mevp_schedule() == "rdma"
             return
         grid = RankGrid(2, 2, "cuda")
         model, sharded = build_sharded_coupled_model(RectMesh(N, N, 4e3, 4e3), grid, n_subcycles=2, tvb_m=2.0)
