@@ -264,7 +264,21 @@ Phases, each printed on its own lines:
    0), one round on every rank with each rdma_stage launch and rank 0's HO
    rdma_band launches against plain (TOL_LAUNCH, per plane) and every
    round against the blocked round (expected 0), then 4 steps (at 16M the
-   one) bounded with land untouched;
+   one) bounded with land untouched; then (phase ``check_grid_tvb``) TVB on
+   the rank grid at full width: ``ho_coupled_1m`` with TVB (M = 0 on
+   blocked, the middle M on rdma: the spmd transport_tiled's qv + walls
+   instance), the HO 256^2 mesh periodic in both axes with the middle M,
+   ``coupled_1m_spherical_spmd`` with TVB (M = 0 blocked, the middle M on
+   rdma) and ``ho_coupled_1m_spherical_spmd`` with the middle M (the
+   staged route: the halo forms of dg1_rk_stage and dg1_limit), the 1024^2
+   ring with the coastline and M = 0 on 1 x 2 ranks, and config 4 with
+   ``transport_backend="xla"`` (the positivity-limited halo stage): each
+   4 steps against 4 single-device steps (expected 0), bounded with land
+   untouched, every kernel of the path launched, the exchanges and
+   launches of one step counted, the first path 20 steps bounded; every
+   spmd qv + walls launch against plain on every rank, and rank 0's halo
+   stage and limiter against plain (TOL_LAUNCH) and against the
+   single-domain kernels on its block (expected 0);
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -310,7 +324,11 @@ Phases, each printed on its own lines:
    blocked at h = 16, with a profile of the 1M rdma step (its HO
    rdma_band's ms a launch), rdma_stage's 17-plane x launch in turns with
    one torch.stack of its strips, and each HO rdma_band form in turns
-   with the closed uniform HO instance on the same band;
+   with the closed uniform HO instance on the same band; the TVB grid's
+   runs a, c and d in chunks of 2 steps in turns with the single-device
+   step, with a profile of each, and the new forms in turns with their
+   closed instances (the qv TVB transport_tiled without the walls, the
+   single-domain stage and limiter on the unwidened block);
    last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
@@ -4314,7 +4332,8 @@ def register_transport_form(label: str, launches: list, errs: dict, closed) -> N
     _, _, args, kw = launches[0]
     transport, psi, u, v, dt_sub, n, faces_w = args
     nxw, nyw = psi.shape[-2:]
-    work = tiled_work(1, nxw * nyw, n, cc._RK_STAGES[transport.scheme], False, metric=kw.get("metric") is not None)
+    work = tiled_work(1, nxw * nyw, n, cc._RK_STAGES[transport.scheme], kw.get("qv") is not None,
+                      metric=kw.get("metric") is not None)
     if transport.limits_slopes:  # the limiter after each of the 2 stages, 3 tracers
         work = (work[0], work[1] + n * 2 * 3 * tvb_limit_ops(1) * nxw * nyw)
     closed_tr, closed_kw = closed
@@ -4322,7 +4341,8 @@ def register_transport_form(label: str, launches: list, errs: dict, closed) -> N
     timed_form(label, errs["transport_tiled"],
                lambda: tt.transport_substeps_tiled(*args, **kw),
                lambda: tt.transport_substeps_tiled(closed_tr, *args[1:], **closed_kw),
-               lambda: tt.transport_substeps_tiled_reference(*args, metric=kw.get("metric"), wall_masks=masks),
+               lambda: tt.transport_substeps_tiled_reference(*args, qv=kw.get("qv"), metric=kw.get("metric"),
+                                                             wall_masks=masks),
                work)
 
 
@@ -4924,6 +4944,359 @@ def time_grid_ho_rdma(device, card: str) -> None:
     ))
 
 
+# -- M10b part 2b second half and M10c: TVB on a card's rank grid ---------------------
+#: The paths of phase check_grid_tvb, at full width (config 4's state and
+#: forcing, 100 subcycles, dG1, f32, 2 x 2 ranks of the card unless said):
+#: (path, mesh kind, n, HO, rank grid, CoupledModel keywords, schedule).
+#: a: ho_coupled_1m with TVB (M = 0 on blocked h = 16, the middle M on rdma):
+#: the spmd transport_tiled's qv + walls instance; b: the HO 256^2 mesh
+#: periodic in both axes with the middle M (walls -1 on the rings of ranks);
+#: c: coupled_1m_spherical_spmd with TVB (M = 0 blocked, the middle M on
+#: rdma): the staged route's CG1 metric halo forms with the tolerance planes;
+#: d: ho_coupled_1m_spherical_spmd with the middle M: the staged HO metric qv
+#: route; e: the 1024^2 ring with the coastline and M = 0 on 1 x 2 ranks (x
+#: not split: the ring's wrap through the ghost ring); f: config 4 with
+#: transport_backend="xla" and no TVB: the positivity-limited halo stage.
+GRID_TVB_PATHS = [
+    ("grid_tvb_ho_1m_m0", "uniform", N4, True, RANKS, {"tvb_m": 0.0}, ("blocked", "tiled")),
+    ("grid_tvb_ho_1m_mmid_rdma", "uniform", N4, True, RANKS, {"tvb_m": "mid", "mevp_backend": "rdma"},
+     ("rdma", "tiled")),
+    ("grid_tvb_ho_256_periodic", "periodic", N, True, RANKS, {"tvb_m": "mid"}, ("blocked", "tiled")),
+    ("grid_tvb_spherical_m0", "spherical", N4, False, RANKS, {"tvb_m": 0.0}, ("blocked", "xla")),
+    ("grid_tvb_spherical_mmid_rdma", "spherical", N4, False, RANKS, {"tvb_m": "mid", "mevp_backend": "rdma"},
+     ("rdma", "xla")),
+    ("grid_tvb_ho_spherical", "spherical", N4, True, RANKS, {"tvb_m": "mid"}, ("blocked", "xla")),
+    ("grid_tvb_ring_1x2", "ring", N4, False, (1, 2), {"tvb_m": 0.0}, ("blocked", "xla")),
+    ("grid_staged_uniform", "uniform", N4, False, RANKS, {"transport_backend": "xla"}, ("blocked", "xla")),
+]
+#: Steps a path checks against the single-device step, and the first
+#: path's steps checked for boundedness.
+GRID_TVB_STEPS = 4
+GRID_TVB_STEPS_LONG = 20
+#: The paths timed in time_grid_tvb beside the single-device step (runs a,
+#: c and d), in chunks of HO_GRID_CHUNK steps.
+GRID_TVB_TIMED = ("grid_tvb_ho_1m_m0", "grid_tvb_spherical_m0", "grid_tvb_ho_spherical")
+#: The paths whose new forms are checked launch by launch (and on which
+#: their rows are timed).
+GRID_TVB_ROWS = {
+    "transport_tiled spmd-qv-tvb": "grid_tvb_ho_1m_m0", "dg1_rk_stage halo": "grid_tvb_spherical_m0",
+    "dg1_rk_stage halo-qv": "grid_tvb_ho_spherical", "dg1_limit halo": "grid_tvb_spherical_m0",
+}
+GRID_TVB_BUILT = {}
+
+
+def _grid_tvb_kernels(ho: bool, n: int, schedule: tuple, tvb: bool) -> tuple:
+    interior = ("ho_tiled" if n >= N4 else "ho_single") if ho else "mevp_tiled"
+    rdma_kernels = ("rdma_stage", "rdma_band") if schedule[0] == "rdma" else ()
+    if schedule[1] == "tiled":
+        return (interior, *rdma_kernels, "transport_tiled")
+    cfl = () if ho else ("dg1_sample_cfl",)
+    return (interior, *rdma_kernels, *cfl, "dg1_rk_stage") + (("dg1_limit",) if tvb else ())
+
+
+PATH_KERNELS.update({
+    path: _grid_tvb_kernels(ho, n, schedule, "tvb_m" in kwargs)
+    for path, _, n, ho, _, kwargs, schedule in GRID_TVB_PATHS
+})
+_STAGED_CG1 = [p for p, _, _, ho, _, _, s in GRID_TVB_PATHS if s[1] == "xla" and not ho]
+_STAGED_TVB = [p for p, _, _, _, _, kw, s in GRID_TVB_PATHS if s[1] == "xla" and "tvb_m" in kw]
+FORM_ROWS.update({
+    "transport_tiled spmd-qv-tvb": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_spmd_qv.cu",
+                                    [p for p, *_, s in GRID_TVB_PATHS if s[1] == "tiled"]),
+    "dg1_rk_stage halo": ("dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_spmd.cu", _STAGED_CG1),
+    "dg1_rk_stage halo-qv": ("dg1_rk_stage", "nextsimdg_tpu_torch/csrc/transport_spmd_qv.cu",
+                             [p for p, _, _, ho, _, _, s in GRID_TVB_PATHS if s[1] == "xla" and ho]),
+    "dg1_limit halo": ("dg1_limit", "nextsimdg_tpu_torch/csrc/transport_tvb_spmd.cu", _STAGED_TVB),
+})
+# The other kernels' forms on these paths count on their forms' rows.
+FORM_ROWS["ho_tiled metric"][2].extend(
+    p for p, kind, n, ho, *_ in GRID_TVB_PATHS if ho and kind == "spherical" and n >= N4)
+FORM_ROWS["rdma_band metric"][2].append("grid_tvb_spherical_mmid_rdma")
+FORM_ROWS["rdma_band HO"][2].append("grid_tvb_ho_1m_mmid_rdma")
+FORM_ROWS["rdma_stage HO"][2].append("grid_tvb_ho_1m_mmid_rdma")
+
+
+def grid_tvb_model(device, kind: str, n: int, ho: bool, shape, kwargs: dict, mid: dict):
+    """(single-device model, rank 0's model, the ShardedCoupledModel, state,
+    phys, dyn) of a GRID_TVB_PATHS path: config 4's model, state (with
+    fronts under TVB) and forcing on the spherical window or the ring with
+    the coastline, or on config 4's uniform mesh (periodic in both axes for
+    "periodic"); the HO solver selected through the registry for ``ho``;
+    tvb_m "mid": ``mid[(kind, n)]``."""
+    kwargs = dict(kwargs)
+    if kwargs.get("tvb_m") == "mid":
+        kwargs["tvb_m"] = mid[(kind, n)]
+    backend = kwargs.pop("mevp_backend", "blocked")
+    mesh, ocean = grid_tvb_mesh(kind, n)
+    loader = modules.get_loader()
+    if ho:
+        loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        single, state, phys, dyn = coupled_model(device, mesh, ocean, **kwargs)
+        model, sharded = build_sharded_coupled_model(
+            mesh, RankGrid(*shape, device), degree=1, n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+            mevp_backend=backend, **kwargs,
+        )
+    finally:
+        if ho:
+            loader.reset()
+    if "tvb_m" in kwargs:
+        state = with_fronts(state, SEED + 60)
+    return single, model, sharded, state, phys, dyn
+
+
+def grid_tvb_mesh(kind: str, n: int):
+    """(mesh, ocean mask or None) of a GRID_TVB_PATHS kind."""
+    if kind in ("spherical", "ring"):
+        return (spherical_mesh(n) if kind == "spherical" else ring_mesh(n)), synthetic_coastline(n)
+    periodic = kind == "periodic"
+    return RectMesh(n, n, dx=4e3, dy=4e3, periodic_x=periodic, periodic_y=periodic), None
+
+
+def widened_block(f, coords, block, periodic):
+    """The block at ``coords`` (``block`` its shape) of the global field
+    ``f`` (..., nx, ny) widened by one ring: zeros beyond a closed wall, the
+    wrapped cells on a periodic axis (what the exchange brings)."""
+    for axis, wraps in ((-2, periodic[0]), (-1, periodic[1])):
+        n = f.shape[axis]
+        lo, hi = f.narrow(axis, n - 1, 1), f.narrow(axis, 0, 1)
+        if not wraps:
+            lo, hi = torch.zeros_like(lo), torch.zeros_like(hi)
+        f = torch.cat([lo, f, hi], dim=axis)
+    (ix, iy), (bx, by) = coords, block
+    return f[..., ix * bx: (ix + 1) * bx + 2, iy * by: (iy + 1) * by + 2].contiguous()
+
+
+def halo_form_launches(tag: str, single, model, state, errs: dict, rows=()) -> None:
+    """Rank 0's halo forms at the path's shape, on its block of ``state``
+    widened by one ring: dg1_rk_stage's halo form (a = 0, then blended;
+    positivity-limited, or with TVB unlimited) against its plain version
+    (TOL_LAUNCH) and against the single-domain kernel's stage on the
+    global state restricted to the block (expected 0); with TVB dg1_limit's
+    halo form on that stage (the neighbours' means from the global stage)
+    likewise. ``rows``: the form rows to register for timing here (the
+    halo stage timed against the single-domain stage on the unwidened
+    block, the halo limiter against dg1_limit there)."""
+    device = state.hice.device
+    tr, mesh = single.transport, single.mesh
+    periodic = (mesh.periodic_x, mesh.periodic_y)
+    block = (model.mesh.nx, model.mesh.ny)
+    wide = lambda f: widened_block(f, (0, 0), block, periodic)
+    own = lambda f: f[..., : block[0], : block[1]].contiguous()
+    psi = torch.stack([state.hice, state.cice, state.hsnow], dim=1)
+    faces = single.face_masks(device=device, dtype=torch.float32) or (torch.ones_like(state.sst),) * 2
+    fields = ("vx_vol", "vy_vol", "vn_x", "vn_y")
+    u = v = qv = u_w = v_w = qv_w = None
+    if single.is_high_order:
+        qv = mevp_ho.ho_velocity_to_quad(mesh, tr.basis, state.velocity.u, state.velocity.v)
+        qv_w = type(qv)(*(wide(getattr(qv, f)) for f in fields))
+    else:
+        u, v = state.velocity.u, state.velocity.v
+        u_w, v_w = wide(u), wide(v)
+    local = model.widened_transport(1)
+    metric = model.widened_metric(1, device=device, dtype=torch.float32)
+    walls = tt.spmd_walls(model, 1)
+    tvb, dt = tr.limits_slopes, DT / 3
+    psi_w, base = wide(psi), own(psi)
+    args = (local, psi_w, base, u_w, v_w, wide(faces[0]), wide(faces[1]), walls)
+    stages = {}
+    for a, b in ((0.0, 1.0), (0.5, 0.5)):
+        got = cc.dg1_rk_stage_halo(*args, a, b, dt, qv=qv_w, metric=metric, tvb=tvb)
+        ref = cc.dg1_rk_stage_halo_reference(*args, a, b, dt, qv=qv_w, metric=metric, tvb=tvb)
+        errs["dg1_rk_stage"] = max(errs["dg1_rk_stage"], compare(
+            f"{tag} dg1_rk_stage halo{' qv' if qv is not None else ''} rank 0 a = {a}", got, ref, TOL_LAUNCH))
+        stages[a] = cc.dg1_rk_stage(tr, psi, psi, u, v, *faces, a, b, dt, qv=qv, tvb=tvb)
+        same_schedule(f"{tag} dg1_rk_stage halo rank 0 a = {a}", got, own(stages[a]),
+                      "the single-domain stage on its block")
+    limit_args = None
+    if tvb:
+        stage = stages[0.5]
+        limit_args = (model.transport, own(stage), wide(stage[0]), walls)
+        got = cc.dg1_limit_halo(*limit_args)
+        errs["dg1_limit"] = max(errs["dg1_limit"], compare(
+            f"{tag} dg1_limit halo rank 0", got, cc.dg1_limit_halo_reference(*limit_args), TOL_LAUNCH))
+        same_schedule(f"{tag} dg1_limit halo rank 0", got, own(cc.dg1_limit(tr, stage)),
+                      "the single-domain limiter on its block")
+    torch.cuda.synchronize()
+    n_own = block[0] * block[1]
+    stream, out = cc._stream(device), torch.empty_like(base)
+    rank_tr = model.transport
+    tables_own, wall_array, wrap = cc._dg1_tables(rank_tr), cc._walls(walls), cc.wrap_bits(model.mesh)
+    if any(r.startswith("dg1_rk_stage") for r in rows):
+        label = next(r for r in rows if r.startswith("dg1_rk_stage"))
+        qv_ptrs = None if qv_w is None else cc._dg1_qv(qv_w, psi_w.shape[-2:], device, 1)
+        qv_own = None if qv is None else type(qv)(*(own(getattr(qv, f)) for f in fields))
+        qv_own_ptrs = None if qv is None else cc._dg1_qv(qv_own, block, device, 1)
+        uv_own = (None, None) if u is None else (own(u), own(v))
+        faces_own = (own(faces[0]), own(faces[1]))
+        metric_ptrs, metric_own = cc._dg1_metric(local, device, metric), cc._dg1_metric(rank_tr, device)
+        tables = cc._dg1_tables(local)
+        work = stage_work(1, n_own, qv is not None, metric is not None, True)
+        limit_ops = stage_cell_ops(1, True, True) - stage_cell_ops(1, True, False)
+        if tvb:
+            work = (work[0], work[1] - cc.STAGE_TRACERS * limit_ops * n_own)
+        timed_form(
+            label, errs["dg1_rk_stage"],
+            lambda: cc._dg1_rk_stage_halo_(psi_w, base, u_w, v_w, *args[5:7], metric_ptrs, out, 0.5, 0.5, dt,
+                                           tables, stream, wall_array, qv=qv_ptrs, tvb=tvb),
+            lambda: cc._dg1_rk_stage_(base, base.flip(0).contiguous(), *uv_own, *faces_own, metric_own, out, 0.5,
+                                      0.5, dt, tables_own, stream, qv=qv_own_ptrs, tvb=tvb, wrap=wrap),
+            lambda: cc.dg1_rk_stage_halo_reference(*args, 0.5, 0.5, dt, qv=qv_w, metric=metric, tvb=tvb),
+            work)
+    if "dg1_limit halo" in rows:
+        tolerances = rank_tr.tvb_tolerances(device=device, dtype=torch.float32)
+        scratch, scratch_closed, means_w = limit_args[1].clone(), limit_args[1].clone(), limit_args[2]
+        planes = isinstance(tolerances[0], torch.Tensor)
+        timed_form(
+            "dg1_limit halo", errs["dg1_limit"],
+            lambda: cc._dg1_limit_halo_(scratch, means_w, tolerances, tables_own, stream, wall_array),
+            lambda: cc._dg1_limit_(scratch_closed, tolerances, tables_own, stream, wrap),
+            lambda: cc.dg1_limit_halo_reference(*limit_args),
+            ((2 * 3 - 1) * 3 * 4 * n_own + (2 if planes else 0) * 4 * n_own + 3 * 4 * (block[0] + 2) * (block[1] + 2),
+             3 * tvb_limit_ops(1) * n_own))
+
+
+def count_exchanges(run) -> dict:
+    """``run()`` with every exchange started (``AxisExchange.start``: one
+    strip pair along one axis) counted by rank thread; returns the counts."""
+    import threading
+
+    from nextsimdg_tpu_torch.parallel.exchange import AxisExchange
+
+    start, counts, lock = AxisExchange.start, {}, threading.Lock()
+
+    def counting(self, to_prev, to_next):
+        with lock:
+            name = threading.current_thread().name
+            counts[name] = counts.get(name, 0) + 1
+        return start(self, to_prev, to_next)
+
+    AxisExchange.start = counting
+    try:
+        run()
+    finally:
+        AxisExchange.start = start
+    return counts
+
+
+def check_grid_tvb(device) -> tuple:
+    """Phase: M10b part 2b second half and M10c, TVB on a card's rank grid.
+    Each GRID_TVB_PATHS path at full width: GRID_TVB_STEPS decomposed steps
+    from zeroed launch counts against as many single-device steps (expected
+    0, failing above TOL_SAME_SCHEDULE), bounded with land untouched, every
+    kernel of the path launched (the first path GRID_TVB_STEPS_LONG steps);
+    the middle M's paths print the shares their limiter cuts and keeps; each
+    path's exchanges and launches a rank and step (one more step, counted).
+    The new forms launch by launch: every spmd transport_tiled launch of the
+    qv + walls instance against plain (run a, all ranks), rank 0's halo
+    dg1_rk_stage (CG1 and qv forms, positivity-limited and TVB) and halo
+    dg1_limit against plain (TOL_LAUNCH) and against the single-domain
+    kernels on the block (expected 0). Returns (counts by path, the largest
+    error per kernel)."""
+    errs = {"transport_tiled": 0.0, "dg1_rk_stage": 0.0, "dg1_limit": 0.0}
+    counts, mid = {}, {}
+    rows = {}
+    for label, path in GRID_TVB_ROWS.items():
+        rows.setdefault(path, []).append(label)
+    for i, (path, kind, n, ho, shape, kwargs, schedule) in enumerate(GRID_TVB_PATHS):
+        t_build = time.perf_counter()
+        if kwargs.get("tvb_m") == "mid" and (kind, n) not in mid:
+            mesh, ocean = grid_tvb_mesh(kind, n)
+            mid[(kind, n)] = middle_m(with_fronts(coupled_model(device, mesh, ocean)[1], SEED + 60).hice, mesh)
+            log("slice", f"{kind} {n}^2: the middle M from the state's |psi1|: {mid[(kind, n)]:.4e}")
+        single, model, sharded, state, phys, dyn = grid_tvb_model(device, kind, n, ho, shape, kwargs, mid)
+        t0 = time.perf_counter()
+        got_schedule = model.schedule(device)
+        log("slice", (
+            f"{path}: {n}^2 {type(single.mesh).__name__} periodic ({single.mesh.periodic_x}, "
+            f"{single.mesh.periodic_y}){' with the coastline' if single.ocean_mask is not None else ''}, "
+            f"{'HO' if ho else 'CG1'} on a {shape[0]}x{shape[1]} rank grid of {model.mesh.nx}x{model.mesh.ny} "
+            f"blocks, schedule {got_schedule}, single-device {single.schedule(device)}, tvb_m "
+            f"{model.transport.tvb_m}, spmd transport (H, k_cap) = {tt.transport_tiled_spmd_config(model)}, "
+            f"walls {tt.spmd_walls(model, 1)}"
+        ))
+        if got_schedule != schedule or model.is_high_order != ho:
+            raise AssertionError(f"{path} does not run {'HO' if ho else 'CG1'} on {schedule}: {got_schedule}")
+        if single.transport.limits_slopes:
+            cut, kept = tvb_shares(single.transport, state)
+            log("slice", f"{path}: the limiter cuts {cut:.4f} of the elements and keeps {kept:.4f} of the step's tracers")
+            if kwargs.get("tvb_m") == "mid" and not (cut > 0.05 and kept > 0.05):
+                raise AssertionError(f"{path}: the middle M does not take both branches ({cut:.4f} cut)")
+        ref = single.run(state, phys, dyn, DT, GRID_TVB_STEPS)
+        blocks = blocks_of(sharded, state, phys, dyn)
+        cc.reset_launches()
+        got = sharded.grid.gather_tree(sharded.run_blocks(*blocks, DT, GRID_TVB_STEPS), device)
+        torch.cuda.synchronize()
+        counts[path] = dict(cc.launches)
+        compare_sharded_step(f"{path}: {GRID_TVB_STEPS} steps vs single-device", got, ref, tol_same=True)
+        del ref
+        log("slice", f"{path}: {GRID_TVB_STEPS} steps, launches: {counts[path]}")
+        check_bounded(f"{path}: {GRID_TVB_STEPS} steps", got, state)
+        if single.ocean_mask is not None:
+            check_land(f"{path}: {GRID_TVB_STEPS} steps", single, got, state)
+        missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+        t1 = time.perf_counter()
+        cc.reset_launches()
+        exchanges = count_exchanges(lambda: sharded.run_blocks(*blocks, DT, 1))
+        torch.cuda.synchronize()
+        ranks = shape[0] * shape[1]
+        log("slice", (
+            f"{path}: one step: exchanges a rank {sorted(exchanges.values())}, launches a rank "
+            f"{ {k: c / ranks for k, c in cc.launches.items() if c} }"
+        ))
+        if i == 0:
+            long = sharded.grid.gather_tree(sharded.run_blocks(*blocks, DT, GRID_TVB_STEPS_LONG), device)
+            torch.cuda.synchronize()
+            check_bounded(f"{path}: {GRID_TVB_STEPS_LONG} steps", long, state)
+            del long
+        t2 = time.perf_counter()
+        if schedule[1] == "tiled" and "transport_tiled spmd-qv-tvb" in rows.get(path, ()):
+            launches = spmd_transport_launches(device, sharded, got, path, errs)
+            if launches[0][3].get("walls") is None or launches[0][3].get("qv") is None:
+                raise AssertionError(f"{path}: the spmd transport ran without the samples or the walls")
+            transport = launches[0][2][0]
+            register_transport_form("transport_tiled spmd-qv-tvb", launches, errs,
+                                    (transport, {"qv": launches[0][3]["qv"]}))
+        elif schedule[1] == "tiled" and path == "grid_tvb_ho_256_periodic":
+            spmd_transport_launches(device, sharded, got, path, errs)
+        if schedule[1] == "xla":
+            halo_form_launches(path, single, model, got, errs, rows.get(path, ()))
+        if path in GRID_TVB_TIMED:
+            GRID_TVB_BUILT[path] = (single, sharded, state, phys, dyn)
+        del got
+        log("time", (
+            f"check_grid_tvb {path}: build {t0 - t_build:.1f} s, {GRID_TVB_STEPS} steps on both and checks "
+            f"{t1 - t0:.1f} s, counted step{' and the long run' if i == 0 else ''} {t2 - t1:.1f} s, "
+            f"launch checks {time.perf_counter() - t2:.1f} s"
+        ))
+    for label in GRID_TVB_ROWS:
+        TVB_FORMS[label] = replace(TVB_FORMS[label], err=errs[label.split()[0]])
+    return counts, errs
+
+
+def time_grid_tvb(device, card: str) -> None:
+    """Runs a, c and d (GRID_TVB_TIMED): ms per step in chunks of
+    HO_GRID_CHUNK steps on resident blocks, in turns with the single-device
+    step; a profile of 2 steps of each grid (wall ms, busy ms, idle share,
+    device activities a step; the transport kernels' ms a launch)."""
+    for path in GRID_TVB_TIMED:
+        single, sharded, state, phys, dyn = GRID_TVB_BUILT.pop(path)
+        blocks = blocks_of(sharded, state, phys, dyn)
+        n = single.mesh.nx
+        runs = time_in_turns({
+            "single-device": lambda: single.run(state, phys, dyn, DT, HO_GRID_CHUNK),
+            "2x2 grid": lambda: sharded.run_blocks(*blocks, DT, HO_GRID_CHUNK),
+        }, {"single-device": 1, "2x2 grid": 1})
+        for name, ms in runs.items():
+            report(f"{path} coupled step, {name} ({n}x{n}, {HO_GRID_CHUNK} steps a chunk)",
+                   [m / HO_GRID_CHUNK for m in ms], n * n, card)
+        profile(f"{path} coupled step, 2x2 grid ({n}x{n})", lambda: sharded.run_blocks(*blocks, DT, 1),
+                n_steps=2, watch="transport_tiled" if single.transport_schedule() == "tiled" else "dg1_")
+        del single, sharded, state, blocks
+
+
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
     """The kernels' JSON line: per kernel its launches on the main paths,
     check error, times, ``bound_ms`` on the data sheet's peaks and
@@ -5138,6 +5511,8 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     counts.update(counts_grid_ho)
     counts_grid_ho_rdma, _ = phase(check_grid_ho_rdma, device)
     counts.update(counts_grid_ho_rdma)
+    counts_grid_tvb, _ = phase(check_grid_tvb, device)
+    counts.update(counts_grid_tvb)
     kernels["ho_tiled"] = replace(kernels["ho_tiled"], err=max(kernels["ho_tiled"].err, err_grid_ho))
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
@@ -5152,6 +5527,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_grid_forms, device, smi)
     phase(time_grid_ho, device, smi)
     phase(time_grid_ho_rdma, device, smi)
+    phase(time_grid_tvb, device, smi)
     phase(time_tvb_periodic, device, smi)
     phase(time_ho_forms, device, smi)
     phase(time_ho_metric, device, smi)

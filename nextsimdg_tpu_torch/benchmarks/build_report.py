@@ -12,8 +12,9 @@ longest. ``--sass`` compares, by ``cuobjdump -sass``, the opcode sequences
 built if missing) with those of another checkout's library PARENT_LIB, for
 the instances that this tree compiles with its added template arguments
 false or 0 (the periodic form ``kWrap``, ``kTvb`` and ``kWalls`` of
-transport_tiled, the HO kernels' momentum form ``kForm``, and rdma_band's
-``kMetric``, ``kForm`` and ``kWrap``): the closed instances, which should
+transport_tiled, ``kHalo`` of dg1_rk_stage, the HO kernels' momentum form
+``kForm``, and rdma_band's ``kMetric``, ``kForm`` and ``kWrap``), and
+dg1_limit's single-domain instances: the closed instances, which should
 be the parent's code. Both need the CUDA
 toolkit (the card's machine); they launch nothing on the card.
 """
@@ -33,7 +34,7 @@ from ..dynamics.kernels import coupled_cuda as cc
 #: The kernels whose closed instances gained false template arguments.
 KERNELS = (
     "mevp_stress_kernel", "mevp_velocity_kernel", "mevp_tiled_kernel", "mevp_single_kernel",
-    "transport_tiled_kernel", "dg1_rk_stage_kernel", "dg1_sample_cfl_kernel", "ho_single_kernel",
+    "transport_tiled_kernel", "dg1_rk_stage_kernel", "dg1_sample_cfl_kernel", "dg1_limit_kernel", "ho_single_kernel",
     "ho_tiled_kernel", "rdma_band_kernel", "rdma_stage_kernel",
 )
 #: Trailing template arguments that are false or 0 (the closed forms).

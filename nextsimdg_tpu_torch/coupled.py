@@ -43,10 +43,10 @@ one rank's block (of a uniform mesh, or a ``LocalMeshView`` of a graded or
 spherical one, each axis closed or a ring), runs in that rank's thread and
 exchanges halos with the other ranks (``parallel.exchange``): the mEVP on
 the blocked or rdma schedule in any momentum form, the HO solver on the
-blocked or rdma schedule (HO with TVB on a card is ROADMAP M10b part 2b,
-second half, and raises), or free drift; the transport on the widened block,
-with TVB too (staged on a graded or spherical mesh: CPU tensors only,
-ROADMAP M10c); the physics per block.
+blocked or rdma schedule, or free drift; the transport on the widened block,
+with TVB too (staged on a graded or spherical mesh: psi widened by one ring
+a stage, the halo forms of dg1_rk_stage and dg1_limit on a card); the
+physics per block.
 """
 
 from __future__ import annotations
@@ -189,11 +189,13 @@ class CoupledModel:
         ``mevp.BLOCK_HALO``, at most half the block); with the HO solver
         the transport advects with the CG2 samples on the widened block;
         ``transport_backend`` ``"tiled"`` (and ``"auto"``: the widened block
-        on transport_tiled) or ``"xla"``. The ``"xla"`` schedules, and
+        on transport_tiled) or ``"xla"``. The transport's ``"xla"``, and
         ``"auto"`` where the block has no spmd tiled transport (a block too
         small for one substep's ghost cells, and TVB on a graded or
-        spherical mesh, as on one domain), are the plain width-1
-        exchanges: CPU tensors only, they raise on a card.
+        spherical mesh, as on one domain), is the staged route with width-1
+        exchanges (``coupled_cuda.spmd_staged_transport``: on a card the
+        halo forms of dg1_rk_stage and dg1_limit); the mEVP's ``"xla"``,
+        its width-1 schedule, takes CPU tensors only and raises on a card.
         """
         self.exchange = None if isinstance(spmd, tuple) else spmd
         if self.exchange is None and any(axis is not None for axis in spmd):
@@ -307,9 +309,9 @@ class CoupledModel:
         return self.mevp_schedule(sms), self.transport_schedule()
 
     def transport_schedule(self) -> str:
-        """``"xla"`` (one dg1_rk_stage per stage; on a rank grid the plain
-        staged transport with width-1 exchanges, which raises on a card) or
-        ``"tiled"``."""
+        """``"xla"`` (one dg1_rk_stage per stage; on a rank grid the staged
+        route with width-1 exchanges, the halo forms of dg1_rk_stage and
+        dg1_limit on a card) or ``"tiled"``."""
         if self.exchange is not None:
             from .dynamics.kernels.transport_tiled_cuda import transport_tiled_spmd_config
 

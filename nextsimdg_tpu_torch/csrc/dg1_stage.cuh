@@ -1,9 +1,11 @@
 // One SSP-RK stage of the DG transport as a grid-wide launch: the
-// dg1_rk_stage kernel template, shared by the two sources that instantiate
-// it: transport.cu (the limited and the advection run's instances, and the
-// entry points) and transport_tvb.cu (the TVB form's unlimited instances,
-// whose stage the dg1_limit pass limits), which nvcc compiles in parallel.
-// The design is described in transport.cu.
+// dg1_rk_stage kernel template, shared by the sources that instantiate it:
+// transport.cu (the limited and the advection run's instances, and the
+// entry points), transport_tvb.cu (the TVB form's unlimited instances,
+// whose stage the dg1_limit pass limits), the periodic sources, and
+// transport_spmd.cu and transport_spmd_qv.cu (the halo form of a rank
+// block widened by one ring), which nvcc compiles in parallel. The design
+// is described in transport.cu.
 #pragma once
 
 #include <cstring>
@@ -66,6 +68,10 @@ struct StageArgs {
   DgTables<kDeg> tb;
   int wrap;  // the periodic instances' axes (kWrapX, kWrapY); last, so that the
              // closed instances read their parameters at the offsets they always had
+  // The halo form's global walls (kHalo), in the widened block's indices:
+  // the row of the last x wall's element, the row of the first's, then the
+  // columns of y's, -1 for none (transport_tiled's g.wall).
+  int wall[4];
 };
 
 // A tile's windows in shared memory (beyond the domain, zeros), the CG1
@@ -124,14 +130,17 @@ __device__ __forceinline__ void tile_coeffs(const Tile& s, int t, int r, int c, 
 
 // The points of x face i0 + r (between element rows i0 + r - 1 and i0 + r)
 // at column j0 + c, for tracer t, into s.gx. Every x face is open on a
-// periodic x axis (face nx is face 0).
-template <int kDeg, bool kMetric, bool kQv, bool kMasks, bool kWrap, class Tile, int K>
+// periodic x axis (face nx is face 0). In the halo form (kHalo: tiles from
+// the widened block's row and column 1) a face is closed only at a global
+// wall: the first wall's element's left face, the last's right face.
+template <int kDeg, bool kMetric, bool kQv, bool kMasks, bool kWrap, bool kHalo, class Tile, int K>
 __device__ __forceinline__ void x_face(const StageArgs<kDeg>& g, Tile& s, int t, int r, int c,
                                        const float (&lo)[K], const float (&hi)[K]) {
   using W = StageWindows<kDeg, kMetric, kQv, kMasks>;
   constexpr int kVol = DgShape<kDeg>::kVol;
-  const int i = blockIdx.y * kStageRows + r;
-  const bool open = (kWrap && (g.wrap & kWrapX)) || (i > 0 && i < g.nx);
+  const int i = blockIdx.y * kStageRows + r + (kHalo ? 1 : 0);
+  const bool open = kHalo ? i != g.wall[1] && i != g.wall[0] + 1
+                          : (kWrap && (g.wrap & kWrapX)) || (i > 0 && i < g.nx);
 #pragma unroll
   for (int e = 0; e < DgShape<kDeg>::kEdge; ++e) {
     const float vn = kQv ? s.win[2 * kVol + e][r][c]
@@ -144,13 +153,14 @@ __device__ __forceinline__ void x_face(const StageArgs<kDeg>& g, Tile& s, int t,
 
 // The points of y face j0 + c (between element columns j0 + c - 1 and
 // j0 + c) at row i0 + r, for tracer t, into s.gy.
-template <int kDeg, bool kMetric, bool kQv, bool kMasks, bool kWrap, class Tile, int K>
+template <int kDeg, bool kMetric, bool kQv, bool kMasks, bool kWrap, bool kHalo, class Tile, int K>
 __device__ __forceinline__ void y_face(const StageArgs<kDeg>& g, Tile& s, int t, int r, int c,
                                        const float (&lo)[K], const float (&hi)[K]) {
   using W = StageWindows<kDeg, kMetric, kQv, kMasks>;
   constexpr int kVol = DgShape<kDeg>::kVol, kEdge = DgShape<kDeg>::kEdge;
-  const int j = blockIdx.x * kStageCols + c;
-  const bool open = (kWrap && (g.wrap & kWrapY)) || (j > 0 && j < g.ny);
+  const int j = blockIdx.x * kStageCols + c + (kHalo ? 1 : 0);
+  const bool open = kHalo ? j != g.wall[3] && j != g.wall[2] + 1
+                          : (kWrap && (g.wrap & kWrapY)) || (j > 0 && j < g.ny);
 #pragma unroll
   for (int e = 0; e < kEdge; ++e) {
     const float vn = kQv ? s.win[2 * kVol + kEdge + e][r][c]
@@ -173,7 +183,15 @@ __device__ __forceinline__ void y_face(const StageArgs<kDeg>& g, Tile& s, int t,
 // tracers read the face masks, the advection run's one does not. kWrap: the
 // periodic form (the windows wrap on the axes of g.wrap, no face is a
 // wall); without it g.wrap is not read and the code is the closed domain's.
-template <int kDeg, int kTracers, bool kMetric, bool kQv, bool kBlend, bool kLimit, bool kWrap>
+// kHalo: the halo form on a rank block widened by one ring (g.nx x g.ny
+// the widened shape): the tiles cover the block's own (nx - 2) x (ny - 2)
+// elements, whose neighbours' coefficients, velocity, face masks and
+// metric are the ring's; base and out are the unwidened block's; a face is
+// a wall only at the global walls of g.wall (the ring beyond a closed wall
+// is zeros and is never a neighbour's source of flux); 4-byte copies (the
+// own block starts one cell into a widened row).
+template <int kDeg, int kTracers, bool kMetric, bool kQv, bool kBlend, bool kLimit, bool kWrap,
+          bool kHalo = false>
 __global__ void __launch_bounds__(StageShape<kDeg, kTracers>::kThreads,
                                   StageShape<kDeg, kTracers>::kBlocksPerSm)
 dg1_rk_stage_kernel(const __grid_constant__ StageArgs<kDeg> g) {
@@ -186,14 +204,17 @@ dg1_rk_stage_kernel(const __grid_constant__ StageArgs<kDeg> g) {
   Tile& s = *reinterpret_cast<Tile*>(stage_smem);
   const int lane = threadIdx.x, r = threadIdx.y, t = threadIdx.z;
   const int tid = lane + kStageCols * (r + kStageRows * t);
-  const int i0 = blockIdx.y * kStageRows, j0 = blockIdx.x * kStageCols;
+  constexpr int kRing = kHalo ? 1 : 0;  // the own block's first row and column
+  const int i0 = blockIdx.y * kStageRows + kRing, j0 = blockIdx.x * kStageCols + kRing;
   const int i = i0 + r, j = j0 + lane;
   const int nx = g.nx, ny = g.ny;
-  const bool own = i < nx && j < ny;
-  const long plane = static_cast<long>(nx) * ny;
-  const long ij = static_cast<long>(i) * ny + j;
+  // The element's place in base and out: the unwidened block's in the halo form.
+  const int out_nx = nx - 2 * kRing, out_ny = ny - 2 * kRing;
+  const bool own = i - kRing < out_nx && j - kRing < out_ny;
+  const long plane = static_cast<long>(out_nx) * out_ny;
+  const long ij = static_cast<long>(i - kRing) * out_ny + (j - kRing);
 
-  if (g.vector) {
+  if (!kHalo && g.vector) {
     copy_tile<4, kTracers, kWrap>(g, s, W::kCount, i0, j0, tid);
   } else {
     copy_tile<1, kTracers, kWrap>(g, s, W::kCount, i0, j0, tid);
@@ -212,19 +233,19 @@ dg1_rk_stage_kernel(const __grid_constant__ StageArgs<kDeg> g) {
     float p[kDofs], lo[kDofs];
     tile_coeffs<kTracers>(s, t, r + 1, c, p);
     tile_coeffs<kTracers>(s, t, r, c, lo);
-    x_face<kDeg, kMetric, kQv, kMasks, kWrap>(g, s, t, r, lane, lo, p);
+    x_face<kDeg, kMetric, kQv, kMasks, kWrap, kHalo>(g, s, t, r, lane, lo, p);
     tile_coeffs<kTracers>(s, t, r + 1, c - 1, lo);
-    y_face<kDeg, kMetric, kQv, kMasks, kWrap>(g, s, t, r, lane, lo, p);
+    y_face<kDeg, kMetric, kQv, kMasks, kWrap, kHalo>(g, s, t, r, lane, lo, p);
     if (r == kStageRows - 1) {  // the x face below the next tile's first row
       float hi[kDofs];
       tile_coeffs<kTracers>(s, t, r + 2, c, hi);
-      x_face<kDeg, kMetric, kQv, kMasks, kWrap>(g, s, t, r + 1, lane, p, hi);
+      x_face<kDeg, kMetric, kQv, kMasks, kWrap, kHalo>(g, s, t, r + 1, lane, p, hi);
     }
     if (r == 0 && lane < kStageRows) {  // the y face left of the next tile, row `lane`
       float hi[kDofs];
       tile_coeffs<kTracers>(s, t, lane + 1, kPsiLead + kStageCols - 1, lo);
       tile_coeffs<kTracers>(s, t, lane + 1, kPsiLead + kStageCols, hi);
-      y_face<kDeg, kMetric, kQv, kMasks, kWrap>(g, s, t, lane, kStageCols, lo, hi);
+      y_face<kDeg, kMetric, kQv, kMasks, kWrap, kHalo>(g, s, t, lane, kStageCols, lo, hi);
     }
   }
   if (!kQv) {
@@ -272,17 +293,19 @@ dg1_rk_stage_kernel(const __grid_constant__ StageArgs<kDeg> g) {
 
 // One launch of an instance: its tile in dynamic shared memory.
 template <int kDeg, int kTracers, bool kMetric, bool kQv, bool kBlend, bool kLimit,
-          bool kWrap = false>
+          bool kWrap = false, bool kHalo = false>
 cudaError_t launch_stage(const StageArgs<kDeg>& g, cudaStream_t stream) {
   using W = StageWindows<kDeg, kMetric, kQv, kTracers != 1>;
   constexpr int bytes = static_cast<int>(sizeof(StageTile<kDeg, kTracers, W::kCount, !kQv>));
-  const auto kernel = dg1_rk_stage_kernel<kDeg, kTracers, kMetric, kQv, kBlend, kLimit, kWrap>;
+  const auto kernel = dg1_rk_stage_kernel<kDeg, kTracers, kMetric, kQv, kBlend, kLimit, kWrap, kHalo>;
   if (bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((g.ny + kStageCols - 1) / kStageCols, (g.nx + kStageRows - 1) / kStageRows);
+  constexpr int kRing = kHalo ? 1 : 0;  // tiles over the own block
+  const int nx = g.nx - 2 * kRing, ny = g.ny - 2 * kRing;
+  const dim3 grid((ny + kStageCols - 1) / kStageCols, (nx + kStageRows - 1) / kStageRows);
   kernel<<<grid, dim3(kStageCols, kStageRows, kTracers), bytes, stream>>>(g);
   return cudaGetLastError();
 }
@@ -320,6 +343,60 @@ template <int kDeg>
 cudaError_t run_stage_periodic_qv_metric(const StageArgs<kDeg>& g, bool blend, int mode,
                                          cudaStream_t s);
 
+// The halo form's instances (transport_spmd.cu): the coupled step's 3
+// tracers with face masks in the limited and (dG1, dG2) the TVB form's
+// unlimited mode, on the CG1 velocity, uniform or metric; those of the qv
+// form through run_stage_halo_qv.
+template <int kDeg>
+cudaError_t run_stage_halo(const StageArgs<kDeg>& g, bool metric, bool qv, bool blend, int mode,
+                           cudaStream_t s);
+
+// The halo form's instances of the HO path's qv form (transport_spmd_qv.cu).
+template <int kDeg>
+cudaError_t run_stage_halo_qv(const StageArgs<kDeg>& g, bool metric, bool blend, int mode,
+                              cudaStream_t s);
+
 inline bool aligned16(const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 == 0; }
+
+// A launch's arguments (see nst_dg1_rk_stage): the windows in the order of
+// StageWindows, and `vector` where every copied plane and its rows are
+// 16-byte aligned.
+template <int kDeg>
+StageArgs<kDeg> stage_args(const float* psi, const float* base, const float* u, const float* v,
+                           const float* face_x, const float* face_y, const void* const* metric,
+                           const void* const* qv, float* out, int nx, int ny, int mode, int wrap,
+                           float a, float b, float dt, const float* tables) {
+  StageArgs<kDeg> g = {};
+  g.psi = psi;
+  g.base = base;
+  g.out = out;
+  int n = 0;
+  if (qv != nullptr) {
+    for (int k = 0; k < DgQvPlanes<kDeg>::kCount; ++k) g.win[n++] = static_cast<const float*>(qv[k]);
+  } else {
+    g.win[n++] = u;
+    g.win[n++] = v;
+  }
+  if (mode != kStageRun) {
+    g.win[n++] = face_x;
+    g.win[n++] = face_y;
+  }
+  if (metric != nullptr) {  // Dg1MetricPlanes: inv_dx, inv_dy, len_x, len_y, inv_area
+    const int order[5] = {2, 3, 0, 1, 4};
+    for (int k : order) g.win[n++] = static_cast<const float*>(metric[k]);
+  }
+  g.nx = nx;
+  g.ny = ny;
+  g.wrap = wrap;
+  g.a = a;
+  g.b = b;
+  g.dt = dt;
+  std::memcpy(&g.tb, tables, sizeof(g.tb));
+  bool vector = ny % 4 == 0 && aligned16(psi);
+  for (int k = 0; k < n; ++k) vector = vector && aligned16(g.win[k]);
+  g.vector = vector;
+  for (int w = 0; w < 4; ++w) g.wall[w] = -1;
+  return g;
+}
 
 }  // namespace nst

@@ -333,38 +333,8 @@ int stage_call(const float* psi, const float* base, const float* u, const float*
                const float* face_x, const float* face_y, const void* const* metric,
                const void* const* qv, float* out, int nx, int ny, int mode, int wrap, float a,
                float b, float dt, const float* tables, cudaStream_t stream) {
-  StageArgs<kDeg> g = {};
-  g.psi = psi;
-  g.base = base;
-  g.out = out;
-  // The windows in the order of StageWindows.
-  int n = 0;
-  if (qv != nullptr) {
-    for (int k = 0; k < DgQvPlanes<kDeg>::kCount; ++k) g.win[n++] = static_cast<const float*>(qv[k]);
-  } else {
-    g.win[n++] = u;
-    g.win[n++] = v;
-  }
-  if (mode != kStageRun) {
-    g.win[n++] = face_x;
-    g.win[n++] = face_y;
-  }
-  if (metric != nullptr) {  // Dg1MetricPlanes: inv_dx, inv_dy, len_x, len_y, inv_area
-    const int order[5] = {2, 3, 0, 1, 4};
-    for (int k : order) g.win[n++] = static_cast<const float*>(metric[k]);
-  }
-  g.nx = nx;
-  g.ny = ny;
-  g.wrap = wrap;
-  g.a = a;
-  g.b = b;
-  g.dt = dt;
-  std::memcpy(&g.tb, tables, sizeof(g.tb));
-  // 16-byte copies where every copied plane is 16-byte aligned, and so is
-  // each of its rows.
-  bool vector = ny % 4 == 0 && aligned16(psi);
-  for (int k = 0; k < n; ++k) vector = vector && aligned16(g.win[k]);
-  g.vector = vector;
+  const StageArgs<kDeg> g = stage_args<kDeg>(psi, base, u, v, face_x, face_y, metric, qv, out, nx,
+                                             ny, mode, wrap, a, b, dt, tables);
   return static_cast<int>(
       run_stage<kDeg>(g, metric != nullptr, qv != nullptr, a != 0.0f, mode, stream));
 }

@@ -83,7 +83,8 @@
 // walls sit inside the launch's domain, at rows and columns the host
 // passes, and the edges of the widened block are no walls to the limiter
 // (the ring beyond them is discarded), as the JAX kernel's wall-delta
-// masks have it.
+// masks have it; transport_tiled_spmd_qv.cu the same form in the HO path's
+// qv form (the samples widened with the block).
 //
 // The TVB form (kTvb, dG1 and dG2 on a uniform mesh, whose tolerance is one
 // number an axis): each stage writes its unlimited values, and after a

@@ -3,7 +3,8 @@
 // the TVB form, the periodic form and the TVB walls' source, shared by the
 // sources that instantiate it: transport_tiled.cu (the closed instances
 // without TVB, and the entry points), transport_tiled_forms.cu (the TVB and
-// periodic forms) and transport_tiled_spmd.cu (the rank grid's TVB form),
+// periodic forms), transport_tiled_spmd.cu and transport_tiled_spmd_qv.cu
+// (the rank grid's TVB form, on the CG1 velocity and the qv samples),
 // which nvcc compiles in parallel. The design is described in transport_tiled.cu.
 #pragma once
 
@@ -407,13 +408,21 @@ TransportKernel<kDeg> transport_tiled_forms_of(bool metric, bool qv, bool vec, b
 template <int kDeg>
 TransportKernel<kDeg> transport_tiled_walls_of(bool vec);
 
+// The same in the HO path's qv form (transport_tiled_spmd_qv.cu).
+template <int kDeg>
+TransportKernel<kDeg> transport_tiled_walls_qv_of(bool vec);
+
 // The instance of a launch: the closed, untouched instances are compiled in
 // transport_tiled.cu, the forms in transport_tiled_forms.cu and, with the
-// TVB walls given (walls), transport_tiled_spmd.cu.
+// TVB walls given (walls), transport_tiled_spmd.cu (the CG1 velocity) and
+// transport_tiled_spmd_qv.cu (the qv form).
 template <int kDeg>
 TransportKernel<kDeg> transport_tiled_of(bool metric, bool qv, bool vec, bool tvb, int wrap,
                                          bool walls = false) {
-  if (walls) return tvb && !metric && !qv && !wrap ? transport_tiled_walls_of<kDeg>(vec) : nullptr;
+  if (walls) {
+    if (!tvb || metric || wrap) return nullptr;
+    return qv ? transport_tiled_walls_qv_of<kDeg>(vec) : transport_tiled_walls_of<kDeg>(vec);
+  }
   return tvb || wrap ? transport_tiled_forms_of<kDeg>(metric, qv, vec, tvb, wrap)
                      : transport_tiled_select<kDeg, false, false>(metric, qv, vec);
 }

@@ -34,6 +34,7 @@
 // that nvcc compiles the two sources in parallel.
 #include <cstring>
 
+#include "dg1_limit.cuh"
 #include "dg1_stage.cuh"
 
 namespace nst {
@@ -60,55 +61,6 @@ cudaError_t run_stage_unlimited(const StageArgs<kDeg>& g, bool metric, bool qv, 
 
 template cudaError_t run_stage_unlimited<1>(const StageArgs<1>&, bool, bool, bool, cudaStream_t);
 template cudaError_t run_stage_unlimited<2>(const StageArgs<2>&, bool, bool, bool, cudaStream_t);
-
-// Everything a dg1_limit launch takes.
-template <int kDeg>
-struct LimitArgs {
-  float* psi;            // (K, n_tracers, nx, ny), limited in place
-  const float* tol_x;    // (nx, ny) with kMetric, else null
-  const float* tol_y;
-  int nx, ny, n_tracers, wrap;
-  float tol_x0, tol_y0;  // the uniform mesh's tolerances
-  DgTables<kDeg> tb;
-};
-
-// One thread an element, walking the tracers.
-template <int kDeg, bool kMetric>
-__global__ void __launch_bounds__(kBlockX * kBlockY) dg1_limit_kernel(const LimitArgs<kDeg> g) {
-  constexpr int K = DgShape<kDeg>::kDofs;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int nx = g.nx, ny = g.ny;
-  if (i >= nx || j >= ny) return;
-  const bool wx = (g.wrap & kWrapX) != 0, wy = (g.wrap & kWrapY) != 0;
-  // The neighbours' indices: wrapped on a periodic axis, -1 beyond a wall.
-  const int il = i > 0 ? i - 1 : (wx ? nx - 1 : -1);
-  const int ir = i + 1 < nx ? i + 1 : (wx ? 0 : -1);
-  const int jb = j > 0 ? j - 1 : (wy ? ny - 1 : -1);
-  const int jt = j + 1 < ny ? j + 1 : (wy ? 0 : -1);
-  const long plane = static_cast<long>(nx) * ny;
-  const long ij = static_cast<long>(i) * ny + j;
-  TvbNeighbours n;
-  n.wall_l = il < 0;
-  n.wall_r = ir < 0;
-  n.wall_b = jb < 0;
-  n.wall_t = jt < 0;
-  n.tol_x = kMetric ? __ldg(g.tol_x + ij) : g.tol_x0;
-  n.tol_y = kMetric ? __ldg(g.tol_y + ij) : g.tol_y0;
-  for (int t = 0; t < g.n_tracers; ++t) {
-    const float* mean = g.psi + t * plane;  // coefficient 0 of tracer t
-    n.m_l = n.wall_l ? 0.0f : mean[static_cast<long>(il) * ny + j];
-    n.m_r = n.wall_r ? 0.0f : mean[static_cast<long>(ir) * ny + j];
-    n.m_b = n.wall_b ? 0.0f : mean[static_cast<long>(i) * ny + jb];
-    n.m_t = n.wall_t ? 0.0f : mean[static_cast<long>(i) * ny + jt];
-    float val[K], out[K];
-#pragma unroll
-    for (int d = 0; d < K; ++d) val[d] = g.psi[(d * g.n_tracers + t) * plane + ij];
-    dg_tvb_limit<kDeg>(g.tb, val, n, out);
-#pragma unroll
-    for (int d = 1; d < K; ++d) g.psi[(d * g.n_tracers + t) * plane + ij] = out[d];
-  }
-}
 
 template <int kDeg>
 int limit_call(float* psi, const float* tol_x, const float* tol_y, float tol_x0, float tol_y0,

@@ -15,7 +15,11 @@ kernel              source                      plain version (same inputs)
 ``mevp_velocity``   ``csrc/mevp.cu``            ``MEVPSolver.velocity_update``
 ``dg1_sample_cfl``  ``csrc/transport.cu``       ``dg1_sample_cfl_reference``
 ``dg1_rk_stage``    ``csrc/transport.cu``       ``dg1_rk_stage_reference``
+                    (halo form:                 ``dg1_rk_stage_halo_reference``
+                    ``transport_spmd*.cu``)
 ``dg1_limit``       ``csrc/transport_tvb.cu``   ``dg1_limit_reference``
+                    (halo form:                 ``dg1_limit_halo_reference``
+                    ``transport_tvb_spmd.cu``)
 ``mevp_tiled``      ``csrc/mevp_tiled.cu``      ``mevp_subcycles_reference``
 ``transport_tiled`` ``csrc/transport_tiled.cu`` ``transport_substeps_reference``
 ``mevp_single``     ``csrc/mevp_single.cu``     ``mevp_subcycles_reference``
@@ -86,7 +90,13 @@ velocity's quadrature samples), agrees k over the ranks with one host sync
 for the whole grid, and advects with ``transport_tiled`` on the widened
 block (``transport_tiled_cuda.transport_substeps_tiled_spmd``: on a graded
 or spherical mesh with the widened metric planes, with TVB with the global
-walls inside the block, with the HO solver with the widened samples).
+walls inside the block, with the HO solver with the widened samples, and
+both), or on the staged route (``spmd_staged_transport``: TVB on a graded,
+spherical or ring mesh, and ``transport="xla"``), whose stages are the halo
+forms of ``dg1_rk_stage`` and ``dg1_limit``: each reads the rank's block
+widened by one ring (psi, or the stage's means, exchanged before each
+launch) and the four global walls as indices, and writes the block's own
+elements (``dg1_rk_stage_halo``, ``dg1_limit_halo``).
 
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
@@ -264,6 +274,10 @@ def _bind():
     lib.nst_dg1_sample_cfl.argtypes = [p] * 4 + [i] * 9 + tail
     lib.nst_dg1_rk_stage.argtypes = [p] * 9 + [i] * 6 + [f, f, f] + tail
     lib.nst_dg1_limit.argtypes = [p, p, p, f, f] + [i] * 5 + tail
+    lib.nst_dg1_rk_stage_halo.argtypes = [p] * 9 + [i] * 5 + [p, f, f, f] + tail
+    lib.nst_dg1_rk_stage_halo.restype = i
+    lib.nst_dg1_limit_halo.argtypes = [p, p, p, p, f, f] + [i] * 4 + [p] + tail
+    lib.nst_dg1_limit_halo.restype = i
     lib.nst_mevp_tiled.argtypes = [p] * 11 + [i] * 7 + tail
     lib.nst_transport_tiled.argtypes = [p] * 8 + [i] * 15 + [p, p, p, f] + tail
     lib.nst_mevp_single.argtypes = [p] * 7 + [i] * 9 + [p] + tail
@@ -742,6 +756,165 @@ def dg1_limit(transport: DGTransport, psi):
     return out
 
 
+def _walls(walls):
+    """The halo forms' four wall indices as a C int[4]."""
+    if len(walls) != 4:
+        raise ValueError(f"the halo forms take four wall indices, got {walls!r}")
+    return (ctypes.c_int * 4)(*map(int, walls))
+
+
+def _dg1_rk_stage_halo_(
+    psi_w, base, u_w, v_w, face_x_w, face_y_w, metric, out, a, b, dt_sub, tables, stream, walls,
+    qv=None, tvb: bool = False,
+):
+    """One launch of dg1_rk_stage's halo form (arguments already checked)
+    into ``out``, the block's own (K, 3, nx, ny): ``psi_w``, the velocity
+    (u_w, v_w, or the ``qv`` plane pointers of ``_dg1_qv``), the face masks
+    and ``metric`` (``_dg1_metric`` of the widened planes) are the block
+    widened by one ring; ``walls``: ``_walls`` of the global walls' indices
+    in the widened block. Positivity-limited, or with ``tvb`` unlimited
+    (``_dg1_limit_halo_`` follows). Counted as a ``dg1_rk_stage`` launch."""
+    if out.data_ptr() == psi_w.data_ptr():
+        raise ValueError("dg1_rk_stage reads its neighbours' psi: out must not alias psi")
+    _, n_tracers, nx, ny = psi_w.shape
+    if tvb and tables.degree == 0:
+        raise ValueError("dg1_rk_stage's TVB form runs the coupled step's 3 tracers at dG1 and dG2")
+    uv = (u_w.data_ptr(), v_w.data_ptr()) if qv is None else (None, None)
+    _launch(
+        "dg1_rk_stage",
+        psi_w.data_ptr(), base.data_ptr(), *uv, face_x_w.data_ptr(), face_y_w.data_ptr(), metric, qv,
+        out.data_ptr(), nx, ny, n_tracers, tables.degree, _STAGE_UNLIMITED if tvb else _STAGE_LIMITED,
+        walls, a, b, dt_sub, ctypes.addressof(tables), psi_w.device.index, stream,
+        entry="dg1_rk_stage_halo",
+    )
+
+
+def _dg1_limit_halo_(psi, means_w, tolerances, tables, stream, walls):
+    """One launch of dg1_limit's halo form in place on the block's own
+    ``psi`` (K, T, nx, ny), checked: the neighbours' means from ``means_w``
+    (T, nx + 2, ny + 2), the stage's means widened by one ring; ``walls``:
+    ``_walls`` of the global walls' indices in the widened block;
+    ``tolerances`` as ``_dg1_limit_``'s (the block's own planes). Counted as
+    a ``dg1_limit`` launch."""
+    _, n_tracers, nx, ny = psi.shape
+    tol_x, tol_y = tolerances
+    if isinstance(tol_x, torch.Tensor):
+        planes, scalars = (tol_x.data_ptr(), tol_y.data_ptr()), (0.0, 0.0)
+    else:
+        planes, scalars = (None, None), (tol_x, tol_y)
+    _launch(
+        "dg1_limit", psi.data_ptr(), means_w.data_ptr(), *planes, *scalars, nx, ny, n_tracers,
+        tables.degree, walls, ctypes.addressof(tables), psi.device.index, stream,
+        entry="dg1_limit_halo",
+    )
+
+
+def dg1_rk_stage_halo_reference(
+    transport: DGTransport, psi_w, base, u_w, v_w, face_x_w, face_y_w, walls,
+    a: float, b: float, dt_sub: float, qv: QuadVelocity = None, metric: dict = None,
+    tvb: bool = False,
+):
+    """lim(a base + b (psi + dt_sub rhs(psi))) on a rank block's own
+    elements, or lim(psi + dt_sub rhs(psi)) when a == 0, from the block
+    widened by one ring: ``transport`` the widened block's
+    (``CoupledModel.widened_transport(1)``), ``psi_w`` (K, T, nx + 2,
+    ny + 2), the CG1 nodes (u_w, v_w) or the samples ``qv``, the face masks
+    and ``metric`` (the widened planes; None on a uniform mesh) widened
+    likewise; ``base`` the block's own. ``walls``: (fwd_x, bwd_x, fwd_y,
+    bwd_y), the widened block's row (column) of the global last and first
+    wall's elements, -1 for none (``transport_tiled_cuda.spmd_walls(model,
+    1)``): the first's left (bottom) faces and the last's right (top) faces
+    carry no flux, here by zeroing the face masks there. lim is the
+    positivity limiter, or with ``tvb`` the identity."""
+    if qv is None:
+        qv = velocity_from_cg(transport.mesh, transport.basis, u_w, v_w)
+    fwd_x, bwd_x, fwd_y, bwd_y = walls
+    face_x, face_y = face_x_w.clone(), face_y_w.clone()
+    for plane, axis, first, last in ((face_x, 0, bwd_x, fwd_x), (face_y, 1, bwd_y, fwd_y)):
+        for face in (first, last + 1 if last >= 0 else -1):
+            if 0 <= face < plane.shape[axis]:
+                plane.narrow(axis, face, 1).zero_()
+    own = (Ellipsis, slice(1, -1), slice(1, -1))
+    value = psi_w[own] + dt_sub * transport.rhs(psi_w, qv, (face_x, face_y), metric)[own]
+    if a != 0.0:
+        value = a * base + b * value
+    return value if tvb else transport.limit_positivity(value)
+
+
+def dg1_rk_stage_halo(
+    transport: DGTransport, psi_w, base, u_w, v_w, face_x_w, face_y_w, walls,
+    a: float, b: float, dt_sub: float, qv: QuadVelocity = None, metric: dict = None,
+    tvb: bool = False,
+):
+    """One SSP-RK stage of a rank block's 3 tracers from the block widened
+    by one ring (see the reference): the block's own (K, 3, nx, ny). CPU
+    tensors run the plain version; CUDA tensors one launch of
+    dg1_rk_stage's halo form, positivity-limited or with ``tvb`` (dG1, dG2)
+    unlimited for ``dg1_limit_halo``."""
+    if _on_cpu(psi_w):
+        return dg1_rk_stage_halo_reference(
+            transport, psi_w, base, u_w, v_w, face_x_w, face_y_w, walls, a, b, dt_sub, qv=qv,
+            metric=metric, tvb=tvb,
+        )
+    shape_w = (transport.mesh.nx, transport.mesh.ny)
+    n_dofs, degree = transport.basis.n_dofs, transport.basis.degree
+    _check(shape_w, psi_w.device, face_x=face_x_w, face_y=face_y_w)
+    _check((n_dofs, STAGE_TRACERS, *shape_w), psi_w.device, psi=psi_w)
+    _check((n_dofs, STAGE_TRACERS, shape_w[0] - 2, shape_w[1] - 2), psi_w.device, base=base)
+    if qv is None:
+        _check(shape_w, psi_w.device, u=u_w, v=v_w)
+        qv_ptrs = None
+    else:
+        qv_ptrs = _dg1_qv(qv, shape_w, psi_w.device, degree)
+    if metric is not None:
+        _check(shape_w, psi_w.device, **{f"metric {name}": metric[name] for name in _DG1_METRIC})
+    out = torch.empty_like(base)
+    _dg1_rk_stage_halo_(
+        psi_w, base, u_w, v_w, face_x_w, face_y_w, _dg1_metric(transport, psi_w.device, metric), out,
+        a, b, dt_sub, _dg1_tables(transport), _stream(psi_w.device), _walls(walls), qv=qv_ptrs, tvb=tvb,
+    )
+    return out
+
+
+def dg1_limit_halo_reference(transport: DGTransport, psi, means_w, walls):
+    """``limit_positivity(limit_slopes(psi))`` of a rank block's own
+    coefficients ``psi`` (``transport`` the block's), the neighbours' means
+    taken from ``means_w`` (T, nx + 2, ny + 2), the block's means widened
+    by one ring: each mean difference zeroed at the global walls ``walls``
+    (as ``dg1_rk_stage_halo_reference``'s: the last wall's forward, the
+    first's backward difference), as the single domain zeroes it at its
+    edges."""
+    mean = psi[0]
+    deltas = (
+        means_w[..., 2:, 1:-1] - mean, mean - means_w[..., :-2, 1:-1],
+        means_w[..., 1:-1, 2:] - mean, mean - means_w[..., 1:-1, :-2],
+    )
+    for delta, axis, wall in zip(deltas, (-2, -2, -1, -1), walls):
+        if wall >= 0:
+            delta.narrow(axis, wall - 1, 1).zero_()
+    return transport.limit_positivity(transport.limit_slopes_by(psi, deltas))
+
+
+def dg1_limit_halo(transport: DGTransport, psi, means_w, walls):
+    """The TVB limiter of a rank block's stage (``transport`` the block's),
+    from its means widened by one ring (see the reference). CPU tensors run
+    the plain version; CUDA tensors one launch of dg1_limit's halo form on
+    a copy."""
+    if _on_cpu(psi):
+        return dg1_limit_halo_reference(transport, psi, means_w, walls)
+    if not transport.limits_slopes:
+        raise ValueError("dg1_limit runs the TVB limiter: the transport needs tvb_m at dG1 or dG2")
+    mesh = transport.mesh
+    _check((transport.basis.n_dofs, psi.shape[1], mesh.nx, mesh.ny), psi.device, psi=psi)
+    _check((psi.shape[1], mesh.nx + 2, mesh.ny + 2), psi.device, means_w=means_w)
+    out = psi.clone()
+    tolerances = transport.tvb_tolerances(device=psi.device, dtype=torch.float32)
+    if isinstance(tolerances[0], torch.Tensor):
+        _check((mesh.nx, mesh.ny), psi.device, tol_x=tolerances[0], tol_y=tolerances[1])
+    _dg1_limit_halo_(out, means_w, tolerances, _dg1_tables(transport), _stream(psi.device), _walls(walls))
+    return out
+
+
 # -- the four kernels, one launch each -----------------------------------------
 def mevp_stress(solver: MEVPSolver, carry, consts):
     """First half of an mEVP subcycle: (s11, s22, s12, c_w, inv_drag), and
@@ -925,6 +1098,86 @@ def transport_substeps_reference(
             wall_masks=wall_masks,
         )
     return tracers
+
+
+def spmd_staged_transport(
+    model, tracers, dt_sub: float, k: int, face_masks=None, velocity_w=None, qv: QuadVelocity = None,
+):
+    """The rank's tracers after k limited substeps of ``dt_sub`` on the
+    staged route of a rank grid (``model``: the rank's ``CoupledModel``;
+    ``tracers`` (K, T, nx, ny) and ``face_masks`` its block's): the JAX
+    package's staged spmd transport, whose neighbour shifts exchange
+    width-1 strips (TVB on a graded, spherical or ring mesh, and
+    ``transport_backend="xla"``). The velocity is ``velocity_w``, the
+    rank's (u, v) widened by one ring (``transport_tiled_cuda.
+    widen_velocity(model, u, v, 1)``), or with the HO solver ``qv``, the
+    block's quadrature samples, widened here. The face masks and the
+    samples are widened once (one exchange per axis), the metric planes are
+    the widened block's (``CoupledModel.widened_metric(1)``); then each RK
+    stage of each substep widens psi by one ring (one exchange per axis)
+    and runs ``dg1_rk_stage_halo`` into the block's own coefficients, and
+    with the TVB limiter widens the stage's means and runs
+    ``dg1_limit_halo``. The global walls are the widened block's indices
+    (``spmd_walls(model, 1)``); a ring's wrap arrives through the exchange.
+    CUDA tensors launch the two halo forms (and nothing of the plain
+    versions); CPU tensors run their plain versions, the same route."""
+    from .transport_tiled_cuda import _widen, spmd_walls
+
+    tr, mesh = model.transport, model.mesh
+    if (velocity_w is None) == (qv is None):
+        raise ValueError("the staged spmd transport takes the widened (u, v) or the samples qv, one of them")
+    nx, ny = mesh.nx, mesh.ny
+    on_cpu = _on_cpu(tracers)
+    local = model.widened_transport(1)
+    walls = spmd_walls(model, 1)
+    ones = torch.ones_like(tracers[0, 0])
+    faces = (ones, ones) if face_masks is None else face_masks
+    face_x, face_y = _widen(model, torch.stack(list(faces)), 1)
+    metric = model.widened_metric(1, device=tracers.device, dtype=tracers.dtype)
+    u_w = v_w = qv_w = None
+    if qv is None:
+        u_w, v_w = velocity_w[0], velocity_w[1]
+    else:
+        fields = ("vx_vol", "vy_vol", "vn_x", "vn_y")
+        counts = [getattr(qv, f).shape[0] for f in fields]
+        stacked = _widen(model, torch.cat([getattr(qv, f) for f in fields]), 1)
+        qv_w = QuadVelocity(*torch.split(stacked, counts))
+    tvb = tr.limits_slopes
+    if on_cpu:
+        def stage(cur, base, out, a, b):
+            value = dg1_rk_stage_halo_reference(
+                local, _widen(model, cur, 1), base, u_w, v_w, face_x, face_y, walls, a, b, dt_sub,
+                qv=qv_w, metric=metric, tvb=tvb,
+            )
+            if tvb:
+                value = dg1_limit_halo_reference(tr, value, _widen(model, value[0], 1), walls)
+            out.copy_(value)
+
+        return _staged_steps(tracers.clone(), _RK_STAGES[tr.scheme], k, stage)
+
+    shape_w = (nx + 2, ny + 2)
+    device = tracers.device
+    _check((tr.basis.n_dofs, STAGE_TRACERS, nx, ny), device, tracers=tracers)
+    _check(shape_w, device, face_x=face_x, face_y=face_y)
+    if qv is None:
+        _check((2, *shape_w), device, velocity_w=velocity_w)
+        qv_ptrs = None
+    else:
+        qv_ptrs = _dg1_qv(qv_w, shape_w, device, tr.basis.degree)
+    tables, stream = _dg1_tables(local), _stream(device)
+    metric_ptrs = _dg1_metric(local, device, metric)
+    wall_array = _walls(walls)
+    tolerances = tr.tvb_tolerances(device=device, dtype=torch.float32) if tvb else None
+
+    def stage(cur, base, out, a, b):
+        _dg1_rk_stage_halo_(
+            _widen(model, cur, 1), base, u_w, v_w, face_x, face_y, metric_ptrs, out, a, b, dt_sub,
+            tables, stream, wall_array, qv=qv_ptrs, tvb=tvb,
+        )
+        if tvb:
+            _dg1_limit_halo_(out, _widen(model, out[0], 1), tolerances, tables, stream, wall_array)
+
+    return _staged_steps(tracers.clone(), _RK_STAGES[tr.scheme], k, stage)
 
 
 def _face_planes(like, face_masks, shape):
@@ -1157,14 +1410,17 @@ def _spmd_dynamics_phase(
     the free-drift step, "free-drift", plain on every device); the
     max speeds of the rank's own elements, the max over the ranks and k;
     then ``transport="tiled"``: ``transport_substeps_tiled_spmd``
-    (transport_tiled on the block widened by H), or ``"xla"``: the plain
-    staged transport with width-1 exchanges, on CPU tensors only.
+    (transport_tiled on the block widened by H), or ``"xla"``: the staged
+    route with width-1 exchanges (``spmd_staged_transport``: the halo forms
+    of dg1_rk_stage and dg1_limit on a card, their plain versions on the
+    CPU).
 
-    With the tiled transport the velocity is widened by H once: on a card
-    ``dg1_sample_cfl`` samples the block's own elements inside it (the nodes
-    beyond the block are the neighbours'), and the transport advects with
-    it. With the HO solver (``_spmd_ho_phase``) the CG2 velocity is sampled
-    at the quadrature points through the exchange instead."""
+    The velocity is widened once, by H for the tiled transport and by one
+    ring for the staged route: on a card ``dg1_sample_cfl`` samples the
+    block's own elements inside it (the nodes beyond the block are the
+    neighbours'), and the transport advects with it. With the HO solver
+    (``_spmd_ho_phase``) the CG2 velocity is sampled at the quadrature
+    points through the exchange instead."""
     from .transport_tiled_cuda import transport_substeps_tiled_spmd, widen_velocity
 
     solver, tr, mesh = model.mevp, model.transport, model.mesh
@@ -1174,28 +1430,14 @@ def _spmd_dynamics_phase(
             f"{model.mevp_schedule()!r}), transport={transport!r}"
         )
     on_cpu = _on_cpu(tracers)
-    if transport == "xla" and not on_cpu:
-        if tr.limits_slopes and not mesh.uniform:
-            raise NotImplementedError(
-                "TVB on a graded or spherical rank grid runs the staged transport with "
-                "width-1 exchanges, the plain path (CPU tensors); on a card it is ROADMAP M10c"
-            )
-        raise NotImplementedError(
-            "on a card the rank grid advects with transport_tiled only; the plain "
-            "staged transport with width-1 exchanges ('xla') takes CPU tensors "
-            f"(transport_backend={model.transport_backend!r}: {tr.scheme} on a "
-            f"{mesh.nx} x {mesh.ny} block)"
-        )
     if model.is_high_order:
-        return _spmd_ho_phase(
-            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport, on_cpu
-        )
+        return _spmd_ho_phase(model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport)
     if mevp == "free-drift":  # plain on every device; its node averages exchange
         planes = free_drift_subcycles(solver, state_arrays, consts, dt, n_subcycles)
     else:
         planes = solver.spmd_subcycles(state_arrays, consts, dt, n_subcycles)
     u, v = planes[0], planes[1]
-    velocity_w = widen_velocity(model, u, v) if transport == "tiled" else None
+    velocity_w = widen_velocity(model, u, v, None if transport == "tiled" else 1)
     if not model.auto_substeps:
         k = model.transport_substeps
     elif on_cpu:
@@ -1209,36 +1451,28 @@ def _spmd_dynamics_phase(
         k = _k_of_speeds(model, speeds, dt)
     if transport == "tiled":
         return planes, transport_substeps_tiled_spmd(model, tracers, velocity_w, dt / k, k, face_masks)
-    qv = velocity_from_cg(mesh, tr.basis, u, v, model.spmd)
-    return planes, transport_substeps_reference(tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
+    return planes, spmd_staged_transport(model, tracers, dt / k, k, face_masks, velocity_w=velocity_w)
 
 
-def _spmd_ho_phase(
-    model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport, on_cpu,
-):
+def _spmd_ho_phase(model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport):
     """The HO solver's ``_spmd_dynamics_phase``: the N subcycles on the
     blocked or rdma (or, on the CPU, width-1) exchange schedule, the CG2 velocity
     sampled at the quadrature points through the exchange
     (``ho_velocity_to_quad``), k from the max speeds of the rank's own
     elements over the ranks (one host sync for the grid), then the spmd
-    transport_tiled with the samples widened by H (``qv``), or the plain
-    staged transport on the CPU. HO with TVB on a card is ROADMAP M10b
-    part 2b, second half (transport_tiled has no instance with the samples
-    and the walls inside the widened block) and raises before any work."""
+    transport_tiled with the samples widened by H (``qv``; with TVB its
+    instance with the global walls inside the widened block), or the
+    staged route with the samples widened by one ring
+    (``spmd_staged_transport``)."""
     from .transport_tiled_cuda import transport_substeps_tiled_spmd
 
     mesh, tr = model.mesh, model.transport
-    if tr.limits_slopes and not on_cpu:
-        raise NotImplementedError(
-            "the HO solver with TVB on a card's rank grid (transport_tiled with the CG2 samples "
-            "and the global walls inside the widened block) is ROADMAP M10b part 2b, second half"
-        )
     planes = model.mevp.spmd_subcycles(state_arrays, consts, dt, n_subcycles)
     qv = ho_velocity_to_quad(mesh, tr.basis, planes[0], planes[1], model.spmd)
     k = _substeps(model, qv, dt)
     if transport == "tiled":
         return planes, transport_substeps_tiled_spmd(model, tracers, None, dt / k, k, face_masks, qv=qv)
-    return planes, transport_substeps_reference(tr, tracers, None, None, dt / k, k, face_masks, qv=qv)
+    return planes, spmd_staged_transport(model, tracers, dt / k, k, face_masks, qv=qv)
 
 
 def _ho_dynamics_phase(

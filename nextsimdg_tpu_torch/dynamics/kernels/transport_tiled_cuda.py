@@ -53,7 +53,8 @@ inside the widened block: the kernel's rank grid form takes their indices
 The HO solver's rank passes its quadrature samples (``qv``), whose four
 families are widened by H once, as the JAX wrapper widens them: each
 sample of a ghost element is the neighbour rank's own (zero beyond a
-closed wall), so the widened samples equal the single domain's there.
+closed wall), so the widened samples equal the single domain's there; with
+TVB the samples and the walls together (``csrc/transport_tiled_spmd_qv.cu``).
 """
 
 from __future__ import annotations

@@ -35,8 +35,10 @@ rings on the periodic axes: the neighbour shifts exchange width-1 halos,
 only the block that owns the global first row (column) closes its wall
 face, and the TVB limiter reads its neighbours' means through the exchange
 and takes its zero-gradient walls only at the global walls. The coupled
-step on a card advects with ``transport_tiled`` on a widened block instead
-(``kernels.transport_tiled_cuda.transport_substeps_tiled_spmd``).
+step advects with ``transport_tiled`` on a widened block instead
+(``kernels.transport_tiled_cuda.transport_substeps_tiled_spmd``), or on
+the staged route (``kernels.coupled_cuda.spmd_staged_transport``: the halo
+forms of the stage and the limiter, psi widened by one ring a stage).
 """
 
 from __future__ import annotations
@@ -477,14 +479,26 @@ class DGTransport:
                     d_bwd.narrow(axis, 0, 1).zero_()
             return d_fwd, d_bwd
 
+        dpx, dmx = deltas(x_axis, mesh.periodic_x, ax_x, None if wall_masks is None else wall_masks[:2])
+        dpy, dmy = deltas(y_axis, mesh.periodic_y, ax_y, None if wall_masks is None else wall_masks[2:])
+        return self.limit_slopes_by(psi, (dpx, dmx, dpy, dmy))
+
+    def limit_slopes_by(self, psi, deltas):
+        """``limit_slopes`` with the mean differences given: ``deltas`` is
+        (fwd_x, bwd_x, fwd_y, bwd_y), each mean's forward and backward
+        difference along each axis, already zeroed at the walls (the halo
+        form's plain version takes them from a block widened by one ring)."""
+        if not self.limits_slopes:
+            return psi
+        dpx, dmx, dpy, dmy = deltas
+        mean = psi[0]
+
         def minmod3(a, b, c):
             same = (torch.sign(a) == torch.sign(b)) & (torch.sign(a) == torch.sign(c))
             smallest = torch.minimum(torch.abs(a), torch.minimum(torch.abs(b), torch.abs(c)))
             return torch.where(same, torch.sign(a) * smallest, 0.0)
 
         tol_x, tol_y = self.tvb_tolerances(device=psi.device, dtype=psi.dtype)
-        dpx, dmx = deltas(x_axis, mesh.periodic_x, ax_x, None if wall_masks is None else wall_masks[:2])
-        dpy, dmy = deltas(y_axis, mesh.periodic_y, ax_y, None if wall_masks is None else wall_masks[2:])
         s1 = torch.where(torch.abs(psi[1]) <= tol_x, psi[1], minmod3(psi[1], dpx, dmx))
         s2 = torch.where(torch.abs(psi[2]) <= tol_y, psi[2], minmod3(psi[2], dpy, dmy))
         if self.basis.n_dofs == 3:

@@ -10,8 +10,9 @@ at the quadrature points through the exchange, k agreed over the ranks,
 and the transport on the spmd tiled wrapper with the widened samples
 (``qv``) or staged with width-1 exchanges, with physics, on uniform
 (closed and periodic), graded (A-weighted), spherical (with the coastline:
-config 5's shape) and ring meshes, and with the TVB limiter (CPU tensors only: on a card it raises, ROADMAP M10b part
-2b). Twins of ``tests/test_shardmap.py``'s
+config 5's shape) and ring meshes, and with the TVB limiter (the card's
+route of which ``test_ho_with_tvb_on_a_grid_is_refused_on_a_card`` drives
+with its launches recorded). Twins of ``tests/test_shardmap.py``'s
 ``test_shardmap_ho_coupled_step_matches_single_device`` and
 ``test_shardmap_tiled_transport_ho_matches_staged`` and
 ``tests/test_shardmap_metric.py``'s
@@ -193,30 +194,71 @@ def test_ho_coupled_forms_on_a_grid_match_one_domain(kind, weighted):
 
 def test_ho_with_tvb_on_a_grid_matches_one_domain():
     """HO with the TVB limiter on a uniform grid: the spmd tiled transport
-    with the samples and the global walls inside the widened block, on the
-    CPU (on a card it is ROADMAP M10b part 2b and raises)."""
+    with the samples and the global walls inside the widened block."""
     model, got = port_coupled("uniform", (2, 2), mevp_block_halo=4, tvb_m=2.0)
     assert model.schedule("cpu") == ("blocked", "tiled")
     check(got, "uniform", tvb_m=2.0)
 
 
-def test_ho_with_tvb_on_a_grid_is_refused_on_a_card(monkeypatch):
-    """On tensors off the CPU the HO grid with TVB raises before any work
-    (the CPU check is patched to answer as it does for CUDA tensors; no
-    kernel is reached), naming the ROADMAP item."""
+def card_route(monkeypatch, kind, coast=False, **kwargs):
+    """The kernel launches of one HO grid step (2 x 2 ranks, float32 blocks)
+    on the card's route, run on the CPU: the CPU check patched to answer
+    as it does for CUDA tensors, every ``cc._launch`` recorded as (kernel,
+    entry point, arguments) in place of launching, the HO subcycles
+    skipped (they return the carry: no kernel of this route) and the plain
+    halo forms patched to raise (none may run on the card's path). The
+    outputs are the unlaunched kernels' empty buffers and are not read."""
+    from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
+
     loader = modules.get_loader()
     loader.set_implementation(*HO)
     try:
         grid = RankGrid(2, 2, "cpu", timeout=TIMEOUT)
-        _, sharded = build_sharded_coupled_model(mesh_of("uniform", N), grid, n_subcycles=2, tvb_m=2.0)
+        model, sharded = build_sharded_coupled_model(mesh_of(kind, N), grid, n_subcycles=2,
+                                                     ocean_mask=synthetic_coastline(N) if coast else None,
+                                                     **kwargs)
     finally:
         loader.reset()
     state, phys, dyn = coupled_inputs()
     blocks = (
-        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float64),
-        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float64),
-        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float64),
+        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float32),
+        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float32),
+        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float32),
     )
+    calls = []
+
+    def refused(*args, **kw):
+        raise AssertionError("a plain halo form ran on the card's path")
+
     monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
-    with pytest.raises(NotImplementedError, match="M10b part 2b"):
-        sharded.run_blocks(*blocks, DT, 1)
+    monkeypatch.setattr(cc, "_launch", lambda name, *args, entry=None: calls.append((name, entry, args)))
+    monkeypatch.setattr(cc, "_stream", lambda device: 0)
+    monkeypatch.setattr(cc, "sm_count", lambda device: 132)
+    monkeypatch.setattr(tt, "blocks_per_sm", lambda *args, **kw: 1)
+    monkeypatch.setattr(cc, "dg1_rk_stage_halo_reference", refused)
+    monkeypatch.setattr(cc, "dg1_limit_halo_reference", refused)
+    monkeypatch.setattr(type(model.mevp), "spmd_subcycles", lambda self, carry, consts, dt, n: tuple(carry))
+    sharded.run_blocks(*blocks, DT, 1)
+    return model, calls
+
+
+def test_ho_with_tvb_on_a_grid_is_refused_on_a_card(monkeypatch):
+    """The HO grid with TVB takes the card's route and raises nothing (see
+    ``card_route``; the name is from when this route was refused): on a
+    uniform mesh the spmd transport_tiled with the CG2 samples and the
+    global walls (its qv + walls instance: both pointers given), on the
+    spherical window with the coastline the staged route's halo forms of
+    dg1_rk_stage (the qv form) and dg1_limit."""
+    model, calls = card_route(monkeypatch, "uniform", tvb_m=2.0)
+    assert model.schedule("cpu") == ("blocked", "tiled")
+    tiled = [args for name, _, args in calls if name == "transport_tiled"]
+    assert tiled and {name for name, _, _ in calls} == {"transport_tiled"}
+    assert all(args[7] is not None and args[-6] is not None for args in tiled)  # qv, walls
+    model, calls = card_route(monkeypatch, "spherical", coast=True, tvb_m=2.0)
+    assert model.schedule("cpu") == ("blocked", "xla")
+    entries = {(name, entry) for name, entry, _ in calls}
+    assert entries == {("dg1_rk_stage", "dg1_rk_stage_halo"), ("dg1_limit", "dg1_limit_halo")}
+    stages = [args for name, _, args in calls if name == "dg1_rk_stage"]
+    limits = [args for name, _, args in calls if name == "dg1_limit"]
+    assert len(stages) == len(limits) and len(stages) % (4 * 2) == 0  # 4 ranks, rk2
+    assert all(args[7] is not None and args[2] is None for args in stages)  # qv, not (u, v)

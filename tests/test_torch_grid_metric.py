@@ -9,7 +9,8 @@ against the global planes' slices (bit for bit, at float64 and float32),
 its static metric raising, the mEVP on the width-1 ("xla"), blocked and
 rdma schedules (the A-weighted and adaptive forms included), the coupled
 step with the spmd tiled transport, free drift, and TVB, which runs the
-staged transport on a metric grid and is refused on a card.
+staged route on a metric grid (on a card the halo forms of dg1_rk_stage
+and dg1_limit, whose launches a test records).
 
 Tolerances: exactly 0 between the port's grid and its single domain, and
 between its schedules (the same operations on the same values); 1e-8 of
@@ -437,9 +438,11 @@ def test_free_drift_on_a_grid_matches_one_domain_and_jax(kind):
 
 
 def test_tvb_on_a_metric_grid_runs_staged_and_matches_one_domain():
-    """TVB on a spherical grid runs the staged transport with width-1
-    exchanges (the limiter's neighbour means through the exchange), as the
-    JAX package runs TVB on a metric mesh."""
+    """TVB on a spherical grid runs the staged route with width-1 exchanges
+    (``coupled_cuda.spmd_staged_transport``: psi and the stage's means
+    widened by one ring, the plain versions of the halo forms of
+    dg1_rk_stage and dg1_limit), as the JAX package runs TVB on a metric
+    mesh."""
     model, got = port_coupled("spherical", (2, 2), tvb_m=2.0, mevp_block_halo=4)
     assert model.schedule("cpu") == ("blocked", "xla")
     assert_states_equal(got, port_coupled("spherical", tvb_m=2.0)[1])
@@ -447,21 +450,47 @@ def test_tvb_on_a_metric_grid_runs_staged_and_matches_one_domain():
 
 
 def test_tvb_on_a_metric_grid_is_refused_on_a_card(monkeypatch):
-    """The staged width-1 transport is the plain path: on tensors off the
-    CPU it raises, naming the ROADMAP item, before any work (the CPU check
-    is patched to answer as it does for CUDA tensors; no kernel is
-    reached)."""
+    """TVB on a spherical grid takes the card's staged route and raises
+    nothing (the name is from when it was refused): the CPU check patched
+    to answer as it does for CUDA tensors, every kernel launch recorded in
+    place of launching, the mEVP subcycles skipped (they return the carry)
+    and the plain halo forms patched to raise. Each rank samples its CFL
+    speeds in its velocity widened by one ring (dg1_sample_cfl), then every
+    stage is dg1_rk_stage's halo form on the CG1 velocity and dg1_limit's
+    halo form with the block's tolerance planes. transport_tiled still
+    refuses TVB on a metric mesh at construction."""
+    from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
+
     grid = RankGrid(2, 2, "cpu", timeout=TIMEOUT)
-    _, sharded = build_sharded_coupled_model(mesh_of("spherical", N), grid, n_subcycles=2, tvb_m=2.0)
+    model, sharded = build_sharded_coupled_model(mesh_of("spherical", N), grid, n_subcycles=2, tvb_m=2.0)
+    assert model.schedule("cpu") == ("blocked", "xla")
     state, phys, dyn = coupled_inputs()
     blocks = (
-        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float64),
-        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float64),
-        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float64),
+        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float32),
+        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float32),
+        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float32),
     )
+    calls = []
+
+    def refused(*args, **kw):
+        raise AssertionError("a plain halo form ran on the card's path")
+
     monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
-    with pytest.raises(NotImplementedError, match="M10c"):
-        sharded.run_blocks(*blocks, DT, 1)
+    monkeypatch.setattr(cc, "_launch", lambda name, *args, entry=None: calls.append((name, entry, args)))
+    monkeypatch.setattr(cc, "_stream", lambda device: 0)
+    monkeypatch.setattr(cc, "dg1_rk_stage_halo_reference", refused)
+    monkeypatch.setattr(cc, "dg1_limit_halo_reference", refused)
+    monkeypatch.setattr(MEVPSolver, "spmd_subcycles", lambda self, carry, consts, dt, n: tuple(carry))
+    sharded.run_blocks(*blocks, DT, 1)
+    entries = {(name, entry) for name, entry, _ in calls}
+    assert entries == {("dg1_sample_cfl", None), ("dg1_rk_stage", "dg1_rk_stage_halo"),
+                       ("dg1_limit", "dg1_limit_halo")}
+    stages = [args for name, _, args in calls if name == "dg1_rk_stage"]
+    limits = [args for name, _, args in calls if name == "dg1_limit"]
+    assert len(stages) == len(limits) and len(stages) % (4 * 2) == 0  # 4 ranks, rk2
+    assert all(args[2] is not None and args[6] is not None and args[7] is None for args in stages)  # u, metric
+    assert all(args[2] is not None for args in limits)  # the tolerance planes
     with pytest.raises(NotImplementedError, match="staged"):
         build_sharded_coupled_model(mesh_of("spherical", N), RankGrid(2, 2, "cpu"), tvb_m=2.0,
                                     transport_backend="tiled")
+    assert tt.transport_tiled_spmd_config(model) is None

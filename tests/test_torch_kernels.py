@@ -66,7 +66,7 @@ from nextsimdg_tpu_torch.dynamics.kernels import mevp_single_cuda as ms
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, MEVPParams, MEVPSolver, VelocityState
-from nextsimdg_tpu_torch.dynamics.transport import substeps_from_speeds
+from nextsimdg_tpu_torch.dynamics.transport import QuadVelocity, substeps_from_speeds
 from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, run_ranks
 from nextsimdg_tpu_torch.state import Forcing
 
@@ -1798,19 +1798,133 @@ def test_decomposed_forms_step_equals_single_device(device, case):
     assert (counts["rdma_band"] > 0) == (kwargs["mevp_backend"] == "rdma")
 
 
-def test_tvb_on_a_metric_grid_is_refused_on_cuda_tensors(device):
-    """TVB on a graded or spherical rank grid runs the plain staged
-    transport with width-1 exchanges: on the card it raises, naming its
-    ROADMAP item, and is never run as plain PyTorch there."""
-    mesh = grid_mesh("spherical", (2, 2))
-    grid = RankGrid(2, 2, device, timeout=120)
-    model, sharded = build_sharded_coupled_model(mesh, grid, n_subcycles=2, tvb_m=2.0)
-    assert model.transport_schedule() == "xla"
-    single = CoupledModel(mesh, n_subcycles=2)
+def widened_block(f, coords, shape, periodic):
+    """The block at grid ``coords`` (``shape`` its size) of the global field
+    ``f`` (..., nx, ny) widened by one ring: zeros beyond a closed wall, the
+    wrapped cells on a periodic axis (what the exchange brings)."""
+    for axis, wraps in ((-2, periodic[0]), (-1, periodic[1])):
+        n = f.shape[axis]
+        lo, hi = f.narrow(axis, n - 1, 1), f.narrow(axis, 0, 1)
+        if not wraps:
+            lo, hi = torch.zeros_like(lo), torch.zeros_like(hi)
+        f = torch.cat([lo, f, hi], dim=axis)
+    (ix, iy), (bx, by) = coords, shape
+    return f[..., ix * bx: (ix + 1) * bx + 2, iy * by: (iy + 1) * by + 2].contiguous()
+
+
+def mid_tvb_m(mesh) -> float:
+    """A TVB constant whose tolerance M dx^2 is 0.1 at the mesh's median
+    element width: the limiter cuts some of the seeded slopes, keeps others."""
+    width = float(np.median(np.broadcast_to(np.asarray(mesh.dx, dtype=float), (mesh.nx, mesh.ny))))
+    return float(f"{0.1 / width**2:.0e}")
+
+
+HALO_FORM_MESHES = {
+    # name: (mesh kind, rank grid, coastline)
+    "spherical coast": ("spherical", (2, 2), True),
+    "ring": ("ring", (1, 2), False),
+    "uniform": ("uniform", (2, 2), False),
+}
+
+
+@pytest.mark.parametrize("velocity", ["cg1", "qv"])
+@pytest.mark.parametrize("form", list(HALO_FORM_MESHES))
+def test_tvb_on_a_metric_grid_is_refused_on_cuda_tensors(device, form, velocity):
+    """The staged route's halo forms on the card (the name is from when
+    TVB on a metric grid was refused there): on every block of the grid,
+    dg1_rk_stage's halo form (positivity-limited with a == 0, and the TVB
+    form's blended unlimited stage) and dg1_limit's (the block's tolerance
+    planes, or two scalars on the uniform mesh) on the block widened by one
+    ring, each launch against its plain version (1e-5 of the plane's max)
+    and against the single domain's kernels restricted to the block (the
+    same arithmetic: expected 0, failure above 1e-6)."""
+    kind, shape, coast = HALO_FORM_MESHES[form]
+    mesh = grid_mesh(kind, shape)
+    periodic = (mesh.periodic_x, mesh.periodic_y)
+    m = mid_tvb_m(mesh)
+    ocean = synthetic_coastline(mesh.nx, mesh.ny) if coast else None
+    grid = RankGrid(*shape, device, timeout=120)
+    _, sharded = build_sharded_coupled_model(mesh, grid, n_subcycles=2, ocean_mask=ocean, tvb_m=m)
+    single = CoupledModel(mesh, n_subcycles=2, ocean_mask=ocean, tvb_m=m)
+    tr = single.transport
+    rng = np.random.default_rng(8)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    n = (mesh.nx, mesh.ny)
+    coeffs = lambda: t(np.concatenate([rng.uniform(0.2, 2.0, (1, 3, *n)), rng.normal(0.0, 0.4, (2, 3, *n))]))
+    psi, base = coeffs(), coeffs()
+    faces = single.face_masks(device=device, dtype=torch.float32) or (torch.ones(n, device=device),) * 2
+    u = v = qv = None
+    if velocity == "cg1":
+        u, v = t(rng.normal(0.0, 0.3, n)), t(rng.normal(0.0, 0.3, n))
+    else:
+        qv = QuadVelocity(*(t(rng.normal(0.0, 0.3, (q, *n))) for q in (4, 4, 2, 2)))
+    dt = 120.0
+    stages = {
+        "limited": (0.0, 1.0, cc.dg1_rk_stage(tr, psi, base, u, v, *faces, 0.0, 1.0, dt, qv=qv)),
+        "tvb": (0.5, 0.5, cc.dg1_rk_stage(tr, psi, base, u, v, *faces, 0.5, 0.5, dt, qv=qv, tvb=True)),
+    }
+    limited = cc.dg1_limit(tr, stages["tvb"][2])
+    cut = tr.limit_slopes(stages["tvb"][2])[1:] != stages["tvb"][2][1:]
+    assert 0.05 < float(cut.double().mean()) < 0.95
+    bx, by = mesh.nx // shape[0], mesh.ny // shape[1]
+    cc.reset_launches()
+    for rank, model in zip(grid.ranks, sharded.models):
+        wide = lambda f: widened_block(f, rank.coords, (bx, by), periodic)
+        own = (Ellipsis, slice(rank.coords[0] * bx, (rank.coords[0] + 1) * bx),
+               slice(rank.coords[1] * by, (rank.coords[1] + 1) * by))
+        walls = tt.spmd_walls(model, 1)
+        local = model.widened_transport(1)
+        metric = model.widened_metric(1, device=device, dtype=torch.float32)
+        qv_w = None if qv is None else QuadVelocity(*(wide(f) for f in (qv.vx_vol, qv.vy_vol, qv.vn_x, qv.vn_y)))
+        uv = (None, None) if u is None else (wide(u), wide(v))
+        args = (wide(psi), base[own].contiguous(), *uv, wide(faces[0]), wide(faces[1]), walls)
+        for name, (a, b, ref) in stages.items():
+            kw = dict(qv=qv_w, metric=metric, tvb=name == "tvb")
+            got = cc.dg1_rk_stage_halo(local, *args, a, b, dt, **kw)
+            assert_close(got, cc.dg1_rk_stage_halo_reference(local, *args, a, b, dt, **kw), TOL_LAUNCH)
+            assert_same_schedule(got, ref[own])
+        stage, means_w = stages["tvb"][2][own].contiguous(), wide(stages["tvb"][2][0])
+        got = cc.dg1_limit_halo(model.transport, stage, means_w, walls)
+        assert_close(got, cc.dg1_limit_halo_reference(model.transport, stage, means_w, walls), TOL_LAUNCH)
+        assert_same_schedule(got, limited[own])
+    ranks = shape[0] * shape[1]
+    assert cc.launches["dg1_rk_stage"] == 2 * ranks and cc.launches["dg1_limit"] == ranks
+
+
+@pytest.mark.parametrize("case", [
+    ("spherical", (2, 2), dict(tvb_m=0.0, ocean=True)),
+    ("spherical", (2, 2), dict(tvb_m="mid", ocean=True, mevp_backend="rdma")),
+    ("ring", (1, 2), dict(tvb_m="mid", ocean=True)),
+    ("uniform", (2, 2), dict(transport_backend="xla")),
+    ("periodic", (2, 2), dict(transport_backend="xla", tvb_m="mid")),
+], ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}-" + "-".join(f"{k}={v}" for k, v in c[2].items()))
+def test_staged_grid_step_equals_single_device(device, case):
+    """The decomposed coupled step on the staged route (TVB on a metric
+    grid, and ``transport_backend="xla"``) against the single-device step
+    on the card (expected 0, failure above 1e-6 of the plane's max); every
+    transport launch is a halo form."""
+    kind, shape, kwargs = case
+    kwargs = dict(kwargs)
+    mesh = grid_mesh(kind, shape)
+    ocean = synthetic_coastline(mesh.nx, mesh.ny) if kwargs.pop("ocean", False) else None
+    if kwargs.get("tvb_m") == "mid":
+        kwargs["tvb_m"] = mid_tvb_m(mesh)
+    backend = kwargs.pop("mevp_backend", "blocked")
+    single = CoupledModel(mesh, n_subcycles=20, ocean_mask=ocean, **kwargs)
     state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
     phys, dyn = coupled_inputs(device, mesh)
-    with pytest.raises(NotImplementedError, match="M10c"):
-        sharded(state, phys, dyn, DT)
+    model, step = build_sharded_coupled_model(mesh, RankGrid(*shape, device, timeout=120), n_subcycles=20,
+                                              ocean_mask=ocean, mevp_backend=backend, mevp_block_halo=8, **kwargs)
+    assert model.schedule(device) == (backend, "xla")
+    cc.reset_launches()
+    got = step(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    expected = single.step(state, phys, dyn, DT)
+    for (_, g), (_, e) in zip(state_leaves(got), state_leaves(expected)):
+        assert_same_schedule(g, e)
+    assert counts["transport_tiled"] == 0 and counts["dg1_rk_stage"] > 0
+    assert (counts["dg1_limit"] > 0) == (kwargs.get("tvb_m") is not None)
 
 
 # -- the HO solver on a rank grid's blocked schedule ---------------------------------
@@ -1948,16 +2062,91 @@ def test_ho_grid_step_equals_single_device(device, kind):
     assert counts["ho_single"] > 0 and counts["transport_tiled"] > 0
 
 
-def test_ho_tvb_on_a_grid_is_refused_on_cuda_tensors(device):
-    """HO with TVB on a card's rank grid (transport_tiled with the samples
-    and the walls inside the widened block) is ROADMAP M10b part 2b: it
-    raises before any launch."""
-    single, _, sharded, state = ho_grid_model(device, "uniform", n_subcycles=2, tvb_m=2.0)
+@pytest.mark.parametrize("kind", ["uniform", "periodic"])
+def test_ho_tvb_on_a_grid_is_refused_on_cuda_tensors(device, kind, monkeypatch):
+    """HO with TVB on a uniform rank grid, closed or a ring of ranks (the
+    name is from when it was refused on the card): each launch of the spmd
+    transport_tiled's qv + walls instance (the CG2 samples widened by H,
+    the global walls by index) against its plain version on the same
+    widened block (1e-5 of the plane's max), then the decomposed step
+    against the single-device step (expected 0)."""
+    mesh = ho_grid_mesh("uniform")
+    if kind == "periodic":
+        mesh = RectMesh(mesh.nx, mesh.ny, mesh.dx, mesh.dy, periodic_x=True, periodic_y=True)
+    m = mid_tvb_m(mesh)
+    loader = modules.get_loader()
+    loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        single = CoupledModel(mesh, n_subcycles=20, tvb_m=m)
+        model, sharded = build_sharded_coupled_model(mesh, RankGrid(2, 2, device, timeout=120), n_subcycles=20,
+                                                     mevp_block_halo=8, tvb_m=m)
+    finally:
+        loader.reset()
+    assert model.schedule(device) == ("blocked", "tiled")
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
+    shape = (mesh.nx, mesh.ny)
+    field = lambda: mevp_ho.HOField(*(t(rng.normal(0.0, 0.2, shape)) for _ in range(4)))
+    velocity = mevp_ho.HOVelocityState(field(), field(), *(t(rng.normal(0.0, 500.0, (3, *shape))) for _ in range(3)))
+    state = dataclasses.replace(state, velocity=velocity)
+    blocks = sharded.grid.split_tree(state)
+    checked = []
+    kernel = tt.transport_substeps_tiled
+
+    def checking(transport, psi, uu, vv, dt_sub, n, faces, **kw):
+        got = kernel(transport, psi, uu, vv, dt_sub, n, faces, **kw)
+        masks = tt.wall_masks(kw["walls"], psi.shape[-2:], psi[0, 0])
+        ref = tt.transport_substeps_tiled_reference(transport, psi, uu, vv, dt_sub, n, faces, qv=kw["qv"],
+                                                    wall_masks=masks)
+        checked.append((got, ref))
+        return got
+
+    def body(rank):
+        model, st = sharded.models[rank.rank], blocks[rank.rank]
+        qv = mevp_ho.ho_velocity_to_quad(model.mesh, model.transport.basis, st.velocity.u, st.velocity.v, rank.axes)
+        tracers = torch.stack([st.hice, st.cice, st.hsnow], dim=1)
+        faces = (torch.ones_like(st.sst),) * 2
+        return tt.transport_substeps_tiled_spmd(model, tracers, None, 300.0, 3, faces, qv=qv)
+
+    with monkeypatch.context() as patched:
+        patched.setattr(tt, "transport_substeps_tiled", checking)
+        cc.reset_launches()
+        run_ranks(sharded.grid.ring, body)
+        torch.cuda.synchronize()
+    assert cc.launches["transport_tiled"] >= len(checked) >= 4
+    for got, ref in checked:
+        assert_close(got, ref, TOL_LAUNCH)
+    phys, dyn = coupled_inputs(device, mesh)
+    cc.reset_launches()
+    got = sharded(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    expected = single.step(state, phys, dyn, DT)
+    for (name, g), (_, e) in zip(ho_state_leaves(got), ho_state_leaves(expected)):
+        assert bool(torch.isfinite(g).all()), name
+        assert_same_schedule(g, e)
+    assert counts["transport_tiled"] > 0 and counts["dg1_rk_stage"] == 0
+
+
+def test_ho_tvb_on_a_spherical_grid_equals_single_device(device):
+    """The HO spherical window with the coastline and TVB on 2 x 2 ranks:
+    the staged route with the widened CG2 samples (dg1_rk_stage's halo form
+    in its qv form, then dg1_limit's with the tolerance planes) against
+    the single-device step on the card (expected 0)."""
+    mesh = ho_grid_mesh("spherical")
+    single, model, sharded, state = ho_grid_model(device, "spherical", tvb_m=mid_tvb_m(mesh))
+    assert model.schedule(device) == ("blocked", "xla")
     phys, dyn = coupled_inputs(device, single.mesh)
     cc.reset_launches()
-    with pytest.raises(NotImplementedError, match="M10b part 2b"):
-        sharded(state, phys, dyn, DT)
-    assert cc.launches["ho_single"] == cc.launches["ho_tiled"] == 0
+    got = sharded(state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    expected = single.step(state, phys, dyn, DT)
+    for (name, g), (_, e) in zip(ho_state_leaves(got), ho_state_leaves(expected)):
+        assert bool(torch.isfinite(g).all()), name
+        assert_same_schedule(g, e)
+    assert counts["transport_tiled"] == 0 and counts["dg1_rk_stage"] > 0 and counts["dg1_limit"] > 0
 
 
 # -- K7's HO round: rdma_stage at 17 planes and rdma_band's HO form -------------------

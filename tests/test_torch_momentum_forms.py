@@ -497,10 +497,12 @@ def test_free_drift_coupled_step_matches_jax(free_drift, do_thermo):
 
 def test_free_drift_on_a_rank_grid_raises(free_drift, monkeypatch):
     """Since M10b part 1 free drift runs on a rank grid (its step against
-    one domain's: tests/test_torch_grid_metric.py); what still raises there
-    is the plain staged transport on a card (the CPU check patched to
-    answer as for CUDA tensors; nothing is launched), and a schedule that a
-    rank grid has no counterpart of."""
+    one domain's: tests/test_torch_grid_metric.py), and with the staged
+    transport on a card too: the CPU check patched to answer as for CUDA
+    tensors and every kernel launch recorded in place of launching, a step
+    reaches dg1_sample_cfl and dg1_rk_stage's halo form and raises nothing.
+    What still raises is a schedule that a rank grid has no counterpart of.
+    (The name is from when the staged transport raised on a card.)"""
     grid = RankGrid(2, 2, "cpu")
     model, sharded = build_sharded_coupled_model(
         RectMesh(N, N, 1e3, 1e3), grid, n_subcycles=2, transport_backend="xla",
@@ -508,13 +510,16 @@ def test_free_drift_on_a_rank_grid_raises(free_drift, monkeypatch):
     assert model.is_free_drift and model.schedule("cpu") == ("free-drift", "xla")
     state, phys, dyn = coupled_inputs()
     blocks = (
-        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float64),
-        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float64),
-        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float64),
+        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float32),
+        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float32),
+        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float32),
     )
+    calls = []
     monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
-    with pytest.raises(NotImplementedError, match="CPU tensors"):
-        sharded.run_blocks(*blocks, DT, 1)
+    monkeypatch.setattr(cc, "_launch", lambda name, *args, entry=None: calls.append((name, entry)))
+    monkeypatch.setattr(cc, "_stream", lambda device: 0)
+    sharded.run_blocks(*blocks, DT, 1)
+    assert set(calls) == {("dg1_sample_cfl", None), ("dg1_rk_stage", "dg1_rk_stage_halo")}
     with pytest.raises(ValueError, match="mevp_backend"):
         build_sharded_coupled_model(RectMesh(N, N, 1e3, 1e3), grid, mevp_backend="pallas")
 

@@ -475,11 +475,13 @@ def test_unported_configurations_raise_on_a_rank_grid(kind):
     2a (tests/test_torch_grid_ho.py, tests/test_torch_grid_ho_coupled.py)
     and on its rdma schedule since part 2b's first half (it builds here on
     a closed box and a 360 degree ring; tests/test_torch_grid_ho_rdma.py);
-    HO with TVB on a card is part 2b's second half and raises. Periodic
-    axes, graded and spherical meshes and TVB run on the grid since M10b
-    part 1 (tests/test_torch_grid_metric.py, tests/test_torch_grid_ring.py)."""
+    HO with TVB runs on a card since part 2b's second half (here a step on
+    the card raises nothing and stays finite; tests/test_torch_grid_tvb.py).
+    Periodic axes, graded and spherical meshes and TVB run on the grid since
+    M10b part 1 (tests/test_torch_grid_metric.py, tests/test_torch_grid_ring.py).
+    The name is from when these raised."""
     if kind == "high_order_tvb" and not torch.cuda.is_available():
-        pytest.skip("HO with TVB raises on CUDA tensors only: no CUDA device here")
+        pytest.skip("HO with TVB on a card's rank grid needs a CUDA device")
     loader = modules.get_loader()
     loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
     try:
@@ -496,16 +498,20 @@ def test_unported_configurations_raise_on_a_rank_grid(kind):
     state = model.initial_state(hice0=1.0, cice0=0.9, device="cuda", dtype=torch.float32)
     state = grid.gather_tree([state] * 4)
     phys, dyn = coupled_inputs()[1:]
-    with pytest.raises(NotImplementedError, match="M10b part 2b"):
-        sharded(state, interop.forcing_from_numpy(phys, device="cuda", dtype=torch.float32),
-                interop.dynamics_forcing_from_numpy(dyn, device="cuda", dtype=torch.float32), DT)
+    out = sharded(state, interop.forcing_from_numpy(phys, device="cuda", dtype=torch.float32),
+                  interop.dynamics_forcing_from_numpy(dyn, device="cuda", dtype=torch.float32), DT)
+    assert model.schedule("cuda") == ("blocked", "tiled") and bool(torch.isfinite(out.hice).all())
 
 
 @pytest.mark.parametrize("mevp_backend, transport_backend", [("xla", "tiled"), ("blocked", "xla")])
 def test_plain_rank_grid_schedules_refuse_the_card(monkeypatch, mevp_backend, transport_backend):
-    """The width-1 exchange schedules are the plain path: on tensors off the
-    CPU they raise before any work (the CPU check is patched to answer as
-    it does for CUDA tensors; no kernel is reached)."""
+    """The mEVP's width-1 exchange schedule ("xla") is the plain path: on
+    tensors off the CPU it raises before any work (the CPU check is patched
+    to answer as it does for CUDA tensors; no kernel is reached). The
+    transport's ("xla") takes the card's staged route since it has kernels
+    (the halo forms of dg1_rk_stage): with every launch recorded in place
+    of launching and the blocked mEVP skipped (it returns the carry), a
+    step reaches them and raises nothing."""
     grid = RankGrid(2, 2, "cpu", timeout=TIMEOUT)
     _, sharded = build_sharded_coupled_model(
         RectMesh(N, N, 512e3 / N, 512e3 / N), grid, n_subcycles=2,
@@ -513,13 +519,21 @@ def test_plain_rank_grid_schedules_refuse_the_card(monkeypatch, mevp_backend, tr
     )
     state, phys, dyn = coupled_inputs()
     blocks = (
-        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float64),
-        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float64),
-        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float64),
+        interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float32),
+        interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float32),
+        interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float32),
     )
     monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
-    with pytest.raises(NotImplementedError, match="CPU tensors"):
-        sharded.run_blocks(*blocks, DT, 1)
+    if mevp_backend == "xla":
+        with pytest.raises(NotImplementedError, match="CPU tensors"):
+            sharded.run_blocks(*blocks, DT, 1)
+        return
+    calls = []
+    monkeypatch.setattr(cc, "_launch", lambda name, *args, entry=None: calls.append((name, entry)))
+    monkeypatch.setattr(cc, "_stream", lambda device: 0)
+    monkeypatch.setattr(MEVPSolver, "spmd_subcycles", lambda self, carry, consts, dt, n: tuple(carry))
+    sharded.run_blocks(*blocks, DT, 1)
+    assert set(calls) == {("dg1_sample_cfl", None), ("dg1_rk_stage", "dg1_rk_stage_halo")}
 
 
 def test_rank_grid_backends_are_checked():
