@@ -799,11 +799,11 @@ def ptxas_report(text: str):
             args = re.findall(r"L([bi])(\d+)E", rest.split("EE")[0] + "E") if rest.startswith("I") else []
             if kernel == "rdma_stage_kernel":  # the state's planes, 16-byte vectors
                 kernel += f"<{args[0][1]} planes, {'float4' if args[1][1] == '1' else 'scalar'}>"
-            elif kernel == "rdma_band_ho_kernel":  # the band's long axis, the HO form, the ring
+            elif kernel == "rdma_band_ho_kernel":  # the band's long axis, the HO form, the ring, staged consts
                 forms = [name for bit, name in ((2, "metric"), (1, "A-weighted")) if int(args[1][1]) & bit]
                 kernel += "<" + ", ".join(
                     ["along columns, x bands" if args[0][1] == "1" else "along rows, y bands"] + forms
-                    + (["ring"] if args[2][1] == "1" else [])) + ">"
+                    + (["ring"] if args[2][1] == "1" else []) + (["L2 consts"] if args[3][1] == "0" else [])) + ">"
             elif kernel == "rdma_band_kernel":  # the band's long axis, the launch bound, the forms
                 axis = "along columns, x bands" if args[0][1] == "1" else "along rows, y bands"
                 forms = []
@@ -4808,10 +4808,27 @@ def register_ho_band_form(label: str, captured: dict, err: float) -> None:
         closed = lambda: rdma.rdma_band(solver_c, src, axis, consts_c, DT, h, state_c)
     timed_form(label, err, lambda: rdma.rdma_band(local, src, axis, consts_w, DT, h, state_f), closed,
                lambda: rdma.rdma_band_reference(local, src, axis, consts_w, DT, h, state0.clone()), work)
+    along = rdma.band_shape(axis, h, nx, ny, src.hx)[1 - axis]
     log("check", (
         f"{label}: timed on rank 0's {'xy'[axis]} bands of a {nx}x{ny} block, h = {h}, {len(consts_w)} consts, "
-        f"launch {rdma.launch_config(axis, rdma.HO_PLANES, h)}"
+        f"launch {rdma.launch_config(axis, rdma.HO_PLANES, h, along)}"
     ))
+
+
+def ho_band_launches(model) -> str:
+    """The HO band's launch geometry on each split axis of a rank model's
+    block (``launch_config`` by the band's length and h)."""
+    h, nx, ny = model.mevp.block_halo, model.mesh.nx, model.mesh.ny
+    split = [ax is not None and ax.size > 1 for ax in model.spmd]
+    hx = h if split[0] else 0
+    out = []
+    for axis in (0, 1):
+        if split[axis]:
+            along = rdma.band_shape(axis, h, nx, ny, hx)[1 - axis]
+            band = rdma.launch_config(axis, rdma.HO_PLANES, h, along)
+            out.append(f"{'xy'[axis]}: {band} ({band.rows(h)} rows a block, "
+                       f"{2 * band.clusters(along, h) * band.cluster} blocks)")
+    return "; ".join(out)
 
 
 def check_grid_ho_rdma(device) -> tuple:
@@ -4839,8 +4856,8 @@ def check_grid_ho_rdma(device) -> tuple:
             f"{path}: {n}^2 {type(single.mesh).__name__}{' with the coastline' if coast else ''}"
             f"{', A-weighted' if weighted else ''}, HO on a {shape[0]}x{shape[1]} rank grid of "
             f"{model.mesh.nx}x{model.mesh.ny} blocks ({type(model.mesh).__name__}), schedule {schedule}, h = "
-            f"{model.mevp.block_halo}, interior pass {interior}, HO band launch "
-            f"{rdma.launch_config(0, rdma.HO_PLANES, model.mevp.block_halo)}; single-device {single.schedule(device)}"
+            f"{model.mevp.block_halo}, interior pass {interior}, HO band launches "
+            f"{ho_band_launches(model)}; single-device {single.schedule(device)}"
         ))
         if (not model.is_high_order or schedule != ("rdma", "tiled")
                 or PATH_KERNELS[path] and PATH_KERNELS[path][0] != f"ho_{interior}"):
@@ -5385,19 +5402,22 @@ def cluster_report(device, ptxas: str):
             f"(a pair of bands): {blocks} blocks, reaches {min(blocks, active * band.cluster, sms)} "
             f"of {sms} SMs"
         )
-    for n, (axis, name) in ((n, a) for n in (N4 // 2, N16 // 2) for a in ((0, "along columns, x bands"),
-                                                                         (1, "along rows, y bands"))):
-        band = rdma.launch_config(axis, rdma.HO_PLANES, h)
-        along = rdma.band_shape(axis, h, n, n, h)[1 - axis]
-        blocks = 2 * band.cluster * band.clusters(along, h)
-        active = rdma.max_clusters(device, axis, h, band, rdma.HO_PLANES)
+    for n, hb, (axis, name) in ((n, hb, a) for n, hb in ((N4 // 2, h), (N16 // 2, h), (N4 // 2, 2 * h), (N4 // 2, 4 * h))
+                                for a in ((0, "along columns, x bands"), (1, "along rows, y bands"))):
+        along = rdma.band_shape(axis, hb, n, n, hb)[1 - axis]
+        band = rdma.launch_config(axis, rdma.HO_PLANES, hb, along)
+        clusters = 2 * band.clusters(along, hb)
+        active = rdma.max_clusters(device, axis, hb, band, rdma.HO_PLANES, form=3)
+        l2 = "" if band.staged else ", L2 consts"
         yield (
-            f"rdma_band HO {name.split(', ')[1]} of a {n}^2 rank block, h = {h}: clusters of {band.cluster} "
-            f"blocks of {band.threads} threads, {band.seg} cells along the band each, "
-            f"{band.shared_bytes(h, axis, rdma.HO_PLANES)} B shared; ptxas closed "
-            f"{regs.get(f'rdma_band_ho_kernel<{name}>', '?')}, metric "
-            f"{regs.get(f'rdma_band_ho_kernel<{name}, metric>', '?')}; {active} clusters at once; a launch "
-            f"(a pair of bands): {blocks} blocks, reaches {min(blocks, active * band.cluster, sms)} of {sms} SMs"
+            f"rdma_band HO {name.split(', ')[1]} of a {n}^2 rank block, h = {hb}: clusters of {band.along} x "
+            f"{band.across} blocks (along x across) of {band.threads} threads, {band.seg} x {band.rows(hb)} cells "
+            f"each, {band.cells_per_thread(hb)} cells a thread, consts {'staged' if band.staged else 'from L2'}, "
+            f"{band.shared_bytes(hb, axis)} B shared{' (37 consts)' if band.staged else ''}; ptxas closed "
+            f"{regs.get(f'rdma_band_ho_kernel<{name}{l2}>', '?')}, metric "
+            f"{regs.get(f'rdma_band_ho_kernel<{name}, metric{l2}>', '?')}; {active} metric A-weighted clusters at "
+            f"once; a launch (a pair of bands): {band.cluster * clusters} blocks in {clusters} clusters, "
+            f"{clusters / max(active, 1):.2f} waves"
         )
 
 

@@ -373,38 +373,67 @@ RDMA_BAND_CONFIGS = tuple(
 )
 
 
-#: Launch configurations (cluster, seg, threads) of rdma_band's HO form,
-#: whose blocks hold 17 planes of 3h x (seg + 2) cells and run at most 256
-#: threads: one-block tiles of 32 and 64 cells, and clusters of 2 to 16
-#: blocks of 8 to 32 cells along the band (``check`` drops those that do
-#: not fit at a ghost width).
+#: Launch configurations of rdma_band's HO form (``HoBandConfig``: blocks
+#: along and across the band in a cluster, cells along a block, threads,
+#: staged consts): clusters of 8 to 16 blocks split along only or also
+#: across the band, a thread a cell or two, two blocks an SM with staged
+#: consts, and the L2-const form (three blocks an SM) in the band's first
+#: design's block shape (16 x 1 blocks of 16 cells) and others (``check`` drops those that do not fit
+#: at a ghost width). Not built in a checkout without the class (the A/B
+#: copy of this file in an earlier checkout; see ``kernel_times``).
 HO_RDMA_BAND_CONFIGS = tuple(
-    rdma_cuda.BandConfig(*c) for c in (
-        (1, 32, 256), (1, 64, 256), (2, 32, 256), (4, 16, 256), (4, 32, 256), (8, 8, 128),
-        (8, 16, 128), (8, 16, 256), (8, 32, 256), (16, 8, 256), (16, 12, 256), (16, 16, 256),
+    rdma_cuda.HoBandConfig(*c) for c in (
+        (8, 2, 14, 384), (8, 2, 16, 384), (8, 2, 12, 288), (4, 4, 28, 384), (2, 8, 64, 384), (16, 1, 8, 384),
+        (4, 2, 32, 384), (8, 2, 16, 256), (4, 3, 24, 384), (4, 4, 20, 256),
+        (16, 1, 16, 256, False), (16, 1, 12, 256, False), (8, 2, 20, 256, False), (8, 2, 24, 256, False),
+        (4, 4, 48, 256, False),
     )
+) if hasattr(rdma_cuda, "HoBandConfig") else ()
+#: The HO paths' bands that ``--kernel-times=rdma_band_ho`` times (label,
+#: n, h, axis, form, ring): the closed and metric forms on the x bands of
+#: a 512^2 block, the closed form on both bands at 2048^2 (the 16M config's
+#: blocks), the A-weighted form on a 128^2 block's x bands and the ring on
+#: a 256^2 block's y bands (chip_smoke.py's HO_RDMA_PATHS).
+HO_BAND_SHAPES = (
+    ("closed", 512, 16, 0, 0, False), ("metric", 512, 16, 0, 2, False), ("closed", 2048, 16, 0, 0, False),
+    ("closed", 2048, 16, 1, 0, False), ("A-weighted", 128, 16, 0, 1, False), ("ring, metric", 256, 16, 1, 2, True),
 )
 
 
-def band_round_sources(n: int, h: int, device, seed: int = 0, planes: int = rdma_cuda.CG1_PLANES):
+def band_round_sources(n: int, h: int, device, seed: int = 0, planes: int = rdma_cuda.CG1_PLANES,
+                       form: int = 0, ring: bool = False):
     """(band solver, RoundSources with both ghost pairs, widened consts,
     state) of one rank block of n^2 split on both axes, seeded: the CG1
     round's 5 planes and 7 consts (config 5's blocks: n = 2048, h = 16),
     or with ``planes`` 17 the HO round's planes (one (17, n, n) state) and
-    29 consts."""
+    its form's consts: the 29, with ``form`` bit 1 the A-weighted stress's
+    four a_{k}, with bit 2 a graded mesh's four widths (dx, dy and their
+    float32 reciprocals); ``ring``: x not split and periodic, so that the y
+    bands wrap along the band (the 1 x 2 ring's)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     ho = planes == rdma_cuda.HO_PLANES
     scale = np.array([0.2] * (8 if ho else 2) + [1e3] * (9 if ho else 3))[:, None, None]
-    mesh = RectMesh(n, n, 4e3 if ho else 2e3, 4e3 if ho else 2e3)
-    solver = mevp_ho.MEVPSolverHO(mesh, MEVPParams()) if ho else MEVPSolver(mesh, MEVPParams())
+    width = 4e3 if ho else 2e3
+    metric = ho and form & 2
+    dx, dy = (rng.uniform(0.75, 1.25, n) * width for _ in range(2)) if metric else (width, width)
+    mesh = RectMesh(n, n, dx, dy, periodic_x=ring)
+    params = MEVPParams(a_weighted_stress=bool(ho and form & 1))
+    solver = mevp_ho.MEVPSolverHO(mesh, params) if ho else MEVPSolver(mesh, params)
+    split = (not ring, True)
+    hx = h if split[0] else 0
     own = tuple(t(rng.normal(0.0, s, (n, n))) for s in scale[:, 0, 0])
-    gx = tuple(t(rng.normal(0.0, 1.0, (planes, h, n)) * scale) for _ in range(2))
-    gy = tuple(t(rng.normal(0.0, 1.0, (planes, n + 2 * h, h)) * scale) for _ in range(2))
-    src = rdma_cuda.RoundSources(own=own, h=h, split=(True, True), gx=gx, gy=gy)
-    wide = (n + 2 * h, n + 2 * h)
-    consts_w = {name: t(rng.uniform(0.1, 2.0, wide)) for name in (mevp_ho.HO_CONSTS if ho else UNIFORM_CONSTS)}
+    gx = tuple(t(rng.normal(0.0, 1.0, (planes, h, n)) * scale) for _ in range(2)) if split[0] else None
+    gy = tuple(t(rng.normal(0.0, 1.0, (planes, n + 2 * hx, h)) * scale) for _ in range(2))
+    src = rdma_cuda.RoundSources(own=own, h=h, split=split, gx=gx, gy=gy)
+    wide = (n + 2 * hx, n + 2 * h)
+    names = solver.const_names() if ho else UNIFORM_CONSTS
+    consts_w = {name: t(rng.uniform(0.1, 2.0, wide)) for name in names}
     consts_w["strength"] = t(rng.uniform(0.0, 3e4, wide))
+    if metric:
+        for name in ("dx", "dy"):
+            consts_w[name] = t(rng.uniform(0.75, 1.25, wide) * width)
+            consts_w[f"inv_{name}"] = 1.0 / consts_w[name]
     state = torch.empty((17, n, n), device=device) if ho else [torch.empty_like(own[0]) for _ in range(5)]
     return solver.local(), src, consts_w, state
 
@@ -414,16 +443,18 @@ def sweep_rdma_band(device, sizes=(2048,), halos=(16,), configs=RDMA_BAND_CONFIG
     """ms per call of ``rdma_band`` (a pair of bands, h subcycles) for each
     launch configuration that fits, on the x bands (3h x n) and the y bands
     ((n + 2h) x 3h) of n^2 rank blocks (``sizes``) at each ghost width of
-    ``halos``, of the CG1 form or (``planes`` 17) the HO form: back to back
-    (best of 5 over 20 calls; the wrapper's host path included) and, after
-    all of those, the kernel's device duration (torch.profiler), with its
-    blocks, the clusters the card holds at once and its shared bytes;
-    printed, and returned by (n, h, axis, config) as device ms. On the CPU
-    (the tests) one call each runs the plain version."""
+    ``halos``, of the CG1 form (``BandConfig``s) or (``planes`` 17,
+    ``HoBandConfig``s) the closed HO form: back to back (best of 5 over 20
+    calls; the wrapper's host path included) and, after all of those, the
+    kernel's device duration (torch.profiler), with its blocks, the clusters
+    the card holds at once, the waves of clusters they make and its shared
+    bytes; printed, and returned by (n, h, axis, config) as device ms. On
+    the CPU (the tests) one call each runs the plain version."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     where = card(device)["nvidia_smi"] if on_card else "cpu"
-    form = "rdma_band HO" if planes == rdma_cuda.HO_PLANES else "rdma_band"
+    ho = planes == rdma_cuda.HO_PLANES
+    form = "rdma_band HO" if ho else "rdma_band"
     out, lines = {}, []
     for n in sizes:
         for h in halos:
@@ -432,12 +463,13 @@ def sweep_rdma_band(device, sizes=(2048,), halos=(16,), configs=RDMA_BAND_CONFIG
                 along = rdma_cuda.band_shape(axis, h, n, n, h)[1 - axis]
                 for config in configs:
                     try:
-                        config.check(axis, h, h, planes)
+                        config.check(axis, h, h)
                     except ValueError:
                         continue
                     run = lambda a=axis, c=config, s=solver, r=src, w=consts_w, o=state, h=h: (
                         rdma_cuda.rdma_band(s, r, a, w, DT, h, o, c))
-                    blocks = 2 * config.cluster * config.clusters(along, h)
+                    clusters = 2 * config.clusters(along, h)
+                    blocks = config.cluster * clusters
                     if on_card:
                         active = rdma_cuda.max_clusters(device, axis, h, config, planes)
                         if not active:
@@ -453,11 +485,15 @@ def sweep_rdma_band(device, sizes=(2048,), halos=(16,), configs=RDMA_BAND_CONFIG
                         active, t0 = None, time.perf_counter()
                         run()
                         ms = (time.perf_counter() - t0) * 1e3
+                    shape = (f"cluster {config.along}x{config.across} seg {config.seg} rows {config.rows(h)}"
+                             f"{'' if config.staged else ' L2 consts'}" if ho else
+                             f"cluster {config.cluster} seg {config.seg}")
+                    waves = f"{clusters / active:.2f}" if active else "?"
                     lines.append(((n, h, axis, config), run, (
-                        f"{form} axis {axis} ({'x' if axis == 0 else 'y'} bands of {n}^2, h = {h}) cluster "
-                        f"{config.cluster} seg {config.seg} threads {config.threads}: device {{device}} ms, "
-                        f"{ms:.4f} ms per call back to back, {blocks} blocks, {active} clusters at once, "
-                        f"{config.shared_bytes(h, axis, planes)} B shared on {where}"
+                        f"{form} axis {axis} ({'x' if axis == 0 else 'y'} bands of {n}^2, h = {h}) {shape} "
+                        f"threads {config.threads}: device {{device}} ms, {ms:.4f} ms per call back to back, "
+                        f"{blocks} blocks, {active} clusters at once ({waves} waves), "
+                        f"{config.shared_bytes(h, axis)} B shared on {where}"
                     ), ms))
     for key, run, line, ms in lines:
         out[key] = device_ms(run, "rdma_band") if on_card else ms
@@ -600,7 +636,7 @@ def cfl_inputs(n: int, halo: int, spherical: bool, device, seed: int = 0):
 def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_sub: int = 100,
                  single_sizes=SINGLE_SIZES, tiled_sizes=((1024, True),), cfl_shapes=CFL_SHAPES,
                  stage_sizes=STAGE_SHAPES, k1_sizes=(), ho_tiled_sizes=(), rdma_sizes=(),
-                 rdma_halo: int = 16) -> dict:
+                 rdma_halo: int = 16, ho_band_shapes=()) -> dict:
     """ms per call of the launches the host picks for ``transport_tiled``
     (one rk2 substep on ``transport_inputs`` at each of ``transport_sizes``),
     ``ho_single`` (``n_sub`` HO subcycles on ``seeded_ho_phase`` at each of
@@ -617,14 +653,17 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
     ``seeded_phase``'s uniform carry at each of ``k1_sizes``), and
     ``rdma_stage`` (the x strips) and ``rdma_band`` (the x or the y bands,
     ``rdma_halo`` subcycles) on ``band_round_sources`` at each of
-    ``rdma_sizes``:
+    ``rdma_sizes``, and ``rdma_band``'s HO form (the launch the host picks)
+    at each (label, n, h, axis, form, ring) of ``ho_band_shapes``
+    (``HO_BAND_SHAPES``: the HO paths' bands):
     the kernel's device
     duration per call (profiler,
     mean of 20 calls; a launch's mean times the launches of a call) and the
     call back to back (CUDA events, best of 5); printed, and returned by
     (kernel, n) (dg1_sample_cfl: (kernel, (n, halo, spherical));
     dg1_rk_stage: (kernel, (n, spherical, form)); rdma_band: (kernel,
-    (n, axis))) as (device, back to back). It calls the wrappers by the signatures they
+    (n, axis)), its HO form (kernel, (n, axis, label))) as (device, back to
+    back). It calls the wrappers by the signatures they
     have had since they were ported and nothing newer at import, so this
     file copied into an earlier checkout times that checkout's kernels on
     the same inputs (PERF.md). On the CPU (the tests) the plain versions
@@ -704,6 +743,11 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
             what = f"the {'xy'[axis]} bands, {rdma_halo} subcycles"
             cases.append(("rdma_band", (n, axis), what, lambda a=axis, s=solver, r=src, c=consts_w, o=state: (
                 rdma_cuda.rdma_band(s, r, a, c, DT, rdma_halo, o))))
+    for label, n, h, axis, form, ring in ho_band_shapes:
+        solver, src, consts_w, state = band_round_sources(n, h, device, planes=17, form=form, ring=ring)
+        what = f"the {'xy'[axis]} bands, {h} HO subcycles, {label}"
+        cases.append(("rdma_band", (n, axis, label), what, lambda a=axis, s=solver, r=src, c=consts_w, o=state,
+                       h=h: rdma_cuda.rdma_band(s, r, a, c, DT, h, o)))
     out = {}
     for kernel, n, what, fn in cases:
         if on_card:
@@ -895,6 +939,7 @@ def main(argv=None) -> int:
         sweep_rdma_band(device)
     if "--tiles" in argv or "--tiles=rdma_band" in argv or "--tiles=rdma_band_ho" in argv:
         sweep_rdma_band(device, (512, 2048), (16, 32), HO_RDMA_BAND_CONFIGS, rdma_cuda.HO_PLANES)
+        sweep_rdma_band(device, (512,), (64,), HO_RDMA_BAND_CONFIGS, rdma_cuda.HO_PLANES)
     if "--tiles" in argv or "--tiles=transport_tiled" in argv:
         sweep_transport_tiled(device)
     if "--barriers" in argv:
@@ -912,6 +957,9 @@ def main(argv=None) -> int:
     if "--kernel-times=ho" in argv:
         kernel_times(device, transport_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=(),
                      stage_sizes=(), ho_tiled_sizes=(1024,))
+    if "--kernel-times=rdma_band_ho" in argv:
+        kernel_times(device, transport_sizes=(), ho_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=(),
+                     stage_sizes=(), ho_band_shapes=HO_BAND_SHAPES)
     if "--kernel-times=dg1_rk_stage" in argv:
         kernel_times(device, ho_sizes=(), single_sizes=(), tiled_sizes=(), cfl_shapes=())
     if "--tiles" in argv or "--tiles=mevp_single" in argv:

@@ -117,6 +117,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from functools import lru_cache
 from pathlib import Path
 
@@ -285,7 +286,7 @@ def _bind():
     lib.nst_ho_tiled.argtypes = [p] * 3 + [i] * 11 + [p] + tail
     lib.nst_rdma_stage.argtypes = [p, p, i, p, i, p]
     lib.nst_rdma_band.argtypes = [p, p, i, p, i, i, i, i, p, i, p, p, i, i, i, p]
-    lib.nst_rdma_band_ho.argtypes = [p, p, i, p, i, i, i, i, p, i, p, p, p, i, i, p]
+    lib.nst_rdma_band_ho.argtypes = [p, p, i, p] + [i] * 6 + [p, i, p, p, p, i, i, p]
     lib.nst_rdma_band_ho.restype = i
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
     for name in KERNELS:
@@ -306,7 +307,7 @@ def _bind():
     lib.nst_ho_tiled_max_clusters.restype = i
     lib.nst_rdma_band_max_clusters.argtypes = [i] * 6
     lib.nst_rdma_band_max_clusters.restype = i
-    lib.nst_rdma_band_ho_max_clusters.argtypes = [i] * 6
+    lib.nst_rdma_band_ho_max_clusters.argtypes = [i] * 9
     lib.nst_rdma_band_ho_max_clusters.restype = i
     lib.nst_window_syncs.argtypes = [i] * 6 + [p, p]
     lib.nst_window_syncs.restype = i
@@ -455,11 +456,23 @@ def _dg1_tables(transport: DGTransport):
     return _table_type(b.degree)(*map(float, values))
 
 
+#: Packed HoScalars and HoTables by the values that define them, so that a
+#: launch packs nothing the step before it packed (a round's band solvers
+#: are new objects on a periodic grid: ``mevp_rdma_cuda.phase_solvers``).
+#: The arrays are never written after packing; a launch passes their
+#: addresses, and the cache keeps them alive for it.
+_HO_PACKED = {}
+
+
 def _ho_scalars(solver: MEVPSolverHO, dt: float):
     """HoScalars of csrc/ho_body.cuh, field for field; the four widths are
     NaN on a graded or spherical mesh, whose kernels read the width planes
-    instead."""
+    instead. Packed once per (params, widths, dt)."""
     p, mesh = solver.params, solver.mesh
+    key = ("scalars", p, (mesh.dx, mesh.dy) if mesh.uniform else None, float(dt))
+    packed = _HO_PACKED.get(key)
+    if packed is not None:
+        return packed
     e2 = p.ellipse * p.ellipse
     f = p.f_coriolis if p.use_coriolis else 0.0
     if mesh.uniform:
@@ -472,19 +485,33 @@ def _ho_scalars(solver: MEVPSolverHO, dt: float):
         p.rho_ocean * p.cd_ocean, 1.0 + p.beta, p.beta, f, -f, dt,
     ]
     assert len(values) == _N_HO_SCALARS
-    return _floats(values)
+    return _HO_PACKED.setdefault(key, _floats(values))
+
+
+#: The packed HoTables of each live solver (the value cache's entry).
+_HO_TABLES_OF = weakref.WeakKeyDictionary()
 
 
 def _ho_tables(solver: MEVPSolverHO):
     """HoTables of csrc/ho_body.cuh, field for field, from the solver's CG2
     tables (the ~1e-17 quadrature residues included, as the plain version
-    multiplies them)."""
+    multiplies them). Packed once per set of table values, and looked up
+    once per solver."""
+    packed = _HO_TABLES_OF.get(solver)
+    if packed is not None:
+        return packed
     t = solver.tables
-    values = []
-    for table in (t.grad_x_to_dg1, t.grad_y_to_dg1, t.phi_dg1, solver.proj, t.div_x, t.div_y):
-        values += [float(x) for x in np.asarray(table).ravel()]
-    assert len(values) == _N_HO_TABLE
-    return _floats(values)
+    tables = (t.grad_x_to_dg1, t.grad_y_to_dg1, t.phi_dg1, solver.proj, t.div_x, t.div_y)
+    key = ("tables", b"".join(np.asarray(table, dtype=np.float64).tobytes() for table in tables))
+    packed = _HO_PACKED.get(key)
+    if packed is None:
+        values = []
+        for table in tables:
+            values += [float(x) for x in np.asarray(table).ravel()]
+        assert len(values) == _N_HO_TABLE
+        packed = _HO_PACKED.setdefault(key, _floats(values))
+    _HO_TABLES_OF[solver] = packed
+    return packed
 
 
 def ho_flatten(carry) -> torch.Tensor:

@@ -51,15 +51,18 @@ single-device rule of the HO solver on the rank's own block (ho_tiled, or
 ho_single below ``mevp_ho.HO_SINGLE_MAX_ELEMENTS`` where the card holds
 it), and ``rdma_band``'s HO form (``csrc/mevp_rdma_ho.cu``) runs the HO
 bodies of ho_tiled on the same cone in its own launch configuration
-(``launch_config(axis, HO_PLANES, h)``), reading the 29-37 widened HO
-consts by offset. Its plain version runs ``ho_subcycles_reference`` on the
-whole bands.
+(``HoBandConfig``, ``launch_config(axis, HO_PLANES, h, along)``): clusters
+split along and across the band, the 29-37 widened HO consts staged in
+shared memory once a launch. Its plain version runs
+``ho_subcycles_reference`` on the whole bands.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+import weakref
 from dataclasses import dataclass, field
 
 import torch
@@ -82,10 +85,13 @@ MAX_CLUSTER_BLOCKS = 16
 #: kRdmaMaxThreads): blocks of up to 256 threads run the first.
 LAUNCH_BOUNDS = (256, 1024)
 #: The state planes of a CG1 round and of an HO round (kRdmaPlanes,
-#: kRdmaHoPlanes), and the HO band's launch bound (kRdmaHoThreads in
-#: csrc/mevp_rdma_ho.cuh).
+#: kRdmaHoPlanes), the HO band's launch bounds with staged and with L2
+#: consts (kRdmaHoThreads, kRdmaHoL2Threads in csrc/mevp_rdma_ho.cuh) and
+#: the most const planes an HO form stages (ho_const_planes: the metric
+#: A-weighted form's 37).
 CG1_PLANES, HO_PLANES = 5, 17
-HO_MAX_THREADS = 256
+HO_MAX_THREADS, HO_L2_MAX_THREADS = 384, 256
+HO_MAX_CONSTS = 37
 
 
 def launch_bound(threads: int) -> int:
@@ -138,18 +144,18 @@ def _cone_array(axis: int, h: int, n_sub: int, nx: int, ny: int, hx: int, wrap: 
 
 @dataclass(frozen=True)
 class BandConfig:
-    """rdma_band's launch: clusters of ``cluster`` blocks of ``threads``
-    threads along a band, each block ``seg`` cells along it."""
+    """rdma_band's launch (the CG1 form): clusters of ``cluster`` blocks of
+    ``threads`` threads along a band, each block ``seg`` cells along it."""
 
     cluster: int
     seg: int
     threads: int
 
-    def shared_bytes(self, h: int, axis: int = 0, planes: int = CG1_PLANES) -> int:
-        """Dynamic shared memory of one block: the state's planes (5, or
-        17 in the HO form) of its seg x 3h cells and its apron along the
-        band (the y bands' rows padded by a cell)."""
-        return planes * (3 * h + axis) * (self.seg + 2) * 4
+    def shared_bytes(self, h: int, axis: int = 0) -> int:
+        """Dynamic shared memory of one block: the 5 state planes of its
+        seg x 3h cells and its apron along the band (the y bands' rows
+        padded by a cell)."""
+        return CG1_PLANES * (3 * h + axis) * (self.seg + 2) * 4
 
     def clusters(self, along: int, n_sub: int) -> int:
         """Clusters a band of ``along`` cells takes: each writes the
@@ -163,22 +169,77 @@ class BandConfig:
         stride = self.threads // self.seg
         return -(-3 * h // stride) if stride else 0
 
-    def check(self, axis: int, h: int, n_sub: int, planes: int = CG1_PLANES) -> None:
-        """Raises where the kernel does not take this configuration: the
-        CG1 form owns at most ``MAX_CELLS`` cells a thread, the HO form
-        (``planes`` 17) runs a flat loop over blocks of at most
-        ``HO_MAX_THREADS`` threads, a multiple of 32."""
-        fits = (
-            1 <= self.cells_per_thread(h) <= MAX_CELLS and self.threads <= LAUNCH_BOUNDS[-1]
-            if planes == CG1_PLANES else self.threads <= HO_MAX_THREADS and self.threads % 32 == 0
-        )
+    def check(self, axis: int, h: int, n_sub: int) -> None:
+        """Raises where the kernel does not take this configuration: a
+        thread owns at most ``MAX_CELLS`` cells."""
         if not (
-            fits and 1 <= self.cluster <= MAX_CLUSTER_BLOCKS and 32 <= self.threads and 1 <= self.seg
+            1 <= self.cells_per_thread(h) <= MAX_CELLS and self.threads <= LAUNCH_BOUNDS[-1]
+            and 1 <= self.cluster <= MAX_CLUSTER_BLOCKS and 32 <= self.threads and 1 <= self.seg
             and self.cluster * self.seg > 2 * n_sub
-            and self.shared_bytes(h, axis, planes) <= MAX_SHARED_BYTES
+            and self.shared_bytes(h, axis) <= MAX_SHARED_BYTES
         ):
-            form = "rdma_band's HO form" if planes == HO_PLANES else "rdma_band"
-            raise ValueError(f"{form} takes no launch configuration {self} at h = {h}, n_sub = {n_sub}")
+            raise ValueError(f"rdma_band takes no launch configuration {self} at h = {h}, n_sub = {n_sub}")
+
+
+@dataclass(frozen=True)
+class HoBandConfig:
+    """rdma_band's HO launch (``csrc/mevp_rdma_ho.cu``): clusters of
+    ``along`` x ``across`` blocks of ``threads`` threads, each block ``seg``
+    cells along the band and ``rows(h)`` across it (the band's 3h cells
+    split over ``across`` blocks), with a one-cell apron on every side; a
+    phase runs the block's cells of the patch's cone in one flat loop. With
+    ``staged`` the form's 29-37 const planes are copied into shared memory
+    once a launch beside the 17 state planes (blocks of up to 384 threads,
+    two an SM), else read from L2 (up to 256 threads, three an SM)."""
+
+    along: int
+    across: int
+    seg: int
+    threads: int
+    staged: bool = True
+
+    @property
+    def cluster(self) -> int:
+        """Blocks a cluster."""
+        return self.along * self.across
+
+    def rows(self, h: int) -> int:
+        """Cells across the band that one block holds."""
+        return -(-3 * h // self.across)
+
+    def shared_bytes(self, h: int, axis: int = 0, n_consts: int = HO_MAX_CONSTS) -> int:
+        """Dynamic shared memory of one block (either axis): the 17 state
+        planes and, staged, the ``n_consts`` const planes of its rows x seg
+        cells and their apron (rdma_band_ho_shared_bytes)."""
+        planes = HO_PLANES + (n_consts if self.staged else 0)
+        return planes * (self.rows(h) + 2) * (self.seg + 2) * 4
+
+    def clusters(self, along: int, n_sub: int) -> int:
+        """Clusters a band of ``along`` cells takes: each writes the
+        along x seg - 2 n_sub cells of its window's interior."""
+        return -(-along // (self.along * self.seg - 2 * n_sub))
+
+    def cells_per_thread(self, h: int) -> int:
+        """Cells a thread computes in a phase, at most (the first
+        subcycle's, whose cone spans the band across)."""
+        return -(-self.rows(h) * self.seg // self.threads)
+
+    def check(self, axis: int, h: int, n_sub: int, n_consts: int = HO_MAX_CONSTS) -> None:
+        """Raises where the kernel does not take this configuration at ghost
+        width h for a form of ``n_consts`` const planes (the largest by
+        default): rdma_band_ho_valid's limits and the card's shared memory."""
+        across, rows = 3 * h, self.rows(h)
+        bound = HO_MAX_THREADS if self.staged else HO_L2_MAX_THREADS
+        if not (
+            1 <= self.along and 1 <= self.across <= across and self.cluster <= MAX_CLUSTER_BLOCKS
+            and (self.across - 1) * rows < across and 1 <= self.seg <= 1000
+            and 32 <= self.threads <= bound and self.threads % 32 == 0
+            and self.along * self.seg > 2 * n_sub
+            and self.shared_bytes(h, axis, n_consts) <= MAX_SHARED_BYTES
+        ):
+            raise ValueError(
+                f"rdma_band's HO form takes no launch configuration {self} at h = {h}, n_sub = {n_sub}"
+            )
 
 
 #: rdma_band's launch, chosen on the H100 by ``benchmarks.mevp_large
@@ -192,27 +253,37 @@ class BandConfig:
 BANDS = BandConfig(16, 16, 256)
 
 
-#: The HO form's launch configurations, chosen on the H100 by
-#: ``benchmarks.mevp_large --tiles=rdma_band_ho`` on the HO configs' 512^2
-#: and 2048^2 rank blocks (PERF.md): clusters of 16 blocks of 16 cells
-#: along the band up to h = 16 (the fastest at 2048^2, 0.238-0.244 ms a
-#: pair of bands; at 512^2 0.141-0.142, where 8-cell blocks took
-#: 0.109-0.113), and of 12 cells above (at h = 32 on 2048^2 1.259-1.360
-#: ms against 1.812-1.891 for 16 cells; at h = 64 the 16-cell blocks'
-#: 17 planes no longer fit in shared memory).
-HO_BANDS = (BandConfig(16, 16, 256), BandConfig(16, 12, 256))
+#: The HO form's launch configurations: (largest h, fewest cells along the
+#: band, configuration), the first row that a band matches. Chosen on the
+#: H100 by ``benchmarks.mevp_large --tiles=rdma_band_ho`` on the HO configs'
+#: 512^2 and 2048^2 rank blocks at h = 16 and 32 and on 512^2 at h = 64,
+#: both axes (PERF.md): at h = 16 the 512^2 blocks' bands stage
+#: their consts in clusters of 8 x 2 blocks of 14 x 24 cells, a thread a
+#: cell, two blocks an SM (0.091-0.092 ms a pair of bands); the 2048^2
+#: blocks' keep the band's first shape (16 x 1 blocks of 16 x 48 cells)
+#: with L2 consts, three blocks an SM (every
+#: staged shape ran 26-47% slower: its shared memory holds fewer cells an
+#: SM); above h = 16 the staged consts cost more than they save, and above
+#: h = 32 they do not fit.
+HO_BANDS = (
+    (16, 1024, HoBandConfig(16, 1, 16, 256, staged=False)),
+    (16, 0, HoBandConfig(8, 2, 14, 384)),
+    (32, 1024, HoBandConfig(16, 1, 12, 256, staged=False)),
+    (32, 0, HoBandConfig(8, 2, 20, 256, staged=False)),
+    (MAX_SUB, 0, HoBandConfig(16, 1, 12, 256, staged=False)),
+)
 
 
-def launch_config(axis: int, planes: int = CG1_PLANES, h: int = None) -> BandConfig:
+def launch_config(axis: int, planes: int = CG1_PLANES, h: int = None, along: int = 0):
     """The launch configuration that the host picks for the bands of
     ``axis``: the CG1 form's ``BANDS`` (the same for both axes: the sweep
     found neither axis better off with another); the HO form's (``planes``
-    17) the first of ``HO_BANDS`` up to h = 16 and the second above, the
-    same for both axes (raises where it does not fit h)."""
+    17) the first row of ``HO_BANDS`` that holds ghost width h and a band
+    ``along`` cells long (raises where it does not fit h)."""
     if planes == CG1_PLANES:
         return BANDS
-    config = HO_BANDS[0] if h <= 16 else HO_BANDS[1]
-    config.check(axis, h, h, planes)
+    config = next(c for h_max, along_min, c in HO_BANDS if h <= h_max and along >= along_min)
+    config.check(axis, h, h)
     return config
 
 
@@ -366,13 +437,12 @@ def rdma_stage(src: RoundSources, axis: int) -> torch.Tensor:
     return out
 
 
-def rdma_band(
-    solver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state, config: BandConfig = None,
-):
+def rdma_band(solver, src: RoundSources, axis: int, consts_w: dict, dt, n_sub, state, config=None):
     """n_sub subcycles on the two bands of ``axis`` and their patches into
     ``state`` (in place; returned), in one launch on CUDA tensors (the
-    patch's cone only, in ``config`` or ``launch_config``'s); CPU tensors
-    run the plain version. ``solver``: the band solver of ``phase_solvers``
+    patch's cone only, in ``config`` or ``launch_config``'s: a
+    ``BandConfig`` for a CG1 solver, a ``HoBandConfig`` for an HO one); CPU
+    tensors run the plain version. ``solver``: the band solver of ``phase_solvers``
     (its momentum form, its mesh's metric form and its periodic axis along
     the band select the instance): a ``MEVPSolver``, whose ``state`` is 5
     planes, or a ``MEVPSolverHO``, whose ``state`` is one (17, nx, ny)
@@ -384,12 +454,8 @@ def rdma_band(
     ho = isinstance(solver, MEVPSolverHO)
     mesh = solver.mesh
     planes = HO_PLANES if ho else CG1_PLANES
-    expected = solver.const_names() if ho else const_names(solver.params.a_weighted_stress, mesh.uniform)
-    if tuple(sorted(consts_w)) != tuple(sorted(expected)):
-        raise NotImplementedError(
-            f"rdma_band takes the consts {tuple(sorted(expected))} for this solver, "
-            f"got {tuple(sorted(consts_w))}"
-        )
+    if not ho:
+        _check_const_names(const_names(solver.params.a_weighted_stress, mesh.uniform), consts_w)
     if src.planes != planes:
         raise ValueError(f"this solver's round moves {planes} state planes, not {src.planes}")
     if not src.split[axis]:
@@ -403,8 +469,14 @@ def rdma_band(
     nx, ny = src.own[0].shape
     if not 1 <= n_sub <= min(h, MAX_SUB) or (nx if axis == 0 else ny) < 2 * h:
         raise ValueError(f"a round needs n_sub <= h = {h} and a block of at least 2h along axis {axis}")
-    config = launch_config(axis, planes, h) if config is None else config
-    config.check(axis, h, n_sub, planes)
+    along = band_shape(axis, h, nx, ny, src.hx)[1 - axis]
+    config = launch_config(axis, planes, h, along) if config is None else config
+    if ho != isinstance(config, HoBandConfig):
+        raise ValueError(f"rdma_band's {'HO' if ho else 'CG1'} form takes no {type(config).__name__}")
+    if ho:
+        config.check(axis, h, n_sub, len(consts_w))
+    else:
+        config.check(axis, h, n_sub)
     form = cc.kernel_form(solver)
     if not ho and (form or not mesh.uniform) and config.threads > LAUNCH_BOUNDS[0]:
         raise ValueError(
@@ -413,42 +485,86 @@ def rdma_band(
         )
     ptrs, dims = src.c_args(need_gx=src.split[0], need_gy=axis == 1)
     device = src.own[0].device
-    cc._check((nx + 2 * src.hx, ny + 2 * src.hy), device, **consts_w)
-    if ho:
-        cc._check((HO_PLANES, nx, ny), device, state=state)
-    else:
-        cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), state)))
-    if {t.data_ptr() for t in state} & {t.data_ptr() for t in src.own}:
-        raise ValueError("rdma_band reads the pre-round planes: state must not alias them")
-    along = band_shape(axis, h, nx, ny, src.hx)[1 - axis]
-    launch = (
-        ptrs, dims, axis, cc._ho_consts(consts_w) if ho else cc._mevp_consts(consts_w), config.cluster,
-        config.seg, config.threads, config.clusters(along, n_sub),
-        _cone_array(axis, h, n_sub, nx, ny, src.hx, wrap), n_sub,
-    )
+    wide = (nx + 2 * src.hx, ny + 2 * src.hy)
+    cone = _cone_array(axis, h, n_sub, nx, ny, src.hx, wrap)
     if ho:  # the host arrays stay alive until the call returns
+        consts = _ho_band_consts(solver, consts_w, wide, device)
+        cc._check((HO_PLANES, nx, ny), device, state=state)
+        lo, plane = state.data_ptr(), nx * ny * 4
+        if any(p < lo + HO_PLANES * plane and p + plane > lo for p in ptrs[:HO_PLANES]):
+            raise ValueError("rdma_band reads the pre-round planes: state must not alias them")
         scalars, tables = cc._ho_scalars(solver, dt), cc._ho_tables(solver)
         cc._launch(
-            "rdma_band", *launch, state.data_ptr(), ctypes.addressof(scalars), ctypes.addressof(tables),
-            form, device.index, src.launch_stream(), entry="rdma_band_ho",
+            "rdma_band", ptrs, dims, axis, consts, config.along, config.across, config.seg, config.threads,
+            int(config.staged), config.clusters(along, n_sub), cone, n_sub, lo, ctypes.addressof(scalars),
+            ctypes.addressof(tables), form, device.index, src.launch_stream(), entry="rdma_band_ho",
         )
         return state
+    cc._check(wide, device, **consts_w)
+    cc._check((nx, ny), device, **dict(zip(("u", "v", "s11", "s22", "s12"), state)))
+    if {t.data_ptr() for t in state} & {t.data_ptr() for t in src.own}:
+        raise ValueError("rdma_band reads the pre-round planes: state must not alias them")
     scalars = cc._mevp_scalars(solver, dt)
     cc._launch(
-        "rdma_band", *launch, cc._pointers(state), ctypes.addressof(scalars), int(not mesh.uniform), form,
-        device.index, src.launch_stream(),
+        "rdma_band", ptrs, dims, axis, cc._mevp_consts(consts_w), config.cluster, config.seg, config.threads,
+        config.clusters(along, n_sub), cone, n_sub, cc._pointers(state), ctypes.addressof(scalars),
+        int(not mesh.uniform), form, device.index, src.launch_stream(),
     )
     return state
 
 
-def max_clusters(device, axis: int, h: int, config: BandConfig, planes: int = CG1_PLANES) -> int:
+def _check_const_names(expected, consts_w: dict) -> None:
+    if tuple(sorted(consts_w)) != tuple(sorted(expected)):
+        raise NotImplementedError(
+            f"rdma_band takes the consts {tuple(sorted(expected))} for this solver, "
+            f"got {tuple(sorted(consts_w))}"
+        )
+
+
+class _LastHoConsts(threading.local):
+    """A rank thread's last widened HO consts: the dict's identity and its
+    shape and device, weak references to its planes, and their HoConsts
+    pointer array. A step's rounds launch their bands with one dict, so
+    each rank checks and packs its consts once a step."""
+
+    key = None
+    refs = ()
+    ptrs = None
+
+
+_LAST_HO_CONSTS = _LastHoConsts()
+
+
+def _ho_band_consts(solver: MEVPSolverHO, consts_w: dict, shape: tuple, device):
+    """The HoConsts pointer array of ``consts_w``, the solver's const set
+    widened to ``shape`` on ``device``: checked and packed once per dict
+    (the same planes, by identity), then from the thread's last entry."""
+    last = _LAST_HO_CONSTS
+    expected = solver.const_names()
+    key = (id(consts_w), shape, device, expected)
+    values = tuple(consts_w.values())
+    if last.key == key and len(last.refs) == len(values) and all(r() is v for r, v in zip(last.refs, values)):
+        return last.ptrs
+    _check_const_names(expected, consts_w)
+    cc._check(shape, device, **consts_w)
+    last.key, last.refs, last.ptrs = key, tuple(weakref.ref(v) for v in values), cc._ho_consts(consts_w)
+    return last.ptrs
+
+
+def max_clusters(device, axis: int, h: int, config, planes: int = CG1_PLANES, form: int = 0) -> int:
     """Clusters of ``config`` that the card holds at once for the bands of
     ``axis`` at ghost width h (``cudaOccupancyMaxActiveClusters``; 0 where
-    none fits), of the CG1 form or (``planes`` 17) the HO form."""
+    none fits), of the CG1 form (a ``BandConfig``) or (``planes`` 17, a
+    ``HoBandConfig``) the HO form of ``form`` (kHoWeighted, kHoMetric)."""
     device = torch.device(device)
     lib = cc._library()
-    count = lib.nst_rdma_band_max_clusters if planes == CG1_PLANES else lib.nst_rdma_band_ho_max_clusters
-    clusters = count(axis, 3 * h, config.cluster, config.seg, config.threads, device.index or 0)
+    if planes == CG1_PLANES:
+        clusters = lib.nst_rdma_band_max_clusters(
+            axis, 3 * h, config.cluster, config.seg, config.threads, device.index or 0)
+    else:
+        clusters = lib.nst_rdma_band_ho_max_clusters(
+            axis, 3 * h, config.along, config.across, config.seg, config.threads, form, int(config.staged),
+            device.index or 0)
     if clusters < 0:
         raise RuntimeError(f"rdma_band occupancy: CUDA error {-1 - clusters}")
     return clusters

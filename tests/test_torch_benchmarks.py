@@ -188,15 +188,24 @@ def test_ho_rdma_band_sweep_runs_each_configuration_that_fits():
     """The sweep of rdma_band's HO form runs on the CPU (the plain version,
     one call each) for every configuration that the kernel takes at each
     ghost width, on both band axes, and drops the others (a window no
-    wider than its 2h-cell ring); the host's launch falls back to the
-    second of ``HO_BANDS`` where the first does not fit (h = 64)."""
-    configs = (rdma_cuda.BandConfig(2, 16, 64), rdma_cuda.BandConfig(1, 40, 64), rdma_cuda.BandConfig(1, 6, 64))
+    wider than its 2h-cell ring, more blocks across than the band has
+    cells); the host's launch takes the ``HO_BANDS`` row of its ghost width
+    and band length: an L2-const one where the staged consts do not fit
+    (h = 64)."""
+    configs = (rdma_cuda.HoBandConfig(2, 2, 16, 64), rdma_cuda.HoBandConfig(1, 1, 40, 64),
+               rdma_cuda.HoBandConfig(1, 1, 6, 64), rdma_cuda.HoBandConfig(1, 8, 8, 64))
     out = mevp_large.sweep_rdma_band("cpu", (16,), (2, 4), configs, rdma_cuda.HO_PLANES)
-    # seg 6 in a one-block window: 6 > 2 n_sub only at h = 2.
-    expected = {(16, h, axis, c) for h in (2, 4) for axis in (0, 1) for c in configs if c.cluster * c.seg > 2 * h}
+    # seg 6 in a one-block window: 6 > 2 n_sub only at h = 2; 8 blocks across only at h = 4 (12 cells).
+    expected = {(16, h, axis, c) for h in (2, 4) for axis in (0, 1) for c in configs
+                if c.along * c.seg > 2 * h and c.across <= 3 * h and (c.across - 1) * c.rows(h) < 3 * h}
     assert set(out) == expected and all(ms > 0 for ms in out.values())
-    assert rdma_cuda.launch_config(0, rdma_cuda.HO_PLANES, 16) == rdma_cuda.HO_BANDS[0]
-    assert rdma_cuda.launch_config(1, rdma_cuda.HO_PLANES, 64) == rdma_cuda.HO_BANDS[1]
+    for axis in (0, 1):
+        for h in (8, 16, 32, 64):
+            for n in (512, 2048):
+                along = rdma_cuda.band_shape(axis, h, n, n, h)[1 - axis]
+                config = rdma_cuda.launch_config(axis, rdma_cuda.HO_PLANES, h, along)
+                assert config == next(c for h_max, a_min, c in rdma_cuda.HO_BANDS if h <= h_max and along >= a_min)
+                assert h <= 32 or not config.staged
 
 
 def test_mevp_single_sweep_runs_each_variant():

@@ -2264,13 +2264,18 @@ def test_ho_rdma_kernels_match_plain_launch_by_launch(device, form, h, n_sub):
 
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("config", [
-    rdma.BandConfig(1, 40, 256), rdma.BandConfig(2, 16, 128), rdma.BandConfig(16, 8, 64),
-    rdma.BandConfig(4, 24, 192), *rdma.HO_BANDS,
+    rdma.HoBandConfig(1, 1, 24, 256), rdma.HoBandConfig(1, 3, 32, 128), rdma.HoBandConfig(4, 1, 8, 64),
+    rdma.HoBandConfig(4, 2, 8, 96), rdma.HoBandConfig(2, 4, 16, 96), rdma.HoBandConfig(3, 5, 8, 32),
+    rdma.HoBandConfig(8, 2, 8, 96, staged=False), rdma.HoBandConfig(2, 2, 12, 352),
+    rdma.HoBandConfig(1, 1, 24, 384), *(config for _, _, config in rdma.HO_BANDS),
 ], ids=str)
 def test_ho_rdma_band_launch_configurations_match_plain(device, axis, config):
-    """rdma_band's HO form in one-block tiles and in clusters of 2 to 16
-    blocks along the band, 64 to 256 threads, on the metric form of the
-    spherical window's blocks, against its plain version on whole bands."""
+    """rdma_band's HO form in one-block tiles, in clusters split along the
+    band, across it (5 blocks over 24 cells: the last holds 4) and both,
+    2 to 16 blocks, 32 to 384 threads (1 to 3 cells a thread), the consts
+    staged or read from L2, and the shipped configurations, on the metric
+    form of the spherical window's blocks, against its plain version on
+    whole bands."""
     h, n_sub = 8, 7
 
     def band(rank, solver, carry, consts):
@@ -2320,9 +2325,10 @@ def test_ho_rdma_grid_step_equals_single_device(device, kind):
 
 
 def test_ho_rdma_band_refuses_what_the_kernel_does_not_take(device):
-    """The HO form takes blocks of at most 256 threads, a (17, nx, ny)
-    state that does not alias the pre-round planes, and a shared-memory
-    footprint within the card's."""
+    """The HO form takes an ``HoBandConfig`` of blocks of at most 384
+    threads (256 with L2 consts), a multiple of 32, clusters of at most 16 blocks with a cell
+    of the band in each, a (17, nx, ny) state that does not alias the
+    pre-round planes, and a shared-memory footprint within the card's."""
 
     def bad_calls(rank, solver, carry, consts):
         axes, consts_w = solver.rdma_round_inputs(consts)
@@ -2332,11 +2338,16 @@ def test_ho_rdma_band_refuses_what_the_kernel_does_not_take(device):
                                 gx=tuple(torch.zeros((17, 8, ny), device=device) for _ in range(2)))
         local = solver.local()
         errors = []
+        band = lambda config: rdma.rdma_band(local, src, 0, consts_w, DT, 8, own.clone(), config)
         for call in (
-            lambda: rdma.rdma_band(local, src, 0, consts_w, DT, 8, own.clone(), rdma.BandConfig(1, 64, 512)),
+            lambda: band(rdma.HoBandConfig(1, 1, 64, 512)),
             lambda: rdma.rdma_band(local, src, 0, consts_w, DT, 8, own),
-            lambda: rdma.rdma_band(local, src, 0, consts_w, DT, 8, own.clone(), rdma.BandConfig(1, 200, 256)),
+            lambda: band(rdma.HoBandConfig(1, 1, 200, 256)),
             lambda: rdma.rdma_band(local, src, 1, consts_w, DT, 8, own.clone()),  # the y ghosts have not arrived
+            lambda: band(rdma.HoBandConfig(4, 5, 8, 64)),  # 20 blocks a cluster
+            lambda: band(rdma.HoBandConfig(2, 25, 8, 64)),  # more blocks across than the band's 24 cells
+            lambda: band(rdma.HoBandConfig(2, 2, 8, 100)),  # not a multiple of 32 threads
+            lambda: band(rdma.BandConfig(2, 16, 128)),  # the CG1 form's configuration
         ):
             try:
                 call()
@@ -2345,4 +2356,4 @@ def test_ho_rdma_band_refuses_what_the_kernel_does_not_take(device):
         return errors
 
     _, results = on_ho_rank_grid(device, "closed", 8, bad_calls)
-    assert all(errors == [ValueError] * 4 for errors in results)
+    assert all(errors == [ValueError] * 8 for errors in results)

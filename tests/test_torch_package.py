@@ -177,6 +177,7 @@ REPLACED = {
     "mevp_rdma_ho.cu": "mevp_rdma.py::mevp_round_rdma",
     "mevp_rdma_ho_forms.cu": "mevp_rdma.py::mevp_round_rdma",
     "mevp_rdma_ho_metric.cu": "mevp_rdma.py::mevp_round_rdma",
+    "mevp_rdma_ho_l2.cu": "mevp_rdma.py::mevp_round_rdma",
     "transport_tiled_spmd.cu": "transport_tiled.py::transport_substeps_tiled",
     "transport_tiled_spmd_qv.cu": "transport_tiled.py::transport_substeps_tiled_spmd",
     "transport_spmd.cu": "coupled_pallas.py::fused_dynamics_pallas",
