@@ -278,7 +278,17 @@ Phases, each printed on its own lines:
    launches of one step counted, the first path 20 steps bounded; every
    spmd qv + walls launch against plain on every rank, and rank 0's halo
    stage and limiter against plain (TOL_LAUNCH) and against the
-   single-domain kernels on its block (expected 0);
+   single-domain kernels on its block (expected 0); the mEVP's width-1
+   ("xla") schedule on 2 x 2 ranks (phase ``check_grid_xla``, M10d):
+   ``coupled_1m_spherical_spmd`` and ``ho_coupled_1m_spherical_spmd``,
+   the uniform box (HO, A-weighted), the 1024^2 ring with the coastline
+   (CG1, A-weighted and adaptive) for 4 steps and the two 16M cells
+   (``spherical_16m_spmd``, ``ho_spherical_16m_spmd``) for 2 and 1, each
+   against the single-device and the blocked step (expected 0), each
+   halo half launched twice a subcycle and rank and no other mEVP kernel;
+   every halo launch of one more step against its plain version
+   (TOL_LAUNCH; on every rank of the spherical cell, else on rank 0, at
+   16M the first 4 a kernel);
    for config 5 one decomposed step (blocked and rdma) against the
    single-device kernel step at 4096^2 (expected 0), the decomposed kernel
    step against the decomposed plain step at 512^2, and 4 steps of each
@@ -328,7 +338,11 @@ Phases, each printed on its own lines:
    runs a, c and d in chunks of 2 steps in turns with the single-device
    step, with a profile of each, and the new forms in turns with their
    closed instances (the qv TVB transport_tiled without the walls, the
-   single-domain stage and limiter on the unwidened block);
+   single-domain stage and limiter on the unwidened block); the four
+   halo kernels at config 5's 2048^2 blocks with their bounds and plain
+   versions, in turns with the copy that a block widened by one ring
+   would take in place of the strips, and the two 16M cells on xla,
+   blocked and rdma in turns, with a profile of each xla step;
    last,
    the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
@@ -706,13 +720,15 @@ def check_kernels(model, device) -> dict:
     zeros2 = torch.zeros(2, device=device)
     out = torch.empty_like(psi)
     ptrs = cc._mevp_consts(consts)
+    # keep=: the planes behind a pointer array live as long as the launch
+    # that reads them (the device probes run it last).
     timed = {
         "mevp_stress": (
-            lambda: cc._mevp_half_("mevp_stress", planes, ptrs, c_w, inv_drag, scalars, stream),
+            lambda keep=consts: cc._mevp_half_("mevp_stress", planes, ptrs, c_w, inv_drag, scalars, stream),
             lambda: solver.stress_update(carry, consts),
         ),
         "mevp_velocity": (
-            lambda: cc._mevp_half_("mevp_velocity", planes, ptrs, c_w, inv_drag, scalars, stream),
+            lambda keep=consts: cc._mevp_half_("mevp_velocity", planes, ptrs, c_w, inv_drag, scalars, stream),
             lambda: solver.velocity_update(carry_v, consts, ref[3], ref[4], DT),
         ),
         "dg1_sample_cfl": (
@@ -753,7 +769,7 @@ def check_kernels(model, device) -> dict:
             (9 + 4 + 9) * 4 * n, OPS["stage"] * n,
         ),
         "qv form": (
-            lambda: cc._dg1_rk_stage_(
+            lambda keep=qv: cc._dg1_rk_stage_(
                 psi, base, None, None, face_x, face_y, None, out, 0.5, 0.5, 300.0, tables, stream, qv=qv_ptrs),
             lambda: cc.dg1_rk_stage_reference(
                 transport, psi, base, None, None, face_x, face_y, 0.5, 0.5, 300.0, qv=qv),
@@ -821,6 +837,9 @@ def ptxas_report(text: str):
                     "16-byte copies" if args[3][1] == "4" else "4-byte copies",
                 ) + tuple(name for name, arg in zip(("TVB", "periodic", "rank grid walls"), args[4:])
                           if arg[1] == "1")) + ">"
+            elif kernel in ("ho_stress_halo_kernel", "ho_velocity_halo_kernel"):  # the HO form's bits
+                form = int(args[0][1])
+                kernel += f"<{'metric' if form & 2 else 'uniform'}{', A-weighted' if form & 1 else ''}>"
             elif kernel == "ho_single_kernel":  # consts in shared memory
                 kernel += "<consts shared>" if args[0][1] == "1" else "<consts global>"
             elif kernel == "ho_single_sync_kernel":
@@ -1843,8 +1862,8 @@ def time_no_limit_form(transport, vel, psi0, dt) -> None:
     tables, stream = cc._dg1_tables(transport), cc._stream(device)
     time_form(
         f"dg1_rk_stage[dG{degree},no limit,qv] at {N2}x{N2}", f"dg1_rk_stage {N2}^2 dG{degree} no limit",
-        lambda: cc._dg1_rk_stage_(p, p, None, None, None, None, None, out, 0.0, 1.0, dt, tables, stream,
-                                  qv=qv_ptrs, limit=False),
+        lambda keep=vel: cc._dg1_rk_stage_(p, p, None, None, None, None, None, out, 0.0, 1.0, dt, tables,
+                                           stream, qv=qv_ptrs, limit=False),
         lambda: cc.dg1_rk_stage_reference(transport, p, p, None, None, None, None, 0.0, 1.0, dt, qv=vel, limit=False),
         stage_work(degree, N2 * N2, True, False, False, limit=False),
     )
@@ -2023,14 +2042,14 @@ def check_form_launches(device) -> dict:
         weighted, adaptive = int(params.a_weighted_stress), int(params.adaptive_alpha)
         form_row(
             f"mevp_stress {N}^2 {form}", errs["mevp_stress"],
-            lambda planes=planes, c_w=c_w, inv_drag=inv_drag, beta=beta, scalars=scalars, ptrs=ptrs:
+            lambda planes=planes, c_w=c_w, inv_drag=inv_drag, beta=beta, scalars=scalars, ptrs=ptrs, keep=consts:
             cc._mevp_half_("mevp_stress", planes, ptrs, c_w, inv_drag, scalars, stream, beta),
             lambda solver=solver, carry=carry, consts=consts: solver.stress_update(carry, consts),
             ((15 + weighted + adaptive) * 4 * n, OPS[f"stress_{form}"] * n),
         )
         form_row(
             f"mevp_velocity {N}^2 {form}", errs["mevp_velocity"],
-            lambda planes=planes, c_w=c_w, inv_drag=inv_drag, beta=beta, scalars=scalars, ptrs=ptrs:
+            lambda planes=planes, c_w=c_w, inv_drag=inv_drag, beta=beta, scalars=scalars, ptrs=ptrs, keep=consts:
             cc._mevp_half_("mevp_velocity", planes, ptrs, c_w, inv_drag, scalars, stream, beta),
             lambda solver=solver, carry_v=carry_v, consts=consts, nodes=nodes:
             solver.velocity_update(carry_v, consts, *nodes),
@@ -5156,8 +5175,11 @@ def halo_form_launches(tag: str, single, model, state, errs: dict, rows=()) -> N
             label, errs["dg1_rk_stage"],
             lambda: cc._dg1_rk_stage_halo_(psi_w, base, u_w, v_w, *args[5:7], metric_ptrs, out, 0.5, 0.5, dt,
                                            tables, stream, wall_array, qv=qv_ptrs, tvb=tvb),
-            lambda: cc._dg1_rk_stage_(base, base.flip(0).contiguous(), *uv_own, *faces_own, metric_own, out, 0.5,
-                                      0.5, dt, tables_own, stream, qv=qv_own_ptrs, tvb=tvb, wrap=wrap),
+            # keep: the planes behind the pointer arrays qv_own_ptrs and metric_own (the block's
+            # samples, the rank transport's metric planes) live as long as the timed launch.
+            lambda keep=(qv_own, rank_tr): cc._dg1_rk_stage_(
+                base, base.flip(0).contiguous(), *uv_own, *faces_own, metric_own, out, 0.5, 0.5, dt, tables_own,
+                stream, qv=qv_own_ptrs, tvb=tvb, wrap=wrap),
             lambda: cc.dg1_rk_stage_halo_reference(*args, 0.5, 0.5, dt, qv=qv_w, metric=metric, tvb=tvb),
             work)
     if "dg1_limit halo" in rows:
@@ -5312,6 +5334,340 @@ def time_grid_tvb(device, card: str) -> None:
         profile(f"{path} coupled step, 2x2 grid ({n}x{n})", lambda: sharded.run_blocks(*blocks, DT, 1),
                 n_steps=2, watch="transport_tiled" if single.transport_schedule() == "tiled" else "dg1_")
         del single, sharded, state, blocks
+
+
+# -- M10d: the mEVP's width-1 ("xla") schedule on a card's rank grid -------------------
+#: The paths of phase check_grid_xla, at full width (config 4's state and
+#: forcing, 100 subcycles, dG1, f32, 2 x 2 ranks of the card), each on
+#: mevp_backend="xla": (path, mesh kind, n, HO, CoupledModel keywords,
+#: steps). The battery's coupled_1m_spherical_spmd and
+#: ho_coupled_1m_spherical_spmd (the spherical window with the coastline),
+#: the uniform 2 x 2 box (config 4's mesh, HO, A-weighted), the 1024^2 ring
+#: with the coastline (CG1, A-weighted and adaptive: the ring of ranks
+#: through the strips), and BASELINE config 5's spherical cells
+#: spherical_16m_spmd and ho_spherical_16m_spmd (4096^2, 2048^2 blocks).
+GRID_XLA_PATHS = [
+    ("coupled_1m_spherical_spmd_xla", "spherical", N4, False, {}, 4),
+    ("ho_coupled_1m_spherical_spmd_xla", "spherical", N4, True, {}, 4),
+    ("grid_xla_ho_uniform_aweighted", "uniform", N4, True, {"mevp_params": MEVPParams(a_weighted_stress=True)}, 4),
+    ("grid_xla_ring", "ring", N4, False, {"mevp_params": MEVPParams(a_weighted_stress=True, adaptive_alpha=True)}, 4),
+    ("spherical_16m_spmd_xla", "spherical", N16, False, {}, 2),
+    ("ho_spherical_16m_spmd_xla", "spherical", N16, True, {}, 1),
+]
+#: The paths whose halo launches are held against their plain versions
+#: launch by launch over one step: (ranks, launches of each kernel a rank):
+#: None for all. Every rank on the spherical cell; on the ring rank 0 (its
+#: -1 strips come round the ring of ranks); the HO halves' plain versions on
+#: rank 0 only, and at 16M the first few launches, to fit the budget.
+GRID_XLA_CHECKED = {
+    "coupled_1m_spherical_spmd_xla": (None, None), "grid_xla_ring": ((0,), None),
+    "ho_coupled_1m_spherical_spmd_xla": ((0,), None), "grid_xla_ho_uniform_aweighted": ((0,), None),
+    "spherical_16m_spmd_xla": ((0,), 4), "ho_spherical_16m_spmd_xla": ((0,), 4),
+}
+#: The 16M cells timed in time_grid_xla on "xla", "blocked" and "rdma".
+GRID_XLA_TIMED = ("spherical_16m_spmd_xla", "ho_spherical_16m_spmd_xla")
+XLA_HALVES = {False: ("mevp_stress", "mevp_velocity"), True: ("ho_stress", "ho_velocity")}
+_XLA_CG1 = [p for p, _, _, ho, _, _ in GRID_XLA_PATHS if not ho]
+PATH_KERNELS.update({
+    path: XLA_HALVES[ho] + (() if ho else ("dg1_sample_cfl",)) + ("transport_tiled",)
+    for path, _, _, ho, _, _ in GRID_XLA_PATHS
+})
+REPLACES.update(ho_stress="nextsimdg_tpu/dynamics/kernels/mevp_ho_pallas.py:45",
+                ho_velocity="nextsimdg_tpu/dynamics/kernels/mevp_ho_pallas.py:45")
+SOURCES.update(ho_stress="nextsimdg_tpu_torch/csrc/ho_halves_spmd.cu",
+               ho_velocity="nextsimdg_tpu_torch/csrc/ho_halves_spmd.cu")
+FORM_ROWS.update({
+    "mevp_stress halo": ("mevp_stress", "nextsimdg_tpu_torch/csrc/mevp_spmd.cu", _XLA_CG1),
+    "mevp_velocity halo": ("mevp_velocity", "nextsimdg_tpu_torch/csrc/mevp_spmd.cu", _XLA_CG1),
+})
+# The spmd transport's launches on these paths count on its forms' rows.
+FORM_ROWS["transport_tiled spmd-metric"][2].extend(_XLA_CG1)
+FORM_ROWS["transport_tiled spmd-qv"][2].extend(p for p, _, _, ho, _, _ in GRID_XLA_PATHS if ho)
+#: The HO halves' rows (kernels of their own), filled by time_grid_xla.
+XLA_ROWS = {}
+#: A timed launch of each halo kernel at config 5's 2048^2 block (spherical:
+#: the metric forms), captured by check_grid_xla.
+XLA_TIMED = {}
+
+
+def grid_xla_model(device, kind: str, n: int, ho: bool, kwargs: dict, backends=("xla", "blocked")):
+    """(single-device model, {backend: ShardedCoupledModel}, state, phys,
+    dyn) of a GRID_XLA_PATHS path on 2 x 2 ranks, one sharded model a mEVP
+    schedule of ``backends``; the HO solver selected through the registry
+    for ``ho``."""
+    mesh, ocean = grid_tvb_mesh(kind, n)
+    loader = modules.get_loader()
+    if ho:
+        loader.set_implementation("Nextsim::IDynamics", HO)
+    try:
+        single, state, phys, dyn = coupled_model(device, mesh, ocean, **kwargs)
+        grids = {
+            backend: build_sharded_coupled_model(
+                mesh, RankGrid(*RANKS, device), degree=1, n_subcycles=N_SUBCYCLES, ocean_mask=ocean,
+                mevp_backend=backend, **kwargs,
+            )[1]
+            for backend in backends
+        }
+    finally:
+        if ho:
+            loader.reset()
+    return single, grids, state, phys, dyn
+
+
+def xla_halo_launches(tag: str, sharded, blocks, checked, errs: dict) -> dict:
+    """One step of the xla route on ``blocks`` with the halo launches of
+    ``checked`` = (ranks, limit) (None: all ranks; the first ``limit``
+    launches of each kernel a rank, None: all) held against their plain
+    versions on the same inputs (TOL_LAUNCH of each plane's max), one line
+    a kernel and rank; the first launch of each kernel at this path's shape
+    kept for timing (``XLA_TIMED``); returns the exchanges a rank (each
+    started strip exchange along one axis)."""
+    ranks, limit = checked
+    import threading
+
+    local, lock, seen = threading.local(), threading.Lock(), {}
+    launch = {"mevp": cc._mevp_halo_, "ho": cc._ho_halo_}
+    route = {name: getattr(cc, name) for name in ("spmd_xla_subcycles", "spmd_xla_ho_subcycles")}
+    solvers = {id(m.mevp): r for r, m in enumerate(sharded.models)}
+
+    def routed(name):
+        def run(solver, carry, consts, dt, n_sub):
+            rank = solvers[id(solver)]
+            local.ctx = (solver, consts, dt, rank) if ranks is None or rank in ranks else None
+            try:
+                return route[name](solver, carry, consts, dt, n_sub)
+            finally:
+                local.ctx = None
+        return run
+
+    def record(kernel, rank, got, ref):
+        worst = (0.0, 0.0)
+        for g, r in zip(got, ref):
+            err, scale = float((g.double() - r.double()).abs().max()), float(r.double().abs().max())
+            if not bool(torch.isfinite(g).all()) or err > TOL_LAUNCH * scale:
+                raise AssertionError(f"{tag} {kernel} rank {rank}: error {err:.3e} exceeds {TOL_LAUNCH:g} x {scale:.3e}")
+            worst = max(worst, (err, err / scale if scale > 0 else 0.0))
+        with lock:
+            n, err, rel = seen.get((kernel, rank), (0, 0.0, 0.0))
+            seen[(kernel, rank)] = (n + 1, max(err, worst[0]), max(rel, worst[1]))
+
+    def context(kernel):
+        ctx = getattr(local, "ctx", None)
+        if ctx is None or (limit is not None and seen.get((kernel, ctx[3]), (0,))[0] >= limit):
+            return None
+        return ctx
+
+    def checked_mevp(name, state, const_ptrs, c_w, inv_drag, beta, strips, metric, form, scalars, stream):
+        ctx = context(name)
+        before = None if ctx is None else state.clone()
+        launch["mevp"](name, state, const_ptrs, c_w, inv_drag, beta, strips, metric, form, scalars, stream)
+        if ctx is None:
+            return
+        solver, consts, dt, rank = ctx
+        betas = () if beta is None else (beta,)
+        if name == "mevp_stress":
+            got = (state[2], state[3], state[4], c_w, inv_drag, *betas)
+            ref = cc.mevp_stress_halo_reference(solver, tuple(before), consts, *strips)
+        else:
+            got = (state[0], state[1])
+            ref = cc.mevp_velocity_halo_reference(
+                solver, tuple(before), consts, c_w, inv_drag, dt, *strips, *(metric or (None, None)), *betas)
+        record(name, rank, got, ref)
+        XLA_TIMED.setdefault((name, state.shape[1]), (solver, tuple(before), consts, dt, c_w, inv_drag, beta,
+                                                      strips, metric))
+
+    def checked_ho(name, state, const_ptrs, strips, widths, form, scalars, tables, stream):
+        ctx = context(name)
+        before = None if ctx is None else state.clone()
+        launch["ho"](name, state, const_ptrs, strips, widths, form, scalars, tables, stream)
+        if ctx is None:
+            return
+        solver, consts, dt, rank = ctx
+        if name == "ho_stress":
+            ref, planes = cc.ho_stress_halo_reference(solver, before, consts, *strips), range(8, 17)
+        else:
+            ref, planes = cc.ho_velocity_halo_reference(solver, before, consts, dt, *strips, *(widths or (None, None))), range(8)
+        record(name, rank, [state[q] for q in planes], [ref[q] for q in planes])
+        XLA_TIMED.setdefault((name, state.shape[1]), (solver, before, consts, dt, strips, widths))
+
+    saved = (cc._mevp_halo_, cc._ho_halo_, *route.values())
+    cc._mevp_halo_, cc._ho_halo_ = checked_mevp, checked_ho
+    cc.spmd_xla_subcycles, cc.spmd_xla_ho_subcycles = routed("spmd_xla_subcycles"), routed("spmd_xla_ho_subcycles")
+    try:
+        exchanges = count_exchanges(lambda: sharded.run_blocks(*blocks, DT, 1))
+        torch.cuda.synchronize()
+    finally:
+        cc._mevp_halo_, cc._ho_halo_, cc.spmd_xla_subcycles, cc.spmd_xla_ho_subcycles = saved
+    for (kernel, rank), (n, err, rel) in sorted(seen.items()):
+        log("check", (
+            f"{tag} {kernel} halo rank {rank}: {n} launches against the plain version, max_abs_err={err:.3e}, "
+            f"max_rel_err={rel:.3e} (tol {TOL_LAUNCH:g} of each plane's max) ok"
+        ))
+        errs[kernel] = max(errs[kernel], err)
+    return exchanges
+
+
+def check_grid_xla(device) -> tuple:
+    """Phase: M10d, the mEVP's width-1 ("xla") schedule on a card's rank
+    grid. Each GRID_XLA_PATHS path at full width: its steps from zeroed
+    launch counts against as many single-device steps and as many steps on
+    the blocked schedule (the same bodies on the same values: expected 0,
+    failing above TOL_SAME_SCHEDULE), bounded with land untouched, each
+    halo half launched twice a subcycle and rank and no other mEVP kernel;
+    on GRID_XLA_CHECKED one more step with every halo launch (of the ranks
+    given) against its plain version (TOL_LAUNCH) and its exchanges a rank
+    counted. Returns (counts by path, the largest error per kernel)."""
+    errs = dict.fromkeys(("mevp_stress", "mevp_velocity", "ho_stress", "ho_velocity"), 0.0)
+    counts = {}
+    mevp_kernels = ("mevp_stress", "mevp_velocity", "mevp_tiled", "mevp_single", "ho_single", "ho_tiled",
+                    "rdma_stage", "rdma_band", "ho_stress", "ho_velocity")
+    for path, kind, n, ho, kwargs, steps in GRID_XLA_PATHS:
+        t_build = time.perf_counter()
+        single, grids, state, phys, dyn = grid_xla_model(device, kind, n, ho, kwargs)
+        sharded = grids["xla"]
+        model = sharded.models[0]
+        t0 = time.perf_counter()
+        log("slice", (
+            f"{path}: {n}^2 {type(single.mesh).__name__} periodic ({single.mesh.periodic_x}, "
+            f"{single.mesh.periodic_y}){' with the coastline' if single.ocean_mask is not None else ''}, "
+            f"{'HO' if ho else 'CG1'} {MOMENTUM_FORM_NAMES[cc.mevp_form(model.mevp.params)]}, on a "
+            f"{RANKS[0]}x{RANKS[1]} rank grid of "
+            f"{model.mesh.nx}x{model.mesh.ny} blocks, schedule {model.schedule(device)}, single-device "
+            f"{single.schedule(device)}"
+        ))
+        if model.schedule(device)[0] != "xla" or model.is_high_order != ho:
+            raise AssertionError(f"{path} does not run {'HO' if ho else 'CG1'} on xla: {model.schedule(device)}")
+        ref = single.run(state, phys, dyn, DT, steps)
+        blocks = blocks_of(sharded, state, phys, dyn)
+        cc.reset_launches()
+        got = sharded.grid.gather_tree(sharded.run_blocks(*blocks, DT, steps), device)
+        torch.cuda.synchronize()
+        counts[path] = dict(cc.launches)
+        compare_sharded_step(f"{path}: {steps} steps vs single-device", got, ref, tol_same=True)
+        del ref
+        blocked = grids["blocked"]
+        other = blocked.grid.gather_tree(blocked.run_blocks(*blocks_of(blocked, state, phys, dyn), DT, steps), device)
+        torch.cuda.synchronize()
+        compare_sharded_step(f"{path}: {steps} steps vs blocked", got, other, tol_same=True, other="the blocked step")
+        del other, blocked, grids
+        log("slice", f"{path}: {steps} steps, launches: { {k: v for k, v in counts[path].items() if v} }")
+        check_bounded(f"{path}: {steps} steps", got, state)
+        if single.ocean_mask is not None:
+            check_land(f"{path}: {steps} steps", single, got, state)
+        missing = [name for name in PATH_KERNELS[path] if counts[path][name] == 0]
+        expected = steps * N_SUBCYCLES * RANKS[0] * RANKS[1]
+        wrong = {k: counts[path][k] for k in mevp_kernels if counts[path][k] != (expected if k in XLA_HALVES[ho] else 0)}
+        if missing or wrong:
+            raise AssertionError(f"{path}: kernels not launched {missing}, mEVP launches off {expected} a half: {wrong}")
+        t1 = time.perf_counter()
+        if path in GRID_XLA_CHECKED:
+            exchanges = xla_halo_launches(path, sharded, blocks_of(sharded, got, phys, dyn), GRID_XLA_CHECKED[path],
+                                          errs)
+            log("slice", f"{path}: one step: exchanges a rank {sorted(exchanges.values())}")
+        del got, single, sharded, blocks
+        log("time", (
+            f"check_grid_xla {path}: build {t0 - t_build:.1f} s, {steps} steps on the three and checks "
+            f"{t1 - t0:.1f} s, checked step {time.perf_counter() - t1:.1f} s; device memory reserved "
+            f"{torch.cuda.memory_reserved(device) / 2**30:.1f} GiB (peak {torch.cuda.max_memory_reserved(device) / 2**30:.1f})"
+        ))
+    return counts, errs
+
+
+def halo_work(kernel: str, solver, nx: int, ny: int) -> tuple:
+    """(bytes, float32 operations) of one halo launch on an nx x ny block:
+    each plane the kernel reads (state, node and const planes of the form)
+    read once, each plane it writes written once, its strips read once."""
+    p, metric = solver.params, not solver.mesh.uniform
+    strips = {"mevp_stress": 2, "mevp_velocity": 3 + 2 * metric, "ho_stress": 8, "ho_velocity": 9 + 2 * metric}[kernel]
+    if kernel == "mevp_stress":  # u, v, 3 stresses; 5 consts (+ metric, a_node, inv_w); 3 stresses, c_w, inv_drag (beta)
+        planes = 5 + 5 + 2 * metric + p.a_weighted_stress + (p.adaptive_alpha and metric) + 5 + p.adaptive_alpha
+        ops = OPS["stress_both" if p.a_weighted_stress and p.adaptive_alpha else "stress_weighted"
+                  if p.a_weighted_stress else "stress_adaptive" if p.adaptive_alpha else "stress"]
+    elif kernel == "mevp_velocity":  # u, v, 3 stresses, c_w, inv_drag (beta); 5 consts (+ 3 metric); u, v
+        planes = 7 + p.adaptive_alpha + 5 + 3 * metric + 2
+        ops = OPS["velocity_metric" if metric else "velocity"]
+    elif kernel == "ho_stress":  # 8 velocity + 9 stress planes, strength (+ inv_dx, inv_dy); 9 stresses
+        planes, ops = 17 + 1 + 2 * metric + 9, OPS["ho_stress"]
+    else:  # 17 planes; 7 consts a CG2 plane (+ a_k) (+ dx, dy); 8 velocity planes
+        planes, ops = 17 + 4 * (7 + p.a_weighted_stress) + 2 * metric + 8, OPS["ho_velocity"]
+    return 4 * (planes * nx * ny + strips * (nx + ny + 1)), ops * nx * ny
+
+
+def halo_launches(kernel: str, captured: tuple, stream) -> tuple:
+    """(row label, solver, the kernel's in-place launch, its plain version,
+    the planes the half reads beyond the block) of a launch that
+    check_grid_xla kept (``XLA_TIMED``); the launch holds its inputs."""
+    if kernel.startswith("mevp"):
+        solver, carry, consts, dt, c_w, inv_drag, beta, strips, metric = captured
+        state = torch.stack(list(carry))
+        const_ptrs, scalars = cc._mevp_consts(consts), cc._mevp_scalars(solver, dt)
+        form = cc.mevp_form(solver.params)
+        betas = () if beta is None else (beta,)
+        fn = lambda keep=consts: cc._mevp_halo_(kernel, state, const_ptrs, c_w, inv_drag, beta, strips, metric,
+                                                form, scalars, stream)
+        if kernel == "mevp_stress":
+            return (f"{kernel} halo", solver, fn,
+                    lambda: cc.mevp_stress_halo_reference(solver, carry, consts, *strips), state[0:2])
+        return (f"{kernel} halo", solver, fn,
+                lambda: cc.mevp_velocity_halo_reference(solver, carry, consts, c_w, inv_drag, dt, *strips,
+                                                        *(metric or (None, None)), *betas), state[2:5])
+    solver, before, consts, dt, strips, widths = captured
+    state = before.clone()
+    const_ptrs, form = cc._ho_consts(consts), cc._ho_halo_form(solver)
+    scalars, tables = cc._ho_scalars(solver, dt), cc._ho_tables(solver)
+    fn = lambda keep=consts: cc._ho_halo_(kernel, state, const_ptrs, strips, widths, form, scalars, tables, stream)
+    if kernel == "ho_stress":
+        return kernel, solver, fn, lambda: cc.ho_stress_halo_reference(solver, before, consts, *strips), state[:8]
+    return (kernel, solver, fn, lambda: cc.ho_velocity_halo_reference(solver, before, consts, dt, *strips,
+                                                                      *(widths or (None, None))), state[8:])
+
+
+def time_grid_xla(device, card: str, errs: dict) -> None:
+    """The halo kernels at config 5's 2048^2 blocks (the CG1 halves' metric
+    forms and the HO halves, on the launches check_grid_xla kept): ms per
+    launch back to back with their bounds and their plain versions, in
+    turns with the copy that a block widened by one ring would take a half
+    in place of the strips (the planes the half reads beyond the block,
+    padded); then the two 16M cells on "xla", "blocked" and "rdma" (h = 16),
+    a step each in turns, and a profile of each xla step."""
+    stream = cc._stream(device)
+    for (kernel, nx), captured in sorted(XLA_TIMED.items()):
+        if nx != N16 // 2:
+            continue
+        label, solver, fn, plain, beyond = halo_launches(kernel, captured, stream)
+        ny = beyond.shape[-1]
+        work = halo_work(kernel, solver, nx, ny)
+        runs = time_in_turns({
+            "kernel": fn, "plain": plain, "widen": lambda: torch.nn.functional.pad(beyond, (1, 1, 1, 1)),
+        }, {"kernel": 50, "plain": None, "widen": 20})
+        mean = {k: sum(v) / len(v) for k, v in runs.items()}
+        row = Row(errs[kernel], mean["kernel"], mean["plain"], *work)
+        if kernel.startswith("mevp"):
+            TVB_FORMS[label] = row
+        else:
+            XLA_ROWS[kernel] = row
+        DEVICE_PROBES[f"{label} {nx}x{ny}"] = fn
+        bound_ms, bound_by = bound(*work)
+        log("time", (
+            f"{label} ({'uniform' if solver.mesh.uniform else 'metric'}"
+            f"{', A-weighted' if solver.params.a_weighted_stress else ''}, a {nx}x{ny} block): "
+            f"{', '.join(f'{m:.5f}' for m in runs['kernel'])} ms a launch back to back, bound {bound_ms:.5f} ms "
+            f"({bound_by}), plain {mean['plain']:.4f} ms; the {beyond.shape[0]} planes it reads beyond the block "
+            f"widened by one ring instead (a widened-block design's copy a half): "
+            f"{', '.join(f'{m:.5f}' for m in runs['widen'])} ms, on {card}"
+        ))
+    for path in GRID_XLA_TIMED:
+        _, kind, n, ho, kwargs, _ = next(p for p in GRID_XLA_PATHS if p[0] == path)
+        _, grids, state, phys, dyn = grid_xla_model(device, kind, n, ho, kwargs, ("xla", "blocked", "rdma"))
+        blocks = {b: blocks_of(g, state, phys, dyn) for b, g in grids.items()}
+        fns = {f"2x2 {b}": (lambda b=b: grids[b].run_blocks(*blocks[b], DT, 1)) for b in grids}
+        runs = time_in_turns(fns, dict.fromkeys(fns, 1))
+        for name, ms in runs.items():
+            report(f"{path} coupled step, {name} ({n}x{n}, h = 16 on blocked and rdma)", ms, n * n, card)
+        profile(f"{path} coupled step, 2x2 xla ({n}x{n})", lambda: grids["xla"].run_blocks(*blocks["xla"], DT, 1),
+                n_steps=1, watch="halo_kernel")
+        del grids, blocks, fns
+    log("time", f"time_grid_xla: device memory reserved peak {torch.cuda.max_memory_reserved(device) / 2**30:.1f} GiB")
 
 
 def kernel_summary(kernels: dict, counts: dict, ceilings: dict) -> dict:
@@ -5533,6 +5889,8 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     counts.update(counts_grid_ho_rdma)
     counts_grid_tvb, _ = phase(check_grid_tvb, device)
     counts.update(counts_grid_tvb)
+    counts_grid_xla, errs_xla = phase(check_grid_xla, device)
+    counts.update(counts_grid_xla)
     kernels["ho_tiled"] = replace(kernels["ho_tiled"], err=max(kernels["ho_tiled"].err, err_grid_ho))
     phase(check_engine, device, smi)
     counts.update(counts_5, roofline=counts_roofline)
@@ -5548,6 +5906,8 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_grid_ho, device, smi)
     phase(time_grid_ho_rdma, device, smi)
     phase(time_grid_tvb, device, smi)
+    phase(time_grid_xla, device, smi, errs_xla)
+    kernels.update(XLA_ROWS)
     phase(time_tvb_periodic, device, smi)
     phase(time_ho_forms, device, smi)
     phase(time_ho_metric, device, smi)

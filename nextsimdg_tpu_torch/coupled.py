@@ -195,7 +195,10 @@ class CoupledModel:
         spherical mesh, as on one domain), is the staged route with width-1
         exchanges (``coupled_cuda.spmd_staged_transport``: on a card the
         halo forms of dg1_rk_stage and dg1_limit); the mEVP's ``"xla"``,
-        its width-1 schedule, takes CPU tensors only and raises on a card.
+        its width-1 schedule, exchanges strips before each half of every
+        subcycle (``coupled_cuda.spmd_xla_subcycles``: on a card the halo
+        forms of mevp_stress and mevp_velocity, or with the HO solver
+        ho_stress and ho_velocity).
         """
         self.exchange = None if isinstance(spmd, tuple) else spmd
         if self.exchange is None and any(axis is not None for axis in spmd):

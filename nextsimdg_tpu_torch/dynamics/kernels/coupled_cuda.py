@@ -12,7 +12,11 @@ schedules (``dynamics_phase``):
 kernel              source                      plain version (same inputs)
 =================== =========================== ===================================
 ``mevp_stress``     ``csrc/mevp.cu``            ``MEVPSolver.stress_update``
+                    (halo form:                 ``mevp_stress_halo_reference``
+                    ``mevp_spmd*.cu``)
 ``mevp_velocity``   ``csrc/mevp.cu``            ``MEVPSolver.velocity_update``
+                    (halo form:                 ``mevp_velocity_halo_reference``
+                    ``mevp_spmd*.cu``)
 ``dg1_sample_cfl``  ``csrc/transport.cu``       ``dg1_sample_cfl_reference``
 ``dg1_rk_stage``    ``csrc/transport.cu``       ``dg1_rk_stage_reference``
                     (halo form:                 ``dg1_rk_stage_halo_reference``
@@ -25,6 +29,8 @@ kernel              source                      plain version (same inputs)
 ``mevp_single``     ``csrc/mevp_single.cu``     ``mevp_subcycles_reference``
 ``ho_single``       ``csrc/ho_single.cu``       ``ho_subcycles_reference``
 ``ho_tiled``        ``csrc/ho_tiled.cu``        ``ho_subcycles_reference``
+``ho_stress``       ``csrc/ho_halves_spmd.cu``  ``ho_stress_halo_reference``
+``ho_velocity``     ``csrc/ho_halves_spmd.cu``  ``ho_velocity_halo_reference``
 ``rdma_stage``      ``csrc/mevp_rdma.cu``       ``rdma_stage_reference``
 ``rdma_band``       ``csrc/mevp_rdma.cu``       ``rdma_band_reference``
                     (HO: ``mevp_rdma_ho.cu``)
@@ -82,9 +88,9 @@ precomputed samples (their ``qv`` form).
 
 On a rank grid (``parallel``) the phase runs the solver's exchange
 schedule (``MEVPSolver.spmd_subcycles``: ``mevp_tiled`` on the widened
-block, or the rdma round; ``MEVPSolverHO.spmd_subcycles``: ho_tiled or
-ho_single on the widened block, or the rdma round on 17 planes; free
-drift's plain step), samples the CFL
+block, the rdma round, or the width-1 halves; ``MEVPSolverHO.spmd_subcycles``:
+ho_tiled or ho_single on the widened block, the rdma round on 17 planes,
+or ``ho_stress`` and ``ho_velocity``; free drift's plain step), samples the CFL
 speeds of the rank's own elements (in its widened CG1 velocity, or its CG2
 velocity's quadrature samples), agrees k over the ranks with one host sync
 for the whole grid, and advects with ``transport_tiled`` on the widened
@@ -96,7 +102,14 @@ spherical or ring mesh, and ``transport="xla"``), whose stages are the halo
 forms of ``dg1_rk_stage`` and ``dg1_limit``: each reads the rank's block
 widened by one ring (psi, or the stage's means, exchanged before each
 launch) and the four global walls as indices, and writes the block's own
-elements (``dg1_rk_stage_halo``, ``dg1_limit_halo``).
+elements (``dg1_rk_stage_halo``, ``dg1_limit_halo``). On the width-1
+("xla") mEVP schedule of a rank grid each subcycle is two launches behind
+width-1 strip exchanges (``spmd_xla_subcycles``): the halo forms of
+``mevp_stress`` and ``mevp_velocity``, or with the HO solver ``ho_stress``
+and ``ho_velocity``, the two halves of K5's subcycle as grid-wide kernels
+(``spmd_xla_ho_subcycles``); each reads the rank's own block and the
+neighbour ranks' strips (``stencil.plus_strips``, ``minus_strips``) and
+writes the block's own elements or nodes.
 
 Each public wrapper runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (float32, contiguous, one device); it raises for
@@ -124,6 +137,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..mesh import block_mesh
 from ..mevp import MEVP_CONSTS, MEVPSolver, VelocityState, const_names
 from ..mevp_ho import (
     HO_KERNEL_CONSTS, HOField, MEVPSolverHO, ho_subcycles_reference, ho_velocity_to_quad,
@@ -137,8 +151,12 @@ from ..transport import (
 KERNELS = (
     "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage", "dg1_limit",
     "mevp_tiled", "transport_tiled", "mevp_single", "ho_single", "ho_tiled",
-    "rdma_stage", "rdma_band", "chain",
+    "rdma_stage", "rdma_band", "chain", "ho_stress", "ho_velocity",
 )
+
+#: The entry points of the CG1 mEVP halves' halo forms (counted as
+#: ``mevp_stress`` and ``mevp_velocity``).
+_HALO_ENTRIES = ("mevp_stress_halo", "mevp_velocity_halo")
 
 #: Launches per kernel since the last ``reset_launches()``.
 launches = dict.fromkeys(KERNELS, 0)
@@ -289,7 +307,11 @@ def _bind():
     lib.nst_rdma_band_ho.argtypes = [p, p, i, p] + [i] * 6 + [p, i, p, p, p, i, i, p]
     lib.nst_rdma_band_ho.restype = i
     lib.nst_chain.argtypes = [p, p, p] + [i] * 6 + [p]
-    for name in KERNELS:
+    lib.nst_mevp_stress_halo.argtypes = [p] * 11 + [i] * 3 + tail
+    lib.nst_mevp_velocity_halo.argtypes = [p] * 13 + [i] * 3 + tail
+    lib.nst_ho_stress.argtypes = [p] * 4 + [i] * 3 + [p, p, i, p]
+    lib.nst_ho_velocity.argtypes = [p] * 6 + [i] * 3 + [p, p, i, p]
+    for name in KERNELS + _HALO_ENTRIES:
         getattr(lib, "nst_" + name).restype = i
     lib.nst_mevp_tiled_max_blocks.argtypes = [i] * 6
     lib.nst_mevp_tiled_max_blocks.restype = i
@@ -986,6 +1008,357 @@ def mevp_velocity(solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float, b
     return planes[0], planes[1]
 
 
+# -- the halo forms of the mEVP halves: a rank block and its strips ------------
+_EXTENDED = weakref.WeakKeyDictionary()
+
+
+def _extended(solver):
+    """``solver``'s twin on a closed block one cell wider along both axes
+    (a uniform ``RectMesh`` of its widths, or a ``MetricShim``): the plain
+    halves' block with the strips in place. Made once per solver."""
+    twin = _EXTENDED.get(solver)
+    if twin is None:
+        mesh = solver.mesh
+        twin = _EXTENDED.setdefault(solver, type(solver)(block_mesh(mesh.nx + 1, mesh.ny + 1, mesh), solver.params))
+    return twin
+
+
+def _with_plus(f, strip_x, strip_y):
+    """(C, nx, ny) planes with the +1 strips as row nx and column ny."""
+    return torch.cat([torch.cat([f, strip_x[:, None, :]], dim=1), strip_y[:, :, None]], dim=2)
+
+
+def _with_minus(f, strip_x, strip_y):
+    """(C, nx, ny) planes with the -1 strips as row and column 0."""
+    return torch.cat([strip_y[:, :, None], torch.cat([strip_x[:, None, :], f], dim=1)], dim=2)
+
+
+def _padded(f, side: int):
+    """(..., nx, ny) planes with a zero row and column after (side > 0) or
+    before (side < 0) the block."""
+    return torch.nn.functional.pad(f, (0, 1, 0, 1) if side > 0 else (1, 0, 1, 0))
+
+
+def mevp_stress_halo_reference(solver: MEVPSolver, carry, consts, strip_x, strip_y):
+    """The stress half of a rank block's subcycle (``solver`` the rank's):
+    ``solver.stress_update`` on the block extended by the +1 strips of u
+    and v (``stencil.plus_strips``: ``strip_x`` (2, ny), ``strip_y`` (2,
+    nx + 1)), the consts and stresses padded, cut back to the block. The
+    same values as the per-shift exchange's: (s11, s22, s12, c_w, inv_drag)
+    and with ``adaptive_alpha`` beta."""
+    u, v, s11, s22, s12 = carry
+    nx, ny = u.shape
+    uv = _with_plus(torch.stack([u, v]), strip_x, strip_y)
+    stresses = _padded(torch.stack([s11, s22, s12]), 1)
+    consts_w = dict(zip(consts, _padded(torch.stack(list(consts.values())), 1)))
+    out = _extended(solver).stress_update((uv[0], uv[1], *stresses), consts_w)
+    return tuple(f[:nx, :ny].contiguous() for f in out)
+
+
+def mevp_velocity_halo_reference(
+    solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float, strip_x, strip_y,
+    metric_x=None, metric_y=None, beta=None,
+):
+    """The velocity half of a rank block's subcycle: ``solver.velocity_update``
+    on the block extended by the -1 strips of s11, s22 and s12
+    (``stencil.minus_strips``: ``strip_x`` (3, ny), ``strip_y`` (3,
+    nx + 1)), and on a graded or spherical mesh by those of half_dx and
+    half_dy (``metric_x`` (2, ny), ``metric_y`` (2, nx + 1)), the node planes
+    padded, cut back to the block. Returns (u, v)."""
+    u, v, s11, s22, s12 = carry
+    nx, ny = u.shape
+    stresses = _with_minus(torch.stack([s11, s22, s12]), strip_x, strip_y)
+    consts_w = dict(zip(consts, _padded(torch.stack(list(consts.values())), -1)))
+    if metric_x is not None:
+        half = _with_minus(torch.stack([consts["half_dx"], consts["half_dy"]]), metric_x, metric_y)
+        consts_w.update(half_dx=half[0], half_dy=half[1])
+    nodes = _padded(torch.stack([u, v, c_w, inv_drag] + ([] if beta is None else [beta])), -1)
+    u_w, v_w = _extended(solver).velocity_update(
+        (nodes[0], nodes[1], *stresses), consts_w, nodes[2], nodes[3], dt, *nodes[4:],
+    )
+    return u_w[1:, 1:].contiguous(), v_w[1:, 1:].contiguous()
+
+
+def _mevp_halo_(name, state, const_ptrs, c_w, inv_drag, beta, strips, metric, form, scalars, stream):
+    """One launch of ``mevp_stress``'s or ``mevp_velocity``'s halo form in
+    place on the rank's (5, nx, ny) ``state`` (arguments already checked):
+    ``strips`` the half's (x, y) strips, ``metric`` the velocity half's
+    half_dx and half_dy strips on a metric mesh (else None); ``form`` the
+    momentum form (``mevp_form``). Counted as a launch of ``name``."""
+    _, nx, ny = state.shape
+    metric_ptrs = () if name == "mevp_stress" else (None, None) if metric is None else (
+        metric[0].data_ptr(), metric[1].data_ptr())
+    _launch(
+        name, *(plane.data_ptr() for plane in state), c_w.data_ptr(), inv_drag.data_ptr(),
+        None if beta is None else beta.data_ptr(), const_ptrs, strips[0].data_ptr(), strips[1].data_ptr(),
+        *metric_ptrs, nx, ny, form, ctypes.addressof(scalars), state.device.index, stream,
+        entry=name + "_halo",
+    )
+
+
+def _check_strips(shape, device, n_planes: int, **strips) -> None:
+    """Strips of ``n_planes`` planes: an x strip (C, ny), a y strip (C, nx + 1)."""
+    nx, ny = shape
+    for name, t in strips.items():
+        _check((n_planes, ny if name.endswith("x") else nx + 1), device, **{name: t})
+
+
+def mevp_stress_halo(solver: MEVPSolver, carry, consts, strip_x, strip_y):
+    """The stress half of a rank block's subcycle from the block and the
+    +1 strips of u and v (see the reference): (s11, s22, s12, c_w,
+    inv_drag), and with ``adaptive_alpha`` beta. CPU tensors run the plain
+    version; CUDA tensors one launch of ``mevp_stress``'s halo form."""
+    if _on_cpu(carry[0]):
+        return mevp_stress_halo_reference(solver, carry, consts, strip_x, strip_y)
+    _check_mevp(solver, carry, consts)
+    u = carry[0]
+    _check_strips(u.shape, u.device, 2, strip_x=strip_x, strip_y=strip_y)
+    state = torch.stack(list(carry))
+    c_w, inv_drag = torch.empty_like(u), torch.empty_like(u)
+    beta = torch.empty_like(u) if solver.params.adaptive_alpha else None
+    _mevp_halo_(
+        "mevp_stress", state, _mevp_consts(consts), c_w, inv_drag, beta, (strip_x, strip_y), None,
+        mevp_form(solver.params), _mevp_scalars(solver, 0.0), _stream(u.device),
+    )
+    return (state[2], state[3], state[4], c_w, inv_drag) + (() if beta is None else (beta,))
+
+
+def mevp_velocity_halo(
+    solver: MEVPSolver, carry, consts, c_w, inv_drag, dt: float, strip_x, strip_y,
+    metric_x=None, metric_y=None, beta=None,
+):
+    """The velocity half of a rank block's subcycle from the block and the
+    -1 strips of the stresses (and of half_dx and half_dy on a graded or
+    spherical mesh; see the reference): the new (u, v). CPU tensors run the
+    plain version; CUDA tensors one launch of ``mevp_velocity``'s halo
+    form."""
+    if _on_cpu(carry[0]):
+        return mevp_velocity_halo_reference(
+            solver, carry, consts, c_w, inv_drag, dt, strip_x, strip_y, metric_x, metric_y, beta,
+        )
+    _check_mevp(solver, carry, consts)
+    if (beta is not None) != solver.params.adaptive_alpha:
+        raise ValueError("mevp_velocity takes beta exactly in the adaptive form")
+    if (metric_x is not None) != (not solver.mesh.uniform):
+        raise ValueError("the velocity half takes the half_dx, half_dy strips exactly on a metric mesh")
+    u = carry[0]
+    _check(u.shape, u.device, c_w=c_w, inv_drag=inv_drag, **({} if beta is None else {"beta": beta}))
+    _check_strips(u.shape, u.device, 3, strip_x=strip_x, strip_y=strip_y)
+    metric = None
+    if metric_x is not None:
+        _check_strips(u.shape, u.device, 2, metric_x=metric_x, metric_y=metric_y)
+        metric = (metric_x, metric_y)
+    state = torch.stack(list(carry))
+    _mevp_halo_(
+        "mevp_velocity", state, _mevp_consts(consts), c_w, inv_drag, beta, (strip_x, strip_y), metric,
+        mevp_form(solver.params), _mevp_scalars(solver, dt), _stream(u.device),
+    )
+    return state[0], state[1]
+
+
+def spmd_xla_subcycles(solver: MEVPSolver, carry, consts, dt: float, n_subcycles: int):
+    """(u, v, s11, s22, s12) after N subcycles of a rank's block on the
+    width-1 ("xla") schedule (``solver`` the rank's, on its exchange axes):
+    each subcycle exchanges the +1 strips of u and v (``stencil.
+    plus_strips``), runs the stress half, exchanges the -1 strips of the
+    stresses (``minus_strips``) and runs the velocity half; on a graded or
+    spherical mesh the -1 strips of half_dx and half_dy are exchanged once.
+    A closed global wall's strips are zeros, a ring's arrive round the
+    ranks. CUDA tensors launch the halo forms of ``mevp_stress`` and
+    ``mevp_velocity`` in place on one (5, nx, ny) copy of the carry (and
+    nothing of the plain versions); CPU tensors run their plain versions,
+    the same route."""
+    from ..stencil import minus_strips, plus_strips
+
+    mesh = solver.mesh
+    periodic, axes = (mesh.periodic_x, mesh.periodic_y), solver.spmd
+    metric = (None, None)
+    if not mesh.uniform:
+        metric = minus_strips(torch.stack([consts["half_dx"], consts["half_dy"]]), periodic, axes)
+    state = torch.stack(list(carry))
+    if _on_cpu(state):
+        nodes = []
+
+        def stress(state, strips):
+            out = mevp_stress_halo_reference(solver, tuple(state), consts, *strips)
+            nodes[:] = out[3:]  # c_w, inv_drag (and beta) for the velocity half
+            return torch.stack([state[0], state[1], *out[:3]])
+
+        def velocity(state, strips):
+            u, v = mevp_velocity_halo_reference(
+                solver, tuple(state), consts, nodes[0], nodes[1], dt, *strips, *metric, *nodes[2:],
+            )
+            return torch.stack([u, v, *state[2:]])
+    else:
+        _check_mevp(solver, tuple(state), consts)
+        u = state[0]
+        c_w, inv_drag = torch.empty_like(u), torch.empty_like(u)
+        beta = torch.empty_like(u) if solver.params.adaptive_alpha else None
+        const_ptrs, scalars = _mevp_consts(consts), _mevp_scalars(solver, dt)
+        form, stream = mevp_form(solver.params), _stream(u.device)
+
+        def stress(state, strips):
+            _mevp_halo_("mevp_stress", state, const_ptrs, c_w, inv_drag, beta, strips, None, form, scalars, stream)
+            return state
+
+        def velocity(state, strips):
+            _mevp_halo_(
+                "mevp_velocity", state, const_ptrs, c_w, inv_drag, beta, strips,
+                None if metric[0] is None else metric, form, scalars, stream,
+            )
+            return state
+
+    for _ in range(n_subcycles):
+        state = stress(state, plus_strips(state[0:2], periodic, axes))
+        state = velocity(state, minus_strips(state[2:5], periodic, axes))
+    return tuple(state)
+
+
+def _ho_halo_form(solver: MEVPSolverHO) -> int:
+    """The HO halo kernels' form: the A-weighted and metric bits of
+    ``kernel_form``, no periodic axes (their wrap arrives in the strips)."""
+    return kernel_form(solver) & (FORM_WEIGHTED | HO_FORM_METRIC)
+
+
+def ho_stress_halo_reference(solver: MEVPSolverHO, state, consts, strip_x, strip_y):
+    """The stress half of a rank block's HO subcycle (``solver`` the
+    rank's) on its 17 planes ``state`` (``ho_flatten``'s order):
+    ``solver.stress_update`` on the block extended by the +1 strips of the 8
+    velocity planes (``strip_x`` (8, ny), ``strip_y`` (8, nx + 1)), the
+    stresses and consts padded, cut back to the block. Returns the new
+    (17, nx, ny) planes, the stresses updated."""
+    _, nx, ny = state.shape
+    wide = torch.cat([_with_plus(state[:8], strip_x, strip_y), _padded(state[8:], 1)])
+    consts_w = dict(zip(consts, _padded(torch.stack(list(consts.values())), 1)))
+    stresses = _extended(solver).stress_update(ho_unflatten(wide), consts_w)
+    return torch.cat([state[:8], *(s[:, :nx, :ny] for s in stresses)])
+
+
+def ho_velocity_halo_reference(
+    solver: MEVPSolverHO, state, consts, dt: float, strip_x, strip_y, width_x=None, width_y=None,
+):
+    """The velocity half of a rank block's HO subcycle on its 17 planes:
+    ``solver.velocity_update`` on the block extended by the -1 strips of
+    the 9 stress planes (``strip_x`` (9, ny), ``strip_y`` (9, nx + 1)), and
+    on a graded or spherical mesh by those of dx and dy (``width_x`` (2,
+    ny), ``width_y`` (2, nx + 1)), the velocities and consts padded, cut
+    back to the block. Returns the new (17, nx, ny) planes, the velocities
+    updated."""
+    wide = torch.cat([_padded(state[:8], -1), _with_minus(state[8:], strip_x, strip_y)])
+    consts_w = dict(zip(consts, _padded(torch.stack(list(consts.values())), -1)))
+    if width_x is not None:
+        widths = _with_minus(torch.stack([consts["dx"], consts["dy"]]), width_x, width_y)
+        consts_w.update(dx=widths[0], dy=widths[1])
+    u, v = _extended(solver).velocity_update(ho_unflatten(wide), consts_w, dt)
+    return torch.cat([torch.stack([p[1:, 1:] for p in (*u.planes(), *v.planes())]), state[8:]])
+
+
+def _ho_halo_(name, state, const_ptrs, strips, widths, form, scalars, tables, stream):
+    """One launch of ``ho_stress`` or ``ho_velocity`` in place on the
+    rank's (17, nx, ny) ``state`` (arguments already checked): ``strips``
+    the half's (x, y) strips, ``widths`` the velocity half's dx and dy
+    strips in the metric form (else None)."""
+    _, nx, ny = state.shape
+    width_ptrs = () if name == "ho_stress" else (None, None) if widths is None else (
+        widths[0].data_ptr(), widths[1].data_ptr())
+    _launch(
+        name, state.data_ptr(), const_ptrs, strips[0].data_ptr(), strips[1].data_ptr(), *width_ptrs,
+        nx, ny, form, ctypes.addressof(scalars), ctypes.addressof(tables), state.device.index, stream,
+    )
+
+
+def _check_ho_state(solver: MEVPSolverHO, state, consts) -> None:
+    _check_ho(solver, ho_unflatten(state), consts)
+    _check((17, solver.mesh.nx, solver.mesh.ny), state.device, state=state)
+
+
+def ho_stress_halo(solver: MEVPSolverHO, state, consts, strip_x, strip_y):
+    """The stress half of a rank block's HO subcycle from its 17 planes and
+    the +1 strips of the velocities (see the reference): the new (17, nx,
+    ny) planes. CPU tensors run the plain version; CUDA tensors one
+    ``ho_stress`` launch on a copy."""
+    if _on_cpu(state):
+        return ho_stress_halo_reference(solver, state, consts, strip_x, strip_y)
+    _check_ho_state(solver, state, consts)
+    _check_strips(state.shape[1:], state.device, 8, strip_x=strip_x, strip_y=strip_y)
+    out = state.clone()
+    _ho_halo_(
+        "ho_stress", out, _ho_consts(consts), (strip_x, strip_y), None, _ho_halo_form(solver),
+        _ho_scalars(solver, 0.0), _ho_tables(solver), _stream(state.device),
+    )
+    return out
+
+
+def ho_velocity_halo(
+    solver: MEVPSolverHO, state, consts, dt: float, strip_x, strip_y, width_x=None, width_y=None,
+):
+    """The velocity half of a rank block's HO subcycle from its 17 planes
+    and the -1 strips of the stresses (and of dx and dy on a graded or
+    spherical mesh; see the reference): the new (17, nx, ny) planes. CPU
+    tensors run the plain version; CUDA tensors one ``ho_velocity`` launch
+    on a copy."""
+    if _on_cpu(state):
+        return ho_velocity_halo_reference(solver, state, consts, dt, strip_x, strip_y, width_x, width_y)
+    _check_ho_state(solver, state, consts)
+    if (width_x is not None) != (not solver.mesh.uniform):
+        raise ValueError("the HO velocity half takes the dx, dy strips exactly on a metric mesh")
+    _check_strips(state.shape[1:], state.device, 9, strip_x=strip_x, strip_y=strip_y)
+    if width_x is not None:
+        _check_strips(state.shape[1:], state.device, 2, width_x=width_x, width_y=width_y)
+    out = state.clone()
+    _ho_halo_(
+        "ho_velocity", out, _ho_consts(consts), (strip_x, strip_y),
+        None if width_x is None else (width_x, width_y), _ho_halo_form(solver),
+        _ho_scalars(solver, dt), _ho_tables(solver), _stream(state.device),
+    )
+    return out
+
+
+def spmd_xla_ho_subcycles(solver: MEVPSolverHO, carry, consts, dt: float, n_subcycles: int):
+    """The HO carry after N subcycles of a rank's block on the width-1
+    ("xla") schedule, the twin of ``spmd_xla_subcycles`` on the 17 planes
+    of ``ho_flatten``: each subcycle exchanges the +1 strips of the 8
+    velocity planes and runs ``ho_stress``, then the -1 strips of the 9
+    stress planes and runs ``ho_velocity``; on a graded or spherical mesh
+    the -1 strips of dx and dy are exchanged once. CUDA tensors launch the
+    two kernels in place on one flat copy of the carry; CPU tensors run
+    their plain versions, the same route."""
+    from ..stencil import minus_strips, plus_strips
+
+    mesh = solver.mesh
+    periodic, axes = (mesh.periodic_x, mesh.periodic_y), solver.spmd
+    widths = (None, None)
+    if not mesh.uniform:
+        widths = minus_strips(torch.stack([consts["dx"], consts["dy"]]), periodic, axes)
+    state = ho_flatten(carry)
+    if _on_cpu(state):
+        def stress(state, strips):
+            return ho_stress_halo_reference(solver, state, consts, *strips)
+
+        def velocity(state, strips):
+            return ho_velocity_halo_reference(solver, state, consts, dt, *strips, *widths)
+    else:
+        _check_ho_state(solver, state, consts)
+        const_ptrs, form, stream = _ho_consts(consts), _ho_halo_form(solver), _stream(state.device)
+        scalars, tables = _ho_scalars(solver, dt), _ho_tables(solver)
+
+        def stress(state, strips):
+            _ho_halo_("ho_stress", state, const_ptrs, strips, None, form, scalars, tables, stream)
+            return state
+
+        def velocity(state, strips):
+            _ho_halo_(
+                "ho_velocity", state, const_ptrs, strips, None if widths[0] is None else widths, form,
+                scalars, tables, stream,
+            )
+            return state
+
+    for _ in range(n_subcycles):
+        state = stress(state, plus_strips(state[:8], periodic, axes))
+        state = velocity(state, minus_strips(state[8:], periodic, axes))
+    return ho_unflatten(state)
+
+
 def dg1_sample_cfl_reference(transport: DGTransport, u, v, halo: int = 0):
     """(max |vx|, max |vy|) over the quadrature points, as a (2,) tensor;
     with ``halo``, over the elements of the block that (u, v) widen by
@@ -1483,7 +1856,7 @@ def _spmd_dynamics_phase(
 
 def _spmd_ho_phase(model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, transport):
     """The HO solver's ``_spmd_dynamics_phase``: the N subcycles on the
-    blocked or rdma (or, on the CPU, width-1) exchange schedule, the CG2 velocity
+    blocked, rdma or width-1 exchange schedule, the CG2 velocity
     sampled at the quadrature points through the exchange
     (``ho_velocity_to_quad``), k from the max speeds of the rank's own
     elements over the ranks (one host sync for the grid), then the spmd

@@ -40,9 +40,11 @@ periodic axes, and runs the N subcycles on one of the JAX package's
 exchange schedules (``MEVPSolver.schedule``): ``"blocked"`` widens the
 block by h ghost cells once per h subcycles (``mevp_tiled`` on the widened
 block on a card), ``"rdma"`` runs the overlapped round of K7
-(``kernels.mevp_rdma_cuda``), ``"xla"`` exchanges width-1 halos in every
-subcycle (the plain path). On a view the metric rides the const planes
-through every schedule, widened with the others, as in the JAX package.
+(``kernels.mevp_rdma_cuda``), ``"xla"`` exchanges width-1 strips before
+each half of every subcycle (on a card the halo forms of K1's two halves,
+``kernels.coupled_cuda.spmd_xla_subcycles``). On a view the metric rides
+the const planes through every schedule, widened with the others (on
+"xla" the strips of half_dx and half_dy), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -550,23 +552,19 @@ class MEVPSolver:
         """(u, v, s11, s22, s12) after N subcycles on this rank's block, on
         the solver's exchange schedule (``schedule``). CPU tensors run the
         plain subcycle inside each schedule; CUDA tensors the kernels.
-        ``"xla"`` is the plain path and takes CPU tensors only."""
-        from .kernels.coupled_cuda import _on_cpu
+        ``"xla"`` exchanges width-1 strips before each half of every
+        subcycle and runs the halves' halo forms
+        (``kernels.coupled_cuda.spmd_xla_subcycles``: on a card the halo
+        forms of mevp_stress and mevp_velocity, on the CPU their plain
+        versions)."""
+        from .kernels.coupled_cuda import spmd_xla_subcycles
 
         schedule = self.schedule()
         if schedule == "blocked":
             return self._blocked_subcycles(carry, consts, dt, n_subcycles)
         if schedule == "rdma":
             return self._rdma_subcycles(carry, consts, dt, n_subcycles)
-        carry = tuple(carry)
-        if not _on_cpu(carry[0]):
-            raise NotImplementedError(
-                "the per-subcycle width-1 exchange ('xla') is the plain path and "
-                "takes CPU tensors; on a card a rank grid runs 'blocked' or 'rdma'"
-            )
-        for _ in range(n_subcycles):
-            carry = self.subcycle_body(carry, consts, dt)
-        return carry
+        return spmd_xla_subcycles(self, tuple(carry), consts, dt, n_subcycles)
 
     def _blocked_subcycles(self, carry, consts, dt: float, n_subcycles: int):
         """Ghost-zone ("temporally blocked") exchange: widen the 7 consts by h

@@ -43,8 +43,9 @@ kernels (ho_single or ho_tiled, by the single-device rule) on the widened
 block; ``"rdma"`` runs K7's overlapped round on the 17 planes
 (``kernels.mevp_rdma_cuda``: the strips travel while the interior pass runs
 on the rank's own block, then the edge bands are re-run and patched);
-``"xla"`` exchanges width-1 halos in every subcycle (the plain path, CPU
-tensors only).
+``"xla"`` exchanges width-1 strips before each half of every subcycle and
+runs the subcycle's two halves as grid-wide kernels (``ho_stress`` and
+``ho_velocity``, built from K5's bodies; their plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -560,23 +561,18 @@ class MEVPSolverHO:
     # -- the exchange schedules of a rank grid --------------------------------
     def spmd_subcycles(self, carry, consts, dt: float, n_subcycles: int):
         """The HO carry after N subcycles on this rank's block, on the
-        solver's exchange schedule (``schedule``): "blocked" and "rdma" run
-        the kernels on a card and the plain subcycle on the CPU; "xla" is
-        the plain path and takes CPU tensors only."""
-        from .kernels.coupled_cuda import _on_cpu
+        solver's exchange schedule (``schedule``): the kernels on a card and
+        their plain versions on the CPU. "xla" exchanges width-1 strips
+        before each half of every subcycle and runs the two HO half kernels
+        (``kernels.coupled_cuda.spmd_xla_ho_subcycles``)."""
+        from .kernels.coupled_cuda import spmd_xla_ho_subcycles
 
         schedule = self.schedule()
         if schedule == "blocked":
             return self._blocked_subcycles(carry, consts, dt, n_subcycles)
         if schedule == "rdma":
             return self._rdma_subcycles(carry, consts, dt, n_subcycles)
-        carry = tuple(carry)
-        if not _on_cpu(carry[0].v):
-            raise NotImplementedError(
-                "the per-subcycle width-1 exchange ('xla') is the plain path and "
-                "takes CPU tensors; on a card the HO rank grid runs 'blocked'"
-            )
-        return ho_subcycles_reference(self, carry, consts, dt, n_subcycles)
+        return spmd_xla_ho_subcycles(self, tuple(carry), consts, dt, n_subcycles)
 
     def _blocked_subcycles(self, carry, consts, dt: float, n_subcycles: int):
         """Ghost-zone ("temporally blocked") exchange, the HO counterpart of

@@ -89,6 +89,41 @@ def halo_widen(f: torch.Tensor, h: int, axis: int, periodic: bool, exchange=None
     return torch.cat([lo, f, hi], dim=axis)
 
 
+def _neighbour_strip(strip: torch.Tensor, side: int, periodic: bool, exchange=None) -> torch.Tensor:
+    """What the ``side`` (+1 or -1) neighbour sends of the strip that this
+    rank sends the other way: through ``exchange``, or without one the
+    strip itself on a periodic axis and zeros on a closed one."""
+    if exchange is not None:
+        sent = (strip, None) if side > 0 else (None, strip)
+        from_prev, from_next = exchange.wait(exchange.start(*sent))
+        return from_next if side > 0 else from_prev
+    return strip if periodic else torch.zeros_like(strip)
+
+
+def plus_strips(f: torch.Tensor, periodic=(False, False), axes=(None, None)):
+    """(x, y): the +1 neighbours' strips of the stacked planes ``f`` (C, nx,
+    ny) that a width-1 stencil reads beyond the block at i = nx and j = ny:
+    x (C, ny) the +1 x neighbour's first row, y (C, nx + 1) the +1 y
+    neighbour's first column of its block extended by the x strip it got,
+    so that y[:, nx] is the diagonal neighbour's corner (x then extended y,
+    as ``halo_widen``'s corners). ``axes``: the rank's (x, y) exchanges;
+    without one an axis wraps or reads zeros. The strips sent are copies, so
+    the planes may change in place as soon as this returns."""
+    x = _neighbour_strip(f[:, 0, :].clone(memory_format=torch.contiguous_format), 1, periodic[0], axes[0])
+    y = _neighbour_strip(torch.cat([f[:, :, 0], x[:, :1]], dim=1), 1, periodic[1], axes[1])
+    return x, y
+
+
+def minus_strips(f: torch.Tensor, periodic=(False, False), axes=(None, None)):
+    """(x, y): the -1 neighbours' strips of ``f`` (C, nx, ny) at i = -1 and
+    j = -1, as ``plus_strips``: x (C, ny) the -1 x neighbour's last row, y
+    (C, nx + 1) the -1 y neighbour's last column extended by its x strip,
+    y[:, 0] the diagonal neighbour's corner."""
+    x = _neighbour_strip(f[:, -1, :].clone(memory_format=torch.contiguous_format), -1, periodic[0], axes[0])
+    y = _neighbour_strip(torch.cat([x[:, -1:], f[:, :, -1]], dim=1), -1, periodic[1], axes[1])
+    return x, y
+
+
 def is_global_edge(side: str, exchange=None) -> bool:
     """Whether this block owns the global first or last slice along the
     axis of ``exchange``: always True without one (the block is the

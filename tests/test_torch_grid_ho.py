@@ -299,10 +299,14 @@ def test_ho_rank_grid_schedules_and_halo_are_checked(monkeypatch):
         mevp_ho.MEVPSolverHO(block, spmd=grid.ranks[0].axes, block_halo=9)
     solver = mevp_ho.MEVPSolverHO(RectMesh(64, 64, 4e3, 4e3), spmd=grid.ranks[0].axes)
     assert (solver.schedule(), solver.block_halo) == ("blocked", BLOCK_HALO)
-    # The width-1 exchange is the plain path: on tensors off the CPU it
-    # raises before any work (the CPU check answers as for CUDA tensors).
+    # The width-1 exchange runs the HO half kernels on a card (since M10d):
+    # on tensors off the CPU (the CPU check answers as for CUDA tensors) it
+    # checks the consts before any launch.
     xla = mevp_ho.MEVPSolverHO(block, backend="xla", spmd=grid.ranks[0].axes)
     carry = tuple(_port_leaves(ho_inputs(8))[0].__dict__.values())
     monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
-    with pytest.raises(NotImplementedError, match="CPU tensors"):
+    calls = []
+    monkeypatch.setattr(cc, "_launch", lambda *args, **kwargs: calls.append(args))
+    with pytest.raises(NotImplementedError, match="HO kernels take the consts"):
         xla.spmd_subcycles(carry, {}, DT, 1)
+    assert calls == []

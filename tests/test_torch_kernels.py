@@ -2357,3 +2357,142 @@ def test_ho_rdma_band_refuses_what_the_kernel_does_not_take(device):
 
     _, results = on_ho_rank_grid(device, "closed", 8, bad_calls)
     assert all(errors == [ValueError] * 8 for errors in results)
+
+
+# -- the width-1 ("xla") mEVP schedule of a rank grid: the halves' halo forms ---------
+def xla_block_solver(kind, high_order, weighted=False, adaptive=False):
+    """A rank's solver: block (1, 0) of a 2 x 2 grid of LOCAL blocks of
+    config 4's uniform mesh or the lon-lat window (a ``LocalMeshView``)."""
+    from nextsimdg_tpu_torch.dynamics.mesh import LocalMeshView
+
+    nx, ny = LOCAL
+    if kind == "uniform":
+        mesh = RectMesh(nx, ny, 4e3, 4e3)
+    else:
+        mesh = LocalMeshView(SphericalMesh(2 * nx, 2 * ny, -40.0, 40.0, 55.0, 85.0), 2, 2, (1, 0))
+    params = MEVPParams(a_weighted_stress=weighted, adaptive_alpha=adaptive)
+    return (mevp_ho.MEVPSolverHO if high_order else MEVPSolver)(mesh, params)
+
+
+def xla_block_inputs(device, solver, seed):
+    """Seeded state, the solver's step consts and a random generator."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    shape = LOCAL
+    h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.02, 1.0, shape))
+    mask = solver.boundary_mask(device=device, dtype=torch.float32)
+    if isinstance(solver, mevp_ho.MEVPSolverHO):
+        field = lambda s, m=0.0: mevp_ho.HOField(*(t(m + rng.normal(0.0, s, shape)) for _ in range(4)))
+        state = mevp_ho.HOVelocityState(field(0.2), field(0.2), *(t(rng.normal(0.0, 1e3, (3, *shape))) for _ in range(3)))
+        forcing = mevp_ho.HODynamicsForcing(field(1.0, 8.0), field(1.0, 2.0), field(0.05), field(0.05))
+    else:
+        state = VelocityState(*(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3)))
+        forcing = DynamicsForcing(*(t(rng.normal(m, s, shape)) for m, s in ((8.0, 2.0), (2.0, 2.0), (0.0, 0.05), (0.0, 0.05))))
+    return state, solver.step_consts(state, h, a, forcing, mask, DT), rng
+
+
+@pytest.mark.parametrize("kind", ["uniform", "spherical"])
+@pytest.mark.parametrize("form", [{}, {"weighted": True}, {"adaptive": True}, {"weighted": True, "adaptive": True}],
+                         ids=["fixed", "weighted", "adaptive", "both"])
+def test_mevp_halo_forms_match_plain_launch_by_launch(device, kind, form):
+    """mevp_stress's and mevp_velocity's halo forms on a rank block and
+    seeded strips (on a metric block also half_dx's and half_dy's) against
+    their plain versions (TOL_LAUNCH), one launch each."""
+    solver = xla_block_solver(kind, False, **form)
+    state, consts, rng = xla_block_inputs(device, solver, 11)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    nx, ny = LOCAL
+    carry = tuple(getattr(state, k) for k in VELOCITY)
+    plus = (t(rng.normal(0.0, 0.2, (2, ny))), t(rng.normal(0.0, 0.2, (2, nx + 1))))
+    cc.reset_launches()
+    got = cc.mevp_stress_halo(solver, carry, consts, *plus)
+    ref = cc.mevp_stress_halo_reference(solver, carry, consts, *plus)
+    assert len(got) == len(ref) == 5 + bool(form.get("adaptive"))
+    for g, r in zip(got, ref):
+        assert_close(g, r, TOL_LAUNCH)
+    minus = (t(rng.normal(0.0, 1e3, (3, ny))), t(rng.normal(0.0, 1e3, (3, nx + 1))))
+    metric = (None, None)
+    if kind != "uniform":
+        metric = (t(rng.uniform(1e3, 3e3, (2, ny))), t(rng.uniform(1e3, 3e3, (2, nx + 1))))
+    carry = (*carry[:2], *ref[:3])
+    got = cc.mevp_velocity_halo(solver, carry, consts, ref[3], ref[4], DT, *minus, *metric, *ref[5:])
+    expected = cc.mevp_velocity_halo_reference(solver, carry, consts, ref[3], ref[4], DT, *minus, *metric, *ref[5:])
+    for g, r in zip(got, expected):
+        assert_close(g, r, TOL_LAUNCH)
+    assert cc.launches["mevp_stress"] == cc.launches["mevp_velocity"] == 1
+
+
+@pytest.mark.parametrize("kind", ["uniform", "spherical"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_ho_halves_match_plain_launch_by_launch(device, kind, weighted):
+    """ho_stress and ho_velocity on a rank block's 17 planes and seeded
+    strips (on a metric block also dx's and dy's) against their plain
+    versions (TOL_LAUNCH), one launch each."""
+    solver = xla_block_solver(kind, True, weighted)
+    state, consts, rng = xla_block_inputs(device, solver, 12)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    nx, ny = LOCAL
+    flat = cc.ho_flatten(tuple(getattr(state, k) for k in VELOCITY))
+    plus = (t(rng.normal(0.0, 0.2, (8, ny))), t(rng.normal(0.0, 0.2, (8, nx + 1))))
+    cc.reset_launches()
+    got = cc.ho_stress_halo(solver, flat, consts, *plus)
+    ref = cc.ho_stress_halo_reference(solver, flat, consts, *plus)
+    for q in range(17):
+        assert_close(got[q], ref[q], TOL_LAUNCH)
+    minus = (t(rng.normal(0.0, 1e3, (9, ny))), t(rng.normal(0.0, 1e3, (9, nx + 1))))
+    widths = (None, None)
+    if kind != "uniform":
+        widths = (t(rng.uniform(1e3, 3e3, (2, ny))), t(rng.uniform(1e3, 3e3, (2, nx + 1))))
+    got = cc.ho_velocity_halo(solver, ref, consts, DT, *minus, *widths)
+    expected = cc.ho_velocity_halo_reference(solver, ref, consts, DT, *minus, *widths)
+    for q in range(17):
+        assert_close(got[q], expected[q], TOL_LAUNCH)
+    assert cc.launches["ho_stress"] == cc.launches["ho_velocity"] == 1
+
+
+@pytest.mark.parametrize("high_order", [False, True], ids=["cg1", "ho"])
+@pytest.mark.parametrize("case", [
+    ("uniform", (2, 2), {}), ("spherical", (2, 2), {"ocean": True}), ("ring", (2, 2), {}),
+    ("ring", (1, 2), {"ocean": True}), ("uniform", (2, 2), {"weighted": True}),
+], ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}" + "".join(f"-{k}" for k in c[2]))
+def test_xla_grid_step_equals_single_device_and_blocked(device, case, high_order):
+    """The decomposed coupled step on the width-1 ("xla") mEVP schedule
+    against the single-device step and the blocked step on the card (the
+    same bodies on the same values: expected 0, failure above 1e-6 of the
+    plane's max); the mEVP launches only the halo halves, two a subcycle
+    and rank."""
+    kind, shape, kwargs = case
+    kwargs = dict(kwargs)
+    mesh = grid_mesh(kind, shape)
+    ocean = synthetic_coastline(mesh.nx, mesh.ny) if kwargs.pop("ocean", False) else None
+    params = MEVPParams(a_weighted_stress=kwargs.pop("weighted", False))
+    loader = modules.get_loader()
+    if high_order:
+        loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        single = CoupledModel(mesh, n_subcycles=20, ocean_mask=ocean, mevp_params=params)
+        steps = {
+            backend: build_sharded_coupled_model(
+                mesh, RankGrid(*shape, device, timeout=120), n_subcycles=20, ocean_mask=ocean,
+                mevp_params=params, mevp_backend=backend, mevp_block_halo=8)[1]
+            for backend in ("xla", "blocked")
+        }
+    finally:
+        loader.reset()
+    state = single.initial_state(hice0=1.2, cice0=0.95, hsnow0=0.1, device=device, dtype=torch.float32)
+    phys, dyn = coupled_inputs(device, mesh)
+    cc.reset_launches()
+    got = steps["xla"](state, phys, dyn, DT)
+    torch.cuda.synchronize()
+    counts = dict(cc.launches)
+    halves = ("ho_stress", "ho_velocity") if high_order else ("mevp_stress", "mevp_velocity")
+    ranks = shape[0] * shape[1]
+    assert all(counts[h] == 20 * ranks for h in halves)
+    others = ("mevp_stress", "mevp_velocity", "mevp_tiled", "mevp_single", "ho_single", "ho_tiled", "rdma_stage",
+              "rdma_band", "ho_stress", "ho_velocity")
+    assert all(counts[k] == 0 for k in others if k not in halves)
+    leaves = ho_state_leaves if high_order else state_leaves
+    for other in (single.step(state, phys, dyn, DT), steps["blocked"](state, phys, dyn, DT)):
+        for (_, g), (_, e) in zip(leaves(got), leaves(other)):
+            assert_same_schedule(g, e)
+

@@ -183,6 +183,10 @@ REPLACED = {
     "transport_spmd.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "transport_spmd_qv.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "transport_tvb_spmd.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "mevp_spmd.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "mevp_spmd_forms.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "ho_halves_spmd.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
+    "ho_halves_spmd_forms.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "roofline.cu": "roofline.py::measure_vpu_peak",
 }
 

@@ -47,6 +47,7 @@ from nextsimdg_tpu_torch import interop, modules
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import RectMesh, SphericalMesh, stencil, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, MEVPSolver, VelocityState
 from nextsimdg_tpu_torch.parallel import (
     RankAborted, RankGrid, build_sharded_coupled_model, pick_mesh_shape, run_ranks,
@@ -503,34 +504,62 @@ def test_unported_configurations_raise_on_a_rank_grid(kind):
     assert model.schedule("cuda") == ("blocked", "tiled") and bool(torch.isfinite(out.hice).all())
 
 
-@pytest.mark.parametrize("mevp_backend, transport_backend", [("xla", "tiled"), ("blocked", "xla")])
-def test_plain_rank_grid_schedules_refuse_the_card(monkeypatch, mevp_backend, transport_backend):
-    """The mEVP's width-1 exchange schedule ("xla") is the plain path: on
-    tensors off the CPU it raises before any work (the CPU check is patched
-    to answer as it does for CUDA tensors; no kernel is reached). The
-    transport's ("xla") takes the card's staged route since it has kernels
-    (the halo forms of dg1_rk_stage): with every launch recorded in place
-    of launching and the blocked mEVP skipped (it returns the carry), a
-    step reaches them and raises nothing."""
-    grid = RankGrid(2, 2, "cpu", timeout=TIMEOUT)
-    _, sharded = build_sharded_coupled_model(
-        RectMesh(N, N, 512e3 / N, 512e3 / N), grid, n_subcycles=2,
-        mevp_backend=mevp_backend, transport_backend=transport_backend,
-    )
+#: The mEVP kernels, and the halo entries that the width-1 ("xla") schedule
+#: launches on a card for the CG1 and the HO solver.
+MEVP_KERNELS = ("mevp_stress", "mevp_velocity", "mevp_tiled", "mevp_single", "ho_single", "ho_tiled",
+                "rdma_stage", "rdma_band", "ho_stress", "ho_velocity")
+XLA_HALO_ENTRIES = {
+    False: {("mevp_stress", "mevp_stress_halo"), ("mevp_velocity", "mevp_velocity_halo")},
+    True: {("ho_stress", None), ("ho_velocity", None)},
+}
+
+
+@pytest.mark.parametrize("mevp_backend, transport_backend, high_order", [
+    pytest.param("xla", "tiled", False, id="xla-tiled"),
+    pytest.param("blocked", "xla", False, id="blocked-xla"),
+    pytest.param("xla", "tiled", True, id="xla-tiled-ho"),
+])
+def test_plain_rank_grid_schedules_refuse_the_card(monkeypatch, mevp_backend, transport_backend, high_order):
+    """The width-1 exchange schedules take the card's kernels: with every
+    launch recorded in place of launching (the CPU check patched to answer
+    as it does for CUDA tensors), a step reaches them and raises nothing.
+    The mEVP's ("xla") launches the halo forms of mevp_stress and
+    mevp_velocity (with the HO solver ho_stress and ho_velocity), and no
+    other mEVP kernel, once a subcycle and rank each; the transport's
+    ("xla") the halo forms of dg1_rk_stage, the blocked mEVP skipped (it
+    returns the carry). The name is from when these raised."""
+    loader = modules.get_loader()
+    if high_order:
+        loader.set_implementation("Nextsim::IDynamics", "Nextsim::MEVPHighOrder")
+    try:
+        grid = RankGrid(2, 2, "cpu", timeout=TIMEOUT)
+        model, sharded = build_sharded_coupled_model(
+            RectMesh(N, N, 512e3 / N, 512e3 / N), grid, n_subcycles=2,
+            mevp_backend=mevp_backend, transport_backend=transport_backend,
+        )
+    finally:
+        loader.reset()
     state, phys, dyn = coupled_inputs()
     blocks = (
         interop.coupled_state_to_rank_blocks(state, grid, dtype=torch.float32),
         interop.forcing_to_rank_blocks(phys, grid, dtype=torch.float32),
         interop.dynamics_forcing_to_rank_blocks(dyn, grid, dtype=torch.float32),
     )
+    if high_order:  # the rank blocks of an HO state at rest
+        blocks = ([model.initial_state(hice0=1.0, cice0=0.9, device="cpu", dtype=torch.float32)] * 4, *blocks[1:])
     monkeypatch.setattr(cc, "_on_cpu", lambda t: False)
-    if mevp_backend == "xla":
-        with pytest.raises(NotImplementedError, match="CPU tensors"):
-            sharded.run_blocks(*blocks, DT, 1)
-        return
     calls = []
     monkeypatch.setattr(cc, "_launch", lambda name, *args, entry=None: calls.append((name, entry)))
     monkeypatch.setattr(cc, "_stream", lambda device: 0)
+    if mevp_backend == "xla":
+        # The transport is not this case's: skipped (it returns the tracers).
+        monkeypatch.setattr(cc, "_k_of_speeds", lambda model, speeds, dt: 1)
+        monkeypatch.setattr(tt, "transport_substeps_tiled_spmd", lambda model, tracers, *args, **kwargs: tracers)
+        sharded.run_blocks(*blocks, DT, 1)
+        mevp_calls = [call for call in calls if call[0] in MEVP_KERNELS]
+        assert set(mevp_calls) == XLA_HALO_ENTRIES[high_order]
+        assert len(mevp_calls) == 2 * 2 * 4  # two halves a subcycle, 2 subcycles, 4 ranks
+        return
     monkeypatch.setattr(MEVPSolver, "spmd_subcycles", lambda self, carry, consts, dt, n: tuple(carry))
     sharded.run_blocks(*blocks, DT, 1)
     assert set(calls) == {("dg1_sample_cfl", None), ("dg1_rk_stage", "dg1_rk_stage_halo")}
