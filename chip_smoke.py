@@ -304,7 +304,22 @@ Phases, each printed on its own lines:
    back-to-back steps after a warm-up, beside the Timer's host time per step
    (issue time), the restart's move to and from the card and, with h5py,
    the restart file's write and read times (its profile runs after the
-   other timings);
+   other timings); then the coupled CLI (phase ``check_cli``, ROADMAP M8b
+   part 1), ``runtime.coupled_main.run_coupled`` on the card in a temporary
+   directory: run/box.cfg and run/arctic.cfg as they stand, run/arctic.cfg
+   on 2 x 2 ranks cut to 12 steps, BASELINE config 5's size (4096^2 on
+   2 x 2 ranks, a probe and a checkpoint every step, 2 steps) and health at
+   256^2 with the step poisoned on its second call (abort: the post-mortem
+   non-finite, the final checkpoint the step-1 state; retry-halved: two
+   half steps, three finite rows); each run's final state, checkpoints
+   and diagnostics rows against a direct loop of the same model on the
+   same fields (``ShardedCoupledModel.__call__`` on the grid; expected 0,
+   failing above TOL_SAME_SCHEDULE), the 2 x 2 arctic run against the
+   single-device one, each run's launches (paths ``cli_*``), and the CLI's
+   ms per step beside the bare step in turns, the probe, the checkpoint
+   fetch, the gather and the forcing copy each alone; without h5py
+   in-memory recorders stand in for the CLI's checkpoint and diagnostics
+   writers (``CliFiles``), and nothing else is patched;
 6. time (CUDA events, each function warmed up once; a plain path, run by
    the checks before, timed once): ms per step and element updates/s of
    each path, of the config-4 step on K1's schedule, on the tiled one and on
@@ -401,9 +416,11 @@ from nextsimdg_tpu_torch.dynamics.kernels import mevp_tiled_cuda as mt
 from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, MEVPSolver, VelocityState
 from nextsimdg_tpu_torch.grid import StructureFactory
-from nextsimdg_tpu_torch.io import netcdf_c, read_restart, write_restart_fields
+from nextsimdg_tpu_torch.interop import coupled_state_to_numpy
+from nextsimdg_tpu_torch.io import coupled_restart, diagnostics, netcdf_c, read_restart, write_restart_fields
 from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, run_ranks
-from nextsimdg_tpu_torch.runtime import Model
+from nextsimdg_tpu_torch.runtime import Model, coupled_main
+from nextsimdg_tpu_torch.runtime.coupled_main import run_coupled
 from nextsimdg_tpu_torch.runtime.main import main as engine_main
 from nextsimdg_tpu_torch.state import Forcing
 from nextsimdg_tpu_torch.tools.make_dev_restart import (
@@ -2955,6 +2972,458 @@ def check_engine(device, smi: str) -> None:
     finally:
         Configurator.clear()
         modules.get_loader().reset()
+
+
+# -- the coupled CLI (phase check_cli, ROADMAP M8b part 1) ----------------------
+RUN_DIR = Path(__file__).parent / "run"
+#: BASELINE config 5's size through the CLI: 4096^2 elements of 2 km on a
+#: 2 x 2 rank grid of the card, probed and checkpointed every step, 2 steps
+#: (cut in depth, not in width), with the box's cyclone forcing.
+CLI_16M_CFG = (
+    "[model]\nstart = 0\nstop = 1200\ntime_step = 600\nhealth_period = 1\n"
+    "checkpoint_period = 1\ncheckpoint_pattern = config5.{step}.chk\n"
+    f"[dynamics]\nnx = {N16}\nny = {N16}\ndx = 2000.0\ndy = 2000.0\nsubcycles = {N_SUBCYCLES}\n"
+    "thermo = true\nforcing = cyclone\nwind = 30.0\n"
+    "[parallel]\nmode = shardmap\nmesh_shape = 2x2\n"
+)
+#: The health runs' overrides of run/box.cfg: 3 steps of constant forcing,
+#: a probe, a diagnostics row and (every 2 steps) a checkpoint.
+CLI_HEALTH_ARGS = (
+    "--dynamics.forcing=constant", "--model.stop=1800", "--model.health_period=1",
+    "--model.diagnostics_period=1", "--model.checkpoint_period=2",
+)
+#: The CLI's timer scopes read per run.
+CLI_SCOPES = ("step", "health", "forcing", "checkpoint", "diagnostics")
+
+
+class CliFiles:
+    """What a CLI run wrote, by file name: its checkpoints (model time and
+    host leaves) and its diagnostics rows (time and planes). Where h5py is
+    installed the files are written and read back; where it is not (the
+    card machines so far), in-memory recorders stand in for
+    ``coupled_restart.save_coupled_state`` and
+    ``diagnostics.DiagnosticWriter`` as the CLI reaches them, keeping each
+    call's host arrays and time; nothing else is patched."""
+
+    def __init__(self, files: bool) -> None:
+        self.files = files
+        self.checkpoints = {}
+        self.rows = []
+        self._saved = None
+
+    def save(self, path, host: dict, time=0.0) -> None:
+        self.checkpoints[str(path)] = (float(time), host)
+
+    def writer(self, path, field_names=diagnostics.DEFAULT_FIELDS):
+        rows = self.rows
+
+        class Recorder:
+            def write(self, time, fields):
+                rows.append((float(time), {name: np.array(fields[name]) for name in field_names}))
+
+            def close(self):
+                pass
+
+        return Recorder()
+
+    def __enter__(self) -> "CliFiles":
+        if not self.files:
+            self._saved = (coupled_restart.save_coupled_state, diagnostics.DiagnosticWriter)
+            coupled_restart.save_coupled_state, diagnostics.DiagnosticWriter = self.save, self.writer
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._saved is not None:
+            coupled_restart.save_coupled_state, diagnostics.DiagnosticWriter = self._saved
+
+    def collect(self, workdir: Path) -> tuple:
+        """(checkpoints, rows) of the run that just ended, then forget them
+        (with files: read from workdir, then deleted)."""
+        if self.files:
+            for path in sorted(workdir.glob("*.chk")):
+                state = coupled_restart.load_coupled_state(str(path), device="cpu", dtype=torch.float32)
+                self.checkpoints[path.name] = (coupled_restart.load_time(str(path)), coupled_state_to_numpy(state))
+                path.unlink()
+            for path in sorted(workdir.glob("*.h5")):
+                data = diagnostics.read_diagnostics(str(path))
+                self.rows += [(float(t), {name: data[name][i] for name in diagnostics.DEFAULT_FIELDS})
+                              for i, t in enumerate(data["time"])]
+                path.unlink()
+        out = (self.checkpoints, self.rows)
+        self.checkpoints, self.rows = {}, []
+        return out
+
+
+@dataclass
+class CliRun:
+    """One CLI run: its launches, wall seconds, the timer's scopes (total s,
+    activations), checkpoints and diagnostics rows."""
+
+    counts: dict
+    wall_s: float
+    scopes: dict
+    checkpoints: dict
+    rows: list
+
+
+def cli_run(argv, device, workdir: Path, files: CliFiles, raises=None) -> CliRun:
+    """``run_coupled(argv)`` on the card in float32, in ``workdir``, from
+    zeroed launch counts; with ``raises``, the run must raise it."""
+    Configurator.clear()
+    modules.get_loader().reset()
+    main_timer.reset()
+    cwd = Path.cwd()
+    os.chdir(workdir)
+    try:
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = run_coupled(["nextsim", *argv], device=device)
+        except Exception as err:
+            if raises is None or not isinstance(err, raises):
+                raise
+        else:
+            if raises is not None:
+                raise AssertionError(f"the CLI with {argv} returned {rc} where it should raise {raises.__name__}")
+            if rc != 0:
+                raise AssertionError(f"the CLI with {argv} returned {rc}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cc.launches)
+        run_node = main_timer.root.children.get("run")
+        scopes = {} if run_node is None else {
+            name: (node.chrono.wall_time(), node.chrono.ticks)
+            for name, node in [("run", run_node), *run_node.children.items()]
+        }
+    finally:
+        os.chdir(cwd)
+        Configurator.clear()
+        modules.get_loader().reset()
+    return CliRun(counts, wall, scopes, *files.collect(workdir))
+
+
+def cli_setup(argv, device):
+    """The setup that the CLI builds from ``argv`` (its config, overrides and
+    module selections), built anew on the card: the direct loops' model."""
+    Configurator.clear()
+    modules.get_loader().reset()
+    try:
+        coupled_main.apply_config(["nextsim", *argv])
+        return coupled_main.configure_coupled(device=device, dtype=torch.float32)
+    finally:
+        Configurator.clear()
+        modules.get_loader().reset()
+
+
+def direct_loop(setup, dts, keep) -> dict:
+    """The setup's model stepped without the CLI's run loop: ``model.step`` (on a
+    rank grid ``ShardedCoupledModel.__call__``, the global-shaped step) at
+    each dt of ``dts``, fed the same fields (a second cyclone pipeline of
+    the same parameters); the global state fetched to the host after each
+    full step in ``keep`` (by step number)."""
+    pipe = setup.open_pipeline()
+    state, out, step, halves = setup.state, {}, 0, 0
+    try:
+        for dt in dts:
+            dyn = setup.dyn_forcing if pipe is None else coupled_main.cyclone_forcing(
+                pipe.next_fields(), device=setup.device, dtype=setup.dtype)
+            stepper = setup.model.step if setup.sharded is None else setup.sharded
+            state = stepper(state, setup.phys_forcing, dyn, dt, do_thermo=setup.do_thermo)
+            halves += 1 if dt < setup.dt else 2
+            if halves % 2 == 0:
+                step = halves // 2
+                if step in keep:
+                    out[step] = coupled_restart.fetch_coupled_state(state)
+    finally:
+        if pipe is not None:
+            pipe.close()
+    return out
+
+
+def compare_host(tag: str, got: dict, ref: dict) -> float:
+    """Every leaf of two host states (interop layout); expected 0, failing
+    above TOL_SAME_SCHEDULE of the plane's max."""
+    def flat(d, prefix=""):
+        for key, value in d.items():
+            yield from flat(value, f"{prefix}{key}.") if isinstance(value, dict) else ((prefix + key, value),)
+
+    ref = dict(flat(ref))
+    worst = 0.0
+    for name, value in flat(got):
+        worst = max(worst, compare(f"{tag}.{name}", torch.from_numpy(value), torch.from_numpy(ref[name]),
+                                   TOL_SAME_SCHEDULE))
+    return worst
+
+
+def compare_rows(tag: str, rows: list, ref: dict, dt: float) -> None:
+    """The diagnostics rows against the direct loop's states at their steps."""
+    for t, fields in rows:
+        state = ref[int(round(t / dt))]
+        for name, plane in fields.items():
+            want = state[name][0] if state[name].ndim == 3 and name in ("hice", "cice", "hsnow") else state[name]
+            compare(f"{tag} row t={t:g} {name}", torch.from_numpy(np.asarray(plane)), torch.from_numpy(want),
+                    TOL_SAME_SCHEDULE)
+
+
+def best_host_ms(fn, reps: int = 5) -> float:
+    """Best host-clock ms of fn() followed by a synchronize, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def bare_ms(setup, n: int) -> float:
+    """ms per step of n back-to-back steps of the setup's model on one fixed
+    forcing (on a rank grid ``run_blocks`` on resident blocks), host clock
+    to a synchronize."""
+    dyn = setup.dyn_forcing
+    if dyn is None:
+        with setup.open_pipeline() as pipe:
+            dyn = coupled_main.cyclone_forcing(pipe.next_fields(), device=setup.device, dtype=setup.dtype)
+    state = setup.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if setup.sharded is None:
+        setup.model.run(state, setup.phys_forcing, dyn, setup.dt, n, do_thermo=setup.do_thermo)
+    else:
+        setup.sharded.run_blocks(*blocks_of(setup.sharded, state, setup.phys_forcing, dyn), setup.dt, n,
+                                 do_thermo=setup.do_thermo)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def cli_expect(path: str, run: CliRun, kernels: tuple) -> None:
+    """The run's launches: every kernel of its path launched."""
+    PATH_KERNELS[path] = kernels
+    launched = {k: v for k, v in run.counts.items() if v}
+    log("slice", f"{path}: launches {launched}")
+    missing = [k for k in kernels if run.counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+
+
+def cli_times(path: str, run: CliRun, n_steps: int, setup, card: str, extra: dict) -> None:
+    """The CLI's ms per step (the timer's run scope over its steps), each
+    scope's ms per activation, and the isolated times in ``extra``."""
+    total, _ = run.scopes["run"]
+    scopes = ", ".join(
+        f"{name} {run.scopes[name][0] * 1e3 / run.scopes[name][1]:.3f} ms x{run.scopes[name][1]}"
+        for name in CLI_SCOPES if name in run.scopes
+    )
+    log("time", (
+        f"cli {path}: {total * 1e3 / n_steps:.3f} ms per step through the CLI ({n_steps} steps, host clock of its "
+        f"run loop, probes and cadence work included; whole call {run.wall_s:.2f} s); scopes a call: {scopes}; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in extra.items()) + f"; {card}"
+    ))
+
+
+def isolated_times(setup) -> dict:
+    """The probe, the checkpoint fetch and (cyclone) the forcing copy on the
+    setup's initial state, each timed alone (host clock to a synchronize,
+    best of 5); on a rank grid also the gather of the resident blocks.
+    Every closure holds its own inputs."""
+    from nextsimdg_tpu_torch.runtime.health import finite_probe
+
+    out = {}
+    state = setup.state
+    if setup.sharded is None:
+        out["probe"] = best_host_ms(lambda s=state: finite_probe(s))
+        out["checkpoint fetch"] = best_host_ms(lambda s=state: coupled_restart.fetch_coupled_state(s), 3)
+    else:
+        grid = setup.sharded.grid
+        blocks = grid.split_tree(state)
+        out["probe (resident blocks)"] = best_host_ms(lambda b=blocks: finite_probe(b))
+        out["gather"] = best_host_ms(lambda b=blocks: grid.gather_tree(b, device=setup.device), 3)
+        out["checkpoint fetch (gather + copy)"] = best_host_ms(
+            lambda b=blocks: coupled_restart.fetch_coupled_state(grid.gather_tree(b, device=setup.device)), 3)
+        del blocks
+    if setup.cyclone is not None:
+        with setup.open_pipeline() as pipe:
+            fields = pipe.next_fields()
+        out["forcing copy"] = best_host_ms(
+            lambda f=fields: coupled_main.cyclone_forcing(f, device=setup.device, dtype=setup.dtype))
+    return out
+
+
+def check_cli(device, smi: str) -> dict:
+    """Phase: the coupled CLI (``runtime.coupled_main.run_coupled``) on the
+    card, five runs in a temporary directory: run/box.cfg as it stands;
+    run/arctic.cfg as it stands; run/arctic.cfg on a 2 x 2 rank grid cut to
+    12 steps; BASELINE config 5's size on a 2 x 2 grid for 2 steps, probed
+    and checkpointed every step; and health at 256^2 with the step poisoned
+    (abort, and retry-halved). Each run's final state, checkpoints and
+    diagnostics rows against a direct loop of the same model on the same
+    fields (expected 0), the 2 x 2 arctic run against the single-device
+    one, the launches of each run, and the CLI's ms per step beside the
+    bare step, the probe, the checkpoint fetch and the forcing copy.
+    Returns the launch counts by path."""
+    files = importlib.util.find_spec("h5py") is not None
+    if not files:
+        log("cli", (
+            "checkpoint and diagnostics file I/O not exercised on the card: no h5py here, so in-memory "
+            "recorders stand in for coupled_restart.save_coupled_state and diagnostics.DiagnosticWriter "
+            "(each call's host arrays and time); nothing else is patched"
+        ))
+    box, arctic = ["--config-file", str(RUN_DIR / "box.cfg")], ["--config-file", str(RUN_DIR / "arctic.cfg")]
+    cut = ["--model.stop=7200"]
+    grid = ["--parallel.mode=shardmap", "--parallel.mesh_shape=2x2"]
+    tiled = ("mevp_tiled", "dg1_sample_cfl", "transport_tiled")
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp, CliFiles(files) as rec:
+        workdir = Path(tmp)
+
+        # 1 and 2: run/box.cfg and run/arctic.cfg as they stand, each twice
+        # in turns with the bare step.
+        for path, argv, kernels in (("cli_box", box, tiled), ("cli_arctic", arctic, ("ho_single", "transport_tiled"))):
+            t0 = time.perf_counter()
+            setup = cli_setup(argv, device)
+            n = setup.n_steps
+            log("slice", (
+                f"{path}: {setup.model.mesh.nx}x{setup.model.mesh.ny} {type(setup.model.mesh).__name__}, "
+                f"{'HO' if setup.model.is_high_order else 'CG1'}, {n} steps, schedule {setup.model.schedule(device)}"
+            ))
+            run = cli_run(argv, device, workdir, rec)
+            cli_expect(path, run, kernels)
+            counts[path] = run.counts
+            keep = {int(round(t / setup.dt)) for t, _ in run.rows} | {n} | {
+                int(round(t / setup.dt)) for t, _ in run.checkpoints.values()}
+            ref = direct_loop(setup, [setup.dt] * n, keep)
+            final_t, final = run.checkpoints["coupled_restart.chk"]
+            if final_t != setup.stop:
+                raise AssertionError(f"{path}: the final checkpoint's time {final_t} is not {setup.stop}")
+            compare_host(f"{path} final vs direct loop", final, ref[n])
+            for name, (t, host) in sorted(run.checkpoints.items()):
+                if name != "coupled_restart.chk":
+                    compare_host(f"{path} {name} vs direct loop", host, ref[int(round(t / setup.dt))])
+            compare_rows(path, run.rows, ref, setup.dt)
+            log("slice", (
+                f"{path}: checkpoints {sorted(run.checkpoints)}, diagnostics rows at "
+                f"{[t for t, _ in run.rows]}: each equal to the direct loop"
+            ))
+            bare = [bare_ms(setup, n)]
+            again = cli_run(argv, device, workdir, rec)
+            bare.append(bare_ms(setup, n))
+            cli_times(path, run, n, setup, smi, {})
+            cli_times(f"{path} (again)", again, n, setup, smi, {
+                "bare step (in turns)": bare[0], "bare step again": bare[1], **isolated_times(setup)})
+            log("time", f"check_cli {path}: {time.perf_counter() - t0:.1f} s")
+            del setup, ref
+
+        # 3: run/arctic.cfg on 2 x 2 ranks, 12 steps, against a loop of the
+        # global-shaped step and the single-device CLI cut to 12 steps.
+        t0 = time.perf_counter()
+        setup = cli_setup(arctic + cut + grid, device)
+        n = setup.n_steps
+        model = setup.sharded.models[0]
+        log("slice", (
+            f"cli_arctic_2x2: {type(model.mesh).__name__} blocks {model.mesh.nx}x{model.mesh.ny}, "
+            f"schedule {model.schedule(device)}, {n} steps"
+        ))
+        run = cli_run(arctic + cut + grid, device, workdir, rec)
+        cli_expect("cli_arctic_2x2", run, ("ho_single", "transport_tiled"))
+        counts["cli_arctic_2x2"] = run.counts
+        ref = direct_loop(setup, [setup.dt] * n, {n} | {int(round(t / setup.dt)) for t, _ in run.rows})
+        final = run.checkpoints["coupled_restart.chk"][1]
+        compare_host("cli_arctic_2x2 final vs a loop of ShardedCoupledModel.__call__", final, ref[n])
+        compare_rows("cli_arctic_2x2", run.rows, ref, setup.dt)
+        single = cli_run(arctic + cut, device, workdir, rec)
+        compare_host("cli_arctic_2x2 final vs the single-device CLI run", final,
+                     single.checkpoints["coupled_restart.chk"][1])
+        cli_times("cli_arctic_2x2", run, n, setup, smi, {
+            "bare step (resident blocks)": bare_ms(setup, 4), **isolated_times(setup)})
+        log("time", f"check_cli cli_arctic_2x2: {time.perf_counter() - t0:.1f} s")
+        del setup, ref, run, single, model
+
+        # 4: config 5's size through the CLI, 2 steps, probed and
+        # checkpointed every step.
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = workdir / "config5.cfg"
+        cfg.write_text(CLI_16M_CFG)
+        argv = ["--config-file", str(cfg)]
+        setup = cli_setup(argv, device)
+        n = setup.n_steps
+        model = setup.sharded.models[0]
+        log("slice", (
+            f"cli_16m: {N16}^2 on 2x2 ranks of {model.mesh.nx}x{model.mesh.ny}, schedule {model.schedule(device)}, "
+            f"{n} steps, health and checkpoints every step"
+        ))
+        run = cli_run(argv, device, workdir, rec)
+        cli_expect("cli_16m", run, tiled)
+        counts["cli_16m"] = run.counts
+        ref = direct_loop(setup, [setup.dt] * n, set(range(1, n + 1)))
+        for name, (t, host) in sorted(run.checkpoints.items()):
+            compare_host(f"cli_16m {name} vs a loop of ShardedCoupledModel.__call__", host, ref[int(round(t / setup.dt))])
+        log("slice", f"cli_16m: checkpoints {sorted(run.checkpoints)}; device memory peak "
+                     f"{torch.cuda.max_memory_reserved(device) / 2**30:.1f} GiB reserved")
+        del ref
+        run.checkpoints = None
+        cli_times("cli_16m", run, n, setup, smi, {
+            "bare step (resident blocks)": bare_ms(setup, n), **isolated_times(setup)})
+        del setup, run, model
+        torch.cuda.empty_cache()
+        log("time", f"check_cli cli_16m: {time.perf_counter() - t0:.1f} s")
+
+        # 5: health at 256^2, the step poisoned on its second call.
+        t0 = time.perf_counter()
+        original = CoupledModel.step
+        calls = {"full": 0, "half": 0}
+
+        def poisoned(self, state, phys, dyn, dt, *args, **kwargs):
+            out = original(self, state, phys, dyn, dt, *args, **kwargs)
+            calls["full" if dt == DT else "half"] += 1
+            if dt == DT and calls["full"] == 2:
+                out = replace(out, hice=out.hice * float("nan"))
+            return out
+
+        from nextsimdg_tpu_torch.runtime.health import NonFiniteStateError
+
+        argv_abort = box + list(CLI_HEALTH_ARGS)
+        argv_retry = argv_abort + ["--model.on_nonfinite=retry-halved"]
+        CoupledModel.step = poisoned
+        try:
+            abort = cli_run(argv_abort, device, workdir, rec, raises=NonFiniteStateError)
+            abort_calls = dict(calls)
+            calls.update(full=0, half=0)
+            retry = cli_run(argv_retry, device, workdir, rec)
+        finally:
+            CoupledModel.step = original
+        setup = cli_setup(argv_abort, device)
+        cli_expect("cli_health_abort", abort, tiled)
+        cli_expect("cli_health_retry", retry, tiled)
+        counts["cli_health_abort"], counts["cli_health_retry"] = abort.counts, retry.counts
+        post_t, post = abort.checkpoints["coupled_failed.post_mortem.chk"]
+        if np.all(np.isfinite(post["hice"])) or post_t != 2 * DT:
+            raise AssertionError(f"health abort: the post-mortem (t={post_t}) is not the poisoned step-2 state")
+        good_t, good = abort.checkpoints["coupled_restart.chk"]
+        if good_t != DT or abort_calls != {"full": 2, "half": 0}:
+            raise AssertionError(f"health abort: final checkpoint t={good_t}, steps {abort_calls}")
+        ref = direct_loop(setup, [DT], {1})
+        compare_host("cli_health_abort last healthy state vs one direct step", good, ref[1])
+        if calls != {"full": 3, "half": 2}:
+            raise AssertionError(f"health retry-halved: steps {calls}, expected 3 full and 2 half")
+        times = [t for t, _ in retry.rows]
+        if times != [DT, 2 * DT, 3 * DT] or not all(np.all(np.isfinite(p)) for _, r in retry.rows for p in r.values()):
+            raise AssertionError(f"health retry-halved: rows at {times}, or a row not finite")
+        # The replay is what it says: step 1 at dt, step 2 as two dt/2, step 3.
+        ref = direct_loop(setup, [DT, DT / 2, DT / 2, DT], {1, 2, 3})
+        compare_host("cli_health_retry final vs the direct loop dt, dt/2, dt/2, dt",
+                     retry.checkpoints["coupled_restart.chk"][1], ref[3])
+        compare_rows("cli_health_retry", retry.rows, ref, DT)
+        log("slice", (
+            f"health on the card: abort raised NonFiniteStateError after {abort_calls['full']} steps, post-mortem "
+            f"non-finite (t={post_t:g}), coupled_restart.chk the step-1 state (t={good_t:g}); retry-halved replayed "
+            f"step 2 as {calls['half']} half steps, rows at {times} finite"
+        ))
+        del setup, ref
+        log("time", f"check_cli health: {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 SASS_FORMS = ("fma", "fma_imm", "mul_add")
@@ -5893,6 +6362,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     counts.update(counts_grid_xla)
     kernels["ho_tiled"] = replace(kernels["ho_tiled"], err=max(kernels["ho_tiled"].err, err_grid_ho))
     phase(check_engine, device, smi)
+    counts.update(phase(check_cli, device, smi))
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
     for kernel, err in errs_grid.items():

@@ -8,7 +8,9 @@
   runs, one JSON line each;
 * ``mevp_large``: the mEVP phase on each schedule at a size, the "auto"
   threshold sweeps, the tile sweeps and ``transport_tiled``'s and
-  ``ho_single``'s times per call.
+  ``ho_single``'s times per call;
+* ``host_copies``: the coupled CLI's checkpoint fetch and forcing copy,
+  each against its pageable form.
 
 Each runs as ``python -m nextsimdg_tpu_torch.benchmarks.<name>`` on a
 machine with a CUDA card; see each module's usage. None falls back to the

@@ -10,7 +10,7 @@ always tries to write the final restart file (default ``restart.nc``), also
 when the run fails (``Model.cpp:40-53``).
 
 ``model.forcing_file`` (a time-interpolating forcing archive) is ROADMAP
-M8b's and raises ``NotImplementedError`` here.
+M8b part 2's and raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ class Model(Configured):
             if get(self.KEYS["forcing_file"], ""):
                 raise NotImplementedError(
                     "model.forcing_file needs io/forcing_file.py, which the port does not "
-                    "have yet (ROADMAP M8b)"
+                    "have yet (ROADMAP M8b part 2)"
                 )
             start = get(self.KEYS["start"], "0")
             stop = get(self.KEYS["stop"], "0")

@@ -7,6 +7,7 @@ grid (structure of arrays). 2-D fields are ``(nx, ny)``; layered fields are
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -164,3 +165,34 @@ def dummy_forcing(nx: int, ny: int, *, device, dtype) -> Forcing:
         sw_in=full(0.0), lw_in=full(311.0), mld=full(10.0),
         snowfall=full(0.0), wind=full(0.0),
     )
+
+
+# -- state trees ----------------------------------------------------------------
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of the port's state dataclasses, lists, tuples
+    and dicts (a ``CoupledState``, a list of rank blocks), in field order;
+    anything else (None, strings, numbers) holds none."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) for x in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in tree_leaves(item)]
+    if isinstance(tree, dict):
+        return [x for item in tree.values() for x in tree_leaves(item)]
+    return []
+
+
+def tree_map(fn, tree):
+    """The same tree with ``fn`` applied to each tensor (``tree_leaves``'s)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)
+        })
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, item) for item in tree)
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, item) for key, item in tree.items()}
+    return tree

@@ -67,6 +67,9 @@ def test_port_imports_without_jax_or_triton():
         "import nextsimdg_tpu_torch.runtime.simple_iterant, nextsimdg_tpu_torch.runtime.model_step\n"
         "import nextsimdg_tpu_torch.runtime.model, nextsimdg_tpu_torch.runtime.main\n"
         "import nextsimdg_tpu_torch.tools.make_dev_restart\n"
+        "import nextsimdg_tpu_torch.io.coupled_restart, nextsimdg_tpu_torch.io.diagnostics\n"
+        "import nextsimdg_tpu_torch.io.forcing_pipeline, nextsimdg_tpu_torch.benchmarks.host_copies\n"
+        "import nextsimdg_tpu_torch.runtime.health, nextsimdg_tpu_torch.runtime.coupled_main\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
         "assert not bad, bad\n"
         "# Restart files need h5py, which the card machine may lack: the\n"
