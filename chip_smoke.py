@@ -319,7 +319,29 @@ Phases, each printed on its own lines:
    ms per step beside the bare step in turns, the probe, the checkpoint
    fetch, the gather and the forcing copy each alone; without h5py
    in-memory recorders stand in for the CLI's checkpoint and diagnostics
-   writers (``CliFiles``), and nothing else is patched;
+   writers (``CliFiles``), and nothing else is patched; then the file
+   forcings (phase ``check_forcing_files``, ROADMAP M8b part 2): the
+   forcing archive's ``ForcingProvider`` on the card at 256^2 and 1024^2
+   (a record, between records, below and above the range, the periodic
+   wrap, the last record) against the host's float64 blend rounded to
+   float32 (expected 0); ``archive:`` runs of run/box.cfg and
+   run/arctic.cfg as they stand, run/arctic.cfg on 2 x 2 ranks cut to 12
+   steps and health at 256^2 poisoned on retry-halved (the archive read at
+   the replay's half steps), on 6-hourly records of all twelve fields
+   that vary in time and space; an ``era5:`` run of run/arctic.cfg on
+   ERA5-style variables (packed t2m, u10, v10, unpacked ssrd and sf)
+   regridded onto its centres; BASELINE config 5's size (4096^2 on 2 x 2
+   ranks, 2 steps) on 3 records of six fields; each run against a direct
+   loop fed the same provider (expected 0), the 2 x 2 run against the
+   single-device one, each run's launches (paths ``files_*``), the CLI's
+   ms per step beside the bare step, its forcing scope and the provider's
+   refresh alone; and one traced step of the archive box run
+   (``utils.profiling.device_trace``, in a process of its own:
+   ``chip_smoke.py --trace-archive-box DIR``), whose trace must name
+   ``mevp_tiled`` and the annotation. Without h5py in-memory stand-ins
+   replace ``forcing_file.read_forcing_archive``,
+   ``forcing_file.write_forcing_archive`` and ``era5.read_era5_variables``
+   (``ForcingFiles``);
 6. time (CUDA events, each function warmed up once; a plain path, run by
    the checks before, timed once): ms per step and element updates/s of
    each path, of the config-4 step on K1's schedule, on the tiled one and on
@@ -417,7 +439,9 @@ from nextsimdg_tpu_torch.dynamics.kernels import transport_tiled_cuda as tt
 from nextsimdg_tpu_torch.dynamics.mevp import DynamicsForcing, MEVPSolver, VelocityState
 from nextsimdg_tpu_torch.grid import StructureFactory
 from nextsimdg_tpu_torch.interop import coupled_state_to_numpy
-from nextsimdg_tpu_torch.io import coupled_restart, diagnostics, netcdf_c, read_restart, write_restart_fields
+from nextsimdg_tpu_torch.io import (
+    coupled_restart, diagnostics, era5, forcing_file, netcdf_c, read_restart, write_restart_fields,
+)
 from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, run_ranks
 from nextsimdg_tpu_torch.runtime import Model, coupled_main
 from nextsimdg_tpu_torch.runtime.coupled_main import run_coupled
@@ -426,7 +450,7 @@ from nextsimdg_tpu_torch.state import Forcing
 from nextsimdg_tpu_torch.tools.make_dev_restart import (
     dev_restart_fields, make_dev_restart, seeded_rect_fields,
 )
-from nextsimdg_tpu_torch.utils import main_timer
+from nextsimdg_tpu_torch.utils import main_timer, profiling
 
 N = 256
 N4 = 1024  # BASELINE config 4
@@ -3119,16 +3143,23 @@ def direct_loop(setup, dts, keep) -> dict:
     """The setup's model stepped without the CLI's run loop: ``model.step`` (on a
     rank grid ``ShardedCoupledModel.__call__``, the global-shaped step) at
     each dt of ``dts``, fed the same fields (a second cyclone pipeline of
-    the same parameters); the global state fetched to the host after each
-    full step in ``keep`` (by step number)."""
+    the same parameters; with a forcing archive, the setup's provider's
+    physics and dynamics forcing at each step's start time); the global
+    state fetched to the host after each full step in ``keep`` (by step
+    number)."""
     pipe = setup.open_pipeline()
     state, out, step, halves = setup.state, {}, 0, 0
+    nx, ny = setup.model.mesh.nx, setup.model.mesh.ny
     try:
         for dt in dts:
-            dyn = setup.dyn_forcing if pipe is None else coupled_main.cyclone_forcing(
-                pipe.next_fields(), device=setup.device, dtype=setup.dtype)
+            phys, dyn = setup.phys_forcing, setup.dyn_forcing
+            if pipe is not None:
+                dyn = coupled_main.cyclone_forcing(pipe.next_fields(), device=setup.device, dtype=setup.dtype)
+            elif setup.provider is not None:
+                t = setup.start + halves * (setup.dt / 2)
+                phys, dyn = setup.provider.thermo_forcing(t, nx, ny), setup.provider.dynamics_forcing(t, nx, ny)
             stepper = setup.model.step if setup.sharded is None else setup.sharded
-            state = stepper(state, setup.phys_forcing, dyn, dt, do_thermo=setup.do_thermo)
+            state = stepper(state, phys, dyn, dt, do_thermo=setup.do_thermo)
             halves += 1 if dt < setup.dt else 2
             if halves % 2 == 0:
                 step = halves // 2
@@ -3208,6 +3239,49 @@ def cli_expect(path: str, run: CliRun, kernels: tuple) -> None:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
 
 
+def cli_against_loop(path: str, argv, kernels: tuple, device, workdir: Path, rec) -> tuple:
+    """One CLI run of ``argv`` against a direct loop of the same setup: the
+    kernels of its path launched, its final state (at the config's stop),
+    checkpoints and diagnostics rows each equal to the loop's state at their
+    step. Returns (setup, run)."""
+    setup = cli_setup(argv, device)
+    n = setup.n_steps
+    log("slice", (
+        f"{path}: {setup.model.mesh.nx}x{setup.model.mesh.ny} {type(setup.model.mesh).__name__}, "
+        f"{'HO' if setup.model.is_high_order else 'CG1'}, {n} steps, schedule {setup.model.schedule(device)}"
+    ))
+    run = cli_run(argv, device, workdir, rec)
+    cli_expect(path, run, kernels)
+    keep = {int(round(t / setup.dt)) for t, _ in run.rows} | {n} | {
+        int(round(t / setup.dt)) for t, _ in run.checkpoints.values()}
+    ref = direct_loop(setup, [setup.dt] * n, keep)
+    final_t, final = run.checkpoints["coupled_restart.chk"]
+    if final_t != setup.stop:
+        raise AssertionError(f"{path}: the final checkpoint's time {final_t} is not {setup.stop}")
+    compare_host(f"{path} final vs direct loop", final, ref[n])
+    for name, (t, host) in sorted(run.checkpoints.items()):
+        if name != "coupled_restart.chk":
+            compare_host(f"{path} {name} vs direct loop", host, ref[int(round(t / setup.dt))])
+    compare_rows(path, run.rows, ref, setup.dt)
+    log("slice", (
+        f"{path}: checkpoints {sorted(run.checkpoints)}, diagnostics rows at "
+        f"{[t for t, _ in run.rows]}: each equal to the direct loop"
+    ))
+    return setup, run
+
+
+def cli_in_turns(path: str, argv, setup, run: CliRun, device, workdir: Path, rec, card: str) -> None:
+    """The CLI's ms per step (``run`` and a second run) in turns with the
+    bare step, and the isolated times."""
+    n = setup.n_steps
+    bare = [bare_ms(setup, n)]
+    again = cli_run(argv, device, workdir, rec)
+    bare.append(bare_ms(setup, n))
+    cli_times(path, run, n, setup, card, {})
+    cli_times(f"{path} (again)", again, n, setup, card, {
+        "bare step (in turns)": bare[0], "bare step again": bare[1], **isolated_times(setup)})
+
+
 def cli_times(path: str, run: CliRun, n_steps: int, setup, card: str, extra: dict) -> None:
     """The CLI's ms per step (the timer's run scope over its steps), each
     scope's ms per activation, and the isolated times in ``extra``."""
@@ -3226,8 +3300,12 @@ def cli_times(path: str, run: CliRun, n_steps: int, setup, card: str, extra: dic
 def isolated_times(setup) -> dict:
     """The probe, the checkpoint fetch and (cyclone) the forcing copy on the
     setup's initial state, each timed alone (host clock to a synchronize,
-    best of 5); on a rank grid also the gather of the resident blocks.
-    Every closure holds its own inputs."""
+    best of 5); on a rank grid also the gather of the resident blocks. With
+    a forcing archive, the step's refresh (both forcings from the provider,
+    on a grid split into the rank blocks) at a new time inside the first
+    bracket (the blend alone) and at times that alternate between the first
+    two brackets (one record copied each time). Every closure holds its own
+    inputs."""
     from nextsimdg_tpu_torch.runtime.health import finite_probe
 
     out = {}
@@ -3248,6 +3326,18 @@ def isolated_times(setup) -> dict:
             fields = pipe.next_fields()
         out["forcing copy"] = best_host_ms(
             lambda f=fields: coupled_main.cyclone_forcing(f, device=setup.device, dtype=setup.dtype))
+    if setup.provider is not None:
+        provider, (nx, ny) = setup.provider, (setup.model.mesh.nx, setup.model.mesh.ny)
+        place = (lambda tree: tree) if setup.sharded is None else setup.sharded.grid.split_tree
+        inside = iter(provider.time[0] + np.arange(1, 100) * 1e-3 * (provider.time[1] - provider.time[0]))
+        across = iter([0.5 * (provider.time[i] + provider.time[i + 1]) for i in (0, 1)] * 50)
+
+        def refresh(times):
+            t = float(next(times))
+            return place(provider.thermo_forcing(t, nx, ny)), place(provider.dynamics_forcing(t, nx, ny))
+
+        out["forcing refresh (blend)"] = best_host_ms(lambda: refresh(inside))
+        out["forcing refresh across a bracket (one record copied)"] = best_host_ms(lambda: refresh(across))
     return out
 
 
@@ -3282,38 +3372,11 @@ def check_cli(device, smi: str) -> dict:
         # in turns with the bare step.
         for path, argv, kernels in (("cli_box", box, tiled), ("cli_arctic", arctic, ("ho_single", "transport_tiled"))):
             t0 = time.perf_counter()
-            setup = cli_setup(argv, device)
-            n = setup.n_steps
-            log("slice", (
-                f"{path}: {setup.model.mesh.nx}x{setup.model.mesh.ny} {type(setup.model.mesh).__name__}, "
-                f"{'HO' if setup.model.is_high_order else 'CG1'}, {n} steps, schedule {setup.model.schedule(device)}"
-            ))
-            run = cli_run(argv, device, workdir, rec)
-            cli_expect(path, run, kernels)
+            setup, run = cli_against_loop(path, argv, kernels, device, workdir, rec)
             counts[path] = run.counts
-            keep = {int(round(t / setup.dt)) for t, _ in run.rows} | {n} | {
-                int(round(t / setup.dt)) for t, _ in run.checkpoints.values()}
-            ref = direct_loop(setup, [setup.dt] * n, keep)
-            final_t, final = run.checkpoints["coupled_restart.chk"]
-            if final_t != setup.stop:
-                raise AssertionError(f"{path}: the final checkpoint's time {final_t} is not {setup.stop}")
-            compare_host(f"{path} final vs direct loop", final, ref[n])
-            for name, (t, host) in sorted(run.checkpoints.items()):
-                if name != "coupled_restart.chk":
-                    compare_host(f"{path} {name} vs direct loop", host, ref[int(round(t / setup.dt))])
-            compare_rows(path, run.rows, ref, setup.dt)
-            log("slice", (
-                f"{path}: checkpoints {sorted(run.checkpoints)}, diagnostics rows at "
-                f"{[t for t, _ in run.rows]}: each equal to the direct loop"
-            ))
-            bare = [bare_ms(setup, n)]
-            again = cli_run(argv, device, workdir, rec)
-            bare.append(bare_ms(setup, n))
-            cli_times(path, run, n, setup, smi, {})
-            cli_times(f"{path} (again)", again, n, setup, smi, {
-                "bare step (in turns)": bare[0], "bare step again": bare[1], **isolated_times(setup)})
+            cli_in_turns(path, argv, setup, run, device, workdir, rec, smi)
             log("time", f"check_cli {path}: {time.perf_counter() - t0:.1f} s")
-            del setup, ref
+            del setup
 
         # 3: run/arctic.cfg on 2 x 2 ranks, 12 steps, against a loop of the
         # global-shaped step and the single-device CLI cut to 12 steps.
@@ -3423,6 +3486,398 @@ def check_cli(device, smi: str) -> dict:
         ))
         del setup, ref
         log("time", f"check_cli health: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# -- the file forcings (phase check_forcing_files, ROADMAP M8b part 2) ------------
+#: The phase's archives: (low, high) of each field's values.
+ARCHIVE_RANGES = {
+    "tair": (-25.0, -5.0), "dew2m": (-27.0, -7.0), "pair": (9.9e4, 1.01e5), "sw_in": (0.0, 60.0),
+    "lw_in": (180.0, 280.0), "mld": (8.0, 15.0), "snowfall": (0.0, 2e-4), "wind": (2.0, 12.0),
+    "u_atm": (2.0, 12.0), "v_atm": (-4.0, 4.0), "u_ocean": (-0.05, 0.05), "v_ocean": (-0.05, 0.05),
+}
+#: 6-hourly records spanning run/arctic.cfg's 12 h and more.
+ARCHIVE_TIMES = np.arange(4) * 6 * 3600.0
+#: BASELINE config 5's size: 3 records bracketing its 2 steps (the second
+#: step enters the next interval: one record copied), the four dynamics
+#: fields with tair and wind (the rest the dummies, to bound host memory).
+ARCHIVE_16M_TIMES = np.array([0.0, 500.0, 1200.0])
+ARCHIVE_16M_FIELDS = ("tair", "wind", "u_atm", "v_atm", "u_ocean", "v_ocean")
+#: Provider probes: (label, time) against ARCHIVE_TIMES.
+PROVIDER_PROBES = (
+    ("at a record", 6 * 3600.0), ("between records", 7.3 * 3600.0), ("below the range", -100.0),
+    ("above the range", 1e9), ("across the periodic wrap", 18 * 3600.0 + 3.1 * 3600.0),
+    ("at the last record", 18 * 3600.0),
+)
+#: ERA5-style hourly file over run/arctic.cfg's window (55-85N, 40W-40E)
+#: and its 12 h: descending latitudes, as the CDS stores them.
+ERA5_LATS = np.linspace(86.0, 54.0, 33)
+ERA5_LONS = np.linspace(-41.0, 41.0, 83)
+ERA5_HOURS = 13
+TRACE_ANNOTATION = "nextsim archive box step"
+
+
+def archive_fields(nx: int, ny: int, times, names, seed: int) -> dict:
+    """Series of ``names`` (len(times), nx, ny), float64, each within its
+    ARCHIVE_RANGES: a smooth pattern in x plus one in y, both moving with
+    time (separable, so that 16.8M elements a record cost one pass)."""
+    rng = np.random.default_rng(seed)
+    x, y = np.arange(nx) / nx, np.arange(ny) / ny
+    out = {}
+    for name in names:
+        lo, hi = ARCHIVE_RANGES[name]
+        kx, ky = rng.integers(1, 4, size=2)
+        px, py = rng.uniform(0.0, 2 * np.pi, size=2)
+        series = np.empty((len(times), nx, ny))
+        for i, t in enumerate(times):
+            phase = 2 * np.pi * t / 86400.0
+            series[i] = 0.5 + 0.25 * np.sin(2 * np.pi * kx * x + px + phase)[:, None]
+            series[i] += 0.2 * np.cos(2 * np.pi * ky * y + py - phase)[None, :]
+            series[i] *= hi - lo
+            series[i] += lo
+        out[name] = series
+    return out
+
+
+def era5_variables(lats, lons, hours: int) -> dict:
+    """The raw variables of an ERA5-style file, name -> (values, attributes),
+    shaped like tests/test_era5.py's ``_write_era5``: hours since 1900,
+    descending latitudes, t2m, u10 and v10 packed as int16 (scale_factor,
+    add_offset, _FillValue), ssrd and sf unpacked float64 accumulations
+    over the hour."""
+    lat2, lon2 = np.meshgrid(lats, lons, indexing="ij")
+    t = np.arange(hours, dtype=np.float64)[:, None, None]
+
+    def packed(values, scale, offset):
+        raw = np.round((values - offset) / scale).astype(np.int16)
+        return raw, {"scale_factor": np.float64(scale), "add_offset": np.float64(offset),
+                     "_FillValue": np.int16(-32767)}
+
+    shape = (hours, len(lats), len(lons))
+    return {
+        "time": (np.arange(hours, dtype=np.int32) + 1_000_000,
+                 {"units": np.bytes_("hours since 1900-01-01 00:00:00.0")}),
+        "latitude": (np.asarray(lats, np.float64), {}),
+        "longitude": (np.asarray(lons, np.float64), {}),
+        "t2m": packed(250.0 + 0.1 * t + 0.2 * (lat2 - 70.0) + 0.05 * (lon2 - 10.0), 1e-3, 260.0),
+        "u10": packed(5.0 + 0.01 * lon2 + 0.1 * t, 1e-4, 5.0),
+        "v10": packed(-2.0 + 0.02 * lat2 + 0.0 * t, 1e-4, -2.0),
+        "ssrd": (np.broadcast_to(3600.0 * (50.0 + t), shape).copy(), {}),
+        "sf": (np.full(shape, 3600.0 * 1e-7), {}),
+    }
+
+
+class ForcingFiles:
+    """The phase's forcing archives and ERA5 files, by path. Where h5py is
+    installed they are files, written and read by the port's own functions;
+    where it is not (the card machines so far), in-memory stand-ins take the
+    place of ``forcing_file.read_forcing_archive``,
+    ``forcing_file.write_forcing_archive`` and ``era5.read_era5_variables``
+    for the phase, holding each archive's (time, fields) and each ERA5
+    file's variables by path; nothing else is patched."""
+
+    def __init__(self, files: bool) -> None:
+        self.files = files
+        self.archives = {}
+        self.era5_files = {}
+        self._saved = None
+
+    def _write_archive(self, path, time, fields) -> None:
+        time = np.asarray(time, dtype=np.float64)
+        held = {}
+        for name, series in fields.items():
+            held[name] = np.asarray(series, dtype=np.float64)
+            if held[name].shape[0] != time.shape[0]:
+                raise ValueError(f"field {name!r} has {held[name].shape[0]} steps, time has {time.shape[0]}")
+        self.archives[str(path)] = (time, held)
+
+    def _read_archive(self, path) -> tuple:
+        return self.archives[str(path)]
+
+    def _read_era5(self, path) -> dict:
+        return self.era5_files[str(path)]
+
+    def write_era5(self, path, variables: dict) -> None:
+        """An ERA5 file of ``variables`` (name -> (values, attributes))."""
+        if not self.files:
+            self.era5_files[str(path)] = variables
+            return
+        import h5py
+
+        with h5py.File(path, "w") as handle:
+            for name, (values, attrs) in variables.items():
+                dataset = handle.create_dataset(name, data=values)
+                for key, value in attrs.items():
+                    dataset.attrs[key] = value
+
+    def __enter__(self) -> "ForcingFiles":
+        if not self.files:
+            self._saved = (forcing_file.read_forcing_archive, forcing_file.write_forcing_archive,
+                           era5.read_era5_variables)
+            forcing_file.read_forcing_archive = self._read_archive
+            forcing_file.write_forcing_archive = self._write_archive
+            era5.read_era5_variables = self._read_era5
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._saved is not None:
+            (forcing_file.read_forcing_archive, forcing_file.write_forcing_archive,
+             era5.read_era5_variables) = self._saved
+            self.archives, self.era5_files = {}, {}
+
+
+def host_interp(time, series, t: float, periodic: bool):
+    """The host's blend of one field at time t, in numpy float64: the JAX
+    package's ``ForcingProvider._interp``, written out."""
+    t0, t1 = float(time[0]), float(time[-1])
+    if periodic and t1 > t0:
+        t = t0 + (t - t0) % (t1 - t0)
+    t = min(max(t, t0), t1)
+    idx = min(max(int(np.searchsorted(time, t, side="right") - 1), 0), len(time) - 1)
+    if idx == len(time) - 1:
+        return series[idx]
+    span = time[idx + 1] - time[idx]
+    w = (t - time[idx]) / span if span > 0 else 0.0
+    return (1.0 - w) * series[idx] + w * series[idx + 1]
+
+
+def check_provider(device, forcing_dir: Path) -> None:
+    """Leg 1: ForcingProvider on the card at 256^2 and 1024^2, clamped and
+    periodic: every plane of both forcings at each probe time against the
+    host's numpy float64 blend rounded to float32 (expected 0, failing
+    above 0)."""
+    for n in (N, N4):
+        path = str(forcing_dir / f"provider_{n}.h5")
+        fields = archive_fields(n, n, ARCHIVE_TIMES, list(ARCHIVE_RANGES), seed=n)
+        forcing_file.write_forcing_archive(path, ARCHIVE_TIMES, fields)
+        for periodic in (False, True):
+            provider = forcing_file.ForcingProvider(path, periodic=periodic, device=device)
+            for label, t in PROVIDER_PROBES:
+                got = {**vars(provider.thermo_forcing(t, n, n)), **vars(provider.dynamics_forcing(t, n, n))}
+                worst = 0.0
+                for name, plane in got.items():
+                    want = host_interp(ARCHIVE_TIMES, fields[name], t, periodic).astype(np.float32)
+                    if plane.dtype != torch.float32 or plane.device.type != device.type:
+                        raise AssertionError(f"provider {name}: {plane.dtype} on {plane.device}")
+                    worst = max(worst, float(np.abs(plane.cpu().numpy().astype(np.float64) - want).max()))
+                log("check", (
+                    f"forcing provider {n}x{n} {'periodic' if periodic else 'clamped'} {label} (t={t:g} s): "
+                    f"12 planes, max_abs_err={worst:.3e} against the host float64 blend rounded to float32 "
+                    f"(tol 0) {'ok' if worst == 0.0 else 'FAIL'}"
+                ))
+                if worst != 0.0:
+                    raise AssertionError(f"forcing provider {n}x{n} at t={t}: error {worst:.3e}")
+            del provider
+        del fields
+
+
+def trace_archive_box(out_dir: Path, device) -> int:
+    """One step of run/box.cfg on an archive through the CLI on ``device``,
+    under ``profiling.device_trace`` into ``out_dir`` with the step's run in
+    ``profiling.annotate(TRACE_ANNOTATION)``. ``check_forcing_files`` runs it
+    on the card in a process of its own (``chip_smoke.py --trace-archive-box
+    DIR``): a profiler session slows the host's later launches, and CUPTI now
+    and then stops recording for the rest of a process."""
+    files = importlib.util.find_spec("h5py") is not None
+    with ForcingFiles(files), CliFiles(files):
+        archive = str(out_dir / "box_archive.h5")
+        forcing_file.write_forcing_archive(archive, ARCHIVE_TIMES, archive_fields(N, N, ARCHIVE_TIMES,
+                                                                                  list(ARCHIVE_RANGES), seed=1))
+        argv = ["--config-file", str(RUN_DIR / "box.cfg"), f"--dynamics.forcing=archive:{archive}",
+                "--model.stop=600"]
+        cwd = Path.cwd()
+        os.chdir(out_dir)
+        try:
+            with profiling.device_trace(str(out_dir / "trace"), device=device):
+                with profiling.annotate(TRACE_ANNOTATION):
+                    rc = run_coupled(["nextsim", *argv], device=device)
+        finally:
+            os.chdir(cwd)
+    return rc
+
+
+def check_trace(workdir: Path) -> None:
+    """Leg 6: the traced step (``trace_archive_box``, its own process): the
+    trace names the annotation and mevp_tiled's kernel."""
+    out_dir = workdir / "traced"
+    out_dir.mkdir()
+    done = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-archive-box", str(out_dir)],
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"the traced archive box step exited {done.returncode}: {done.stderr[-2000:]}")
+    (path,) = list((out_dir / "trace").glob("trace_*.json"))
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    tiled = [e for e in kernels if "mevp_tiled" in e.get("name", "")]
+    annotated = [e for e in events if e.get("name") == TRACE_ANNOTATION]
+    log("check", (
+        f"traced archive box step ({path.stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} kernel "
+        f"events): annotation {TRACE_ANNOTATION!r} {len(annotated)}x, mevp_tiled kernels {len(tiled)} "
+        f"({tiled[0]['name'][:60] if tiled else 'none'}) {'ok' if tiled and annotated else 'FAIL'}"
+    ))
+    if not (tiled and TRACE_ANNOTATION in names):
+        raise AssertionError("the trace of the archive box step names no mevp_tiled kernel or no annotation")
+
+
+def check_forcing_files(device, smi: str) -> dict:
+    """Phase: the file forcings (ROADMAP M8b part 2) on the card in float32,
+    in a temporary directory. (1) The provider's device blend against the
+    host's at 256^2 and 1024^2 (expected 0). (2) ``archive:`` runs through
+    the CLI on 6-hourly records of all twelve fields that vary in time and
+    space: run/box.cfg and run/arctic.cfg as they stand, run/arctic.cfg on
+    2 x 2 ranks cut to 12 steps, and health at 256^2 with the step poisoned
+    on retry-halved (the replay reads the archive at 0, 600, 600, 900 and
+    1200 s); (3) an ``era5:`` run of run/arctic.cfg, the ERA5 variables
+    regridded onto its 256^2 centres; (4) BASELINE config 5's size (4096^2
+    on 2 x 2 ranks, 2 steps, a probe and a checkpoint every step) on 3
+    records of six fields. Each run's final state, checkpoints and rows
+    against a direct loop fed the same provider's forcing (expected 0), the
+    2 x 2 run against the single-device one, the launches of each run
+    (paths ``files_*``); (5) the CLI's ms per step against the bare step in
+    turns, its forcing scope, and the provider's refresh alone; (6) one
+    traced step. Returns the launch counts by path."""
+    files = importlib.util.find_spec("h5py") is not None
+    if not files:
+        log("files", (
+            "forcing archive and ERA5 file I/O not exercised on the card: no h5py here, so in-memory stand-ins "
+            "take the place of forcing_file.read_forcing_archive, forcing_file.write_forcing_archive and "
+            "era5.read_era5_variables (and CliFiles' recorders of the checkpoint and diagnostics writers); "
+            "nothing else is patched"
+        ))
+    tiled = ("mevp_tiled", "dg1_sample_cfl", "transport_tiled")
+    ho = ("ho_single", "transport_tiled")
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp, ForcingFiles(files) as ffiles, CliFiles(files) as rec:
+        # The runs' directory, whose .chk and .h5 files CliFiles collects;
+        # the forcing files apart.
+        workdir, forcing_dir = Path(tmp) / "runs", Path(tmp) / "forcing"
+        workdir.mkdir()
+        forcing_dir.mkdir()
+        t0 = time.perf_counter()
+        check_provider(device, forcing_dir)
+        log("time", f"check_forcing_files provider: {time.perf_counter() - t0:.1f} s")
+
+        archive = str(forcing_dir / "archive_256.h5")
+        forcing_file.write_forcing_archive(archive, ARCHIVE_TIMES, archive_fields(N, N, ARCHIVE_TIMES,
+                                                                                  list(ARCHIVE_RANGES), seed=1))
+        forcing = [f"--dynamics.forcing=archive:{archive}"]
+        box = ["--config-file", str(RUN_DIR / "box.cfg")] + forcing
+        arctic = ["--config-file", str(RUN_DIR / "arctic.cfg")] + forcing
+        # 2: run/box.cfg and run/arctic.cfg on the archive, each twice in
+        # turns with the bare step.
+        for path, argv, kernels in (("files_box", box, tiled), ("files_arctic", arctic, ho)):
+            t0 = time.perf_counter()
+            setup, run = cli_against_loop(path, argv, kernels, device, workdir, rec)
+            counts[path] = run.counts
+            cli_in_turns(path, argv, setup, run, device, workdir, rec, smi)
+            log("time", f"check_forcing_files {path}: {time.perf_counter() - t0:.1f} s")
+            del setup, run
+
+        # run/arctic.cfg on 2 x 2 ranks, 12 steps, against a loop of the
+        # global-shaped step and the single-device CLI cut to 12 steps.
+        t0 = time.perf_counter()
+        cut, grid = ["--model.stop=7200"], ["--parallel.mode=shardmap", "--parallel.mesh_shape=2x2"]
+        setup, run = cli_against_loop("files_arctic_2x2", arctic + cut + grid, ho, device, workdir, rec)
+        counts["files_arctic_2x2"] = run.counts
+        single = cli_run(arctic + cut, device, workdir, rec)
+        compare_host("files_arctic_2x2 final vs the single-device CLI run", run.checkpoints["coupled_restart.chk"][1],
+                     single.checkpoints["coupled_restart.chk"][1])
+        cli_times("files_arctic_2x2", run, setup.n_steps, setup, smi, {
+            "bare step (resident blocks)": bare_ms(setup, 4), **isolated_times(setup)})
+        log("time", f"check_forcing_files files_arctic_2x2: {time.perf_counter() - t0:.1f} s")
+        del setup, run, single
+
+        # Health at 256^2 on the archive, the step poisoned on its second
+        # full call: the replay reads the archive at dt/2 steps.
+        t0 = time.perf_counter()
+        original_step, original_read = CoupledModel.step, forcing_file.ForcingProvider.thermo_forcing
+        calls, reads = {"full": 0, "half": 0}, []
+
+        def poisoned(self, state, phys, dyn, dt, *args, **kwargs):
+            out = original_step(self, state, phys, dyn, dt, *args, **kwargs)
+            calls["full" if dt == DT else "half"] += 1
+            if dt == DT and calls["full"] == 2:
+                out = replace(out, hice=out.hice * float("nan"))
+            return out
+
+        def read(self, t, nx, ny):
+            reads.append(t)
+            return original_read(self, t, nx, ny)
+
+        argv_retry = box + list(CLI_HEALTH_ARGS[1:]) + ["--model.on_nonfinite=retry-halved"]
+        CoupledModel.step, forcing_file.ForcingProvider.thermo_forcing = poisoned, read
+        try:
+            retry = cli_run(argv_retry, device, workdir, rec)
+        finally:
+            CoupledModel.step, forcing_file.ForcingProvider.thermo_forcing = original_step, original_read
+        cli_expect("files_health_retry", retry, tiled)
+        counts["files_health_retry"] = retry.counts
+        # configure reads at start; the loop at each (half) step's start.
+        if calls != {"full": 3, "half": 2} or reads != [0.0, 0.0, DT, DT, 1.5 * DT, 2 * DT]:
+            raise AssertionError(f"health retry-halved on the archive: steps {calls}, archive read at {reads}")
+        setup = cli_setup(argv_retry, device)
+        ref = direct_loop(setup, [DT, DT / 2, DT / 2, DT], {1, 2, 3})
+        compare_host("files_health_retry final vs the direct loop dt, dt/2, dt/2, dt on the archive",
+                     retry.checkpoints["coupled_restart.chk"][1], ref[3])
+        compare_rows("files_health_retry", retry.rows, ref, DT)
+        log("slice", (
+            f"health on the archive: retry-halved replayed step 2 as {calls['half']} half steps, the archive read "
+            f"at {reads} s"
+        ))
+        log("time", f"check_forcing_files health: {time.perf_counter() - t0:.1f} s")
+        del setup, ref, retry
+
+        # 3: era5: on run/arctic.cfg's window, regridded onto its centres.
+        t0 = time.perf_counter()
+        era5_path = str(forcing_dir / "era5.nc")
+        ffiles.write_era5(era5_path, era5_variables(ERA5_LATS, ERA5_LONS, ERA5_HOURS))
+        argv = ["--config-file", str(RUN_DIR / "arctic.cfg"), f"--dynamics.forcing=era5:{era5_path}",
+                f"--dynamics.era5_archive={forcing_dir / 'era5_forcing.h5'}"]
+        setup, run = cli_against_loop("files_era5_arctic", argv, ho, device, workdir, rec)
+        counts["files_era5_arctic"] = run.counts
+        provider = setup.provider
+        log("slice", (
+            f"files_era5_arctic: the archive of {len(provider.time)} hourly records of {sorted(provider.names)} "
+            f"on {provider.shape}; tair {provider.fields['tair'].min():.3f}..{provider.fields['tair'].max():.3f} C"
+        ))
+        cli_times("files_era5_arctic", run, setup.n_steps, setup, smi, {"bare step": bare_ms(setup, setup.n_steps)})
+        log("time", f"check_forcing_files files_era5_arctic: {time.perf_counter() - t0:.1f} s")
+        del setup, run, provider
+
+        # 4: config 5's size, 2 steps, probed and checkpointed every step.
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        archive16 = str(forcing_dir / "archive_16m.h5")
+        forcing_file.write_forcing_archive(archive16, ARCHIVE_16M_TIMES, archive_fields(
+            N16, N16, ARCHIVE_16M_TIMES, ARCHIVE_16M_FIELDS, seed=16))
+        cfg = forcing_dir / "config5_archive.cfg"
+        cfg.write_text(CLI_16M_CFG.replace("forcing = cyclone\n", f"forcing = archive:{archive16}\n"))
+        argv = ["--config-file", str(cfg)]
+        setup = cli_setup(argv, device)
+        n = setup.n_steps
+        log("slice", f"files_16m: {N16}^2 on 2x2 ranks, {n} steps, the archive's {len(ARCHIVE_16M_TIMES)} records "
+                     f"of {ARCHIVE_16M_FIELDS}, health and checkpoints every step")
+        run = cli_run(argv, device, workdir, rec)
+        cli_expect("files_16m", run, tiled)
+        counts["files_16m"] = run.counts
+        ref = direct_loop(setup, [setup.dt] * n, set(range(1, n + 1)))
+        for name, (t, host) in sorted(run.checkpoints.items()):
+            compare_host(f"files_16m {name} vs a loop of ShardedCoupledModel.__call__", host,
+                         ref[int(round(t / setup.dt))])
+        del ref
+        run.checkpoints = None
+        cli_times("files_16m", run, n, setup, smi, {
+            "bare step (resident blocks)": bare_ms(setup, n), **isolated_times(setup)})
+        del setup, run
+        ffiles.archives.pop(archive16, None)  # the stand-in's 2.4 GB
+        torch.cuda.empty_cache()
+        log("time", f"check_forcing_files files_16m: {time.perf_counter() - t0:.1f} s")
+
+        # 6: one traced step.
+        t0 = time.perf_counter()
+        check_trace(Path(tmp))
+        log("time", f"check_forcing_files trace: {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -6363,6 +6818,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     kernels["ho_tiled"] = replace(kernels["ho_tiled"], err=max(kernels["ho_tiled"].err, err_grid_ho))
     phase(check_engine, device, smi)
     counts.update(phase(check_cli, device, smi))
+    counts.update(phase(check_forcing_files, device, smi))
     counts.update(counts_5, roofline=counts_roofline)
     kernels.update(kernels_5, chain=chain_row)
     for kernel, err in errs_grid.items():
@@ -6424,4 +6880,10 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-archive-box"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+            sys.exit(1)
+        cc.build()
+        sys.exit(trace_archive_box(Path(sys.argv[2]), torch.device("cuda", 0)))
     sys.exit(main())

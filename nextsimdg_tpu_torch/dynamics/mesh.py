@@ -188,6 +188,8 @@ class SphericalMesh(RectMesh):
         self.radius = float(radius)
         self.dlam = (lam1 - lam0) / nx
         self.dphi = (phi1 - phi0) / ny
+        self.lam0 = lam0
+        self.phi0 = phi0
         super().__init__(
             nx, ny, dx=radius * self.dlam, dy=radius * self.dphi,
             x0=radius * lam0, y0=radius * phi0, periodic_x=periodic_x,
@@ -236,6 +238,14 @@ class SphericalMesh(RectMesh):
             "face_x": (ones_x, (self.radius * self.dphi) * ones_y),
             "face_y": (ones_x, (self.radius * self.dlam) * self._cos_node[:-1]),
         }
+
+    def lonlat_centers(self):
+        """(lat, lon) element-centre arrays in degrees (numpy), each (nx, ny)."""
+        lons = np.degrees(self.lam0 + (np.arange(self.nx) + 0.5) * self.dlam)
+        lats = np.degrees(self.phi0 + (np.arange(self.ny) + 0.5) * self.dphi)
+        lat2d = np.broadcast_to(lats[None, :], (self.nx, self.ny))
+        lon2d = np.broadcast_to(lons[:, None], (self.nx, self.ny))
+        return lat2d, lon2d
 
 
 class LocalMeshView(RectMesh):

@@ -30,9 +30,11 @@ meaning:
     tvb_m =                         # TVB slope limiter constant (unset: off)
     thermo = true
     forcing = constant              # constant | cyclone (native engine)
+                                    # | archive:<forcing.h5> | era5:<era5.nc>
+    era5_archive = era5_forcing.h5  # where era5: writes its regridded archive
     wind = 15.0                     # constant mode / cyclone vmax
     geometry = cartesian            # cartesian | spherical (lon-lat metric)
-    lat0 = 70.0                     # spherical mesh extent
+    lat0 = 70.0                     # spherical mesh extent / era5 box
     lat1 = 80.0
     lon0 = 0.0
     lon1 = 20.0
@@ -54,15 +56,24 @@ meaning:
 
 and ``[Modules]`` selections (``Nextsim::IDynamics = Nextsim::MEVPHighOrder``
 for the CG2/dG1 solver, ``Nextsim::IThermodynamics =
-Nextsim::ThermoWinton`` ...). The forcing modes ``archive:<file>`` and
-``era5:<file>`` and their readers are ROADMAP M8b part 2's, and raise
-``NotImplementedError`` here.
+Nextsim::ThermoWinton`` ...).
+
+File forcing: ``archive:<file>`` runs from a forcing archive
+(``io.forcing_file``), ``era5:<file>`` first decodes and regrids an ERA5
+file onto the mesh's element centres (``mesh.lonlat_centers()`` on a
+spherical mesh, else ``lonlat_box`` of lat0..lat1, lon0..lon1) into the
+archive ``dynamics.era5_archive`` (``io.era5``). Both the physics and the
+dynamics forcing are then the archive's, interpolated in time at the start
+of every step (the half steps of a dt/2 replay included) by a
+``ForcingProvider`` on the run's device; it keeps the two bracketing records
+there and blends them on the device.
 
 Run: ``python -m nextsimdg_tpu_torch.runtime.coupled_main --config-file
 run/box.cfg``. The run is on the CUDA card in float32 unless ``--cpu`` or
 ``--float64`` say otherwise (or a caller passes ``device`` and ``dtype``);
 without a card and without ``--cpu`` it returns 2. Every tensor of the run
-lives on that device; the cyclone's fields are copied there once a step.
+lives on that device; the cyclone's fields are copied there once a step,
+an archive's records when the step enters their interval.
 
 ``[parallel]`` maps onto the port's rank grid (``parallel.RankGrid``):
 ``single`` steps one ``CoupledModel``; ``shardmap`` splits the domain into
@@ -81,7 +92,8 @@ aborts (writing ``coupled_failed.post_mortem.chk`` with the poisoned state
 and ``coupled_restart.chk`` with the last healthy one) or, with
 ``on_nonfinite = retry-halved``, replays the failed segment once at dt/2
 (not with the streaming cyclone forcing, which cannot rewind: there it
-aborts). The monitor keeps a device-side clone of the last healthy state:
+aborts; a forcing archive rewinds, so a file-forced run replays). The
+monitor keeps a device-side clone of the last healthy state:
 one more copy of the state in the card's memory (1.1 GB for an HO state at
 16M elements in float32) and one device copy of it at every healthy probe
 (about 0.7 ms of HBM time at that size on an H100). Unlike the JAX
@@ -178,6 +190,9 @@ class _Domain:
     def set_dynamics_forcing(self, dyn) -> None:
         self.dyn = self.place(dyn)
 
+    def set_physics_forcing(self, phys) -> None:
+        self.phys = self.place(phys)
+
     def step(self, state, dt: float):
         if self.grid is None:
             return self.model.step(state, self.phys, self.dyn, dt, do_thermo=self.do_thermo)
@@ -217,7 +232,8 @@ class CoupledSetup:
     the cadences, the model (and on a rank grid the ``ShardedCoupledModel``),
     the initial global state on the run's device, the physics forcing, and
     the dynamics forcing (None with the cyclone, whose pipeline
-    ``open_pipeline`` starts)."""
+    ``open_pipeline`` starts; with a forcing archive both are the
+    ``provider``'s at ``start``, and the run refreshes them every step)."""
 
     start: float
     stop: float
@@ -235,6 +251,7 @@ class CoupledSetup:
     phys_forcing: object
     dyn_forcing: object
     cyclone: Optional[dict]
+    provider: object
     device: torch.device
     dtype: torch.dtype
 
@@ -387,32 +404,49 @@ def configure_coupled(*, device, dtype) -> CoupledSetup:
                 state, hice=state.hice * m, cice=state.cice * m, hsnow=state.hsnow * m,
             )
 
+    start = float(get("model.start", 0.0))
     full = lambda v: torch.full((nx, ny), v, device=device, dtype=dtype)  # noqa: E731
+    cyclone = dyn_forcing = provider = None
     if forcing_mode.startswith(("era5:", "archive:")):
-        raise NotImplementedError(
-            f"dynamics.forcing = {forcing_mode.partition(':')[0]}: needs io/forcing_file.py and "
-            "io/era5.py, which the port does not have yet (ROADMAP M8b part 2)"
-        )
-    cyclone = dyn_forcing = None
-    if forcing_mode == "cyclone":
-        cyclone = dict(
-            nx=nx, ny=ny, dx=dx, dy=dy, vmax_atm=wind, r0=min(nx * dx, ny * dy) / 5,
-            period=4 * 86400.0, vmax_ocean=0.1, dt=dt,
-        )
+        from ..io.forcing_file import ForcingProvider
+
+        kind, _, path = forcing_mode.partition(":")
+        if kind == "era5":
+            # Decode and regrid once onto the mesh's element centres, then
+            # run from the resulting archive.
+            from ..io.era5 import era5_to_archive, lonlat_box
+
+            if geometry is Geometry.SPHERICAL:
+                dst_lats, dst_lons = mesh.lonlat_centers()
+            else:
+                dst_lats, dst_lons = lonlat_box(nx, ny, lat0, lat1, lon0, lon1)
+            archive = get("dynamics.era5_archive", "era5_forcing.h5")
+            era5_to_archive(path, archive, dst_lats, dst_lons)
+            path = archive
+        provider = ForcingProvider(path, dtype=dtype, device=device)
+        phys_forcing = provider.thermo_forcing(start, nx, ny)
+        dyn_forcing = provider.dynamics_forcing(start, nx, ny)
     else:
-        dyn_forcing = DynamicsForcing(
-            u_atm=full(wind), v_atm=full(0.0), u_ocean=full(0.0), v_ocean=full(0.0),
-        )
+        phys_forcing = Forcing(**{k: full(v) for k, v in PHYSICS_FORCING.items()}, wind=full(wind))
+        if forcing_mode == "cyclone":
+            cyclone = dict(
+                nx=nx, ny=ny, dx=dx, dy=dy, vmax_atm=wind, r0=min(nx * dx, ny * dy) / 5,
+                period=4 * 86400.0, vmax_ocean=0.1, dt=dt,
+            )
+        else:
+            dyn_forcing = DynamicsForcing(
+                u_atm=full(wind), v_atm=full(0.0), u_ocean=full(0.0), v_ocean=full(0.0),
+            )
     return CoupledSetup(
-        start=float(get("model.start", 0.0)), stop=float(get("model.stop", 0.0)), dt=dt,
+        start=start, stop=float(get("model.stop", 0.0)), dt=dt,
         checkpoint_period=int(get("model.checkpoint_period", 0)),
         checkpoint_pattern=get("model.checkpoint_pattern", "coupled.{step}.chk"),
         diag_file=get("model.diagnostics_file", ""),
         diag_period=int(get("model.diagnostics_period", 0)),
         health_period=int(get("model.health_period", 0)), on_nonfinite=on_nonfinite,
         do_thermo=bool(get("dynamics.thermo", True)), model=model, sharded=sharded, state=state,
-        phys_forcing=Forcing(**{k: full(v) for k, v in PHYSICS_FORCING.items()}, wind=full(wind)),
-        dyn_forcing=dyn_forcing, cyclone=cyclone, device=device, dtype=dtype,
+        phys_forcing=phys_forcing, dyn_forcing=dyn_forcing, cyclone=cyclone, provider=provider,
+        device=device, dtype=dtype,
     )
 
 
@@ -445,11 +479,13 @@ def _run(setup: CoupledSetup) -> None:
     start, dt, n_steps = setup.start, setup.dt, setup.n_steps
     checkpoint_period, diag_period = setup.checkpoint_period, setup.diag_period
     device, dtype = setup.device, setup.dtype
+    mesh = setup.model.mesh
     domain = _Domain(setup.model, setup.sharded, setup.phys_forcing, setup.do_thermo, device)
     state = domain.place(setup.state)
     if setup.dyn_forcing is not None:
         domain.set_dynamics_forcing(setup.dyn_forcing)
-    pipeline = setup.open_pipeline()
+    pipeline, provider = setup.open_pipeline(), setup.provider
+    nx, ny = mesh.nx, mesh.ny
     diag = (
         diagnostics.DiagnosticWriter(setup.diag_file) if setup.diag_file and diag_period else None
     )
@@ -458,7 +494,6 @@ def _run(setup: CoupledSetup) -> None:
     # host arrays only: the fetch runs on this thread.
     ckpt_pool = ThreadPoolExecutor(max_workers=1)
     pending_ckpt = None
-    mesh = setup.model.mesh
     Logged.info(f"Coupled run: {n_steps} steps of {dt} s on {mesh.nx}x{mesh.ny} on {device}")
 
     mon = None
@@ -488,11 +523,16 @@ def _run(setup: CoupledSetup) -> None:
             while step < n_steps:
                 recovering = mon is not None and mon.recovering
                 dt_cur = dt / 2 if recovering else dt
+                t_now = start + step * dt + halves * (dt / 2)
                 if pipeline is not None:
                     with main_timer.scope("forcing"):
                         domain.set_dynamics_forcing(
                             cyclone_forcing(pipeline.next_fields(), device=device, dtype=dtype)
                         )
+                elif provider is not None:
+                    with main_timer.scope("forcing"):
+                        domain.set_dynamics_forcing(provider.dynamics_forcing(t_now, nx, ny))
+                        domain.set_physics_forcing(provider.thermo_forcing(t_now, nx, ny))
                 with main_timer.scope("step"):
                     state = domain.step(state, dt_cur)
                 if recovering:

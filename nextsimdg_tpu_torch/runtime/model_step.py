@@ -35,6 +35,11 @@ class ModelStep(Iterant):
         self.checkpoint_period = 0
         self.checkpoint_pattern = "checkpoint.{step}.nc"
         self.step_count = 0
+        #: Time-dependent forcing (``model.forcing_file``): a
+        #: ``ForcingProvider`` that sets the structure's forcing at the start
+        #: of every step; None keeps the structure's forcing.
+        self.forcing_provider = None
+        self.start_time = 0.0
 
     # -- IModelStep (IModelStep.hpp:16-34) -----------------------------------
     def set_initial_data(self, structure: IStructure) -> None:
@@ -63,6 +68,11 @@ class ModelStep(Iterant):
 
     # -- Iterant -------------------------------------------------------------
     def iterate(self, dt) -> None:
+        if self.forcing_provider is not None:
+            t_now = self.start_time + self.step_count * float(dt)
+            self.structure.forcing = self.forcing_provider.thermo_forcing(
+                t_now, self.structure.nx, self.structure.ny
+            )
         step = self.step_fn()
         self.structure.prognostic, self.new_ice = step(
             self.structure.prognostic, self.structure.forcing, self.new_ice, float(dt)

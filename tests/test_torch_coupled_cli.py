@@ -1,11 +1,11 @@
 """The port's coupled CLI (``nextsimdg_tpu_torch.runtime.coupled_main``) on
 one device: the twins of ``tests/test_coupled_main.py``'s single-device
-cases (constant and cyclone forcing, the module selections, the coastline
-from a .npy file, the periodic_x override, adaptive alpha) and of
-``tests/test_parity_extras.py:42`` (the engine's checkpoint cadence), and
-what the port does of its own: the modes and forcings it does not take
-raise naming their reason, and without a card and without ``--cpu`` the
-CLI returns 2. The CLI runs on the CPU (``--cpu``); the port's
+cases (constant, cyclone, archive and ERA5 forcing, the module selections,
+the coastline from a .npy file, the pan-Arctic stack, the periodic_x
+override, adaptive alpha) and of ``tests/test_parity_extras.py:42`` (the
+engine's checkpoint cadence), and what the port does of its own: the
+parallel modes it does not take raise naming their reason, and without a
+card and without ``--cpu`` the CLI returns 2. The CLI runs on the CPU (``--cpu``); the port's
 Configurator and registry are reset around every test.
 """
 
@@ -67,6 +67,26 @@ def run(*args) -> int:
     return run_coupled(["prog", *args, "--cpu"])
 
 
+#: The test archive's fields: (low, high) of each one's uniform values.
+ARCHIVE_RANGES = {
+    "tair": (-25.0, -5.0), "dew2m": (-27.0, -7.0), "pair": (9.9e4, 1.01e5), "sw_in": (0.0, 60.0),
+    "lw_in": (180.0, 280.0), "mld": (8.0, 15.0), "snowfall": (0.0, 2e-4), "wind": (2.0, 12.0),
+    "u_atm": (2.0, 12.0), "v_atm": (-4.0, 4.0), "u_ocean": (-0.05, 0.05), "v_ocean": (-0.05, 0.05),
+}
+
+
+def write_archive(path, nx=16, ny=16, times=(0.0, 450.0, 1350.0, 2000.0), seed=0) -> dict:
+    """A forcing archive of all twelve fields, random in time and space over
+    records that bracket a 3-step run of 600 s (the steps and the dt/2
+    replay's half steps fall between records); returns its fields."""
+    from nextsimdg_tpu_torch.io.forcing_file import write_forcing_archive
+
+    rng = np.random.default_rng(seed)
+    fields = {n: rng.uniform(lo, hi, size=(len(times), nx, ny)) for n, (lo, hi) in ARCHIVE_RANGES.items()}
+    write_forcing_archive(str(path), np.asarray(times), fields)
+    return fields
+
+
 def test_coupled_cli_constant_forcing(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     cfg = write_cfg(tmp_path)
@@ -116,9 +136,10 @@ def test_coupled_cli_land_mask_from_npy(tmp_path, monkeypatch):
 
 
 def test_coupled_cli_spherical_coastline_winton(tmp_path, monkeypatch):
-    """The pan-Arctic stack on constant forcing (the template,
-    tests/test_coupled_main.py:112, forces it from ERA5, which is M8b part
-    2's): the lon-lat mesh, the synthetic coastline and Winton's 3 layers."""
+    """The pan-Arctic stack on constant forcing: the lon-lat mesh, the
+    synthetic coastline and Winton's 3 layers (the template,
+    tests/test_coupled_main.py:112, forces it from ERA5: that twin is
+    test_coupled_cli_pan_arctic_config)."""
     monkeypatch.chdir(tmp_path)
     cfg = write_cfg(tmp_path, extra=(
         "geometry = spherical\nlat0 = 71.0\nlat1 = 79.0\nlon0 = 11.0\nlon1 = 31.0\n"
@@ -198,14 +219,70 @@ def test_unported_parallel_modes_raise(tmp_path, monkeypatch, extra, error, word
     assert not os.path.exists("coupled_restart.chk")
 
 
+ERA5_BOX = "lat0 = 71.0\nlat1 = 79.0\nlon0 = 11.0\nlon1 = 31.0\n"
+
+
 @pytest.mark.parametrize("forcing", ["archive:forcing.h5", "era5:era5.nc"])
 def test_file_forcings_raise_naming_part_2(tmp_path, monkeypatch, forcing):
-    """The file forcings are ROADMAP M8b part 2's: they raise, and nothing
-    runs in their place."""
+    """The file forcings (ROADMAP M8b part 2; they raised until it was
+    ported, hence the name) run on the Cartesian box and finish with a
+    checkpoint: the twin of tests/test_coupled_main.py:58 (era5:, regridded
+    onto the lat0..lat1, lon0..lon1 box) and the same with an archive."""
+    from tests.test_era5 import _write_era5
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="M8b part 2"):
-        run("--config-file", write_cfg(tmp_path, forcing=forcing))
-    assert not os.path.exists("coupled_restart.chk")
+    if forcing.startswith("era5:"):
+        _write_era5(str(tmp_path / "era5.nc"))
+    else:
+        write_archive(tmp_path / "forcing.h5")
+    assert run("--config-file", write_cfg(tmp_path, forcing=forcing, extra=ERA5_BOX)) == 0
+    assert os.path.exists("era5_forcing.h5") == forcing.startswith("era5:")
+    assert load_time("coupled_restart.chk") == 1800.0
+    state = load_coupled_state("coupled_restart.chk", **CPU32)
+    for leaf in (state.hice, state.cice, state.sst):
+        assert torch.all(torch.isfinite(leaf))
+    # The files' winds (u10 ~ 5 m/s; the archive's u_atm 2-12) set the ice drifting.
+    assert float(state.velocity.u.abs().max()) > 0.0
+    assert len(read_diagnostics("diag.h5")["time"]) == 3
+
+
+def test_coupled_cli_spherical_geometry_with_era5(tmp_path, monkeypatch):
+    """geometry = spherical: the lon-lat metric mesh; ERA5 regrids onto its
+    own element centres (tests/test_coupled_main.py:79)."""
+    from tests.test_era5 import _write_era5
+
+    monkeypatch.chdir(tmp_path)
+    _write_era5(str(tmp_path / "era5.nc"))
+    cfg = write_cfg(tmp_path, forcing="era5:era5.nc", extra="geometry = spherical\n" + ERA5_BOX)
+    assert run("--config-file", cfg) == 0
+    state = load_coupled_state("coupled_restart.chk", **CPU32)
+    for leaf in (state.hice, state.cice, state.velocity.u):
+        assert torch.all(torch.isfinite(leaf))
+    assert float(state.velocity.u.abs().max()) > 0.0
+
+
+def test_coupled_cli_pan_arctic_config(tmp_path, monkeypatch):
+    """The pan-Arctic stack from ERA5 (tests/test_coupled_main.py:112): the
+    lon-lat mesh, the synthetic coastline, ERA5 forcing and Winton's 3
+    layers; land stays ice-free and no-slip."""
+    from tests.test_era5 import _write_era5
+
+    monkeypatch.chdir(tmp_path)
+    _write_era5(str(tmp_path / "era5.nc"))
+    cfg = write_cfg(tmp_path, forcing="era5:era5.nc", extra=(
+        "geometry = spherical\n" + ERA5_BOX + "land_mask = synthetic\n[model]\nnlayers = 3\n"
+        "[Modules]\nNextsim::IThermodynamics = Nextsim::ThermoWinton\n"
+    ))
+    assert run("--config-file", cfg) == 0
+    state = load_coupled_state("coupled_restart.chk", **CPU32)
+    assert state.tice.shape == (3, 16, 16)
+    for leaf in (state.hice, state.cice, state.tice, state.velocity.u):
+        assert torch.all(torch.isfinite(leaf))
+    land = torch.from_numpy(synthetic_coastline(16) == 0.0)
+    assert land.any()
+    assert torch.all(state.hice[0][land] == 0.0)
+    assert torch.all(state.velocity.u[land] == 0.0)
+    assert float(state.velocity.u.abs().max()) > 0.0
 
 
 def test_bad_on_nonfinite_raises_when_the_config_is_read(tmp_path, monkeypatch):

@@ -70,12 +70,41 @@ def test_port_imports_without_jax_or_triton():
         "import nextsimdg_tpu_torch.io.coupled_restart, nextsimdg_tpu_torch.io.diagnostics\n"
         "import nextsimdg_tpu_torch.io.forcing_pipeline, nextsimdg_tpu_torch.benchmarks.host_copies\n"
         "import nextsimdg_tpu_torch.runtime.health, nextsimdg_tpu_torch.runtime.coupled_main\n"
+        "import nextsimdg_tpu_torch.io.forcing_file, nextsimdg_tpu_torch.io.era5\n"
+        "import nextsimdg_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
         "assert not bad, bad\n"
         "# Restart files need h5py, which the card machine may lack: the\n"
         "# package imports without it.\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'h5py']\n"
         "assert not bad, bad\n"
+    )
+    done = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert done.returncode == 0, done.stderr
+
+
+def test_file_forcing_modules_import_without_h5py():
+    """The card machine has no h5py: with h5py unimportable, the forcing
+    archive, the ERA5 reader, the profiler and the CLI still import (h5py
+    is imported by the functions that open a file), and a provider reads an
+    archive through a stand-in of read_forcing_archive."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None  # import h5py raises ImportError\n"
+        "import numpy as np, torch\n"
+        "import nextsimdg_tpu_torch.io.forcing_file as ff, nextsimdg_tpu_torch.io.era5\n"
+        "import nextsimdg_tpu_torch.utils.profiling, nextsimdg_tpu_torch.runtime.coupled_main\n"
+        "try:\n"
+        "    ff.read_forcing_archive('forcing.h5')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('read_forcing_archive ran without h5py')\n"
+        "ff.read_forcing_archive = lambda path: (np.array([0.0, 2.0]), {'tair': np.zeros((2, 3, 3))})\n"
+        "p = ff.ForcingProvider('forcing.h5', device='cpu')\n"
+        "assert float(p.thermo_forcing(1.0, 3, 3).tair.abs().max()) == 0.0\n"
     )
     done = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120

@@ -225,11 +225,36 @@ def test_restart_written_even_when_run_fails(tmp_path, monkeypatch):
 
 
 def test_a_forcing_file_is_refused_until_m8b(tmp_path, monkeypatch):
+    """model.forcing_file (refused until ROADMAP M8b part 2 ported it, hence
+    the name) gives the ModelStep a provider on the model's device and
+    dtype, which sets the structure's forcing at each step's time: the
+    archive's tair at t = 0, 1, 2 of a ramp, the dummies elsewhere."""
+    from nextsimdg_tpu_torch.io.forcing_file import write_forcing_archive
+
     monkeypatch.chdir(tmp_path)
     make_dev_restart("dev1.res.nc")
-    Configurator.add_stream(DEV1_CFG.format(stop=1) + "forcing_file = era5.nc\n")
-    with pytest.raises(NotImplementedError, match="M8b"):
-        Model(**CPU64).configure()
+    write_forcing_archive("forcing.nc", [0.0, 4.0], {"tair": np.stack([np.full((10, 10), v) for v in (-20.0, -12.0)])})
+    Configurator.add_stream(DEV1_CFG.format(stop=3) + "forcing_file = forcing.nc\n")
+    model = Model(**CPU64)
+    model.configure()
+    provider = model.model_step.forcing_provider
+    assert provider.device == torch.device("cpu") and provider.dtype == torch.float64
+    seen = []
+    step = model.model_step.step_fn
+
+    def recorded():
+        inner = step()
+
+        def record(prog, forcing, new_ice, dt):
+            seen.append((float(forcing.tair[0, 0]), float(forcing.lw_in[0, 0])))
+            return inner(prog, forcing, new_ice, dt)
+
+        return record
+
+    model.model_step.step_fn = recorded
+    model.run()
+    assert seen == [(-20.0, 311.0), (-18.0, 311.0), (-16.0, 311.0)]
+    assert os.path.exists("restart.nc")
 
 
 def test_chrono_and_timer():
