@@ -341,7 +341,20 @@ Phases, each printed on its own lines:
    ``mevp_tiled`` and the annotation. Without h5py in-memory stand-ins
    replace ``forcing_file.read_forcing_archive``,
    ``forcing_file.write_forcing_archive`` and ``era5.read_era5_variables``
-   (``ForcingFiles``);
+   (``ForcingFiles``); and, after config 5's timings, the rank grid
+   across processes (phase ``check_multiprocess``, ROADMAP M10b part 3):
+   config 5 on 4 worker processes of one rank each on the one card
+   (``parallel.multiprocess.launch``: gloo, strips staged through pinned
+   host buffers), blocked ("auto", h = 16) and rdma, 2 steps: process 0's
+   gathered and checkpointed state (an in-memory recorder where h5py is
+   missing) against the thread grid's on the same inputs (expected 0),
+   the health probe over the 4 processes (one NaN in the last must fail
+   it on all), the workers' launches (paths ``multiprocess_16m*``), each
+   process's ms a step (3 timed), the host-staged exchange's ms a round
+   and process 0's idle share, beside the thread grid and the single
+   device in turns before and after; then the JAX worker's paths
+   (blocked, shardmap, blocked-ring) at 16^2 on 2 processes x 2 ranks
+   against the single domain and the thread grid (expected 0);
 6. time (CUDA events, each function warmed up once; a plain path, run by
    the checks before, timed once): ms per step and element updates/s of
    each path, of the config-4 step on K1's schedule, on the tiled one and on
@@ -442,7 +455,7 @@ from nextsimdg_tpu_torch.interop import coupled_state_to_numpy
 from nextsimdg_tpu_torch.io import (
     coupled_restart, diagnostics, era5, forcing_file, netcdf_c, read_restart, write_restart_fields,
 )
-from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, run_ranks
+from nextsimdg_tpu_torch.parallel import RankGrid, build_sharded_coupled_model, multiprocess, run_ranks
 from nextsimdg_tpu_torch.runtime import Model, coupled_main
 from nextsimdg_tpu_torch.runtime.coupled_main import run_coupled
 from nextsimdg_tpu_torch.runtime.main import main as engine_main
@@ -1117,10 +1130,11 @@ def check_tiled(device) -> dict:
         (9 + 9 + 4 + 9) * 4 * n, OPS["stage"] * n,
     )
     ms16 = time_ms(lambda: tt.transport_substeps_tiled(*args16), 20)
+    plain16 = time_ms(lambda: tt.transport_substeps_tiled_reference(*args16), 1)
     bound16 = bound((9 + 4 + 9) * 4 * n16, 2 * OPS["stage_cell"] * n16)
     log("time", (
-        f"transport_tiled: kernel {ms16:.4f} ms per call at {N16}x{N16} (one rk2 substep), bound "
-        f"{bound16[0]:.4f} ms ({bound16[1]}); {config}, "
+        f"transport_tiled: kernel {ms16:.4f} ms per call at {N16}x{N16} (one rk2 substep), plain "
+        f"{plain16:.4f} ms, bound {bound16[0]:.4f} ms ({bound16[1]}); {config}, "
         f"{tt.blocks_per_sm(device, config, tt.halo_for(1, 2))} blocks an SM"
     ))
     del args16, psi16, u16, v16
@@ -1132,11 +1146,12 @@ def check_tiled(device) -> dict:
     mevp_tiled_against_plain_and_k1(f"{N16}x{N16}", solver, carry, consts, (config16,))
     results["mevp_tiled"].err = errs["mevp_tiled"]
     ms16 = time_ms(lambda: mt.mevp_subcycles_tiled(solver, carry, consts, DT, TILED_SUBCYCLES), 20)
+    plain16 = time_ms(lambda: mt.mevp_subcycles_tiled_reference(solver, carry, consts, DT, TILED_SUBCYCLES), 1)
     log("time", (
         f"mevp_tiled: kernel {results['mevp_tiled'].ms:.4f} ms per call at {N4}x{N4} "
         f"({results['mevp_tiled'].ms * 1e9 / (n * TILED_SUBCYCLES):.2f} ps per element and subcycle; "
         f"tile, halo, threads {mt.launch_config(N4, N4)}), {ms16:.4f} ms at {N16}x{N16} "
-        f"({ms16 * 1e9 / (N16 * N16 * TILED_SUBCYCLES):.2f} ps; {config16}), "
+        f"({ms16 * 1e9 / (N16 * N16 * TILED_SUBCYCLES):.2f} ps; {config16}; plain {plain16:.4f} ms), "
         f"{TILED_SUBCYCLES} subcycles a call"
     ))
     return results
@@ -2763,6 +2778,154 @@ def time_multihost(device, card: str) -> None:
             lambda: sharded[name].run_blocks(*blocks[name], DT, 1), n_steps=2,
         )
     profile(f"multihost_16m coupled step, single-device ({N16}x{N16})", lambda: model1.step(state, phys, dyn, DT))
+
+
+# -- BASELINE config 5 on processes: 2 x 2 worker processes of the one card --------
+#: Config 5 on MP_PROCESSES worker processes of one rank each (a 2 x 2 grid),
+#: by path label: the worker's path (the mEVP schedule of both grids).
+MP_PROCESSES = 4
+MP_FORMS = {"multiprocess_16m_blocked": "auto", "multiprocess_16m": "rdma"}
+MP_STEPS = 2
+MP_REPS = 3
+#: The JAX worker's paths at 16^2 (2 processes x 2 ranks, 10 subcycles), and
+#: the kernels each must launch.
+MP_SMALL = {
+    "blocked": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    "shardmap": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    "blocked-ring": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+}
+PATH_KERNELS.update({
+    "multiprocess_16m_blocked": PATH_KERNELS["multihost_16m_blocked"],
+    "multiprocess_16m": PATH_KERNELS["multihost_16m"],
+})
+
+
+def mp_thread_grid(device, backend: str):
+    """Config 5's thread grid (2 x 2 ranks of this process on the card) on
+    ``backend`` with the workers' inputs: (ShardedCoupledModel, state,
+    physics and dynamics forcing blocks)."""
+    _, sharded = sharded_model(device, mevp_backend=backend)
+    states, phys, dyns = (list(x) for x in zip(*(
+        multiprocess.problem_inputs("config5", m, device, torch.float32) for m in sharded.models
+    )))
+    return sharded, states, phys, dyns
+
+
+def mp_turns(device, card: str, tag: str) -> dict:
+    """Config 5's ms a step in turns: the single device and the 4-thread
+    grid on both schedules, each from its initial state."""
+    model1, state, phys, dyn = config5_model(device)
+    grids = {label: mp_thread_grid(device, backend) for label, backend in MP_FORMS.items()}
+    fns = {"single-device": lambda: model1.step(state, phys, dyn, DT)}
+    for label, (sharded, states, physs, dyns) in grids.items():
+        fns[f"4 threads {MP_FORMS[label]}"] = (
+            lambda sharded=sharded, b=(states, physs, dyns): sharded.run_blocks(*b, DT, 1))
+    runs = time_in_turns(fns, dict.fromkeys(fns, 2))
+    for name, ms in runs.items():
+        report(f"multiprocess_16m {tag}: config 5 step, {name} ({N16}x{N16})", ms, N16 * N16, card)
+    return runs
+
+
+def check_multiprocess(device, card: str) -> dict:
+    """Config 5 on 4 worker processes of one rank each on the one card
+    (``parallel.multiprocess.launch``: gloo, strips staged through pinned
+    host buffers), blocked ("auto", h = 16) and rdma, MP_STEPS steps: process
+    0's gathered (and checkpointed) final state against the thread grid's
+    from the same inputs (expected 0), the health probe on every process,
+    the workers' launches; ms a step in turns with the thread grid and the
+    single device before and after, the exchange's ms a round and process
+    0's idle share; then the JAX worker's paths at 16^2 on 2 processes x 2
+    ranks against the single domain and the thread grid. Returns the
+    workers' launch counts by path."""
+    refs = {}
+    for label, backend in MP_FORMS.items():
+        sharded, states, phys, dyns = mp_thread_grid(device, backend)
+        refs[label] = sharded.grid.gather_tree(sharded.run_blocks(states, phys, dyns, DT, MP_STEPS), "cpu")
+        del sharded, states, phys, dyns
+    mp_turns(device, card, "before the processes")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("slice", (
+        f"multiprocess_16m: the parent holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card "
+        f"({torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved) as it spawns {MP_PROCESSES} workers"
+    ))
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        t0 = time.perf_counter()
+        results = multiprocess.launch(
+            MP_PROCESSES, 1, paths=tuple(MP_FORMS.values()), n=N16, steps=MP_STEPS,
+            n_subcycles=N_SUBCYCLES, bench_reps=MP_REPS, device="cuda", problem="config5", out_dir=tmp,
+            timeout=900, worker_args=("--no-reference", "--save-dir", tmp, "--profile"),
+        )
+        log("time", f"multiprocess_16m: launch of {MP_PROCESSES} workers {time.perf_counter() - t0:.1f} s wall")
+        for r in results:
+            log("slice", (
+                f"multiprocess_16m process {r['process_id']}: backend {r['backend']}, host-staged strips "
+                f"{r['host_staged']}, {r['local_devices']} rank of {r['global_devices']}, {r['device']}"
+            ))
+            if (r["backend"], r["host_staged"], r["process_count"]) != ("gloo", True, MP_PROCESSES):
+                raise AssertionError(f"worker {r['process_id']} is not on gloo with host-staged strips: {r}")
+        for label, backend in MP_FORMS.items():
+            entries = [r["paths"][backend] for r in results]
+            got = multiprocess.load_saved_state(Path(tmp) / f"{backend}.npz")
+            for name, g, r in leaves(refs[label], refs[label]):
+                same_schedule(f"{label} process 0's gathered checkpoint {name}",
+                              torch.from_numpy(got[name.replace(".", "/")]), g, "the thread grid")
+            probes = [(e["finite_probe"], e["finite_probe_detects"]) for e in entries]
+            log("check", (
+                f"{label} probe over {MP_PROCESSES} processes, healthy / one NaN in the last: {probes} "
+                f"({'ok' if all(a and b for a, b in probes) else 'FAIL'})"
+            ))
+            if not all(a and b for a, b in probes):
+                raise AssertionError(f"{label}: the probe over processes failed: {probes}")
+            log("check", f"{label} checkpoint: {entries[0]['checkpoint']}, max_abs_diff {entries[0]['checkpoint_max_abs_error']:.3e}")
+            counts[label] = dict.fromkeys(cc.KERNELS, 0)
+            for e in entries:
+                for kernel, n in e["launches"].items():
+                    counts[label][kernel] += n
+            log("slice", f"{label}: {MP_STEPS} steps on {MP_PROCESSES} processes, launches (all processes): {counts[label]}")
+            missing = [k for k in PATH_KERNELS[label] if counts[label][k] == 0]
+            if missing:
+                raise AssertionError(f"kernels not launched on the {label} path: {missing}")
+            ms = entries[0]["ms_per_step"]
+            slowest = [max(e["ms_per_step"][i] for e in entries) for i in range(MP_REPS)]
+            report(f"multiprocess_16m: config 5 step, {MP_PROCESSES} processes {backend} ({N16}x{N16}), process 0",
+                   ms, N16 * N16, card)
+            rounds = ", ".join(f"{e['exchange_ms_per_round']:.3f}" for e in entries)
+            log("time", (
+                f"{label}: slowest process a step {', '.join(f'{m:.3f}' for m in slowest)} ms; host-staged "
+                f"exchange round (5 planes, h = 16, x then y) {rounds} ms by process; steps "
+                f"{entries[0]['run_s']:.2f} s, gather {entries[0]['gather_s']:.2f} s; process 0 profiled "
+                f"step: {entries[0].get('profile')} on {card}"
+            ))
+    mp_turns(device, card, "after the processes")
+
+    # The JAX worker's paths at 16^2: 2 processes x 2 ranks.
+    results = multiprocess.launch(2, 2, paths=tuple(MP_SMALL), n=16, steps=2, n_subcycles=10, device="cuda",
+                                  timeout=600)
+    for path, kernels in MP_SMALL.items():
+        entries = [r["paths"][path] for r in results]
+        e = entries[0]
+        for ref in ("single", "threads"):
+            ok = e[f"{ref}_max_rel_error"] <= TOL_SAME_SCHEDULE
+            log("check", (
+                f"multiprocess 16^2 {path} ({e['schedule']}, 2 processes x 2 ranks) vs the "
+                f"{'single domain' if ref == 'single' else 'thread grid'}: max_abs_diff "
+                f"{e[f'{ref}_max_abs_error']:.3e}, relative {e[f'{ref}_max_rel_error']:.3e} (expected 0, fail above "
+                f"{TOL_SAME_SCHEDULE:g}) {'ok' if ok else 'FAIL'}"
+            ))
+            if not ok:
+                raise AssertionError(f"multiprocess 16^2 {path} differs from the {ref} run")
+        launches = {}
+        for entry in entries:
+            for kernel, n in entry["launches"].items():
+                launches[kernel] = launches.get(kernel, 0) + n
+        probes = [(x["finite_probe"], x["finite_probe_detects"]) for x in entries]
+        log("slice", f"multiprocess 16^2 {path}: launches {launches}, probes {probes}, checkpoint {e['checkpoint']}")
+        missing = [k for k in kernels if not launches.get(k)]
+        if missing or not all(a and b for a, b in probes):
+            raise AssertionError(f"multiprocess 16^2 {path}: kernels not launched {missing} or probes {probes}")
+    return counts
 
 
 # -- the roofline path: K8's chain kernel and the measured ceilings -------------
@@ -5676,6 +5839,13 @@ def time_grid_ho(device, card: str) -> None:
         blocks = blocks_of(sharded, state, phys, dyn)
         profile(f"{path} coupled step, 2x2 blocked h={model.mevp.block_halo} ({n}x{n})",
                 lambda: sharded.run_blocks(*blocks, DT, 1), n_steps=2)
+        if path in HO_GRID_TIMED:
+            # ho_tiled's plain version on seeded planes of the widened block's size.
+            wide = model.mesh.nx + 2 * model.mevp.block_halo
+            m, carry, consts, _, _ = ho_inputs(wide, wide, device, SEED)
+            plain = time_ms(lambda: mevp_ho.ho_subcycles_reference(m.mevp, carry, consts, DT, TILED_SUBCYCLES), 1)
+            log("time", f"{path}: plain HO subcycles ({TILED_SUBCYCLES}) at the widened block's {wide}^2: {plain:.4f} ms")
+            del m, carry, consts
         del single, model, sharded, state, fns, runs, blocks
 
 
@@ -5828,6 +5998,13 @@ def check_grid_ho_rdma(device) -> tuple:
             register_ho_band_form(rows[path], captured, errs["rdma_band"])
         if path == "ho_coupled_1m_spherical_spmd_rdma":
             HO_STAGE_TIMED["x"] = captured[0][1]
+        if n == N16:  # the 16M band's plain version, once (seconds a pair)
+            local, src, consts_w, state0 = captured[0]
+            plain = time_ms(lambda: rdma.rdma_band_reference(local, src, 0, consts_w, DT, src.h, state0.clone()), 1)
+            log("time", (
+                f"{path}: plain rdma_band HO (metric) on rank 0's x bands of a {src.own[0].shape[0]}x"
+                f"{src.own[0].shape[1]} block, h = {src.h}: {plain:.4f} ms a pair"
+            ))
         del captured
         t3 = time.perf_counter()
         # N5_STEPS steps from zeroed launch counts; at 16M the one step above.
@@ -6828,6 +7005,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     phase(time_momentum_forms, device, smi)
     phase(time_ho, device, smi)
     phase(time_multihost, device, smi)
+    counts.update(phase(check_multiprocess, device, smi))
     phase(time_grid_forms, device, smi)
     phase(time_grid_ho, device, smi)
     phase(time_grid_ho_rdma, device, smi)

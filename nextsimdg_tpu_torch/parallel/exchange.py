@@ -9,9 +9,10 @@ device; several or all of them may share one card, which NCCL and
 ``torch.distributed`` cannot do (neither puts two ranks on one GPU).
 
 Each rank talks to the grid through its ``RankExchange``, whose interface
-is kept narrow so that a ``torch.distributed`` implementation can replace
-this one: per axis (``RankExchange.axes``), ``start`` posts a strip to the
--1 and/or the +1 neighbour and ``wait`` returns the neighbours' strips
+is kept narrow so that a ring spanning processes
+(``parallel.process_exchange.ProcessRing``, over ``torch.distributed``)
+implements the same one: per axis (``RankExchange.axes``), ``start`` posts
+a strip to the -1 and/or the +1 neighbour and ``wait`` returns the neighbours' strips
 (zeros at a closed global wall); ``max`` reduces a small tensor over all
 ranks and returns it on the host. An axis of the grid is closed or
 periodic (``InProcessRing.periodic``, the global mesh's axes): on a
@@ -61,10 +62,12 @@ class _Posted:
 class InProcessRing:
     """The shared mailbox of the ranks of one grid.
 
-    ``shape`` = (px, py) ranks; ``devices`` = one torch.device per rank, in
-    row-major rank order (rank = ix * py + iy). ``periodic``: (x, y), whether
-    each axis is a ring; closed until ``RankGrid.periodic`` sets it. On CUDA
-    devices each rank gets its own compute and copy streams.
+    ``shape`` = (px, py) ranks; ``devices`` = one torch.device per rank
+    this process holds, in row-major rank order (rank = ix * py + iy);
+    ``local``: the ranks this process holds (default: all, the grid lives
+    in this process). ``periodic``: (x, y), whether each axis is a ring;
+    closed until ``RankGrid.periodic`` sets it. On CUDA devices each rank
+    gets its own compute and copy streams.
 
     A strip is posted under the key (receiving rank, axis, side, sequence
     number), side being the edge it arrives at: on a ring of two ranks both
@@ -72,24 +75,44 @@ class InProcessRing:
     apart by their sides.
     """
 
-    def __init__(self, shape, devices, timeout: float = WAIT_TIMEOUT) -> None:
+    def __init__(self, shape, devices, timeout: float = WAIT_TIMEOUT, local=None) -> None:
         self.shape = (int(shape[0]), int(shape[1]))
         self.periodic = (False, False)
         self.n_ranks = self.shape[0] * self.shape[1]
+        local = list(range(self.n_ranks)) if local is None else [int(r) for r in local]
         self.devices = [torch.device(d) for d in devices]
-        if len(self.devices) != self.n_ranks:
-            raise ValueError(f"{self.n_ranks} ranks need {self.n_ranks} devices, got {len(devices)}")
+        if len(self.devices) != len(local):
+            raise ValueError(f"{len(local)} ranks need {len(local)} devices, got {len(devices)}")
         self.timeout = float(timeout)
         self._cond = threading.Condition()
         self._mail = {}
-        self._barrier = threading.Barrier(self.n_ranks, timeout=self.timeout)
-        self._reduce_in = [None] * self.n_ranks
+        self._barrier = threading.Barrier(len(local), timeout=self.timeout)
+        self._reduce_in = [None] * len(local)
         self._reduce_out = None
         self._failure = None
         # Each run of the grid (run_ranks) is a generation; a rank thread
         # left behind by an earlier run raises at its next exchange.
         self._generation = 0
-        self.ranks = [RankExchange(self, r) for r in range(self.n_ranks)]
+        self.ranks = [RankExchange(self, r, i) for i, r in enumerate(local)]
+
+    # -- where the ranks live --------------------------------------------------
+    #: Whether ranks of the grid live in other processes.
+    spans_processes = False
+
+    def holds(self, rank: int) -> bool:
+        """Whether this process holds ``rank`` (every rank, in process)."""
+        return True
+
+    def _start_remote(self, rank, axis, seq, to_prev, to_next, event) -> None:
+        """Post the strips of a ``start`` that cross to another process, and
+        their answers' receives (none: every neighbour is in process)."""
+
+    def _end_remote(self, rank, axis, seq) -> None:
+        """Release what a ``wait`` sent to other processes (nothing here)."""
+
+    def _reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The max over the processes of this process's reduction (itself)."""
+        return t
 
     # -- failure -------------------------------------------------------------
     def abort(self, exc: BaseException) -> None:
@@ -150,14 +173,17 @@ class InProcessRing:
 
 
 class RankExchange:
-    """One rank's exchange: its coordinates in the grid and its collectives."""
+    """One rank's exchange: its coordinates in the grid and its collectives.
+    ``rank`` is its index in the grid, ``local`` its index among the ranks
+    of its process (the same where the grid lives in one process)."""
 
-    def __init__(self, ring: InProcessRing, rank: int) -> None:
+    def __init__(self, ring: InProcessRing, rank: int, local: int = None) -> None:
         self.ring = ring
         self.rank = rank
+        self.local = rank if local is None else local
         self.shape = ring.shape
         self.coords = divmod(rank, ring.shape[1])
-        self.device = ring.devices[rank]
+        self.device = ring.devices[self.local]
         self.axes = (AxisExchange(self, 0), AxisExchange(self, 1))
         self._streams = None
         self._in_flight = []
@@ -222,18 +248,19 @@ class RankExchange:
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max of ``t`` over all ranks, on the host (one
-        device-to-host copy for the whole grid, made by rank 0)."""
+        device-to-host copy for the ranks of a process, made by its first
+        rank; across processes one all-reduce of that host copy)."""
         ring = self.ring
         ring._check()
-        ring._reduce_in[self.rank] = _Posted(t, self._record())
+        ring._reduce_in[self.local] = _Posted(t, self._record())
         ring._barrier_wait()
-        if self.rank == 0:
+        if self.local == 0:
             parts = []
             for posted in ring._reduce_in:
                 if posted.event is not None:
                     torch.cuda.current_stream(self.device).wait_event(posted.event)
                 parts.append(posted.strip.to(self.device))
-            ring._reduce_out = torch.stack(parts).amax(dim=0).cpu()
+            ring._reduce_out = ring._reduce_max(torch.stack(parts).amax(dim=0).cpu())
         ring._barrier_wait()
         return ring._reduce_out
 
@@ -271,9 +298,10 @@ class AxisExchange:
         seq = counts[self.axis]
         counts[self.axis] += 1
         event = rank._record()
+        ring._start_remote(rank, self.axis, seq, to_prev, to_next, event)
         for strip, step, side in ((to_prev, -1, "from_next"), (to_next, 1, "from_prev")):
             dst = rank.neighbour(self.axis, step)
-            if strip is not None and dst is not None:
+            if strip is not None and dst is not None and ring.holds(dst):
                 ring._post((dst, self.axis, side, seq), _Posted(strip, event))
         return seq, to_prev, to_next
 
@@ -288,19 +316,24 @@ class AxisExchange:
         # What arrives from the -1 side has the shape of what this rank sends
         # to the +1 side, and the other way round.
         for like, step, side in ((to_next, -1, "from_prev"), (to_prev, 1, "from_next")):
+            src = rank.neighbour(self.axis, step)
             if like is None:
                 out.append(None)
-            elif rank.neighbour(self.axis, step) is None:
+            elif src is None:
                 out.append(torch.zeros_like(like))
-            else:
+            elif ring.holds(src):
                 out.append(rank._receive(ring._take((rank.rank, self.axis, side, seq))))
+            else:
+                out.append(ring._receive_remote(rank, (rank.rank, self.axis, side, seq)))
+        ring._end_remote(rank, self.axis, seq)
         return tuple(out)
 
 
 def run_ranks(ring: InProcessRing, fn):
-    """Run ``fn(rank_exchange)`` for every rank of ``ring``, each in its own
-    thread (on CUDA with the rank's device current and its compute stream
-    as the current stream), and return the results in rank order.
+    """Run ``fn(rank_exchange)`` for every rank of ``ring`` that this
+    process holds, each in its own thread (on CUDA with the rank's device
+    current and its compute stream as the current stream), and return the
+    results in rank order (``RankExchange.local``).
 
     On CUDA each rank's compute stream first waits for the work already
     issued on the caller's current stream, and the caller's stream waits
@@ -321,24 +354,24 @@ def run_ranks(ring: InProcessRing, fn):
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(rank.device))
             starts[rank.device] = event
-    results = [None] * ring.n_ranks
-    errors = [None] * ring.n_ranks
-    ends = [None] * ring.n_ranks
+    results = [None] * len(ring.ranks)
+    errors = [None] * len(ring.ranks)
+    ends = [None] * len(ring.ranks)
 
     def body(rank: RankExchange) -> None:
         try:
             torch.set_num_threads(n_threads)
             streams = rank.streams()
             if streams is None:
-                results[rank.rank] = fn(rank)
+                results[rank.local] = fn(rank)
                 return
             torch.cuda.set_device(rank.device)
             streams[0].wait_event(starts[rank.device])
             with torch.cuda.stream(streams[0]):
-                results[rank.rank] = fn(rank)
-                ends[rank.rank] = rank._record()
+                results[rank.local] = fn(rank)
+                ends[rank.local] = rank._record()
         except BaseException as exc:  # noqa: BLE001 - handed to the caller below
-            errors[rank.rank] = exc
+            errors[rank.local] = exc
             if not ring._stale():  # a rank left behind must not abort a later run
                 ring.abort(exc)
 

@@ -3,7 +3,9 @@
 Counterpart of ``nextsimdg_tpu/parallel/sharding.py``. There a field is
 sharded over a 2-D ``jax.sharding.Mesh`` of devices; here a ``RankGrid``
 holds P x Q rank blocks in one process (``parallel.exchange``), each on
-its device, several or all of them possibly on one card. Every field keeps
+its device, several or all of them possibly on one card, or spreads them
+over the processes of a ``torch.distributed`` group, a few ranks each
+(``ranks_per_process``, ``parallel.process_exchange``). Every field keeps
 its layout ``(..., nx, ny)``; rank (ix, iy) owns the block
 ``[ix * nx / P, (ix + 1) * nx / P) x [iy * ny / Q, (iy + 1) * ny / Q)``.
 """
@@ -11,7 +13,6 @@ its layout ``(..., nx, ny)``; rank (ix, iy) owns the block
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
@@ -36,7 +37,7 @@ def pick_mesh_shape(n_ranks: int, nx: int, ny: int):
 
 
 class RankGrid:
-    """P x Q rank blocks of one process.
+    """P x Q rank blocks of one process, or of the processes of a group.
 
     ``devices``: one device for all ranks (a ``torch.device`` or a string),
     or one per rank in row-major order (rank = ix * py + iy). On CUDA each
@@ -44,17 +45,31 @@ class RankGrid:
     ``periodic``: (x, y), whether each axis is a ring of ranks (the last
     rank's +1 neighbour is the first); closed until set, and set once:
     ``build_sharded_coupled_model`` sets it to the global mesh's axes.
+
+    ``ranks_per_process``: spread the grid over the processes of the
+    initialized default ``torch.distributed`` group
+    (``parallel.distributed.initialize``), process p holding ranks p K to
+    p K + K - 1 (``parallel.process_exchange.ProcessRing``); ``devices``
+    are then those of this process's ranks. ``ranks`` and the blocks of
+    ``split`` are this process's; ``gather`` and ``gather_tree`` are
+    collectives that hand process 0 the global value and the others None.
     """
 
-    def __init__(self, px: int, py: int, devices, timeout: float = None) -> None:
+    def __init__(self, px: int, py: int, devices, timeout: float = None,
+                 ranks_per_process: int = None) -> None:
         if px < 1 or py < 1:
             raise ValueError(f"a rank grid needs at least 1 x 1 ranks, got {px} x {py}")
-        n = px * py
+        n = px * py if ranks_per_process is None else int(ranks_per_process)
         if isinstance(devices, (str, torch.device)):
             devices = [devices] * n
         kwargs = {} if timeout is None else {"timeout": timeout}
         self.shape = (int(px), int(py))
-        self.ring = InProcessRing(self.shape, list(devices), **kwargs)
+        if ranks_per_process is None:
+            self.ring = InProcessRing(self.shape, list(devices), **kwargs)
+        else:
+            from .process_exchange import ProcessRing
+
+            self.ring = ProcessRing(self.shape, list(devices), ranks_per_process, **kwargs)
         self._axes_set = False
 
     @property
@@ -100,7 +115,15 @@ class RankGrid:
 
     def gather(self, blocks, device=None) -> torch.Tensor:
         """The global tensor of the rank blocks, on ``device`` (default: rank
-        0's)."""
+        0's). Across processes a collective: process 0 gets the tensor, the
+        others None."""
+        if self.ring.spans_processes:
+            blocks = self.ring.gather_blocks(blocks)
+            if blocks is None:
+                return None
+        return self._assemble(blocks, device)
+
+    def _assemble(self, blocks, device=None) -> torch.Tensor:
         device = self.ranks[0].device if device is None else torch.device(device)
         px, py = self.shape
         rows = [
@@ -111,8 +134,8 @@ class RankGrid:
 
     def split_tree(self, tree):
         """``split`` of every tensor of a dataclass tree (a ``CoupledState``,
-        a forcing): one tree per rank. None stays None."""
-        n = math.prod(self.shape)
+        a forcing): one tree per rank of this process. None stays None."""
+        n = len(self.ranks)
         if tree is None:
             return [None] * n
         if isinstance(tree, torch.Tensor):
@@ -124,13 +147,21 @@ class RankGrid:
         ]
 
     def gather_tree(self, trees, device=None):
-        """The inverse of ``split_tree``."""
+        """The inverse of ``split_tree``. Across processes one collective of
+        every leaf at once: process 0 gets the tree, the others None."""
+        if self.ring.spans_processes:
+            trees = self.ring.gather_blocks(trees)
+            if trees is None:
+                return None
+        return self._assemble_tree(trees, device)
+
+    def _assemble_tree(self, trees, device=None):
         first = trees[0]
         if first is None:
             return None
         if isinstance(first, torch.Tensor):
-            return self.gather(trees, device)
+            return self._assemble(trees, device)
         return dataclasses.replace(first, **{
-            f.name: self.gather_tree([getattr(t, f.name) for t in trees], device)
+            f.name: self._assemble_tree([getattr(t, f.name) for t in trees], device)
             for f in dataclasses.fields(first)
         })

@@ -26,8 +26,10 @@ class ShardedCoupledModel:
     ``sharded_step``: ``sharded(state, phys_forcing, dyn_forcing, dt,
     do_dynamics=True, do_thermo=True)`` takes and returns global-shaped
     state and forcing (split over the ranks and gathered back on the
-    device of ``state``). ``run_blocks`` keeps the rank blocks resident
-    between steps, for the timed path. On CUDA the ranks' streams start
+    device of ``state``; on a grid across processes every process passes
+    the global state and process 0 alone gets the result, the others
+    None). ``run_blocks`` keeps the rank blocks resident between steps,
+    for the timed path. On CUDA the ranks' streams start
     after the work already issued on the caller's stream and the caller's
     stream waits for them (``exchange.run_ranks``), so no call synchronises
     the host.
@@ -49,15 +51,16 @@ class ShardedCoupledModel:
     def run_blocks(self, states, phys_forcings, dyn_forcings, dt: float, n_steps: int = 1,
                    do_dynamics: bool = True, do_thermo: bool = True):
         """``n_steps`` steps of every rank on its resident blocks (lists in
-        rank order); returns the new state blocks. Each rank runs its steps
-        in its own thread; on CUDA the caller's stream waits for them."""
+        rank order: on a grid across processes, the ranks of this process);
+        returns the new state blocks. Each rank runs its steps in its own
+        thread; on CUDA the caller's stream waits for them."""
 
         def ranks_steps(rank):
-            model = self.models[rank.rank]
-            state = states[rank.rank]
+            model = self.models[rank.local]
+            state = states[rank.local]
             for _ in range(n_steps):
                 state = model.step(
-                    state, phys_forcings[rank.rank], dyn_forcings[rank.rank], dt,
+                    state, phys_forcings[rank.local], dyn_forcings[rank.local], dt,
                     do_dynamics, do_thermo,
                 )
             return state
@@ -70,8 +73,9 @@ def build_sharded_coupled_model(global_mesh: RectMesh, rank_grid: RankGrid, degr
     """One ``CoupledModel`` per rank of ``rank_grid`` on its block of
     ``global_mesh``, and their step.
 
-    Returns ``(model, sharded)``: rank 0's model (its mesh is the local
-    block; ``model.initial_state`` builds a block) and the
+    Returns ``(model, sharded)``: the first rank's model of this process
+    (its mesh is the local block; ``model.initial_state`` builds a block;
+    ``sharded.models`` holds one a rank of this process) and the
     ``ShardedCoupledModel``, whose call is the global-shaped step.
     ``model_kwargs`` go to every rank's ``CoupledModel`` (``ocean_mask`` is
     the global mask). A uniform global mesh gives each rank a plain

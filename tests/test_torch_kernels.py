@@ -2496,3 +2496,18 @@ def test_xla_grid_step_equals_single_device_and_blocked(device, case, high_order
         for (_, g), (_, e) in zip(leaves(got), leaves(other)):
             assert_same_schedule(g, e)
 
+
+def test_host_staged_process_exchange_matches_the_thread_grid(device):
+    """Two processes of one rank each on one card, joined over gloo: strips
+    staged through pinned host buffers; the gathered state equals the
+    thread grid's, and the blocked schedule's kernels ran in each process."""
+    from nextsimdg_tpu_torch.parallel import multiprocess
+
+    results = multiprocess.launch(2, 1, paths=("blocked",), n=64, steps=2, device="cuda", backend="gloo",
+                                  timeout=600)
+    for r in results:
+        assert (r["backend"], r["host_staged"]) == ("gloo", True)
+        entry = r["paths"]["blocked"]
+        assert entry["finite_probe"] is True and entry["finite_probe_detects"] is True
+        assert entry["launches"]["mevp_tiled"] > 0 and entry["launches"]["dg1_sample_cfl"] > 0
+    assert results[0]["paths"]["blocked"]["threads_max_abs_error"] == 0.0

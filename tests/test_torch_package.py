@@ -72,6 +72,8 @@ def test_port_imports_without_jax_or_triton():
         "import nextsimdg_tpu_torch.runtime.health, nextsimdg_tpu_torch.runtime.coupled_main\n"
         "import nextsimdg_tpu_torch.io.forcing_file, nextsimdg_tpu_torch.io.era5\n"
         "import nextsimdg_tpu_torch.utils.profiling\n"
+        "import nextsimdg_tpu_torch.parallel.distributed, nextsimdg_tpu_torch.parallel.multiprocess\n"
+        "import nextsimdg_tpu_torch.parallel.process_exchange, nextsimdg_tpu_torch.benchmarks.scaling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'nextsimdg_tpu')]\n"
         "assert not bad, bad\n"
         "# Restart files need h5py, which the card machine may lack: the\n"
