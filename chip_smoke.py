@@ -21,8 +21,11 @@ CFL-adaptive transport substeps:
 
 * the headline dynamics-only step (BASELINE config 3, ``bench.py``): a
   closed 256 x 256 mesh of 2 km elements, wind (8, 2) m/s, ocean current
-  (0.02, 0) m/s, on K1's kernel schedule (``mevp_backend="pallas"``:
-  mevp_stress, mevp_velocity, dg1_sample_cfl, dg1_rk_stage);
+  (0.02, 0) m/s, on ``mevp_backend="pallas"``: fused_dynamics, the whole
+  dynamics phase in one cooperative launch with k on the card (K1 as the
+  TPU kernel runs it; phase ``check_fused`` holds it against
+  the plain phase and K1's split schedule of mevp_stress, mevp_velocity,
+  dg1_sample_cfl and dg1_rk_stage, and times the "auto" threshold);
 * the coupled thermo+dynamics step of BASELINE config 4
   (``benchmarks/run_benchmarks.py`` ``bench_coupled_1m``): a closed
   1024 x 1024 mesh of 4 km elements, initial hice 1.2, cice 0.95, hsnow
@@ -364,7 +367,7 @@ Phases, each printed on its own lines:
    version and its bound; config 5's single-device, 2 x 2 blocked and 2 x 2
    rdma steps, box_adaptive beside box and coupled_1m_aweighted beside
    coupled_1m in turns, the blocked round against the rdma round, the dynamics step
-   at h = 4, 8, 16, the spmd transport at H = 4, 8, 16, and profiles; each
+   at h = 8, 16, and profiles; each
    periodic and TVB form in turns with its closed (or untouched) instance,
    and the periodic, TVB and ring steps in turns with their closed ones;
    each HO form in turns with its closed instance, and
@@ -373,28 +376,27 @@ Phases, each printed on its own lines:
    one, with a profile of ``ho_coupled_1m_periodic``; each metric form in
    turns with its closed instance, and the HO spherical coastline step and
    the HO ring beside ``ho_coupled_1m``, with a profile of each;
-   ``coupled_1m_spherical_spmd`` and ``spherical_16m_spmd`` in chunks of 4
-   steps at h = 16 and 32 beside the single-device spherical step, with a
-   profile of the 16M grid step; each new form of rdma_band and the spmd
+   ``coupled_1m_spherical_spmd`` in chunks of 4 steps at h = 16 beside
+   the single-device spherical step, with a profile of the grid step; each
+   new form of rdma_band and the spmd
    transport_tiled in turns with the closed uniform instance on the same
-   launch; the HO grid configs in chunks of 2 steps, the two timed ones at
-   h = 16, 32 and 64 beside the single-device HO step, with a profile of
-   each; the spmd qv form of transport_tiled in turns with its CG1 form;
-   the two timed HO grid configs on rdma at h = 16 and 32 in turns with
-   blocked at h = 16, with a profile of the 1M rdma step (its HO
+   launch; the two timed HO grid configs in chunks of 2 steps at h = 16
+   beside the single-device HO step, with a profile of each; the spmd qv
+   form of transport_tiled in turns with its CG1 form; the 1M HO grid
+   config on rdma at h = 16 in turns with blocked at h = 16, with a
+   profile of its rdma step (its HO
    rdma_band's ms a launch), rdma_stage's 17-plane x launch in turns with
    one torch.stack of its strips, and each HO rdma_band form in turns
    with the closed uniform HO instance on the same band; the TVB grid's
-   runs a, c and d in chunks of 2 steps in turns with the single-device
-   step, with a profile of each, and the new forms in turns with their
+   run a in chunks of 2 steps in turns with the single-device step, with
+   a profile, and the new forms in turns with their
    closed instances (the qv TVB transport_tiled without the walls, the
    single-domain stage and limiter on the unwidened block); the four
    halo kernels at config 5's 2048^2 blocks with their bounds and plain
    versions, in turns with the copy that a block widened by one ring
-   would take in place of the strips, and the two 16M cells on xla,
-   blocked and rdma in turns, with a profile of each xla step;
-   last,
-   the profiler's device duration of K1's four kernels at 256^2 (and
+   would take in place of the strips; the fused_dynamics threshold sweep
+   and headline profile (phase check_fused); last, in one profiler
+   session, the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
    transport_tiled at 1024^2, ho_single and ho_tiled at their paths'
    shapes, rdma_stage and rdma_band on the x and y bands, beside their
@@ -420,6 +422,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -436,13 +439,14 @@ import torch
 
 from nextsimdg_tpu_torch import coupled, modules
 from nextsimdg_tpu_torch.benchmarks import mevp_large, roofline
-from nextsimdg_tpu_torch.benchmarks.common import best_ms, profiled_ms
+from nextsimdg_tpu_torch.benchmarks.common import best_ms, profiled_ms_many
 from nextsimdg_tpu_torch.config import Configurator, ConfiguredModule
 from nextsimdg_tpu_torch.coupled import CoupledModel
 from nextsimdg_tpu_torch.dynamics import MEVPParams, RectMesh, SphericalMesh, synthetic_coastline
 from nextsimdg_tpu_torch.dynamics import mevp_ho
 from nextsimdg_tpu_torch.dynamics.dgbasis import dg_basis
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import fused_dynamics_cuda as fd
 from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hsc
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as htc
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
@@ -492,6 +496,7 @@ REPLACES = {
     "rdma_stage": "nextsimdg_tpu/dynamics/kernels/mevp_rdma.py:61",
     "rdma_band": "nextsimdg_tpu/dynamics/kernels/mevp_rdma.py:61",
     "chain": "benchmarks/roofline.py:154",
+    "fused_dynamics": K1,
 }
 SOURCES = {
     "mevp_stress": "nextsimdg_tpu_torch/csrc/mevp.cu",
@@ -507,9 +512,10 @@ SOURCES = {
     "rdma_stage": "nextsimdg_tpu_torch/csrc/mevp_rdma.cu",
     "rdma_band": "nextsimdg_tpu_torch/csrc/mevp_rdma.cu",
     "chain": "nextsimdg_tpu_torch/csrc/roofline.cu",
+    "fused_dynamics": "nextsimdg_tpu_torch/csrc/fused_dynamics.cu",
 }
 PATH_KERNELS = {
-    "headline": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    "headline": ("fused_dynamics",),
     "config4": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "spherical": ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
     "ho_coupled_1m": ("ho_tiled", "transport_tiled"),
@@ -543,6 +549,9 @@ PATH_KERNELS = {
     "multihost_aweighted": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
 }
 VELOCITY = ("u", "v", "s11", "s22", "s12")
+#: K1's split schedule as a step's phase (on a uniform mesh "pallas" takes
+#: fused_dynamics where it holds).
+K1_SPLIT = functools.partial(cc.dynamics_phase, mevp="pallas", transport="xla")
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -910,6 +919,8 @@ def ptxas_report(text: str):
                 kernel += "<" + ("16-byte loads" if args[0][1] == "4" else "4-byte loads") + (
                     ", 3x3 points (dG2)" if args[1][1] == "9" else ", 2x2 points (dG0, dG1)") + (
                     ", periodic" if args[3:] and args[3][1] == "1" else "") + ">"
+            elif kernel == "fused_dynamics_kernel":  # resident consts, the coastline form
+                kernel += f"<{args[0][1]} const planes in shared memory{', face masks' if args[1][1] == '1' else ''}>"
             elif kernel == "dg1_limit_kernel":  # degree, metric tolerance planes
                 kernel += f"<dG{args[0][1]}, {'metric' if args[1][1] == '1' else 'uniform'}>"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
@@ -1618,6 +1629,192 @@ def check_slice(device) -> dict:
         compare_step(f"{path}.step", model.step(state, phys, dyn, DT), plain_step(model, state, phys, dyn))
         counts[path] = drive_path(path, model, state, phys, dyn, True)
     return counts
+
+
+# -- K1 as one launch: fused_dynamics (phase check_fused) --------------------------
+#: The squares of the "auto" threshold's sweep, and the largest the kernel
+#: holds on the card (added at run time); the headline's steps whose k is
+#: held to the host's.
+FUSED_SWEEP = (64, 128, 256)
+FUSED_STEPS = 20
+#: Element width of the checks' inputs: 250 m, so that the relaxed velocity
+#: needs k > 1 substeps.
+FUSED_DX = 250.0
+
+
+def fused_inputs(device, n: int, masked: bool, auto: bool, seed: int = SEED + 40):
+    """(model, carry, consts, psi, faces): seeded float32 inputs on an n^2
+    closed mesh of FUSED_DX elements, 100 subcycles, a coastline with
+    ``masked``, with ``auto`` off k = 3."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    shape = (n, n)
+    model = CoupledModel(
+        RectMesh(n, n, FUSED_DX, FUSED_DX), n_subcycles=N_SUBCYCLES,
+        ocean_mask=synthetic_coastline(n, n) if masked else None,
+        auto_substeps=auto, transport_substeps=1 if auto else 3,
+    )
+    carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
+    forcing = DynamicsForcing(
+        u_atm=t(rng.normal(8.0, 2.0, shape)), v_atm=t(rng.normal(2.0, 2.0, shape)),
+        u_ocean=t(rng.normal(0.0, 0.05, shape)), v_ocean=t(rng.normal(0.0, 0.05, shape)),
+    )
+    h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))]))
+    return model, carry, consts, psi, model.face_masks(device=device, dtype=torch.float32)
+
+
+def fused_work(n: int, k: int, masked: bool = False) -> tuple:
+    """(bytes, operations) of one fused_dynamics call at n^2 with k
+    substeps: the 5 state, 7 const and 9 tracer planes (and 2 masks) read
+    once, 5 + 9 written; the subcycles' stress and velocity halves, the
+    CFL sampling and 2k stages of dg1_stage_cell (the velocity sampled in
+    full, every face point of each tracer) an element."""
+    planes = 5 + 7 + 9 + (2 if masked else 0) + 5 + 9
+    ops = N_SUBCYCLES * (OPS["stress"] + OPS["velocity"]) + OPS["cfl"] + 2 * k * OPS["stage_cell"]
+    return planes * 4 * n * n, ops * n * n
+
+
+def check_fused(device, card: str) -> Row:
+    """Phase check_fused: K1 as one launch (fused_dynamics) at 256^2.
+
+    1. The kernel against the plain phase (1e-3 on the mEVP planes, 1e-5 on
+       the tracers) and K1's split schedule (expected 0, failure above
+       1e-6), with and without the coastline, auto_substeps on (k > 1) and
+       off (k = 3); its speeds equal dg1_sample_cfl's and its k the host's.
+    2. The kernel's k arithmetic against the host's on every ceil boundary.
+    3. FUSED_STEPS bounded headline steps, k equal to the host's at each.
+    4. Warmed-up headline steps under set_sync_debug_mode("error").
+    5. The kernel's times (back to back, its plain phase), the "auto"
+       threshold's sweep in turns (fused, tiled, K1's split schedule, the
+       dynamics step at FUSED_SWEEP and the largest square held), and a
+       profile of the fused headline step.
+    Returns the kernel's Row."""
+    sms = cc.sm_count(device)
+    largest = fd.largest_square(sms)
+    for masked in (False, True):
+        config = fd.tiling(N, N, sms, masked)
+        log("build", (
+            f"fused_dynamics at {N}x{N}{' with the coastline' if masked else ''}: {config.tiles[0]}x{config.tiles[1]} "
+            f"tiles of {config.tile}, {config.threads} threads, {config.shared_bytes} B shared, "
+            f"{config.resident} const planes resident, {config.exchange_words * 8} B of exchange words; "
+            f"{fd.max_blocks(device, config)} blocks resident at once; holds squares up to {largest}^2 "
+            f"({fd.tiling(largest, largest, sms, masked).resident} const planes resident there)"
+        ))
+    errs = [0.0]
+    for masked in (False, True):
+        for auto in (True, False):
+            tag = f"fused_dynamics {N}x{N}{' coastline' if masked else ''} {'auto' if auto else 'k = 3'}"
+            model, carry, consts, psi, faces = fused_inputs(device, N, masked, auto)
+            cc.reset_launches()
+            got_carry, got_tr, info = fd.fused_dynamics_single(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
+            torch.cuda.synchronize()
+            if cc.launches["fused_dynamics"] != 1 or sum(cc.launches.values()) != 1:
+                raise AssertionError(f"{tag}: launches {dict(cc.launches)}")
+            split = K1_SPLIT(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
+            ref = cc.fused_dynamics_reference(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
+            for name, g, sp, r in zip(VELOCITY, got_carry, split[0], ref[0]):
+                same_schedule(f"{tag}.{name}", g, sp)
+                errs.append(compare(f"{tag}.{name} vs plain", g, r, TOL_STEP_MEVP))
+            same_schedule(f"{tag}.tracers", got_tr, split[1])
+            errs.append(compare(f"{tag}.tracers vs plain", got_tr, ref[1], TOL_STEP_TRACER))
+            speeds = cc.dg1_sample_cfl(model.transport, split[0][0], split[0][1])
+            compare(f"{tag}.speeds vs dg1_sample_cfl", info[:2], speeds, 0.0)
+            k, host_k = int(info[2]), (cc._k_of_speeds(model, speeds, DT) if auto else 3)
+            if k != host_k or k < 2:
+                raise AssertionError(f"{tag}: k = {k}, the host's {host_k} (k > 1 expected)")
+            log("check", f"{tag}: k = {k} on the card and on the host")
+
+    mesh = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N)
+    speeds = fd.ceil_boundary_speeds(DT, mesh)
+    for k_floor in (1, 3):
+        got = fd.substeps_on_card(torch.tensor(speeds, device=device), DT, mesh, k_floor=k_floor).cpu().numpy()
+        host = np.array([int(cc.substeps_from_speeds(torch.tensor(x), torch.tensor(y), DT, mesh, 1, k_floor=k_floor))
+                         for x, y in speeds])
+        plain = fd.substeps_plain(speeds[:, 0], speeds[:, 1], DT, mesh, k_floor=k_floor)
+        if not (np.array_equal(got, host) and np.array_equal(got, plain)):
+            raise AssertionError(f"fused_substeps: {int((got != host).sum())} of {len(speeds)} k differ from the host's")
+        log("check", (
+            f"fused_substeps (k_floor {k_floor}): {len(speeds)} speed pairs at every ceil boundary up to k "
+            f"{fd.K_MAX + 6}: the card's k equals the host's and the plain mirror's on all"
+        ))
+
+    model, state, forcing = bench_model(device)
+    if model.schedule(device) != ("fused", "xla"):
+        raise AssertionError(f"the headline does not run fused_dynamics: {model.schedule(device)}")
+    infos = []
+
+    def recorded(model, carry, tracers, consts, dt, n, faces):
+        planes, out, info = fd.fused_dynamics_single(model, carry, tracers, consts, dt, n, faces)
+        infos.append((info, planes[0], planes[1]))
+        return planes, out
+
+    out = state
+    for _ in range(FUSED_STEPS):
+        out = model.step_dynamics(out, forcing, DT, phase=recorded)
+    ks = []
+    for info, u, v in infos:
+        speeds = cc.dg1_sample_cfl(model.transport, u, v)
+        if not torch.equal(info[:2], speeds) or int(info[2]) != cc._k_of_speeds(model, speeds, DT):
+            raise AssertionError(f"headline step {len(ks)}: the card's (speeds, k) {info.tolist()} differ from the host's")
+        ks.append(int(info[2]))
+    check_bounded(f"headline: {FUSED_STEPS} steps on fused_dynamics", out, state)
+    log("check", f"headline: k on the card = the host's at each of {FUSED_STEPS} steps: {ks}")
+
+    step = lambda: model.step(state, None, forcing, DT, do_thermo=False)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("check", "headline: 3 warmed-up steps on fused_dynamics under set_sync_debug_mode('error'): no host sync")
+
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(state.velocity, state.hice[0], torch.clamp(state.cice[0], 0.0, 1.0), forcing,
+                                    mask, DT)
+    carry = (state.velocity.u, state.velocity.v, state.velocity.s11, state.velocity.s22, state.velocity.s12)
+    tracers = torch.stack([state.hice, state.cice, state.hsnow], dim=1)
+    launch = lambda keep=consts: fd.fused_dynamics_single(model, carry, tracers, consts, DT, N_SUBCYCLES)
+    k = int(launch()[2][2])
+    plain = lambda: cc.fused_dynamics_reference(model, carry, tracers, consts, DT, N_SUBCYCLES)
+    runs = time_in_turns({"kernel": launch, "plain": plain}, {"kernel": 50, "plain": None})
+    DEVICE_PROBES[f"fused_dynamics {N}^2"] = launch
+    work = fused_work(N, k)
+    row = Row(max(errs), sum(runs["kernel"]) / len(runs["kernel"]), runs["plain"][0], *work)
+    log("time", (
+        f"fused_dynamics: kernel {', '.join(f'{m:.5f}' for m in runs['kernel'])} ms per call back to back "
+        f"(the headline's first step, k = {k}), plain {row.plain_ms:.3f} ms, bound {bound(*work)[0]:.5f} ms "
+        f"({bound(*work)[1]}) at {N}x{N} on {card}"
+    ))
+
+    for n in (*FUSED_SWEEP, largest):
+        m, st, f = bench_model(device, n)
+        fns = {
+            "fused": lambda: m.step_dynamics(st, f, DT, phase=functools.partial(
+                cc.dynamics_phase, mevp="fused", transport="xla")),
+            "tiled": lambda: m.step_dynamics(st, f, DT, phase=functools.partial(
+                cc.dynamics_phase, mevp="pallas-tiled", transport="tiled")),
+            "K1 split": lambda: m.step_dynamics(st, f, DT, phase=K1_SPLIT),
+        }
+        runs = time_in_turns(fns, dict.fromkeys(fns, 5))
+        means = {name: sum(ms) / len(ms) for name, ms in runs.items()}
+        for name, ms in runs.items():
+            report(f"threshold sweep: the dynamics step on {name} ({n}x{n})", ms, n * n, card)
+        fastest = min(means, key=means.get)
+        log("time", (
+            f"threshold sweep {n}x{n}: fastest {fastest}; 'auto' runs {m.schedule(device)[0]} there "
+            f"(FUSED_MAX_ELEMENTS {coupled.FUSED_MAX_ELEMENTS})"
+        ))
+        del m, st, f, fns
+    profile(f"headline step on fused_dynamics ({N}x{N})", step, watch="fused_dynamics")
+    return row
 
 
 #: BASELINE config 2 (``run_benchmarks.py`` ``bench_advection``): 128^2
@@ -2702,7 +2899,8 @@ def check_multihost(device) -> tuple:
 def time_multihost(device, card: str) -> None:
     """Phase 5, config 5: the single-device 4096^2 step, the 2 x 2 blocked
     and rdma steps on resident blocks; the blocked round against the rdma
-    round; an h sweep of the dynamics step; profiles. One card shows what
+    round; an h sweep of the dynamics step (h = 8, 16); profiles. One card
+    shows what
     the exchange costs, not how the step scales over cards."""
     model1, state, phys, dyn = config5_model(device)
     sharded = {name: sharded_model(device, mevp_backend=name)[1] for name in ("auto", "rdma")}
@@ -2734,9 +2932,9 @@ def time_multihost(device, card: str) -> None:
             f"{sum(ms) / 2:.4f} ms (runs {', '.join(f'{m:.4f}' for m in ms)}) on {card}"
         ))
 
-    # The h sweep: the dynamics step (no physics) at h = 4, 8, 16.
+    # The h sweep: the dynamics step (no physics) at h = 8, 16.
     fns = {}
-    for h in (4, 8, 16):
+    for h in (8, 16):
         for name in ("auto", "rdma"):
             s = sharded_model(device, mevp_backend=name, mevp_block_halo=h)[1]
             b = blocks_of(s, state, phys, dyn)
@@ -2747,35 +2945,10 @@ def time_multihost(device, card: str) -> None:
     for name, ms in runs.items():
         report(f"multihost_16m dynamics step, 2x2 {name} ({N16}x{N16})", ms, N16 * N16, card)
 
-    # The spmd transport's exchange halo H, at k = 1 and 3: on every rank the
-    # velocity widened by H, then one call of transport_substeps_tiled_spmd,
-    # on the state after a step.
-    s = sharded["auto"]
-    stepped = s.run_blocks(*blocks["auto"], DT, 1)
-
-    def spmd_transport(rank, k, H):
-        model, st = s.models[rank.rank], stepped[rank.rank]
-        return tt.transport_substeps_tiled_spmd(
-            model, torch.stack([st.hice, st.cice, st.hsnow], dim=1),
-            tt.widen_velocity(model, st.velocity.u, st.velocity.v, H), DT / k, k, None,
-        )
-
-    fns = {}
-    for k in (1, 3):
-        for H in (4, 8, 16):
-            fns[f"k={k} H={H}"] = lambda k=k, H=H: run_ranks(
-                s.grid.ring, lambda rank: spmd_transport(rank, k, H)
-            )
-    for name, ms in time_in_turns(fns, dict.fromkeys(fns, 2)).items():
-        log("time", (
-            f"multihost_16m spmd transport on 4 ranks, {name} (config: "
-            f"{tt.transport_tiled_spmd_config(s.models[0])}): {sum(ms) / len(ms):.4f} ms "
-            f"(runs {', '.join(f'{m:.4f}' for m in ms)}) on {card}"
-        ))
     for name in ("auto", "rdma"):
         profile(
             f"multihost_16m coupled step, 2x2 {'blocked' if name == 'auto' else 'rdma'} ({N16}x{N16})",
-            lambda: sharded[name].run_blocks(*blocks[name], DT, 1), n_steps=2,
+            lambda: sharded[name].run_blocks(*blocks[name], DT, 1), n_steps=1,
         )
     profile(f"multihost_16m coupled step, single-device ({N16}x{N16})", lambda: model1.step(state, phys, dyn, DT))
 
@@ -3392,6 +3565,14 @@ def bare_ms(setup, n: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+def box_kernels(device) -> tuple:
+    """The kernels of run/box.cfg's step on this card: 256^2 closed, "auto"
+    (fused_dynamics where it holds the grid below FUSED_MAX_ELEMENTS, else
+    the tiled schedule)."""
+    model = CoupledModel(RectMesh(N, N, dx=2000.0, dy=2000.0))
+    return SCHEDULE_KERNELS[model.schedule(device)]
+
+
 def cli_expect(path: str, run: CliRun, kernels: tuple) -> None:
     """The run's launches: every kernel of its path launched."""
     PATH_KERNELS[path] = kernels
@@ -3527,13 +3708,14 @@ def check_cli(device, smi: str) -> dict:
     cut = ["--model.stop=7200"]
     grid = ["--parallel.mode=shardmap", "--parallel.mesh_shape=2x2"]
     tiled = ("mevp_tiled", "dg1_sample_cfl", "transport_tiled")
+    boxed = box_kernels(device)
     counts = {}
     with tempfile.TemporaryDirectory() as tmp, CliFiles(files) as rec:
         workdir = Path(tmp)
 
         # 1 and 2: run/box.cfg and run/arctic.cfg as they stand, each twice
         # in turns with the bare step.
-        for path, argv, kernels in (("cli_box", box, tiled), ("cli_arctic", arctic, ("ho_single", "transport_tiled"))):
+        for path, argv, kernels in (("cli_box", box, boxed), ("cli_arctic", arctic, ("ho_single", "transport_tiled"))):
             t0 = time.perf_counter()
             setup, run = cli_against_loop(path, argv, kernels, device, workdir, rec)
             counts[path] = run.counts
@@ -3621,8 +3803,8 @@ def check_cli(device, smi: str) -> dict:
         finally:
             CoupledModel.step = original
         setup = cli_setup(argv_abort, device)
-        cli_expect("cli_health_abort", abort, tiled)
-        cli_expect("cli_health_retry", retry, tiled)
+        cli_expect("cli_health_abort", abort, boxed)
+        cli_expect("cli_health_retry", retry, boxed)
         counts["cli_health_abort"], counts["cli_health_retry"] = abort.counts, retry.counts
         post_t, post = abort.checkpoints["coupled_failed.post_mortem.chk"]
         if np.all(np.isfinite(post["hice"])) or post_t != 2 * DT:
@@ -3861,7 +4043,8 @@ def trace_archive_box(out_dir: Path, device) -> int:
 
 def check_trace(workdir: Path) -> None:
     """Leg 6: the traced step (``trace_archive_box``, its own process): the
-    trace names the annotation and mevp_tiled's kernel."""
+    trace names the annotation and the box schedule's first kernel
+    (fused_dynamics on the H100, or mevp_tiled)."""
     out_dir = workdir / "traced"
     out_dir.mkdir()
     done = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-archive-box", str(out_dir)],
@@ -3872,15 +4055,16 @@ def check_trace(workdir: Path) -> None:
     events = json.loads(path.read_text())["traceEvents"]
     names = [e.get("name", "") for e in events]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    tiled = [e for e in kernels if "mevp_tiled" in e.get("name", "")]
+    kernel = box_kernels(torch.device("cuda", 0))[0]
+    found = [e for e in kernels if kernel in e.get("name", "")]
     annotated = [e for e in events if e.get("name") == TRACE_ANNOTATION]
     log("check", (
         f"traced archive box step ({path.stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} kernel "
-        f"events): annotation {TRACE_ANNOTATION!r} {len(annotated)}x, mevp_tiled kernels {len(tiled)} "
-        f"({tiled[0]['name'][:60] if tiled else 'none'}) {'ok' if tiled and annotated else 'FAIL'}"
+        f"events): annotation {TRACE_ANNOTATION!r} {len(annotated)}x, {kernel} kernels {len(found)} "
+        f"({found[0]['name'][:60] if found else 'none'}) {'ok' if found and annotated else 'FAIL'}"
     ))
-    if not (tiled and TRACE_ANNOTATION in names):
-        raise AssertionError("the trace of the archive box step names no mevp_tiled kernel or no annotation")
+    if not (found and TRACE_ANNOTATION in names):
+        raise AssertionError(f"the trace of the archive box step names no {kernel} kernel or no annotation")
 
 
 def check_forcing_files(device, smi: str) -> dict:
@@ -3909,6 +4093,7 @@ def check_forcing_files(device, smi: str) -> dict:
             "nothing else is patched"
         ))
     tiled = ("mevp_tiled", "dg1_sample_cfl", "transport_tiled")
+    boxed = box_kernels(device)
     ho = ("ho_single", "transport_tiled")
     counts = {}
     with tempfile.TemporaryDirectory() as tmp, ForcingFiles(files) as ffiles, CliFiles(files) as rec:
@@ -3929,7 +4114,7 @@ def check_forcing_files(device, smi: str) -> dict:
         arctic = ["--config-file", str(RUN_DIR / "arctic.cfg")] + forcing
         # 2: run/box.cfg and run/arctic.cfg on the archive, each twice in
         # turns with the bare step.
-        for path, argv, kernels in (("files_box", box, tiled), ("files_arctic", arctic, ho)):
+        for path, argv, kernels in (("files_box", box, boxed), ("files_arctic", arctic, ho)):
             t0 = time.perf_counter()
             setup, run = cli_against_loop(path, argv, kernels, device, workdir, rec)
             counts[path] = run.counts
@@ -3974,7 +4159,7 @@ def check_forcing_files(device, smi: str) -> dict:
             retry = cli_run(argv_retry, device, workdir, rec)
         finally:
             CoupledModel.step, forcing_file.ForcingProvider.thermo_forcing = original_step, original_read
-        cli_expect("files_health_retry", retry, tiled)
+        cli_expect("files_health_retry", retry, boxed)
         counts["files_health_retry"] = retry.counts
         # configure reads at start; the loop at each (half) step's start.
         if calls != {"full": 3, "half": 2} or reads != [0.0, 0.0, DT, DT, 1.5 * DT, 2 * DT]:
@@ -4150,6 +4335,7 @@ def check_roofline(device, card: str) -> tuple:
 TVB_STEPS = 3
 #: The kernels of each schedule, and with the TVB limiter on a staged one.
 SCHEDULE_KERNELS = {
+    ("fused", "xla"): ("fused_dynamics",),
     ("pallas", "xla"): ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
     ("pallas-tiled", "tiled"): ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     ("pallas-tiled", "xla"): ("mevp_tiled", "dg1_sample_cfl", "dg1_rk_stage"),
@@ -4603,10 +4789,10 @@ def time_tvb_periodic(device, card: str) -> None:
         ("headline periodic TVB K1", "headline", 0.0, {"mevp_backend": "pallas"}),
         ("headline periodic TVB auto", "headline", 0.0, {}),
     ):
-        if kind == "closed":
+        if kind == "closed":  # K1's split schedule: "pallas" takes fused_dynamics there
             model, state, forcing = bench_model(device, N)
             state = with_fronts(state, SEED + 30)
-            steps[tag] = (lambda m=model, s=state, f=forcing: m.step(s, None, f, DT, do_thermo=False))
+            steps[tag] = (lambda m=model, s=state, f=forcing: m.step_dynamics(s, f, DT, phase=K1_SPLIT))
         else:
             model, state, _, dyn, _ = tvb_path_model(device, kind, tvb_m, backends)
             steps[tag] = (lambda m=model, s=state, f=dyn: m.step(s, None, f, DT, do_thermo=False))
@@ -5599,18 +5785,19 @@ def check_grid_forms(device) -> tuple:
 
 
 def time_grid_forms(device, card: str) -> None:
-    """coupled_1m_spherical_spmd and spherical_16m_spmd: ms per step and
-    element updates/s in chunks of N5_STEPS steps on resident blocks, h =
-    16 (the port's "auto") and 32, in turns with the single-device
-    spherical step; a profile of the 16M grid step (its idle share). The
+    """coupled_1m_spherical_spmd (spherical_16m_spmd is checked, not timed,
+    to keep the run's time): ms per step and element updates/s in chunks of
+    N5_STEPS steps on resident blocks, h = 16 (the port's "auto"), in turns
+    with the single-device spherical step; a profile of the grid step (its
+    idle share). The
     new forms' rows are timed in turns with their closed instances in
     time_tvb_periodic."""
-    for n, tag in ((N4, "coupled_1m_spherical_spmd"), (N16, "spherical_16m_spmd")):
+    for n, tag in ((N4, "coupled_1m_spherical_spmd"),):
         fns, grids = {}, {}
         single, _, _, state, phys, dyn = grid_path_model(device, "spherical", RANKS, {}, n=n)
         fns["single-device"] = lambda single=single, state=state, phys=phys, dyn=dyn: single.run(
             state, phys, dyn, DT, N5_STEPS)
-        for h in (16, 32):
+        for h in (16,):
             _, model, sharded, *_ = grid_path_model(
                 device, "spherical", RANKS, {"mevp_backend": "blocked", "mevp_block_halo": h}, n=n)
             blocks = blocks_of(sharded, state, phys, dyn)
@@ -5621,8 +5808,8 @@ def time_grid_forms(device, card: str) -> None:
             report(f"{tag} coupled step, {name} ({n}x{n}, {N5_STEPS} steps a chunk)",
                    [m / N5_STEPS for m in ms], n * n, card)
     sharded, blocks = grids[16]
-    profile(f"spherical_16m_spmd coupled step, 2x2 blocked h=16 ({N16}x{N16})",
-            lambda: sharded.run_blocks(*blocks, DT, 1), n_steps=2)
+    profile(f"coupled_1m_spherical_spmd coupled step, 2x2 blocked h=16 ({N4}x{N4})",
+            lambda: sharded.run_blocks(*blocks, DT, 1), n_steps=1)
 
 
 
@@ -5641,8 +5828,10 @@ HO_GRID_PATHS = [
     ("ho_spherical_16m_spmd", "spherical", N16, True, "auto"),
 ]
 #: Ghost widths whose widened ho_tiled launches are checked besides the
-#: configs' own (the h sweep's, on the two configs it times).
+#: configs' own (the h sweep's, on the two configs it times), and the
+#: widths the timings sweep (the others left out to keep the run's time).
 HO_GRID_SWEEP = (16, 32, 64)
+HO_GRID_TIMED_SWEEP = (16,)
 HO_GRID_TIMED = ("ho_coupled_1m_spherical_spmd", "ho_spherical_16m_spmd")
 #: Configs whose spmd qv transport_tiled launches are held against plain:
 #: the 512^2 blocks (metric and closed) and the 2048^2 ones.
@@ -5818,16 +6007,18 @@ def check_grid_ho(device) -> tuple:
 def time_grid_ho(device, card: str) -> None:
     """The HO grid configs: ms per step and element updates/s in chunks of
     HO_GRID_CHUNK steps on resident blocks. ho_coupled_1m_spherical_spmd and
-    ho_spherical_16m_spmd at h = 16 (the port's "auto"), 32 and 64 in turns
-    with the single-device HO step; the other four configs once each; a
-    profile of each config's step (its idle share)."""
+    ho_spherical_16m_spmd at h = 16 (the port's "auto") in turns
+    with the single-device HO step, and a profile of each one's step (its
+    idle share)."""
     for path, kind, n, coast, halo in HO_GRID_PATHS:
+        if path not in HO_GRID_TIMED:  # the other four are checked in check_grid_ho, not timed
+            continue
         single, model, sharded, state, phys, dyn = ho_grid_model(device, kind, n, coast, halo)
         fns = {f"2x2 blocked h={model.mevp.block_halo}": (
             lambda s=sharded, b=blocks_of(sharded, state, phys, dyn): s.run_blocks(*b, DT, HO_GRID_CHUNK))}
         if path in HO_GRID_TIMED:
             fns["single-device"] = lambda: single.run(state, phys, dyn, DT, HO_GRID_CHUNK)
-            for h in HO_GRID_SWEEP:
+            for h in HO_GRID_TIMED_SWEEP:
                 if h != model.mevp.block_halo:
                     swept = ho_grid_model(device, kind, n, coast, h)[2]
                     fns[f"2x2 blocked h={h}"] = (
@@ -5838,7 +6029,7 @@ def time_grid_ho(device, card: str) -> None:
                    [m / HO_GRID_CHUNK for m in ms], n * n, card)
         blocks = blocks_of(sharded, state, phys, dyn)
         profile(f"{path} coupled step, 2x2 blocked h={model.mevp.block_halo} ({n}x{n})",
-                lambda: sharded.run_blocks(*blocks, DT, 1), n_steps=2)
+                lambda: sharded.run_blocks(*blocks, DT, 1), n_steps=1)
         if path in HO_GRID_TIMED:
             # ho_tiled's plain version on seeded planes of the widened block's size.
             wide = model.mesh.nx + 2 * model.mevp.block_halo
@@ -6037,17 +6228,17 @@ def check_grid_ho_rdma(device) -> tuple:
 
 
 def time_grid_ho_rdma(device, card: str) -> None:
-    """The HO rdma schedule: ms per step of ho_coupled_1m_spherical_spmd and
-    ho_spherical_16m_spmd on it at h = 16 and 32, in turns with the
+    """The HO rdma schedule: ms per step of ho_coupled_1m_spherical_spmd on
+    it at h = 16, in turns with the
     blocked schedule at h = 16, in chunks of HO_GRID_CHUNK steps on
     resident blocks; a profile of each rdma step (its idle share and the
     HO rdma_band's ms a launch); rdma_stage's HO row (its x launch on a
     round's new sources in turns with one torch.stack of the 34 strips)."""
     for path, kind, n, coast, _ in HO_GRID_PATHS:
-        if path not in HO_GRID_TIMED:
+        if path != HO_GRID_TIMED[0]:  # the 1M config; the 16M one is checked, not timed, on rdma
             continue
         fns, grids = {}, {}
-        for backend, h in (("blocked", 16), ("rdma", 16), ("rdma", 32)):
+        for backend, h in (("blocked", 16), ("rdma", 16)):
             _, _, sharded, state, phys, dyn = ho_grid_model(device, kind, n, coast, h, backend=backend)
             grids[(backend, h)] = (sharded, blocks_of(sharded, state, phys, dyn))
             fns[f"2x2 {backend} h={h}"] = lambda g=grids[(backend, h)]: g[0].run_blocks(*g[1], DT, HO_GRID_CHUNK)
@@ -6417,12 +6608,16 @@ def check_grid_tvb(device) -> tuple:
 
 
 def time_grid_tvb(device, card: str) -> None:
-    """Runs a, c and d (GRID_TVB_TIMED): ms per step in chunks of
-    HO_GRID_CHUNK steps on resident blocks, in turns with the single-device
-    step; a profile of 2 steps of each grid (wall ms, busy ms, idle share,
-    device activities a step; the transport kernels' ms a launch)."""
+    """Run a (the first of GRID_TVB_TIMED; c and d are checked, not timed): ms per
+    step in chunks of HO_GRID_CHUNK steps on resident blocks, in turns with
+    the single-device step; a profile of 1 step of its grid (wall ms, busy
+    ms, idle share, device activities a step; the transport kernels' ms a
+    launch)."""
     for path in GRID_TVB_TIMED:
         single, sharded, state, phys, dyn = GRID_TVB_BUILT.pop(path)
+        if path != GRID_TVB_TIMED[0]:  # built by check_grid_tvb; checked there, not timed, to keep the run's time
+            del single, sharded, state, phys, dyn
+            continue
         blocks = blocks_of(sharded, state, phys, dyn)
         n = single.mesh.nx
         runs = time_in_turns({
@@ -6433,7 +6628,7 @@ def time_grid_tvb(device, card: str) -> None:
             report(f"{path} coupled step, {name} ({n}x{n}, {HO_GRID_CHUNK} steps a chunk)",
                    [m / HO_GRID_CHUNK for m in ms], n * n, card)
         profile(f"{path} coupled step, 2x2 grid ({n}x{n})", lambda: sharded.run_blocks(*blocks, DT, 1),
-                n_steps=2, watch="transport_tiled" if single.transport_schedule() == "tiled" else "dg1_")
+                n_steps=1, watch="transport_tiled" if single.transport_schedule() == "tiled" else "dg1_")
         del single, sharded, state, blocks
 
 
@@ -6465,8 +6660,6 @@ GRID_XLA_CHECKED = {
     "ho_coupled_1m_spherical_spmd_xla": ((0,), None), "grid_xla_ho_uniform_aweighted": ((0,), None),
     "spherical_16m_spmd_xla": ((0,), 4), "ho_spherical_16m_spmd_xla": ((0,), 4),
 }
-#: The 16M cells timed in time_grid_xla on "xla", "blocked" and "rdma".
-GRID_XLA_TIMED = ("spherical_16m_spmd_xla", "ho_spherical_16m_spmd_xla")
 XLA_HALVES = {False: ("mevp_stress", "mevp_velocity"), True: ("ho_stress", "ho_velocity")}
 _XLA_CG1 = [p for p, _, _, ho, _, _ in GRID_XLA_PATHS if not ho]
 PATH_KERNELS.update({
@@ -6729,8 +6922,8 @@ def time_grid_xla(device, card: str, errs: dict) -> None:
     launch back to back with their bounds and their plain versions, in
     turns with the copy that a block widened by one ring would take a half
     in place of the strips (the planes the half reads beyond the block,
-    padded); then the two 16M cells on "xla", "blocked" and "rdma" (h = 16),
-    a step each in turns, and a profile of each xla step."""
+    padded). (The two 16M cells' steps are checked in check_grid_xla, not
+    timed, to keep the run's time.)"""
     stream = cc._stream(device)
     for (kernel, nx), captured in sorted(XLA_TIMED.items()):
         if nx != N16 // 2:
@@ -6757,17 +6950,6 @@ def time_grid_xla(device, card: str, errs: dict) -> None:
             f"widened by one ring instead (a widened-block design's copy a half): "
             f"{', '.join(f'{m:.5f}' for m in runs['widen'])} ms, on {card}"
         ))
-    for path in GRID_XLA_TIMED:
-        _, kind, n, ho, kwargs, _ = next(p for p in GRID_XLA_PATHS if p[0] == path)
-        _, grids, state, phys, dyn = grid_xla_model(device, kind, n, ho, kwargs, ("xla", "blocked", "rdma"))
-        blocks = {b: blocks_of(g, state, phys, dyn) for b, g in grids.items()}
-        fns = {f"2x2 {b}": (lambda b=b: grids[b].run_blocks(*blocks[b], DT, 1)) for b in grids}
-        runs = time_in_turns(fns, dict.fromkeys(fns, 1))
-        for name, ms in runs.items():
-            report(f"{path} coupled step, {name} ({n}x{n}, h = 16 on blocked and rdma)", ms, n * n, card)
-        profile(f"{path} coupled step, 2x2 xla ({n}x{n})", lambda: grids["xla"].run_blocks(*blocks["xla"], DT, 1),
-                n_steps=1, watch="halo_kernel")
-        del grids, blocks, fns
     log("time", f"time_grid_xla: device memory reserved peak {torch.cuda.max_memory_reserved(device) / 2**30:.1f} GiB")
 
 
@@ -7001,6 +7183,7 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     for kernel, err in errs_grid.items():
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     log("build", sass_report(sass))
+    kernels["fused_dynamics"] = phase(check_fused, device, smi)
     phase(time_paths, device, smi)
     phase(time_momentum_forms, device, smi)
     phase(time_ho, device, smi)
@@ -7021,14 +7204,18 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
     # Last, as a profiler session slows the host's later launches. Every
     # row's ms stays the back-to-back time per call; the device durations
     # are logged beside it, with the CUDA events' time of the whole call,
-    # which is all there is where the profiler records nothing.
-    for probe, fn in {**DEVICE_PROBES, **probes}.items():
+    # which is all there is where the profiler records nothing. One session
+    # for all the probes (a session a probe took ~0.8 s each).
+    all_probes = {**DEVICE_PROBES, **probes}
+    measured = {probe: (launches_per_call(fn, probe.split()[0]), best_ms(fn, reps=3)) for probe, fn in all_probes.items()}
+    durations = profiled_ms_many({probe: (fn, probe.split()[0]) for probe, fn in all_probes.items()}, n=10)
+    for probe, fn in all_probes.items():
         kernel = probe.split()[0]
-        per_call = launches_per_call(fn, kernel)
-        events = f"CUDA events {best_ms(fn):.5f} ms per call of {per_call} launches"
-        ms = profiled_ms(fn, kernel)
+        per_call = measured[probe][0]
+        events = f"CUDA events {measured[probe][1]:.5f} ms per call of {per_call} launches"
+        ms = durations[probe]
         if ms is None:
-            log("time", f"{probe}: the profiler recorded no {kernel} kernel in 3 sessions; {events}")
+            log("time", f"{probe}: the profiler recorded no {kernel} kernel in its window; {events}")
             continue
         calls = f", {ms * per_call:.5f} ms per call of {per_call} launches" if per_call > 1 else ""
         log("time", f"{probe} device duration {ms:.5f} ms{calls} (torch.profiler); {events}")

@@ -15,8 +15,10 @@ The twin of ``benchmarks/mevp_large.py`` (the JAX backends at sizes, with
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --steps       # the headline dynamics step
     python -m nextsimdg_tpu_torch.benchmarks.mevp_large --steps --kernel-times=dg1_rk_stage  # the step, then dg1_rk_stage and transport_tiled
 
-``--thresholds``: K1's schedule against the tiled one on the dynamics step
-at 64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``); ``mevp_single`` against
+``--thresholds``: ``mevp_backend="pallas"`` (fused_dynamics where it holds,
+else K1's split schedule) against the tiled one on the dynamics step at
+64^2-1024^2 (``coupled.TILED_MIN_ELEMENTS``; ``chip_smoke.check_fused``
+derives ``coupled.FUSED_MAX_ELEMENTS``); ``mevp_single`` against
 ``mevp_tiled`` on the spherical mEVP phase and dynamics step at
 128^2-1024^2 (``coupled.SINGLE_MAX_ELEMENTS``); ``ho_single`` against
 ``ho_tiled`` on the HO mEVP phase and dynamics step at 128^2-1024^2
@@ -56,8 +58,8 @@ earlier checkout's kernels); ``--kernel-times=dg1_rk_stage``: only
 2 x 2 rank blocks, ``mevp_tiled`` at 2048^2 and 1024^2, ``transport_tiled``
 at 1024^2, ``rdma_stage`` and ``rdma_band`` on a 2048^2 block (``--kernel-times``
 includes them).
-``--steps``: the headline dynamics step (256^2, K1's schedule: two
-``dg1_rk_stage`` launches a substep), mean and best of 20
+``--steps``: the headline dynamics step (256^2, ``mevp_backend="pallas"``:
+fused_dynamics on the H100), mean and best of 20
 (``headline_step``), before any profiler session. Each
 line names the card and its power limit. Times are CUDA-event ms, the
 pairs in turns (a b b a); the rdma_band and transport_tiled sweeps, the
@@ -221,8 +223,8 @@ def sweep_thresholds(device) -> None:
     """The three "auto" thresholds: each pair of schedules on the mEVP phase
     (100 subcycles) and the dynamics step, in turns."""
     pair = functools.partial(_pair, device)
-    for n in (64, 128, 256, 1024):
-        pair("uniform", n, ("K1", {"mevp_backend": "pallas"}),
+    for n in (64, 128, 256, 1024):  # "pallas": fused_dynamics where it holds, else K1's split schedule
+        pair("uniform", n, ("pallas", {"mevp_backend": "pallas"}),
              ("tiled", {"mevp_backend": "pallas-tiled", "transport_backend": "tiled"}))
     for n in (128, 256, 512, 1024):
         for name in ("single", "pallas-tiled"):
@@ -768,8 +770,9 @@ def kernel_times(device, transport_sizes=(1024, 4096), ho_sizes=(256, 512), n_su
 
 def headline_step(device, n: int = 256, reps: int = 20) -> tuple:
     """ms per headline dynamics step (``bench.py``'s configuration: a closed
-    n^2 mesh of 512 km, 100 subcycles, K1's schedule, whose transport is two
-    ``dg1_rk_stage`` launches a substep): the mean of ``reps`` back-to-back
+    n^2 mesh of 512 km, 100 subcycles, ``mevp_backend="pallas"``: on the
+    H100 fused_dynamics, the whole phase in one launch, where it holds the
+    grid, else K1's split schedule): the mean of ``reps`` back-to-back
     steps and the best single step (CUDA events); printed with the card.
     On the CPU (the tests) the plain path runs once."""
     device = torch.device(device)
@@ -792,7 +795,7 @@ def headline_step(device, n: int = 256, reps: int = 20) -> tuple:
     end.record()
     torch.cuda.synchronize()
     mean, best = start.elapsed_time(end) / reps, best_ms(step, reps)
-    print(f"headline dynamics step {n}x{n} (K1's schedule): {mean:.4f} ms mean of {reps} back to back, "
+    print(f"headline dynamics step {n}x{n} ({model.schedule(device)[0]}): {mean:.4f} ms mean of {reps} back to back, "
           f"best {best:.4f} ms on {card(device)['nvidia_smi']}", flush=True)
     return mean, best
 

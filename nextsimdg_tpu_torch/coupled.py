@@ -58,7 +58,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .dynamics.kernels import mevp_single_cuda
+from .dynamics.kernels import fused_dynamics_cuda, mevp_single_cuda
 from .dynamics.freedrift import FreeDriftSolver
 from .dynamics.kernels.coupled_cuda import dynamics_phase, sm_count
 from .dynamics.mesh import RectMesh, block_mesh
@@ -93,6 +93,17 @@ TILED_MIN_ELEMENTS = 64 * 64
 #: up to there, where the card holds the grid (``mevp_schedule``). See
 #: PERF.md.
 SINGLE_MAX_ELEMENTS = 1024 * 1024 + 1
+#: Element count below which ``"auto"`` runs the whole dynamics phase as one
+#: ``fused_dynamics`` launch on a uniform mesh, where the card holds the grid
+#: and the kernel the model's form (``fused_dynamics_cuda.holds_model``).
+#: Derived on the H100 from chip_smoke.py's phase ``check_fused``, which
+#: times the fused, tiled and K1 split schedules' dynamics step in turns at
+#: 64^2, 128^2, 256^2 and 528^2, the largest square the kernel holds on the
+#: H100's 132 SMs: fused was the fastest at every size (256^2: 1.99 ms a
+#: step against the tiled 2.74 and K1's split 4.67; 528^2: 1.63 against
+#: 2.73 and 4.75), so "auto" takes it up to 528^2; beyond, nothing was
+#: measured and the card does not hold the grid anyway. See PERF.md.
+FUSED_MAX_ELEMENTS = 529 * 529
 
 
 @dataclass(frozen=True)
@@ -146,16 +157,19 @@ class CoupledModel:
         tensors always run the plain versions):
 
         * ``mevp_backend``: ``"pallas"``, the counterpart of the JAX value
-          that selects its single-call kernels: on a uniform mesh K1's
-          schedule (two launches per subcycle, then one ``dg1_rk_stage``
-          per RK stage; ``transport_backend`` does not apply, as in the JAX
-          fused path), on a graded or spherical mesh ``mevp_single`` (all
-          N subcycles in one launch); ``"pallas-tiled"``, the counterpart
-          of the JAX tiled kernel: ``mevp_tiled``, H subcycles per launch;
-          ``"auto"``: on a uniform mesh the tiled schedule from
-          ``TILED_MIN_ELEMENTS`` elements and K1's below, on a non-uniform
-          one ``mevp_tiled`` from ``SINGLE_MAX_ELEMENTS`` and
-          ``mevp_single`` below.
+          that selects its single-call kernels: on a uniform mesh
+          ``fused_dynamics`` (the whole phase in one launch, k on the card)
+          where the card holds the grid and the kernel the model's form,
+          else K1's split schedule (two launches per subcycle, then one
+          ``dg1_rk_stage`` per RK stage); ``transport_backend`` does not
+          apply, as in the JAX fused path; on a graded or spherical mesh
+          ``mevp_single`` (all N subcycles in one launch);
+          ``"pallas-tiled"``, the counterpart of the JAX tiled kernel:
+          ``mevp_tiled``, H subcycles per launch; ``"auto"``: on a uniform
+          mesh ``fused_dynamics`` below ``FUSED_MAX_ELEMENTS`` where it
+          holds, else the tiled schedule from ``TILED_MIN_ELEMENTS``
+          elements and K1's below, on a non-uniform one ``mevp_tiled`` from
+          ``SINGLE_MAX_ELEMENTS`` and ``mevp_single`` below.
         * ``transport_backend`` (except with K1's schedule): ``"xla"``, the
           counterpart of the JAX staged path: one ``dg1_rk_stage`` per RK
           stage; ``"tiled"``, the counterpart of the JAX tiled kernel:
@@ -270,7 +284,8 @@ class CoupledModel:
 
     # -- kernel schedule -----------------------------------------------------
     def mevp_schedule(self, sms: int = None) -> str:
-        """``"pallas"`` (K1's schedule), ``"single"`` (mevp_single) or
+        """``"fused"`` (fused_dynamics: the whole phase in one launch),
+        ``"pallas"`` (K1's split schedule), ``"single"`` (mevp_single) or
         ``"pallas-tiled"`` (mevp_tiled); with the HO solver ``"single"``
         (ho_single) or ``"tiled"`` (ho_tiled); with free drift
         ``"free-drift"`` (its plain step); on a rank grid the exchange
@@ -281,8 +296,13 @@ class CoupledModel:
         ignores the schedule). "auto" takes a single-launch kernel only
         where its tiles all fit on them (``holds``) and the tiled one
         otherwise, as the JAX package asks ``pallas_supported`` first; an
-        explicit ``"pallas"`` on a grid the card does not hold raises in the
-        kernel's wrapper."""
+        explicit ``"pallas"`` on a non-uniform grid the card does not hold
+        raises in the kernel's wrapper. On a uniform mesh ``"pallas"`` and
+        "auto" (below ``FUSED_MAX_ELEMENTS``) take ``"fused"`` only with
+        ``sms`` given and where the kernel holds the grid and the form
+        (``fused_dynamics_cuda.holds_model``), as JAX's "pallas" takes
+        ``fused_dynamics_pallas`` wherever ``pallas_supported``; elsewhere,
+        and with ``sms=None``, K1's split schedule or the tiled one."""
         if self.is_high_order:
             return self.mevp.schedule(sms)
         if self.is_free_drift:
@@ -291,6 +311,12 @@ class CoupledModel:
             return self.mevp.schedule()
         backend = self.mevp_backend
         mesh = self.mesh
+        if (
+            mesh.uniform and sms is not None
+            and (backend == "pallas" or (backend == "auto" and mesh.n_elements < FUSED_MAX_ELEMENTS))
+            and fused_dynamics_cuda.holds_model(self, sms)
+        ):
+            return "fused"
         if backend == "auto" and mesh.uniform:
             backend = "pallas-tiled" if mesh.n_elements >= TILED_MIN_ELEMENTS else "pallas"
         elif backend == "auto":
@@ -309,12 +335,14 @@ class CoupledModel:
         the step runs there), elsewhere with none to ask."""
         device = torch.device(device)
         sms = sm_count(device) if device.type == "cuda" else None
-        return self.mevp_schedule(sms), self.transport_schedule()
+        return self.mevp_schedule(sms), self.transport_schedule(sms)
 
-    def transport_schedule(self) -> str:
+    def transport_schedule(self, sms: int = None) -> str:
         """``"xla"`` (one dg1_rk_stage per stage; on a rank grid the staged
         route with width-1 exchanges, the halo forms of dg1_rk_stage and
-        dg1_limit on a card) or ``"tiled"``."""
+        dg1_limit on a card; with the ``"fused"`` and K1's schedules, the
+        whole-phase schedules, where the transport backend does not apply)
+        or ``"tiled"``. ``sms`` as ``mevp_schedule``'s."""
         if self.exchange is not None:
             from .dynamics.kernels.transport_tiled_cuda import transport_tiled_spmd_config
 
@@ -334,7 +362,7 @@ class CoupledModel:
             if self.transport_backend != "auto":
                 return self.transport_backend
             return "tiled" if self._tiled_transport_runs() else "xla"
-        if self.mevp_schedule() == "pallas":
+        if self.mevp_schedule(sms) in ("pallas", "fused"):
             return "xla"
         if self.transport_backend != "auto":
             return self.transport_backend

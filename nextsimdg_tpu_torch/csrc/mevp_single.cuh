@@ -1,8 +1,11 @@
 // The CG1 mEVP single-launch kernel (mevp_single.cu) as a template on the
-// mesh, the resident const planes and the momentum form, shared by the two
+// mesh, the resident const planes and the momentum form, shared by the
 // sources that instantiate it: mevp_single.cu (the fixed-alpha forms, and
-// the entry points) and mevp_single_adaptive.cu (the adaptive-alpha forms),
-// which nvcc compiles in parallel. The design is described in mevp_single.cu.
+// the entry points), mevp_single_adaptive.cu (the adaptive-alpha forms) and
+// the periodic sources, which nvcc compiles in parallel. The design is
+// described in mevp_single.cu. Its pieces (the tile's view and owned cells,
+// the load, the subcycle loop, the store) are device functions, which
+// fused_dynamics.cuh runs ahead of the CFL count and the transport.
 #pragma once
 
 #include <algorithm>
@@ -51,11 +54,9 @@ struct SingleArgs {
              // the closed instances read their parameters at the offsets they always had
 };
 
-// kWrap: the periodic form, whose tiles form a ring on the axes of a.wrap;
-// without it a.wrap is not read and the code is the closed domain's.
-template <bool kMetric, int kResident, int kForm, bool kWrap>
-__global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(SingleArgs a) {
-  extern __shared__ float smem[];
+// A block's view of its tile (tile_exchange.cuh) for the launch's arguments.
+template <bool kWrap>
+__device__ __forceinline__ TileView<kSinglePlanes, kWrap> single_view(const SingleArgs& a) {
   TileView<kSinglePlanes, kWrap> t;
   t.tile = tile_of_block(a.tiles_j);
   if constexpr (kWrap) t.wrap = a.wrap;
@@ -68,40 +69,17 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
   t.pitch = t.tc + 2;
   t.edge = t.tr + t.tc;
   t.exchange = a.exchange;
-  const int tr = t.tr, tc = t.tc, nx = a.nx, ny = a.ny, pitch = t.pitch;
-  const int plane = (tr + 2) * pitch;
-  float* const su = smem;
-  float* const sv = su + plane;
-  float* const s11 = sv + plane;
-  float* const s22 = s11 + plane;
-  float* const s12 = s22 + plane;
-  float* const konst = smem + kSinglePlanes * plane;  // the resident const planes, same layout
-  const auto shared = [](int p) { return resident_rank(kMetric, p) < kResident; };
-  const int tid = threadIdx.x, n_threads = blockDim.x;
+  return t;
+}
 
-  // The load: every cell of the tile and its apron that lies in the domain,
-  // zeros elsewhere. The state's apron at -1 (stresses) stays zero until the
-  // exchange fills it, before it is read; the consts' apron at -1 holds the
-  // half_dx and half_dy that the velocity half weighs those stresses by.
-  const float inv_pitch = 1.0f / static_cast<float>(pitch);
-  for (int x = tid; x < plane; x += n_threads) {
-    const int r = region_row(x, inv_pitch) - 1, c = x - (r + 1) * pitch - 1;
-    const bool in = t.inside(r, c), state_in = in && r >= 0 && c >= 0;
-    const int ij = in ? (kWrap ? t.index(r, c) : (t.i0 + r) * ny + (t.j0 + c)) : 0;
-#pragma unroll
-    for (int p = 0; p < kSinglePlanes; ++p) smem[p * plane + x] = state_in ? a.state[p][ij] : 0.0f;
-#pragma unroll
-    for (int p = 0; p < kMevpConstPlanes; ++p) {
-      if (shared(p)) konst[resident_rank(kMetric, p) * plane + x] = in ? __ldg(mevp_const_plane(a.k, p) + ij) : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  // This thread's cells: column c of rows r0, r0 + rows, ... below r_end.
-  const int rows = n_threads / tc;
-  const int r0 = tid / tc, c = tid - r0 * tc, j = t.j0 + c;
-  const int r_end = r0 < rows && j < ny ? min(tr, nx - t.i0) : 0;
-  const auto owned = [&](auto fn) {
+// The cells a thread owns for the whole launch, each both an element and a
+// node: column c of the tile rows r0, r0 + rows, ... below r_end (none
+// beyond the domain), at most kSingleMaxCells of them.
+struct OwnedCells {
+  int r0, rows, c, j, r_end;
+  // fn(q, r) for the q-th owned cell, at tile row r.
+  template <class Fn>
+  __device__ __forceinline__ void each(Fn fn) const {
 #pragma unroll
     for (int q = 0; q < kSingleMaxCells; ++q) {
       int r = r0 + q * rows;
@@ -110,7 +88,62 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
       asm volatile("" : "+r"(r));
       if (r < r_end) fn(q, r);
     }
-  };
+  }
+};
+
+template <class View>
+__device__ __forceinline__ OwnedCells owned_cells(const View& t) {
+  const int tid = threadIdx.x, rows = static_cast<int>(blockDim.x) / t.tc;
+  const int r0 = tid / t.tc, c = tid - r0 * t.tc, j = t.j0 + c;
+  return {r0, rows, c, j, r0 < rows && j < t.ny ? min(t.tr, t.nx - t.i0) : 0};
+}
+
+// The load: every cell of the tile and its apron that lies in the domain,
+// zeros elsewhere, into the 5 state planes and the kResident resident const
+// planes after them (smem, planes of `plane` floats). The state's apron at
+// -1 (stresses) stays zero until the exchange fills it, before it is read;
+// the consts' apron at -1 holds the half_dx and half_dy that the velocity
+// half weighs those stresses by.
+template <bool kMetric, int kResident, bool kWrap>
+__device__ __forceinline__ void single_load(const SingleArgs& a,
+                                            const TileView<kSinglePlanes, kWrap>& t, float* smem,
+                                            int plane) {
+  const float inv_pitch = 1.0f / static_cast<float>(t.pitch);
+  float* const konst = smem + kSinglePlanes * plane;
+  const int n_threads = blockDim.x;
+  for (int x = threadIdx.x; x < plane; x += n_threads) {
+    const int r = region_row(x, inv_pitch) - 1, c = x - (r + 1) * t.pitch - 1;
+    const bool in = t.inside(r, c), state_in = in && r >= 0 && c >= 0;
+    const int ij = in ? (kWrap ? t.index(r, c) : (t.i0 + r) * a.ny + (t.j0 + c)) : 0;
+#pragma unroll
+    for (int p = 0; p < kSinglePlanes; ++p) smem[p * plane + x] = state_in ? a.state[p][ij] : 0.0f;
+#pragma unroll
+    for (int p = 0; p < kMevpConstPlanes; ++p) {
+      if (resident_rank(kMetric, p) < kResident) {
+        konst[resident_rank(kMetric, p) * plane + x] = in ? __ldg(mevp_const_plane(a.k, p) + ij) : 0.0f;
+      }
+    }
+  }
+}
+
+// a.n_sub subcycles on the loaded tile (after a block barrier). kLastEdge:
+// the last velocity half, too, publishes its first row and column and
+// takes the next tiles' into the apron at TR and TC (fused_dynamics, which
+// samples the final velocity there); without it that half ends the launch's
+// exchange.
+template <bool kMetric, int kResident, int kForm, bool kWrap, bool kLastEdge>
+__device__ __forceinline__ void single_subcycles(const SingleArgs& a,
+                                                 const TileView<kSinglePlanes, kWrap>& t,
+                                                 const OwnedCells& own, float* smem, int plane) {
+  const int pitch = t.pitch, nx = a.nx, ny = a.ny, c = own.c, j = own.j;
+  float* const su = smem;
+  float* const sv = su + plane;
+  float* const s11 = sv + plane;
+  float* const s22 = s11 + plane;
+  float* const s12 = s22 + plane;
+  float* const konst = smem + kSinglePlanes * plane;  // the resident const planes, same layout
+  const auto shared = [](int p) { return resident_rank(kMetric, p) < kResident; };
+  const int tid = threadIdx.x, n_threads = blockDim.x;
   // Const plane p at the cell of shared index e and domain index ij.
   const auto cst = [&](int p, int e, int ij) {
     return shared(p) ? konst[resident_rank(kMetric, p) * plane + e] : __ldg(mevp_const_plane(a.k, p) + ij);
@@ -132,7 +165,7 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
     // Stress half, element (r, c): nodes r..r+1, c..c+1 (at TR or TC the
     // apron). The last row and column go to the exchange.
     const int stress_half = 2 * sub + 1;
-    owned([&](int q, int r) {
+    own.each([&](int q, int r) {
       const int e = t.cell(r, c), ij = (t.i0 + r) * ny + j;
       const StressOut o = mevp_stress_body<kForm>(
           su[e], su[e + pitch], su[e + 1], su[e + pitch + 1], sv[e], sv[e + pitch], sv[e + 1],
@@ -157,9 +190,9 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
     // Velocity half, node (r, c): elements r-1..r, c-1..c (at -1 the
     // apron), and the c_w and inv_drag of element (r, c) from above. The
     // first row and column go to the exchange.
-    const bool last = sub + 1 == a.n_sub;
+    const bool edge = kLastEdge || sub + 1 != a.n_sub;
     const int velocity_half = 2 * sub + 2;
-    owned([&](int q, int r) {
+    own.each([&](int q, int r) {
       const int e = t.cell(r, c), i = t.i0 + r, ij = i * ny + j;
       float2 f;
       float inv_w;
@@ -180,23 +213,41 @@ __global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(Singl
           a.s);
       su[e] = uv.x;
       sv[e] = uv.y;
-      if (!last) {
+      if (edge) {
         const float vel[2] = {uv.x, uv.y};
         t.publish(r, c, -1, kSU, kSV + 1, vel, velocity_half);
       }
     });
-    if (last) break;
+    if (!edge) break;
     // The velocities of the tiles after this one into the apron at TR and TC.
     for (int x = tid; x < (t.edge + 1) * 2; x += n_threads) t.take(smem, plane, x, 1, kSU, velocity_half);
     __syncthreads();
   }
+}
 
-  // Write the tile back: each thread its own cells, which it wrote last.
-  owned([&](int, int r) {
-    const int e = t.cell(r, c), ij = (t.i0 + r) * ny + j;
+// Write the tile back: each thread its own cells, which it wrote last.
+template <class View>
+__device__ __forceinline__ void single_store(const SingleArgs& a, const View& t,
+                                             const OwnedCells& own, const float* smem, int plane) {
+  own.each([&](int, int r) {
+    const int e = t.cell(r, own.c), ij = (t.i0 + r) * a.ny + own.j;
 #pragma unroll
     for (int p = 0; p < kSinglePlanes; ++p) a.state[p][ij] = smem[p * plane + e];
   });
+}
+
+// kWrap: the periodic form, whose tiles form a ring on the axes of a.wrap;
+// without it a.wrap is not read and the code is the closed domain's.
+template <bool kMetric, int kResident, int kForm, bool kWrap>
+__global__ void __launch_bounds__(kSingleMaxThreads, 1) mevp_single_kernel(SingleArgs a) {
+  extern __shared__ float smem[];
+  const TileView<kSinglePlanes, kWrap> t = single_view<kWrap>(a);
+  const int plane = (t.tr + 2) * t.pitch;
+  single_load<kMetric, kResident, kWrap>(a, t, smem, plane);
+  __syncthreads();
+  const OwnedCells own = owned_cells(t);
+  single_subcycles<kMetric, kResident, kForm, kWrap, false>(a, t, own, smem, plane);
+  single_store(a, t, own, smem, plane);
 }
 
 // The kernel for a mesh (metric or uniform) and momentum form with the

@@ -31,13 +31,14 @@ kernel              source                      plain version (same inputs)
 ``ho_tiled``        ``csrc/ho_tiled.cu``        ``ho_subcycles_reference``
 ``ho_stress``       ``csrc/ho_halves_spmd.cu``  ``ho_stress_halo_reference``
 ``ho_velocity``     ``csrc/ho_halves_spmd.cu``  ``ho_velocity_halo_reference``
+``fused_dynamics``  ``csrc/fused_dynamics.cu``  ``fused_dynamics_reference``
 ``rdma_stage``      ``csrc/mevp_rdma.cu``       ``rdma_stage_reference``
 ``rdma_band``       ``csrc/mevp_rdma.cu``       ``rdma_band_reference``
                     (HO: ``mevp_rdma_ho.cu``)
 ``chain``           ``csrc/roofline.cu``        ``benchmarks.roofline.chain_reference``
 =================== =========================== ===================================
 
-The first four are K1's schedule, wrapped here. Per step: 2 launches per
+The first four are K1's split schedule, wrapped here. Per step: 2 launches per
 subcycle, one ``dg1_sample_cfl`` whose two max speeds are read back once
 to fix k (one host sync), then one ``dg1_rk_stage`` per RK stage and
 substep (a tile an element block, one thread an element and tracer, each
@@ -50,11 +51,14 @@ takes the tables of its transport's degree (``_dg1_tables``), and the
 tracers are (K, T, nx, ny) with K = 1, 3 or 6. The others have wrapper modules of their own:
 ``mevp_tiled_cuda`` and ``transport_tiled_cuda`` (the ghost-zone tiled
 schedule, K2 and K3 of the JAX package) and ``mevp_single_cuda`` (all N
-subcycles in one launch, K4), and ``mevp_rdma_cuda`` (the overlapped
-halo round of a rank block, K7); ``chain``, the ceiling probe (K8), is
-wrapped by ``nextsimdg_tpu_torch.benchmarks.roofline``. Every mEVP kernel
-takes the 7 uniform consts or, on a graded or spherical mesh, the 12 with
-the metric planes, and ``a_node`` besides in the A-weighted form; the
+subcycles in one launch, K4), ``mevp_rdma_cuda`` (the overlapped
+halo round of a rank block, K7) and ``fused_dynamics_cuda`` (K1 as one
+launch: the whole phase, k computed on the card, no host sync, on the
+uniform closed CG1 fixed-alpha dG1 rk2 forms; ``dynamics_phase(mevp=
+"fused")``); ``chain``, the ceiling probe (K8), is wrapped by
+``nextsimdg_tpu_torch.benchmarks.roofline``. Every mEVP kernel takes
+the 7 uniform consts or, on a graded or spherical mesh, the 12 with the
+metric planes, and ``a_node`` besides in the A-weighted form; the
 momentum form (``mevp_form``: weighted, adaptive, both or neither) selects
 a template instance of each CG1 mEVP kernel. The transport kernels read the
 transport's metric planes on such a mesh.
@@ -151,7 +155,7 @@ from ..transport import (
 KERNELS = (
     "mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage", "dg1_limit",
     "mevp_tiled", "transport_tiled", "mevp_single", "ho_single", "ho_tiled",
-    "rdma_stage", "rdma_band", "chain", "ho_stress", "ho_velocity",
+    "rdma_stage", "rdma_band", "chain", "ho_stress", "ho_velocity", "fused_dynamics",
 )
 
 #: The entry points of the CG1 mEVP halves' halo forms (counted as
@@ -311,6 +315,12 @@ def _bind():
     lib.nst_mevp_velocity_halo.argtypes = [p] * 13 + [i] * 3 + tail
     lib.nst_ho_stress.argtypes = [p] * 4 + [i] * 3 + [p, p, i, p]
     lib.nst_ho_velocity.argtypes = [p] * 6 + [i] * 3 + [p, p, i, p]
+    d = ctypes.c_double
+    lib.nst_fused_dynamics.argtypes = [p] * 12 + [i] * 9 + [d] + [i] * 3 + [p] * 3 + tail[1:]
+    lib.nst_fused_dynamics_max_blocks.argtypes = [i] * 6
+    lib.nst_fused_dynamics_max_blocks.restype = i
+    lib.nst_fused_substeps.argtypes = [p, p, i, d, i, i, i, p, i, p]
+    lib.nst_fused_substeps.restype = i
     for name in KERNELS + _HALO_ENTRIES:
         getattr(lib, "nst_" + name).restype = i
     lib.nst_mevp_tiled_max_blocks.argtypes = [i] * 6
@@ -1740,8 +1750,12 @@ def dynamics_phase(
     CPU tensors run ``fused_dynamics_reference``; CUDA tensors the kernels.
     The schedule on the card:
 
+    * ``mevp="fused"``: the whole phase in one ``fused_dynamics`` launch,
+      k on the card and no host sync (``fused_dynamics_cuda``; K1 as the
+      TPU kernel runs it, on the forms that kernel holds; ``transport``
+      must name a schedule but does not apply);
     * ``mevp="pallas"``: ``mevp_stress`` + ``mevp_velocity`` per subcycle
-      (K1's schedule, ``mevp_subcycles``); ``"single"``: ``mevp_single``,
+      (K1's split schedule, ``mevp_subcycles``); ``"single"``: ``mevp_single``,
       all N subcycles in one launch (``mevp_single_cuda``);
       ``"pallas-tiled"``: ``mevp_tiled``, H subcycles per launch
       (``mevp_tiled_cuda``); ``"free-drift"``: the free-drift step
@@ -1774,6 +1788,7 @@ def dynamics_phase(
         return _ho_dynamics_phase(
             model, state_arrays, tracers, consts, dt, n_subcycles, face_masks, mevp, transport
         )
+    from .fused_dynamics_cuda import fused_dynamics_single
     from .mevp_single_cuda import mevp_subcycles_single
     from .mevp_tiled_cuda import mevp_subcycles_tiled
     from .transport_tiled_cuda import transport_substeps_tiled
@@ -1783,8 +1798,12 @@ def dynamics_phase(
         "pallas-tiled": mevp_subcycles_tiled, "free-drift": free_drift_subcycles,
     }
     run_transport = {"xla": transport_substeps, "tiled": transport_substeps_tiled}
-    if mevp not in run_mevp or transport not in run_transport:
+    if mevp not in (*run_mevp, "fused") or transport not in run_transport:
         raise ValueError(f"unknown schedule: mevp={mevp!r}, transport={transport!r}")
+    if mevp == "fused":
+        return fused_dynamics_single(
+            model, state_arrays, tracers, consts, dt, n_subcycles, face_masks
+        )[:2]
     solver, tr, mesh = model.mevp, model.transport, model.mesh
     device = tracers.device
     _check((tr.basis.n_dofs, tracers.shape[1], mesh.nx, mesh.ny), device, tracers=tracers)
@@ -1902,9 +1921,11 @@ def fused_dynamics(
     model, state_arrays, tracers, consts: dict, dt: float, n_subcycles: int,
     face_masks=None,
 ):
-    """The dynamics phase on K1's schedule (``dynamics_phase`` with
-    ``mevp="pallas"``, ``transport="xla"``)."""
+    """The dynamics phase as the TPU kernel ``fused_dynamics_pallas`` runs
+    it: one ``fused_dynamics`` launch on a card (``dynamics_phase`` with
+    ``mevp="fused"``; raises ValueError for a form or grid that the kernel
+    does not hold), the plain version on the CPU."""
     return dynamics_phase(
         model, state_arrays, tracers, consts, dt, n_subcycles, face_masks,
-        mevp="pallas", transport="xla",
+        mevp="fused", transport="xla",
     )

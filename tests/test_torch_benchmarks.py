@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from nextsimdg_tpu_torch import modules
-from nextsimdg_tpu_torch.benchmarks import mevp_large, run_benchmarks
+from nextsimdg_tpu_torch.benchmarks import common, mevp_large, run_benchmarks
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma_cuda
 
 torch.set_num_threads(1)
@@ -239,3 +239,15 @@ def test_build_report_matches_closed_instances_to_the_parent():
     assert parent["_ZN3nst17mevp_tiled_kernelILb0ELi80ELi0EEEvPKf"] == ["LDG.E", "FADD", "EXIT"]
     same, differ = build_report.compare(parent, new)
     assert same == 1 and len(differ) == 1 and "transport_tiled" in differ[0]
+
+
+def test_profiled_ms_many_gives_each_probe_the_events_of_its_window():
+    """One profiler session for many probes: a probe's ms come from the
+    events that start inside its own range (host events here: there is no
+    card), and a probe whose calls never run its kernel gets None."""
+    a = torch.randn(64, 64)
+    out = common.profiled_ms_many({
+        "add": (lambda: a + a, "aten::add"), "mm": (lambda: a @ a, "aten::mm"),
+        "none": (lambda: a + a, "aten::mm"),
+    }, n=3, device=False)
+    assert out["add"] > 0 and out["mm"] > 0 and out["none"] is None

@@ -59,6 +59,7 @@ from nextsimdg_tpu_torch.dynamics import RectMesh, SphericalMesh, synthetic_coas
 from nextsimdg_tpu_torch import modules
 from nextsimdg_tpu_torch.dynamics import mevp_ho
 from nextsimdg_tpu_torch.dynamics.kernels import coupled_cuda as cc
+from nextsimdg_tpu_torch.dynamics.kernels import fused_dynamics_cuda as fd
 from nextsimdg_tpu_torch.dynamics.kernels import ho_single_cuda as hs
 from nextsimdg_tpu_torch.dynamics.kernels import ho_tiled_cuda as ht
 from nextsimdg_tpu_torch.dynamics.kernels import mevp_rdma_cuda as rdma
@@ -274,16 +275,26 @@ def test_ho_staged_dynamics_phase_matches_plain(device, scheme):
 
 @pytest.mark.parametrize("scheme", ["rk1", "rk2", "rk3"])
 def test_fused_dynamics_matches_plain_and_counts_launches(device, scheme):
+    """``coupled_cuda.fused_dynamics``: one fused_dynamics launch at rk2;
+    the kernel lacks rk1 and rk3, which K1's split schedule runs."""
     model, carry, consts, psi, _ = setup(device)
     model.transport.scheme = scheme
-    cc.reset_launches()
-    got_carry, got_tr = cc.fused_dynamics(model, carry, psi, consts, DT, 100)
-    counts = dict(cc.launches)
     ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100)
+    cc.reset_launches()
+    if scheme == "rk2":
+        got_carry, got_tr = cc.fused_dynamics(model, carry, psi, consts, DT, 100)
+    else:
+        with pytest.raises(ValueError, match="not built"):
+            cc.fused_dynamics(model, carry, psi, consts, DT, 100)
+        got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, mevp="pallas", transport="xla")
+    counts = dict(cc.launches)
     for g, r in zip(got_carry, ref_carry):
         assert_close(g, r, 1e-3)
     assert_close(got_tr, ref_tr, 1e-5)
-    stages = {"rk1": 1, "rk2": 2, "rk3": 3}[scheme]
+    if scheme == "rk2":
+        assert counts["fused_dynamics"] == 1 and sum(counts.values()) == 1
+        return
+    stages = {"rk1": 1, "rk3": 3}[scheme]
     assert counts["mevp_stress"] == counts["mevp_velocity"] == 100
     assert counts["dg1_sample_cfl"] == 1
     assert counts["dg1_rk_stage"] % stages == 0 and counts["dg1_rk_stage"] >= stages
@@ -2511,3 +2522,104 @@ def test_host_staged_process_exchange_matches_the_thread_grid(device):
         assert entry["finite_probe"] is True and entry["finite_probe_detects"] is True
         assert entry["launches"]["mevp_tiled"] > 0 and entry["launches"]["dg1_sample_cfl"] > 0
     assert results[0]["paths"]["blocked"]["threads_max_abs_error"] == 0.0
+
+
+# -- K1 as one launch: fused_dynamics ---------------------------------------------
+def fused_setup(device, shape, masked: bool, auto: bool, dx: float = 250.0):
+    """(model, carry, consts, psi, faces) on seeded float32 inputs: 250 m
+    elements, so that the relaxed velocity needs k > 1 substeps; a
+    coastline with ``masked``; with ``auto`` off k = 3."""
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
+    ocean = synthetic_coastline(*shape) if masked else None
+    model = CoupledModel(RectMesh(*shape, dx, dx), n_subcycles=100, ocean_mask=ocean,
+                         auto_substeps=auto, transport_substeps=1 if auto else 3)
+    carry = tuple(t(rng.normal(0.0, s_, shape)) for s_ in (0.2, 0.2, 1e3, 1e3, 1e3))
+    forcing = DynamicsForcing(
+        u_atm=t(rng.normal(8.0, 2.0, shape)), v_atm=t(rng.normal(2.0, 2.0, shape)),
+        u_ocean=t(rng.normal(0.0, 0.05, shape)), v_ocean=t(rng.normal(0.0, 0.05, shape)),
+    )
+    h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
+    mask = model.node_mask(device=device, dtype=torch.float32)
+    consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))]))
+    return model, carry, consts, psi, model.face_masks(device=device, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("auto", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", [(64, 64), (256, 256), (200, 136)])
+def test_fused_dynamics_matches_plain_and_the_split_schedule(device, shape, masked, auto):
+    """One launch of the whole phase against the plain phase (1e-3 on the
+    mEVP planes, 1e-5 on the tracers) and K1's split schedule (the same
+    bodies: expected 0, failure above 1e-6); its speeds equal
+    dg1_sample_cfl's and its k the host's, k > 1 (3 with auto off)."""
+    model, carry, consts, psi, faces = fused_setup(device, shape, masked, auto)
+    cc.reset_launches()
+    got_carry, got_tr, info = fd.fused_dynamics_single(model, carry, psi, consts, DT, 100, faces)
+    torch.cuda.synchronize()
+    assert cc.launches["fused_dynamics"] == 1 and sum(cc.launches.values()) == 1
+    split_carry, split_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, faces, mevp="pallas",
+                                              transport="xla")
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100, faces)
+    for g, s_, r in zip(got_carry, split_carry, ref_carry):
+        assert_same_schedule(g, s_)
+        assert_close(g, r, 1e-3)
+    assert_same_schedule(got_tr, split_tr)
+    assert_close(got_tr, ref_tr, 1e-5)
+    speeds = cc.dg1_sample_cfl(model.transport, split_carry[0], split_carry[1])
+    assert torch.equal(info[:2], speeds)
+    k = int(info[2])
+    assert k == (cc._k_of_speeds(model, speeds, DT) if auto else 3) and k > 1
+
+
+def test_fused_dynamics_k_arithmetic_equals_the_host_on_the_card(device):
+    """The kernel's device function for k against the host's count on
+    float32 CPU tensors and the plain mirror, on speeds at every ceil
+    boundary up to k_max."""
+    mesh = RectMesh(256, 256, 2000.0, 2000.0)
+    speeds = fd.ceil_boundary_speeds(DT, mesh)
+    for k_floor in (1, 3):
+        got = fd.substeps_on_card(torch.tensor(speeds, device=device), DT, mesh, k_floor=k_floor).cpu().numpy()
+        host = [int(substeps_from_speeds(torch.tensor(sx), torch.tensor(sy), DT, mesh, 1, k_floor=k_floor))
+                for sx, sy in speeds]
+        np.testing.assert_array_equal(got, host)
+        np.testing.assert_array_equal(got, fd.substeps_plain(speeds[:, 0], speeds[:, 1], DT, mesh, k_floor=k_floor))
+
+
+def test_fused_headline_steps_make_no_host_sync(device):
+    """Warmed-up headline steps (dynamics only) on "fused" under
+    torch.cuda.set_sync_debug_mode("error"): nothing on the step syncs."""
+    model = CoupledModel(RectMesh(256, 256, 2000.0, 2000.0), mevp_backend="pallas")
+    assert model.schedule(device) == ("fused", "xla")
+    state = model.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, device=device, dtype=torch.float32)
+    full = lambda value: torch.full((256, 256), value, device=device, dtype=torch.float32)
+    forcing = DynamicsForcing(u_atm=full(8.0), v_atm=full(2.0), u_ocean=full(0.02), v_ocean=full(0.0))
+    state = model.run(state, None, forcing, DT, 2, do_thermo=False)
+    torch.cuda.synchronize()
+    cc.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model.run(state, None, forcing, DT, 3, do_thermo=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cc.launches["fused_dynamics"] == 3 and cc.launches["mevp_stress"] == 0
+    assert bool(torch.isfinite(out.hice).all())
+
+
+def test_fused_dynamics_refuses_what_it_does_not_hold(device):
+    model, carry, consts, psi, faces = fused_setup(device, (64, 64), True, True)
+    with pytest.raises(TypeError, match="float32"):
+        fd.fused_dynamics_single(model, tuple(c.double() for c in carry), psi, consts, DT, 10, faces)
+    big = CoupledModel(RectMesh(1024, 1024, 2000.0, 2000.0), mevp_backend="pallas")
+    assert big.schedule(device) == ("pallas", "xla")
+    zeros = torch.zeros((1024, 1024), device=device)
+    big_consts = {name: zeros for name in consts}
+    with pytest.raises(ValueError, match="does not fit"):
+        fd.fused_dynamics_single(big, (zeros,) * 5, torch.zeros((3, 3, 1024, 1024), device=device), big_consts,
+                                 DT, 10)
+    tvb = CoupledModel(RectMesh(64, 64, 250.0, 250.0), tvb_m=0.0)
+    with pytest.raises(ValueError, match="TVB"):
+        fd.fused_dynamics_single(tvb, carry, psi, consts, DT, 10, faces)
+    assert fd.max_blocks(device, fd.tiling(256, 256, cc.sm_count(device))) >= 128

@@ -222,6 +222,8 @@ REPLACED = {
     "ho_halves_spmd.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "ho_halves_spmd_forms.cu": "mevp_ho_pallas.py::ho_subcycles_pallas",
     "roofline.cu": "roofline.py::measure_vpu_peak",
+    "fused_dynamics.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "fused_dynamics_masked.cu": "coupled_pallas.py::fused_dynamics_pallas",
 }
 
 
