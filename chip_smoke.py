@@ -76,6 +76,18 @@ CFL-adaptive transport substeps:
   headline and config 4 at dG0 (rk1) and dG2 (rk3, on transport_tiled at
   1024^2), the HO 256^2 step at dG2 and a 2 x 2 rank grid of 256^2 blocks
   at dG2 (the spmd transport_tiled with rk3);
+* fused_dynamics in every other form it runs (phase
+  ``check_fused_forms``): at 256^2 periodic in x and in both axes,
+  A-weighted, adaptive alpha, dG0 (rk1), dG2 (rk3), TVB at dG1 (a middle
+  M) and dG2 (M = 0) and all of them at once with the coastline, each
+  against the plain phase and K1's split schedule in that form, each
+  form's path (the headline box in the form, "pallas") three steps, k on
+  the card equal to the host's, no host sync; the battery's
+  ``box_adaptive`` on "auto"; the "auto" threshold of ``box_adaptive``
+  and of dG2 with TVB. Where the headline's variants (dG0, dG2,
+  ``box_adaptive``, periodic TVB) ran K1's split kernels before, their
+  ``_k1`` paths pin that schedule (``K1_SPLIT``, ``K1_PINNED``), so that
+  K1's kernels keep their checks in those forms;
 * the momentum forms of ``MEVPParams`` (phase ``check_momentum_forms``):
   the battery's ``box_adaptive`` (``bench_box`` with adaptive alpha = beta:
   the headline box on "auto", mevp_tiled, and on K1's schedule) and
@@ -395,7 +407,9 @@ Phases, each printed on its own lines:
    halo kernels at config 5's 2048^2 blocks with their bounds and plain
    versions, in turns with the copy that a block widened by one ring
    would take in place of the strips; the fused_dynamics threshold sweep
-   and headline profile (phase check_fused); last, in one profiler
+   and headline profile (phase check_fused), each other form in turns
+   with the headline's instance and its threshold sweeps (phase
+   check_fused_forms); last, in one profiler
    session, the profiler's device duration of K1's four kernels at 256^2 (and
    dg1_rk_stage's first-stage and qv forms there, its metric form at 1024^2),
    transport_tiled at 1024^2, ho_single and ho_tiled at their paths'
@@ -415,7 +429,7 @@ summary come last but one; each kernel's row carries ``bound_ms`` on the
 data sheet's peaks and ``measured_bound_ms`` on the measured HBM and
 mul_add rates, and each new periodic or TVB form of an earlier kernel has a
 row of its own ("mevp_stress (periodic form)", ..., "ho_tiled (A-weighted form)",
-"transport_tiled (periodic qv form)", ...); each launch counts on one row
+"transport_tiled (periodic qv form)", "fused_dynamics (dG2 form)", ...); each launch counts on one row
 (a path's launches of a kernel on the last form row that names the path).
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -438,7 +452,7 @@ import numpy as np
 import torch
 
 from nextsimdg_tpu_torch import coupled, modules
-from nextsimdg_tpu_torch.benchmarks import mevp_large, roofline
+from nextsimdg_tpu_torch.benchmarks import mevp_large, roofline, run_benchmarks
 from nextsimdg_tpu_torch.benchmarks.common import best_ms, profiled_ms_many
 from nextsimdg_tpu_torch.config import Configurator, ConfiguredModule
 from nextsimdg_tpu_torch.coupled import CoupledModel
@@ -530,8 +544,13 @@ PATH_KERNELS = {
     # grid at dG2 (rk3 on the spmd transport_tiled).
     "advection_dg1": ("dg1_rk_stage",),
     "advection_dg2": ("dg1_rk_stage",),
-    "headline_dg0": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
-    "headline_dg2": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    # Since the forms of fused_dynamics: the headline at dG0 and dG2 on
+    # "pallas" runs it; K1's split schedule is pinned (K1_SPLIT) on the _k1
+    # paths, so that K1's kernels keep their checks in these forms.
+    "headline_dg0": ("fused_dynamics",),
+    "headline_dg2": ("fused_dynamics",),
+    "headline_dg0_k1": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
+    "headline_dg2_k1": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
     "config4_dg0": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "config4_dg2": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "ho_coupled_256_dg2": ("ho_single", "transport_tiled"),
@@ -540,8 +559,9 @@ PATH_KERNELS = {
     # on "auto" and on K1's schedule, coupled_1m_aweighted, the spherical
     # coastline step A-weighted on mevp_single, free drift at 256^2 (its
     # momentum step is plain PyTorch: no TPU kernel exists for it), and the
-    # A-weighted 2 x 2 rank grid.
-    "box_adaptive": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
+    # A-weighted 2 x 2 rank grid. box_adaptive on "auto" runs fused_dynamics
+    # since its forms; box_adaptive_k1 pins K1's split schedule.
+    "box_adaptive": ("fused_dynamics",),
     "box_adaptive_k1": ("mevp_stress", "mevp_velocity", "dg1_sample_cfl", "dg1_rk_stage"),
     "coupled_1m_aweighted": ("mevp_tiled", "dg1_sample_cfl", "transport_tiled"),
     "spherical_aweighted": ("mevp_single", "dg1_sample_cfl", "transport_tiled"),
@@ -550,8 +570,10 @@ PATH_KERNELS = {
 }
 VELOCITY = ("u", "v", "s11", "s22", "s12")
 #: K1's split schedule as a step's phase (on a uniform mesh "pallas" takes
-#: fused_dynamics where it holds).
+#: fused_dynamics where it holds), and the paths that pin it: their models
+#: run fused_dynamics on their own schedule.
 K1_SPLIT = functools.partial(cc.dynamics_phase, mevp="pallas", transport="xla")
+K1_PINNED = {"headline_dg0_k1", "headline_dg2_k1", "box_adaptive_k1"}
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -690,12 +712,14 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_model(device, n: int = N, degree: int = 1):
-    """The headline configuration (on a 512 km square; n elements a side)."""
-    mesh = RectMesh(n, n, dx=512e3 / n, dy=512e3 / n)
+def bench_model(device, n: int = N, degree: int = 1, periodic=(False, False), ocean=None, **form):
+    """The headline configuration (on a 512 km square; n elements a side);
+    ``periodic``: the (x, y) axes, ``ocean``: a coastline, ``form``: more
+    of the model's keywords (tvb_m, mevp_params)."""
+    mesh = RectMesh(n, n, dx=512e3 / n, dy=512e3 / n, periodic_x=periodic[0], periodic_y=periodic[1])
+    form = {"mevp_params": MEVPParams(), **form}
     model = CoupledModel(
-        mesh, degree=degree, mevp_params=MEVPParams(), n_subcycles=N_SUBCYCLES,
-        mevp_backend="pallas",
+        mesh, degree=degree, n_subcycles=N_SUBCYCLES, mevp_backend="pallas", ocean_mask=ocean, **form,
     )
     state = model.initial_state(
         hice0=1.0, cice0=0.9, hsnow0=0.05, sst0=-1.6, sss0=32.0,
@@ -921,6 +945,10 @@ def ptxas_report(text: str):
                     ", periodic" if args[3:] and args[3][1] == "1" else "") + ">"
             elif kernel == "fused_dynamics_kernel":  # resident consts, the coastline form
                 kernel += f"<{args[0][1]} const planes in shared memory{', face masks' if args[1][1] == '1' else ''}>"
+            elif kernel == "fused_dynamics_forms_kernel":  # degree, TVB, momentum form, resident consts
+                kernel += (f"<dG{args[0][1]}{', TVB' if args[1][1] == '1' else ''}, "
+                           f"{'adaptive' if int(args[2][1]) & 2 else 'fixed'} alpha, "
+                           f"{args[3][1]} const planes in shared memory>")
             elif kernel == "dg1_limit_kernel":  # degree, metric tolerance planes
                 kernel += f"<dG{args[0][1]}, {'metric' if args[1][1] == '1' else 'uniform'}>"
             elif args and args[0][0] == "b":  # the metric template first: ILb1E = <true>
@@ -1507,12 +1535,17 @@ def check_land(tag: str, model, out, first) -> None:
     """With a coastline: land elements keep their initial tracers exactly
     (with the TVB limiter, which limits the slopes of every element as the
     JAX package's does, their cell means), and every node that touches land
-    (node mask 0) is at rest."""
+    (node mask 0) is at rest. rk3's stage blends (3/4 psi + 1/4 psi, 1/3 psi
+    + 2/3 psi) round a land element's unchanged value by an ulp, on the plain
+    path too: there the tracers must stay within 1e-6 of their value."""
     device = out.hice.device
     land = torch.as_tensor(model.ocean_mask == 0.0, device=device)
     kept = slice(0, 1) if model.transport.limits_slopes else slice(None)
+    rk3 = model.transport.scheme == "rk3"
     for name in ("hice", "cice", "hsnow"):
-        if not torch.equal(getattr(out, name)[kept][:, land], getattr(first, name)[kept][:, land]):
+        got, ref = getattr(out, name)[kept][:, land], getattr(first, name)[kept][:, land]
+        same = torch.allclose(got, ref, rtol=1e-6, atol=0.0) if rk3 else torch.equal(got, ref)
+        if not same:
             raise AssertionError(f"{tag}: {name} changed on land")
     mask = model.node_mask(device=device, dtype=out.hice.dtype)
     # The HO velocity: the nodes of each CG2 plane against that plane's mask.
@@ -1541,11 +1574,25 @@ def compare_step(tag: str, got, ref) -> None:
         compare(f"{tag}.velocity.{name}", g, r, TOL_STEP_MEVP)
 
 
-def drive_path(path: str, model, state, phys, dyn, do_thermo: bool, n_steps: int = 20) -> dict:
-    """n_steps steps from zeroed launch counters; fails unless every kernel
-    of the path was launched."""
+def path_step(model, state, phys, dyn, do_thermo: bool, phase=None):
+    """One step of a path: the model's own schedule, or with ``phase`` (as
+    ``K1_SPLIT``) that dynamics phase in its place."""
+    if phase is None:
+        return model.step(state, phys, dyn, DT, do_thermo=do_thermo)
+    state = model.step_dynamics(state, dyn, DT, phase=phase)
+    return model.step_thermo(state, phys, DT) if do_thermo else state
+
+
+def drive_path(path: str, model, state, phys, dyn, do_thermo: bool, n_steps: int = 20, phase=None) -> dict:
+    """n_steps steps from zeroed launch counters (``phase``: as
+    ``path_step``'s); fails unless every kernel of the path was launched."""
     cc.reset_launches()
-    out = model.run(state, phys, dyn, DT, n_steps, do_thermo=do_thermo)
+    if phase is None:
+        out = model.run(state, phys, dyn, DT, n_steps, do_thermo=do_thermo)
+    else:
+        out = state
+        for _ in range(n_steps):
+            out = path_step(model, out, phys, dyn, do_thermo, phase)
     torch.cuda.synchronize()
     counts = dict(cc.launches)
     log("slice", f"{path}: {n_steps} steps, launches: {counts}")
@@ -1642,17 +1689,23 @@ FUSED_STEPS = 20
 FUSED_DX = 250.0
 
 
-def fused_inputs(device, n: int, masked: bool, auto: bool, seed: int = SEED + 40):
+def fused_inputs(device, n: int, masked: bool, auto: bool, seed: int = SEED + 40, periodic=(False, False),
+                 **form):
     """(model, carry, consts, psi, faces): seeded float32 inputs on an n^2
-    closed mesh of FUSED_DX elements, 100 subcycles, a coastline with
-    ``masked``, with ``auto`` off k = 3."""
+    mesh of FUSED_DX elements (``periodic``: its (x, y) axes), 100
+    subcycles, a coastline with ``masked``, with ``auto`` off k = 3;
+    ``form``: the model's degree, mevp_params and tvb_m ("mid": the middle M
+    of the drawn hice slopes, so that the limiter both cuts and keeps)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     shape = (n, n)
+    mid = form.get("tvb_m") == "mid"
+    if mid:
+        form = {**form, "tvb_m": 0.0}  # set below, from the drawn slopes
     model = CoupledModel(
-        RectMesh(n, n, FUSED_DX, FUSED_DX), n_subcycles=N_SUBCYCLES,
-        ocean_mask=synthetic_coastline(n, n) if masked else None,
-        auto_substeps=auto, transport_substeps=1 if auto else 3,
+        RectMesh(n, n, FUSED_DX, FUSED_DX, periodic_x=periodic[0], periodic_y=periodic[1]),
+        n_subcycles=N_SUBCYCLES, ocean_mask=synthetic_coastline(n, n) if masked else None,
+        auto_substeps=auto, transport_substeps=1 if auto else 3, **form,
     )
     carry = tuple(t(rng.normal(0.0, s, shape)) for s in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
@@ -1662,8 +1715,39 @@ def fused_inputs(device, n: int, masked: bool, auto: bool, seed: int = SEED + 40
     h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
     mask = model.node_mask(device=device, dtype=torch.float32)
     consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
-    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))]))
+    k = model.transport.basis.n_dofs
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (k - 1, 3, *shape))]))
+    if mid:
+        model.transport.tvb_m = middle_m(psi[:, 0], model.mesh)
     return model, carry, consts, psi, model.face_masks(device=device, dtype=torch.float32)
+
+
+def check_fused_launch(tag: str, model, carry, consts, psi, faces, auto: bool) -> float:
+    """One fused_dynamics launch against the plain phase (1e-3 on the mEVP
+    planes, 1e-5 on the tracers) and K1's split schedule in the same form
+    (expected 0, failure above 1e-6); its speeds equal dg1_sample_cfl's and
+    its k the host's (k > 1; 3 with ``auto`` off). Returns the largest error
+    against the plain phase."""
+    errs = [0.0]
+    cc.reset_launches()
+    got_carry, got_tr, info = fd.fused_dynamics_single(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
+    torch.cuda.synchronize()
+    if cc.launches["fused_dynamics"] != 1 or sum(cc.launches.values()) != 1:
+        raise AssertionError(f"{tag}: launches {dict(cc.launches)}")
+    split = K1_SPLIT(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
+    ref = cc.fused_dynamics_reference(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
+    for name, g, sp, r in zip(VELOCITY, got_carry, split[0], ref[0]):
+        same_schedule(f"{tag}.{name}", g, sp)
+        errs.append(compare(f"{tag}.{name} vs plain", g, r, TOL_STEP_MEVP))
+    same_schedule(f"{tag}.tracers", got_tr, split[1])
+    errs.append(compare(f"{tag}.tracers vs plain", got_tr, ref[1], TOL_STEP_TRACER))
+    speeds = cc.dg1_sample_cfl(model.transport, split[0][0], split[0][1])
+    compare(f"{tag}.speeds vs dg1_sample_cfl", info[:2], speeds, 0.0)
+    k, host_k = int(info[2]), (cc._k_of_speeds(model, speeds, DT) if auto else 3)
+    if k != host_k or k < 2:
+        raise AssertionError(f"{tag}: k = {k}, the host's {host_k} (k > 1 expected)")
+    log("check", f"{tag}: k = {k} on the card and on the host")
+    return max(errs)
 
 
 def fused_work(n: int, k: int, masked: bool = False) -> tuple:
@@ -1708,24 +1792,7 @@ def check_fused(device, card: str) -> Row:
         for auto in (True, False):
             tag = f"fused_dynamics {N}x{N}{' coastline' if masked else ''} {'auto' if auto else 'k = 3'}"
             model, carry, consts, psi, faces = fused_inputs(device, N, masked, auto)
-            cc.reset_launches()
-            got_carry, got_tr, info = fd.fused_dynamics_single(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
-            torch.cuda.synchronize()
-            if cc.launches["fused_dynamics"] != 1 or sum(cc.launches.values()) != 1:
-                raise AssertionError(f"{tag}: launches {dict(cc.launches)}")
-            split = K1_SPLIT(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
-            ref = cc.fused_dynamics_reference(model, carry, psi, consts, DT, N_SUBCYCLES, faces)
-            for name, g, sp, r in zip(VELOCITY, got_carry, split[0], ref[0]):
-                same_schedule(f"{tag}.{name}", g, sp)
-                errs.append(compare(f"{tag}.{name} vs plain", g, r, TOL_STEP_MEVP))
-            same_schedule(f"{tag}.tracers", got_tr, split[1])
-            errs.append(compare(f"{tag}.tracers vs plain", got_tr, ref[1], TOL_STEP_TRACER))
-            speeds = cc.dg1_sample_cfl(model.transport, split[0][0], split[0][1])
-            compare(f"{tag}.speeds vs dg1_sample_cfl", info[:2], speeds, 0.0)
-            k, host_k = int(info[2]), (cc._k_of_speeds(model, speeds, DT) if auto else 3)
-            if k != host_k or k < 2:
-                raise AssertionError(f"{tag}: k = {k}, the host's {host_k} (k > 1 expected)")
-            log("check", f"{tag}: k = {k} on the card and on the host")
+            errs.append(check_fused_launch(tag, model, carry, consts, psi, faces, auto))
 
     mesh = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N)
     speeds = fd.ceil_boundary_speeds(DT, mesh)
@@ -1815,6 +1882,209 @@ def check_fused(device, card: str) -> Row:
         del m, st, f, fns
     profile(f"headline step on fused_dynamics ({N}x{N})", step, watch="fused_dynamics")
     return row
+
+
+# -- fused_dynamics in its other forms (phase check_fused_forms) ------------------
+#: The forms that check_fused_forms holds at 256^2: key -> (the kernels
+#: line's row, fused_inputs' keywords, the instances' source, the paths
+#: whose launches the row counts besides its own "fused_<key>"). tvb_m
+#: "mid": the middle M of the inputs' slopes; "masked": the coastline only.
+_BOTH_FORMS = MEVPParams(a_weighted_stress=True, adaptive_alpha=True, alpha_min=20.0)
+FUSED_FORMS = {
+    "periodic_x": ("fused_dynamics periodic x", dict(periodic=(True, False)), "fused_dynamics_dg1.cu", ()),
+    "periodic": ("fused_dynamics periodic", dict(periodic=(True, True)), "fused_dynamics_dg1.cu", ()),
+    "a_weighted": ("fused_dynamics A-weighted", dict(mevp_params=MEVPParams(a_weighted_stress=True)),
+                   "fused_dynamics_dg1.cu", ()),
+    "adaptive": ("fused_dynamics adaptive", dict(mevp_params=MEVPParams(adaptive_alpha=True, alpha_min=20.0)),
+                 "fused_dynamics_dg1.cu", ("box_adaptive",)),
+    "dg0": ("fused_dynamics dG0", dict(degree=0), "fused_dynamics_dg0.cu", ("headline_dg0",)),
+    "dg2": ("fused_dynamics dG2", dict(degree=2), "fused_dynamics_dg2.cu", ("headline_dg2",)),
+    "tvb_dg1": ("fused_dynamics tvb dG1", dict(tvb_m="mid"), "fused_dynamics_dg1_tvb.cu",
+                ("tvb_headline_auto_m0", "tvb_headline_auto_mmid")),
+    "tvb_dg2": ("fused_dynamics tvb dG2", dict(degree=2, tvb_m=0.0), "fused_dynamics_dg2_tvb.cu", ()),
+    "every": ("fused_dynamics dG2 tvb periodic A-weighted adaptive coastline",
+              dict(periodic=(True, True), degree=2, tvb_m="mid", mevp_params=_BOTH_FORMS, masked=True),
+              "fused_dynamics_dg2_tvb.cu", ()),
+}
+PATH_KERNELS.update({f"fused_{key}": ("fused_dynamics",) for key in FUSED_FORMS})
+#: Steps of each form's path: k held to the host's at each, then the
+#: launch counts, then the no-sync steps.
+FUSED_FORM_STEPS = 3
+
+
+def fused_form_work(n: int, k: int, form, masked: bool) -> tuple:
+    """(bytes, operations) of one call of the forms' kernel at n^2 with k
+    substeps: the 5 state, 8 const (a_node too) and 3K tracer planes (and 2
+    masks) read once, 5 + 3K written; per element the subcycles' stress
+    (the weighted body; adaptive: its divides) and velocity halves, the CFL
+    sampling at the degree's points, and per substep and stage the velocity
+    sampled in full and per tracer its stage (dg1_stage_cell: the update and
+    the limiter, every face point: a trace, the normal flux, the mask) and,
+    with TVB, the limiter pass."""
+    kk, q, e = dg_sizes(form.degree)
+    planes = 5 + 8 + 3 * kk + (2 if masked else 0) + 5 + 3 * kk
+    stress = OPS["stress_both"] if form.adaptive else OPS["stress_weighted"]
+    cfl = 2 * q * 9 + 2 * e * 5
+    tracer = stage_cell_ops(form.degree, True, not form.tvb) + 4 * e * (2 * kk + 1)
+    tracer += tvb_limit_ops(form.degree) if form.tvb else 0
+    stage = 2 * q * 7 + 4 * e * 3 + 3 * tracer
+    ops = N_SUBCYCLES * (stress + OPS["velocity"]) + cfl + form.stages * k * stage
+    return planes * 4 * n * n, ops * n * n
+
+
+def fused_form_path(device, key: str):
+    """(model, state, forcing) of a form's path: the headline box (256^2, 2
+    km elements, wind (8, 2)) in the form, on "pallas"; TVB forms from a
+    state with fronts, so that the limiter has slopes to cut."""
+    kwargs = dict(FUSED_FORMS[key][1])
+    masked = kwargs.pop("masked", False)
+    mid = kwargs.get("tvb_m") == "mid"
+    if mid:
+        kwargs["tvb_m"] = 0.0  # set below, from the fronts' slopes
+    model, state, forcing = bench_model(device, N, ocean=synthetic_coastline(N) if masked else None, **kwargs)
+    if model.transport.limits_slopes:
+        state = with_fronts(state, SEED + 30)
+    if mid:
+        model.transport.tvb_m = middle_m(state.hice, model.mesh)
+    return model, state, forcing
+
+
+def check_fused_forms(device, card: str) -> tuple:
+    """Phase check_fused_forms: fused_dynamics in every other form
+    (FUSED_FORMS) at 256^2, as check_fused holds the headline's:
+
+    1. each form's kernel against the plain phase and K1's split schedule in
+       that form, with and without the coastline, auto_substeps on and off,
+       its speeds and k against the host's (check_fused_launch); the k
+       arithmetic at dG0 and dG2 on every ceil boundary;
+    2. each form's path (the headline box in the form): its k equal to the
+       host's at each of FUSED_FORM_STEPS steps, the steps bounded with
+       fused_dynamics launched and nothing else of K1, and warmed-up steps
+       under set_sync_debug_mode("error");
+    3. each form's kernel in turns with the headline's instance, back to
+       back, and its plain phase once (device durations probed last);
+    4. the battery's box_adaptive (``run_benchmarks.run_config``) on "auto",
+       on fused_dynamics; the "auto" threshold sweep of box_adaptive and of
+       dG2 with TVB (M = 0) at 256^2 and at the largest square the form
+       holds: the dynamics step on fused, tiled and K1's split schedule in
+       turns.
+
+    Returns (the counts by path, the largest check error)."""
+    sms = cc.sm_count(device)
+    errs, counts = [0.0], {}
+    c_model, c_carry, c_consts, c_psi, _ = fused_inputs(device, N, False, True)
+    closed_launch = lambda: fd.fused_dynamics_single(c_model, c_carry, c_psi, c_consts, DT, N_SUBCYCLES)
+    for key, (label, kwargs, source, _) in FUSED_FORMS.items():
+        kwargs = dict(kwargs)
+        masks = (True,) if kwargs.pop("masked", False) else (False, True)
+        form = None
+        for masked in masks:
+            for auto in (True, False):
+                model, carry, consts, psi, faces = fused_inputs(device, N, masked, auto, **kwargs)
+                form = fd.form_of(model)
+                tag = f"{label} {N}x{N}{' coastline' if masked else ''} {'auto' if auto else 'k = 3'}"
+                if model.schedule(device) != ("fused", "xla") or form.headline:
+                    raise AssertionError(f"{tag}: schedule {model.schedule(device)}, form {form}")
+                errs.append(check_fused_launch(tag, model, carry, consts, psi, faces, auto))
+        config = fd.tiling(N, N, sms, masked, form)
+        log("build", (
+            f"{label} at {N}x{N}: {config.tiles[0]}x{config.tiles[1]} tiles of {config.tile}, {config.threads} "
+            f"threads, {config.shared_bytes} B shared, {config.resident} const planes resident, "
+            f"{config.exchange_words * 8} B of exchange words; {fd.max_blocks(device, config)} blocks resident at "
+            f"once; holds squares up to {fd.largest_square(sms, masked, form)}^2"
+        ))
+        # The timed call: the last inputs (auto off, k = 3, with the coastline).
+        launch = lambda m=model, c=carry, k_=consts, p=psi, f=faces: fd.fused_dynamics_single(
+            m, c, p, k_, DT, N_SUBCYCLES, f)
+        k = int(launch()[2][2])
+        plain = lambda m=model, c=carry, k_=consts, p=psi, f=faces: cc.fused_dynamics_reference(
+            m, c, p, k_, DT, N_SUBCYCLES, f)
+        runs = time_in_turns({"form": launch, "headline": closed_launch, "plain": plain},
+                             {"form": 20, "headline": 20, "plain": None})
+        DEVICE_PROBES[label] = launch
+        work = fused_form_work(N, k, form, masked)
+        TVB_FORMS[label] = Row(max(errs), sum(runs["form"]) / len(runs["form"]), runs["plain"][0], *work)
+        b = bound(*work)
+        log("time", (
+            f"{label}: form {', '.join(f'{m:.5f}' for m in runs['form'])} ms, headline instance "
+            f"{', '.join(f'{m:.5f}' for m in runs['headline'])} ms (in turns, back to back; k = {k}), plain "
+            f"{runs['plain'][0]:.3f} ms, bound {b[0]:.5f} ms ({b[1]}) at {N}x{N} on {card}"
+        ))
+
+        path = f"fused_{key}"
+        model, state, forcing = fused_form_path(device, key)
+        if model.schedule(device) != ("fused", "xla"):
+            raise AssertionError(f"{path} does not run fused_dynamics: {model.schedule(device)}")
+        infos = []
+
+        def recorded(model, carry, tracers, consts, dt, n, faces):
+            planes, out, info = fd.fused_dynamics_single(model, carry, tracers, consts, dt, n, faces)
+            infos.append((info, planes[0], planes[1]))
+            return planes, out
+
+        out = state
+        for _ in range(FUSED_FORM_STEPS):
+            out = model.step_dynamics(out, forcing, DT, phase=recorded)
+        for info, u, v in infos:
+            speeds = cc.dg1_sample_cfl(model.transport, u, v)
+            if not torch.equal(info[:2], speeds) or int(info[2]) != cc._k_of_speeds(model, speeds, DT):
+                raise AssertionError(f"{path}: the card's (speeds, k) {info.tolist()} differ from the host's")
+        counts[path] = drive_path(path, model, state, None, forcing, False, n_steps=FUSED_FORM_STEPS)
+        if sum(counts[path].values()) != counts[path]["fused_dynamics"]:
+            raise AssertionError(f"{path}: kernels besides fused_dynamics launched: {counts[path]}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.run(state, None, forcing, DT, 2, do_thermo=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log("check", (
+            f"{path}: k on the card = the host's at each of {FUSED_FORM_STEPS} steps "
+            f"({[int(i[2]) for i, _, _ in infos]}); 2 steps under set_sync_debug_mode('error'): no host sync"
+        ))
+
+    mesh = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N)
+    for degree in (0, 2):
+        speeds = fd.ceil_boundary_speeds(DT, mesh, degree)
+        got = fd.substeps_on_card(torch.tensor(speeds, device=device), DT, mesh, degree).cpu().numpy()
+        plain = fd.substeps_plain(speeds[:, 0], speeds[:, 1], DT, mesh, degree)
+        host = np.array([int(cc.substeps_from_speeds(torch.tensor(x), torch.tensor(y), DT, mesh, degree))
+                         for x, y in speeds])
+        if not (np.array_equal(got, host) and np.array_equal(got, plain)):
+            raise AssertionError(f"fused_substeps dG{degree}: {int((got != host).sum())} k differ from the host's")
+        log("check", f"fused_substeps dG{degree}: {len(speeds)} speed pairs at every ceil boundary: the card's k = the host's")
+
+    cc.reset_launches()
+    result = run_benchmarks.run_config("box_adaptive", device, chunk=10)
+    if cc.launches["fused_dynamics"] == 0 or cc.launches["mevp_tiled"] or cc.launches["mevp_stress"]:
+        raise AssertionError(f"the battery's box_adaptive does not run fused_dynamics: {dict(cc.launches)}")
+    log("time", f"battery box_adaptive on auto (fused_dynamics): {result['ms_per_step']} ms a step, {result['value']:.4e} "
+                f"element updates/s on {card}")
+
+    for name, build, form in (
+        ("box_adaptive", lambda n: box_model(device, True, n), fd.Form(adaptive=True)),
+        ("dG2 TVB", lambda n: bench_model(device, n, degree=2, tvb_m=0.0), fd.Form(degree=2, stages=3, tvb=True)),
+    ):
+        for n in (N, fd.largest_square(sms, False, form)):
+            m, st, f = build(n)
+            fns = {
+                "fused": lambda: m.step_dynamics(st, f, DT, phase=functools.partial(
+                    cc.dynamics_phase, mevp="fused", transport="xla")),
+                "tiled": lambda: m.step_dynamics(st, f, DT, phase=functools.partial(
+                    cc.dynamics_phase, mevp="pallas-tiled", transport="tiled")),
+                "K1 split": lambda: m.step_dynamics(st, f, DT, phase=K1_SPLIT),
+            }
+            runs = time_in_turns(fns, dict.fromkeys(fns, 5))
+            means = {s_: sum(ms) / len(ms) for s_, ms in runs.items()}
+            for s_, ms in runs.items():
+                report(f"threshold sweep: {name}'s dynamics step on {s_} ({n}x{n})", ms, n * n, card)
+            log("time", (
+                f"threshold sweep {name} {n}x{n}: fastest {min(means, key=means.get)}; 'auto' runs "
+                f"{m.schedule(device)[0]} there"
+            ))
+            del m, st, f, fns
+    return counts, max(errs)
 
 
 #: BASELINE config 2 (``run_benchmarks.py`` ``bench_advection``): 128^2
@@ -2123,8 +2393,8 @@ def time_no_limit_form(transport, vel, psi0, dt) -> None:
 
 
 def check_degree_steps(device, card: str) -> dict:
-    """The coupled step at dG0 and dG2: the headline (256^2, K1's schedule,
-    dynamics only) and config 4 (1024^2, "auto": mevp_tiled and
+    """The coupled step at dG0 and dG2: the headline (256^2, dynamics only,
+    on fused_dynamics and on K1's split schedule, pinned) and config 4 (1024^2, "auto": mevp_tiled and
     transport_tiled with rk3 at dG2), the HO step at dG2 (256^2, ho_single
     and the qv form of transport_tiled), and the 2 x 2 rank grid's step at
     dG2 (512^2: the blocked mEVP and the spmd transport_tiled with rk3):
@@ -2135,16 +2405,24 @@ def check_degree_steps(device, card: str) -> dict:
     counts = {}
     for degree in (0, 2):
         model, state, forcing = bench_model(device, degree=degree)
-        path = f"headline_dg{degree}"
-        got = model.step(state, None, forcing, DT, do_thermo=False)
+        if model.schedule(device) != ("fused", "xla"):
+            raise AssertionError(f"headline_dg{degree} does not run fused_dynamics: {model.schedule(device)}")
         ref = model.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference)
-        for name in ("hice", "cice", "hsnow"):
-            compare(f"{path}.step.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
-        for name in VELOCITY:
-            compare(f"{path}.step.velocity.{name}", getattr(got.velocity, name), getattr(ref.velocity, name), TOL_STEP_MEVP)
-        counts[path] = drive_path(path, model, state, None, forcing, False)
-        ms = time_ms(lambda: model.step(state, None, forcing, DT, do_thermo=False), 20)
-        log("time", f"{path}: {ms:.3f} ms/step ({N}x{N}, K1's schedule, dG{degree}), {N * N / (ms / 1e3):.4e} element updates/s, f32 on {card}")
+        ms = {}
+        for path, phase in ((f"headline_dg{degree}", None), (f"headline_dg{degree}_k1", K1_SPLIT)):
+            got = path_step(model, state, None, forcing, False, phase)
+            for name in ("hice", "cice", "hsnow"):
+                compare(f"{path}.step.{name}", getattr(got, name), getattr(ref, name), TOL_STEP_TRACER)
+            for name in VELOCITY:
+                compare(f"{path}.step.velocity.{name}", getattr(got.velocity, name), getattr(ref.velocity, name),
+                        TOL_STEP_MEVP)
+            counts[path] = drive_path(path, model, state, None, forcing, False, phase=phase)
+            ms[path] = time_ms(lambda: path_step(model, state, None, forcing, False, phase), 20)
+        log("time", (
+            f"headline_dg{degree}: {ms[f'headline_dg{degree}']:.3f} ms/step on fused_dynamics, "
+            f"{ms[f'headline_dg{degree}_k1']:.3f} on K1's split schedule ({N}x{N}, dG{degree}), "
+            f"{N * N / (ms[f'headline_dg{degree}'] / 1e3):.4e} element updates/s, f32 on {card}"
+        ))
 
         model, state, phys, dyn = config4_model(device, degree=degree)
         path = f"config4_dg{degree}"
@@ -2371,42 +2649,40 @@ def free_drift_model(device):
         loader.reset()
 
 
-def box_model(device, adaptive: bool, **backends):
+def box_model(device, adaptive: bool, n: int = N, **backends):
     """The battery's ``box`` (``adaptive=False``) or ``box_adaptive``:
-    ``bench_box`` builds a 256^2 box of 2 km elements, wind (8, 2), on
-    "auto"; (model, state, forcing)."""
-    mesh = RectMesh(N, N, dx=512e3 / N, dy=512e3 / N)
+    ``bench_box`` builds a 256^2 box of 2 km elements (n^2 of 512 km / n),
+    wind (8, 2), on "auto"; (model, state, forcing)."""
+    mesh = RectMesh(n, n, dx=512e3 / n, dy=512e3 / n)
     model = CoupledModel(
         mesh, degree=1, n_subcycles=N_SUBCYCLES, mevp_params=MEVPParams(adaptive_alpha=adaptive), **backends,
     )
     state = model.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, device=device, dtype=torch.float32)
-    full = lambda value: torch.full((N, N), value, device=device, dtype=torch.float32)
+    full = lambda value: torch.full((n, n), value, device=device, dtype=torch.float32)
     return model, state, DynamicsForcing(u_atm=full(8.0), v_atm=full(2.0), u_ocean=full(0.02), v_ocean=full(0.0))
 
 
 def check_form_paths(device) -> dict:
     """The paths of the momentum forms: one step against the plain path on
     the card, then 20 steps from zeroed launch counts (finite, bounded,
-    every kernel of the path launched): box_adaptive on "auto" (mevp_tiled)
-    and on K1's schedule, coupled_1m_aweighted on "auto", the spherical
+    every kernel of the path launched): box_adaptive on "auto"
+    (fused_dynamics) and on K1's split schedule (pinned), coupled_1m_aweighted on "auto", the spherical
     coastline step A-weighted on mevp_single, free drift at 256^2; and the
     A-weighted 2 x 2 rank grid's step (512^2, blocked) against the
     single-device step (expected 0). Returns the counts by path."""
     counts = {}
-    for path, backends, expected in (
-        ("box_adaptive", {}, ("pallas-tiled", "tiled")),
-        ("box_adaptive_k1", {"mevp_backend": "pallas"}, ("pallas", "xla")),
-    ):
+    for path, backends in (("box_adaptive", {}), ("box_adaptive_k1", {"mevp_backend": "pallas"})):
         model, state, forcing = box_model(device, True, **backends)
         schedule = model.schedule(device)
-        log("slice", f"{path}: {N}x{N}, adaptive alpha, schedule {schedule}")
-        if schedule != expected:
-            raise AssertionError(f"{path} does not run {expected}: {schedule}")
-        got = model.step(state, None, forcing, DT, do_thermo=False)
+        phase = K1_SPLIT if path in K1_PINNED else None
+        log("slice", f"{path}: {N}x{N}, adaptive alpha, schedule {schedule}{', K1 pinned' if phase else ''}")
+        if schedule != ("fused", "xla"):
+            raise AssertionError(f"{path} does not run fused_dynamics: {schedule}")
+        got = path_step(model, state, None, forcing, False, phase)
         ref = model.step_dynamics(state, forcing, DT, phase=cc.fused_dynamics_reference)
         for name, g, r in leaves(got, ref):
             compare(f"{path}.step.{name}", g, r, TOL_STEP_MEVP if name.startswith("velocity") else TOL_STEP_TRACER)
-        counts[path] = drive_path(path, model, state, None, forcing, False)
+        counts[path] = drive_path(path, model, state, None, forcing, False, phase=phase)
 
     weighted = MEVPParams(a_weighted_stress=True)
     for path, mesh, ocean, backends, expected in (
@@ -2471,7 +2747,7 @@ def time_momentum_forms(device, card: str) -> None:
         {"box": 10, "box_adaptive": 10},
     )
     for name, ms in runs.items():
-        report(f"{name} step ({N}x{N}, {N_SUBCYCLES} subcycles, auto: mevp_tiled)", ms, N * N, card)
+        report(f"{name} step ({N}x{N}, {N_SUBCYCLES} subcycles, auto: {box.schedule(device)[0]})", ms, N * N, card)
     model, state, phys, dyn = config4_model(device)
     model_w = coupled_model(device, RectMesh(N4, N4, dx=4e3, dy=4e3), None, mevp_params=MEVPParams(a_weighted_stress=True))[0]
     runs = time_in_turns(
@@ -4352,8 +4628,8 @@ TVB_PATHS = [
     (f"tvb_{kind}_{name}_{m}", kind, tvb, backends, schedule)
     for kind, tvbs, schedules in (
         ("headline", ((0.0, "m0"), ("mid", "mmid")), (
-            ("auto", {}, ("pallas-tiled", "tiled")),
-            ("k1", {"mevp_backend": "pallas"}, ("pallas", "xla")),
+            ("auto", {}, ("fused", "xla")),
+            ("k1", {"mevp_backend": "pallas"}, ("pallas", "xla")),  # pinned: "pallas" takes fused there
             ("tiled_staged", {"mevp_backend": "pallas-tiled", "transport_backend": "xla"}, ("pallas-tiled", "xla")),
         )),
         ("config4", ((0.0, "m0"), ("mid", "mmid")), (
@@ -4372,9 +4648,12 @@ TVB_PATHS = [
     ("tvb_ring_tiled_m0", "ring", 0.0, {"mevp_backend": "pallas-tiled"}, ("pallas-tiled", "xla")),
 ]
 PATH_KERNELS.update({
-    path: SCHEDULE_KERNELS[schedule] + (("dg1_limit",) if tvb is not None and schedule[1] == "xla" else ())
+    path: SCHEDULE_KERNELS[schedule] + (
+        ("dg1_limit",) if tvb is not None and schedule[1] == "xla" and schedule[0] != "fused" else ())
     for path, _, tvb, _, schedule in TVB_PATHS
 })
+K1_PINNED.update(path for path, kind, _, _, schedule in TVB_PATHS
+                 if kind == "headline" and schedule == ("pallas", "xla"))
 #: The new forms' rows of the kernels line: row -> (kernel, source, the
 #: paths whose launches of that kernel are the form's). The periodic rows
 #: count the launches of their kernel on the periodic paths (all of them);
@@ -4394,6 +4673,10 @@ FORM_ROWS = {
     "transport_tiled tvb": ("transport_tiled", "nextsimdg_tpu_torch/csrc/transport_tiled_forms.cu", _TVB),
     "mevp_single periodic": ("mevp_single", "nextsimdg_tpu_torch/csrc/mevp_single_periodic.cu", _ALL),
 }
+FORM_ROWS.update({
+    label: ("fused_dynamics", f"nextsimdg_tpu_torch/csrc/{source}", [f"fused_{key}", *paths])
+    for key, (label, _, source, paths) in FUSED_FORMS.items()
+})
 #: Rows of the new forms, and per row the (periodic or TVB form, its
 #: closed or untouched instance, plain version, (bytes, operations)) that
 #: time_tvb_periodic times in turns.
@@ -4489,14 +4772,15 @@ def check_tvb_paths(device) -> dict:
         model, state, phys, dyn, do_thermo = tvb_path_model(device, kind, tvb_m, backends)
         mesh = model.mesh
         schedule = model.schedule(device)
+        phase = K1_SPLIT if path in K1_PINNED else None
         log("slice", (
             f"{path}: {mesh.nx}x{mesh.ny} {type(mesh).__name__} periodic "
             f"({mesh.periodic_x}, {mesh.periodic_y}), dG{model.transport.basis.degree} "
-            f"{model.transport.scheme}, tvb_m {tvb_m}, schedule {schedule}"
+            f"{model.transport.scheme}, tvb_m {tvb_m}, schedule {schedule}{', K1 pinned' if phase else ''}"
         ))
-        if schedule != expected:
+        if schedule != (("fused", "xla") if phase else expected):
             raise AssertionError(f"{path} does not run {expected}: {schedule}")
-        got = model.step(state, phys, dyn, DT, do_thermo=do_thermo)
+        got = path_step(model, state, phys, dyn, do_thermo, phase)
         ref = tvb_plain(model, state, phys, dyn, do_thermo)
         if do_thermo:
             compare_step(f"{path}.step", got, ref)
@@ -4511,7 +4795,7 @@ def check_tvb_paths(device) -> dict:
             log("slice", f"{path}: the limiter cuts {cut:.4f} of the elements and keeps {kept:.4f} of the step's tracers")
             if tvb == "mid" and not (cut > 0.05 and kept > 0.05):
                 raise AssertionError(f"{path}: the middle M does not take both branches ({cut:.4f} cut)")
-        counts[path] = drive_path(path, model, state, phys, dyn, do_thermo, n_steps=TVB_STEPS)
+        counts[path] = drive_path(path, model, state, phys, dyn, do_thermo, n_steps=TVB_STEPS, phase=phase)
     return counts
 
 
@@ -4789,13 +5073,14 @@ def time_tvb_periodic(device, card: str) -> None:
         ("headline periodic TVB K1", "headline", 0.0, {"mevp_backend": "pallas"}),
         ("headline periodic TVB auto", "headline", 0.0, {}),
     ):
-        if kind == "closed":  # K1's split schedule: "pallas" takes fused_dynamics there
+        if kind == "closed":
             model, state, forcing = bench_model(device, N)
             state = with_fronts(state, SEED + 30)
-            steps[tag] = (lambda m=model, s=state, f=forcing: m.step_dynamics(s, f, DT, phase=K1_SPLIT))
         else:
-            model, state, _, dyn, _ = tvb_path_model(device, kind, tvb_m, backends)
-            steps[tag] = (lambda m=model, s=state, f=dyn: m.step(s, None, f, DT, do_thermo=False))
+            model, state, _, forcing, _ = tvb_path_model(device, kind, tvb_m, backends)
+        # K1's split schedule: "pallas" takes fused_dynamics in these forms.
+        phase = K1_SPLIT if tag.endswith("K1") else None
+        steps[tag] = (lambda m=model, s=state, f=forcing, ph=phase: path_step(m, s, None, f, False, ph))
     runs = time_in_turns(steps, dict.fromkeys(steps, 10))
     for tag, ms in runs.items():
         report(f"{tag} step ({N}x{N}, dG1)", ms, N * N, card)
@@ -7184,6 +7469,9 @@ def run_phases(device, smi: str, sass: subprocess.Popen, t_start: float) -> int:
         kernels[kernel] = replace(kernels[kernel], err=max(kernels[kernel].err, err))
     log("build", sass_report(sass))
     kernels["fused_dynamics"] = phase(check_fused, device, smi)
+    counts_fused, err_fused = phase(check_fused_forms, device, smi)
+    counts.update(counts_fused)
+    kernels["fused_dynamics"] = replace(kernels["fused_dynamics"], err=max(kernels["fused_dynamics"].err, err_fused))
     phase(time_paths, device, smi)
     phase(time_momentum_forms, device, smi)
     phase(time_ho, device, smi)

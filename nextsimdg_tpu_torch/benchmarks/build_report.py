@@ -35,7 +35,7 @@ from ..dynamics.kernels import coupled_cuda as cc
 KERNELS = (
     "mevp_stress_kernel", "mevp_velocity_kernel", "mevp_tiled_kernel", "mevp_single_kernel",
     "transport_tiled_kernel", "dg1_rk_stage_kernel", "dg1_sample_cfl_kernel", "dg1_limit_kernel", "ho_single_kernel",
-    "ho_tiled_kernel", "rdma_band_kernel", "rdma_stage_kernel",
+    "ho_tiled_kernel", "rdma_band_kernel", "rdma_stage_kernel", "fused_dynamics_kernel",
 )
 #: Trailing template arguments that are false or 0 (the closed forms).
 _CLOSED_ARG = re.compile(r"L[bi]0E$")

@@ -157,7 +157,8 @@ def bench_box(
     n: int = 256, n_subcycles: int = 100, chunk: int = 160, device=None, adaptive: bool = False,
 ) -> dict:
     """BASELINE config 3: wind-driven box, 100 mEVP subcycles, thermo off
-    ("auto" schedule: the tiled kernels). ``adaptive=True`` is the JAX
+    ("auto" schedule: fused_dynamics, one launch a step, in either form).
+    ``adaptive=True`` is the JAX
     battery's ``box_adaptive``: the same box with the aEVP-style adaptive
     alpha = beta (``MEVPParams(adaptive_alpha=True)``)."""
     device = _device(device)

@@ -159,8 +159,9 @@ class CoupledModel:
         * ``mevp_backend``: ``"pallas"``, the counterpart of the JAX value
           that selects its single-call kernels: on a uniform mesh
           ``fused_dynamics`` (the whole phase in one launch, k on the card)
-          where the card holds the grid and the kernel the model's form,
-          else K1's split schedule (two launches per subcycle, then one
+          where the card holds the grid (every form of a uniform CG1 model:
+          periodic axes, A-weighted stresses, adaptive alpha, dG0-dG2, TVB,
+          a coastline), else K1's split schedule (two launches per subcycle, then one
           ``dg1_rk_stage`` per RK stage); ``transport_backend`` does not
           apply, as in the JAX fused path; on a graded or spherical mesh
           ``mevp_single`` (all N subcycles in one launch);

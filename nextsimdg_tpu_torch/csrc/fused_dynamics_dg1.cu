@@ -1,0 +1,17 @@
+// The dG1 forms of fused_dynamics other than the headline's (a periodic
+// axis, A-weighted stresses, adaptive alpha, a scheme other than rk2):
+// fused_dynamics.cuh's fused_dynamics_forms_kernel, which replaces, with
+// fused_dynamics.cu, the TPU kernel
+// nextsimdg_tpu/dynamics/kernels/coupled_pallas.py::fused_dynamics_pallas.
+// Its 4 instances: fixed or adaptive alpha, the consts resident or not; each axis
+// closed or periodic, the stresses A-weighted or not and the coastline or
+// none at run time. Compiled beside the other sources, in parallel.
+#include "fused_dynamics.cuh"
+
+namespace nst {
+
+const void* fused_forms_dg1(bool adaptive, int n_resident) {
+  return fused_forms_kernel_of<1, false>(adaptive, n_resident);
+}
+
+}  // namespace nst

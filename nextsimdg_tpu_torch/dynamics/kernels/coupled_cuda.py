@@ -316,9 +316,11 @@ def _bind():
     lib.nst_ho_stress.argtypes = [p] * 4 + [i] * 3 + [p, p, i, p]
     lib.nst_ho_velocity.argtypes = [p] * 6 + [i] * 3 + [p, p, i, p]
     d = ctypes.c_double
-    lib.nst_fused_dynamics.argtypes = [p] * 12 + [i] * 9 + [d] + [i] * 3 + [p] * 3 + tail[1:]
-    lib.nst_fused_dynamics_max_blocks.argtypes = [i] * 6
+    lib.nst_fused_dynamics.argtypes = [p] * 12 + [i] * 9 + [d] + [i] * 3 + [p] * 5 + tail[1:]
+    lib.nst_fused_dynamics_max_blocks.argtypes = [i] * 5 + [p, i]
     lib.nst_fused_dynamics_max_blocks.restype = i
+    lib.nst_fused_dynamics_shared_bytes.argtypes = [i] * 4 + [p]
+    lib.nst_fused_dynamics_shared_bytes.restype = i
     lib.nst_fused_substeps.argtypes = [p, p, i, d, i, i, i, p, i, p]
     lib.nst_fused_substeps.restype = i
     for name in KERNELS + _HALO_ENTRIES:

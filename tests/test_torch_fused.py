@@ -45,7 +45,7 @@ DX = 2000.0  # 2 km elements: the seeded velocity needs k > 1 substeps
 def test_the_headline_grid_is_held_on_132_sms():
     config = fd.tiling(256, 256, H100_SMS)
     assert config.tile == (16, 32) and config.tiles == (16, 8) and config.threads == 512
-    assert config.resident == fd.CONST_PLANES  # the 7 consts in shared memory
+    assert config.resident == fd.HEADLINE.const_planes == 7  # the 7 consts in shared memory
     assert config.shared_bytes == (5 + 7 + 18 + 2) * 18 * 34 * 4 <= fd.SHARED_LIMIT - fd.STATIC_BYTES
     assert fd.holds(256, 256, H100_SMS) and fd.holds(256, 256, H100_SMS, masked=False)
     assert config.exchange_words == 128 * (5 * 48 + 36 * 48 + 2)
@@ -59,6 +59,55 @@ def test_a_grid_too_large_is_not_held():
     with pytest.raises(ValueError, match="does not fit"):
         fd.tiling(1024, 1024, H100_SMS)
     assert not fd.holds(256, 256, 16)  # too few SMs for the tiles
+
+
+#: The forms beside the headline's: (Form, the largest square held on 132
+#: SMs, with the coastline or without: the forms' instances always take the
+#: masks' planes).
+FORMS = {
+    "periodic x": (fd.Form(periodic=(True, False)), 528),
+    "periodic both": (fd.Form(periodic=(True, True)), 528),
+    "A-weighted": (fd.Form(weighted=True), 528),
+    "adaptive": (fd.Form(adaptive=True), 528),
+    "dG0": (fd.Form(degree=0, stages=1), 728),
+    "dG2": (fd.Form(degree=2, stages=3), 300),
+    "TVB dG1": (fd.Form(tvb=True), 528),
+    "TVB dG2": (fd.Form(degree=2, stages=3, tvb=True), 300),
+    "every form": (fd.Form(degree=2, stages=3, tvb=True, adaptive=True, weighted=True, periodic=(True, True)), 288),
+}
+
+
+@pytest.mark.parametrize("name", list(FORMS))
+def test_each_form_holds_the_headline_grid_and_its_largest_square(name):
+    """At 256^2 on 132 SMs every form keeps the headline's tiles and its 8
+    consts (a_node the eighth) resident; its shared bytes (the masks' planes
+    with or without a coastline) and exchange words follow its tracer
+    buffers (K coefficients x 3 tracers, two buffers, three for rk3); its
+    largest square falls with the buffers (dG2 rk3: 300^2, its consts
+    resident in shared memory; dG0: 728^2, by 8 cells a thread of 512; the
+    headline's 528^2)."""
+    form, largest = FORMS[name]
+    config = fd.tiling(256, 256, H100_SMS, False, form)
+    k = (1, 3, 6)[form.degree]
+    buffers = 3 if form.stages == 3 else 2
+    assert not form.headline and config.tile == (16, 32) and config.tiles == (16, 8)
+    assert config.threads == (256 if form.degree == 2 else 512)
+    assert config.resident == form.const_planes == 8
+    assert config.shared_bytes == (5 + 8 + buffers * 3 * k + 2) * 18 * 34 * 4 <= fd.SHARED_LIMIT - fd.STATIC_BYTES
+    assert config.exchange_words == 128 * (5 * 48 + 2 * 3 * k * 96 + 2)
+    assert config.masked and config == fd.tiling(256, 256, H100_SMS, True, form)
+    assert fd.largest_square(H100_SMS, True, form) == fd.largest_square(H100_SMS, False, form) == largest
+    assert fd.holds(largest, largest, H100_SMS, False, form)
+    if form.degree == 2:  # its consts always resident
+        assert fd.tiling(largest, largest, H100_SMS, False, form).resident == 8
+
+
+def test_a_periodic_axis_takes_only_tiles_that_divide_it():
+    form = fd.Form(periodic=(True, True))
+    config = fd.tiling(200, 136, H100_SMS, False, form)
+    assert 200 % config.tile[0] == 0 and 136 % config.tile[1] == 0 and config.n_tiles <= H100_SMS
+    closed = fd.tiling(200, 136, H100_SMS, False, fd.Form(weighted=True))
+    assert 136 % closed.tile[1] != 0  # the closed form keeps its ragged tiles
 
 
 def test_ragged_tiles():
@@ -75,17 +124,19 @@ def test_ragged_tiles():
 
 
 # -- the CFL count ------------------------------------------------------------
+@pytest.mark.parametrize("degree", [0, 1, 2])
 @pytest.mark.parametrize("k_floor", [1, 3])
-def test_the_kernel_k_arithmetic_matches_the_host_and_jax(k_floor):
+def test_the_kernel_k_arithmetic_matches_the_host_and_jax(k_floor, degree):
     """The plain mirror of the kernel's k (float32 operations, the Python
     scalars rounded first) equals the port's host count on float32 CPU
     tensors and JAX's ``cfl_substeps`` at float32, on speeds at the ceil's
-    boundaries; float64 arithmetic would not (the sweep is that sharp)."""
+    boundaries of each degree's c_stab = 0.85 / (2p + 1); float64 arithmetic
+    would not (the sweep is that sharp)."""
     mesh, dt = RectMesh(256, 256, DX, DX), 600.0
-    speeds = fd.ceil_boundary_speeds(dt, mesh)
-    mine = fd.substeps_plain(speeds[:, 0], speeds[:, 1], dt, mesh, k_floor=k_floor)
+    speeds = fd.ceil_boundary_speeds(dt, mesh, degree)
+    mine = fd.substeps_plain(speeds[:, 0], speeds[:, 1], dt, mesh, degree, k_floor=k_floor)
     host = np.array([
-        int(substeps_from_speeds(torch.tensor(sx), torch.tensor(sy), dt, mesh, 1, k_floor=k_floor))
+        int(substeps_from_speeds(torch.tensor(sx), torch.tensor(sy), dt, mesh, degree, k_floor=k_floor))
         for sx, sy in speeds
     ])
     np.testing.assert_array_equal(mine, host)
@@ -95,13 +146,13 @@ def test_the_kernel_k_arithmetic_matches_the_host_and_jax(k_floor):
     jmesh = JaxRectMesh(nx=256, ny=256, dx=DX, dy=DX)
     zero = jnp.zeros(1, dtype=jnp.float32)
     jax_k = jax.vmap(lambda sx, sy: jax_cfl_substeps(
-        JaxQuadVelocity(vx_vol=sx[None], vy_vol=sy[None], vn_x=zero, vn_y=zero), dt, jmesh, 1,
+        JaxQuadVelocity(vx_vol=sx[None], vy_vol=sy[None], vn_x=zero, vn_y=zero), dt, jmesh, degree,
         k_floor=k_floor,
     ))(jnp.asarray(speeds[:, 0]), jnp.asarray(speeds[:, 1]))
     np.testing.assert_array_equal(mine, np.asarray(jax_k))
 
     nu = (speeds[:, 0].astype(np.float64) / DX + speeds[:, 1].astype(np.float64) / DX) * dt
-    k64 = np.clip(np.maximum(np.ceil(nu / (0.85 / 3)), k_floor), 1, fd.K_MAX)
+    k64 = np.clip(np.maximum(np.ceil(nu / (0.85 / (2 * degree + 1))), k_floor), 1, fd.K_MAX)
     assert np.any(k64 != mine)
     assert mine.max() == fd.K_MAX and mine.min() == k_floor
 
@@ -153,23 +204,50 @@ def test_auto_takes_fused_below_its_threshold(monkeypatch):
     assert CoupledModel(RectMesh(16, 16, DX, DX)).schedule("cuda")[0] == "fused"
 
 
+def _graded_mesh():
+    widths = np.linspace(1500.0, 2500.0, 256)
+    return RectMesh(256, 256, widths, DX)
+
+
 @pytest.mark.parametrize(
     "kwargs, expected",
     [
-        (dict(mevp_params=MEVPParams(adaptive_alpha=True)), ("pallas", "xla")),
-        (dict(mevp_params=MEVPParams(a_weighted_stress=True)), ("pallas", "xla")),
-        (dict(degree=2), ("pallas", "xla")),
-        (dict(degree=0), ("pallas", "xla")),
-        (dict(tvb_m=0.0), ("pallas", "xla")),
-        (dict(periodic=True), ("pallas", "xla")),
+        (dict(mevp_params=MEVPParams(adaptive_alpha=True)), ("fused", "xla")),
+        (dict(mevp_params=MEVPParams(a_weighted_stress=True)), ("fused", "xla")),
+        (dict(degree=2), ("fused", "xla")),
+        (dict(degree=0), ("fused", "xla")),
+        (dict(tvb_m=0.0), ("fused", "xla")),
+        (dict(periodic=True), ("fused", "xla")),
+        (dict(mesh="graded"), ("single", "tiled")),
+        (dict(mesh="spherical"), ("single", "tiled")),
+        (dict(solver="Nextsim::MEVPHighOrder"), ("single", "tiled")),
+        (dict(solver="Nextsim::FreeDrift"), ("free-drift", "tiled")),
     ],
 )
 def test_fused_is_not_taken_for_the_forms_it_lacks(monkeypatch, kwargs, expected):
+    """Since the forms were built, the kernel lacks only what the TPU kernel
+    lacks too: a graded or spherical mesh, the HO solver and free drift (and
+    a rank grid); the six forms it refused before (adaptive, A-weighted,
+    dG2, dG0, TVB, periodic) now take it on "pallas"."""
     card(monkeypatch)
     periodic = kwargs.pop("periodic", False)
-    mesh = RectMesh(256, 256, DX, DX, periodic_x=periodic, periodic_y=periodic)
-    model = CoupledModel(mesh, mevp_backend="pallas", **kwargs)
-    assert fd.form_refusal(model) is not None
+    kind = kwargs.pop("mesh", "uniform")
+    solver = kwargs.pop("solver", None)
+    mesh = {
+        "uniform": lambda: RectMesh(256, 256, DX, DX, periodic_x=periodic, periodic_y=periodic),
+        "graded": _graded_mesh,
+        "spherical": lambda: SphericalMesh(256, 256, -40.0, 40.0, 55.0, 85.0),
+    }[kind]()
+    loader = get_loader()
+    try:
+        if solver is not None:
+            loader.set_implementation("Nextsim::IDynamics", solver)
+        model = CoupledModel(mesh, mevp_backend="pallas", **kwargs)
+    finally:
+        loader.reset()
+    taken = expected[0] == "fused"
+    assert (fd.form_refusal(model) is None) == taken
+    assert fd.holds_model(model, H100_SMS) == taken
     assert model.schedule("cuda") == expected
 
 
@@ -178,8 +256,9 @@ def test_the_other_solvers_and_meshes_keep_their_schedules(monkeypatch):
     sphere = CoupledModel(SphericalMesh(256, 256, -40.0, 40.0, 55.0, 85.0), mevp_backend="pallas")
     assert sphere.schedule("cuda") == ("single", "tiled")
     rk3 = CoupledModel(RectMesh(256, 256, DX, DX), mevp_backend="pallas")
-    rk3.transport.scheme = "rk3"
-    assert rk3.schedule("cuda") == ("pallas", "xla")
+    rk3.transport.scheme = "rk3"  # any scheme at any degree: its stages at run time
+    assert rk3.schedule("cuda") == ("fused", "xla")
+    assert fd.form_of(rk3) == fd.Form(stages=3)
     loader = get_loader()
     try:
         for solver, expected in (("Nextsim::FreeDrift", "free-drift"), ("Nextsim::MEVPHighOrder", "single")):
@@ -194,9 +273,9 @@ def test_the_other_solvers_and_meshes_keep_their_schedules(monkeypatch):
 def test_an_explicit_request_the_kernel_does_not_hold_raises():
     """On any device: the wrapper refuses a form it lacks (and ``tiling`` a
     grid it cannot hold, above)."""
-    model = CoupledModel(RectMesh(N, N, DX, DX), n_subcycles=2, mevp_params=MEVPParams(adaptive_alpha=True))
+    model = CoupledModel(SphericalMesh(N, N, -40.0, 40.0, 55.0, 85.0), n_subcycles=2)
     _, consts, carry, tracers = phase_inputs(model)
-    with pytest.raises(ValueError, match="adaptive-alpha form is not built"):
+    with pytest.raises(ValueError, match="graded or spherical mesh"):
         fd.fused_dynamics_single(model, carry, tracers, consts, DT, 2)
 
 

@@ -275,29 +275,29 @@ def test_ho_staged_dynamics_phase_matches_plain(device, scheme):
 
 @pytest.mark.parametrize("scheme", ["rk1", "rk2", "rk3"])
 def test_fused_dynamics_matches_plain_and_counts_launches(device, scheme):
-    """``coupled_cuda.fused_dynamics``: one fused_dynamics launch at rk2;
-    the kernel lacks rk1 and rk3, which K1's split schedule runs."""
+    """``coupled_cuda.fused_dynamics``: one fused_dynamics launch at every
+    scheme (rk2 the headline's instance, rk1 and rk3 the forms' kernel with
+    the scheme's stages at run time), against the plain phase and K1's
+    split schedule (2N + 1 + stages x k launches, the same bodies)."""
     model, carry, consts, psi, _ = setup(device)
     model.transport.scheme = scheme
     ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100)
     cc.reset_launches()
-    if scheme == "rk2":
-        got_carry, got_tr = cc.fused_dynamics(model, carry, psi, consts, DT, 100)
-    else:
-        with pytest.raises(ValueError, match="not built"):
-            cc.fused_dynamics(model, carry, psi, consts, DT, 100)
-        got_carry, got_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, mevp="pallas", transport="xla")
+    got_carry, got_tr = cc.fused_dynamics(model, carry, psi, consts, DT, 100)
     counts = dict(cc.launches)
     for g, r in zip(got_carry, ref_carry):
         assert_close(g, r, 1e-3)
     assert_close(got_tr, ref_tr, 1e-5)
-    if scheme == "rk2":
-        assert counts["fused_dynamics"] == 1 and sum(counts.values()) == 1
-        return
-    stages = {"rk1": 1, "rk3": 3}[scheme]
-    assert counts["mevp_stress"] == counts["mevp_velocity"] == 100
-    assert counts["dg1_sample_cfl"] == 1
-    assert counts["dg1_rk_stage"] % stages == 0 and counts["dg1_rk_stage"] >= stages
+    assert counts["fused_dynamics"] == 1 and sum(counts.values()) == 1
+    cc.reset_launches()
+    split_carry, split_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, mevp="pallas", transport="xla")
+    stages = {"rk1": 1, "rk2": 2, "rk3": 3}[scheme]
+    assert cc.launches["mevp_stress"] == cc.launches["mevp_velocity"] == 100
+    assert cc.launches["dg1_sample_cfl"] == 1
+    assert cc.launches["dg1_rk_stage"] % stages == 0 and cc.launches["dg1_rk_stage"] >= stages
+    for g, s_ in zip(got_carry, split_carry):
+        assert_same_schedule(g, s_)
+    assert_same_schedule(got_tr, split_tr)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
@@ -2525,15 +2525,18 @@ def test_host_staged_process_exchange_matches_the_thread_grid(device):
 
 
 # -- K1 as one launch: fused_dynamics ---------------------------------------------
-def fused_setup(device, shape, masked: bool, auto: bool, dx: float = 250.0):
+def fused_setup(device, shape, masked: bool, auto: bool, dx: float = 250.0, periodic=(False, False),
+                **form):
     """(model, carry, consts, psi, faces) on seeded float32 inputs: 250 m
     elements, so that the relaxed velocity needs k > 1 substeps; a
-    coastline with ``masked``; with ``auto`` off k = 3."""
+    coastline with ``masked``; with ``auto`` off k = 3; ``periodic``: the
+    (x, y) axes; ``form``: the model's degree, tvb_m, mevp_params."""
     rng = np.random.default_rng(1)
     t = lambda a: torch.tensor(a, device=device, dtype=torch.float32)
     ocean = synthetic_coastline(*shape) if masked else None
-    model = CoupledModel(RectMesh(*shape, dx, dx), n_subcycles=100, ocean_mask=ocean,
-                         auto_substeps=auto, transport_substeps=1 if auto else 3)
+    mesh = RectMesh(*shape, dx, dx, periodic_x=periodic[0], periodic_y=periodic[1])
+    model = CoupledModel(mesh, n_subcycles=100, ocean_mask=ocean, auto_substeps=auto,
+                         transport_substeps=1 if auto else 3, **form)
     carry = tuple(t(rng.normal(0.0, s_, shape)) for s_ in (0.2, 0.2, 1e3, 1e3, 1e3))
     forcing = DynamicsForcing(
         u_atm=t(rng.normal(8.0, 2.0, shape)), v_atm=t(rng.normal(2.0, 2.0, shape)),
@@ -2542,7 +2545,8 @@ def fused_setup(device, shape, masked: bool, auto: bool, dx: float = 250.0):
     h, a = t(rng.uniform(0.2, 2.0, shape)), t(rng.uniform(0.3, 1.0, shape))
     mask = model.node_mask(device=device, dtype=torch.float32)
     consts = model.mevp.step_consts(VelocityState(*carry), h, a, forcing, mask, DT)
-    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (2, 3, *shape))]))
+    k = model.transport.basis.n_dofs
+    psi = t(np.concatenate([rng.uniform(0.1, 1.0, (1, 3, *shape)), rng.normal(0.0, 0.3, (k - 1, 3, *shape))]))
     return model, carry, consts, psi, model.face_masks(device=device, dtype=torch.float32)
 
 
@@ -2573,18 +2577,21 @@ def test_fused_dynamics_matches_plain_and_the_split_schedule(device, shape, mask
     assert k == (cc._k_of_speeds(model, speeds, DT) if auto else 3) and k > 1
 
 
-def test_fused_dynamics_k_arithmetic_equals_the_host_on_the_card(device):
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_fused_dynamics_k_arithmetic_equals_the_host_on_the_card(device, degree):
     """The kernel's device function for k against the host's count on
     float32 CPU tensors and the plain mirror, on speeds at every ceil
-    boundary up to k_max."""
+    boundary up to k_max, with each degree's c_stab."""
     mesh = RectMesh(256, 256, 2000.0, 2000.0)
-    speeds = fd.ceil_boundary_speeds(DT, mesh)
+    speeds = fd.ceil_boundary_speeds(DT, mesh, degree)
     for k_floor in (1, 3):
-        got = fd.substeps_on_card(torch.tensor(speeds, device=device), DT, mesh, k_floor=k_floor).cpu().numpy()
-        host = [int(substeps_from_speeds(torch.tensor(sx), torch.tensor(sy), DT, mesh, 1, k_floor=k_floor))
+        got = fd.substeps_on_card(torch.tensor(speeds, device=device), DT, mesh, degree,
+                                  k_floor=k_floor).cpu().numpy()
+        host = [int(substeps_from_speeds(torch.tensor(sx), torch.tensor(sy), DT, mesh, degree, k_floor=k_floor))
                 for sx, sy in speeds]
         np.testing.assert_array_equal(got, host)
-        np.testing.assert_array_equal(got, fd.substeps_plain(speeds[:, 0], speeds[:, 1], DT, mesh, k_floor=k_floor))
+        np.testing.assert_array_equal(
+            got, fd.substeps_plain(speeds[:, 0], speeds[:, 1], DT, mesh, degree, k_floor=k_floor))
 
 
 def test_fused_headline_steps_make_no_host_sync(device):
@@ -2619,7 +2626,83 @@ def test_fused_dynamics_refuses_what_it_does_not_hold(device):
     with pytest.raises(ValueError, match="does not fit"):
         fd.fused_dynamics_single(big, (zeros,) * 5, torch.zeros((3, 3, 1024, 1024), device=device), big_consts,
                                  DT, 10)
-    tvb = CoupledModel(RectMesh(64, 64, 250.0, 250.0), tvb_m=0.0)
-    with pytest.raises(ValueError, match="TVB"):
-        fd.fused_dynamics_single(tvb, carry, psi, consts, DT, 10, faces)
+    sphere = CoupledModel(SphericalMesh(64, 64, -40.0, 40.0, 55.0, 85.0))
+    with pytest.raises(ValueError, match="graded or spherical"):
+        fd.fused_dynamics_single(sphere, carry, psi, consts, DT, 10, faces)
     assert fd.max_blocks(device, fd.tiling(256, 256, cc.sm_count(device))) >= 128
+
+
+#: The forms of fused_dynamics beside the headline's (the forms' kernel):
+#: fused_setup's keywords.
+FUSED_FORMS = {
+    "periodic_x": dict(periodic=(True, False)),
+    "periodic_both": dict(periodic=(True, True)),
+    "a_weighted": dict(mevp_params=MEVPParams(a_weighted_stress=True)),
+    "adaptive": dict(mevp_params=MEVPParams(adaptive_alpha=True, alpha_min=20.0)),
+    "dg0": dict(degree=0),
+    "dg2": dict(degree=2),
+    "tvb_dg1": dict(tvb_m=0.0),
+    "tvb_dg2": dict(degree=2, tvb_m=0.0),
+    "every_form": dict(periodic=(True, True), degree=2, tvb_m=0.0,
+                       mevp_params=MEVPParams(a_weighted_stress=True, adaptive_alpha=True, alpha_min=20.0)),
+}
+
+
+@pytest.mark.parametrize("auto", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("form", list(FUSED_FORMS))
+def test_fused_dynamics_forms_match_plain_and_the_split_schedule(device, form, masked, auto):
+    """Each form in one launch against the plain phase (1e-3 on the mEVP
+    planes, 1e-5 on the tracers) and K1's split schedule in that form (the
+    same bodies: expected 0, failure above 1e-6); its speeds equal
+    dg1_sample_cfl's and its k the host's, k > 1 (3 with auto off)."""
+    model, carry, consts, psi, faces = fused_setup(device, (64, 64), masked, auto, **FUSED_FORMS[form])
+    assert not fd.form_of(model).headline and model.schedule(device) == ("fused", "xla")
+    cc.reset_launches()
+    got_carry, got_tr, info = fd.fused_dynamics_single(model, carry, psi, consts, DT, 100, faces)
+    torch.cuda.synchronize()
+    assert cc.launches["fused_dynamics"] == 1 and sum(cc.launches.values()) == 1
+    split_carry, split_tr = cc.dynamics_phase(model, carry, psi, consts, DT, 100, faces, mevp="pallas",
+                                              transport="xla")
+    ref_carry, ref_tr = cc.fused_dynamics_reference(model, carry, psi, consts, DT, 100, faces)
+    for g, s_, r in zip(got_carry, split_carry, ref_carry):
+        assert_same_schedule(g, s_)
+        assert_close(g, r, 1e-3)
+    assert_same_schedule(got_tr, split_tr)
+    assert_close(got_tr, ref_tr, 1e-5)
+    speeds = cc.dg1_sample_cfl(model.transport, split_carry[0], split_carry[1])
+    assert torch.equal(info[:2], speeds)
+    k = int(info[2])
+    assert k == (cc._k_of_speeds(model, speeds, DT) if auto else 3) and k > 1
+
+
+@pytest.mark.parametrize("form", list(FUSED_FORMS))
+def test_fused_dynamics_form_tilings_are_the_kernel_s(device, form):
+    """At 256^2 every form's shared bytes are the kernel's own count, and
+    all its tiles can be resident at once."""
+    model = fused_setup(device, (256, 256), True, True, **FUSED_FORMS[form])[0]
+    config = fd.tiling(256, 256, cc.sm_count(device), True, fd.form_of(model))
+    assert fd.shared_bytes_on_card(config) == config.shared_bytes
+    assert fd.max_blocks(device, config) >= config.n_tiles
+
+
+@pytest.mark.parametrize("form", ["every_form", "dg0", "tvb_dg1"])
+def test_fused_form_steps_make_no_host_sync(device, form):
+    """Warmed-up steps (dynamics only) of a form on "fused" under
+    torch.cuda.set_sync_debug_mode("error"): nothing on the step syncs."""
+    model, carry, _, psi, _ = fused_setup(device, (128, 128), True, True, dx=2000.0, **FUSED_FORMS[form])
+    assert model.schedule(device) == ("fused", "xla")
+    state = model.initial_state(hice0=1.0, cice0=0.9, hsnow0=0.05, device=device, dtype=torch.float32)
+    full = lambda value: torch.full((128, 128), value, device=device, dtype=torch.float32)
+    forcing = DynamicsForcing(u_atm=full(8.0), v_atm=full(2.0), u_ocean=full(0.02), v_ocean=full(0.0))
+    state = model.run(state, None, forcing, DT, 2, do_thermo=False)
+    torch.cuda.synchronize()
+    cc.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model.run(state, None, forcing, DT, 3, do_thermo=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cc.launches["fused_dynamics"] == 3 and cc.launches["mevp_stress"] == 0
+    assert bool(torch.isfinite(out.hice).all())

@@ -224,6 +224,11 @@ REPLACED = {
     "roofline.cu": "roofline.py::measure_vpu_peak",
     "fused_dynamics.cu": "coupled_pallas.py::fused_dynamics_pallas",
     "fused_dynamics_masked.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "fused_dynamics_dg0.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "fused_dynamics_dg1.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "fused_dynamics_dg1_tvb.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "fused_dynamics_dg2.cu": "coupled_pallas.py::fused_dynamics_pallas",
+    "fused_dynamics_dg2_tvb.cu": "coupled_pallas.py::fused_dynamics_pallas",
 }
 
 
